@@ -1,0 +1,637 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each; any failure raises and the script exits
+non-zero:
+
+1. build    -- compile the hand-written kernels from ``src/repro_torch/csrc``
+2. K1       -- the serving probe step against its plain PyTorch version
+               over 12 chained steps at B=8 and at the serving shape B=4
+               (f=960); timed at B=4
+3. K2       -- paged flash decode against its plain version, bf16, int8
+               and f32 pages, the serving shape and nb in {8, 256}; timed
+               beside scaled_dot_product_attention over the gathered pages
+4. model    -- full-width smollm-360m (bf16, random weights from a seed,
+               then the same weights in f32): prefill 16 tokens, 64
+               teacher-forced paged decode steps through K2 (every call
+               held against the plain version on its inputs) and through
+               the plain paged attention
+5. serve    -- ``repro_torch.launch.serve`` end to end on the card:
+               harvest, meta-train, calibrate, serve 8 requests on 4 slots
+6. trace    -- a profiler window over 16 engine steps of the same fleet:
+               the card's busy share and the kernels that take it
+7. kernels  -- one entry per kernel: launches in phase 5, error against
+               its plain version, kernel / plain / library / bound ms
+
+The line before the last is ``nvidia-smi``'s card name and power limit;
+the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
+result when there is no CUDA device or the package is missing.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
+# float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+SEED = 0
+# the card; a CPU rehearsal of the phases at a reduced size may set "cpu"
+DEV = "cuda"
+
+
+def sync(torch) -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def bound_ms(n_bytes: float, n_flops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+class Timer:
+    """Per-call CUDA-event timing of the device work, after a few warm-up
+    calls.  Before every call a 1 GiB buffer is zeroed: that flushes the
+    50 MB L2 (a served layer finds its pages cold) and keeps the card busy
+    for about 0.3 ms while the host enqueues the call, so the events time
+    the kernels and not the host's Python in front of them."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(2 ** 30, dtype=torch.uint8, device=DEV)
+
+    def __call__(self, fn, reps: int = 30, warmup: int = 3) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        pairs = []
+        for _ in range(reps):
+            self.flush.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        sync(torch)
+        return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+# ---------------------------------------------------------------------------
+# phase 2: K1
+
+def probe_state(torch, gen, B, f, win):
+    """Slots spread over scores far from lambda* = 0.6: a few climb past it
+    after the burn-in (a stop inside the run), the others stay below."""
+    dev = DEV
+    W = (torch.randn(B, f, generator=gen) / f ** 0.5).to(dev)
+    b = torch.linspace(-3.0, 4.0, B).to(dev)
+    ring = torch.zeros(B, win, device=dev)
+    n = torch.zeros(B, dtype=torch.int32, device=dev)
+    stopped = torch.zeros(B, dtype=torch.bool, device=dev)
+    stopped[1] = True                      # a slot parked from the start
+    stop_step = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    return [W, b, ring, n, stopped, stop_step]
+
+
+def k1_chain(torch, K1, gen, B, f, win, steps, eta, lam, burn_in):
+    """K1 and its plain version over ``steps`` chained steps from the same
+    state, with mixed boundaries and a stop inside the run.  Returns the
+    largest differences of s, W, b and smoothed, the smallest distance of a
+    smoothed score from lambda*, and the stop steps."""
+    zs = [(torch.randn(B, f, generator=gen) / f ** 0.5).to(DEV)
+          for _ in range(2 * steps)]
+    bnd = (torch.rand(steps, B, generator=gen) < 0.7).to(DEV)
+    bnd[:, 0] = True
+    kern = probe_state(torch, gen, B, f, win)
+    plain = [t.clone() for t in kern]
+    err = {"s": 0.0, "W": 0.0, "b": 0.0, "smoothed": 0.0}
+    margin = float("inf")
+    for t in range(steps):
+        zq, zk = zs[2 * t], zs[2 * t + 1]
+        ko = K1.serving_probe_step(zq, zk, bnd[t], *kern, eta, lam,
+                                   burn_in=burn_in)
+        po = K1.serving_probe_step_plain(zq, zk, bnd[t], *plain, eta, lam,
+                                         burn_in=burn_in)
+        sync(torch)
+        for name in ("n_scores", "stopped", "stop_step"):
+            a, b_ = getattr(ko, name), getattr(po, name)
+            if not torch.equal(a, b_):
+                raise AssertionError(f"K1 B={B} step {t}: {name} differs: "
+                                     f"{a.tolist()} vs {b_.tolist()}")
+        for name in err:
+            err[name] = max(err[name], float(
+                (getattr(ko, name) - getattr(po, name)).abs().max()))
+        scored = po.n_scores > 0
+        if scored.any():
+            margin = min(margin, float((po.smoothed[scored] - lam).abs()
+                                       .min()))
+    if margin < 1e-3:
+        raise AssertionError(f"K1 B={B}: inputs came within {margin} of "
+                             "lambda*")
+    if int(kern[5].max()) < 0:
+        raise AssertionError(f"K1 B={B}: no slot stopped")
+    tol = 1e-5      # f32, another reduction order than the plain version
+    if max(err.values()) > tol:
+        raise AssertionError(f"K1 B={B} off its plain version: {err}")
+    return err, margin, kern[5].tolist()
+
+
+def phase_k1(torch, timer):
+    from repro_torch.kernels import probe_step as K1
+    gen = torch.Generator().manual_seed(SEED)
+    f, win, steps = 960, 4, 12
+    eta, lam, burn_in = 0.05, 0.6, 2
+    # the 12-step chain at B = 8 and at the serving shape, B = 4 slots
+    chains = {}
+    for B in (8, 4):
+        err, margin, stops = k1_chain(torch, K1, gen, B, f, win, steps, eta,
+                                      lam, burn_in)
+        chains[B] = dict(max_abs_err=err, lambda_margin=margin,
+                         stopped_at=stops)
+
+    # timing at the serving shape, every slot at a boundary.  lambda* above
+    # 1 is out of reach of any smoothed score, so no slot stops and every
+    # timed call updates every slot's W, b and ring (a stopped slot would
+    # skip them) -- the work the bound below counts
+    Bs, lam_t = 4, 1.5
+    zq = (torch.randn(Bs, f, generator=gen) / f ** 0.5).to(DEV)
+    zk = (torch.randn(Bs, f, generator=gen) / f ** 0.5).to(DEV)
+    bnd_all = torch.ones(Bs, dtype=torch.bool, device=DEV)
+    st = probe_state(torch, gen, Bs, f, win)
+    st[4].zero_()
+    ms = timer(lambda: K1.serving_probe_step(zq, zk, bnd_all, *st, eta,
+                                             lam_t, burn_in=burn_in),
+               reps=200)
+    plain_ms = timer(lambda: K1.serving_probe_step_plain(
+        zq, zk, bnd_all, *st, eta, lam_t, burn_in=burn_in), reps=200)
+    if bool(st[4].any()):
+        raise AssertionError("K1 timing: a slot stopped")
+    # read zq, zk, boundary and the whole state once; write W, b, ring,
+    # n_scores and stopped (stop_step is untouched without a stop) and the
+    # two outputs (s, smoothed); ~7 f32 operations per feature (two dots,
+    # the update)
+    W, b, ring, n, stopped, stop_step = st
+    moved = (nbytes(zq, zk, bnd_all, *st) + nbytes(W, b, ring, n, stopped)
+             + 2 * 4 * Bs)
+    bms, by = bound_ms(moved, 7 * Bs * f)
+    err = {k: max(c["max_abs_err"][k] for c in chains.values())
+           for k in chains[8]["max_abs_err"]}
+    res = dict(phase="k1", steps=steps, f=f, window=win,
+               chains={str(B): c for B, c in chains.items()},
+               max_abs_err=err, timed_shape=dict(B=Bs, f=f, window=win,
+                                                 lam=lam_t),
+               ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               bytes=moved, library_ms=None)
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 3: K2
+
+def paged_case(torch, gen, B, nb, dtype, H=15, KV=5, d=64, bs=16):
+    """A pool of B*nb+1 pages (page 0 NULL), shuffled tables, partly valid
+    rows (ragged tails; one row behind a NULL entry)."""
+    P = B * nb + 1
+    q = torch.randn(B, H, d, generator=gen).to(DEV)
+    if dtype == "int8":
+        k = torch.randint(-127, 128, (P, KV, bs, d), generator=gen,
+                          dtype=torch.int8).to(DEV)
+        v = torch.randint(-127, 128, (P, KV, bs, d), generator=gen,
+                          dtype=torch.int8).to(DEV)
+        ks = (torch.rand(P, KV, bs, 1, generator=gen) * 0.02 + 1e-3).to(DEV)
+        vs = (torch.rand(P, KV, bs, 1, generator=gen) * 0.02 + 1e-3).to(DEV)
+    else:
+        dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+        k = torch.randn(P, KV, bs, d, generator=gen).to(dt).to(DEV)
+        v = torch.randn(P, KV, bs, d, generator=gen).to(dt).to(DEV)
+        ks = vs = None
+    tables = (1 + torch.randperm(B * nb, generator=gen)).reshape(B, nb)
+    lens = torch.randint(1, nb * bs + 1, (B,), generator=gen)
+    lens[0] = nb * bs
+    valid = torch.arange(nb * bs)[None, :] < lens[:, None]
+    if B > 2 and nb > 1:
+        tables[2, 0] = 0                    # NULL entry, masked off
+        valid[2, :bs] = False
+    return (q, k, v, tables.to(torch.int32).to(DEV), valid.to(DEV), ks, vs)
+
+
+# bf16 / int8 inputs upcast exactly; f32 accumulation in another order
+# (per-warp online softmax, then a cross-warp merge) than the plain one-shot
+# softmax: m to 1e-4, normalised output to 2e-3
+K2_M_TOL, K2_OUT_TOL = 1e-4, 2e-3
+
+
+def partial_errors(kern, plain, valid, m_relative=False):
+    """Largest m and normalised-output differences between two (o, l, m)
+    partials, over the rows with a valid position.  ``m_relative`` divides
+    each m difference by max(1, |m|): f32 rounding of a score grows with
+    the score, and a random-weight model's scores reach tens."""
+    (o, l, m), (po, pl_, pm) = kern, plain
+    live = valid.any(1)
+    dm = (m - pm)[live].abs()
+    if m_relative:
+        dm = dm / pm[live].abs().clamp_min(1.0)
+    out = (o / l.clamp_min(1e-30)[..., None])[live]
+    pout = (po / pl_.clamp_min(1e-30)[..., None])[live]
+    return float(dm.max()), float((out - pout).abs().max())
+
+
+def phase_k2(torch, timer):
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_decode as K2
+    gen = torch.Generator().manual_seed(SEED + 1)
+    # (B, nb, dtype): the serving shape of phase 5 first (4 slots, 7 pages
+    # of 16 for 16 + 96 positions), then the wider cases; f32 pages (the
+    # float32 model of phase 4) at the serving shape
+    cases = [(4, 7, "bf16"), (8, 8, "bf16"), (8, 256, "bf16"),
+             (8, 8, "int8"), (8, 256, "int8"), (4, 7, "f32")]
+    rows = []
+    for B, nb, dtype in cases:
+        q, k, v, tables, valid, ks, vs = paged_case(torch, gen, B, nb, dtype)
+        o, l, m = K2.paged_flash_decode(q, k, v, tables, valid, ks, vs,
+                                        return_partials=True)
+        po, pl_, pm = K2.paged_decode_plain(q, k, v, tables, valid, ks, vs,
+                                            return_partials=True)
+        m_err, o_err = partial_errors((o, l, m), (po, pl_, pm), valid)
+        if not (m_err <= K2_M_TOL and o_err <= K2_OUT_TOL):
+            raise AssertionError(f"K2 {B}x{nb} {dtype}: m err {m_err}, "
+                                 f"output err {o_err}")
+        ms = timer(lambda: K2.paged_flash_decode(
+            q, k, v, tables, valid, ks, vs, return_partials=True))
+        plain_ms = timer(lambda: K2.paged_decode_plain(
+            q, k, v, tables, valid, ks, vs, return_partials=True))
+        # yardstick: SDPA over the pages gathered (outside the timing) into
+        # per-row caches, KV heads repeated to the query heads; bf16, or
+        # f32 for f32 pages
+        H, KV, d = q.shape[1], k.shape[1], q.shape[2]
+        lib_dt = torch.float32 if dtype == "f32" else torch.bfloat16
+        kg = K2._gather(k, ks, tables).to(lib_dt)
+        vg = K2._gather(v, vs, tables).to(lib_dt)
+        kg = kg.repeat_interleave(H // KV, dim=1)
+        vg = vg.repeat_interleave(H // KV, dim=1)
+        qg = q.to(lib_dt)[:, :, None, :]
+        mask = valid[:, None, None, :]
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=mask))
+        # bytes this data needs: K and V (and int8 scales) of the valid
+        # positions, q, tables, valid, and the (o, l, m) written
+        n_valid = int(valid.sum())
+        per_pos = KV * d * k.element_size() * 2
+        if ks is not None:
+            per_pos += KV * 4 * 2
+        moved = (n_valid * per_pos + nbytes(q, tables, valid)
+                 + nbytes(o, l, m))
+        # per valid position and query head: q.k and p.v (2 d each) + softmax
+        bms, by = bound_ms(moved, n_valid * H * (4 * d + 4))
+        row = dict(B=B, nb=nb, pages=dtype, H=H, KV=KV, d=d, bs=16,
+                   valid_positions=n_valid, m_err=m_err, out_err=o_err,
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bms, bound_by=by, bytes=moved)
+        emit(dict(phase="k2", **row))
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: full-width model, teacher-forced
+
+def _pages_reversed(K2):
+    """The plain paged attention with each row's pages in reverse order:
+    the same softmax over the same positions, summed in another order."""
+    def fn(q, k, v, tables, valid, ks=None, vs=None, *,
+           return_partials=False):
+        b, nb = tables.shape
+        valid = valid.reshape(b, nb, -1).flip(1).reshape(b, -1)
+        return K2.paged_decode_plain(q, k, v, tables.flip(1), valid, ks, vs,
+                                     return_partials=return_partials)
+    return fn
+
+
+class CheckedK2:
+    """K2 on the inputs the model gives it, each call held against the
+    plain version on the same inputs with phase k2's tolerances (m relative
+    to max(1, |m|)): a dropped page or a wrong scale fails on the call that
+    makes it."""
+
+    def __init__(self, K2):
+        self.K2 = K2
+        self.calls, self.m_err, self.out_err = 0, 0.0, 0.0
+
+    def __call__(self, q, k, v, tables, valid, ks=None, vs=None, *,
+                 return_partials=False):
+        assert return_partials, "the model folds in the current token"
+        got = self.K2.paged_flash_decode(q, k, v, tables, valid, ks, vs,
+                                         return_partials=True)
+        want = self.K2.paged_decode_plain(q, k, v, tables, valid, ks, vs,
+                                          return_partials=True)
+        m_err, o_err = partial_errors(got, want, valid, m_relative=True)
+        if not (m_err <= K2_M_TOL and o_err <= K2_OUT_TOL):
+            raise AssertionError(f"K2 in the model, call {self.calls}: "
+                                 f"relative m err {m_err}, output err "
+                                 f"{o_err}")
+        self.calls += 1
+        self.m_err = max(self.m_err, m_err)
+        self.out_err = max(self.out_err, o_err)
+        return got
+
+
+def teacher_forced(torch, model, params, prompt, feed, impls, bs=16):
+    """Prefill once, copy the prompt K/V into one page pool per paged
+    attention implementation, then decode the same fed tokens through each
+    (the model's ``paged_flash_decode`` swapped for it).  Returns the max
+    |logit - logit of impls[0]| per step for each other impl, and the
+    largest |logit|."""
+    from repro_torch.models import attention as A
+    cfg = model.cfg
+    B, S = prompt.shape
+    steps = feed.shape[0]
+    nb = -(-(S + steps) // bs)
+    pre, _, _ = model.prefill(cfg, params, {"tokens": prompt}, nb * bs)
+    table = (1 + torch.arange(B * nb)).reshape(B, nb).to(torch.int32).to(DEV)
+    states = []
+    for _ in impls:
+        st = model.init_paged_state(B, B * nb + 1, bs, nb, device=DEV)
+        pages = {k: v for k, v in st.items() if k != "block_tables"}
+        for i in range(B):
+            A.prefill_to_pages(pages, {k: v[:, i:i + 1] for k, v in
+                                       pre.items()}, table[i], -(-S // bs))
+        st["block_tables"].copy_(table)
+        states.append(st)
+    diffs = [[] for _ in impls[1:]]
+    scale = 0.0
+    served = A.paged_flash_decode
+    try:
+        for t in range(steps):
+            pos = torch.full((B,), S + t, dtype=torch.int32, device=DEV)
+            logits = []
+            for impl, st in zip(impls, states):
+                A.paged_flash_decode = impl
+                lg, _, _ = model.decode_step(cfg, params, feed[t], st, pos)
+                lg = lg[:, :cfg.vocab_size].float()
+                if not torch.isfinite(lg).all():
+                    raise AssertionError(f"non-finite logits at step {t}")
+                logits.append(lg)
+            scale = max(scale, float(logits[0].abs().max()))
+            for d, lg in zip(diffs, logits[1:]):
+                d.append(float((lg - logits[0]).abs().max()))
+    finally:
+        A.paged_flash_decode = served
+    return diffs, scale
+
+
+def phase_model(torch, reduced: bool = False):
+    """Full-width smollm-360m, teacher-forced: K2 against the plain paged
+    attention, in bf16 (as served) and with the same weights in float32.
+    Every K2 call is also held against the plain version on its own
+    inputs (``CheckedK2``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_decode as K2
+    from repro_torch.models import build
+    cfg = get_config("smollm-360m")
+    if reduced:
+        cfg = cfg.reduced()
+    model = build(cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    params = model.init(gen, DEV)
+    n_params = sum(t.numel() for t in _leaves(params))
+    B, S, steps = 4, 16, 64
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           dtype=torch.int32).to(DEV)
+    feed = torch.randint(0, cfg.vocab_size, (steps, B), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    plain = K2.paged_decode_plain
+    checked = CheckedK2(K2)
+    (k2, floor), scale = teacher_forced(
+        torch, model, params, prompt, feed,
+        [plain, checked, _pages_reversed(K2)])
+    # bf16 logits: K2 and the page-reversed plain version are both
+    # reorderings of the same f32 sums.  The bf16 cast of each attention
+    # output turns such a reordering into one-ulp flips, which a
+    # random-weight 32-layer stack amplifies on the way to the logits.  So
+    # at step t the logits of K2 are held to 8x the largest difference the
+    # reversed version has shown up to step t, plus one bf16 ulp of the
+    # largest logit: within one ulp until the reordering first flips
+    # anything.  The kernel itself is held per call by CheckedK2 above.
+    ulp = scale * 2.0 ** -8
+    bound = [8 * max(floor[:t + 1]) + ulp for t in range(steps)]
+    over = [t for t in range(steps) if k2[t] > bound[t]]
+    if over:
+        t = over[0]
+        raise AssertionError(f"bf16 step {t}: K2 vs plain paged logits "
+                             f"{k2[t]} > {bound[t]} (reordering spread "
+                             f"{max(floor[:t + 1])})")
+    # float32, the same weights: no bf16 cast between layers, so the two
+    # orders differ by f32 rounding (~1e-7) times the same amplification
+    # (~20x, from 2^-8 to ~8% in bf16); 2^-10 of the largest logit leaves
+    # two orders of magnitude of room
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                kv_cache_dtype="float32")
+    params32 = _tree(params, lambda t: t.float())
+    checked32 = CheckedK2(K2)
+    (k2_32,), scale32 = teacher_forced(torch, build(cfg32), params32,
+                                       prompt, feed, [plain, checked32])
+    bound32 = scale32 * 2.0 ** -10
+    if max(k2_32) > bound32:
+        raise AssertionError(f"f32: K2 vs plain paged logits {max(k2_32)} "
+                             f"> {bound32}")
+    res = dict(phase="model", arch=cfg.name, layers=cfg.n_layers,
+               d_model=cfg.d_model, heads=cfg.n_heads,
+               kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, d_ff=cfg.d_ff,
+               vocab=cfg.vocab_size, params=n_params, dtype=cfg.dtype,
+               batch=B, prompt=S, decode_steps=steps,
+               bf16=dict(k2_calls=checked.calls,
+                         k2_m_rel_err=checked.m_err,
+                         k2_out_err=checked.out_err,
+                         max_logit_diff_per_step=k2,
+                         reversed_plain_diff_per_step=floor,
+                         max_abs_logit=scale, bound_per_step=bound),
+               f32=dict(k2_calls=checked32.calls,
+                        k2_m_rel_err=checked32.m_err,
+                        k2_out_err=checked32.out_err,
+                        max_logit_diff_per_step=k2_32,
+                        max_abs_logit=scale32, bound=bound32))
+    emit(res)
+    return res
+
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the serving driver on the card
+
+def phase_serve(torch, extra_argv=()):
+    from repro_torch.kernels import paged_decode as K2
+    from repro_torch.kernels import probe_step as K1
+    from repro_torch.launch import serve
+    argv = ["--arch", "smollm-360m", "--paged", "--requests", "8",
+            "--slots", "4", "--max-new-tokens", "96", "--seed", str(SEED),
+            *extra_argv]
+    K1.serving_probe_step.launches = 0
+    K2.paged_flash_decode.launches = 0
+    t0 = time.perf_counter()
+    out = serve.serve(argv)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    launches = {"serving_probe_step": K1.serving_probe_step.launches,
+                "paged_flash_decode": K2.paged_flash_decode.launches}
+    states = [r.state.value for r in out.requests]
+    if len(states) != 8 or not set(states) <= {"stopped", "finished"}:
+        raise AssertionError(f"requests did not all end: {states}")
+    pool = out.scheduler.pool
+    pool.check()
+    if pool.blocks_in_use:
+        raise AssertionError(f"{pool.blocks_in_use} pages still in use")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel never ran on the main path: "
+                             f"{launches}")
+    fleet = out.fleet
+    res = dict(phase="serve", argv=argv, lam=out.lam, states=states,
+               stop_steps=[r.stop_step for r in out.requests],
+               tokens=[len(r.tokens) for r in out.requests],
+               engine_steps=fleet.engine_steps,
+               requests_per_s=fleet.requests_per_s,
+               tokens_per_s=fleet.tokens_per_s,
+               serve_wall_s=fleet.wall_time_s, driver_wall_s=wall,
+               launches=launches)
+    emit(res)
+    return res, out.scheduler
+
+
+def phase_trace(torch, sched, steps: int = 16):
+    """A profiler window over ``steps`` engine steps of the served fleet,
+    refilled with fresh requests: the card's busy share of the window's
+    wall time and the kernels that take it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import make_request
+    gen = torch.Generator().manual_seed(SEED + 2)
+    vocab = sched.model.cfg.vocab_size
+    prompts = torch.randint(0, vocab, (sched.n_slots, 16), generator=gen,
+                            dtype=torch.int32)
+    sched.submit([make_request(t.numpy(), max_new_tokens=3 * steps)
+                  for t in prompts])
+    for _ in range(4):                      # admission, then warm steps
+        sched.step()
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            sched.step()
+        sync(torch)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    while sched.step():
+        pass
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only: an operator's row on the host also
+        # carries the device time of the kernels it launched
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    res = dict(phase="trace", steps=steps, wall_ms_per_step=wall_us / steps
+               / 1e3, device_busy_ms_per_step=busy_us / steps / 1e3,
+               device_busy_share=busy_us / wall_us if busy_us else None,
+               kernels_per_step=sum(r[2] for r in rows) / steps,
+               top=[dict(kernel=k[:90], ms_per_step=us / steps / 1e3,
+                         calls_per_step=c / steps)
+                    for us, k, c in rows[:8]])
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build      # needs the repo's src/
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    lib = _build.build()
+    build_s = time.perf_counter() - t0
+    log = (lib.parent / "build.log").read_text()
+    emit(dict(phase="build", seconds=build_s, library=os.path.relpath(
+        lib, ROOT), ptxas=[ln.strip() for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln]))
+    _build.library()
+    timer = Timer(torch)
+    k1 = phase_k1(torch, timer)
+    k2 = phase_k2(torch, timer)
+    model = phase_model(torch)
+    served, sched = phase_serve(torch)
+    phase_trace(torch, sched)
+    k2_main = k2[0]
+    # absolute errors: phase k2's m and outputs, the model's outputs
+    k2_err = max([max(r["m_err"], r["out_err"]) for r in k2]
+                 + [model[p]["k2_out_err"] for p in ("bf16", "f32")])
+    emit({"kernels": [
+        dict(name="serving_probe_step", route="cuda",
+             source="src/repro_torch/csrc/probe_step.cu",
+             replaces="src/repro/kernels/ttt_probe.py:368",
+             launches=served["launches"]["serving_probe_step"],
+             max_abs_err=max(k1["max_abs_err"].values()), ms=k1["ms"],
+             plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             bound_by=k1["bound_by"], library_ms=None),
+        dict(name="paged_flash_decode", route="cuda",
+             source="src/repro_torch/csrc/paged_decode.cu",
+             replaces="src/repro/kernels/decode_attention.py:231",
+             launches=served["launches"]["paged_flash_decode"],
+             max_abs_err=k2_err, ms=k2_main["ms"],
+             plain_ms=k2_main["plain_ms"], bound_ms=k2_main["bound_ms"],
+             bound_by=k2_main["bound_by"],
+             library_ms=k2_main["library_ms"]),
+    ]})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    print(smi[0], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,71 @@
+"""repro_torch.api — the ORCA facade: fit -> calibrate -> engine.
+
+    from repro_torch import api as orca
+
+    cal   = orca.fit(train, mode="consistent", method="ttt", epochs=10,
+                     device="cuda")
+    lam   = orca.calibrated_lambda(cal, cal_split, delta=0.2)
+    cfg   = orca.ServeConfig(n_slots=4, paged=True, lam=lam)
+    sched = orca.engine(model, params, cal, config=cfg)
+    done, fleet = sched.run(requests)
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+from repro_torch.core.calibrator import (Calibrator, TTTCalibrator,
+                                         make_calibrator)
+from repro_torch.serving.config import ServeConfig
+from repro_torch.serving.scheduler import OrcaScheduler
+from repro_torch.trajectories import TrajectorySet
+
+__all__ = ["Calibrator", "ServeConfig", "TTTCalibrator", "calibrated_lambda",
+           "engine", "fit", "make_calibrator"]
+
+
+def fit(train: TrajectorySet, mode: str = "supervised",
+        method: str = "ttt", **kwargs) -> Calibrator:
+    """Train a calibrator on ``train``; ``kwargs`` go to its constructor
+    (e.g. ``epochs=25, seed=1, pc=ProbeConfig(...), device="cuda"``)."""
+    return make_calibrator(method, **kwargs).fit(train, mode)
+
+
+def calibrated_lambda(calibrator: Calibrator, cal: TrajectorySet,
+                      delta: float, *, eps: float = 0.05,
+                      fallback: float = math.inf) -> float:
+    """``calibrate()`` with ONE policy for "LTT selected nothing": the
+    honest default keeps lambda* = inf (never stop early); demos on tiny
+    random-weight models may pass ``fallback=0.99``."""
+    lam = calibrator.calibrate(cal, delta, eps)
+    if not math.isfinite(lam):
+        return float(fallback)
+    return lam
+
+
+def _resolve_lam(calibrator: Calibrator, lam: Optional[float]) -> float:
+    """Explicit lam wins, else the calibrator's LTT threshold; a
+    non-finite lambda* serves with stopping disabled — sigmoid scores
+    <= 1 never cross 2.0."""
+    if lam is None:
+        lam = calibrator.threshold()
+    lam = float(lam)
+    if not math.isfinite(lam):
+        lam = 2.0
+    return lam
+
+
+def engine(model, params, calibrator: Calibrator,
+           config: Optional[ServeConfig] = None, *,
+           lam: Optional[float] = None) -> OrcaScheduler:
+    """Build a continuous-batching ``OrcaScheduler`` serving the calibrated
+    procedure on the device of ``params``.  The threshold comes from
+    ``config.lam`` unless ``lam=`` overrides it; with no config, the
+    calibrator's LTT ``threshold()``."""
+    if config is None:
+        config = ServeConfig(lam=_resolve_lam(calibrator, lam))
+    elif lam is not None:
+        config = dataclasses.replace(config, lam=float(lam))
+    pc, theta = calibrator.serving_params()
+    return OrcaScheduler(model, params, pc, theta, config)

@@ -1,0 +1,153 @@
+"""Serving driver: a request queue through the continuous-batching ORCA
+scheduler, on the card by default.
+
+    python -m repro_torch.launch.serve --arch smollm-360m --paged \
+        --requests 8 --slots 4 --max-new-tokens 96
+
+harvests step embeddings from THIS model (random weights from ``--seed``),
+meta-trains the TTT probe, LTT-calibrates lambda* at ``--delta`` and serves
+the queue: every ORCA stop evicts its slot, which is refilled from the
+queue on the next step.  ``--device cpu`` runs the plain PyTorch versions
+of the kernels (use ``--reduced`` there).
+"""
+from __future__ import annotations
+
+import argparse
+from typing import List, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import api as orca
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.core.labels import consistent_labels
+from repro_torch.core.probe import ProbeConfig
+from repro_torch.models import build
+from repro_torch.serving import (ServeConfig, extract_trajectories,
+                                 make_request)
+from repro_torch.trajectories.synthetic import (TrajectoryDistribution,
+                                                TrajectorySet)
+
+
+def model_inputs(cfg, generator: torch.Generator, n: int, prompt_len: int):
+    """Random prompt tokens, host-side: {"tokens": (n, prompt_len) int32}."""
+    toks = torch.randint(0, cfg.vocab_size, (n, prompt_len),
+                         generator=generator, dtype=torch.int32)
+    return {"tokens": toks.numpy()}
+
+
+def trajectories_from_model(model, params, n: int, prompt_len: int,
+                            max_new: int, tokens_per_step: int, seed: int
+                            ) -> TrajectorySet:
+    """Harvest step embeddings + self-consistency answers from the model."""
+    batch = model_inputs(model.cfg, torch.Generator().manual_seed(seed), n,
+                         prompt_len)
+    phis, toks = extract_trajectories(model, params, batch, prompt_len,
+                                      max_new, tokens_per_step)
+    n_steps = phis.shape[1]
+    # "answer" proxy per step: the last token of the step
+    answers = toks[:, tokens_per_step - 1::tokens_per_step][:, :n_steps]
+    mask = np.ones((n, n_steps), bool)
+    labels = consistent_labels(answers, mask)
+    tau = np.argmax(labels > 0.5, axis=1)
+    tau = np.where(labels.max(1) > 0.5, tau, n_steps)
+    return TrajectorySet(phis=phis.astype(np.float32), mask=mask,
+                         correct=labels > 0.5, answers=answers, tau=tau,
+                         lengths=np.full(n, n_steps),
+                         dist=TrajectoryDistribution("model"))
+
+
+class ServeResult(NamedTuple):
+    """What one driver run served: every request, the fleet metrics, the
+    scheduler (its engine and page pool) and the calibrated lambda*."""
+    requests: List
+    fleet: object
+    scheduler: object
+    lam: float
+
+
+def serve(argv=None) -> ServeResult:
+    """Parse the flags, harvest, fit, calibrate and serve; print the
+    per-request lifecycle and the fleet line; return what was served."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; cpu runs the plain "
+                         "PyTorch versions of the kernels")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new-tokens", type=int, default=96)
+    ap.add_argument("--tokens-per-step", type=int, default=8)
+    ap.add_argument("--train-trajectories", type=int, default=24)
+    ap.add_argument("--delta", type=float, default=0.2)
+    ap.add_argument("--epochs", type=int, default=10)
+    ap.add_argument("--burn-in", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paged", action="store_true",
+                    help="serve from the paged KV cache (block-pool "
+                         "admission, prefix sharing, eviction reclaims "
+                         "pages)")
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--num-blocks", type=int, default=0,
+                    help="pool size (0 -> dense-equivalent)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(args.seed), device)
+    print(f"[serve] {cfg.name} on {device}: harvesting "
+          f"{args.train_trajectories} calibration trajectories from the model")
+    ts = trajectories_from_model(model, params, args.train_trajectories,
+                                 args.prompt_len, args.max_new_tokens,
+                                 args.tokens_per_step, args.seed)
+    half = len(ts) // 2
+    train, cal = ts.subset(np.arange(half)), ts.subset(np.arange(half, len(ts)))
+    calib = orca.fit(train, mode="consistent", method="ttt",
+                     pc=ProbeConfig(d_phi=cfg.d_model, smooth_window=4),
+                     epochs=args.epochs, epoch_select=False, seed=args.seed,
+                     device=str(device))
+    # demo fallback keeps eviction observable on random-weight models
+    lam = orca.calibrated_lambda(calib, cal, args.delta, fallback=0.99)
+    print(f"[serve] LTT-calibrated lambda* = {lam:.3f}")
+
+    serve_cfg = ServeConfig.from_args(args, lam=float(lam))
+    sched = orca.engine(model, params, calib, config=serve_cfg)
+    batch = model_inputs(cfg, torch.Generator().manual_seed(args.seed + 1),
+                         args.requests, args.prompt_len)
+    reqs = [make_request(batch["tokens"][i]) for i in range(args.requests)]
+    done, fleet = sched.run(reqs)
+    for r in done:
+        print(f"[serve]   req {r.req_id}: {r.state.value:8s} "
+              f"admitted@{r.admitted_step:3d} done@{r.completed_step:3d} "
+              f"stop_step={r.stop_step:3d} tokens={len(r.tokens)}")
+    print(f"[serve] fleet: {fleet.n_requests} requests / {fleet.n_slots} "
+          f"slots in {fleet.engine_steps} engine steps "
+          f"({fleet.wall_time_s:.2f}s) — {fleet.requests_per_s:.2f} req/s, "
+          f"{fleet.tokens_per_s:.1f} tok/s, slot utilization "
+          f"{fleet.slot_utilization:.2f}, mean step savings "
+          f"{fleet.mean_step_savings:.3f}")
+    if args.paged:
+        print(f"[serve] pool: {fleet.pool_blocks} pages "
+              f"(x{args.block_size} tokens), peak in use "
+              f"{fleet.peak_blocks_in_use}, prefill skips "
+              f"{fleet.prefill_skips}")
+    print(f"[serve] latency: ttft p50/p99 {fleet.ttft_ms_p50:.1f}/"
+          f"{fleet.ttft_ms_p99:.1f} ms, step stall p50/p99 "
+          f"{fleet.stall_ms_p50:.1f}/{fleet.stall_ms_p99:.1f} ms "
+          "(admission-time prefill)")
+    return ServeResult(done, fleet, sched, float(lam))
+
+
+def main(argv=None) -> int:
+    serve(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,137 @@
+"""Shared model building blocks (PyTorch, plain functions on tensors).
+
+Parameters are declared once as ``Param`` leaves (shape + initializer) in a
+nested dict with the JAX package's names and layouts — stacked layer leaves
+keep their leading ``L`` axis — and ``init_params`` instantiates them from a
+``torch.Generator``.  Parameters are stored in the model's compute dtype
+(``cfg.dtype``): the JAX package keeps float32 leaves and casts each one to
+the compute dtype at use, which rounds to the same values.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "int8": torch.int8}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def cdtype(cfg) -> torch.dtype:
+    return torch_dtype(cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Param declarations
+
+
+@dataclasses.dataclass(frozen=True)
+class Param:
+    shape: Tuple[int, ...]
+    init: str = "normal"                  # normal | zeros | ones | embed
+    scale: float = 1.0
+
+
+def stack_decls(decls, n: int):
+    """Add a leading stacked-layer dim to every declaration."""
+    if isinstance(decls, Param):
+        return dataclasses.replace(decls, shape=(n,) + decls.shape)
+    return {k: stack_decls(v, n) for k, v in decls.items()}
+
+
+def _leaf_init(p: Param, gen: Optional[torch.Generator]) -> torch.Tensor:
+    if p.init == "zeros":
+        return torch.zeros(p.shape)
+    if p.init == "ones":
+        return torch.ones(p.shape)
+    x = torch.randn(p.shape, generator=gen, dtype=torch.float32)
+    if p.init == "normal":
+        # the JAX package's fan-in rule, read from the leaf's FIRST axis
+        # (the stacked-layer axis for per-layer matrices)
+        fan_in = p.shape[0] if len(p.shape) >= 2 else max(p.shape[-1], 1)
+        return x * (p.scale / math.sqrt(fan_in))
+    if p.init == "embed":
+        return x * (0.02 * p.scale)
+    raise ValueError(p.init)
+
+
+def init_params(decls, generator: Optional[torch.Generator] = None,
+                dtype: torch.dtype = torch.float32, device="cpu"):
+    """Instantiate a decl tree: same distributions as the JAX package's
+    ``init_params``, drawn from ``generator`` (so not the same numbers)."""
+    if isinstance(decls, Param):
+        return _leaf_init(decls, generator).to(device=device, dtype=dtype)
+    return {k: init_params(v, generator, dtype, device)
+            for k, v in decls.items()}
+
+
+# ---------------------------------------------------------------------------
+# Numerics helpers
+
+def rmsnorm(x, weight, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * weight.float()).to(dt)
+
+
+def layernorm(x, weight, bias, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = torch.square(x - mu).mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dt)
+
+
+def norm_decls(cfg) -> Dict[str, Param]:
+    if cfg.norm == "rmsnorm":
+        return {"scale": Param((cfg.d_model,), "ones")}
+    return {"scale": Param((cfg.d_model,), "ones"),
+            "bias": Param((cfg.d_model,), "zeros")}
+
+
+def apply_norm(cfg, p, x):
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, p["scale"])
+    return layernorm(x, p["scale"], p["bias"])
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (supports partial rotary)
+
+def rope_frequencies(d_rot: int, theta: float, device="cpu") -> torch.Tensor:
+    exps = torch.arange(0, d_rot, 2, dtype=torch.float32, device=device) / d_rot
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               rotary_pct: float = 1.0) -> torch.Tensor:
+    """x: (..., seq, n_heads, d_head); positions: (..., seq)."""
+    d_head = x.shape[-1]
+    d_rot = int(d_head * rotary_pct)
+    d_rot -= d_rot % 2
+    if d_rot == 0:
+        return x
+    freqs = rope_frequencies(d_rot, theta, x.device)            # (d_rot/2,)
+    angles = positions[..., None].float() * freqs               # (..., seq, d_rot/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    xr, xp = x[..., :d_rot], x[..., d_rot:]
+    x1, x2 = xr[..., : d_rot // 2], xr[..., d_rot // 2:]
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    return torch.cat([out1, out2, xp], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+
+def swiglu(gate, up):
+    return torch.nn.functional.silu(gate.float()).to(gate.dtype) * up

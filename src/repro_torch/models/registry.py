@@ -1,0 +1,75 @@
+"""Model registry: one uniform API over the ported families.
+
+``build(cfg)`` returns a ``Model`` whose functions mirror the JAX
+package's:
+
+    init(generator, device) -> params
+    prefill(cfg, params, batch, cache_len) -> (state, last_hidden, hidden)
+    decode_step(cfg, params, token, state, pos) -> (logits, hidden, state)
+    init_decode_state(batch, cache_len, device) -> dense KV state
+    init_paged_state(batch, num_blocks, block_size, max_blocks, device)
+
+Only the dense family is ported (slice 1 of the port); the others raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import transformer
+from repro_torch.models.common import cdtype, init_params
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+    decls: Any
+    prefill: Callable
+    decode_step: Callable
+    init_decode_state: Callable
+    # paged-KV serving: (batch, num_blocks, block_size, max_blocks, device)
+    # -> page pools + a per-row "block_tables" array
+    init_paged_state: Optional[Callable] = None
+
+    @property
+    def supports_paged(self) -> bool:
+        return self.init_paged_state is not None
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device=None):
+        """Random parameters in the compute dtype, drawn on the CPU from
+        ``generator`` and moved to ``device`` (None: CUDA)."""
+        return init_params(self.decls, generator, cdtype(self.cfg),
+                           resolve_device(device))
+
+
+def _build_dense(cfg: ModelConfig) -> Model:
+    def init_decode_state(batch: int, cache_len: int, device=None):
+        return attn.init_cache(cfg, batch, cache_len, device=device)
+
+    def init_paged_state(batch: int, num_blocks: int, block_size: int,
+                         max_blocks: int, device=None):
+        pages = attn.init_paged_cache(cfg, num_blocks, block_size,
+                                      device=device)
+        bt = torch.zeros((batch, max_blocks), dtype=torch.int32,
+                         device=pages["k"].device)                  # -> NULL page
+        return dict(pages, block_tables=bt)
+
+    return Model(cfg=cfg, decls=transformer.decls(cfg),
+                 prefill=transformer.prefill,
+                 decode_step=transformer.decode_step,
+                 init_decode_state=init_decode_state,
+                 init_paged_state=init_paged_state)
+
+
+def build(cfg: ModelConfig) -> Model:
+    if cfg.arch_type == "dense":
+        return _build_dense(cfg)
+    raise NotImplementedError(
+        f"{cfg.name} ({cfg.arch_type}): only the dense family is ported to "
+        "repro_torch; the others come with ROADMAP queue A (other families)")

@@ -1,0 +1,134 @@
+"""ServeConfig: ONE frozen config object for the port's serving stack.
+
+The fields are the JAX package's (``repro/serving/config.py``) so one
+description drives either stack.  The port serves what slice 1 carries —
+admission-time prefill, FIFO admission, one-token decode, dense or paged
+KV, one host — and every field of a later slice raises
+``NotImplementedError`` at construction when set, naming the ROADMAP
+queue-A item that brings it.  The probe-dispatch fields of the JAX config
+(``probe_impl``/``interpret``) have no counterpart: the device of the
+tensors picks K1 or its plain version.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+# field -> (value that means "off", ROADMAP queue-A item that brings it)
+_NOT_PORTED = {
+    "chunk_tokens": (None, "chunked and packed prefill (B3/B4)"),
+    "token_budget": (None, "chunked and packed prefill (B3/B4)"),
+    "spec_tokens": (None, "spec and tree decode (B5)"),
+    "spec_tree": (None, "spec and tree decode (B5)"),
+    "group_size": (1, "preemption, groups and fleet"),
+    "consensus": (None, "preemption, groups and fleet"),
+    "consensus_delta": (None, "preemption, groups and fleet"),
+    "preemption": (False, "preemption, groups and fleet"),
+    "n_hosts": (1, "preemption, groups and fleet"),
+    "placement": (None, "preemption, groups and fleet"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Every serving knob, validated once at construction."""
+
+    # -- fused serve step -------------------------------------------------
+    tokens_per_step: int = 16     # tokens per "reasoning step" for phi_t
+    max_new_tokens: int = 256
+    lam: float = 0.9              # LTT-calibrated threshold lambda*
+    burn_in: int = 10             # steps before stopping is allowed
+    greedy: bool = True
+
+    # -- fleet shape --------------------------------------------------------
+    n_slots: int = 4              # batch slots
+    cache_len: Optional[int] = None   # None -> sized from the requests
+
+    # -- paged KV -----------------------------------------------------------
+    paged: bool = False
+    block_size: int = 16
+    num_blocks: Optional[int] = None  # pool pages; None -> dense-equivalent
+    prefix_sharing: bool = True
+
+    # -- scheduling policy ----------------------------------------------------
+    policy: Any = None            # None / "fifo" (the only ported policy)
+
+    # -- not ported yet (see _NOT_PORTED) -------------------------------------
+    chunk_tokens: Optional[int] = None
+    token_budget: Optional[int] = None
+    spec_tokens: Optional[int] = None
+    spec_tree: Optional[str] = None
+    group_size: int = 1
+    consensus: Any = None
+    consensus_delta: Optional[float] = None
+    preemption: bool = False
+    n_hosts: int = 1
+    placement: Any = None
+
+    def __post_init__(self) -> None:
+        # normalize the optional ints the CLI passes as 0-for-disabled
+        for field in ("cache_len", "num_blocks", "chunk_tokens",
+                      "token_budget", "spec_tokens"):
+            val = getattr(self, field)
+            if val is not None:
+                val = int(val)
+                object.__setattr__(self, field, val if val > 0 else None)
+        if self.spec_tree is not None and not str(self.spec_tree).strip():
+            object.__setattr__(self, "spec_tree", None)
+        self.validate()
+
+    def validate(self) -> None:
+        """Cross-field validation — every error names the fix."""
+        for field, (off, item) in _NOT_PORTED.items():
+            if getattr(self, field) != off:
+                raise NotImplementedError(
+                    f"{field}={getattr(self, field)!r} is not ported to "
+                    f"repro_torch yet: it comes with ROADMAP queue A ({item}); "
+                    f"fix by leaving {field} at {off!r}")
+        if self.policy not in (None, "fifo"):
+            raise NotImplementedError(
+                f"policy={self.policy!r} is not ported to repro_torch yet: "
+                "only FIFO admission is; the other policies come with "
+                "ROADMAP queue A (preemption, groups and fleet)")
+        if isinstance(self.tokens_per_step, bool) or self.tokens_per_step < 1:
+            raise ValueError(
+                f"tokens_per_step={self.tokens_per_step!r} must be an int "
+                ">= 1: the probe pools this many tokens per reasoning "
+                "step; fix by passing a positive count")
+        if self.max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens={self.max_new_tokens} must be >= 1: a "
+                "request with no decode budget can never emit a token; "
+                "fix by passing a positive budget")
+        if self.block_size < 1:
+            raise ValueError(
+                f"block_size={self.block_size} must be >= 1: a KV page "
+                "holds this many token positions; fix by passing a "
+                "positive page size (16 is the default)")
+        if self.n_slots < 1:
+            raise ValueError(
+                f"n_slots={self.n_slots} must be >= 1; fix by passing a "
+                "positive slot count")
+
+    # CLI flag names (launch/serve.py) -> field
+    _ARG_FIELDS = (
+        ("tokens_per_step", "tokens_per_step"),
+        ("max_new_tokens", "max_new_tokens"),
+        ("burn_in", "burn_in"),
+        ("slots", "n_slots"),
+        ("paged", "paged"),
+        ("block_size", "block_size"),
+        ("num_blocks", "num_blocks"),      # 0 -> None in __post_init__
+    )
+
+    @classmethod
+    def from_args(cls, args, **overrides) -> "ServeConfig":
+        """Build a ServeConfig from an ``argparse`` namespace using the
+        ``launch/serve.py`` flag names; ``overrides`` win (the place for
+        runtime-computed values like the calibrated ``lam``)."""
+        fields: dict = {}
+        for arg_name, field in cls._ARG_FIELDS:
+            if hasattr(args, arg_name):
+                fields[field] = getattr(args, arg_name)
+        fields.update(overrides)
+        return cls(**fields)

@@ -1,0 +1,346 @@
+"""Batched serving engine with ORCA risk-controlled early stopping (PyTorch).
+
+``serve_step`` fuses one decode step of the base model with the ORCA probe:
+step-embedding accumulation (mean-pooled hidden states over
+``tokens_per_step`` tokens), then K1 (``repro_torch.kernels.probe_step``)
+for score-then-update of the per-slot fast weights, rolling smoothing and
+the calibrated threshold test.  The paged decode attention inside the
+model step is K2 (``repro_torch.kernels.paged_decode``).
+
+``ContinuousServingEngine`` is the slot-level engine: each batch row
+("slot") carries its own request at its own position (vector ``pos``), its
+own prefill-injected KV (a dense lane or a block-table row into the page
+pool) and its own freshly reset probe state; the moment ORCA stops a
+sequence the scheduler releases its slot and refills it.
+
+Buffers the JAX engine donates to its jitted step — the KV cache or page
+pool and the probe state — are updated IN PLACE here.  Ported: admission-
+time prefill, one-token decode, dense and paged caches.  Not yet: chunked
+prefill, speculative decode, preemption (ROADMAP queue A).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import probe as P
+from repro_torch.core.probe import ProbeConfig
+from repro_torch.kernels.probe_step import serving_probe_step
+from repro_torch.models import attention as A
+from repro_torch.models.registry import Model
+from repro_torch.serving.config import ServeConfig
+from repro_torch.serving.kv_pool import NULL_BLOCK, blocks_needed, pad_row
+
+
+class ProbeState(NamedTuple):
+    """Vectorized fast-weight + smoothing state for a batch of sequences."""
+    W: torch.Tensor          # (B, f) f32
+    b: torch.Tensor          # (B,) f32
+    hid_sum: torch.Tensor    # (B, d_phi) f32 accumulating the current step
+    tok_count: torch.Tensor  # (B,) i32 tokens into the current step
+    ring: torch.Tensor       # (B, window) f32 last raw scores
+    n_scores: torch.Tensor   # (B,) i32 number of scores emitted
+    smoothed: torch.Tensor   # (B,) f32 current smoothed score
+    stopped: torch.Tensor    # (B,) bool
+    stop_step: torch.Tensor  # (B,) i32 reasoning step at stop (-1 active)
+
+
+def init_probe_state(pc: ProbeConfig, theta, batch: int,
+                     d_phi: int) -> ProbeState:
+    f = pc.feat_dim
+    dev = theta["W0"].device
+    i32 = torch.int32
+    return ProbeState(
+        W=theta["W0"].float().expand(batch, f).clone(),
+        b=theta["b0"].float().expand(batch).clone(),
+        hid_sum=torch.zeros((batch, d_phi), device=dev),
+        tok_count=torch.zeros((batch,), dtype=i32, device=dev),
+        ring=torch.zeros((batch, pc.smooth_window), device=dev),
+        n_scores=torch.zeros((batch,), dtype=i32, device=dev),
+        smoothed=torch.zeros((batch,), device=dev),
+        stopped=torch.zeros((batch,), dtype=torch.bool, device=dev),
+        stop_step=torch.full((batch,), -1, dtype=i32, device=dev),
+    )
+
+
+def write_probe_slot(st: ProbeState, slot: int,
+                     rows: Sequence[torch.Tensor]) -> ProbeState:
+    """Write ONE row of a batched ProbeState, in place, from one
+    batch-axis-free row per leaf."""
+    for full, part in zip(st, rows):
+        full[slot] = part
+    return st
+
+
+def reset_probe_slot(pc: ProbeConfig, theta, st: ProbeState, slot: int,
+                     active: bool = True) -> ProbeState:
+    """Reset ONE row of a batched ProbeState in place.
+
+    ``active=True`` (admission): fast weights back to (W0, b0), empty ring,
+    zero counters — the slot's score trajectory is that of a fresh
+    single-request run.  ``active=False`` (eviction / empty slot): the same
+    reset, parked with ``stopped=True`` so the fused step treats the row as
+    no-op compute."""
+    one = init_probe_state(pc, theta, 1, st.hid_sum.shape[-1])
+    if not active:
+        one.stopped.fill_(True)
+    return write_probe_slot(st, slot, [leaf[0] for leaf in one])
+
+
+def to_device_inputs(batch: Dict[str, np.ndarray], device
+                     ) -> Dict[str, torch.Tensor]:
+    """Host-side request inputs -> model inputs on ``device``."""
+    return {k: torch.as_tensor(np.asarray(v), device=device)
+            for k, v in batch.items()}
+
+
+@torch.no_grad()
+def inject_prefill(model: Model, params, state, batch_one, slot: int,
+                   cache_len: int):
+    """Prefill ONE request (batch 1) and write its decode state into batch
+    row ``slot`` of a running dense state, in place.  Stale KV beyond the
+    new prompt is never readable: the valid mask exposes [0, pos)."""
+    sub, _, _ = model.prefill(model.cfg, params, batch_one, cache_len)
+    for key, full in state.items():
+        full[:, slot] = sub[key][:, 0].to(full.dtype)
+    return state
+
+
+def chunked_prefill(model: Model, params, batch, cache_len: int, *,
+                    chunk_tokens: Optional[int] = None):
+    """Build a decode state for ``batch``: one full-prompt ``model.prefill``
+    (the only form ported; chunked prefill comes with ROADMAP queue A)."""
+    if chunk_tokens:
+        raise NotImplementedError(
+            "chunked prefill is not ported to repro_torch yet; it comes with "
+            "ROADMAP queue A (chunked and packed prefill, B3/B4)")
+    state, _, _ = model.prefill(model.cfg, params, batch, cache_len)
+    return state
+
+
+def probe_update(pc: ProbeConfig, theta, st: ProbeState, hidden: torch.Tensor,
+                 lam: float, tokens_per_step: int, burn_in: int,
+                 eta: float) -> ProbeState:
+    """Accumulate one token's hidden state; run K1 for every slot.
+
+    The JAX engine skips its probe kernel under a ``lax.cond`` unless some
+    row is at a boundary; deciding that on the host would cost a device
+    sync per token, so K1 launches every token instead.  Its boundary mask
+    leaves W, b, ring, n_scores, stopped and stop_step untouched on
+    non-boundary rows, and ``smoothed`` recomputes to the value it had.
+    Updates ``st`` in place and returns it."""
+    st.hid_sum.add_(hidden.float())
+    st.tok_count.add_(1)
+    boundary = (st.tok_count >= tokens_per_step) & ~st.stopped
+    # step-embedding pooling: running mean of the step's hidden states
+    phi = st.hid_sum / torch.clamp(st.tok_count, min=1)[:, None]
+    zq, zk = P.features(pc, theta, phi)
+    out = serving_probe_step(zq.contiguous(), zk.contiguous(), boundary,
+                             st.W, st.b, st.ring, st.n_scores, st.stopped,
+                             st.stop_step, eta, lam, burn_in=int(burn_in))
+    st.smoothed.copy_(out.smoothed)
+    # reset the accumulators at boundaries
+    st.hid_sum.masked_fill_(boundary[:, None], 0.0)
+    st.tok_count.masked_fill_(boundary, 0)
+    return st
+
+
+def make_serve_step(model: Model, pc: ProbeConfig, theta, cfg: ServeConfig):
+    """Build the fused decode + ORCA step:
+    (params, token, cache, pos, probe_state) -> (next_token, cache,
+    probe_state); cache and probe state are updated in place."""
+    mcfg = model.cfg
+    eta = float(P.inner_lr(pc, theta))
+
+    @torch.no_grad()
+    def serve_step(params, token, cache, pos, st: ProbeState):
+        logits, hidden, cache = model.decode_step(mcfg, params, token, cache,
+                                                  pos)
+        prev_stopped = st.stopped.clone()
+        st = probe_update(pc, theta, st, hidden, cfg.lam, cfg.tokens_per_step,
+                          cfg.burn_in, eta)
+        nxt = torch.argmax(logits[:, :mcfg.vocab_size], dim=-1).to(torch.int32)
+        # the step on which the stop FIRES still emits its genuinely decoded
+        # token; only already-frozen sequences repeat (no-op compute slot)
+        nxt = torch.where(prev_stopped, token, nxt)
+        return nxt, cache, st
+
+    return serve_step
+
+
+def prefix_len(mcfg, batch_one: Dict[str, np.ndarray],
+               prompt_len: int) -> int:
+    """Sequence length ``model.prefill`` actually runs for one request."""
+    n = prompt_len
+    if mcfg.arch_type == "vlm" and "patch_embeds" in batch_one:
+        n += mcfg.frontend.n_tokens
+    n += getattr(mcfg, "n_meta_tokens", 0) or 0
+    return n
+
+
+@torch.no_grad()
+def extract_trajectories(model: Model, params, batch, prompt_len: int,
+                         max_new_tokens: int, tokens_per_step: int,
+                         cache_len: Optional[int] = None):
+    """Run the model WITHOUT stopping and harvest step embeddings phi_t —
+    the trajectory source for meta-training probes on a real model.  Decodes
+    through the DENSE cache with plain attention, as the JAX package does.
+    batch: {"tokens": (B, S)} numpy or tensors; returns numpy
+    (phis (B, n_steps, d), tokens (B, max_new_tokens))."""
+    mcfg = model.cfg
+    device = params["embed"].device
+    batch = to_device_inputs(batch, device)
+    B = batch["tokens"].shape[0]
+    pre = prefix_len(mcfg, batch, prompt_len)
+    cache_len = cache_len or (pre + max_new_tokens)
+    state = chunked_prefill(model, params, batch, cache_len)
+    token = torch.zeros((B,), dtype=torch.int32, device=device)
+    acc = torch.zeros((B, mcfg.d_model), device=device)
+    phis: List[torch.Tensor] = []
+    tokens: List[torch.Tensor] = []
+    cnt = 0
+    for i in range(max_new_tokens):
+        pos = torch.full((B,), pre + i, dtype=torch.int32, device=device)
+        logits, hidden, state = model.decode_step(mcfg, params, token, state,
+                                                  pos)
+        token = torch.argmax(logits[:, :mcfg.vocab_size], -1).to(torch.int32)
+        tokens.append(token)
+        acc = acc + hidden.float()
+        cnt += 1
+        if cnt == tokens_per_step:
+            phis.append(acc / cnt)
+            acc, cnt = torch.zeros_like(acc), 0
+    phis_np = (torch.stack(phis, dim=1).cpu().numpy() if phis
+               else np.zeros((B, 0, mcfg.d_model), np.float32))
+    return phis_np, torch.stack(tokens, dim=1).cpu().numpy()
+
+
+class SlotStepView(NamedTuple):
+    """Host-visible per-slot observation after one fused engine step."""
+    tokens: np.ndarray      # (n_slots,) token decoded this step
+    stopped: np.ndarray     # (n_slots,) bool — ORCA threshold crossed
+    stop_step: np.ndarray   # (n_slots,) reasoning step at stop (-1 active)
+    n_scores: np.ndarray    # (n_slots,) scores emitted since admission
+    smoothed: np.ndarray    # (n_slots,) current smoothed score
+
+
+class ContinuousServingEngine:
+    """Fixed-shape batch of ``n_slots`` whose rows live independent lives.
+
+    * ``pos`` is a per-slot host vector; the model's ``decode_step`` takes
+      (B,) positions (per-row valid masks, per-row cache writes).
+    * ``admit`` prefills ONE request (batch 1) into the slot — a dense lane,
+      or (``paged=True``) page by page through the request's block row,
+      reserved by the scheduler's ``BlockPool``; a prefix hit skips prefill
+      and copies only the donor's partial tail page — then resets the
+      slot's probe state to (W0, b0).
+    * ``release`` parks the slot (probe ``stopped=True``); paged, its table
+      row points at the NULL page so a parked write never touches a page
+      the pool hands to someone else.
+
+    The scheduler owns queues, lifecycles, the block pool and metrics; this
+    class owns device state only.  The device is the parameters' device.
+    """
+
+    def __init__(self, model: Model, params, pc: ProbeConfig, theta,
+                 cfg: ServeConfig, n_slots: int, cache_len: int, *,
+                 paged: bool = False, block_size: int = 16,
+                 num_blocks: Optional[int] = None):
+        self.model, self.params, self.pc, self.theta, self.cfg = \
+            model, params, pc, theta, cfg
+        self.device = params["embed"].device
+        mcfg = model.cfg
+        self.paged = bool(paged)
+        if self.paged:
+            assert model.supports_paged, \
+                f"{mcfg.name}: no paged cache layout for this family"
+            self.block_size = int(block_size)
+            self.max_blocks = blocks_needed(cache_len, block_size)
+            cache_len = self.max_blocks * self.block_size
+            self.num_blocks = int(num_blocks or
+                                  (n_slots * self.max_blocks + 1))
+            self.state = model.init_paged_state(
+                n_slots, self.num_blocks, self.block_size, self.max_blocks,
+                device=self.device)
+        else:
+            self.state = model.init_decode_state(n_slots, cache_len,
+                                                 device=self.device)
+        self.n_slots, self.cache_len = n_slots, cache_len
+        self.st = init_probe_state(pc, theta, n_slots, mcfg.d_model)
+        self.st.stopped.fill_(True)
+        self.token = torch.zeros((n_slots,), dtype=torch.int32,
+                                 device=self.device)
+        self.pos = np.zeros((n_slots,), np.int32)
+        self._step_fn = make_serve_step(model, pc, theta, cfg)
+
+    def _pages(self):
+        return {k: v for k, v in self.state.items() if k != "block_tables"}
+
+    def _set_row(self, slot: int, row) -> None:
+        self.state["block_tables"][slot] = torch.as_tensor(
+            np.asarray(row, np.int32), device=self.device)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def admit(self, slot: int, batch_one: Dict[str, np.ndarray],
+              prompt_len: int, *, block_row=None, skip_prefill: bool = False,
+              copy_tail=None) -> None:
+        """Prefill + inject one request into ``slot`` and arm its probe.
+
+        Paged mode takes the request's reserved physical block ids
+        (``block_row``); ``skip_prefill`` marks a prefix hit (the shared
+        full pages already hold the prompt K/V) and ``copy_tail`` is the
+        (src, dst) page pair for the donor's partial tail page."""
+        inputs = to_device_inputs(batch_one, self.device)
+        if self.paged:
+            assert block_row is not None, "paged admit needs a block row"
+            row = pad_row(block_row, self.max_blocks)
+            self._set_row(slot, row)
+            if copy_tail is not None:
+                src, dst = copy_tail
+                A.copy_pages(self._pages(),
+                             torch.tensor([src], device=self.device),
+                             torch.tensor([dst], device=self.device))
+            if not skip_prefill:
+                pre = prefix_len(self.model.cfg, batch_one, prompt_len)
+                n_blocks = blocks_needed(pre, self.block_size)
+                assert n_blocks <= len(block_row), \
+                    "block row shorter than the prefill prefix"
+                sub, _, _ = self.model.prefill(
+                    self.model.cfg, self.params, inputs,
+                    n_blocks * self.block_size)
+                A.prefill_to_pages(self._pages(), sub,
+                                   torch.as_tensor(row, device=self.device),
+                                   n_blocks)
+        else:
+            assert block_row is None and copy_tail is None and not skip_prefill
+            inject_prefill(self.model, self.params, self.state, inputs, slot,
+                           self.cache_len)
+        reset_probe_slot(self.pc, self.theta, self.st, slot, active=True)
+        self.token[slot] = 0
+        # decode resumes AFTER the whole prefill prefix
+        self.pos[slot] = prefix_len(self.model.cfg, batch_one, prompt_len)
+
+    def release(self, slot: int) -> None:
+        """Evict the slot's request: park the probe row as no-op compute.
+        Paged: the slot's table row is pointed at the NULL page."""
+        reset_probe_slot(self.pc, self.theta, self.st, slot, active=False)
+        if self.paged:
+            self._set_row(slot, np.full((self.max_blocks,), NULL_BLOCK))
+        self.pos[slot] = 0
+
+    # ------------------------------------------------------------------
+    def step(self) -> SlotStepView:
+        """One fused decode + probe step for every slot (vector pos)."""
+        pos = torch.as_tensor(self.pos, device=self.device)
+        self.token, self.state, self.st = self._step_fn(
+            self.params, self.token, self.state, pos, self.st)
+        self.pos = self.pos + 1
+        st = self.st
+        return SlotStepView(tokens=self.token.cpu().numpy(),
+                            stopped=st.stopped.cpu().numpy(),
+                            stop_step=st.stop_step.cpu().numpy(),
+                            n_scores=st.n_scores.cpu().numpy(),
+                            smoothed=st.smoothed.cpu().numpy())

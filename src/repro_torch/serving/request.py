@@ -1,0 +1,194 @@
+"""Request-centric serving: lifecycle + per-request / fleet metrics.
+
+A ``Request`` is one user sequence moving through the ORCA server:
+
+    WAITING -> PREFILL -> RUNNING -> STOPPED | FINISHED
+
+``STOPPED`` means the calibrated ORCA threshold test fired (the paper's
+early stop — the request's remaining step budget is *returned to the
+fleet* by evicting its slot); ``FINISHED`` means the token budget ran out
+without a stop.  Metrics use the shared savings helper
+(``repro_torch.core.stopping.step_savings``) so served savings are directly
+comparable with offline-evaluated savings.  The JAX package's CANCELLED
+(group consensus) and SWAPPED (preemption) states, and the speculation
+and fleet counters, come with the ROADMAP queue-A items that serve them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+import itertools
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.core import stopping as S
+
+
+class RequestState(enum.Enum):
+    WAITING = "waiting"
+    PREFILL = "prefill"      # RESIDENT: owns a slot; the prompt prefills
+    #                          in one shot at admission
+    RUNNING = "running"
+    STOPPED = "stopped"      # ORCA threshold fired -> slot evicted
+    FINISHED = "finished"    # token budget exhausted without a stop
+
+
+_req_counter = itertools.count()
+
+
+@dataclasses.dataclass
+class Request:
+    """One sequence request plus everything observed while serving it."""
+    inputs: Dict[str, np.ndarray]         # batch-1 host-side model inputs
+    prompt_len: int
+    max_new_tokens: Optional[int] = None  # None -> engine default
+    # priority class: lower = more latency-sensitive (0 = interactive, 1 =
+    # batch by convention); FIFO admission ignores it, the fleet metrics
+    # report latency per class
+    priority: int = 0
+    # self-consistency group membership: samples sharing a group_id are
+    # gang-admitted atomically (None = the classic independent request)
+    group_id: Optional[int] = None
+    sample_idx: int = 0                   # position within the group
+    req_id: int = dataclasses.field(default_factory=lambda: next(_req_counter))
+
+    # lifecycle (owned by the scheduler)
+    state: RequestState = RequestState.WAITING
+    slot: int = -1
+    submitted_step: int = 0               # engine step at enqueue
+    admitted_step: int = -1               # engine step at slot admission
+    completed_step: int = -1              # engine step at stop/finish
+    first_token_step: int = -1            # engine step of the first decode token
+    ttft_s: float = -1.0                  # wall-clock time to first token
+    queue_wait_s: float = -1.0            # wall-clock WAITING -> PREFILL
+
+    # observations
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    scores: List[float] = dataclasses.field(default_factory=list)
+    # per-reasoning-step answer hash (the token decoded at each probe
+    # boundary)
+    answers: List[int] = dataclasses.field(default_factory=list)
+    stop_step: int = -1                   # reasoning step at ORCA stop (-1 budget)
+    steps_run: int = 0                    # reasoning steps actually executed
+
+    # paged-KV bookkeeping (owned by the scheduler's BlockPool)
+    block_ids: List[int] = dataclasses.field(default_factory=list)
+    n_shared_blocks: int = 0              # prefix pages shared with a donor
+    prefill_skipped: bool = False         # prompt was resident: no prefill
+
+    @property
+    def done(self) -> bool:
+        return self.state in (RequestState.STOPPED, RequestState.FINISHED)
+
+    @property
+    def queue_steps(self) -> int:
+        """Engine steps spent waiting for a slot."""
+        return max(self.admitted_step - self.submitted_step, 0)
+
+    def savings(self, tokens_per_step: int, default_max_new: int) -> float:
+        """Fraction of the reasoning-step budget returned to the fleet."""
+        budget = max((self.max_new_tokens or default_max_new)
+                     // tokens_per_step, 1)
+        return float(S.step_savings(self.steps_run, budget))
+
+
+def make_request(tokens: np.ndarray, *, extra: Optional[Dict] = None,
+                 max_new_tokens: Optional[int] = None,
+                 priority: int = 0, group_id: Optional[int] = None,
+                 sample_idx: int = 0) -> Request:
+    """Build a Request from a 1-D prompt token array (+ optional extra
+    modalities, e.g. ``patch_embeds`` / ``frames`` with a leading batch-1
+    axis).  ``priority`` is the scheduling class (lower = more
+    latency-sensitive); ``group_id``/``sample_idx`` mark a self-consistency
+    sample (see ``repro_torch.serving.groups.make_group``).
+
+    Inputs stay host-side numpy arrays (a torch tensor is accepted and
+    copied to the host); the engine moves them to its device at admission,
+    so the scheduler's prompt hashing never touches the card."""
+    if hasattr(tokens, "detach"):
+        tokens = tokens.detach().cpu().numpy()
+    tokens = np.asarray(tokens, np.int32)
+    assert tokens.ndim == 1, "one request = one unbatched prompt"
+    inputs: Dict[str, np.ndarray] = {"tokens": tokens[None]}
+    if extra:
+        inputs.update({k: np.asarray(v) for k, v in extra.items()})
+    return Request(inputs=inputs, prompt_len=int(tokens.shape[0]),
+                   max_new_tokens=max_new_tokens, priority=int(priority),
+                   group_id=group_id, sample_idx=int(sample_idx))
+
+
+@dataclasses.dataclass
+class FleetMetrics:
+    """Aggregate serving metrics over one scheduler run."""
+    n_requests: int
+    n_slots: int
+    engine_steps: int            # fused decode steps executed
+    active_slot_steps: int       # slot-steps spent on live requests
+    wall_time_s: float
+    requests_per_s: float
+    tokens_per_s: float
+    slot_utilization: float      # active_slot_steps / (engine_steps * n_slots)
+    mean_step_savings: float     # mean over requests (shared metric)
+    mean_queue_steps: float
+    # paged-KV pool stats (zero when serving from the dense cache)
+    pool_blocks: int = 0         # usable pages in the pool
+    peak_blocks_in_use: int = 0  # high-water mark across the run
+    prefill_skips: int = 0       # admissions served from a resident prefix
+    # latency distribution.  A "stall" is one scheduler iteration's wall
+    # time — the latency every resident decode slot pays before its next
+    # token; an admission-time prefill (one batch-1 full-prompt prefill)
+    # spikes the tail.
+    ttft_ms_p50: float = 0.0     # wall-clock time-to-first-token percentiles
+    ttft_ms_p99: float = 0.0
+    stall_ms_p50: float = 0.0    # per-step decode-stall percentiles
+    stall_ms_p99: float = 0.0
+    peak_step_tokens: int = 0    # max decode tokens in one step
+    # per-priority-class latency: {"c<priority>_<metric>": value} for
+    # ttft_ms_p50/p99 and queue_wait_ms_p50/p99 (WAITING -> PREFILL wall
+    # time)
+    per_class: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    def row(self) -> Dict[str, float]:
+        return {
+            **self.per_class,
+            "peak_step_tokens": self.peak_step_tokens,
+            "requests": self.n_requests, "slots": self.n_slots,
+            "engine_steps": self.engine_steps,
+            "requests_per_s": self.requests_per_s,
+            "tokens_per_s": self.tokens_per_s,
+            "slot_utilization": self.slot_utilization,
+            "mean_step_savings": self.mean_step_savings,
+            "mean_queue_steps": self.mean_queue_steps,
+            "pool_blocks": self.pool_blocks,
+            "peak_blocks_in_use": self.peak_blocks_in_use,
+            "prefill_skips": self.prefill_skips,
+            "ttft_ms_p50": self.ttft_ms_p50,
+            "ttft_ms_p99": self.ttft_ms_p99,
+            "stall_ms_p50": self.stall_ms_p50,
+            "stall_ms_p99": self.stall_ms_p99,
+        }
+
+
+def latency_stats(requests: List[Request]
+                  ) -> "tuple[float, float, Dict[str, float]]":
+    """TTFT percentiles + per-priority-class latency tails for a served
+    population: ``(ttft_ms_p50, ttft_ms_p99, per_class)``."""
+    ttft = np.array([r.ttft_s for r in requests if r.ttft_s >= 0]) * 1e3
+    per_class: Dict[str, float] = {}
+    for cls in sorted({r.priority for r in requests}):
+        in_cls = [r for r in requests if r.priority == cls]
+        c_ttft = np.array([r.ttft_s for r in in_cls
+                           if r.ttft_s >= 0]) * 1e3
+        c_wait = np.array([r.queue_wait_s for r in in_cls
+                           if r.queue_wait_s >= 0]) * 1e3
+        for key, arr in (("ttft_ms", c_ttft), ("queue_wait_ms", c_wait)):
+            if arr.size:
+                per_class[f"c{cls}_{key}_p50"] = \
+                    float(np.percentile(arr, 50))
+                per_class[f"c{cls}_{key}_p99"] = \
+                    float(np.percentile(arr, 99))
+    return (float(np.percentile(ttft, 50)) if ttft.size else 0.0,
+            float(np.percentile(ttft, 99)) if ttft.size else 0.0,
+            per_class)
+

@@ -1,0 +1,475 @@
+"""OrcaScheduler: continuous batching with ORCA-stop eviction.
+
+The JAX package's scheduler (``repro/serving/scheduler.py``), cut to what
+the port's engine serves: admission-time prefill, FIFO admission of
+gang units, one-token decode, dense or paged KV with prefix sharing.  The
+admission loop, token collection and metrics are the JAX package's line
+for line, so per-request stop steps, tokens and completion steps match it
+exactly on the same model outputs.  Chunked prefill, speculation,
+preemption and consensus are rejected by ``ServeConfig`` until their
+ROADMAP items land.
+
+The scheduler owns the request lifecycle (queues, admission, eviction,
+metrics) and — in paged mode — the KV block pool; the engine owns device
+state.  Waiting requests are admitted into fixed-shape batch slots; the
+moment the calibrated ORCA threshold test stops a sequence, its slot (and
+its pages) is released and refilled from the queue on the next step.
+
+Paged admission reserves ``ceil((prompt_len + max_new) / block_size)``
+pages all-or-nothing (a request that does not fit stays WAITING); a prompt
+already resident is admitted as a block-table copy + refcount bump on the
+shared full prompt pages, with only the partial tail page copied.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.core.probe import ProbeConfig
+from repro_torch.models.registry import Model
+from repro_torch.serving.config import ServeConfig
+from repro_torch.serving.engine import ContinuousServingEngine, prefix_len
+from repro_torch.serving.groups import RequestGroup, group_requests
+from repro_torch.serving.kv_pool import BlockPool, blocks_needed, prompt_key
+from repro_torch.serving.policy import FIFOPolicy
+from repro_torch.serving.request import (FleetMetrics, Request, RequestState,
+                                         latency_stats)
+
+
+@dataclasses.dataclass(frozen=True)
+class _AdmitPlan:
+    """One request's reserved pages + how to fill them."""
+    row: List[int]               # physical pages, virtual order
+    n_shared: int                # leading pages refcount-shared with a donor
+    skip_prefill: bool
+    copy_tail: Optional[Tuple[int, int]]   # (donor tail page, private copy)
+    register_key: Optional[str]  # register as prefix donor after admission
+
+
+# constructor-keyword sentinel: "not passed" (resolve from ServeConfig)
+# versus an explicit None (meaningful for cache_len / num_blocks)
+_UNSET: object = object()
+
+
+def _pick(explicit, cfg_value):
+    """An explicitly passed constructor keyword wins over the config."""
+    return cfg_value if explicit is _UNSET else explicit
+
+
+class OrcaScheduler:
+    """Admit waiting requests into slots; evict on ORCA stop or budget.
+
+    Driving protocol: ``submit(requests)``, ``step()`` (one iteration;
+    False once idle), ``drain()`` -> (requests, FleetMetrics), and
+    ``run(requests)`` = submit + drain.  ``prepare(requests)`` sizes the
+    engine and pool for a population without enqueueing it.
+    """
+
+    def __init__(self, model: Model, params, pc: ProbeConfig, theta,
+                 cfg: ServeConfig, *, n_slots: int = _UNSET,
+                 cache_len: Optional[int] = _UNSET, paged: bool = _UNSET,
+                 block_size: int = _UNSET,
+                 num_blocks: Optional[int] = _UNSET,
+                 prefix_sharing: bool = _UNSET):
+        self.model, self.params, self.pc, self.theta, self.cfg = \
+            model, params, pc, theta, cfg
+        self.n_slots = int(_pick(n_slots, cfg.n_slots))
+        self.cache_len = _pick(cache_len, cfg.cache_len)
+        self.paged = bool(_pick(paged, cfg.paged))
+        self.block_size = int(_pick(block_size, cfg.block_size))
+        self.num_blocks = _pick(num_blocks, cfg.num_blocks)
+        self.prefix_sharing = bool(_pick(prefix_sharing, cfg.prefix_sharing))
+        self.policy = FIFOPolicy()     # ServeConfig admits no other yet
+        self.pool: Optional[BlockPool] = None
+        self._engine: Optional[ContinuousServingEngine] = None
+        self._session_open = False
+        self._reset_session()
+
+    # ------------------------------------------------------------------
+    # serving-session state: queues, residents and counters for ONE
+    # submit..drain cycle; engine, pool and policy survive across sessions
+    def _reset_session(self) -> None:
+        self._waiting: deque = deque()            # gang-admission units
+        self._running: Dict[int, Request] = {}    # slot -> request
+        self._free: List[int] = list(range(self.n_slots))
+        self._requests: List[Request] = []        # submission order
+        self.groups: List[RequestGroup] = []
+        self._steps = 0
+        self._active_slot_steps = 0
+        self._total_tokens = 0
+        self._peak_blocks = self._prefill_skips = self._peak_step_tokens = 0
+        self._stalls: List[float] = []
+        self._t0 = time.perf_counter()
+
+    @property
+    def has_work(self) -> bool:
+        """True while any request is queued or resident."""
+        return bool(self._waiting or self._running)
+
+    @property
+    def engine(self) -> Optional[ContinuousServingEngine]:
+        return self._engine
+
+    def _refuse_rebuild(self, what: str, have, need) -> None:
+        raise RuntimeError(
+            f"submit() needs {what} of {need} but the live session has "
+            f"{have} with requests resident — a rebuild would discard "
+            "their KV/probe state; fix by sizing the fleet up front via "
+            "prepare(<full request population>) (or an explicit "
+            "cache_len/num_blocks) before serving starts")
+
+    def _ensure_engine(self, requests: Sequence[Request]
+                       ) -> ContinuousServingEngine:
+        cache_len = self.cache_len
+        if cache_len is None:
+            mcfg = self.model.cfg
+            max_prompt = max((prefix_len(mcfg, r.inputs, r.prompt_len)
+                              for r in requests), default=0)
+            max_new = max([r.max_new_tokens or self.cfg.max_new_tokens
+                           for r in requests] + [self.cfg.max_new_tokens])
+            cache_len = max_prompt + max_new
+        rebuild = self._engine is None or self._engine.cache_len < cache_len
+        if self.paged:
+            cache_len = max([cache_len]
+                            + [self._request_tokens(r) for r in requests])
+            max_blocks = blocks_needed(cache_len, self.block_size)
+            if self.num_blocks:
+                num_blocks = int(self.num_blocks)
+            else:
+                num_blocks = self.n_slots * max_blocks + 1
+                if self.pool is not None:
+                    # derived sizing never shrinks a live pool
+                    num_blocks = max(num_blocks, self.pool.num_blocks)
+            if self.pool is not None and self.pool.num_blocks != num_blocks \
+                    and (self.pool.blocks_in_use or self._running):
+                if num_blocks > self.pool.num_blocks:
+                    self._refuse_rebuild("a page pool",
+                                         self.pool.num_blocks, num_blocks)
+                num_blocks = self.pool.num_blocks   # big enough: keep it
+            if self.pool is None or self.pool.num_blocks != num_blocks:
+                self.pool = BlockPool(num_blocks, self.block_size)
+            rebuild = self._engine is None or \
+                self._engine.cache_len < cache_len
+        else:
+            num_blocks = None
+        if rebuild:
+            if self._engine is not None and self._running:
+                self._refuse_rebuild("an engine cache_len",
+                                     self._engine.cache_len, cache_len)
+            self._engine = ContinuousServingEngine(
+                self.model, self.params, self.pc, self.theta, self.cfg,
+                self.n_slots, cache_len, paged=self.paged,
+                block_size=self.block_size, num_blocks=num_blocks)
+        return self._engine
+
+    # ------------------------------------------------------------------
+    # paged admission: reserve pages (all-or-nothing) + prefix sharing
+    def _request_tokens(self, req: Request) -> int:
+        """Virtual positions this request needs: prefill prefix + budget."""
+        max_new = req.max_new_tokens or self.cfg.max_new_tokens
+        return prefix_len(self.model.cfg, req.inputs, req.prompt_len) + max_new
+
+    def _request_blocks(self, req: Request) -> int:
+        return blocks_needed(self._request_tokens(req), self.block_size)
+
+    def _sharing_key(self, req: Request) -> Optional[str]:
+        if not (self.prefix_sharing and self._engine is not None
+                and self._engine.paged):
+            return None
+        if set(req.inputs) != {"tokens"}:      # multimodal prefixes differ
+            return None
+        if prefix_len(self.model.cfg, req.inputs, req.prompt_len) \
+                != req.prompt_len:
+            return None
+        return prompt_key(np.asarray(req.inputs["tokens"]))
+
+    def _reserve(self, req: Request) -> Optional[_AdmitPlan]:
+        """Try to reserve this request's pages; None = pool exhausted (the
+        request stays WAITING — backpressure, not over-admission)."""
+        pool = self.pool
+        n_total = self._request_blocks(req)
+        key = self._sharing_key(req)
+        entry = pool.lookup_prefix(key) if key else None
+        if entry is not None and entry.prompt_len == req.prompt_len \
+                and len(entry.full_blocks) <= n_total:
+            private = pool.allocate(n_total - len(entry.full_blocks))
+            if private is None:
+                return None
+            shared = pool.share(entry.full_blocks)
+            copy_tail = None
+            if entry.tail_block is not None and private:
+                copy_tail = (entry.tail_block, private[0])
+            return _AdmitPlan(row=shared + private, n_shared=len(shared),
+                              skip_prefill=True, copy_tail=copy_tail,
+                              register_key=None)
+        row = pool.allocate(n_total)
+        if row is None:
+            return None
+        return _AdmitPlan(row=row, n_shared=0, skip_prefill=False,
+                          copy_tail=None, register_key=key)
+
+    def _register_donor(self, req: Request, plan: _AdmitPlan) -> None:
+        if plan.register_key is None:
+            return
+        bs = self.block_size
+        n_full = req.prompt_len // bs
+        tail = plan.row[n_full] if (req.prompt_len % bs
+                                    and n_full < len(plan.row)) else None
+        self.pool.register_prefix(plan.register_key, plan.row[:n_full],
+                                  tail, req.prompt_len)
+
+    def _share_from_donor(self, donor, req: Request) -> Optional[_AdmitPlan]:
+        """Intra-gang prefix sharing off the unit leader's fresh prompt
+        pages (refcount bump + private pages for the tail/decode)."""
+        key, row, d_prompt = donor
+        n_total = self._request_blocks(req)
+        n_full = req.prompt_len // self.block_size
+        if d_prompt != req.prompt_len or n_full > len(row) \
+                or n_total < n_full:
+            return None
+        private = self.pool.allocate(n_total - n_full)
+        if private is None:
+            return None
+        shared = self.pool.share(row[:n_full])
+        copy_tail = None
+        if req.prompt_len % self.block_size and n_full < len(row) \
+                and private:
+            copy_tail = (row[n_full], private[0])
+        return _AdmitPlan(row=shared + private, n_shared=n_full,
+                          skip_prefill=True, copy_tail=copy_tail,
+                          register_key=None)
+
+    def _reserve_unit(self, members: Sequence[Request]
+                      ) -> Optional[List[_AdmitPlan]]:
+        """ALL-OR-NOTHING page reservation for a gang-admission unit: the
+        first sample reserves (or prefix-hits) the prompt pages, siblings
+        share its full prompt pages by refcount; any failure rolls the
+        whole unit back."""
+        plans: List[_AdmitPlan] = []
+        donor = None
+        for req in members:
+            plan = None
+            key = self._sharing_key(req)
+            if donor is not None and key is not None and key == donor[0]:
+                plan = self._share_from_donor(donor, req)
+            if plan is None:
+                plan = self._reserve(req)
+                if plan is not None and plan.register_key is not None \
+                        and donor is None:
+                    donor = (plan.register_key, plan.row, req.prompt_len)
+            if plan is None:
+                for p in plans:
+                    self.pool.free(p.row)
+                return None
+            plans.append(plan)
+        return plans
+
+    # ------------------------------------------------------------------
+    # the submit/step/drain protocol
+    def prepare(self, requests: Sequence[Request]) -> None:
+        """Size the engine and (paged) the page pool for a request
+        population WITHOUT enqueueing it."""
+        fresh = not self._session_open
+        if fresh:
+            self._reset_session()
+            self._session_open = True
+        if requests:
+            self._ensure_engine(requests)
+        if fresh:
+            self._t0 = time.perf_counter()
+
+    def submit(self, requests: Sequence[Request]) -> None:
+        """Enqueue ``requests`` as gang-admission units, opening a fresh
+        serving session if none is active."""
+        requests = list(requests)
+        fresh = not self._session_open
+        if fresh:
+            self._reset_session()
+            self._session_open = True
+        if not requests:
+            return
+        self._ensure_engine(requests)
+        units, groups = group_requests(requests)
+        for grp in groups:
+            if grp.size > self.n_slots:
+                raise ValueError(
+                    f"group {grp.group_id} has {grp.size} samples but the "
+                    f"fleet has {self.n_slots} slots: gang admission needs "
+                    "every sample resident at once; fix by raising n_slots "
+                    f"to >= {grp.size} or lowering the group size")
+        if fresh:
+            # the serving clock starts once the first batch is staged
+            self._t0 = time.perf_counter()
+        self._requests.extend(requests)
+        self.groups.extend(groups)
+        self._waiting.extend(units)
+
+    def run(self, requests: Sequence[Request]
+            ) -> Tuple[List[Request], FleetMetrics]:
+        """Drive every request to STOPPED/FINISHED; return them + metrics."""
+        if self._session_open and self.has_work:
+            raise RuntimeError(
+                "run() while a serving session is active would reset "
+                "resident state; drive incremental traffic through "
+                "submit()/step()/drain() instead")
+        self._session_open = False     # fresh session even after a drain
+        self.submit(requests)
+        return self.drain()
+
+    def drain(self) -> Tuple[List[Request], FleetMetrics]:
+        """Step until the fleet is idle, close the session and return
+        every submitted request plus the session's ``FleetMetrics``."""
+        while self.step():
+            pass
+        wall = max(time.perf_counter() - self._t0, 1e-9)
+        requests = list(self._requests)
+        metrics = self._metrics(requests, wall)
+        self._session_open = False
+        return requests, metrics
+
+    def step(self) -> bool:
+        """ONE scheduler iteration: admission -> the fused engine step ->
+        token collection / ORCA eviction.  Returns False when idle."""
+        if not self.has_work:
+            return False
+        eng = self._engine
+        waiting, running, free = self._waiting, self._running, self._free
+        steps = self._steps
+        t_iter = time.perf_counter()
+
+        # admission: refill free slots before the next fused step.  The
+        # POLICY picks which WAITING unit (a whole group, or a singleton);
+        # a unit needing more slots than are free may be skipped (bounded
+        # by the policy's aging guard) so smaller units behind it admit,
+        # and in paged mode a unit that does not fit the pool WAITS for an
+        # eviction to return pages — all-or-nothing on both resources.
+        tried: set = set()        # id(unit) passed over this round
+        while waiting:
+            cand_idx = [i for i, u in enumerate(waiting)
+                        if id(u) not in tried]
+            if not cand_idx:
+                break
+            cand = [waiting[i] for i in cand_idx]
+            sel = self.policy.select_admit_unit(cand, steps)
+            idx = cand_idx[sel]
+            unit = waiting[idx]
+            members = [r for r in unit if r.state is RequestState.WAITING]
+            if not members:
+                del waiting[idx]
+                continue
+            if len(members) > len(free):
+                if free and len(cand) > 1 \
+                        and self.policy.on_skipped_unit(cand, sel):
+                    tried.add(id(unit))
+                    continue
+                break
+            if self.paged:
+                mplans = self._reserve_unit(members)
+                if mplans is None:
+                    if not running:
+                        need = sum(self._request_blocks(r) for r in members)
+                        what = (f"group {members[0].group_id}"
+                                if members[0].group_id is not None
+                                else f"request {members[0].req_id}")
+                        raise RuntimeError(
+                            f"{what} needs {need} pages but the pool holds "
+                            f"{self.pool.num_usable}; nothing left to evict")
+                    break
+            else:
+                mplans = [None] * len(members)
+            self.policy.on_admitted_unit(cand, sel)
+            del waiting[idx]
+            for req, plan in zip(members, mplans):
+                slot = free.pop()
+                req.slot, req.admitted_step = slot, steps
+                req.queue_wait_s = time.perf_counter() - self._t0
+                req.state = RequestState.PREFILL
+                if plan is not None:
+                    req.block_ids = list(plan.row)
+                    req.n_shared_blocks = plan.n_shared
+                    req.prefill_skipped = plan.skip_prefill
+                    self._prefill_skips += int(plan.skip_prefill)
+                    self._peak_blocks = max(self._peak_blocks,
+                                            self.pool.blocks_in_use)
+                    eng.admit(slot, req.inputs, req.prompt_len,
+                              block_row=plan.row,
+                              skip_prefill=plan.skip_prefill,
+                              copy_tail=plan.copy_tail)
+                    self._register_donor(req, plan)
+                else:
+                    eng.admit(slot, req.inputs, req.prompt_len)
+                req.state = RequestState.RUNNING
+                running[slot] = req
+
+        self._peak_step_tokens = max(self._peak_step_tokens, len(running))
+        view = eng.step()
+        steps = self._steps = self._steps + 1
+        self._active_slot_steps += len(running)
+        now = time.perf_counter()
+
+        for slot, req in list(running.items()):
+            if req.first_token_step < 0:
+                req.first_token_step = steps
+                req.ttft_s = now - self._t0
+            req.tokens.append(int(view.tokens[slot]))
+            self._total_tokens += 1
+            n_scores = int(view.n_scores[slot])
+            if n_scores > len(req.scores):
+                req.scores.append(float(view.smoothed[slot]))
+                # the step's answer proxy: the token just decoded
+                req.answers.append(int(view.tokens[slot]))
+            max_new = req.max_new_tokens or self.cfg.max_new_tokens
+            if bool(view.stopped[slot]):
+                # ORCA stop: evict NOW — the slot is free next step
+                req.stop_step = int(view.stop_step[slot])
+                req.steps_run = req.stop_step
+                self._complete(req, RequestState.STOPPED, steps)
+            elif len(req.tokens) >= max_new:
+                req.stop_step = -1
+                req.steps_run = n_scores
+                self._complete(req, RequestState.FINISHED, steps)
+            else:
+                continue
+            eng.release(slot)
+            if self.paged and req.block_ids:
+                # the stop IS the reclaim: pages return to the pool now
+                self.pool.free(req.block_ids)
+            free.append(slot)
+            del running[slot]
+        self._stalls.append((time.perf_counter() - t_iter) * 1e3)
+        return True
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _complete(req: Request, state: RequestState, step: int) -> None:
+        req.state = state
+        req.completed_step = step
+
+    def _metrics(self, requests: Sequence[Request],
+                 wall: float) -> FleetMetrics:
+        n = len(requests)
+        sav = [r.savings(self.cfg.tokens_per_step, self.cfg.max_new_tokens)
+               for r in requests]
+        queue = [r.queue_steps for r in requests]
+        ttft_p50, ttft_p99, per_class = latency_stats(list(requests))
+        st = np.asarray(self._stalls if self._stalls else [0.0])
+        steps = self._steps
+        return FleetMetrics(
+            n_requests=n, n_slots=self.n_slots, engine_steps=steps,
+            active_slot_steps=self._active_slot_steps, wall_time_s=wall,
+            requests_per_s=n / wall, tokens_per_s=self._total_tokens / wall,
+            slot_utilization=(self._active_slot_steps
+                              / max(steps * self.n_slots, 1)),
+            mean_step_savings=float(np.mean(sav)) if sav else 0.0,
+            mean_queue_steps=float(np.mean(queue)) if queue else 0.0,
+            pool_blocks=self.pool.num_usable if self.pool else 0,
+            peak_blocks_in_use=self._peak_blocks,
+            prefill_skips=self._prefill_skips,
+            ttft_ms_p50=ttft_p50, ttft_ms_p99=ttft_p99,
+            stall_ms_p50=float(np.percentile(st, 50)),
+            stall_ms_p99=float(np.percentile(st, 99)),
+            peak_step_tokens=self._peak_step_tokens, per_class=per_class)

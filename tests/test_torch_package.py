@@ -1,0 +1,117 @@
+"""The port stands alone: it imports without JAX and without Triton,
+its sources name neither JAX nor the JAX package, and its entry points
+refuse to run on a box without CUDA unless the caller asks for the CPU."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+# an import of jax, or of the JAX package (``repro`` but not ``repro_torch``)
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)",
+                       re.MULTILINE)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def test_port_imports_without_jax_and_triton():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['triton'] = None\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert not any(k == 'repro' or k.startswith('repro.')\n"
+        "               for k in sys.modules), 'the JAX package was imported'\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_sources_name_no_jax_and_no_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        hits = FORBIDDEN.findall(path.read_text())
+        assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+def test_forbidden_pattern_catches_what_it_should():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
+                 "from repro.models import build", "import repro",
+                 "    from repro.core import probe"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch.models import build",
+                 "jax_like = 1"):
+        assert not FORBIDDEN.search(line), line
+
+
+def _entry_points():
+    from repro_torch.configs import get_config
+    from repro_torch.core.calibrator import TTTCalibrator
+    from repro_torch.core.probe import ProbeConfig, init_outer
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.models.convert import from_jax_theta
+    from repro_torch.trajectories import synthetic
+
+    cfg = get_config("smollm-360m").reduced()
+    pc = ProbeConfig(d_phi=8)
+    ts = synthetic.generate(synthetic.TrajectoryDistribution(
+        "p", d_phi=8, t_min=4, t_max=6), 8, 0)
+    return {
+        "model.init": lambda: build(cfg).init(torch.Generator()),
+        "init_decode_state": lambda: build(cfg).init_decode_state(2, 8),
+        "init_paged_state": lambda: build(cfg).init_paged_state(2, 5, 4, 2),
+        "init_outer": lambda: init_outer(pc),
+        "from_jax_theta": lambda: from_jax_theta({"W0": np.zeros(8)}),
+        "TTTCalibrator.fit": lambda: TTTCalibrator(
+            pc=pc, epochs=1, epoch_select=False).fit(ts, "consistent"),
+        "serve.main": lambda: serve.main(["--arch", "smollm-360m",
+                                          "--reduced"]),
+    }
+
+
+@pytest.mark.parametrize("name", ["model.init", "init_decode_state",
+                                  "init_paged_state", "init_outer",
+                                  "from_jax_theta", "TTTCalibrator.fit",
+                                  "serve.main"])
+def test_entry_point_without_cuda_raises(monkeypatch, name):
+    """With no CUDA device and no ``device=``, an entry point raises and
+    says how to run on the CPU; it never drops to the CPU by itself."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry_points()[name]()
+
+
+def test_probe_step_on_other_devices_never_takes_the_plain_version():
+    """Only CPU tensors take K1's plain version: any other device reaches
+    the kernel path or raises — here the meta device, which has none."""
+    from repro_torch.kernels.probe_step import serving_probe_step
+    B, f, win = 2, 8, 3
+    z = torch.zeros((B, f), device="meta")
+    args = [z, z, torch.zeros(B, dtype=torch.bool, device="meta"),
+            torch.zeros((B, f), device="meta"), torch.zeros(B, device="meta"),
+            torch.zeros((B, win), device="meta"),
+            torch.zeros(B, dtype=torch.int32, device="meta"),
+            torch.zeros(B, dtype=torch.bool, device="meta"),
+            torch.zeros(B, dtype=torch.int32, device="meta")]
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        serving_probe_step(*args, 0.01, 0.5, burn_in=1)
