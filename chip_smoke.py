@@ -13,17 +13,34 @@ non-zero:
 3. K2       -- paged flash decode against its plain version, bf16, int8
                and f32 pages, the serving shape and nb in {8, 256}; timed
                beside scaled_dot_product_attention over the gathered pages
-4. model    -- full-width smollm-360m (bf16, random weights from a seed,
+4. K3       -- paged chunk attention against its plain versions, B4
+               (packed chunks: 1 to 4 segments, an empty cache, padding
+               and zero-length segments, nb 256) and B3 (chunks of B
+               requests), bf16, int8 and f32 pages, at the served chunk of
+               64 tokens; timed beside scaled_dot_product_attention over
+               the gathered pages with the same mask
+5. model    -- full-width smollm-360m (bf16, random weights from a seed,
                then the same weights in f32): prefill 16 tokens, 64
                teacher-forced paged decode steps through K2 (every call
                held against the plain version on its inputs) and through
                the plain paged attention
-5. serve    -- ``repro_torch.launch.serve`` end to end on the card:
+6. model-chunked -- the same model: a 160-token prompt through
+               ``Model.prefill_chunk`` on a paged state in 64-token chunks
+               (B3), then one ``prefill_packed`` chunk of two requests
+               (B4), every K3 call held against its plain version; pages
+               and next-step logits against one-shot prefill, bf16 and f32
+7. serve    -- ``repro_torch.launch.serve`` end to end on the card:
                harvest, meta-train, calibrate, serve 8 requests on 4 slots
-6. trace    -- a profiler window over 16 engine steps of the same fleet:
+8. trace    -- a profiler window over 16 engine steps of the same fleet:
                the card's busy share and the kernels that take it
-7. kernels  -- one entry per kernel: launches in phase 5, error against
-               its plain version, kernel / plain / library / bound ms
+9. serve-chunked -- the driver with ``--chunk-tokens 64`` on 160-token
+               prompts: the third chunk of each prompt packs with the head
+               of the next; K1, K2 and K3 launch
+10. trace    -- the same window over the chunked fleet, launches and busy
+               share split into steps with a chunk and steps without one
+11. kernels  -- one entry per kernel: launches on its path (phase 7 for
+               K1 and K2, 6 for K3-B3, 9 for K3-B4), error against its
+               plain version, kernel / plain / library / bound ms
 
 The line before the last is ``nvidia-smi``'s card name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -31,6 +48,7 @@ result when there is no CUDA device or the package is missing.
 """
 from __future__ import annotations
 
+import bisect
 import json
 import os
 import subprocess
@@ -314,7 +332,212 @@ def phase_k2(torch, timer):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: full-width model, teacher-forced
+# phase 4: K3
+
+def chunk_partial_errors(kern, plain, m_relative=False):
+    """Largest m and normalised-output differences between two chunk
+    partials (o, l, m) over the rows the plain version finds a valid
+    position for (l > 0); every other row must hold the empty-row contract
+    exactly: m = -1e30, l = 0, o = 0."""
+    (o, l, m), (po, pl_, pm) = kern, plain
+    o, po = o.reshape(-1, o.shape[-1]), po.reshape(-1, po.shape[-1])
+    l, pl_, m, pm = l.reshape(-1), pl_.reshape(-1), m.reshape(-1), \
+        pm.reshape(-1)
+    live = pl_ > 0
+    dead = ~live
+    if dead.any():
+        if not (bool((l[dead] == 0).all()) and bool((o[dead] == 0).all())
+                and bool((m[dead] == -1e30).all())):
+            raise AssertionError("K3: a row with no valid position broke "
+                                 "the m = -1e30, l = 0, o = 0 contract")
+    if not live.any():
+        return 0.0, 0.0
+    dm = (m - pm)[live].abs()
+    if m_relative:
+        dm = dm / pm[live].abs().clamp_min(1.0)
+    out = o[live] / l[live, None]
+    pout = po[live] / pl_[live, None]
+    return float(dm.max()), float((out - pout).abs().max())
+
+
+def chunk_pool(torch, gen, n_seg, nb, dtype, KV=5, d=64, bs=16):
+    """A pool of n_seg*nb+1 pages (page 0 NULL) and shuffled tables."""
+    P = n_seg * nb + 1
+    if dtype == "int8":
+        k = torch.randint(-127, 128, (P, KV, bs, d), generator=gen,
+                          dtype=torch.int8).to(DEV)
+        v = torch.randint(-127, 128, (P, KV, bs, d), generator=gen,
+                          dtype=torch.int8).to(DEV)
+        ks = (torch.rand(P, KV, bs, 1, generator=gen) * 0.02 + 1e-3).to(DEV)
+        vs = (torch.rand(P, KV, bs, 1, generator=gen) * 0.02 + 1e-3).to(DEV)
+    else:
+        dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+        k = torch.randn(P, KV, bs, d, generator=gen).to(dt).to(DEV)
+        v = torch.randn(P, KV, bs, d, generator=gen).to(dt).to(DEV)
+        ks = vs = None
+    tables = (1 + torch.randperm(n_seg * nb, generator=gen)).reshape(
+        n_seg, nb).to(torch.int32)
+    return k, v, ks, vs, tables
+
+
+def k3_bytes_ops(k, ks, n_valid_by_seg, tok_valid, H, d, inputs, outputs):
+    """Bytes the call must move (the valid K and V of every segment with a
+    token, read once, the small inputs read once, the partials written
+    once) and the f32 operations it must do (per query head and valid
+    position of its segment: q.k and p.v, 2 d each, and the softmax)."""
+    KV = k.shape[1]
+    per_pos = KV * d * k.element_size() * 2
+    if ks is not None:
+        per_pos += KV * 4 * 2
+    moved = sum(n_valid_by_seg) * per_pos + nbytes(*inputs) + nbytes(
+        *outputs)
+    return moved, tok_valid * H * (4 * d + 4)
+
+
+# B4 cases at the served chunk of 64 tokens, R = 4 segments (pack_max):
+# (name, nb, pages, [(tokens, cached positions) per segment]); the rest of
+# the 64 tokens are padding with the last real segment's id, and the rest
+# of the 4 segments are zero-length.  The first is the serving shape of
+# phase 9: a prompt's third chunk (32 tokens, 128 cached) packed with the
+# head of the next prompt (32 tokens, no cache yet).
+K3_B4_CASES = [
+    ("served", 16, "bf16", [(32, 128), (32, 0)]),
+    ("served", 16, "int8", [(32, 128), (32, 0)]),
+    ("served", 16, "f32", [(32, 128), (32, 0)]),
+    ("one segment", 16, "bf16", [(64, 128)]),
+    ("four segments", 16, "bf16", [(16, 200), (16, 0), (16, 37), (8, 255)]),
+    ("padding", 16, "bf16", [(30, 64), (20, 129)]),
+    ("nb 256", 256, "bf16", [(64, 4000)]),
+    ("nb 256", 256, "int8", [(40, 4000), (24, 1500)]),
+]
+# B3 cases: (B, C, nb, pages, cached positions per request); the first is
+# the shape of phase 6's last chunk
+K3_B3_CASES = [
+    (1, 64, 16, "bf16", [128]),
+    (1, 64, 16, "int8", [128]),
+    (1, 64, 16, "f32", [128]),
+    (4, 64, 256, "bf16", [0, 64, 1000, 4000]),
+]
+# bf16 / int8 inputs upcast exactly; f32 sums in another order than the
+# plain one-shot softmax: K2's tolerances
+K3_M_TOL, K3_OUT_TOL = 1e-4, 2e-3
+
+
+def _sdpa_ms(torch, timer, q4, k, v, ks, vs, tables, mask, dtype):
+    """SDPA over the pages gathered (outside the timing) per segment, KV
+    heads repeated to the query heads: the yardstick, never the port's."""
+    import torch.nn.functional as F
+    from repro_torch.models import attention as A
+    H, KV = q4.shape[1], k.shape[1]
+    lib_dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    pages = {"k": k, "v": v}
+    if ks is not None:
+        pages.update(k_scale=ks, v_scale=vs)
+    kg, vg = (x.to(lib_dt).repeat_interleave(H // KV, 1)
+              for x in A.gather_page_rows(pages, tables))
+    qg = q4.to(lib_dt)
+    return timer(lambda: F.scaled_dot_product_attention(qg, kg, vg,
+                                                        attn_mask=mask))
+
+
+def phase_k3(torch, timer):
+    from repro_torch.kernels import paged_chunk as K3
+    from repro_torch.models import attention as A
+    gen = torch.Generator().manual_seed(SEED + 3)
+    H, KV, d, bs, C, R = 15, 5, 64, 16, 64, 4
+    rows = []
+    for name, nb, dtype, segs in K3_B4_CASES:
+        k, v, ks, vs, tables = chunk_pool(torch, gen, R, nb, dtype)
+        n_tok = sum(t for t, _ in segs)
+        seg = torch.full((C,), len(segs) - 1, dtype=torch.int32)
+        lengths = torch.zeros(R, dtype=torch.int32)
+        starts = torch.zeros(R, dtype=torch.int32)
+        off = 0
+        for i, (t, cached) in enumerate(segs):
+            seg[off:off + t] = i
+            lengths[i], starts[i] = t, cached
+            off += t
+        valid = torch.arange(nb * bs)[None, :] < starts[:, None]
+        q = torch.randn(C, H, d, generator=gen)
+        q, seg, tables, valid = (t.to(DEV) for t in (q, seg, tables, valid))
+        got = K3.paged_flash_packed_chunk(q, k, v, seg, tables, valid, ks, vs)
+        want = K3.paged_packed_chunk_plain(q, k, v, seg, tables, valid, ks,
+                                           vs)
+        m_err, o_err = chunk_partial_errors(got, want)
+        # the merged output every token sees, the chunk's own keys folded
+        # in under the block-diagonal mask: holds the empty-cache segment
+        offsets = torch.cumsum(lengths, 0) - lengths
+        sl = seg.long().cpu()
+        tpos = torch.arange(C) - offsets[sl]
+        vt = ((tpos >= 0) & (tpos < lengths[sl])).to(DEV)
+        mask = A.packed_chunk_mask(seg, vt)
+        kn = torch.randn(C, KV, d, generator=gen).to(DEV)
+        vn = torch.randn(C, KV, d, generator=gen).to(DEV)
+        qg = q.reshape(C, KV, H // KV, d)
+        merged = []
+        for o_, l_, m_ in (got, want):
+            o2, l2 = A._merge_packed_block(qg, o_, l_, m_, kn, vn, mask)
+            merged.append(o2 / l2[..., None])
+        merged_err = float((merged[0] - merged[1]).abs().max())
+        if not (m_err <= K3_M_TOL and o_err <= K3_OUT_TOL
+                and merged_err <= K3_OUT_TOL):
+            raise AssertionError(f"K3-B4 {name} {dtype}: m err {m_err}, "
+                                 f"output err {o_err}, merged {merged_err}")
+        ms = timer(lambda: K3.paged_flash_packed_chunk(
+            q, k, v, seg, tables, valid, ks, vs))
+        plain_ms = timer(lambda: K3.paged_packed_chunk_plain(
+            q, k, v, seg, tables, valid, ks, vs))
+        # SDPA: every segment's queries (all C tokens, masked to the
+        # segment's own) against its gathered pages
+        smask = (valid[:, None, :] & (seg[None, :, None] == torch.arange(
+            R, device=DEV)[:, None, None]))[:, None]
+        q4 = q.permute(1, 0, 2)[None].expand(R, H, C, d)
+        lib_ms = _sdpa_ms(torch, timer, q4, k, v, ks, vs, tables, smask,
+                          dtype)
+        n_valid = [int(c_) if t else 0 for t, c_ in segs]
+        tok_valid = int(sum(t * c_ for t, c_ in segs) + (C - n_tok)
+                        * segs[-1][1])
+        moved, ops = k3_bytes_ops(k, ks, n_valid, tok_valid, H, d,
+                                  (q, seg, tables, valid), got)
+        bms, by = bound_ms(moved, ops)
+        row = dict(fn="B4", case=name, nb=nb, pages=dtype, C=C, R=R,
+                   segments=segs, padding=C - n_tok, H=H, KV=KV, d=d, bs=bs,
+                   m_err=m_err, out_err=o_err, merged_err=merged_err, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                   bound_by=by, bytes=moved)
+        emit(dict(phase="k3", **row))
+        rows.append(row)
+    for B, Cb, nb, dtype, cached in K3_B3_CASES:
+        k, v, ks, vs, tables = chunk_pool(torch, gen, B, nb, dtype)
+        valid = torch.arange(nb * bs)[None, :] < torch.tensor(cached)[:, None]
+        q = torch.randn(B, Cb, H, d, generator=gen)
+        q, tables, valid = (t.to(DEV) for t in (q, tables, valid))
+        got = K3.paged_flash_prefill_chunk(q, k, v, tables, valid, ks, vs)
+        want = K3.paged_prefill_chunk_plain(q, k, v, tables, valid, ks, vs)
+        m_err, o_err = chunk_partial_errors(got, want)
+        if not (m_err <= K3_M_TOL and o_err <= K3_OUT_TOL):
+            raise AssertionError(f"K3-B3 {B}x{Cb} nb {nb} {dtype}: m err "
+                                 f"{m_err}, output err {o_err}")
+        ms = timer(lambda: K3.paged_flash_prefill_chunk(
+            q, k, v, tables, valid, ks, vs))
+        plain_ms = timer(lambda: K3.paged_prefill_chunk_plain(
+            q, k, v, tables, valid, ks, vs))
+        lib_ms = _sdpa_ms(torch, timer, q.permute(0, 2, 1, 3), k, v, ks, vs,
+                          tables, valid[:, None, None, :], dtype)
+        moved, ops = k3_bytes_ops(k, ks, cached, Cb * sum(cached), H, d,
+                                  (q, tables, valid), got)
+        bms, by = bound_ms(moved, ops)
+        row = dict(fn="B3", B=B, C=Cb, nb=nb, pages=dtype, cached=cached,
+                   H=H, KV=KV, d=d, bs=bs, m_err=m_err, out_err=o_err, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                   bound_by=by, bytes=moved)
+        emit(dict(phase="k3", **row))
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 5: full-width model, teacher-forced
 
 def _pages_reversed(K2):
     """The plain paged attention with each row's pages in reverse order:
@@ -491,86 +714,366 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the serving driver on the card
+# phase 6: full-width model, chunked and packed prefill
 
-def phase_serve(torch, extra_argv=()):
+class CheckedK3:
+    """One K3 entry point (B3 or B4) on the inputs the model gives it, each
+    call held against its plain version on the same inputs with phase k3's
+    tolerances (m relative to max(1, |m|), the model's scores reach tens).
+    Returns the kernel's partials."""
+
+    def __init__(self, kernel, plain):
+        self.kernel, self.plain = kernel, plain
+        self.calls, self.m_err, self.out_err = 0, 0.0, 0.0
+
+    def __call__(self, *args):
+        got = self.kernel(*args)
+        m_err, o_err = chunk_partial_errors(got, self.plain(*args),
+                                            m_relative=True)
+        if not (m_err <= K3_M_TOL and o_err <= K3_OUT_TOL):
+            raise AssertionError(f"K3 in the model, call {self.calls}: "
+                                 f"relative m err {m_err}, output err "
+                                 f"{o_err}")
+        self.calls += 1
+        self.m_err = max(self.m_err, m_err)
+        self.out_err = max(self.out_err, o_err)
+        return got
+
+
+CHUNK, BS = 64, 16
+
+
+def prefill_three(torch, model, params, prompts, impls):
+    """Three requests into one page pool: A through ``Model.prefill_chunk``
+    in 64-token chunks (B3); B's first 64 tokens through a one-segment
+    ``prefill_packed`` chunk, then B's remaining tokens packed with all of
+    C in one chunk (B4).  ``impls`` (B3, B4) replace the model's K3 entry
+    points for the run; None prefills each request in one shot instead.
+    Returns the state, with every row's block table set."""
+    from repro_torch.models import attention as A
+    cfg = model.cfg
+    lens = [len(p) for p in prompts]
+    nb = -(-(max(lens) + 1) // BS)
+    table = (1 + torch.arange(3 * nb)).reshape(3, nb).to(torch.int32).to(DEV)
+    st = model.init_paged_state(3, 3 * nb + 1, BS, nb, device=DEV)
+    pages = {k: v for k, v in st.items() if k != "block_tables"}
+    if impls is None:
+        for i, p in enumerate(prompts):
+            n = -(-len(p) // BS)
+            pre, _, _ = model.prefill(cfg, params, {"tokens": p[None]}, n * BS)
+            A.prefill_to_pages(pages, pre, table[i], n)
+    else:
+        served = A.paged_flash_prefill_chunk, A.paged_flash_packed_chunk
+        A.paged_flash_prefill_chunk, A.paged_flash_packed_chunk = impls
+        try:
+            a, b, c = prompts
+            zero = torch.zeros(1, dtype=torch.long, device=DEV)
+            for start in range(0, len(a), CHUNK):
+                n = min(CHUNK, len(a) - start)
+                buf = torch.zeros(1, CHUNK, dtype=torch.int32, device=DEV)
+                buf[0, :n] = a[start:start + n]
+                model.prefill_chunk(cfg, params, buf, st, zero, start, n,
+                                    block_rows=table[0:1])
+            i32 = dict(dtype=torch.int32, device=DEV)
+            slots = torch.tensor([1, 2], **i32)
+            model.prefill_packed(cfg, params, b[:CHUNK], st,
+                                 torch.zeros(CHUNK, **i32), slots,
+                                 torch.tensor([0, 0], **i32),
+                                 torch.tensor([CHUNK, 0], **i32),
+                                 table[1:3])
+            tail = len(b) - CHUNK
+            assert tail + len(c) == CHUNK, "B's tail and C fill one chunk"
+            model.prefill_packed(cfg, params, torch.cat([b[CHUNK:], c]), st,
+                                 torch.tensor([0] * tail + [1] * len(c),
+                                              **i32), slots,
+                                 torch.tensor([CHUNK, 0], **i32),
+                                 torch.tensor([tail, len(c)], **i32),
+                                 table[1:3])
+        finally:
+            A.paged_flash_prefill_chunk, A.paged_flash_packed_chunk = served
+    st["block_tables"].copy_(table)
+    return st, table
+
+
+def prompt_pages(torch, state, table, lens):
+    """Each request's prompt K/V read back from the pool, concatenated:
+    (L, KV, sum(lens), dh) f32 for "k" and "v"."""
+    out = {}
+    for key in ("k", "v"):
+        parts = []
+        for i, n in enumerate(lens):
+            pg = state[key][:, table[i].long()]      # (L, nb, KV, bs, dh)
+            L, nb, kv, bs, dh = pg.shape
+            parts.append(pg.permute(0, 2, 1, 3, 4).reshape(
+                L, kv, nb * bs, dh)[:, :, :n].float())
+        out[key] = torch.cat(parts, dim=2)
+    return out
+
+
+def chunked_vs_one_shot(torch, model, params, prompts, feed):
+    """Prefill the three requests one shot, chunked through K3 (every call
+    checked) and chunked through K3's plain versions; then one decode step
+    of the same fed token on each.  Returns the max page and next-step
+    logit differences from one shot, of the K3 run and of the plain run,
+    the scales, and the checked calls."""
+    from repro_torch.kernels import paged_chunk as K3
+    cfg = model.cfg
+    lens = [len(p) for p in prompts]
+    b3 = CheckedK3(K3.paged_flash_prefill_chunk, K3.paged_prefill_chunk_plain)
+    b4 = CheckedK3(K3.paged_flash_packed_chunk, K3.paged_packed_chunk_plain)
+    runs = {"one_shot": None, "k3": (b3, b4),
+            "plain": (K3.paged_prefill_chunk_plain,
+                      K3.paged_packed_chunk_plain)}
+    pages, logits = {}, {}
+    pos = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    for name, impls in runs.items():
+        st, table = prefill_three(torch, model, params, prompts, impls)
+        pages[name] = prompt_pages(torch, st, table, lens)
+        lg, _, _ = model.decode_step(cfg, params, feed, st, pos)
+        lg = lg[:, :cfg.vocab_size].float()
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"{name}: non-finite logits")
+        logits[name] = lg
+    res = {}
+    for name in ("k3", "plain"):
+        res[f"{name}_page_diff"] = max(
+            float((pages[name][k] - pages["one_shot"][k]).abs().max())
+            for k in ("k", "v"))
+        res[f"{name}_logit_diff"] = float(
+            (logits[name] - logits["one_shot"]).abs().max())
+    res["page_scale"] = max(float(pages["one_shot"][k].abs().max())
+                            for k in ("k", "v"))
+    res["logit_scale"] = float(logits["one_shot"].abs().max())
+    res.update(b3_calls=b3.calls, b4_calls=b4.calls,
+               k3_m_rel_err=max(b3.m_err, b4.m_err),
+               k3_out_err=max(b3.out_err, b4.out_err))
+    return res
+
+
+def phase_model_chunked(torch, reduced: bool = False):
+    """Full-width smollm-360m: chunked and packed prefill through K3 held
+    to one-shot prefill, in bf16 (as served) and with the same weights in
+    float32."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    cfg = get_config("smollm-360m")
+    if reduced:
+        cfg = cfg.reduced()
+    model = build(cfg)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    params = model.init(gen, DEV)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                             dtype=torch.int32).to(DEV)
+               for n in (160, 100, 28)]
+    feed = torch.randint(0, cfg.vocab_size, (3,), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    bf16 = chunked_vs_one_shot(torch, model, params, prompts, feed)
+    # bf16: chunked prefill and one shot sum the same attention in another
+    # order (online softmax over pages, then the chunk's own keys, against
+    # one softmax), and every layer's bf16 cast turns that into one-ulp
+    # flips the random-weight stack amplifies; K3 and its plain version are
+    # two such orders.  So K3's distance from one shot is held to 8x the
+    # plain version's own distance plus one bf16 ulp of the largest value,
+    # as phase 5 holds K2 (the kernel itself is held per call above)
+    for what in ("page", "logit"):
+        bound = 8 * bf16[f"plain_{what}_diff"] + bf16[f"{what}_scale"] * 2**-8
+        bf16[f"{what}_bound"] = bound
+        if bf16[f"k3_{what}_diff"] > bound:
+            raise AssertionError(f"bf16 chunked vs one-shot {what}s: "
+                                 f"{bf16[f'k3_{what}_diff']} > {bound}")
+    # float32, the same weights: no bf16 cast between layers, so the orders
+    # differ by f32 rounding times the same amplification; 2^-10 of the
+    # largest value, phase 5's f32 bound
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                kv_cache_dtype="float32")
+    f32 = chunked_vs_one_shot(torch, build(cfg32), _tree(params, lambda t:
+                                                         t.float()),
+                              prompts, feed)
+    for what in ("page", "logit"):
+        bound = f32[f"{what}_scale"] * 2**-10
+        f32[f"{what}_bound"] = bound
+        for run in ("k3", "plain"):
+            if f32[f"{run}_{what}_diff"] > bound:
+                raise AssertionError(f"f32 chunked ({run}) vs one-shot "
+                                     f"{what}s: {f32[f'{run}_{what}_diff']}"
+                                     f" > {bound}")
+    res = dict(phase="model-chunked", arch=cfg.name, layers=cfg.n_layers,
+               prompts=[len(p) for p in prompts], chunk=CHUNK, bf16=bf16,
+               f32=f32)
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 9: the serving driver on the card; 8 and 10: its trace
+
+def kernel_counters():
+    """Every kernel wrapper of the port, by name: each counts its launches."""
+    from repro_torch.kernels import paged_chunk as K3
     from repro_torch.kernels import paged_decode as K2
     from repro_torch.kernels import probe_step as K1
+    return {"serving_probe_step": K1.serving_probe_step,
+            "paged_flash_decode": K2.paged_flash_decode,
+            "paged_flash_prefill_chunk": K3.paged_flash_prefill_chunk,
+            "paged_flash_packed_chunk": K3.paged_flash_packed_chunk}
+
+
+def zero_launches() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def phase_serve(torch, extra_argv=(), *, phase="serve", requests=8,
+                need=("serving_probe_step", "paged_flash_decode")):
+    """The serving driver end to end; every kernel in ``need`` must have
+    launched during it (counts zeroed just before, read just after)."""
     from repro_torch.launch import serve
-    argv = ["--arch", "smollm-360m", "--paged", "--requests", "8",
+    argv = ["--arch", "smollm-360m", "--paged", "--requests", str(requests),
             "--slots", "4", "--max-new-tokens", "96", "--seed", str(SEED),
             *extra_argv]
-    K1.serving_probe_step.launches = 0
-    K2.paged_flash_decode.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     out = serve.serve(argv)
     sync(torch)
     wall = time.perf_counter() - t0
-    launches = {"serving_probe_step": K1.serving_probe_step.launches,
-                "paged_flash_decode": K2.paged_flash_decode.launches}
+    launches = read_launches()
     states = [r.state.value for r in out.requests]
-    if len(states) != 8 or not set(states) <= {"stopped", "finished"}:
+    if len(states) != requests or not set(states) <= {"stopped",
+                                                      "finished"}:
         raise AssertionError(f"requests did not all end: {states}")
     pool = out.scheduler.pool
     pool.check()
     if pool.blocks_in_use:
         raise AssertionError(f"{pool.blocks_in_use} pages still in use")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel never ran on the main path: "
+    missing = [k for k in need if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"{missing} never ran on the main path: "
                              f"{launches}")
     fleet = out.fleet
-    res = dict(phase="serve", argv=argv, lam=out.lam, states=states,
+    res = dict(phase=phase, argv=argv, lam=out.lam, states=states,
                stop_steps=[r.stop_step for r in out.requests],
                tokens=[len(r.tokens) for r in out.requests],
                engine_steps=fleet.engine_steps,
                requests_per_s=fleet.requests_per_s,
                tokens_per_s=fleet.tokens_per_s,
                serve_wall_s=fleet.wall_time_s, driver_wall_s=wall,
+               prefill_chunks=fleet.prefill_chunks,
+               packed_chunks=fleet.packed_chunks,
+               peak_step_tokens=fleet.peak_step_tokens,
+               stall_ms_p50=fleet.stall_ms_p50,
+               stall_ms_p99=fleet.stall_ms_p99,
+               ttft_ms_p50=fleet.ttft_ms_p50, ttft_ms_p99=fleet.ttft_ms_p99,
                launches=launches)
     emit(res)
     return res, out.scheduler
 
 
-def phase_trace(torch, sched, steps: int = 16):
+def phase_trace(torch, sched, steps: int = 16, prompt_len: int = 16,
+                phase: str = "trace"):
     """A profiler window over ``steps`` engine steps of the served fleet,
-    refilled with fresh requests: the card's busy share of the window's
-    wall time and the kernels that take it."""
+    refilled with fresh requests of ``prompt_len`` tokens: the card's busy
+    share of the window's wall time and the kernels that take it, and the
+    device kernels and busy share per step, split into steps that ran a
+    prefill chunk and steps that did not.  A device kernel belongs to the
+    step whose host span it starts in (every step ends in a sync)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.serving import make_request
     gen = torch.Generator().manual_seed(SEED + 2)
     vocab = sched.model.cfg.vocab_size
-    prompts = torch.randint(0, vocab, (sched.n_slots, 16), generator=gen,
-                            dtype=torch.int32)
+    prompts = torch.randint(0, vocab, (sched.n_slots, prompt_len),
+                            generator=gen, dtype=torch.int32)
     sched.submit([make_request(t.numpy(), max_new_tokens=3 * steps)
                   for t in prompts])
-    for _ in range(4):                      # admission, then warm steps
+    eng = sched.engine
+    had_chunk = []
+    served_step = eng.step
+
+    def step(chunk=None):
+        had_chunk.append(chunk is not None)
+        return served_step(chunk) if chunk is not None else served_step()
+
+    # admission, then warm steps; a chunked fleet's window starts after
+    # one, so that it holds the prompts' chunk steps and the decode after
+    for _ in range(4 if prompt_len <= CHUNK else 1):
         sched.step()
     sync(torch)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            sched.step()
-        sync(torch)
-        wall_us = (time.perf_counter() - t0) * 1e6
+    eng.step = step
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                with record_function(f"engine_step_{i}"):
+                    sched.step()
+            sync(torch)
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        del eng.step
     while sched.step():
         pass
+    def on_device(e):
+        # device-side events only (an operator's row on the host also
+        # carries the device time of the kernels it launched), without the
+        # device-side copies of the step annotations
+        return (e.device_type == DeviceType.CUDA
+                and not e.key.startswith("engine_step_"))
+
     rows = []
     for e in prof.key_averages():
-        # device-side events only: an operator's row on the host also
-        # carries the device time of the kernels it launched
-        if e.device_type != DeviceType.CUDA:
+        if not on_device(e):
             continue
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
         rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    res = dict(phase="trace", steps=steps, wall_ms_per_step=wall_us / steps
-               / 1e3, device_busy_ms_per_step=busy_us / steps / 1e3,
+    # per-step split: host spans of the steps, device events by start
+    spans = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith(
+                "engine_step_"):
+            spans[int(e.name.rsplit("_", 1)[1])] = (e.time_range.start,
+                                                    e.time_range.end)
+    order = sorted(spans)
+    starts = [spans[i][0] for i in order]
+    per_step = {i: [0, 0.0] for i in order}
+    unassigned = 0
+    for e in prof.events():
+        if not on_device(e):
+            continue
+        j = bisect.bisect_right(starts, e.time_range.start) - 1
+        if j < 0:
+            unassigned += 1
+            continue
+        per_step[order[j]][0] += 1
+        per_step[order[j]][1] += e.time_range.elapsed_us()
+    split = {}
+    for label, flag in (("with_chunk", True), ("without_chunk", False)):
+        ids = [i for i in order if had_chunk[i] == flag]
+        if not ids:
+            split[label] = None
+            continue
+        span_us = sum(spans[i][1] - spans[i][0] for i in ids)
+        split[label] = dict(
+            steps=len(ids),
+            kernels_per_step=sum(per_step[i][0] for i in ids) / len(ids),
+            device_busy_ms_per_step=sum(per_step[i][1] for i in ids)
+            / len(ids) / 1e3,
+            wall_ms_per_step=span_us / len(ids) / 1e3,
+            device_busy_share=(sum(per_step[i][1] for i in ids) / span_us
+                               if span_us else None))
+    res = dict(phase=phase, steps=steps, prompt_len=prompt_len,
+               wall_ms_per_step=wall_us / steps / 1e3,
+               device_busy_ms_per_step=busy_us / steps / 1e3,
                device_busy_share=busy_us / wall_us if busy_us else None,
                kernels_per_step=sum(r[2] for r in rows) / steps,
+               split=split, unassigned_device_events=unassigned,
                top=[dict(kernel=k[:90], ms_per_step=us / steps / 1e3,
                          calls_per_step=c / steps)
                     for us, k, c in rows[:8]])
@@ -599,13 +1102,44 @@ def main() -> int:
     timer = Timer(torch)
     k1 = phase_k1(torch, timer)
     k2 = phase_k2(torch, timer)
+    k3 = phase_k3(torch, timer)
     model = phase_model(torch)
+    zero_launches()
+    chunked = phase_model_chunked(torch)
+    b3_launches = read_launches()["paged_flash_prefill_chunk"]
+    if b3_launches < 1:
+        raise AssertionError("K3-B3 never ran in the chunked model phase")
     served, sched = phase_serve(torch)
     phase_trace(torch, sched)
+    served_c, sched_c = phase_serve(
+        torch, ("--chunk-tokens", str(CHUNK), "--prompt-len", "160"),
+        phase="serve-chunked",
+        need=("serving_probe_step", "paged_flash_decode",
+              "paged_flash_packed_chunk"))
+    if served_c["packed_chunks"] < 1:
+        raise AssertionError("the chunked fleet packed no chunk")
+    phase_trace(torch, sched_c, steps=24, prompt_len=160,
+                phase="trace-chunked")
     k2_main = k2[0]
     # absolute errors: phase k2's m and outputs, the model's outputs
     k2_err = max([max(r["m_err"], r["out_err"]) for r in k2]
                  + [model[p]["k2_out_err"] for p in ("bf16", "f32")])
+    b3_rows = [r for r in k3 if r["fn"] == "B3"]
+    b4_rows = [r for r in k3 if r["fn"] == "B4"]
+    k3_model_err = max(chunked[p]["k3_out_err"] for p in ("bf16", "f32"))
+    b3_err = max([max(r["m_err"], r["out_err"]) for r in b3_rows]
+                 + [k3_model_err])
+    b4_err = max([max(r["m_err"], r["out_err"], r["merged_err"])
+                  for r in b4_rows] + [k3_model_err])
+
+    def k3_entry(name, line, launches, err, row):
+        return dict(name=name, route="cuda",
+                    source="src/repro_torch/csrc/paged_chunk.cu",
+                    replaces=f"src/repro/kernels/decode_attention.py:{line}",
+                    launches=launches, max_abs_err=err, ms=row["ms"],
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"], library_ms=row["library_ms"])
+
     emit({"kernels": [
         dict(name="serving_probe_step", route="cuda",
              source="src/repro_torch/csrc/probe_step.cu",
@@ -622,6 +1156,11 @@ def main() -> int:
              plain_ms=k2_main["plain_ms"], bound_ms=k2_main["bound_ms"],
              bound_by=k2_main["bound_by"],
              library_ms=k2_main["library_ms"]),
+        k3_entry("paged_flash_prefill_chunk", 265, b3_launches, b3_err,
+                 b3_rows[0]),
+        k3_entry("paged_flash_packed_chunk", 298,
+                 served_c["launches"]["paged_flash_packed_chunk"], b4_err,
+                 b4_rows[0]),
     ]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

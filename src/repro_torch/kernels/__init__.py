@@ -1,5 +1,9 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version: CPU tensors take the plain version, CUDA tensors the kernel."""
+from repro_torch.kernels.paged_chunk import (paged_flash_packed_chunk,
+                                             paged_flash_prefill_chunk,
+                                             paged_packed_chunk_plain,
+                                             paged_prefill_chunk_plain)
 from repro_torch.kernels.paged_decode import (paged_attend, paged_attend_plain,
                                               paged_decode_plain,
                                               paged_flash_decode)
@@ -7,5 +11,7 @@ from repro_torch.kernels.probe_step import (ProbeStepOut, serving_probe_step,
                                             serving_probe_step_plain)
 
 __all__ = ["ProbeStepOut", "paged_attend", "paged_attend_plain",
-           "paged_decode_plain", "paged_flash_decode", "serving_probe_step",
-           "serving_probe_step_plain"]
+           "paged_decode_plain", "paged_flash_decode",
+           "paged_flash_packed_chunk", "paged_flash_prefill_chunk",
+           "paged_packed_chunk_plain", "paged_prefill_chunk_plain",
+           "serving_probe_step", "serving_probe_step_plain"]

@@ -36,6 +36,10 @@ SIGNATURES = {
     "paged_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _c.c_int, _c.c_int, _c.c_int, _c.c_int,
                             _c.c_int, _c.c_int, _c.c_int, _c.c_float, _P],
+    "paged_chunk_launch": [_P, _P, _c.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                           _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                           _c.c_float, _P],
     "cuda_error_string": [_c.c_int],
 }
 

@@ -2,12 +2,14 @@
 scheduler, on the card by default.
 
     python -m repro_torch.launch.serve --arch smollm-360m --paged \
-        --requests 8 --slots 4 --max-new-tokens 96
+        --requests 8 --slots 4 --max-new-tokens 96 [--chunk-tokens 64]
 
 harvests step embeddings from THIS model (random weights from ``--seed``),
 meta-trains the TTT probe, LTT-calibrates lambda* at ``--delta`` and serves
 the queue: every ORCA stop evicts its slot, which is refilled from the
-queue on the next step.  ``--device cpu`` runs the plain PyTorch versions
+queue on the next step.  ``--chunk-tokens N`` prefills prompts in N-token
+chunks through the unified token-budget step, packed across up to
+``--pack-max`` requests.  ``--device cpu`` runs the plain PyTorch versions
 of the kernels (use ``--reduced`` there).
 """
 from __future__ import annotations
@@ -93,6 +95,17 @@ def serve(argv=None) -> ServeResult:
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--num-blocks", type=int, default=0,
                     help="pool size (0 -> dense-equivalent)")
+    ap.add_argument("--chunk-tokens", type=int, default=0,
+                    help="chunked prefill: schedule prompt prefill in "
+                         "chunks of this many tokens through the unified "
+                         "token-budget step (0 = admission-time prefill)")
+    ap.add_argument("--token-budget", type=int, default=0,
+                    help="max tokens per unified step (0 -> slots + chunk)")
+    ap.add_argument("--no-pack", action="store_true",
+                    help="disable multi-request chunk packing (one request "
+                         "per prefill chunk)")
+    ap.add_argument("--pack-max", type=int, default=4,
+                    help="max requests fused into one packed chunk")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -139,8 +152,11 @@ def serve(argv=None) -> ServeResult:
               f"{fleet.prefill_skips}")
     print(f"[serve] latency: ttft p50/p99 {fleet.ttft_ms_p50:.1f}/"
           f"{fleet.ttft_ms_p99:.1f} ms, step stall p50/p99 "
-          f"{fleet.stall_ms_p50:.1f}/{fleet.stall_ms_p99:.1f} ms "
-          "(admission-time prefill)")
+          f"{fleet.stall_ms_p50:.1f}/{fleet.stall_ms_p99:.1f} ms"
+          + (f", {fleet.prefill_chunks} prefill chunks "
+             f"({fleet.packed_chunks} packed, peak "
+             f"{fleet.peak_step_tokens} tok/step)"
+             if args.chunk_tokens else " (admission-time prefill)"))
     return ServeResult(done, fleet, sched, float(lam))
 
 

@@ -14,9 +14,11 @@ pages:  {"k","v"}: (L, P, KV, bs, d_head) — P physical pages shared by all
 Caches and page pools are updated IN PLACE (the buffers the JAX engine
 donates to its jitted step); the write functions return the same dict.
 Paged decode attention goes through K2 (``repro_torch.kernels.
-paged_decode.paged_flash_decode``): the plain version for CPU tensors, the
-CUDA kernel for CUDA tensors.  The dense-cache decode used by trajectory
-harvesting is plain PyTorch, as the JAX package's is plain jnp.
+paged_decode.paged_flash_decode``), paged chunked and packed prefill
+attention through K3 (``repro_torch.kernels.paged_chunk``): the plain
+versions for CPU tensors, the CUDA kernels for CUDA tensors.  The dense
+cache paths (trajectory harvesting, dense serving) are plain PyTorch, as
+the JAX package's are plain jnp.
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels.paged_decode import paged_flash_decode
+from repro_torch.kernels.paged_chunk import (paged_flash_packed_chunk,
+                                             paged_flash_prefill_chunk)
+from repro_torch.kernels.paged_decode import _gather, paged_flash_decode
 from repro_torch.models.common import torch_dtype
 
 NEG_INF = -1e30
@@ -275,3 +279,290 @@ def attn_decode(q, cache_l, valid, dtype, extra_kv=None) -> torch.Tensor:
     o, l = _merge_extra_kv(qg, o, l, m, extra_kv, d)
     out = o / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, h, d).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Chunked and packed prefill
+#
+# A prefill chunk's queries attend their request's already-written cache
+# positions plus, causally, the chunk's own keys (not yet in the cache).
+# The paged paths take the cache partials from K3 and fold the chunk's own
+# keys in (``_merge_kv_block`` / ``_merge_packed_block``); the dense paths
+# run ONE softmax over [cache | chunk], as the JAX jnp path does.
+
+def chunk_write_positions(pos_start, chunk_len, c: int, s_cache: int,
+                          device=None) -> torch.Tensor:
+    """Target positions for a C-token prefill chunk: ``pos_start + i`` for
+    real tokens, ``s_cache`` (out of range: the write is dropped) for
+    padding past ``chunk_len``."""
+    i = torch.arange(c, device=device)
+    return torch.where(i < chunk_len, i + pos_start,
+                       torch.full_like(i, s_cache))
+
+
+def cache_write_chunk(cache: Dict[str, torch.Tensor], ks: torch.Tensor,
+                      vs: torch.Tensor, rows: torch.Tensor, pos_start: int,
+                      chunk_len: int) -> Dict[str, torch.Tensor]:
+    """Write one prefill chunk's K/V for ALL layers into the ``rows`` lanes
+    of a dense stacked cache, in place.
+
+    cache (L,B,KV,S,dh); ks/vs (L,Bc,KV,C,dh); rows (Bc,) batch lanes;
+    positions [pos_start, pos_start+chunk_len) receive the chunk (host
+    ints: the eager caller's loop knows them); padding and positions past
+    the cache are dropped."""
+    s_cache = cache["k"].shape[3]
+    p0 = int(pos_start)
+    n = max(min(int(chunk_len), s_cache - p0), 0)
+    rows = rows.long()
+    for key, val in _kv_leaves(ks, vs, cache).items():
+        cache[key][:, rows, :, p0:p0 + n] = \
+            val[:, :, :, :n].to(cache[key].dtype)
+    return cache
+
+
+def cache_write_chunk_paged(cache: Dict[str, torch.Tensor], ks: torch.Tensor,
+                            vs: torch.Tensor, block_rows: torch.Tensor,
+                            pos_start, chunk_len) -> Dict[str, torch.Tensor]:
+    """Paged variant of :func:`cache_write_chunk`, in place: virtual
+    position ``pos_start + i`` of request ``b`` lands in page
+    ``block_rows[b, (pos_start+i) // bs]`` at offset ``(pos_start+i) %
+    bs``; padded chunk positions are routed to the NULL page (page 0,
+    scratch by construction, never allocated to a request)."""
+    bs = cache["k"].shape[3]
+    c = ks.shape[3]
+    block_rows = block_rows.long()
+    bc, nb = block_rows.shape
+    i = torch.arange(c, device=ks.device)
+    vpos = i + pos_start
+    blk = torch.clamp(vpos // bs, 0, nb - 1)
+    off = vpos % bs
+    real = (i < chunk_len)[None, :]                   # (1, C)
+    rows = torch.arange(bc, device=ks.device)[:, None]
+    page = torch.where(real, block_rows[rows, blk[None, :]],
+                       torch.zeros_like(blk)[None, :])       # (Bc, C)
+    off_b = off[None, :].expand(bc, c)
+    for key, val in _kv_leaves(ks, vs, cache).items():
+        # advanced indices (page, offset) at axes 1 and 3 -> value (Bc, C,
+        # L, KV, dh); duplicate NULL targets may race, NULL is scratch
+        cache[key][:, page, :, off_b, :] = \
+            val.permute(1, 3, 0, 2, 4).to(cache[key].dtype)
+    return cache
+
+
+def gather_cache_rows(cache_l: Dict[str, torch.Tensor], rows: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-layer dense cache lanes for a prefill chunk: (Bc, KV, S, d) f32
+    (int8 lanes dequantised)."""
+    rows = rows.long()
+    k = cache_l["k"][rows].float()
+    v = cache_l["v"][rows].float()
+    if "k_scale" in cache_l:
+        k = k * cache_l["k_scale"][rows].float()
+        v = v * cache_l["v_scale"][rows].float()
+    return k, v
+
+
+def gather_page_rows(cache_l: Dict[str, torch.Tensor],
+                     block_tables: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-layer paged K/V gathered through block tables into contiguous
+    virtual caches: (Bc, KV, nb*bs, d) f32."""
+    return (_gather(cache_l["k"], cache_l.get("k_scale"), block_tables),
+            _gather(cache_l["v"], cache_l.get("v_scale"), block_tables))
+
+
+def _merge_kv_block(qc, o, l, m, k_blk, v_blk, mask):
+    """Fold a block of keys into unnormalised online-softmax partials.
+
+    qc (B,KV,G,C,d) f32; o (B,KV,G,C,d); l/m (B,KV,G,C); k_blk/v_blk
+    (B,KV,T,d); mask (C,T), the causal-within-chunk mask.  A cache pass
+    with no valid position (m = -1e30) is weighed at exp(-1e30 - m_f) = 0."""
+    d = qc.shape[-1]
+    s = torch.einsum("bkgcd,bktd->bkgct", qc, k_blk) / d ** 0.5
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m_f = torch.maximum(m, s.amax(-1))
+    w_c = torch.exp(m - m_f)
+    p = torch.where(mask, torch.exp(s - m_f[..., None]), torch.zeros_like(s))
+    o = o * w_c[..., None] + torch.einsum("bkgct,bktd->bkgcd", p, v_blk)
+    l = l * w_c + p.sum(-1)
+    return o, l
+
+
+def attn_prefill_chunk(q, k_new, v_new, cache_l: Dict[str, torch.Tensor],
+                       valid: torch.Tensor, dtype, *, rows=None,
+                       block_tables=None) -> torch.Tensor:
+    """Chunked-prefill attention: a C-token query chunk of each request
+    attends its already-written cache positions plus causally within the
+    chunk.
+
+    q (Bc, C, H, d); k_new/v_new (Bc, C, KV, d), the chunk's own K/V (not
+    yet in the cache); cache_l the per-layer dense cache (Bfull, KV, S, dh)
+    read through ``rows`` (Bc,), or the paged pools (P, KV, bs, dh) read
+    through ``block_tables`` (Bc, nb) by K3; valid (Bc, S_virtual) marks
+    readable cache positions.  Returns (Bc, C, H, d)."""
+    b, c, h, d = q.shape
+    n_kv = k_new.shape[2]
+    g = h // n_kv
+    qc = q.reshape(b, c, n_kv, g, d).permute(0, 2, 3, 1, 4).float()
+    kb = k_new.transpose(1, 2).float()               # (B, KV, C, d)
+    vb = v_new.transpose(1, 2).float()
+    ar = torch.arange(c, device=q.device)
+    causal = ar[:, None] >= ar[None, :]
+    if block_tables is not None:
+        o, l, m = paged_flash_prefill_chunk(
+            q.float().contiguous(), cache_l["k"], cache_l["v"], block_tables,
+            valid, cache_l.get("k_scale"), cache_l.get("v_scale"))
+        o, l = _merge_kv_block(qc, o, l, m, kb, vb, causal)
+        out = o / torch.clamp(l, min=1e-30)[..., None]
+    else:
+        k_c, v_c = gather_cache_rows(cache_l, rows)
+        scale = 1.0 / d ** 0.5
+        sc_c = torch.einsum("bkgcd,bksd->bkgcs", qc, k_c) * scale
+        sc_c = torch.where(valid[:, None, None, None, :], sc_c,
+                           torch.full_like(sc_c, NEG_INF))
+        sc_n = torch.einsum("bkgcd,bktd->bkgct", qc, kb) * scale
+        sc_n = torch.where(causal, sc_n, torch.full_like(sc_n, NEG_INF))
+        # ONE softmax over [cache | chunk], the shape of full prefill
+        p = torch.softmax(torch.cat([sc_c, sc_n], dim=-1), dim=-1)
+        s_len = k_c.shape[2]
+        out = torch.einsum("bkgcs,bksd->bkgcd", p[..., :s_len], v_c) \
+            + torch.einsum("bkgct,bktd->bkgcd", p[..., s_len:], vb)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, c, h, d).to(dtype)
+
+
+def packed_chunk_mask(seg: torch.Tensor, valid_tok: torch.Tensor
+                      ) -> torch.Tensor:
+    """Block-diagonal causal mask for a PACKED chunk's own keys: token i
+    may attend chunk token j iff both belong to the same segment, j does
+    not follow i (segments are laid out contiguously, so this is
+    per-request causality) and j is a real token.  seg (C,), valid_tok
+    (C,) -> (C, C).  (The tree form, with ancestors, comes with spec and
+    tree decode.)"""
+    i = torch.arange(seg.shape[0], device=seg.device)
+    return ((seg[:, None] == seg[None, :]) & valid_tok[None, :]
+            & (i[None, :] <= i[:, None]))
+
+
+def _merge_packed_block(qg, o, l, m, k_new, v_new, mask):
+    """Fold a packed chunk's own keys into per-token unnormalised partials.
+
+    qg (C,KV,G,d) f32; o (C,KV,G,d); l/m (C,KV,G); k_new/v_new (C,KV,d);
+    mask (C,C) the block-diagonal chunk mask.  Tokens whose cache pass had
+    no valid position (m = -1e30) are weighed at exactly zero."""
+    d = qg.shape[-1]
+    kb = k_new.transpose(0, 1).float()               # (KV, C, d)
+    vb = v_new.transpose(0, 1).float()
+    s = torch.einsum("ckgd,ktd->ckgt", qg, kb) / d ** 0.5
+    mk = mask[:, None, None, :]
+    s = torch.where(mk, s, torch.full_like(s, NEG_INF))
+    m_f = torch.maximum(m, s.amax(-1))
+    w_c = torch.exp(m - m_f)
+    p = torch.where(mk, torch.exp(s - m_f[..., None]), torch.zeros_like(s))
+    o = o * w_c[..., None] + torch.einsum("ckgt,ktd->ckgd", p, vb)
+    l = l * w_c + p.sum(-1)
+    return o, l
+
+
+def attn_prefill_packed(q, k_new, v_new, cache_l: Dict[str, torch.Tensor],
+                        seg: torch.Tensor, seg_starts: torch.Tensor,
+                        chunk_mask: torch.Tensor, dtype, *, rows=None,
+                        seg_tables=None) -> torch.Tensor:
+    """Packed multi-request chunk attention: C chunk tokens of up to R
+    requests ("segments") each attend THEIR OWN request's already-written
+    cache positions plus, under the block-diagonal ``chunk_mask``, the
+    chunk tokens of their own segment that precede them.
+
+    q (C, H, d); k_new/v_new (C, KV, d); seg (C,) segment id per token;
+    seg_starts (R,) each segment's prefill progress (its readable prefix);
+    cache_l the per-layer dense cache read through ``rows`` (C,) per-token
+    lanes, or the paged pools read through ``seg_tables`` (R, nb) by K3.
+    Returns (C, H, d)."""
+    c, h, d = q.shape
+    n_kv = k_new.shape[1]
+    g = h // n_kv
+    qg = q.reshape(c, n_kv, g, d).float()
+    if seg_tables is not None:
+        n_virtual = seg_tables.shape[1] * cache_l["k"].shape[2]
+        seg_valid = (torch.arange(n_virtual, device=q.device)[None, :]
+                     < seg_starts[:, None])
+        o, l, m = paged_flash_packed_chunk(
+            q.float().contiguous(), cache_l["k"], cache_l["v"], seg,
+            seg_tables, seg_valid, cache_l.get("k_scale"),
+            cache_l.get("v_scale"))
+        o, l = _merge_packed_block(qg, o, l, m, k_new, v_new, chunk_mask)
+        out = o / torch.clamp(l, min=1e-30)[..., None]
+    else:
+        kb = k_new.transpose(0, 1).float()           # (KV, C, d)
+        vb = v_new.transpose(0, 1).float()
+        k_c, v_c = gather_cache_rows(cache_l, rows)  # (C, KV, S, d)
+        valid = (torch.arange(k_c.shape[2], device=q.device)[None, :]
+                 < seg_starts[seg.long()][:, None])
+        scale = 1.0 / d ** 0.5
+        sc_c = torch.einsum("ckgd,cksd->ckgs", qg, k_c) * scale
+        sc_c = torch.where(valid[:, None, None, :], sc_c,
+                           torch.full_like(sc_c, NEG_INF))
+        sc_n = torch.einsum("ckgd,ktd->ckgt", qg, kb) * scale
+        sc_n = torch.where(chunk_mask[:, None, None, :], sc_n,
+                           torch.full_like(sc_n, NEG_INF))
+        # ONE softmax over [cache | chunk] per token
+        p = torch.softmax(torch.cat([sc_c, sc_n], dim=-1), dim=-1)
+        s_len = k_c.shape[2]
+        out = torch.einsum("ckgs,cksd->ckgd", p[..., :s_len], v_c) \
+            + torch.einsum("ckgt,ktd->ckgd", p[..., s_len:], vb)
+    return out.reshape(c, h, d).to(dtype)
+
+
+def cache_write_packed(cache: Dict[str, torch.Tensor], ks: torch.Tensor,
+                       vs: torch.Tensor, rows: torch.Tensor,
+                       wpos: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Write a PACKED chunk's K/V for ALL layers into a dense stacked
+    cache, in place: every chunk token targets its own (lane, position).
+
+    cache (L,B,KV,S,dh); ks/vs (L,KV,C,dh); rows (C,) per-token lanes;
+    wpos (C,) per-token positions, padding routed out of range (>= S) and
+    dropped.  A dropped write repeats the chunk's first kept write (same
+    target, same value), so the scatter needs no host sync and no two
+    targets race."""
+    s_cache = cache["k"].shape[3]
+    c = wpos.shape[0]
+    keep = wpos < s_cache
+    first = torch.argmax(keep.to(torch.int32))       # 0 if nothing is kept
+    src = torch.where(keep, torch.arange(c, device=wpos.device), first)
+    lane = rows.long()[src]
+    pos = torch.clamp(wpos.long()[src], max=s_cache - 1)
+    kept = keep[src][:, None, None, None]
+    for key, val in _kv_leaves(ks, vs, cache).items():
+        # advanced indices (lane, position) at axes 1 and 3 move to the
+        # front: (C, L, KV, dh)
+        old = cache[key][:, lane, :, pos, :]
+        new = val[:, :, src].permute(2, 0, 1, 3).to(old.dtype)
+        cache[key][:, lane, :, pos, :] = torch.where(kept, new, old)
+    return cache
+
+
+def cache_write_packed_paged(cache: Dict[str, torch.Tensor], ks: torch.Tensor,
+                             vs: torch.Tensor, tok_tables: torch.Tensor,
+                             wpos: torch.Tensor, valid_tok: torch.Tensor
+                             ) -> Dict[str, torch.Tensor]:
+    """Paged variant of :func:`cache_write_packed`, in place: chunk token t
+    lands in page ``tok_tables[t, wpos_t // bs]`` at offset ``wpos_t %
+    bs``; padding tokens are routed to the NULL page (page 0, scratch).
+
+    cache k/v (L,P,KV,bs,dh); ks/vs (L,KV,C,dh); tok_tables (C, nb)
+    per-token block-table rows; wpos (C,) virtual positions; valid_tok
+    (C,) marks real tokens."""
+    bs = cache["k"].shape[3]
+    c = ks.shape[2]
+    nb = tok_tables.shape[1]
+    wpos = wpos.long()
+    blk = torch.clamp(wpos // bs, 0, nb - 1)
+    off = wpos % bs
+    page = torch.where(valid_tok,
+                       tok_tables.long()[torch.arange(c, device=ks.device),
+                                         blk], torch.zeros_like(blk))
+    for key, val in _kv_leaves(ks, vs, cache).items():
+        # advanced indices (page, offset) at axes 1 and 3 -> value (C, L,
+        # KV, dh); duplicate NULL targets may race, NULL is scratch
+        cache[key][:, page, :, off, :] = \
+            val.permute(2, 0, 1, 3).to(cache[key].dtype)
+    return cache

@@ -8,8 +8,12 @@ package's:
     decode_step(cfg, params, token, state, pos) -> (logits, hidden, state)
     init_decode_state(batch, cache_len, device) -> dense KV state
     init_paged_state(batch, num_blocks, block_size, max_blocks, device)
+    prefill_chunk(cfg, params, tokens, state, rows, pos_start, chunk_len,
+                  block_rows=None) -> state
+    prefill_packed(cfg, params, tokens, state, seg, slots, starts,
+                   lengths, block_rows=None) -> state
 
-Only the dense family is ported (slice 1 of the port); the others raise.
+Only the dense family is ported; the others raise.
 """
 from __future__ import annotations
 
@@ -35,10 +39,25 @@ class Model:
     # paged-KV serving: (batch, num_blocks, block_size, max_blocks, device)
     # -> page pools + a per-row "block_tables" array
     init_paged_state: Optional[Callable] = None
+    # chunked prefill: (cfg, params, tokens (Bc, C), state, rows (Bc,),
+    # pos_start, chunk_len, block_rows=None) -> state, C prompt tokens of
+    # each request resumed at its prefill progress
+    prefill_chunk: Optional[Callable] = None
+    # PACKED chunked prefill: (cfg, params, tokens (C,), state, seg (C,),
+    # slots (R,), starts (R,), lengths (R,), block_rows=None) -> state, one
+    # chunk carrying tokens of up to R requests, block-diagonally isolated;
+    # the single-segment call IS the unpacked chunk, so the unified serving
+    # step runs every chunk through it
+    prefill_packed: Optional[Callable] = None
 
     @property
     def supports_paged(self) -> bool:
         return self.init_paged_state is not None
+
+    @property
+    def supports_chunked(self) -> bool:
+        return (self.prefill_chunk is not None
+                and self.prefill_packed is not None)
 
     def init(self, generator: Optional[torch.Generator] = None,
              device=None):
@@ -64,7 +83,9 @@ def _build_dense(cfg: ModelConfig) -> Model:
                  prefill=transformer.prefill,
                  decode_step=transformer.decode_step,
                  init_decode_state=init_decode_state,
-                 init_paged_state=init_paged_state)
+                 init_paged_state=init_paged_state,
+                 prefill_chunk=transformer.prefill_chunk,
+                 prefill_packed=transformer.prefill_packed_chunk)
 
 
 def build(cfg: ModelConfig) -> Model:

@@ -84,9 +84,10 @@ def _qkv(cfg, p, x):
     return q, k, v
 
 
-def layer_prefill(cfg, p, x, positions, window: Optional[int]):
-    """x (B,S,d) -> (x', (k, v)) with k/v (B, KV, S, dh) for the cache."""
-    b, s, d = x.shape
+def _attn_block(cfg, p, x, positions):
+    """ln1 + the q/k/v projections + rope of a (B, S, d) block:
+    q (B,S,H,dh), k/v (B,S,KV,dh)."""
+    b, s, _ = x.shape
     h = apply_norm(cfg, p["ln1"], x)
     q, k, v = _qkv(cfg, p["attn"], h)
     q = q.reshape(b, s, cfg.n_heads, cfg.d_head)
@@ -94,12 +95,21 @@ def layer_prefill(cfg, p, x, positions, window: Optional[int]):
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+    return q, k, v
+
+
+def _finish_block(cfg, p, x, o):
+    """wo, the residual, ln2 and the MLP after attention output o."""
+    b, s = x.shape[:2]
+    x = x + o.reshape(b, s, cfg.attn_out_dim) @ p["attn"]["wo"].to(x.dtype)
+    return x + mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+
+
+def layer_prefill(cfg, p, x, positions, window: Optional[int]):
+    """x (B,S,d) -> (x', (k, v)) with k/v (B, KV, S, dh) for the cache."""
+    q, k, v = _attn_block(cfg, p, x, positions)
     o = attn.attn_prefill_einsum(q, k, v, causal=True, window=window)
-    o = o.reshape(b, s, cfg.attn_out_dim) @ p["attn"]["wo"].to(x.dtype)
-    x = x + o
-    h = apply_norm(cfg, p["ln2"], x)
-    x = x + mlp_apply(cfg, p["mlp"], h)
-    return x, (k.transpose(1, 2), v.transpose(1, 2))
+    return _finish_block(cfg, p, x, o), (k.transpose(1, 2), v.transpose(1, 2))
 
 
 def layer_decode(cfg, p, x, cache_l, pos, valid, block_tables=None):
@@ -175,15 +185,20 @@ def prefill(cfg, params, batch, cache_len: int):
 
 
 @torch.no_grad()
-def decode_step(cfg, params, token, cache, pos):
+def decode_step(cfg, params, token, cache, pos, *,
+                write_mask: Optional[torch.Tensor] = None):
     """One-token decode. token (B,); pos (B,) int32 per-row absolute
     positions (or a scalar shared by the batch).
 
     A cache carrying ``block_tables`` is PAGED: per-layer leaves are page
     pools (P,KV,bs,dh) read through each row's table with K2, and the
     new token's K/V lands through the table.  Otherwise the dense cache is
-    written at ``pos``.  The cache is updated IN PLACE; returns (logits,
-    hidden, cache)."""
+    written at ``pos``; ``write_mask`` (B,) bool drops the dense write of
+    False rows (parked, mid-prefill slots of the chunked serving engine,
+    whose lanes hold chunk-written prompt K/V a no-op decode write must not
+    clobber); paged rows ignore it, their parked writes land in the NULL
+    page.  The cache is updated IN PLACE; returns (logits, hidden,
+    cache)."""
     b = token.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32,
                           device=token.device).expand(b).contiguous()
@@ -196,7 +211,12 @@ def decode_step(cfg, params, token, cache, pos):
                                       * pages["k"].shape[3])
     else:
         pages, bt = cache, None
-        slot, valid = attn.decode_valid_mask(pos, b, cache["k"].shape[3])
+        s_cache = cache["k"].shape[3]
+        slot, valid = attn.decode_valid_mask(pos, b, s_cache)
+        if write_mask is not None:
+            # masked rows route their write out of range: dropped
+            slot = torch.where(write_mask, slot,
+                               torch.full_like(slot, s_cache))
     ks, vs = [], []
     for l in range(cfg.n_layers):
         cache_l = {key: val[l] for key, val in pages.items()}
@@ -211,3 +231,148 @@ def decode_step(cfg, params, token, cache, pos):
         attn.cache_write_stacked(cache, ks, vs, slot)
     h = apply_norm(cfg, params["final_norm"], x[:, None, :])[:, 0]
     return logits_from_hidden(cfg, params, h), h, cache
+
+
+# ---------------------------------------------------------------------------
+# Chunked and packed prefill
+
+def layer_prefill_chunk(cfg, p, x, cache_l, rows, block_rows, positions,
+                        valid):
+    """One layer of chunked prefill: x (Bc, C, d) at absolute ``positions``
+    (Bc, C); the chunk attends readable cache entries (``valid``) plus
+    causally within itself.  Returns (x', (k, v)) with k/v (Bc, KV, C, dh)
+    for the cache write after the layer loop."""
+    q, k, v = _attn_block(cfg, p, x, positions)
+    o = attn.attn_prefill_chunk(q, k, v, cache_l, valid, x.dtype, rows=rows,
+                                block_tables=block_rows)
+    return _finish_block(cfg, p, x, o), (k.transpose(1, 2), v.transpose(1, 2))
+
+
+@torch.no_grad()
+def prefill_chunk(cfg, params, tokens, state, rows, pos_start: int,
+                  chunk_len: int, block_rows=None):
+    """Chunked prefill: run C prompt tokens of each request through the
+    stack and write their K/V into the request's resident cache, resuming
+    at ``pos_start`` (the request's ``prefill_progress``).
+
+    tokens (Bc, C) int32, zero-padded past ``chunk_len``; rows (Bc,) batch
+    rows of ``state`` (a dense stacked cache — or, when the state carries
+    ``block_tables``, the paged pool written through ``block_rows``
+    (Bc, nb), the requests' physical pages).  ``pos_start`` and
+    ``chunk_len`` are host ints.  Queries attend [0, pos_start) plus
+    causally within the chunk; padded positions have their K/V writes
+    dropped (dense) or routed to the NULL page (paged).  The state is
+    updated IN PLACE and returned."""
+    bc, c = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    positions = (torch.arange(c, device=x.device) + pos_start).expand(bc, c)
+    paged = "block_tables" in state
+    if paged:
+        assert block_rows is not None, "paged prefill_chunk needs block rows"
+        pools = {k: v for k, v in state.items() if k != "block_tables"}
+        block_rows = block_rows.to(torch.int32).contiguous()
+        n_virtual = block_rows.shape[1] * pools["k"].shape[3]
+    else:
+        pools = state
+        n_virtual = state["k"].shape[3]
+    valid = (torch.arange(n_virtual, device=x.device)[None, :]
+             < pos_start).expand(bc, n_virtual).contiguous()
+    ks, vs = [], []
+    for l in range(cfg.n_layers):
+        cache_l = {key: val[l] for key, val in pools.items()}
+        x, (k, v) = layer_prefill_chunk(cfg, layer_params(params, l), x,
+                                        cache_l, rows, block_rows, positions,
+                                        valid)
+        ks.append(k)
+        vs.append(v)
+    ks, vs = torch.stack(ks), torch.stack(vs)     # (L, Bc, KV, C, dh)
+    if paged:
+        attn.cache_write_chunk_paged(pools, ks, vs, block_rows, pos_start,
+                                     chunk_len)
+    else:
+        attn.cache_write_chunk(state, ks, vs, rows, pos_start, chunk_len)
+    return state
+
+
+def layer_prefill_packed(cfg, p, x, cache_l, rows, seg_tables, positions,
+                         seg, seg_starts, chunk_mask):
+    """One layer of PACKED chunked prefill: x (1, C, d) holds C tokens of
+    up to R requests at per-token absolute ``positions`` (C,); each token
+    attends its own request's readable cache prefix plus its own segment's
+    preceding chunk tokens (``chunk_mask``).  Returns (x', (k, v)) with
+    k/v (KV, C, dh) for the per-token cache write after the layer loop."""
+    q, k, v = _attn_block(cfg, p, x, positions[None])
+    o = attn.attn_prefill_packed(q[0], k[0], v[0], cache_l, seg, seg_starts,
+                                 chunk_mask, x.dtype, rows=rows,
+                                 seg_tables=seg_tables)
+    return _finish_block(cfg, p, x, o[None]), (k[0].transpose(0, 1),
+                                              v[0].transpose(0, 1))
+
+
+def _packed_chunk_core(cfg, params, tokens, state, seg, slots, starts,
+                       lengths, block_rows=None):
+    """Run one fused C-token packed chunk through the stack and scatter
+    each token's K/V into its own request's resident cache, in place.
+    Segments are causal CHAINS at positions starts[r] + 0..len-1 (the
+    tree form and the deferred write come with spec and tree decode).
+    Returns ``(state, x, ks, vs)`` with x (1, C, d) the post-stack
+    activations and ks/vs (L, KV, C, dh) the chunk's own K/V."""
+    c = tokens.shape[0]
+    seg = seg.to(torch.int32)
+    segl = seg.long()
+    offsets = torch.cumsum(lengths, 0) - lengths         # exclusive prefix
+    off = torch.arange(c, device=tokens.device) - offsets[segl]
+    valid_tok = (off >= 0) & (off < lengths[segl])
+    positions = starts[segl] + off                       # (C,)
+    rows = slots[segl]                                   # (C,)
+    chunk_mask = attn.packed_chunk_mask(seg, valid_tok)
+    x = embed_tokens(cfg, params, tokens[None])          # (1, C, d)
+    paged = "block_tables" in state
+    if paged:
+        assert block_rows is not None, "paged packed prefill needs block rows"
+        pools = {k: v for k, v in state.items() if k != "block_tables"}
+        seg_tables = block_rows.to(torch.int32).contiguous()   # (R, nb)
+    else:
+        pools = state
+        seg_tables = None
+    ks, vs = [], []
+    for l in range(cfg.n_layers):
+        cache_l = {key: val[l] for key, val in pools.items()}
+        x, (k, v) = layer_prefill_packed(cfg, layer_params(params, l), x,
+                                         cache_l, rows, seg_tables,
+                                         positions, seg, starts, chunk_mask)
+        ks.append(k)
+        vs.append(v)
+    ks, vs = torch.stack(ks), torch.stack(vs)           # (L, KV, C, dh)
+    if paged:
+        attn.cache_write_packed_paged(pools, ks, vs, seg_tables[segl],
+                                      positions, valid_tok)
+    else:
+        wpos = torch.where(valid_tok, positions,
+                           torch.full_like(positions, state["k"].shape[3]))
+        attn.cache_write_packed(state, ks, vs, rows, wpos)
+    return state, x, ks, vs
+
+
+@torch.no_grad()
+def prefill_packed_chunk(cfg, params, tokens, state, seg, slots, starts,
+                         lengths, block_rows=None):
+    """PACKED chunked prefill: run one fused C-token chunk carrying prompt
+    tokens of up to R requests through the stack and scatter each token's
+    K/V into ITS OWN request's resident cache, in place.
+
+    tokens (C,) int32, segments laid out contiguously in request order and
+    zero-padded at the tail; seg (C,) int32 segment id per token; slots
+    (R,) batch rows; starts (R,) each segment's prefill progress (its
+    readable cache prefix AND the position of its first chunk token);
+    lengths (R,) tokens each segment contributes (0 = unused segment).
+    Dense states scatter through per-token (lane, position); a state
+    carrying ``block_tables`` writes through ``block_rows`` (R, nb), each
+    segment's reserved pages.  All of seg/slots/starts/lengths are device
+    data, so every packing shape of every prompt length runs the same
+    code; the single-segment call IS the unpacked chunk path.  Returns the
+    updated state."""
+    state, _, _, _ = _packed_chunk_core(cfg, params, tokens, state, seg,
+                                        slots, starts, lengths,
+                                        block_rows=block_rows)
+    return state

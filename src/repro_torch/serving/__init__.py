@@ -1,21 +1,25 @@
 from repro_torch.serving.config import ServeConfig
-from repro_torch.serving.engine import (ContinuousServingEngine, ProbeState,
-                                        SlotStepView, extract_trajectories,
+from repro_torch.serving.engine import (ChunkSeg, ChunkWork,
+                                        ContinuousServingEngine, ProbeState,
+                                        SlotStepView, chunk_supported,
+                                        chunked_prefill, extract_trajectories,
                                         init_probe_state, make_serve_step,
                                         prefix_len, probe_update,
                                         reset_probe_slot, write_probe_slot)
 from repro_torch.serving.groups import RequestGroup, group_requests, make_group
 from repro_torch.serving.kv_pool import (NULL_BLOCK, BlockPool, blocks_needed,
                                          pad_row, prompt_key)
-from repro_torch.serving.policy import FIFOPolicy
+from repro_torch.serving.policy import ComposeView, FIFOPolicy
 from repro_torch.serving.request import (FleetMetrics, Request, RequestState,
                                          make_request)
 from repro_torch.serving.scheduler import OrcaScheduler
 
-__all__ = ["BlockPool", "ContinuousServingEngine", "FIFOPolicy",
+__all__ = ["BlockPool", "ChunkSeg", "ChunkWork", "ComposeView",
+           "ContinuousServingEngine", "FIFOPolicy",
            "FleetMetrics", "NULL_BLOCK", "OrcaScheduler", "ProbeState",
            "Request", "RequestGroup", "RequestState", "ServeConfig",
-           "SlotStepView", "blocks_needed", "extract_trajectories",
+           "SlotStepView", "blocks_needed", "chunk_supported",
+           "chunked_prefill", "extract_trajectories",
            "group_requests", "init_probe_state", "make_group",
            "make_request", "make_serve_step", "pad_row",
            "prefix_len", "probe_update", "prompt_key", "reset_probe_slot",

@@ -1,8 +1,8 @@
 """ServeConfig: ONE frozen config object for the port's serving stack.
 
 The fields are the JAX package's (``repro/serving/config.py``) so one
-description drives either stack.  The port serves what slice 1 carries —
-admission-time prefill, FIFO admission, one-token decode, dense or paged
+description drives either stack.  The port serves admission-time or
+chunked, packed prefill, FIFO admission, one-token decode, dense or paged
 KV, one host — and every field of a later slice raises
 ``NotImplementedError`` at construction when set, naming the ROADMAP
 queue-A item that brings it.  The probe-dispatch fields of the JAX config
@@ -16,8 +16,6 @@ from typing import Any, Optional
 
 # field -> (value that means "off", ROADMAP queue-A item that brings it)
 _NOT_PORTED = {
-    "chunk_tokens": (None, "chunked and packed prefill (B3/B4)"),
-    "token_budget": (None, "chunked and packed prefill (B3/B4)"),
     "spec_tokens": (None, "spec and tree decode (B5)"),
     "spec_tree": (None, "spec and tree decode (B5)"),
     "group_size": (1, "preemption, groups and fleet"),
@@ -50,12 +48,16 @@ class ServeConfig:
     num_blocks: Optional[int] = None  # pool pages; None -> dense-equivalent
     prefix_sharing: bool = True
 
+    # -- chunked / packed prefill ---------------------------------------------
+    chunk_tokens: Optional[int] = None
+    token_budget: Optional[int] = None
+    pack_chunks: bool = True
+    pack_max: int = 4
+
     # -- scheduling policy ----------------------------------------------------
     policy: Any = None            # None / "fifo" (the only ported policy)
 
     # -- not ported yet (see _NOT_PORTED) -------------------------------------
-    chunk_tokens: Optional[int] = None
-    token_budget: Optional[int] = None
     spec_tokens: Optional[int] = None
     spec_tree: Optional[str] = None
     group_size: int = 1
@@ -109,26 +111,39 @@ class ServeConfig:
             raise ValueError(
                 f"n_slots={self.n_slots} must be >= 1; fix by passing a "
                 "positive slot count")
+        if self.pack_max < 1:
+            raise ValueError(
+                f"pack_max={self.pack_max} must be >= 1: a packed chunk "
+                "carries at least its own request; fix by passing a "
+                "positive count (1 behaves like pack_chunks=False)")
 
-    # CLI flag names (launch/serve.py) -> field
+    # CLI flag names (launch/serve.py) -> field, and "invert" for the
+    # negative flags
     _ARG_FIELDS = (
-        ("tokens_per_step", "tokens_per_step"),
-        ("max_new_tokens", "max_new_tokens"),
-        ("burn_in", "burn_in"),
-        ("slots", "n_slots"),
-        ("paged", "paged"),
-        ("block_size", "block_size"),
-        ("num_blocks", "num_blocks"),      # 0 -> None in __post_init__
+        ("tokens_per_step", "tokens_per_step", None),
+        ("max_new_tokens", "max_new_tokens", None),
+        ("burn_in", "burn_in", None),
+        ("slots", "n_slots", None),
+        ("paged", "paged", None),
+        ("block_size", "block_size", None),
+        ("num_blocks", "num_blocks", None),      # 0 -> None in __post_init__
+        ("chunk_tokens", "chunk_tokens", None),  # 0 -> None
+        ("token_budget", "token_budget", None),  # 0 -> None
+        ("no_pack", "pack_chunks", "invert"),
+        ("pack_max", "pack_max", None),
     )
 
     @classmethod
     def from_args(cls, args, **overrides) -> "ServeConfig":
         """Build a ServeConfig from an ``argparse`` namespace using the
-        ``launch/serve.py`` flag names; ``overrides`` win (the place for
+        ``launch/serve.py`` flag names; only attributes present on the
+        namespace are read, and ``overrides`` win (the place for
         runtime-computed values like the calibrated ``lam``)."""
         fields: dict = {}
-        for arg_name, field in cls._ARG_FIELDS:
-            if hasattr(args, arg_name):
-                fields[field] = getattr(args, arg_name)
+        for arg_name, field, transform in cls._ARG_FIELDS:
+            if not hasattr(args, arg_name):
+                continue
+            val = getattr(args, arg_name)
+            fields[field] = (not val) if transform == "invert" else val
         fields.update(overrides)
         return cls(**fields)

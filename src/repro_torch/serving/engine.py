@@ -13,14 +13,19 @@ own prefill-injected KV (a dense lane or a block-table row into the page
 pool) and its own freshly reset probe state; the moment ORCA stops a
 sequence the scheduler releases its slot and refills it.
 
+With ``chunk_tokens`` set, the step is the UNIFIED token-budget step:
+a packed prefill chunk of up to ``pack_max`` mid-prefill requests runs
+through ``model.prefill_packed`` (K3 on a paged state) before the decode
+of every slot.
+
 Buffers the JAX engine donates to its jitted step — the KV cache or page
 pool and the probe state — are updated IN PLACE here.  Ported: admission-
-time prefill, one-token decode, dense and paged caches.  Not yet: chunked
-prefill, speculative decode, preemption (ROADMAP queue A).
+time and chunked, packed prefill, one-token decode, dense and paged
+caches.  Not yet: speculative decode, preemption (ROADMAP queue A).
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -108,15 +113,66 @@ def inject_prefill(model: Model, params, state, batch_one, slot: int,
     return state
 
 
+class ChunkSeg(NamedTuple):
+    """One request's contribution to a (possibly packed) prefill chunk:
+    prompt positions [start, start + length) of the request resident in
+    batch row ``slot``."""
+    slot: int
+    tokens: np.ndarray               # (S,) the FULL prompt token ids
+    start: int
+    length: int
+    row: Optional[np.ndarray] = None  # paged: the request's physical pages
+
+
+class ChunkWork(NamedTuple):
+    """Host-side descriptor of one fused prefill chunk for the unified
+    step: up to ``engine.max_pack`` segments of DIFFERENT requests packed
+    back to back (the tail of one prompt rides with the head of the next),
+    block-diagonally isolated on the device.  A single-segment chunk is the
+    unpacked chunk."""
+    segs: Tuple[ChunkSeg, ...]
+
+    @property
+    def total_tokens(self) -> int:
+        return sum(s.length for s in self.segs)
+
+
+def chunk_supported(model: Model, inputs: Dict[str, np.ndarray]) -> bool:
+    """A prompt can be prefilled in chunks iff the family exposes
+    ``prefill_chunk`` and the prompt is pure text with no hidden prefix
+    (vlm patches and meta tokens prefill in one shot at admission)."""
+    mcfg = model.cfg
+    return (model.prefill_chunk is not None
+            and set(inputs) == {"tokens"}
+            and mcfg.arch_type != "audio"
+            and not (getattr(mcfg, "n_meta_tokens", 0) or 0))
+
+
+@torch.no_grad()
 def chunked_prefill(model: Model, params, batch, cache_len: int, *,
                     chunk_tokens: Optional[int] = None):
-    """Build a decode state for ``batch``: one full-prompt ``model.prefill``
-    (the only form ported; chunked prefill comes with ROADMAP queue A)."""
-    if chunk_tokens:
-        raise NotImplementedError(
-            "chunked prefill is not ported to repro_torch yet; it comes with "
-            "ROADMAP queue A (chunked and packed prefill, B3/B4)")
-    state, _, _ = model.prefill(model.cfg, params, batch, cache_len)
+    """Build a dense decode state for ``batch``: the one prompt-prefill
+    helper behind ``extract_trajectories``.
+
+    ``chunk_tokens=None`` (or unsupported inputs) runs one full-prompt
+    ``model.prefill``.  Otherwise the prompt runs through fixed-shape
+    ``chunk_tokens``-wide ``model.prefill_chunk`` calls, the last one
+    zero-padded.  Returns the decode state."""
+    mcfg = model.cfg
+    if not chunk_tokens or not chunk_supported(model, batch):
+        state, _, _ = model.prefill(mcfg, params, batch, cache_len)
+        return state
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    c = int(chunk_tokens)
+    device = tokens.device
+    state = model.init_decode_state(b, cache_len, device=device)
+    rows = torch.arange(b, device=device)
+    for start in range(0, s, c):
+        n = min(c, s - start)
+        buf = torch.zeros((b, c), dtype=torch.int32, device=device)
+        buf[:, :n] = tokens[:, start:start + n]
+        state = model.prefill_chunk(mcfg, params, buf, state, rows, start, n)
     return state
 
 
@@ -147,17 +203,37 @@ def probe_update(pc: ProbeConfig, theta, st: ProbeState, hidden: torch.Tensor,
     return st
 
 
-def make_serve_step(model: Model, pc: ProbeConfig, theta, cfg: ServeConfig):
+def make_serve_step(model: Model, pc: ProbeConfig, theta, cfg: ServeConfig,
+                    *, mask_stopped_writes: bool = False):
     """Build the fused decode + ORCA step:
-    (params, token, cache, pos, probe_state) -> (next_token, cache,
-    probe_state); cache and probe state are updated in place."""
+    (params, token, cache, pos, probe_state, chunk=None) -> (next_token,
+    cache, probe_state); cache and probe state are updated in place.
+
+    ``chunk`` (the unified token-budget step of a chunked engine) is the
+    device descriptor of a packed prefill chunk: it runs through
+    ``model.prefill_packed`` before the decode of every slot.  The JAX step
+    decides that under a ``lax.cond`` on the device; here the host knows
+    whether the composer built a chunk, so it passes one or None and no
+    device value is read.  Mid-prefill slots ride the decode as parked
+    rows (probe ``stopped=True``, so K1 leaves their state untouched); with
+    ``mask_stopped_writes`` their dense decode write is dropped so it never
+    clobbers chunk-written prompt K/V (paged parked rows write the NULL
+    page)."""
     mcfg = model.cfg
     eta = float(P.inner_lr(pc, theta))
 
     @torch.no_grad()
-    def serve_step(params, token, cache, pos, st: ProbeState):
+    def serve_step(params, token, cache, pos, st: ProbeState, chunk=None):
+        if chunk is not None:
+            # prefill work first, decode after: the chunk's slots are
+            # parked, and no other slot reads their pages or lanes
+            cache = model.prefill_packed(mcfg, params, chunk["tokens"], cache,
+                                         chunk["seg"], chunk["slots"],
+                                         chunk["starts"], chunk["lengths"],
+                                         chunk.get("rows"))
+        write_mask = ~st.stopped if mask_stopped_writes else None
         logits, hidden, cache = model.decode_step(mcfg, params, token, cache,
-                                                  pos)
+                                                  pos, write_mask=write_mask)
         prev_stopped = st.stopped.clone()
         st = probe_update(pc, theta, st, hidden, cfg.lam, cfg.tokens_per_step,
                           cfg.burn_in, eta)
@@ -183,10 +259,13 @@ def prefix_len(mcfg, batch_one: Dict[str, np.ndarray],
 @torch.no_grad()
 def extract_trajectories(model: Model, params, batch, prompt_len: int,
                          max_new_tokens: int, tokens_per_step: int,
-                         cache_len: Optional[int] = None):
+                         cache_len: Optional[int] = None,
+                         chunk_tokens: Optional[int] = None):
     """Run the model WITHOUT stopping and harvest step embeddings phi_t —
     the trajectory source for meta-training probes on a real model.  Decodes
-    through the DENSE cache with plain attention, as the JAX package does.
+    through the DENSE cache with plain attention, as the JAX package does;
+    the prompt prefills through ``chunked_prefill`` (``chunk_tokens=None``
+    keeps the one-shot prefill).
     batch: {"tokens": (B, S)} numpy or tensors; returns numpy
     (phis (B, n_steps, d), tokens (B, max_new_tokens))."""
     mcfg = model.cfg
@@ -195,7 +274,8 @@ def extract_trajectories(model: Model, params, batch, prompt_len: int,
     B = batch["tokens"].shape[0]
     pre = prefix_len(mcfg, batch, prompt_len)
     cache_len = cache_len or (pre + max_new_tokens)
-    state = chunked_prefill(model, params, batch, cache_len)
+    state = chunked_prefill(model, params, batch, cache_len,
+                            chunk_tokens=chunk_tokens)
     token = torch.zeros((B,), dtype=torch.int32, device=device)
     acc = torch.zeros((B, mcfg.d_model), device=device)
     phis: List[torch.Tensor] = []
@@ -239,6 +319,11 @@ class ContinuousServingEngine:
     * ``release`` parks the slot (probe ``stopped=True``); paged, its table
       row points at the NULL page so a parked write never touches a page
       the pool hands to someone else.
+    * With ``chunk_tokens`` (chunked prefill), prefill is a resident phase:
+      ``begin_prefill`` parks the slot, the unified ``step(chunk)`` runs up
+      to ``chunk_tokens`` prompt tokens of up to ``max_pack`` requests
+      before the decode, and ``finish_prefill`` arms the slot after its
+      last chunk.
 
     The scheduler owns queues, lifecycles, the block pool and metrics; this
     class owns device state only.  The device is the parameters' device.
@@ -247,7 +332,8 @@ class ContinuousServingEngine:
     def __init__(self, model: Model, params, pc: ProbeConfig, theta,
                  cfg: ServeConfig, n_slots: int, cache_len: int, *,
                  paged: bool = False, block_size: int = 16,
-                 num_blocks: Optional[int] = None):
+                 num_blocks: Optional[int] = None,
+                 chunk_tokens: Optional[int] = None, pack_max: int = 4):
         self.model, self.params, self.pc, self.theta, self.cfg = \
             model, params, pc, theta, cfg
         self.device = params["embed"].device
@@ -268,12 +354,22 @@ class ContinuousServingEngine:
             self.state = model.init_decode_state(n_slots, cache_len,
                                                  device=self.device)
         self.n_slots, self.cache_len = n_slots, cache_len
+        # chunked prefill: the step becomes the unified token-budget step
+        # (decode every slot + up to chunk_tokens prompt tokens, PACKED
+        # across up to max_pack mid-prefill requests)
+        self.chunk_tokens = int(chunk_tokens or 0)
+        self.max_pack = max(min(int(pack_max), self.chunk_tokens), 1) \
+            if self.chunk_tokens else 0
+        if self.chunk_tokens:
+            assert model.supports_chunked, \
+                f"{mcfg.name}: no chunked prefill for this family"
         self.st = init_probe_state(pc, theta, n_slots, mcfg.d_model)
         self.st.stopped.fill_(True)
         self.token = torch.zeros((n_slots,), dtype=torch.int32,
                                  device=self.device)
         self.pos = np.zeros((n_slots,), np.int32)
-        self._step_fn = make_serve_step(model, pc, theta, cfg)
+        self._step_fn = make_serve_step(
+            model, pc, theta, cfg, mask_stopped_writes=bool(self.chunk_tokens))
 
     def _pages(self):
         return {k: v for k, v in self.state.items() if k != "block_tables"}
@@ -332,11 +428,84 @@ class ContinuousServingEngine:
         self.pos[slot] = 0
 
     # ------------------------------------------------------------------
-    def step(self) -> SlotStepView:
-        """One fused decode + probe step for every slot (vector pos)."""
+    # chunked prefill: PREFILL is a resident phase, not an admission event
+    def begin_prefill(self, slot: int) -> None:
+        """Make ``slot`` a resident PREFILL row.  The probe is parked
+        (``stopped=True``): the unified step treats the row as no-op decode,
+        K1 leaves its state untouched and its dense K/V write is dropped.
+        Paged: the slot's table row STAYS at NULL for the whole prefill
+        (chunks write through their explicit block row), so the parked
+        decode write cannot touch the reserved pages."""
+        assert self.chunk_tokens, "engine built without chunk_tokens"
+        reset_probe_slot(self.pc, self.theta, self.st, slot, active=False)
+        if self.paged:
+            self._set_row(slot, np.full((self.max_blocks,), NULL_BLOCK))
+        self.token[slot] = 0
+        self.pos[slot] = 0
+
+    def finish_prefill(self, slot: int, batch_one: Dict[str, np.ndarray],
+                       prompt_len: int, *, block_row=None) -> None:
+        """Arm ``slot`` after its last prefill chunk: point its table row at
+        the now-filled pages (paged), reset the probe to (W0, b0) and resume
+        decode at the prompt length — the slot state of a full-prefill
+        ``admit``."""
+        assert self.chunk_tokens, "engine built without chunk_tokens"
+        if self.paged:
+            assert block_row is not None, "paged finish_prefill needs a row"
+            self._set_row(slot, pad_row(block_row, self.max_blocks))
+        reset_probe_slot(self.pc, self.theta, self.st, slot, active=True)
+        self.token[slot] = 0
+        self.pos[slot] = prefix_len(self.model.cfg, batch_one, prompt_len)
+
+    def _chunk_to_device(self, chunk: ChunkWork) -> Dict[str, torch.Tensor]:
+        """Lower a (possibly packed) ChunkWork to the fixed-shape device
+        descriptor: segments laid out back to back in ``tokens``/``seg``,
+        per-segment (slot, start, length, pages) arrays padded to
+        ``max_pack`` rows with zero-length segments.  Trailing token
+        padding keeps the LAST segment's id, which places it past that
+        segment's length: invalid by construction, dropped at the write.
+        The descriptor goes to the device in one copy."""
+        c, r = self.chunk_tokens, self.max_pack
+        segs = chunk.segs
+        assert 1 <= len(segs) <= r, (len(segs), r)
+        nb = self.max_blocks if self.paged else 0
+        buf = np.zeros((2 * c + 3 * r + r * nb,), np.int32)
+        toks, seg = buf[:c], buf[c:2 * c]
+        slots, starts, lengths = (buf[2 * c + i * r:2 * c + (i + 1) * r]
+                                  for i in range(3))
+        rows = buf[2 * c + 3 * r:].reshape(r, nb)
+        seg[:] = len(segs) - 1
+        rows[:] = NULL_BLOCK
+        off = 0
+        for si, s in enumerate(segs):
+            assert off + s.length <= c, "packed segments exceed the chunk"
+            toks[off:off + s.length] = np.asarray(
+                s.tokens[s.start:s.start + s.length])
+            seg[off:off + s.length] = si
+            slots[si], starts[si], lengths[si] = s.slot, s.start, s.length
+            if self.paged and s.row is not None:
+                rows[si, :len(s.row)] = np.asarray(s.row, np.int32)
+            off += s.length
+        dev = torch.as_tensor(buf).to(self.device)
+        out = {"tokens": dev[:c], "seg": dev[c:2 * c]}
+        for i, key in enumerate(("slots", "starts", "lengths")):
+            out[key] = dev[2 * c + i * r:2 * c + (i + 1) * r]
+        if self.paged:
+            out["rows"] = dev[2 * c + 3 * r:].view(r, nb)
+        return out
+
+    # ------------------------------------------------------------------
+    def step(self, chunk: Optional[ChunkWork] = None) -> SlotStepView:
+        """One fused decode + probe step for every slot (vector pos) — and,
+        in chunked mode, up to ``chunk_tokens`` prompt tokens of up to
+        ``max_pack`` mid-prefill requests packed into ``chunk`` first (None
+        = decode only)."""
+        assert chunk is None or self.chunk_tokens, \
+            "engine built without chunk_tokens"
+        dev_chunk = None if chunk is None else self._chunk_to_device(chunk)
         pos = torch.as_tensor(self.pos, device=self.device)
         self.token, self.state, self.st = self._step_fn(
-            self.params, self.token, self.state, pos, self.st)
+            self.params, self.token, self.state, pos, self.st, dev_chunk)
         self.pos = self.pos + 1
         st = self.st
         return SlotStepView(tokens=self.token.cpu().numpy(),

@@ -28,7 +28,7 @@ from repro_torch.core import stopping as S
 class RequestState(enum.Enum):
     WAITING = "waiting"
     PREFILL = "prefill"      # RESIDENT: owns a slot; the prompt prefills
-    #                          in one shot at admission
+    #                          in one shot at admission, or in chunks
     RUNNING = "running"
     STOPPED = "stopped"      # ORCA threshold fired -> slot evicted
     FINISHED = "finished"    # token budget exhausted without a stop
@@ -59,6 +59,9 @@ class Request:
     submitted_step: int = 0               # engine step at enqueue
     admitted_step: int = -1               # engine step at slot admission
     completed_step: int = -1              # engine step at stop/finish
+    # chunked prefill (PREFILL is a RESIDENT phase: the request owns a slot
+    # and its prompt is processed in token-budget chunks by the unified step)
+    prefill_progress: int = 0             # prompt tokens already prefilled
     first_token_step: int = -1            # engine step of the first decode token
     ttft_s: float = -1.0                  # wall-clock time to first token
     queue_wait_s: float = -1.0            # wall-clock WAITING -> PREFILL
@@ -138,12 +141,15 @@ class FleetMetrics:
     # latency distribution.  A "stall" is one scheduler iteration's wall
     # time — the latency every resident decode slot pays before its next
     # token; an admission-time prefill (one batch-1 full-prompt prefill)
-    # spikes the tail.
+    # spikes the tail, the chunked unified step bounds every iteration by
+    # the token budget.
     ttft_ms_p50: float = 0.0     # wall-clock time-to-first-token percentiles
     ttft_ms_p99: float = 0.0
     stall_ms_p50: float = 0.0    # per-step decode-stall percentiles
     stall_ms_p99: float = 0.0
-    peak_step_tokens: int = 0    # max decode tokens in one step
+    prefill_chunks: int = 0      # chunk launches (0 = admission-time prefill)
+    packed_chunks: int = 0       # chunk launches carrying >= 2 requests
+    peak_step_tokens: int = 0    # max decode+prefill tokens in one step
     # per-priority-class latency: {"c<priority>_<metric>": value} for
     # ttft_ms_p50/p99 and queue_wait_ms_p50/p99 (WAITING -> PREFILL wall
     # time)
@@ -152,6 +158,7 @@ class FleetMetrics:
     def row(self) -> Dict[str, float]:
         return {
             **self.per_class,
+            "packed_chunks": self.packed_chunks,
             "peak_step_tokens": self.peak_step_tokens,
             "requests": self.n_requests, "slots": self.n_slots,
             "engine_steps": self.engine_steps,
@@ -167,6 +174,7 @@ class FleetMetrics:
             "ttft_ms_p99": self.ttft_ms_p99,
             "stall_ms_p50": self.stall_ms_p50,
             "stall_ms_p99": self.stall_ms_p99,
+            "prefill_chunks": self.prefill_chunks,
         }
 
 

@@ -1,13 +1,20 @@
 """OrcaScheduler: continuous batching with ORCA-stop eviction.
 
 The JAX package's scheduler (``repro/serving/scheduler.py``), cut to what
-the port's engine serves: admission-time prefill, FIFO admission of
-gang units, one-token decode, dense or paged KV with prefix sharing.  The
-admission loop, token collection and metrics are the JAX package's line
-for line, so per-request stop steps, tokens and completion steps match it
-exactly on the same model outputs.  Chunked prefill, speculation,
-preemption and consensus are rejected by ``ServeConfig`` until their
-ROADMAP items land.
+the port's engine serves: admission-time or chunked, packed prefill, FIFO
+admission of gang units, one-token decode, dense or paged KV with prefix
+sharing.  The admission loop, batch composer, token collection and
+metrics are the JAX package's line for line, so per-request stop steps,
+tokens and completion steps match it exactly on the same model outputs.
+Speculation, preemption and consensus are rejected by ``ServeConfig``
+until their ROADMAP items land.
+
+Chunked prefill (``chunk_tokens=N``) turns prefill into schedulable work:
+an admitted request becomes a resident PREFILL row, and each engine
+iteration carries every resident decode token plus, up to
+``token_budget`` tokens, a PACKED prefill chunk of up to ``chunk_tokens``
+prompt tokens drawn from up to ``pack_max`` mid-prefill residents in
+admission order (``pack_chunks=False``: one request per chunk).
 
 The scheduler owns the request lifecycle (queues, admission, eviction,
 metrics) and — in paged mode — the KV block pool; the engine owns device
@@ -32,10 +39,12 @@ import numpy as np
 from repro_torch.core.probe import ProbeConfig
 from repro_torch.models.registry import Model
 from repro_torch.serving.config import ServeConfig
-from repro_torch.serving.engine import ContinuousServingEngine, prefix_len
+from repro_torch.serving.engine import (ChunkSeg, ChunkWork,
+                                        ContinuousServingEngine,
+                                        chunk_supported, prefix_len)
 from repro_torch.serving.groups import RequestGroup, group_requests
 from repro_torch.serving.kv_pool import BlockPool, blocks_needed, prompt_key
-from repro_torch.serving.policy import FIFOPolicy
+from repro_torch.serving.policy import ComposeView, FIFOPolicy
 from repro_torch.serving.request import (FleetMetrics, Request, RequestState,
                                          latency_stats)
 
@@ -74,15 +83,43 @@ class OrcaScheduler:
                  cache_len: Optional[int] = _UNSET, paged: bool = _UNSET,
                  block_size: int = _UNSET,
                  num_blocks: Optional[int] = _UNSET,
-                 prefix_sharing: bool = _UNSET):
+                 prefix_sharing: bool = _UNSET,
+                 chunk_tokens: Optional[int] = _UNSET,
+                 token_budget: Optional[int] = _UNSET,
+                 pack_chunks: bool = _UNSET, pack_max: int = _UNSET):
         self.model, self.params, self.pc, self.theta, self.cfg = \
             model, params, pc, theta, cfg
-        self.n_slots = int(_pick(n_slots, cfg.n_slots))
+        n_slots = int(_pick(n_slots, cfg.n_slots))
+        chunk_tokens = _pick(chunk_tokens, cfg.chunk_tokens)
+        token_budget = _pick(token_budget, cfg.token_budget)
+        self.n_slots = n_slots
         self.cache_len = _pick(cache_len, cfg.cache_len)
         self.paged = bool(_pick(paged, cfg.paged))
         self.block_size = int(_pick(block_size, cfg.block_size))
         self.num_blocks = _pick(num_blocks, cfg.num_blocks)
         self.prefix_sharing = bool(_pick(prefix_sharing, cfg.prefix_sharing))
+        # chunked prefill: each engine iteration carries every resident
+        # decode token plus up to ``chunk_tokens`` prompt tokens of
+        # mid-prefill residents (PACKED across up to ``pack_max`` requests
+        # unless ``pack_chunks=False``), bounded by ``token_budget`` tokens
+        # per step (default: n_slots decode tokens + one full chunk)
+        self.chunk_tokens = int(chunk_tokens) if chunk_tokens else None
+        if token_budget is not None:
+            token_budget = int(token_budget)
+            floor = n_slots if self.chunk_tokens is not None else 1
+            if token_budget < floor:
+                raise ValueError(
+                    f"token_budget={token_budget} < n_slots={n_slots}: "
+                    "every resident decode token rides each unified step, "
+                    "so this budget can never be honored and would "
+                    "silently starve prefill; fix by raising token_budget "
+                    f"to >= n_slots (default n_slots + chunk_tokens = "
+                    f"{n_slots + (self.chunk_tokens or 0)}) or lowering "
+                    "n_slots")
+        self.token_budget = (token_budget if token_budget
+                             else n_slots + (self.chunk_tokens or 0))
+        self.pack_chunks = bool(_pick(pack_chunks, cfg.pack_chunks))
+        self.pack_max = int(_pick(pack_max, cfg.pack_max))
         self.policy = FIFOPolicy()     # ServeConfig admits no other yet
         self.pool: Optional[BlockPool] = None
         self._engine: Optional[ContinuousServingEngine] = None
@@ -95,12 +132,14 @@ class OrcaScheduler:
     def _reset_session(self) -> None:
         self._waiting: deque = deque()            # gang-admission units
         self._running: Dict[int, Request] = {}    # slot -> request
+        self._prefilling: Dict[int, Request] = {}  # slot -> mid-prefill req
+        self._plans: Dict[int, _AdmitPlan] = {}   # deferred donor registry
         self._free: List[int] = list(range(self.n_slots))
         self._requests: List[Request] = []        # submission order
         self.groups: List[RequestGroup] = []
         self._steps = 0
         self._active_slot_steps = 0
-        self._total_tokens = 0
+        self._total_tokens = self._n_chunks = self._n_packed = 0
         self._peak_blocks = self._prefill_skips = self._peak_step_tokens = 0
         self._stalls: List[float] = []
         self._t0 = time.perf_counter()
@@ -108,7 +147,10 @@ class OrcaScheduler:
     @property
     def has_work(self) -> bool:
         """True while any request is queued or resident."""
-        return bool(self._waiting or self._running)
+        return bool(self._waiting or self._running or self._prefilling)
+
+    def _resident(self) -> bool:
+        return bool(self._running or self._prefilling)
 
     @property
     def engine(self) -> Optional[ContinuousServingEngine]:
@@ -145,7 +187,7 @@ class OrcaScheduler:
                     # derived sizing never shrinks a live pool
                     num_blocks = max(num_blocks, self.pool.num_blocks)
             if self.pool is not None and self.pool.num_blocks != num_blocks \
-                    and (self.pool.blocks_in_use or self._running):
+                    and (self.pool.blocks_in_use or self._resident()):
                 if num_blocks > self.pool.num_blocks:
                     self._refuse_rebuild("a page pool",
                                          self.pool.num_blocks, num_blocks)
@@ -157,13 +199,14 @@ class OrcaScheduler:
         else:
             num_blocks = None
         if rebuild:
-            if self._engine is not None and self._running:
+            if self._engine is not None and self._resident():
                 self._refuse_rebuild("an engine cache_len",
                                      self._engine.cache_len, cache_len)
             self._engine = ContinuousServingEngine(
                 self.model, self.params, self.pc, self.theta, self.cfg,
                 self.n_slots, cache_len, paged=self.paged,
-                block_size=self.block_size, num_blocks=num_blocks)
+                block_size=self.block_size, num_blocks=num_blocks,
+                chunk_tokens=self.chunk_tokens, pack_max=self.pack_max)
         return self._engine
 
     # ------------------------------------------------------------------
@@ -222,6 +265,12 @@ class OrcaScheduler:
         self.pool.register_prefix(plan.register_key, plan.row[:n_full],
                                   tail, req.prompt_len)
 
+    def _chunks_prefill(self, req: Request) -> bool:
+        """Will this request's prompt prefill in scheduled chunks (its
+        pages only hold the prompt K/V once the LAST chunk lands)?"""
+        return bool(self._engine is not None and self._engine.chunk_tokens
+                    and chunk_supported(self.model, req.inputs))
+
     def _share_from_donor(self, donor, req: Request) -> Optional[_AdmitPlan]:
         """Intra-gang prefix sharing off the unit leader's fresh prompt
         pages (refcount bump + private pages for the tail/decode)."""
@@ -247,8 +296,10 @@ class OrcaScheduler:
                       ) -> Optional[List[_AdmitPlan]]:
         """ALL-OR-NOTHING page reservation for a gang-admission unit: the
         first sample reserves (or prefix-hits) the prompt pages, siblings
-        share its full prompt pages by refcount; any failure rolls the
-        whole unit back."""
+        share its full prompt pages by refcount (only when the leader's
+        prompt lands in one admission shot: chunked prefill defers the
+        donor until the last chunk); any failure rolls the whole unit
+        back."""
         plans: List[_AdmitPlan] = []
         donor = None
         for req in members:
@@ -259,7 +310,7 @@ class OrcaScheduler:
             if plan is None:
                 plan = self._reserve(req)
                 if plan is not None and plan.register_key is not None \
-                        and donor is None:
+                        and donor is None and not self._chunks_prefill(req):
                     donor = (plan.register_key, plan.row, req.prompt_len)
             if plan is None:
                 for p in plans:
@@ -332,12 +383,15 @@ class OrcaScheduler:
         return requests, metrics
 
     def step(self) -> bool:
-        """ONE scheduler iteration: admission -> the fused engine step ->
-        token collection / ORCA eviction.  Returns False when idle."""
+        """ONE scheduler iteration: admission -> batch composition -> the
+        fused engine step -> token collection / ORCA eviction -> prefill
+        bookkeeping.  Returns False when idle."""
         if not self.has_work:
             return False
         eng = self._engine
+        chunked = bool(eng.chunk_tokens)
         waiting, running, free = self._waiting, self._running, self._free
+        prefilling, plans = self._prefilling, self._plans
         steps = self._steps
         t_iter = time.perf_counter()
 
@@ -346,7 +400,8 @@ class OrcaScheduler:
         # a unit needing more slots than are free may be skipped (bounded
         # by the policy's aging guard) so smaller units behind it admit,
         # and in paged mode a unit that does not fit the pool WAITS for an
-        # eviction to return pages — all-or-nothing on both resources.
+        # eviction to return pages — all-or-nothing on both resources,
+        # whether the prompt then prefills in one shot or in chunks.
         tried: set = set()        # id(unit) passed over this round
         while waiting:
             cand_idx = [i for i, u in enumerate(waiting)
@@ -370,7 +425,7 @@ class OrcaScheduler:
             if self.paged:
                 mplans = self._reserve_unit(members)
                 if mplans is None:
-                    if not running:
+                    if not (running or prefilling):
                         need = sum(self._request_blocks(r) for r in members)
                         what = (f"group {members[0].group_id}"
                                 if members[0].group_id is not None
@@ -388,16 +443,30 @@ class OrcaScheduler:
                 req.slot, req.admitted_step = slot, steps
                 req.queue_wait_s = time.perf_counter() - self._t0
                 req.state = RequestState.PREFILL
+                skip = plan.skip_prefill if plan is not None else False
                 if plan is not None:
                     req.block_ids = list(plan.row)
                     req.n_shared_blocks = plan.n_shared
-                    req.prefill_skipped = plan.skip_prefill
-                    self._prefill_skips += int(plan.skip_prefill)
+                    req.prefill_skipped = skip
+                    self._prefill_skips += int(skip)
                     self._peak_blocks = max(self._peak_blocks,
                                             self.pool.blocks_in_use)
+                if chunked and not skip \
+                        and chunk_supported(self.model, req.inputs):
+                    # prefill is schedulable work, not an admission event:
+                    # the slot becomes a resident PREFILL row and the
+                    # prompt rides the unified step in token-budget chunks
+                    eng.begin_prefill(slot)
+                    req.prefill_progress = 0
+                    prefilling[slot] = req
+                    if plan is not None:
+                        # donor registration deferred: the pages only hold
+                        # the prompt K/V once the last chunk lands
+                        plans[slot] = plan
+                    continue
+                if plan is not None:
                     eng.admit(slot, req.inputs, req.prompt_len,
-                              block_row=plan.row,
-                              skip_prefill=plan.skip_prefill,
+                              block_row=plan.row, skip_prefill=skip,
                               copy_tail=plan.copy_tail)
                     self._register_donor(req, plan)
                 else:
@@ -405,8 +474,50 @@ class OrcaScheduler:
                 req.state = RequestState.RUNNING
                 running[slot] = req
 
-        self._peak_step_tokens = max(self._peak_step_tokens, len(running))
-        view = eng.step()
+        # batch composer: every resident decode token rides this step; the
+        # POLICY sizes the prefill share of what is left, and the share is
+        # PACKED across mid-prefill residents in admission order — the tail
+        # of one prompt and the head of the next fuse into one
+        # block-diagonal chunk (pack_chunks=False: one request per chunk)
+        chunk = None
+        if prefilling:
+            share = self.policy.prefill_share(self._compose_view(
+                running, prefilling, waiting, eng))
+            share = min(share, eng.chunk_tokens,
+                        self.token_budget - len(running))
+            segs: List[ChunkSeg] = []
+            residents = list(prefilling.items())
+            if any(r.group_id is not None for r in prefilling.values()):
+                # sample spreading: one packed chunk carries sample k of
+                # SEVERAL groups rather than all samples of one, so siblings
+                # finish prefill on different steps; ungrouped fleets keep
+                # admission order
+                residents.sort(key=lambda kv: (kv[1].sample_idx,
+                                               kv[1].admitted_step,
+                                               kv[1].req_id))
+            for slot, req in residents:
+                if share <= 0 or len(segs) >= eng.max_pack:
+                    break
+                n = min(share, req.prompt_len - req.prefill_progress)
+                if n <= 0:
+                    continue
+                segs.append(ChunkSeg(
+                    slot=slot, tokens=np.asarray(req.inputs["tokens"][0]),
+                    start=req.prefill_progress, length=int(n),
+                    row=(np.asarray(req.block_ids, np.int32)
+                         if eng.paged and req.block_ids else None)))
+                share -= n
+                if not self.pack_chunks:
+                    break
+            if segs:
+                chunk = ChunkWork(segs=tuple(segs))
+                self._n_chunks += 1
+                self._n_packed += int(len(segs) >= 2)
+        self._peak_step_tokens = max(
+            self._peak_step_tokens,
+            len(running) + (chunk.total_tokens if chunk else 0))
+
+        view = eng.step(chunk) if chunked else eng.step()
         steps = self._steps = self._steps + 1
         self._active_slot_steps += len(running)
         now = time.perf_counter()
@@ -440,8 +551,46 @@ class OrcaScheduler:
                 self.pool.free(req.block_ids)
             free.append(slot)
             del running[slot]
+
+        # prefill bookkeeping AFTER token collection: every segment of the
+        # packed chunk advances; a request whose last chunk just landed
+        # decodes its first token NEXT step
+        if chunk is not None:
+            for seg in chunk.segs:
+                req = prefilling[seg.slot]
+                req.prefill_progress += seg.length
+                if req.prefill_progress >= req.prompt_len:
+                    eng.finish_prefill(
+                        seg.slot, req.inputs, req.prompt_len,
+                        block_row=(req.block_ids
+                                   if eng.paged and req.block_ids else None))
+                    del prefilling[seg.slot]
+                    plan = plans.pop(seg.slot, None)
+                    if plan is not None:
+                        self._register_donor(req, plan)
+                    req.state = RequestState.RUNNING
+                    running[seg.slot] = req
         self._stalls.append((time.perf_counter() - t_iter) * 1e3)
         return True
+
+    # ------------------------------------------------------------------
+    def _compose_view(self, running: Dict[int, Request],
+                      prefilling: Dict[int, Request], waiting,
+                      eng: ContinuousServingEngine) -> ComposeView:
+        near = 0
+        margin = self.policy.probe_margin
+        if margin is not None and running:
+            tps = self.cfg.tokens_per_step
+            # tokens still owed before each resident's next probe boundary
+            # (the step a stop decision can fire)
+            near = sum(1 for r in running.values()
+                       if tps - (len(r.tokens) % tps) <= margin)
+        return ComposeView(n_running=len(running), n_slots=self.n_slots,
+                           n_prefilling=len(prefilling),
+                           n_waiting=len(waiting),
+                           token_budget=self.token_budget,
+                           chunk_tokens=eng.chunk_tokens,
+                           near_boundary=near)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -472,4 +621,5 @@ class OrcaScheduler:
             ttft_ms_p50=ttft_p50, ttft_ms_p99=ttft_p99,
             stall_ms_p50=float(np.percentile(st, 50)),
             stall_ms_p99=float(np.percentile(st, 99)),
+            prefill_chunks=self._n_chunks, packed_chunks=self._n_packed,
             peak_step_tokens=self._peak_step_tokens, per_class=per_class)

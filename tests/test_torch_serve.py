@@ -2,8 +2,13 @@
 ``OrcaScheduler``, dense and paged KV) held to the JAX package's on the
 reduced smollm-360m with weights and probe slow weights carried across:
 per-request stop steps, emitted tokens, admission and completion steps are
-exactly equal, and the page pool drains.  Plus one CPU run of the port's
-serving driver."""
+exactly equal, and the page pool drains — with admission-time prefill and
+with chunked, packed prefill through the unified token-budget step (dense
+and paged, packed and unpacked, a budget that spreads prefill over many
+steps, paged int8).  Plus CPU runs of the port's serving driver and the
+ServeConfig knobs the port accepts and refuses."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,12 +47,15 @@ def _torch_threads():
     torch.set_num_threads(old)
 
 
-@pytest.fixture(scope="module")
-def models():
+def _models(kv_cache_dtype=None):
     jcfg = j_get_config("smollm-360m").reduced()
+    cfg = get_config("smollm-360m").reduced()
+    if kv_cache_dtype:
+        jcfg = dataclasses.replace(jcfg, kv_cache_dtype=kv_cache_dtype)
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_cache_dtype)
     jmodel = j_build(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    model = build(get_config("smollm-360m").reduced())
+    model = build(cfg)
     params = from_jax_params(jax.tree.map(np.asarray, jparams),
                              device="cpu")
     # decisive probe (the ``_probe(cfg, 3.0)`` pattern of the JAX suite):
@@ -61,6 +69,11 @@ def models():
     return (jmodel, jparams, jpc, jtheta), (model, params, pc, theta)
 
 
+@pytest.fixture(scope="module")
+def models():
+    return _models()
+
+
 def _prompts(vocab):
     rng = np.random.default_rng(17)
     out = [rng.integers(0, vocab, n).astype(np.int32) for n in LENS]
@@ -68,11 +81,10 @@ def _prompts(vocab):
     return out
 
 
-@pytest.mark.parametrize("paged", [False, True])
-def test_scheduler_stops_and_tokens_match_jax(models, paged):
+def _run_both(models, **kw):
     (jmodel, jparams, jpc, jtheta), (model, params, pc, theta) = models
-    kw = dict(tokens_per_step=2, max_new_tokens=12, lam=0.6, burn_in=1,
-              n_slots=2, paged=paged, block_size=4)
+    kw = dict(dict(tokens_per_step=2, max_new_tokens=12, lam=0.6, burn_in=1,
+                   n_slots=2, block_size=4), **kw)
     prompts = _prompts(model.cfg.vocab_size)
     jsched = JOrcaScheduler(jmodel, jparams, jpc, jtheta, JServeConfig(**kw))
     jdone, jfleet = jsched.run([j_make_request(p, max_new_tokens=n)
@@ -88,15 +100,60 @@ def test_scheduler_stops_and_tokens_match_jax(models, paged):
         assert r.stop_step == jr.stop_step, r.req_id
         assert r.tokens == jr.tokens, r.req_id
         assert r.admitted_step == jr.admitted_step, r.req_id
+        assert r.first_token_step == jr.first_token_step, r.req_id
         assert r.completed_step == jr.completed_step, r.req_id
         assert r.slot == jr.slot, r.req_id
+        assert r.prefill_progress == jr.prefill_progress, r.req_id
         np.testing.assert_allclose(r.scores, jr.scores, rtol=0, atol=1e-5)
     assert fleet.engine_steps == jfleet.engine_steps
-    if paged:
-        assert fleet.prefill_skips == jfleet.prefill_skips == 1
+    assert fleet.prefill_chunks == jfleet.prefill_chunks
+    assert fleet.packed_chunks == jfleet.packed_chunks
+    assert fleet.peak_step_tokens == jfleet.peak_step_tokens
+    if kw.get("paged"):
+        assert fleet.prefill_skips == jfleet.prefill_skips
         assert sched.pool.blocks_in_use == 0
         sched.pool.check()
         assert (sched.engine.state["block_tables"] == 0).all()
+    return fleet
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_scheduler_stops_and_tokens_match_jax(models, paged):
+    fleet = _run_both(models, paged=paged)
+    assert fleet.prefill_chunks == 0
+    if paged:
+        assert fleet.prefill_skips == 1
+
+
+@pytest.mark.parametrize("paged,pack", [(False, True), (False, False),
+                                        (True, True), (True, False)])
+def test_chunked_fleet_matches_jax(models, paged, pack):
+    """Chunks of 4 prompt tokens through the unified step; packed, the
+    tail of one prompt rides with the head of the next."""
+    fleet = _run_both(models, paged=paged, chunk_tokens=4, pack_chunks=pack)
+    assert fleet.prefill_chunks > 0
+    assert (fleet.packed_chunks > 0) == pack
+
+
+def test_chunked_fleet_under_a_tight_budget_matches_jax(models):
+    """A budget of n_slots + 1 = 3 tokens a step: a chunk carries at most
+    3 prompt tokens, and one token while the other slot decodes, so every
+    prompt spreads over several steps."""
+    fleet = _run_both(models, paged=True, chunk_tokens=4, token_budget=3)
+    assert fleet.prefill_chunks >= -(-sum(LENS) // 3)
+    assert fleet.peak_step_tokens <= 3
+
+
+@pytest.mark.parametrize("chunk_tokens", [None, 4])
+def test_paged_int8_fleet_matches_jax(monkeypatch, chunk_tokens):
+    """int8 pages end to end, admission-time and chunked: prefill (or each
+    chunk) quantises its K/V into the pool, later chunks and decode read
+    them back dequantised.  The JAX package runs its Pallas paged kernels
+    (interpret mode), whose f32 contract the port's kernels keep; its jnp
+    path dequantises int8 pages to bf16."""
+    monkeypatch.setenv("REPRO_PAGED_ATTN", "pallas")
+    fleet = _run_both(_models("int8"), paged=True, chunk_tokens=chunk_tokens)
+    assert (fleet.packed_chunks > 0) == bool(chunk_tokens)
 
 
 def test_serve_driver_runs_on_cpu(capsys):
@@ -109,3 +166,49 @@ def test_serve_driver_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "[serve] fleet: 3 requests / 2 slots" in out
     assert "on cpu" in out
+
+
+def test_serve_driver_runs_chunked_on_cpu(capsys):
+    rc = tserve.main(["--arch", "smollm-360m", "--reduced", "--device", "cpu",
+                      "--paged", "--requests", "3", "--slots", "2",
+                      "--max-new-tokens", "8", "--tokens-per-step", "4",
+                      "--train-trajectories", "8", "--epochs", "2",
+                      "--prompt-len", "12", "--chunk-tokens", "8"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "prefill chunks (" in out and "packed" in out
+
+
+def test_serve_config_takes_chunk_knobs_and_refuses_the_rest(models):
+    cfg = ServeConfig(chunk_tokens=8, token_budget=12, pack_chunks=False,
+                      pack_max=2)
+    assert (cfg.chunk_tokens, cfg.token_budget, cfg.pack_chunks,
+            cfg.pack_max) == (8, 12, False, 2)
+    with pytest.raises(ValueError, match="pack_max"):
+        ServeConfig(pack_max=0)
+    _, (model, params, pc, theta) = models
+    assert OrcaScheduler(model, params, pc, theta, ServeConfig(
+        n_slots=3, chunk_tokens=8)).token_budget == 11
+    with pytest.raises(ValueError, match="token_budget=2 < n_slots=3"):
+        OrcaScheduler(model, params, pc, theta, ServeConfig(
+            n_slots=3, chunk_tokens=8, token_budget=2))
+    for field, value in (("spec_tokens", 4), ("spec_tree", "2.2"),
+                         ("group_size", 2), ("preemption", True),
+                         ("n_hosts", 2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+            ServeConfig(**{field: value})
+
+
+@pytest.mark.parametrize("margin", [None, 2])
+@pytest.mark.parametrize("n_running,near", [(0, 0), (3, 1), (3, 2), (4, 4)])
+def test_fifo_prefill_share_matches_jax(margin, n_running, near):
+    """The composer's prefill share, with and without probe-aware chunk
+    sizing, is the JAX FIFO policy's."""
+    from repro.serving.policy import ComposeView as JComposeView
+    from repro.serving.policy import FIFOPolicy as JFIFOPolicy
+
+    from repro_torch.serving import ComposeView, FIFOPolicy
+    kw = dict(n_running=n_running, n_slots=4, n_prefilling=1, n_waiting=2,
+              token_budget=12, chunk_tokens=8, near_boundary=near)
+    assert FIFOPolicy(probe_margin=margin).prefill_share(ComposeView(**kw)) \
+        == JFIFOPolicy(probe_margin=margin).prefill_share(JComposeView(**kw))
