@@ -19,28 +19,45 @@ non-zero:
                requests), bf16, int8 and f32 pages, at the served chunk of
                64 tokens; timed beside scaled_dot_product_attention over
                the gathered pages with the same mask
-5. model    -- full-width smollm-360m (bf16, random weights from a seed,
+5. K5       -- the offline TTT scan against its plain version: f 128,
+               960 and 5120, N 1 and 170, T 1, 37 and 120, c = 0 and c =
+               labels, a per-trajectory and a shared init (72 cases on the
+               synthetic corpus's step embeddings and masks); timed at N
+               170, T 120 for each f; a width above 7168 and a tensor that
+               requires grad refused
+6. model    -- full-width smollm-360m (bf16, random weights from a seed,
                then the same weights in f32): prefill 16 tokens, 64
                teacher-forced paged decode steps through K2 (every call
                held against the plain version on its inputs) and through
                the plain paged attention
-6. model-chunked -- the same model: a 160-token prompt through
+7. model-chunked -- the same model: a 160-token prompt through
                ``Model.prefill_chunk`` on a paged state in 64-token chunks
                (B3), then one ``prefill_packed`` chunk of two requests
                (B4), every K3 call held against its plain version; pages
                and next-step logits against one-shot prefill, bf16 and f32
-7. serve    -- ``repro_torch.launch.serve`` end to end on the card:
+8. serve    -- ``repro_torch.launch.serve`` end to end on the card:
                harvest, meta-train, calibrate, serve 8 requests on 4 slots
-8. trace    -- a profiler window over 16 engine steps of the same fleet:
+9. trace    -- a profiler window over 8 engine steps of the same fleet:
                the card's busy share and the kernels that take it
-9. serve-chunked -- the driver with ``--chunk-tokens 64`` on 160-token
+10. serve-chunked -- the driver with ``--chunk-tokens 64`` on 160-token
                prompts: the third chunk of each prompt packs with the head
                of the next; K1, K2 and K3 launch
-10. trace    -- the same window over the chunked fleet, launches and busy
+11. trace    -- a 16-step window over the chunked fleet, launches and busy
                share split into steps with a chunk and steps without one
-11. kernels  -- one entry per kernel: launches on its path (phase 7 for
-               K1 and K2, 6 for K3-B3, 9 for K3-B4), error against its
-               plain version, kernel / plain / library / bound ms
+12. offline  -- the paper's procedure on the synthetic corpus at d_phi 960
+               (``corpus_splits(500, 170, 170)``): ``orca.fit`` of the TTT
+               probe (no-QK, QK d_h 128) and the static probe, then
+               ``orca.evaluate`` at every delta; K5 launches in fit and in
+               evaluate, and its plain version's scores give the same
+               lambda*, savings and error
+13. serve-static -- the driver with ``--static-baseline`` on 4 requests:
+               the static-batch engine's stops equal the fleet's; then the
+               static probe (``api.fit(method="static")``) served through
+               ``api.engine``: K1 runs and leaves every W at W0 (eta = 0)
+14. kernels  -- one entry per kernel: launches on its path (phase 8 for
+               K1 and K2, 7 for K3-B3, 10 for K3-B4, 12 for K5), error
+               against its plain version, kernel / plain / library / bound
+               ms
 
 The line before the last is ``nvidia-smi``'s card name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -50,6 +67,7 @@ from __future__ import annotations
 
 import bisect
 import json
+import math
 import os
 import subprocess
 import sys
@@ -72,7 +90,14 @@ def sync(torch) -> None:
         torch.cuda.synchronize()
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -537,6 +562,137 @@ def phase_k3(torch, timer):
 
 
 # ---------------------------------------------------------------------------
+# phase k5: the offline TTT scan
+
+# the offline split of benchmarks/common.py at smollm-360m's width
+N_TRAIN, N_CAL, N_TEST, D_PHI = 500, 170, 170, 960
+K5_TOL = 1e-5
+
+
+def corpus():
+    from repro_torch.trajectories import corpus_splits
+    return corpus_splits(N_TRAIN, N_CAL, N_TEST, d_phi=D_PHI, seed=SEED)
+
+
+def k5_bytes_ops(zq, zk, c, m, w0, b0, eta, outs):
+    """Each distinct input read once (the served no-QK view passes one
+    tensor as both zq and zk), each output written once; about 7 f32
+    operations per feature and step (two dots, the update)."""
+    ins = {id(t): t for t in (zq, zk, c, m, w0, b0, eta)}
+    n, T, f = zq.shape
+    return nbytes(*ins.values(), *outs), 7 * n * T * f
+
+
+def k5_cases(torch, test):
+    """Phase k5's inputs on the card: f 128 (a QK view, d_h 128), D_PHI
+    960 (the served no-QK view: the corpus's step embeddings as both zq and
+    zk) and
+    5120 (N(0, 1) features at qwen1.5-32b's width); N 1 and 170; T 1, 37
+    and 120; masks from the corpus's ragged lengths; c = 0 (deployed) or c
+    = the supervised labels (the "true" inner-label mode); W0 per
+    trajectory (``ttt_probe_batched``) or shared (``ttt_probe_scan``)."""
+    from repro_torch.core.labels import supervised_labels
+    gen = torch.Generator().manual_seed(SEED + 5)
+    phis = torch.as_tensor(test.phis).to(DEV)
+    mask = torch.as_tensor(test.mask).float().to(DEV)
+    labels = torch.as_tensor(supervised_labels(test.correct, test.mask)
+                             ).float().to(DEV)
+    theta_qk = [(torch.randn(D_PHI, 128, generator=gen) / D_PHI ** 0.5)
+                .to(DEV) for _ in range(2)]
+    feats = {128: (phis @ theta_qk[0], phis @ theta_qk[1]),
+             D_PHI: (phis, phis),
+             5120: tuple(torch.randn(len(test), phis.shape[1], 5120,
+                                     generator=gen).to(DEV)
+                         for _ in range(2))}
+    for f, (zq_all, zk_all) in feats.items():
+        w0 = (torch.randn(f, generator=gen) / f ** 0.5).to(DEV)
+        w0_rows = w0 + 0.1 * (torch.randn(len(test), f, generator=gen)
+                              / f ** 0.5).to(DEV)
+        b0_rows = torch.linspace(-1.0, 1.0, len(test)).to(DEV)
+        for n in (1, len(test)):
+            for T in (1, 37, 120):
+                zq = zq_all[:n, :T].contiguous()
+                zk = zq if zk_all is zq_all else zk_all[:n, :T].contiguous()
+                for labelled in (False, True):
+                    c = (labels[:n, :T].contiguous() if labelled
+                         else torch.zeros(n, T, device=DEV))
+                    for shared in (True, False):
+                        init = ((w0, torch.tensor(0.3, device=DEV)) if shared
+                                else (w0_rows[:n].contiguous(),
+                                      b0_rows[:n].contiguous()))
+                        yield (dict(f=f, N=n, T=T, c="labels" if labelled
+                                    else "zero", w0="shared" if shared
+                                    else "per-trajectory"),
+                               (zq, zk, c, mask[:n, :T].contiguous(), *init,
+                                torch.tensor(0.01, device=DEV)), shared)
+
+
+def phase_k5(torch, timer, test):
+    from repro_torch.kernels import ttt_scan as K5
+    rows, worst = [], 0.0
+    for case, args, shared in k5_cases(torch, test):
+        zq, zk, c, m, w0, b0, eta = args
+        fn = K5.ttt_probe_scan if shared else K5.ttt_probe_batched
+        got = fn(*args)
+        n, _, f = zq.shape
+        w0_rows = w0.expand(n, f) if shared else w0
+        b0_rows = b0.expand(n) if shared else b0
+        want = K5.ttt_probe_batched_plain(zq, zk, c, m, w0_rows, b0_rows,
+                                          eta)
+        sync(torch)
+        err = {k: float((a - b).abs().max()) if a.numel() else 0.0
+               for k, a, b in zip(("scores", "W_f", "b_f"), got, want)}
+        if not all(torch.isfinite(t).all() for t in got):
+            raise AssertionError(f"K5 {case}: non-finite output")
+        # f32, another summation order than the plain version's; on these
+        # inputs the plain version's own f32 vs f64 spread is below 1e-6
+        if max(err.values()) > K5_TOL:
+            raise AssertionError(f"K5 {case} off its plain version: {err}")
+        worst = max(worst, *err.values())
+        timed = case["N"] > 1 and case["T"] == 120 and case["c"] == "zero" \
+            and case["w0"] == "shared"
+        if timed:
+            outs = got
+            case["ms"] = timer(lambda: fn(*args))
+            case["plain_ms"] = timer(lambda: K5.ttt_probe_batched_plain(
+                zq, zk, c, m, w0_rows, b0_rows, eta))
+            moved, ops = k5_bytes_ops(*args, outs)
+            case["bound_ms"], case["bound_by"] = bound_ms(moved, ops)
+            case["bytes"] = moved
+        rows.append(dict(case, max_abs_err=err))
+    # the kernel's refusals: a width above the widest config (the plain
+    # version has no such limit), and grad
+    wide = torch.zeros(1, 1, K5.MAX_F + 1, device=DEV)
+    one = torch.ones(1, 1, device=DEV)
+    try:
+        K5.ttt_probe_batched(wide, wide, one, one,
+                             torch.zeros(1, K5.MAX_F + 1, device=DEV),
+                             torch.zeros(1, device=DEV),
+                             torch.tensor(0.01, device=DEV))
+    except ValueError:
+        pass
+    else:
+        if DEV == "cuda":
+            raise AssertionError(f"K5 accepted f = {K5.MAX_F + 1}")
+    zq, zk, c, m, w0, b0, eta = args
+    try:
+        K5.ttt_probe_batched(zq, zk, c, m, w0.clone().requires_grad_(True),
+                             b0, eta)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("K5 accepted a tensor that requires grad")
+    served = next(r for r in rows if r.get("ms") is not None and
+                  r["f"] == D_PHI)
+    res = dict(phase="k5", cases=len(rows), max_abs_err=worst, tol=K5_TOL,
+               served=served, timed=[r for r in rows if "ms" in r],
+               per_case=[(r["f"], r["N"], r["T"], r["c"], r["w0"],
+                          max(r["max_abs_err"].values())) for r in rows])
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 5: full-width model, teacher-forced
 
 def _pages_reversed(K2):
@@ -913,10 +1069,12 @@ def kernel_counters():
     from repro_torch.kernels import paged_chunk as K3
     from repro_torch.kernels import paged_decode as K2
     from repro_torch.kernels import probe_step as K1
+    from repro_torch.kernels import ttt_scan as K5
     return {"serving_probe_step": K1.serving_probe_step,
             "paged_flash_decode": K2.paged_flash_decode,
             "paged_flash_prefill_chunk": K3.paged_flash_prefill_chunk,
-            "paged_flash_packed_chunk": K3.paged_flash_packed_chunk}
+            "paged_flash_packed_chunk": K3.paged_flash_packed_chunk,
+            "ttt_probe_batched": K5.ttt_probe_batched}
 
 
 def zero_launches() -> None:
@@ -969,11 +1127,25 @@ def phase_serve(torch, extra_argv=(), *, phase="serve", requests=8,
                stall_ms_p99=fleet.stall_ms_p99,
                ttft_ms_p50=fleet.ttft_ms_p50, ttft_ms_p99=fleet.ttft_ms_p99,
                launches=launches)
+    if out.static is not None:
+        # the assertion of benchmarks/serving_throughput.py: eviction does
+        # not move a single stop decision
+        if out.static.stop_step.tolist() != res["stop_steps"]:
+            raise AssertionError(f"static-batch stops "
+                                 f"{out.static.stop_step.tolist()} differ "
+                                 f"from the fleet's {res['stop_steps']}")
+        res["static_batch"] = dict(
+            stop_steps=out.static.stop_step.tolist(),
+            engine_steps=out.static.engine_steps,
+            wall_s=out.static.wall_time_s,
+            requests_per_s=requests / out.static.wall_time_s,
+            slot_utilization=(out.static.active_slot_steps
+                              / max(out.static.total_slot_steps, 1)))
     emit(res)
     return res, out.scheduler
 
 
-def phase_trace(torch, sched, steps: int = 16, prompt_len: int = 16,
+def phase_trace(torch, sched, steps: int = 8, prompt_len: int = 16,
                 phase: str = "trace"):
     """A profiler window over ``steps`` engine steps of the served fleet,
     refilled with fresh requests of ``prompt_len`` tokens: the card's busy
@@ -1082,6 +1254,162 @@ def phase_trace(torch, sched, steps: int = 16, prompt_len: int = 16,
 
 
 # ---------------------------------------------------------------------------
+# phase offline: the paper's procedure, fit -> evaluate
+
+# benchmarks/common.py EPOCHS at the full corpus: not cut
+EPOCHS = 35
+
+
+def plain_scores(torch, probe, ts):
+    """``TrainedProbe.scores`` with K5's plain version in place of K5, on
+    the same CUDA tensors: the same features, mask and smoothing."""
+    import numpy as np
+    from repro_torch.core import probe as P
+    from repro_torch.kernels import ttt_scan as K5
+    pc, theta = probe.pc, probe.theta
+    with torch.no_grad():
+        phis = torch.as_tensor(ts.phis, device=DEV)
+        zq, zk = P.features(pc, theta, phis)
+        n, T, f = zq.shape
+        raw, _, _ = K5.ttt_probe_batched_plain(
+            zq, zk, torch.zeros(n, T, device=DEV),
+            torch.as_tensor(ts.mask, device=DEV).float(),
+            theta["W0"].expand(n, f), theta["b0"].expand(n),
+            P.inner_lr(pc, theta))
+        s = P.smooth_scores(raw, pc.smooth_window)
+    return s.cpu().numpy() * np.asarray(ts.mask)
+
+
+def phase_offline(torch, splits, epochs: int = EPOCHS):
+    """Table 2's supervised half on the synthetic corpus at d_phi 960: fit
+    the TTT probe (no-QK and QK d_h 128, with the paper's epoch selection)
+    and the static probe, then ``orca.evaluate`` at every delta.  K5 must
+    launch in fit (epoch selection scores the validation slice each epoch)
+    and in evaluate; evaluate rerun on scores from K5's plain version must
+    give the same lambda*, savings and error."""
+    import numpy as np
+    from repro_torch import api as orca
+    from repro_torch.core.pipeline import evaluate_probe
+    from repro_torch.core.probe import ProbeConfig
+    train, cal, test = splits
+    methods = [
+        ("ttt-noqk", "ttt", dict(pc=ProbeConfig(d_phi=D_PHI), epochs=epochs,
+                                 epoch_select=True, seed=SEED)),
+        ("ttt-qk128", "ttt", dict(pc=ProbeConfig(d_phi=D_PHI, variant="qk",
+                                                 d_h=128), epochs=epochs,
+                                  epoch_select=True, seed=SEED)),
+        ("static", "static", {}),
+    ]
+    out = {}
+    for name, method, kw in methods:
+        zero_launches()
+        t0 = time.perf_counter()
+        calib = orca.fit(train, mode="supervised", method=method,
+                         device=DEV, **kw)
+        sync(torch)
+        fit_s = time.perf_counter() - t0
+        fit_launches = read_launches()["ttt_probe_batched"]
+        zero_launches()
+        t0 = time.perf_counter()
+        ev = orca.evaluate(calib, cal, test, deltas=orca.DELTAS)
+        eval_s = time.perf_counter() - t0
+        eval_launches = read_launches()["ttt_probe_batched"]
+        # lam None: LTT certified no threshold at this delta (never stop)
+        rows = [dict(delta=r.delta, lam=r.lam if math.isfinite(r.lam)
+                     else None, savings=r.savings, error=r.error)
+                for r in ev.results]
+        rec = dict(fit_s=fit_s, evaluate_s=eval_s, k5_launches_fit=
+                   fit_launches, k5_launches_evaluate=eval_launches,
+                   rows=rows)
+        if method == "ttt":
+            if fit_launches < epochs or eval_launches != 2:
+                raise AssertionError(f"{name}: K5 launched {fit_launches} "
+                                     f"times in fit, {eval_launches} in "
+                                     "evaluate")
+            kern = [calib.scores(ts) for ts in (cal, test)]
+            plain = [plain_scores(torch, calib.probe, ts)
+                     for ts in (cal, test)]
+            rec["scores_max_abs_err"] = max(float(np.abs(a - b).max())
+                                            for a, b in zip(kern, plain))
+            rec["val_savings_by_epoch"] = [h["val_savings"]
+                                           for h in calib.probe.history]
+            ref = evaluate_probe(plain[0], cal, plain[1], test, calib.mode,
+                                 orca.DELTAS, method=method)
+            for a, b in zip(ev.results, ref.results):
+                if (a.lam, a.savings, a.error) != (b.lam, b.savings,
+                                                   b.error):
+                    raise AssertionError(
+                        f"{name} at delta {a.delta}: K5 gives ({a.lam}, "
+                        f"{a.savings}, {a.error}), its plain version "
+                        f"({b.lam}, {b.savings}, {b.error})")
+        for r in rows:
+            if not all(math.isfinite(r[k]) for k in ("savings", "error")):
+                raise AssertionError(f"{name}: non-finite metrics {r}")
+        out[name] = rec
+    res = dict(phase="offline", data="synthetic corpus_splits(500, 170, "
+               "170, d_phi=960), not the paper's data", epochs=epochs,
+               epochs_cut=epochs < EPOCHS, mode="supervised", methods=out)
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase serve-static: the static-batch baseline and the static probe
+
+def phase_static_fleet(torch, sched, requests: int = 4):
+    """The static baseline deployed: PCA + logreg fitted through
+    ``api.fit(method="static")`` on trajectories harvested from the served
+    model, flattened into a frozen no-QK probe (eta = 0) and served through
+    ``api.engine`` on the same fused step: K1 must launch, and every slot's
+    W must still equal W0 after every step."""
+    import numpy as np
+    from repro_torch import api as orca
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServeConfig, make_request
+    model, params = sched.model, sched.params
+    ts = serve.trajectories_from_model(model, params, 8, 16, 96, 8,
+                                       SEED + 3)
+    half = len(ts) // 2
+    train = ts.subset(np.arange(half))
+    cal = ts.subset(np.arange(half, len(ts)))
+    scal = orca.fit(train, mode="consistent", method="static", device=DEV)
+    lam = orca.calibrated_lambda(scal, cal, 0.2, fallback=0.99)
+    cfg = ServeConfig(n_slots=4, paged=True, tokens_per_step=8,
+                      max_new_tokens=96, burn_in=2, lam=lam)
+    fleet_sched = orca.engine(model, params, scal, config=cfg)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    prompts = torch.randint(0, model.cfg.vocab_size, (requests, 16),
+                            generator=gen, dtype=torch.int32)
+    zero_launches()
+    fleet_sched.submit([make_request(p.numpy()) for p in prompts])
+    w0 = fleet_sched.theta["W0"]
+    steps = 0
+    while fleet_sched.step():
+        steps += 1
+        W = fleet_sched.engine.st.W
+        if not torch.equal(W, w0.expand_as(W)):
+            raise AssertionError(f"static fleet step {steps}: K1 moved a "
+                                 "slot's W with eta = 0")
+    done, fleet = fleet_sched.drain()
+    launches = read_launches()
+    if launches["serving_probe_step"] < 1:
+        raise AssertionError(f"K1 never ran in the static fleet: "
+                             f"{launches}")
+    states = [r.state.value for r in done]
+    if len(states) != requests or not set(states) <= {"stopped",
+                                                      "finished"}:
+        raise AssertionError(f"static fleet requests did not all end: "
+                             f"{states}")
+    res = dict(phase="serve-static-probe", lam=lam, eta=fleet_sched.pc.eta,
+               steps_checked=steps, engine_steps=fleet.engine_steps,
+               stop_steps=[r.stop_step for r in done],
+               requests_per_s=fleet.requests_per_s,
+               tokens_per_s=fleet.tokens_per_s, launches=launches)
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1103,6 +1431,8 @@ def main() -> int:
     k1 = phase_k1(torch, timer)
     k2 = phase_k2(torch, timer)
     k3 = phase_k3(torch, timer)
+    splits = corpus()
+    k5 = phase_k5(torch, timer, splits[2])
     model = phase_model(torch)
     zero_launches()
     chunked = phase_model_chunked(torch)
@@ -1118,8 +1448,14 @@ def main() -> int:
               "paged_flash_packed_chunk"))
     if served_c["packed_chunks"] < 1:
         raise AssertionError("the chunked fleet packed no chunk")
-    phase_trace(torch, sched_c, steps=24, prompt_len=160,
+    phase_trace(torch, sched_c, steps=16, prompt_len=160,
                 phase="trace-chunked")
+    offline = phase_offline(torch, splits)
+    _, sched_s = phase_serve(
+        torch, ("--static-baseline",), phase="serve-static", requests=4,
+        need=("serving_probe_step", "paged_flash_decode",
+              "ttt_probe_batched"))
+    phase_static_fleet(torch, sched_s)
     k2_main = k2[0]
     # absolute errors: phase k2's m and outputs, the model's outputs
     k2_err = max([max(r["m_err"], r["out_err"]) for r in k2]
@@ -1161,6 +1497,17 @@ def main() -> int:
         k3_entry("paged_flash_packed_chunk", 298,
                  served_c["launches"]["paged_flash_packed_chunk"], b4_err,
                  b4_rows[0]),
+        dict(name="ttt_probe_batched", route="cuda",
+             source="src/repro_torch/csrc/ttt_scan.cu",
+             replaces="src/repro/kernels/ttt_probe.py:80",
+             launches=sum(m["k5_launches_fit"] + m["k5_launches_evaluate"]
+                          for m in offline["methods"].values()),
+             max_abs_err=max([k5["max_abs_err"]] + [
+                 m["scores_max_abs_err"] for m in offline["methods"].values()
+                 if "scores_max_abs_err" in m]),
+             ms=k5["served"]["ms"], plain_ms=k5["served"]["plain_ms"],
+             bound_ms=k5["served"]["bound_ms"],
+             bound_by=k5["served"]["bound_by"], library_ms=None),
     ]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,28 +1,37 @@
-"""repro_torch.api — the ORCA facade: fit -> calibrate -> engine.
+"""repro_torch.api — the ORCA facade: fit -> evaluate -> engine.
 
     from repro_torch import api as orca
 
-    cal   = orca.fit(train, mode="consistent", method="ttt", epochs=10,
+    cal   = orca.fit(train, mode="supervised", method="ttt", epochs=25,
                      device="cuda")
+    ev    = orca.evaluate(cal, cal_split, test_split)   # paper metrics
     lam   = orca.calibrated_lambda(cal, cal_split, delta=0.2)
     cfg   = orca.ServeConfig(n_slots=4, paged=True, lam=lam)
     sched = orca.engine(model, params, cal, config=cfg)
     done, fleet = sched.run(requests)
+
+``fit``/``evaluate``/``engine`` work for every registered Calibrator
+("ttt", "static"); the static baseline serves through the same fused
+step with its weights frozen (eta = 0).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
-from repro_torch.core.calibrator import (Calibrator, TTTCalibrator,
-                                         make_calibrator)
+from repro_torch.core.calibrator import (Calibrator, StaticCalibrator,
+                                         TTTCalibrator, make_calibrator)
+from repro_torch.core.pipeline import ProcedureEval, evaluate_probe
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.scheduler import OrcaScheduler
 from repro_torch.trajectories import TrajectorySet
 
-__all__ = ["Calibrator", "ServeConfig", "TTTCalibrator", "calibrated_lambda",
-           "engine", "fit", "make_calibrator"]
+__all__ = ["Calibrator", "DELTAS", "ServeConfig", "StaticCalibrator",
+           "TTTCalibrator", "calibrated_lambda", "engine", "evaluate", "fit",
+           "make_calibrator"]
+
+DELTAS = (0.05, 0.1, 0.15, 0.2)
 
 
 def fit(train: TrajectorySet, mode: str = "supervised",
@@ -30,6 +39,17 @@ def fit(train: TrajectorySet, mode: str = "supervised",
     """Train a calibrator on ``train``; ``kwargs`` go to its constructor
     (e.g. ``epochs=25, seed=1, pc=ProbeConfig(...), device="cuda"``)."""
     return make_calibrator(method, **kwargs).fit(train, mode)
+
+
+def evaluate(calibrator: Calibrator, cal: TrajectorySet, test: TrajectorySet,
+             *, deltas: Sequence[float] = DELTAS,
+             eps: float = 0.05) -> ProcedureEval:
+    """LTT-calibrate on ``cal`` and report deployed savings/error on ``test``
+    (risk against supervised ground truth — what the paper's tables show)."""
+    return evaluate_probe(calibrator.scores(cal), cal,
+                          calibrator.scores(test), test,
+                          calibrator.mode, deltas, eps=eps,
+                          method=calibrator.method)
 
 
 def calibrated_lambda(calibrator: Calibrator, cal: TrajectorySet,

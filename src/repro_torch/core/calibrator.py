@@ -1,12 +1,18 @@
 """Unified ``Calibrator`` protocol: fit -> scores -> calibrate -> threshold.
 
-The port carries the TTT calibrator — the paper's probe, the one the
-serving path deploys.  LTT calibration is the numpy code shared verbatim
+Both probes the paper compares are calibrated stopping procedures: the
+meta-learned TTT probe (``TTTCalibrator``) and the static PCA+logreg
+baseline (``StaticCalibrator``).  Each scores step embeddings, is
+LTT-calibrated on a held-out split, and hands (ProbeConfig, theta) to the
+fused serving step.  LTT calibration is the numpy code shared verbatim
 with the JAX package (``repro_torch.core.calibration``/``stopping``), so
 the same scores give the same lambda*.
 
     cal = TTTCalibrator(epochs=25, device="cuda").fit(train, "consistent")
     lam = cal.calibrate(cal_split, delta=0.1)      # LTT lambda*
+
+Self-consistency group calibration (``GroupCalibrator``) comes with
+ROADMAP A4.
 """
 from __future__ import annotations
 
@@ -14,7 +20,9 @@ import dataclasses
 from typing import Optional, Protocol, runtime_checkable
 
 import numpy as np
+import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import calibration as C
 from repro_torch.core import stopping as S
 from repro_torch.core.probe import ProbeConfig
@@ -24,7 +32,7 @@ from repro_torch.trajectories import TrajectorySet
 @runtime_checkable
 class Calibrator(Protocol):
     """The probe-side API the facade and drivers are written against."""
-    method: str                    # "ttt"
+    method: str                    # "ttt" | "static"
     mode: str                      # label mode bound at fit() time
 
     def fit(self, train: TrajectorySet, mode: str) -> "Calibrator":
@@ -121,10 +129,70 @@ class TTTCalibrator(_LTTMixin):
         return pc, theta
 
 
+@dataclasses.dataclass
+class StaticCalibrator(_LTTMixin):
+    """The static baseline: PCA + logistic regression, no online adaptation
+    (Wu et al., 2025 — the paper's "Static Probe" row); the logistic
+    regression is fitted on ``device``, scores are computed on the host.
+
+    ``serving_params`` flattens PCA+logreg into an equivalent frozen linear
+    probe (eta = 0, so K1's score-then-update never moves the weights),
+    which lets the same fused serving step deploy the static baseline."""
+    n_components: int = 64
+    epochs: int = 200
+    lr: float = 1e-2
+    smooth_window: int = 10
+    seed: int = 0
+    device: Optional[str] = None     # None: CUDA (see resolve_device)
+    method: str = dataclasses.field(default="static", init=False)
+    mode: str = dataclasses.field(default="", init=False)
+    probe: Optional[object] = dataclasses.field(default=None, init=False)
+
+    def fit(self, train: TrajectorySet, mode: str) -> "StaticCalibrator":
+        from repro_torch.core.pipeline import make_labels
+        from repro_torch.core.static_probe import fit_static_probe
+        self.probe = fit_static_probe(
+            train.phis, make_labels(train, mode), train.mask,
+            n_components=self.n_components, epochs=self.epochs, lr=self.lr,
+            smooth_window=self.smooth_window, seed=self.seed,
+            device=self.device)
+        self.mode = mode
+        return self
+
+    def scores(self, ts: TrajectorySet) -> np.ndarray:
+        if self.probe is None:
+            raise RuntimeError("fit() must run before scores()")
+        return self.probe.scores(ts.phis, ts.mask)
+
+    def serving_params(self):
+        """Flatten PCA + logreg into kernel state for the fused engine:
+
+        s = sigma(w . P^T (phi - mu) + b) == sigma(W_eff . phi + b_eff)
+        with W_eff = P w and b_eff = b - mu . P w, on ``device``; eta = 0
+        freezes the inner update, so the served scores equal ``scores()``.
+        """
+        if self.probe is None:
+            raise RuntimeError("fit() must run before serving_params()")
+        p = self.probe
+        w_eff = p.components @ p.w                     # (d,)
+        b_eff = float(p.b - p.mean @ w_eff)
+        pc = ProbeConfig(d_phi=int(p.mean.shape[0]), variant="noqk",
+                         eta=0.0, smooth_window=p.smooth_window)
+        dev = resolve_device(self.device)
+        theta = {"W0": torch.as_tensor(w_eff, dtype=torch.float32,
+                                       device=dev),
+                 "b0": torch.tensor(b_eff, dtype=torch.float32, device=dev)}
+        return pc, theta
+
+
+_REGISTRY = {"ttt": TTTCalibrator, "static": StaticCalibrator}
+
+
 def make_calibrator(method: str, **kwargs) -> Calibrator:
-    if method == "ttt":
-        return TTTCalibrator(**kwargs)
-    raise NotImplementedError(
-        f"calibrator method {method!r} is not ported to repro_torch yet; "
-        "the static PCA+logreg baseline comes with ROADMAP queue A "
-        "(substrates and benchmarks)")
+    """Factory over the registered Calibrator implementations."""
+    try:
+        cls = _REGISTRY[method]
+    except KeyError:
+        raise ValueError(f"unknown calibrator {method!r}; "
+                         f"known: {sorted(_REGISTRY)}") from None
+    return cls(**kwargs)

@@ -1,14 +1,17 @@
-"""ORCA pipeline pieces the serving path needs: labels and TTT probe
-meta-training (PyTorch).
+"""End-to-end ORCA pipeline: meta-train -> LTT-calibrate -> evaluate
+(PyTorch).
 
 Trajectory sets are numpy (``repro_torch.trajectories``); meta-training
 runs on ``device`` and the trained slow weights stay there, ready for the
-serving engine.
+serving engine.  Deployed scores come back to the host, where LTT
+calibration and the paper's (savings, error) metrics are the numpy code
+shared with the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import warnings
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,11 +39,16 @@ class TrainedProbe:
     theta: Dict[str, torch.Tensor]
     history: List[Dict[str, float]]
 
-    def scores(self, ts: TrajectorySet) -> np.ndarray:
+    def scores(self, ts: TrajectorySet,
+               kernel: Optional[Callable] = None) -> np.ndarray:
+        """Deployed smoothed scores (N, T), masked, on the host; computed
+        on the device of the slow weights (``kernel``: see
+        ``ttt.deployed_scores``)."""
         dev = self.theta["W0"].device
         s = ttt.deployed_scores(self.pc, self.theta,
                                 torch.as_tensor(ts.phis, device=dev),
-                                torch.as_tensor(ts.mask, device=dev))
+                                torch.as_tensor(ts.mask, device=dev),
+                                kernel=kernel)
         return s.cpu().numpy() * ts.mask
 
 
@@ -100,3 +108,64 @@ def train_ttt_probe(train: TrajectorySet, mode: str, pc: ProbeConfig,
     if epoch_select and best["savings"] >= 0:
         theta = best["theta"]
     return TrainedProbe(pc, theta, hist)
+
+
+@dataclasses.dataclass
+class ProcedureEval:
+    method: str
+    mode: str
+    results: List[S.EvalResult]
+
+    def at(self, delta: float) -> S.EvalResult:
+        for r in self.results:
+            if abs(r.delta - delta) < 1e-9:
+                return r
+        raise KeyError(delta)
+
+
+def evaluate_probe(scores_cal: np.ndarray, cal: TrajectorySet,
+                   scores_test: np.ndarray, test: TrajectorySet,
+                   mode: str, deltas: Sequence[float],
+                   eps: float = 0.05, method: str = "ttt") -> ProcedureEval:
+    """Calibrate on ``cal`` (labels in the SAME mode the probe was trained
+    with — label-free deployment for the consistent mode) and evaluate risk
+    against supervised ground truth on ``test`` (what the paper reports)."""
+    lab_cal = make_labels(cal, mode)
+    lab_test = L.supervised_labels(test.correct, test.mask)
+    results = S.sweep_deltas(
+        (scores_cal, lab_cal, cal.mask),
+        (scores_test, lab_test, test.mask),
+        deltas, eps=eps)
+    return ProcedureEval(method, mode, results)
+
+
+def run_orca(train: TrajectorySet, cal: TrajectorySet, test: TrajectorySet,
+             *, mode: str = "supervised", pc: Optional[ProbeConfig] = None,
+             deltas: Sequence[float] = (0.05, 0.1, 0.15, 0.2),
+             epochs: int = 40, eps: float = 0.05, seed: int = 0,
+             include_static: bool = True, verbose: bool = False,
+             device=None) -> Dict[str, ProcedureEval]:
+    """DEPRECATED shim over the ``repro_torch.api`` facade (same numbers
+    by construction); ``device`` goes to both calibrators.
+
+    New code:  ``orca.fit(train, mode) -> orca.evaluate(cal, test)``.
+    Returns {"ttt": ProcedureEval, "static": ..., "_probe": TrainedProbe,
+    "_static": StaticProbe}.
+    """
+    from repro_torch import api
+    warnings.warn(
+        "run_orca is a deprecated shim: call repro_torch.api.fit / "
+        "repro_torch.api.evaluate directly (same numbers by construction)",
+        DeprecationWarning, stacklevel=2)
+    pc = pc or ProbeConfig(d_phi=train.phis.shape[-1])
+    ttt_cal = api.fit(train, mode=mode, method="ttt", pc=pc, epochs=epochs,
+                      seed=seed, verbose=verbose, device=device)
+    out: Dict[str, ProcedureEval] = {}
+    out["ttt"] = api.evaluate(ttt_cal, cal, test, deltas=deltas, eps=eps)
+    out["_probe"] = ttt_cal.probe  # type: ignore
+    if include_static:
+        static_cal = api.fit(train, mode=mode, method="static", device=device)
+        out["static"] = api.evaluate(static_cal, cal, test, deltas=deltas,
+                                     eps=eps)
+        out["_static"] = static_cal.probe  # type: ignore
+    return out

@@ -5,11 +5,18 @@ Inner loop (per reasoning trajectory, *score-then-update*):
     l    = (sigma(W_{t-1} . z_K(phi_t) + b_{t-1}) - C_t)^2
     W_t  = W_{t-1} - eta * grad_W l           (online gradient descent)
 
-The unroll is a Python loop over T on a (N, f) batch of fast weights —
-the JAX package's ``lax.scan`` under ``vmap`` written out — and the outer
-loop differentiates through it with torch autograd in place of
-``jax.value_and_grad``.  Only the scan path is ported: the offline Pallas
-scan kernel (``kernel=``) is not, as on the JAX package's main path.
+The differentiable unroll is a Python loop over T on a (N, f) batch of
+fast weights — the JAX package's ``lax.scan`` under ``vmap`` written out —
+and the outer loop (``outer_loss``, ``meta_train``) differentiates through
+it with torch autograd in place of ``jax.value_and_grad``.
+
+``kernel=`` keeps the JAX meaning: a callable (zq, zk, c, m, W0, b0, eta)
+-> (scores, W_f, b_f) for ONE trajectory replaces the step loop
+(``repro_torch.kernels.ttt_scan.make_unroll_kernel`` is K5's);
+``batched_unroll`` calls it per trajectory, as ``vmap`` would.  The
+forward-only, label-free ``deployed_scores`` always runs the whole batch
+through K5's ``ttt_probe_scan`` (its plain version on CPU tensors), where
+the JAX package defaults to ``lax.scan`` with the kernel opt-in.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 
 from repro_torch.core import probe as P
 from repro_torch.core.probe import ProbeConfig
+from repro_torch.kernels import ttt_scan
 
 
 class UnrollOut(NamedTuple):
@@ -26,15 +34,23 @@ class UnrollOut(NamedTuple):
     fast_final: Tuple[torch.Tensor, torch.Tensor]
 
 
+def _labels_and_mask(phis, inner_labels, mask):
+    """Inner labels (zeros: inference mode) and update mask, f32, shaped
+    like ``phis`` without its feature axis."""
+    shape, dev = phis.shape[:-1], phis.device
+    c = (torch.zeros(shape, dtype=torch.float32, device=dev)
+         if inner_labels is None else inner_labels.float())
+    m = (torch.ones(shape, dtype=torch.float32, device=dev)
+         if mask is None else mask.float())
+    return c, m
+
+
 def _unroll(pc: ProbeConfig, theta, phis, inner_labels, mask) -> UnrollOut:
     """phis (N, T, d_phi); inner_labels/mask (N, T) -> scores (N, T)."""
     n, T = phis.shape[:2]
     eta = P.inner_lr(pc, theta)
     zq, zk = P.features(pc, theta, phis)               # (N, T, f)
-    c = (torch.zeros((n, T), dtype=torch.float32, device=phis.device)
-         if inner_labels is None else inner_labels.float())
-    m = (torch.ones((n, T), dtype=torch.float32, device=phis.device)
-         if mask is None else mask.float())
+    c, m = _labels_and_mask(phis, inner_labels, mask)
     W0, b0 = P.fast_init(pc, theta)
     W = W0.expand(n, W0.shape[-1])
     b = b0.expand(n)
@@ -54,9 +70,17 @@ def _unroll(pc: ProbeConfig, theta, phis, inner_labels, mask) -> UnrollOut:
 
 def inner_unroll(pc: ProbeConfig, theta, phis: torch.Tensor,
                  inner_labels: Optional[torch.Tensor] = None,
-                 mask: Optional[torch.Tensor] = None) -> UnrollOut:
+                 mask: Optional[torch.Tensor] = None,
+                 kernel: Optional[Callable] = None) -> UnrollOut:
     """Unroll the TTT inner loop over one trajectory: phis (T, d_phi);
-    inner_labels (T,) or None (=> zeros, inference mode); mask (T,)."""
+    inner_labels (T,) or None (=> zeros, inference mode); mask (T,).
+    ``kernel`` optionally swaps the step loop for a fused implementation."""
+    if kernel is not None:
+        zq, zk = P.features(pc, theta, phis)          # (T, f)
+        c, m = _labels_and_mask(phis, inner_labels, mask)
+        scores, W_f, b_f = kernel(zq, zk, c, m, theta["W0"], theta["b0"],
+                                  P.inner_lr(pc, theta))
+        return UnrollOut(scores, (W_f, b_f))
     out = _unroll(pc, theta, phis[None],
                   None if inner_labels is None else inner_labels[None],
                   None if mask is None else mask[None])
@@ -65,9 +89,16 @@ def inner_unroll(pc: ProbeConfig, theta, phis: torch.Tensor,
 
 
 def batched_unroll(pc: ProbeConfig, theta, phis, inner_labels=None,
-                   mask=None) -> torch.Tensor:
+                   mask=None, kernel: Optional[Callable] = None
+                   ) -> torch.Tensor:
     """phis (N, T, d_phi) -> scores (N, T)."""
-    return _unroll(pc, theta, phis, inner_labels, mask).scores
+    if kernel is None:
+        return _unroll(pc, theta, phis, inner_labels, mask).scores
+    c, m = _labels_and_mask(phis, inner_labels, mask)
+    rows = [inner_unroll(pc, theta, phis[i], c[i], m[i], kernel).scores
+            for i in range(phis.shape[0])]
+    return (torch.stack(rows) if rows
+            else torch.zeros(phis.shape[:2], device=phis.device))
 
 
 # ---------------------------------------------------------------------------
@@ -123,8 +154,25 @@ def meta_train(pc: ProbeConfig, theta: Dict[str, torch.Tensor], optimizer,
 # Deployment-time score trajectories (the "deployed procedure" scores)
 
 @torch.no_grad()
-def deployed_scores(pc: ProbeConfig, theta, phis, mask=None) -> torch.Tensor:
+def deployed_scores(pc: ProbeConfig, theta, phis, mask=None,
+                    kernel: Optional[Callable] = None) -> torch.Tensor:
     """Scores produced by the deployed procedure (C_t = 0 inner updates),
-    smoothed with the configured rolling window.  phis (N,T,d) -> (N,T)."""
-    raw = batched_unroll(pc, theta, phis, inner_labels=None, mask=mask)
+    smoothed with the configured rolling window.  phis (N,T,d) -> (N,T).
+
+    Updating past the stopping time does not change s_1..s_tau (updates
+    are causal and label-free), so one pass serves every threshold lambda.
+    The pass is forward only, so the slow weights enter it detached: with
+    ``kernel=None`` the batch goes through K5 (``ttt_scan.ttt_probe_scan``)
+    in one launch on the card; a ``kernel`` callable runs per trajectory."""
+    theta = {k: v.detach() for k, v in theta.items()}
+    if kernel is not None:
+        raw = batched_unroll(pc, theta, phis, inner_labels=None, mask=mask,
+                             kernel=kernel)
+    else:
+        zq, zk = P.features(pc, theta, phis)
+        c, m = _labels_and_mask(phis, None, mask)
+        W0, b0 = P.fast_init(pc, theta)
+        raw, _, _ = ttt_scan.ttt_probe_scan(
+            zq.contiguous(), zk.contiguous(), c, m.contiguous(),
+            W0.float().contiguous(), b0.float(), P.inner_lr(pc, theta))
     return P.smooth_scores(raw, pc.smooth_window)

@@ -1,5 +1,6 @@
 """Serving driver: a request queue through the continuous-batching ORCA
-scheduler, on the card by default.
+scheduler, on the card by default, with the static-batch engine as the
+side-by-side baseline (``--static-baseline``).
 
     python -m repro_torch.launch.serve --arch smollm-360m --paged \
         --requests 8 --slots 4 --max-new-tokens 96 [--chunk-tokens 64]
@@ -15,7 +16,7 @@ of the kernels (use ``--reduced`` there).
 from __future__ import annotations
 
 import argparse
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -26,8 +27,9 @@ from repro_torch.configs import get_config
 from repro_torch.core.labels import consistent_labels
 from repro_torch.core.probe import ProbeConfig
 from repro_torch.models import build
-from repro_torch.serving import (ServeConfig, extract_trajectories,
-                                 make_request)
+from repro_torch.serving import (ServeConfig, ServingEngine,
+                                 StaticQueueResult, extract_trajectories,
+                                 make_request, serve_queue_static)
 from repro_torch.trajectories.synthetic import (TrajectoryDistribution,
                                                 TrajectorySet)
 
@@ -62,11 +64,13 @@ def trajectories_from_model(model, params, n: int, prompt_len: int,
 
 class ServeResult(NamedTuple):
     """What one driver run served: every request, the fleet metrics, the
-    scheduler (its engine and page pool) and the calibrated lambda*."""
+    scheduler (its engine and page pool), the calibrated lambda* and, with
+    ``--static-baseline``, the static-batch run of the same queue."""
     requests: List
     fleet: object
     scheduler: object
     lam: float
+    static: Optional[StaticQueueResult] = None
 
 
 def serve(argv=None) -> ServeResult:
@@ -88,6 +92,9 @@ def serve(argv=None) -> ServeResult:
     ap.add_argument("--epochs", type=int, default=10)
     ap.add_argument("--burn-in", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--static-baseline", action="store_true",
+                    help="also serve the same queue through the static-batch "
+                         "engine and print the comparison")
     ap.add_argument("--paged", action="store_true",
                     help="serve from the paged KV cache (block-pool "
                          "admission, prefix sharing, eviction reclaims "
@@ -157,7 +164,18 @@ def serve(argv=None) -> ServeResult:
              f"({fleet.packed_chunks} packed, peak "
              f"{fleet.peak_step_tokens} tok/step)"
              if args.chunk_tokens else " (admission-time prefill)"))
-    return ServeResult(done, fleet, sched, float(lam))
+    base = None
+    if args.static_baseline:
+        pc, theta = calib.serving_params()
+        scfg = ServeConfig(tokens_per_step=args.tokens_per_step,
+                           max_new_tokens=args.max_new_tokens,
+                           lam=float(lam), burn_in=args.burn_in)
+        eng = ServingEngine(model, params, pc, theta, scfg)
+        base = serve_queue_static(eng, batch, args.prompt_len, args.slots)
+        print(f"[serve] static-batch baseline: {base.engine_steps} engine "
+              f"steps ({base.wall_time_s:.2f}s) — "
+              f"{args.requests / base.wall_time_s:.2f} req/s")
+    return ServeResult(done, fleet, sched, float(lam), base)
 
 
 def main(argv=None) -> int:

@@ -1,11 +1,14 @@
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.engine import (ChunkSeg, ChunkWork,
                                         ContinuousServingEngine, ProbeState,
-                                        SlotStepView, chunk_supported,
-                                        chunked_prefill, extract_trajectories,
+                                        ServeResult, ServingEngine,
+                                        SlotStepView, StaticQueueResult,
+                                        chunk_supported, chunked_prefill,
+                                        extract_trajectories,
                                         init_probe_state, make_serve_step,
                                         prefix_len, probe_update,
-                                        reset_probe_slot, write_probe_slot)
+                                        reset_probe_slot, serve_queue_static,
+                                        write_probe_slot)
 from repro_torch.serving.groups import RequestGroup, group_requests, make_group
 from repro_torch.serving.kv_pool import (NULL_BLOCK, BlockPool, blocks_needed,
                                          pad_row, prompt_key)
@@ -18,9 +21,10 @@ __all__ = ["BlockPool", "ChunkSeg", "ChunkWork", "ComposeView",
            "ContinuousServingEngine", "FIFOPolicy",
            "FleetMetrics", "NULL_BLOCK", "OrcaScheduler", "ProbeState",
            "Request", "RequestGroup", "RequestState", "ServeConfig",
-           "SlotStepView", "blocks_needed", "chunk_supported",
+           "ServeResult", "ServingEngine", "SlotStepView",
+           "StaticQueueResult", "blocks_needed", "chunk_supported",
            "chunked_prefill", "extract_trajectories",
            "group_requests", "init_probe_state", "make_group",
            "make_request", "make_serve_step", "pad_row",
            "prefix_len", "probe_update", "prompt_key", "reset_probe_slot",
-           "write_probe_slot"]
+           "serve_queue_static", "write_probe_slot"]

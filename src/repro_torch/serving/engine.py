@@ -18,6 +18,10 @@ a packed prefill chunk of up to ``pack_max`` mid-prefill requests runs
 through ``model.prefill_packed`` (K3 on a paged state) before the decode
 of every slot.
 
+``ServingEngine`` is the deprecated static-batch baseline: prefill a
+batch once, then loop the fused step on a dense cache until the slowest
+row finishes (``serve_queue_static`` serves a queue in such groups).
+
 Buffers the JAX engine donates to its jitted step — the KV cache or page
 pool and the probe state — are updated IN PLACE here.  Ported: admission-
 time and chunked, packed prefill, one-token decode, dense and paged
@@ -25,12 +29,16 @@ caches.  Not yet: speculative decode, preemption (ROADMAP queue A).
 """
 from __future__ import annotations
 
+import dataclasses
+import time
+import warnings
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import probe as P
+from repro_torch.core import stopping as S
 from repro_torch.core.probe import ProbeConfig
 from repro_torch.kernels.probe_step import serving_probe_step
 from repro_torch.models import attention as A
@@ -254,6 +262,127 @@ def prefix_len(mcfg, batch_one: Dict[str, np.ndarray],
         n += mcfg.frontend.n_tokens
     n += getattr(mcfg, "n_meta_tokens", 0) or 0
     return n
+
+
+@dataclasses.dataclass
+class ServeResult:
+    tokens: np.ndarray        # (B, n_decode_iters) tokens actually decoded
+    stop_step: np.ndarray     # (B,) reasoning step at stop (-1 = budget)
+    steps_run: np.ndarray     # (B,) reasoning steps actually executed
+    savings: float
+    scores: np.ndarray        # (B, n_steps) smoothed score at each step
+
+
+class ServingEngine:
+    """Minimal batched server: prefill once, loop the fused serve_step.
+
+    DEPRECATED as a serving path: stopped sequences keep occupying their
+    batch slot as no-op compute until the slowest sequence finishes.  Use
+    ``OrcaScheduler`` (continuous batching with ORCA-stop eviction) for
+    throughput; this class remains as the static-batch baseline it is
+    compared against.  Dense cache; the prompt prefills in one shot
+    through ``chunked_prefill``."""
+
+    def __init__(self, model: Model, params, pc: ProbeConfig, theta,
+                 cfg: ServeConfig):
+        self.model, self.params, self.pc, self.theta, self.cfg = \
+            model, params, pc, theta, cfg
+        self._step_fn = make_serve_step(model, pc, theta, cfg)
+
+    @torch.no_grad()
+    def serve(self, batch: Dict[str, np.ndarray], prompt_len: int,
+              cache_len: Optional[int] = None) -> ServeResult:
+        warnings.warn(
+            "ServingEngine.serve is deprecated as a serving path (stopped "
+            "sequences occupy their slot as no-op compute until the slowest "
+            "finishes); serve through repro_torch.serving.OrcaScheduler / "
+            "repro_torch.api.engine for continuous batching — this class "
+            "remains only as the static-batch baseline",
+            DeprecationWarning, stacklevel=2)
+        model, cfg = self.model, self.cfg
+        mcfg = model.cfg
+        device = self.params["embed"].device
+        batch = to_device_inputs(batch, device)
+        B = next(iter(batch.values())).shape[0]
+        pre = prefix_len(mcfg, batch, prompt_len)
+        cache_len = cache_len or (pre + cfg.max_new_tokens)
+        state = chunked_prefill(model, self.params, batch, cache_len)
+        st = init_probe_state(self.pc, self.theta, B, mcfg.d_model)
+        token = torch.zeros((B,), dtype=torch.int32, device=device)
+        toks: List[torch.Tensor] = []
+        scores: List[np.ndarray] = []
+        last_max_n = 0
+        for i in range(cfg.max_new_tokens):
+            pos = torch.full((B,), pre + i, dtype=torch.int32, device=device)
+            token, state, st = self._step_fn(self.params, token, state, pos,
+                                             st)
+            toks.append(token)
+            # ONE host copy a step: max n_scores, all stopped, smoothed
+            obs = torch.cat([st.n_scores.max().reshape(1).float(),
+                             st.stopped.all().reshape(1).float(),
+                             st.smoothed]).cpu().numpy()
+            max_n = int(obs[0])
+            if max_n > last_max_n:
+                scores.append(obs[2:])
+                last_max_n = max_n
+            if obs[1] > 0.5:
+                break
+        stop_step = st.stop_step.cpu().numpy()
+        steps_run = np.where(stop_step >= 0, stop_step,
+                             st.n_scores.cpu().numpy())
+        total = max(cfg.max_new_tokens // cfg.tokens_per_step, 1)
+        savings = float(np.mean(S.step_savings(steps_run, total)))
+        return ServeResult(
+            tokens=(torch.stack(toks, dim=1).cpu().numpy() if toks
+                    else np.zeros((B, 0), np.int32)),
+            stop_step=stop_step, steps_run=steps_run, savings=savings,
+            scores=(np.stack(scores, axis=1) if scores
+                    else np.zeros((B, 0))))
+
+
+@dataclasses.dataclass
+class StaticQueueResult:
+    """Aggregate of serving a request queue in fixed static-batch groups."""
+    stop_step: np.ndarray        # (N,) per request
+    steps_run: np.ndarray        # (N,)
+    scores: List[np.ndarray]     # per request, (n_steps,)
+    engine_steps: int            # total fused decode steps across groups
+    active_slot_steps: int       # slot-steps before each sequence stopped
+    total_slot_steps: int        # engine_steps x group width
+    wall_time_s: float
+
+
+def serve_queue_static(engine: ServingEngine, batch: Dict[str, np.ndarray],
+                       prompt_len: int, n_slots: int) -> StaticQueueResult:
+    """Serve a queue in fixed groups of ``n_slots`` through the deprecated
+    static-batch path (no eviction: each group runs until its slowest
+    member finishes).  The baseline the serving driver's
+    ``--static-baseline`` compares the scheduler against."""
+    n = next(iter(batch.values())).shape[0]
+    stop_steps, steps_run, scores = [], [], []
+    engine_steps = active = total = 0
+    t0 = time.perf_counter()
+    for lo in range(0, n, n_slots):
+        group = {k: v[lo:lo + n_slots] for k, v in batch.items()}
+        with warnings.catch_warnings():
+            # this helper IS the sanctioned baseline use of the deprecated
+            # path — don't repeat its own deprecation per group
+            warnings.simplefilter("ignore", DeprecationWarning)
+            res = engine.serve(group, prompt_len=prompt_len)
+        iters = res.tokens.shape[1]
+        b = next(iter(group.values())).shape[0]
+        engine_steps += iters
+        total += iters * b
+        # a slot is useful until its sequence stops; frozen after
+        active += int(np.minimum(
+            res.steps_run * engine.cfg.tokens_per_step, iters).sum())
+        stop_steps.extend(res.stop_step.tolist())
+        steps_run.extend(res.steps_run.tolist())
+        scores.extend(res.scores[i] for i in range(res.scores.shape[0]))
+    return StaticQueueResult(
+        stop_step=np.array(stop_steps), steps_run=np.array(steps_run),
+        scores=scores, engine_steps=engine_steps, active_slot_steps=active,
+        total_slot_steps=total, wall_time_s=time.perf_counter() - t0)
 
 
 @torch.no_grad()

@@ -7,7 +7,8 @@ sharing.  The admission loop, batch composer, token collection and
 metrics are the JAX package's line for line, so per-request stop steps,
 tokens and completion steps match it exactly on the same model outputs.
 Speculation, preemption and consensus are rejected by ``ServeConfig``
-until their ROADMAP items land.
+until their ROADMAP items land, and a session that mixes priority classes
+by ``submit``: the reference preempts there by default.
 
 Chunked prefill (``chunk_tokens=N``) turns prefill into schedulable work:
 an admitted request becomes a resident PREFILL row, and each engine
@@ -338,6 +339,17 @@ class OrcaScheduler:
         serving session if none is active."""
         requests = list(requests)
         fresh = not self._session_open
+        session = [] if fresh else self._requests
+        classes = sorted({r.priority for r in [*session, *requests]})
+        if len(classes) > 1:
+            raise NotImplementedError(
+                f"priority classes {classes} in one serving session: the "
+                "port admits FIFO and cannot preempt, while the reference's "
+                "default ServeConfig (preemption=True) spills lower-class "
+                "residents for a more urgent request, so the two schedules "
+                "would differ; mixed priorities come with ROADMAP A4 "
+                "(preemption, groups and fleet); fix by serving one "
+                "priority class per session")
         if fresh:
             self._reset_session()
             self._session_open = True

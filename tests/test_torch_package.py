@@ -65,7 +65,7 @@ def test_forbidden_pattern_catches_what_it_should():
 
 def _entry_points():
     from repro_torch.configs import get_config
-    from repro_torch.core.calibrator import TTTCalibrator
+    from repro_torch.core.calibrator import StaticCalibrator, TTTCalibrator
     from repro_torch.core.probe import ProbeConfig, init_outer
     from repro_torch.launch import serve
     from repro_torch.models import build
@@ -84,6 +84,8 @@ def _entry_points():
         "from_jax_theta": lambda: from_jax_theta({"W0": np.zeros(8)}),
         "TTTCalibrator.fit": lambda: TTTCalibrator(
             pc=pc, epochs=1, epoch_select=False).fit(ts, "consistent"),
+        "StaticCalibrator.fit": lambda: StaticCalibrator(
+            n_components=4, epochs=1).fit(ts, "consistent"),
         "serve.main": lambda: serve.main(["--arch", "smollm-360m",
                                           "--reduced"]),
     }
@@ -92,7 +94,7 @@ def _entry_points():
 @pytest.mark.parametrize("name", ["model.init", "init_decode_state",
                                   "init_paged_state", "init_outer",
                                   "from_jax_theta", "TTTCalibrator.fit",
-                                  "serve.main"])
+                                  "StaticCalibrator.fit", "serve.main"])
 def test_entry_point_without_cuda_raises(monkeypatch, name):
     """With no CUDA device and no ``device=``, an entry point raises and
     says how to run on the CPU; it never drops to the CPU by itself."""

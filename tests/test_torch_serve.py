@@ -5,9 +5,11 @@ per-request stop steps, emitted tokens, admission and completion steps are
 exactly equal, and the page pool drains — with admission-time prefill and
 with chunked, packed prefill through the unified token-budget step (dense
 and paged, packed and unpacked, a budget that spreads prefill over many
-steps, paged int8).  Plus CPU runs of the port's serving driver and the
-ServeConfig knobs the port accepts and refuses."""
+steps, paged int8); the static-batch engine and a static-probe fleet.
+Plus CPU runs of the port's serving driver, the ServeConfig knobs the port
+accepts and refuses, and its refusal of mixed priority classes."""
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -15,21 +17,28 @@ import numpy as np
 import pytest
 import torch
 
+from repro import api as japi
 from repro.configs import get_config as j_get_config
 from repro.core.probe import ProbeConfig as JProbeConfig
 from repro.core.probe import init_outer as j_init_outer
 from repro.models import build as j_build
 from repro.serving import OrcaScheduler as JOrcaScheduler
 from repro.serving import ServeConfig as JServeConfig
+from repro.serving import ServingEngine as JServingEngine
 from repro.serving import make_request as j_make_request
+from repro.serving import serve_queue_static as j_serve_queue_static
+from repro.trajectories import synthetic as jsyn
 
+from repro_torch import api
 from repro_torch.configs import get_config
+from repro_torch.core.calibrator import StaticCalibrator
 from repro_torch.core.probe import ProbeConfig
 from repro_torch.launch import serve as tserve
 from repro_torch.models import build
 from repro_torch.models.convert import from_jax_params, from_jax_theta
-from repro_torch.serving import OrcaScheduler, RequestState, ServeConfig
-from repro_torch.serving import make_request
+from repro_torch.serving import (OrcaScheduler, RequestState, ServeConfig,
+                                 ServingEngine, make_request,
+                                 serve_queue_static)
 
 # prompt lengths: the third repeats the first prompt (a prefix hit in paged
 # mode: shared full pages plus a copied partial tail page)
@@ -212,3 +221,112 @@ def test_fifo_prefill_share_matches_jax(margin, n_running, near):
               token_budget=12, chunk_tokens=8, near_boundary=near)
     assert FIFOPolicy(probe_margin=margin).prefill_share(ComposeView(**kw)) \
         == JFIFOPolicy(probe_margin=margin).prefill_share(JComposeView(**kw))
+
+
+@pytest.mark.parametrize("lam", [0.9, 0.95])
+def test_static_batch_queue_matches_jax_and_the_continuous_fleet(models,
+                                                                 lam):
+    """The deprecated static-batch baseline serves the queue in groups of
+    n_slots: stop steps, reasoning steps run and engine steps equal the
+    JAX package's, and its stops equal the continuous fleet's (the
+    assertion of ``benchmarks/serving_throughput.py``).  At lam 0.9 rows
+    stop at steps 2 and 3; at 0.95 some run to the budget."""
+    (jmodel, jparams, jpc, jtheta), (model, params, pc, theta) = models
+    kw = dict(tokens_per_step=2, max_new_tokens=12, lam=lam, burn_in=1)
+    prompts = np.stack([p[:9] for p in _prompts(model.cfg.vocab_size)
+                        if len(p) >= 9] + [np.arange(9, dtype=np.int32)])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        ref = j_serve_queue_static(
+            JServingEngine(jmodel, jparams, jpc, jtheta, JServeConfig(**kw)),
+            {"tokens": prompts}, 9, 2)
+    eng = ServingEngine(model, params, pc, theta, ServeConfig(**kw))
+    with pytest.warns(DeprecationWarning, match="static-batch baseline"):
+        eng.serve({"tokens": prompts[:1]}, prompt_len=9)
+    out = serve_queue_static(eng, {"tokens": prompts}, 9, 2)
+    for name in ("stop_step", "steps_run"):
+        np.testing.assert_array_equal(getattr(out, name), getattr(ref, name),
+                                      err_msg=name)
+    for name in ("engine_steps", "active_slot_steps", "total_slot_steps"):
+        assert getattr(out, name) == getattr(ref, name), name
+    for a, b in zip(out.scores, ref.scores):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    assert len(set(out.stop_step.tolist())) > 1
+    done, _ = OrcaScheduler(model, params, pc, theta,
+                            ServeConfig(n_slots=2, **kw)).run(
+        [make_request(p) for p in prompts])
+    assert [r.stop_step for r in done] == out.stop_step.tolist()
+
+
+def test_static_probe_fleet_through_the_facade_matches_jax(models):
+    """The static baseline (PCA + logreg fitted in JAX, carried across)
+    served through ``api.engine``: flattened into a frozen no-QK probe
+    (eta = 0) on the fused step, so every slot's W stays at W0; stops,
+    tokens and scores equal JAX's."""
+    (jmodel, jparams, _, _), (model, params, _, _) = models
+    ts = jsyn.generate(jsyn.TrajectoryDistribution(
+        "p", d_phi=model.cfg.d_model, t_min=8, t_max=16), 24, 0)
+    jcal = japi.fit(ts, mode="supervised", method="static", n_components=8)
+    cal = StaticCalibrator(device="cpu")
+    cal.probe, cal.mode = jcal.probe, jcal.mode
+    kw = dict(tokens_per_step=2, max_new_tokens=12, lam=0.58, burn_in=1,
+              n_slots=2, block_size=4, paged=True)
+    prompts = _prompts(model.cfg.vocab_size)
+    jdone, jfleet = japi.engine(jmodel, jparams, jcal,
+                                config=JServeConfig(**kw)).run(
+        [j_make_request(p, max_new_tokens=n)
+         for p, n in zip(prompts, BUDGETS)])
+    sched = api.engine(model, params, cal, config=ServeConfig(**kw))
+    assert sched.pc.eta == 0.0
+    sched.submit([make_request(p, max_new_tokens=n)
+                  for p, n in zip(prompts, BUDGETS)])
+    for _ in range(3):
+        sched.step()
+        assert torch.equal(sched.engine.st.W,
+                           sched.theta["W0"].expand_as(sched.engine.st.W))
+    done, fleet = sched.drain()
+    assert [r.stop_step for r in done] == [r.stop_step for r in jdone]
+    assert len({r.stop_step for r in done}) > 1
+    for r, jr in zip(done, jdone):
+        assert r.tokens == jr.tokens
+        np.testing.assert_allclose(r.scores, jr.scores, rtol=0, atol=1e-5)
+    assert fleet.engine_steps == jfleet.engine_steps
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_mixed_priority_session_is_refused_where_jax_preempts(models, paged):
+    """Fault C1: the reference's default config preempts a lower class for
+    a more urgent request, so the port, which cannot preempt yet, refuses
+    a session with more than one priority class instead of serving it on
+    another schedule — counted over every request of the session."""
+    (jmodel, jparams, jpc, jtheta), (model, params, pc, theta) = models
+    kw = dict(tokens_per_step=2, max_new_tokens=12, lam=0.6, burn_in=1,
+              n_slots=2, block_size=4, paged=paged)
+    prios = (1, 1, 0, 1, 0)
+    prompts = _prompts(model.cfg.vocab_size)
+    _, jfleet = JOrcaScheduler(jmodel, jparams, jpc, jtheta,
+                               JServeConfig(**kw)).run(
+        [j_make_request(p, max_new_tokens=n, priority=c)
+         for p, n, c in zip(prompts, BUDGETS, prios)])
+    assert jfleet.preemptions > 0
+    sched = OrcaScheduler(model, params, pc, theta, ServeConfig(**kw))
+    reqs = [make_request(p, max_new_tokens=n, priority=c)
+            for p, n, c in zip(prompts, BUDGETS, prios)]
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        sched.run(reqs)
+    sched.submit(reqs[:2])
+    with pytest.raises(NotImplementedError, match=r"classes \[0, 1\]"):
+        sched.submit(reqs[2:3])
+    done, _ = sched.drain()
+    assert [r.req_id for r in done] == [r.req_id for r in reqs[:2]]
+
+
+def test_serve_driver_static_baseline_on_cpu(capsys):
+    out = tserve.serve(["--arch", "smollm-360m", "--reduced", "--device",
+                        "cpu", "--requests", "3", "--slots", "2",
+                        "--max-new-tokens", "16", "--tokens-per-step", "4",
+                        "--train-trajectories", "8", "--epochs", "2",
+                        "--prompt-len", "8", "--static-baseline"])
+    assert "[serve] static-batch baseline: " in capsys.readouterr().out
+    assert out.static.stop_step.tolist() == [r.stop_step
+                                             for r in out.requests]
