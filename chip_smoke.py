@@ -90,14 +90,7 @@ def sync(torch) -> None:
         torch.cuda.synchronize()
 
 
-_START = time.perf_counter()
-
-
 def emit(obj) -> None:
-    """One JSON line; a phase's line also carries the seconds since the
-    script started."""
-    if "phase" in obj:
-        obj = dict(obj, elapsed_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -1145,7 +1138,7 @@ def phase_serve(torch, extra_argv=(), *, phase="serve", requests=8,
     return res, out.scheduler
 
 
-def phase_trace(torch, sched, steps: int = 8, prompt_len: int = 16,
+def phase_trace(torch, sched, steps: int = 16, prompt_len: int = 16,
                 phase: str = "trace"):
     """A profiler window over ``steps`` engine steps of the served fleet,
     refilled with fresh requests of ``prompt_len`` tokens: the card's busy
@@ -1448,7 +1441,7 @@ def main() -> int:
               "paged_flash_packed_chunk"))
     if served_c["packed_chunks"] < 1:
         raise AssertionError("the chunked fleet packed no chunk")
-    phase_trace(torch, sched_c, steps=16, prompt_len=160,
+    phase_trace(torch, sched_c, steps=24, prompt_len=160,
                 phase="trace-chunked")
     offline = phase_offline(torch, splits)
     _, sched_s = phase_serve(

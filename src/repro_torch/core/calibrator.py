@@ -142,7 +142,6 @@ class StaticCalibrator(_LTTMixin):
     epochs: int = 200
     lr: float = 1e-2
     smooth_window: int = 10
-    seed: int = 0
     device: Optional[str] = None     # None: CUDA (see resolve_device)
     method: str = dataclasses.field(default="static", init=False)
     mode: str = dataclasses.field(default="", init=False)
@@ -154,8 +153,7 @@ class StaticCalibrator(_LTTMixin):
         self.probe = fit_static_probe(
             train.phis, make_labels(train, mode), train.mask,
             n_components=self.n_components, epochs=self.epochs, lr=self.lr,
-            smooth_window=self.smooth_window, seed=self.seed,
-            device=self.device)
+            smooth_window=self.smooth_window, device=self.device)
         self.mode = mode
         return self
 

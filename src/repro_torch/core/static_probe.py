@@ -54,10 +54,9 @@ def fit_static_probe(phis: np.ndarray, labels: np.ndarray,
                      mask: Optional[np.ndarray] = None, *,
                      n_components: int = 64, epochs: int = 200,
                      lr: float = 1e-2, smooth_window: int = 10,
-                     seed: int = 0, device=None) -> StaticProbe:
+                     device=None) -> StaticProbe:
     """phis (N, T, d), labels (N, T) -> fitted PCA+LogReg probe.  The fit
-    is deterministic (zeros init, full batch); ``seed`` is kept for the
-    JAX package's signature."""
+    is deterministic (zeros init, full batch), so it takes no seed."""
     n, t, d = phis.shape
     flat = phis.reshape(n * t, d).astype(np.float64)
     y = labels.reshape(n * t).astype(np.float64)

@@ -11,19 +11,23 @@ import torch
 
 from repro.core import ttt as jttt
 from repro.core.calibrator import TTTCalibrator as JTTTCalibrator
+from repro.core.pipeline import make_labels as j_make_labels
 from repro.core.pipeline import train_ttt_probe as j_train
 from repro.core.probe import ProbeConfig as JProbeConfig
 from repro.core.probe import init_outer as j_init_outer
 from repro.kernels import ref as jref
 from repro.kernels.ttt_probe import serving_probe_step as j_probe_step
+from repro.optim import Adam as JAdam
 from repro.serving import engine as jeng
 from repro.trajectories import synthetic as jsyn
 
 from repro_torch.core import ttt as tttt
 from repro_torch.core.calibrator import TTTCalibrator
+from repro_torch.core.pipeline import train_ttt_probe as t_train
 from repro_torch.core.probe import ProbeConfig
 from repro_torch.kernels.probe_step import serving_probe_step
 from repro_torch.models.convert import from_jax_theta
+from repro_torch.optim import Adam
 from repro_torch.serving import engine as teng
 from repro_torch.trajectories import synthetic as tsyn
 
@@ -178,3 +182,80 @@ def test_train_ttt_probe_and_ltt_lambda_match_jax():
     lams = [cal.calibrate(cal_ts, delta) for delta in (0.1, 0.2, 0.3)]
     assert lams == [jcal.calibrate(jcal_ts, d) for d in (0.1, 0.2, 0.3)]
     assert np.isfinite(lams).any()
+
+
+# Probe variants past the no-QK default, for the training parity tests
+_TRAIN_VARIANTS = {
+    "qk": dict(variant="qk", d_h=8),
+    "qk-ln-mlp": dict(variant="qk", d_h=8, layernorm=True, mlp=True),
+    "qk-bptt4": dict(variant="qk", d_h=8, bptt_truncation=4),
+    "learnable-eta": dict(learnable_eta=True),
+    "true-labels": dict(inner_label_mode="true"),
+}
+
+
+def _jax_theta0(jpc, seed=0):
+    jtheta = j_init_outer(jpc, jax.random.PRNGKey(seed))
+    return jtheta, from_jax_theta({k: np.asarray(v) for k, v in
+                                   jtheta.items()}, device="cpu")
+
+
+def _assert_theta_close(theta, jtheta, atol):
+    assert sorted(theta) == sorted(jtheta)
+    for k, v in jtheta.items():
+        np.testing.assert_allclose(theta[k].numpy(), np.asarray(v), rtol=0,
+                                   atol=atol, err_msg=k)
+
+
+@pytest.mark.parametrize("name", sorted(_TRAIN_VARIANTS))
+def test_full_batch_fit_matches_jax(name):
+    """Three full-batch epochs (order-free) from the same theta0, with the
+    paper's epoch selection on: per-epoch loss and validation savings, the
+    kept slow weights within 1e-5 and the deployed scores within 1e-5."""
+    jts, ts = _traj_pair(n=24, seed=4)
+    jpc = JProbeConfig(d_phi=24, smooth_window=3, **_TRAIN_VARIANTS[name])
+    pc = ProbeConfig(**dataclasses.asdict(jpc))
+    kw = dict(epochs=3, batch_size=16, outer_lr=1e-2, seed=0,
+              epoch_select=True)     # 24 = 8 validation + 16 training
+    jprobe = j_train(jts, "supervised", jpc, **kw)
+    probe = t_train(ts, "supervised", pc, device="cpu",
+                    theta0=_jax_theta0(jpc)[1], **kw)
+    for h, jh in zip(probe.history, jprobe.history, strict=True):
+        assert h["loss"] == pytest.approx(jh["loss"], rel=1e-5)
+        assert h["val_savings"] == pytest.approx(jh["val_savings"], abs=1e-9)
+    _assert_theta_close(probe.theta, jprobe.theta, 1e-5)
+    np.testing.assert_allclose(probe.scores(ts), jprobe.scores(jts), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["qk-ln-mlp", "learnable-eta"])
+def test_minibatch_meta_train_matches_jax_outer_steps(name):
+    """The port's minibatch loop, in the order its generator draws (the
+    remainder of each epoch dropped), against the JAX package's jitted
+    outer step fed the same minibatches in the same order: per-epoch loss
+    and the slow weights after two epochs."""
+    jts, ts = _traj_pair(n=16, seed=5)
+    jpc = JProbeConfig(d_phi=24, smooth_window=3, **_TRAIN_VARIANTS[name])
+    pc = ProbeConfig(**dataclasses.asdict(jpc))
+    labels = j_make_labels(jts, "supervised")
+    epochs, bs = 2, 6
+    jtheta, theta0 = _jax_theta0(jpc, seed=1)
+    theta, hist = tttt.meta_train(
+        pc, theta0, Adam(lr=1e-2, clip_norm=1.0), torch.from_numpy(ts.phis),
+        torch.from_numpy(labels), torch.from_numpy(ts.mask), epochs=epochs,
+        batch_size=bs, generator=torch.Generator().manual_seed(7))
+    jopt = JAdam(lr=1e-2, clip_norm=1.0)
+    jstep, jstate = jttt.make_outer_step(jpc, jopt), jopt.init(jtheta)
+    gen = torch.Generator().manual_seed(7)
+    for epoch in range(epochs):
+        order = torch.randperm(len(jts), generator=gen).numpy()
+        losses = []
+        for i in range(0, len(jts) - bs + 1, bs):
+            idx = order[i:i + bs]
+            jtheta, jstate, loss = jstep(
+                jtheta, jstate, jnp.asarray(jts.phis[idx]),
+                jnp.asarray(labels[idx]), jnp.asarray(jts.mask[idx]))
+            losses.append(float(loss))
+        assert len(losses) == 2
+        assert hist[epoch]["loss"] == pytest.approx(np.mean(losses), rel=1e-5)
+    _assert_theta_close(theta, jtheta, 1e-5)
