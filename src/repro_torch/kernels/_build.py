@@ -42,6 +42,9 @@ SIGNATURES = {
                            _c.c_float, _P],
     "ttt_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _c.c_int,
                         _c.c_int, _c.c_int, _c.c_int, _c.c_int, _P],
+    "probe_spec_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _c.c_float, _c.c_float, _c.c_int, _c.c_int,
+                          _c.c_int, _c.c_int, _c.c_int, _P],
     "cuda_error_string": [_c.c_int],
 }
 

@@ -10,12 +10,16 @@ meta-trains the TTT probe, LTT-calibrates lambda* at ``--delta`` and serves
 the queue: every ORCA stop evicts its slot, which is refilled from the
 queue on the next step.  ``--chunk-tokens N`` prefills prompts in N-token
 chunks through the unified token-budget step, packed across up to
-``--pack-max`` requests.  ``--device cpu`` runs the plain PyTorch versions
-of the kernels (use ``--reduced`` there).
+``--pack-max`` requests.  ``--spec-tokens k`` serves linear speculative
+draft-verify decode: each running slot proposes up to k tokens a step,
+drafted by the shared n-gram draft cache (``--draft-cache`` keys) and the
+model's self-draft, verified in one packed pass.  ``--device cpu`` runs
+the plain PyTorch versions of the kernels (use ``--reduced`` there).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -108,6 +112,20 @@ def serve(argv=None) -> ServeResult:
                          "token-budget step (0 = admission-time prefill)")
     ap.add_argument("--token-budget", type=int, default=0,
                     help="max tokens per unified step (0 -> slots + chunk)")
+    ap.add_argument("--spec-tokens", type=int, default=0,
+                    help="speculative draft-verify decode: each running "
+                         "slot proposes up to this many tokens per step "
+                         "(current token + drafts), scored in one fused "
+                         "verify pass; accepted prefix commits, rejects "
+                         "roll back (0 = one-token decode)")
+    ap.add_argument("--spec-tree", default="",
+                    help="tree speculative decode as 'W.D' (not ported: "
+                         "raises; ROADMAP A1b)")
+    ap.add_argument("--draft-cache", type=int, default=4096,
+                    help="capacity (n-gram keys) of the fleet-wide shared "
+                         "draft cache that feeds speculation from "
+                         "verifier-accepted continuations (0 = model "
+                         "self-draft only)")
     ap.add_argument("--no-pack", action="store_true",
                     help="disable multi-request chunk packing (one request "
                          "per prefill chunk)")
@@ -116,6 +134,8 @@ def serve(argv=None) -> ServeResult:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    # validated before the harvest: a flag that is not ported fails fast
+    serve_cfg = ServeConfig.from_args(args)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -136,8 +156,8 @@ def serve(argv=None) -> ServeResult:
     lam = orca.calibrated_lambda(calib, cal, args.delta, fallback=0.99)
     print(f"[serve] LTT-calibrated lambda* = {lam:.3f}")
 
-    serve_cfg = ServeConfig.from_args(args, lam=float(lam))
-    sched = orca.engine(model, params, calib, config=serve_cfg)
+    sched = orca.engine(model, params, calib,
+                        config=dataclasses.replace(serve_cfg, lam=float(lam)))
     batch = model_inputs(cfg, torch.Generator().manual_seed(args.seed + 1),
                          args.requests, args.prompt_len)
     reqs = [make_request(batch["tokens"][i]) for i in range(args.requests)]
@@ -157,6 +177,16 @@ def serve(argv=None) -> ServeResult:
               f"(x{args.block_size} tokens), peak in use "
               f"{fleet.peak_blocks_in_use}, prefill skips "
               f"{fleet.prefill_skips}")
+    if args.spec_tokens:
+        print(f"[serve] speculative: {fleet.spec_tokens_accepted}/"
+              f"{fleet.spec_tokens_proposed} drafts accepted "
+              f"(rate {fleet.acceptance_rate:.2f}), accepted length "
+              f"p50/p99 {fleet.accepted_len_p50:.1f}/"
+              f"{fleet.accepted_len_p99:.1f}")
+        if fleet.draft_cache_hits or fleet.draft_cache_misses:
+            print(f"[serve] draft cache: {fleet.draft_cache_hits} hits / "
+                  f"{fleet.draft_cache_misses} misses "
+                  f"(rate {fleet.draft_cache_hit_rate:.2f})")
     print(f"[serve] latency: ttft p50/p99 {fleet.ttft_ms_p50:.1f}/"
           f"{fleet.ttft_ms_p99:.1f} ms, step stall p50/p99 "
           f"{fleet.stall_ms_p50:.1f}/{fleet.stall_ms_p99:.1f} ms"

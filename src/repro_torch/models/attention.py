@@ -436,8 +436,8 @@ def packed_chunk_mask(seg: torch.Tensor, valid_tok: torch.Tensor
     may attend chunk token j iff both belong to the same segment, j does
     not follow i (segments are laid out contiguously, so this is
     per-request causality) and j is a real token.  seg (C,), valid_tok
-    (C,) -> (C, C).  (The tree form, with ancestors, comes with spec and
-    tree decode.)"""
+    (C,) -> (C, C).  (The tree form, with ancestors, comes with tree
+    decode.)"""
     i = torch.arange(seg.shape[0], device=seg.device)
     return ((seg[:, None] == seg[None, :]) & valid_tok[None, :]
             & (i[None, :] <= i[:, None]))

@@ -12,8 +12,13 @@ package's:
                   block_rows=None) -> state
     prefill_packed(cfg, params, tokens, state, seg, slots, starts,
                    lengths, block_rows=None) -> state
+    verify_packed(cfg, params, tokens, state, seg, slots, starts, lengths,
+                  block_rows=None) -> (logits, hidden, state)
+    draft(cfg, params, state, token, pos, k) -> (B, k - 1) drafts
 
-Only the dense family is ported; the others raise.
+Only the dense family is ported; the others raise.  Tree speculative
+decode (``verify_tree``, ``commit_kv``, ``draft_tree``) comes with ROADMAP
+A1b.
 """
 from __future__ import annotations
 
@@ -49,6 +54,17 @@ class Model:
     # the single-segment call IS the unpacked chunk, so the unified serving
     # step runs every chunk through it
     prefill_packed: Optional[Callable] = None
+    # speculative decode, the VERIFY pass: ``prefill_packed`` with the LM
+    # head kept -> (logits (C, vocab), hidden (C, d), state); position j of
+    # each segment scores the next token after consuming draft token j
+    verify_packed: Optional[Callable] = None
+    # draft source for speculative decode: (cfg, params, state, token (B,),
+    # pos (B,), k) -> (B, k - 1) int32 proposed continuations
+    draft: Optional[Callable] = None
+    # True when ``draft`` is the degenerate repeat-last-token self-draft:
+    # the signal for the serving layer to put the fleet-wide shared draft
+    # cache in front of it
+    self_draft: bool = False
 
     @property
     def supports_paged(self) -> bool:
@@ -58,6 +74,11 @@ class Model:
     def supports_chunked(self) -> bool:
         return (self.prefill_chunk is not None
                 and self.prefill_packed is not None)
+
+    @property
+    def supports_spec(self) -> bool:
+        return (self.verify_packed is not None and self.draft is not None
+                and self.supports_chunked)
 
     def init(self, generator: Optional[torch.Generator] = None,
              device=None):
@@ -85,7 +106,9 @@ def _build_dense(cfg: ModelConfig) -> Model:
                  init_decode_state=init_decode_state,
                  init_paged_state=init_paged_state,
                  prefill_chunk=transformer.prefill_chunk,
-                 prefill_packed=transformer.prefill_packed_chunk)
+                 prefill_packed=transformer.prefill_packed_chunk,
+                 verify_packed=transformer.verify_packed_chunk,
+                 draft=transformer.draft_tokens, self_draft=True)
 
 
 def build(cfg: ModelConfig) -> Model:

@@ -313,10 +313,11 @@ def _packed_chunk_core(cfg, params, tokens, state, seg, slots, starts,
                        lengths, block_rows=None):
     """Run one fused C-token packed chunk through the stack and scatter
     each token's K/V into its own request's resident cache, in place.
-    Segments are causal CHAINS at positions starts[r] + 0..len-1 (the
-    tree form and the deferred write come with spec and tree decode).
-    Returns ``(state, x, ks, vs)`` with x (1, C, d) the post-stack
-    activations and ks/vs (L, KV, C, dh) the chunk's own K/V."""
+    Segments are causal CHAINS at positions starts[r] + 0..len-1: a prompt
+    chunk, or a speculative verify block (the tree form and the deferred
+    write come with tree decode).  Returns ``(state, x, ks, vs)`` with x
+    (1, C, d) the post-stack activations and ks/vs (L, KV, C, dh) the
+    chunk's own K/V."""
     c = tokens.shape[0]
     seg = seg.to(torch.int32)
     segl = seg.long()
@@ -376,3 +377,33 @@ def prefill_packed_chunk(cfg, params, tokens, state, seg, slots, starts,
                                         slots, starts, lengths,
                                         block_rows=block_rows)
     return state
+
+
+@torch.no_grad()
+def verify_packed_chunk(cfg, params, tokens, state, seg, slots, starts,
+                        lengths, block_rows=None):
+    """Speculative VERIFY pass: the packed-chunk forward with the language
+    head kept.  Layout and cache semantics are ``prefill_packed_chunk``'s:
+    each segment is one request's draft block (current token + proposed
+    continuations) at absolute positions starts[r]..starts[r]+L-1,
+    attending its own committed cache prefix plus causally within the
+    block; the post-stack activations feed final_norm and the LM head, so
+    position j of each segment scores the model's next token after
+    consuming draft token j.  Rejected positions need no undo: validity
+    masks derived from ``pos`` hide them and the next verify block
+    overwrites them before ``pos`` reaches them.  The cache is updated IN
+    PLACE; returns (logits (C, vocab), hidden (C, d), state)."""
+    state, x, _, _ = _packed_chunk_core(cfg, params, tokens, state, seg,
+                                        slots, starts, lengths,
+                                        block_rows=block_rows)
+    h = apply_norm(cfg, params["final_norm"], x)[0]        # (C, d)
+    return logits_from_hidden(cfg, params, h), h, state
+
+
+def draft_tokens(cfg, params, state, token, pos, k: int):
+    """Default self-draft: propose ``k - 1`` repeats of the last committed
+    token (the degenerate n-gram drafter: no extra forward, no extra
+    state; acceptance pays for whatever it gets right).  The serving
+    layer's shared draft cache overrides it per slot on a hit.  token (B,)
+    int32; returns (B, k - 1) int32."""
+    return token[:, None].expand(token.shape[0], k - 1)

@@ -1,4 +1,5 @@
 from repro_torch.serving.config import ServeConfig
+from repro_torch.serving.draft_cache import DraftCache
 from repro_torch.serving.engine import (ChunkSeg, ChunkWork,
                                         ContinuousServingEngine, ProbeState,
                                         ServeResult, ServingEngine,
@@ -14,11 +15,11 @@ from repro_torch.serving.kv_pool import (NULL_BLOCK, BlockPool, blocks_needed,
                                          pad_row, prompt_key)
 from repro_torch.serving.policy import ComposeView, FIFOPolicy
 from repro_torch.serving.request import (FleetMetrics, Request, RequestState,
-                                         make_request)
+                                         make_request, spec_stats)
 from repro_torch.serving.scheduler import OrcaScheduler
 
 __all__ = ["BlockPool", "ChunkSeg", "ChunkWork", "ComposeView",
-           "ContinuousServingEngine", "FIFOPolicy",
+           "ContinuousServingEngine", "DraftCache", "FIFOPolicy",
            "FleetMetrics", "NULL_BLOCK", "OrcaScheduler", "ProbeState",
            "Request", "RequestGroup", "RequestState", "ServeConfig",
            "ServeResult", "ServingEngine", "SlotStepView",
@@ -27,4 +28,4 @@ __all__ = ["BlockPool", "ChunkSeg", "ChunkWork", "ComposeView",
            "group_requests", "init_probe_state", "make_group",
            "make_request", "make_serve_step", "pad_row",
            "prefix_len", "probe_update", "prompt_key", "reset_probe_slot",
-           "serve_queue_static", "write_probe_slot"]
+           "serve_queue_static", "spec_stats", "write_probe_slot"]

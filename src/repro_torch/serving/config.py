@@ -2,8 +2,9 @@
 
 The fields are the JAX package's (``repro/serving/config.py``) so one
 description drives either stack.  The port serves admission-time or
-chunked, packed prefill, FIFO admission, one-token decode, dense or paged
-KV, one host — and every field of a later slice raises
+chunked, packed prefill, FIFO admission, one-token or linear speculative
+decode with the shared draft cache, dense or paged KV, one host — and
+every field of a later slice raises
 ``NotImplementedError`` at construction when set, naming the ROADMAP
 queue-A item that brings it.  The probe-dispatch fields of the JAX config
 (``probe_impl``/``interpret``) have no counterpart: the device of the
@@ -16,8 +17,7 @@ from typing import Any, Optional
 
 # field -> (value that means "off", ROADMAP queue-A item that brings it)
 _NOT_PORTED = {
-    "spec_tokens": (None, "spec and tree decode (B5)"),
-    "spec_tree": (None, "spec and tree decode (B5)"),
+    "spec_tree": (None, "A1b, tree speculative decode"),
     "group_size": (1, "preemption, groups and fleet"),
     "consensus": (None, "preemption, groups and fleet"),
     "consensus_delta": (None, "preemption, groups and fleet"),
@@ -54,11 +54,18 @@ class ServeConfig:
     pack_chunks: bool = True
     pack_max: int = 4
 
+    # -- speculative decode ---------------------------------------------------
+    spec_tokens: Optional[int] = None  # draft-verify block length per slot
+    #                               (current token + spec_tokens-1 drafts
+    #                               scored in one fused pass); None/0
+    #                               keeps one-token decode
+    draft_cache_size: int = 4096  # shared n-gram draft cache entries (LRU);
+    #                               0 disables the cache (self-draft only)
+
     # -- scheduling policy ----------------------------------------------------
     policy: Any = None            # None / "fifo" (the only ported policy)
 
     # -- not ported yet (see _NOT_PORTED) -------------------------------------
-    spec_tokens: Optional[int] = None
     spec_tree: Optional[str] = None
     group_size: int = 1
     consensus: Any = None
@@ -116,6 +123,34 @@ class ServeConfig:
                 f"pack_max={self.pack_max} must be >= 1: a packed chunk "
                 "carries at least its own request; fix by passing a "
                 "positive count (1 behaves like pack_chunks=False)")
+        if self.spec_tokens is not None:
+            if self.spec_tokens < 2:
+                raise ValueError(
+                    f"spec_tokens={self.spec_tokens} must be >= 2: a "
+                    "verify block is the current token plus at least one "
+                    "draft; fix by passing spec_tokens >= 2 (or None/0 "
+                    "for one-token decode)")
+            if self.chunk_tokens is not None \
+                    and self.spec_tokens >= self.chunk_tokens:
+                raise ValueError(
+                    f"spec_tokens={self.spec_tokens} >= chunk_tokens="
+                    f"{self.chunk_tokens}: a verify block must fit inside "
+                    "the fused step's fixed chunk capacity alongside the "
+                    "prefill share; fix by lowering spec_tokens to < "
+                    f"{self.chunk_tokens} or raising chunk_tokens")
+            if self.token_budget is not None \
+                    and self.spec_tokens > self.token_budget:
+                raise ValueError(
+                    f"spec_tokens={self.spec_tokens} > token_budget="
+                    f"{self.token_budget}: one slot's verify block alone "
+                    "would blow the per-step token budget; fix by "
+                    "lowering spec_tokens to <= "
+                    f"{self.token_budget} or raising token_budget")
+        if int(self.draft_cache_size) < 0:
+            raise ValueError(
+                f"draft_cache_size={self.draft_cache_size} must be >= 0: "
+                "the shared draft cache's entry bound (0 disables it); "
+                "fix by passing a non-negative count")
 
     # CLI flag names (launch/serve.py) -> field, and "invert" for the
     # negative flags
@@ -129,6 +164,9 @@ class ServeConfig:
         ("num_blocks", "num_blocks", None),      # 0 -> None in __post_init__
         ("chunk_tokens", "chunk_tokens", None),  # 0 -> None
         ("token_budget", "token_budget", None),  # 0 -> None
+        ("spec_tokens", "spec_tokens", None),    # 0 -> None
+        ("spec_tree", "spec_tree", None),        # "" -> None
+        ("draft_cache", "draft_cache_size", None),
         ("no_pack", "pack_chunks", "invert"),
         ("pack_max", "pack_max", None),
     )

@@ -18,14 +18,22 @@ a packed prefill chunk of up to ``pack_max`` mid-prefill requests runs
 through ``model.prefill_packed`` (K3 on a paged state) before the decode
 of every slot.
 
+With ``spec_tokens = k`` the decode half is linear DRAFT-VERIFY
+speculative decode: every running slot's [current token, k - 1 drafts]
+block rides one packed verify chunk (``model.verify_packed``, K3 on a
+paged state), the accepted prefix commits, and K4
+(``repro_torch.kernels.probe_spec``) advances the probe over exactly the
+accepted tokens.
+
 ``ServingEngine`` is the deprecated static-batch baseline: prefill a
 batch once, then loop the fused step on a dense cache until the slowest
 row finishes (``serve_queue_static`` serves a queue in such groups).
 
 Buffers the JAX engine donates to its jitted step — the KV cache or page
 pool and the probe state — are updated IN PLACE here.  Ported: admission-
-time and chunked, packed prefill, one-token decode, dense and paged
-caches.  Not yet: speculative decode, preemption (ROADMAP queue A).
+time and chunked, packed prefill, one-token and linear speculative
+decode, dense and paged caches.  Not yet: tree decode, preemption
+(ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ import torch
 from repro_torch.core import probe as P
 from repro_torch.core import stopping as S
 from repro_torch.core.probe import ProbeConfig
+from repro_torch.kernels.probe_spec import serving_probe_spec_step
 from repro_torch.kernels.probe_step import serving_probe_step
 from repro_torch.models import attention as A
 from repro_torch.models.registry import Model
@@ -211,8 +220,53 @@ def probe_update(pc: ProbeConfig, theta, st: ProbeState, hidden: torch.Tensor,
     return st
 
 
+def probe_update_spec(pc: ProbeConfig, theta, st: ProbeState,
+                      hidden_seq: torch.Tensor, accept: torch.Tensor,
+                      lam: float, tokens_per_step: int, burn_in: int,
+                      eta: float) -> Tuple[ProbeState, torch.Tensor,
+                                           torch.Tensor]:
+    """Multi-token probe advance for speculative decode: consume the T
+    verify positions' hidden states (B, T, d) of every slot, but let only
+    the first ``accept[i]`` tokens of slot i touch probe state, so the
+    chain equals ``accept[i]`` sequential ``probe_update`` calls.
+
+    The per-token pooling (hid_sum / tok_count accumulate-and-reset, gated
+    by ``accept``) runs here, giving the (B, T) feature and boundary
+    sequences; the stateful score-then-update, smoothing and threshold
+    chain then runs in ONE K4 call.  Like K1, K4 launches on every spec
+    step: the JAX engine skips it under a ``lax.cond`` when no row is at a
+    boundary, which would cost a device sync here.  Tokens past an
+    in-chain stop are frozen inside K4 by its carried stopped flag.
+    Updates ``st`` in place; returns (st, smoothed_seq (B, T), n_seq
+    (B, T)): token t of slot i emitted a score iff n_seq[i, t] exceeds the
+    count before it."""
+    hid_sum, tok_count = st.hid_sum, st.tok_count
+    phis, bnds = [], []
+    for t in range(hidden_seq.shape[1]):
+        m = t < accept
+        hid_sum = torch.where(m[:, None], hid_sum + hidden_seq[:, t].float(),
+                              hid_sum)
+        tok_count = torch.where(m, tok_count + 1, tok_count)
+        bnd = m & (tok_count >= tokens_per_step)
+        # step-embedding pooling: running mean of the step's hidden states
+        phis.append(hid_sum / torch.clamp(tok_count, min=1)[:, None])
+        bnds.append(bnd)
+        hid_sum = hid_sum.masked_fill(bnd[:, None], 0.0)
+        tok_count = tok_count.masked_fill(bnd, 0)
+    zq, zk = P.features(pc, theta, torch.stack(phis, dim=1))
+    out = serving_probe_spec_step(
+        zq.contiguous(), zk.contiguous(), torch.stack(bnds, dim=1), accept,
+        st.W, st.b, st.ring, st.n_scores, st.stopped, st.stop_step, eta, lam,
+        burn_in=int(burn_in))
+    st.smoothed.copy_(out.smoothed)
+    st.hid_sum.copy_(hid_sum)
+    st.tok_count.copy_(tok_count)
+    return st, out.smoothed_seq, out.n_seq
+
+
 def make_serve_step(model: Model, pc: ProbeConfig, theta, cfg: ServeConfig,
-                    *, mask_stopped_writes: bool = False):
+                    *, mask_stopped_writes: bool = False,
+                    spec_tokens: int = 0):
     """Build the fused decode + ORCA step:
     (params, token, cache, pos, probe_state, chunk=None) -> (next_token,
     cache, probe_state); cache and probe state are updated in place.
@@ -226,19 +280,97 @@ def make_serve_step(model: Model, pc: ProbeConfig, theta, cfg: ServeConfig,
     rows (probe ``stopped=True``, so K1 leaves their state untouched); with
     ``mask_stopped_writes`` their dense decode write is dropped so it never
     clobbers chunk-written prompt K/V (paged parked rows write the NULL
-    page)."""
+    page).
+
+    With ``spec_tokens = k >= 2`` the decode half becomes linear
+    DRAFT-VERIFY speculative decode and the step takes a trailing ``spec``
+    descriptor: ``lens`` (B,) each slot's verify-block length in [0, k],
+    drawn by the scheduler from the token budget, and host drafts
+    ``drafts`` (B, k - 1) with their per-slot ``have`` mask (the shared
+    draft cache; slots without one take ``model.draft``).  The step runs
+    one packed verify chunk (``model.verify_packed``) whose segment r is
+    slot r's [current token, drafts...] at positions pos..pos+len-1,
+    computes each slot's accepted prefix, advances the probe over exactly
+    those tokens (``probe_update_spec``, K4) and returns a 4th element,
+    ``{"gen", "seq", "seq_scores", "seq_n"}``: each slot commits ``gen`` in
+    [1, len] tokens (0 for parked rows).  Rejected K/V writes need no undo:
+    validity masks expose only [0, pos), and the next verify block
+    overwrites them before ``pos`` reaches them."""
     mcfg = model.cfg
     eta = float(P.inner_lr(pc, theta))
+
+    def run_chunk(params, cache, chunk):
+        # prefill work first, decode after: the chunk's slots are parked,
+        # and no other slot reads their pages or lanes
+        return model.prefill_packed(mcfg, params, chunk["tokens"], cache,
+                                    chunk["seg"], chunk["slots"],
+                                    chunk["starts"], chunk["lengths"],
+                                    chunk.get("rows"))
+
+    if spec_tokens:
+        assert spec_tokens >= 2, "spec_tokens < 2 is one-token decode"
+        assert model.supports_spec, \
+            f"{mcfg.name}: no speculative decode for this family"
+        kk = int(spec_tokens)
+
+        @torch.no_grad()
+        def spec_step(params, token, cache, pos, st: ProbeState, chunk,
+                      spec):
+            if chunk is not None:
+                cache = run_chunk(params, cache, chunk)
+            bsz, c = token.shape[0], token.shape[0] * kk
+            dev = token.device
+            # parked rows contribute nothing: no writes, no probe, no
+            # advance
+            lens = torch.where(st.stopped, 0, spec["lens"])
+            drafts = torch.where(spec["have"][:, None], spec["drafts"],
+                                 model.draft(mcfg, params, cache, token, pos,
+                                             kk))
+            blk = torch.cat([token[:, None], drafts], dim=1)     # (B, k)
+            # segments laid out back to back in slot order (the packed
+            # chunk's layout); tokens past a slot's length scatter to a
+            # dropped tail slot, and the chunk's tail keeps seg 0, invalid
+            # by length
+            offs = torch.cumsum(lens, 0) - lens
+            jj = torch.arange(kk, device=dev)[None, :]
+            dst = torch.where(jj < lens[:, None], offs[:, None] + jj, c)
+            flat = dst.reshape(-1)
+            toks_c = torch.zeros(c + 1, dtype=torch.int32, device=dev)
+            toks_c[flat] = blk.reshape(-1)
+            seg_c = torch.zeros(c + 1, dtype=torch.int32, device=dev)
+            seg_c[flat] = torch.arange(bsz, dtype=torch.int32,
+                                       device=dev)[:, None].expand(
+                                           bsz, kk).reshape(-1)
+            logits, hidden, cache = model.verify_packed(
+                mcfg, params, toks_c[:c], cache, seg_c[:c],
+                torch.arange(bsz, dtype=torch.int32, device=dev), pos, lens,
+                cache.get("block_tables"))
+            out_c = torch.argmax(logits[:, :mcfg.vocab_size],
+                                 dim=-1).to(torch.int32)
+            gdx = torch.clamp(dst, max=c - 1)
+            out_blk = out_c[gdx]                                 # (B, k)
+            # accepted prefix: draft j+1 survives iff it equals the model's
+            # output after consuming draft j; the first miss is replaced by
+            # the model's own token, so gen = accepted drafts + 1
+            ok = (blk[:, 1:] == out_blk[:, :-1]) \
+                & (jj[:, :kk - 1] + 1 < lens[:, None])
+            n_acc = torch.cumprod(ok.to(torch.int32), dim=1).sum(1)
+            g = torch.where(lens > 0, n_acc + 1, 0).to(torch.int32)
+            st, sm_seq, n_seq = probe_update_spec(
+                pc, theta, st, hidden[gdx], g, cfg.lam, cfg.tokens_per_step,
+                cfg.burn_in, eta)
+            last = torch.gather(out_blk, 1,
+                                torch.clamp(g.long() - 1, 0, kk - 1)[:, None])
+            nxt = torch.where(g > 0, last[:, 0], token)
+            return nxt, cache, st, {"gen": g, "seq": out_blk,
+                                    "seq_scores": sm_seq, "seq_n": n_seq}
+
+        return spec_step
 
     @torch.no_grad()
     def serve_step(params, token, cache, pos, st: ProbeState, chunk=None):
         if chunk is not None:
-            # prefill work first, decode after: the chunk's slots are
-            # parked, and no other slot reads their pages or lanes
-            cache = model.prefill_packed(mcfg, params, chunk["tokens"], cache,
-                                         chunk["seg"], chunk["slots"],
-                                         chunk["starts"], chunk["lengths"],
-                                         chunk.get("rows"))
+            cache = run_chunk(params, cache, chunk)
         write_mask = ~st.stopped if mask_stopped_writes else None
         logits, hidden, cache = model.decode_step(mcfg, params, token, cache,
                                                   pos, write_mask=write_mask)
@@ -427,12 +559,19 @@ def extract_trajectories(model: Model, params, batch, prompt_len: int,
 
 
 class SlotStepView(NamedTuple):
-    """Host-visible per-slot observation after one fused engine step."""
+    """Host-visible per-slot observation after one fused engine step.
+
+    The four trailing fields are only set by speculative steps
+    (``spec_tokens > 0``); one-token steps leave them None."""
     tokens: np.ndarray      # (n_slots,) token decoded this step
     stopped: np.ndarray     # (n_slots,) bool — ORCA threshold crossed
     stop_step: np.ndarray   # (n_slots,) reasoning step at stop (-1 active)
     n_scores: np.ndarray    # (n_slots,) scores emitted since admission
     smoothed: np.ndarray    # (n_slots,) current smoothed score
+    gen: Optional[np.ndarray] = None         # (n_slots,) tokens committed
+    seq: Optional[np.ndarray] = None         # (n_slots, k) committed tokens
+    seq_scores: Optional[np.ndarray] = None  # (n_slots, k) smoothed / token
+    seq_n: Optional[np.ndarray] = None       # (n_slots, k) n_scores / token
 
 
 class ContinuousServingEngine:
@@ -453,6 +592,9 @@ class ContinuousServingEngine:
       to ``chunk_tokens`` prompt tokens of up to ``max_pack`` requests
       before the decode, and ``finish_prefill`` arms the slot after its
       last chunk.
+    * With ``spec_tokens = k``, ``step`` takes each slot's verify length
+      and host drafts, and each slot's ``pos`` advances by the tokens it
+      committed.
 
     The scheduler owns queues, lifecycles, the block pool and metrics; this
     class owns device state only.  The device is the parameters' device.
@@ -462,7 +604,8 @@ class ContinuousServingEngine:
                  cfg: ServeConfig, n_slots: int, cache_len: int, *,
                  paged: bool = False, block_size: int = 16,
                  num_blocks: Optional[int] = None,
-                 chunk_tokens: Optional[int] = None, pack_max: int = 4):
+                 chunk_tokens: Optional[int] = None, pack_max: int = 4,
+                 spec_tokens: Optional[int] = None):
         self.model, self.params, self.pc, self.theta, self.cfg = \
             model, params, pc, theta, cfg
         self.device = params["embed"].device
@@ -492,13 +635,20 @@ class ContinuousServingEngine:
         if self.chunk_tokens:
             assert model.supports_chunked, \
                 f"{mcfg.name}: no chunked prefill for this family"
+        # speculative draft-verify decode: every RUNNING slot may ride the
+        # packed verify chunk with up to spec_tokens tokens per step
+        self.spec_tokens = int(spec_tokens or 0)
+        if self.spec_tokens:
+            assert model.supports_spec, \
+                f"{mcfg.name}: no speculative decode for this family"
         self.st = init_probe_state(pc, theta, n_slots, mcfg.d_model)
         self.st.stopped.fill_(True)
         self.token = torch.zeros((n_slots,), dtype=torch.int32,
                                  device=self.device)
         self.pos = np.zeros((n_slots,), np.int32)
         self._step_fn = make_serve_step(
-            model, pc, theta, cfg, mask_stopped_writes=bool(self.chunk_tokens))
+            model, pc, theta, cfg, mask_stopped_writes=bool(self.chunk_tokens),
+            spec_tokens=self.spec_tokens)
 
     def _pages(self):
         return {k: v for k, v in self.state.items() if k != "block_tables"}
@@ -624,15 +774,67 @@ class ContinuousServingEngine:
         return out
 
     # ------------------------------------------------------------------
-    def step(self, chunk: Optional[ChunkWork] = None) -> SlotStepView:
+    def _spec_to_device(self, spec_lens, spec_drafts, spec_have
+                        ) -> Dict[str, torch.Tensor]:
+        """Lower the host spec descriptor (None = zeros) to the device in
+        one copy: lens (n,), have (n,), drafts (n, k - 1)."""
+        n, k = self.n_slots, self.spec_tokens
+        buf = np.zeros((n * (k + 1),), np.int32)
+        if spec_lens is not None:
+            buf[:n] = np.asarray(spec_lens, np.int32)
+        if spec_drafts is not None:
+            assert spec_have is not None, \
+                "spec_drafts needs its per-slot have mask"
+            buf[n:2 * n] = np.asarray(spec_have, bool)
+            buf[2 * n:] = np.asarray(spec_drafts, np.int32).reshape(-1)
+        dev = torch.as_tensor(buf).to(self.device)
+        return {"lens": dev[:n], "have": dev[n:2 * n].bool(),
+                "drafts": dev[2 * n:].view(n, k - 1)}
+
+    def step(self, chunk: Optional[ChunkWork] = None, spec_lens=None,
+             spec_drafts=None, spec_have=None) -> SlotStepView:
         """One fused decode + probe step for every slot (vector pos) — and,
         in chunked mode, up to ``chunk_tokens`` prompt tokens of up to
         ``max_pack`` mid-prefill requests packed into ``chunk`` first (None
-        = decode only)."""
+        = decode only).
+
+        A spec engine also takes ``spec_lens``, per-slot verify lengths in
+        [0, spec_tokens] (None = 0 everywhere), and advances each slot's
+        ``pos`` by the tokens it committed; ``spec_drafts``/``spec_have``
+        inject host drafts (the shared draft cache), and slots with
+        ``have=False`` take the model family's own drafter.  The view's
+        spec fields carry the committed multi-token sequences; the step's
+        host reads are one device-to-host copy."""
         assert chunk is None or self.chunk_tokens, \
             "engine built without chunk_tokens"
         dev_chunk = None if chunk is None else self._chunk_to_device(chunk)
         pos = torch.as_tensor(self.pos, device=self.device)
+        if self.spec_tokens:
+            spec = self._spec_to_device(spec_lens, spec_drafts, spec_have)
+            self.token, self.state, self.st, extras = self._step_fn(
+                self.params, self.token, self.state, pos, self.st, dev_chunk,
+                spec)
+            st = self.st
+            # one copy: the f32 fields travel as their int32 bit patterns
+            parts = [self.token, st.stopped.to(torch.int32), st.stop_step,
+                     st.n_scores, extras["gen"], extras["seq"],
+                     extras["seq_n"], st.smoothed.view(torch.int32),
+                     extras["seq_scores"].contiguous().view(torch.int32)]
+            host = torch.cat([t.reshape(-1) for t in parts]).cpu().numpy()
+            fields, off = [], 0
+            for t in parts:
+                fields.append(host[off:off + t.numel()].reshape(t.shape))
+                off += t.numel()
+            tokens, stopped, stop_step, n_scores, gen, seq, seq_n, \
+                smoothed, seq_scores = fields
+            self.pos = self.pos + gen
+            return SlotStepView(
+                tokens=tokens, stopped=stopped > 0, stop_step=stop_step,
+                n_scores=n_scores, smoothed=smoothed.view(np.float32),
+                gen=gen, seq=seq, seq_scores=seq_scores.view(np.float32),
+                seq_n=seq_n)
+        assert spec_lens is None and spec_drafts is None, \
+            "engine built without spec_tokens"
         self.token, self.state, self.st = self._step_fn(
             self.params, self.token, self.state, pos, self.st, dev_chunk)
         self.pos = self.pos + 1

@@ -9,9 +9,10 @@ early stop — the request's remaining step budget is *returned to the
 fleet* by evicting its slot); ``FINISHED`` means the token budget ran out
 without a stop.  Metrics use the shared savings helper
 (``repro_torch.core.stopping.step_savings``) so served savings are directly
-comparable with offline-evaluated savings.  The JAX package's CANCELLED
-(group consensus) and SWAPPED (preemption) states, and the speculation
-and fleet counters, come with the ROADMAP queue-A items that serve them.
+comparable with offline-evaluated savings; the speculative-decode
+counters aggregate in ``spec_stats``.  The JAX package's CANCELLED (group
+consensus) and SWAPPED (preemption) states, and the tree and fleet
+counters, come with the ROADMAP queue-A items that serve them.
 """
 from __future__ import annotations
 
@@ -79,6 +80,16 @@ class Request:
     block_ids: List[int] = dataclasses.field(default_factory=list)
     n_shared_blocks: int = 0              # prefix pages shared with a donor
     prefill_skipped: bool = False         # prompt was resident: no prefill
+
+    # speculative decode (owned by the scheduler; stay 0/empty without it)
+    spec_proposed: int = 0                # draft tokens proposed (excl. the
+    #                                       current token of each block)
+    spec_accepted: int = 0                # draft tokens the verifier kept
+    accepted_lens: List[int] = dataclasses.field(default_factory=list)
+    #                                       per-step accepted length g (incl.
+    #                                       the current token; g in [0, k])
+    draft_hits: int = 0                   # shared draft-cache lookups that hit
+    draft_misses: int = 0                 # ... that missed (self-draft fallback)
 
     @property
     def done(self) -> bool:
@@ -154,6 +165,16 @@ class FleetMetrics:
     # ttft_ms_p50/p99 and queue_wait_ms_p50/p99 (WAITING -> PREFILL wall
     # time)
     per_class: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # speculative decode: acceptance and shared draft-cache accounting
+    # (``spec_stats``)
+    spec_tokens_proposed: int = 0   # draft tokens proposed fleet-wide
+    spec_tokens_accepted: int = 0   # draft tokens the verifier kept
+    acceptance_rate: float = 0.0    # accepted / proposed (0 when disabled)
+    accepted_len_p50: float = 0.0   # per-step accepted length percentiles
+    accepted_len_p99: float = 0.0   # (incl. the block's current token)
+    draft_cache_hits: int = 0       # shared draft-cache lookups that hit
+    draft_cache_misses: int = 0     # ... that missed (self-draft fallback)
+    draft_cache_hit_rate: float = 0.0    # hits / lookups (0 when disabled)
 
     def row(self) -> Dict[str, float]:
         return {
@@ -200,3 +221,29 @@ def latency_stats(requests: List[Request]
             float(np.percentile(ttft, 99)) if ttft.size else 0.0,
             per_class)
 
+
+
+def spec_stats(requests: List[Request]) -> Dict[str, float]:
+    """Speculative-decode aggregation over a served population, as
+    ``FleetMetrics`` keyword arguments: linear acceptance accounting and
+    shared draft-cache hit rates, computed from per-request counters (the
+    JAX package's ``spec_stats`` without its tree fields)."""
+    sp = sum(r.spec_proposed for r in requests)
+    sa = sum(r.spec_accepted for r in requests)
+    alens = np.asarray([g for r in requests for g in r.accepted_lens],
+                       np.float64)
+    hits = sum(r.draft_hits for r in requests)
+    misses = sum(r.draft_misses for r in requests)
+    return {
+        "spec_tokens_proposed": int(sp),
+        "spec_tokens_accepted": int(sa),
+        "acceptance_rate": float(sa / sp) if sp else 0.0,
+        "accepted_len_p50": (float(np.percentile(alens, 50))
+                             if alens.size else 0.0),
+        "accepted_len_p99": (float(np.percentile(alens, 99))
+                             if alens.size else 0.0),
+        "draft_cache_hits": int(hits),
+        "draft_cache_misses": int(misses),
+        "draft_cache_hit_rate": (float(hits / (hits + misses))
+                                 if (hits + misses) else 0.0),
+    }

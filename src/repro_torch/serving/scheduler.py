@@ -2,13 +2,22 @@
 
 The JAX package's scheduler (``repro/serving/scheduler.py``), cut to what
 the port's engine serves: admission-time or chunked, packed prefill, FIFO
-admission of gang units, one-token decode, dense or paged KV with prefix
-sharing.  The admission loop, batch composer, token collection and
-metrics are the JAX package's line for line, so per-request stop steps,
-tokens and completion steps match it exactly on the same model outputs.
-Speculation, preemption and consensus are rejected by ``ServeConfig``
-until their ROADMAP items land, and a session that mixes priority classes
-by ``submit``: the reference preempts there by default.
+admission of gang units, one-token or linear speculative decode with the
+shared draft cache, dense or paged KV with prefix sharing.  The admission
+loop, batch composer, token collection and metrics are the JAX package's
+line for line, so per-request stop steps, tokens and completion steps
+match it exactly on the same model outputs.  Tree decode, preemption and
+consensus are rejected by ``ServeConfig`` until their ROADMAP items land,
+and a session that mixes priority classes by ``submit``: the reference
+preempts there by default.
+
+Speculative decode (``spec_tokens=k``): each RUNNING slot claims up to
+k - 1 draft tokens beyond its current token from the same token budget
+(capped by its remaining decode budget), drafted by the shared n-gram
+``DraftCache`` where it hits and by the model's self-draft elsewhere; the
+accepted prefix lands in order, one score is collected per probe boundary
+it crosses, collection stops at the stop step, and what landed is
+promoted into the cache.
 
 Chunked prefill (``chunk_tokens=N``) turns prefill into schedulable work:
 an admitted request becomes a resident PREFILL row, and each engine
@@ -32,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -43,11 +53,12 @@ from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.engine import (ChunkSeg, ChunkWork,
                                         ContinuousServingEngine,
                                         chunk_supported, prefix_len)
+from repro_torch.serving.draft_cache import DraftCache
 from repro_torch.serving.groups import RequestGroup, group_requests
 from repro_torch.serving.kv_pool import BlockPool, blocks_needed, prompt_key
 from repro_torch.serving.policy import ComposeView, FIFOPolicy
 from repro_torch.serving.request import (FleetMetrics, Request, RequestState,
-                                         latency_stats)
+                                         latency_stats, spec_stats)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,12 +98,15 @@ class OrcaScheduler:
                  prefix_sharing: bool = _UNSET,
                  chunk_tokens: Optional[int] = _UNSET,
                  token_budget: Optional[int] = _UNSET,
-                 pack_chunks: bool = _UNSET, pack_max: int = _UNSET):
+                 pack_chunks: bool = _UNSET, pack_max: int = _UNSET,
+                 spec_tokens: Optional[int] = _UNSET,
+                 draft_cache: Optional[DraftCache] = None):
         self.model, self.params, self.pc, self.theta, self.cfg = \
             model, params, pc, theta, cfg
         n_slots = int(_pick(n_slots, cfg.n_slots))
         chunk_tokens = _pick(chunk_tokens, cfg.chunk_tokens)
         token_budget = _pick(token_budget, cfg.token_budget)
+        spec_tokens = _pick(spec_tokens, cfg.spec_tokens)
         self.n_slots = n_slots
         self.cache_len = _pick(cache_len, cfg.cache_len)
         self.paged = bool(_pick(paged, cfg.paged))
@@ -105,9 +119,35 @@ class OrcaScheduler:
         # unless ``pack_chunks=False``), bounded by ``token_budget`` tokens
         # per step (default: n_slots decode tokens + one full chunk)
         self.chunk_tokens = int(chunk_tokens) if chunk_tokens else None
+        # speculative draft-verify decode: each RUNNING slot may ride the
+        # packed verify chunk with up to spec_tokens tokens per step, drawn
+        # from the same token budget the prefill share composes against
+        self.spec_tokens = int(spec_tokens) if spec_tokens else None
+        if self.spec_tokens is not None and not model.supports_spec:
+            warnings.warn(
+                f"spec_tokens={self.spec_tokens} ignored: model family "
+                f"{model.cfg.name!r} has no draft/verify speculative "
+                "decode — serving falls back to one-token decode; drop "
+                "spec_tokens or use a family with supports_spec=True to "
+                "silence this",
+                RuntimeWarning, stacklevel=2)
+            self.spec_tokens = None       # family without verify_packed
+        # shared n-gram draft cache: the serving layer's drafter for
+        # families whose own draft is the degenerate repeat-last-token
+        # self-draft; an explicit instance fronts any family
+        if draft_cache is not None:
+            self.draft_cache: Optional[DraftCache] = draft_cache
+        elif (self.spec_tokens is not None and model.self_draft
+                and cfg.draft_cache_size):
+            self.draft_cache = DraftCache(capacity=cfg.draft_cache_size)
+        else:
+            self.draft_cache = None
+        if self.spec_tokens is None:
+            self.draft_cache = None       # nothing to draft for
         if token_budget is not None:
             token_budget = int(token_budget)
-            floor = n_slots if self.chunk_tokens is not None else 1
+            floor = n_slots if (self.chunk_tokens is not None
+                                or self.spec_tokens is not None) else 1
             if token_budget < floor:
                 raise ValueError(
                     f"token_budget={token_budget} < n_slots={n_slots}: "
@@ -117,8 +157,12 @@ class OrcaScheduler:
                     f"to >= n_slots (default n_slots + chunk_tokens = "
                     f"{n_slots + (self.chunk_tokens or 0)}) or lowering "
                     "n_slots")
+        # default budget: one decode token per slot (spec_tokens of them
+        # in draft-verify mode) plus the prefill chunk; an EXPLICIT budget
+        # instead throttles spec extras before prefill share
         self.token_budget = (token_budget if token_budget
-                             else n_slots + (self.chunk_tokens or 0))
+                             else n_slots * (self.spec_tokens or 1)
+                             + (self.chunk_tokens or 0))
         self.pack_chunks = bool(_pick(pack_chunks, cfg.pack_chunks))
         self.pack_max = int(_pick(pack_max, cfg.pack_max))
         self.policy = FIFOPolicy()     # ServeConfig admits no other yet
@@ -207,7 +251,8 @@ class OrcaScheduler:
                 self.model, self.params, self.pc, self.theta, self.cfg,
                 self.n_slots, cache_len, paged=self.paged,
                 block_size=self.block_size, num_blocks=num_blocks,
-                chunk_tokens=self.chunk_tokens, pack_max=self.pack_max)
+                chunk_tokens=self.chunk_tokens, pack_max=self.pack_max,
+                spec_tokens=self.spec_tokens)
         return self._engine
 
     # ------------------------------------------------------------------
@@ -219,6 +264,22 @@ class OrcaScheduler:
 
     def _request_blocks(self, req: Request) -> int:
         return blocks_needed(self._request_tokens(req), self.block_size)
+
+    def _draft_context(self, req: Request, before: int = 0) -> List[int]:
+        """The request's last draft-cache n-gram of committed tokens
+        (prompt tail + decoded tokens), as plain ints.  ``before`` drops
+        that many just-landed trailing tokens: the PRE-step context the
+        promotion path keys on."""
+        n = self.draft_cache.ngram
+        toks = req.tokens[:len(req.tokens) - before] if before \
+            else req.tokens
+        if len(toks) >= n:
+            return [int(t) for t in toks[-n:]]
+        prompt = (np.asarray(req.inputs["tokens"][0]).tolist()
+                  if "tokens" in req.inputs else [])
+        need = n - len(toks)
+        return ([int(t) for t in prompt[max(len(prompt) - need, 0):]]
+                + [int(t) for t in toks])
 
     def _sharing_key(self, req: Request) -> Optional[str]:
         if not (self.prefix_sharing and self._engine is not None
@@ -486,17 +547,54 @@ class OrcaScheduler:
                 req.state = RequestState.RUNNING
                 running[slot] = req
 
-        # batch composer: every resident decode token rides this step; the
-        # POLICY sizes the prefill share of what is left, and the share is
-        # PACKED across mid-prefill residents in admission order — the tail
-        # of one prompt and the head of the next fuse into one
+        # batch composer: every resident decode token rides this step; in
+        # spec mode each RUNNING slot additionally claims up to
+        # spec_tokens - 1 extra verify tokens (greedy in slot order, capped
+        # by its remaining decode budget) from the SAME token budget; the
+        # POLICY then sizes the prefill share of what is left, and the
+        # share is PACKED across mid-prefill residents in admission order —
+        # the tail of one prompt and the head of the next fuse into one
         # block-diagonal chunk (pack_chunks=False: one request per chunk)
+        spec_lens = spec_drafts = spec_have = None
+        draft_ctx: Dict[int, List[int]] = {}
+        spec_total = len(running)
+        if self.spec_tokens:
+            spec_lens = np.zeros((self.n_slots,), np.int32)
+            budget_left = self.token_budget - len(running)
+            for slot in sorted(running):
+                req = running[slot]
+                max_new = req.max_new_tokens or self.cfg.max_new_tokens
+                remaining = max_new - len(req.tokens)
+                extra = max(min(self.spec_tokens - 1, remaining - 1,
+                                budget_left), 0)
+                spec_lens[slot] = 1 + extra
+                budget_left -= extra
+            spec_total = int(spec_lens.sum())
+            if self.draft_cache is not None:
+                # shared-cache drafts for every slot drafting this step;
+                # misses keep have=False and take the family drafter
+                depth = self.spec_tokens - 1
+                spec_drafts = np.zeros((self.n_slots, depth), np.int32)
+                spec_have = np.zeros((self.n_slots,), bool)
+                for slot in sorted(running):
+                    if spec_lens[slot] < 2:
+                        continue
+                    req = running[slot]
+                    ctx = self._draft_context(req)
+                    draft_ctx[slot] = ctx
+                    tree, hit = self.draft_cache.lookup(ctx, 1, depth)
+                    spec_drafts[slot] = tree[0]
+                    spec_have[slot] = hit
+                    if hit:
+                        req.draft_hits += 1
+                    else:
+                        req.draft_misses += 1
         chunk = None
         if prefilling:
             share = self.policy.prefill_share(self._compose_view(
                 running, prefilling, waiting, eng))
             share = min(share, eng.chunk_tokens,
-                        self.token_budget - len(running))
+                        self.token_budget - spec_total)
             segs: List[ChunkSeg] = []
             residents = list(prefilling.items())
             if any(r.group_id is not None for r in prefilling.values()):
@@ -527,9 +625,13 @@ class OrcaScheduler:
                 self._n_packed += int(len(segs) >= 2)
         self._peak_step_tokens = max(
             self._peak_step_tokens,
-            len(running) + (chunk.total_tokens if chunk else 0))
+            spec_total + (chunk.total_tokens if chunk else 0))
 
-        view = eng.step(chunk) if chunked else eng.step()
+        if self.spec_tokens:
+            view = eng.step(chunk, spec_lens=spec_lens,
+                            spec_drafts=spec_drafts, spec_have=spec_have)
+        else:
+            view = eng.step(chunk) if chunked else eng.step()
         steps = self._steps = self._steps + 1
         self._active_slot_steps += len(running)
         now = time.perf_counter()
@@ -538,13 +640,17 @@ class OrcaScheduler:
             if req.first_token_step < 0:
                 req.first_token_step = steps
                 req.ttft_s = now - self._t0
-            req.tokens.append(int(view.tokens[slot]))
-            self._total_tokens += 1
+            if self.spec_tokens:
+                self._collect_spec(req, slot, view, int(spec_lens[slot]),
+                                   draft_ctx.get(slot))
+            else:
+                req.tokens.append(int(view.tokens[slot]))
+                self._total_tokens += 1
+                if int(view.n_scores[slot]) > len(req.scores):
+                    req.scores.append(float(view.smoothed[slot]))
+                    # the step's answer proxy: the token just decoded
+                    req.answers.append(int(view.tokens[slot]))
             n_scores = int(view.n_scores[slot])
-            if n_scores > len(req.scores):
-                req.scores.append(float(view.smoothed[slot]))
-                # the step's answer proxy: the token just decoded
-                req.answers.append(int(view.tokens[slot]))
             max_new = req.max_new_tokens or self.cfg.max_new_tokens
             if bool(view.stopped[slot]):
                 # ORCA stop: evict NOW — the slot is free next step
@@ -584,6 +690,41 @@ class OrcaScheduler:
                     running[seg.slot] = req
         self._stalls.append((time.perf_counter() - t_iter) * 1e3)
         return True
+
+    def _collect_spec(self, req: Request, slot: int, view, lp: int,
+                      ctx: Optional[List[int]]) -> None:
+        """A speculative block's collection: the slot proposed ``lp``
+        tokens and the verifier accepted a prefix of ``view.gen[slot]``.
+        Append the accepted tokens in order, collecting each probe
+        boundary's (score, answer) as it lands, and TRUNCATE at the stop
+        boundary: tokens past the stop were never emitted (the one-token
+        engine would have evicted the slot there).  What landed is
+        promoted into the draft cache."""
+        g = int(view.gen[slot])
+        req.spec_proposed += max(lp - 1, 0)
+        req.spec_accepted += max(g - 1, 0)
+        if lp > 0:
+            req.accepted_lens.append(g)
+        stopped_now = bool(view.stopped[slot])
+        stop_at = int(view.stop_step[slot]) if stopped_now else -1
+        landed: List[int] = []
+        for j in range(g):
+            tok = int(view.seq[slot, j])
+            req.tokens.append(tok)
+            landed.append(tok)
+            self._total_tokens += 1
+            nsj = int(view.seq_n[slot, j])
+            if nsj > len(req.scores):
+                req.scores.append(float(view.seq_scores[slot, j]))
+                req.answers.append(tok)
+            if stopped_now and nsj == stop_at:
+                break
+        if self.draft_cache is not None and landed:
+            # promote what the VERIFIER accepted: the cache learns exactly
+            # the continuations this traffic commits
+            if ctx is None:
+                ctx = self._draft_context(req, before=len(landed))
+            self.draft_cache.observe(ctx, landed)
 
     # ------------------------------------------------------------------
     def _compose_view(self, running: Dict[int, Request],
@@ -634,4 +775,5 @@ class OrcaScheduler:
             stall_ms_p50=float(np.percentile(st, 50)),
             stall_ms_p99=float(np.percentile(st, 99)),
             prefill_chunks=self._n_chunks, packed_chunks=self._n_packed,
-            peak_step_tokens=self._peak_step_tokens, per_class=per_class)
+            peak_step_tokens=self._peak_step_tokens, per_class=per_class,
+            **spec_stats(list(requests)))

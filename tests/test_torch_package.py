@@ -103,6 +103,14 @@ def test_entry_point_without_cuda_raises(monkeypatch, name):
         _entry_points()[name]()
 
 
+def _probe_state(B, f, win, device):
+    return [torch.zeros((B, f), device=device), torch.zeros(B, device=device),
+            torch.zeros((B, win), device=device),
+            torch.zeros(B, dtype=torch.int32, device=device),
+            torch.zeros(B, dtype=torch.bool, device=device),
+            torch.zeros(B, dtype=torch.int32, device=device)]
+
+
 def test_probe_step_on_other_devices_never_takes_the_plain_version():
     """Only CPU tensors take K1's plain version: any other device reaches
     the kernel path or raises — here the meta device, which has none."""
@@ -110,10 +118,41 @@ def test_probe_step_on_other_devices_never_takes_the_plain_version():
     B, f, win = 2, 8, 3
     z = torch.zeros((B, f), device="meta")
     args = [z, z, torch.zeros(B, dtype=torch.bool, device="meta"),
-            torch.zeros((B, f), device="meta"), torch.zeros(B, device="meta"),
-            torch.zeros((B, win), device="meta"),
-            torch.zeros(B, dtype=torch.int32, device="meta"),
-            torch.zeros(B, dtype=torch.bool, device="meta"),
-            torch.zeros(B, dtype=torch.int32, device="meta")]
+            *_probe_state(B, f, win, "meta")]
     with pytest.raises(RuntimeError, match="no kernel for device"):
         serving_probe_step(*args, 0.01, 0.5, burn_in=1)
+
+
+def test_probe_spec_step_on_other_devices_never_takes_the_plain_version():
+    """K4 keeps K1's rule: the meta device raises; the CPU takes the plain
+    version, which leaves the state untouched at accept = 0."""
+    from repro_torch.kernels.probe_spec import serving_probe_spec_step
+    B, T, f, win = 2, 3, 8, 3
+    for device in ("meta", "cpu"):
+        z = torch.ones((B, T, f), device=device)
+        st = _probe_state(B, f, win, device)
+        args = [z, z, torch.ones((B, T), dtype=torch.bool, device=device),
+                torch.zeros(B, dtype=torch.int32, device=device), *st]
+        if device == "meta":
+            with pytest.raises(RuntimeError, match="no kernel for device"):
+                serving_probe_spec_step(*args, 0.01, 0.5, burn_in=1)
+            continue
+        out = serving_probe_spec_step(*args, 0.01, 0.5, burn_in=1)
+        assert out.n_seq.tolist() == [[0] * T] * B
+        assert all(not t.any() for t in st)
+    with pytest.raises(ValueError, match="T >= 1"):
+        serving_probe_spec_step(z[:, :0], z[:, :0], *args[2:], 0.01, 0.5,
+                                burn_in=1)
+
+
+def test_draft_cache_is_the_ports_own_copy():
+    """The draft cache is host-side numpy, imported from the port itself:
+    promotion, lookup and LRU eviction without the JAX package."""
+    from repro_torch.serving.draft_cache import DraftCache
+    cache = DraftCache(capacity=2, ngram=2)
+    cache.observe([1, 2], [3, 4])
+    drafts, hit = cache.lookup([1, 2], 1, 3)
+    assert hit and drafts.tolist() == [[3, 4, 4]]
+    cache.observe([7, 8], [9])
+    assert len(cache) == 2 and not cache.lookup([1, 2], 1, 1)[1]
+    assert (cache.hits, cache.misses) == (1, 1)
