@@ -7,57 +7,75 @@ Phases, one JSON line each; any failure raises and the script exits
 non-zero:
 
 1. build    -- compile the hand-written kernels from ``src/repro_torch/csrc``
-2. K1       -- the serving probe step against its plain PyTorch version
+2. k1       -- the serving probe step against its plain PyTorch version
                over 12 chained steps at B=8 and at the serving shape B=4
                (f=960); timed at B=4
-3. K2       -- paged flash decode against its plain version, bf16, int8
+3. k2       -- paged flash decode against its plain version, bf16, int8
                and f32 pages, the serving shape and nb in {8, 256}; timed
                beside scaled_dot_product_attention over the gathered pages
-4. K3       -- paged chunk attention against its plain versions, B4
+4. k3       -- paged chunk attention against its plain versions, B4
                (packed chunks: 1 to 4 segments, an empty cache, padding
                and zero-length segments, nb 256) and B3 (chunks of B
                requests), bf16, int8 and f32 pages, at the served chunk of
                64 tokens; timed beside scaled_dot_product_attention over
                the gathered pages with the same mask
-5. K5       -- the offline TTT scan against its plain version: f 128,
+5. k4       -- the masked multi-token probe step against its plain version
+               and against T masked K1 launches on copies of the same
+               state: B 1, 4, 8; T 1, 2, 4, 8; f 128, 960, 5120; accepted
+               lengths 0, 1, T-1, T and mixed; a stop mid-chain, a slot
+               stopped on entry, the burn-in not reached; timed at the
+               served shape (4 slots, k 4, f 960); then K3 timed at the
+               verify shape (k3-verify: 4 segments of 4 tokens)
+6. k5       -- the offline TTT scan against its plain version: f 128,
                960 and 5120, N 1 and 170, T 1, 37 and 120, c = 0 and c =
                labels, a per-trajectory and a shared init (72 cases on the
                synthetic corpus's step embeddings and masks); timed at N
                170, T 120 for each f; a width above 7168 and a tensor that
                requires grad refused
-6. model    -- full-width smollm-360m (bf16, random weights from a seed,
+7. model    -- full-width smollm-360m (bf16, random weights from a seed,
                then the same weights in f32): prefill 16 tokens, 64
                teacher-forced paged decode steps through K2 (every call
                held against the plain version on its inputs) and through
                the plain paged attention
-7. model-chunked -- the same model: a 160-token prompt through
+8. model-chunked -- the same model: a 160-token prompt through
                ``Model.prefill_chunk`` on a paged state in 64-token chunks
                (B3), then one ``prefill_packed`` chunk of two requests
                (B4), every K3 call held against its plain version; pages
                and next-step logits against one-shot prefill, bf16 and f32
-8. serve    -- ``repro_torch.launch.serve`` end to end on the card:
+9. model-spec -- the same model: ``verify_packed_chunk`` on 4 slots x k 4
+               against 4 sequential paged ``decode_step``s, bf16 and f32
+               (f32: every argmax equal)
+10. serve   -- ``repro_torch.launch.serve`` end to end on the card:
                harvest, meta-train, calibrate, serve 8 requests on 4 slots
-9. trace    -- a profiler window over 8 engine steps of the same fleet:
+11. trace   -- a profiler window over 16 engine steps of the same fleet:
                the card's busy share and the kernels that take it
-10. serve-chunked -- the driver with ``--chunk-tokens 64`` on 160-token
+12. serve-chunked -- the driver with ``--chunk-tokens 64`` on 160-token
                prompts: the third chunk of each prompt packs with the head
                of the next; K1, K2 and K3 launch
-11. trace    -- a 16-step window over the chunked fleet, launches and busy
-               share split into steps with a chunk and steps without one
-12. offline  -- the paper's procedure on the synthetic corpus at d_phi 960
+13. trace-chunked -- a 24-step window over the chunked fleet, launches and
+               busy share split into steps with a chunk and without one
+14. serve-spec, trace-spec, serve-spec-chunked -- the fleets of 10 and 12
+               again with ``--spec-tokens 4``: K4 launches once per engine
+               step, its first 16 calls held against the plain version;
+               requests compared with the one-token fleets (tokens and
+               stops); a 16-step profiled window of the spec fleet
+15. serve-spec-f32 -- the serve fleet in f32 through ``OrcaScheduler``
+               at a lambda* between its scores: the spec fleet's stops
+               and tokens equal the one-token fleet's
+16. offline  -- the paper's procedure on the synthetic corpus at d_phi 960
                (``corpus_splits(500, 170, 170)``): ``orca.fit`` of the TTT
                probe (no-QK, QK d_h 128) and the static probe, then
                ``orca.evaluate`` at every delta; K5 launches in fit and in
                evaluate, and its plain version's scores give the same
                lambda*, savings and error
-13. serve-static -- the driver with ``--static-baseline`` on 4 requests:
+17. serve-static -- the driver with ``--static-baseline`` on 4 requests:
                the static-batch engine's stops equal the fleet's; then the
                static probe (``api.fit(method="static")``) served through
                ``api.engine``: K1 runs and leaves every W at W0 (eta = 0)
-14. kernels  -- one entry per kernel: launches on its path (phase 8 for
-               K1 and K2, 7 for K3-B3, 10 for K3-B4, 12 for K5), error
-               against its plain version, kernel / plain / library / bound
-               ms
+18. kernels  -- one entry per kernel: launches on its path (phase 10 for
+               K1 and K2, 8 for K3-B3, 12 for K3-B4, 14 for K4, 16 for
+               K5), error against its plain version, kernel / plain /
+               library / bound ms
 
 The line before the last is ``nvidia-smi``'s card name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -133,7 +151,7 @@ class Timer:
 
 
 # ---------------------------------------------------------------------------
-# phase 2: K1
+# phase k1
 
 def probe_state(torch, gen, B, f, win):
     """Slots spread over scores far from lambda* = 0.6: a few climb past it
@@ -243,7 +261,7 @@ def phase_k1(torch, timer):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: K2
+# phase k2
 
 def paged_case(torch, gen, B, nb, dtype, H=15, KV=5, d=64, bs=16):
     """A pool of B*nb+1 pages (page 0 NULL), shuffled tables, partly valid
@@ -297,9 +315,9 @@ def phase_k2(torch, timer):
     import torch.nn.functional as F
     from repro_torch.kernels import paged_decode as K2
     gen = torch.Generator().manual_seed(SEED + 1)
-    # (B, nb, dtype): the serving shape of phase 5 first (4 slots, 7 pages
+    # (B, nb, dtype): the serving shape of phase serve first (4 slots, 7 pages
     # of 16 for 16 + 96 positions), then the wider cases; f32 pages (the
-    # float32 model of phase 4) at the serving shape
+    # float32 model of phase model) at the serving shape
     cases = [(4, 7, "bf16"), (8, 8, "bf16"), (8, 256, "bf16"),
              (8, 8, "int8"), (8, 256, "int8"), (4, 7, "f32")]
     rows = []
@@ -350,7 +368,7 @@ def phase_k2(torch, timer):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: K3
+# phase k3
 
 def chunk_partial_errors(kern, plain, m_relative=False):
     """Largest m and normalised-output differences between two chunk
@@ -416,7 +434,7 @@ def k3_bytes_ops(k, ks, n_valid_by_seg, tok_valid, H, d, inputs, outputs):
 # (name, nb, pages, [(tokens, cached positions) per segment]); the rest of
 # the 64 tokens are padding with the last real segment's id, and the rest
 # of the 4 segments are zero-length.  The first is the serving shape of
-# phase 9: a prompt's third chunk (32 tokens, 128 cached) packed with the
+# phase serve-chunked: a prompt's third chunk (32 tokens, 128 cached) packed with the
 # head of the next prompt (32 tokens, no cache yet).
 K3_B4_CASES = [
     ("served", 16, "bf16", [(32, 128), (32, 0)]),
@@ -429,7 +447,7 @@ K3_B4_CASES = [
     ("nb 256", 256, "int8", [(40, 4000), (24, 1500)]),
 ]
 # B3 cases: (B, C, nb, pages, cached positions per request); the first is
-# the shape of phase 6's last chunk
+# the shape of phase model-chunked's last chunk
 K3_B3_CASES = [
     (1, 64, 16, "bf16", [128]),
     (1, 64, 16, "int8", [128]),
@@ -458,71 +476,78 @@ def _sdpa_ms(torch, timer, q4, k, v, ks, vs, tables, mask, dtype):
                                                         attn_mask=mask))
 
 
-def phase_k3(torch, timer):
+def k3_b4_case(torch, timer, gen, name, nb, dtype, segs, C=64, R=4):
+    """One packed chunk of C tokens in R segments ((tokens, cached
+    positions) each) through K3 and its plain version: errors, the merged
+    output, times beside SDPA and the bound."""
     from repro_torch.kernels import paged_chunk as K3
     from repro_torch.models import attention as A
+    H, KV, d, bs = 15, 5, 64, 16
+    k, v, ks, vs, tables = chunk_pool(torch, gen, R, nb, dtype)
+    n_tok = sum(t for t, _ in segs)
+    seg = torch.full((C,), len(segs) - 1, dtype=torch.int32)
+    lengths = torch.zeros(R, dtype=torch.int32)
+    starts = torch.zeros(R, dtype=torch.int32)
+    off = 0
+    for i, (t, cached) in enumerate(segs):
+        seg[off:off + t] = i
+        lengths[i], starts[i] = t, cached
+        off += t
+    valid = torch.arange(nb * bs)[None, :] < starts[:, None]
+    q = torch.randn(C, H, d, generator=gen)
+    q, seg, tables, valid = (t.to(DEV) for t in (q, seg, tables, valid))
+    got = K3.paged_flash_packed_chunk(q, k, v, seg, tables, valid, ks, vs)
+    want = K3.paged_packed_chunk_plain(q, k, v, seg, tables, valid, ks, vs)
+    m_err, o_err = chunk_partial_errors(got, want)
+    # the merged output every token sees, the chunk's own keys folded in
+    # under the block-diagonal mask: holds the empty-cache segment
+    offsets = torch.cumsum(lengths, 0) - lengths
+    sl = seg.long().cpu()
+    tpos = torch.arange(C) - offsets[sl]
+    vt = ((tpos >= 0) & (tpos < lengths[sl])).to(DEV)
+    mask = A.packed_chunk_mask(seg, vt)
+    kn = torch.randn(C, KV, d, generator=gen).to(DEV)
+    vn = torch.randn(C, KV, d, generator=gen).to(DEV)
+    qg = q.reshape(C, KV, H // KV, d)
+    merged = []
+    for o_, l_, m_ in (got, want):
+        o2, l2 = A._merge_packed_block(qg, o_, l_, m_, kn, vn, mask)
+        merged.append(o2 / l2[..., None])
+    merged_err = float((merged[0] - merged[1]).abs().max())
+    if not (m_err <= K3_M_TOL and o_err <= K3_OUT_TOL
+            and merged_err <= K3_OUT_TOL):
+        raise AssertionError(f"K3-B4 {name} {dtype}: m err {m_err}, "
+                             f"output err {o_err}, merged {merged_err}")
+    ms = timer(lambda: K3.paged_flash_packed_chunk(
+        q, k, v, seg, tables, valid, ks, vs))
+    plain_ms = timer(lambda: K3.paged_packed_chunk_plain(
+        q, k, v, seg, tables, valid, ks, vs))
+    # SDPA: every segment's queries (all C tokens, masked to the segment's
+    # own) against its gathered pages
+    smask = (valid[:, None, :] & (seg[None, :, None] == torch.arange(
+        R, device=DEV)[:, None, None]))[:, None]
+    q4 = q.permute(1, 0, 2)[None].expand(R, H, C, d)
+    lib_ms = _sdpa_ms(torch, timer, q4, k, v, ks, vs, tables, smask, dtype)
+    n_valid = [int(c_) if t else 0 for t, c_ in segs]
+    tok_valid = int(sum(t * c_ for t, c_ in segs) + (C - n_tok)
+                    * segs[-1][1])
+    moved, ops = k3_bytes_ops(k, ks, n_valid, tok_valid, H, d,
+                              (q, seg, tables, valid), got)
+    bms, by = bound_ms(moved, ops)
+    return dict(fn="B4", case=name, nb=nb, pages=dtype, C=C, R=R,
+                segments=segs, padding=C - n_tok, H=H, KV=KV, d=d, bs=bs,
+                m_err=m_err, out_err=o_err, merged_err=merged_err, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by, bytes=moved)
+
+
+def phase_k3(torch, timer):
+    from repro_torch.kernels import paged_chunk as K3
     gen = torch.Generator().manual_seed(SEED + 3)
-    H, KV, d, bs, C, R = 15, 5, 64, 16, 64, 4
+    H, KV, d, bs = 15, 5, 64, 16
     rows = []
     for name, nb, dtype, segs in K3_B4_CASES:
-        k, v, ks, vs, tables = chunk_pool(torch, gen, R, nb, dtype)
-        n_tok = sum(t for t, _ in segs)
-        seg = torch.full((C,), len(segs) - 1, dtype=torch.int32)
-        lengths = torch.zeros(R, dtype=torch.int32)
-        starts = torch.zeros(R, dtype=torch.int32)
-        off = 0
-        for i, (t, cached) in enumerate(segs):
-            seg[off:off + t] = i
-            lengths[i], starts[i] = t, cached
-            off += t
-        valid = torch.arange(nb * bs)[None, :] < starts[:, None]
-        q = torch.randn(C, H, d, generator=gen)
-        q, seg, tables, valid = (t.to(DEV) for t in (q, seg, tables, valid))
-        got = K3.paged_flash_packed_chunk(q, k, v, seg, tables, valid, ks, vs)
-        want = K3.paged_packed_chunk_plain(q, k, v, seg, tables, valid, ks,
-                                           vs)
-        m_err, o_err = chunk_partial_errors(got, want)
-        # the merged output every token sees, the chunk's own keys folded
-        # in under the block-diagonal mask: holds the empty-cache segment
-        offsets = torch.cumsum(lengths, 0) - lengths
-        sl = seg.long().cpu()
-        tpos = torch.arange(C) - offsets[sl]
-        vt = ((tpos >= 0) & (tpos < lengths[sl])).to(DEV)
-        mask = A.packed_chunk_mask(seg, vt)
-        kn = torch.randn(C, KV, d, generator=gen).to(DEV)
-        vn = torch.randn(C, KV, d, generator=gen).to(DEV)
-        qg = q.reshape(C, KV, H // KV, d)
-        merged = []
-        for o_, l_, m_ in (got, want):
-            o2, l2 = A._merge_packed_block(qg, o_, l_, m_, kn, vn, mask)
-            merged.append(o2 / l2[..., None])
-        merged_err = float((merged[0] - merged[1]).abs().max())
-        if not (m_err <= K3_M_TOL and o_err <= K3_OUT_TOL
-                and merged_err <= K3_OUT_TOL):
-            raise AssertionError(f"K3-B4 {name} {dtype}: m err {m_err}, "
-                                 f"output err {o_err}, merged {merged_err}")
-        ms = timer(lambda: K3.paged_flash_packed_chunk(
-            q, k, v, seg, tables, valid, ks, vs))
-        plain_ms = timer(lambda: K3.paged_packed_chunk_plain(
-            q, k, v, seg, tables, valid, ks, vs))
-        # SDPA: every segment's queries (all C tokens, masked to the
-        # segment's own) against its gathered pages
-        smask = (valid[:, None, :] & (seg[None, :, None] == torch.arange(
-            R, device=DEV)[:, None, None]))[:, None]
-        q4 = q.permute(1, 0, 2)[None].expand(R, H, C, d)
-        lib_ms = _sdpa_ms(torch, timer, q4, k, v, ks, vs, tables, smask,
-                          dtype)
-        n_valid = [int(c_) if t else 0 for t, c_ in segs]
-        tok_valid = int(sum(t * c_ for t, c_ in segs) + (C - n_tok)
-                        * segs[-1][1])
-        moved, ops = k3_bytes_ops(k, ks, n_valid, tok_valid, H, d,
-                                  (q, seg, tables, valid), got)
-        bms, by = bound_ms(moved, ops)
-        row = dict(fn="B4", case=name, nb=nb, pages=dtype, C=C, R=R,
-                   segments=segs, padding=C - n_tok, H=H, KV=KV, d=d, bs=bs,
-                   m_err=m_err, out_err=o_err, merged_err=merged_err, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                   bound_by=by, bytes=moved)
+        row = k3_b4_case(torch, timer, gen, name, nb, dtype, segs)
         emit(dict(phase="k3", **row))
         rows.append(row)
     for B, Cb, nb, dtype, cached in K3_B3_CASES:
@@ -552,6 +577,188 @@ def phase_k3(torch, timer):
         emit(dict(phase="k3", **row))
         rows.append(row)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase k4: the masked multi-token probe step of speculative decode
+
+# f32, another reduction order than the plain version: K1's tolerance
+K4_TOL = 1e-5
+# per-slot biases whose scores (.05, .95, .27, .98, .92, .12, .97, .38)
+# keep every smoothed score at least about 0.2 from lambda* = 0.6
+K4_BIASES = (-3.0, 3.0, -1.0, 4.0, 2.5, -2.0, 3.5, -0.5)
+K4_MODES = ("zero", "one", "T-1", "T", "mixed")
+
+
+def k4_accept(torch, mode, B, T):
+    if mode == "mixed":
+        acc = [(i * 3) % (T + 1) for i in range(B)]
+    else:
+        acc = [{"zero": 0, "one": 1, "T-1": T - 1, "T": T}[mode]] * B
+    return torch.tensor(acc, dtype=torch.int32, device=DEV)
+
+
+def k4_state(torch, gen, B, f, win, burn_in, warm):
+    """``warm``: every slot at the burn-in with its ring holding its own
+    score, so a high-bias slot stops on its first boundary token and the
+    rest of its chain is frozen, and slot 1 stopped on entry; otherwise a
+    fresh state, where the burn-in holds every stop for burn_in scores."""
+    W = (torch.randn(B, f, generator=gen) / f ** 0.5).to(DEV)
+    b = torch.tensor(K4_BIASES[:B] if B > 1 else (3.0,)).to(DEV)
+    ring = torch.zeros(B, win, device=DEV)
+    n = torch.zeros(B, dtype=torch.int32, device=DEV)
+    stopped = torch.zeros(B, dtype=torch.bool, device=DEV)
+    stop_step = torch.full((B,), -1, dtype=torch.int32, device=DEV)
+    if warm:
+        ring[:, -burn_in:] = torch.sigmoid(b)[:, None]
+        n.fill_(burn_in)
+        if B > 1:
+            stopped[1], stop_step[1] = True, burn_in
+    return [W, b, ring, n, stopped, stop_step]
+
+
+def k4_case(torch, K1, K4, gen, B, T, f, mode, warm, win=4, burn_in=2,
+            eta=0.05, lam=0.6):
+    """K4, its plain version and ``accept[i]`` K1 launches (T masked K1
+    launches) from copies of one CUDA state: the integer and boolean state
+    must be equal, the floats within K4_TOL."""
+    zq = (torch.randn(B, T, f, generator=gen) / f ** 0.5).to(DEV)
+    zk = (torch.randn(B, T, f, generator=gen) / f ** 0.5).to(DEV)
+    bnd = torch.rand(B, T, generator=gen) < 0.7
+    bnd[:, 0] = True
+    bnd = bnd.to(DEV)
+    acc = k4_accept(torch, mode, B, T)
+    st = k4_state(torch, gen, B, f, win, burn_in, warm)
+    kern, plain, chain = ([t.clone() for t in st] for _ in range(3))
+    ko = K4.serving_probe_spec_step(zq, zk, bnd, acc, *kern, eta, lam,
+                                    burn_in=burn_in)
+    po = K4.serving_probe_spec_step_plain(zq, zk, bnd, acc, *plain, eta, lam,
+                                          burn_in=burn_in)
+    k1_n, k1_s, k1_sm = [], [], []
+    for t in range(T):
+        o = K1.serving_probe_step(zq[:, t].contiguous(), zk[:, t].contiguous(),
+                                  (bnd[:, t] & (t < acc)).contiguous(),
+                                  *chain, eta, lam, burn_in=burn_in)
+        k1_n.append(chain[3].clone())
+        k1_s.append(o.s)
+        k1_sm.append(o.smoothed)
+    sync(torch)
+    k1 = dict(n_seq=torch.stack(k1_n, 1), s=torch.stack(k1_s, 1),
+              smoothed_seq=torch.stack(k1_sm, 1), W=chain[0], b=chain[1],
+              ring=chain[2], n_scores=chain[3], stopped=chain[4],
+              stop_step=chain[5])
+    case = dict(B=B, T=T, f=f, accept=mode, warm=warm)
+    for name in ("n_seq", "n_scores", "stopped", "stop_step"):
+        a = getattr(ko, name)
+        for other, want in (("plain", getattr(po, name)),
+                            ("chained K1", k1[name])):
+            if not torch.equal(a, want):
+                raise AssertionError(f"K4 {case}: {name} differs from "
+                                     f"{other}: {a.tolist()} vs "
+                                     f"{want.tolist()}")
+    err = {name: float((getattr(ko, name) - getattr(po, name)).abs().max())
+           for name in ("s", "smoothed_seq", "W", "b", "ring")}
+    k1_err = {name: float((getattr(ko, name) - k1[name]).abs().max())
+              for name in ("s", "smoothed_seq", "W", "b", "ring")}
+    if max(err.values()) > K4_TOL or max(k1_err.values()) > K4_TOL:
+        raise AssertionError(f"K4 {case}: off its plain version {err} or "
+                             f"chained K1 {k1_err}")
+    if mode == "zero" and not all(torch.equal(a, b)
+                                  for a, b in zip(kern, st)):
+        raise AssertionError(f"K4 {case}: accept = 0 moved the state")
+    emitted = po.n_seq > torch.cat([st[3][:, None], po.n_seq[:, :-1]], 1)
+    margin = (float((po.smoothed_seq[emitted] - lam).abs().min())
+              if emitted.any() else float("inf"))
+    # a stop that fired on token t < accept - 1: the rest of the chain was
+    # accepted but frozen
+    fired = (ko.stop_step != st[5]) & (ko.stop_step >= 0)
+    fired_at = (po.n_seq == ko.stop_step[:, None]).int().argmax(1)
+    mid_chain = bool((fired & (fired_at < acc - 1)).any())
+    return dict(case, max_abs_err=err, chained_k1_err=k1_err,
+                chained_k1_bitwise=max(k1_err.values()) == 0.0,
+                lambda_margin=margin, stops=int(fired.sum()),
+                mid_chain_stop=mid_chain)
+
+
+def phase_k4(torch, timer):
+    from repro_torch.kernels import probe_spec as K4
+    from repro_torch.kernels import probe_step as K1
+    gen = torch.Generator().manual_seed(SEED + 7)
+    rows = []
+    for B in (1, 4, 8):
+        for T in (1, 2, 4, 8):
+            for f in (128, 960, 5120):
+                for mode in K4_MODES:
+                    rows.append(k4_case(torch, K1, K4, gen, B, T, f, mode,
+                                        warm=True))
+    # burn-in not reached: fresh slots at the served shape
+    for T in (1, 2, 4, 8):
+        row = k4_case(torch, K1, K4, gen, 4, T, 960, "T", warm=False)
+        if T <= 2 and row["stops"]:
+            raise AssertionError(f"K4 stopped before the burn-in: {row}")
+        rows.append(row)
+    if not any(r["mid_chain_stop"] for r in rows):
+        raise AssertionError("K4: no case stopped mid-chain")
+    if min(r["lambda_margin"] for r in rows) < 1e-3:
+        raise AssertionError("K4: inputs came within 1e-3 of lambda*")
+    # a width above the widest config is refused
+    wide = K4.MAX_F + 1
+    try:
+        z = torch.zeros(1, 1, wide, device=DEV)
+        K4.serving_probe_spec_step(
+            z, z, torch.ones(1, 1, dtype=torch.bool, device=DEV),
+            torch.ones(1, dtype=torch.int32, device=DEV),
+            *k4_state(torch, gen, 1, wide, 4, 2, False), 0.05, 0.6,
+            burn_in=2)
+    except ValueError:
+        pass
+    else:
+        if DEV == "cuda":
+            raise AssertionError(f"K4 accepted f = {wide}")
+
+    # timing at the served shape (4 slots, k = 4, f 960, window 4), every
+    # token accepted and at a boundary; lambda* above 1 is out of reach, so
+    # every timed call updates every slot's W, b and ring for all 4 tokens
+    B, T, f, win, eta, lam = 4, 4, 960, 4, 0.05, 1.5
+    zq = (torch.randn(B, T, f, generator=gen) / f ** 0.5).to(DEV)
+    zk = (torch.randn(B, T, f, generator=gen) / f ** 0.5).to(DEV)
+    bnd = torch.ones(B, T, dtype=torch.bool, device=DEV)
+    acc = k4_accept(torch, "T", B, T)
+    st = k4_state(torch, gen, B, f, win, 2, False)
+    ms = timer(lambda: K4.serving_probe_spec_step(zq, zk, bnd, acc, *st, eta,
+                                                  lam, burn_in=2), reps=200)
+    plain_ms = timer(lambda: K4.serving_probe_spec_step_plain(
+        zq, zk, bnd, acc, *st, eta, lam, burn_in=2), reps=200)
+    if bool(st[4].any()):
+        raise AssertionError("K4 timing: a slot stopped")
+    # read the inputs and the whole state once; write W, b, ring, n_scores
+    # and stopped (stop_step is untouched without a stop) and the three
+    # (B, T) outputs; ~7 f32 operations per feature and token
+    W, b, ring, n, stopped, _ = st
+    moved = (nbytes(zq, zk, bnd, acc, *st) + nbytes(W, b, ring, n, stopped)
+             + 3 * 4 * B * T)
+    bms, by = bound_ms(moved, 7 * B * T * f)
+    worst = max(max(r["max_abs_err"].values()) for r in rows)
+    worst_k1 = max(max(r["chained_k1_err"].values()) for r in rows)
+    res = dict(phase="k4", cases=len(rows), max_abs_err=worst, tol=K4_TOL,
+               chained_k1_max_abs_err=worst_k1,
+               chained_k1_bitwise=sum(r["chained_k1_bitwise"] for r in rows),
+               mid_chain_stops=sum(r["mid_chain_stop"] for r in rows),
+               lambda_margin=min(r["lambda_margin"] for r in rows),
+               timed_shape=dict(B=B, T=T, f=f, window=win, lam=lam), ms=ms,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by, bytes=moved,
+               library_ms=None,
+               per_case=[(r["B"], r["T"], r["f"], r["accept"], r["warm"],
+                          max(r["max_abs_err"].values()), r["stops"])
+                         for r in rows])
+    emit(res)
+    # K3 at the verify shape of a spec step: 4 slots x k = 4 tokens, each
+    # segment with its own cache (16 to 112 positions over 7 pages)
+    k3v = k3_b4_case(torch, timer, torch.Generator().manual_seed(SEED + 8),
+                     "verify", 7, "bf16", [(4, 20), (4, 45), (4, 70),
+                                           (4, 100)], C=16)
+    emit(dict(phase="k3-verify", **k3v))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -686,7 +893,7 @@ def phase_k5(torch, timer, test):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: full-width model, teacher-forced
+# phase model: full-width model, teacher-forced
 
 def _pages_reversed(K2):
     """The plain paged attention with each row's pages in reverse order:
@@ -863,7 +1070,7 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: full-width model, chunked and packed prefill
+# phase model-chunked: full-width model, chunked and packed prefill
 
 class CheckedK3:
     """One K3 entry point (B3 or B4) on the inputs the model gives it, each
@@ -1024,7 +1231,7 @@ def phase_model_chunked(torch, reduced: bool = False):
     # flips the random-weight stack amplifies; K3 and its plain version are
     # two such orders.  So K3's distance from one shot is held to 8x the
     # plain version's own distance plus one bf16 ulp of the largest value,
-    # as phase 5 holds K2 (the kernel itself is held per call above)
+    # as phase model holds K2 (the kernel itself is held per call above)
     for what in ("page", "logit"):
         bound = 8 * bf16[f"plain_{what}_diff"] + bf16[f"{what}_scale"] * 2**-8
         bf16[f"{what}_bound"] = bound
@@ -1033,7 +1240,7 @@ def phase_model_chunked(torch, reduced: bool = False):
                                  f"{bf16[f'k3_{what}_diff']} > {bound}")
     # float32, the same weights: no bf16 cast between layers, so the orders
     # differ by f32 rounding times the same amplification; 2^-10 of the
-    # largest value, phase 5's f32 bound
+    # largest value, phase model's f32 bound
     cfg32 = dataclasses.replace(cfg, dtype="float32",
                                 kv_cache_dtype="float32")
     f32 = chunked_vs_one_shot(torch, build(cfg32), _tree(params, lambda t:
@@ -1055,15 +1262,121 @@ def phase_model_chunked(torch, reduced: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# phases 7 and 9: the serving driver on the card; 8 and 10: its trace
+# phase model-spec: the verify pass against sequential decode
+
+def verify_vs_decode(torch, model, params, prompt, feed, bs=16):
+    """Prefill once into two page pools; feed the same k tokens per slot
+    through k sequential ``decode_step``s (K2) on one and through one
+    ``verify_packed`` chunk (4 slots x k tokens, K3 held per call against
+    its plain version) on the other.  Returns the largest logit, hidden and
+    page differences, the scales, and the share of equal argmaxes."""
+    from repro_torch.kernels import paged_chunk as K3
+    from repro_torch.models import attention as A
+    cfg = model.cfg
+    B, S = prompt.shape
+    k = feed.shape[0]
+    nb = -(-(S + k) // bs)
+    pre, _, _ = model.prefill(cfg, params, {"tokens": prompt}, nb * bs)
+    table = (1 + torch.arange(B * nb)).reshape(B, nb).to(torch.int32).to(DEV)
+    states = []
+    for _ in range(2):
+        st = model.init_paged_state(B, B * nb + 1, bs, nb, device=DEV)
+        pages = {key: v for key, v in st.items() if key != "block_tables"}
+        for i in range(B):
+            A.prefill_to_pages(pages, {key: v[:, i:i + 1]
+                                       for key, v in pre.items()},
+                               table[i], -(-S // bs))
+        st["block_tables"].copy_(table)
+        states.append(st)
+    dec_l, dec_h = [], []
+    for t in range(k):
+        pos = torch.full((B,), S + t, dtype=torch.int32, device=DEV)
+        lg, h, _ = model.decode_step(cfg, params, feed[t], states[0], pos)
+        dec_l.append(lg[:, :cfg.vocab_size].float())
+        dec_h.append(h.float())
+    dec_l, dec_h = torch.stack(dec_l, 1), torch.stack(dec_h, 1)
+    i32 = dict(dtype=torch.int32, device=DEV)
+    checked = CheckedK3(K3.paged_flash_packed_chunk,
+                        K3.paged_packed_chunk_plain)
+    served = A.paged_flash_packed_chunk
+    A.paged_flash_packed_chunk = checked
+    try:
+        lg, h, _ = model.verify_packed(
+            cfg, params, feed.T.reshape(-1).contiguous(), states[1],
+            torch.arange(B, **i32).repeat_interleave(k), torch.arange(B, **i32),
+            torch.full((B,), S, **i32), torch.full((B,), k, **i32),
+            states[1]["block_tables"])
+    finally:
+        A.paged_flash_packed_chunk = served
+    ver_l = lg[:, :cfg.vocab_size].float().reshape(B, k, -1)
+    ver_h = h.float().reshape(B, k, -1)
+    if not (torch.isfinite(ver_l).all() and torch.isfinite(dec_l).all()):
+        raise AssertionError("non-finite logits")
+    page_diff = 0.0
+    for key in ("k", "v"):
+        a, b = (st[key][:, table.long()].float() for st in states)
+        page_diff = max(page_diff, float((a - b).abs().max()))
+    return dict(max_logit_diff=float((ver_l - dec_l).abs().max()),
+                max_hidden_diff=float((ver_h - dec_h).abs().max()),
+                max_page_diff=page_diff,
+                max_abs_logit=float(dec_l.abs().max()),
+                argmax_equal_share=float((ver_l.argmax(-1)
+                                          == dec_l.argmax(-1)).float()
+                                         .mean()),
+                k3_calls=checked.calls, k3_m_rel_err=checked.m_err,
+                k3_out_err=checked.out_err)
+
+
+def phase_model_spec(torch, reduced: bool = False):
+    """Full-width smollm-360m, teacher-forced: ``verify_packed_chunk`` on 4
+    slots x k = 4 against 4 sequential ``decode_step``s on paged KV, in
+    bf16 (as served) and with the same weights in float32."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    cfg = get_config("smollm-360m")
+    if reduced:
+        cfg = cfg.reduced()
+    model = build(cfg)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    params = model.init(gen, DEV)
+    B, S, k = 4, 16, 4
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           dtype=torch.int32).to(DEV)
+    feed = torch.randint(0, cfg.vocab_size, (k, B), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    bf16 = verify_vs_decode(torch, model, params, prompt, feed)
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                kv_cache_dtype="float32")
+    f32 = verify_vs_decode(torch, build(cfg32),
+                           _tree(params, lambda t: t.float()), prompt, feed)
+    # float32: the verify pass and decode sum the same attention in
+    # another order (K3 over pages then the block's own keys, against K2
+    # with the current token folded in); phase model's f32 bound, 2^-10 of
+    # the largest logit, and every argmax equal
+    f32["bound"] = f32["max_abs_logit"] * 2.0 ** -10
+    if f32["max_logit_diff"] > f32["bound"] \
+            or f32["argmax_equal_share"] != 1.0:
+        raise AssertionError(f"f32 verify vs decode: {f32}")
+    res = dict(phase="model-spec", arch=cfg.name, layers=cfg.n_layers,
+               batch=B, prompt=S, k=k, bf16=bf16, f32=f32)
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases serve and serve-chunked: the driver on the card; trace and
+# trace-chunked: its profiled windows
 
 def kernel_counters():
     """Every kernel wrapper of the port, by name: each counts its launches."""
     from repro_torch.kernels import paged_chunk as K3
     from repro_torch.kernels import paged_decode as K2
     from repro_torch.kernels import probe_step as K1
+    from repro_torch.kernels import probe_spec as K4
     from repro_torch.kernels import ttt_scan as K5
     return {"serving_probe_step": K1.serving_probe_step,
+            "serving_probe_spec_step": K4.serving_probe_spec_step,
             "paged_flash_decode": K2.paged_flash_decode,
             "paged_flash_prefill_chunk": K3.paged_flash_prefill_chunk,
             "paged_flash_packed_chunk": K3.paged_flash_packed_chunk,
@@ -1079,10 +1392,10 @@ def read_launches():
     return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
-def phase_serve(torch, extra_argv=(), *, phase="serve", requests=8,
-                need=("serving_probe_step", "paged_flash_decode")):
+def serve_fleet(torch, extra_argv=(), *, phase, requests, need):
     """The serving driver end to end; every kernel in ``need`` must have
-    launched during it (counts zeroed just before, read just after)."""
+    launched during it (counts zeroed just before, read just after).
+    Returns the phase's record and the driver's ``ServeResult``."""
     from repro_torch.launch import serve
     argv = ["--arch", "smollm-360m", "--paged", "--requests", str(requests),
             "--slots", "4", "--max-new-tokens", "96", "--seed", str(SEED),
@@ -1134,8 +1447,15 @@ def phase_serve(torch, extra_argv=(), *, phase="serve", requests=8,
             requests_per_s=requests / out.static.wall_time_s,
             slot_utilization=(out.static.active_slot_steps
                               / max(out.static.total_slot_steps, 1)))
+    return res, out
+
+
+def phase_serve(torch, extra_argv=(), *, phase="serve", requests=8,
+                need=("serving_probe_step", "paged_flash_decode")):
+    res, out = serve_fleet(torch, extra_argv, phase=phase, requests=requests,
+                           need=need)
     emit(res)
-    return res, out.scheduler
+    return res, out
 
 
 def phase_trace(torch, sched, steps: int = 16, prompt_len: int = 16,
@@ -1159,9 +1479,9 @@ def phase_trace(torch, sched, steps: int = 16, prompt_len: int = 16,
     had_chunk = []
     served_step = eng.step
 
-    def step(chunk=None):
+    def step(chunk=None, **spec):
         had_chunk.append(chunk is not None)
-        return served_step(chunk) if chunk is not None else served_step()
+        return served_step(chunk, **spec)
 
     # admission, then warm steps; a chunked fleet's window starts after
     # one, so that it holds the prompts' chunk steps and the decode after
@@ -1242,6 +1562,186 @@ def phase_trace(torch, sched, steps: int = 16, prompt_len: int = 16,
                top=[dict(kernel=k[:90], ms_per_step=us / steps / 1e3,
                          calls_per_step=c / steps)
                     for us, k, c in rows[:8]])
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase serve-spec: linear speculative decode through the driver
+
+class CheckedK4:
+    """K4 on the inputs the engine gives it; the first ``limit`` calls are
+    each held against the plain version on copies of the same state (the
+    integer and boolean state equal, floats within K4_TOL)."""
+
+    def __init__(self, K4, limit: int):
+        self.K4, self.limit = K4, limit
+        self.calls, self.err = 0, 0.0
+
+    def __call__(self, zq, zk, bnd, acc, *state, burn_in):
+        check = self.calls < self.limit
+        if check:
+            plain = [t.clone() for t in state[:6]]
+            want = self.K4.serving_probe_spec_step_plain(
+                zq, zk, bnd, acc, *plain, *state[6:], burn_in=burn_in)
+        got = self.K4.serving_probe_spec_step(zq, zk, bnd, acc, *state,
+                                              burn_in=burn_in)
+        if check:
+            for name in ("n_seq", "n_scores", "stopped", "stop_step"):
+                if not getattr(got, name).equal(getattr(want, name)):
+                    raise AssertionError(f"K4 in the fleet, call "
+                                         f"{self.calls}: {name} differs")
+            err = max(float((getattr(got, n) - getattr(want, n)).abs().max())
+                      for n in ("s", "smoothed_seq", "W", "b", "ring"))
+            if err > K4_TOL:
+                raise AssertionError(f"K4 in the fleet, call {self.calls}: "
+                                     f"err {err}")
+            self.err = max(self.err, err)
+        self.calls += 1
+        return got
+
+
+def first_divergence(torch, model, params, req, ref):
+    """The first token where a request left the one-token fleet's
+    sequence, and the one-token run's top-2 logit margin there: the model
+    consumed prompt + [0] + tokens[:j] (a slot starts decoding from token
+    0) before choosing tokens[j]."""
+    from repro_torch.models import transformer
+    j = next(i for i, (a, b) in enumerate(zip(req.tokens, ref.tokens))
+             if a != b)
+    seq = list(req.inputs["tokens"][0]) + [0] + ref.tokens[:j]
+    toks = torch.tensor([seq], dtype=torch.int32, device=DEV)
+    with torch.no_grad():
+        _, h, _ = model.prefill(model.cfg, params, {"tokens": toks},
+                                len(seq))
+        lg = transformer.logits_from_hidden(model.cfg, params, h)
+    top = lg[0, :model.cfg.vocab_size].float().topk(2).values
+    return dict(req_id=req.req_id, token=j, spec=req.tokens[j],
+                one_token=ref.tokens[j], logit_margin=float(top[0] - top[1]))
+
+
+def phase_serve_spec(torch, base, extra_argv=(), *, phase="serve-spec"):
+    """The driver with ``--spec-tokens 4`` on ``base``'s fleet: K4 must
+    launch once per engine step (each is a verify step), the first 16 K4
+    calls are held against the plain version, and each request is held
+    against the one-token fleet ``base`` served (tokens and stops)."""
+    from repro_torch.kernels import probe_spec as K4
+    from repro_torch.serving import engine as E
+    checked = CheckedK4(K4, limit=16)
+    served = E.serving_probe_spec_step
+    E.serving_probe_spec_step = checked
+    try:
+        res, out = serve_fleet(
+            torch, ("--spec-tokens", "4", *extra_argv), phase=phase,
+            requests=len(base.requests),
+            need=("serving_probe_spec_step", "paged_flash_packed_chunk"))
+    finally:
+        E.serving_probe_spec_step = served
+    fleet = out.fleet
+    k4 = res["launches"]["serving_probe_spec_step"]
+    if k4 != fleet.engine_steps:
+        raise AssertionError(f"K4 launched {k4} times in "
+                             f"{fleet.engine_steps} spec steps")
+    agree = [r.tokens == b.tokens and r.stop_step == b.stop_step
+             for r, b in zip(out.requests, base.requests)]
+    bad = [(r, b) for r, b in zip(out.requests, base.requests)
+           if r.tokens != b.tokens]
+    res.update(
+        step_ms=fleet.wall_time_s / fleet.engine_steps * 1e3,
+        drafts_proposed=fleet.spec_tokens_proposed,
+        drafts_accepted=fleet.spec_tokens_accepted,
+        acceptance_rate=fleet.acceptance_rate,
+        accepted_len_p50=fleet.accepted_len_p50,
+        accepted_len_p99=fleet.accepted_len_p99,
+        draft_cache_hits=fleet.draft_cache_hits,
+        draft_cache_misses=fleet.draft_cache_misses,
+        k4_checked_calls=min(checked.calls, checked.limit),
+        k4_checked_err=checked.err,
+        one_token=dict(engine_steps=base.fleet.engine_steps,
+                       tokens_per_s=base.fleet.tokens_per_s,
+                       step_ms=base.fleet.wall_time_s
+                       / base.fleet.engine_steps * 1e3),
+        agree_with_one_token=f"{sum(agree)}/{len(agree)}",
+        first_divergence=(first_divergence(torch, out.scheduler.model,
+                                           out.scheduler.params, *bad[0])
+                          if bad else None))
+    emit(res)
+    return res, out
+
+
+def choose_lambda(scores, burn_in):
+    """A threshold between the served smoothed scores that stops some
+    requests and not others, as far as it can get from every score the
+    threshold test reads (those after the burn-in); splits that stop a
+    quarter to three quarters of the requests first.  Returns (lambda*,
+    its distance to the nearest such score)."""
+    tested = sorted({s for sc in scores for s in sc[burn_in:]})
+    n = len(scores)
+    best = None
+    for lo, hi in zip(tested, tested[1:]):
+        lam = (lo + hi) / 2
+        stops = sum(any(s >= lam for s in sc[burn_in:]) for sc in scores)
+        if 0 < stops < n:
+            key = (n / 4 <= stops <= 3 * n / 4 and hi - lo > 2e-3, hi - lo)
+            if best is None or key > best[0]:
+                best = (key, lam, (hi - lo) / 2)
+    if best is None:
+        raise AssertionError(f"no threshold splits the scores {scores}")
+    return best[1], best[2]
+
+
+def phase_spec_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
+    """The stop-invariance of ``benchmarks/serving_throughput.py`` and the
+    JAX suite's ``test_spec_stops_match_one_token_matrix``, in float32 on
+    the serve fleet: the driver's weights and calibrated probe, served
+    through ``OrcaScheduler`` one token at a time with nothing stopping
+    (every request's full score trajectory), then at a lambda* between
+    those scores, one-token and with spec_tokens 4: every stop step, and
+    every token up to it, equal."""
+    import dataclasses
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.serving import OrcaScheduler, ServeConfig, make_request
+    cfg32 = dataclasses.replace(sched.model.cfg, dtype="float32",
+                                kv_cache_dtype="float32")
+    model32 = build(cfg32)
+    params32 = _tree(sched.params, lambda t: t.float())
+    batch = serve.model_inputs(cfg32, torch.Generator().manual_seed(SEED + 1),
+                               requests, prompt_len)
+    base = dict(n_slots=4, paged=True, tokens_per_step=8, max_new_tokens=96,
+                burn_in=2)
+
+    def fleet(lam, spec):
+        t0 = time.perf_counter()
+        done, fl = OrcaScheduler(model32, params32, sched.pc, sched.theta,
+                                 ServeConfig(lam=lam, spec_tokens=spec,
+                                             **base)).run(
+            [make_request(t) for t in batch["tokens"]])
+        sync(torch)
+        return done, fl, time.perf_counter() - t0
+
+    free, _, _ = fleet(2.0, None)
+    lam, margin = choose_lambda([r.scores for r in free], base["burn_in"])
+    # f32 scores of the two paths differ by about 1e-6
+    if margin < 1e-4:
+        raise AssertionError(f"every threshold lies within {margin} of a "
+                             "score: the check would hang on a tie")
+    one, one_fl, one_s = fleet(lam, None)
+    spec, spec_fl, spec_s = fleet(lam, 4)
+    stops = [r.stop_step for r in one]
+    if [r.stop_step for r in spec] != stops:
+        raise AssertionError(f"f32 spec stops {[r.stop_step for r in spec]}"
+                             f" differ from one-token stops {stops}")
+    if [r.tokens for r in spec] != [r.tokens for r in one]:
+        raise AssertionError("f32 spec tokens differ from one-token tokens")
+    res = dict(phase="serve-spec-f32", lam=lam, lambda_margin=margin,
+               stop_steps=stops, stopped=sum(s >= 0 for s in stops),
+               one_token=dict(engine_steps=one_fl.engine_steps, wall_s=one_s,
+                              tokens_per_s=one_fl.tokens_per_s),
+               spec=dict(engine_steps=spec_fl.engine_steps, wall_s=spec_s,
+                         tokens_per_s=spec_fl.tokens_per_s,
+                         drafts_accepted=spec_fl.spec_tokens_accepted,
+                         drafts_proposed=spec_fl.spec_tokens_proposed))
     emit(res)
     return res
 
@@ -1424,6 +1924,7 @@ def main() -> int:
     k1 = phase_k1(torch, timer)
     k2 = phase_k2(torch, timer)
     k3 = phase_k3(torch, timer)
+    k4 = phase_k4(torch, timer)
     splits = corpus()
     k5 = phase_k5(torch, timer, splits[2])
     model = phase_model(torch)
@@ -1432,23 +1933,30 @@ def main() -> int:
     b3_launches = read_launches()["paged_flash_prefill_chunk"]
     if b3_launches < 1:
         raise AssertionError("K3-B3 never ran in the chunked model phase")
-    served, sched = phase_serve(torch)
-    phase_trace(torch, sched)
-    served_c, sched_c = phase_serve(
+    phase_model_spec(torch)
+    served, out = phase_serve(torch)
+    phase_trace(torch, out.scheduler)
+    served_c, out_c = phase_serve(
         torch, ("--chunk-tokens", str(CHUNK), "--prompt-len", "160"),
         phase="serve-chunked",
         need=("serving_probe_step", "paged_flash_decode",
               "paged_flash_packed_chunk"))
     if served_c["packed_chunks"] < 1:
         raise AssertionError("the chunked fleet packed no chunk")
-    phase_trace(torch, sched_c, steps=24, prompt_len=160,
+    phase_trace(torch, out_c.scheduler, steps=24, prompt_len=160,
                 phase="trace-chunked")
+    spec, out_s = phase_serve_spec(torch, out)
+    phase_trace(torch, out_s.scheduler, phase="trace-spec")
+    phase_serve_spec(torch, out_c, ("--chunk-tokens", str(CHUNK),
+                                    "--prompt-len", "160"),
+                     phase="serve-spec-chunked")
+    phase_spec_stops(torch, out_s.scheduler)
     offline = phase_offline(torch, splits)
-    _, sched_s = phase_serve(
+    _, out_st = phase_serve(
         torch, ("--static-baseline",), phase="serve-static", requests=4,
         need=("serving_probe_step", "paged_flash_decode",
               "ttt_probe_batched"))
-    phase_static_fleet(torch, sched_s)
+    phase_static_fleet(torch, out_st.scheduler)
     k2_main = k2[0]
     # absolute errors: phase k2's m and outputs, the model's outputs
     k2_err = max([max(r["m_err"], r["out_err"]) for r in k2]
@@ -1501,6 +2009,13 @@ def main() -> int:
              ms=k5["served"]["ms"], plain_ms=k5["served"]["plain_ms"],
              bound_ms=k5["served"]["bound_ms"],
              bound_by=k5["served"]["bound_by"], library_ms=None),
+        dict(name="serving_probe_spec_step", route="cuda",
+             source="src/repro_torch/csrc/probe_spec.cu",
+             replaces="src/repro/kernels/ttt_probe.py:304",
+             launches=spec["launches"]["serving_probe_spec_step"],
+             max_abs_err=max(k4["max_abs_err"], spec["k4_checked_err"]),
+             ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+             bound_by=k4["bound_by"], library_ms=None),
     ]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

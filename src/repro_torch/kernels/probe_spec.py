@@ -30,10 +30,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.probe_step import serving_probe_step_plain
-
-# the widest d_model of the repo's configs: the kernel keeps W_i in shared
-# memory for the whole chain (28 KB at this width)
-MAX_F = 7168
+# the widest d_model of the repo's configs: K4 keeps W_i in shared memory
+# for the whole chain, as K5 does (28 KB at this width)
+from repro_torch.kernels.ttt_scan import MAX_F
 
 
 class SpecProbeOut(NamedTuple):
