@@ -24,8 +24,9 @@ non-zero:
                state: B 1, 4, 8; T 1, 2, 4, 8; f 128, 960, 5120; accepted
                lengths 0, 1, T-1, T and mixed; a stop mid-chain, a slot
                stopped on entry, the burn-in not reached; timed at the
-               served shape (4 slots, k 4, f 960); then K3 timed at the
-               verify shape (k3-verify: 4 segments of 4 tokens)
+               served shape (4 slots, k 4, f 960) and three wider ones;
+               then K3 timed at the verify shape (k3-verify: 4 segments
+               of 4 tokens)
 6. k5       -- the offline TTT scan against its plain version: f 128,
                960 and 5120, N 1 and 170, T 1, 37 and 120, c = 0 and c =
                labels, a per-trajectory and a shared init (72 cases on the
@@ -680,6 +681,39 @@ def k4_case(torch, K1, K4, gen, B, T, f, mode, warm, win=4, burn_in=2,
                 mid_chain_stop=mid_chain)
 
 
+# timed shapes (B slots, T verify tokens, f): the served shape first (4
+# slots, k = 4, smollm-360m's f 960), then more slots, a longer block, and
+# both at qwen1.5-32b's width
+K4_TIMED = ((4, 4, 960), (8, 4, 960), (4, 8, 960), (8, 8, 5120))
+
+
+def k4_timed(torch, timer, K4, gen, B, T, f, win=4, eta=0.05, lam=1.5):
+    """K4 and its plain version timed with every token accepted and at a
+    boundary; lambda* above 1 is out of reach, so every timed call updates
+    every slot's W, b and ring for all T tokens: the work the bound
+    counts."""
+    zq = (torch.randn(B, T, f, generator=gen) / f ** 0.5).to(DEV)
+    zk = (torch.randn(B, T, f, generator=gen) / f ** 0.5).to(DEV)
+    bnd = torch.ones(B, T, dtype=torch.bool, device=DEV)
+    acc = k4_accept(torch, "T", B, T)
+    st = k4_state(torch, gen, B, f, win, 2, False)
+    ms = timer(lambda: K4.serving_probe_spec_step(zq, zk, bnd, acc, *st, eta,
+                                                  lam, burn_in=2), reps=200)
+    plain_ms = timer(lambda: K4.serving_probe_spec_step_plain(
+        zq, zk, bnd, acc, *st, eta, lam, burn_in=2), reps=200)
+    if bool(st[4].any()):
+        raise AssertionError("K4 timing: a slot stopped")
+    # read the inputs and the whole state once; write W, b, ring, n_scores
+    # and stopped (stop_step is untouched without a stop) and the three
+    # (B, T) outputs; ~7 f32 operations per feature and token
+    W, b, ring, n, stopped, _ = st
+    moved = (nbytes(zq, zk, bnd, acc, *st) + nbytes(W, b, ring, n, stopped)
+             + 3 * 4 * B * T)
+    bms, by = bound_ms(moved, 7 * B * T * f)
+    return dict(B=B, T=T, f=f, window=win, lam=lam, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, bytes=moved)
+
+
 def phase_k4(torch, timer):
     from repro_torch.kernels import probe_spec as K4
     from repro_torch.kernels import probe_step as K1
@@ -716,28 +750,8 @@ def phase_k4(torch, timer):
         if DEV == "cuda":
             raise AssertionError(f"K4 accepted f = {wide}")
 
-    # timing at the served shape (4 slots, k = 4, f 960, window 4), every
-    # token accepted and at a boundary; lambda* above 1 is out of reach, so
-    # every timed call updates every slot's W, b and ring for all 4 tokens
-    B, T, f, win, eta, lam = 4, 4, 960, 4, 0.05, 1.5
-    zq = (torch.randn(B, T, f, generator=gen) / f ** 0.5).to(DEV)
-    zk = (torch.randn(B, T, f, generator=gen) / f ** 0.5).to(DEV)
-    bnd = torch.ones(B, T, dtype=torch.bool, device=DEV)
-    acc = k4_accept(torch, "T", B, T)
-    st = k4_state(torch, gen, B, f, win, 2, False)
-    ms = timer(lambda: K4.serving_probe_spec_step(zq, zk, bnd, acc, *st, eta,
-                                                  lam, burn_in=2), reps=200)
-    plain_ms = timer(lambda: K4.serving_probe_spec_step_plain(
-        zq, zk, bnd, acc, *st, eta, lam, burn_in=2), reps=200)
-    if bool(st[4].any()):
-        raise AssertionError("K4 timing: a slot stopped")
-    # read the inputs and the whole state once; write W, b, ring, n_scores
-    # and stopped (stop_step is untouched without a stop) and the three
-    # (B, T) outputs; ~7 f32 operations per feature and token
-    W, b, ring, n, stopped, _ = st
-    moved = (nbytes(zq, zk, bnd, acc, *st) + nbytes(W, b, ring, n, stopped)
-             + 3 * 4 * B * T)
-    bms, by = bound_ms(moved, 7 * B * T * f)
+    timed = [k4_timed(torch, timer, K4, gen, *shape) for shape in K4_TIMED]
+    served = timed[0]
     worst = max(max(r["max_abs_err"].values()) for r in rows)
     worst_k1 = max(max(r["chained_k1_err"].values()) for r in rows)
     res = dict(phase="k4", cases=len(rows), max_abs_err=worst, tol=K4_TOL,
@@ -745,8 +759,8 @@ def phase_k4(torch, timer):
                chained_k1_bitwise=sum(r["chained_k1_bitwise"] for r in rows),
                mid_chain_stops=sum(r["mid_chain_stop"] for r in rows),
                lambda_margin=min(r["lambda_margin"] for r in rows),
-               timed_shape=dict(B=B, T=T, f=f, window=win, lam=lam), ms=ms,
-               plain_ms=plain_ms, bound_ms=bms, bound_by=by, bytes=moved,
+               timed=timed, ms=served["ms"], plain_ms=served["plain_ms"],
+               bound_ms=served["bound_ms"], bound_by=served["bound_by"],
                library_ms=None,
                per_case=[(r["B"], r["T"], r["f"], r["accept"], r["warm"],
                           max(r["max_abs_err"].values()), r["stops"])
