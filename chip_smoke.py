@@ -62,7 +62,10 @@ non-zero:
                stops); a 16-step profiled window of the spec fleet
 15. serve-spec-f32 -- the serve fleet in f32 through ``OrcaScheduler``
                at a lambda* between its scores: the spec fleet's stops
-               and tokens equal the one-token fleet's
+               and tokens equal the one-token fleet's, with the default
+               draft cache and with one primed by the one-token tokens
+               (drafts accepted, several tokens per step, its first 16
+               K4 calls held against the plain version)
 16. offline  -- the paper's procedure on the synthetic corpus at d_phi 960
                (``corpus_splits(500, 170, 170)``): ``orca.fit`` of the TTT
                probe (no-QK, QK d_h 128) and the static probe, then
@@ -1586,11 +1589,12 @@ def phase_trace(torch, sched, steps: int = 16, prompt_len: int = 16,
 class CheckedK4:
     """K4 on the inputs the engine gives it; the first ``limit`` calls are
     each held against the plain version on copies of the same state (the
-    integer and boolean state equal, floats within K4_TOL)."""
+    integer and boolean state equal, floats within K4_TOL).  ``max_accept``
+    is the longest accepted length among the checked calls."""
 
     def __init__(self, K4, limit: int):
         self.K4, self.limit = K4, limit
-        self.calls, self.err = 0, 0.0
+        self.calls, self.err, self.max_accept = 0, 0.0, 0
 
     def __call__(self, zq, zk, bnd, acc, *state, burn_in):
         check = self.calls < self.limit
@@ -1611,6 +1615,7 @@ class CheckedK4:
                 raise AssertionError(f"K4 in the fleet, call {self.calls}: "
                                      f"err {err}")
             self.err = max(self.err, err)
+            self.max_accept = max(self.max_accept, int(acc.max()))
         self.calls += 1
         return got
 
@@ -1711,11 +1716,20 @@ def phase_spec_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
     through ``OrcaScheduler`` one token at a time with nothing stopping
     (every request's full score trajectory), then at a lambda* between
     those scores, one-token and with spec_tokens 4: every stop step, and
-    every token up to it, equal."""
+    every token up to it, equal.  With random weights the default draft
+    cache proposes nothing the verifier accepts, so a second spec fleet
+    gets a cache that has observed the free fleet's tokens: its drafts are
+    the one-token continuations, several tokens land per step (``pos``
+    advancing by gen > 1, K4 chaining accepted tokens, the collection
+    truncating at a stop), and its first 16 K4 calls are held against the
+    plain version, at least one of them with an accepted length above 1."""
     import dataclasses
+    from repro_torch.kernels import probe_spec as K4
     from repro_torch.launch import serve
     from repro_torch.models import build
-    from repro_torch.serving import OrcaScheduler, ServeConfig, make_request
+    from repro_torch.serving import (DraftCache, OrcaScheduler, ServeConfig,
+                                     make_request)
+    from repro_torch.serving import engine as E
     cfg32 = dataclasses.replace(sched.model.cfg, dtype="float32",
                                 kv_cache_dtype="float32")
     model32 = build(cfg32)
@@ -1725,11 +1739,12 @@ def phase_spec_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
     base = dict(n_slots=4, paged=True, tokens_per_step=8, max_new_tokens=96,
                 burn_in=2)
 
-    def fleet(lam, spec):
+    def fleet(lam, spec, cache=None):
         t0 = time.perf_counter()
         done, fl = OrcaScheduler(model32, params32, sched.pc, sched.theta,
                                  ServeConfig(lam=lam, spec_tokens=spec,
-                                             **base)).run(
+                                             **base),
+                                 draft_cache=cache).run(
             [make_request(t) for t in batch["tokens"]])
         sync(torch)
         return done, fl, time.perf_counter() - t0
@@ -1742,20 +1757,54 @@ def phase_spec_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
                              "score: the check would hang on a tie")
     one, one_fl, one_s = fleet(lam, None)
     spec, spec_fl, spec_s = fleet(lam, 4)
+    primed = DraftCache()
+    for r in free:
+        primed.observe(r.inputs["tokens"][0].tolist(), r.tokens)
+    checked = CheckedK4(K4, limit=16)
+    served = E.serving_probe_spec_step
+    E.serving_probe_spec_step = checked
+    try:
+        hit, hit_fl, hit_s = fleet(lam, 4, primed)
+    finally:
+        E.serving_probe_spec_step = served
     stops = [r.stop_step for r in one]
-    if [r.stop_step for r in spec] != stops:
-        raise AssertionError(f"f32 spec stops {[r.stop_step for r in spec]}"
-                             f" differ from one-token stops {stops}")
-    if [r.tokens for r in spec] != [r.tokens for r in one]:
-        raise AssertionError("f32 spec tokens differ from one-token tokens")
+    for name, done in (("spec", spec), ("primed spec", hit)):
+        if [r.stop_step for r in done] != stops:
+            raise AssertionError(f"f32 {name} stops "
+                                 f"{[r.stop_step for r in done]} differ "
+                                 f"from one-token stops {stops}")
+        if [r.tokens for r in done] != [r.tokens for r in one]:
+            raise AssertionError(f"f32 {name} tokens differ from one-token "
+                                 "tokens")
+    longest = max(g for r in hit for g in r.accepted_lens)
+    if hit_fl.spec_tokens_accepted < 1 or longest < 2:
+        raise AssertionError(f"the primed cache's drafts were not accepted: "
+                             f"{hit_fl.spec_tokens_accepted} accepted, "
+                             f"longest block {longest}")
+    if checked.max_accept < 2:
+        raise AssertionError("no checked K4 call chained more than one "
+                             "accepted token")
+
+    def spec_res(fl, wall_s):
+        return dict(engine_steps=fl.engine_steps, wall_s=wall_s,
+                    tokens_per_s=fl.tokens_per_s,
+                    drafts_accepted=fl.spec_tokens_accepted,
+                    drafts_proposed=fl.spec_tokens_proposed,
+                    accepted_len_p50=fl.accepted_len_p50,
+                    draft_cache_hits=fl.draft_cache_hits,
+                    draft_cache_misses=fl.draft_cache_misses)
+
     res = dict(phase="serve-spec-f32", lam=lam, lambda_margin=margin,
                stop_steps=stops, stopped=sum(s >= 0 for s in stops),
                one_token=dict(engine_steps=one_fl.engine_steps, wall_s=one_s,
                               tokens_per_s=one_fl.tokens_per_s),
-               spec=dict(engine_steps=spec_fl.engine_steps, wall_s=spec_s,
-                         tokens_per_s=spec_fl.tokens_per_s,
-                         drafts_accepted=spec_fl.spec_tokens_accepted,
-                         drafts_proposed=spec_fl.spec_tokens_proposed))
+               spec=spec_res(spec_fl, spec_s),
+               spec_primed=dict(spec_res(hit_fl, hit_s),
+                                longest_block=longest,
+                                k4_checked_calls=min(checked.calls,
+                                                     checked.limit),
+                                k4_checked_max_accept=checked.max_accept,
+                                k4_checked_err=checked.err))
     emit(res)
     return res
 
@@ -1964,7 +2013,7 @@ def main() -> int:
     phase_serve_spec(torch, out_c, ("--chunk-tokens", str(CHUNK),
                                     "--prompt-len", "160"),
                      phase="serve-spec-chunked")
-    phase_spec_stops(torch, out_s.scheduler)
+    spec_f32 = phase_spec_stops(torch, out_s.scheduler)
     offline = phase_offline(torch, splits)
     _, out_st = phase_serve(
         torch, ("--static-baseline",), phase="serve-static", requests=4,
@@ -2027,7 +2076,8 @@ def main() -> int:
              source="src/repro_torch/csrc/probe_spec.cu",
              replaces="src/repro/kernels/ttt_probe.py:304",
              launches=spec["launches"]["serving_probe_spec_step"],
-             max_abs_err=max(k4["max_abs_err"], spec["k4_checked_err"]),
+             max_abs_err=max(k4["max_abs_err"], spec["k4_checked_err"],
+                             spec_f32["spec_primed"]["k4_checked_err"]),
              ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by=k4["bound_by"], library_ms=None),
     ]})

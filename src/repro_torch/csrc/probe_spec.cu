@@ -8,8 +8,8 @@
 //
 // Token t of slot i participates iff t < accept[i], its boundary flag is
 // set and the slot is not stopped -- counting a stop that fired earlier in
-// this chain.  A participating token runs exactly K1's per-token math
-// (csrc/probe_step.cu): score-then-update, ring shift, mean over
+// this chain.  A participating token runs K1's per-token math
+// (csrc/probe_math.cuh): score-then-update, ring shift, mean over
 // min(n, win), the threshold test after burn-in, the stop step; the W and b
 // update is skipped on the token where the stop fires (Algorithm 2 order).
 // Every token writes s (the score with the current W), the smoothed score
@@ -25,34 +25,19 @@
 //   * one block per slot (slots never communicate); W_i lives in shared
 //     memory for the whole chain (f floats, at most 28 KB at f = 7168),
 //     loaded once and stored once;
-//   * thread j owns features j, j + 256, ... -- the stride of K1 -- so it
-//     reads and updates W there and never waits on another thread's W;
-//   * per token: both dot products in one block reduction (warp shuffles,
-//     then shared memory across warps, summed in K1's order), one thread
-//     runs the scalar logic on the slot's ring and counters in device
-//     memory, one barrier, then the W update.
-// With the same reduction tree as K1, a chain of T tokens gives the state
-// of accept[i] sequential K1 launches.  eta and lambda* arrive as scalar
-// arguments: no host read.
+//   * per token, the step of probe_math.cuh -- the very function K1 runs --
+//     on the shared W_i, with the token's boundary flag gated by t < accept.
+// Since both kernels run one function per token, a chain of accept[i]
+// tokens gives the state of accept[i] sequential K1 launches bit for bit.
+// eta and lambda* arrive as scalar arguments: no host read.
 
 #include <cuda_runtime.h>
 
+#include "probe_math.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(probe::kThreads)
 probe_spec_kernel(const float* __restrict__ zq, const float* __restrict__ zk,
                   const bool* __restrict__ boundary,
                   const int* __restrict__ accept, float* __restrict__ W,
@@ -62,87 +47,23 @@ probe_spec_kernel(const float* __restrict__ zq, const float* __restrict__ zk,
                   float* __restrict__ sm_out, int* __restrict__ n_out,
                   float eta, float lam, int burn_in, int T, int f, int win) {
   extern __shared__ float w[];                     // (f,) fast weights
-  __shared__ float red_q[kWarps], red_k[kWarps];
-  __shared__ float s_upd, s_coeff;
-  __shared__ int s_apply;
+  __shared__ probe::Scratch sh;
   const int i = blockIdx.x;
   float* W_i = W + static_cast<size_t>(i) * f;
-  for (int j = threadIdx.x; j < f; j += kThreads) w[j] = W_i[j];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // thread j loads, updates and stores only its own features: no barrier
+  for (int j = threadIdx.x; j < f; j += probe::kThreads) w[j] = W_i[j];
   const int acc = accept[i];
-
+  float* ring_i = ring + static_cast<size_t>(i) * win;
   for (int t = 0; t < T; ++t) {
-    const size_t row = (static_cast<size_t>(i) * T + t) * f;
-    const float* zq_t = zq + row;
-    const float* zk_t = zk + row;
-    float aq = 0.f, ak = 0.f;
-    for (int j = threadIdx.x; j < f; j += kThreads) {
-      const float wj = w[j];
-      aq = fmaf(zq_t[j], wj, aq);
-      ak = fmaf(zk_t[j], wj, ak);
-    }
-    aq = warp_sum(aq);
-    ak = warp_sum(ak);
-    if (lane == 0) {
-      red_q[warp] = aq;
-      red_k[warp] = ak;
-    }
-    __syncthreads();
-
-    if (threadIdx.x == 0) {
-      float dq = 0.f, dk = 0.f;
-      for (int v = 0; v < kWarps; ++v) {
-        dq += red_q[v];
-        dk += red_k[v];
-      }
-      const bool was_stopped = stopped[i];
-      // the accepted-length mask composes with the frozen-stop mask: a
-      // rejected draft or a slot stopped earlier in this chain contributes
-      // no boundary, no update, no score
-      const bool bnd = boundary[static_cast<size_t>(i) * T + t] && t < acc &&
-                       !was_stopped;
-      const float bi = b[i];
-      const float s = sigmoidf(dq + bi);
-      const float sk = sigmoidf(dk + bi);
-      const float coeff = 2.0f * (sk - 0.0f) * sk * (1.0f - sk);
-      const float upd = eta * (bnd ? 1.0f : 0.0f);
-
-      float* ring_i = ring + static_cast<size_t>(i) * win;
-      if (bnd) {
-        for (int r = 0; r + 1 < win; ++r) ring_i[r] = ring_i[r + 1];
-        ring_i[win - 1] = s;
-      }
-      const int n = n_scores[i] + (bnd ? 1 : 0);
-      float total = 0.f;
-      for (int r = 0; r < win; ++r) total += ring_i[r];
-      const float denom = static_cast<float>(n < win ? n : win);
-      const float smoothed = n > 0 ? total / fmaxf(denom, 1.0f) : 0.0f;
-      // threshold test (Algorithm 2 line 11), after the burn-in
-      const bool stop_now = bnd && (smoothed >= lam) && (n > burn_in);
-
-      const size_t o = static_cast<size_t>(i) * T + t;
-      s_out[o] = s;
-      sm_out[o] = smoothed;
-      n_out[o] = n;
-      n_scores[i] = n;
-      stopped[i] = was_stopped || stop_now;
-      if (stop_now && stop_step[i] < 0) stop_step[i] = n;
-      // the stopping token leaves the fast weights untouched
-      const bool apply = bnd && !stop_now;
-      if (apply) b[i] = bi - upd * coeff;
-      s_upd = upd;
-      s_coeff = coeff;
-      s_apply = apply ? 1 : 0;
-    }
-    __syncthreads();
-
-    if (s_apply) {
-      const float upd = s_upd, coeff = s_coeff;
-      for (int j = threadIdx.x; j < f; j += kThreads)
-        w[j] = w[j] - upd * (coeff * zk_t[j]);
-    }
+    const size_t o = static_cast<size_t>(i) * T + t;
+    // the accepted-length mask composes with the frozen-stop mask that the
+    // step applies: a rejected draft or a slot stopped earlier in this
+    // chain contributes no boundary, no update, no score
+    probe::step(zq + o * f, zk + o * f, w, f, boundary[o] && t < acc, i, b,
+                ring_i, n_scores, stopped, stop_step, s_out + o, sm_out + o,
+                n_out + o, eta, lam, burn_in, win, sh);
   }
-  for (int j = threadIdx.x; j < f; j += kThreads) W_i[j] = w[j];
+  for (int j = threadIdx.x; j < f; j += probe::kThreads) W_i[j] = w[j];
 }
 
 }  // namespace
@@ -156,7 +77,7 @@ extern "C" int probe_spec_launch(const void* zq, const void* zk,
                                  int win, void* stream) {
   if (B > 0) {
     const size_t smem = static_cast<size_t>(f) * sizeof(float);
-    probe_spec_kernel<<<B, kThreads, smem,
+    probe_spec_kernel<<<B, probe::kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(zq), static_cast<const float*>(zk),
         static_cast<const bool*>(boundary), static_cast<const int*>(accept),

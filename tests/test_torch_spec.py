@@ -295,16 +295,20 @@ def test_draft_cache_matches_jax():
 @pytest.mark.parametrize("paged", [False, True])
 def test_spec_engine_step_matches_jax(models, paged):
     """Two slots admitted in both engines, then four spec steps of k = 4
-    with per-slot lengths (a parked length, a short block, host drafts on
-    one slot): gen, seq, seq_scores, seq_n, pos, the next token and the
-    stop state equal JAX's after every step."""
+    with per-slot lengths (a parked length, a short block, host drafts):
+    gen, seq, seq_scores, seq_n, pos, the next token and the stop state
+    equal JAX's after every step.  Step 2 drafts slot 0 with the last
+    step's own tokens; step 3 drafts both slots with their one-token
+    continuations, which the verifier accepts whole (gen 3, two probe
+    boundaries in one chain)."""
     (jmodel, jparams, jpc, jtheta), (model, params, pc, theta) = models
     kw = dict(tokens_per_step=2, max_new_tokens=16, lam=0.99, burn_in=1)
-    ekw = dict(n_slots=3, cache_len=32, paged=paged, block_size=BS,
-               spec_tokens=4)
+    ekw = dict(n_slots=3, cache_len=32, paged=paged, block_size=BS)
     jeng = JEngine(jmodel, jparams, jpc, jtheta, JServeConfig(**kw),
-                   probe_impl="ref", **ekw)
+                   probe_impl="ref", spec_tokens=4, **ekw)
     eng = ContinuousServingEngine(model, params, pc, theta,
+                                  ServeConfig(**kw), spec_tokens=4, **ekw)
+    one = ContinuousServingEngine(model, params, pc, theta,
                                   ServeConfig(**kw), **ekw)
     prompts = _prompts(model.cfg.vocab_size)[:2]
     for slot, p in enumerate(prompts):
@@ -312,14 +316,22 @@ def test_spec_engine_step_matches_jax(models, paged):
             else None
         jeng.admit(slot, {"tokens": jnp.asarray(p[None])}, len(p),
                    **({"block_row": row} if paged else {}))
-        eng.admit(slot, {"tokens": p[None]}, len(p),
-                  **({"block_row": row} if paged else {}))
+        for e in (eng, one):
+            e.admit(slot, {"tokens": p[None]}, len(p),
+                    **({"block_row": row} if paged else {}))
+    # the one-token engine's tokens: what the spec steps commit, in order
+    cont = np.stack([one.step().tokens[:2] for _ in range(14)], axis=1)
+    done = np.zeros((2,), int)
     drafts = np.zeros((3, 3), np.int32)
     have = np.zeros((3,), bool)
     for step, lens in enumerate(([4, 4, 0], [2, 4, 0], [4, 1, 0],
                                  [3, 3, 0])):
         if step == 2:              # host drafts: the last step's own tokens
             drafts[0], have[0] = jview.seq[0, :3], True
+        if step == 3:              # host drafts: the one-token continuation
+            for slot in range(2):
+                drafts[slot] = cont[slot, done[slot]:done[slot] + 3]
+            have[:2] = True
         lens = np.array(lens, np.int32)
         jview = jeng.step(spec_lens=lens, spec_drafts=drafts, spec_have=have)
         view = eng.step(spec_lens=lens, spec_drafts=drafts, spec_have=have)
@@ -335,6 +347,12 @@ def test_spec_engine_step_matches_jax(models, paged):
                                        err_msg=f"step {step} {fld}")
         np.testing.assert_array_equal(eng.pos, jeng.pos)
         assert view.gen[2] == 0 and (view.gen[:2] >= 1).all()
+        for slot in range(2):
+            g = int(view.gen[slot])
+            np.testing.assert_array_equal(
+                view.seq[slot, :g], cont[slot, done[slot]:done[slot] + g])
+            done[slot] += g
+    np.testing.assert_array_equal(view.gen[:2], [3, 3])
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +405,9 @@ def test_spec_fleet_matches_jax_and_the_one_token_fleet(models, spec, paged,
         assert getattr(fleet, fld) == getattr(jfleet, fld), fld
     assert fleet.spec_tokens_proposed > 0
     assert (fleet.draft_cache_hits > 0) == bool(cache)
+    if cache:
+        assert fleet.spec_tokens_accepted > 0
+        assert max(g for r in done for g in r.accepted_lens) >= 2
     assert len({r.stop_step for r in done}) > 1
     if paged:
         assert sched.pool.blocks_in_use == 0
