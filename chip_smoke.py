@@ -33,53 +33,79 @@ non-zero:
                synthetic corpus's step embeddings and masks); timed at N
                170, T 120 for each f; a width above 7168 and a tensor that
                requires grad refused
-7. model    -- full-width smollm-360m (bf16, random weights from a seed,
+7. k6       -- dense flash decode against its plain version, partials and
+               normalised output: B 1, 4, 24; S 16, 112, 113, 4096; bf16
+               and f32 caches; full, ragged, window-band and empty rows;
+               timed at (4, 112), (24, 112) and (8, 4096) beside
+               scaled_dot_product_attention over the same cache and mask
+8. k7       -- flash prefill attention against its plain version: (B, S)
+               (1, 16), (24, 16), (1, 160), (24, 160), (4, 2048); window
+               64; Sq < Sk; a window past the keys; bf16 and f32; timed
+               (all but the window cases) beside SDPA with is_causal
+9. model    -- full-width smollm-360m (bf16, random weights from a seed,
                then the same weights in f32): prefill 16 tokens, 64
                teacher-forced paged decode steps through K2 (every call
                held against the plain version on its inputs) and through
-               the plain paged attention
-8. model-chunked -- the same model: a 160-token prompt through
+               the plain paged attention; then the dense path, the prompt
+               through K7 and 64 dense decode steps through K6, every call
+               checked, against the plain versions (f32: every argmax
+               equal)
+10. model-chunked -- the same model: a 160-token prompt through
                ``Model.prefill_chunk`` on a paged state in 64-token chunks
                (B3), then one ``prefill_packed`` chunk of two requests
                (B4), every K3 call held against its plain version; pages
                and next-step logits against one-shot prefill, bf16 and f32
-9. model-spec -- the same model: ``verify_packed_chunk`` on 4 slots x k 4
+11. model-spec -- the same model: ``verify_packed_chunk`` on 4 slots x k 4
                against 4 sequential paged ``decode_step``s, bf16 and f32
                (f32: every argmax equal)
-10. serve   -- ``repro_torch.launch.serve`` end to end on the card:
-               harvest, meta-train, calibrate, serve 8 requests on 4 slots
-11. trace   -- a profiler window over 16 engine steps of the same fleet:
+12. serve   -- ``repro_torch.launch.serve`` end to end on the card:
+               harvest, meta-train, calibrate, serve 8 requests on 4 slots;
+               K1, K2, and K6 and K7 (the harvest and every admission)
+13. trace   -- a profiler window over 16 engine steps of the same fleet:
                the card's busy share and the kernels that take it
-12. serve-chunked -- the driver with ``--chunk-tokens 64`` on 160-token
+14. harvest -- the driver's harvest (24 trajectories, 96 dense decode
+               steps) timed through K6 and K7 and through their plain
+               versions in turns; K7 once a layer, K6 once a layer a step
+15. serve-dense, trace-dense, trace-dense-plain -- the driver without
+               ``--paged``: K1 and K6 every step (K6 32 times), K7 at the
+               harvest and each admission, K2 never; the fleet line beside
+               serve's and its bf16 tokens against serve's (not asserted);
+               profiled windows through the kernels and through the plain
+               versions
+16. serve-dense-f32 -- the serve fleet in f32 through ``OrcaScheduler``,
+               dense and paged, at a lambda* between its scores: stops and
+               tokens equal
+17. serve-chunked -- the driver with ``--chunk-tokens 64`` on 160-token
                prompts: the third chunk of each prompt packs with the head
-               of the next; K1, K2 and K3 launch
-13. trace-chunked -- a 24-step window over the chunked fleet, launches and
+               of the next; K1, K2, K3, K6 and K7 launch
+18. trace-chunked -- a 24-step window over the chunked fleet, launches and
                busy share split into steps with a chunk and without one
-14. serve-spec, trace-spec, serve-spec-chunked -- the fleets of 10 and 12
+19. serve-spec, trace-spec, serve-spec-chunked -- the fleets of 12 and 17
                again with ``--spec-tokens 4``: K4 launches once per engine
                step, its first 16 calls held against the plain version;
                requests compared with the one-token fleets (tokens and
                stops); a 16-step profiled window of the spec fleet
-15. serve-spec-f32 -- the serve fleet in f32 through ``OrcaScheduler``
+20. serve-spec-f32 -- the serve fleet in f32 through ``OrcaScheduler``
                at a lambda* between its scores: the spec fleet's stops
                and tokens equal the one-token fleet's, with the default
                draft cache and with one primed by the one-token tokens
                (drafts accepted, several tokens per step, its first 16
                K4 calls held against the plain version)
-16. offline  -- the paper's procedure on the synthetic corpus at d_phi 960
+21. offline  -- the paper's procedure on the synthetic corpus at d_phi 960
                (``corpus_splits(500, 170, 170)``): ``orca.fit`` of the TTT
                probe (no-QK, QK d_h 128) and the static probe, then
                ``orca.evaluate`` at every delta; K5 launches in fit and in
                evaluate, and its plain version's scores give the same
                lambda*, savings and error
-17. serve-static -- the driver with ``--static-baseline`` on 4 requests:
-               the static-batch engine's stops equal the fleet's; then the
-               static probe (``api.fit(method="static")``) served through
+22. serve-static -- the driver with ``--static-baseline`` on 4 requests:
+               the static-batch engine's stops equal the fleet's (its
+               prefill runs K7, its dense decode K6); then the static probe
+               (``api.fit(method="static")``) served through
                ``api.engine``: K1 runs and leaves every W at W0 (eta = 0)
-18. kernels  -- one entry per kernel: launches on its path (phase 10 for
-               K1 and K2, 8 for K3-B3, 12 for K3-B4, 14 for K4, 16 for
-               K5), error against its plain version, kernel / plain /
-               library / bound ms
+23. kernels  -- one entry per kernel: launches on its path (phase 12 for
+               K1, K2 and K7, 10 for K3-B3, 17 for K3-B4, 19 for K4, 21
+               for K5, 15 for K6), error against its plain version,
+               kernel / plain / library / bound ms
 
 The line before the last is ``nvidia-smi``'s card name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -910,6 +936,194 @@ def phase_k5(torch, timer, test):
 
 
 # ---------------------------------------------------------------------------
+# phase k6: dense flash decode (B7)
+
+# bf16 / f32 caches upcast exactly; f32 sums in another order (per-warp
+# online softmax, then a cross-warp merge) than the plain one-shot
+# softmax, and p rounded to the cache dtype against a running instead of
+# the row's maximum: K2's tolerances, m to 1e-4, normalised output to 2e-3
+# of max(1, max|v|), the scale of an attention output (a random-weight
+# model's values are not unit-sized)
+K6_M_TOL, K6_OUT_TOL = 1e-4, 2e-3
+
+
+def v_scale(v) -> float:
+    return max(1.0, float(v.float().abs().max()))
+# (B, S, cache dtype, timed): the served dense shape (4 slots, 16 + 96
+# positions), the harvest's (24 trajectories), a long cache, then S 16 and
+# 113 (no multiple of the warps' 64-position stride) and f32 caches
+K6_CASES = [(4, 112, "bf16", True), (24, 112, "bf16", True),
+            (8, 4096, "bf16", True), (1, 16, "bf16", False),
+            (1, 113, "f32", False), (4, 113, "bf16", False),
+            (24, 16, "f32", False), (4, 112, "f32", False),
+            (24, 4096, "bf16", False)]
+
+
+def dense_case(torch, gen, B, S, dtype, H=15, KV=5, d=64):
+    """A dense cache with row 0 fully valid, ragged tails, and for B > 2 a
+    sliding-window band (row 1) and a row with no valid position (row
+    2)."""
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q = torch.randn(B, H, d, generator=gen).to(dt).to(DEV)
+    k = torch.randn(B, KV, S, d, generator=gen).to(dt).to(DEV)
+    v = torch.randn(B, KV, S, d, generator=gen).to(dt).to(DEV)
+    lens = torch.randint(1, S + 1, (B,), generator=gen)
+    lens[0] = S
+    pos = torch.arange(S)[None, :]
+    valid = pos < lens[:, None]
+    if B > 2:
+        valid[1] = (pos[0] >= S // 4) & (pos[0] < S // 4 + max(S // 3, 1))
+        valid[2] = False
+    return q, k, v, valid.to(DEV)
+
+
+def phase_k6(torch, timer):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as K6
+    gen = torch.Generator().manual_seed(SEED + 6)
+    rows = []
+    for B, S, dtype, timed in K6_CASES:
+        q, k, v, valid = dense_case(torch, gen, B, S, dtype)
+        o, l, m = K6.flash_decode(q, k, v, valid, return_partials=True)
+        want = K6.flash_decode_plain(q, k, v, valid, return_partials=True)
+        m_err, o_err = partial_errors((o, l, m), want, valid)
+        empty = ~valid.any(1)
+        if not (m_err <= K6_M_TOL and o_err <= K6_OUT_TOL * v_scale(v)):
+            raise AssertionError(f"K6 {B}x{S} {dtype}: m err {m_err}, "
+                                 f"output err {o_err}")
+        if empty.any() and not (float(o[empty].abs().max()) == 0.0
+                                and float(l[empty].abs().max()) == 0.0
+                                and bool((m[empty] == -1e30).all())):
+            raise AssertionError(f"K6 {B}x{S} {dtype}: an empty row is not "
+                                 "(o, l, m) = (0, 0, -1e30)")
+        # the normalised output as well (B7's function), in q's dtype
+        out = K6.flash_decode(q, k, v, valid)
+        pout = K6.flash_decode_plain(q, k, v, valid)
+        live = valid.any(1)
+        n_err = float((out.float() - pout.float())[live].abs().max())
+        if n_err > (K6_OUT_TOL * v_scale(v)
+                    + (2.0 ** -7 if dtype == "bf16" else 0.0)):
+            raise AssertionError(f"K6 {B}x{S} {dtype}: normalised output "
+                                 f"err {n_err}")
+        H, KV, d = q.shape[1], k.shape[1], q.shape[2]
+        row = dict(B=B, S=S, cache=dtype, H=H, KV=KV, d=d,
+                   valid_positions=int(valid.sum()),
+                   empty_rows=int(empty.sum()), m_err=m_err, out_err=o_err,
+                   normalised_err=n_err)
+        if timed:
+            row["ms"] = timer(lambda: K6.flash_decode(
+                q, k, v, valid, return_partials=True))
+            row["plain_ms"] = timer(lambda: K6.flash_decode_plain(
+                q, k, v, valid, return_partials=True))
+            # yardstick: SDPA over the same cache and mask, KV heads
+            # repeated to the query heads (outside the timing)
+            kr = k.repeat_interleave(H // KV, dim=1)
+            vr = v.repeat_interleave(H // KV, dim=1)
+            mask = valid[:, None, None, :]
+            row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], kr, vr, attn_mask=mask))
+            # bytes this data needs: K and V of the valid positions, q,
+            # valid, and the (o, l, m) written
+            n_valid = row["valid_positions"]
+            moved = (n_valid * KV * d * k.element_size() * 2
+                     + nbytes(q, valid, o, l, m))
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                moved, n_valid * H * (4 * d + 4))
+            row["bytes"] = moved
+        emit(dict(phase="k6", **row))
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase k7: flash prefill attention (B8)
+
+# f32: another summation order than the einsum (online softmax over 64-key
+# tiles), 2e-5 of max(1, max|v|); bf16 inputs: the same f32 values, then
+# the bf16 cast of the output, which may land one bf16 ulp (2^-7 of the
+# value) apart
+K7_F32_TOL = 2e-5
+K7_BF16_RTOL = 2.0 ** -7
+# (B, Sq, Sk, window, dtype, timed): the harvest's and an admission's
+# prefill (16 tokens), the chunked fleets' 160-token prompts, a long
+# prompt; f32 (phase model's float32 model); a window of 64, Sq < Sk, and
+# a window past the keys (rows 23 on see no key)
+K7_CASES = [(1, 16, 16, None, "bf16", True), (24, 16, 16, None, "bf16", True),
+            (1, 160, 160, None, "bf16", True),
+            (24, 160, 160, None, "bf16", True),
+            (4, 2048, 2048, None, "bf16", True),
+            (24, 16, 16, None, "f32", True),
+            (24, 160, 160, None, "f32", True),
+            (24, 160, 160, 64, "bf16", False),
+            (4, 2048, 2048, 64, "f32", False),
+            (4, 64, 160, None, "bf16", False),
+            (1, 48, 16, 8, "f32", False)]
+
+
+def visible_pairs(sq, sk, window):
+    """(query, key) pairs the causal / window mask leaves, per head."""
+    n = 0
+    for i in range(sq):
+        hi = min(i, sk - 1)
+        lo = max(0, i - window + 1) if window else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def k7_error(out, want, v):
+    """Largest |kernel - plain|, and whether it is within K7's tolerance
+    (f32: K7_F32_TOL of the value scale; bf16: that plus one ulp of the
+    plain value)."""
+    diff = (out.float() - want.float()).abs()
+    lim = K7_F32_TOL * v_scale(v)
+    if out.dtype.itemsize == 2:                     # bf16
+        lim = K7_BF16_RTOL * want.float().abs() + lim
+    return float(diff.max()), bool((diff <= lim).all())
+
+
+def phase_k7(torch, timer):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as K7
+    gen = torch.Generator().manual_seed(SEED + 7)
+    H, KV, d = 15, 5, 64
+    rows = []
+    for B, sq, sk, window, dtype, timed in K7_CASES:
+        dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+        q = torch.randn(B, sq, H, d, generator=gen).to(dt).to(DEV)
+        k = torch.randn(B, sk, KV, d, generator=gen).to(dt).to(DEV)
+        v = torch.randn(B, sk, KV, d, generator=gen).to(dt).to(DEV)
+        out = K7.flash_attention(q, k, v, causal=True, window=window)
+        want = K7.flash_attention_plain(q, k, v, causal=True, window=window)
+        err, ok = k7_error(out, want, v)
+        if not ok or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"K7 {B}x{sq}x{sk} window {window} "
+                                 f"{dtype}: err {err}")
+        row = dict(B=B, Sq=sq, Sk=sk, window=window, dtype=dtype, H=H,
+                   KV=KV, d=d, max_abs_err=err)
+        if timed:
+            row["ms"] = timer(lambda: K7.flash_attention(
+                q, k, v, causal=True, window=window))
+            row["plain_ms"] = timer(lambda: K7.flash_attention_plain(
+                q, k, v, causal=True, window=window))
+            # yardstick: SDPA with is_causal on (B, H, S, d), KV heads
+            # repeated (outside the timing)
+            qt = q.transpose(1, 2).contiguous()
+            kt = k.transpose(1, 2).repeat_interleave(H // KV, 1).contiguous()
+            vt = v.transpose(1, 2).repeat_interleave(H // KV, 1).contiguous()
+            row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+            pairs = visible_pairs(sq, sk, window)
+            moved = nbytes(q, k, v, out)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                moved, B * H * pairs * (4 * d + 4))
+            row["bytes"] = moved
+            row["visible_pairs_per_head"] = pairs
+        emit(dict(phase="k7", **row))
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase model: full-width model, teacher-forced
 
 def _pages_reversed(K2):
@@ -996,11 +1210,119 @@ def teacher_forced(torch, model, params, prompt, feed, impls, bs=16):
     return diffs, scale
 
 
+class CheckedK6:
+    """K6 on the inputs the model gives it, each call held against the
+    plain version on the same inputs with phase k6's tolerances (m relative
+    to max(1, |m|), the model's scores reach tens)."""
+
+    def __init__(self, K6):
+        self.K6 = K6
+        self.calls, self.m_err, self.out_err = 0, 0.0, 0.0
+
+    def __call__(self, q, k, v, valid, *, return_partials=False):
+        assert return_partials, "the model folds in the current token"
+        got = self.K6.flash_decode(q, k, v, valid, return_partials=True)
+        want = self.K6.flash_decode_plain(q, k, v, valid,
+                                          return_partials=True)
+        m_err, o_err = partial_errors(got, want, valid, m_relative=True)
+        if not (m_err <= K6_M_TOL and o_err <= K6_OUT_TOL * v_scale(v)):
+            raise AssertionError(f"K6 in the model, call {self.calls}: "
+                                 f"relative m err {m_err}, output err "
+                                 f"{o_err}")
+        self.calls += 1
+        self.m_err = max(self.m_err, m_err)
+        self.out_err = max(self.out_err, o_err)
+        return got
+
+
+class CheckedK7:
+    """K7 on the inputs the model gives it, each call held against the
+    plain version on the same inputs with phase k7's tolerances."""
+
+    def __init__(self, K7):
+        self.K7 = K7
+        self.calls, self.err = 0, 0.0
+
+    def __call__(self, q, k, v, *, causal=True, window=None):
+        got = self.K7.flash_attention(q, k, v, causal=causal, window=window)
+        want = self.K7.flash_attention_plain(q, k, v, causal=causal,
+                                             window=window)
+        err, ok = k7_error(got, want, v)
+        if not ok:
+            raise AssertionError(f"K7 in the model, call {self.calls}: err "
+                                 f"{err}")
+        self.calls += 1
+        self.err = max(self.err, err)
+        return got
+
+
+def dense_teacher_forced(torch, model, params, prompt, feed, impls):
+    """Prefill the prompt into a dense cache and decode the same fed
+    tokens, once per (decode, prefill) attention pair in ``impls`` (the
+    model's ``flash_decode`` and ``flash_attention`` swapped for it).
+    Returns each pair's logits per step."""
+    from repro_torch.models import attention as A
+    cfg = model.cfg
+    B, S = prompt.shape
+    served = A.flash_decode, A.flash_attention
+    runs = []
+    try:
+        for dec, pre in impls:
+            A.flash_decode, A.flash_attention = dec, pre
+            cache, _, _ = model.prefill(cfg, params, {"tokens": prompt},
+                                        S + feed.shape[0])
+            logits = []
+            for t in range(feed.shape[0]):
+                pos = torch.full((B,), S + t, dtype=torch.int32, device=DEV)
+                lg, _, _ = model.decode_step(cfg, params, feed[t], cache, pos)
+                lg = lg[:, :cfg.vocab_size].float()
+                if not torch.isfinite(lg).all():
+                    raise AssertionError(f"dense: non-finite logits at step "
+                                         f"{t}")
+                logits.append(lg)
+            runs.append(logits)
+    finally:
+        A.flash_decode, A.flash_attention = served
+    return runs
+
+
+def dense_path(torch, model, params, prompt, feed, exact_argmax):
+    """The dense path of one model: K7's prefill and K6's decode steps,
+    every call checked, against the plain versions.  With
+    ``exact_argmax`` (f32) every step's argmax must equal the plain
+    path's and the logits sit within 2^-10 of the largest."""
+    from repro_torch.kernels import flash_attention as K7
+    from repro_torch.kernels import flash_decode as K6
+    k6, k7 = CheckedK6(K6), CheckedK7(K7)
+    kern, plain = dense_teacher_forced(
+        torch, model, params, prompt, feed,
+        [(k6, k7), (K6.flash_decode_plain, K7.flash_attention_plain)])
+    diffs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
+    agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
+             for a, b in zip(kern, plain)]
+    scale = max(float(b.abs().max()) for b in plain)
+    res = dict(k6_calls=k6.calls, k6_m_rel_err=k6.m_err,
+               k6_out_err=k6.out_err, k7_calls=k7.calls, k7_err=k7.err,
+               max_logit_diff_per_step=diffs, argmax_agree_per_step=agree,
+               max_abs_logit=scale)
+    if exact_argmax:
+        res["bound"] = scale * 2.0 ** -10
+        if min(agree) < 1.0:
+            raise AssertionError(f"dense f32: argmax differs from the plain "
+                                 f"path at step {agree.index(min(agree))}")
+        if max(diffs) > res["bound"]:
+            raise AssertionError(f"dense f32: logits {max(diffs)} from the "
+                                 f"plain path > {res['bound']}")
+    return res
+
+
 def phase_model(torch, reduced: bool = False):
     """Full-width smollm-360m, teacher-forced: K2 against the plain paged
     attention, in bf16 (as served) and with the same weights in float32.
     Every K2 call is also held against the plain version on its own
-    inputs (``CheckedK2``)."""
+    inputs (``CheckedK2``).  Then the dense path: the prompt through K7,
+    the fed tokens through K6 on a dense cache, every call checked, against
+    the plain versions (``dense_path``)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels import paged_decode as K2
@@ -1052,6 +1374,8 @@ def phase_model(torch, reduced: bool = False):
     if max(k2_32) > bound32:
         raise AssertionError(f"f32: K2 vs plain paged logits {max(k2_32)} "
                              f"> {bound32}")
+    dense = dense_path(torch, model, params, prompt, feed, False)
+    dense32 = dense_path(torch, build(cfg32), params32, prompt, feed, True)
     res = dict(phase="model", arch=cfg.name, layers=cfg.n_layers,
                d_model=cfg.d_model, heads=cfg.n_heads,
                kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, d_ff=cfg.d_ff,
@@ -1067,7 +1391,8 @@ def phase_model(torch, reduced: bool = False):
                         k2_m_rel_err=checked32.m_err,
                         k2_out_err=checked32.out_err,
                         max_logit_diff_per_step=k2_32,
-                        max_abs_logit=scale32, bound=bound32))
+                        max_abs_logit=scale32, bound=bound32),
+               dense=dict(bf16=dense, f32=dense32))
     emit(res)
     return res
 
@@ -1387,6 +1712,8 @@ def phase_model_spec(torch, reduced: bool = False):
 
 def kernel_counters():
     """Every kernel wrapper of the port, by name: each counts its launches."""
+    from repro_torch.kernels import flash_attention as K7
+    from repro_torch.kernels import flash_decode as K6
     from repro_torch.kernels import paged_chunk as K3
     from repro_torch.kernels import paged_decode as K2
     from repro_torch.kernels import probe_step as K1
@@ -1397,7 +1724,9 @@ def kernel_counters():
             "paged_flash_decode": K2.paged_flash_decode,
             "paged_flash_prefill_chunk": K3.paged_flash_prefill_chunk,
             "paged_flash_packed_chunk": K3.paged_flash_packed_chunk,
-            "ttt_probe_batched": K5.ttt_probe_batched}
+            "ttt_probe_batched": K5.ttt_probe_batched,
+            "flash_decode": K6.flash_decode,
+            "flash_attention": K7.flash_attention}
 
 
 def zero_launches() -> None:
@@ -1409,14 +1738,15 @@ def read_launches():
     return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
-def serve_fleet(torch, extra_argv=(), *, phase, requests, need):
-    """The serving driver end to end; every kernel in ``need`` must have
-    launched during it (counts zeroed just before, read just after).
-    Returns the phase's record and the driver's ``ServeResult``."""
+def serve_fleet(torch, extra_argv=(), *, phase, requests, need, paged=True):
+    """The serving driver end to end, on a paged fleet or (``paged=False``)
+    a dense one; every kernel in ``need`` must have launched during it
+    (counts zeroed just before, read just after).  Returns the phase's
+    record and the driver's ``ServeResult``."""
     from repro_torch.launch import serve
-    argv = ["--arch", "smollm-360m", "--paged", "--requests", str(requests),
-            "--slots", "4", "--max-new-tokens", "96", "--seed", str(SEED),
-            *extra_argv]
+    argv = ["--arch", "smollm-360m", *(["--paged"] if paged else []),
+            "--requests", str(requests), "--slots", "4", "--max-new-tokens",
+            "96", "--seed", str(SEED), *extra_argv]
     zero_launches()
     t0 = time.perf_counter()
     out = serve.serve(argv)
@@ -1428,9 +1758,12 @@ def serve_fleet(torch, extra_argv=(), *, phase, requests, need):
                                                       "finished"}:
         raise AssertionError(f"requests did not all end: {states}")
     pool = out.scheduler.pool
-    pool.check()
-    if pool.blocks_in_use:
-        raise AssertionError(f"{pool.blocks_in_use} pages still in use")
+    if paged:
+        pool.check()
+        if pool.blocks_in_use:
+            raise AssertionError(f"{pool.blocks_in_use} pages still in use")
+    elif pool is not None:
+        raise AssertionError("a dense fleet holds a page pool")
     missing = [k for k in need if launches[k] < 1]
     if missing:
         raise AssertionError(f"{missing} never ran on the main path: "
@@ -1467,8 +1800,13 @@ def serve_fleet(torch, extra_argv=(), *, phase, requests, need):
     return res, out
 
 
+# the harvest and every admission run K7 and K6 in every fleet
+SERVE_NEED = ("serving_probe_step", "paged_flash_decode", "flash_decode",
+              "flash_attention")
+
+
 def phase_serve(torch, extra_argv=(), *, phase="serve", requests=8,
-                need=("serving_probe_step", "paged_flash_decode")):
+                need=SERVE_NEED):
     res, out = serve_fleet(torch, extra_argv, phase=phase, requests=requests,
                            need=need)
     emit(res)
@@ -1620,11 +1958,12 @@ class CheckedK4:
         return got
 
 
-def first_divergence(torch, model, params, req, ref):
-    """The first token where a request left the one-token fleet's
-    sequence, and the one-token run's top-2 logit margin there: the model
-    consumed prompt + [0] + tokens[:j] (a slot starts decoding from token
-    0) before choosing tokens[j]."""
+def first_divergence(torch, model, params, req, ref,
+                     names=("spec", "one_token")):
+    """The first token where a request left the reference fleet's (by
+    default the one-token fleet's) sequence, and the reference run's top-2
+    logit margin there: the model consumed prompt + [0] + tokens[:j] (a
+    slot starts decoding from token 0) before choosing tokens[j]."""
     from repro_torch.models import transformer
     j = next(i for i, (a, b) in enumerate(zip(req.tokens, ref.tokens))
              if a != b)
@@ -1635,8 +1974,8 @@ def first_divergence(torch, model, params, req, ref):
                                 len(seq))
         lg = transformer.logits_from_hidden(model.cfg, params, h)
     top = lg[0, :model.cfg.vocab_size].float().topk(2).values
-    return dict(req_id=req.req_id, token=j, spec=req.tokens[j],
-                one_token=ref.tokens[j], logit_margin=float(top[0] - top[1]))
+    return {"req_id": req.req_id, "token": j, names[0]: req.tokens[j],
+            names[1]: ref.tokens[j], "logit_margin": float(top[0] - top[1])}
 
 
 def phase_serve_spec(torch, base, extra_argv=(), *, phase="serve-spec"):
@@ -1805,6 +2144,171 @@ def phase_spec_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
                                                      checked.limit),
                                 k4_checked_max_accept=checked.max_accept,
                                 k4_checked_err=checked.err))
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases harvest, serve-dense, trace-dense and serve-dense-f32: the dense
+# side of the path (K6 and K7)
+
+class PlainDenseAttention:
+    """Within the block, the model's dense attention runs the plain
+    versions of K6 and K7 (what the port ran before them)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as K7
+        from repro_torch.kernels import flash_decode as K6
+        from repro_torch.models import attention as A
+        self.served = A.flash_decode, A.flash_attention
+        A.flash_decode, A.flash_attention = (K6.flash_decode_plain,
+                                             K7.flash_attention_plain)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as A
+        A.flash_decode, A.flash_attention = self.served
+        return False
+
+
+def phase_harvest(torch, sched, n: int = 24, prompt_len: int = 16,
+                  max_new: int = 96):
+    """The driver's harvest (``trajectories_from_model``: one prefill of
+    ``n`` prompts, then ``max_new`` dense decode steps) timed through K7
+    and K6, then through their plain versions, in turns: K7 launches once
+    a layer, K6 once a layer a step."""
+    import numpy as np
+    from repro_torch.launch import serve
+    model, params = sched.model, sched.params
+    layers = model.cfg.n_layers
+
+    def run():
+        sync(torch)
+        t0 = time.perf_counter()
+        ts = serve.trajectories_from_model(model, params, n, prompt_len,
+                                           max_new, 8, SEED)
+        sync(torch)
+        return time.perf_counter() - t0, ts
+
+    walls = {"kernels": [], "plain": []}
+    for turn in ("plain", "kernels", "kernels", "plain"):
+        zero_launches()
+        if turn == "plain":
+            with PlainDenseAttention():
+                wall, _ = run()
+        else:
+            wall, ts = run()
+            launches = read_launches()
+            if (launches["flash_attention"] != layers
+                    or launches["flash_decode"] != layers * max_new):
+                raise AssertionError(f"harvest launches {launches}, "
+                                     f"expected K7 {layers} and K6 "
+                                     f"{layers * max_new}")
+        walls[turn].append(wall)
+    if not np.isfinite(ts.phis).all():
+        raise AssertionError("harvested step embeddings are not finite")
+    res = dict(phase="harvest", trajectories=n, prompt=prompt_len,
+               decode_steps=max_new, wall_s=walls,
+               k6_launches=layers * max_new, k7_launches=layers,
+               phis_shape=list(ts.phis.shape))
+    emit(res)
+    return res
+
+
+def phase_serve_dense(torch, paged, paged_out, requests: int = 8):
+    """The driver without ``--paged``: a dense fleet of ``requests`` on 4
+    slots.  K1 and K6 launch every engine step (K6 once a layer), K7 once
+    a layer for the harvest and for each admission, K2 never; the fleet
+    line beside the paged fleet's (``paged``, phase serve's record, and
+    ``paged_out``, its driver result) and, in bf16, how far the two
+    fleets' tokens agree (not asserted: the two attention kernels sum in
+    other orders and bf16 flips near-ties)."""
+    res, out = serve_fleet(
+        torch, phase="serve-dense", requests=requests, paged=False,
+        need=("serving_probe_step", "flash_decode", "flash_attention"))
+    layers = out.scheduler.model.cfg.n_layers
+    fleet = out.fleet
+    lc = res["launches"]
+    harvest_steps = 96
+    want = dict(paged_flash_decode=0,
+                flash_decode=layers * (harvest_steps + fleet.engine_steps),
+                flash_attention=layers * (1 + requests))
+    got = {k: lc[k] for k in want}
+    if got != want:
+        raise AssertionError(f"dense fleet launches {got}, expected {want} "
+                             f"(K6 once a layer in each of the harvest's "
+                             f"{harvest_steps} steps and the fleet's "
+                             f"{fleet.engine_steps}; K7 once a layer for "
+                             f"the harvest and each admission; K2 never)")
+    ref = paged_out.requests
+    bad = [(r, b) for r, b in zip(out.requests, ref) if r.tokens != b.tokens]
+    res.update(
+        step_ms=fleet.wall_time_s / fleet.engine_steps * 1e3,
+        k6_launches_per_step=layers,
+        paged_fleet=dict(engine_steps=paged["engine_steps"],
+                         tokens_per_s=paged["tokens_per_s"],
+                         step_ms=paged["serve_wall_s"]
+                         / paged["engine_steps"] * 1e3,
+                         stop_steps=paged["stop_steps"]),
+        tokens_agree_with_paged=f"{len(ref) - len(bad)}/{len(ref)}",
+        first_divergence=(first_divergence(
+            torch, out.scheduler.model, out.scheduler.params, *bad[0],
+            names=("dense", "paged")) if bad else None))
+    emit(res)
+    return res, out
+
+
+def phase_dense_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
+    """The serve fleet in float32 through ``OrcaScheduler``, dense and
+    paged, at a lambda* between its scores (phase serve-spec-f32's
+    machinery): the dense fleet (K6 and K7) stops every request where the
+    paged fleet (K2 and K7) does, with the same tokens."""
+    import dataclasses
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.serving import OrcaScheduler, ServeConfig, make_request
+    cfg32 = dataclasses.replace(sched.model.cfg, dtype="float32",
+                                kv_cache_dtype="float32")
+    model32 = build(cfg32)
+    params32 = _tree(sched.params, lambda t: t.float())
+    batch = serve.model_inputs(cfg32, torch.Generator().manual_seed(SEED + 1),
+                               requests, prompt_len)
+    base = dict(n_slots=4, tokens_per_step=8, max_new_tokens=96, burn_in=2)
+
+    def fleet(lam, paged):
+        zero_launches()
+        t0 = time.perf_counter()
+        done, fl = OrcaScheduler(model32, params32, sched.pc, sched.theta,
+                                 ServeConfig(lam=lam, paged=paged, **base)
+                                 ).run([make_request(t)
+                                        for t in batch["tokens"]])
+        sync(torch)
+        return done, fl, time.perf_counter() - t0, read_launches()
+
+    free, _, _, _ = fleet(2.0, True)
+    lam, margin = choose_lambda([r.scores for r in free], base["burn_in"])
+    if margin < 1e-4:
+        raise AssertionError(f"every threshold lies within {margin} of a "
+                             "score: the check would hang on a tie")
+    paged, paged_fl, paged_s, paged_l = fleet(lam, True)
+    dense, dense_fl, dense_s, dense_l = fleet(lam, False)
+    stops = [r.stop_step for r in paged]
+    if [r.stop_step for r in dense] != stops:
+        raise AssertionError(f"f32 dense stops {[r.stop_step for r in dense]}"
+                             f" differ from paged stops {stops}")
+    if [r.tokens for r in dense] != [r.tokens for r in paged]:
+        raise AssertionError("f32 dense tokens differ from paged tokens")
+    if dense_l["paged_flash_decode"] or not (dense_l["flash_decode"]
+                                             and dense_l["flash_attention"]):
+        raise AssertionError(f"f32 dense fleet launches {dense_l}")
+    res = dict(phase="serve-dense-f32", lam=lam, lambda_margin=margin,
+               stop_steps=stops, stopped=sum(s >= 0 for s in stops),
+               paged=dict(engine_steps=paged_fl.engine_steps, wall_s=paged_s,
+                          tokens_per_s=paged_fl.tokens_per_s,
+                          launches=paged_l),
+               dense=dict(engine_steps=dense_fl.engine_steps, wall_s=dense_s,
+                          tokens_per_s=dense_fl.tokens_per_s,
+                          launches=dense_l))
     emit(res)
     return res
 
@@ -1981,7 +2485,8 @@ def main() -> int:
     log = (lib.parent / "build.log").read_text()
     emit(dict(phase="build", seconds=build_s, library=os.path.relpath(
         lib, ROOT), ptxas=[ln.strip() for ln in log.splitlines()
-                           if "registers" in ln or "spill" in ln]))
+                           if "registers" in ln or "spill" in ln
+                           or "Compiling entry" in ln]))
     _build.library()
     timer = Timer(torch)
     k1 = phase_k1(torch, timer)
@@ -1990,6 +2495,8 @@ def main() -> int:
     k4 = phase_k4(torch, timer)
     splits = corpus()
     k5 = phase_k5(torch, timer, splits[2])
+    k6 = phase_k6(torch, timer)
+    k7 = phase_k7(torch, timer)
     model = phase_model(torch)
     zero_launches()
     chunked = phase_model_chunked(torch)
@@ -1999,11 +2506,15 @@ def main() -> int:
     phase_model_spec(torch)
     served, out = phase_serve(torch)
     phase_trace(torch, out.scheduler)
+    phase_harvest(torch, out.scheduler)
+    served_d, out_d = phase_serve_dense(torch, served, out)
+    phase_trace(torch, out_d.scheduler, phase="trace-dense")
+    with PlainDenseAttention():
+        phase_trace(torch, out_d.scheduler, phase="trace-dense-plain")
+    phase_dense_stops(torch, out_d.scheduler)
     served_c, out_c = phase_serve(
         torch, ("--chunk-tokens", str(CHUNK), "--prompt-len", "160"),
-        phase="serve-chunked",
-        need=("serving_probe_step", "paged_flash_decode",
-              "paged_flash_packed_chunk"))
+        phase="serve-chunked", need=SERVE_NEED + ("paged_flash_packed_chunk",))
     if served_c["packed_chunks"] < 1:
         raise AssertionError("the chunked fleet packed no chunk")
     phase_trace(torch, out_c.scheduler, steps=24, prompt_len=160,
@@ -2017,8 +2528,7 @@ def main() -> int:
     offline = phase_offline(torch, splits)
     _, out_st = phase_serve(
         torch, ("--static-baseline",), phase="serve-static", requests=4,
-        need=("serving_probe_step", "paged_flash_decode",
-              "ttt_probe_batched"))
+        need=SERVE_NEED + ("ttt_probe_batched",))
     phase_static_fleet(torch, out_st.scheduler)
     k2_main = k2[0]
     # absolute errors: phase k2's m and outputs, the model's outputs
@@ -2031,6 +2541,14 @@ def main() -> int:
                  + [k3_model_err])
     b4_err = max([max(r["m_err"], r["out_err"], r["merged_err"])
                   for r in b4_rows] + [k3_model_err])
+
+    k6_main = k6[0]
+    k6_err = max([max(r["m_err"], r["out_err"], r["normalised_err"])
+                  for r in k6]
+                 + [model["dense"][p]["k6_out_err"] for p in ("bf16", "f32")])
+    k7_main = k7[0]
+    k7_err = max([r["max_abs_err"] for r in k7]
+                 + [model["dense"][p]["k7_err"] for p in ("bf16", "f32")])
 
     def k3_entry(name, line, launches, err, row):
         return dict(name=name, route="cuda",
@@ -2080,6 +2598,22 @@ def main() -> int:
                              spec_f32["spec_primed"]["k4_checked_err"]),
              ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by=k4["bound_by"], library_ms=None),
+        dict(name="flash_decode", route="cuda",
+             source="src/repro_torch/csrc/flash_decode.cu",
+             replaces="src/repro/kernels/decode_attention.py:78",
+             launches=served_d["launches"]["flash_decode"],
+             max_abs_err=k6_err, ms=k6_main["ms"],
+             plain_ms=k6_main["plain_ms"], bound_ms=k6_main["bound_ms"],
+             bound_by=k6_main["bound_by"],
+             library_ms=k6_main["library_ms"]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:64",
+             launches=served["launches"]["flash_attention"],
+             max_abs_err=k7_err, ms=k7_main["ms"],
+             plain_ms=k7_main["plain_ms"], bound_ms=k7_main["bound_ms"],
+             bound_by=k7_main["bound_by"],
+             library_ms=k7_main["library_ms"]),
     ]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

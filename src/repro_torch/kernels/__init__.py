@@ -1,5 +1,9 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version: CPU tensors take the plain version, CUDA tensors the kernel."""
+version: CPU tensors take the plain version, CUDA tensors the kernel.
+
+K6 and K7 are reached as modules (``repro_torch.kernels.flash_decode``,
+``repro_torch.kernels.flash_attention``): their wrappers carry the
+modules' names, so the package does not rebind them."""
 from repro_torch.kernels.paged_chunk import (paged_flash_packed_chunk,
                                              paged_flash_prefill_chunk,
                                              paged_packed_chunk_plain,

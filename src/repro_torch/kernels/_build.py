@@ -45,6 +45,12 @@ SIGNATURES = {
     "probe_spec_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _c.c_float, _c.c_float, _c.c_int, _c.c_int,
                           _c.c_int, _c.c_int, _c.c_int, _P],
+    "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _c.c_int, _c.c_int,
+                            _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                            _c.c_float, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _c.c_int, _c.c_int, _c.c_int,
+                               _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                               _c.c_int, _c.c_int, _c.c_float, _P],
     "cuda_error_string": [_c.c_int],
 }
 

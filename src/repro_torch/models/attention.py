@@ -13,12 +13,22 @@ pages:  {"k","v"}: (L, P, KV, bs, d_head) — P physical pages shared by all
 
 Caches and page pools are updated IN PLACE (the buffers the JAX engine
 donates to its jitted step); the write functions return the same dict.
-Paged decode attention goes through K2 (``repro_torch.kernels.
-paged_decode.paged_flash_decode``), paged chunked and packed prefill
-attention through K3 (``repro_torch.kernels.paged_chunk``): the plain
-versions for CPU tensors, the CUDA kernels for CUDA tensors.  The dense
-cache paths (trajectory harvesting, dense serving) are plain PyTorch, as
-the JAX package's are plain jnp.
+Every kernel below runs its plain version for CPU tensors and its CUDA
+kernel for CUDA tensors:
+
+* prefill attention (``attn_prefill``: the harvest, every admission, the
+  static-batch engine) goes through K7 (``repro_torch.kernels.
+  flash_attention``);
+* dense-cache decode attention (``attn_decode``: the harvest's decode,
+  dense fleets, the static-batch engine) takes its cache partials from K6
+  (``repro_torch.kernels.flash_decode``);
+* paged decode attention goes through K2 (``repro_torch.kernels.
+  paged_decode.paged_flash_decode``), paged chunked and packed prefill
+  attention through K3 (``repro_torch.kernels.paged_chunk``).
+
+The dense chunk and packed paths (``attn_prefill_chunk`` and
+``attn_prefill_packed`` on a dense state) stay plain PyTorch: their JAX
+counterparts call no Pallas kernel, and B3 and B4 are paged.
 """
 from __future__ import annotations
 
@@ -27,6 +37,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.paged_chunk import (paged_flash_packed_chunk,
                                              paged_flash_prefill_chunk)
 from repro_torch.kernels.paged_decode import _gather, paged_flash_decode
@@ -208,46 +220,16 @@ def attn_decode_paged(q, pages_l: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 # Prefill attention
 
-def attn_prefill_einsum(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None,
-                        q_offset: int = 0) -> torch.Tensor:
-    """Reference O(S^2)-memory attention. q (B,Sq,H,d); k,v (B,Sk,KV,d)."""
-    b, sq, h, d = q.shape
-    n_kv = k.shape[2]
-    qg = q.reshape(b, sq, n_kv, h // n_kv, d)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
-                          k.float()) / torch.sqrt(torch.tensor(float(d)))
-    qpos = torch.arange(sq, device=q.device) + q_offset
-    kpos = torch.arange(k.shape[1], device=q.device)
-    mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos[None, :] <= qpos[:, None]
-    if window is not None:
-        mask &= kpos[None, :] > qpos[:, None] - window
-    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return out.reshape(b, sq, h, d).to(q.dtype)
+def attn_prefill(q, k, v, causal: bool = True,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """Prefill attention, q (B,S,H,d); k,v (B,S,KV,d) -> (B,S,H,d): K7
+    (``flash_attention``, f32 contract), whose plain version is
+    ``repro_torch.kernels.flash_attention.attn_prefill_einsum``."""
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 # ---------------------------------------------------------------------------
 # Decode attention (single query against a READ-ONLY cache + current token)
-
-def _decode_partial(qg, k, v, valid):
-    """Unnormalized online-softmax pieces over a dense cache, the JAX jnp
-    path's numerics: q cast to the cache dtype, products accumulated in
-    f32.  Returns (o_un (B,KV,G,d), l (B,KV,G), m (B,KV,G))."""
-    d = qg.shape[-1]
-    sc = torch.einsum("bkgd,bksd->bkgs", qg.to(k.dtype).float(), k.float())
-    sc = sc / torch.sqrt(torch.tensor(float(d)))
-    ok = valid[:, None, None, :]
-    sc = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
-    m = sc.amax(-1)
-    p = torch.where(ok, torch.exp(sc - m[..., None]), torch.zeros_like(sc))
-    l = p.sum(-1)
-    o = torch.einsum("bkgs,bksd->bkgd", p.to(v.dtype).float(), v.float())
-    return o, l, m
-
 
 def _merge_extra_kv(qg, o, l, m, extra_kv, d):
     """Fold the current token's (k, v) column into unnormalized online-
@@ -270,12 +252,15 @@ def _merge_extra_kv(qg, o, l, m, extra_kv, d):
 
 def attn_decode(q, cache_l, valid, dtype, extra_kv=None) -> torch.Tensor:
     """q (B,H,d); cache_l per-layer dict (B,KV,S,d) READ-ONLY; valid (B,S);
-    extra_kv: optional (k_new, v_new) each (B,KV,d) — the current token."""
+    extra_kv: optional (k_new, v_new) each (B,KV,d) — the current token.
+
+    The cache partials come from K6 (``flash_decode``, the jnp path's
+    numerics: q cast to the cache dtype, f32 sums)."""
     b, h, d = q.shape
     k, v = cache_kv(cache_l, torch.bfloat16)   # int8: bf16 dequant, as JAX
     n_kv = k.shape[1]
+    o, l, m = flash_decode(q, k, v, valid, return_partials=True)
     qg = q.reshape(b, n_kv, h // n_kv, d).float()
-    o, l, m = _decode_partial(qg, k, v, valid)
     o, l = _merge_extra_kv(qg, o, l, m, extra_kv, d)
     out = o / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, h, d).to(dtype)

@@ -108,7 +108,7 @@ def _finish_block(cfg, p, x, o):
 def layer_prefill(cfg, p, x, positions, window: Optional[int]):
     """x (B,S,d) -> (x', (k, v)) with k/v (B, KV, S, dh) for the cache."""
     q, k, v = _attn_block(cfg, p, x, positions)
-    o = attn.attn_prefill_einsum(q, k, v, causal=True, window=window)
+    o = attn.attn_prefill(q, k, v, causal=True, window=window)
     return _finish_block(cfg, p, x, o), (k.transpose(1, 2), v.transpose(1, 2))
 
 

@@ -4,8 +4,11 @@
 step-embedding accumulation (mean-pooled hidden states over
 ``tokens_per_step`` tokens), then K1 (``repro_torch.kernels.probe_step``)
 for score-then-update of the per-slot fast weights, rolling smoothing and
-the calibrated threshold test.  The paged decode attention inside the
-model step is K2 (``repro_torch.kernels.paged_decode``).
+the calibrated threshold test.  The decode attention inside the model
+step is K2 (``repro_torch.kernels.paged_decode``) on a paged state and K6
+(``repro_torch.kernels.flash_decode``) on a dense one; every one-shot
+prompt prefill (admission, the harvest of ``extract_trajectories``) runs
+its attention through K7 (``repro_torch.kernels.flash_attention``).
 
 ``ContinuousServingEngine`` is the slot-level engine: each batch row
 ("slot") carries its own request at its own position (vector ``pos``), its
@@ -26,8 +29,9 @@ paged state), the accepted prefix commits, and K4
 accepted tokens.
 
 ``ServingEngine`` is the deprecated static-batch baseline: prefill a
-batch once, then loop the fused step on a dense cache until the slowest
-row finishes (``serve_queue_static`` serves a queue in such groups).
+batch once (K7), then loop the fused step on a dense cache (K6) until the
+slowest row finishes (``serve_queue_static`` serves a queue in such
+groups).
 
 Buffers the JAX engine donates to its jitted step — the KV cache or page
 pool and the probe state — are updated IN PLACE here.  Ported: admission-
@@ -524,9 +528,9 @@ def extract_trajectories(model: Model, params, batch, prompt_len: int,
                          chunk_tokens: Optional[int] = None):
     """Run the model WITHOUT stopping and harvest step embeddings phi_t —
     the trajectory source for meta-training probes on a real model.  Decodes
-    through the DENSE cache with plain attention, as the JAX package does;
-    the prompt prefills through ``chunked_prefill`` (``chunk_tokens=None``
-    keeps the one-shot prefill).
+    through the DENSE cache, as the JAX package does (K6 on the card); the
+    prompt prefills through ``chunked_prefill`` (``chunk_tokens=None``
+    keeps the one-shot prefill, K7 on the card).
     batch: {"tokens": (B, S)} numpy or tensors; returns numpy
     (phis (B, n_steps, d), tokens (B, max_new_tokens))."""
     mcfg = model.cfg

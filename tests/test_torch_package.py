@@ -145,6 +145,40 @@ def test_probe_spec_step_on_other_devices_never_takes_the_plain_version():
                                 burn_in=1)
 
 
+def _dense_attention_call(name, device):
+    """One call of K6's or K7's wrapper at the served head dim (G = 3)."""
+    if name == "flash_decode":
+        from repro_torch.kernels.flash_decode import flash_decode
+        B, KV, S, d = 2, 2, 5, 64
+        return lambda: flash_decode(
+            torch.zeros((B, 3 * KV, d), device=device),
+            torch.zeros((B, KV, S, d), device=device),
+            torch.zeros((B, KV, S, d), device=device),
+            torch.ones((B, S), dtype=torch.bool, device=device))
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, S, KV, d = 2, 5, 2, 64
+    return lambda: flash_attention(
+        torch.zeros((B, S, 3 * KV, d), device=device),
+        torch.zeros((B, S, KV, d), device=device),
+        torch.zeros((B, S, KV, d), device=device), causal=True)
+
+
+@pytest.mark.parametrize("name", ["flash_decode", "flash_attention"])
+def test_dense_attention_on_other_devices_never_takes_the_plain_version(
+        name):
+    """K6 and K7 keep the rule: the meta device raises, and the CPU takes
+    the plain version without counting a launch."""
+    import importlib
+    wrapper = getattr(importlib.import_module(
+        f"repro_torch.kernels.{name}"), name)
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        _dense_attention_call(name, "meta")()
+    out = _dense_attention_call(name, "cpu")()
+    assert out.device.type == "cpu" and not out.any()
+    assert wrapper.launches == before
+
+
 def test_draft_cache_is_the_ports_own_copy():
     """The draft cache is host-side numpy, imported from the port itself:
     promotion, lookup and LRU eviction without the JAX package."""
