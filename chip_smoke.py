@@ -1171,13 +1171,18 @@ def teacher_forced(torch, model, params, prompt, feed, impls, bs=16):
     attention implementation, then decode the same fed tokens through each
     (the model's ``paged_flash_decode`` swapped for it).  Returns the max
     |logit - logit of impls[0]| per step for each other impl, and the
-    largest |logit|."""
+    largest |logit|.  The shared prefill runs K7's plain version, the
+    prompt K/V these bounds were set on (phase model's dense part checks
+    K7): with K7's K/V the bf16 bound below, one ulp while the
+    page-reversed order is still the same order, fails on a single bf16
+    flip of K2's output at step 0."""
     from repro_torch.models import attention as A
     cfg = model.cfg
     B, S = prompt.shape
     steps = feed.shape[0]
     nb = -(-(S + steps) // bs)
-    pre, _, _ = model.prefill(cfg, params, {"tokens": prompt}, nb * bs)
+    with PlainDenseAttention():
+        pre, _, _ = model.prefill(cfg, params, {"tokens": prompt}, nb * bs)
     table = (1 + torch.arange(B * nb)).reshape(B, nb).to(torch.int32).to(DEV)
     states = []
     for _ in impls:
