@@ -1093,7 +1093,7 @@ def phase_k7(torch, timer):
         k = torch.randn(B, sk, KV, d, generator=gen).to(dt).to(DEV)
         v = torch.randn(B, sk, KV, d, generator=gen).to(dt).to(DEV)
         out = K7.flash_attention(q, k, v, causal=True, window=window)
-        want = K7.flash_attention_plain(q, k, v, causal=True, window=window)
+        want = K7.attn_prefill_einsum(q, k, v, causal=True, window=window)
         err, ok = k7_error(out, want, v)
         if not ok or not torch.isfinite(out.float()).all():
             raise AssertionError(f"K7 {B}x{sq}x{sk} window {window} "
@@ -1103,7 +1103,7 @@ def phase_k7(torch, timer):
         if timed:
             row["ms"] = timer(lambda: K7.flash_attention(
                 q, k, v, causal=True, window=window))
-            row["plain_ms"] = timer(lambda: K7.flash_attention_plain(
+            row["plain_ms"] = timer(lambda: K7.attn_prefill_einsum(
                 q, k, v, causal=True, window=window))
             # yardstick: SDPA with is_causal on (B, H, S, d), KV heads
             # repeated (outside the timing)
@@ -1126,14 +1126,18 @@ def phase_k7(torch, timer):
 # ---------------------------------------------------------------------------
 # phase model: full-width model, teacher-forced
 
-def _pages_reversed(K2):
-    """The plain paged attention with each row's pages in reverse order:
-    the same softmax over the same positions, summed in another order."""
+def _positions_reversed(K2):
+    """The plain paged attention with each row's positions in reverse
+    order (its pages reversed, and the slots within each page): the same
+    softmax over the same positions, summed in another order from the
+    first step on, also while the prompt fits in one page."""
+    def flip(t):
+        return None if t is None else t.flip(2)
+
     def fn(q, k, v, tables, valid, ks=None, vs=None, *,
            return_partials=False):
-        b, nb = tables.shape
-        valid = valid.reshape(b, nb, -1).flip(1).reshape(b, -1)
-        return K2.paged_decode_plain(q, k, v, tables.flip(1), valid, ks, vs,
+        return K2.paged_decode_plain(q, flip(k), flip(v), tables.flip(1),
+                                     valid.flip(1), flip(ks), flip(vs),
                                      return_partials=return_partials)
     return fn
 
@@ -1171,18 +1175,14 @@ def teacher_forced(torch, model, params, prompt, feed, impls, bs=16):
     attention implementation, then decode the same fed tokens through each
     (the model's ``paged_flash_decode`` swapped for it).  Returns the max
     |logit - logit of impls[0]| per step for each other impl, and the
-    largest |logit|.  The shared prefill runs K7's plain version, the
-    prompt K/V these bounds were set on (phase model's dense part checks
-    K7): with K7's K/V the bf16 bound below, one ulp while the
-    page-reversed order is still the same order, fails on a single bf16
-    flip of K2's output at step 0."""
+    largest |logit|.  The shared prefill is the served one (K7 on the
+    card)."""
     from repro_torch.models import attention as A
     cfg = model.cfg
     B, S = prompt.shape
     steps = feed.shape[0]
     nb = -(-(S + steps) // bs)
-    with PlainDenseAttention():
-        pre, _, _ = model.prefill(cfg, params, {"tokens": prompt}, nb * bs)
+    pre, _, _ = model.prefill(cfg, params, {"tokens": prompt}, nb * bs)
     table = (1 + torch.arange(B * nb)).reshape(B, nb).to(torch.int32).to(DEV)
     states = []
     for _ in impls:
@@ -1250,7 +1250,7 @@ class CheckedK7:
 
     def __call__(self, q, k, v, *, causal=True, window=None):
         got = self.K7.flash_attention(q, k, v, causal=causal, window=window)
-        want = self.K7.flash_attention_plain(q, k, v, causal=causal,
+        want = self.K7.attn_prefill_einsum(q, k, v, causal=causal,
                                              window=window)
         err, ok = k7_error(got, want, v)
         if not ok:
@@ -1301,7 +1301,7 @@ def dense_path(torch, model, params, prompt, feed, exact_argmax):
     k6, k7 = CheckedK6(K6), CheckedK7(K7)
     kern, plain = dense_teacher_forced(
         torch, model, params, prompt, feed,
-        [(k6, k7), (K6.flash_decode_plain, K7.flash_attention_plain)])
+        [(k6, k7), (K6.flash_decode_plain, K7.attn_prefill_einsum)])
     diffs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
     agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
              for a, b in zip(kern, plain)]
@@ -1348,8 +1348,8 @@ def phase_model(torch, reduced: bool = False):
     checked = CheckedK2(K2)
     (k2, floor), scale = teacher_forced(
         torch, model, params, prompt, feed,
-        [plain, checked, _pages_reversed(K2)])
-    # bf16 logits: K2 and the page-reversed plain version are both
+        [plain, checked, _positions_reversed(K2)])
+    # bf16 logits: K2 and the position-reversed plain version are both
     # reorderings of the same f32 sums.  The bf16 cast of each attention
     # output turns such a reordering into one-ulp flips, which a
     # random-weight 32-layer stack amplifies on the way to the logits.  So
@@ -2167,7 +2167,7 @@ class PlainDenseAttention:
         from repro_torch.models import attention as A
         self.served = A.flash_decode, A.flash_attention
         A.flash_decode, A.flash_attention = (K6.flash_decode_plain,
-                                             K7.flash_attention_plain)
+                                             K7.attn_prefill_einsum)
         return self
 
     def __exit__(self, *exc):

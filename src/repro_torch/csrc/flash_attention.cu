@@ -12,7 +12,7 @@
 // q's dtype.  A query row that sees no key at all (a window that ends
 // before key 0 can reach it) gets the einsum's answer, the mean of all Sk
 // values.  Plain PyTorch version: repro_torch/kernels/flash_attention.py
-// flash_attention_plain.
+// attn_prefill_einsum.
 //
 // Bound on the H100: f32 operations at the served prefill shapes (4 d
 // flops per visible (query, key) pair against 2 d bytes per key and head).

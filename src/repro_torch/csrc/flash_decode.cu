@@ -15,174 +15,34 @@
 // Bound on the H100: bytes.  Each (row, KV head) reads its K and V once
 // (2 x positions x d elements) for ~4 R d flops per position: about R/2
 // flops per bf16 byte, far below the card's ridge.  So the design is K2's
-// (csrc/paged_decode.cu) without the block table:
-//   * one thread block per (batch row, KV head); its R query rows (the G
-//     heads sharing the KV head) sit in registers in f32, pre-scaled by
-//     1/sqrt(d) (a power of two at d 64: exact);
-//   * 8 warps split the positions in groups of 8; inside a warp 4 lanes
-//     share one position, each loading d/4 contiguous elements with
-//     16-byte loads, so a warp reads 8 whole K rows (and 8 V rows) per
-//     group, coalesced;
-//   * invalid positions are never loaded and contribute exactly zero, so a
-//     row with no valid position returns m = -1e30, l = 0, o = 0 (the jnp
-//     guard; the Pallas body returns l = S, o = sum V there);
-//   * each warp keeps a running online softmax (m, l, acc) over its own
-//     positions; warps merge through shared memory at the end.
+// (csrc/paged_decode.cu) without the block table: one thread block per
+// (batch row, KV head) running the decode body of decode_math.cuh, which
+// K2 runs too, with the row's own contiguous cache for addressing and p
+// rounded before P.V.  Invalid positions are never loaded, so a row with
+// no valid position returns m = -1e30, l = 0, o = 0 (the jnp guard; the
+// Pallas body returns l = S, o = sum V there).
 // No split-KV over blocks, TMA or wgmma yet: the grid is B x KV blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_math.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// p rounded to the cache dtype, as the jnp path's p.astype(v.dtype)
-template <typename T>
-__device__ __forceinline__ float round_as(float x);
-template <>
-__device__ __forceinline__ float round_as<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_as<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// N contiguous elements of type T -> f32 registers, in 16-byte loads
-template <typename T, int N>
-__device__ __forceinline__ void load_row(const T* __restrict__ p,
-                                         float (&out)[N]) {
-  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
-  static_assert(N % kPer == 0, "row slice must be a multiple of 16 bytes");
-#pragma unroll
-  for (int c = 0; c < N / kPer; ++c) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + c);
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) out[c * kPer + k] = to_float(e[k]);
-  }
-}
-
 template <typename T, int D, int R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(decode::kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const bool* __restrict__ valid,
                     float* __restrict__ o, float* __restrict__ l_out,
                     float* __restrict__ m_out, int n_kv, int S, float scale) {
-  constexpr int kDpl = D / 4;  // dims per lane: 4 lanes share a position
   const int row = blockIdx.x, kv = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int quad = lane / 4, qi = lane % 4;
   const size_t head = static_cast<size_t>(row) * n_kv + kv;
-
-  float qr[R][kDpl];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const T* qrow = q + (head * R + r) * D + qi * kDpl;
-#pragma unroll
-    for (int j = 0; j < kDpl; ++j) qr[r][j] = to_float(qrow[j]) * scale;
-  }
-  float m_run[R], l_run[R], acc[R][kDpl];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m_run[r] = kNegInf;
-    l_run[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kDpl; ++j) acc[r][j] = 0.f;
-  }
-
-  const bool* valid_row = valid + static_cast<size_t>(row) * S;
-  const T* k_head = k + head * S * D + qi * kDpl;
-  const T* v_head = v + head * S * D + qi * kDpl;
-  for (int base = warp * 8; base < S; base += kWarps * 8) {
-    const int p = base + quad;
-    const bool ok = p < S && valid_row[p];
-    float kf[kDpl], vf[kDpl];
-#pragma unroll
-    for (int j = 0; j < kDpl; ++j) kf[j] = vf[j] = 0.f;
-    if (ok) {
-      load_row<T, kDpl>(k_head + static_cast<size_t>(p) * D, kf);
-      load_row<T, kDpl>(v_head + static_cast<size_t>(p) * D, vf);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float sc = 0.f;
-#pragma unroll
-      for (int j = 0; j < kDpl; ++j) sc = fmaf(qr[r][j], kf[j], sc);
-      sc += __shfl_xor_sync(0xffffffffu, sc, 1);
-      sc += __shfl_xor_sync(0xffffffffu, sc, 2);
-      if (!ok) sc = kNegInf;
-      float gm = sc;
-      gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 4));
-      gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 8));
-      gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 16));
-      const float m_new = fmaxf(m_run[r], gm);
-      const float corr = expf(m_run[r] - m_new);
-      const float pr = ok ? expf(sc - m_new) : 0.f;
-      const float pv = round_as<T>(pr);
-      l_run[r] = l_run[r] * corr + pr;
-#pragma unroll
-      for (int j = 0; j < kDpl; ++j)
-        acc[r][j] = fmaf(acc[r][j], corr, pv * vf[j]);
-      m_run[r] = m_new;
-    }
-  }
-
-  // sum each quad's partial l and acc over the warp's 8 quads (m is
-  // warp-uniform), then merge the warps through shared memory
-  __shared__ float s_m[kWarps][R], s_l[kWarps][R], s_acc[kWarps][R][D];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 4);
-    l += __shfl_xor_sync(0xffffffffu, l, 8);
-    l += __shfl_xor_sync(0xffffffffu, l, 16);
-#pragma unroll
-    for (int j = 0; j < kDpl; ++j) {
-      float a = acc[r][j];
-      a += __shfl_xor_sync(0xffffffffu, a, 4);
-      a += __shfl_xor_sync(0xffffffffu, a, 8);
-      a += __shfl_xor_sync(0xffffffffu, a, 16);
-      acc[r][j] = a;
-    }
-    if (lane < 4) {
-#pragma unroll
-      for (int j = 0; j < kDpl; ++j) s_acc[warp][r][qi * kDpl + j] = acc[r][j];
-    }
-    if (lane == 0) {
-      s_m[warp][r] = m_run[r];
-      s_l[warp][r] = l;
-    }
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < R * D; idx += kThreads) {
-    const int r = idx / D, dd = idx % D;
-    float m_tot = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) m_tot = fmaxf(m_tot, s_m[w][r]);
-    float l_tot = 0.f, o_tot = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float wgt = expf(s_m[w][r] - m_tot);
-      l_tot = fmaf(s_l[w][r], wgt, l_tot);
-      o_tot = fmaf(s_acc[w][r][dd], wgt, o_tot);
-    }
-    o[(head * R + r) * D + dd] = o_tot;
-    if (dd == 0) {
-      l_out[head * R + r] = l_tot;
-      m_out[head * R + r] = m_tot;
-    }
-  }
+  decode::attend<T, T, D, R, true>(
+      q + head * R * D, k, v, nullptr, nullptr,
+      valid + static_cast<size_t>(row) * S, S, decode::DenseRows{head * S},
+      scale, o + head * R * D, l_out + head * R, m_out + head * R);
 }
 
 // The one shape instantiated, and held against the plain version on the
@@ -196,7 +56,8 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
                          const void* valid, void* o, void* l, void* m, int B,
                          int n_kv, int S, float scale, cudaStream_t stream) {
   const dim3 grid(B, n_kv);
-  flash_decode_kernel<T, kHeadDim, kRows><<<grid, kThreads, 0, stream>>>(
+  flash_decode_kernel<T, kHeadDim, kRows>
+      <<<grid, decode::kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const bool*>(valid),
       static_cast<float*>(o), static_cast<float*>(l), static_cast<float*>(m),

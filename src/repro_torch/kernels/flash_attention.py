@@ -10,8 +10,9 @@ Sq % bq == 0.  Its contract is f32 throughout, what the JAX package's
 served prefill computes (``repro/models/attention.py:733
 attn_prefill_einsum``): q, k and v are upcast, scores, softmax and P.V are
 f32, and the output is cast to q's dtype.  The plain version is that
-einsum.  (The Pallas body rounds q * scale and p to the input dtype; on
-bf16 inputs it sits a bf16 rounding away from both.)
+einsum, ``attn_prefill_einsum``.  (The Pallas body rounds q * scale and p
+to the input dtype; on bf16 inputs it sits a bf16 rounding away from
+both.)
 
 Dispatch is by the input's device: CPU tensors take the plain version,
 CUDA tensors the kernel (``csrc/flash_attention.cu``); anything else
@@ -33,15 +34,16 @@ KERNEL_HEAD_DIM = 64
 
 
 def attn_prefill_einsum(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None,
-                        q_offset: int = 0) -> torch.Tensor:
-    """Reference O(S^2)-memory attention. q (B,Sq,H,d); k,v (B,Sk,KV,d)."""
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Plain version of ``flash_attention`` on any device, the comparison
+    the kernel is held to (never the serving path's choice): reference
+    O(S^2)-memory attention. q (B,Sq,H,d); k,v (B,Sk,KV,d)."""
     b, sq, h, d = q.shape
     n_kv = k.shape[2]
     qg = q.reshape(b, sq, n_kv, h // n_kv, d)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
                           k.float()) / torch.sqrt(torch.tensor(float(d)))
-    qpos = torch.arange(sq, device=q.device) + q_offset
+    qpos = torch.arange(sq, device=q.device)
     kpos = torch.arange(k.shape[1], device=q.device)
     mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
     if causal:
@@ -52,13 +54,6 @@ def attn_prefill_einsum(q, k, v, *, causal: bool = True,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
-
-
-def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          window: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version of ``flash_attention`` on any device — the
-    comparison the kernel is held to (never the serving path's choice)."""
-    return attn_prefill_einsum(q, k, v, causal=causal, window=window)
 
 
 def _check(q, k, v, window):
@@ -99,7 +94,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     q (B, Sq, H, d); k, v (B, Sk, KV, d), one dtype, f32 or bf16.
     -> (B, Sq, H, d) in q's dtype."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return attn_prefill_einsum(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device "
                            f"{q.device}")
