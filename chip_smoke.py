@@ -1171,21 +1171,32 @@ class CheckedK2:
 
 
 def teacher_forced(torch, model, params, prompt, feed, impls, bs=16):
-    """Prefill once, copy the prompt K/V into one page pool per paged
-    attention implementation, then decode the same fed tokens through each
-    (the model's ``paged_flash_decode`` swapped for it).  Returns the max
-    |logit - logit of impls[0]| per step for each other impl, and the
-    largest |logit|.  The shared prefill is the served one (K7 on the
-    card)."""
+    """Prefill, copy the prompt K/V into one page pool per paged attention
+    implementation, then decode the same fed tokens through each (the
+    model's ``paged_flash_decode`` swapped for it).  ``impls`` holds
+    (paged decode, prefill attention) pairs; a prefill attention of None
+    is the served one (K7 on the card), any other is swapped in for the
+    prefill of its pool.  Returns the max |logit - logit of impls[0]| per
+    step for each other pair, and the largest |logit|."""
     from repro_torch.models import attention as A
     cfg = model.cfg
     B, S = prompt.shape
     steps = feed.shape[0]
     nb = -(-(S + steps) // bs)
-    pre, _, _ = model.prefill(cfg, params, {"tokens": prompt}, nb * bs)
+    served_prefill = A.flash_attention
+    prefilled = {}
+    try:
+        for _, pre_impl in impls:
+            if pre_impl not in prefilled:
+                A.flash_attention = pre_impl or served_prefill
+                prefilled[pre_impl], _, _ = model.prefill(
+                    cfg, params, {"tokens": prompt}, nb * bs)
+    finally:
+        A.flash_attention = served_prefill
     table = (1 + torch.arange(B * nb)).reshape(B, nb).to(torch.int32).to(DEV)
     states = []
-    for _ in impls:
+    for _, pre_impl in impls:
+        pre = prefilled[pre_impl]
         st = model.init_paged_state(B, B * nb + 1, bs, nb, device=DEV)
         pages = {k: v for k, v in st.items() if k != "block_tables"}
         for i in range(B):
@@ -1200,7 +1211,7 @@ def teacher_forced(torch, model, params, prompt, feed, impls, bs=16):
         for t in range(steps):
             pos = torch.full((B,), S + t, dtype=torch.int32, device=DEV)
             logits = []
-            for impl, st in zip(impls, states):
+            for (impl, _), st in zip(impls, states):
                 A.paged_flash_decode = impl
                 lg, _, _ = model.decode_step(cfg, params, feed[t], st, pos)
                 lg = lg[:, :cfg.vocab_size].float()
@@ -1330,6 +1341,7 @@ def phase_model(torch, reduced: bool = False):
     the plain versions (``dense_path``)."""
     import dataclasses
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as K7
     from repro_torch.kernels import paged_decode as K2
     from repro_torch.models import build
     cfg = get_config("smollm-360m")
@@ -1346,17 +1358,22 @@ def phase_model(torch, reduced: bool = False):
                          dtype=torch.int32).to(DEV)
     plain = K2.paged_decode_plain
     checked = CheckedK2(K2)
-    (k2, floor), scale = teacher_forced(
+    (k2, rev, pre_spread), scale = teacher_forced(
         torch, model, params, prompt, feed,
-        [plain, checked, _positions_reversed(K2)])
-    # bf16 logits: K2 and the position-reversed plain version are both
-    # reorderings of the same f32 sums.  The bf16 cast of each attention
-    # output turns such a reordering into one-ulp flips, which a
-    # random-weight 32-layer stack amplifies on the way to the logits.  So
-    # at step t the logits of K2 are held to 8x the largest difference the
-    # reversed version has shown up to step t, plus one bf16 ulp of the
-    # largest logit: within one ulp until the reordering first flips
-    # anything.  The kernel itself is held per call by CheckedK2 above.
+        [(plain, None), (checked, None), (_positions_reversed(K2), None),
+         (plain, K7.attn_prefill_einsum)])
+    # bf16 logits: K2, the position-reversed plain version and the prompt
+    # prefilled through the einsum in place of K7 all compute the same
+    # functions with their f32 sums in another order.  The bf16 cast of each attention output turns such
+    # a reordering into one-ulp flips, which a random-weight 32-layer stack
+    # amplifies on the way to the logits.  The floor at step t is the
+    # larger difference the two reference reorderings show there; the
+    # logits of K2 are held to 8x the largest floor up to step t, plus one
+    # bf16 ulp of the largest logit.  The prefill's reordering gives the
+    # floor a value from step 0, where reversing the positions of a prompt
+    # in one page can flip nothing.  The kernel itself is held per call by
+    # CheckedK2 above.
+    floor = [max(a, b) for a, b in zip(rev, pre_spread)]
     ulp = scale * 2.0 ** -8
     bound = [8 * max(floor[:t + 1]) + ulp for t in range(steps)]
     over = [t for t in range(steps) if k2[t] > bound[t]]
@@ -1374,7 +1391,8 @@ def phase_model(torch, reduced: bool = False):
     params32 = _tree(params, lambda t: t.float())
     checked32 = CheckedK2(K2)
     (k2_32,), scale32 = teacher_forced(torch, build(cfg32), params32,
-                                       prompt, feed, [plain, checked32])
+                                       prompt, feed,
+                                       [(plain, None), (checked32, None)])
     bound32 = scale32 * 2.0 ** -10
     if max(k2_32) > bound32:
         raise AssertionError(f"f32: K2 vs plain paged logits {max(k2_32)} "
@@ -1390,7 +1408,8 @@ def phase_model(torch, reduced: bool = False):
                          k2_m_rel_err=checked.m_err,
                          k2_out_err=checked.out_err,
                          max_logit_diff_per_step=k2,
-                         reversed_plain_diff_per_step=floor,
+                         reversed_plain_diff_per_step=rev,
+                         einsum_prefill_diff_per_step=pre_spread,
                          max_abs_logit=scale, bound_per_step=bound),
                f32=dict(k2_calls=checked32.calls,
                         k2_m_rel_err=checked32.m_err,
