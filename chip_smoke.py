@@ -240,24 +240,12 @@ def k1_chain(torch, K1, gen, B, f, win, steps, eta, lam, burn_in):
     return err, margin, kern[5].tolist()
 
 
-def phase_k1(torch, timer):
-    from repro_torch.kernels import probe_step as K1
-    gen = torch.Generator().manual_seed(SEED)
-    f, win, steps = 960, 4, 12
-    eta, lam, burn_in = 0.05, 0.6, 2
-    # the 12-step chain at B = 8 and at the serving shape, B = 4 slots
-    chains = {}
-    for B in (8, 4):
-        err, margin, stops = k1_chain(torch, K1, gen, B, f, win, steps, eta,
-                                      lam, burn_in)
-        chains[B] = dict(max_abs_err=err, lambda_margin=margin,
-                         stopped_at=stops)
-
-    # timing at the serving shape, every slot at a boundary.  lambda* above
-    # 1 is out of reach of any smoothed score, so no slot stops and every
-    # timed call updates every slot's W, b and ring (a stopped slot would
-    # skip them) -- the work the bound below counts
-    Bs, lam_t = 4, 1.5
+def k1_timed(torch, timer, K1, gen, Bs, f, win, eta, burn_in):
+    """K1 and its plain version timed at (Bs, f), every slot at a
+    boundary.  lambda* above 1 is out of reach of any smoothed score, so
+    no slot stops and every timed call updates every slot's W, b and ring
+    (a stopped slot would skip them) -- the work the bound counts."""
+    lam_t = 1.5
     zq = (torch.randn(Bs, f, generator=gen) / f ** 0.5).to(DEV)
     zk = (torch.randn(Bs, f, generator=gen) / f ** 0.5).to(DEV)
     bnd_all = torch.ones(Bs, dtype=torch.bool, device=DEV)
@@ -278,14 +266,37 @@ def phase_k1(torch, timer):
     moved = (nbytes(zq, zk, bnd_all, *st) + nbytes(W, b, ring, n, stopped)
              + 2 * 4 * Bs)
     bms, by = bound_ms(moved, 7 * Bs * f)
-    err = {k: max(c["max_abs_err"][k] for c in chains.values())
+    return dict(timed_shape=dict(B=Bs, f=f, window=win, lam=lam_t), ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, bytes=moved)
+
+
+def phase_k1(torch, timer):
+    from repro_torch.kernels import probe_step as K1
+    gen = torch.Generator().manual_seed(SEED)
+    f, win, steps = 960, 4, 12
+    eta, lam, burn_in = 0.05, 0.6, 2
+    # the 12-step chain at B = 8 and at the serving shape, B = 4 slots
+    chains = {}
+    for B in (8, 4):
+        err, margin, stops = k1_chain(torch, K1, gen, B, f, win, steps, eta,
+                                      lam, burn_in)
+        chains[B] = dict(max_abs_err=err, lambda_margin=margin,
+                         stopped_at=stops)
+    timed = k1_timed(torch, timer, K1, gen, 4, f, win, eta, burn_in)
+    # the RWKV fleet's probe width: d_phi = rwkv6-1.6b's d_model 2048
+    f_rwkv = 2048
+    err_r, margin_r, stops_r = k1_chain(torch, K1, gen, 4, f_rwkv, win,
+                                        steps, eta, lam, burn_in)
+    rwkv = dict(f=f_rwkv, B=4, max_abs_err=err_r, lambda_margin=margin_r,
+                stopped_at=stops_r,
+                **k1_timed(torch, timer, K1, gen, 4, f_rwkv, win, eta,
+                           burn_in))
+    err = {k: max([c["max_abs_err"][k] for c in chains.values()]
+                  + [err_r[k]])
            for k in chains[8]["max_abs_err"]}
     res = dict(phase="k1", steps=steps, f=f, window=win,
                chains={str(B): c for B, c in chains.items()},
-               max_abs_err=err, timed_shape=dict(B=Bs, f=f, window=win,
-                                                 lam=lam_t),
-               ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-               bytes=moved, library_ms=None)
+               max_abs_err=err, **timed, library_ms=None, rwkv_width=rwkv)
     emit(res)
     return res
 
@@ -1742,6 +1753,7 @@ def kernel_counters():
     from repro_torch.kernels import paged_decode as K2
     from repro_torch.kernels import probe_step as K1
     from repro_torch.kernels import probe_spec as K4
+    from repro_torch.kernels import rwkv6_scan as K8
     from repro_torch.kernels import ttt_scan as K5
     return {"serving_probe_step": K1.serving_probe_step,
             "serving_probe_spec_step": K4.serving_probe_spec_step,
@@ -1750,7 +1762,8 @@ def kernel_counters():
             "paged_flash_packed_chunk": K3.paged_flash_packed_chunk,
             "ttt_probe_batched": K5.ttt_probe_batched,
             "flash_decode": K6.flash_decode,
-            "flash_attention": K7.flash_attention}
+            "flash_attention": K7.flash_attention,
+            "wkv_scan": K8.wkv_scan}
 
 
 def zero_launches() -> None:
@@ -1762,13 +1775,14 @@ def read_launches():
     return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
-def serve_fleet(torch, extra_argv=(), *, phase, requests, need, paged=True):
+def serve_fleet(torch, extra_argv=(), *, phase, requests, need, paged=True,
+                arch="smollm-360m"):
     """The serving driver end to end, on a paged fleet or (``paged=False``)
     a dense one; every kernel in ``need`` must have launched during it
     (counts zeroed just before, read just after).  Returns the phase's
     record and the driver's ``ServeResult``."""
     from repro_torch.launch import serve
-    argv = ["--arch", "smollm-360m", *(["--paged"] if paged else []),
+    argv = ["--arch", arch, *(["--paged"] if paged else []),
             "--requests", str(requests), "--slots", "4", "--max-new-tokens",
             "96", "--seed", str(SEED), *extra_argv]
     zero_launches()
@@ -2494,6 +2508,361 @@ def phase_static_fleet(torch, sched, requests: int = 4):
 
 
 # ---------------------------------------------------------------------------
+# phases k8, model-rwkv, serve-rwkv, trace-rwkv and serve-rwkv-f32: RWKV6
+# served through K8 (the WKV scan), K1 at f 2048 and K5
+
+# K8 against its plain version: f32, the same per-element state recurrence
+# with another summation order for out's dot over the 64 key channels;
+# each within this share of the plain version's largest |value|
+K8_RTOL = 1e-5
+# (B, T): the served decode step, an admission, the harvest's prefill and
+# decode steps, T not a multiple of the Pallas chunk (64), a long prefill;
+# the timed ones
+K8_CASES = ((4, 1, True), (1, 16, True), (24, 16, True), (24, 1, False),
+            (1, 100, False), (1, 2048, True))
+RWKV_ARCH = "rwkv6-1.6b"
+
+
+def k8_inputs(torch, gen, B, T, H, d, decay, s0_zero):
+    """r, k, v ~ N(0, 1); u small; w = exp(-exp(x)) with x around 2
+    ("near 0", w ~ 6e-4), 0 ("mid", w ~ 0.37) or -6 ("near 1", w ~
+    0.9975); s0 zero or ~ N(0, 1)."""
+    mean = {"near 0": 2.0, "mid": 0.0, "near 1": -6.0}[decay]
+    r, k, v = (torch.randn(B, T, H, d, generator=gen).to(DEV)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(mean + 0.5 * torch.randn(
+        B, T, H, d, generator=gen))).to(DEV)
+    u = (0.5 * torch.randn(H, d, generator=gen)).to(DEV)
+    s0 = (torch.zeros(B, H, d, d) if s0_zero
+          else torch.randn(B, H, d, d, generator=gen)).to(DEV)
+    return r, k, v, w, u, s0
+
+
+def k8_errs(got, want):
+    """(max |got - want| / max |want|, max |got - want|) over out and
+    state."""
+    diffs = [(float((a - b).abs().max()), float(b.abs().max()))
+             for a, b in zip(got, want)]
+    return (max(d / max(m, 1e-30) for d, m in diffs),
+            max(d for d, _ in diffs))
+
+
+def k8_bytes_ops(B, T, H, d):
+    """Each input read once (r, k, v, w, u, s0), each output written once
+    (out, state); 7 f32 operations per state element a step (k v, u kv,
+    + S, r att and its sum, w S + kv)."""
+    n = B * T * H * d
+    moved = 4 * (4 * n + H * d + 2 * B * H * d * d + n)
+    return moved, 7 * B * T * H * d * d
+
+
+def plain_wkv(K8):
+    """K8's plain version behind the wrapper's signature."""
+    def fn(r, k, v, w, u, s0, *, state_out=None):
+        out, S = K8.wkv_scan_plain(r, k, v, w, u, s0)
+        return (out, S) if state_out is None else (out, state_out.copy_(S))
+    return fn
+
+
+class CheckedK8:
+    """K8 on the inputs the model gives it, each call held against the
+    plain version on the same inputs (K8_RTOL), the state compared before
+    the kernel overwrites it in place."""
+
+    def __init__(self, K8):
+        self.K8 = K8
+        self.calls, self.err, self.abs_err, self.max_T = 0, 0.0, 0.0, 0
+
+    def __call__(self, r, k, v, w, u, s0, *, state_out=None):
+        want = self.K8.wkv_scan_plain(r, k, v, w, u, s0)
+        got = self.K8.wkv_scan(r, k, v, w, u, s0, state_out=state_out)
+        err, abs_err = k8_errs(got, want)
+        if not err <= K8_RTOL:
+            raise AssertionError(f"K8 in the model, call {self.calls} (B, T "
+                                 f"= {tuple(r.shape[:2])}): relative err "
+                                 f"{err}")
+        self.calls += 1
+        self.err = max(self.err, err)
+        self.abs_err = max(self.abs_err, abs_err)
+        self.max_T = max(self.max_T, r.shape[1])
+        return got
+
+
+class SwapWKV:
+    """Within the block, the RWKV6 model's WKV scan runs ``impl`` instead
+    of K8: by default K8's plain version (what the model computes without
+    the kernel)."""
+
+    def __init__(self, impl=None):
+        self.impl = impl
+
+    def __enter__(self):
+        from repro_torch.kernels import rwkv6_scan as K8
+        from repro_torch.models import rwkv6 as R
+        self.served = R.wkv_kernel
+        R.wkv_kernel = self.impl or plain_wkv(K8)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import rwkv6 as R
+        R.wkv_kernel = self.served
+        return False
+
+
+def phase_k8(torch, timer):
+    """K8 against its plain version at the path's shapes (H 32, d 64), with
+    s0 zero and nonzero, w near 0, mid and near 1; T = 100 split in two
+    calls carrying the state; the in-place state update; d = 32 refused;
+    timed beside the plain version with the byte/operation bound."""
+    from repro_torch.kernels import rwkv6_scan as K8
+    gen = torch.Generator().manual_seed(SEED + 8)
+    H, d = 32, 64
+    rows, worst, worst_abs = [], 0.0, 0.0
+    for B, T, timed in K8_CASES:
+        errs = {}
+        for decay, s0_zero in (("mid", True), ("near 0", False),
+                               ("near 1", False)):
+            args = k8_inputs(torch, gen, B, T, H, d, decay, s0_zero)
+            got = K8.wkv_scan(*args)
+            want = K8.wkv_scan_plain(*args)
+            sync(torch)
+            if not all(torch.isfinite(t).all() for t in got):
+                raise AssertionError(f"K8 ({B}, {T}) {decay}: not finite")
+            rel, abs_err = k8_errs(got, want)
+            errs[f"{decay}, s0 {'zero' if s0_zero else 'random'}"] = rel
+            worst_abs = max(worst_abs, abs_err)
+        row = dict(B=B, T=T, H=H, d=d, rel_err=errs, tol=K8_RTOL)
+        if max(errs.values()) > K8_RTOL:
+            raise AssertionError(f"K8 ({B}, {T}) off its plain version: "
+                                 f"{errs}")
+        worst = max(worst, max(errs.values()))
+        if timed:
+            r, k, v, w, u, s0 = args
+            row["ms"] = timer(lambda: K8.wkv_scan(r, k, v, w, u, s0))
+            row["plain_ms"] = timer(lambda: K8.wkv_scan_plain(
+                r, k, v, w, u, s0), reps=30 if T < 1000 else 3, warmup=1)
+            moved, ops = k8_bytes_ops(B, T, H, d)
+            row["bound_ms"], row["bound_by"] = bound_ms(moved, ops)
+            row["bytes"], row["operations"] = moved, ops
+            row["library_ms"] = None
+        emit(dict(phase="k8", **row))
+        rows.append(row)
+    # the state carried across two calls equals one call's; and in place
+    r, k, v, w, u, s0 = k8_inputs(torch, gen, 1, 100, H, d, "near 1", False)
+    one = K8.wkv_scan(r, k, v, w, u, s0)
+    cut = 37
+    st = s0.clone()
+    a, _ = K8.wkv_scan(r[:, :cut].contiguous(), k[:, :cut].contiguous(),
+                       v[:, :cut].contiguous(), w[:, :cut].contiguous(), u,
+                       st, state_out=st)
+    b, _ = K8.wkv_scan(r[:, cut:].contiguous(), k[:, cut:].contiguous(),
+                       v[:, cut:].contiguous(), w[:, cut:].contiguous(), u,
+                       st, state_out=st)
+    split = (torch.cat([a, b], dim=1), st)
+    split_err, _ = k8_errs(split, one)
+    if split_err > K8_RTOL:
+        raise AssertionError(f"K8: two calls off one call by {split_err}")
+    split_bitwise = all(torch.equal(x, y) for x, y in zip(split, one))
+    try:
+        K8.wkv_scan(*k8_inputs(torch, gen, 1, 2, 2, 32, "mid", False))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("K8 took d = 32 on the card")
+    res = dict(phase="k8-checks", split_at=cut, split_rel_err=split_err,
+               split_bitwise=split_bitwise, d32_refused=refused,
+               max_rel_err=max(worst, split_err), max_abs_err=worst_abs)
+    emit(res)
+    return rows, res
+
+
+def rwkv_teacher_forced(torch, model, params, prompt, feed, wkv):
+    """Prefill the prompt, then decode the fed tokens one step at a time,
+    with the model's WKV scan swapped for ``wkv``; then one prefill of
+    prompt + feed, whose logits at the fed positions the decode steps
+    must give.  Returns (decode logits per step, one-shot logits per
+    step)."""
+    cfg = model.cfg
+    B, S = prompt.shape
+    V = cfg.vocab_size
+    with SwapWKV(wkv):
+        state, _, _ = model.prefill(cfg, params, {"tokens": prompt}, 0)
+        steps = []
+        for t in range(feed.shape[0]):
+            pos = torch.full((B,), S + t, dtype=torch.int32, device=DEV)
+            lg, _, state = model.decode_step(cfg, params, feed[t], state, pos)
+            steps.append(lg[:, :V].float())
+        seq = torch.cat([prompt, feed.T], dim=1)
+        _, _, h = model.prefill(cfg, params, {"tokens": seq}, 0)
+        one = (h[:, S:] @ params["lm_head"].to(h.dtype))[..., :V].float()
+    for t, lg in enumerate(steps):
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"rwkv: non-finite logits at step {t}")
+    return steps, [one[:, t] for t in range(feed.shape[0])]
+
+
+def phase_model_rwkv(torch, reduced: bool = False):
+    """Full-width rwkv6-1.6b (bf16, random weights from a seed, then the
+    same weights in f32): prefill 16 tokens, 64 teacher-forced decode
+    steps through K8, every K8 call held against the plain version on its
+    inputs; each step's logits against one prefill over the whole sequence
+    (the JAX suite's ``test_model_consistency``).  In f32 every argmax is
+    equal and the logits sit within 2^-10 of the largest."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rwkv6_scan as K8
+    from repro_torch.models import build
+    cfg = get_config(RWKV_ARCH)
+    if reduced:
+        cfg = cfg.reduced()
+    model = build(cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    params = model.init(gen, DEV)
+    n_params = sum(t.numel() for t in _leaves(params))
+    B, S, steps = 4, 16, 64
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           dtype=torch.int32).to(DEV)
+    feed = torch.randint(0, cfg.vocab_size, (steps, B), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    out = {}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    for name, mdl, prm in (("bf16", model, params),
+                           ("f32", build(cfg32),
+                            _tree(params, lambda t: t.float()))):
+        checked = CheckedK8(K8)
+        t0 = time.perf_counter()
+        dec, one = rwkv_teacher_forced(torch, mdl, prm, prompt, feed,
+                                          checked)
+        sync(torch)
+        diffs = [float((a - b).abs().max()) for a, b in zip(dec, one)]
+        agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
+                 for a, b in zip(dec, one)]
+        scale = max(float(b.abs().max()) for b in one)
+        out[name] = dict(k8_calls=checked.calls, k8_rel_err=checked.err,
+                         k8_abs_err=checked.abs_err,
+                         k8_max_T=checked.max_T,
+                         max_logit_diff_per_step=diffs,
+                         argmax_agree_per_step=agree, max_abs_logit=scale,
+                         wall_s=time.perf_counter() - t0)
+    # f32: the decode steps and the one-shot prefill run the same
+    # recurrence with other matrix shapes (M = 4 against M = 320), so they
+    # differ by f32 rounding amplified through 24 random-weight layers;
+    # 2^-10 of the largest logit leaves orders of magnitude of room
+    f32 = out["f32"]
+    f32["bound"] = f32["max_abs_logit"] * 2.0 ** -10
+    if min(f32["argmax_agree_per_step"]) < 1.0:
+        raise AssertionError("rwkv f32: a decode step's argmax differs from "
+                             "the one-shot prefill's")
+    if max(f32["max_logit_diff_per_step"]) > f32["bound"]:
+        raise AssertionError(f"rwkv f32: logits "
+                             f"{max(f32['max_logit_diff_per_step'])} from "
+                             f"the one-shot prefill > {f32['bound']}")
+    calls = cfg.n_layers * (2 + steps)
+    for name in out:
+        if out[name]["k8_calls"] != calls:
+            raise AssertionError(f"rwkv {name}: {out[name]['k8_calls']} K8 "
+                                 f"calls, expected {calls}")
+    res = dict(phase="model-rwkv", arch=cfg.name, layers=cfg.n_layers,
+               d_model=cfg.d_model, heads=cfg.n_heads,
+               head_dim=cfg.ssm.head_dim, d_ff=cfg.d_ff,
+               vocab=cfg.vocab_size, params=n_params, batch=B, prompt=S,
+               decode_steps=steps, **out)
+    emit(res)
+    return res
+
+
+RWKV_NEED = ("serving_probe_step", "wkv_scan", "ttt_probe_batched")
+RWKV_NEVER = ("paged_flash_decode", "paged_flash_prefill_chunk",
+              "paged_flash_packed_chunk", "serving_probe_spec_step",
+              "flash_decode", "flash_attention")
+
+
+def phase_serve_rwkv(torch, requests: int = 8, harvest: int = 24,
+                     harvest_steps: int = 96):
+    """``launch.serve --arch rwkv6-1.6b``: the serve fleet (8 requests on
+    4 slots, 16-token prompts, 96 new tokens, 24 harvested trajectories) on
+    the recurrent state.  K1, K8 and K5 launch; K8 once a layer for the
+    harvest's prefill, each of its decode steps, each admission and each
+    engine step; no attention kernel and no K4."""
+    res, out = serve_fleet(torch, phase="serve-rwkv", requests=requests,
+                           need=RWKV_NEED, paged=False, arch=RWKV_ARCH)
+    layers = out.scheduler.model.cfg.n_layers
+    fleet = out.fleet
+    lc = res["launches"]
+    want = layers * (1 + harvest_steps + requests + fleet.engine_steps)
+    if lc["wkv_scan"] != want:
+        raise AssertionError(f"K8 launched {lc['wkv_scan']} times, expected "
+                             f"{want} = {layers} x (1 harvest prefill + "
+                             f"{harvest_steps} harvest steps + {requests} "
+                             f"admissions + {fleet.engine_steps} engine "
+                             f"steps)")
+    ran = [k for k in RWKV_NEVER if lc[k]]
+    if ran:
+        raise AssertionError(f"{ran} launched in the RWKV fleet: {lc}")
+    res.update(step_ms=fleet.wall_time_s / fleet.engine_steps * 1e3,
+               k8_launches_expected=want, k8_launches_per_step=layers,
+               params=sum(t.numel() for t in _leaves(out.scheduler.params)))
+    emit(res)
+    return res, out
+
+
+def phase_rwkv_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
+    """The RWKV fleet in float32 through ``OrcaScheduler`` at a lambda*
+    between its scores (phase serve-spec-f32's machinery), served once
+    through K8 and once with the WKV scan on its plain version: every stop
+    step and every token equal."""
+    import dataclasses
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.serving import OrcaScheduler, ServeConfig, make_request
+    cfg32 = dataclasses.replace(sched.model.cfg, dtype="float32")
+    model32 = build(cfg32)
+    params32 = _tree(sched.params, lambda t: t.float())
+    batch = serve.model_inputs(cfg32, torch.Generator().manual_seed(SEED + 1),
+                               requests, prompt_len)
+    base = dict(n_slots=4, tokens_per_step=8, max_new_tokens=96, burn_in=2)
+
+    def fleet(lam):
+        zero_launches()
+        t0 = time.perf_counter()
+        done, fl = OrcaScheduler(model32, params32, sched.pc, sched.theta,
+                                 ServeConfig(lam=lam, **base)).run(
+            [make_request(t) for t in batch["tokens"]])
+        sync(torch)
+        return done, fl, time.perf_counter() - t0, read_launches()
+
+    free, _, _, _ = fleet(2.0)
+    lam, margin = choose_lambda([r.scores for r in free], base["burn_in"])
+    if margin < 1e-4:
+        raise AssertionError(f"every threshold lies within {margin} of a "
+                             "score: the check would hang on a tie")
+    kern, kern_fl, kern_s, kern_l = fleet(lam)
+    with SwapWKV():
+        plain, plain_fl, plain_s, plain_l = fleet(lam)
+    stops = [r.stop_step for r in kern]
+    if [r.stop_step for r in plain] != stops:
+        raise AssertionError(f"f32 RWKV stops through the plain scan "
+                             f"{[r.stop_step for r in plain]} differ from "
+                             f"K8's {stops}")
+    if [r.tokens for r in plain] != [r.tokens for r in kern]:
+        raise AssertionError("f32 RWKV tokens through the plain scan differ "
+                             "from K8's")
+    if not kern_l["wkv_scan"] or plain_l["wkv_scan"]:
+        raise AssertionError(f"K8 launches: {kern_l['wkv_scan']} through "
+                             f"the kernel, {plain_l['wkv_scan']} plain")
+    res = dict(phase="serve-rwkv-f32", lam=lam, lambda_margin=margin,
+               stop_steps=stops, stopped=sum(s >= 0 for s in stops),
+               kernel=dict(engine_steps=kern_fl.engine_steps, wall_s=kern_s,
+                           tokens_per_s=kern_fl.tokens_per_s,
+                           k8_launches=kern_l["wkv_scan"]),
+               plain=dict(engine_steps=plain_fl.engine_steps,
+                          wall_s=plain_s,
+                          tokens_per_s=plain_fl.tokens_per_s))
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2554,6 +2923,11 @@ def main() -> int:
         torch, ("--static-baseline",), phase="serve-static", requests=4,
         need=SERVE_NEED + ("ttt_probe_batched",))
     phase_static_fleet(torch, out_st.scheduler)
+    k8, k8_checks = phase_k8(torch, timer)
+    rwkv_model = phase_model_rwkv(torch)
+    served_r, out_r = phase_serve_rwkv(torch)
+    phase_trace(torch, out_r.scheduler, phase="trace-rwkv")
+    phase_rwkv_stops(torch, out_r.scheduler)
     k2_main = k2[0]
     # absolute errors: phase k2's m and outputs, the model's outputs
     k2_err = max([max(r["m_err"], r["out_err"]) for r in k2]
@@ -2638,6 +3012,16 @@ def main() -> int:
              plain_ms=k7_main["plain_ms"], bound_ms=k7_main["bound_ms"],
              bound_by=k7_main["bound_by"],
              library_ms=k7_main["library_ms"]),
+        dict(name="wkv_scan", route="cuda",
+             source="src/repro_torch/csrc/rwkv6_scan.cu",
+             replaces="src/repro/kernels/rwkv6_scan.py:53",
+             launches=served_r["launches"]["wkv_scan"],
+             max_abs_err=max([k8_checks["max_abs_err"]]
+                             + [rwkv_model[p]["k8_abs_err"]
+                                for p in ("bf16", "f32")]),
+             ms=k8[0]["ms"], plain_ms=k8[0]["plain_ms"],
+             bound_ms=k8[0]["bound_ms"], bound_by=k8[0]["bound_by"],
+             library_ms=None),
     ]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

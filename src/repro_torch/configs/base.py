@@ -202,12 +202,16 @@ ALIASES = {
 }
 
 
+# the configs the port carries; every other family raises
+PORTED = ("smollm_360m", "rwkv6_1b6")
+
+
 def get_config(name: str) -> ModelConfig:
     mod_name = ALIASES.get(name, name).replace("-", "_")
-    if mod_name in ARCH_IDS and mod_name != "smollm_360m":
+    if mod_name in ARCH_IDS and mod_name not in PORTED:
         raise NotImplementedError(
-            f"{name!r} is not ported to repro_torch yet: slice 1 carries "
-            "smollm-360m only; the other families come with ROADMAP queue A "
-            "(other families)")
+            f"{name!r} is not ported to repro_torch yet: the port carries "
+            "smollm-360m and rwkv6-1.6b; the other families come with "
+            "ROADMAP queue A7 (other families)")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG

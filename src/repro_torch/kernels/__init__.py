@@ -16,6 +16,7 @@ from repro_torch.kernels.probe_spec import (SpecProbeOut,
                                             serving_probe_spec_step_plain)
 from repro_torch.kernels.probe_step import (ProbeStepOut, serving_probe_step,
                                             serving_probe_step_plain)
+from repro_torch.kernels.rwkv6_scan import wkv_scan, wkv_scan_plain
 from repro_torch.kernels.ttt_scan import (make_unroll_kernel,
                                           ttt_probe_batched,
                                           ttt_probe_batched_plain,
@@ -29,4 +30,5 @@ __all__ = ["ProbeStepOut", "paged_attend", "paged_attend_plain",
            "serving_probe_spec_step_plain",
            "serving_probe_step", "serving_probe_step_plain",
            "make_unroll_kernel", "ttt_probe_batched",
-           "ttt_probe_batched_plain", "ttt_probe_scan"]
+           "ttt_probe_batched_plain", "ttt_probe_scan", "wkv_scan",
+           "wkv_scan_plain"]

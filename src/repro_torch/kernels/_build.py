@@ -51,6 +51,8 @@ SIGNATURES = {
     "flash_attention_launch": [_P, _P, _P, _P, _c.c_int, _c.c_int, _c.c_int,
                                _c.c_int, _c.c_int, _c.c_int, _c.c_int,
                                _c.c_int, _c.c_int, _c.c_float, _P],
+    "wkv_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _c.c_int, _c.c_int,
+                        _c.c_int, _c.c_int, _P],
     "cuda_error_string": [_c.c_int],
 }
 

@@ -3,9 +3,13 @@
 Parameters are declared once as ``Param`` leaves (shape + initializer) in a
 nested dict with the JAX package's names and layouts — stacked layer leaves
 keep their leading ``L`` axis — and ``init_params`` instantiates them from a
-``torch.Generator``.  Parameters are stored in the model's compute dtype
-(``cfg.dtype``): the JAX package keeps float32 leaves and casts each one to
-the compute dtype at use, which rounds to the same values.
+``torch.Generator``.  The JAX package keeps every leaf in float32 and casts
+it at use.  Most leaves are cast to the compute dtype (``cfg.dtype``)
+there, so the port stores them in it, rounded once to the values the casts
+give.  A few are read through a float32 cast instead (RWKV6's ``u``,
+``w0``, its group-norm and LayerNorm scales and biases): rounding those to
+bf16 would change the model, so their ``Param`` says ``dtype="float32"``
+and they stay float32 whatever the compute dtype.
 """
 from __future__ import annotations
 
@@ -34,8 +38,10 @@ def cdtype(cfg) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class Param:
     shape: Tuple[int, ...]
-    init: str = "normal"                  # normal | zeros | ones | embed
+    init: str = "normal"                  # normal | zeros | ones | embed | small
     scale: float = 1.0
+    # None: stored in the compute dtype; "float32": kept float32
+    dtype: Optional[str] = None
 
 
 def stack_decls(decls, n: int):
@@ -56,7 +62,7 @@ def _leaf_init(p: Param, gen: Optional[torch.Generator]) -> torch.Tensor:
         # (the stacked-layer axis for per-layer matrices)
         fan_in = p.shape[0] if len(p.shape) >= 2 else max(p.shape[-1], 1)
         return x * (p.scale / math.sqrt(fan_in))
-    if p.init == "embed":
+    if p.init in ("embed", "small"):
         return x * (0.02 * p.scale)
     raise ValueError(p.init)
 
@@ -64,9 +70,11 @@ def _leaf_init(p: Param, gen: Optional[torch.Generator]) -> torch.Tensor:
 def init_params(decls, generator: Optional[torch.Generator] = None,
                 dtype: torch.dtype = torch.float32, device="cpu"):
     """Instantiate a decl tree: same distributions as the JAX package's
-    ``init_params``, drawn from ``generator`` (so not the same numbers)."""
+    ``init_params``, drawn from ``generator`` (so not the same numbers), in
+    ``dtype`` except for the leaves declared float32."""
     if isinstance(decls, Param):
-        return _leaf_init(decls, generator).to(device=device, dtype=dtype)
+        dt = torch_dtype(decls.dtype) if decls.dtype else dtype
+        return _leaf_init(decls, generator).to(device=device, dtype=dt)
     return {k: init_params(v, generator, dtype, device)
             for k, v in decls.items()}
 
@@ -135,3 +143,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 def swiglu(gate, up):
     return torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
+
+
+def relu_sq(x):
+    r = torch.relu(x)
+    return r * r

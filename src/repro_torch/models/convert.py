@@ -15,6 +15,22 @@ array.  Names and layouts map one to one:
     layers.mlp.w_down         (L, d_ff, d)
     lm_head                   (d, V_pad)    untied embeddings only
 
+RWKV6 (``models/rwkv6.py``), the same way; (f32) marks the leaves the
+model reads through a float32 cast, which stay float32 when the rest is
+converted to bf16 (pass the model's ``decls``):
+
+    embed (V_pad, d); lm_head (d, V_pad)
+    ln0.scale / .bias, final_norm.scale / .bias        (d,)      (f32)
+    layers.ln1 / ln2 .scale / .bias                    (L, d)    (f32)
+    layers.tm.mu              (L, 5, d)     r, k, v, w, g token-shift mixes
+    layers.tm.w0              (L, d)        (f32) decay offset
+    layers.tm.wA / wB         (L, d, 64) / (L, 64, d)  decay LoRA
+    layers.tm.u               (L, H, dh)    (f32) current-token bonus
+    layers.tm.Wr / Wk / Wv / Wg / Wo        (L, d, d)  x @ W
+    layers.tm.gn_scale / gn_bias            (L, d)     (f32) group norm
+    layers.cm.mu_k / mu_r     (L, d)
+    layers.cm.Wk (L, d, d_ff); cm.Wv (L, d_ff, d); cm.Wr (L, d, d)
+
 The probe's slow weights (``repro.core.probe.init_outer``'s dict: W0 (f,),
 b0 (), theta_q/theta_k (d_phi, d_h), ...) map the same way.
 """
@@ -26,23 +42,30 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.common import Param, torch_dtype
 
 
-def _convert(tree, dtype, device):
+def _convert(tree, dtype, device, decls=None):
     if isinstance(tree, dict):
-        return {k: _convert(v, dtype, device) for k, v in tree.items()}
+        return {k: _convert(v, dtype, device,
+                            None if decls is None else decls[k])
+                for k, v in tree.items()}
     arr = np.asarray(tree)
     t = torch.from_numpy(np.array(arr, dtype=np.float32, copy=True))
+    if isinstance(decls, Param) and decls.dtype is not None:
+        dtype = torch_dtype(decls.dtype)
     return t.to(device=device, dtype=dtype)
 
 
 def from_jax_params(tree: Dict[str, Any], *,
                     dtype: Optional[torch.dtype] = torch.float32,
-                    device=None) -> Dict[str, Any]:
+                    device=None, decls=None) -> Dict[str, Any]:
     """JAX model parameters (nested dicts of numpy arrays) -> the port's
     parameter dict, same names and layouts, as ``dtype`` tensors on
-    ``device`` (pass the model's compute dtype)."""
-    return _convert(tree, dtype, resolve_device(device))
+    ``device`` (pass the model's compute dtype).  With the model's
+    ``decls`` (``Model.decls``), the leaves it declares float32 stay
+    float32 whatever ``dtype`` is, as ``Model.init`` keeps them."""
+    return _convert(tree, dtype, resolve_device(device), decls)
 
 
 def from_jax_theta(theta: Dict[str, Any], device=None

@@ -6,7 +6,8 @@ package's:
     init(generator, device) -> params
     prefill(cfg, params, batch, cache_len) -> (state, last_hidden, hidden)
     decode_step(cfg, params, token, state, pos) -> (logits, hidden, state)
-    init_decode_state(batch, cache_len, device) -> dense KV state
+    init_decode_state(batch, cache_len, device) -> dense KV state (the
+        recurrent O(1) state for RWKV6, ``cache_len`` unused)
     init_paged_state(batch, num_blocks, block_size, max_blocks, device)
     prefill_chunk(cfg, params, tokens, state, rows, pos_start, chunk_len,
                   block_rows=None) -> state
@@ -16,9 +17,11 @@ package's:
                   block_rows=None) -> (logits, hidden, state)
     draft(cfg, params, state, token, pos, k) -> (B, k - 1) drafts
 
-Only the dense family is ported; the others raise.  Tree speculative
-decode (``verify_tree``, ``commit_kv``, ``draft_tree``) comes with ROADMAP
-A1b.
+The dense family and RWKV6 (``ssm``) are ported; the others raise.
+RWKV6 has no page layout, no chunked or packed prefill and no speculative
+decode, as in the JAX package: the serving layer falls back to a dense
+state and admission-time prefill for it.  Tree speculative decode
+(``verify_tree``, ``commit_kv``, ``draft_tree``) comes with ROADMAP A1b.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 from repro_torch.models.common import cdtype, init_params
 
 
@@ -82,8 +85,9 @@ class Model:
 
     def init(self, generator: Optional[torch.Generator] = None,
              device=None):
-        """Random parameters in the compute dtype, drawn on the CPU from
-        ``generator`` and moved to ``device`` (None: CUDA)."""
+        """Random parameters in the compute dtype (the leaves declared
+        float32 stay float32), drawn on the CPU from ``generator`` and
+        moved to ``device`` (None: CUDA)."""
         return init_params(self.decls, generator, cdtype(self.cfg),
                            resolve_device(device))
 
@@ -111,9 +115,21 @@ def _build_dense(cfg: ModelConfig) -> Model:
                  draft=transformer.draft_tokens, self_draft=True)
 
 
+def _build_rwkv(cfg: ModelConfig) -> Model:
+    def init_decode_state(batch: int, cache_len: int, device=None):
+        return rwkv6.init_state(cfg, batch, device=resolve_device(device))
+
+    return Model(cfg=cfg, decls=rwkv6.decls(cfg), prefill=rwkv6.prefill,
+                 decode_step=rwkv6.decode_step,
+                 init_decode_state=init_decode_state)
+
+
 def build(cfg: ModelConfig) -> Model:
     if cfg.arch_type == "dense":
         return _build_dense(cfg)
+    if cfg.arch_type == "ssm":
+        return _build_rwkv(cfg)
     raise NotImplementedError(
-        f"{cfg.name} ({cfg.arch_type}): only the dense family is ported to "
-        "repro_torch; the others come with ROADMAP queue A (other families)")
+        f"{cfg.name} ({cfg.arch_type}): only the dense family and RWKV6 are "
+        "ported to repro_torch; the others come with ROADMAP A7 (other "
+        "families)")

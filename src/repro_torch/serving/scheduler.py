@@ -36,6 +36,12 @@ Paged admission reserves ``ceil((prompt_len + max_new) / block_size)``
 pages all-or-nothing (a request that does not fit stays WAITING); a prompt
 already resident is admitted as a block-table copy + refcount bump on the
 shared full prompt pages, with only the partial tail page copied.
+
+Families without a page layout, chunked prefill or speculative decode
+(RWKV6: an O(1) recurrent state) are served as in the JAX package: with
+``paged=True`` the pool still admission-controls while the engine keeps a
+dense state, and ``chunk_tokens`` / ``spec_tokens`` warn and fall back to
+admission-time prefill and one-token decode.
 """
 from __future__ import annotations
 
@@ -119,6 +125,15 @@ class OrcaScheduler:
         # unless ``pack_chunks=False``), bounded by ``token_budget`` tokens
         # per step (default: n_slots decode tokens + one full chunk)
         self.chunk_tokens = int(chunk_tokens) if chunk_tokens else None
+        if self.chunk_tokens is not None and not model.supports_chunked:
+            warnings.warn(
+                f"chunk_tokens={self.chunk_tokens} ignored: model family "
+                f"{model.cfg.name!r} has no chunked/packed prefill — "
+                "serving falls back to admission-time (one-shot) prefill; "
+                "drop chunk_tokens or use a family with "
+                "supports_chunked=True to silence this",
+                RuntimeWarning, stacklevel=2)
+            self.chunk_tokens = None      # family without prefill_chunk
         # speculative draft-verify decode: each RUNNING slot may ride the
         # packed verify chunk with up to spec_tokens tokens per step, drawn
         # from the same token budget the prefill share composes against
@@ -220,6 +235,9 @@ class OrcaScheduler:
                            for r in requests] + [self.cfg.max_new_tokens])
             cache_len = max_prompt + max_new
         rebuild = self._engine is None or self._engine.cache_len < cache_len
+        # device-paged only for families with a page layout; every family
+        # still gets pool-based admission control (backpressure)
+        device_paged = self.paged and self.model.supports_paged
         if self.paged:
             cache_len = max([cache_len]
                             + [self._request_tokens(r) for r in requests])
@@ -249,7 +267,7 @@ class OrcaScheduler:
                                      self._engine.cache_len, cache_len)
             self._engine = ContinuousServingEngine(
                 self.model, self.params, self.pc, self.theta, self.cfg,
-                self.n_slots, cache_len, paged=self.paged,
+                self.n_slots, cache_len, paged=device_paged,
                 block_size=self.block_size, num_blocks=num_blocks,
                 chunk_tokens=self.chunk_tokens, pack_max=self.pack_max,
                 spec_tokens=self.spec_tokens)
@@ -537,13 +555,16 @@ class OrcaScheduler:
                         # the prompt K/V once the last chunk lands
                         plans[slot] = plan
                     continue
-                if plan is not None:
+                if plan is not None and eng.paged:
                     eng.admit(slot, req.inputs, req.prompt_len,
                               block_row=plan.row, skip_prefill=skip,
                               copy_tail=plan.copy_tail)
-                    self._register_donor(req, plan)
                 else:
+                    # family without a page layout: the pool still
+                    # admission-controls, the device state stays dense
                     eng.admit(slot, req.inputs, req.prompt_len)
+                if plan is not None:
+                    self._register_donor(req, plan)
                 req.state = RequestState.RUNNING
                 running[slot] = req
 
