@@ -9,7 +9,8 @@ non-zero:
 1. build    -- compile the hand-written kernels from ``src/repro_torch/csrc``
 2. k1       -- the serving probe step against its plain PyTorch version
                over 12 chained steps at B=8 and at the serving shape B=4
-               (f=960); timed at B=4
+               (f=960); timed at B=4; the same chain and timing at the
+               RWKV fleet's probe width (B 4, f 2048)
 3. k2       -- paged flash decode against its plain version, bf16, int8
                and f32 pages, the serving shape and nb in {8, 256}; timed
                beside scaled_dot_product_attention over the gathered pages
@@ -102,10 +103,30 @@ non-zero:
                prefill runs K7, its dense decode K6); then the static probe
                (``api.fit(method="static")``) served through
                ``api.engine``: K1 runs and leaves every W at W0 (eta = 0)
-23. kernels  -- one entry per kernel: launches on its path (phase 12 for
+23. k8       -- the RWKV6 WKV scan against its plain version, H 32, d 64:
+               (B, T) (4, 1) served decode, (1, 16) admission, (24, 16)
+               and (24, 1) the harvest's prefill and decode, (1, 100),
+               (1, 2048); s0 zero and random; w near 0, mid and near 1;
+               relative f32 error under 1e-5 of max |plain|; T 100 in two
+               calls carrying the state, in place; d 32 refused; timed at
+               (4, 1), (1, 16), (24, 16) and (1, 2048) with its bound
+24. model-rwkv -- full-width rwkv6-1.6b (bf16, then the same weights in
+               f32): prefill 16 tokens, 64 teacher-forced decode steps
+               through K8, every K8 call held against the plain version;
+               each step's logits against one prefill over the whole
+               sequence (f32: every argmax equal)
+25. serve-rwkv -- ``launch.serve --arch rwkv6-1.6b``, the serve fleet on
+               the recurrent state: K8 launches 24 x (1 harvest prefill +
+               96 harvest steps + 8 admissions + the engine steps); K1 and
+               K5 run; K2, K3, K4, K6 and K7 never
+26. trace-rwkv -- a 16-step profiled window of the RWKV fleet
+27. serve-rwkv-f32 -- the RWKV fleet in f32 through ``OrcaScheduler`` at
+               a lambda* between its scores, through K8 and through the
+               plain scan: stops and tokens equal
+28. kernels  -- one entry per kernel: launches on its path (phase 12 for
                K1, K2 and K7, 10 for K3-B3, 17 for K3-B4, 19 for K4, 21
-               for K5, 15 for K6), error against its plain version,
-               kernel / plain / library / bound ms
+               for K5, 15 for K6, 25 for K8), error against its plain
+               version, kernel / plain / library / bound ms
 
 The line before the last is ``nvidia-smi``'s card name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
