@@ -119,7 +119,9 @@ non-zero:
                the recurrent state: K8 launches 24 x (1 harvest prefill +
                96 harvest steps + 8 admissions + the engine steps); K1 and
                K5 run; K2, K3, K4, K6 and K7 never
-26. trace-rwkv -- a 16-step profiled window of the RWKV fleet
+26. trace-rwkv, harvest-rwkv -- a 16-step profiled window of the RWKV
+               fleet; its harvest timed through K8 and through the plain
+               scan in turns (K8 once a layer a prefill or decode step)
 27. serve-rwkv-f32 -- the RWKV fleet in f32 through ``OrcaScheduler`` at
                a lambda* between its scores, through K8 and through the
                plain scan: stops and tokens equal
@@ -2230,16 +2232,16 @@ class PlainDenseAttention:
         return False
 
 
-def phase_harvest(torch, sched, n: int = 24, prompt_len: int = 16,
-                  max_new: int = 96):
+def harvest_turns(torch, sched, plain, expect, n, prompt_len, max_new):
     """The driver's harvest (``trajectories_from_model``: one prefill of
-    ``n`` prompts, then ``max_new`` dense decode steps) timed through K7
-    and K6, then through their plain versions, in turns: K7 launches once
-    a layer, K6 once a layer a step."""
+    ``n`` prompts, then ``max_new`` decode steps) timed through the
+    kernels and, inside the ``plain`` context, through their plain
+    versions, in turns (plain, kernels, kernels, plain); each run through
+    the kernels must launch them as ``expect`` says.  Returns the wall
+    seconds of each turn and the harvested trajectories."""
     import numpy as np
     from repro_torch.launch import serve
     model, params = sched.model, sched.params
-    layers = model.cfg.n_layers
 
     def run():
         sync(torch)
@@ -2253,19 +2255,31 @@ def phase_harvest(torch, sched, n: int = 24, prompt_len: int = 16,
     for turn in ("plain", "kernels", "kernels", "plain"):
         zero_launches()
         if turn == "plain":
-            with PlainDenseAttention():
+            with plain():
                 wall, _ = run()
         else:
             wall, ts = run()
             launches = read_launches()
-            if (launches["flash_attention"] != layers
-                    or launches["flash_decode"] != layers * max_new):
+            got = {k: launches[k] for k in expect}
+            if got != expect:
                 raise AssertionError(f"harvest launches {launches}, "
-                                     f"expected K7 {layers} and K6 "
-                                     f"{layers * max_new}")
+                                     f"expected {expect}")
         walls[turn].append(wall)
     if not np.isfinite(ts.phis).all():
         raise AssertionError("harvested step embeddings are not finite")
+    return walls, ts
+
+
+def phase_harvest(torch, sched, n: int = 24, prompt_len: int = 16,
+                  max_new: int = 96):
+    """The driver's harvest timed through K7 and K6, then through their
+    plain versions, in turns: K7 launches once a layer, K6 once a layer a
+    step."""
+    layers = sched.model.cfg.n_layers
+    walls, ts = harvest_turns(
+        torch, sched, PlainDenseAttention,
+        {"flash_attention": layers, "flash_decode": layers * max_new}, n,
+        prompt_len, max_new)
     res = dict(phase="harvest", trajectories=n, prompt=prompt_len,
                decode_steps=max_new, wall_s=walls,
                k6_launches=layers * max_new, k7_launches=layers,
@@ -2827,6 +2841,23 @@ def phase_serve_rwkv(torch, requests: int = 8, harvest: int = 24,
     return res, out
 
 
+def phase_harvest_rwkv(torch, sched, n: int = 24, prompt_len: int = 16,
+                       max_new: int = 96):
+    """The RWKV driver's harvest timed through K8 and through the plain
+    scan, in turns: K8 once a layer for the prefill and once a layer a
+    decode step."""
+    layers = sched.model.cfg.n_layers
+    walls, ts = harvest_turns(torch, sched, SwapWKV,
+                              {"wkv_scan": layers * (1 + max_new)}, n,
+                              prompt_len, max_new)
+    res = dict(phase="harvest-rwkv", trajectories=n, prompt=prompt_len,
+               decode_steps=max_new, wall_s=walls,
+               k8_launches=layers * (1 + max_new),
+               phis_shape=list(ts.phis.shape))
+    emit(res)
+    return res
+
+
 def phase_rwkv_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
     """The RWKV fleet in float32 through ``OrcaScheduler`` at a lambda*
     between its scores (phase serve-spec-f32's machinery), served once
@@ -2948,6 +2979,7 @@ def main() -> int:
     rwkv_model = phase_model_rwkv(torch)
     served_r, out_r = phase_serve_rwkv(torch)
     phase_trace(torch, out_r.scheduler, phase="trace-rwkv")
+    phase_harvest_rwkv(torch, out_r.scheduler)
     phase_rwkv_stops(torch, out_r.scheduler)
     k2_main = k2[0]
     # absolute errors: phase k2's m and outputs, the model's outputs

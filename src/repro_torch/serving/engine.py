@@ -8,7 +8,10 @@ the calibrated threshold test.  The decode attention inside the model
 step is K2 (``repro_torch.kernels.paged_decode``) on a paged state and K6
 (``repro_torch.kernels.flash_decode``) on a dense one; every one-shot
 prompt prefill (admission, the harvest of ``extract_trajectories``) runs
-its attention through K7 (``repro_torch.kernels.flash_attention``).
+its attention through K7 (``repro_torch.kernels.flash_attention``).  A
+RWKV6 model has no attention: its O(1) recurrent state (L, B, ...) rides
+the same dense-state paths, and every prefill and decode step runs its
+WKV recurrence through K8 (``repro_torch.kernels.rwkv6_scan``).
 
 ``ContinuousServingEngine`` is the slot-level engine: each batch row
 ("slot") carries its own request at its own position (vector ``pos``), its
