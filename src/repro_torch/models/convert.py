@@ -17,7 +17,7 @@ array.  Names and layouts map one to one:
 
 RWKV6 (``models/rwkv6.py``), the same way; (f32) marks the leaves the
 model reads through a float32 cast, which stay float32 when the rest is
-converted to bf16 (pass the model's ``decls``):
+converted to bf16 (the model's ``decls`` declare them so):
 
     embed (V_pad, d); lm_head (d, V_pad)
     ln0.scale / .bias, final_norm.scale / .bias        (d,)      (f32)
@@ -36,13 +36,13 @@ b0 (), theta_q/theta_k (d_phi, d_h), ...) map the same way.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.common import Param, torch_dtype
+from repro_torch.models.common import Param, cdtype, torch_dtype
 
 
 def _convert(tree, dtype, device, decls=None):
@@ -57,15 +57,15 @@ def _convert(tree, dtype, device, decls=None):
     return t.to(device=device, dtype=dtype)
 
 
-def from_jax_params(tree: Dict[str, Any], *,
-                    dtype: Optional[torch.dtype] = torch.float32,
-                    device=None, decls=None) -> Dict[str, Any]:
+def from_jax_params(tree: Dict[str, Any], model, *,
+                    device=None) -> Dict[str, Any]:
     """JAX model parameters (nested dicts of numpy arrays) -> the port's
-    parameter dict, same names and layouts, as ``dtype`` tensors on
-    ``device`` (pass the model's compute dtype).  With the model's
-    ``decls`` (``Model.decls``), the leaves it declares float32 stay
-    float32 whatever ``dtype`` is, as ``Model.init`` keeps them."""
-    return _convert(tree, dtype, resolve_device(device), decls)
+    parameter dict for ``model`` (a ``Model`` from ``models.build``), same
+    names and layouts, on ``device``: each leaf in ``model.cfg.dtype``,
+    except the leaves ``model.decls`` declares float32, which stay float32
+    as ``Model.init`` keeps them."""
+    return _convert(tree, cdtype(model.cfg), resolve_device(device),
+                    model.decls)
 
 
 def from_jax_theta(theta: Dict[str, Any], device=None

@@ -43,7 +43,8 @@ def pair():
     jcfg = j_get_config("smollm-360m").reduced()
     cfg = get_config("smollm-360m").reduced()
     jparams = j_build(jcfg).init(jax.random.PRNGKey(0))
-    params = from_jax_params(jax.tree.map(np.asarray, jparams), device="cpu")
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), build(cfg),
+                             device="cpu")
     return jcfg, jparams, cfg, params
 
 

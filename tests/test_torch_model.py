@@ -50,7 +50,8 @@ def _pair(kv_cache_dtype=None):
     jmodel = j_build(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
     tree = jax.tree.map(np.asarray, jparams)
-    return jcfg, jparams, cfg, from_jax_params(tree, device="cpu")
+    return jcfg, jparams, cfg, from_jax_params(tree, build(cfg),
+                                               device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -61,9 +61,8 @@ def _pair(dtype="float32", seed=0):
     cfg = dataclasses.replace(get_config("rwkv6-1b6").reduced(), dtype=dtype)
     jmodel, model = j_build(jcfg), build(cfg)
     jparams = jmodel.init(jax.random.PRNGKey(seed))
-    params = from_jax_params(jax.tree.map(np.asarray, jparams),
-                             dtype=getattr(torch, dtype), device="cpu",
-                             decls=model.decls)
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), model,
+                             device="cpu")
     return jmodel, jparams, model, params
 
 

@@ -65,7 +65,7 @@ def _models(kv_cache_dtype=None):
     jmodel = j_build(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
     model = build(cfg)
-    params = from_jax_params(jax.tree.map(np.asarray, jparams),
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), model,
                              device="cpu")
     # decisive probe (the ``_probe(cfg, 3.0)`` pattern of the JAX suite):
     # scores sit far above lambda*, so no stop hangs on a near tie
