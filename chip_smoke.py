@@ -19,7 +19,12 @@ non-zero:
                and zero-length segments, nb 256) and B3 (chunks of B
                requests), bf16, int8 and f32 pages, at the served chunk of
                64 tokens; timed beside scaled_dot_product_attention over
-               the gathered pages with the same mask
+               the gathered pages with the same mask; untimed, validity
+               rows with holes (nb 16, and nb 256 split over 16 blocks)
+               and a split-KV case whose last split holds no valid
+               position; each row names its split count, and timed rows
+               carry bound_tc_ms (the products at the tensor cores' bf16
+               rate) beside bound_ms
 5. k4       -- the masked multi-token probe step against its plain version
                and against T masked K1 launches on copies of the same
                state: B 1, 4, 8; T 1, 2, 4, 8; f 128, 960, 5120; accepted
@@ -42,7 +47,8 @@ non-zero:
 8. k7       -- flash prefill attention against its plain version: (B, S)
                (1, 16), (24, 16), (1, 160), (24, 160), (4, 2048); window
                64; Sq < Sk; a window past the keys; bf16 and f32; timed
-               (all but the window cases) beside SDPA with is_causal
+               (all but the window cases) beside SDPA with is_causal, with
+               bound_ms and bound_tc_ms
 9. model    -- full-width smollm-360m (bf16, random weights from a seed,
                then the same weights in f32): prefill 16 tokens, 64
                teacher-forced paged decode steps through K2 (every call
@@ -152,6 +158,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# dense bf16 on the tensor cores (the same data sheet)
+TC_FLOPS_PER_S = 989e12
 SEED = 0
 # the card; a CPU rehearsal of the phases at a reduced size may set "cpu"
 DEV = "cuda"
@@ -170,6 +178,14 @@ def bound_ms(n_bytes: float, n_flops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_tc_ms(n_bytes: float, tc_flops: float, f32_flops: float) -> float:
+    """The bound with the products on the tensor cores: the products'
+    operations at the bf16 rate, the rest at the f32 rate, against the
+    same bytes."""
+    t_ops = (tc_flops / TC_FLOPS_PER_S + f32_flops / F32_FLOPS_PER_S) * 1e3
+    return max(n_bytes / HBM_BYTES_PER_S * 1e3, t_ops)
 
 
 def nbytes(*tensors) -> int:
@@ -484,15 +500,16 @@ def chunk_pool(torch, gen, n_seg, nb, dtype, KV=5, d=64, bs=16):
 def k3_bytes_ops(k, ks, n_valid_by_seg, tok_valid, H, d, inputs, outputs):
     """Bytes the call must move (the valid K and V of every segment with a
     token, read once, the small inputs read once, the partials written
-    once) and the f32 operations it must do (per query head and valid
-    position of its segment: q.k and p.v, 2 d each, and the softmax)."""
+    once), the f32 operations it must do (per query head and valid
+    position of its segment: q.k and p.v, 2 d each, and the softmax), and
+    the share of them that are products."""
     KV = k.shape[1]
     per_pos = KV * d * k.element_size() * 2
     if ks is not None:
         per_pos += KV * 4 * 2
     moved = sum(n_valid_by_seg) * per_pos + nbytes(*inputs) + nbytes(
         *outputs)
-    return moved, tok_valid * H * (4 * d + 4)
+    return moved, tok_valid * H * (4 * d + 4), tok_valid * H * 4 * d
 
 
 # B4 cases at the served chunk of 64 tokens, R = 4 segments (pack_max):
@@ -518,6 +535,17 @@ K3_B3_CASES = [
     (1, 64, 16, "int8", [128]),
     (1, 64, 16, "f32", [128]),
     (4, 64, 256, "bf16", [0, 64, 1000, 4000]),
+    (4, 64, 256, "int8", [0, 64, 1000, 4000]),
+]
+# untimed B4 cases of the split-KV and holed-row paths: validity rows with
+# holes inside the valid range (every other position, at random, of the
+# cached ones; the first and last kept), at the served width and split
+# over 16 blocks; and one segment over 64 pages (4 splits) whose 130
+# cached positions fill 3 tiles, so the last split holds no valid position
+K3_B4_UNTIMED = [
+    ("holes", 16, "bf16", [(32, 200), (32, 100)], True),
+    ("holes, split", 256, "int8", [(40, 4000), (24, 1500)], True),
+    ("split, last split empty", 64, "bf16", [(64, 130)], False),
 ]
 # bf16 / int8 inputs upcast exactly; f32 sums in another order than the
 # plain one-shot softmax: K2's tolerances
@@ -541,10 +569,12 @@ def _sdpa_ms(torch, timer, q4, k, v, ks, vs, tables, mask, dtype):
                                                         attn_mask=mask))
 
 
-def k3_b4_case(torch, timer, gen, name, nb, dtype, segs, C=64, R=4):
+def k3_b4_case(torch, timer, gen, name, nb, dtype, segs, C=64, R=4,
+               holes=False, timed=True):
     """One packed chunk of C tokens in R segments ((tokens, cached
     positions) each) through K3 and its plain version: errors, the merged
-    output, times beside SDPA and the bound."""
+    output, times beside SDPA and the bounds.  ``holes`` drops about half
+    of each segment's cached positions (not its first and last)."""
     from repro_torch.kernels import paged_chunk as K3
     from repro_torch.models import attention as A
     H, KV, d, bs = 15, 5, 64, 16
@@ -559,6 +589,11 @@ def k3_b4_case(torch, timer, gen, name, nb, dtype, segs, C=64, R=4):
         lengths[i], starts[i] = t, cached
         off += t
     valid = torch.arange(nb * bs)[None, :] < starts[:, None]
+    if holes:
+        valid &= torch.rand(R, nb * bs, generator=gen) < 0.5
+        for i, (_, cached) in enumerate(segs):
+            if cached:
+                valid[i, [0, cached - 1]] = True
     q = torch.randn(C, H, d, generator=gen)
     q, seg, tables, valid = (t.to(DEV) for t in (q, seg, tables, valid))
     got = K3.paged_flash_packed_chunk(q, k, v, seg, tables, valid, ks, vs)
@@ -583,6 +618,12 @@ def k3_b4_case(torch, timer, gen, name, nb, dtype, segs, C=64, R=4):
             and merged_err <= K3_OUT_TOL):
         raise AssertionError(f"K3-B4 {name} {dtype}: m err {m_err}, "
                              f"output err {o_err}, merged {merged_err}")
+    row = dict(fn="B4", case=name, nb=nb, pages=dtype, C=C, R=R,
+               segments=segs, padding=C - n_tok, holes=holes, H=H, KV=KV,
+               d=d, bs=bs, split=K3.split_count(nb * bs, k.dtype),
+               m_err=m_err, out_err=o_err, merged_err=merged_err)
+    if not timed:
+        return row
     ms = timer(lambda: K3.paged_flash_packed_chunk(
         q, k, v, seg, tables, valid, ks, vs))
     plain_ms = timer(lambda: K3.paged_packed_chunk_plain(
@@ -593,17 +634,17 @@ def k3_b4_case(torch, timer, gen, name, nb, dtype, segs, C=64, R=4):
         R, device=DEV)[:, None, None]))[:, None]
     q4 = q.permute(1, 0, 2)[None].expand(R, H, C, d)
     lib_ms = _sdpa_ms(torch, timer, q4, k, v, ks, vs, tables, smask, dtype)
-    n_valid = [int(c_) if t else 0 for t, c_ in segs]
-    tok_valid = int(sum(t * c_ for t, c_ in segs) + (C - n_tok)
-                    * segs[-1][1])
-    moved, ops = k3_bytes_ops(k, ks, n_valid, tok_valid, H, d,
-                              (q, seg, tables, valid), got)
+    per_seg = valid.sum(1).cpu()
+    n_valid = [int(per_seg[i]) if t else 0 for i, (t, _) in enumerate(segs)]
+    tok_valid = int(per_seg[seg.long().cpu()].sum())
+    moved, ops, tc_ops = k3_bytes_ops(k, ks, n_valid, tok_valid, H, d,
+                                      (q, seg, tables, valid), got)
     bms, by = bound_ms(moved, ops)
-    return dict(fn="B4", case=name, nb=nb, pages=dtype, C=C, R=R,
-                segments=segs, padding=C - n_tok, H=H, KV=KV, d=d, bs=bs,
-                m_err=m_err, out_err=o_err, merged_err=merged_err, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                bound_by=by, bytes=moved)
+    row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+               bound_by=by, bound_tc_ms=bound_tc_ms(moved, tc_ops,
+                                                    ops - tc_ops),
+               bytes=moved)
+    return row
 
 
 def phase_k3(torch, timer):
@@ -632,13 +673,21 @@ def phase_k3(torch, timer):
             q, k, v, tables, valid, ks, vs))
         lib_ms = _sdpa_ms(torch, timer, q.permute(0, 2, 1, 3), k, v, ks, vs,
                           tables, valid[:, None, None, :], dtype)
-        moved, ops = k3_bytes_ops(k, ks, cached, Cb * sum(cached), H, d,
-                                  (q, tables, valid), got)
+        moved, ops, tc_ops = k3_bytes_ops(k, ks, cached, Cb * sum(cached),
+                                          H, d, (q, tables, valid), got)
         bms, by = bound_ms(moved, ops)
         row = dict(fn="B3", B=B, C=Cb, nb=nb, pages=dtype, cached=cached,
-                   H=H, KV=KV, d=d, bs=bs, m_err=m_err, out_err=o_err, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                   bound_by=by, bytes=moved)
+                   H=H, KV=KV, d=d, bs=bs,
+                   split=K3.split_count(nb * bs, k.dtype), m_err=m_err,
+                   out_err=o_err, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                   bound_tc_ms=bound_tc_ms(moved, tc_ops, ops - tc_ops),
+                   bytes=moved)
+        emit(dict(phase="k3", **row))
+        rows.append(row)
+    for name, nb, dtype, segs, holes in K3_B4_UNTIMED:
+        row = k3_b4_case(torch, timer, gen, name, nb, dtype, segs,
+                         holes=holes, timed=False)
         emit(dict(phase="k3", **row))
         rows.append(row)
     return rows
@@ -1151,6 +1200,8 @@ def phase_k7(torch, timer):
             moved = nbytes(q, k, v, out)
             row["bound_ms"], row["bound_by"] = bound_ms(
                 moved, B * H * pairs * (4 * d + 4))
+            row["bound_tc_ms"] = bound_tc_ms(moved, B * H * pairs * 4 * d,
+                                             B * H * pairs * 4)
             row["bytes"] = moved
             row["visible_pairs_per_head"] = pairs
         emit(dict(phase="k7", **row))

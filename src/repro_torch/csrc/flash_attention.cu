@@ -14,58 +14,213 @@
 // values.  Plain PyTorch version: repro_torch/kernels/flash_attention.py
 // attn_prefill_einsum.
 //
-// Bound on the H100: f32 operations at the served prefill shapes (4 d
-// flops per visible (query, key) pair against 2 d bytes per key and head).
-// The design is the simplest tiled online softmax, without tensor cores:
-//   * one thread block per (tile of 16 query rows, head, batch row); 4
-//     warps own 4 rows each; the tile's q rows sit in shared memory in f32,
-//     pre-scaled by 1/sqrt(d) (a power of two at d 64: exact);
+// What bounds it on the H100.  A causal prefill does 4 d flops of products
+// per visible (query, key) pair and head against 2 d bytes per key and KV
+// head: at the served lengths (16 to 160 tokens) the call is short and
+// bounded by latency and launch; at 2,048 tokens it is the products.  On
+// the CUDA cores in f32 those cost 67 TFLOP/s at best; the bf16 instance
+// puts them on the tensor cores (attn_tile.cuh), where the f32 contract
+// costs three P.V products per tile (p in three bf16 terms) and one Q.K^T
+// (bf16 q is exact):
+//   * one block of 4 warps per (64-row query tile, head, batch row), each
+//     warp 16 rows, at most 168 registers a thread so that 3 blocks share
+//     an SM; the G heads of a KV head read its K/V tiles through L2.  One
+//     block of 12 warps per KV head (each K/V tile loaded once for the G
+//     heads) ran no faster on the card at any served shape and slower at
+//     an admission's 16 rows: it fills a third as many SMs, and at 168
+//     registers a thread only one such block fits an SM;
+//   * query tiles are issued longest first (the last tile walks the most
+//     keys), so the causal triangle's long blocks do not finish last;
+//   * K and V tiles of 64 keys are double-buffered through cp.async (16
+//     bytes a thread): the next tile is in flight while the current one is
+//     computed; keys past Sk are zero-filled;
 //   * the block walks 64-key tiles from the window's first key to the
 //     causal limit of its last row, as attn_prefill_blockwise does
-//     (repro/models/attention.py:814-821), staging K and V in shared
-//     memory in f32 (16-byte loads, K rows padded to 68 floats so that
-//     each lane's float4 reads of its own key hit distinct banks);
-//   * scores: lane j takes keys j and j + 32 of the tile for the warp's 4
-//     rows at once, so each K read feeds 4 rows and each q read 2 keys;
-//   * the online softmax (m, l, acc) of each row is carried in registers:
-//     m warp-uniform, l per lane (summed at the end), acc as the lane's two
-//     output dims; P.V takes each key's p from its lane by shuffle;
-//   * masked keys count exactly zero.
-// Tensor cores (the f32 contract rules out bf16 wgmma as it stands), loads
-// kept in flight across tiles and wider tiles are later work.
+//     (repro/models/attention.py:814-821); a warp skips a tile none of its
+//     rows sees, and the groups of 16 keys of a tile that none of its rows
+//     sees (the causal diagonal, a ragged end); a tile all its rows see
+//     fully skips the mask test;
+//   * the online softmax (m, l, acc) of each row stays in f32 registers;
+//     masked keys count exactly zero.
+// What bounds it then is the tile body's issue: per warp and tile 128
+// mma.sync, 64 exponentials and the splits, with the softmax between the
+// two products, at 12 warps an SM.  The f32 instance (the f32 check fleets
+// only) keeps the CUDA-core kernel below (flash_attention_f32_kernel);
+// attn_tile.cuh says why.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_tile.cuh"
+
 namespace {
+
+// The one head dim instantiated, and held against the plain version on the
+// card: d_head 64 (smollm-360m).  Other head dims are refused (ROADMAP A7
+// brings them).
+constexpr int kHeadDim = attn_tile::kD;
+using attn_tile::kBK;       // keys per shared tile
+using attn_tile::kNegInf;
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+
+constexpr int kSlices = 4;                   // 16-row slices of a query tile
+constexpr int kBQTC = 16 * kSlices;          // query rows per block
+constexpr int kThreadsTC = 32 * kSlices;
+
+__global__ void __launch_bounds__(kThreadsTC, 3)
+flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          __nv_bfloat16* __restrict__ out, int Sq, int Sk,
+                          int H, int n_kv, int causal, int window,
+                          float scale) {
+  using namespace attn_tile;
+  __shared__ __align__(16) __nv_bfloat16 s_kv[2][2][kTileElems];
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQTC;   // longest first
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (H / n_kv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int qa = q0 + warp * 16;               // the warp's first row
+  const int qb = min(qa + 15, Sq - 1);         // and its last real one
+  const bool rows_ok = qa < Sq;
+  const size_t q_row = static_cast<size_t>(H) * kHeadDim;
+  const size_t kv_row = static_cast<size_t>(n_kv) * kHeadDim;
+  const __nv_bfloat16* k_b = k + static_cast<size_t>(b) * Sk * kv_row +
+                             kvh * kHeadDim;
+  const __nv_bfloat16* v_b = v + static_cast<size_t>(b) * Sk * kv_row +
+                             kvh * kHeadDim;
+
+  // keys any row of this tile can see
+  const int k_hi = causal ? min(Sk, q0 + kBQTC) : Sk;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+
+  auto stage_tile = [&](int kt, int st) {
+    for (int i = tid; i < 2 * kBK * 8; i += kThreadsTC) {
+      const int which = i / (kBK * 8), row = (i / 8) % kBK, ch = i % 8;
+      const int key = kt + row;
+      const bool ok = key < Sk;
+      const size_t off = ok ? static_cast<size_t>(key) * kv_row + ch * 8 : 0;
+      cp_async16(&s_kv[st][which][row * kRow + ch * 8],
+                 (which ? v_b : k_b) + off, ok);
+    }
+  };
+
+  int kt = k_lo;
+  if (kt < k_hi) stage_tile(kt, 0);
+  cp_async_commit();
+
+  // the warp's 16 query rows as A fragments, straight from global
+  QFrags<1> qf;
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+#pragma unroll
+    for (int reg = 0; reg < 4; ++reg) {
+      const int row = qa + (lane >> 2) + 8 * (reg & 1);
+      const int col = kk * 16 + 2 * (lane & 3) + 8 * (reg >> 1);
+      uint32_t x = 0u;
+      if (row < Sq)
+        x = __ldg(reinterpret_cast<const unsigned int*>(
+            q + (static_cast<size_t>(b) * Sq + row) * q_row +
+            head * kHeadDim + col));
+      qf.a[0][kk][reg] = x;
+    }
+  }
+
+  RowState st;
+  st.init();
+  auto score = [scale](int, float s) { return s * scale; };
+  auto vfold = [](int) { return 1.f; };
+  int stage = 0;
+  for (; kt < k_hi; kt += kBK) {
+    if (kt + kBK < k_hi) stage_tile(kt + kBK, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // tile kt has landed (the next may be in flight)
+    __syncthreads();
+    const bool none = (causal && kt > qb) ||
+                      (window > 0 && kt + kBK - 1 <= qa - window);
+    if (rows_ok && !none) {
+      const __nv_bfloat16* sK = s_kv[stage][0];
+      const __nv_bfloat16* sV = s_kv[stage][1];
+      const bool full = kt + kBK <= Sk && (!causal || kt + kBK - 1 <= qa) &&
+                        (window <= 0 || kt > qb - window);
+      if (full) {
+        auto keep = [](int, int) { return true; };
+        tile_step<1, false>(st, qf, 1, sK, sV, score, keep, vfold, kBK / 16,
+                            lane);
+      } else {
+        const int k0 = kt;
+        auto keep = [=](int row, int col) {
+          const int kp = k0 + col, qp = qa + row;
+          return kp < Sk && (!causal || kp <= qp) &&
+                 (window <= 0 || kp > qp - window);
+        };
+        // groups of 16 keys past the warp's last row (causal) or past Sk
+        // hold no key it sees
+        const int last = causal ? min(qb, Sk - 1) : Sk - 1;
+        const int live16 = min(kBK / 16, (last - kt) / 16 + 1);
+        tile_step<1, true>(st, qf, 1, sK, sV, score, keep, vfold, live16,
+                           lane);
+      }
+    }
+    __syncthreads();      // the stage is free for the tile after next
+    stage ^= 1;
+  }
+  st.finish();
+  if (!rows_ok) return;
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qpos = qa + (lane >> 2) + 8 * half;
+    if (qpos >= Sq) continue;
+    __nv_bfloat16* orow =
+        out + (static_cast<size_t>(b) * Sq + qpos) * q_row + head * kHeadDim;
+    const float l = st.l[half];
+#pragma unroll
+    for (int j = 0; j < kDTiles; ++j) {
+      const int c = 8 * j + 2 * (lane & 3);
+      float o0, o1;
+      if (l > 0.f) {
+        o0 = st.acc[j][2 * half] / l;
+        o1 = st.acc[j][2 * half + 1] / l;
+      } else {
+        // no visible key: every score is the mask value, so the softmax is
+        // uniform over all Sk keys (the einsum's and the Pallas body's answer)
+        o0 = o1 = 0.f;
+        for (int key = 0; key < Sk; ++key) {
+          const __nv_bfloat16* vr = v_b + key * kv_row + c;
+          o0 += __bfloat162float(vr[0]);
+          o1 += __bfloat162float(vr[1]);
+        }
+        o0 /= static_cast<float>(Sk);
+        o1 /= static_cast<float>(Sk);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+          __floats2bfloat162_rn(o0, o1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core kernel
+//   * one thread block per (tile of 16 query rows, head, batch row); 4
+//     warps own 4 rows each; the tile's q rows sit in shared memory in f32,
+//     pre-scaled by 1/sqrt(d) (a power of two at d 64: exact);
+//   * the block walks 64-key tiles as above, staging K and V in shared
+//     memory (16-byte loads, K rows padded to 68 floats so that each lane's
+//     float4 reads of its own key hit distinct banks);
+//   * scores: lane j takes keys j and j + 32 of the tile for the warp's 4
+//     rows at once; the online softmax (m, l, acc) of each row is carried
+//     in registers: m warp-uniform, l per lane (summed at the end), acc as
+//     the lane's two output dims; P.V takes each key's p by shuffle.
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 4;
 constexpr int kBQ = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kBK = 64;                     // keys per shared tile
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// 16 bytes of type T at p -> f32 at out (4 or 8 values)
-template <typename T>
-__device__ __forceinline__ void load16(const T* __restrict__ p,
-                                       float* __restrict__ out) {
-  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) out[i] = to_float(e[i]);
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -74,14 +229,15 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int H, int n_kv, int causal, int window,
-                       float scale) {
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, int Sq, int Sk, int H,
+                           int n_kv, int causal, int window, float scale) {
   static_assert(D == 2 * 32, "a lane owns two output dims");
-  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+  constexpr int kPer = 4;                   // floats per 16-byte load
   constexpr int kKStride = D + 4;
   __shared__ __align__(16) float s_q[kBQ][D];
   __shared__ __align__(16) float s_k[kBK][kKStride];
@@ -92,21 +248,19 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t q_row = static_cast<size_t>(H) * D;     // between positions
   const size_t kv_row = static_cast<size_t>(n_kv) * D;
-  const T* q_b = q + static_cast<size_t>(b) * Sq * q_row + h * D;
-  const T* k_b = k + static_cast<size_t>(b) * Sk * kv_row + kvh * D;
-  const T* v_b = v + static_cast<size_t>(b) * Sk * kv_row + kvh * D;
+  const float* q_b = q + static_cast<size_t>(b) * Sq * q_row + h * D;
+  const float* k_b = k + static_cast<size_t>(b) * Sk * kv_row + kvh * D;
+  const float* v_b = v + static_cast<size_t>(b) * Sk * kv_row + kvh * D;
 
   for (int c = threadIdx.x; c < kBQ * D / kPer; c += kThreads) {
     const int r = c / (D / kPer), col = (c % (D / kPer)) * kPer;
-    float tmp[kPer];
-    if (q0 + r < Sq) {
-      load16<T>(q_b + (q0 + r) * q_row + col, tmp);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) tmp[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) s_q[r][col + i] = tmp[i] * scale;
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < Sq)
+      t = __ldg(reinterpret_cast<const float4*>(q_b + (q0 + r) * q_row + col));
+    s_q[r][col] = t.x * scale;
+    s_q[r][col + 1] = t.y * scale;
+    s_q[r][col + 2] = t.z * scale;
+    s_q[r][col + 3] = t.w * scale;
   }
 
   // keys any row of this tile can see
@@ -125,19 +279,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's readers are done (and s_q set)
     for (int c = threadIdx.x; c < kBK * D / kPer; c += kThreads) {
       const int r = c / (D / kPer), col = (c % (D / kPer)) * kPer;
-      float kt_[kPer], vt_[kPer];
+      float4 kt_ = make_float4(0.f, 0.f, 0.f, 0.f), vt_ = kt_;
       if (kt + r < Sk) {
-        load16<T>(k_b + (kt + r) * kv_row + col, kt_);
-        load16<T>(v_b + (kt + r) * kv_row + col, vt_);
-      } else {
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) kt_[i] = vt_[i] = 0.f;
+        kt_ = __ldg(reinterpret_cast<const float4*>(k_b + (kt + r) * kv_row +
+                                                    col));
+        vt_ = __ldg(reinterpret_cast<const float4*>(v_b + (kt + r) * kv_row +
+                                                    col));
       }
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        s_k[r][col + i] = kt_[i];
-        s_v[r][col + i] = vt_[i];
-      }
+      *reinterpret_cast<float4*>(&s_k[r][col]) = kt_;
+      *reinterpret_cast<float4*>(&s_v[r][col]) = vt_;
     }
     __syncthreads();
 
@@ -213,39 +363,20 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       o0 = acc[r][0] / l;
       o1 = acc[r][1] / l;
     } else {
-      // no visible key: every score is the mask value, so the softmax is
-      // uniform over all Sk keys (the einsum's and the Pallas body's answer)
+      // no visible key: the mean of all Sk values, as above
       o0 = o1 = 0.f;
       for (int j = 0; j < Sk; ++j) {
-        const T* vr = v_b + j * kv_row + 2 * lane;
-        o0 += to_float(vr[0]);
-        o1 += to_float(vr[1]);
+        const float* vr = v_b + j * kv_row + 2 * lane;
+        o0 += vr[0];
+        o1 += vr[1];
       }
       o0 /= static_cast<float>(Sk);
       o1 /= static_cast<float>(Sk);
     }
-    T* orow = out + (static_cast<size_t>(b) * Sq + qpos) * q_row + h * D;
-    store(orow + 2 * lane, o0);
-    store(orow + 2 * lane + 1, o1);
+    float* orow = out + (static_cast<size_t>(b) * Sq + qpos) * q_row + h * D;
+    orow[2 * lane] = o0;
+    orow[2 * lane + 1] = o1;
   }
-}
-
-// The one head dim instantiated, and held against the plain version on the
-// card: d_head 64 (smollm-360m).  Other head dims are refused (ROADMAP A7
-// brings them).
-constexpr int kHeadDim = 64;
-
-template <typename T>
-cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         void* out, int B, int Sq, int Sk, int H, int n_kv,
-                         int causal, int window, float scale,
-                         cudaStream_t stream) {
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T, kHeadDim><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, n_kv,
-      causal, window, scale);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -262,18 +393,27 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
   switch (dtype_code) {
-    case 0:
-      err = launch_typed<float>(q, k, v, out, B, Sq, Sk, H, n_kv, causal,
-                                window, scale, st);
+    case 0: {
+      const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+      flash_attention_f32_kernel<kHeadDim><<<grid, kThreads, 0, st>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H,
+          n_kv, causal, window, scale);
       break;
-    case 1:
-      err = launch_typed<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, n_kv,
-                                        causal, window, scale, st);
+    }
+    case 1: {
+      const dim3 grid((Sq + kBQTC - 1) / kBQTC, H, B);
+      flash_attention_tc_kernel<<<grid, kThreadsTC, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<__nv_bfloat16*>(out), Sq, Sk, H, n_kv, causal, window,
+          scale);
       break;
+    }
     default:
-      break;
+      return cudaErrorInvalidValue;
   }
-  return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -12,82 +12,70 @@
 //     (``seg`` null, ``seg_div`` = C), tables and validity per request.
 // Both Pallas functions run _paged_kernel (:113) through _paged_attend
 // (:164).  Plain PyTorch versions: repro_torch/kernels/paged_chunk.py
-// paged_packed_chunk_plain and paged_prefill_chunk_plain.
+// paged_packed_chunk_plain and paged_prefill_chunk_plain (and
+// merge_split_partials_plain for the split-KV merge).
 //
-// Bound on the H100: f32 operations at the served shapes, with bytes
-// close behind.  A segment's pages are needed once for all of its tokens
-// (2 x positions x d elements), and each position costs ~4 d f32 flops per
-// query row; the f32 contract keeps the products off the tensor cores, so
-// with G x C = 192 rows per KV head a 64-token chunk does ~200 f32 flops
-// per bf16 byte of pages, against the card's f32 ridge of 67 TFLOP/s over
-// 3.35 TB/s = 20 (the f32 q and partials bring the bytes close).  The
-// design reads each page once per (segment, KV head, tile of 16 tokens),
-// and computes only what it keeps: the Pallas version sends the whole
-// chunk's q-block to every segment (decode_attention.py:340) and keeps one
-// segment's partials per token, R times the work.
-//   * one thread block per (tile of 16 query tokens, KV head, segment); a
-//     block whose tile holds no token of its segment exits at once, so
-//     every output row is written exactly once, by its own segment's block;
+// What bounds it on the H100.  A segment's pages are needed once for all
+// of its tokens, and each position costs 4 d flops of products per query
+// row: on the tensor cores (989 TFLOP/s in bf16) the served chunk's bound
+// is its bytes, a fraction of a microsecond.  What a served call really
+// waits on is latency: a few dozen blocks, each a chain of index lookups,
+// page loads and products.  The design shortens that chain:
+//   * one block of 3 warps per (tile of 16 query tokens, KV head, segment,
+//     split); warp g owns the tile's 16 rows of query head g of the KV
+//     head (G = 3).  A block whose tile holds no token of its segment exits
+//     at once, so every output row is written exactly once, by its own
+//     segment's block;
+//   * index setup once per block: the segment's validity row and block-
+//     table row come into shared memory in one coalesced pass; from them
+//     the block marks the 64-position tiles holding a valid position (and
+//     those holding only valid ones) and finds the first and last such
+//     tile.  It walks only live tiles between them, never the whole row;
+//   * loads in flight: the next live tile's K and V rows are issued with
+//     cp.async (16 bytes a thread, addresses from the shared table, so no
+//     dependent global load) before the current tile is computed, into a
+//     double-buffered ring; invalid positions are zero-filled, not read;
+//   * the tile body is attn_tile.cuh: Q.K^T and P.V on the tensor cores
+//     (mma.sync m16n8k16, bf16 in, f32 accumulate), q and p split into
+//     three bf16 terms so the result is the f32 one.  int8 pages land raw
+//     in the ring and are converted exactly to bf16 in shared memory after
+//     the wait; k_scale multiplies the score, v_scale is folded into p;
+//   * split-KV: past 256 virtual positions (kernels/paged_chunk.py
+//     split_count; the wrapper passes n_split > 1) the live range is cut into n_split equal runs of
+//     tiles, one block each, writing partials to the wrapper's scratch; a
+//     second kernel in the same launcher merges them by the log-sum-exp
+//     rule.  A split with no live tile writes the empty partials, so a row
+//     with no valid position in any split still comes out m = -1e30,
+//     l = 0, o = 0.  At the served shapes (<= 256 positions) there is one
+//     launch and no merge;
 //   * a token's segment id is clamped into [0, R), as the JAX gather
 //     clamps; padding tokens carry the last segment's id and so get its
-//     partials, as in JAX;
-//   * the tile's G x 16 query rows (the G heads sharing the KV head) sit in
-//     shared memory in f32, pre-scaled by 1/sqrt(d);
-//   * the segment's virtual positions are walked in tiles of 16: each
-//     position looks up its page in the segment's table row, and the 256
-//     threads stage K and V of the 16 positions in shared memory in f32
-//     (bf16 upcast, int8 times its per-(position, head) scale) — 16 threads
-//     per position, 4 contiguous elements each;
-//   * a key tile with no valid position is skipped; invalid positions are
-//     never loaded and count exactly zero, so a token whose segment has no
-//     valid position returns m = -1e30, l = 0, o = 0;
-//   * one half-warp per query token: for scores, lane j takes key j of the
-//     tile (a full d-long dot product against shared memory); for the
-//     output, lane j owns dims [4j, 4j + 4) of each of the token's G rows;
-//     the online softmax (m, l, acc) of each row is carried in registers in
-//     f32, the Pallas kernel's contract (_paged_kernel :140-155).
-// What bounds this design in practice is latency, not either roofline: a
-// block walks its key tiles one after another, and each tile waits on
-// dependent global loads (validity, table entry, page) and two barriers
-// (on an H100 about 0.044 ms at the served shape, a hundred times the
-// bound; chip_smoke.py phase k3).  Wider key tiles, loads kept in flight
-// across tiles, split-KV over blocks, TMA and wgmma are later work.
+//     partials, as in JAX.
+// f32 pages (the f32 check fleets only) keep the CUDA-core kernel below
+// (paged_chunk_f32_kernel), which walks the row in tiles of 16 positions
+// with the products in f32; attn_tile.cuh says why.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_tile.cuh"
+
 namespace {
 
-constexpr int kTokens = 16;               // query tokens per block
-constexpr int kThreads = kTokens * 16;    // one half-warp per token
-constexpr int kKeys = 16;                 // key positions per shared tile
-constexpr float kNegInf = -1e30f;
+using attn_tile::kBK;
+using attn_tile::kNegInf;
+using attn_tile::kRow;
+using attn_tile::kTileElems;
 
-// 4 contiguous elements of type T -> f32
-__device__ __forceinline__ void load4(const float* __restrict__ p,
-                                      float (&out)[4]) {
-  const float4 u = __ldg(reinterpret_cast<const float4*>(p));
-  out[0] = u.x;
-  out[1] = u.y;
-  out[2] = u.z;
-  out[3] = u.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* __restrict__ p,
-                                      float (&out)[4]) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) out[k] = __bfloat162float(e[k]);
-}
-__device__ __forceinline__ void load4(const int8_t* __restrict__ p,
-                                      float (&out)[4]) {
-  const char4 u = __ldg(reinterpret_cast<const char4*>(p));
-  out[0] = static_cast<float>(u.x);
-  out[1] = static_cast<float>(u.y);
-  out[2] = static_cast<float>(u.z);
-  out[3] = static_cast<float>(u.w);
-}
+// The one shape instantiated, and held against the plain version on the
+// card: d_head 64 with 3 query heads per KV head (smollm-360m's 15 heads on
+// 5 KV heads).  Other shapes are refused until they are instantiated and
+// checked there too.
+constexpr int kHeadDim = attn_tile::kD;
+constexpr int kGroup = 3;
+constexpr int kTokens = 16;               // query tokens per block
+constexpr int kMaxSmem = 227 * 1024;      // a block's shared memory on H100
 
 __device__ __forceinline__ int segment_of(const int* __restrict__ seg,
                                           int seg_div, int n, int n_seg) {
@@ -95,31 +83,71 @@ __device__ __forceinline__ int segment_of(const int* __restrict__ seg,
   return min(max(s, 0), n_seg - 1);
 }
 
-template <typename T, int D, int G>
-__global__ void __launch_bounds__(kThreads)
-paged_chunk_kernel(const float* __restrict__ q, const int* __restrict__ seg,
-                   int seg_div, const T* __restrict__ k_pages,
-                   const T* __restrict__ v_pages,
-                   const float* __restrict__ k_scale,
-                   const float* __restrict__ v_scale,
-                   const int* __restrict__ tables,
-                   const bool* __restrict__ valid, float* __restrict__ o,
-                   float* __restrict__ l_out, float* __restrict__ m_out,
-                   int n_tok, int n_seg, int n_kv, int bs, int nb,
-                   float scale) {
-  static_assert(D == 16 * 4, "a half-warp's 16 lanes own 4 dims each");
-  constexpr int kQStride = D + 1;   // padded: the two half-warps of a warp
-  constexpr int kKStride = D + 1;   // read other banks; lanes read K rows
-  __shared__ float sQ[kTokens * G * kQStride];
-  __shared__ float sK[kKeys * kKStride];
-  __shared__ __align__(16) float sV[kKeys * D];
-  __shared__ bool s_act[kTokens];
-  __shared__ bool s_ok[kKeys];
+// ---------------------------------------------------------------------------
+// bf16 and int8 pages: the tensor-core kernel
 
-  const int tile = blockIdx.x, kv = blockIdx.y, r = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int hw = tid / 16, lane = tid % 16;
-  const int n_heads = n_kv * G;
+constexpr int kThreadsTC = 32 * kGroup;   // one warp per query head
+
+__host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+
+// byte offsets into the dynamic shared memory of one block
+struct ChunkSmem {
+  int ring;     // bf16 K/V tiles: two stages (bf16 pages) or one (int8)
+  int raw;      // int8: two stages of raw K/V rows, 64 bytes each
+  int scales;   // int8: two stages of k_scale and v_scale, 64 each
+  int valid;    // the segment's validity row, padded to whole tiles
+  int table;    // the segment's block-table row
+  int any;      // per 64-position tile: holds a valid position
+  int all;      // per tile: every position valid
+  int total;
+};
+
+__host__ __device__ inline ChunkSmem chunk_smem(bool int8, int n_pos,
+                                                int nb) {
+  const int n_kt = (n_pos + kBK - 1) / kBK;
+  const int tile_pair = 2 * kTileElems * 2;   // K and V tiles, bytes
+  ChunkSmem s{};
+  int off = 0;
+  s.ring = off;
+  off += (int8 ? 1 : 2) * tile_pair;
+  s.raw = off;
+  if (int8) off += 2 * 2 * kBK * kHeadDim;
+  s.scales = off;
+  if (int8) off += 2 * 2 * kBK * 4;
+  s.valid = off;
+  off += n_kt * kBK;
+  s.table = off;
+  off += round16(nb * 4);
+  s.any = off;
+  off += round16(n_kt);
+  s.all = off;
+  off += round16(n_kt);
+  s.total = off;
+  return s;
+}
+
+template <bool kInt8>
+__global__ void __launch_bounds__(kThreadsTC)
+paged_chunk_tc_kernel(const float* __restrict__ q, const int* __restrict__ seg,
+                      int seg_div, const void* __restrict__ k_pages,
+                      const void* __restrict__ v_pages,
+                      const float* __restrict__ k_scale,
+                      const float* __restrict__ v_scale,
+                      const int* __restrict__ tables,
+                      const bool* __restrict__ valid, float* __restrict__ o,
+                      float* __restrict__ l_out, float* __restrict__ m_out,
+                      int n_tok, int n_seg, int n_kv, int bs, int nb,
+                      int n_split, float scale) {
+  using namespace attn_tile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ bool s_act[kTokens];
+  __shared__ int s_first, s_last;
+
+  const int tile = blockIdx.x, kv = blockIdx.y;
+  const int r = blockIdx.z / n_split, split = blockIdx.z % n_split;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_pos = nb * bs, n_kt = (n_pos + kBK - 1) / kBK;
+  const ChunkSmem L = chunk_smem(kInt8, n_pos, nb);
 
   // the tile's tokens that belong to segment r
   bool mine = false;
@@ -128,9 +156,352 @@ paged_chunk_kernel(const float* __restrict__ q, const int* __restrict__ seg,
     mine = n < n_tok && segment_of(seg, seg_div, n, n_seg) == r;
     s_act[tid] = mine;
   }
+  if (tid == 0) {
+    s_first = n_kt;
+    s_last = -1;
+  }
   if (!__syncthreads_or(mine)) return;
 
-  for (int idx = tid; idx < kTokens * G * D; idx += kThreads) {
+  // index setup: validity and table rows into shared memory, live tiles
+  unsigned char* s_valid = smem + L.valid;
+  int* s_table = reinterpret_cast<int*>(smem + L.table);
+  unsigned char* s_any = smem + L.any;
+  unsigned char* s_all = smem + L.all;
+  {
+    const bool* valid_row = valid + static_cast<size_t>(r) * n_pos;
+    const int* table_row = tables + static_cast<size_t>(r) * nb;
+    if (n_pos % 16 == 0 && reinterpret_cast<uintptr_t>(valid_row) % 16 == 0) {
+      const uint4* src = reinterpret_cast<const uint4*>(valid_row);
+      for (int i = tid; i < n_pos / 16; i += kThreadsTC)
+        reinterpret_cast<uint4*>(s_valid)[i] = __ldg(src + i);
+    } else {
+      for (int i = tid; i < n_pos; i += kThreadsTC)
+        s_valid[i] = valid_row[i] ? 1 : 0;
+    }
+    for (int i = n_pos + tid; i < n_kt * kBK; i += kThreadsTC) s_valid[i] = 0;
+    for (int i = tid; i < nb; i += kThreadsTC) s_table[i] = __ldg(table_row + i);
+  }
+  __syncthreads();
+  for (int t = tid; t < n_kt; t += kThreadsTC) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(s_valid + t * kBK);
+    uint32_t any = 0;
+    bool all = true;
+#pragma unroll
+    for (int i = 0; i < kBK / 4; ++i) {
+      any |= w[i];
+      all = all && w[i] == 0x01010101u;
+    }
+    s_any[t] = any != 0;
+    s_all[t] = all;
+    if (any) {
+      atomicMin(&s_first, t);
+      atomicMax(&s_last, t);
+    }
+  }
+  __syncthreads();
+
+  // this split's run of tiles: the live range cut into n_split equal runs
+  int lo = 0, hi = 0;
+  if (s_last >= s_first) {
+    const int per = (s_last - s_first + n_split) / n_split;
+    lo = s_first + split * per;
+    hi = min(lo + per, s_last + 1);
+  }
+  auto next_live = [&](int t) {
+    while (t < hi && !s_any[t]) ++t;
+    return t;
+  };
+
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + L.ring);
+  int8_t* raw = reinterpret_cast<int8_t*>(smem + L.raw);
+  float* s_scale = reinterpret_cast<float*>(smem + L.scales);
+
+  // issue the K and V rows of tile t into ring stage st, in flight
+  auto stage_tile = [&](int t, int st) {
+    const int base = t * kBK;
+    if constexpr (!kInt8) {
+      const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k_pages);
+      const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(v_pages);
+      __nv_bfloat16* dst = ring + st * 2 * kTileElems;
+      for (int i = tid; i < 2 * kBK * 8; i += kThreadsTC) {
+        const int which = i / (kBK * 8), row = (i / 8) % kBK, ch = i % 8;
+        const int p = base + row;
+        const bool ok = s_valid[p] != 0;
+        size_t off = 0;
+        if (ok)
+          off = ((static_cast<size_t>(s_table[p / bs]) * n_kv + kv) * bs +
+                 p % bs) * kHeadDim + ch * 8;
+        cp_async16(dst + which * kTileElems + row * kRow + ch * 8,
+                   (which ? vp : kp) + off, ok);
+      }
+    } else {
+      const int8_t* kp = static_cast<const int8_t*>(k_pages);
+      const int8_t* vp = static_cast<const int8_t*>(v_pages);
+      int8_t* dst = raw + st * 2 * kBK * kHeadDim;
+      for (int i = tid; i < 2 * kBK * 4; i += kThreadsTC) {
+        const int which = i / (kBK * 4), row = (i / 4) % kBK, ch = i % 4;
+        const int p = base + row;
+        const bool ok = s_valid[p] != 0;
+        size_t off = 0;
+        if (ok)
+          off = ((static_cast<size_t>(s_table[p / bs]) * n_kv + kv) * bs +
+                 p % bs) * kHeadDim + ch * 16;
+        cp_async16(dst + which * kBK * kHeadDim + row * kHeadDim + ch * 16,
+                   (which ? vp : kp) + off, ok);
+      }
+      float* sdst = s_scale + st * 2 * kBK;
+      for (int i = tid; i < 2 * kBK; i += kThreadsTC) {
+        const int which = i / kBK, row = i % kBK;
+        const int p = base + row;
+        const bool ok = s_valid[p] != 0;
+        size_t off = 0;
+        if (ok)
+          off = (static_cast<size_t>(s_table[p / bs]) * n_kv + kv) * bs +
+                p % bs;
+        cp_async4(sdst + i, (which ? v_scale : k_scale) + off, ok);
+      }
+    }
+  };
+
+  int t = next_live(lo);
+  if (t < hi) stage_tile(t, 0);
+  cp_async_commit();
+
+  // the warp's 16 query rows (head kv*G + warp), pre-scaled, in three bf16
+  // terms, straight from global into A fragments while tile t is in flight
+  QFrags<3> qf;
+  int q_live;
+  {
+    const int n_heads = n_kv * kGroup;
+    bool nz1 = false, nz2 = false;
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+#pragma unroll
+      for (int reg = 0; reg < 4; ++reg) {
+        const int tk = (lane >> 2) + 8 * (reg & 1);
+        const int col = kk * 16 + 2 * (lane & 3) + 8 * (reg >> 1);
+        float2 x = make_float2(0.f, 0.f);
+        if (s_act[tk]) {
+          const int n = tile * kTokens + tk;
+          x = __ldg(reinterpret_cast<const float2*>(
+              q + (static_cast<size_t>(n) * n_heads + kv * kGroup + warp) *
+                      kHeadDim + col));
+        }
+        uint32_t terms[3];
+        split3_pair(x.x * scale, x.y * scale, terms);
+#pragma unroll
+        for (int tt = 0; tt < 3; ++tt) qf.a[tt][kk][reg] = terms[tt];
+        nz1 = nz1 || terms[1] != 0u;
+        nz2 = nz2 || terms[2] != 0u;
+      }
+    }
+    q_live = __any_sync(0xffffffffu, nz2) ? 3
+             : __any_sync(0xffffffffu, nz1) ? 2 : 1;
+  }
+
+  RowState st;
+  st.init();
+  int stage = 0;
+  while (t < hi) {
+    const int tn = next_live(t + 1);
+    if (tn < hi) stage_tile(tn, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // tile t has landed (tile tn may be in flight)
+    __syncthreads();
+    const unsigned char* vrow = s_valid + t * kBK;
+    auto keep = [vrow](int, int col) { return vrow[col] != 0; };
+    const bool full = s_all[t] != 0;
+    if constexpr (!kInt8) {
+      const __nv_bfloat16* sK = ring + stage * 2 * kTileElems;
+      auto score = [](int, float s) { return s; };
+      auto vfold = [](int) { return 1.f; };
+      if (full)
+        tile_step<3, false>(st, qf, q_live, sK, sK + kTileElems, score, keep,
+                            vfold, kBK / 16, lane);
+      else
+        tile_step<3, true>(st, qf, q_live, sK, sK + kTileElems, score, keep,
+                           vfold, kBK / 16, lane);
+    } else {
+      // int8 -> bf16 (exact) from the raw stage into the one bf16 tile
+      const int8_t* src = raw + stage * 2 * kBK * kHeadDim;
+      for (int i = tid; i < 2 * kBK * 4; i += kThreadsTC) {
+        const int which = i / (kBK * 4), row = (i / 4) % kBK, ch = i % 4;
+        const int4 u = *reinterpret_cast<const int4*>(
+            src + which * kBK * kHeadDim + row * kHeadDim + ch * 16);
+        const int8_t* e = reinterpret_cast<const int8_t*>(&u);
+        uint32_t w[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          w[j] = pack_bf16(__float2bfloat16_rn(static_cast<float>(e[2 * j])),
+                           __float2bfloat16_rn(
+                               static_cast<float>(e[2 * j + 1])));
+        uint4* dst = reinterpret_cast<uint4*>(ring + which * kTileElems +
+                                              row * kRow + ch * 16);
+        dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+        dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      }
+      __syncthreads();
+      const float* ks = s_scale + stage * 2 * kBK;
+      const float* vs = ks + kBK;
+      auto score = [ks](int col, float s) { return s * ks[col]; };
+      auto vfold = [vs](int col) { return vs[col]; };
+      if (full)
+        tile_step<3, false>(st, qf, q_live, ring, ring + kTileElems, score,
+                            keep, vfold, kBK / 16, lane);
+      else
+        tile_step<3, true>(st, qf, q_live, ring, ring + kTileElems, score,
+                           keep, vfold, kBK / 16, lane);
+    }
+    __syncthreads();      // the stage is free for the tile after next
+    t = tn;
+    stage ^= 1;
+  }
+  st.finish();
+
+  // the partials of this split (the output itself when n_split == 1)
+  const size_t plane = static_cast<size_t>(n_tok) * n_kv * kGroup;
+  o += split * plane * kHeadDim;
+  l_out += split * plane;
+  m_out += split * plane;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int tk = (lane >> 2) + 8 * half;
+    if (!s_act[tk]) continue;
+    const size_t row =
+        (static_cast<size_t>(tile * kTokens + tk) * n_kv + kv) * kGroup + warp;
+#pragma unroll
+    for (int j = 0; j < attn_tile::kDTiles; ++j)
+      *reinterpret_cast<float2*>(o + row * kHeadDim + 8 * j + 2 * (lane & 3)) =
+          make_float2(st.acc[j][2 * half], st.acc[j][2 * half + 1]);
+    if ((lane & 3) == 0) {
+      l_out[row] = st.l[half];
+      m_out[row] = st.m[half];
+    }
+  }
+}
+
+// the split-KV merge: 16 threads per output row, 4 dims each
+__global__ void __launch_bounds__(256)
+merge_splits_kernel(const float* __restrict__ o_p,
+                    const float* __restrict__ l_p,
+                    const float* __restrict__ m_p, float* __restrict__ o,
+                    float* __restrict__ l, float* __restrict__ m, int rows,
+                    int n_split) {
+  const int row = blockIdx.x * 16 + threadIdx.x / 16, c = threadIdx.x % 16;
+  if (row >= rows) return;
+  float mx = kNegInf;
+  for (int s = 0; s < n_split; ++s)
+    mx = fmaxf(mx, m_p[static_cast<size_t>(s) * rows + row]);
+  float lsum = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < n_split; ++s) {
+    const size_t sr = static_cast<size_t>(s) * rows + row;
+    const float w = expf(m_p[sr] - mx);   // an empty split: exp(-1e30 - mx)
+    lsum = fmaf(w, l_p[sr], lsum);
+    const float4 x =
+        *reinterpret_cast<const float4*>(o_p + sr * kHeadDim + 4 * c);
+    acc.x = fmaf(w, x.x, acc.x);
+    acc.y = fmaf(w, x.y, acc.y);
+    acc.z = fmaf(w, x.z, acc.z);
+    acc.w = fmaf(w, x.w, acc.w);
+  }
+  *reinterpret_cast<float4*>(o + static_cast<size_t>(row) * kHeadDim + 4 * c) =
+      acc;
+  if (c == 0) {
+    l[row] = lsum;
+    m[row] = mx;
+  }
+}
+
+template <bool kInt8>
+cudaError_t launch_tc(const void* q, const void* seg, int seg_div,
+                      const void* k_pages, const void* v_pages,
+                      const void* k_scale, const void* v_scale,
+                      const void* tables, const void* valid, void* o, void* l,
+                      void* m, void* o_part, void* l_part, void* m_part,
+                      int n_tok, int n_seg, int n_kv, int bs, int nb,
+                      int n_split, float scale, cudaStream_t stream) {
+  const ChunkSmem L = chunk_smem(kInt8, nb * bs, nb);
+  if (L.total > kMaxSmem) return cudaErrorInvalidValue;
+  static int configured = 48 * 1024;
+  if (L.total > configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_chunk_tc_kernel<kInt8>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (err != cudaSuccess) return err;
+    configured = L.total;
+  }
+  const bool split = n_split > 1;
+  const dim3 grid((n_tok + kTokens - 1) / kTokens, n_kv, n_seg * n_split);
+  paged_chunk_tc_kernel<kInt8><<<grid, kThreadsTC, L.total, stream>>>(
+      static_cast<const float*>(q), static_cast<const int*>(seg), seg_div,
+      k_pages, v_pages, static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(tables),
+      static_cast<const bool*>(valid),
+      static_cast<float*>(split ? o_part : o),
+      static_cast<float*>(split ? l_part : l),
+      static_cast<float*>(split ? m_part : m), n_tok, n_seg, n_kv, bs, nb,
+      n_split, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !split) return err;
+  const int rows = n_tok * n_kv * kGroup;
+  merge_splits_kernel<<<(rows + 15) / 16, 256, 0, stream>>>(
+      static_cast<const float*>(o_part), static_cast<const float*>(l_part),
+      static_cast<const float*>(m_part), static_cast<float*>(o),
+      static_cast<float*>(l), static_cast<float*>(m), rows, n_split);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32 pages: the CUDA-core kernel
+//   * one block of 256 threads per (tile of 16 query tokens, KV head,
+//     segment); the tile's G x 16 query rows sit in shared memory in f32,
+//     pre-scaled by 1/sqrt(d);
+//   * the segment's virtual positions are walked in tiles of 16; a tile
+//     with no valid position is skipped; each position looks up its page
+//     and the 256 threads stage K and V of the 16 positions in shared
+//     memory, 16 threads a position;
+//   * one half-warp per query token: for scores, lane j takes key j of the
+//     tile; for the output, lane j owns dims [4j, 4j + 4) of each of the
+//     token's G rows; the online softmax is carried in registers in f32.
+
+constexpr int kThreadsF32 = kTokens * 16;   // one half-warp per token
+constexpr int kKeysF32 = 16;                // key positions per shared tile
+
+template <int D, int G>
+__global__ void __launch_bounds__(kThreadsF32)
+paged_chunk_f32_kernel(const float* __restrict__ q,
+                       const int* __restrict__ seg, int seg_div,
+                       const float* __restrict__ k_pages,
+                       const float* __restrict__ v_pages,
+                       const int* __restrict__ tables,
+                       const bool* __restrict__ valid, float* __restrict__ o,
+                       float* __restrict__ l_out, float* __restrict__ m_out,
+                       int n_tok, int n_seg, int n_kv, int bs, int nb,
+                       float scale) {
+  static_assert(D == 16 * 4, "a half-warp's 16 lanes own 4 dims each");
+  constexpr int kQStride = D + 1;   // padded: the two half-warps of a warp
+  constexpr int kKStride = D + 1;   // read other banks; lanes read K rows
+  __shared__ float sQ[kTokens * G * kQStride];
+  __shared__ float sK[kKeysF32 * kKStride];
+  __shared__ __align__(16) float sV[kKeysF32 * D];
+  __shared__ bool s_act[kTokens];
+  __shared__ bool s_ok[kKeysF32];
+
+  const int tile = blockIdx.x, kv = blockIdx.y, r = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int hw = tid / 16, lane = tid % 16;
+  const int n_heads = n_kv * G;
+
+  bool mine = false;
+  if (tid < kTokens) {
+    const int n = tile * kTokens + tid;
+    mine = n < n_tok && segment_of(seg, seg_div, n, n_seg) == r;
+    s_act[tid] = mine;
+  }
+  if (!__syncthreads_or(mine)) return;
+
+  for (int idx = tid; idx < kTokens * G * D; idx += kThreadsF32) {
     const int i = idx / (G * D), g = (idx / D) % G, k = idx % D;
     const int n = tile * kTokens + i;
     sQ[(i * G + g) * kQStride + k] =
@@ -152,10 +523,10 @@ paged_chunk_kernel(const float* __restrict__ q, const int* __restrict__ seg,
   const int* table_row = tables + static_cast<size_t>(r) * nb;
   const bool* valid_row = valid + static_cast<size_t>(r) * n_pos;
   const float* krow = sK + lane * kKStride;
-  for (int base = 0; base < n_pos; base += kKeys) {
+  for (int base = 0; base < n_pos; base += kKeysF32) {
     __syncthreads();    // the previous tile's readers are done
     bool ok = false;
-    if (tid < kKeys) {
+    if (tid < kKeysF32) {
       const int p = base + tid;
       ok = p < n_pos && valid_row[p];
       s_ok[tid] = ok;
@@ -164,27 +535,22 @@ paged_chunk_kernel(const float* __restrict__ q, const int* __restrict__ seg,
 
     {   // stage the 16 positions' K and V, 16 threads a position
       const int pl = tid / 16, c = tid % 16;
-      float kf[4] = {0.f, 0.f, 0.f, 0.f}, vf[4] = {0.f, 0.f, 0.f, 0.f};
+      float4 kf = make_float4(0.f, 0.f, 0.f, 0.f), vf = kf;
       if (s_ok[pl]) {
         const int p = base + pl;
         const int page = table_row[p / bs];
         const size_t pos_row =
             (static_cast<size_t>(page) * n_kv + kv) * bs + (p % bs);
-        load4(k_pages + pos_row * D + 4 * c, kf);
-        load4(v_pages + pos_row * D + 4 * c, vf);
-        if (k_scale != nullptr) {
-          const float ks = k_scale[pos_row], vs = v_scale[pos_row];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            kf[j] *= ks;
-            vf[j] *= vs;
-          }
-        }
+        kf = __ldg(reinterpret_cast<const float4*>(k_pages + pos_row * D +
+                                                   4 * c));
+        vf = __ldg(reinterpret_cast<const float4*>(v_pages + pos_row * D +
+                                                   4 * c));
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sK[pl * kKStride + 4 * c + j] = kf[j];
-      *reinterpret_cast<float4*>(&sV[pl * D + 4 * c]) =
-          make_float4(vf[0], vf[1], vf[2], vf[3]);
+      sK[pl * kKStride + 4 * c] = kf.x;
+      sK[pl * kKStride + 4 * c + 1] = kf.y;
+      sK[pl * kKStride + 4 * c + 2] = kf.z;
+      sK[pl * kKStride + 4 * c + 3] = kf.w;
+      *reinterpret_cast<float4*>(&sV[pl * D + 4 * c]) = vf;
     }
     __syncthreads();
 
@@ -211,7 +577,7 @@ paged_chunk_kernel(const float* __restrict__ q, const int* __restrict__ seg,
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[g][c] *= corr;
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
+      for (int j = 0; j < kKeysF32; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j, 16);
         const float4 v =
             *reinterpret_cast<const float4*>(&sV[j * D + 4 * lane]);
@@ -238,25 +604,15 @@ paged_chunk_kernel(const float* __restrict__ q, const int* __restrict__ seg,
   }
 }
 
-// The one shape instantiated, and held against the plain version on the
-// card: d_head 64 with 3 query heads per KV head (smollm-360m's 15 heads on
-// 5 KV heads).  Other shapes are refused until they are instantiated and
-// checked there too.
-constexpr int kHeadDim = 64;
-constexpr int kGroup = 3;
-
-template <typename T>
-cudaError_t launch_typed(const void* q, const void* seg, int seg_div,
-                         const void* k_pages, const void* v_pages,
-                         const void* k_scale, const void* v_scale,
-                         const void* tables, const void* valid, void* o,
-                         void* l, void* m, int n_tok, int n_seg, int n_kv,
-                         int bs, int nb, float scale, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* seg, int seg_div,
+                       const void* k_pages, const void* v_pages,
+                       const void* tables, const void* valid, void* o,
+                       void* l, void* m, int n_tok, int n_seg, int n_kv,
+                       int bs, int nb, float scale, cudaStream_t stream) {
   const dim3 grid((n_tok + kTokens - 1) / kTokens, n_kv, n_seg);
-  paged_chunk_kernel<T, kHeadDim, kGroup><<<grid, kThreads, 0, stream>>>(
+  paged_chunk_f32_kernel<kHeadDim, kGroup><<<grid, kThreadsF32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const int*>(seg), seg_div,
-      static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const float*>(k_pages), static_cast<const float*>(v_pages),
       static_cast<const int*>(tables), static_cast<const bool*>(valid),
       static_cast<float*>(o), static_cast<float*>(l), static_cast<float*>(m),
       n_tok, n_seg, n_kv, bs, nb, scale);
@@ -269,34 +625,42 @@ cudaError_t launch_typed(const void* q, const void* seg, int seg_div,
 // token / seg_div; tables (n_seg, nb) int32; valid (n_seg, nb * bs) bool;
 // pages (P, n_kv, bs, D); o (n_tok, n_kv, G, D), l and m (n_tok, n_kv, G)
 // f32.  dtype codes: 0 = float32 pages, 1 = bfloat16 pages, 2 = int8 pages
-// (k_scale / v_scale non-null).  Returns cudaGetLastError() after launch,
-// or cudaErrorInvalidValue for a shape that is not instantiated.
+// (k_scale / v_scale non-null).  n_split > 1 (bf16 and int8 only) splits
+// each segment's positions over n_split blocks; o_part, l_part and m_part
+// are then scratch of n_split times the shape of o, l and m.  Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for a
+// shape that is not instantiated.
 extern "C" int paged_chunk_launch(const void* q, const void* seg, int seg_div,
                                   const void* k_pages, const void* v_pages,
                                   const void* k_scale, const void* v_scale,
                                   const void* tables, const void* valid,
-                                  void* o, void* l, void* m, int n_tok,
+                                  void* o, void* l, void* m, void* o_part,
+                                  void* l_part, void* m_part, int n_tok,
                                   int n_seg, int n_kv, int G, int D, int bs,
-                                  int nb, int dtype_code, float scale,
-                                  void* stream) {
+                                  int nb, int n_split, int dtype_code,
+                                  float scale, void* stream) {
   if (n_tok == 0 || n_kv == 0) return static_cast<int>(cudaGetLastError());
   if (D != kHeadDim || G != kGroup || n_seg < 1 || nb < 1 || bs < 1 ||
-      (seg == nullptr && seg_div < 1))
+      n_split < 1 || (seg == nullptr && seg_div < 1) ||
+      (n_split > 1 && (dtype_code == 0 || o_part == nullptr ||
+                       l_part == nullptr || m_part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype_code) {
     case 0:
-      return static_cast<int>(launch_typed<float>(
-          q, seg, seg_div, k_pages, v_pages, k_scale, v_scale, tables, valid,
-          o, l, m, n_tok, n_seg, n_kv, bs, nb, scale, st));
+      return static_cast<int>(launch_f32(q, seg, seg_div, k_pages, v_pages,
+                                         tables, valid, o, l, m, n_tok,
+                                         n_seg, n_kv, bs, nb, scale, st));
     case 1:
-      return static_cast<int>(launch_typed<__nv_bfloat16>(
+      return static_cast<int>(launch_tc<false>(
           q, seg, seg_div, k_pages, v_pages, k_scale, v_scale, tables, valid,
-          o, l, m, n_tok, n_seg, n_kv, bs, nb, scale, st));
+          o, l, m, o_part, l_part, m_part, n_tok, n_seg, n_kv, bs, nb,
+          n_split, scale, st));
     case 2:
-      return static_cast<int>(launch_typed<int8_t>(
+      return static_cast<int>(launch_tc<true>(
           q, seg, seg_div, k_pages, v_pages, k_scale, v_scale, tables, valid,
-          o, l, m, n_tok, n_seg, n_kv, bs, nb, scale, st));
+          o, l, m, o_part, l_part, m_part, n_tok, n_seg, n_kv, bs, nb,
+          n_split, scale, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -37,9 +37,9 @@ SIGNATURES = {
                             _c.c_int, _c.c_int, _c.c_int, _c.c_int,
                             _c.c_int, _c.c_int, _c.c_int, _c.c_float, _P],
     "paged_chunk_launch": [_P, _P, _c.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-                           _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-                           _c.c_float, _P],
+                           _P, _P, _P, _P, _c.c_int, _c.c_int, _c.c_int,
+                           _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                           _c.c_int, _c.c_float, _P],
     "ttt_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _c.c_int,
                         _c.c_int, _c.c_int, _c.c_int, _c.c_int, _P],
     "probe_spec_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -14,6 +14,11 @@ einsum, ``attn_prefill_einsum``.  (The Pallas body rounds q * scale and p
 to the input dtype; on bf16 inputs it sits a bf16 rounding away from
 both.)
 
+On the card bf16 inputs run on the tensor cores through the tile body K3
+shares (``csrc/attn_tile.cuh``: bf16 products with f32 accumulation, p
+split into three bf16 terms, so the result stays the f32 one); f32 inputs
+run a CUDA-core kernel.
+
 Dispatch is by the input's device: CPU tensors take the plain version,
 CUDA tensors the kernel (``csrc/flash_attention.cu``); anything else
 raises.

@@ -24,6 +24,13 @@ yet) returns m = -1e30, l = 0, o = 0 (invalid positions contribute exactly
 zero); the Pallas kernel returns l = nb*bs and o = sum V there, and the
 caller's merge weighs the cache at zero either way (ROADMAP C).
 
+On the card, bf16 and int8 pages run the tensor-core kernel (the tile body
+``csrc/attn_tile.cuh``, shared with K7) and f32 pages a CUDA-core kernel.
+Past ``SPLIT_MIN_POSITIONS`` virtual positions a segment's positions are
+shared over several blocks (split-KV, ``split_count``): each writes
+partials to scratch the wrapper allocates, and a second kernel of the
+same launcher merges them as ``merge_split_partials_plain`` does.
+
 Dispatch is by the input's device: CPU tensors take the plain version,
 CUDA tensors the kernel; anything else raises.
 """
@@ -40,6 +47,11 @@ from repro_torch.kernels.paged_decode import _DTYPE_CODE, paged_attend_plain
 # smollm-360m's d_head 64, 15 heads on 5 KV heads
 KERNEL_HEAD_DIM = 64
 KERNEL_GROUP = 3
+# split-KV: a table row of more virtual positions than this is shared over
+# split_count blocks per (token tile, KV head, segment); the served shapes
+# (at most 256 positions) stay one launch with no merge
+SPLIT_MIN_POSITIONS = 256
+MAX_SPLITS = 16
 
 
 # ---------------------------------------------------------------------------
@@ -84,6 +96,27 @@ def paged_packed_chunk_plain(q, k_pages, v_pages, seg, seg_tables,
     tok = torch.arange(c, device=q.device)
     # advanced indices at dims 0 and 2 move to the front: (C, KV, G, ...)
     return o[s, :, tok], l[s, :, tok], m[s, :, tok]
+
+
+def merge_split_partials_plain(o, l, m):
+    """Fold the partials of S disjoint position ranges into the partials
+    of their union (the log-sum-exp rule of K3's split-KV merge).
+
+    o (S, ..., d), l (S, ...), m (S, ...) -> (o (..., d), l (...),
+    m (...)).  An empty range has m = -1e30, l = 0, o = 0 and weighs
+    nothing; a row empty in every range keeps m = -1e30, l = 0, o = 0."""
+    mx = m.max(dim=0).values
+    w = torch.exp(m - mx)
+    return (w[..., None] * o).sum(0), (w * l).sum(0), mx
+
+
+def split_count(n_positions: int, dtype: torch.dtype) -> int:
+    """How many blocks share one segment's positions in the kernel: 1 up to
+    ``SPLIT_MIN_POSITIONS`` virtual positions (and for f32 pages), else one
+    per 256 positions, at most ``MAX_SPLITS``."""
+    if dtype == torch.float32 or n_positions <= SPLIT_MIN_POSITIONS:
+        return 1
+    return min(MAX_SPLITS, -(-n_positions // SPLIT_MIN_POSITIONS))
 
 
 # ---------------------------------------------------------------------------
@@ -140,18 +173,26 @@ def _launch(name, q, k_pages, v_pages, seg, seg_div, tables, valid,
     n, h, d = q.shape
     n_kv = k_pages.shape[1]
     g = h // n_kv
-    o = torch.empty((n, n_kv, g, d), dtype=torch.float32, device=q.device)
-    l = torch.empty((n, n_kv, g), dtype=torch.float32, device=q.device)
-    m = torch.empty((n, n_kv, g), dtype=torch.float32, device=q.device)
+    bs, nb = k_pages.shape[2], tables.shape[1]
+    n_split = split_count(nb * bs, k_pages.dtype)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o = torch.empty((n, n_kv, g, d), **f32)
+    l = torch.empty((n, n_kv, g), **f32)
+    m = torch.empty((n, n_kv, g), **f32)
+    parts = [None] * 3
+    if n_split > 1:     # the split-KV partials, merged by the launcher
+        parts = [torch.empty((n_split,) + tuple(t.shape), **f32)
+                 for t in (o, l, m)]
     p = _build.ptr
+
+    def opt(t):
+        return None if t is None else p(t)
     err = _build.library().paged_chunk_launch(
-        p(q), p(seg) if seg is not None else None, seg_div,
-        p(k_pages), p(v_pages),
-        p(k_scale) if k_scale is not None else None,
-        p(v_scale) if v_scale is not None else None,
-        p(tables), p(valid), p(o), p(l), p(m), n, tables.shape[0], n_kv, g,
-        d, k_pages.shape[2], tables.shape[1], _DTYPE_CODE[k_pages.dtype],
-        float(1.0 / d ** 0.5), _build.stream_of(q))
+        p(q), opt(seg), seg_div, p(k_pages), p(v_pages), opt(k_scale),
+        opt(v_scale), p(tables), p(valid), p(o), p(l), p(m),
+        *(opt(t) for t in parts), n, tables.shape[0], n_kv, g, d, bs, nb,
+        n_split, _DTYPE_CODE[k_pages.dtype], float(1.0 / d ** 0.5),
+        _build.stream_of(q))
     _build.check(err, f"{name} launch")
     return o, l, m
 
