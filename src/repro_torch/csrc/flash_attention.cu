@@ -42,9 +42,12 @@
 //     fully skips the mask test;
 //   * the online softmax (m, l, acc) of each row stays in f32 registers;
 //     masked keys count exactly zero.
-// What bounds it then is the tile body's issue: per warp and tile 128
-// mma.sync, 64 exponentials and the splits, with the softmax between the
-// two products, at 12 warps an SM.  The f32 instance (the f32 check fleets
+// What bounds it then is the tile body: per warp and tile 128 mma.sync
+// (32 for Q.K^T, 96 for the three-term P.V, twice a bf16 flash kernel's
+// 64), the exponentials and the splits, with the softmax between the two
+// products, at 12 warps an SM.  ptxas (build.log, sm_90a): 168
+// registers, 44 bytes spilled, 36,864 bytes of shared memory (two stages
+// of K and V); the f32 kernel 80 registers, 37,888 bytes.  The f32 instance (the f32 check fleets
 // only) keeps the CUDA-core kernel below (flash_attention_f32_kernel);
 // attn_tile.cuh says why.
 

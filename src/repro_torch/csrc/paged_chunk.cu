@@ -54,6 +54,14 @@
 // f32 pages (the f32 check fleets only) keep the CUDA-core kernel below
 // (paged_chunk_f32_kernel), which walks the row in tiles of 16 positions
 // with the products in f32; attn_tile.cuh says why.
+// ptxas (build.log, sm_90a): the tensor-core kernel 178 registers (bf16)
+// and 184 (int8), no spill, 3 warps a block; dynamic shared memory 36,864
+// bytes of ring (bf16; int8 18,432 + 16,384 raw + 1,024 scales) plus the
+// validity row, table row and tile flags, 37,216 bytes at nb 16 and 42,112
+// at nb 256 (bf16); the merge 32 registers; the f32 kernel 63 registers,
+// 20,768 bytes.  At the served chunk the block count (20 of 80 with a
+// token of their segment) and each block's chain of setup, first tile
+// load and two tiles bound the call, not registers or occupancy.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
