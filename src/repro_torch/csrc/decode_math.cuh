@@ -1,42 +1,67 @@
-// Single-query GQA decode of one (batch row, KV head), shared by K2
+// Single-query GQA decode of one (batch row, KV head, split), shared by K2
 // (paged_decode.cu: positions read through a block table) and K6
 // (flash_decode.cu: a contiguous cache).  Both kernels run this one
 // function, so they differ only in where a position's K/V row lies and in
 // whether p is rounded to the cache dtype before P.V.
 //
-// The block, kThreads threads working on one (row, KV head):
-//   * its R query rows (the G heads sharing the KV head) sit in registers
-//     in f32, pre-scaled by 1/sqrt(d);
-//   * 8 warps split the positions in groups of 8; inside a warp 4 lanes
-//     share one position, each loading d/4 contiguous elements with 16-
-//     (or 8-) byte loads, so a warp reads 8 whole K rows (and 8 V rows) per
-//     group, coalesced;
-//   * bf16 rows are upcast to f32 after the load; int8 rows are multiplied
-//     by their per-(position, head) scale after the load; all arithmetic
-//     is f32;
-//   * invalid positions are never loaded and contribute exactly zero, so a
-//     row with no valid position returns m = -1e30, l = 0, o = 0;
-//   * each warp keeps a running online softmax (m, l, acc) over its own
-//     positions; warps merge through shared memory at the end, and the
-//     block writes the UNNORMALISED partials (o, l, m).
+// What bounds it on the H100: bytes.  R = 3 query rows per KV head give
+// about 3 f32 operations per bf16 byte of K and V, far under the CUDA
+// cores' ridge of about 20 (67 TFLOP/s over 3.35 TB/s), and the tensor
+// cores would not change that.  So the design is about the bytes in
+// flight: by Little's law the card needs about 3.35 TB/s x ~0.7 us, some
+// 2.3 MB, in flight to run at its byte rate.  The grid is
+// (B, KV, n_split) blocks of kWarps warps:
+//   * split-KV: past 256 virtual positions a row is shared over n_split
+//     blocks (kernels/split.py split_count: one per 256 positions, at most
+//     16; 640 blocks at B 8, 4096 positions).  Each block finds the row's
+//     live range [first valid, last valid] and takes its equal share of
+//     it (split.py split_ranges is the same cut), not of the virtual row,
+//     so a ragged row's valid positions spread over all its blocks and no
+//     block walks an invalid tail.  A share with no position writes the
+//     empty partials (m = -1e30, l = 0, o = 0); the launcher then runs the
+//     merge of split_merge.cuh.  Up to 256 positions n_split is 1: one
+//     launch, the block writes the output itself, no merge;
+//   * indices once: the block copies the row's validity flags (and K2
+//     its block-table row) into shared memory in one coalesced pass, the
+//     same pass that finds the live range.  A K/V load then waits on no
+//     global index load;
+//   * loads in flight: a warp takes its positions in groups of 8 x U (U =
+//     4 / sizeof(T): 8 f32, 16 bf16 or 32 int8 positions), 4 lanes a
+//     position, each lane loading its 16 of the 64 dims with 16-byte
+//     loads, so a group is 128 bytes of K and V a lane, coalesced rows.
+//     The next group's loads are issued into registers before the current
+//     group is computed (a register double buffer), so each warp keeps
+//     one group in flight while it computes;
+//   * one softmax correction per group and row: the warp takes the max of
+//     the group's 8 U scores once (3 shuffles), then one corr and one expf
+//     per score;
+//   * invalid positions are never loaded (zeros) and weigh exactly zero,
+//     so a row with no valid position returns m = -1e30, l = 0, o = 0;
+//   * bf16 rows are upcast to f32 exactly; int8 rows are converted
+//     exactly and their per-(position, head) scales multiply the score
+//     (k) and fold into p (v); all arithmetic is f32;
+//   * at the end the warps merge through shared memory, and the block
+//     writes the UNNORMALISED partials (o, l, m) of its share.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace decode {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
+// a block's shared memory on the H100, dynamic and static together
+constexpr int kMaxSmem = 227 * 1024;
+
+__host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_float(int8_t x) {
-  return static_cast<float>(x);
 }
 
 // p rounded to the cache dtype, as the jnp path's p.astype(v.dtype)
@@ -51,41 +76,57 @@ __device__ __forceinline__ float round_as<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// N contiguous elements of type T -> f32 registers, in 16- or 8-byte loads
-template <typename T, int N>
-__device__ __forceinline__ void load_row(const T* __restrict__ p,
-                                         float (&out)[N]) {
-  constexpr int kBytes = N * static_cast<int>(sizeof(T));
-  if constexpr (kBytes % 16 == 0) {
-    constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+// one 16-byte word of a row -> its elements in f32, exactly
+template <typename T>
+struct Word;
+template <>
+struct Word<float> {
+  static constexpr int kElems = 4;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* out) {
+    out[0] = __uint_as_float(u.x);
+    out[1] = __uint_as_float(u.y);
+    out[2] = __uint_as_float(u.z);
+    out[3] = __uint_as_float(u.w);
+  }
+};
+template <>
+struct Word<__nv_bfloat16> {
+  static constexpr int kElems = 8;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* out) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int c = 0; c < kBytes / 16; ++c) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + c);
-      const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) out[c * kPer + k] = to_float(e[k]);
-    }
-  } else {
-    static_assert(kBytes % 8 == 0, "row slice must be a multiple of 8 bytes");
-    constexpr int kPer = 8 / static_cast<int>(sizeof(T));
-#pragma unroll
-    for (int c = 0; c < kBytes / 8; ++c) {
-      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p) + c);
-      const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) out[c * kPer + k] = to_float(e[k]);
+    for (int i = 0; i < 4; ++i) {   // element 2i is the low half
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
-}
+};
+template <>
+struct Word<int8_t> {
+  static constexpr int kElems = 16;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* out) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        out[4 * i + b] = static_cast<float>(
+            static_cast<int8_t>((w[i] >> (8 * b)) & 0xffu));
+  }
+};
 
 // The row of position p, in units of D elements of the K/V buffers (and
-// of their scales): through the batch row's block table into a page pool
-// (P, KV, bs, D) ...
+// of their scales): through the batch row's block table, staged in shared
+// memory, into a page pool (P, KV, bs, D) ...
 struct PagedRows {
-  const int* __restrict__ table_row;
-  int n_kv, kv, bs;
+  const int* __restrict__ table_row;  // the row's nb entries, global
+  int* s_table;                       // their copy in shared memory
+  int nb, n_kv, kv, bs;
+  __device__ __forceinline__ void stage(int tid) {
+    for (int i = tid; i < nb; i += kThreads) s_table[i] = __ldg(table_row + i);
+  }
   __device__ __forceinline__ size_t operator()(int p) const {
-    const int page = table_row[p / bs];
+    const int page = s_table[p / bs];
     return (static_cast<size_t>(page) * n_kv + kv) * bs + (p % bs);
   }
 };
@@ -93,26 +134,68 @@ struct PagedRows {
 // ... or in the (batch row, KV head)'s own contiguous (S, D) cache.
 struct DenseRows {
   size_t first;  // (row * KV + kv) * S
+  __device__ __forceinline__ void stage(int) {}
   __device__ __forceinline__ size_t operator()(int p) const {
     return first + static_cast<size_t>(p);
   }
 };
 
-// One block's decode: q the R query rows (R x D, contiguous), valid_row the
-// n_pos validity flags, rows the addressing above; k_scale / v_scale are
-// null unless T is int8.  With kRoundP, p is rounded to T before P.V (l
-// sums the unrounded p).  Writes o (R x D), l (R) and m (R).
+// One block's decode of its share of a row: q the R query rows (R x D,
+// contiguous), valid_row the n_pos validity flags, rows the addressing
+// above; k_scale / v_scale are null unless T is int8.  The block is split
+// blockIdx.z of gridDim.z.  With kRoundP, p is rounded to T before P.V
+// against the running max of its warp and split (l sums the unrounded p).
+// smem holds round16(n_pos) bytes of flags (then K2's table).  Writes
+// o (R x D), l (R) and m (R): the output, or with n_split > 1 this
+// split's plane of the scratch.
 template <typename T, typename QT, int D, int R, bool kRoundP, typename Rows>
 __device__ __forceinline__ void attend(
     const QT* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const bool* __restrict__ valid_row,
-    int n_pos, Rows rows, float scale, float* __restrict__ o,
-    float* __restrict__ l_out, float* __restrict__ m_out) {
-  constexpr int kDpl = D / 4;  // dims per lane: 4 lanes share a position
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    int n_pos, Rows rows, float scale, uint8_t* s_valid,
+    float* __restrict__ o, float* __restrict__ l_out,
+    float* __restrict__ m_out) {
+  constexpr int kDpl = D / 4;                  // dims per lane
+  constexpr int kVec = kDpl * static_cast<int>(sizeof(T)) / 16;
+  static_assert(kVec * 16 == kDpl * static_cast<int>(sizeof(T)),
+                "a lane's slice of a row must be whole 16-byte words");
+  static_assert(Word<T>::kElems * kVec == kDpl, "word size");
+  constexpr int U = 4 / static_cast<int>(sizeof(T));   // positions a lane
+  constexpr int kGroup = 8 * U;                 // positions a warp a group
+  constexpr bool kScaled = sizeof(T) == 1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int quad = lane / 4, qi = lane % 4;
 
+  // ---- the row's flags into shared memory, and its live range
+  __shared__ int s_first[kWarps], s_last[kWarps];
+  int first = INT_MAX, last = -1;
+  const uint8_t* vrow = reinterpret_cast<const uint8_t*>(valid_row);
+  if (n_pos % 16 == 0 && reinterpret_cast<uintptr_t>(vrow) % 16 == 0) {
+    for (int c = tid; c < n_pos / 16; c += kThreads) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(vrow) + c);
+      reinterpret_cast<uint4*>(s_valid)[c] = u;
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (w[i] == 0) continue;
+        first = min(first, 16 * c + 4 * i + (__ffs(w[i]) - 1) / 8);
+        last = max(last, 16 * c + 4 * i + (31 - __clz(w[i])) / 8);
+      }
+    }
+  } else {
+    for (int p = tid; p < n_pos; p += kThreads) {
+      const uint8_t f = vrow[p] != 0;
+      s_valid[p] = f;
+      if (f) {
+        first = min(first, p);
+        last = max(last, p);
+      }
+    }
+  }
+  rows.stage(tid);
+
+  // the query rows in registers, in f32, pre-scaled by 1/sqrt(d)
   float qr[R][kDpl];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -120,6 +203,65 @@ __device__ __forceinline__ void attend(
 #pragma unroll
     for (int j = 0; j < kDpl; ++j) qr[r][j] = to_float(qrow[j]) * scale;
   }
+
+  first = __reduce_min_sync(0xffffffffu, first);
+  last = __reduce_max_sync(0xffffffffu, last);
+  if (lane == 0) {
+    s_first[warp] = first;
+    s_last[warp] = last;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    first = min(first, s_first[w]);
+    last = max(last, s_last[w]);
+  }
+  // this block's share of the live range (split.py split_ranges)
+  int lo = 0, hi = 0;
+  if (last >= first) {
+    const int n_split = gridDim.z;
+    const int per = (last - first + n_split) / n_split;
+    lo = first + static_cast<int>(blockIdx.z) * per;
+    hi = min(lo + per, last + 1);
+  }
+  const int n_groups = hi > lo ? (hi - lo + kGroup - 1) / kGroup : 0;
+
+  // ---- the warp's groups g = warp, warp + kWarps, ...: load g + kWarps
+  // while computing g
+  struct Slot {
+    uint4 k[U][kVec], v[U][kVec];
+    float ks[U], vs[U];
+    bool ok[U];
+  };
+  auto issue = [&](int g, Slot& s) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = lo + g * kGroup + 8 * u + quad;
+      const bool ok = p < hi && s_valid[p] != 0;
+      s.ok[u] = ok;
+      s.ks[u] = s.vs[u] = 0.f;
+#pragma unroll
+      for (int c = 0; c < kVec; ++c)
+        s.k[u][c] = s.v[u][c] = make_uint4(0u, 0u, 0u, 0u);
+      if (ok) {
+        const size_t row = rows(p);
+        const uint4* kp = reinterpret_cast<const uint4*>(k + row * D) +
+                          qi * kVec;
+        const uint4* vp = reinterpret_cast<const uint4*>(v + row * D) +
+                          qi * kVec;
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) {
+          s.k[u][c] = __ldg(kp + c);
+          s.v[u][c] = __ldg(vp + c);
+        }
+        if constexpr (kScaled) {
+          s.ks[u] = __ldg(k_scale + row);
+          s.vs[u] = __ldg(v_scale + row);
+        }
+      }
+    }
+  };
+
   float m_run[R], l_run[R], acc[R][kDpl];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -129,47 +271,76 @@ __device__ __forceinline__ void attend(
     for (int j = 0; j < kDpl; ++j) acc[r][j] = 0.f;
   }
 
-  for (int base = warp * 8; base < n_pos; base += kWarps * 8) {
-    const int p = base + quad;
-    const bool ok = p < n_pos && valid_row[p];
-    float kf[kDpl], vf[kDpl];
+  auto consume = [&](const Slot& s) {
+    // scores: each lane's 16-dim slice, summed over the position's 4 lanes
+    float sc[R][U];
 #pragma unroll
-    for (int j = 0; j < kDpl; ++j) kf[j] = vf[j] = 0.f;
-    if (ok) {
-      const size_t pos_row = rows(p);
-      load_row<T, kDpl>(k + pos_row * D + qi * kDpl, kf);
-      load_row<T, kDpl>(v + pos_row * D + qi * kDpl, vf);
-      if (k_scale != nullptr) {
-        const float ks = k_scale[pos_row], vs = v_scale[pos_row];
+    for (int u = 0; u < U; ++u) {
+      float kf[kDpl];
 #pragma unroll
-        for (int j = 0; j < kDpl; ++j) {
-          kf[j] *= ks;
-          vf[j] *= vs;
-        }
+      for (int c = 0; c < kVec; ++c)
+        Word<T>::unpack(s.k[u][c], kf + c * Word<T>::kElems);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float d = 0.f;
+#pragma unroll
+        for (int j = 0; j < kDpl; ++j) d = fmaf(qr[r][j], kf[j], d);
+        d += __shfl_xor_sync(0xffffffffu, d, 1);
+        d += __shfl_xor_sync(0xffffffffu, d, 2);
+        if constexpr (kScaled) d *= s.ks[u];
+        sc[r][u] = s.ok[u] ? d : kNegInf;
       }
     }
+    // one max, one correction per row over the group's 8 U positions
+    float pv[R][U];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      float sc = 0.f;
+      float gm = sc[r][0];
 #pragma unroll
-      for (int j = 0; j < kDpl; ++j) sc = fmaf(qr[r][j], kf[j], sc);
-      sc += __shfl_xor_sync(0xffffffffu, sc, 1);
-      sc += __shfl_xor_sync(0xffffffffu, sc, 2);
-      if (!ok) sc = kNegInf;
-      float gm = sc;
+      for (int u = 1; u < U; ++u) gm = fmaxf(gm, sc[r][u]);
       gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 4));
       gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 8));
       gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 16));
       const float m_new = fmaxf(m_run[r], gm);
       const float corr = expf(m_run[r] - m_new);
-      const float pr = ok ? expf(sc - m_new) : 0.f;
-      float pv = pr;
-      if constexpr (kRoundP) pv = round_as<T>(pr);
-      l_run[r] = l_run[r] * corr + pr;
+      float psum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kDpl; ++j)
-        acc[r][j] = fmaf(acc[r][j], corr, pv * vf[j]);
+      for (int u = 0; u < U; ++u) {
+        const float p = s.ok[u] ? expf(sc[r][u] - m_new) : 0.f;
+        psum += p;
+        float w = p;
+        if constexpr (kRoundP) w = round_as<T>(p);
+        if constexpr (kScaled) w *= s.vs[u];
+        pv[r][u] = w;
+      }
+      l_run[r] = fmaf(l_run[r], corr, psum);
+#pragma unroll
+      for (int j = 0; j < kDpl; ++j) acc[r][j] *= corr;
       m_run[r] = m_new;
+    }
+    // P.V: each lane's 16 dims of the position's V row
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vf[kDpl];
+#pragma unroll
+      for (int c = 0; c < kVec; ++c)
+        Word<T>::unpack(s.v[u][c], vf + c * Word<T>::kElems);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int j = 0; j < kDpl; ++j)
+          acc[r][j] = fmaf(pv[r][u], vf[j], acc[r][j]);
+    }
+  };
+
+  if (warp < n_groups) {
+    Slot cur;
+    issue(warp, cur);
+    for (int g = warp; g < n_groups; g += kWarps) {
+      Slot nxt;
+      issue(g + kWarps, nxt);   // past the share: no load, zeros
+      consume(cur);
+      cur = nxt;
     }
   }
 
@@ -201,7 +372,7 @@ __device__ __forceinline__ void attend(
   }
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < R * D; idx += kThreads) {
+  for (int idx = tid; idx < R * D; idx += kThreads) {
     const int r = idx / D, dd = idx % D;
     float m_tot = kNegInf;
 #pragma unroll
@@ -219,6 +390,18 @@ __device__ __forceinline__ void attend(
       m_out[r] = m_tot;
     }
   }
+}
+
+// Dynamic shared memory for a kernel instance: set the attribute once past
+// the default 48 KB; refuse what a block cannot hold.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int& configured) {
+  if (bytes > kMaxSmem - 8 * 1024) return cudaErrorInvalidValue;
+  if (bytes <= configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) configured = bytes;
+  return err;
 }
 
 }  // namespace decode

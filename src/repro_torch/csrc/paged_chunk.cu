@@ -41,13 +41,14 @@
 //     in the ring and are converted exactly to bf16 in shared memory after
 //     the wait; k_scale multiplies the score, v_scale is folded into p;
 //   * split-KV: past 256 virtual positions (kernels/paged_chunk.py
-//     split_count; the wrapper passes n_split > 1) the live range is cut into n_split equal runs of
-//     tiles, one block each, writing partials to the wrapper's scratch; a
-//     second kernel in the same launcher merges them by the log-sum-exp
-//     rule.  A split with no live tile writes the empty partials, so a row
-//     with no valid position in any split still comes out m = -1e30,
-//     l = 0, o = 0.  At the served shapes (<= 256 positions) there is one
-//     launch and no merge;
+//     split_count; the wrapper passes n_split > 1) the live range is cut
+//     into n_split equal runs of tiles, one block each, writing partials
+//     to the wrapper's scratch; the same launcher then runs the merge
+//     that K2 and K6 share (split_merge.cuh), by the log-sum-exp rule.  A
+//     split with no live tile writes the empty partials, so a row with no
+//     valid position in any split still comes out m = -1e30, l = 0,
+//     o = 0.  At the served shapes (<= 256 positions) there is one launch
+//     and no merge;
 //   * a token's segment id is clamped into [0, R), as the JAX gather
 //     clamps; padding tokens carry the last segment's id and so get its
 //     partials, as in JAX.
@@ -68,6 +69,7 @@
 #include <stdint.h>
 
 #include "attn_tile.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
@@ -388,39 +390,6 @@ paged_chunk_tc_kernel(const float* __restrict__ q, const int* __restrict__ seg,
   }
 }
 
-// the split-KV merge: 16 threads per output row, 4 dims each
-__global__ void __launch_bounds__(256)
-merge_splits_kernel(const float* __restrict__ o_p,
-                    const float* __restrict__ l_p,
-                    const float* __restrict__ m_p, float* __restrict__ o,
-                    float* __restrict__ l, float* __restrict__ m, int rows,
-                    int n_split) {
-  const int row = blockIdx.x * 16 + threadIdx.x / 16, c = threadIdx.x % 16;
-  if (row >= rows) return;
-  float mx = kNegInf;
-  for (int s = 0; s < n_split; ++s)
-    mx = fmaxf(mx, m_p[static_cast<size_t>(s) * rows + row]);
-  float lsum = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s = 0; s < n_split; ++s) {
-    const size_t sr = static_cast<size_t>(s) * rows + row;
-    const float w = expf(m_p[sr] - mx);   // an empty split: exp(-1e30 - mx)
-    lsum = fmaf(w, l_p[sr], lsum);
-    const float4 x =
-        *reinterpret_cast<const float4*>(o_p + sr * kHeadDim + 4 * c);
-    acc.x = fmaf(w, x.x, acc.x);
-    acc.y = fmaf(w, x.y, acc.y);
-    acc.z = fmaf(w, x.z, acc.z);
-    acc.w = fmaf(w, x.w, acc.w);
-  }
-  *reinterpret_cast<float4*>(o + static_cast<size_t>(row) * kHeadDim + 4 * c) =
-      acc;
-  if (c == 0) {
-    l[row] = lsum;
-    m[row] = mx;
-  }
-}
-
 template <bool kInt8>
 cudaError_t launch_tc(const void* q, const void* seg, int seg_div,
                       const void* k_pages, const void* v_pages,
@@ -452,12 +421,8 @@ cudaError_t launch_tc(const void* q, const void* seg, int seg_div,
       n_split, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
-  const int rows = n_tok * n_kv * kGroup;
-  merge_splits_kernel<<<(rows + 15) / 16, 256, 0, stream>>>(
-      static_cast<const float*>(o_part), static_cast<const float*>(l_part),
-      static_cast<const float*>(m_part), static_cast<float*>(o),
-      static_cast<float*>(l), static_cast<float*>(m), rows, n_split);
-  return cudaGetLastError();
+  return split_merge::launch(o_part, l_part, m_part, o, l, m,
+                             n_tok * n_kv * kGroup, n_split, stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -8,26 +8,33 @@
 // :113).  Plain PyTorch version: repro_torch/kernels/paged_decode.py
 // paged_attend_plain.
 //
-// Bound on the H100: bytes.  Each (row, KV head) reads its K and V pages
-// once (2 x positions x d elements) for ~4 R d flops per position: about
-// R/2 flops per bf16 byte, two orders of magnitude below the card's ridge.
-// So the design is about moving each page byte once, coalesced, with
-// enough loads in flight: one thread block per (batch row, KV head)
-// running the decode body of decode_math.cuh, shared with K6
-// (flash_decode.cu).  The TPU's scalar-prefetched block table becomes
-// index loads inside the block: each position looks up
-// table[row, pos / bs] itself.  Invalid positions (valid == false:
-// unwritten tail, NULL or stale table entries) are never loaded, so a row
-// with no valid position returns m = -1e30, l = 0, o = 0.  int8 pages are
-// multiplied by their per-(position, head) scale after the load (the same
-// Pallas function's other branch).
-// No split-KV over blocks, TMA or wgmma yet: the grid is B x KV blocks.
+// Bound on the H100: bytes.  Each (row, KV head) reads the K and V rows
+// of its valid positions once (2 x d elements each, and two scales for
+// int8 pages) for ~4 R d flops a position: about R/2 flops per bf16 byte,
+// two orders of magnitude under the card's ridge.  So the design is about
+// keeping enough page bytes in flight, coalesced, and the chain between
+// loads short: the decode body of decode_math.cuh, shared with K6
+// (flash_decode.cu), on a grid of (B, KV, n_split) blocks.  Past 256
+// virtual positions a row's live range is shared over n_split blocks
+// (split-KV, kernels/split.py split_count), each writing its partials to
+// the wrapper's scratch, and this launcher then runs the merge of
+// split_merge.cuh; up to 256 positions (every served shape) it is one
+// launch with no merge.  The TPU's scalar-prefetched block table becomes
+// one staging pass per block: the row's table and validity flags come into
+// shared memory together, so a page load never waits on a table load, and
+// each warp issues its next group of page rows before computing the
+// current one.  Invalid positions (valid == false: unwritten tail, holes,
+// NULL or stale table entries) are never loaded, so a row with no valid
+// position returns m = -1e30, l = 0, o = 0.  int8 pages are converted
+// exactly; k_scale multiplies the score and v_scale folds into p (the
+// same Pallas function's other branch).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "decode_math.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
@@ -41,32 +48,51 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
                     const bool* __restrict__ valid, float* __restrict__ o,
                     float* __restrict__ l_out, float* __restrict__ m_out,
                     int n_kv, int bs, int nb, float scale) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const int row = blockIdx.x, kv = blockIdx.y;
   const int n_pos = nb * bs;
   const size_t head = static_cast<size_t>(row) * n_kv + kv;
-  const decode::PagedRows rows{tables + static_cast<size_t>(row) * nb, n_kv,
-                               kv, bs};
+  // this block's plane: the output, or split blockIdx.z of the scratch
+  const size_t slot =
+      static_cast<size_t>(blockIdx.z) * gridDim.x * gridDim.y + head;
+  const decode::PagedRows rows{
+      tables + static_cast<size_t>(row) * nb,
+      reinterpret_cast<int*>(smem + decode::round16(n_pos)), nb, n_kv, kv,
+      bs};
   decode::attend<T, float, D, R, false>(
       q + head * R * D, k_pages, v_pages, k_scale, v_scale,
-      valid + static_cast<size_t>(row) * n_pos, n_pos, rows, scale,
-      o + head * R * D, l_out + head * R, m_out + head * R);
+      valid + static_cast<size_t>(row) * n_pos, n_pos, rows, scale, smem,
+      o + slot * R * D, l_out + slot * R, m_out + slot * R);
 }
 
 template <typename T, int D, int R>
 cudaError_t launch_typed(const void* q, const void* k_pages,
                          const void* v_pages, const void* k_scale,
                          const void* v_scale, const void* tables,
-                         const void* valid, void* o, void* l, void* m, int B,
-                         int n_kv, int bs, int nb, float scale,
+                         const void* valid, void* o, void* l, void* m,
+                         void* o_part, void* l_part, void* m_part, int B,
+                         int n_kv, int bs, int nb, int n_split, float scale,
                          cudaStream_t stream) {
-  const dim3 grid(B, n_kv);
-  paged_decode_kernel<T, D, R><<<grid, decode::kThreads, 0, stream>>>(
+  // shared memory: the row's flags, then its table
+  const int smem = decode::round16(nb * bs) + 4 * nb;
+  static int configured = 48 * 1024;
+  cudaError_t err =
+      decode::allow_smem(paged_decode_kernel<T, D, R>, smem, configured);
+  if (err != cudaSuccess) return err;
+  const bool split = n_split > 1;
+  const dim3 grid(B, n_kv, n_split);
+  paged_decode_kernel<T, D, R><<<grid, decode::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(tables),
-      static_cast<const bool*>(valid), static_cast<float*>(o),
-      static_cast<float*>(l), static_cast<float*>(m), n_kv, bs, nb, scale);
-  return cudaGetLastError();
+      static_cast<const bool*>(valid),
+      static_cast<float*>(split ? o_part : o),
+      static_cast<float*>(split ? l_part : l),
+      static_cast<float*>(split ? m_part : m), n_kv, bs, nb, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !split) return err;
+  return split_merge::launch(o_part, l_part, m_part, o, l, m, B * n_kv * R,
+                             n_split, stream);
 }
 
 // The one shape instantiated, and held against the plain version on the
@@ -80,44 +106,56 @@ template <typename T>
 cudaError_t launch_checked(int D, int R, const void* q, const void* kp,
                            const void* vp, const void* ks, const void* vs,
                            const void* tables, const void* valid, void* o,
-                           void* l, void* m, int B, int n_kv, int bs, int nb,
-                           float scale, cudaStream_t stream) {
+                           void* l, void* m, void* o_part, void* l_part,
+                           void* m_part, int B, int n_kv, int bs, int nb,
+                           int n_split, float scale, cudaStream_t stream) {
   if (D != kHeadDim || R != kRows) return cudaErrorInvalidValue;
   return launch_typed<T, kHeadDim, kRows>(q, kp, vp, ks, vs, tables, valid, o,
-                                          l, m, B, n_kv, bs, nb, scale,
+                                          l, m, o_part, l_part, m_part, B,
+                                          n_kv, bs, nb, n_split, scale,
                                           stream);
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32 pages, 1 = bfloat16 pages, 2 = int8 pages
-// (k_scale / v_scale non-null).  Returns cudaGetLastError() after launch,
-// or cudaErrorInvalidValue for a shape that is not instantiated.
+// (k_scale / v_scale non-null).  n_split > 1 shares each row's positions
+// over n_split blocks; o_part, l_part and m_part are then scratch of
+// n_split times the shape of o, l and m, merged into them.  Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for a
+// shape that is not instantiated.
 extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                    const void* v_pages, const void* k_scale,
                                    const void* v_scale, const void* tables,
                                    const void* valid, void* o, void* l,
-                                   void* m, int B, int n_kv, int R, int D,
-                                   int bs, int nb, int dtype_code,
-                                   float scale, void* stream) {
+                                   void* m, void* o_part, void* l_part,
+                                   void* m_part, int B, int n_kv, int R,
+                                   int D, int bs, int nb, int n_split,
+                                   int dtype_code, float scale,
+                                   void* stream) {
   if (B == 0 || n_kv == 0) return static_cast<int>(cudaGetLastError());
+  if (n_split < 1 || (n_split > 1 && (o_part == nullptr ||
+                                      l_part == nullptr || m_part == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   switch (dtype_code) {
     case 0:
       err = launch_checked<float>(D, R, q, k_pages, v_pages, k_scale,
-                                  v_scale, tables, valid, o, l, m, B, n_kv,
-                                  bs, nb, scale, st);
+                                  v_scale, tables, valid, o, l, m, o_part,
+                                  l_part, m_part, B, n_kv, bs, nb, n_split,
+                                  scale, st);
       break;
     case 1:
-      err = launch_checked<__nv_bfloat16>(D, R, q, k_pages, v_pages,
-                                          k_scale, v_scale, tables, valid, o,
-                                          l, m, B, n_kv, bs, nb, scale, st);
+      err = launch_checked<__nv_bfloat16>(
+          D, R, q, k_pages, v_pages, k_scale, v_scale, tables, valid, o, l,
+          m, o_part, l_part, m_part, B, n_kv, bs, nb, n_split, scale, st);
       break;
     case 2:
       err = launch_checked<int8_t>(D, R, q, k_pages, v_pages, k_scale,
-                                   v_scale, tables, valid, o, l, m, B, n_kv,
-                                   bs, nb, scale, st);
+                                   v_scale, tables, valid, o, l, m, o_part,
+                                   l_part, m_part, B, n_kv, bs, nb, n_split,
+                                   scale, st);
       break;
     default:
       break;

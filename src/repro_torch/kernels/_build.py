@@ -33,9 +33,10 @@ SIGNATURES = {
     "probe_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _c.c_float, _c.c_float, _c.c_int, _c.c_int,
                           _c.c_int, _c.c_int, _P],
-    "paged_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "paged_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
                             _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-                            _c.c_int, _c.c_int, _c.c_int, _c.c_float, _P],
+                            _c.c_float, _P],
     "paged_chunk_launch": [_P, _P, _c.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _c.c_int, _c.c_int, _c.c_int,
                            _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
@@ -45,9 +46,9 @@ SIGNATURES = {
     "probe_spec_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _c.c_float, _c.c_float, _c.c_int, _c.c_int,
                           _c.c_int, _c.c_int, _c.c_int, _P],
-    "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _c.c_int, _c.c_int,
+    "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-                            _c.c_float, _P],
+                            _c.c_int, _c.c_int, _c.c_int, _c.c_float, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _c.c_int, _c.c_int, _c.c_int,
                                _c.c_int, _c.c_int, _c.c_int, _c.c_int,
                                _c.c_int, _c.c_int, _c.c_float, _P],
@@ -146,6 +147,11 @@ def check(err: int, what: str) -> None:
 
 def ptr(t) -> int:
     return t.data_ptr()
+
+
+def opt_ptr(t):
+    """A tensor's pointer, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def stream_of(t) -> int:

@@ -14,6 +14,13 @@ A row with no valid position returns m = -1e30, l = 0, o = 0 (the jnp
 guard); the Pallas body returns l = S and o = sum V there, and the caller's
 ``_merge_extra_kv`` weighs the cache at zero either way (ROADMAP C).
 
+On the card a row of more than ``split.SPLIT_MIN_POSITIONS`` positions is
+shared over ``split.split_count`` blocks (split-KV), whose partials land in
+scratch this wrapper allocates and the merge kernel
+(``csrc/split_merge.cuh``) folds as ``split.merge_split_partials_plain``
+does; each block rounds p against its own running max.  Up to that (the
+served and harvest caches) it is one launch with no merge.
+
 Dispatch is by the input's device: CPU tensors take the plain version,
 CUDA tensors the kernel (``csrc/flash_decode.cu``); anything else raises.
 """
@@ -22,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import split as _split
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -89,14 +97,17 @@ def flash_decode_partials(qg, k, v, valid):
     qg = qg.to(k.dtype).contiguous()
     _check(qg, k, v, valid)
     b, n_kv, r, d = qg.shape
+    s = k.shape[2]
+    n_split = _split.split_count(s)
     o = torch.empty((b, n_kv, r, d), dtype=torch.float32, device=qg.device)
     l = torch.empty((b, n_kv, r), dtype=torch.float32, device=qg.device)
     m = torch.empty((b, n_kv, r), dtype=torch.float32, device=qg.device)
+    parts = _split.split_scratch(n_split, o, l, m)
     p = _build.ptr
     err = _build.library().flash_decode_launch(
-        p(qg), p(k), p(v), p(valid), p(o), p(l), p(m), b, n_kv, r, d,
-        k.shape[2], _DTYPE_CODE[k.dtype], float(1.0 / d ** 0.5),
-        _build.stream_of(qg))
+        p(qg), p(k), p(v), p(valid), p(o), p(l), p(m),
+        *(_build.opt_ptr(t) for t in parts), b, n_kv, r, d, s, n_split,
+        _DTYPE_CODE[k.dtype], float(1.0 / d ** 0.5), _build.stream_of(qg))
     _build.check(err, "flash_decode launch")
     flash_decode.launches += 1
     return o, l, m

@@ -28,8 +28,9 @@ On the card, bf16 and int8 pages run the tensor-core kernel (the tile body
 ``csrc/attn_tile.cuh``, shared with K7) and f32 pages a CUDA-core kernel.
 Past ``SPLIT_MIN_POSITIONS`` virtual positions a segment's positions are
 shared over several blocks (split-KV, ``split_count``): each writes
-partials to scratch the wrapper allocates, and a second kernel of the
-same launcher merges them as ``merge_split_partials_plain`` does.
+partials to scratch the wrapper allocates, and the merge kernel that K2
+and K6 launch too (``csrc/split_merge.cuh``) folds them as
+``merge_split_partials_plain`` (``kernels/split.py``) does.
 
 Dispatch is by the input's device: CPU tensors take the plain version,
 CUDA tensors the kernel; anything else raises.
@@ -41,17 +42,17 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import split as _split
 from repro_torch.kernels.paged_decode import _DTYPE_CODE, paged_attend_plain
+# re-exported: K3's split policy and plain merge live in kernels/split.py
+from repro_torch.kernels.split import (MAX_SPLITS,  # noqa: F401
+                                       SPLIT_MIN_POSITIONS,
+                                       merge_split_partials_plain)
 
 # the one shape the kernel is built for and checked at on the card:
 # smollm-360m's d_head 64, 15 heads on 5 KV heads
 KERNEL_HEAD_DIM = 64
 KERNEL_GROUP = 3
-# split-KV: a table row of more virtual positions than this is shared over
-# split_count blocks per (token tile, KV head, segment); the served shapes
-# (at most 256 positions) stay one launch with no merge
-SPLIT_MIN_POSITIONS = 256
-MAX_SPLITS = 16
 
 
 # ---------------------------------------------------------------------------
@@ -98,25 +99,14 @@ def paged_packed_chunk_plain(q, k_pages, v_pages, seg, seg_tables,
     return o[s, :, tok], l[s, :, tok], m[s, :, tok]
 
 
-def merge_split_partials_plain(o, l, m):
-    """Fold the partials of S disjoint position ranges into the partials
-    of their union (the log-sum-exp rule of K3's split-KV merge).
-
-    o (S, ..., d), l (S, ...), m (S, ...) -> (o (..., d), l (...),
-    m (...)).  An empty range has m = -1e30, l = 0, o = 0 and weighs
-    nothing; a row empty in every range keeps m = -1e30, l = 0, o = 0."""
-    mx = m.max(dim=0).values
-    w = torch.exp(m - mx)
-    return (w[..., None] * o).sum(0), (w * l).sum(0), mx
-
-
 def split_count(n_positions: int, dtype: torch.dtype) -> int:
-    """How many blocks share one segment's positions in the kernel: 1 up to
-    ``SPLIT_MIN_POSITIONS`` virtual positions (and for f32 pages), else one
-    per 256 positions, at most ``MAX_SPLITS``."""
-    if dtype == torch.float32 or n_positions <= SPLIT_MIN_POSITIONS:
+    """How many blocks share one segment's positions in the kernel: 1 for
+    f32 pages (the CUDA-core kernel does not split), else the shared
+    policy ``split.split_count``: 1 up to ``SPLIT_MIN_POSITIONS`` virtual
+    positions, one per 256 past it, at most ``MAX_SPLITS``."""
+    if dtype == torch.float32:
         return 1
-    return min(MAX_SPLITS, -(-n_positions // SPLIT_MIN_POSITIONS))
+    return _split.split_count(n_positions)
 
 
 # ---------------------------------------------------------------------------
@@ -179,14 +169,9 @@ def _launch(name, q, k_pages, v_pages, seg, seg_div, tables, valid,
     o = torch.empty((n, n_kv, g, d), **f32)
     l = torch.empty((n, n_kv, g), **f32)
     m = torch.empty((n, n_kv, g), **f32)
-    parts = [None] * 3
-    if n_split > 1:     # the split-KV partials, merged by the launcher
-        parts = [torch.empty((n_split,) + tuple(t.shape), **f32)
-                 for t in (o, l, m)]
-    p = _build.ptr
-
-    def opt(t):
-        return None if t is None else p(t)
+    # the split-KV partials, merged by the launcher
+    parts = _split.split_scratch(n_split, o, l, m)
+    p, opt = _build.ptr, _build.opt_ptr
     err = _build.library().paged_chunk_launch(
         p(q), opt(seg), seg_div, p(k_pages), p(v_pages), opt(k_scale),
         opt(v_scale), p(tables), p(valid), p(o), p(l), p(m),

@@ -15,6 +15,12 @@ A row with no valid position returns m = -1e30, l = 0, o = 0 (invalid
 positions contribute exactly zero); the caller's ``_merge_extra_kv`` then
 weighs the cache at zero either way.
 
+On the card a row of more than ``split.SPLIT_MIN_POSITIONS`` virtual
+positions is shared over ``split.split_count`` blocks (split-KV), whose
+partials land in scratch this wrapper allocates and the merge kernel
+(``csrc/split_merge.cuh``) folds as ``split.merge_split_partials_plain``
+does; up to that it is one launch with no merge.
+
 Dispatch is by the input's device: CPU tensors take the plain version,
 CUDA tensors the kernel (``csrc/paged_decode.cu``); anything else raises.
 """
@@ -25,6 +31,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import split as _split
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -118,17 +125,19 @@ def paged_attend(qg, k_pages, v_pages, block_tables, valid,
     _check(qg, k_pages, v_pages, block_tables, valid, k_scale_pages,
            v_scale_pages)
     b, n_kv, r, d = qg.shape
+    bs, nb = k_pages.shape[2], block_tables.shape[1]
+    n_split = _split.split_count(nb * bs)
     o = torch.empty((b, n_kv, r, d), dtype=torch.float32, device=qg.device)
     l = torch.empty((b, n_kv, r), dtype=torch.float32, device=qg.device)
     m = torch.empty((b, n_kv, r), dtype=torch.float32, device=qg.device)
-    p = _build.ptr
+    parts = _split.split_scratch(n_split, o, l, m)
+    p, opt = _build.ptr, _build.opt_ptr
     err = _build.library().paged_decode_launch(
-        p(qg), p(k_pages), p(v_pages),
-        p(k_scale_pages) if k_scale_pages is not None else None,
-        p(v_scale_pages) if v_scale_pages is not None else None,
-        p(block_tables), p(valid), p(o), p(l), p(m), b, n_kv, r, d,
-        k_pages.shape[2], block_tables.shape[1], _DTYPE_CODE[k_pages.dtype],
-        float(1.0 / d ** 0.5), _build.stream_of(qg))
+        p(qg), p(k_pages), p(v_pages), opt(k_scale_pages),
+        opt(v_scale_pages), p(block_tables), p(valid), p(o), p(l), p(m),
+        *(opt(t) for t in parts), b, n_kv, r, d, bs, nb, n_split,
+        _DTYPE_CODE[k_pages.dtype], float(1.0 / d ** 0.5),
+        _build.stream_of(qg))
     _build.check(err, "paged_flash_decode launch")
     paged_flash_decode.launches += 1
     return o, l, m
