@@ -392,26 +392,82 @@ def partial_errors(kern, plain, valid, m_relative=False):
     return float(dm.max()), float((out - pout).abs().max())
 
 
+def k2_shape_rows(torch, gen, valid, case):
+    """Phase k2's untimed split cases, on a (B >= 8, nb 256) validity row
+    set.  "holes": every row keeps about 30% of its valid positions (its
+    first and last kept), so each split's share has holes.  "one split":
+    row 5 keeps one valid position, which lands in one split of 8 (the
+    others empty), row 6 only its first 8 and last 8 positions (the middle
+    splits empty), row 7 none (the empty-row contract after the merge)."""
+    n_pos = valid.shape[1]
+    if case == "holes":
+        keep = (torch.rand(valid.shape, generator=gen) < 0.3).to(DEV)
+        ends = torch.zeros_like(valid)
+        for b in range(valid.shape[0]):
+            idx = torch.nonzero(valid[b]).flatten()
+            if idx.numel():
+                ends[b, idx[0]] = ends[b, idx[-1]] = True
+        return valid & (keep | ends)
+    valid = valid.clone()
+    valid[5] = False
+    valid[5, 2345] = True
+    valid[6] = False
+    valid[6, :8] = True
+    valid[6, n_pos - 8:] = True
+    valid[7] = False
+    return valid
+
+
+def empty_rows_hold(o, l, m, valid) -> bool:
+    """Rows with no valid position return exactly o = 0, l = 0 and
+    m = -1e30."""
+    empty = ~valid.any(1)
+    return not empty.any() or (float(o[empty].abs().max()) == 0.0
+                                and float(l[empty].abs().max()) == 0.0
+                                and bool((m[empty] == -1e30).all()))
+
+
 def phase_k2(torch, timer):
     import torch.nn.functional as F
     from repro_torch.kernels import paged_decode as K2
+    from repro_torch.kernels import split as SP
     gen = torch.Generator().manual_seed(SEED + 1)
-    # (B, nb, dtype): the serving shape of phase serve first (4 slots, 7 pages
-    # of 16 for 16 + 96 positions), then the wider cases; f32 pages (the
-    # float32 model of phase model) at the serving shape
-    cases = [(4, 7, "bf16"), (8, 8, "bf16"), (8, 256, "bf16"),
-             (8, 8, "int8"), (8, 256, "int8"), (4, 7, "f32")]
+    # (B, nb, dtype, timed, case): the serving shape of phase serve first (4
+    # slots, 7 pages of 16 for 16 + 96 positions), then the wider cases;
+    # f32 pages (the float32 model of phase model) at the serving shape;
+    # then nb 64 (1,024 positions, 4 splits) and the untimed split cases
+    cases = [(4, 7, "bf16", True, None), (8, 8, "bf16", True, None),
+             (8, 256, "bf16", True, None), (8, 8, "int8", True, None),
+             (8, 256, "int8", True, None), (4, 7, "f32", True, None),
+             (8, 64, "bf16", True, None), (8, 256, "bf16", False, "holes"),
+             (8, 256, "int8", False, "holes"),
+             (8, 256, "bf16", False, "one split")]
     rows = []
-    for B, nb, dtype in cases:
+    for B, nb, dtype, timed, case in cases:
         q, k, v, tables, valid, ks, vs = paged_case(torch, gen, B, nb, dtype)
+        if case is not None:
+            valid = k2_shape_rows(torch, gen, valid, case)
         o, l, m = K2.paged_flash_decode(q, k, v, tables, valid, ks, vs,
                                         return_partials=True)
         po, pl_, pm = K2.paged_decode_plain(q, k, v, tables, valid, ks, vs,
                                             return_partials=True)
         m_err, o_err = partial_errors((o, l, m), (po, pl_, pm), valid)
         if not (m_err <= K2_M_TOL and o_err <= K2_OUT_TOL):
-            raise AssertionError(f"K2 {B}x{nb} {dtype}: m err {m_err}, "
-                                 f"output err {o_err}")
+            raise AssertionError(f"K2 {B}x{nb} {dtype} {case}: m err "
+                                 f"{m_err}, output err {o_err}")
+        if not empty_rows_hold(o, l, m, valid):
+            raise AssertionError(f"K2 {B}x{nb} {dtype} {case}: an empty row "
+                                 "is not (o, l, m) = (0, 0, -1e30)")
+        n_split = SP.split_count(nb * 16, SP.DECODE_MAX_SPLITS)
+        row = dict(B=B, nb=nb, pages=dtype, case=case, H=q.shape[1],
+                   KV=k.shape[1], d=q.shape[2], bs=16,
+                   valid_positions=int(valid.sum()),
+                   empty_rows=int((~valid.any(1)).sum()), splits=n_split,
+                   merge=n_split > 1, m_err=m_err, out_err=o_err)
+        if not timed:
+            emit(dict(phase="k2", **row))
+            rows.append(row)
+            continue
         ms = timer(lambda: K2.paged_flash_decode(
             q, k, v, tables, valid, ks, vs, return_partials=True))
         plain_ms = timer(lambda: K2.paged_decode_plain(
@@ -439,10 +495,10 @@ def phase_k2(torch, timer):
                  + nbytes(o, l, m))
         # per valid position and query head: q.k and p.v (2 d each) + softmax
         bms, by = bound_ms(moved, n_valid * H * (4 * d + 4))
-        row = dict(B=B, nb=nb, pages=dtype, H=H, KV=KV, d=d, bs=16,
-                   valid_positions=n_valid, m_err=m_err, out_err=o_err,
-                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=bms, bound_by=by, bytes=moved)
+        # per_step_ms: the kernel's share of one decode step, 32 layers
+        row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bms, bound_by=by, bytes=moved,
+                   per_step_ms=32 * ms)
         emit(dict(phase="k2", **row))
         rows.append(row)
     return rows
@@ -1035,12 +1091,15 @@ def v_scale(v) -> float:
     return max(1.0, float(v.float().abs().max()))
 # (B, S, cache dtype, timed): the served dense shape (4 slots, 16 + 96
 # positions), the harvest's (24 trajectories), a long cache, then S 16 and
-# 113 (no multiple of the warps' 64-position stride) and f32 caches
+# 113 (no multiple of the warps' 64-position stride) and f32 caches; long
+# caches split over blocks past 256 positions: (24, 4096), (4, 1024) and
+# f32 at 4096 (B > 2: a window band in row 1, an empty row 2)
 K6_CASES = [(4, 112, "bf16", True), (24, 112, "bf16", True),
             (8, 4096, "bf16", True), (1, 16, "bf16", False),
             (1, 113, "f32", False), (4, 113, "bf16", False),
             (24, 16, "f32", False), (4, 112, "f32", False),
-            (24, 4096, "bf16", False)]
+            (24, 4096, "bf16", True), (4, 1024, "bf16", True),
+            (4, 4096, "f32", False)]
 
 
 def dense_case(torch, gen, B, S, dtype, H=15, KV=5, d=64):
@@ -1064,6 +1123,7 @@ def dense_case(torch, gen, B, S, dtype, H=15, KV=5, d=64):
 def phase_k6(torch, timer):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as K6
+    from repro_torch.kernels import split as SP
     gen = torch.Generator().manual_seed(SEED + 6)
     rows = []
     for B, S, dtype, timed in K6_CASES:
@@ -1090,9 +1150,11 @@ def phase_k6(torch, timer):
             raise AssertionError(f"K6 {B}x{S} {dtype}: normalised output "
                                  f"err {n_err}")
         H, KV, d = q.shape[1], k.shape[1], q.shape[2]
+        n_split = SP.split_count(S, SP.DECODE_MAX_SPLITS)
         row = dict(B=B, S=S, cache=dtype, H=H, KV=KV, d=d,
                    valid_positions=int(valid.sum()),
-                   empty_rows=int(empty.sum()), m_err=m_err, out_err=o_err,
+                   empty_rows=int(empty.sum()), splits=n_split,
+                   merge=n_split > 1, m_err=m_err, out_err=o_err,
                    normalised_err=n_err)
         if timed:
             row["ms"] = timer(lambda: K6.flash_decode(
@@ -1114,6 +1176,8 @@ def phase_k6(torch, timer):
             row["bound_ms"], row["bound_by"] = bound_ms(
                 moved, n_valid * H * (4 * d + 4))
             row["bytes"] = moved
+            # the kernel's share of one decode step, 32 layers
+            row["per_step_ms"] = 32 * row["ms"]
         emit(dict(phase="k6", **row))
         rows.append(row)
     return rows
@@ -2021,7 +2085,10 @@ def phase_trace(torch, sched, steps: int = 16, prompt_len: int = 16,
             wall_ms_per_step=span_us / len(ids) / 1e3,
             device_busy_share=(sum(per_step[i][1] for i in ids) / span_us
                                if span_us else None))
+    # the split-KV merge (K2, K3 and K6 past 256 positions), by its name
+    merges = sum(r[2] for r in rows if "merge_splits" in r[1])
     res = dict(phase=phase, steps=steps, prompt_len=prompt_len,
+               merge_kernels_per_step=merges / steps,
                wall_ms_per_step=wall_us / steps / 1e3,
                device_busy_ms_per_step=busy_us / steps / 1e3,
                device_busy_share=busy_us / wall_us if busy_us else None,

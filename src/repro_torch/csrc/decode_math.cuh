@@ -13,7 +13,8 @@
 // (B, KV, n_split) blocks of kWarps warps:
 //   * split-KV: past 256 virtual positions a row is shared over n_split
 //     blocks (kernels/split.py split_count: one per 256 positions, at most
-//     16; 640 blocks at B 8, 4096 positions).  Each block finds the row's
+//     8, as on the card 8 splits beat 16 by 5 to 15% at 4,096 positions;
+//     320 blocks at B 8, 4096 positions).  Each block finds the row's
 //     live range [first valid, last valid] and takes its equal share of
 //     it (split.py split_ranges is the same cut), not of the virtual row,
 //     so a ragged row's valid positions spread over all its blocks and no
@@ -28,13 +29,17 @@
 //   * loads in flight: a warp takes its positions in groups of 8 x U (U =
 //     4 / sizeof(T): 8 f32, 16 bf16 or 32 int8 positions), 4 lanes a
 //     position, each lane loading its 16 of the 64 dims with 16-byte
-//     loads, so a group is 128 bytes of K and V a lane, coalesced rows.
-//     The next group's loads are issued into registers before the current
-//     group is computed (a register double buffer), so each warp keeps
-//     one group in flight while it computes;
+//     loads, so a group is 128 bytes of K and V a lane (4 KB a warp),
+//     coalesced rows.  The next group's loads are issued into registers
+//     before the current group is computed (a register double buffer), so
+//     a group stays in flight while the warp computes.  (A cp.async ring
+//     in shared memory, 2 to 4 groups deep, took 168 registers instead of
+//     212 but ran 5 to 25% slower for bf16 and f32 pages on the card, and
+//     its depth made no difference: PERF.md, PR 21);
 //   * one softmax correction per group and row: the warp takes the max of
-//     the group's 8 U scores once (3 shuffles), then one corr and one expf
-//     per score;
+//     the group's 8 U scores once (3 shuffles), then one exp2f per score,
+//     and rescales its sums only when the running max moved (rarely, once
+//     a few groups are in);
 //   * invalid positions are never loaded (zeros) and weigh exactly zero,
 //     so a row with no valid position returns m = -1e30, l = 0, o = 0;
 //   * bf16 rows are upcast to f32 exactly; int8 rows are converted
@@ -54,10 +59,18 @@ namespace decode {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 // a block's shared memory on the H100, dynamic and static together
 constexpr int kMaxSmem = 227 * 1024;
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+
+// A block's dynamic shared memory: the row's validity flags, then K2's
+// block-table row.
+__host__ __device__ constexpr int smem_bytes(int n_pos, int table_entries) {
+  return round16(n_pos) + 4 * table_entries;
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -120,21 +133,24 @@ struct Word<int8_t> {
 // memory, into a page pool (P, KV, bs, D) ...
 struct PagedRows {
   const int* __restrict__ table_row;  // the row's nb entries, global
-  int* s_table;                       // their copy in shared memory
   int nb, n_kv, kv, bs;
-  __device__ __forceinline__ void stage(int tid) {
+  int bs_shift;                       // log2(bs), or -1: bs no power of 2
+  int* s_table;                       // their copy in shared memory
+  __device__ __forceinline__ void stage(int tid, int* dst) {
+    s_table = dst;
     for (int i = tid; i < nb; i += kThreads) s_table[i] = __ldg(table_row + i);
   }
   __device__ __forceinline__ size_t operator()(int p) const {
-    const int page = s_table[p / bs];
-    return (static_cast<size_t>(page) * n_kv + kv) * bs + (p % bs);
+    const int blk = bs_shift >= 0 ? p >> bs_shift : p / bs;
+    const int off = bs_shift >= 0 ? p & (bs - 1) : p % bs;
+    return (static_cast<size_t>(s_table[blk]) * n_kv + kv) * bs + off;
   }
 };
 
 // ... or in the (batch row, KV head)'s own contiguous (S, D) cache.
 struct DenseRows {
   size_t first;  // (row * KV + kv) * S
-  __device__ __forceinline__ void stage(int) {}
+  __device__ __forceinline__ void stage(int, int*) {}
   __device__ __forceinline__ size_t operator()(int p) const {
     return first + static_cast<size_t>(p);
   }
@@ -145,7 +161,7 @@ struct DenseRows {
 // above; k_scale / v_scale are null unless T is int8.  The block is split
 // blockIdx.z of gridDim.z.  With kRoundP, p is rounded to T before P.V
 // against the running max of its warp and split (l sums the unrounded p).
-// smem holds round16(n_pos) bytes of flags (then K2's table).  Writes
+// smem is the block's dynamic shared memory (smem_bytes).  Writes
 // o (R x D), l (R) and m (R): the output, or with n_split > 1 this
 // split's plane of the scratch.
 template <typename T, typename QT, int D, int R, bool kRoundP, typename Rows>
@@ -153,7 +169,7 @@ __device__ __forceinline__ void attend(
     const QT* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const bool* __restrict__ valid_row,
-    int n_pos, Rows rows, float scale, uint8_t* s_valid,
+    int n_pos, Rows rows, float scale, uint8_t* smem,
     float* __restrict__ o, float* __restrict__ l_out,
     float* __restrict__ m_out) {
   constexpr int kDpl = D / 4;                  // dims per lane
@@ -164,10 +180,13 @@ __device__ __forceinline__ void attend(
   constexpr int U = 4 / static_cast<int>(sizeof(T));   // positions a lane
   constexpr int kGroup = 8 * U;                 // positions a warp a group
   constexpr bool kScaled = sizeof(T) == 1;
+  constexpr int kPerWord = Word<T>::kElems;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int quad = lane / 4, qi = lane % 4;
 
-  // ---- the row's flags into shared memory, and its live range
+  // ---- the row's flags (and K2's table) into shared memory, and its live
+  // range, in one pass
+  uint8_t* s_valid = smem;
   __shared__ int s_first[kWarps], s_last[kWarps];
   int first = INT_MAX, last = -1;
   const uint8_t* vrow = reinterpret_cast<const uint8_t*>(valid_row);
@@ -193,15 +212,18 @@ __device__ __forceinline__ void attend(
       }
     }
   }
-  rows.stage(tid);
+  rows.stage(tid, reinterpret_cast<int*>(s_valid + round16(n_pos)));
 
-  // the query rows in registers, in f32, pre-scaled by 1/sqrt(d)
+  // the query rows in registers, in f32, pre-scaled by 1/sqrt(d) and by
+  // log2(e): scores, m and the softmax run in base 2 (exp2f), and m is
+  // brought back to base e when it is written
   float qr[R][kDpl];
+  const float qscale = scale * kLog2e;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const QT* qrow = q + r * D + qi * kDpl;
 #pragma unroll
-    for (int j = 0; j < kDpl; ++j) qr[r][j] = to_float(qrow[j]) * scale;
+    for (int j = 0; j < kDpl; ++j) qr[r][j] = to_float(qrow[j]) * qscale;
   }
 
   first = __reduce_min_sync(0xffffffffu, first);
@@ -226,29 +248,29 @@ __device__ __forceinline__ void attend(
   }
   const int n_groups = hi > lo ? (hi - lo + kGroup - 1) / kGroup : 0;
 
-  // ---- the warp's groups g = warp, warp + kWarps, ...: load g + kWarps
-  // while computing g
+  // ---- the warp's groups g = warp, warp + kWarps, ...: the lane's 16
+  // dims of the group's K and V rows (and int8 scales) land in registers,
+  // loaded one group ahead of the one it computes
   struct Slot {
     uint4 k[U][kVec], v[U][kVec];
     float ks[U], vs[U];
-    bool ok[U];
   };
   auto issue = [&](int g, Slot& s) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int p = lo + g * kGroup + 8 * u + quad;
       const bool ok = p < hi && s_valid[p] != 0;
-      s.ok[u] = ok;
-      s.ks[u] = s.vs[u] = 0.f;
+      // an invalid position reads nothing and stays zeros
 #pragma unroll
       for (int c = 0; c < kVec; ++c)
         s.k[u][c] = s.v[u][c] = make_uint4(0u, 0u, 0u, 0u);
+      s.ks[u] = s.vs[u] = 0.f;
       if (ok) {
         const size_t row = rows(p);
-        const uint4* kp = reinterpret_cast<const uint4*>(k + row * D) +
-                          qi * kVec;
-        const uint4* vp = reinterpret_cast<const uint4*>(v + row * D) +
-                          qi * kVec;
+        const uint4* kp =
+            reinterpret_cast<const uint4*>(k + row * D) + qi * kVec;
+        const uint4* vp =
+            reinterpret_cast<const uint4*>(v + row * D) + qi * kVec;
 #pragma unroll
         for (int c = 0; c < kVec; ++c) {
           s.k[u][c] = __ldg(kp + c);
@@ -271,7 +293,13 @@ __device__ __forceinline__ void attend(
     for (int j = 0; j < kDpl; ++j) acc[r][j] = 0.f;
   }
 
-  auto consume = [&](const Slot& s) {
+  auto consume = [&](int g, const Slot& s) {
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = lo + g * kGroup + 8 * u + quad;
+      ok[u] = p < hi && s_valid[p] != 0;
+    }
     // scores: each lane's 16-dim slice, summed over the position's 4 lanes
     float sc[R][U];
 #pragma unroll
@@ -279,7 +307,7 @@ __device__ __forceinline__ void attend(
       float kf[kDpl];
 #pragma unroll
       for (int c = 0; c < kVec; ++c)
-        Word<T>::unpack(s.k[u][c], kf + c * Word<T>::kElems);
+        Word<T>::unpack(s.k[u][c], kf + c * kPerWord);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float d = 0.f;
@@ -288,7 +316,7 @@ __device__ __forceinline__ void attend(
         d += __shfl_xor_sync(0xffffffffu, d, 1);
         d += __shfl_xor_sync(0xffffffffu, d, 2);
         if constexpr (kScaled) d *= s.ks[u];
-        sc[r][u] = s.ok[u] ? d : kNegInf;
+        sc[r][u] = ok[u] ? d : kNegInf;
       }
     }
     // one max, one correction per row over the group's 8 U positions
@@ -301,12 +329,15 @@ __device__ __forceinline__ void attend(
       gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 4));
       gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 8));
       gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 16));
+      // the running max moves rarely once a few groups are in: the
+      // correction (warp-uniform) is skipped while it stays
       const float m_new = fmaxf(m_run[r], gm);
-      const float corr = expf(m_run[r] - m_new);
+      const bool moved = m_new != m_run[r];
+      const float corr = moved ? exp2f(m_run[r] - m_new) : 1.f;
       float psum = 0.f;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const float p = s.ok[u] ? expf(sc[r][u] - m_new) : 0.f;
+        const float p = ok[u] ? exp2f(sc[r][u] - m_new) : 0.f;
         psum += p;
         float w = p;
         if constexpr (kRoundP) w = round_as<T>(p);
@@ -314,9 +345,11 @@ __device__ __forceinline__ void attend(
         pv[r][u] = w;
       }
       l_run[r] = fmaf(l_run[r], corr, psum);
+      if (moved) {
 #pragma unroll
-      for (int j = 0; j < kDpl; ++j) acc[r][j] *= corr;
-      m_run[r] = m_new;
+        for (int j = 0; j < kDpl; ++j) acc[r][j] *= corr;
+        m_run[r] = m_new;
+      }
     }
     // P.V: each lane's 16 dims of the position's V row
 #pragma unroll
@@ -324,7 +357,7 @@ __device__ __forceinline__ void attend(
       float vf[kDpl];
 #pragma unroll
       for (int c = 0; c < kVec; ++c)
-        Word<T>::unpack(s.v[u][c], vf + c * Word<T>::kElems);
+        Word<T>::unpack(s.v[u][c], vf + c * kPerWord);
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -339,7 +372,7 @@ __device__ __forceinline__ void attend(
     for (int g = warp; g < n_groups; g += kWarps) {
       Slot nxt;
       issue(g + kWarps, nxt);   // past the share: no load, zeros
-      consume(cur);
+      consume(g, cur);
       cur = nxt;
     }
   }
@@ -380,14 +413,14 @@ __device__ __forceinline__ void attend(
     float l_tot = 0.f, o_tot = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float wgt = expf(s_m[w][r] - m_tot);
+      const float wgt = exp2f(s_m[w][r] - m_tot);
       l_tot = fmaf(s_l[w][r], wgt, l_tot);
       o_tot = fmaf(s_acc[w][r][dd], wgt, o_tot);
     }
     o[r * D + dd] = o_tot;
     if (dd == 0) {
       l_out[r] = l_tot;
-      m_out[r] = m_tot;
+      m_out[r] = m_tot == kNegInf ? kNegInf : m_tot * kLn2;
     }
   }
 }

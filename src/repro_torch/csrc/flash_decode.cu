@@ -69,7 +69,7 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
                          void* o_part, void* l_part, void* m_part, int B,
                          int n_kv, int S, int n_split, float scale,
                          cudaStream_t stream) {
-  const int smem = decode::round16(S);   // the row's flags
+  const int smem = decode::smem_bytes(S, 0);
   static int configured = 48 * 1024;
   cudaError_t err = decode::allow_smem(
       flash_decode_kernel<T, kHeadDim, kRows>, smem, configured);

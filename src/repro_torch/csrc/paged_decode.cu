@@ -55,10 +55,9 @@ paged_decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pages,
   // this block's plane: the output, or split blockIdx.z of the scratch
   const size_t slot =
       static_cast<size_t>(blockIdx.z) * gridDim.x * gridDim.y + head;
-  const decode::PagedRows rows{
-      tables + static_cast<size_t>(row) * nb,
-      reinterpret_cast<int*>(smem + decode::round16(n_pos)), nb, n_kv, kv,
-      bs};
+  const int bs_shift = (bs & (bs - 1)) == 0 ? __ffs(bs) - 1 : -1;
+  const decode::PagedRows rows{tables + static_cast<size_t>(row) * nb, nb,
+                               n_kv, kv, bs, bs_shift, nullptr};
   decode::attend<T, float, D, R, false>(
       q + head * R * D, k_pages, v_pages, k_scale, v_scale,
       valid + static_cast<size_t>(row) * n_pos, n_pos, rows, scale, smem,
@@ -73,8 +72,7 @@ cudaError_t launch_typed(const void* q, const void* k_pages,
                          void* o_part, void* l_part, void* m_part, int B,
                          int n_kv, int bs, int nb, int n_split, float scale,
                          cudaStream_t stream) {
-  // shared memory: the row's flags, then its table
-  const int smem = decode::round16(nb * bs) + 4 * nb;
+  const int smem = decode::smem_bytes(nb * bs, nb);
   static int configured = 48 * 1024;
   cudaError_t err =
       decode::allow_smem(paged_decode_kernel<T, D, R>, smem, configured);

@@ -28,7 +28,12 @@ namespace {
 constexpr int kHeadDim = 64;
 constexpr float kNegInf = -1e30f;
 
-// the split-KV merge: 16 threads per output row, 4 dims each
+// the split-KV merge: 16 threads per output row, 4 dims each.  The splits
+// are read kChunk at a time, every load of a chunk issued before the
+// chunk's arithmetic, which runs split by split in order (the same
+// operations in the same order as one split at a time, so the same bits).
+constexpr int kChunk = 8;
+
 __global__ void __launch_bounds__(256)
 merge_splits_kernel(const float* __restrict__ o_p,
                     const float* __restrict__ l_p,
@@ -38,20 +43,40 @@ merge_splits_kernel(const float* __restrict__ o_p,
   const int row = blockIdx.x * 16 + threadIdx.x / 16, c = threadIdx.x % 16;
   if (row >= rows) return;
   float mx = kNegInf;
-  for (int s = 0; s < n_split; ++s)
-    mx = fmaxf(mx, m_p[static_cast<size_t>(s) * rows + row]);
+  for (int s0 = 0; s0 < n_split; s0 += kChunk) {
+    float ms[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j)
+      ms[j] = s0 + j < n_split
+                  ? m_p[static_cast<size_t>(s0 + j) * rows + row]
+                  : kNegInf;
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j)
+      if (s0 + j < n_split) mx = fmaxf(mx, ms[j]);
+  }
   float lsum = 0.f;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s = 0; s < n_split; ++s) {
-    const size_t sr = static_cast<size_t>(s) * rows + row;
-    const float w = expf(m_p[sr] - mx);   // an empty split: exp(-1e30 - mx)
-    lsum = fmaf(w, l_p[sr], lsum);
-    const float4 x =
-        *reinterpret_cast<const float4*>(o_p + sr * kHeadDim + 4 * c);
-    acc.x = fmaf(w, x.x, acc.x);
-    acc.y = fmaf(w, x.y, acc.y);
-    acc.z = fmaf(w, x.z, acc.z);
-    acc.w = fmaf(w, x.w, acc.w);
+  for (int s0 = 0; s0 < n_split; s0 += kChunk) {
+    float ms[kChunk], ls[kChunk];
+    float4 xs[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (s0 + j >= n_split) continue;
+      const size_t sr = static_cast<size_t>(s0 + j) * rows + row;
+      ms[j] = m_p[sr];
+      ls[j] = l_p[sr];
+      xs[j] = *reinterpret_cast<const float4*>(o_p + sr * kHeadDim + 4 * c);
+    }
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (s0 + j >= n_split) continue;
+      const float w = expf(ms[j] - mx);   // an empty split: exp(-1e30 - mx)
+      lsum = fmaf(w, ls[j], lsum);
+      acc.x = fmaf(w, xs[j].x, acc.x);
+      acc.y = fmaf(w, xs[j].y, acc.y);
+      acc.z = fmaf(w, xs[j].z, acc.z);
+      acc.w = fmaf(w, xs[j].w, acc.w);
+    }
   }
   *reinterpret_cast<float4*>(o + static_cast<size_t>(row) * kHeadDim + 4 * c) =
       acc;

@@ -15,8 +15,9 @@ guard); the Pallas body returns l = S and o = sum V there, and the caller's
 ``_merge_extra_kv`` weighs the cache at zero either way (ROADMAP C).
 
 On the card a row of more than ``split.SPLIT_MIN_POSITIONS`` positions is
-shared over ``split.split_count`` blocks (split-KV), whose partials land in
-scratch this wrapper allocates and the merge kernel
+shared over ``split.split_count`` blocks, at most
+``split.DECODE_MAX_SPLITS`` (split-KV), whose partials land in scratch
+this wrapper allocates and the merge kernel
 (``csrc/split_merge.cuh``) folds as ``split.merge_split_partials_plain``
 does; each block rounds p against its own running max.  Up to that (the
 served and harvest caches) it is one launch with no merge.
@@ -98,7 +99,7 @@ def flash_decode_partials(qg, k, v, valid):
     _check(qg, k, v, valid)
     b, n_kv, r, d = qg.shape
     s = k.shape[2]
-    n_split = _split.split_count(s)
+    n_split = _split.split_count(s, _split.DECODE_MAX_SPLITS)
     o = torch.empty((b, n_kv, r, d), dtype=torch.float32, device=qg.device)
     l = torch.empty((b, n_kv, r), dtype=torch.float32, device=qg.device)
     m = torch.empty((b, n_kv, r), dtype=torch.float32, device=qg.device)

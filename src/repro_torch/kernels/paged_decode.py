@@ -16,10 +16,11 @@ positions contribute exactly zero); the caller's ``_merge_extra_kv`` then
 weighs the cache at zero either way.
 
 On the card a row of more than ``split.SPLIT_MIN_POSITIONS`` virtual
-positions is shared over ``split.split_count`` blocks (split-KV), whose
-partials land in scratch this wrapper allocates and the merge kernel
-(``csrc/split_merge.cuh``) folds as ``split.merge_split_partials_plain``
-does; up to that it is one launch with no merge.
+positions is shared over ``split.split_count`` blocks, at most
+``split.DECODE_MAX_SPLITS`` (split-KV), whose partials land in scratch
+this wrapper allocates and the merge kernel (``csrc/split_merge.cuh``)
+folds as ``split.merge_split_partials_plain`` does; up to that it is one
+launch with no merge.
 
 Dispatch is by the input's device: CPU tensors take the plain version,
 CUDA tensors the kernel (``csrc/paged_decode.cu``); anything else raises.
@@ -126,7 +127,7 @@ def paged_attend(qg, k_pages, v_pages, block_tables, valid,
            v_scale_pages)
     b, n_kv, r, d = qg.shape
     bs, nb = k_pages.shape[2], block_tables.shape[1]
-    n_split = _split.split_count(nb * bs)
+    n_split = _split.split_count(nb * bs, _split.DECODE_MAX_SPLITS)
     o = torch.empty((b, n_kv, r, d), dtype=torch.float32, device=qg.device)
     l = torch.empty((b, n_kv, r), dtype=torch.float32, device=qg.device)
     m = torch.empty((b, n_kv, r), dtype=torch.float32, device=qg.device)

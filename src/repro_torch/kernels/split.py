@@ -17,18 +17,21 @@ from typing import List, Tuple
 import torch
 
 # a row of more virtual positions than this is shared over several blocks:
-# one per SPLIT_MIN_POSITIONS, at most MAX_SPLITS
+# one per SPLIT_MIN_POSITIONS, at most MAX_SPLITS for K3 and
+# DECODE_MAX_SPLITS for K2 and K6 (whose blocks are shorter: on the card 8
+# splits beat 16 by 5 to 15% at 4,096 positions, PERF.md, PR 21)
 SPLIT_MIN_POSITIONS = 256
 MAX_SPLITS = 16
+DECODE_MAX_SPLITS = 8
 
 
-def split_count(n_positions: int) -> int:
+def split_count(n_positions: int, max_splits: int = MAX_SPLITS) -> int:
     """How many blocks share one row's ``n_positions`` virtual positions:
     1 up to ``SPLIT_MIN_POSITIONS``, else one per ``SPLIT_MIN_POSITIONS``
-    positions, at most ``MAX_SPLITS``."""
+    positions, at most ``max_splits``."""
     if n_positions <= SPLIT_MIN_POSITIONS:
         return 1
-    return min(MAX_SPLITS, -(-n_positions // SPLIT_MIN_POSITIONS))
+    return min(max_splits, -(-n_positions // SPLIT_MIN_POSITIONS))
 
 
 def split_ranges(valid_row, n_split: int) -> List[Tuple[int, int]]:
