@@ -12,8 +12,13 @@ non-zero:
                (f=960); timed at B=4; the same chain and timing at the
                RWKV fleet's probe width (B 4, f 2048)
 3. k2       -- paged flash decode against its plain version, bf16, int8
-               and f32 pages, the serving shape and nb in {8, 256}; timed
-               beside scaled_dot_product_attention over the gathered pages
+               and f32 pages, the serving shape and nb in {8, 64, 256}
+               (past 256 positions split over blocks and merged); timed
+               beside scaled_dot_product_attention over the gathered
+               pages, with per_step_ms (32 layers); untimed at nb 256,
+               rows with holes (bf16, int8) and rows whose valid positions
+               fall in one split, in the end splits only, or in none
+               (the empty-row contract); each row names its splits
 4. k3       -- paged chunk attention against its plain versions, B4
                (packed chunks: 1 to 4 segments, an empty cache, padding
                and zero-length segments, nb 256) and B3 (chunks of B
@@ -42,8 +47,10 @@ non-zero:
 7. k6       -- dense flash decode against its plain version, partials and
                normalised output: B 1, 4, 24; S 16, 112, 113, 4096; bf16
                and f32 caches; full, ragged, window-band and empty rows;
-               timed at (4, 112), (24, 112) and (8, 4096) beside
-               scaled_dot_product_attention over the same cache and mask
+               S 1024 and 4096 split over blocks (f32 too) and merged;
+               timed at (4, 112), (24, 112), (8, 4096), (24, 4096) and
+               (4, 1024) beside scaled_dot_product_attention over the same
+               cache and mask, with per_step_ms; each row names its splits
 8. k7       -- flash prefill attention against its plain version: (B, S)
                (1, 16), (24, 16), (1, 160), (24, 160), (4, 2048); window
                64; Sq < Sk; a window past the keys; bf16 and f32; timed
@@ -69,7 +76,8 @@ non-zero:
                harvest, meta-train, calibrate, serve 8 requests on 4 slots;
                K1, K2, and K6 and K7 (the harvest and every admission)
 13. trace   -- a profiler window over 16 engine steps of the same fleet:
-               the card's busy share and the kernels that take it
+               the card's busy share and the kernels that take it, and the
+               split-KV merges a step (none at the served shapes)
 14. harvest -- the driver's harvest (24 trajectories, 96 dense decode
                steps) timed through K6 and K7 and through their plain
                versions in turns; K7 once a layer, K6 once a layer a step
@@ -170,7 +178,14 @@ def sync(torch) -> None:
         torch.cuda.synchronize()
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries t_s, the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -427,6 +442,26 @@ def empty_rows_hold(o, l, m, valid) -> bool:
                                 and bool((m[empty] == -1e30).all()))
 
 
+SPLIT_SWEEP = (4, 8, 12, 16)
+
+
+def split_sweep(torch, timer, name, launch, outs, n_pos):
+    """Time one K2 or K6 call through its launcher at each split count of
+    SPLIT_SWEEP (the wrapper takes split.split_count): what the cap of
+    split.DECODE_MAX_SPLITS rests on.  ``launch(n_split, parts)`` runs
+    the launcher with the scratch ``parts``; no launch count moves."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import split as SP
+
+    def call(n_split):
+        parts = SP.split_scratch(n_split, *outs)
+        err = launch(n_split, [_build.opt_ptr(t) for t in parts])
+        _build.check(err, f"{name} split sweep")
+    ms = {str(n): timer(lambda: call(n)) for n in SPLIT_SWEEP}
+    emit(dict(phase=f"{name}-splits", positions=n_pos, ms_by_splits=ms,
+              chosen=SP.split_count(n_pos, SP.DECODE_MAX_SPLITS)))
+
+
 def phase_k2(torch, timer):
     import torch.nn.functional as F
     from repro_torch.kernels import paged_decode as K2
@@ -501,6 +536,16 @@ def phase_k2(torch, timer):
                    per_step_ms=32 * ms)
         emit(dict(phase="k2", **row))
         rows.append(row)
+        if (nb, dtype) == (256, "bf16"):
+            from repro_torch.kernels import _build
+            p = _build.ptr
+            qg = q.reshape(B, KV, H // KV, d)
+            split_sweep(torch, timer, "k2", lambda n, parts: (
+                _build.library().paged_decode_launch(
+                    p(qg), p(k), p(v), None, None, p(tables), p(valid),
+                    p(o), p(l), p(m), *parts, B, KV, H // KV, d, 16, nb, n,
+                    K2._DTYPE_CODE[k.dtype], float(1.0 / d ** 0.5),
+                    _build.stream_of(q))), (o, l, m), nb * 16)
     return rows
 
 
@@ -1178,6 +1223,16 @@ def phase_k6(torch, timer):
             row["bytes"] = moved
             # the kernel's share of one decode step, 32 layers
             row["per_step_ms"] = 32 * row["ms"]
+            if (B, S) == (8, 4096):
+                from repro_torch.kernels import _build
+                p = _build.ptr
+                qg = q.reshape(B, KV, H // KV, d)
+                split_sweep(torch, timer, "k6", lambda n, parts: (
+                    _build.library().flash_decode_launch(
+                        p(qg), p(k), p(v), p(valid), p(o), p(l), p(m),
+                        *parts, B, KV, H // KV, d, S, n,
+                        K6._DTYPE_CODE[k.dtype], float(1.0 / d ** 0.5),
+                        _build.stream_of(q))), (o, l, m), S)
         emit(dict(phase="k6", **row))
         rows.append(row)
     return rows

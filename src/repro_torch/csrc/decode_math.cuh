@@ -13,15 +13,16 @@
 // (B, KV, n_split) blocks of kWarps warps:
 //   * split-KV: past 256 virtual positions a row is shared over n_split
 //     blocks (kernels/split.py split_count: one per 256 positions, at most
-//     8, as on the card 8 splits beat 16 by 5 to 15% at 4,096 positions;
-//     320 blocks at B 8, 4096 positions).  Each block finds the row's
-//     live range [first valid, last valid] and takes its equal share of
-//     it (split.py split_ranges is the same cut), not of the virtual row,
-//     so a ragged row's valid positions spread over all its blocks and no
-//     block walks an invalid tail.  A share with no position writes the
-//     empty partials (m = -1e30, l = 0, o = 0); the launcher then runs the
-//     merge of split_merge.cuh.  Up to 256 positions n_split is 1: one
-//     launch, the block writes the output itself, no merge;
+//     8, which chip_smoke.py's k2-splits and k6-splits rows measure
+//     against 4, 12 and 16; 320 blocks at B 8, 4096 positions).  Each
+//     block finds the row's live range [first valid, last valid] and
+//     takes its equal share of it (split.py split_ranges is the same
+//     cut), not of the virtual row, so a ragged row's valid positions
+//     spread over all its blocks and no block walks an invalid tail.  A
+//     share with no position writes the empty partials (m = -1e30, l = 0,
+//     o = 0); the launcher then runs the merge of split_merge.cuh.  Up to
+//     256 positions n_split is 1: one launch, the block writes the output
+//     itself, no merge;
 //   * indices once: the block copies the row's validity flags (and K2
 //     its block-table row) into shared memory in one coalesced pass, the
 //     same pass that finds the live range.  A K/V load then waits on no
@@ -33,9 +34,8 @@
 //     coalesced rows.  The next group's loads are issued into registers
 //     before the current group is computed (a register double buffer), so
 //     a group stays in flight while the warp computes.  (A cp.async ring
-//     in shared memory, 2 to 4 groups deep, took 168 registers instead of
-//     212 but ran 5 to 25% slower for bf16 and f32 pages on the card, and
-//     its depth made no difference: PERF.md, PR 21);
+//     in shared memory, tried first, held fewer registers but was not
+//     faster for bf16 and f32 pages, whatever its depth.);
 //   * one softmax correction per group and row: the warp takes the max of
 //     the group's 8 U scores once (3 shuffles), then one exp2f per score,
 //     and rescales its sums only when the running max moved (rarely, once

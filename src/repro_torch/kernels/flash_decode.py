@@ -17,10 +17,10 @@ guard); the Pallas body returns l = S and o = sum V there, and the caller's
 On the card a row of more than ``split.SPLIT_MIN_POSITIONS`` positions is
 shared over ``split.split_count`` blocks, at most
 ``split.DECODE_MAX_SPLITS`` (split-KV), whose partials land in scratch
-this wrapper allocates and the merge kernel
-(``csrc/split_merge.cuh``) folds as ``split.merge_split_partials_plain``
-does; each block rounds p against its own running max.  Up to that (the
-served and harvest caches) it is one launch with no merge.
+this wrapper allocates and the merge kernel (``csrc/split_merge.cuh``)
+folds as ``split.merge_split_partials_plain`` does; each block rounds p
+against its own running max.  Up to that (the served and harvest caches)
+it is one launch with no merge.
 
 Dispatch is by the input's device: CPU tensors take the plain version,
 CUDA tensors the kernel (``csrc/flash_decode.cu``); anything else raises.

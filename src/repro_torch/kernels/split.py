@@ -18,8 +18,8 @@ import torch
 
 # a row of more virtual positions than this is shared over several blocks:
 # one per SPLIT_MIN_POSITIONS, at most MAX_SPLITS for K3 and
-# DECODE_MAX_SPLITS for K2 and K6 (whose blocks are shorter: on the card 8
-# splits beat 16 by 5 to 15% at 4,096 positions, PERF.md, PR 21)
+# DECODE_MAX_SPLITS for K2 and K6, whose blocks are shorter (chip_smoke.py's
+# k2-splits and k6-splits rows time 4, 8, 12 and 16 splits)
 SPLIT_MIN_POSITIONS = 256
 MAX_SPLITS = 16
 DECODE_MAX_SPLITS = 8
