@@ -19,8 +19,8 @@
 // Bound: bytes.  It reads n_split planes and writes one, in a single pass:
 // 16 threads per row, each owning 4 of the 64 dims as one float4.  What a
 // call waits on is latency, so the loads of 8 splits go out together.
-// K3 moved here from paged_chunk.cu with its arithmetic unchanged, so its
-// split results are the same bits as before.
+// The kernel came here from K3's paged_chunk.cu with its arithmetic
+// unchanged, so K3's split results are the same bits as before.
 #pragma once
 
 #include <cuda_runtime.h>
