@@ -2045,6 +2045,17 @@ def phase_serve(torch, extra_argv=(), *, phase="serve", requests=8,
     return res, out
 
 
+def profiled_events(prof):
+    """Every event of a finished torch.profiler window as (name, device
+    type, start us, end us), from its raw kineto results."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        t0_us = e.start_ns() / 1e3
+        out.append((e.name(), e.device_type(), t0_us,
+                    t0_us + e.duration_ns() / 1e3))
+    return out
+
+
 def phase_trace(torch, sched, steps: int = 16, prompt_len: int = 16,
                 phase: str = "trace"):
     """A profiler window over ``steps`` engine steps of the served fleet,
@@ -2089,47 +2100,40 @@ def phase_trace(torch, sched, steps: int = 16, prompt_len: int = 16,
         del eng.step
     while sched.step():
         pass
-    def on_device(e):
-        # device-side events only (an operator's row on the host also
-        # carries the device time of the kernels it launched), without the
-        # device-side copies of the step annotations
-        return (e.device_type == DeviceType.CUDA
-                and not e.key.startswith("engine_step_"))
-
-    # device time and calls by kernel name, summed here in one pass over
-    # the events: prof.key_averages() took about 28 s a window on the card
+    # the window's events, read from the profiler's raw results (building
+    # torch's FunctionEvents for prof.events() or key_averages() took most
+    # of a trace phase's time on the card), each (name, device, start, end)
+    # in us
+    events = profiled_events(prof)
+    # device-side events only (an operator's row on the host also carries
+    # the device time of the kernels it launched), without the device-side
+    # copies of the step annotations
+    device = [e for e in events if e[1] == DeviceType.CUDA
+              and not e[0].startswith("engine_step_")]
+    # device time and calls by kernel name
     by_key = {}
-    for e in prof.events():
-        if not on_device(e):
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        acc = by_key.setdefault(e.key, [0.0, 0])
-        acc[0] += dev_us
+    for name, _, t0_us, t1_us in device:
+        acc = by_key.setdefault(name, [0.0, 0])
+        acc[0] += t1_us - t0_us
         acc[1] += 1
     rows = sorted(((us, key, n) for key, (us, n) in by_key.items()),
                   reverse=True)
     busy_us = sum(r[0] for r in rows)
     # per-step split: host spans of the steps, device events by start
-    spans = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name.startswith(
-                "engine_step_"):
-            spans[int(e.name.rsplit("_", 1)[1])] = (e.time_range.start,
-                                                    e.time_range.end)
+    spans = {int(name.rsplit("_", 1)[1]): (t0_us, t1_us)
+             for name, dev, t0_us, t1_us in events
+             if dev == DeviceType.CPU and name.startswith("engine_step_")}
     order = sorted(spans)
     starts = [spans[i][0] for i in order]
     per_step = {i: [0, 0.0] for i in order}
     unassigned = 0
-    for e in prof.events():
-        if not on_device(e):
-            continue
-        j = bisect.bisect_right(starts, e.time_range.start) - 1
+    for _, _, t0_us, t1_us in device:
+        j = bisect.bisect_right(starts, t0_us) - 1
         if j < 0:
             unassigned += 1
             continue
         per_step[order[j]][0] += 1
-        per_step[order[j]][1] += e.time_range.elapsed_us()
+        per_step[order[j]][1] += t1_us - t0_us
     split = {}
     for label, flag in (("with_chunk", True), ("without_chunk", False)):
         ids = [i for i in order if had_chunk[i] == flag]

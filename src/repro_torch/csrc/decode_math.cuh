@@ -47,6 +47,14 @@
 //     (k) and fold into p (v); all arithmetic is f32;
 //   * at the end the warps merge through shared memory, and the block
 //     writes the UNNORMALISED partials (o, l, m) of its share.
+// ptxas (build.log, sm_90a): K2 219 registers (bf16), 255 (int8), 186
+// (f32); K6 220 (bf16), 186 (f32); no spill; 3,200 bytes of static shared
+// memory, plus round16(n_pos) bytes of flags and K2's 4 nb bytes of table
+// (5,120 bytes at nb 256).  The registers hold an SM to two 4-warp blocks
+// (8 warps); with one group in flight a warp, that keeps some 4 MB in
+// flight on the card, above Little's 2.3 MB.  What is left at 4,096
+// positions is fixed per call: the launch, the merge's launch, and each
+// block's flag load before its first page load (PERF.md, PR 21).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -59,7 +59,8 @@
 // and 184 (int8), no spill, 3 warps a block; dynamic shared memory 36,864
 // bytes of ring (bf16; int8 18,432 + 16,384 raw + 1,024 scales) plus the
 // validity row, table row and tile flags, 37,216 bytes at nb 16 and 42,112
-// at nb 256 (bf16); the merge 32 registers; the f32 kernel 63 registers,
+// at nb 256 (bf16); the merge (split_merge.cuh) 70 registers since its
+// loads go out 8 splits at a time (32 before); the f32 kernel 63 registers,
 // 20,768 bytes.  At the served chunk the block count (20 of 80 with a
 // token of their segment) and each block's chain of setup, first tile
 // load and two tiles bound the call, not registers or occupancy.
