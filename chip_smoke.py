@@ -38,12 +38,16 @@ non-zero:
                served shape (4 slots, k 4, f 960) and three wider ones;
                then K3 timed at the verify shape (k3-verify: 4 segments
                of 4 tokens)
-6. k5       -- the offline TTT scan against its plain version: f 128,
-               960 and 5120, N 1 and 170, T 1, 37 and 120, c = 0 and c =
-               labels, a per-trajectory and a shared init (72 cases on the
-               synthetic corpus's step embeddings and masks); timed at N
-               170, T 120 for each f; a width above 7168 and a tensor that
-               requires grad refused
+6. k5       -- the offline TTT scan against its plain version and against
+               its own L-step form (``ttt_probe_lookahead_plain`` at the
+               kernel's L for the width): f 128, 960 and 5120, N 1 and
+               170, T 1, 37 and 120, c = 0 and c = labels, a
+               per-trajectory and a shared init (72 cases on the synthetic
+               corpus's step embeddings and masks); timed at N 170, T 120
+               for each f, with the L-step form's error at L 1, 2, 4 and
+               8; each width's instance (L, threads, registers, shared
+               memory); a width above 7168 and a tensor that requires grad
+               refused
 7. k6       -- dense flash decode against its plain version, partials and
                normalised output: B 1, 4, 24; S 16, 112, 113, 4096; bf16
                and f32 caches; full, ragged, window-band and empty rows;
@@ -120,10 +124,14 @@ non-zero:
 23. k8       -- the RWKV6 WKV scan against its plain version, H 32, d 64:
                (B, T) (4, 1) served decode, (1, 16) admission, (24, 16)
                and (24, 1) the harvest's prefill and decode, (1, 100),
-               (1, 2048); s0 zero and random; w near 0, mid and near 1;
-               relative f32 error under 1e-5 of max |plain|; T 100 in two
-               calls carrying the state, in place; d 32 refused; timed at
-               (4, 1), (1, 16), (24, 16) and (1, 2048) with its bound
+               (1, 512), (1, 2048), T 31, 32 and 33 around the staged
+               chunk; bf16 r, k and v at (4, 1) and (1, 16); s0 zero and
+               random; w near 0, mid and near 1; relative f32 error under
+               1e-5 of max |plain|; T 100 in two calls carrying the state,
+               in place at 4 column blocks, one call in place at 2; d 32
+               refused; timed at (4, 1), (1, 16), (24, 16), (1, 512) and
+               (1, 2048), and in bf16, with its bound; each row names its
+               column split, staged chunk, registers and shared memory
 24. model-rwkv -- full-width rwkv6-1.6b (bf16, then the same weights in
                f32): prefill 16 tokens, 64 teacher-forced decode steps
                through K8, every K8 call held against the plain version;
@@ -1055,9 +1063,26 @@ def k5_cases(torch, test):
                                 torch.tensor(0.01, device=DEV)), shared)
 
 
+def k5_instances(torch, K5):
+    """The instance each width of phase k5 takes, as the library reports
+    it (L, threads, features a thread, registers, shared memory, spills),
+    beside the L the CPU mirror of the table gives."""
+    out = []
+    for f, same in ((128, False), (D_PHI, True), (5120, False)):
+        row = dict(f=f, same=same, L_table=K5.lookahead_steps(f, same))
+        if DEV == "cuda":
+            row.update(K5.kernel_config(f, same))
+            if row["L"] != row["L_table"]:
+                raise AssertionError(f"K5 at f {f}: the library's L "
+                                     f"{row['L']}, kernels/ttt_scan.py's "
+                                     f"{row['L_table']}")
+        out.append(row)
+    return out
+
+
 def phase_k5(torch, timer, test):
     from repro_torch.kernels import ttt_scan as K5
-    rows, worst = [], 0.0
+    rows, worst, worst_mirror = [], 0.0, 0.0
     for case, args, shared in k5_cases(torch, test):
         zq, zk, c, m, w0, b0, eta = args
         fn = K5.ttt_probe_scan if shared else K5.ttt_probe_batched
@@ -1067,16 +1092,26 @@ def phase_k5(torch, timer, test):
         b0_rows = b0.expand(n) if shared else b0
         want = K5.ttt_probe_batched_plain(zq, zk, c, m, w0_rows, b0_rows,
                                           eta)
+        # the kernel's own L-step form, at its L for this width
+        L = K5.lookahead_steps(f, zq is zk)
+        mirror = K5.ttt_probe_lookahead_plain(zq, zk, c, m, w0_rows,
+                                              b0_rows, eta, L)
         sync(torch)
         err = {k: float((a - b).abs().max()) if a.numel() else 0.0
                for k, a, b in zip(("scores", "W_f", "b_f"), got, want)}
+        mirror_err = max(float((a - b).abs().max()) if a.numel() else 0.0
+                         for a, b in zip(got, mirror))
         if not all(torch.isfinite(t).all() for t in got):
             raise AssertionError(f"K5 {case}: non-finite output")
         # f32, another summation order than the plain version's; on these
         # inputs the plain version's own f32 vs f64 spread is below 1e-6
         if max(err.values()) > K5_TOL:
             raise AssertionError(f"K5 {case} off its plain version: {err}")
+        if mirror_err > K5_TOL:
+            raise AssertionError(f"K5 {case} off its L = {L} form: "
+                                 f"{mirror_err}")
         worst = max(worst, *err.values())
+        worst_mirror = max(worst_mirror, mirror_err)
         timed = case["N"] > 1 and case["T"] == 120 and case["c"] == "zero" \
             and case["w0"] == "shared"
         if timed:
@@ -1087,7 +1122,14 @@ def phase_k5(torch, timer, test):
             moved, ops = k5_bytes_ops(*args, outs)
             case["bound_ms"], case["bound_by"] = bound_ms(moved, ops)
             case["bytes"] = moved
-        rows.append(dict(case, max_abs_err=err))
+            # what L costs in f32: the L-step form at every L, against the
+            # plain version
+            case["mirror_err_by_L"] = {
+                Ls: max(float((a - b).abs().max()) for a, b in zip(
+                    K5.ttt_probe_lookahead_plain(zq, zk, c, m, w0_rows,
+                                                 b0_rows, eta, Ls), want))
+                for Ls in (1, 2, 4, 8)}
+        rows.append(dict(case, L=L, max_abs_err=err, mirror_err=mirror_err))
     # the kernel's refusals: a width above the widest config (the plain
     # version has no such limit), and grad
     wide = torch.zeros(1, 1, K5.MAX_F + 1, device=DEV)
@@ -1113,9 +1155,12 @@ def phase_k5(torch, timer, test):
     served = next(r for r in rows if r.get("ms") is not None and
                   r["f"] == D_PHI)
     res = dict(phase="k5", cases=len(rows), max_abs_err=worst, tol=K5_TOL,
+               max_mirror_err=worst_mirror,
+               instances=k5_instances(torch, K5),
                served=served, timed=[r for r in rows if "ms" in r],
-               per_case=[(r["f"], r["N"], r["T"], r["c"], r["w0"],
-                          max(r["max_abs_err"].values())) for r in rows])
+               per_case=[(r["f"], r["N"], r["T"], r["c"], r["w0"], r["L"],
+                          max(r["max_abs_err"].values()), r["mirror_err"])
+                         for r in rows])
     emit(res)
     return res
 
@@ -2737,7 +2782,13 @@ K8_RTOL = 1e-5
 # decode steps, T not a multiple of the Pallas chunk (64), a long prefill;
 # the timed ones
 K8_CASES = ((4, 1, True), (1, 16, True), (24, 16, True), (24, 1, False),
-            (1, 100, False), (1, 2048, True))
+            (1, 100, False), (1, 2048, True), (1, 512, True))
+# T one below, at and one above the staged chunk (kernels/rwkv6_scan.py
+# CHUNK_STEPS), at 4 column blocks (B 1) and at 1 (B 4)
+K8_CHUNK_CASES = ((1, 31), (1, 32), (1, 33), (4, 33))
+# r, k and v in bf16 (the served dtype, widened on load), timed beside
+# the f32 rows of the same shape
+K8_BF16_CASES = ((4, 1), (1, 16))
 RWKV_ARCH = "rwkv6-1.6b"
 # model-rwkv's bf16 check against the same run through the plain scan: the
 # logit gap to the one-shot prefill within this multiple of the plain
@@ -2747,12 +2798,12 @@ RWKV_BF16_FLOOR_MULT = 2.0
 RWKV_BF16_AGREE_SLACK = 0.1
 
 
-def k8_inputs(torch, gen, B, T, H, d, decay, s0_zero):
-    """r, k, v ~ N(0, 1); u small; w = exp(-exp(x)) with x around 2
-    ("near 0", w ~ 6e-4), 0 ("mid", w ~ 0.37) or -6 ("near 1", w ~
-    0.9975); s0 zero or ~ N(0, 1)."""
+def k8_inputs(torch, gen, B, T, H, d, decay, s0_zero, rkv_dtype=None):
+    """r, k, v ~ N(0, 1) (in ``rkv_dtype``, f32 by default); u small; w =
+    exp(-exp(x)) with x around 2 ("near 0", w ~ 6e-4), 0 ("mid", w ~ 0.37)
+    or -6 ("near 1", w ~ 0.9975); s0 zero or ~ N(0, 1)."""
     mean = {"near 0": 2.0, "mid": 0.0, "near 1": -6.0}[decay]
-    r, k, v = (torch.randn(B, T, H, d, generator=gen).to(DEV)
+    r, k, v = (torch.randn(B, T, H, d, generator=gen).to(DEV, rkv_dtype)
                for _ in range(3))
     w = torch.exp(-torch.exp(mean + 0.5 * torch.randn(
         B, T, H, d, generator=gen))).to(DEV)
@@ -2771,13 +2822,29 @@ def k8_errs(got, want):
             max(d for d, _ in diffs))
 
 
-def k8_bytes_ops(B, T, H, d):
-    """Each input read once (r, k, v, w, u, s0), each output written once
-    (out, state); 7 f32 operations per state element a step (k v, u kv,
-    + S, r att and its sum, w S + kv)."""
+def k8_bytes_ops(B, T, H, d, rkv_bytes=4):
+    """Each input read once (r, k, v at ``rkv_bytes`` an element, w, u,
+    s0), each output written once (out, state); 7 f32 operations per state
+    element a step (k v, u kv, + S, r att and its sum, w S + kv)."""
     n = B * T * H * d
-    moved = 4 * (4 * n + H * d + 2 * B * H * d * d + n)
+    moved = 3 * rkv_bytes * n + 4 * (n + H * d + 2 * B * H * d * d + n)
     return moved, 7 * B * T * H * d * d
+
+
+def k8_schedule(torch, K8, B, T, H, rkv_dtype):
+    """The launch's column split and staged chunk, and the instance's
+    registers and shared memory as the library reports them."""
+    import ctypes
+    n_col, chunk = K8.col_split(B, H), K8.chunk_steps(T)
+    row = dict(n_col=n_col, chunk=chunk)
+    if DEV == "cuda":
+        from repro_torch.kernels import _build
+        out = (ctypes.c_int * 4)()
+        _build.check(_build.library().wkv_scan_config(
+            K8.INPUT_DTYPES[rkv_dtype], n_col, chunk, out), "wkv_scan_config")
+        row.update(registers=out[0], local_bytes=out[2],
+                   smem_bytes=out[3] if T > chunk else out[3] // 2)
+    return row
 
 
 def plain_wkv(K8):
@@ -2835,18 +2902,23 @@ class SwapWKV:
 
 def phase_k8(torch, timer):
     """K8 against its plain version at the path's shapes (H 32, d 64), with
-    s0 zero and nonzero, w near 0, mid and near 1; T = 100 split in two
-    calls carrying the state; the in-place state update; d = 32 refused;
-    timed beside the plain version with the byte/operation bound."""
+    s0 zero and nonzero, w near 0, mid and near 1; T around the staged
+    chunk; bf16 r, k and v; T = 100 split in two calls carrying the state,
+    in place at 4 column blocks, and one call in place at 2; d = 32
+    refused; timed beside the plain version with the byte/operation bound.
+    Each row names its column split (n_col) and staged chunk."""
     from repro_torch.kernels import rwkv6_scan as K8
     gen = torch.Generator().manual_seed(SEED + 8)
     H, d = 32, 64
     rows, worst, worst_abs = [], 0.0, 0.0
-    for B, T, timed in K8_CASES:
+    cases = ([(B, T, timed, torch.float32) for B, T, timed in K8_CASES]
+             + [(B, T, False, torch.float32) for B, T in K8_CHUNK_CASES]
+             + [(B, T, True, torch.bfloat16) for B, T in K8_BF16_CASES])
+    for B, T, timed, dtype in cases:
         errs = {}
         for decay, s0_zero in (("mid", True), ("near 0", False),
                                ("near 1", False)):
-            args = k8_inputs(torch, gen, B, T, H, d, decay, s0_zero)
+            args = k8_inputs(torch, gen, B, T, H, d, decay, s0_zero, dtype)
             got = K8.wkv_scan(*args)
             want = K8.wkv_scan_plain(*args)
             sync(torch)
@@ -2855,17 +2927,19 @@ def phase_k8(torch, timer):
             rel, abs_err = k8_errs(got, want)
             errs[f"{decay}, s0 {'zero' if s0_zero else 'random'}"] = rel
             worst_abs = max(worst_abs, abs_err)
-        row = dict(B=B, T=T, H=H, d=d, rel_err=errs, tol=K8_RTOL)
+        row = dict(B=B, T=T, H=H, d=d, rkv=str(dtype).split(".")[-1],
+                   **k8_schedule(torch, K8, B, T, H, dtype), rel_err=errs,
+                   tol=K8_RTOL)
         if max(errs.values()) > K8_RTOL:
-            raise AssertionError(f"K8 ({B}, {T}) off its plain version: "
-                                 f"{errs}")
+            raise AssertionError(f"K8 ({B}, {T}) {row['rkv']} off its plain "
+                                 f"version: {errs}")
         worst = max(worst, max(errs.values()))
         if timed:
             r, k, v, w, u, s0 = args
             row["ms"] = timer(lambda: K8.wkv_scan(r, k, v, w, u, s0))
             row["plain_ms"] = timer(lambda: K8.wkv_scan_plain(
                 r, k, v, w, u, s0), reps=30 if T < 1000 else 3, warmup=1)
-            moved, ops = k8_bytes_ops(B, T, H, d)
+            moved, ops = k8_bytes_ops(B, T, H, d, r.element_size())
             row["bound_ms"], row["bound_by"] = bound_ms(moved, ops)
             row["bytes"], row["operations"] = moved, ops
             row["library_ms"] = None
@@ -2887,6 +2961,15 @@ def phase_k8(torch, timer):
     if split_err > K8_RTOL:
         raise AssertionError(f"K8: two calls off one call by {split_err}")
     split_bitwise = all(torch.equal(x, y) for x, y in zip(split, one))
+    # in place at 2 column blocks (B 2: 64 (row, head) pairs)
+    r, k, v, w, u, s0 = k8_inputs(torch, gen, 2, 40, H, d, "mid", False)
+    want = K8.wkv_scan_plain(r, k, v, w, u, s0)
+    st = s0.clone()
+    got = (K8.wkv_scan(r, k, v, w, u, st, state_out=st)[0], st)
+    in_place_err, _ = k8_errs(got, want)
+    if in_place_err > K8_RTOL:
+        raise AssertionError(f"K8 in place at n_col {K8.col_split(2, H)}: "
+                             f"{in_place_err}")
     try:
         K8.wkv_scan(*k8_inputs(torch, gen, 1, 2, 2, 32, "mid", False))
     except ValueError as e:
@@ -2894,8 +2977,12 @@ def phase_k8(torch, timer):
     else:
         raise AssertionError("K8 took d = 32 on the card")
     res = dict(phase="k8-checks", split_at=cut, split_rel_err=split_err,
-               split_bitwise=split_bitwise, d32_refused=refused,
-               max_rel_err=max(worst, split_err), max_abs_err=worst_abs)
+               split_bitwise=split_bitwise,
+               split_n_col=K8.col_split(1, H),
+               in_place_n_col=K8.col_split(2, H),
+               in_place_rel_err=in_place_err, d32_refused=refused,
+               max_rel_err=max(worst, split_err, in_place_err),
+               max_abs_err=worst_abs)
     emit(res)
     return rows, res
 

@@ -4,7 +4,8 @@
 // Replaces the TPU kernel repro/kernels/ttt_probe.py:80 ttt_probe_batched
 // (body _kernel :47; wrappers ttt_probe_scan :132, make_unroll_kernel
 // :148).  Plain PyTorch version: repro_torch/kernels/ttt_scan.py
-// ttt_probe_batched_plain, after repro/kernels/ref.py:37.
+// ttt_probe_batched_plain, after repro/kernels/ref.py:37; the L-step form
+// below is mirrored by ttt_probe_lookahead_plain there.
 //
 // Per step t of trajectory i (Algorithm 2 lines 8-16):
 //   s_t  = sigmoid(zq_t . W + b)              scored with the CURRENT W
@@ -13,32 +14,40 @@
 //   W   -= eta m_t g zk_t ;  b -= eta m_t g   (m_t = 0 scores, no update)
 //
 // Bound on the H100: bytes.  The scan reads zq and zk once (N T f floats
-// each) and does about 6 flops per element read, far below the ridge.  The
+// each) and does about 7 flops per element read, far below the ridge.  The
 // Pallas grid walks (N, T / t_chunk) in order on one core; here the T
 // recurrence is a loop inside one block per trajectory and the N
-// trajectories run in parallel blocks.  The design:
-//   * one block per trajectory; W_i lives in shared memory for the whole
-//     chain (f floats, at most 28 KB at f = 7168), b_i in a register;
-//   * thread j owns the features j, j + blockDim, ...: it reads zq_t and
-//     zk_t there (coalesced), updates W there, and so never waits on
-//     another thread's W;
-//   * both dot products with the current W go through one block reduction
-//     (warp shuffles, then a double-buffered cross-warp array), and every
-//     thread sums the warp partials in the same order, so all threads hold
-//     the same scalars and one __syncthreads per step suffices;
-//   * s_t is written for every t, masked steps included; W_f and b_f once
-//     at the end.
+// trajectories run in parallel blocks.  What held the chain back was a
+// block barrier and a load on every step; the design:
+//   * the update is rank one, W_{t+1} = W_t - a_t zk_t with a_t = eta m_t
+//     g_t, so from W = W_{t0} the dots of L steps follow from dots with W
+//     and among the steps' own rows:
+//       zk_{t0+a} . W_{t0+a} = zk_{t0+a} . W - sum_{b<a} a_b (zk_{t0+a} . zk_{t0+b})
+//     (likewise for zq).  One block reduction of L + L(L-1)/2 dots (2L +
+//     L(L-1) where zq is not zk) serves L steps; every thread then runs the
+//     L scalar steps in the same order on the same sums, and applies
+//     W -= sum_a a_a zk_{t0+a} once.  One barrier per L steps;
+//   * thread j owns the features j, j + NT, ..., j + (FPT-1) NT: W lives in
+//     its registers, and it reads zq and zk there (coalesced);
+//   * the next L steps' zq and zk rows are loaded into registers before the
+//     current L steps compute, and the current zk rows stay there for the
+//     update: no load waits on the chain;
+//   * c and m of the whole trajectory are staged in shared memory once;
+//   * L, the threads NT and the features a thread FPT are compile-time, one
+//     instance per width band (with_instance below; kernels/ttt_scan.py
+//     BANDS mirrors the table): the widest L in {1, 2, 4, 8} whose
+//     registers fit, smaller where zq is not zk (twice the rows and dots);
+//     a band of one warp needs no barrier at all;
+//   * s_t is written for every t, masked steps included (a_t = 0); W_f and
+//     b_f once at the end.  A short last block reads nothing past T.
 // eta is read from device memory (a learnable eta is a tensor): no host
 // read.  w0 and b0 take a row stride, 0 for the shared meta-learned init.
-// The loop of dependent steps, each one DRAM round trip plus a reduction,
-// makes this latency-bound at small N.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kMaxSmem = 227 * 1024;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -50,84 +59,284 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// The sums of one block of L steps: [0, L) zk_a . W; [L, L + P) zk_a .
+// zk_b for b < a (at L + pair(a, b)); where zq is not zk also [L + P,
+// 2L + P) zq_a . W and [2L + P, 2L + 2P) zq_a . zk_b.
+template <int L, bool SAME>
+struct Dots {
+  static constexpr int P = L * (L - 1) / 2;
+  static constexpr int V = SAME ? L + P : 2 * (L + P);
+  static constexpr int Q = L + P;  // offset of the zq sums
+  __host__ __device__ static constexpr int pair(int a, int b) {
+    return a * (a - 1) / 2 + b;
+  }
+};
+
+// the rows t0 .. t0 + L - 1 of this thread's features, zero past T and f
+template <int NT, int FPT, int L, int LQ, bool SAME>
+__device__ __forceinline__ void load_rows(float (&k)[L][FPT],
+                                          float (&q)[LQ][FPT],
+                                          const float* zk, const float* zq,
+                                          int t0, int T, int f, int tid) {
+#pragma unroll
+  for (int a = 0; a < L; ++a) {
+    const bool live = t0 + a < T;
+    const size_t at = static_cast<size_t>(t0 + a) * f;
+#pragma unroll
+    for (int p = 0; p < FPT; ++p) {
+      const int j = tid + p * NT;
+      const bool ok = live && j < f;
+      k[a][p] = ok ? zk[at + j] : 0.f;
+      if constexpr (!SAME) q[a][p] = ok ? zq[at + j] : 0.f;
+    }
+  }
+}
+
+template <int NT, int FPT, int L, bool SAME, int MINB>
+__global__ void __launch_bounds__(NT, MINB)
 ttt_scan_kernel(const float* __restrict__ zq, const float* __restrict__ zk,
                 const float* __restrict__ c, const float* __restrict__ m,
                 const float* __restrict__ w0, const float* __restrict__ b0,
                 const float* __restrict__ eta_p, float* __restrict__ scores,
                 float* __restrict__ w_f, float* __restrict__ b_f, int T,
                 int f, int w0_stride, int b0_stride) {
-  extern __shared__ float w[];                     // (f,) fast weights
-  __shared__ float red[2][2][kMaxWarps];           // [buf][q|k][warp]
-  const int i = blockIdx.x;
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int warp = tid / 32, lane = tid % 32, nwarps = nthr / 32;
+  using D = Dots<L, SAME>;
+  constexpr int V = D::V, Q = D::Q;
+  constexpr int NW = NT / 32;
+  constexpr int LQ = SAME ? 1 : L;  // zq rows held (none used when SAME)
+  extern __shared__ __align__(16) float sm[];
+  float* c_s = sm;                      // (T,) labels
+  float* m_s = sm + T;                  // (T,) mask
+  float* red = sm + ((2 * T + 3) & ~3);  // [2][V][NW] warp sums
+
+  const int i = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const size_t row = static_cast<size_t>(i) * T;
   const float* zq_i = zq + row * f;
   const float* zk_i = zk + row * f;
   const float eta = *eta_p;
 
+  float nk[L][FPT], nq[LQ][FPT];
+  load_rows<NT, FPT, L, LQ, SAME>(nk, nq, zk_i, zq_i, 0, T, f, tid);
+  for (int t = tid; t < T; t += NT) {
+    c_s[t] = c[row + t];
+    m_s[t] = m[row + t];
+  }
   const float* w0_i = w0 + static_cast<size_t>(i) * w0_stride;
-  for (int j = tid; j < f; j += nthr) w[j] = w0_i[j];
+  float W[FPT];
+#pragma unroll
+  for (int p = 0; p < FPT; ++p) {
+    const int j = tid + p * NT;
+    W[p] = j < f ? w0_i[j] : 0.f;
+  }
   float b = b0[static_cast<size_t>(i) * b0_stride];
+  __syncthreads();  // c_s, m_s
 
-  for (int t = 0; t < T; ++t) {
-    const float* q = zq_i + static_cast<size_t>(t) * f;
-    const float* k = zk_i + static_cast<size_t>(t) * f;
-    float aq = 0.f, ak = 0.f;
-    for (int j = tid; j < f; j += nthr) {
-      const float wj = w[j];
-      aq = fmaf(q[j], wj, aq);
-      ak = fmaf(k[j], wj, ak);
+  for (int t0 = 0, blk = 0; t0 < T; t0 += L, ++blk) {
+    float k[L][FPT], q[LQ][FPT];
+#pragma unroll
+    for (int a = 0; a < L; ++a) {
+#pragma unroll
+      for (int p = 0; p < FPT; ++p) {
+        k[a][p] = nk[a][p];
+        if constexpr (!SAME) q[a][p] = nq[a][p];
+      }
     }
-    aq = warp_sum(aq);
-    ak = warp_sum(ak);
-    const int buf = t & 1;
-    if (lane == 0) {
-      red[buf][0][warp] = aq;
-      red[buf][1][warp] = ak;
+    // the next L steps' rows, in flight while these compute
+    if (t0 + L < T)
+      load_rows<NT, FPT, L, LQ, SAME>(nk, nq, zk_i, zq_i, t0 + L, T, f, tid);
+
+    float v[V];
+#pragma unroll
+    for (int x = 0; x < V; ++x) v[x] = 0.f;
+#pragma unroll
+    for (int p = 0; p < FPT; ++p) {
+      const float wp = W[p];
+#pragma unroll
+      for (int a = 0; a < L; ++a) {
+        v[a] = fmaf(k[a][p], wp, v[a]);
+#pragma unroll
+        for (int bb = 0; bb < a; ++bb)
+          v[L + D::pair(a, bb)] = fmaf(k[a][p], k[bb][p], v[L + D::pair(a, bb)]);
+        if constexpr (!SAME) {
+          v[Q + a] = fmaf(q[a][p], wp, v[Q + a]);
+#pragma unroll
+          for (int bb = 0; bb < a; ++bb)
+            v[Q + L + D::pair(a, bb)] =
+                fmaf(q[a][p], k[bb][p], v[Q + L + D::pair(a, bb)]);
+        }
+      }
     }
-    // the one barrier of the step: it also orders this step's writes of
-    // red[buf] after every thread's reads of red[buf] two steps ago
-    __syncthreads();
-    float dq = 0.f, dk = 0.f;
-    for (int v = 0; v < nwarps; ++v) {
-      dq += red[buf][0][v];
-      dk += red[buf][1][v];
+#pragma unroll
+    for (int x = 0; x < V; ++x) v[x] = warp_sum(v[x]);
+    if constexpr (NW > 1) {
+      // the L steps' one barrier; red is double-buffered, so a warp that
+      // runs ahead writes the other half while the last one is still read
+      float* rb = red + (blk & 1) * V * NW;
+#pragma unroll
+      for (int x = 0; x < V; ++x)
+        if (lane == (x & 31)) rb[x * NW + warp] = v[x];
+      __syncthreads();
+#pragma unroll
+      for (int x = 0; x < V; ++x) {
+        float s = 0.f;
+        if constexpr (NW % 4 == 0) {
+          const float4* r4 = reinterpret_cast<const float4*>(rb + x * NW);
+#pragma unroll
+          for (int w4 = 0; w4 < NW / 4; ++w4) {
+            const float4 y = r4[w4];
+            s += y.x;
+            s += y.y;
+            s += y.z;
+            s += y.w;
+          }
+        } else {
+#pragma unroll
+          for (int w2 = 0; w2 < NW; ++w2) s += rb[x * NW + w2];
+        }
+        v[x] = s;
+      }
     }
-    const float s_q = sigmoidf(dq + b);
-    const float s_k = sigmoidf(dk + b);
-    const float coeff = 2.0f * (s_k - c[row + t]) * s_k * (1.0f - s_k);
-    const float upd = eta * m[row + t];
-    if (tid == 0) scores[row + t] = s_q;
-    for (int j = tid; j < f; j += nthr) w[j] = w[j] - upd * (coeff * k[j]);
-    b = b - upd * coeff;
+
+    // the L scalar steps, the same in every thread
+    float coef[L];
+#pragma unroll
+    for (int a = 0; a < L; ++a) {
+      const int t = t0 + a;
+      float ai = 0.f;
+      if (t < T) {
+        const float s_k = sigmoidf(v[a] + b);
+        float s_q = s_k;
+        if constexpr (!SAME) s_q = sigmoidf(v[Q + a] + b);
+        const float g = 2.0f * (s_k - c_s[t]) * s_k * (1.0f - s_k);
+        ai = (eta * m_s[t]) * g;
+        b = b - ai;
+        if (tid == 0) scores[row + t] = s_q;
+      }
+      coef[a] = ai;
+      // the later steps' dots, corrected for this step's update
+#pragma unroll
+      for (int a2 = a + 1; a2 < L; ++a2) {
+        v[a2] = fmaf(-ai, v[L + D::pair(a2, a)], v[a2]);
+        if constexpr (!SAME)
+          v[Q + a2] = fmaf(-ai, v[Q + L + D::pair(a2, a)], v[Q + a2]);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < FPT; ++p) {
+      float wp = W[p];
+#pragma unroll
+      for (int a = 0; a < L; ++a) wp = fmaf(-coef[a], k[a][p], wp);
+      W[p] = wp;
+    }
   }
 
   float* wf_i = w_f + static_cast<size_t>(i) * f;
-  for (int j = tid; j < f; j += nthr) wf_i[j] = w[j];
+#pragma unroll
+  for (int p = 0; p < FPT; ++p) {
+    const int j = tid + p * NT;
+    if (j < f) wf_i[j] = W[p];
+  }
   if (tid == 0) b_f[i] = b;
+}
+
+struct Args {
+  const float *zq, *zk, *c, *m, *w0, *b0, *eta;
+  float *scores, *w_f, *b_f;
+  int N, T, f, w0_stride, b0_stride;
+  cudaStream_t stream;
+};
+
+template <int L, bool SAME, int NW>
+size_t smem_bytes(int T) {
+  return (((2 * T + 3) & ~3) + (NW > 1 ? 2 * Dots<L, SAME>::V * NW : 0)) *
+         sizeof(float);
+}
+
+struct Launch {
+  const Args& g;
+  template <int NT, int FPT, int L, bool SAME, int MINB>
+  int run() const {
+    const size_t smem = smem_bytes<L, SAME, NT / 32>(g.T);
+    if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+    auto kern = ttt_scan_kernel<NT, FPT, L, SAME, MINB>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kern<<<g.N, NT, smem, g.stream>>>(g.zq, g.zk, g.c, g.m, g.w0, g.b0,
+                                      g.eta, g.scores, g.w_f, g.b_f, g.T, g.f,
+                                      g.w0_stride, g.b0_stride);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// out: L, threads, features a thread, registers a thread, static shared
+// bytes, local (spill) bytes a thread, shared bytes of the warp sums
+struct Config {
+  int* out;
+  template <int NT, int FPT, int L, bool SAME, int MINB>
+  int run() const {
+    cudaFuncAttributes a;
+    const cudaError_t e =
+        cudaFuncGetAttributes(&a, ttt_scan_kernel<NT, FPT, L, SAME, MINB>);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    out[0] = L;
+    out[1] = NT;
+    out[2] = FPT;
+    out[3] = a.numRegs;
+    out[4] = static_cast<int>(a.sharedSizeBytes);
+    out[5] = static_cast<int>(a.localSizeBytes);
+    out[6] = static_cast<int>(smem_bytes<L, SAME, NT / 32>(0));
+    return 0;
+  }
+};
+
+// The instances, by width band (widest f, threads, features a thread, L
+// when zq is zk, L otherwise, blocks an SM must hold); kernels/ttt_scan.py
+// BANDS is this table.  The served width (960, N 170 > 132 SMs) keeps two
+// blocks an SM, so every trajectory's block is resident at once.
+template <class Visit>
+int with_instance(int f, bool same, const Visit& vis) {
+#define TTT_BAND(F, NT, FPT, LS, LD, MINB)                            \
+  if (f <= F)                                                         \
+    return same ? vis.template run<NT, FPT, LS, true, MINB>()         \
+                : vis.template run<NT, FPT, LD, false, MINB>();
+  TTT_BAND(128, 32, 4, 4, 4, 1)
+  TTT_BAND(1024, 256, 4, 8, 4, 2)
+  TTT_BAND(2048, 512, 4, 4, 2, 1)
+  TTT_BAND(4096, 512, 8, 2, 1, 1)
+  TTT_BAND(5120, 512, 10, 2, 1, 1)
+  TTT_BAND(7168, 1024, 7, 2, 1, 1)
+#undef TTT_BAND
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// zq == zk (the same pointer: the no-QK view) takes the instance that
+// reads one tensor.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a width past the table or a T whose labels
+// and mask do not fit in shared memory.
 extern "C" int ttt_scan_launch(const void* zq, const void* zk, const void* c,
                                const void* m, const void* w0, const void* b0,
                                const void* eta, void* scores, void* w_f,
                                void* b_f, int N, int T, int f, int w0_stride,
                                int b0_stride, void* stream) {
-  if (N > 0) {
-    int threads = ((f + 31) / 32) * 32;
-    threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads
-                                                          : threads);
-    const size_t smem = static_cast<size_t>(f) * sizeof(float);
-    ttt_scan_kernel<<<N, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(zq), static_cast<const float*>(zk),
-        static_cast<const float*>(c), static_cast<const float*>(m),
-        static_cast<const float*>(w0), static_cast<const float*>(b0),
-        static_cast<const float*>(eta), static_cast<float*>(scores),
-        static_cast<float*>(w_f), static_cast<float*>(b_f), T, f, w0_stride,
-        b0_stride);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (N == 0) return static_cast<int>(cudaGetLastError());
+  const Args g{static_cast<const float*>(zq), static_cast<const float*>(zk),
+               static_cast<const float*>(c),  static_cast<const float*>(m),
+               static_cast<const float*>(w0), static_cast<const float*>(b0),
+               static_cast<const float*>(eta), static_cast<float*>(scores),
+               static_cast<float*>(w_f),      static_cast<float*>(b_f),
+               N, T, f, w0_stride, b0_stride,
+               static_cast<cudaStream_t>(stream)};
+  return with_instance(f, zq == zk, Launch{g});
+}
+
+// The instance a width takes (out[0..6], as Config above).
+extern "C" int ttt_scan_config(int f, int same, int* out) {
+  return with_instance(f, same != 0, Config{out});
 }

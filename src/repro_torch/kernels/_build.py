@@ -53,7 +53,10 @@ SIGNATURES = {
                                _c.c_int, _c.c_int, _c.c_int, _c.c_int,
                                _c.c_int, _c.c_int, _c.c_float, _P],
     "wkv_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _c.c_int, _c.c_int,
-                        _c.c_int, _c.c_int, _P],
+                        _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                        _P],
+    "wkv_scan_config": [_c.c_int, _c.c_int, _c.c_int, _P],
+    "ttt_scan_config": [_c.c_int, _c.c_int, _P],
     "cuda_error_string": [_c.c_int],
 }
 

@@ -6,12 +6,15 @@ Per (batch row, head), over T steps:
     out_t = r_t . (diag(u) k_t v_t^T + S_{t-1})
     S_t   = diag(w_t) S_{t-1} + k_t v_t^T
 
-r, k, v, w (B, T, H, d) f32, u (H, d), s0 (B, H, d, d) -> out (B, T, H, d)
-and the final state.  It replaces the TPU kernel
-``repro/kernels/rwkv6_scan.py:53 wkv_scan`` (body ``_kernel`` :23); the
-plain version is the JAX model's own loop (``repro/models/rwkv6.py:90``,
+r, k, v (B, T, H, d) f32 or bf16, w (B, T, H, d) f32, u (H, d), s0 (B, H,
+d, d) -> out (B, T, H, d) f32 and the final state.  It replaces the TPU
+kernel ``repro/kernels/rwkv6_scan.py:53 wkv_scan`` (body ``_kernel`` :23);
+the plain version is the JAX model's own loop (``repro/models/rwkv6.py:90``,
 the oracle ``repro/kernels/ref.py:232``).  The Pallas knobs ``ct`` and
-``interpret`` have no counterpart: the kernel walks T inside the block.
+``interpret`` have no counterpart: the kernel walks T inside the block,
+``chunk_steps(T)`` steps staged at a time, over a grid of (B H,
+``col_split(B, H)``) blocks; ``wkv_scan_blocked_plain`` mirrors that
+schedule for the tests.
 
 Dispatch is by the input's device: CPU tensors take the plain version,
 CUDA tensors the kernel (``csrc/rwkv6_scan.cu``); anything else raises.
@@ -28,6 +31,32 @@ from repro_torch.kernels import _build
 
 # the one head dim the kernel is built for: rwkv6-1.6b's ssm.head_dim
 KERNEL_HEAD_DIM = 64
+# the kernel's threads a block; with n_col column slices each thread holds
+# 16 / n_col rows of one column
+KERNEL_THREADS = 256
+# steps staged into shared memory at a time (the ring of two stages, f32
+# at n_col 1: 128 KB)
+CHUNK_STEPS = 32
+# blocks that fill the card (132 SMs): below this many (row, head) pairs
+# the value columns are split over 2 or 4 blocks
+FILL_BLOCKS = 128
+# dtypes the kernel reads r, k and v in (widened to f32 on load)
+INPUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def col_split(B: int, H: int) -> int:
+    """Blocks that share one (row, head)'s value columns: 1 where B H
+    already fills the card, else 2 or 4, so that a (1, T) prompt of 32
+    heads runs 128 blocks."""
+    bh = B * H
+    if bh >= FILL_BLOCKS:
+        return 1
+    return 2 if 2 * bh >= FILL_BLOCKS else 4
+
+
+def chunk_steps(T: int) -> int:
+    """Steps the kernel stages at a time (at least 1, at most T)."""
+    return max(1, min(T, CHUNK_STEPS))
 
 
 def wkv_scan_plain(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -45,34 +74,79 @@ def wkv_scan_plain(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     return out, S
 
 
+def wkv_scan_blocked_plain(r, k, v, w, u, s0, *, n_col: int, chunk: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's schedule in plain PyTorch: the value columns cut into
+    ``n_col`` slices, each with its own state slice; within a slice each of
+    KERNEL_THREADS "threads" holds d / (KERNEL_THREADS / (d / n_col)) rows
+    of one column and writes its partial of out_t[j] every step; after
+    every ``chunk`` steps the partials are summed over the row groups, in
+    group order.  Equals ``wkv_scan_plain`` up to f32 summation order."""
+    r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
+    B, T, H, d = r.shape
+    nc = d // n_col                       # columns a block
+    ng = KERNEL_THREADS // nc             # row groups
+    rows = d // ng                        # rows a thread
+    out = torch.zeros_like(r)
+    state = s0.float().clone()
+    for cb in range(n_col):
+        cols = slice(cb * nc, (cb + 1) * nc)
+        S = state[..., cols]
+        for t0 in range(0, T, chunk):
+            steps = min(chunk, T - t0)
+            part = r.new_empty((steps, B, H, ng, nc))
+            for tl in range(steps):
+                t = t0 + tl
+                kv = k[:, t, :, :, None] * v[:, t, :, None, cols]
+                att = u[None, :, :, None] * kv + S
+                part[tl] = (r[:, t, :, :, None] * att).reshape(
+                    B, H, ng, rows, nc).sum(3)
+                S = w[:, t, :, :, None] * S + kv
+            acc = part[:, :, :, 0]
+            for g in range(1, ng):
+                acc = acc + part[:, :, :, g]
+            out[:, t0:t0 + steps, :, cols] = acc.permute(1, 0, 2, 3)
+        state[..., cols] = S
+    return out, state
+
+
 def _check(r, k, v, w, u, s0, state_out) -> None:
     b, T, h, d = r.shape
     if d != KERNEL_HEAD_DIM:
         raise ValueError(f"wkv_scan: kernel built for d={KERNEL_HEAD_DIM} "
                          f"(rwkv6-1.6b's ssm.head_dim), got d={d}; other "
                          "head dims need their own instance")
-    want = [("r", r, (b, T, h, d)), ("k", k, (b, T, h, d)),
-            ("v", v, (b, T, h, d)), ("w", w, (b, T, h, d)),
-            ("u", u, (h, d)), ("s0", s0, (b, h, d, d)),
-            ("state_out", state_out, (b, h, d, d))]
-    for name, t, shape in want:
+    if r.dtype not in INPUT_DTYPES:
+        raise ValueError(f"wkv_scan: r is {r.dtype}, expected one of "
+                         f"{sorted(map(str, INPUT_DTYPES))}")
+    want = [("r", r, (b, T, h, d), r.dtype), ("k", k, (b, T, h, d), r.dtype),
+            ("v", v, (b, T, h, d), r.dtype),
+            ("w", w, (b, T, h, d), torch.float32),
+            ("u", u, (h, d), torch.float32),
+            ("s0", s0, (b, h, d, d), torch.float32),
+            ("state_out", state_out, (b, h, d, d), torch.float32)]
+    for name, t, shape, dtype in want:
         if t.device != r.device:
             raise ValueError(f"wkv_scan: {name} on {t.device}, r on "
                              f"{r.device}")
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+        if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"wkv_scan: {name} is {t.dtype} "
-                             f"{tuple(t.shape)}, expected float32 {shape}")
+                             f"{tuple(t.shape)}, expected {dtype} {shape}")
         if not t.is_contiguous():
             raise ValueError(f"wkv_scan: {name} not contiguous")
+        # the kernel stages its inputs 16 bytes at a time
+        if name in ("r", "k", "v", "w") and t.data_ptr() % 16:
+            raise ValueError(f"wkv_scan: {name} not 16-byte aligned")
 
 
 def wkv_scan(r, k, v, w, u, s0, *,
              state_out: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The WKV recurrence.  r, k, v, w (B, T, H, d), u (H, d), s0
-    (B, H, d, d), all f32 and contiguous on the card.  The final state is
-    written into ``state_out`` when given (it may be ``s0`` itself: the
-    state is then updated in place) and returned.  Returns (out, state)."""
+    """The WKV recurrence.  r, k, v (B, T, H, d) f32 or bf16 (one dtype),
+    w (B, T, H, d), u (H, d), s0 (B, H, d, d) f32, all contiguous on the
+    card.  The final state is written into ``state_out`` when given (it may
+    be ``s0`` itself: the state is then updated in place) and returned.
+    Returns (out f32, state)."""
     if any(t.requires_grad for t in (r, k, v, w, u, s0)):
         raise RuntimeError("wkv_scan is forward only: an input requires "
                            "grad")
@@ -87,11 +161,12 @@ def wkv_scan(r, k, v, w, u, s0, *,
         state_out = torch.empty_like(s0)
     _check(r, k, v, w, u, s0, state_out)
     b, T, h, d = r.shape
-    out = torch.empty_like(r)
+    out = torch.empty_like(w)
     p = _build.ptr
     err = _build.library().wkv_scan_launch(
         p(r), p(k), p(v), p(w), p(u), p(s0), p(out), p(state_out), b, T, h,
-        d, _build.stream_of(r))
+        d, INPUT_DTYPES[r.dtype], col_split(b, h), chunk_steps(T),
+        _build.stream_of(r))
     _build.check(err, "wkv_scan launch")
     wkv_scan.launches += 1
     return out, state_out

@@ -14,7 +14,9 @@ ttt_probe_batched_ref`` with the port's ``core.probe.score_then_update``.
 
 Dispatch is by the input's device: CPU tensors take the plain version,
 CUDA tensors the kernel (``csrc/ttt_scan.cu``); anything else raises.  The
-Pallas knobs ``t_chunk`` and ``interpret`` have no counterpart.  The
+Pallas knobs ``t_chunk`` and ``interpret`` have no counterpart.  The kernel
+scores ``lookahead_steps(f, same)`` steps per block reduction, the L-step
+form that ``ttt_probe_lookahead_plain`` mirrors.  The
 kernel is forward only: a tensor that requires grad is refused on every
 device (differentiate ``core.ttt``'s autograd loop instead).
 """
@@ -28,8 +30,17 @@ from repro_torch.core import probe as P
 from repro_torch.kernels import _build
 
 # the widest d_model among the repo's configs (llava-next-34b); the
-# kernel keeps W in shared memory, 4 bytes a feature
+# kernel's widest instance (BANDS) keeps W in registers, 7 features a
+# thread of 1024
 MAX_F = 7168
+# the kernel stages a trajectory's labels and mask in shared memory, 8
+# bytes a step
+MAX_T = 16384
+# csrc/ttt_scan.cu's instances by width band: (widest f, threads, features
+# a thread, L where zq is zk, L where it is not); L steps share one block
+# reduction
+BANDS = ((128, 32, 4, 4, 4), (1024, 256, 4, 8, 4), (2048, 512, 4, 4, 2),
+         (4096, 512, 8, 2, 1), (5120, 512, 10, 2, 1), (7168, 1024, 7, 2, 1))
 
 Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -48,6 +59,68 @@ def ttt_probe_batched_plain(zq, zk, c, m, w0, b0, eta) -> Out:
     return s, W, b
 
 
+def lookahead_steps(f: int, same: bool) -> int:
+    """L, the steps one block reduction of the kernel serves at width f
+    (``same``: zq and zk are one tensor, the no-QK view)."""
+    for f_max, _, _, l_same, l_distinct in BANDS:
+        if f <= f_max:
+            return l_same if same else l_distinct
+    raise ValueError(f"ttt_probe_batched: f={f} exceeds {MAX_F}")
+
+
+def ttt_probe_lookahead_plain(zq, zk, c, m, w0, b0, eta, L: int) -> Out:
+    """The kernel's L-step form in plain PyTorch (the tests and chip_smoke's
+    phase k5 use it; no path serves through it).  The update is rank one,
+    W_{t+1} = W_t - a_t zk_t with a_t = eta m_t g_t, so from W = W_{t0}
+    the dots of steps t0 .. t0 + L - 1 follow from dots with W and among
+    the block's rows:
+
+        zk_{t0+i} . W_{t0+i} = zk_{t0+i} . W - sum_{j<i} a_j zk_{t0+i} . zk_{t0+j}
+
+    (likewise for zq); then W -= sum_i a_i zk_{t0+i} once.  w0 (N, f), b0
+    (N,); the last block is short when L does not divide T.  Equals
+    ``ttt_probe_batched_plain`` up to f32 rounding."""
+    n, T, _ = zq.shape
+    W, b = w0, b0
+    scores = []
+    for t0 in range(0, T, L):
+        q, k = zq[:, t0:t0 + L], zk[:, t0:t0 + L]
+        dq = torch.einsum("nlf,nf->nl", q, W)
+        dk = torch.einsum("nlf,nf->nl", k, W)
+        gq = torch.einsum("nif,njf->nij", q, k)
+        gk = torch.einsum("nif,njf->nij", k, k)
+        coef = []
+        for i in range(q.shape[1]):
+            t = t0 + i
+            s_q = torch.sigmoid(dq[:, i] + b)
+            s_k = torch.sigmoid(dk[:, i] + b)
+            g = 2.0 * (s_k - c[:, t]) * s_k * (1.0 - s_k)
+            a = (eta * m[:, t]) * g
+            b = b - a
+            scores.append(s_q)
+            coef.append(a)
+            # the later steps' dots, corrected for this step's update
+            dq = dq - a[:, None] * gq[:, :, i]
+            dk = dk - a[:, None] * gk[:, :, i]
+        W = W - torch.einsum("nl,nlf->nf", torch.stack(coef, dim=1), k)
+    s = (torch.stack(scores, dim=1) if scores
+         else zq.new_zeros((n, 0)))
+    return s, W, b
+
+
+def kernel_config(f: int, same: bool) -> dict:
+    """The instance width f takes on the card, from the library itself: L,
+    threads, features a thread, registers, static and warp-sum shared
+    bytes, spill bytes."""
+    import ctypes
+    out = (ctypes.c_int * 7)()
+    _build.check(_build.library().ttt_scan_config(f, int(same), out),
+                 "ttt_scan_config")
+    keys = ("L", "threads", "features_per_thread", "registers",
+            "static_smem", "local_bytes", "red_smem")
+    return dict(zip(keys, out))
+
+
 def _check(zq, zk, c, m, w0, b0, eta, shared: bool) -> None:
     n, T, f = zq.shape
     want = {"zq": (zq, (n, T, f)), "zk": (zk, (n, T, f)), "c": (c, (n, T)),
@@ -64,8 +137,12 @@ def _check(zq, zk, c, m, w0, b0, eta, shared: bool) -> None:
             raise ValueError(f"ttt_probe_batched: {name} not contiguous")
     if f > MAX_F:
         raise ValueError(f"ttt_probe_batched: f={f} exceeds {MAX_F}, the "
-                         "widest d_model of the repo's configs, which the "
-                         "kernel keeps in shared memory")
+                         "widest d_model of the repo's configs, for which "
+                         "the kernel has an instance")
+    if T > MAX_T:
+        raise ValueError(f"ttt_probe_batched: T={T} exceeds {MAX_T}, the "
+                         "steps whose labels and mask the kernel stages in "
+                         "shared memory")
 
 
 def _scan(zq, zk, c, m, w0, b0, eta, *, shared: bool) -> Out:

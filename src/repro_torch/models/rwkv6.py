@@ -93,14 +93,18 @@ def decay_from_x(tm, xw):
 
 
 def wkv_scan(r, k, v, w, u, state0, state_out=None):
-    """The WKV recurrence, every input cast to f32 (as the Pallas kernel
-    casts them): K8 on the card, its plain version on the CPU.
-    r, k, v, w (B, T, H, dh); u (H, dh); state0 (B, H, dh, dh) f32.  The
-    final state lands in ``state_out`` when given (``state0`` itself for an
-    in-place update).  Returns (out (B, T, H, dh) f32, state_T)."""
+    """The WKV recurrence: K8 on the card, its plain version on the CPU.
+    r, k, v (B, T, H, dh) go in their compute dtype (bf16 or f32: K8 widens
+    bf16 on load and the plain version casts, as the Pallas kernel casts
+    every input to f32); w (B, T, H, dh) and u (H, dh) as f32; state0 (B,
+    H, dh, dh) f32.  The final state lands in ``state_out`` when given
+    (``state0`` itself for an in-place update).  Returns (out (B, T, H, dh)
+    f32, state_T)."""
+    if r.dtype not in (torch.bfloat16, torch.float32):
+        r, k, v = r.float(), k.float(), v.float()
     f32 = lambda t: t.float().contiguous()
-    return wkv_kernel(f32(r), f32(k), f32(v), f32(w), f32(u), state0,
-                      state_out=state_out)
+    return wkv_kernel(r.contiguous(), k.contiguous(), v.contiguous(), f32(w),
+                      f32(u), state0, state_out=state_out)
 
 
 def _shift(x, x_prev):

@@ -120,17 +120,22 @@ def test_refusals():
 @pytest.mark.parametrize("bad", ["d", "dtype", "contiguous", "shape"])
 def test_kernel_checks_refuse_what_it_does_not_take(bad):
     """The card's argument checks, run on CPU tensors: d other than 64
-    (named with the config), non-f32, non-contiguous or misshapen inputs."""
+    (named with the config), a w that is not f32 (r, k and v may be bf16,
+    one dtype for the three), non-contiguous or misshapen inputs."""
     d = 32 if bad == "d" else 64
     r, k, v, w, u, s0 = (torch.as_tensor(a)
                          for a in _inputs(1, 2, 2, d, seed=2))
     if bad == "dtype":
-        k = k.to(torch.bfloat16)
+        bf = [t.to(torch.bfloat16) for t in (r, k, v)]
+        K8._check(*bf, w, u, s0, s0)                # bf16 r, k, v: taken
+        with pytest.raises(ValueError, match="expected torch.bfloat16"):
+            K8._check(bf[0], k, bf[2], w, u, s0, s0)  # mixed: refused
+        w = w.to(torch.bfloat16)
     elif bad == "contiguous":
         v = v.transpose(1, 2).contiguous().transpose(1, 2)
     elif bad == "shape":
         u = u[:1]
-    match = {"d": "rwkv6-1.6b", "dtype": "expected float32",
-             "contiguous": "not contiguous", "shape": "expected float32"}
+    match = {"d": "rwkv6-1.6b", "dtype": "expected torch.float32",
+             "contiguous": "not contiguous", "shape": "expected torch.float32"}
     with pytest.raises(ValueError, match=match[bad]):
         K8._check(r, k, v, w, u, s0, s0)
