@@ -24,12 +24,15 @@
 //     columns, so a (1, T) prompt runs 128 blocks, not 32 (the state
 //     update is elementwise and the columns are independent; n_col from
 //     kernels/rwkv6_scan.py col_split, 1 where B H already fills the card);
-//   * 256 threads; thread (g, j) holds rows g R .. g R + R - 1 of column j
-//     in registers (R = 16 / n_col) and updates them in the plain version's
-//     order: kv = k_i v_j, acc += r_i (u_i kv + S), S = w_i S + kv;
+//   * thread (g, j) holds rows g R .. g R + R - 1 of column j in registers
+//     (threads_for below; R = 16 / n_col at 256 threads) and updates them
+//     in the plain version's order: kv = k_i v_j, acc += r_i (u_i kv + S),
+//     S = w_i S + kv;
 //   * inputs are staged C steps at a time (r, k, w whole, v the block's
 //     columns) through cp.async into a double-buffered ring: chunk c + 1 is
-//     in flight while chunk c computes;
+//     in flight while chunk c computes; the steps of a chunk are unrolled
+//     (2 at 16 rows a thread, 8 at fewer) so that their shared loads
+//     overlap;
 //   * the output's sum over rows is taken off the chain: each thread writes
 //     its partial of out_t[j] for every step of the chunk to shared memory,
 //     and after the chunk's one barrier the partials of the previous chunk
@@ -48,8 +51,13 @@
 namespace {
 
 constexpr int kD = 64;          // the head dim instantiated
-constexpr int kThreads = 256;   // state elements of a block / R
 constexpr int kMaxSmem = 227 * 1024;
+
+// threads a block at each column split; a thread holds R = kD NC / NT
+// rows of one of the block's NC = kD / n_col columns
+__host__ __device__ constexpr int threads_for(int n_col) {
+  return n_col > 0 ? 256 : 0;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -72,29 +80,49 @@ __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(uint16_t x) {
   return __uint_as_float(static_cast<uint32_t>(x) << 16);
 }
+__device__ __forceinline__ float lo_bf16(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+__device__ __forceinline__ float hi_bf16(uint32_t x) {
+  return __uint_as_float(x & 0xffff0000u);
+}
 
-// R consecutive values (R a multiple of 4, 16-byte aligned for f32 and
-// 8-byte for bf16) from shared memory, as f32
+// R consecutive values (R 2 or a multiple of 4; aligned to R values) from
+// shared memory, as f32
 template <int R>
 __device__ __forceinline__ void load_rows(const float* p, float (&o)[R]) {
+  if constexpr (R % 4 == 0) {
 #pragma unroll
-  for (int q = 0; q < R / 4; ++q) {
-    const float4 x = reinterpret_cast<const float4*>(p)[q];
-    o[4 * q] = x.x;
-    o[4 * q + 1] = x.y;
-    o[4 * q + 2] = x.z;
-    o[4 * q + 3] = x.w;
+    for (int q = 0; q < R / 4; ++q) {
+      const float4 x = reinterpret_cast<const float4*>(p)[q];
+      o[4 * q] = x.x;
+      o[4 * q + 1] = x.y;
+      o[4 * q + 2] = x.z;
+      o[4 * q + 3] = x.w;
+    }
+  } else {
+    static_assert(R == 2, "rows a thread: 2 or a multiple of 4");
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    o[0] = x.x;
+    o[1] = x.y;
   }
 }
 template <int R>
 __device__ __forceinline__ void load_rows(const uint16_t* p, float (&o)[R]) {
+  if constexpr (R % 4 == 0) {
 #pragma unroll
-  for (int q = 0; q < R / 4; ++q) {
-    const uint2 x = reinterpret_cast<const uint2*>(p)[q];
-    o[4 * q] = __uint_as_float(x.x << 16);
-    o[4 * q + 1] = __uint_as_float(x.x & 0xffff0000u);
-    o[4 * q + 2] = __uint_as_float(x.y << 16);
-    o[4 * q + 3] = __uint_as_float(x.y & 0xffff0000u);
+    for (int q = 0; q < R / 4; ++q) {
+      const uint2 x = reinterpret_cast<const uint2*>(p)[q];
+      o[4 * q] = lo_bf16(x.x);
+      o[4 * q + 1] = hi_bf16(x.x);
+      o[4 * q + 2] = lo_bf16(x.y);
+      o[4 * q + 3] = hi_bf16(x.y);
+    }
+  } else {
+    static_assert(R == 2, "rows a thread: 2 or a multiple of 4");
+    const uint32_t x = *reinterpret_cast<const uint32_t*>(p);
+    o[0] = lo_bf16(x);
+    o[1] = hi_bf16(x);
   }
 }
 
@@ -104,10 +132,11 @@ __device__ __forceinline__ void load_rows(const uint16_t* p, float (&o)[R]) {
 template <int NCOL, typename In>
 struct Stage {
   static constexpr int NC = kD / NCOL;
+  static constexpr int NT = threads_for(NCOL);
   __host__ __device__ static size_t bytes(int C) {
     return static_cast<size_t>(C) *
            (2 * kD * sizeof(In) + kD * sizeof(float) + NC * sizeof(In) +
-            kThreads * sizeof(float));
+            NT * sizeof(float));
   }
   In* r;
   In* k;
@@ -124,21 +153,21 @@ struct Stage {
 };
 
 template <int NCOL, typename In>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(threads_for(NCOL))
 wkv_scan_kernel(const In* __restrict__ r, const In* __restrict__ k,
                 const In* __restrict__ v, const float* __restrict__ w,
                 const float* __restrict__ u, const float* s0,
                 float* __restrict__ out, float* s_out, int T, int H, int C) {
+  constexpr int NT = threads_for(NCOL);
   constexpr int NC = kD / NCOL;        // value columns of this block
-  constexpr int NG = kThreads / NC;    // row groups
+  constexpr int NG = NT / NC;          // row groups
   constexpr int R = kD / NG;           // rows a thread holds
   constexpr int EV = 16 / sizeof(In);  // elements of r, k, v per 16 bytes
   constexpr int PR = kD / EV;          // 16-byte pieces of an r or k step
   constexpr int PW = kD / 4;           // of a w step
   constexpr int PV = NC / EV;          // of the block's v columns
-  constexpr int P = 2 * PR + PW + PV;  // pieces a step
-  // steps unrolled: the short rows leave registers to overlap steps
-  constexpr int kUnroll = R >= 16 ? 1 : 4;
+  // steps unrolled: short rows leave registers to overlap steps
+  constexpr int kUnroll = R >= 16 ? 2 : 8;
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
@@ -150,26 +179,27 @@ wkv_scan_kernel(const In* __restrict__ r, const In* __restrict__ k,
   const size_t stage_bytes = Stage<NCOL, In>::bytes(C);
   const int n_chunks = (T + C - 1) / C;
 
-  // chunk c's inputs into stage s, left in flight
+  // chunk c's inputs into stage s, left in flight: each vector a grid of
+  // steps x 16-byte pieces
   auto stage_in = [&](int c, int s) {
     Stage<NCOL, In> st(smem + s * stage_bytes, C);
-    const int t0 = c * C;
-    const int steps = min(C, T - t0);
-    for (int p = tid; p < steps * P; p += kThreads) {
-      const int tl = p / P, q = p % P;
-      const size_t at = head + static_cast<size_t>(t0 + tl) * step_stride;
-      if (q < PR) {
-        cp_async16(st.r + tl * kD + q * EV, r + at + q * EV);
-      } else if (q < 2 * PR) {
-        const int e = (q - PR) * EV;
-        cp_async16(st.k + tl * kD + e, k + at + e);
-      } else if (q < 2 * PR + PW) {
-        const int e = (q - 2 * PR) * 4;
-        cp_async16(st.w + tl * kD + e, w + at + e);
-      } else {
-        const int e = (q - 2 * PR - PW) * EV;
-        cp_async16(st.v + tl * NC + e, v + at + col0 + e);
-      }
+    const int steps = min(C, T - c * C);
+    const size_t at = head + static_cast<size_t>(c) * C * step_stride;
+    for (int p = tid; p < steps * PR; p += NT) {
+      const int tl = p / PR, e = (p % PR) * EV;
+      const size_t src = at + static_cast<size_t>(tl) * step_stride + e;
+      cp_async16(st.r + tl * kD + e, r + src);
+      cp_async16(st.k + tl * kD + e, k + src);
+    }
+    for (int p = tid; p < steps * PW; p += NT) {
+      const int tl = p / PW, e = (p % PW) * 4;
+      cp_async16(st.w + tl * kD + e,
+                 w + at + static_cast<size_t>(tl) * step_stride + e);
+    }
+    for (int p = tid; p < steps * PV; p += NT) {
+      const int tl = p / PV, e = (p % PV) * EV;
+      cp_async16(st.v + tl * NC + e,
+                 v + at + static_cast<size_t>(tl) * step_stride + col0 + e);
     }
     cp_async_commit();
   };
@@ -179,9 +209,9 @@ wkv_scan_kernel(const In* __restrict__ r, const In* __restrict__ k,
     Stage<NCOL, In> st(smem + s * stage_bytes, C);
     const int t0 = c * C;
     const int steps = min(C, T - t0);
-    for (int e = tid; e < steps * NC; e += kThreads) {
+    for (int e = tid; e < steps * NC; e += NT) {
       const int tl = e / NC, j = e % NC;
-      const float* p = st.part + tl * kThreads + j;
+      const float* p = st.part + tl * NT + j;
       float acc = p[0];
 #pragma unroll
       for (int gg = 1; gg < NG; ++gg) acc += p[gg * NC];
@@ -227,7 +257,7 @@ wkv_scan_kernel(const In* __restrict__ r, const In* __restrict__ k,
         acc += rr[i] * (uu[i] * kv + S[i]);
         S[i] = ww[i] * S[i] + kv;
       }
-      st.part[tl * kThreads + tid] = acc;
+      st.part[tl * NT + tid] = acc;
     }
   }
   if (n_chunks > 0) {
@@ -253,7 +283,7 @@ int launch(const void* r, const void* k, const void* v, const void* w,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kern<<<dim3(B * H, NCOL), kThreads, smem, stream>>>(
+  kern<<<dim3(B * H, NCOL), threads_for(NCOL), smem, stream>>>(
       static_cast<const In*>(r), static_cast<const In*>(k),
       static_cast<const In*>(v), static_cast<const float*>(w),
       static_cast<const float*>(u), static_cast<const float*>(s0),

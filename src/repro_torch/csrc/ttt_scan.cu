@@ -22,26 +22,32 @@
 //   * the update is rank one, W_{t+1} = W_t - a_t zk_t with a_t = eta m_t
 //     g_t, so from W = W_{t0} the dots of L steps follow from dots with W
 //     and among the steps' own rows:
-//       zk_{t0+a} . W_{t0+a} = zk_{t0+a} . W - sum_{b<a} a_b (zk_{t0+a} . zk_{t0+b})
-//     (likewise for zq).  One block reduction of L + L(L-1)/2 dots (2L +
-//     L(L-1) where zq is not zk) serves L steps; every thread then runs the
-//     L scalar steps in the same order on the same sums, and applies
-//     W -= sum_a a_a zk_{t0+a} once.  One barrier per L steps;
+//       zk_{t0+a} . W_{t0+a} = zk_{t0+a} . W
+//                              - sum_{b<a} a_b (zk_{t0+a} . zk_{t0+b})
+//     (likewise for zq).  One block reduction of L + L(L-1)/2 sums (2L +
+//     L(L-1) where zq is not zk) serves L steps: a warp folds its sums by
+//     butterfly exchanges (warp_sums_to), one barrier, a thread per sum
+//     adds the warps', a second barrier; every thread then runs the L
+//     scalar steps in the same order on the same sums, and applies
+//     W -= sum_a a_a zk_{t0+a} once.  Two barriers per L steps, none in a
+//     block of one warp;
 //   * thread j owns the features j, j + NT, ..., j + (FPT-1) NT: W lives in
 //     its registers, and it reads zq and zk there (coalesced);
-//   * the next L steps' zq and zk rows are loaded into registers before the
-//     current L steps compute, and the current zk rows stay there for the
-//     update: no load waits on the chain;
+//   * the rows of the next PD L-blocks are loaded into registers while the
+//     current block computes (a ring of PD + 1 register blocks, the loop
+//     unrolled so that every index is static), and the current zk rows
+//     stay there for the update: no load waits on the chain;
 //   * c and m of the whole trajectory are staged in shared memory once;
-//   * L, the threads NT and the features a thread FPT are compile-time, one
-//     instance per width band (with_instance below; kernels/ttt_scan.py
-//     BANDS mirrors the table): the widest L in {1, 2, 4, 8} whose
-//     registers fit, smaller where zq is not zk (twice the rows and dots);
-//     a band of one warp needs no barrier at all;
+//   * NT, FPT, L and PD are compile-time, one instance per width band
+//     (with_instance below; kernels/ttt_scan.py BANDS mirrors the table);
 //   * s_t is written for every t, masked steps included (a_t = 0); W_f and
 //     b_f once at the end.  A short last block reads nothing past T.
 // eta is read from device memory (a learnable eta is a tensor): no host
 // read.  w0 and b0 take a row stride, 0 for the shared meta-learned init.
+// Tried and measured (PERF.md, PR 22): a cp.async ring in shared memory
+// instead of the register blocks was slower (each row read back from
+// shared memory on the chain), and a fast exponential and reciprocal in the
+// scalar steps bought nothing.
 
 #include <cuda_runtime.h>
 
@@ -49,12 +55,7 @@ namespace {
 
 constexpr int kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
+// the scalar steps' sigmoid, on the chain of every L-block
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
@@ -92,7 +93,50 @@ __device__ __forceinline__ void load_rows(float (&k)[L][FPT],
   }
 }
 
-template <int NT, int FPT, int L, bool SAME, int MINB>
+// Sums v[0..V) over the warp's lanes and writes the warp's totals to
+// rw[x NW + warp].  K butterfly levels first (each lane trades half of its
+// values with its partner, so every later level folds half as many),
+// then plain xor folds of the V >> K values left; the lanes whose low
+// 5 - K bits are 0 then hold distinct quarters (halves) of the totals.
+template <int V, int NW>
+__device__ __forceinline__ void warp_sums_to(float (&v)[V], float* rw,
+                                             int warp, int lane) {
+  constexpr int K = V % 4 == 0 ? 2 : (V % 2 == 0 ? 1 : 0);
+  constexpr int N = V >> K;
+  if constexpr (K >= 1) {
+    const bool hi = lane & 16;
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i) {
+      const float send = hi ? v[i] : v[i + V / 2];
+      const float keep = hi ? v[i + V / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+    }
+  }
+  if constexpr (K >= 2) {
+    const bool hi = lane & 8;
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) {
+      const float send = hi ? v[i] : v[i + V / 4];
+      const float keep = hi ? v[i + V / 4] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+    }
+  }
+#pragma unroll
+  for (int o = 16 >> K; o > 0; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+  }
+  if ((lane & ((32 >> K) - 1)) == 0) {
+    const int base = (lane >> (5 - K)) * N;
+#pragma unroll
+    for (int i = 0; i < N; ++i) rw[(base + i) * NW + warp] = v[i];
+  }
+}
+
+// PD: L-blocks of rows in flight ahead of the one computing (registers
+// hold PD + 1 blocks).  MINB: blocks an SM must hold (register budget).
+template <int NT, int FPT, int L, bool SAME, int MINB, int PD>
 __global__ void __launch_bounds__(NT, MINB)
 ttt_scan_kernel(const float* __restrict__ zq, const float* __restrict__ zk,
                 const float* __restrict__ c, const float* __restrict__ m,
@@ -104,10 +148,12 @@ ttt_scan_kernel(const float* __restrict__ zq, const float* __restrict__ zk,
   constexpr int V = D::V, Q = D::Q;
   constexpr int NW = NT / 32;
   constexpr int LQ = SAME ? 1 : L;  // zq rows held (none used when SAME)
+  static_assert(PD == 1 || PD == 2, "prefetch depth 1 or 2");
   extern __shared__ __align__(16) float sm[];
-  float* c_s = sm;                      // (T,) labels
-  float* m_s = sm + T;                  // (T,) mask
-  float* red = sm + ((2 * T + 3) & ~3);  // [2][V][NW] warp sums
+  float* c_s = sm;                       // (T,) labels
+  float* m_s = sm + T;                   // (T,) mask
+  float* rw = sm + ((2 * T + 3) & ~3);   // [V][NW] warp sums
+  float* tot = rw + V * NW;              // [V] block sums
 
   const int i = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -116,8 +162,11 @@ ttt_scan_kernel(const float* __restrict__ zq, const float* __restrict__ zk,
   const float* zk_i = zk + row * f;
   const float eta = *eta_p;
 
-  float nk[L][FPT], nq[LQ][FPT];
-  load_rows<NT, FPT, L, LQ, SAME>(nk, nq, zk_i, zq_i, 0, T, f, tid);
+  float ka[L][FPT], qa[LQ][FPT], kb[L][FPT], qb[LQ][FPT];
+  float kc[PD == 2 ? L : 1][FPT], qc[PD == 2 ? LQ : 1][FPT];
+  load_rows<NT, FPT, L, LQ, SAME>(ka, qa, zk_i, zq_i, 0, T, f, tid);
+  if constexpr (PD == 2)
+    load_rows<NT, FPT, L, LQ, SAME>(kb, qb, zk_i, zq_i, L, T, f, tid);
   for (int t = tid; t < T; t += NT) {
     c_s[t] = c[row + t];
     m_s[t] = m[row + t];
@@ -132,20 +181,12 @@ ttt_scan_kernel(const float* __restrict__ zq, const float* __restrict__ zk,
   float b = b0[static_cast<size_t>(i) * b0_stride];
   __syncthreads();  // c_s, m_s
 
-  for (int t0 = 0, blk = 0; t0 < T; t0 += L, ++blk) {
-    float k[L][FPT], q[LQ][FPT];
-#pragma unroll
-    for (int a = 0; a < L; ++a) {
-#pragma unroll
-      for (int p = 0; p < FPT; ++p) {
-        k[a][p] = nk[a][p];
-        if constexpr (!SAME) q[a][p] = nq[a][p];
-      }
-    }
-    // the next L steps' rows, in flight while these compute
-    if (t0 + L < T)
-      load_rows<NT, FPT, L, LQ, SAME>(nk, nq, zk_i, zq_i, t0 + L, T, f, tid);
-
+  // one L-block from rows k (q); the rows PD blocks ahead go into kn (qn)
+  auto block = [&](float (&k)[L][FPT], float (&q)[LQ][FPT],
+                   float (&kn)[L][FPT], float (&qn)[LQ][FPT], int t0) {
+    if (t0 + PD * L < T)
+      load_rows<NT, FPT, L, LQ, SAME>(kn, qn, zk_i, zq_i, t0 + PD * L, T, f,
+                                      tid);
     float v[V];
 #pragma unroll
     for (int x = 0; x < V; ++x) v[x] = 0.f;
@@ -157,7 +198,8 @@ ttt_scan_kernel(const float* __restrict__ zq, const float* __restrict__ zk,
         v[a] = fmaf(k[a][p], wp, v[a]);
 #pragma unroll
         for (int bb = 0; bb < a; ++bb)
-          v[L + D::pair(a, bb)] = fmaf(k[a][p], k[bb][p], v[L + D::pair(a, bb)]);
+          v[L + D::pair(a, bb)] =
+              fmaf(k[a][p], k[bb][p], v[L + D::pair(a, bb)]);
         if constexpr (!SAME) {
           v[Q + a] = fmaf(q[a][p], wp, v[Q + a]);
 #pragma unroll
@@ -167,35 +209,30 @@ ttt_scan_kernel(const float* __restrict__ zq, const float* __restrict__ zk,
         }
       }
     }
+    if constexpr (NW == 1) {
+      // level by level, so that each level's V shuffles are independent
 #pragma unroll
-    for (int x = 0; x < V; ++x) v[x] = warp_sum(v[x]);
-    if constexpr (NW > 1) {
-      // the L steps' one barrier; red is double-buffered, so a warp that
-      // runs ahead writes the other half while the last one is still read
-      float* rb = red + (blk & 1) * V * NW;
+      for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
-      for (int x = 0; x < V; ++x)
-        if (lane == (x & 31)) rb[x * NW + warp] = v[x];
+        for (int x = 0; x < V; ++x)
+          v[x] += __shfl_xor_sync(0xffffffffu, v[x], o);
+      }
+    } else {
+      // the block reduction of the L steps: warp sums, a barrier, the V
+      // block sums (a thread each), a barrier, every thread reads them.
+      // The second barrier keeps the first one's readers ahead of the next
+      // block's writers, so one buffer of each serves every block.
+      warp_sums_to<V, NW>(v, rw, warp, lane);
+      __syncthreads();
+      for (int x = tid; x < V; x += NT) {
+        float s = 0.f;
+#pragma unroll
+        for (int w2 = 0; w2 < NW; ++w2) s += rw[x * NW + w2];
+        tot[x] = s;
+      }
       __syncthreads();
 #pragma unroll
-      for (int x = 0; x < V; ++x) {
-        float s = 0.f;
-        if constexpr (NW % 4 == 0) {
-          const float4* r4 = reinterpret_cast<const float4*>(rb + x * NW);
-#pragma unroll
-          for (int w4 = 0; w4 < NW / 4; ++w4) {
-            const float4 y = r4[w4];
-            s += y.x;
-            s += y.y;
-            s += y.z;
-            s += y.w;
-          }
-        } else {
-#pragma unroll
-          for (int w2 = 0; w2 < NW; ++w2) s += rb[x * NW + w2];
-        }
-        v[x] = s;
-      }
+      for (int x = 0; x < V; ++x) v[x] = tot[x];
     }
 
     // the L scalar steps, the same in every thread
@@ -229,6 +266,24 @@ ttt_scan_kernel(const float* __restrict__ zq, const float* __restrict__ zk,
       for (int a = 0; a < L; ++a) wp = fmaf(-coef[a], k[a][p], wp);
       W[p] = wp;
     }
+  };
+
+  // the ring of PD + 1 register blocks, unrolled so that every index is
+  // static
+  for (int t0 = 0; t0 < T;) {
+    if constexpr (PD == 1) {
+      block(ka, qa, kb, qb, t0);
+      if ((t0 += L) >= T) break;
+      block(kb, qb, ka, qa, t0);
+      t0 += L;
+    } else {
+      block(ka, qa, kc, qc, t0);
+      if ((t0 += L) >= T) break;
+      block(kb, qb, ka, qa, t0);
+      if ((t0 += L) >= T) break;
+      block(kc, qc, kb, qb, t0);
+      t0 += L;
+    }
   }
 
   float* wf_i = w_f + static_cast<size_t>(i) * f;
@@ -247,19 +302,20 @@ struct Args {
   cudaStream_t stream;
 };
 
+// c and m, then the warp sums and the block sums
 template <int L, bool SAME, int NW>
 size_t smem_bytes(int T) {
-  return (((2 * T + 3) & ~3) + (NW > 1 ? 2 * Dots<L, SAME>::V * NW : 0)) *
-         sizeof(float);
+  constexpr int V = Dots<L, SAME>::V;
+  return (((2 * T + 3) & ~3) + (NW > 1 ? V * NW + V : 0)) * sizeof(float);
 }
 
 struct Launch {
   const Args& g;
-  template <int NT, int FPT, int L, bool SAME, int MINB>
+  template <int NT, int FPT, int L, bool SAME, int MINB, int PD>
   int run() const {
     const size_t smem = smem_bytes<L, SAME, NT / 32>(g.T);
     if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-    auto kern = ttt_scan_kernel<NT, FPT, L, SAME, MINB>;
+    auto kern = ttt_scan_kernel<NT, FPT, L, SAME, MINB, PD>;
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -274,14 +330,15 @@ struct Launch {
 };
 
 // out: L, threads, features a thread, registers a thread, static shared
-// bytes, local (spill) bytes a thread, shared bytes of the warp sums
+// bytes, local (spill) bytes a thread, dynamic shared bytes but c and m
+// (the warp and block sums), L-blocks of rows in flight
 struct Config {
   int* out;
-  template <int NT, int FPT, int L, bool SAME, int MINB>
+  template <int NT, int FPT, int L, bool SAME, int MINB, int PD>
   int run() const {
     cudaFuncAttributes a;
-    const cudaError_t e =
-        cudaFuncGetAttributes(&a, ttt_scan_kernel<NT, FPT, L, SAME, MINB>);
+    const cudaError_t e = cudaFuncGetAttributes(
+        &a, ttt_scan_kernel<NT, FPT, L, SAME, MINB, PD>);
     if (e != cudaSuccess) return static_cast<int>(e);
     out[0] = L;
     out[1] = NT;
@@ -290,26 +347,31 @@ struct Config {
     out[4] = static_cast<int>(a.sharedSizeBytes);
     out[5] = static_cast<int>(a.localSizeBytes);
     out[6] = static_cast<int>(smem_bytes<L, SAME, NT / 32>(0));
+    out[7] = PD;
     return 0;
   }
 };
 
 // The instances, by width band (widest f, threads, features a thread, L
-// when zq is zk, L otherwise, blocks an SM must hold); kernels/ttt_scan.py
-// BANDS is this table.  The served width (960, N 170 > 132 SMs) keeps two
-// blocks an SM, so every trajectory's block is resident at once.
+// when zq is zk, L otherwise, blocks an SM must hold, L-blocks in flight);
+// kernels/ttt_scan.py BANDS is this table.  L is the widest in {1, 2, 4,
+// 8} whose rows in flight and sums fit the band's register budget: two
+// blocks an SM at the served width (960, N 170 > 132 SMs, so every
+// trajectory's block is resident at once), 64 registers a thread at 1024
+// threads.  The narrow band runs four warps of one feature a thread with
+// two L-blocks in flight: its chain, not its bytes, sets its time.
 template <class Visit>
 int with_instance(int f, bool same, const Visit& vis) {
-#define TTT_BAND(F, NT, FPT, LS, LD, MINB)                            \
+#define TTT_BAND(F, NT, FPT, LS, LD, MINB, PD)                        \
   if (f <= F)                                                         \
-    return same ? vis.template run<NT, FPT, LS, true, MINB>()         \
-                : vis.template run<NT, FPT, LD, false, MINB>();
-  TTT_BAND(128, 32, 4, 4, 4, 1)
-  TTT_BAND(1024, 256, 4, 8, 4, 2)
-  TTT_BAND(2048, 512, 4, 4, 2, 1)
-  TTT_BAND(4096, 512, 8, 2, 1, 1)
-  TTT_BAND(5120, 512, 10, 2, 1, 1)
-  TTT_BAND(7168, 1024, 7, 2, 1, 1)
+    return same ? vis.template run<NT, FPT, LS, true, MINB, PD>()     \
+                : vis.template run<NT, FPT, LD, false, MINB, PD>();
+  TTT_BAND(128, 128, 1, 8, 8, 1, 2)
+  TTT_BAND(1024, 256, 4, 8, 4, 2, 1)
+  TTT_BAND(2048, 512, 4, 4, 2, 1, 1)
+  TTT_BAND(4096, 512, 8, 2, 1, 1, 1)
+  TTT_BAND(5120, 512, 10, 2, 1, 1, 1)
+  TTT_BAND(7168, 1024, 7, 2, 1, 1, 1)
 #undef TTT_BAND
   return cudaErrorInvalidValue;
 }

@@ -39,7 +39,7 @@ MAX_T = 16384
 # csrc/ttt_scan.cu's instances by width band: (widest f, threads, features
 # a thread, L where zq is zk, L where it is not); L steps share one block
 # reduction
-BANDS = ((128, 32, 4, 4, 4), (1024, 256, 4, 8, 4), (2048, 512, 4, 4, 2),
+BANDS = ((128, 128, 1, 8, 8), (1024, 256, 4, 8, 4), (2048, 512, 4, 4, 2),
          (4096, 512, 8, 2, 1), (5120, 512, 10, 2, 1), (7168, 1024, 7, 2, 1))
 
 Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -110,14 +110,15 @@ def ttt_probe_lookahead_plain(zq, zk, c, m, w0, b0, eta, L: int) -> Out:
 
 def kernel_config(f: int, same: bool) -> dict:
     """The instance width f takes on the card, from the library itself: L,
-    threads, features a thread, registers, static and warp-sum shared
-    bytes, spill bytes."""
+    threads, features a thread, registers, static shared bytes, spill
+    bytes, dynamic shared bytes besides c and m (the warp and block sums),
+    L-blocks of rows in flight."""
     import ctypes
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 8)()
     _build.check(_build.library().ttt_scan_config(f, int(same), out),
                  "ttt_scan_config")
     keys = ("L", "threads", "features_per_thread", "registers",
-            "static_smem", "local_bytes", "red_smem")
+            "static_smem", "local_bytes", "sums_smem", "blocks_in_flight")
     return dict(zip(keys, out))
 
 
