@@ -1063,7 +1063,7 @@ def k5_cases(torch, test):
                                 torch.tensor(0.01, device=DEV)), shared)
 
 
-def k5_instances(torch, K5):
+def k5_instances(K5):
     """The instance each width of phase k5 takes, as the library reports
     it (L, threads, features a thread, registers, shared memory, spills),
     beside the L the CPU mirror of the table gives."""
@@ -1156,7 +1156,7 @@ def phase_k5(torch, timer, test):
                   r["f"] == D_PHI)
     res = dict(phase="k5", cases=len(rows), max_abs_err=worst, tol=K5_TOL,
                max_mirror_err=worst_mirror,
-               instances=k5_instances(torch, K5),
+               instances=k5_instances(K5),
                served=served, timed=[r for r in rows if "ms" in r],
                per_case=[(r["f"], r["N"], r["T"], r["c"], r["w0"], r["L"],
                           max(r["max_abs_err"].values()), r["mirror_err"])
@@ -2831,19 +2831,16 @@ def k8_bytes_ops(B, T, H, d, rkv_bytes=4):
     return moved, 7 * B * T * H * d * d
 
 
-def k8_schedule(torch, K8, B, T, H, rkv_dtype):
+def k8_schedule(K8, B, T, H, rkv_dtype):
     """The launch's column split and staged chunk, and the instance's
     registers and shared memory as the library reports them."""
-    import ctypes
     n_col, chunk = K8.col_split(B, H), K8.chunk_steps(T)
     row = dict(n_col=n_col, chunk=chunk)
     if DEV == "cuda":
-        from repro_torch.kernels import _build
-        out = (ctypes.c_int * 4)()
-        _build.check(_build.library().wkv_scan_config(
-            K8.INPUT_DTYPES[rkv_dtype], n_col, chunk, out), "wkv_scan_config")
-        row.update(registers=out[0], local_bytes=out[2],
-                   smem_bytes=out[3] if T > chunk else out[3] // 2)
+        cfg = K8.kernel_config(rkv_dtype, n_col, chunk)
+        row.update(registers=cfg["registers"], local_bytes=cfg["local_bytes"],
+                   smem_bytes=cfg["ring_bytes"] if T > chunk
+                   else cfg["ring_bytes"] // 2)
     return row
 
 
@@ -2928,7 +2925,7 @@ def phase_k8(torch, timer):
             errs[f"{decay}, s0 {'zero' if s0_zero else 'random'}"] = rel
             worst_abs = max(worst_abs, abs_err)
         row = dict(B=B, T=T, H=H, d=d, rkv=str(dtype).split(".")[-1],
-                   **k8_schedule(torch, K8, B, T, H, dtype), rel_err=errs,
+                   **k8_schedule(K8, B, T, H, dtype), rel_err=errs,
                    tol=K8_RTOL)
         if max(errs.values()) > K8_RTOL:
             raise AssertionError(f"K8 ({B}, {T}) {row['rkv']} off its plain "

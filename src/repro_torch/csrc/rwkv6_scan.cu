@@ -24,10 +24,10 @@
 //     columns, so a (1, T) prompt runs 128 blocks, not 32 (the state
 //     update is elementwise and the columns are independent; n_col from
 //     kernels/rwkv6_scan.py col_split, 1 where B H already fills the card);
-//   * thread (g, j) holds rows g R .. g R + R - 1 of column j in registers
-//     (threads_for below; R = 16 / n_col at 256 threads) and updates them
-//     in the plain version's order: kv = k_i v_j, acc += r_i (u_i kv + S),
-//     S = w_i S + kv;
+//   * 256 threads; thread (g, j) holds rows g R .. g R + R - 1 of column j
+//     in registers (R = 16 / n_col) and updates them in the plain
+//     version's order: kv = k_i v_j, acc += r_i (u_i kv + S), S = w_i S +
+//     kv;
 //   * inputs are staged C steps at a time (r, k, w whole, v the block's
 //     columns) through cp.async into a double-buffered ring: chunk c + 1 is
 //     in flight while chunk c computes; the steps of a chunk are unrolled
@@ -53,11 +53,9 @@ namespace {
 constexpr int kD = 64;          // the head dim instantiated
 constexpr int kMaxSmem = 227 * 1024;
 
-// threads a block at each column split; a thread holds R = kD NC / NT
-// rows of one of the block's NC = kD / n_col columns
-__host__ __device__ constexpr int threads_for(int n_col) {
-  return n_col > 0 ? 256 : 0;
-}
+// threads a block; a thread holds R = kD NC / kThreads rows of one of the
+// block's NC = kD / n_col columns
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -132,11 +130,10 @@ __device__ __forceinline__ void load_rows(const uint16_t* p, float (&o)[R]) {
 template <int NCOL, typename In>
 struct Stage {
   static constexpr int NC = kD / NCOL;
-  static constexpr int NT = threads_for(NCOL);
   __host__ __device__ static size_t bytes(int C) {
     return static_cast<size_t>(C) *
            (2 * kD * sizeof(In) + kD * sizeof(float) + NC * sizeof(In) +
-            NT * sizeof(float));
+            kThreads * sizeof(float));
   }
   In* r;
   In* k;
@@ -153,14 +150,13 @@ struct Stage {
 };
 
 template <int NCOL, typename In>
-__global__ void __launch_bounds__(threads_for(NCOL))
+__global__ void __launch_bounds__(kThreads)
 wkv_scan_kernel(const In* __restrict__ r, const In* __restrict__ k,
                 const In* __restrict__ v, const float* __restrict__ w,
                 const float* __restrict__ u, const float* s0,
                 float* __restrict__ out, float* s_out, int T, int H, int C) {
-  constexpr int NT = threads_for(NCOL);
   constexpr int NC = kD / NCOL;        // value columns of this block
-  constexpr int NG = NT / NC;          // row groups
+  constexpr int NG = kThreads / NC;    // row groups
   constexpr int R = kD / NG;           // rows a thread holds
   constexpr int EV = 16 / sizeof(In);  // elements of r, k, v per 16 bytes
   constexpr int PR = kD / EV;          // 16-byte pieces of an r or k step
@@ -185,18 +181,18 @@ wkv_scan_kernel(const In* __restrict__ r, const In* __restrict__ k,
     Stage<NCOL, In> st(smem + s * stage_bytes, C);
     const int steps = min(C, T - c * C);
     const size_t at = head + static_cast<size_t>(c) * C * step_stride;
-    for (int p = tid; p < steps * PR; p += NT) {
+    for (int p = tid; p < steps * PR; p += kThreads) {
       const int tl = p / PR, e = (p % PR) * EV;
       const size_t src = at + static_cast<size_t>(tl) * step_stride + e;
       cp_async16(st.r + tl * kD + e, r + src);
       cp_async16(st.k + tl * kD + e, k + src);
     }
-    for (int p = tid; p < steps * PW; p += NT) {
+    for (int p = tid; p < steps * PW; p += kThreads) {
       const int tl = p / PW, e = (p % PW) * 4;
       cp_async16(st.w + tl * kD + e,
                  w + at + static_cast<size_t>(tl) * step_stride + e);
     }
-    for (int p = tid; p < steps * PV; p += NT) {
+    for (int p = tid; p < steps * PV; p += kThreads) {
       const int tl = p / PV, e = (p % PV) * EV;
       cp_async16(st.v + tl * NC + e,
                  v + at + static_cast<size_t>(tl) * step_stride + col0 + e);
@@ -209,9 +205,9 @@ wkv_scan_kernel(const In* __restrict__ r, const In* __restrict__ k,
     Stage<NCOL, In> st(smem + s * stage_bytes, C);
     const int t0 = c * C;
     const int steps = min(C, T - t0);
-    for (int e = tid; e < steps * NC; e += NT) {
+    for (int e = tid; e < steps * NC; e += kThreads) {
       const int tl = e / NC, j = e % NC;
-      const float* p = st.part + tl * NT + j;
+      const float* p = st.part + tl * kThreads + j;
       float acc = p[0];
 #pragma unroll
       for (int gg = 1; gg < NG; ++gg) acc += p[gg * NC];
@@ -257,7 +253,7 @@ wkv_scan_kernel(const In* __restrict__ r, const In* __restrict__ k,
         acc += rr[i] * (uu[i] * kv + S[i]);
         S[i] = ww[i] * S[i] + kv;
       }
-      st.part[tl * NT + tid] = acc;
+      st.part[tl * kThreads + tid] = acc;
     }
   }
   if (n_chunks > 0) {
@@ -283,7 +279,7 @@ int launch(const void* r, const void* k, const void* v, const void* w,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kern<<<dim3(B * H, NCOL), threads_for(NCOL), smem, stream>>>(
+  kern<<<dim3(B * H, NCOL), kThreads, smem, stream>>>(
       static_cast<const In*>(r), static_cast<const In*>(k),
       static_cast<const In*>(v), static_cast<const float*>(w),
       static_cast<const float*>(u), static_cast<const float*>(s0),

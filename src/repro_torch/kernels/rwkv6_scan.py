@@ -23,6 +23,7 @@ device.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -108,6 +109,16 @@ def wkv_scan_blocked_plain(r, k, v, w, u, s0, *, n_col: int, chunk: int
             out[:, t0:t0 + steps, :, cols] = acc.permute(1, 0, 2, 3)
         state[..., cols] = S
     return out, state
+
+
+def kernel_config(rkv_dtype, n_col: int, chunk: int) -> dict:
+    """The instance a launch takes on the card, from the library itself:
+    registers, spill bytes, and the dynamic shared bytes of its ring of
+    ``chunk``-step stages (two; one when T fits one chunk)."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().wkv_scan_config(
+        INPUT_DTYPES[rkv_dtype], n_col, chunk, out), "wkv_scan_config")
+    return dict(registers=out[0], local_bytes=out[2], ring_bytes=out[3])
 
 
 def _check(r, k, v, w, u, s0, state_out) -> None:

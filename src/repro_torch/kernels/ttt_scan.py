@@ -22,6 +22,7 @@ device (differentiate ``core.ttt``'s autograd loop instead).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -113,7 +114,6 @@ def kernel_config(f: int, same: bool) -> dict:
     threads, features a thread, registers, static shared bytes, spill
     bytes, dynamic shared bytes besides c and m (the warp and block sums),
     L-blocks of rows in flight."""
-    import ctypes
     out = (ctypes.c_int * 8)()
     _build.check(_build.library().ttt_scan_config(f, int(same), out),
                  "ttt_scan_config")

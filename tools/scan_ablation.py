@@ -22,7 +22,8 @@ a, twice) with ``chip_smoke.Timer``:
 * ``noload``:  K5 without the loads of the rows ahead (stale rows: the
   time of everything but the loads);
 * ``w32``:     K5's narrow band (f <= 128) on one warp of four features a
-  thread at L 4, as first built.
+  thread at L 4, as first built;
+* ``pd1``:     that band with one L-block of rows in flight instead of two.
 
 ``nochain`` and ``noload`` compute wrong values; their errors are printed
 and not held to K5_TOL.
@@ -46,8 +47,8 @@ sys.path.insert(0, ROOT)
 K8_SRC, K5_SRC = "rwkv6_scan.cu", "ttt_scan.cu"
 VARIANTS = {
     "tree": [],
-    "nt512": [(K8_SRC, "return n_col > 0 ? 256 : 0;",
-               "return n_col > 0 ? 512 : 0;")],
+    "nt512": [(K8_SRC, "constexpr int kThreads = 256;",
+               "constexpr int kThreads = 512;")],
     "u4": [(K8_SRC, "constexpr int kUnroll = R >= 16 ? 2 : 8;",
             "constexpr int kUnroll = R >= 16 ? 1 : 4;")],
     "fast": [(K5_SRC, "return 1.0f / (1.0f + expf(-x));",
@@ -58,6 +59,8 @@ VARIANTS = {
                 "    if (false)\n      load_rows")],
     "w32": [(K5_SRC, "TTT_BAND(128, 128, 1, 8, 8, 1, 2)",
              "TTT_BAND(128, 32, 4, 4, 4, 1, 2)")],
+    "pd1": [(K5_SRC, "TTT_BAND(128, 128, 1, 8, 8, 1, 2)",
+             "TTT_BAND(128, 128, 1, 8, 8, 1, 1)")],
 }
 # the K8 cases (B, T, r/k/v dtype) and the K5 widths timed
 K8_TIMED = ((4, 1, "f32"), (1, 16, "f32"), (24, 16, "f32"), (1, 512, "f32"),
