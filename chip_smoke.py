@@ -40,14 +40,14 @@ non-zero:
                of 4 tokens)
 6. k5       -- the offline TTT scan against its plain version and against
                its own L-step form (``ttt_probe_lookahead_plain`` at the
-               kernel's L for the width): f 128, 960 and 5120, N 1 and
-               170, T 1, 37 and 120, c = 0 and c = labels, a
-               per-trajectory and a shared init (72 cases on the synthetic
-               corpus's step embeddings and masks); timed at N 170, T 120
-               for each f, with the L-step form's error at L 1, 2, 4 and
-               8; each width's instance (L, threads, registers, shared
-               memory); a width above 7168 and a tensor that requires grad
-               refused
+               kernel's L for the width): f 128, 960, 5120 and 2048 (the
+               RWKV fleet's no-QK view), N 1 and 170, T 1, 37 and 120,
+               c = 0 and c = labels, a per-trajectory and a shared init
+               (96 cases on the synthetic corpus's step embeddings and
+               masks); timed at N 170, T 120 for each f, with the L-step
+               form's error at L 1, 2, 4 and 8; every instance of the
+               kernel (L, threads, registers, shared memory); a width
+               above 7168 and a tensor that requires grad refused
 7. k6       -- dense flash decode against its plain version, partials and
                normalised output: B 1, 4, 24; S 16, 112, 113, 4096; bf16
                and f32 caches; full, ragged, window-band and empty rows;
@@ -346,8 +346,7 @@ def phase_k1(torch, timer):
         chains[B] = dict(max_abs_err=err, lambda_margin=margin,
                          stopped_at=stops)
     timed = k1_timed(torch, timer, K1, gen, 4, f, win, eta, burn_in)
-    # the RWKV fleet's probe width: d_phi = rwkv6-1.6b's d_model 2048
-    f_rwkv = 2048
+    f_rwkv = RWKV_PROBE_F
     err_r, margin_r, stops_r = k1_chain(torch, K1, gen, 4, f_rwkv, win,
                                         steps, eta, lam, burn_in)
     rwkv = dict(f=f_rwkv, B=4, max_abs_err=err_r, lambda_margin=margin_r,
@@ -1002,6 +1001,8 @@ def phase_k4(torch, timer):
 
 # the offline split of benchmarks/common.py at smollm-360m's width
 N_TRAIN, N_CAL, N_TEST, D_PHI = 500, 170, 170, 960
+# the RWKV fleet's probe width: rwkv6-1.6b's d_model
+RWKV_PROBE_F = 2048
 K5_TOL = 1e-5
 
 
@@ -1022,11 +1023,14 @@ def k5_bytes_ops(zq, zk, c, m, w0, b0, eta, outs):
 def k5_cases(torch, test):
     """Phase k5's inputs on the card: f 128 (a QK view, d_h 128), D_PHI
     960 (the served no-QK view: the corpus's step embeddings as both zq and
-    zk) and
-    5120 (N(0, 1) features at qwen1.5-32b's width); N 1 and 170; T 1, 37
-    and 120; masks from the corpus's ragged lengths; c = 0 (deployed) or c
-    = the supervised labels (the "true" inner-label mode); W0 per
-    trajectory (``ttt_probe_batched``) or shared (``ttt_probe_scan``)."""
+    zk), 5120 (N(0, 1) features at qwen1.5-32b's width) and 2048 (the
+    no-QK view at rwkv6-1.6b's d_model, as serve-rwkv fits its probe: the
+    embeddings projected to 2048, one tensor as zq and zk); N 1 and 170; T
+    1, 37 and 120; masks from the corpus's ragged lengths; c = 0 (deployed)
+    or c = the supervised labels (the "true" inner-label mode); W0 per
+    trajectory (``ttt_probe_batched``) or shared (``ttt_probe_scan``).
+    The four widths run four of the kernel's instances, those of every
+    width a phase of this script fits at."""
     from repro_torch.core.labels import supervised_labels
     gen = torch.Generator().manual_seed(SEED + 5)
     phis = torch.as_tensor(test.phis).to(DEV)
@@ -1035,11 +1039,16 @@ def k5_cases(torch, test):
                              ).float().to(DEV)
     theta_qk = [(torch.randn(D_PHI, 128, generator=gen) / D_PHI ** 0.5)
                 .to(DEV) for _ in range(2)]
+    # its own generator, so that the other widths' draws stay as they were
+    theta_up = (torch.randn(D_PHI, RWKV_PROBE_F, generator=torch.Generator(
+        ).manual_seed(SEED + 52)) / RWKV_PROBE_F ** 0.5).to(DEV)
+    z_up = phis @ theta_up
     feats = {128: (phis @ theta_qk[0], phis @ theta_qk[1]),
              D_PHI: (phis, phis),
              5120: tuple(torch.randn(len(test), phis.shape[1], 5120,
                                      generator=gen).to(DEV)
-                         for _ in range(2))}
+                         for _ in range(2)),
+             RWKV_PROBE_F: (z_up, z_up)}
     for f, (zq_all, zk_all) in feats.items():
         w0 = (torch.randn(f, generator=gen) / f ** 0.5).to(DEV)
         w0_rows = w0 + 0.1 * (torch.randn(len(test), f, generator=gen)
@@ -1064,19 +1073,18 @@ def k5_cases(torch, test):
 
 
 def k5_instances(K5):
-    """The instance each width of phase k5 takes, as the library reports
-    it (L, threads, features a thread, registers, shared memory, spills),
-    beside the L the CPU mirror of the table gives."""
+    """Every instance of the kernel (each band of ``BANDS`` in both views):
+    its figures, and on the card the library's registers, shared bytes and
+    spill bytes (the query fails for an instance the library does not
+    build)."""
     out = []
-    for f, same in ((128, False), (D_PHI, True), (5120, False)):
-        row = dict(f=f, same=same, L_table=K5.lookahead_steps(f, same))
-        if DEV == "cuda":
-            row.update(K5.kernel_config(f, same))
-            if row["L"] != row["L_table"]:
-                raise AssertionError(f"K5 at f {f}: the library's L "
-                                     f"{row['L']}, kernels/ttt_scan.py's "
-                                     f"{row['L_table']}")
-        out.append(row)
+    for band in K5.BANDS:
+        for same in (True, False):
+            row = dict(f_max=band.f_max, same=same,
+                       L=K5.lookahead_steps(band.f_max, same))
+            if DEV == "cuda":
+                row.update(K5.kernel_config(band.f_max, same))
+            out.append(row)
     return out
 
 

@@ -29,31 +29,32 @@
 //     butterfly exchanges (warp_sums_to), one barrier, a thread per sum
 //     adds the warps', a second barrier; every thread then runs the L
 //     scalar steps in the same order on the same sums, and applies
-//     W -= sum_a a_a zk_{t0+a} once.  Two barriers per L steps, none in a
-//     block of one warp;
+//     W -= sum_a a_a zk_{t0+a} once.  Two barriers per L steps;
 //   * thread j owns the features j, j + NT, ..., j + (FPT-1) NT: W lives in
 //     its registers, and it reads zq and zk there (coalesced);
 //   * the rows of the next PD L-blocks are loaded into registers while the
 //     current block computes (a ring of PD + 1 register blocks, the loop
 //     unrolled so that every index is static), and the current zk rows
 //     stay there for the update: no load waits on the chain;
-//   * c and m of the whole trajectory are staged in shared memory once;
-//   * NT, FPT, L and PD are compile-time, one instance per width band
-//     (with_instance below; kernels/ttt_scan.py BANDS mirrors the table);
+//   * c and m travel with the rows: lane a of every warp loads step
+//     t0 + a's label and mask in the same ring, and the scalar steps take
+//     them by shuffle.  Nothing is sized by T, so T is unbounded;
+//   * NT, FPT, L and PD are compile-time.  kernels/ttt_scan.py BANDS
+//     decides which instance a width takes and passes its figures; the
+//     launcher only finds the instance of that list (with_instance);
 //   * s_t is written for every t, masked steps included (a_t = 0); W_f and
 //     b_f once at the end.  A short last block reads nothing past T.
 // eta is read from device memory (a learnable eta is a tensor): no host
 // read.  w0 and b0 take a row stride, 0 for the shared meta-learned init.
 // Tried and measured (PERF.md, PR 22): a cp.async ring in shared memory
 // instead of the register blocks was slower (each row read back from
-// shared memory on the chain), and a fast exponential and reciprocal in the
-// scalar steps bought nothing.
+// shared memory on the chain), a fast exponential and reciprocal in the
+// scalar steps bought nothing, and the narrow band on one warp (no
+// barrier) was slower than on four.
 
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kMaxSmem = 227 * 1024;
 
 // the scalar steps' sigmoid, on the chain of every L-block
 __device__ __forceinline__ float sigmoidf(float x) {
@@ -73,12 +74,19 @@ struct Dots {
   }
 };
 
-// the rows t0 .. t0 + L - 1 of this thread's features, zero past T and f
+// the rows t0 .. t0 + L - 1 of this thread's features, zero past T and f;
+// lane a < L also takes step t0 + a's label (cl) and mask (ml)
 template <int NT, int FPT, int L, int LQ, bool SAME>
 __device__ __forceinline__ void load_rows(float (&k)[L][FPT],
-                                          float (&q)[LQ][FPT],
-                                          const float* zk, const float* zq,
-                                          int t0, int T, int f, int tid) {
+                                          float (&q)[LQ][FPT], float& cl,
+                                          float& ml, const float* zk,
+                                          const float* zq, const float* c,
+                                          const float* m, int t0, int T,
+                                          int f, int tid) {
+  const int lane = tid & 31;
+  const bool step = lane < L && t0 + lane < T;
+  cl = step ? c[t0 + lane] : 0.f;
+  ml = step ? m[t0 + lane] : 0.f;
 #pragma unroll
   for (int a = 0; a < L; ++a) {
     const bool live = t0 + a < T;
@@ -149,28 +157,27 @@ ttt_scan_kernel(const float* __restrict__ zq, const float* __restrict__ zk,
   constexpr int NW = NT / 32;
   constexpr int LQ = SAME ? 1 : L;  // zq rows held (none used when SAME)
   static_assert(PD == 1 || PD == 2, "prefetch depth 1 or 2");
-  extern __shared__ __align__(16) float sm[];
-  float* c_s = sm;                       // (T,) labels
-  float* m_s = sm + T;                   // (T,) mask
-  float* rw = sm + ((2 * T + 3) & ~3);   // [V][NW] warp sums
-  float* tot = rw + V * NW;              // [V] block sums
+  static_assert(NT % 32 == 0 && NW > 1 && L <= 32, "warps, L a lane each");
+  __shared__ float rw[V * NW];  // [V][NW] warp sums
+  __shared__ float tot[V];      // [V] block sums
 
   const int i = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const size_t row = static_cast<size_t>(i) * T;
   const float* zq_i = zq + row * f;
   const float* zk_i = zk + row * f;
+  const float* c_i = c + row;
+  const float* m_i = m + row;
   const float eta = *eta_p;
 
   float ka[L][FPT], qa[LQ][FPT], kb[L][FPT], qb[LQ][FPT];
   float kc[PD == 2 ? L : 1][FPT], qc[PD == 2 ? LQ : 1][FPT];
-  load_rows<NT, FPT, L, LQ, SAME>(ka, qa, zk_i, zq_i, 0, T, f, tid);
+  float ca, ma, cb = 0.f, mb = 0.f, cc = 0.f, mc = 0.f;  // a lane a step
+  load_rows<NT, FPT, L, LQ, SAME>(ka, qa, ca, ma, zk_i, zq_i, c_i, m_i, 0,
+                                  T, f, tid);
   if constexpr (PD == 2)
-    load_rows<NT, FPT, L, LQ, SAME>(kb, qb, zk_i, zq_i, L, T, f, tid);
-  for (int t = tid; t < T; t += NT) {
-    c_s[t] = c[row + t];
-    m_s[t] = m[row + t];
-  }
+    load_rows<NT, FPT, L, LQ, SAME>(kb, qb, cb, mb, zk_i, zq_i, c_i, m_i, L,
+                                    T, f, tid);
   const float* w0_i = w0 + static_cast<size_t>(i) * w0_stride;
   float W[FPT];
 #pragma unroll
@@ -179,14 +186,15 @@ ttt_scan_kernel(const float* __restrict__ zq, const float* __restrict__ zk,
     W[p] = j < f ? w0_i[j] : 0.f;
   }
   float b = b0[static_cast<size_t>(i) * b0_stride];
-  __syncthreads();  // c_s, m_s
 
-  // one L-block from rows k (q); the rows PD blocks ahead go into kn (qn)
-  auto block = [&](float (&k)[L][FPT], float (&q)[LQ][FPT],
-                   float (&kn)[L][FPT], float (&qn)[LQ][FPT], int t0) {
+  // one L-block from rows k (q), labels cl and masks ml; the rows PD
+  // blocks ahead go into kn (qn), cn and mn
+  auto block = [&](float (&k)[L][FPT], float (&q)[LQ][FPT], float cl,
+                   float ml, float (&kn)[L][FPT], float (&qn)[LQ][FPT],
+                   float& cn, float& mn, int t0) {
     if (t0 + PD * L < T)
-      load_rows<NT, FPT, L, LQ, SAME>(kn, qn, zk_i, zq_i, t0 + PD * L, T, f,
-                                      tid);
+      load_rows<NT, FPT, L, LQ, SAME>(kn, qn, cn, mn, zk_i, zq_i, c_i, m_i,
+                                      t0 + PD * L, T, f, tid);
     float v[V];
 #pragma unroll
     for (int x = 0; x < V; ++x) v[x] = 0.f;
@@ -209,44 +217,36 @@ ttt_scan_kernel(const float* __restrict__ zq, const float* __restrict__ zk,
         }
       }
     }
-    if constexpr (NW == 1) {
-      // level by level, so that each level's V shuffles are independent
+    // the block reduction of the L steps: warp sums, a barrier, the V
+    // block sums (a thread each), a barrier, every thread reads them.  The
+    // second barrier keeps the first one's readers ahead of the next
+    // block's writers, so one buffer of each serves every block.
+    warp_sums_to<V, NW>(v, rw, warp, lane);
+    __syncthreads();
+    for (int x = tid; x < V; x += NT) {
+      float s = 0.f;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-        for (int x = 0; x < V; ++x)
-          v[x] += __shfl_xor_sync(0xffffffffu, v[x], o);
-      }
-    } else {
-      // the block reduction of the L steps: warp sums, a barrier, the V
-      // block sums (a thread each), a barrier, every thread reads them.
-      // The second barrier keeps the first one's readers ahead of the next
-      // block's writers, so one buffer of each serves every block.
-      warp_sums_to<V, NW>(v, rw, warp, lane);
-      __syncthreads();
-      for (int x = tid; x < V; x += NT) {
-        float s = 0.f;
-#pragma unroll
-        for (int w2 = 0; w2 < NW; ++w2) s += rw[x * NW + w2];
-        tot[x] = s;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int x = 0; x < V; ++x) v[x] = tot[x];
+      for (int w2 = 0; w2 < NW; ++w2) s += rw[x * NW + w2];
+      tot[x] = s;
     }
+    __syncthreads();
+#pragma unroll
+    for (int x = 0; x < V; ++x) v[x] = tot[x];
 
     // the L scalar steps, the same in every thread
     float coef[L];
 #pragma unroll
     for (int a = 0; a < L; ++a) {
       const int t = t0 + a;
+      const float c_t = __shfl_sync(0xffffffffu, cl, a);
+      const float m_t = __shfl_sync(0xffffffffu, ml, a);
       float ai = 0.f;
       if (t < T) {
         const float s_k = sigmoidf(v[a] + b);
         float s_q = s_k;
         if constexpr (!SAME) s_q = sigmoidf(v[Q + a] + b);
-        const float g = 2.0f * (s_k - c_s[t]) * s_k * (1.0f - s_k);
-        ai = (eta * m_s[t]) * g;
+        const float g = 2.0f * (s_k - c_t) * s_k * (1.0f - s_k);
+        ai = (eta * m_t) * g;
         b = b - ai;
         if (tid == 0) scores[row + t] = s_q;
       }
@@ -272,16 +272,16 @@ ttt_scan_kernel(const float* __restrict__ zq, const float* __restrict__ zk,
   // static
   for (int t0 = 0; t0 < T;) {
     if constexpr (PD == 1) {
-      block(ka, qa, kb, qb, t0);
+      block(ka, qa, ca, ma, kb, qb, cb, mb, t0);
       if ((t0 += L) >= T) break;
-      block(kb, qb, ka, qa, t0);
+      block(kb, qb, cb, mb, ka, qa, ca, ma, t0);
       t0 += L;
     } else {
-      block(ka, qa, kc, qc, t0);
+      block(ka, qa, ca, ma, kc, qc, cc, mc, t0);
       if ((t0 += L) >= T) break;
-      block(kb, qb, ka, qa, t0);
+      block(kb, qb, cb, mb, ka, qa, ca, ma, t0);
       if ((t0 += L) >= T) break;
-      block(kc, qc, kb, qb, t0);
+      block(kc, qc, cc, mc, kb, qb, cb, mb, t0);
       t0 += L;
     }
   }
@@ -302,36 +302,21 @@ struct Args {
   cudaStream_t stream;
 };
 
-// c and m, then the warp sums and the block sums
-template <int L, bool SAME, int NW>
-size_t smem_bytes(int T) {
-  constexpr int V = Dots<L, SAME>::V;
-  return (((2 * T + 3) & ~3) + (NW > 1 ? V * NW + V : 0)) * sizeof(float);
-}
-
 struct Launch {
   const Args& g;
   template <int NT, int FPT, int L, bool SAME, int MINB, int PD>
   int run() const {
-    const size_t smem = smem_bytes<L, SAME, NT / 32>(g.T);
-    if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-    auto kern = ttt_scan_kernel<NT, FPT, L, SAME, MINB, PD>;
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    kern<<<g.N, NT, smem, g.stream>>>(g.zq, g.zk, g.c, g.m, g.w0, g.b0,
-                                      g.eta, g.scores, g.w_f, g.b_f, g.T, g.f,
-                                      g.w0_stride, g.b0_stride);
+    if (g.f > NT * FPT || (SAME && g.zq != g.zk))
+      return cudaErrorInvalidValue;
+    ttt_scan_kernel<NT, FPT, L, SAME, MINB, PD><<<g.N, NT, 0, g.stream>>>(
+        g.zq, g.zk, g.c, g.m, g.w0, g.b0, g.eta, g.scores, g.w_f, g.b_f, g.T,
+        g.f, g.w0_stride, g.b0_stride);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-// out: L, threads, features a thread, registers a thread, static shared
-// bytes, local (spill) bytes a thread, dynamic shared bytes but c and m
-// (the warp and block sums), L-blocks of rows in flight
+// out: registers a thread, static shared bytes (the warp and block sums),
+// local (spill) bytes a thread
 struct Config {
   int* out;
   template <int NT, int FPT, int L, bool SAME, int MINB, int PD>
@@ -340,53 +325,56 @@ struct Config {
     const cudaError_t e = cudaFuncGetAttributes(
         &a, ttt_scan_kernel<NT, FPT, L, SAME, MINB, PD>);
     if (e != cudaSuccess) return static_cast<int>(e);
-    out[0] = L;
-    out[1] = NT;
-    out[2] = FPT;
-    out[3] = a.numRegs;
-    out[4] = static_cast<int>(a.sharedSizeBytes);
-    out[5] = static_cast<int>(a.localSizeBytes);
-    out[6] = static_cast<int>(smem_bytes<L, SAME, NT / 32>(0));
-    out[7] = PD;
+    out[0] = a.numRegs;
+    out[1] = static_cast<int>(a.sharedSizeBytes);
+    out[2] = static_cast<int>(a.localSizeBytes);
     return 0;
   }
 };
 
-// The instances, by width band (widest f, threads, features a thread, L
-// when zq is zk, L otherwise, blocks an SM must hold, L-blocks in flight);
-// kernels/ttt_scan.py BANDS is this table.  L is the widest in {1, 2, 4,
-// 8} whose rows in flight and sums fit the band's register budget: two
-// blocks an SM at the served width (960, N 170 > 132 SMs, so every
-// trajectory's block is resident at once), 64 registers a thread at 1024
-// threads.  The narrow band runs four warps of one feature a thread with
-// two L-blocks in flight: its chain, not its bytes, sets its time.
+// An instance's figures: threads, features a thread, L, zq is zk, blocks
+// an SM must hold, L-blocks of rows in flight.
+struct Figures {
+  int nt, fpt, l, same, minb, pd;
+};
+
+// The instances built, one for each view of each width band of
+// kernels/ttt_scan.py BANDS, which chooses among them (the CPU tests hold
+// this list to BANDS).  Figures that name none are refused.
 template <class Visit>
-int with_instance(int f, bool same, const Visit& vis) {
-#define TTT_BAND(F, NT, FPT, LS, LD, MINB, PD)                        \
-  if (f <= F)                                                         \
-    return same ? vis.template run<NT, FPT, LS, true, MINB, PD>()     \
-                : vis.template run<NT, FPT, LD, false, MINB, PD>();
-  TTT_BAND(128, 128, 1, 8, 8, 1, 2)
-  TTT_BAND(1024, 256, 4, 8, 4, 2, 1)
-  TTT_BAND(2048, 512, 4, 4, 2, 1, 1)
-  TTT_BAND(4096, 512, 8, 2, 1, 1, 1)
-  TTT_BAND(5120, 512, 10, 2, 1, 1, 1)
-  TTT_BAND(7168, 1024, 7, 2, 1, 1, 1)
-#undef TTT_BAND
+int with_instance(const Figures& x, const Visit& vis) {
+#define TTT_INSTANCE(NT, FPT, L, SAME, MINB, PD)                         \
+  if (x.nt == NT && x.fpt == FPT && x.l == L && x.same == SAME &&        \
+      x.minb == MINB && x.pd == PD)                                      \
+    return vis.template run<NT, FPT, L, SAME != 0, MINB, PD>();
+  TTT_INSTANCE(128, 1, 8, 1, 1, 2)
+  TTT_INSTANCE(128, 1, 8, 0, 1, 2)
+  TTT_INSTANCE(256, 4, 8, 1, 2, 1)
+  TTT_INSTANCE(256, 4, 4, 0, 2, 1)
+  TTT_INSTANCE(512, 4, 4, 1, 1, 1)
+  TTT_INSTANCE(512, 4, 2, 0, 1, 1)
+  TTT_INSTANCE(512, 8, 2, 1, 1, 1)
+  TTT_INSTANCE(512, 8, 1, 0, 1, 1)
+  TTT_INSTANCE(512, 10, 2, 1, 1, 1)
+  TTT_INSTANCE(512, 10, 1, 0, 1, 1)
+  TTT_INSTANCE(1024, 7, 2, 1, 1, 1)
+  TTT_INSTANCE(1024, 7, 1, 0, 1, 1)
+#undef TTT_INSTANCE
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// zq == zk (the same pointer: the no-QK view) takes the instance that
-// reads one tensor.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a width past the table or a T whose labels
-// and mask do not fit in shared memory.
+// Launches the instance the figures name (zq is zk only where zq and zk
+// are one pointer).  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for figures of no instance, or a width past the
+// instance's threads times features a thread.
 extern "C" int ttt_scan_launch(const void* zq, const void* zk, const void* c,
                                const void* m, const void* w0, const void* b0,
                                const void* eta, void* scores, void* w_f,
                                void* b_f, int N, int T, int f, int w0_stride,
-                               int b0_stride, void* stream) {
+                               int b0_stride, int nt, int fpt, int l,
+                               int same, int minb, int pd, void* stream) {
   if (N == 0) return static_cast<int>(cudaGetLastError());
   const Args g{static_cast<const float*>(zq), static_cast<const float*>(zk),
                static_cast<const float*>(c),  static_cast<const float*>(m),
@@ -395,10 +383,11 @@ extern "C" int ttt_scan_launch(const void* zq, const void* zk, const void* c,
                static_cast<float*>(w_f),      static_cast<float*>(b_f),
                N, T, f, w0_stride, b0_stride,
                static_cast<cudaStream_t>(stream)};
-  return with_instance(f, zq == zk, Launch{g});
+  return with_instance(Figures{nt, fpt, l, same, minb, pd}, Launch{g});
 }
 
-// The instance a width takes (out[0..6], as Config above).
-extern "C" int ttt_scan_config(int f, int same, int* out) {
-  return with_instance(f, same != 0, Config{out});
+// The instance's registers, shared and spill bytes (out[0..2], as Config).
+extern "C" int ttt_scan_config(int nt, int fpt, int l, int same, int minb,
+                               int pd, int* out) {
+  return with_instance(Figures{nt, fpt, l, same, minb, pd}, Config{out});
 }

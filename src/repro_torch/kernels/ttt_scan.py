@@ -14,16 +14,17 @@ ttt_probe_batched_ref`` with the port's ``core.probe.score_then_update``.
 
 Dispatch is by the input's device: CPU tensors take the plain version,
 CUDA tensors the kernel (``csrc/ttt_scan.cu``); anything else raises.  The
-Pallas knobs ``t_chunk`` and ``interpret`` have no counterpart.  The kernel
-scores ``lookahead_steps(f, same)`` steps per block reduction, the L-step
-form that ``ttt_probe_lookahead_plain`` mirrors.  The
-kernel is forward only: a tensor that requires grad is refused on every
-device (differentiate ``core.ttt``'s autograd loop instead).
+Pallas knobs ``t_chunk`` and ``interpret`` have no counterpart.  ``BANDS``
+chooses the kernel's instance for a width (``instance``); it scores
+``lookahead_steps(f, same)`` steps per block reduction, the L-step form
+that ``ttt_probe_lookahead_plain`` mirrors.  The kernel is forward only:
+a tensor that requires grad is refused on every device (differentiate
+``core.ttt``'s autograd loop instead).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -34,14 +35,31 @@ from repro_torch.kernels import _build
 # kernel's widest instance (BANDS) keeps W in registers, 7 features a
 # thread of 1024
 MAX_F = 7168
-# the kernel stages a trajectory's labels and mask in shared memory, 8
-# bytes a step
-MAX_T = 16384
-# csrc/ttt_scan.cu's instances by width band: (widest f, threads, features
-# a thread, L where zq is zk, L where it is not); L steps share one block
-# reduction
-BANDS = ((128, 128, 1, 8, 8), (1024, 256, 4, 8, 4), (2048, 512, 4, 4, 2),
-         (4096, 512, 8, 2, 1), (5120, 512, 10, 2, 1), (7168, 1024, 7, 2, 1))
+
+
+class Band(NamedTuple):
+    """One width band of csrc/ttt_scan.cu's instances."""
+    f_max: int        # widest f it takes
+    threads: int
+    fpt: int          # features a thread (threads * fpt >= f_max)
+    l_same: int       # L where zq is zk (the no-QK view)
+    l_distinct: int   # L where it is not
+    min_blocks: int   # blocks an SM must hold (the register budget)
+    in_flight: int    # L-blocks of rows loaded ahead
+
+
+# The kernel's policy: which compiled instance a width takes.  L steps
+# share one block reduction; L is the widest in {1, 2, 4, 8} whose rows in
+# flight and sums fit the band's register budget: two blocks an SM at the
+# served width (960, N 170 > 132 SMs, so every trajectory's block is
+# resident at once), 64 registers a thread at 1024 threads.  The narrow
+# band runs four warps of one feature a thread with two L-blocks in
+# flight: its chain, not its bytes, sets its time.  csrc/ttt_scan.cu
+# builds exactly the instances these name (tests/test_torch_scan_blocked.py
+# holds the two lists equal) and launches the one the wrapper names.
+BANDS = (Band(128, 128, 1, 8, 8, 1, 2), Band(1024, 256, 4, 8, 4, 2, 1),
+         Band(2048, 512, 4, 4, 2, 1, 1), Band(4096, 512, 8, 2, 1, 1, 1),
+         Band(5120, 512, 10, 2, 1, 1, 1), Band(7168, 1024, 7, 2, 1, 1, 1))
 
 Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -60,13 +78,22 @@ def ttt_probe_batched_plain(zq, zk, c, m, w0, b0, eta) -> Out:
     return s, W, b
 
 
-def lookahead_steps(f: int, same: bool) -> int:
-    """L, the steps one block reduction of the kernel serves at width f
-    (``same``: zq and zk are one tensor, the no-QK view)."""
-    for f_max, _, _, l_same, l_distinct in BANDS:
-        if f <= f_max:
-            return l_same if same else l_distinct
+def instance(f: int, same: bool) -> Tuple[int, ...]:
+    """The figures of the instance width f takes, as the launcher reads
+    them: (threads, features a thread, L, zq is zk, blocks an SM must hold,
+    L-blocks in flight); ``same``: zq and zk are one tensor, the no-QK
+    view."""
+    for band in BANDS:
+        if f <= band.f_max:
+            return (band.threads, band.fpt,
+                    band.l_same if same else band.l_distinct, int(same),
+                    band.min_blocks, band.in_flight)
     raise ValueError(f"ttt_probe_batched: f={f} exceeds {MAX_F}")
+
+
+def lookahead_steps(f: int, same: bool) -> int:
+    """L, the steps one block reduction of the kernel serves at width f."""
+    return instance(f, same)[2]
 
 
 def ttt_probe_lookahead_plain(zq, zk, c, m, w0, b0, eta, L: int) -> Out:
@@ -110,16 +137,16 @@ def ttt_probe_lookahead_plain(zq, zk, c, m, w0, b0, eta, L: int) -> Out:
 
 
 def kernel_config(f: int, same: bool) -> dict:
-    """The instance width f takes on the card, from the library itself: L,
-    threads, features a thread, registers, static shared bytes, spill
-    bytes, dynamic shared bytes besides c and m (the warp and block sums),
-    L-blocks of rows in flight."""
-    out = (ctypes.c_int * 8)()
-    _build.check(_build.library().ttt_scan_config(f, int(same), out),
+    """The instance width f takes on the card: its figures (``instance``)
+    and, from the library itself, its registers, shared bytes (the warp and
+    block sums) and spill bytes a thread."""
+    fig = instance(f, same)
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.library().ttt_scan_config(*fig, out),
                  "ttt_scan_config")
-    keys = ("L", "threads", "features_per_thread", "registers",
-            "static_smem", "local_bytes", "sums_smem", "blocks_in_flight")
-    return dict(zip(keys, out))
+    keys = ("threads", "features_per_thread", "L", "same", "min_blocks",
+            "blocks_in_flight", "registers", "static_smem", "local_bytes")
+    return dict(zip(keys, (*fig, *out)))
 
 
 def _check(zq, zk, c, m, w0, b0, eta, shared: bool) -> None:
@@ -140,10 +167,6 @@ def _check(zq, zk, c, m, w0, b0, eta, shared: bool) -> None:
         raise ValueError(f"ttt_probe_batched: f={f} exceeds {MAX_F}, the "
                          "widest d_model of the repo's configs, for which "
                          "the kernel has an instance")
-    if T > MAX_T:
-        raise ValueError(f"ttt_probe_batched: T={T} exceeds {MAX_T}, the "
-                         "steps whose labels and mask the kernel stages in "
-                         "shared memory")
 
 
 def _scan(zq, zk, c, m, w0, b0, eta, *, shared: bool) -> Out:
@@ -164,13 +187,14 @@ def _scan(zq, zk, c, m, w0, b0, eta, *, shared: bool) -> Out:
     _check(zq, zk, c, m, w0, b0, eta, shared)
     n, T, f = zq.shape
     dev = zq.device
+    fig = instance(f, zq.data_ptr() == zk.data_ptr())
     scores = torch.empty((n, T), dtype=torch.float32, device=dev)
     w_f = torch.empty((n, f), dtype=torch.float32, device=dev)
     b_f = torch.empty((n,), dtype=torch.float32, device=dev)
     p = _build.ptr
     err = _build.library().ttt_scan_launch(
         p(zq), p(zk), p(c), p(m), p(w0), p(b0), p(eta), p(scores), p(w_f),
-        p(b_f), n, T, f, 0 if shared else f, 0 if shared else 1,
+        p(b_f), n, T, f, 0 if shared else f, 0 if shared else 1, *fig,
         _build.stream_of(zq))
     _build.check(err, "ttt_probe_batched launch")
     if n:

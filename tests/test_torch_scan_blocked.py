@@ -11,6 +11,9 @@ package on the same numpy-made inputs:
   against ``kernels/ref.py:232 wkv_scan_ref``;
 * the launch policies both kernels read (K8's column split, K5's L per
   width), and the RWKV6 model handing bf16 r, k and v to the scan."""
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -143,22 +146,46 @@ def test_lookahead_table_covers_every_width():
             f, False)
         assert same in (1, 2, 4, 8) and distinct in (1, 2, 4, 8)
         assert distinct <= same
-    for f_max, threads, fpt, _, _ in K5.BANDS:
-        assert threads % 32 == 0 and threads <= 1024
-        assert threads * fpt >= f_max            # every feature owned
+    for band in K5.BANDS:
+        # whole warps, at least two (the block reduction's two barriers)
+        assert band.threads % 32 == 0 and 64 <= band.threads <= 1024
+        assert band.threads * band.fpt >= band.f_max  # every feature owned
+        assert band.in_flight in (1, 2)
     with pytest.raises(ValueError, match="exceeds"):
         K5.lookahead_steps(K5.MAX_F + 1, True)
 
 
-def test_long_trajectory_refused_by_the_card_checks():
-    """The kernel stages c and m in shared memory: T past MAX_T is refused
-    by the card's checks (run here on CPU tensors); the CPU takes it."""
-    T = K5.MAX_T + 1
+def _built_instances():
+    """The (threads, features a thread, L, zq is zk, blocks an SM, blocks
+    in flight) of every TTT_INSTANCE line of csrc/ttt_scan.cu."""
+    src = (Path(K5.__file__).resolve().parent.parent / "csrc"
+           / "ttt_scan.cu").read_text()
+    return {tuple(int(x) for x in m.group(1).split(","))
+            for m in re.finditer(r"^\s*TTT_INSTANCE\(([\d,\s]+)\)\s*$", src,
+                                 re.M)}
+
+
+@pytest.mark.parametrize("same", [True, False])
+def test_source_builds_every_instance_the_bands_name(same):
+    """The launcher only runs the instance whose figures the wrapper
+    passes: each band's instance, in both views, is one the source builds,
+    and the source builds no other."""
+    built = _built_instances()
+    named = {K5.instance(b.f_max, s) for b in K5.BANDS for s in (True, False)}
+    assert named == built
+    for band in K5.BANDS:
+        for f in (band.f_max, band.f_max - 1):
+            assert K5.instance(f, same) in built
+
+
+def test_long_trajectory_passes_the_card_checks():
+    """c and m travel with the rows (nothing in the kernel is sized by T):
+    the card's checks, run here on CPU tensors, take any T."""
+    T = 40000
     zq = torch.zeros(1, T, 4)
     c = torch.zeros(1, T)
-    with pytest.raises(ValueError, match="MAX_T|exceeds"):
-        K5._check(zq, zq, c, c, torch.zeros(1, 4), torch.zeros(1),
-                  torch.tensor(0.1), shared=False)
+    K5._check(zq, zq, c, c, torch.zeros(1, 4), torch.zeros(1),
+              torch.tensor(0.1), shared=False)
 
 
 # ---------------------------------------------------------------------------

@@ -20,10 +20,7 @@ a, twice) with ``chip_smoke.Timer``:
 * ``nochain``: K5's sigmoid replaced by a line, a cheap stand-in for the
   scalar steps' cost;
 * ``noload``:  K5 without the loads of the rows ahead (stale rows: the
-  time of everything but the loads);
-* ``w32``:     K5's narrow band (f <= 128) on one warp of four features a
-  thread at L 4, as first built;
-* ``pd1``:     that band with one L-block of rows in flight instead of two.
+  time of everything but the loads).
 
 ``nochain`` and ``noload`` compute wrong values; their errors are printed
 and not held to K5_TOL.
@@ -57,10 +54,6 @@ VARIANTS = {
                  "return 0.5f + 0.125f * x;")],
     "noload": [(K5_SRC, "    if (t0 + PD * L < T)\n      load_rows",
                 "    if (false)\n      load_rows")],
-    "w32": [(K5_SRC, "TTT_BAND(128, 128, 1, 8, 8, 1, 2)",
-             "TTT_BAND(128, 32, 4, 4, 4, 1, 2)")],
-    "pd1": [(K5_SRC, "TTT_BAND(128, 128, 1, 8, 8, 1, 2)",
-             "TTT_BAND(128, 128, 1, 8, 8, 1, 1)")],
 }
 # the K8 cases (B, T, r/k/v dtype) and the K5 widths timed
 K8_TIMED = ((4, 1, "f32"), (1, 16, "f32"), (24, 16, "f32"), (1, 512, "f32"),
@@ -133,12 +126,13 @@ def main() -> int:
             s = torch.empty(n, T, device="cuda")
             wf = torch.empty(n, f, device="cuda")
             bf = torch.empty(n, device="cuda")
+            fig = K5.instance(f, zq.data_ptr() == zk.data_ptr())
 
             def go():
                 _build.check(lib.ttt_scan_launch(
                     p(zq), p(zk), p(c), p(m), p(w0), p(b0), p(eta), p(s),
                     p(wf), p(bf), n, T, f, 0 if shared else f,
-                    0 if shared else 1, _build.stream_of(zq)), "ttt")
+                    0 if shared else 1, *fig, _build.stream_of(zq)), "ttt")
                 return s, wf, bf
             return go
 
