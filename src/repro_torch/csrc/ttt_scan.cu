@@ -351,8 +351,8 @@ int with_instance(const Figures& x, const Visit& vis) {
   TTT_INSTANCE(128, 1, 8, 0, 1, 2)
   TTT_INSTANCE(256, 4, 8, 1, 2, 1)
   TTT_INSTANCE(256, 4, 4, 0, 2, 1)
-  TTT_INSTANCE(512, 4, 4, 1, 1, 1)
-  TTT_INSTANCE(512, 4, 2, 0, 1, 1)
+  TTT_INSTANCE(256, 8, 4, 1, 2, 1)
+  TTT_INSTANCE(256, 8, 2, 0, 2, 1)
   TTT_INSTANCE(512, 8, 2, 1, 1, 1)
   TTT_INSTANCE(512, 8, 1, 0, 1, 1)
   TTT_INSTANCE(512, 10, 2, 1, 1, 1)

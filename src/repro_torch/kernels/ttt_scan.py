@@ -50,15 +50,17 @@ class Band(NamedTuple):
 
 # The kernel's policy: which compiled instance a width takes.  L steps
 # share one block reduction; L is the widest in {1, 2, 4, 8} whose rows in
-# flight and sums fit the band's register budget: two blocks an SM at the
-# served width (960, N 170 > 132 SMs, so every trajectory's block is
-# resident at once), 64 registers a thread at 1024 threads.  The narrow
-# band runs four warps of one feature a thread with two L-blocks in
-# flight: its chain, not its bytes, sets its time.  csrc/ttt_scan.cu
-# builds exactly the instances these name (tests/test_torch_scan_blocked.py
-# holds the two lists equal) and launches the one the wrapper names.
+# flight and sums fit the band's register budget: two blocks of 256
+# threads an SM at the served widths (960, and 2048 for rwkv6-1.6b; N 170
+# > 132 SMs, so every trajectory's block is resident at once; on an H100
+# one block of 512 an SM made the 2048 band 1.4x slower, PERF.md), 64
+# registers a thread at 1024 threads.  The narrow band runs four warps of
+# one feature a thread with two L-blocks in flight: its chain, not its
+# bytes, sets its time.  csrc/ttt_scan.cu builds exactly the instances
+# these name (tests/test_torch_scan_blocked.py holds the two lists equal)
+# and launches the one the wrapper names.
 BANDS = (Band(128, 128, 1, 8, 8, 1, 2), Band(1024, 256, 4, 8, 4, 2, 1),
-         Band(2048, 512, 4, 4, 2, 1, 1), Band(4096, 512, 8, 2, 1, 1, 1),
+         Band(2048, 256, 8, 4, 2, 2, 1), Band(4096, 512, 8, 2, 1, 1, 1),
          Band(5120, 512, 10, 2, 1, 1, 1), Band(7168, 1024, 7, 2, 1, 1, 1))
 
 Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
