@@ -53,7 +53,7 @@ class Band(NamedTuple):
 # flight and sums fit the band's register budget: two blocks of 256
 # threads an SM at the served widths (960, and 2048 for rwkv6-1.6b; N 170
 # > 132 SMs, so every trajectory's block is resident at once; on an H100
-# one block of 512 an SM made the 2048 band 1.4x slower, PERF.md), 64
+# one block of 512 an SM made the 2048 band 1.3x slower, PERF.md), 64
 # registers a thread at 1024 threads.  The narrow band runs four warps of
 # one feature a thread with two L-blocks in flight: its chain, not its
 # bytes, sets its time.  csrc/ttt_scan.cu builds exactly the instances
