@@ -260,10 +260,12 @@ def probe_state(torch, gen, B, f, win):
     return [W, b, ring, n, stopped, stop_step]
 
 
-def k1_chain(torch, K1, gen, B, f, win, steps, eta, lam, burn_in):
+def k1_chain(torch, K1, gen, B, f, win, steps, eta, lam, burn_in,
+             same=False):
     """K1 and its plain version over ``steps`` chained steps from the same
-    state, with mixed boundaries and a stop inside the run.  Returns the
-    largest differences of s, W, b and smoothed, the smallest distance of a
+    state, with mixed boundaries and a stop inside the run; ``same``: zk
+    is zq, one tensor (the served no-QK view).  Returns the largest
+    differences of s, W, b and smoothed, the smallest distance of a
     smoothed score from lambda*, and the stop steps."""
     zs = [(torch.randn(B, f, generator=gen) / f ** 0.5).to(DEV)
           for _ in range(2 * steps)]
@@ -274,7 +276,7 @@ def k1_chain(torch, K1, gen, B, f, win, steps, eta, lam, burn_in):
     err = {"s": 0.0, "W": 0.0, "b": 0.0, "smoothed": 0.0}
     margin = float("inf")
     for t in range(steps):
-        zq, zk = zs[2 * t], zs[2 * t + 1]
+        zq, zk = zs[2 * t], zs[2 * t + (0 if same else 1)]
         ko = K1.serving_probe_step(zq, zk, bnd[t], *kern, eta, lam,
                                    burn_in=burn_in)
         po = K1.serving_probe_step_plain(zq, zk, bnd[t], *plain, eta, lam,
@@ -283,8 +285,9 @@ def k1_chain(torch, K1, gen, B, f, win, steps, eta, lam, burn_in):
         for name in ("n_scores", "stopped", "stop_step"):
             a, b_ = getattr(ko, name), getattr(po, name)
             if not torch.equal(a, b_):
-                raise AssertionError(f"K1 B={B} step {t}: {name} differs: "
-                                     f"{a.tolist()} vs {b_.tolist()}")
+                raise AssertionError(f"K1 B={B} f={f} step {t}: {name} "
+                                     f"differs: {a.tolist()} vs "
+                                     f"{b_.tolist()}")
         for name in err:
             err[name] = max(err[name], float(
                 (getattr(ko, name) - getattr(po, name)).abs().max()))
@@ -293,24 +296,66 @@ def k1_chain(torch, K1, gen, B, f, win, steps, eta, lam, burn_in):
             margin = min(margin, float((po.smoothed[scored] - lam).abs()
                                        .min()))
     if margin < 1e-3:
-        raise AssertionError(f"K1 B={B}: inputs came within {margin} of "
-                             "lambda*")
+        raise AssertionError(f"K1 B={B} f={f}: inputs came within {margin} "
+                             "of lambda*")
     if int(kern[5].max()) < 0:
-        raise AssertionError(f"K1 B={B}: no slot stopped")
+        raise AssertionError(f"K1 B={B} f={f}: no slot stopped")
     tol = 1e-5      # f32, another reduction order than the plain version
     if max(err.values()) > tol:
-        raise AssertionError(f"K1 B={B} off its plain version: {err}")
+        raise AssertionError(f"K1 B={B} f={f} off its plain version: {err}")
     return err, margin, kern[5].tolist()
 
 
-def k1_timed(torch, timer, K1, gen, Bs, f, win, eta, burn_in):
+def k1_shared_bitwise(torch, K1, gen, B, f, win, eta, lam, burn_in):
+    """K1(zq, zq) -- one tensor, one row read -- against K1(zq, zq.clone())
+    -- two rows -- from copies of one state, every slot at a boundary:
+    every output and every state tensor equal bit for bit."""
+    zq = (torch.randn(B, f, generator=gen) / f ** 0.5).to(DEV)
+    bnd = torch.ones(B, dtype=torch.bool, device=DEV)
+    st = probe_state(torch, gen, B, f, win)
+    one, two = [t.clone() for t in st], [t.clone() for t in st]
+    a = K1.serving_probe_step(zq, zq, bnd, *one, eta, lam, burn_in=burn_in)
+    b = K1.serving_probe_step(zq, zq.clone(), bnd, *two, eta, lam,
+                              burn_in=burn_in)
+    sync(torch)
+    for name in ProbeFields:
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"K1 f={f}: zk is zq and zk a clone of zq "
+                                 f"differ in {name}")
+    return True
+
+
+# K1's and K4's outputs and state
+ProbeFields = ("s", "W", "b", "ring", "n_scores", "smoothed", "stopped",
+               "stop_step")
+
+
+def floor_ms(torch, timer) -> float:
+    """The Timer around one launch of the smallest kernel: what a call
+    that does nothing costs in the Timer's window."""
+    return timer(lambda: torch.empty(1, device=DEV).zero_(), reps=200)
+
+
+def chain_config(K1, f, same):
+    """The K1/K4 instance of width f and view, with its registers (on the
+    card; figures only on the CPU)."""
+    if DEV != "cuda":
+        fig = K1.instance(f, same)
+        return dict(threads=fig[0], features_per_thread=fig[1],
+                    rows_in_flight=fig[2], staged=fig[3], same=fig[4])
+    return K1.kernel_config(f, same)
+
+
+def k1_timed(torch, timer, K1, gen, Bs, f, win, eta, burn_in, same=False):
     """K1 and its plain version timed at (Bs, f), every slot at a
-    boundary.  lambda* above 1 is out of reach of any smoothed score, so
-    no slot stops and every timed call updates every slot's W, b and ring
-    (a stopped slot would skip them) -- the work the bound counts."""
+    boundary; ``same``: zk is zq.  lambda* above 1 is out of reach of any
+    smoothed score, so no slot stops and every timed call updates every
+    slot's W, b and ring (a stopped slot would skip them) -- the work the
+    bound counts."""
     lam_t = 1.5
     zq = (torch.randn(Bs, f, generator=gen) / f ** 0.5).to(DEV)
-    zk = (torch.randn(Bs, f, generator=gen) / f ** 0.5).to(DEV)
+    zk = zq if same else (torch.randn(Bs, f, generator=gen)
+                          / f ** 0.5).to(DEV)
     bnd_all = torch.ones(Bs, dtype=torch.bool, device=DEV)
     st = probe_state(torch, gen, Bs, f, win)
     st[4].zero_()
@@ -321,16 +366,24 @@ def k1_timed(torch, timer, K1, gen, Bs, f, win, eta, burn_in):
         zq, zk, bnd_all, *st, eta, lam_t, burn_in=burn_in), reps=200)
     if bool(st[4].any()):
         raise AssertionError("K1 timing: a slot stopped")
-    # read zq, zk, boundary and the whole state once; write W, b, ring,
-    # n_scores and stopped (stop_step is untouched without a stop) and the
-    # two outputs (s, smoothed); ~7 f32 operations per feature (two dots,
-    # the update)
+    # read zq (and zk), boundary and the whole state once; write W, b,
+    # ring, n_scores and stopped (stop_step is untouched without a stop)
+    # and the two outputs (s, smoothed); ~7 f32 operations per feature
+    # (two dots, the update; 5 where zk is zq)
     W, b, ring, n, stopped, stop_step = st
-    moved = (nbytes(zq, zk, bnd_all, *st) + nbytes(W, b, ring, n, stopped)
+    rows = (zq,) if same else (zq, zk)
+    moved = (nbytes(*rows, bnd_all, *st) + nbytes(W, b, ring, n, stopped)
              + 2 * 4 * Bs)
-    bms, by = bound_ms(moved, 7 * Bs * f)
-    return dict(timed_shape=dict(B=Bs, f=f, window=win, lam=lam_t), ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by, bytes=moved)
+    bms, by = bound_ms(moved, (5 if same else 7) * Bs * f)
+    return dict(timed_shape=dict(B=Bs, f=f, window=win, lam=lam_t,
+                                 view="same" if same else "distinct"),
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                bytes=moved, **chain_config(K1, f, same))
+
+
+# the widths of the view cases: QK d_h 128, a width that is no multiple of
+# 4, smollm-360m's 960, rwkv6-1.6b's 2048, qwen1.5-32b's 5120
+VIEW_WIDTHS = (128, 130, 960, 2048, 5120)
 
 
 def phase_k1(torch, timer):
@@ -338,6 +391,7 @@ def phase_k1(torch, timer):
     gen = torch.Generator().manual_seed(SEED)
     f, win, steps = 960, 4, 12
     eta, lam, burn_in = 0.05, 0.6, 2
+    floor = floor_ms(torch, timer)
     # the 12-step chain at B = 8 and at the serving shape, B = 4 slots
     chains = {}
     for B in (8, 4):
@@ -345,7 +399,20 @@ def phase_k1(torch, timer):
                                       lam, burn_in)
         chains[B] = dict(max_abs_err=err, lambda_margin=margin,
                          stopped_at=stops)
+    # zk the same tensor as zq and a different one, at every view width
+    views = []
+    for fv in VIEW_WIDTHS:
+        for same in (True, False):
+            err_v, margin_v, stops_v = k1_chain(
+                torch, K1, gen, 4, fv, win, steps, eta, lam, burn_in,
+                same=same)
+            views.append(dict(f=fv, view="same" if same else "distinct",
+                              max_abs_err=err_v, lambda_margin=margin_v,
+                              stopped_at=stops_v))
+        k1_shared_bitwise(torch, K1, gen, 4, fv, win, eta, lam, burn_in)
     timed = k1_timed(torch, timer, K1, gen, 4, f, win, eta, burn_in)
+    served = k1_timed(torch, timer, K1, gen, 4, f, win, eta, burn_in,
+                      same=True)
     f_rwkv = RWKV_PROBE_F
     err_r, margin_r, stops_r = k1_chain(torch, K1, gen, 4, f_rwkv, win,
                                         steps, eta, lam, burn_in)
@@ -353,12 +420,19 @@ def phase_k1(torch, timer):
                 stopped_at=stops_r,
                 **k1_timed(torch, timer, K1, gen, 4, f_rwkv, win, eta,
                            burn_in))
+    rwkv_served = k1_timed(torch, timer, K1, gen, 4, f_rwkv, win, eta,
+                           burn_in, same=True)
     err = {k: max([c["max_abs_err"][k] for c in chains.values()]
-                  + [err_r[k]])
+                  + [v["max_abs_err"][k] for v in views] + [err_r[k]])
            for k in chains[8]["max_abs_err"]}
-    res = dict(phase="k1", steps=steps, f=f, window=win,
+    # the kernels line's K1 time: the served view (zk is zq) at 4 slots
+    res = dict(phase="k1", steps=steps, f=f, window=win, floor_ms=floor,
                chains={str(B): c for B, c in chains.items()},
-               max_abs_err=err, **timed, library_ms=None, rwkv_width=rwkv)
+               views=views, shared_bitwise=len(VIEW_WIDTHS),
+               max_abs_err=err, ms=served["ms"], plain_ms=served["plain_ms"],
+               bound_ms=served["bound_ms"], bound_by=served["bound_by"],
+               library_ms=None, served=served, distinct=timed,
+               rwkv_width=rwkv, rwkv_served=rwkv_served)
     emit(res)
     return res
 
@@ -840,12 +914,15 @@ def k4_state(torch, gen, B, f, win, burn_in, warm):
 
 
 def k4_case(torch, K1, K4, gen, B, T, f, mode, warm, win=4, burn_in=2,
-            eta=0.05, lam=0.6):
+            eta=0.05, lam=0.6, same=False):
     """K4, its plain version and ``accept[i]`` K1 launches (T masked K1
     launches) from copies of one CUDA state: the integer and boolean state
-    must be equal, the floats within K4_TOL."""
+    must be equal, the floats within K4_TOL, and K4 must equal the chained
+    K1 launches bit for bit.  ``same``: zk is zq, one tensor, in K4 and in
+    every K1 launch (the served no-QK view)."""
     zq = (torch.randn(B, T, f, generator=gen) / f ** 0.5).to(DEV)
-    zk = (torch.randn(B, T, f, generator=gen) / f ** 0.5).to(DEV)
+    zk = zq if same else (torch.randn(B, T, f, generator=gen)
+                          / f ** 0.5).to(DEV)
     bnd = torch.rand(B, T, generator=gen) < 0.7
     bnd[:, 0] = True
     bnd = bnd.to(DEV)
@@ -858,7 +935,9 @@ def k4_case(torch, K1, K4, gen, B, T, f, mode, warm, win=4, burn_in=2,
                                           burn_in=burn_in)
     k1_n, k1_s, k1_sm = [], [], []
     for t in range(T):
-        o = K1.serving_probe_step(zq[:, t].contiguous(), zk[:, t].contiguous(),
+        zq_t = zq[:, t].contiguous()
+        zk_t = zq_t if same else zk[:, t].contiguous()
+        o = K1.serving_probe_step(zq_t, zk_t,
                                   (bnd[:, t] & (t < acc)).contiguous(),
                                   *chain, eta, lam, burn_in=burn_in)
         k1_n.append(chain[3].clone())
@@ -869,7 +948,8 @@ def k4_case(torch, K1, K4, gen, B, T, f, mode, warm, win=4, burn_in=2,
               smoothed_seq=torch.stack(k1_sm, 1), W=chain[0], b=chain[1],
               ring=chain[2], n_scores=chain[3], stopped=chain[4],
               stop_step=chain[5])
-    case = dict(B=B, T=T, f=f, accept=mode, warm=warm)
+    case = dict(B=B, T=T, f=f, accept=mode, warm=warm,
+                view="same" if same else "distinct")
     for name in ("n_seq", "n_scores", "stopped", "stop_step"):
         a = getattr(ko, name)
         for other, want in (("plain", getattr(po, name)),
@@ -885,6 +965,13 @@ def k4_case(torch, K1, K4, gen, B, T, f, mode, warm, win=4, burn_in=2,
     if max(err.values()) > K4_TOL or max(k1_err.values()) > K4_TOL:
         raise AssertionError(f"K4 {case}: off its plain version {err} or "
                              f"chained K1 {k1_err}")
+    # the spec-decode invariant: accept[i] = a is a sequential K1 launches,
+    # bit for bit
+    bitwise = all(torch.equal(getattr(ko, name), k1[name])
+                  for name in ("s", "smoothed_seq", "W", "b", "ring"))
+    if DEV == "cuda" and not bitwise:
+        raise AssertionError(f"K4 {case}: not bit-equal to chained K1: "
+                             f"{k1_err}")
     if mode == "zero" and not all(torch.equal(a, b)
                                   for a, b in zip(kern, st)):
         raise AssertionError(f"K4 {case}: accept = 0 moved the state")
@@ -897,24 +984,27 @@ def k4_case(torch, K1, K4, gen, B, T, f, mode, warm, win=4, burn_in=2,
     fired_at = (po.n_seq == ko.stop_step[:, None]).int().argmax(1)
     mid_chain = bool((fired & (fired_at < acc - 1)).any())
     return dict(case, max_abs_err=err, chained_k1_err=k1_err,
-                chained_k1_bitwise=max(k1_err.values()) == 0.0,
-                lambda_margin=margin, stops=int(fired.sum()),
-                mid_chain_stop=mid_chain)
+                chained_k1_bitwise=bitwise, lambda_margin=margin,
+                stops=int(fired.sum()), mid_chain_stop=mid_chain)
 
 
 # timed shapes (B slots, T verify tokens, f): the served shape first (4
 # slots, k = 4, smollm-360m's f 960), then more slots, a longer block, and
-# both at qwen1.5-32b's width
+# both at qwen1.5-32b's width; zq and zk two tensors, as timed since PR 17
 K4_TIMED = ((4, 4, 960), (8, 4, 960), (4, 8, 960), (8, 8, 5120))
+# the slope over the chain's length at the served width, in both views
+K4_SLOPE_T = (1, 2, 4, 8)
 
 
-def k4_timed(torch, timer, K4, gen, B, T, f, win=4, eta=0.05, lam=1.5):
+def k4_timed(torch, timer, K1, K4, gen, B, T, f, win=4, eta=0.05, lam=1.5,
+             same=False):
     """K4 and its plain version timed with every token accepted and at a
     boundary; lambda* above 1 is out of reach, so every timed call updates
     every slot's W, b and ring for all T tokens: the work the bound
-    counts."""
+    counts.  ``same``: zk is zq."""
     zq = (torch.randn(B, T, f, generator=gen) / f ** 0.5).to(DEV)
-    zk = (torch.randn(B, T, f, generator=gen) / f ** 0.5).to(DEV)
+    zk = zq if same else (torch.randn(B, T, f, generator=gen)
+                          / f ** 0.5).to(DEV)
     bnd = torch.ones(B, T, dtype=torch.bool, device=DEV)
     acc = k4_accept(torch, "T", B, T)
     st = k4_state(torch, gen, B, f, win, 2, False)
@@ -926,19 +1016,33 @@ def k4_timed(torch, timer, K4, gen, B, T, f, win=4, eta=0.05, lam=1.5):
         raise AssertionError("K4 timing: a slot stopped")
     # read the inputs and the whole state once; write W, b, ring, n_scores
     # and stopped (stop_step is untouched without a stop) and the three
-    # (B, T) outputs; ~7 f32 operations per feature and token
+    # (B, T) outputs; ~7 f32 operations per feature and token (5 where zk
+    # is zq: one dot)
     W, b, ring, n, stopped, _ = st
-    moved = (nbytes(zq, zk, bnd, acc, *st) + nbytes(W, b, ring, n, stopped)
+    rows = (zq,) if same else (zq, zk)
+    moved = (nbytes(*rows, bnd, acc, *st) + nbytes(W, b, ring, n, stopped)
              + 3 * 4 * B * T)
-    bms, by = bound_ms(moved, 7 * B * T * f)
-    return dict(B=B, T=T, f=f, window=win, lam=lam, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, bytes=moved)
+    bms, by = bound_ms(moved, (5 if same else 7) * B * T * f)
+    return dict(B=B, T=T, f=f, window=win, lam=lam,
+                view="same" if same else "distinct", ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, bytes=moved,
+                **chain_config(K1, f, same))
+
+
+def slope(rows) -> float:
+    """Least-squares ms per token over the rows' T."""
+    ts = [r["T"] for r in rows]
+    ms = [r["ms"] for r in rows]
+    tm, mm = sum(ts) / len(ts), sum(ms) / len(ms)
+    return (sum((t - tm) * (m - mm) for t, m in zip(ts, ms))
+            / sum((t - tm) ** 2 for t in ts))
 
 
 def phase_k4(torch, timer):
     from repro_torch.kernels import probe_spec as K4
     from repro_torch.kernels import probe_step as K1
     gen = torch.Generator().manual_seed(SEED + 7)
+    floor = floor_ms(torch, timer)
     rows = []
     for B in (1, 4, 8):
         for T in (1, 2, 4, 8):
@@ -952,6 +1056,14 @@ def phase_k4(torch, timer):
         if T <= 2 and row["stops"]:
             raise AssertionError(f"K4 stopped before the burn-in: {row}")
         rows.append(row)
+    # zk the same tensor as zq (one row read) and a different one, at every
+    # view width, f 130 (no multiple of 4: rows move as floats) among them
+    for f in VIEW_WIDTHS:
+        for same in (True, False):
+            for T in (1, 4, 8):
+                for mode in ("T", "mixed"):
+                    rows.append(k4_case(torch, K1, K4, gen, 4, T, f, mode,
+                                        warm=True, same=same))
     if not any(r["mid_chain_stop"] for r in rows):
         raise AssertionError("K4: no case stopped mid-chain")
     if min(r["lambda_margin"] for r in rows) < 1e-3:
@@ -971,8 +1083,16 @@ def phase_k4(torch, timer):
         if DEV == "cuda":
             raise AssertionError(f"K4 accepted f = {wide}")
 
-    timed = [k4_timed(torch, timer, K4, gen, *shape) for shape in K4_TIMED]
-    served = timed[0]
+    timed = [k4_timed(torch, timer, K1, K4, gen, *shape)
+             for shape in K4_TIMED]
+    slopes = {}
+    for same in (True, False):
+        view = "same" if same else "distinct"
+        slopes[view] = [k4_timed(torch, timer, K1, K4, gen, 4, T, 960,
+                                 same=same) for T in K4_SLOPE_T]
+    # the kernels line's K4 time: the served view (zk is zq) at the served
+    # shape
+    served = next(r for r in slopes["same"] if r["T"] == 4)
     worst = max(max(r["max_abs_err"].values()) for r in rows)
     worst_k1 = max(max(r["chained_k1_err"].values()) for r in rows)
     res = dict(phase="k4", cases=len(rows), max_abs_err=worst, tol=K4_TOL,
@@ -980,11 +1100,14 @@ def phase_k4(torch, timer):
                chained_k1_bitwise=sum(r["chained_k1_bitwise"] for r in rows),
                mid_chain_stops=sum(r["mid_chain_stop"] for r in rows),
                lambda_margin=min(r["lambda_margin"] for r in rows),
-               timed=timed, ms=served["ms"], plain_ms=served["plain_ms"],
+               floor_ms=floor, timed=timed, slope_rows=slopes,
+               slope_ms_per_token={v: slope(r) for v, r in slopes.items()},
+               served=served, ms=served["ms"], plain_ms=served["plain_ms"],
                bound_ms=served["bound_ms"], bound_by=served["bound_by"],
                library_ms=None,
                per_case=[(r["B"], r["T"], r["f"], r["accept"], r["warm"],
-                          max(r["max_abs_err"].values()), r["stops"])
+                          r["view"], max(r["max_abs_err"].values()),
+                          r["stops"])
                          for r in rows])
     emit(res)
     # K3 at the verify shape of a spec step: 4 slots x k = 4 tokens, each

@@ -1,5 +1,6 @@
 // Masked multi-token serving probe step (speculative verify): T chained
-// K1 steps per slot in one launch, gated by each slot's accepted length.
+// probe steps per slot in one launch, gated by each slot's accepted length.
+// The same kernel, at T = 1, is K1 (probe_step.cu).
 //
 // Replaces the TPU kernel repro/kernels/ttt_probe.py:304
 // serving_probe_spec_step (body _spec_kernel :236).  Plain PyTorch
@@ -8,28 +9,51 @@
 //
 // Token t of slot i participates iff t < accept[i], its boundary flag is
 // set and the slot is not stopped -- counting a stop that fired earlier in
-// this chain.  A participating token runs K1's per-token math
-// (csrc/probe_math.cuh): score-then-update, ring shift, mean over
-// min(n, win), the threshold test after burn-in, the stop step; the W and b
-// update is skipped on the token where the stop fires (Algorithm 2 order).
-// Every token writes s (the score with the current W), the smoothed score
-// and n; a token that does not participate repeats the carried smoothed
-// score and n, as _spec_kernel stores them.
+// this chain.  A participating token runs the step of probe_math.cuh:
+// score-then-update, ring shift, mean over min(n, win), the threshold test
+// after burn-in, the stop step; the W and b update is skipped on the token
+// where the stop fires (Algorithm 2 order).  Every token writes s (the
+// score with the current W), the smoothed score and n; a token that does
+// not participate repeats the carried smoothed score and n, as
+// _spec_kernel stores them.
 //
 // Bound on the H100: bytes.  Per slot the chain reads T (zq, zk) rows and
 // W once and writes W once, about 7 flops per feature and token, far below
 // the ridge; at the served shape (4 slots, T 4, f 960) the call moves
-// about 150 KB, so launch latency sets its time.  The Pallas kernel
-// transposes to (T, B, f) and runs a fori_loop over T on one core; here
-// blocks run in no order, so the design is:
-//   * one block per slot (slots never communicate); W_i lives in shared
-//     memory for the whole chain (f floats, at most 28 KB at f = 7168),
-//     loaded once and stored once;
-//   * per token, the step of probe_math.cuh -- the very function K1 runs --
-//     on the shared W_i, with the token's boundary flag gated by t < accept.
-// Since both kernels run one function per token, a chain of accept[i]
-// tokens gives the state of accept[i] sequential K1 launches bit for bit.
+// about 80 KB, so latency sets its time: what held each token back was a
+// cold load of its rows after the previous token's second barrier, and
+// the slot's scalar state making a round trip through global memory in
+// one thread while the others waited.  The Pallas kernel transposes to
+// (T, B, f) and runs a fori_loop over T on one core; here blocks run in
+// no order, and the design is:
+//   * one block per slot (slots never communicate); thread tid owns the
+//     16-byte groups tid, tid + NT, ... of a row: W_i lives in its
+//     registers for the whole chain, loaded once and stored once, and the
+//     update reads nothing again;
+//   * every load is issued at entry: W_i, the slot's scalar state, and the
+//     rows and boundary flags of the first R tokens, into a ring of R
+//     register slots (the loop unrolled so that every index is static) or,
+//     at the wide bands, of R stages in shared memory filled by cp.async.
+//     Each thread reads back only the groups it copied, so the ring needs
+//     no barrier.  A token's slot is refilled with token t + R as soon as
+//     its rows are read;
+//   * one barrier a token: the warps' sums go to the buffer of the token's
+//     parity, and every thread folds them and runs the scalar logic in
+//     registers (probe_math.cuh); thread 0 writes the token's s, smoothed
+//     and n, and the final state once, at the end;
+//   * where zq is zk (the served no-QK view) one row is read and one dot
+//     taken;
+//   * NT, features a thread, R and the staging are compile-time.
+//     kernels/probe_step.py BANDS decides which instance a width takes and
+//     passes its figures; the launcher only finds the instance of that
+//     list (with_instance).  Rows move as float4 where f is a multiple of
+//     4 and the tensors start on 16 bytes, else as floats, in the same
+//     groups: the bits do not depend on it.
 // eta and lambda* arrive as scalar arguments: no host read.
+//
+// Ablations (tools/probe_phases.py builds them with -D): PROBE_LATE_ROWS
+// loads each token's rows when its step starts; PROBE_TWO_BARRIERS adds a
+// second barrier a token, as the earlier design had.
 
 #include <cuda_runtime.h>
 
@@ -37,36 +61,358 @@
 
 namespace {
 
-__global__ void __launch_bounds__(probe::kThreads)
-probe_spec_kernel(const float* __restrict__ zq, const float* __restrict__ zk,
-                  const bool* __restrict__ boundary,
-                  const int* __restrict__ accept, float* __restrict__ W,
-                  float* __restrict__ b, float* __restrict__ ring,
-                  int* __restrict__ n_scores, bool* __restrict__ stopped,
-                  int* __restrict__ stop_step, float* __restrict__ s_out,
-                  float* __restrict__ sm_out, int* __restrict__ n_out,
-                  float eta, float lam, int burn_in, int T, int f, int win) {
-  extern __shared__ float w[];                     // (f,) fast weights
-  __shared__ probe::Scratch sh;
-  const int i = blockIdx.x;
-  float* W_i = W + static_cast<size_t>(i) * f;
-  // thread j loads, updates and stores only its own features: no barrier
-  for (int j = threadIdx.x; j < f; j += probe::kThreads) w[j] = W_i[j];
-  const int acc = accept[i];
-  float* ring_i = ring + static_cast<size_t>(i) * win;
-  for (int t = 0; t < T; ++t) {
-    const size_t o = static_cast<size_t>(i) * T + t;
-    // the accepted-length mask composes with the frozen-stop mask that the
-    // step applies: a rejected draft or a slot stopped earlier in this
-    // chain contributes no boundary, no update, no score
-    probe::step(zq + o * f, zk + o * f, w, f, boundary[o] && t < acc, i, b,
-                ring_i, n_scores, stopped, stop_step, s_out + o, sm_out + o,
-                n_out + o, eta, lam, burn_in, win, sh);
+using probe::Args;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16 bytes (4 bytes) global -> shared, left in flight; when !pred the
+// source is not read and the bytes are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The group of features j .. j + 3 of a read-only row, zero past f.
+__device__ __forceinline__ float4 load_group(const float* __restrict__ row,
+                                             int j, int f, bool vec) {
+  if (vec)
+    return j < f ? __ldg(reinterpret_cast<const float4*>(row + j))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  return make_float4(j < f ? __ldg(row + j) : 0.f,
+                     j + 1 < f ? __ldg(row + j + 1) : 0.f,
+                     j + 2 < f ? __ldg(row + j + 2) : 0.f,
+                     j + 3 < f ? __ldg(row + j + 3) : 0.f);
+}
+
+// The same group copied into shared memory by this thread.
+__device__ __forceinline__ void stage_group(float4* dst,
+                                            const float* __restrict__ row,
+                                            int j, int f, bool vec) {
+  if (vec) {
+    cp_async16(dst, j < f ? row + j : row, j < f);
+    return;
   }
-  for (int j = threadIdx.x; j < f; j += probe::kThreads) W_i[j] = w[j];
+  float* d = reinterpret_cast<float*>(dst);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    cp_async4(d + e, j + e < f ? row + j + e : row, j + e < f);
+}
+
+// The sum of NW warps' values by a pairwise tree, the same in every
+// thread.
+template <int NW>
+__device__ __forceinline__ float fold(const float* rw) {
+  float v[NW];
+#pragma unroll
+  for (int x = 0; x < NW; ++x) v[x] = rw[x];
+#pragma unroll
+  for (int h = NW / 2; h > 0; h >>= 1) {
+#pragma unroll
+    for (int x = 0; x < h; ++x) v[x] = v[x] + v[x + h];
+  }
+  return v[0];
+}
+
+// NT threads, FPT features a thread (FPT / 4 groups), R tokens' rows in
+// flight, STAGED: the ring in shared memory, SAME: zq is zk.
+template <int NT, int FPT, int R, int STAGED, bool SAME>
+__global__ void __launch_bounds__(NT)
+probe_chain_kernel(const Args g) {
+  constexpr int G = FPT / 4;          // 16-byte groups a thread
+  constexpr int NW = NT / 32;
+  constexpr int ROWS = SAME ? 1 : 2;  // rows a token: zk (and zq)
+  constexpr int RS = STAGED ? 1 : R;  // register slots
+#ifdef PROBE_LATE_ROWS
+  constexpr bool kLate = true;
+#else
+  constexpr bool kLate = false;
+#endif
+  static_assert(FPT % 4 == 0 && NT % 32 == 0, "groups, whole warps");
+  static_assert((NW & (NW - 1)) == 0, "a power-of-two count of warps");
+  __shared__ __align__(16) float red[2][2 * NW];  // warp sums by parity
+  extern __shared__ __align__(16) float4 stage[];  // [R][ROWS][G][NT]
+
+  const int i = blockIdx.x, tid = threadIdx.x;
+  const int T = g.T, f = g.f;
+  const bool vec = g.vec != 0;
+  const size_t first = static_cast<size_t>(i) * T;  // the slot's token 0
+  const float* zk_i = g.zk + first * f;
+  const float* zq_i = g.zq + first * f;
+  float* W_i = g.W + static_cast<size_t>(i) * f;
+
+  float4 rk[RS][G], rq[SAME ? 1 : RS][G];
+  bool rb[R];
+  // token t's rows and boundary flag into slot a (a static after
+  // unrolling); a staged slot commits one cp.async group, empty past T
+  auto load = [&](int a, int t) {
+    if (t < T) {
+      rb[a] = g.boundary[first + t];
+      const float* k = zk_i + static_cast<size_t>(t) * f;
+      const float* q = zq_i + static_cast<size_t>(t) * f;
+#pragma unroll
+      for (int p = 0; p < G; ++p) {
+        const int j = 4 * (tid + p * NT);
+        if constexpr (STAGED) {
+          stage_group(&stage[((a * ROWS) * G + p) * NT + tid], k, j, f, vec);
+          if constexpr (!SAME)
+            stage_group(&stage[((a * ROWS + 1) * G + p) * NT + tid], q, j,
+                        f, vec);
+        } else {
+          rk[a][p] = load_group(k, j, f, vec);
+          if constexpr (!SAME) rq[a][p] = load_group(q, j, f, vec);
+        }
+      }
+    }
+    if constexpr (STAGED) cp_async_commit();
+  };
+
+  float4 w[G];
+#pragma unroll
+  for (int p = 0; p < G; ++p) {
+    const int j = 4 * (tid + p * NT);
+    if (vec) {
+      w[p] = j < f ? *reinterpret_cast<const float4*>(W_i + j)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      w[p] = make_float4(j < f ? W_i[j] : 0.f, j + 1 < f ? W_i[j + 1] : 0.f,
+                         j + 2 < f ? W_i[j + 2] : 0.f,
+                         j + 3 < f ? W_i[j + 3] : 0.f);
+    }
+  }
+  if constexpr (!kLate) {
+#pragma unroll
+    for (int a = 0; a < R; ++a) load(a, a);
+  }
+  probe::State st;
+  st.b = g.b[i];
+  st.n = g.n_scores[i];
+  st.stopped = g.stopped[i];
+  st.stop_step = g.stop_step[i];
+  const int acc = g.accept != nullptr ? g.accept[i] : T;
+  const int win = g.win;
+  const float* ring_i = g.ring + static_cast<size_t>(i) * win;
+#pragma unroll
+  for (int r = 0; r < probe::kMaxWindow; ++r) {
+    const int x = r - (probe::kMaxWindow - win);
+    st.ring[r] = x >= 0 ? ring_i[x] : 0.f;
+  }
+
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int t0 = 0; t0 < T; t0 += R) {
+#pragma unroll
+    for (int a = 0; a < R; ++a) {
+      const int t = t0 + a;
+      if (t >= T) break;
+      if constexpr (kLate) load(a, t);
+      float4 k[G], q[SAME ? 1 : G];
+      if constexpr (STAGED) {
+        cp_async_wait<kLate ? 0 : R - 1>();  // token t's stage has landed
+#pragma unroll
+        for (int p = 0; p < G; ++p) {
+          k[p] = stage[((a * ROWS) * G + p) * NT + tid];
+          if constexpr (!SAME) q[p] = stage[((a * ROWS + 1) * G + p) * NT + tid];
+        }
+      } else {
+#pragma unroll
+        for (int p = 0; p < G; ++p) {
+          k[p] = rk[a][p];
+          if constexpr (!SAME) q[p] = rq[a][p];
+        }
+      }
+      const bool bd = rb[a];
+      if constexpr (!kLate) load(a, t + R);  // the slot's next token
+
+      float ak = 0.f, aq = 0.f;
+#pragma unroll
+      for (int p = 0; p < G; ++p) {
+        ak = fmaf(k[p].x, w[p].x, ak);
+        ak = fmaf(k[p].y, w[p].y, ak);
+        ak = fmaf(k[p].z, w[p].z, ak);
+        ak = fmaf(k[p].w, w[p].w, ak);
+        if constexpr (!SAME) {
+          aq = fmaf(q[p].x, w[p].x, aq);
+          aq = fmaf(q[p].y, w[p].y, aq);
+          aq = fmaf(q[p].z, w[p].z, aq);
+          aq = fmaf(q[p].w, w[p].w, aq);
+        }
+      }
+      float dk, dq;
+      if constexpr (NW == 1) {
+        dk = probe::warp_sum(ak);
+        dq = SAME ? dk : probe::warp_sum(aq);
+      } else {
+        float* rw = red[t & 1];
+        if constexpr (SAME) {
+          const float v = probe::warp_sum(ak);
+          if (lane == 0) rw[warp] = v;
+        } else {
+          // the first level trades halves: lanes below 16 go on with the
+          // zk sums, the others with the zq sums (the same additions as
+          // two butterflies)
+          const bool hi = lane & 16;
+          float v = (hi ? aq : ak) +
+                    __shfl_xor_sync(0xffffffffu, hi ? ak : aq, 16);
+#pragma unroll
+          for (int o = 8; o > 0; o >>= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, o);
+          if ((lane & 15) == 0) rw[(hi ? NW : 0) + warp] = v;
+        }
+        // the one barrier of the token; the buffer of the other parity is
+        // the next token's, and the token after that writes this one only
+        // past the next barrier, when every thread has read it
+        __syncthreads();
+        dk = fold<NW>(rw);
+        dq = SAME ? dk : fold<NW>(rw + NW);
+      }
+
+      float s, smoothed, uc;
+      const bool apply =
+          probe::scalar_step(st, dq, dk, SAME, bd && t < acc, g.eta, g.lam,
+                             g.burn_in, win, s, smoothed, uc);
+      if (apply) {
+#pragma unroll
+        for (int p = 0; p < G; ++p) {
+          w[p].x = fmaf(-uc, k[p].x, w[p].x);
+          w[p].y = fmaf(-uc, k[p].y, w[p].y);
+          w[p].z = fmaf(-uc, k[p].z, w[p].z);
+          w[p].w = fmaf(-uc, k[p].w, w[p].w);
+        }
+      }
+      if (tid == 0) {
+        g.s_out[first + t] = s;
+        g.sm_out[first + t] = smoothed;
+        if (g.n_out != nullptr) g.n_out[first + t] = st.n;
+      }
+#ifdef PROBE_TWO_BARRIERS
+      __syncthreads();
+#endif
+    }
+  }
+
+#pragma unroll
+  for (int p = 0; p < G; ++p) {
+    const int j = 4 * (tid + p * NT);
+    if (vec) {
+      if (j < f) *reinterpret_cast<float4*>(W_i + j) = w[p];
+    } else {
+      if (j < f) W_i[j] = w[p].x;
+      if (j + 1 < f) W_i[j + 1] = w[p].y;
+      if (j + 2 < f) W_i[j + 2] = w[p].z;
+      if (j + 3 < f) W_i[j + 3] = w[p].w;
+    }
+  }
+  if (tid == 0) {
+    g.b[i] = st.b;
+    g.n_scores[i] = st.n;
+    g.stopped[i] = st.stopped;
+    g.stop_step[i] = st.stop_step;
+    float* ring_o = g.ring + static_cast<size_t>(i) * win;
+#pragma unroll
+    for (int r = 0; r < probe::kMaxWindow; ++r) {
+      const int x = r - (probe::kMaxWindow - win);
+      if (x >= 0) ring_o[x] = st.ring[r];
+    }
+  }
+}
+
+template <int NT, int FPT, int R, int STAGED, bool SAME>
+constexpr size_t stage_bytes() {
+  return STAGED ? static_cast<size_t>(R) * (SAME ? 1 : 2) * NT * FPT * 4
+                : 0;
+}
+
+struct Launch {
+  const Args& g;
+  template <int NT, int FPT, int R, int STAGED, bool SAME>
+  int run() const {
+    if (g.f > NT * FPT || g.win < 1 || g.win > probe::kMaxWindow ||
+        (SAME && g.zq != g.zk))
+      return cudaErrorInvalidValue;
+    if (g.B == 0) return static_cast<int>(cudaGetLastError());
+    auto kern = probe_chain_kernel<NT, FPT, R, STAGED, SAME>;
+    constexpr size_t smem = stage_bytes<NT, FPT, R, STAGED, SAME>();
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kern<<<g.B, NT, smem, g.stream>>>(g);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct Config {
+  int* out;
+  template <int NT, int FPT, int R, int STAGED, bool SAME>
+  int run() const {
+    cudaFuncAttributes a;
+    const cudaError_t e = cudaFuncGetAttributes(
+        &a, probe_chain_kernel<NT, FPT, R, STAGED, SAME>);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    out[0] = a.numRegs;
+    out[1] = static_cast<int>(a.sharedSizeBytes);
+    out[2] = static_cast<int>(a.localSizeBytes);
+    out[3] = static_cast<int>(stage_bytes<NT, FPT, R, STAGED, SAME>());
+    return 0;
+  }
+};
+
+// The instances built, one for each view of each width band of
+// kernels/probe_step.py BANDS, which chooses among them (the CPU tests
+// hold this list to BANDS).  Figures that name none are refused.
+template <class Visit>
+int with_instance(const probe::Figures& x, const Visit& vis) {
+#define PROBE_INSTANCE(NT, FPT, R, STAGED, SAME)                          \
+  if (x.nt == NT && x.fpt == FPT && x.rows == R && x.staged == STAGED &&  \
+      x.same == SAME)                                                     \
+    return vis.template run<NT, FPT, R, STAGED, SAME != 0>();
+  PROBE_INSTANCE(32, 4, 8, 0, 1)
+  PROBE_INSTANCE(32, 4, 8, 0, 0)
+  PROBE_INSTANCE(256, 4, 8, 0, 1)
+  PROBE_INSTANCE(256, 4, 8, 0, 0)
+  PROBE_INSTANCE(256, 8, 8, 0, 1)
+  PROBE_INSTANCE(256, 8, 4, 0, 0)
+  PROBE_INSTANCE(512, 8, 4, 1, 1)
+  PROBE_INSTANCE(512, 8, 4, 1, 0)
+  PROBE_INSTANCE(512, 16, 4, 1, 1)
+  PROBE_INSTANCE(512, 16, 3, 1, 0)
+#undef PROBE_INSTANCE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
+
+namespace probe {
+
+int chain_launch(const Args& g, const Figures& x) {
+  return with_instance(x, Launch{g});
+}
+
+int chain_config(const Figures& x, int* out) {
+  return with_instance(x, Config{out});
+}
+
+}  // namespace probe
 
 extern "C" int probe_spec_launch(const void* zq, const void* zk,
                                  const void* boundary, const void* accept,
@@ -74,18 +420,25 @@ extern "C" int probe_spec_launch(const void* zq, const void* zk,
                                  void* stopped, void* stop_step, void* s_out,
                                  void* sm_out, void* n_out, float eta,
                                  float lam, int burn_in, int B, int T, int f,
-                                 int win, void* stream) {
-  if (B > 0) {
-    const size_t smem = static_cast<size_t>(f) * sizeof(float);
-    probe_spec_kernel<<<B, probe::kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(zq), static_cast<const float*>(zk),
-        static_cast<const bool*>(boundary), static_cast<const int*>(accept),
-        static_cast<float*>(W), static_cast<float*>(b),
-        static_cast<float*>(ring), static_cast<int*>(n_scores),
-        static_cast<bool*>(stopped), static_cast<int*>(stop_step),
-        static_cast<float*>(s_out), static_cast<float*>(sm_out),
-        static_cast<int*>(n_out), eta, lam, burn_in, T, f, win);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                 int win, int nt, int fpt, int rows,
+                                 int staged, int same, int vec,
+                                 void* stream) {
+  const Args g{static_cast<const float*>(zq), static_cast<const float*>(zk),
+               static_cast<const bool*>(boundary),
+               static_cast<const int*>(accept), static_cast<float*>(W),
+               static_cast<float*>(b), static_cast<float*>(ring),
+               static_cast<int*>(n_scores), static_cast<bool*>(stopped),
+               static_cast<int*>(stop_step), static_cast<float*>(s_out),
+               static_cast<float*>(sm_out), static_cast<int*>(n_out), eta,
+               lam, burn_in, B, T, f, win, vec,
+               static_cast<cudaStream_t>(stream)};
+  return probe::chain_launch(g, probe::Figures{nt, fpt, rows, staged, same});
+}
+
+// The instance's registers, static shared bytes, spill bytes a thread and
+// dynamic shared bytes (out[0..3]).
+extern "C" int probe_chain_config(int nt, int fpt, int rows, int staged,
+                                  int same, int* out) {
+  return probe::chain_config(probe::Figures{nt, fpt, rows, staged, same},
+                             out);
 }

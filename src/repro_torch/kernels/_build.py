@@ -32,7 +32,8 @@ _P = _c.c_void_p
 SIGNATURES = {
     "probe_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _c.c_float, _c.c_float, _c.c_int, _c.c_int,
-                          _c.c_int, _c.c_int, _P],
+                          _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                          _c.c_int, _c.c_int, _c.c_int, _P],
     "paged_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
                             _c.c_int, _c.c_int, _c.c_int, _c.c_int,
@@ -47,7 +48,10 @@ SIGNATURES = {
                         _P],
     "probe_spec_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _c.c_float, _c.c_float, _c.c_int, _c.c_int,
-                          _c.c_int, _c.c_int, _c.c_int, _P],
+                          _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                          _c.c_int, _c.c_int, _c.c_int, _c.c_int, _P],
+    "probe_chain_config": [_c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                           _P],
     "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _c.c_int, _c.c_int, _c.c_int, _c.c_int,
                             _c.c_int, _c.c_int, _c.c_int, _c.c_float, _P],

@@ -21,6 +21,8 @@ score count, from which the scheduler replays the chain on the host.
 
 Dispatch is by the input's device: CPU tensors take the plain version,
 CUDA tensors the kernel (``csrc/probe_spec.cu``); anything else raises.
+The kernel's instance for a width is K1's (``probe_step.instance``): K1
+launches this kernel at T = 1.
 """
 from __future__ import annotations
 
@@ -29,10 +31,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.probe_step import serving_probe_step_plain
-# the widest d_model of the repo's configs: K4 keeps W_i in shared memory
-# for the whole chain, as K5 does (28 KB at this width)
-from repro_torch.kernels.ttt_scan import MAX_F
+from repro_torch.kernels.probe_step import (MAX_F, MAX_WINDOW, instance,
+                                            serving_probe_step_plain,
+                                            shared_view, vector_rows)
 
 
 class SpecProbeOut(NamedTuple):
@@ -95,13 +96,14 @@ def _check(zq, zk, boundary, accept, W, b, ring, n_scores, stopped,
         if not t.is_contiguous():
             raise ValueError(f"serving_probe_spec_step: {name} not "
                              "contiguous")
-    if win < 1:
-        raise ValueError("serving_probe_spec_step: smoothing window must be "
-                         ">= 1")
+    if not 1 <= win <= MAX_WINDOW:
+        raise ValueError(f"serving_probe_spec_step: smoothing window {win} "
+                         f"outside 1 .. {MAX_WINDOW}, the ring the kernel "
+                         "keeps in registers")
     if f > MAX_F:
         raise ValueError(f"serving_probe_spec_step: f={f} exceeds {MAX_F}, "
-                         "the widest d_model of the repo's configs, which "
-                         "the kernel keeps in shared memory")
+                         "the widest d_model of the repo's configs, for "
+                         "which the kernel has an instance")
 
 
 def serving_probe_spec_step(zq, zk, boundary, accept, W, b, ring, n_scores,
@@ -137,6 +139,7 @@ def serving_probe_spec_step(zq, zk, boundary, accept, W, b, ring, n_scores,
         p(zq), p(zk), p(boundary), p(accept), p(W), p(b), p(ring),
         p(n_scores), p(stopped), p(stop_step), p(s), p(sm_seq), p(n_seq),
         float(eta), float(lam), int(burn_in), B, T, f, ring.shape[1],
+        *instance(f, shared_view(zq, zk)), vector_rows(f, zq, zk, W),
         _build.stream_of(zq))
     _build.check(err, "serving_probe_spec_step launch")
     serving_probe_spec_step.launches += 1

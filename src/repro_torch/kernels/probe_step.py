@@ -16,16 +16,91 @@ returned ``ProbeStepOut`` holds those same tensors plus the fresh
 per-slot raw score ``s`` and smoothed score.
 
 Dispatch is by the input's device: CPU tensors take the plain version,
-CUDA tensors the kernel (``csrc/probe_step.cu``); anything else raises.
+CUDA tensors the kernel (``csrc/probe_step.cu``, K4's chain at T = 1);
+anything else raises.  ``BANDS`` and ``instance`` choose the kernel's
+instance for a width, for K1 and K4 alike, and ``shared_view`` tells it
+that zq is zk (the served no-QK view: one row read, one dot taken).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.core import probe as P
 from repro_torch.kernels import _build
+# the widest d_model of the repo's configs: the widest band keeps W_i in
+# registers, 16 features a thread of 512
+from repro_torch.kernels.ttt_scan import MAX_F
+
+# the widest smoothing window the kernel's registers hold (probe_math.cuh
+# kMaxWindow); the repo's configs use 4 and 10
+MAX_WINDOW = 16
+
+
+class Band(NamedTuple):
+    """One width band of the probe chain's instances (csrc/probe_spec.cu)."""
+    f_max: int           # widest f it takes
+    threads: int
+    fpt: int             # features a thread, in 16-byte groups of 4
+    rows_same: int       # tokens' rows in flight where zq is zk
+    rows_distinct: int   # where it is not (two rows a token)
+    staged: int          # 1: the rows' ring in shared memory (cp.async)
+
+
+# The chain's policy: which compiled instance a width takes, for K1 and K4
+# alike (K1 is K4 at T = 1), so both run one reduction tree at every width.
+# Threads times features a thread cover the band; every load is issued at
+# entry, the rows of the first R tokens into a ring of R register slots
+# (R * features a thread * rows a token at most 64 registers), or, past
+# 2048, of R stages of shared memory.  One warp at f <= 128 needs no
+# barrier.  csrc/probe_spec.cu builds exactly the instances these name
+# (tests/test_torch_probe_chain.py holds the two lists equal) and launches
+# the one the wrapper names.
+BANDS = (Band(128, 32, 4, 8, 8, 0), Band(1024, 256, 4, 8, 8, 0),
+         Band(2048, 256, 8, 8, 4, 0), Band(4096, 512, 8, 4, 4, 1),
+         Band(7168, 512, 16, 4, 3, 1))
+
+
+def instance(f: int, same: bool) -> Tuple[int, int, int, int, int]:
+    """The figures of the instance width f takes, as the launchers read
+    them: (threads, features a thread, tokens' rows in flight, staged in
+    shared memory, zq is zk); ``same``: zq and zk are one tensor."""
+    for band in BANDS:
+        if f <= band.f_max:
+            return (band.threads, band.fpt,
+                    band.rows_same if same else band.rows_distinct,
+                    band.staged, int(same))
+    raise ValueError(f"serving probe chain: f={f} exceeds {MAX_F}")
+
+
+def shared_view(zq, zk) -> bool:
+    """True iff zq and zk are one view of one tensor: the same data
+    pointer, shape, strides, dtype and device.  A clone, an offset view or
+    another stride is not (equal values in two tensors read as two)."""
+    return (zq.data_ptr() == zk.data_ptr() and zq.shape == zk.shape
+            and zq.stride() == zk.stride() and zq.dtype == zk.dtype
+            and zq.device == zk.device)
+
+
+def vector_rows(f: int, *tensors) -> int:
+    """1 where the kernel may move rows as float4: f a multiple of 4 and
+    every tensor starting on 16 bytes (the bits do not depend on it)."""
+    return int(f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def kernel_config(f: int, same: bool) -> dict:
+    """The instance width f takes on the card: its figures (``instance``)
+    and, from the library itself, its registers, static shared bytes (the
+    warps' sums), spill bytes a thread and the rows' shared ring bytes."""
+    fig = instance(f, same)
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().probe_chain_config(*fig, out),
+                 "probe_chain_config")
+    keys = ("threads", "features_per_thread", "rows_in_flight", "staged",
+            "same", "registers", "static_smem", "local_bytes", "ring_smem")
+    return dict(zip(keys, (*fig, *out)))
 
 
 class ProbeStepOut(NamedTuple):
@@ -91,8 +166,14 @@ def _check(zq, zk, boundary, W, b, ring, n_scores, stopped, stop_step):
                              f"{tuple(t.shape)}, expected {dt} {shape}")
         if not t.is_contiguous():
             raise ValueError(f"serving_probe_step: {name} not contiguous")
-    if win < 1:
-        raise ValueError("serving_probe_step: smoothing window must be >= 1")
+    if not 1 <= win <= MAX_WINDOW:
+        raise ValueError(f"serving_probe_step: smoothing window {win} "
+                         f"outside 1 .. {MAX_WINDOW}, the ring the kernel "
+                         "keeps in registers")
+    if f > MAX_F:
+        raise ValueError(f"serving_probe_step: f={f} exceeds {MAX_F}, the "
+                         "widest d_model of the repo's configs, for which "
+                         "the kernel has an instance")
 
 
 def serving_probe_step(zq, zk, boundary, W, b, ring, n_scores, stopped,
@@ -120,7 +201,9 @@ def serving_probe_step(zq, zk, boundary, W, b, ring, n_scores, stopped,
     err = _build.library().probe_step_launch(
         p(zq), p(zk), p(boundary), p(W), p(b), p(ring), p(n_scores),
         p(stopped), p(stop_step), p(s), p(smoothed), float(eta), float(lam),
-        int(burn_in), B, f, ring.shape[1], _build.stream_of(zq))
+        int(burn_in), B, f, ring.shape[1],
+        *instance(f, shared_view(zq, zk)), vector_rows(f, zq, zk, W),
+        _build.stream_of(zq))
     _build.check(err, "serving_probe_step launch")
     serving_probe_step.launches += 1
     return ProbeStepOut(s, W, b, ring, n_scores, smoothed, stopped, stop_step)
