@@ -124,12 +124,23 @@ __device__ __forceinline__ float fold(const float* rw) {
   float v[NW];
 #pragma unroll
   for (int x = 0; x < NW; ++x) v[x] = rw[x];
+  return probe::tree_sum(v);
+}
+
+// The dot of a thread's groups with its w: one sum for each lane of the
+// float4 (four short chains), then (x + y) + (z + w).
+template <int G>
+__device__ __forceinline__ float dot_groups(const float4 (&z)[G],
+                                            const float4 (&w)[G]) {
+  float x = 0.f, y = 0.f, u = 0.f, v = 0.f;
 #pragma unroll
-  for (int h = NW / 2; h > 0; h >>= 1) {
-#pragma unroll
-    for (int x = 0; x < h; ++x) v[x] = v[x] + v[x + h];
+  for (int p = 0; p < G; ++p) {
+    x = fmaf(z[p].x, w[p].x, x);
+    y = fmaf(z[p].y, w[p].y, y);
+    u = fmaf(z[p].z, w[p].z, u);
+    v = fmaf(z[p].w, w[p].w, v);
   }
-  return v[0];
+  return (x + y) + (u + v);
 }
 
 // NT threads, FPT features a thread (FPT / 4 groups), R tokens' rows in
@@ -209,6 +220,7 @@ probe_chain_kernel(const Args g) {
   st.stop_step = g.stop_step[i];
   const int acc = g.accept != nullptr ? g.accept[i] : T;
   const int win = g.win;
+  const unsigned in_window = probe::window_bits(win);
   const float* ring_i = g.ring + static_cast<size_t>(i) * win;
 #pragma unroll
   for (int r = 0; r < probe::kMaxWindow; ++r) {
@@ -241,20 +253,9 @@ probe_chain_kernel(const Args g) {
       const bool bd = rb[a];
       if constexpr (!kLate) load(a, t + R);  // the slot's next token
 
-      float ak = 0.f, aq = 0.f;
-#pragma unroll
-      for (int p = 0; p < G; ++p) {
-        ak = fmaf(k[p].x, w[p].x, ak);
-        ak = fmaf(k[p].y, w[p].y, ak);
-        ak = fmaf(k[p].z, w[p].z, ak);
-        ak = fmaf(k[p].w, w[p].w, ak);
-        if constexpr (!SAME) {
-          aq = fmaf(q[p].x, w[p].x, aq);
-          aq = fmaf(q[p].y, w[p].y, aq);
-          aq = fmaf(q[p].z, w[p].z, aq);
-          aq = fmaf(q[p].w, w[p].w, aq);
-        }
-      }
+      const float ak = dot_groups(k, w);
+      float aq = 0.f;
+      if constexpr (!SAME) aq = dot_groups(q, w);
       float dk, dq;
       if constexpr (NW == 1) {
         dk = probe::warp_sum(ak);
@@ -287,7 +288,7 @@ probe_chain_kernel(const Args g) {
       float s, smoothed, uc;
       const bool apply =
           probe::scalar_step(st, dq, dk, SAME, bd && t < acc, g.eta, g.lam,
-                             g.burn_in, win, s, smoothed, uc);
+                             g.burn_in, win, in_window, s, smoothed, uc);
       if (apply) {
 #pragma unroll
         for (int p = 0; p < G; ++p) {
@@ -396,6 +397,10 @@ int with_instance(const probe::Figures& x, const Visit& vis) {
   PROBE_INSTANCE(512, 8, 4, 1, 0)
   PROBE_INSTANCE(512, 16, 4, 1, 1)
   PROBE_INSTANCE(512, 16, 3, 1, 0)
+#ifdef PROBE_EXTRA_INSTANCES
+  // other threads and features a thread, for tools/probe_phases.py
+  PROBE_EXTRA_INSTANCES
+#endif
 #undef PROBE_INSTANCE
   return cudaErrorInvalidValue;
 }

@@ -25,7 +25,10 @@ twice; medians) with ``chip_smoke.Timer``:
   earlier design had;
 
 and the tree with zk the same tensor as zq (one row read) against zk a
-clone of zq (two rows).  Prints one line per case, then the card's name
+clone of zq (two rows), and the tree at other instances (threads,
+features a thread, rows in flight, staging; ``INSTANCE_SWEEP``, built
+into the tree's library with ``PROBE_EXTRA_INSTANCES``) with the policy
+pointed at each in turn.  Prints one line per case, then the card's name
 and power limit.  Exits non-zero without a card, when a variant does not
 build or when a check fails.
 """
@@ -40,7 +43,28 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-VARIANTS = {"tree": (), "late": ("-DPROBE_LATE_ROWS",),
+# (kernel, B, T, f, view): the instances timed against the policy's (the
+# first of each list); figures as kernels/probe_step.py instance gives them
+INSTANCE_SWEEP = {
+    ("K4", 4, 4, 960, "same"): ((256, 4, 8, 0, 1), (128, 8, 8, 0, 1),
+                                (64, 16, 4, 0, 1), (32, 32, 2, 0, 1),
+                                (32, 32, 8, 1, 1)),
+    ("K4", 4, 8, 960, "same"): ((256, 4, 8, 0, 1), (128, 8, 8, 0, 1),
+                                (64, 16, 4, 0, 1), (32, 32, 8, 1, 1)),
+    ("K4", 4, 4, 960, "distinct"): ((256, 4, 8, 0, 0), (128, 8, 4, 0, 0)),
+    ("K1", 4, 1, 960, "same"): ((256, 4, 8, 0, 1), (128, 8, 8, 0, 1),
+                                (64, 16, 4, 0, 1), (32, 32, 2, 0, 1)),
+    ("K1", 4, 1, 2048, "same"): ((256, 8, 8, 0, 1), (128, 16, 4, 0, 1),
+                                 (512, 4, 8, 0, 1)),
+    ("K4", 8, 8, 5120, "distinct"): ((512, 16, 3, 1, 0), (256, 20, 4, 1, 0),
+                                     (256, 32, 3, 1, 0)),
+    ("K4", 8, 8, 5120, "same"): ((512, 16, 4, 1, 1), (256, 20, 4, 1, 1)),
+}
+EXTRA = sorted({fig for figs in INSTANCE_SWEEP.values() for fig in figs[1:]})
+VARIANTS = {"tree": ("-DPROBE_EXTRA_INSTANCES=" + " ".join(
+                f"PROBE_INSTANCE({', '.join(map(str, fig))})"
+                for fig in EXTRA),),
+            "late": ("-DPROBE_LATE_ROWS",),
             "bar2": ("-DPROBE_TWO_BARRIERS",)}
 # (kernel, B, T, f, view): K4 at the served shape in both views, a longer
 # chain, the wide shape; K1 at the served shape and RWKV's width
@@ -78,6 +102,24 @@ def build_variants(tmp):
                                         else ctypes.c_int)
         libs[name] = lib
     return libs
+
+
+class Policy:
+    """Point K1's and K4's instance policy at one instance."""
+
+    def __init__(self, fig):
+        self.fig = tuple(fig)
+
+    def __enter__(self):
+        from repro_torch.kernels import probe_spec as K4
+        from repro_torch.kernels import probe_step as K1
+        self.saved = K1.instance
+        K1.instance = K4.instance = lambda f, same: self.fig
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import probe_spec as K4
+        from repro_torch.kernels import probe_step as K1
+        K1.instance = K4.instance = self.saved
 
 
 class Using:
@@ -184,6 +226,39 @@ def ablation(torch, cs, timer, libs):
                      median_ms={v: statistics.median(r)
                                 for v, r in runs.items()},
                      runs_ms=runs, bitwise=bitwise))
+    tree = libs["tree"]
+    for (kern, B, T, f, view), figs in INSTANCE_SWEEP.items():
+        args = inputs(torch, cs, gen, kern, B, T, f, view)
+        st0 = args[4]
+        plain = outputs(call(kern, args, [t.clone() for t in st0],
+                             plain=True))
+        regs, err = {}, {}
+        with Using(tree):
+            for fig in figs:
+                out = (ctypes.c_int * 4)()
+                from repro_torch.kernels import _build
+                _build.check(tree.probe_chain_config(*fig, out), str(fig))
+                regs[str(fig)] = list(out)
+                with Policy(fig):
+                    got = outputs(call(kern, args, [t.clone() for t in st0]))
+                torch.cuda.synchronize()
+                err[str(fig)] = max(float((a.float() - b.float()).abs().max())
+                                    for a, b in zip(got, plain))
+                if err[str(fig)] > cs.K4_TOL:
+                    raise AssertionError(f"{fig} {kern} off its plain "
+                                         f"version: {err[str(fig)]}")
+            runs = {str(fig): [] for fig in figs}
+            st = [t.clone() for t in st0]
+            for _ in range(2):
+                for fig in list(figs) + list(figs)[::-1]:
+                    with Policy(fig):
+                        runs[str(fig)].append(timer(
+                            lambda: call(kern, args, st), reps=200))
+        cs.emit(dict(phase="probe-instances", kernel=kern, B=B, T=T, f=f,
+                     view=view, median_ms={k: statistics.median(r)
+                                           for k, r in runs.items()},
+                     runs_ms=runs, regs_smem_local_ring=regs,
+                     max_abs_err=err))
 
 
 def main() -> int:
