@@ -399,7 +399,7 @@ int with_instance(const probe::Figures& x, const Visit& vis) {
   PROBE_INSTANCE(512, 16, 3, 1, 0)
 #ifdef PROBE_EXTRA_INSTANCES
   // other threads and features a thread, for tools/probe_phases.py
-  PROBE_EXTRA_INSTANCES
+#include "probe_extra_instances.inc"
 #endif
 #undef PROBE_INSTANCE
   return cudaErrorInvalidValue;

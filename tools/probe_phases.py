@@ -13,16 +13,19 @@ with their bounds and instances (registers, threads).  ``--check`` times
 nothing (every ms prints 0): a first call after a change to the kernel.
 
 The ablation builds variants of ``src/repro_torch/csrc/probe_spec.cu``
-side by side (one ``nvcc`` each, the sources as they are with a -D flag),
-holds each to the plain version and to the sources as they are, bit for
-bit, and times them through the wrappers in turns (a, b, c, c, b, a,
-twice; medians) with ``chip_smoke.Timer``:
+side by side (one ``nvcc`` each, a copy of the sources with a -D flag or
+a substitution), holds each to the plain version and to the sources as
+they are, bit for bit, and times them through the wrappers in turns (a,
+b, c, d, d, c, b, a, twice; medians) with ``chip_smoke.Timer``:
 
 * ``tree``:  the sources as they are;
 * ``late``:  ``PROBE_LATE_ROWS``: each token's rows loaded when its step
   starts, none in flight ahead (rows not preloaded);
 * ``bar2``:  ``PROBE_TWO_BARRIERS``: a second barrier a token, as the
   earlier design had;
+* ``line``:  the sigmoid replaced by a line, a cheap stand-in for the
+  scalar logic's longest piece (wrong values: its error is printed, not
+  held);
 
 and the tree with zk the same tensor as zq (one row read) against zk a
 clone of zq (two rows), and the tree at other instances (threads,
@@ -34,6 +37,7 @@ build or when a check fails.
 """
 import ctypes
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -61,11 +65,15 @@ INSTANCE_SWEEP = {
     ("K4", 8, 8, 5120, "same"): ((512, 16, 4, 1, 1), (256, 20, 4, 1, 1)),
 }
 EXTRA = sorted({fig for figs in INSTANCE_SWEEP.values() for fig in figs[1:]})
-VARIANTS = {"tree": ("-DPROBE_EXTRA_INSTANCES=" + " ".join(
-                f"PROBE_INSTANCE({', '.join(map(str, fig))})"
-                for fig in EXTRA),),
-            "late": ("-DPROBE_LATE_ROWS",),
-            "bar2": ("-DPROBE_TWO_BARRIERS",)}
+# name: (nvcc flags, substitutions (file, old, new)); the tree's library
+# also holds the EXTRA instances (probe_extra_instances.inc)
+SIGMOID = "return 1.0f / (1.0f + expf(-x));"
+VARIANTS = {"tree": (("-DPROBE_EXTRA_INSTANCES",), ()),
+            "late": (("-DPROBE_LATE_ROWS",), ()),
+            "bar2": (("-DPROBE_TWO_BARRIERS",), ()),
+            "line": ((), (("probe_math.cuh", SIGMOID,
+                           "return 0.5f + 0.125f * x;"),))}
+WRONG = ("line",)  # variants whose values are not held
 # (kernel, B, T, f, view): K4 at the served shape in both views, a longer
 # chain, the wide shape; K1 at the served shape and RWKV's width
 CASES = (("K4", 4, 4, 960, "same"), ("K4", 4, 4, 960, "distinct"),
@@ -79,12 +87,23 @@ VIEW_CASES = (("K4", 4, 4, 960), ("K4", 4, 8, 960), ("K4", 8, 8, 5120),
 def build_variants(tmp):
     from repro_torch.kernels import _build
     procs = {}
-    for name, flags in VARIANTS.items():
+    for name, (flags, subs) in VARIANTS.items():
+        src = os.path.join(tmp, name)
+        shutil.copytree(_build.CSRC, src)
+        for fname, old, new in subs:
+            path = os.path.join(src, fname)
+            text = open(path).read()
+            if old not in text:
+                raise SystemExit(f"probe_phases: {name}: {fname} no longer "
+                                 f"holds {old!r}")
+            open(path, "w").write(text.replace(old, new))
+        with open(os.path.join(src, "probe_extra_instances.inc"), "w") as fh:
+            for fig in EXTRA:
+                fh.write(f"PROBE_INSTANCE({', '.join(map(str, fig))})\n")
         lib = os.path.join(tmp, f"lib_{name}.so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I",
-               str(_build.CSRC), "-shared", "-o", lib,
-               str(_build.CSRC / "probe_spec.cu"),
-               str(_build.CSRC / "probe_step.cu")]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I", src,
+               "-shared", "-o", lib, os.path.join(src, "probe_spec.cu"),
+               os.path.join(src, "probe_step.cu")]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT,
                                              text=True))
@@ -187,6 +206,8 @@ def ablation(torch, cs, timer, libs):
             torch.cuda.synchronize()
             err[name] = max(float((a.float() - b.float()).abs().max())
                             for a, b in zip(got, plain))
+            if name in WRONG:
+                continue
             if err[name] > cs.K4_TOL:
                 raise AssertionError(f"{name} {kern} off its plain version: "
                                      f"{err[name]}")
