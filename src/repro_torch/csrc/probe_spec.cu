@@ -393,10 +393,12 @@ int with_instance(const probe::Figures& x, const Visit& vis) {
   PROBE_INSTANCE(256, 4, 8, 0, 0)
   PROBE_INSTANCE(256, 8, 8, 0, 1)
   PROBE_INSTANCE(256, 8, 4, 0, 0)
-  PROBE_INSTANCE(512, 8, 4, 1, 1)
-  PROBE_INSTANCE(512, 8, 4, 1, 0)
-  PROBE_INSTANCE(512, 16, 4, 1, 1)
-  PROBE_INSTANCE(512, 16, 3, 1, 0)
+  PROBE_INSTANCE(256, 16, 4, 1, 1)
+  PROBE_INSTANCE(256, 16, 4, 1, 0)
+  PROBE_INSTANCE(256, 20, 4, 1, 1)
+  PROBE_INSTANCE(256, 20, 4, 1, 0)
+  PROBE_INSTANCE(256, 28, 4, 1, 1)
+  PROBE_INSTANCE(256, 28, 3, 1, 0)
 #ifdef PROBE_EXTRA_INSTANCES
   // other threads and features a thread, for tools/probe_phases.py
 #include "probe_extra_instances.inc"

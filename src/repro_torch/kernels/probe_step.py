@@ -31,7 +31,7 @@ import torch
 from repro_torch.core import probe as P
 from repro_torch.kernels import _build
 # the widest d_model of the repo's configs: the widest band keeps W_i in
-# registers, 16 features a thread of 512
+# registers, 28 features a thread of 256
 from repro_torch.kernels.ttt_scan import MAX_F
 
 # the widest smoothing window the kernel's registers hold (probe_math.cuh
@@ -55,12 +55,14 @@ class Band(NamedTuple):
 # entry, the rows of the first R tokens into a ring of R register slots
 # (R * features a thread * rows a token at most 64 registers), or, past
 # 2048, of R stages of shared memory.  One warp at f <= 128 needs no
-# barrier.  csrc/probe_spec.cu builds exactly the instances these name
-# (tests/test_torch_probe_chain.py holds the two lists equal) and launches
-# the one the wrapper names.
+# barrier.  256 threads at every wider band: on an H100, 128, 64 and 32
+# threads at f 960 and 512 at f 2048 and 5120 were slower (PERF.md,
+# tools/probe_phases.py).  csrc/probe_spec.cu builds exactly the
+# instances these name (tests/test_torch_probe_chain.py holds the two
+# lists equal) and launches the one the wrapper names.
 BANDS = (Band(128, 32, 4, 8, 8, 0), Band(1024, 256, 4, 8, 8, 0),
-         Band(2048, 256, 8, 8, 4, 0), Band(4096, 512, 8, 4, 4, 1),
-         Band(7168, 512, 16, 4, 3, 1))
+         Band(2048, 256, 8, 8, 4, 0), Band(4096, 256, 16, 4, 4, 1),
+         Band(5120, 256, 20, 4, 4, 1), Band(7168, 256, 28, 4, 3, 1))
 
 
 def instance(f: int, same: bool) -> Tuple[int, int, int, int, int]:

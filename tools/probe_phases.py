@@ -27,6 +27,11 @@ b, c, d, d, c, b, a, twice; medians) with ``chip_smoke.Timer``:
   scalar logic's longest piece (wrong values: its error is printed, not
   held);
 
+the tree at (4, T, 960), T 1, 2, 4 and 8, in both views, timed after
+the Timer's flush (1 GiB zeroed: the L2 full of dirty lines), after a
+read of the same GiB (the L2 full of clean lines) and after a wait on the
+card alone (``torch.cuda._sleep``: the rows still in the L2 from the
+last call), with each view's slope over T;
 and the tree with zk the same tensor as zq (one row read) against zk a
 clone of zq (two rows), and the tree at other instances (threads,
 features a thread, rows in flight, staging; ``INSTANCE_SWEEP``, built
@@ -60,13 +65,25 @@ INSTANCE_SWEEP = {
                                 (64, 16, 4, 0, 1), (32, 32, 2, 0, 1)),
     ("K1", 4, 1, 2048, "same"): ((256, 8, 8, 0, 1), (128, 16, 4, 0, 1),
                                  (512, 4, 8, 0, 1)),
-    ("K4", 8, 8, 5120, "distinct"): ((512, 16, 3, 1, 0), (256, 20, 4, 1, 0),
-                                     (256, 32, 3, 1, 0)),
-    ("K4", 8, 8, 5120, "same"): ((512, 16, 4, 1, 1), (256, 20, 4, 1, 1)),
+    ("K4", 8, 8, 5120, "distinct"): ((256, 20, 4, 1, 0), (512, 16, 3, 1, 0),
+                                     (256, 28, 3, 1, 0)),
+    ("K4", 8, 8, 5120, "same"): ((256, 20, 4, 1, 1), (512, 16, 4, 1, 1)),
+    ("K4", 8, 8, 4096, "distinct"): ((256, 16, 4, 1, 0), (512, 8, 4, 1, 0)),
 }
-EXTRA = sorted({fig for figs in INSTANCE_SWEEP.values() for fig in figs[1:]})
+
+
+def _extra():
+    """The swept instances the policy does not name (the sources build
+    those)."""
+    from repro_torch.kernels import probe_step as K1
+    built = {K1.instance(b.f_max, s) for b in K1.BANDS for s in (0, 1)}
+    return sorted({fig for figs in INSTANCE_SWEEP.values() for fig in figs}
+                  - built)
+
+
+
 # name: (nvcc flags, substitutions (file, old, new)); the tree's library
-# also holds the EXTRA instances (probe_extra_instances.inc)
+# also holds the swept instances (_extra, probe_extra_instances.inc)
 SIGMOID = "return 1.0f / (1.0f + expf(-x));"
 VARIANTS = {"tree": (("-DPROBE_EXTRA_INSTANCES",), ()),
             "late": (("-DPROBE_LATE_ROWS",), ()),
@@ -98,7 +115,7 @@ def build_variants(tmp):
                                  f"holds {old!r}")
             open(path, "w").write(text.replace(old, new))
         with open(os.path.join(src, "probe_extra_instances.inc"), "w") as fh:
-            for fig in EXTRA:
+            for fig in _extra():
                 fh.write(f"PROBE_INSTANCE({', '.join(map(str, fig))})\n")
         lib = os.path.join(tmp, f"lib_{name}.so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I", src,
@@ -188,6 +205,59 @@ def call(kern, args, st, plain=False):
 
 def outputs(out):
     return [t.clone() for t in out]
+
+
+class ReadTimer:
+    """chip_smoke.Timer with the 1 GiB buffer read (summed) before each
+    call instead of zeroed: the L2 holds clean lines, none to write back;
+    or, with ``sleep``, the card spinning for about 0.5 ms instead: the
+    L2 holds what the last call read."""
+
+    def __init__(self, torch, flush, sleep=False):
+        self.torch, self.flush, self.sleep = torch, flush, sleep
+
+    def __call__(self, fn, reps=200, warmup=3):
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        pairs = []
+        for _ in range(reps):
+            if self.sleep:
+                torch.cuda._sleep(1_000_000)
+            else:
+                self.flush.sum(dtype=torch.int32)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def l2_rows(torch, cs, timer):
+    """The served chain's slope with the L2 dirty, clean and warm."""
+    timers = {"dirty": timer, "clean": ReadTimer(torch, timer.flush),
+              "warm": ReadTimer(torch, timer.flush, sleep=True)}
+    gen = torch.Generator().manual_seed(cs.SEED + 11)
+    for view in ("same", "distinct"):
+        rows = {k: [] for k in timers}
+        for T in (1, 2, 4, 8):
+            args = inputs(torch, cs, gen, "K4", 4, T, 960, view)
+            st = [t.clone() for t in args[4]]
+            for name in list(timers) + list(timers)[::-1]:
+                rows[name].append(dict(T=T, ms=timers[name](
+                    lambda: call("K4", args, st), reps=200)))
+        # two readings of each T in turns: the mean of the pair
+        ms = {k: [(r[2 * i]["ms"] + r[2 * i + 1]["ms"]) / 2
+                  for i in range(4)] for k, r in
+              ((k, sorted(v, key=lambda x: x["T"])) for k, v in rows.items())}
+        cs.emit(dict(phase="probe-l2", kernel="K4", B=4, f=960, view=view,
+                     T=[1, 2, 4, 8], ms=ms,
+                     slope_ms_per_token={k: cs.slope(
+                         [dict(T=T, ms=m) for T, m in zip((1, 2, 4, 8), v)])
+                         for k, v in ms.items()}))
 
 
 def ablation(torch, cs, timer, libs):
@@ -308,6 +378,7 @@ def main() -> int:
     cs.phase_k1(torch, timer)
     cs.phase_k4(torch, timer)
     if not check:
+        l2_rows(torch, cs, timer)
         with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
             ablation(torch, cs, timer, build_variants(tmp))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
