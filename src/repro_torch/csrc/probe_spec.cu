@@ -252,6 +252,7 @@ probe_chain_kernel(const Args g) {
       }
       const bool bd = rb[a];
       if constexpr (!kLate) load(a, t + R);  // the slot's next token
+      const probe::Pre pre = probe::prepare(st, bd && t < acc, win);
 
       const float ak = dot_groups(k, w);
       float aq = 0.f;
@@ -287,8 +288,8 @@ probe_chain_kernel(const Args g) {
 
       float s, smoothed, uc;
       const bool apply =
-          probe::scalar_step(st, dq, dk, SAME, bd && t < acc, g.eta, g.lam,
-                             g.burn_in, win, in_window, s, smoothed, uc);
+          probe::scalar_step(st, pre, dq, dk, SAME, g.eta, g.lam,
+                             g.burn_in, in_window, s, smoothed, uc);
       if (apply) {
 #pragma unroll
         for (int p = 0; p < G; ++p) {

@@ -23,9 +23,16 @@ b, c, d, d, c, b, a, twice; medians) with ``chip_smoke.Timer``:
   starts, none in flight ahead (rows not preloaded);
 * ``bar2``:  ``PROBE_TWO_BARRIERS``: a second barrier a token, as the
   earlier design had;
+* ``ieee``:  the sigmoid's reciprocal and the smoothed score's division
+  as the compiler's division (``/``, with its branch to a slow path)
+  instead of ``rcp_rn`` and ``div_rn``: the same values, bit for bit;
 * ``line``:  the sigmoid replaced by a line, a cheap stand-in for the
-  scalar logic's longest piece (wrong values: its error is printed, not
-  held);
+  scalar logic's longest piece;
+* ``noshfl``: no warp shuffles (each warp's sum is its lane's);
+* ``nobar``: no barrier (the fold reads whatever the buffer holds);
+
+``line``, ``noshfl`` and ``nobar`` give wrong values: each is the time of
+everything but a piece, its error printed, not held;
 
 the tree at (4, T, 960), T 1, 2, 4 and 8, in both views, timed after
 the Timer's flush (1 GiB zeroed: the L2 full of dirty lines), after a
@@ -84,13 +91,31 @@ def _extra():
 
 # name: (nvcc flags, substitutions (file, old, new)); the tree's library
 # also holds the swept instances (_extra, probe_extra_instances.inc)
-SIGMOID = "return 1.0f / (1.0f + expf(-x));"
+SIGMOID = "return rcp_rn(1.0f + expf(-x));"
+DIVISION = "div_rn(tree_sum(st.ring), pre.d, pre.rd)"
 VARIANTS = {"tree": (("-DPROBE_EXTRA_INSTANCES",), ()),
             "late": (("-DPROBE_LATE_ROWS",), ()),
             "bar2": (("-DPROBE_TWO_BARRIERS",), ()),
             "line": ((), (("probe_math.cuh", SIGMOID,
-                           "return 0.5f + 0.125f * x;"),))}
-WRONG = ("line",)  # variants whose values are not held
+                           "return 0.5f + 0.125f * x;"),)),
+            "ieee": ((), (("probe_math.cuh", SIGMOID,
+                           "return 1.0f / (1.0f + expf(-x));"),
+                          ("probe_math.cuh", DIVISION,
+                           "tree_sum(st.ring) / pre.d"))),
+            "noshfl": ((), (("probe_math.cuh",
+                             "v += __shfl_xor_sync(0xffffffffu, v, o);",
+                             "v += 0.0f;"),
+                            ("probe_spec.cu",
+                             "__shfl_xor_sync(0xffffffffu, hi ? ak : aq, "
+                             "16);", "0.0f;"),
+                            ("probe_spec.cu",
+                             "v += __shfl_xor_sync(0xffffffffu, v, o);",
+                             "v += 0.0f;"))),
+            "nobar": ((), (("probe_spec.cu",
+                            "        __syncthreads();\n        dk = fold",
+                            "        dk = fold"),))}
+# variants whose values are not held
+WRONG = ("line", "noshfl", "nobar")
 # (kernel, B, T, f, view): K4 at the served shape in both views, a longer
 # chain, the wide shape; K1 at the served shape and RWKV's width
 CASES = (("K4", 4, 4, 960, "same"), ("K4", 4, 4, 960, "distinct"),
