@@ -290,14 +290,12 @@ probe_chain_kernel(const Args g) {
       const bool apply =
           probe::scalar_step(st, pre, dq, dk, SAME, g.eta, g.lam,
                              g.burn_in, in_window, s, smoothed, uc);
-      if (apply) {
 #pragma unroll
-        for (int p = 0; p < G; ++p) {
-          w[p].x = fmaf(-uc, k[p].x, w[p].x);
-          w[p].y = fmaf(-uc, k[p].y, w[p].y);
-          w[p].z = fmaf(-uc, k[p].z, w[p].z);
-          w[p].w = fmaf(-uc, k[p].w, w[p].w);
-        }
+      for (int p = 0; p < G; ++p) {
+        w[p].x = apply ? fmaf(-uc, k[p].x, w[p].x) : w[p].x;
+        w[p].y = apply ? fmaf(-uc, k[p].y, w[p].y) : w[p].y;
+        w[p].z = apply ? fmaf(-uc, k[p].z, w[p].z) : w[p].z;
+        w[p].w = apply ? fmaf(-uc, k[p].w, w[p].w) : w[p].w;
       }
       if (tid == 0) {
         g.s_out[first + t] = s;

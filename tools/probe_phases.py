@@ -66,7 +66,10 @@ INSTANCE_SWEEP = {
                                 (64, 16, 4, 0, 1), (32, 32, 2, 0, 1),
                                 (32, 32, 8, 1, 1)),
     ("K4", 4, 8, 960, "same"): ((256, 4, 8, 0, 1), (128, 8, 8, 0, 1),
-                                (64, 16, 4, 0, 1), (32, 32, 8, 1, 1)),
+                                (64, 16, 4, 0, 1), (32, 32, 8, 1, 1),
+                                (256, 4, 4, 0, 1), (256, 4, 2, 0, 1),
+                                (256, 4, 1, 0, 1), (256, 4, 8, 1, 1),
+                                (256, 4, 2, 1, 1)),
     ("K4", 4, 4, 960, "distinct"): ((256, 4, 8, 0, 0), (128, 8, 4, 0, 0)),
     ("K1", 4, 1, 960, "same"): ((256, 4, 8, 0, 1), (128, 8, 8, 0, 1),
                                 (64, 16, 4, 0, 1), (32, 32, 2, 0, 1)),
