@@ -9,8 +9,15 @@ non-zero:
 1. build    -- compile the hand-written kernels from ``src/repro_torch/csrc``
 2. k1       -- the serving probe step against its plain PyTorch version
                over 12 chained steps at B=8 and at the serving shape B=4
-               (f=960); timed at B=4; the same chain and timing at the
-               RWKV fleet's probe width (B 4, f 2048)
+               (f=960); the same chain with zk the same tensor as zq (the
+               served no-QK view, one row read) and with another tensor
+               at f 128, 130, 960, 2048 and 5120, and K1(zq, zq) equal to
+               K1(zq, zq.clone()) bit for bit at each; the Timer's floor
+               (``floor_ms``: one launch of ``torch.empty(1).zero_()``);
+               timed at B=4 in both views; the same chain and timing at
+               the RWKV fleet's probe width (B 4, f 2048); each timed row
+               names its instance (threads, features a thread, rows in
+               flight, registers)
 3. k2       -- paged flash decode against its plain version, bf16, int8
                and f32 pages, the serving shape and nb in {8, 64, 256}
                (past 256 positions split over blocks and merged); timed
@@ -32,12 +39,15 @@ non-zero:
                rate) beside bound_ms
 5. k4       -- the masked multi-token probe step against its plain version
                and against T masked K1 launches on copies of the same
-               state: B 1, 4, 8; T 1, 2, 4, 8; f 128, 960, 5120; accepted
-               lengths 0, 1, T-1, T and mixed; a stop mid-chain, a slot
-               stopped on entry, the burn-in not reached; timed at the
-               served shape (4 slots, k 4, f 960) and three wider ones;
-               then K3 timed at the verify shape (k3-verify: 4 segments
-               of 4 tokens)
+               state, bit for bit in every case: B 1, 4, 8; T 1, 2, 4, 8;
+               f 128, 960, 5120; accepted lengths 0, 1, T-1, T and mixed;
+               a stop mid-chain, a slot stopped on entry, the burn-in not
+               reached; zk the same tensor as zq and another tensor at f
+               128, 130, 960, 2048 and 5120; the Timer's floor; timed at
+               the served shape (4 slots, k 4, f 960) and three wider
+               ones, and over T 1, 2, 4, 8 at (4, T, 960) in both views
+               with the slope per token; then K3 timed at the verify
+               shape (k3-verify: 4 segments of 4 tokens)
 6. k5       -- the offline TTT scan against its plain version and against
                its own L-step form (``ttt_probe_lookahead_plain`` at the
                kernel's L for the width): f 128, 960, 5120 and 2048 (the
