@@ -316,6 +316,11 @@ def k1_chain(torch, K1, gen, B, f, win, steps, eta, lam, burn_in,
     return err, margin, kern[5].tolist()
 
 
+# K1's outputs and state
+PROBE_FIELDS = ("s", "W", "b", "ring", "n_scores", "smoothed", "stopped",
+                "stop_step")
+
+
 def k1_shared_bitwise(torch, K1, gen, B, f, win, eta, lam, burn_in):
     """K1(zq, zq) -- one tensor, one row read -- against K1(zq, zq.clone())
     -- two rows -- from copies of one state, every slot at a boundary:
@@ -328,16 +333,11 @@ def k1_shared_bitwise(torch, K1, gen, B, f, win, eta, lam, burn_in):
     b = K1.serving_probe_step(zq, zq.clone(), bnd, *two, eta, lam,
                               burn_in=burn_in)
     sync(torch)
-    for name in ProbeFields:
+    for name in PROBE_FIELDS:
         if not torch.equal(getattr(a, name), getattr(b, name)):
             raise AssertionError(f"K1 f={f}: zk is zq and zk a clone of zq "
                                  f"differ in {name}")
     return True
-
-
-# K1's and K4's outputs and state
-ProbeFields = ("s", "W", "b", "ring", "n_scores", "smoothed", "stopped",
-               "stop_step")
 
 
 def floor_ms(torch, timer) -> float:

@@ -20,12 +20,12 @@
 // Bound on the H100: bytes.  Per slot the chain reads T (zq, zk) rows and
 // W once and writes W once, about 7 flops per feature and token, far below
 // the ridge; at the served shape (4 slots, T 4, f 960) the call moves
-// about 80 KB, so latency sets its time: what held each token back was a
-// cold load of its rows after the previous token's second barrier, and
-// the slot's scalar state making a round trip through global memory in
-// one thread while the others waited.  The Pallas kernel transposes to
-// (T, B, f) and runs a fori_loop over T on one core; here blocks run in
-// no order, and the design is:
+// about 150 KB (90 KB where zq is zk), so latency sets its time: what
+// held each token back was a cold load of its rows after the previous
+// token's second barrier, and the slot's scalar state making a round trip
+// through global memory in one thread while the others waited.  The
+// Pallas kernel transposes to (T, B, f) and runs a fori_loop over T on
+// one core; here blocks run in no order, and the design is:
 //   * one block per slot (slots never communicate); thread tid owns the
 //     16-byte groups tid, tid + NT, ... of a row: W_i lives in its
 //     registers for the whole chain, loaded once and stored once, and the
@@ -53,7 +53,9 @@
 //
 // Ablations (tools/probe_phases.py builds them with -D): PROBE_LATE_ROWS
 // loads each token's rows when its step starts; PROBE_TWO_BARRIERS adds a
-// second barrier a token, as the earlier design had.
+// second barrier a token, as the earlier design had;
+// PROBE_EXTRA_INSTANCES builds the instances the tool lists in
+// probe_extra_instances.inc beside the policy's.
 
 #include <cuda_runtime.h>
 
