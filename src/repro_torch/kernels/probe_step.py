@@ -57,9 +57,9 @@ class Band(NamedTuple):
 # 2048, of R stages of shared memory.  One warp at f <= 128 needs no
 # barrier.  256 threads at every wider band: on an NVIDIA H100 80GB HBM3
 # at 700 W, 128, 64 and 32 threads at f 960 and 512 at f 2048 and 5120
-# were slower (PERF.md, tools/probe_phases.py).  csrc/probe_spec.cu builds exactly the
-# instances these name (tests/test_torch_probe_chain.py holds the two
-# lists equal) and launches the one the wrapper names.
+# were slower (PERF.md, tools/probe_phases.py).  csrc/probe_spec.cu
+# builds exactly the instances these name (tests/test_torch_probe_chain.py
+# holds the two lists equal) and launches the one the wrapper names.
 BANDS = (Band(128, 32, 4, 8, 8, 0), Band(1024, 256, 4, 8, 8, 0),
          Band(2048, 256, 8, 8, 4, 0), Band(4096, 256, 16, 4, 4, 1),
          Band(5120, 256, 20, 4, 4, 1), Band(7168, 256, 28, 4, 3, 1))

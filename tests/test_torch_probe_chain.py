@@ -121,7 +121,8 @@ def test_vector_rows_needs_16_bytes_and_a_multiple_of_4():
 
 def _state(B, f, win=4):
     return [torch.zeros(B, f), torch.zeros(B), torch.zeros(B, win),
-            torch.zeros(B, dtype=torch.int32), torch.zeros(B, dtype=torch.bool),
+            torch.zeros(B, dtype=torch.int32),
+            torch.zeros(B, dtype=torch.bool),
             torch.full((B,), -1, dtype=torch.int32)]
 
 
