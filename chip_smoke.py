@@ -16,8 +16,7 @@ non-zero:
                (``floor_ms``: one launch of ``torch.empty(1).zero_()``);
                timed at B=4 in both views; the same chain and timing at
                the RWKV fleet's probe width (B 4, f 2048); each timed row
-               names its instance (threads, features a thread, rows in
-               flight, registers)
+               names its instance (threads, features a thread, registers)
 3. k2       -- paged flash decode against its plain version, bf16, int8
                and f32 pages, the serving shape and nb in {8, 64, 256}
                (past 256 positions split over blocks and merged); timed
@@ -351,8 +350,7 @@ def chain_config(K1, f, same):
     card; figures only on the CPU)."""
     if DEV != "cuda":
         fig = K1.instance(f, same)
-        return dict(threads=fig[0], features_per_thread=fig[1],
-                    rows_in_flight=fig[2], staged=fig[3], same=fig[4])
+        return dict(threads=fig[0], features_per_thread=fig[1], same=fig[2])
     return K1.kernel_config(f, same)
 
 

@@ -31,19 +31,22 @@
 //     registers for the whole chain, loaded once and stored once, and the
 //     update reads nothing again;
 //   * every load is issued at entry: W_i, the slot's scalar state, and the
-//     rows and boundary flags of the first R tokens, into a ring of R
-//     register slots (the loop unrolled so that every index is static) or,
-//     at the wide bands, of R stages in shared memory filled by cp.async.
-//     Each thread reads back only the groups it copied, so the ring needs
-//     no barrier.  A token's slot is refilled with token t + R as soon as
-//     its rows are read;
+//     rows and boundary flags of the first kRing tokens, into a ring of
+//     kRing stages in shared memory filled by cp.async (the flags into
+//     registers, the loop unrolled kRing times so that their index is
+//     static).  Each thread reads back only the groups it copied, so the
+//     ring needs no barrier.  A token's stage is refilled with token t +
+//     kRing as soon as its rows are read.  A ring of two stages was the
+//     fastest on the card at every width: faster than deeper rings and
+//     than rings of registers, whose loads the chain then waited on
+//     (PERF.md);
 //   * one barrier a token: the warps' sums go to the buffer of the token's
 //     parity, and every thread folds them and runs the scalar logic in
 //     registers (probe_math.cuh); thread 0 writes the token's s, smoothed
 //     and n, and the final state once, at the end;
 //   * where zq is zk (the served no-QK view) one row is read and one dot
 //     taken;
-//   * NT, features a thread, R and the staging are compile-time.
+//   * NT and the features a thread are compile-time.
 //     kernels/probe_step.py BANDS decides which instance a width takes and
 //     passes its figures; the launcher only finds the instance of that
 //     list (with_instance).  Rows move as float4 where f is a multiple of
@@ -93,19 +96,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The group of features j .. j + 3 of a read-only row, zero past f.
-__device__ __forceinline__ float4 load_group(const float* __restrict__ row,
-                                             int j, int f, bool vec) {
-  if (vec)
-    return j < f ? __ldg(reinterpret_cast<const float4*>(row + j))
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  return make_float4(j < f ? __ldg(row + j) : 0.f,
-                     j + 1 < f ? __ldg(row + j + 1) : 0.f,
-                     j + 2 < f ? __ldg(row + j + 2) : 0.f,
-                     j + 3 < f ? __ldg(row + j + 3) : 0.f);
-}
-
-// The same group copied into shared memory by this thread.
+// The group of features j .. j + 3 of a row copied into shared memory by
+// this thread, zero past f.
 __device__ __forceinline__ void stage_group(float4* dst,
                                             const float* __restrict__ row,
                                             int j, int f, bool vec) {
@@ -145,15 +137,17 @@ __device__ __forceinline__ float dot_groups(const float4 (&z)[G],
   return (x + y) + (u + v);
 }
 
-// NT threads, FPT features a thread (FPT / 4 groups), R tokens' rows in
-// flight, STAGED: the ring in shared memory, SAME: zq is zk.
-template <int NT, int FPT, int R, int STAGED, bool SAME>
+// Tokens' rows in flight: the stages of the ring.
+constexpr int kRing = 2;
+
+// NT threads, FPT features a thread (FPT / 4 groups), SAME: zq is zk.
+template <int NT, int FPT, bool SAME>
 __global__ void __launch_bounds__(NT)
 probe_chain_kernel(const Args g) {
   constexpr int G = FPT / 4;          // 16-byte groups a thread
   constexpr int NW = NT / 32;
   constexpr int ROWS = SAME ? 1 : 2;  // rows a token: zk (and zq)
-  constexpr int RS = STAGED ? 1 : R;  // register slots
+  constexpr int R = kRing;
 #ifdef PROBE_LATE_ROWS
   constexpr bool kLate = true;
 #else
@@ -172,10 +166,9 @@ probe_chain_kernel(const Args g) {
   const float* zq_i = g.zq + first * f;
   float* W_i = g.W + static_cast<size_t>(i) * f;
 
-  float4 rk[RS][G], rq[SAME ? 1 : RS][G];
   bool rb[R];
-  // token t's rows and boundary flag into slot a (a static after
-  // unrolling); a staged slot commits one cp.async group, empty past T
+  // token t's rows into stage a and its boundary flag into rb[a] (a
+  // static after unrolling); one cp.async group, empty past T
   auto load = [&](int a, int t) {
     if (t < T) {
       rb[a] = g.boundary[first + t];
@@ -184,18 +177,13 @@ probe_chain_kernel(const Args g) {
 #pragma unroll
       for (int p = 0; p < G; ++p) {
         const int j = 4 * (tid + p * NT);
-        if constexpr (STAGED) {
-          stage_group(&stage[((a * ROWS) * G + p) * NT + tid], k, j, f, vec);
-          if constexpr (!SAME)
-            stage_group(&stage[((a * ROWS + 1) * G + p) * NT + tid], q, j,
-                        f, vec);
-        } else {
-          rk[a][p] = load_group(k, j, f, vec);
-          if constexpr (!SAME) rq[a][p] = load_group(q, j, f, vec);
-        }
+        stage_group(&stage[((a * ROWS) * G + p) * NT + tid], k, j, f, vec);
+        if constexpr (!SAME)
+          stage_group(&stage[((a * ROWS + 1) * G + p) * NT + tid], q, j, f,
+                      vec);
       }
     }
-    if constexpr (STAGED) cp_async_commit();
+    cp_async_commit();
   };
 
   float4 w[G];
@@ -238,19 +226,11 @@ probe_chain_kernel(const Args g) {
       if (t >= T) break;
       if constexpr (kLate) load(a, t);
       float4 k[G], q[SAME ? 1 : G];
-      if constexpr (STAGED) {
-        cp_async_wait<kLate ? 0 : R - 1>();  // token t's stage has landed
+      cp_async_wait<kLate ? 0 : R - 1>();  // token t's stage has landed
 #pragma unroll
-        for (int p = 0; p < G; ++p) {
-          k[p] = stage[((a * ROWS) * G + p) * NT + tid];
-          if constexpr (!SAME) q[p] = stage[((a * ROWS + 1) * G + p) * NT + tid];
-        }
-      } else {
-#pragma unroll
-        for (int p = 0; p < G; ++p) {
-          k[p] = rk[a][p];
-          if constexpr (!SAME) q[p] = rq[a][p];
-        }
+      for (int p = 0; p < G; ++p) {
+        k[p] = stage[((a * ROWS) * G + p) * NT + tid];
+        if constexpr (!SAME) q[p] = stage[((a * ROWS + 1) * G + p) * NT + tid];
       }
       const bool bd = rb[a];
       if constexpr (!kLate) load(a, t + R);  // the slot's next token
@@ -336,22 +316,21 @@ probe_chain_kernel(const Args g) {
   }
 }
 
-template <int NT, int FPT, int R, int STAGED, bool SAME>
+template <int NT, int FPT, bool SAME>
 constexpr size_t stage_bytes() {
-  return STAGED ? static_cast<size_t>(R) * (SAME ? 1 : 2) * NT * FPT * 4
-                : 0;
+  return static_cast<size_t>(kRing) * (SAME ? 1 : 2) * NT * FPT * 4;
 }
 
 struct Launch {
   const Args& g;
-  template <int NT, int FPT, int R, int STAGED, bool SAME>
+  template <int NT, int FPT, bool SAME>
   int run() const {
     if (g.f > NT * FPT || g.win < 1 || g.win > probe::kMaxWindow ||
         (SAME && g.zq != g.zk))
       return cudaErrorInvalidValue;
     if (g.B == 0) return static_cast<int>(cudaGetLastError());
-    auto kern = probe_chain_kernel<NT, FPT, R, STAGED, SAME>;
-    constexpr size_t smem = stage_bytes<NT, FPT, R, STAGED, SAME>();
+    auto kern = probe_chain_kernel<NT, FPT, SAME>;
+    constexpr size_t smem = stage_bytes<NT, FPT, SAME>();
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -365,16 +344,16 @@ struct Launch {
 
 struct Config {
   int* out;
-  template <int NT, int FPT, int R, int STAGED, bool SAME>
+  template <int NT, int FPT, bool SAME>
   int run() const {
     cudaFuncAttributes a;
-    const cudaError_t e = cudaFuncGetAttributes(
-        &a, probe_chain_kernel<NT, FPT, R, STAGED, SAME>);
+    const cudaError_t e =
+        cudaFuncGetAttributes(&a, probe_chain_kernel<NT, FPT, SAME>);
     if (e != cudaSuccess) return static_cast<int>(e);
     out[0] = a.numRegs;
     out[1] = static_cast<int>(a.sharedSizeBytes);
     out[2] = static_cast<int>(a.localSizeBytes);
-    out[3] = static_cast<int>(stage_bytes<NT, FPT, R, STAGED, SAME>());
+    out[3] = static_cast<int>(stage_bytes<NT, FPT, SAME>());
     return 0;
   }
 };
@@ -384,22 +363,21 @@ struct Config {
 // hold this list to BANDS).  Figures that name none are refused.
 template <class Visit>
 int with_instance(const probe::Figures& x, const Visit& vis) {
-#define PROBE_INSTANCE(NT, FPT, R, STAGED, SAME)                          \
-  if (x.nt == NT && x.fpt == FPT && x.rows == R && x.staged == STAGED &&  \
-      x.same == SAME)                                                     \
-    return vis.template run<NT, FPT, R, STAGED, SAME != 0>();
-  PROBE_INSTANCE(32, 4, 8, 0, 1)
-  PROBE_INSTANCE(32, 4, 8, 0, 0)
-  PROBE_INSTANCE(256, 4, 8, 0, 1)
-  PROBE_INSTANCE(256, 4, 8, 0, 0)
-  PROBE_INSTANCE(256, 8, 8, 0, 1)
-  PROBE_INSTANCE(256, 8, 4, 0, 0)
-  PROBE_INSTANCE(256, 16, 4, 1, 1)
-  PROBE_INSTANCE(256, 16, 4, 1, 0)
-  PROBE_INSTANCE(256, 20, 4, 1, 1)
-  PROBE_INSTANCE(256, 20, 4, 1, 0)
-  PROBE_INSTANCE(256, 28, 4, 1, 1)
-  PROBE_INSTANCE(256, 28, 3, 1, 0)
+#define PROBE_INSTANCE(NT, FPT, SAME)                                    \
+  if (x.nt == NT && x.fpt == FPT && x.same == SAME)                      \
+    return vis.template run<NT, FPT, SAME != 0>();
+  PROBE_INSTANCE(32, 4, 1)
+  PROBE_INSTANCE(32, 4, 0)
+  PROBE_INSTANCE(256, 4, 1)
+  PROBE_INSTANCE(256, 4, 0)
+  PROBE_INSTANCE(256, 8, 1)
+  PROBE_INSTANCE(256, 8, 0)
+  PROBE_INSTANCE(256, 16, 1)
+  PROBE_INSTANCE(256, 16, 0)
+  PROBE_INSTANCE(256, 20, 1)
+  PROBE_INSTANCE(256, 20, 0)
+  PROBE_INSTANCE(256, 28, 1)
+  PROBE_INSTANCE(256, 28, 0)
 #ifdef PROBE_EXTRA_INSTANCES
   // other threads and features a thread, for tools/probe_phases.py
 #include "probe_extra_instances.inc"
@@ -428,9 +406,8 @@ extern "C" int probe_spec_launch(const void* zq, const void* zk,
                                  void* stopped, void* stop_step, void* s_out,
                                  void* sm_out, void* n_out, float eta,
                                  float lam, int burn_in, int B, int T, int f,
-                                 int win, int nt, int fpt, int rows,
-                                 int staged, int same, int vec,
-                                 void* stream) {
+                                 int win, int nt, int fpt, int same,
+                                 int vec, void* stream) {
   const Args g{static_cast<const float*>(zq), static_cast<const float*>(zk),
                static_cast<const bool*>(boundary),
                static_cast<const int*>(accept), static_cast<float*>(W),
@@ -440,13 +417,11 @@ extern "C" int probe_spec_launch(const void* zq, const void* zk,
                static_cast<float*>(sm_out), static_cast<int*>(n_out), eta,
                lam, burn_in, B, T, f, win, vec,
                static_cast<cudaStream_t>(stream)};
-  return probe::chain_launch(g, probe::Figures{nt, fpt, rows, staged, same});
+  return probe::chain_launch(g, probe::Figures{nt, fpt, same});
 }
 
 // The instance's registers, static shared bytes, spill bytes a thread and
 // dynamic shared bytes (out[0..3]).
-extern "C" int probe_chain_config(int nt, int fpt, int rows, int staged,
-                                  int same, int* out) {
-  return probe::chain_config(probe::Figures{nt, fpt, rows, staged, same},
-                             out);
+extern "C" int probe_chain_config(int nt, int fpt, int same, int* out) {
+  return probe::chain_config(probe::Figures{nt, fpt, same}, out);
 }

@@ -41,39 +41,33 @@ MAX_WINDOW = 16
 
 class Band(NamedTuple):
     """One width band of the probe chain's instances (csrc/probe_spec.cu)."""
-    f_max: int           # widest f it takes
+    f_max: int      # widest f it takes
     threads: int
-    fpt: int             # features a thread, in 16-byte groups of 4
-    rows_same: int       # tokens' rows in flight where zq is zk
-    rows_distinct: int   # where it is not (two rows a token)
-    staged: int          # 1: the rows' ring in shared memory (cp.async)
+    fpt: int        # features a thread, in 16-byte groups of 4
 
 
 # The chain's policy: which compiled instance a width takes, for K1 and K4
 # alike (K1 is K4 at T = 1), so both run one reduction tree at every width.
-# Threads times features a thread cover the band; every load is issued at
-# entry, the rows of the first R tokens into a ring of R register slots
-# (R * features a thread * rows a token at most 64 registers), or, past
-# 2048, of R stages of shared memory.  One warp at f <= 128 needs no
-# barrier.  256 threads at every wider band: on an NVIDIA H100 80GB HBM3
-# at 700 W, 128, 64 and 32 threads at f 960 and 512 at f 2048 and 5120
-# were slower (PERF.md, tools/probe_phases.py).  csrc/probe_spec.cu
-# builds exactly the instances these name (tests/test_torch_probe_chain.py
-# holds the two lists equal) and launches the one the wrapper names.
-BANDS = (Band(128, 32, 4, 8, 8, 0), Band(1024, 256, 4, 8, 8, 0),
-         Band(2048, 256, 8, 8, 4, 0), Band(4096, 256, 16, 4, 4, 1),
-         Band(5120, 256, 20, 4, 4, 1), Band(7168, 256, 28, 4, 3, 1))
+# Threads times features a thread cover the band.  Every load is issued at
+# entry; the rows of two tokens are in flight in a cp.async ring in shared
+# memory.  One warp at f <= 128 needs no barrier; 256 threads at every
+# wider band.  On an NVIDIA H100 80GB HBM3 at 700 W, 128, 64 and 32
+# threads at f 960 and 512 at f 2048 and 5120 were slower, as were rings
+# of registers and deeper rings (PERF.md, tools/probe_phases.py).
+# csrc/probe_spec.cu builds exactly the instances these name
+# (tests/test_torch_probe_chain.py holds the two lists equal) and launches
+# the one the wrapper names.
+BANDS = (Band(128, 32, 4), Band(1024, 256, 4), Band(2048, 256, 8),
+         Band(4096, 256, 16), Band(5120, 256, 20), Band(7168, 256, 28))
 
 
-def instance(f: int, same: bool) -> Tuple[int, int, int, int, int]:
+def instance(f: int, same: bool) -> Tuple[int, int, int]:
     """The figures of the instance width f takes, as the launchers read
-    them: (threads, features a thread, tokens' rows in flight, staged in
-    shared memory, zq is zk); ``same``: zq and zk are one tensor."""
+    them: (threads, features a thread, zq is zk); ``same``: zq and zk are
+    one tensor."""
     for band in BANDS:
         if f <= band.f_max:
-            return (band.threads, band.fpt,
-                    band.rows_same if same else band.rows_distinct,
-                    band.staged, int(same))
+            return (band.threads, band.fpt, int(same))
     raise ValueError(f"serving probe chain: f={f} exceeds {MAX_F}")
 
 
@@ -100,8 +94,8 @@ def kernel_config(f: int, same: bool) -> dict:
     out = (ctypes.c_int * 4)()
     _build.check(_build.library().probe_chain_config(*fig, out),
                  "probe_chain_config")
-    keys = ("threads", "features_per_thread", "rows_in_flight", "staged",
-            "same", "registers", "static_smem", "local_bytes", "ring_smem")
+    keys = ("threads", "features_per_thread", "same", "registers",
+            "static_smem", "local_bytes", "ring_smem")
     return dict(zip(keys, (*fig, *out)))
 
 

@@ -35,8 +35,8 @@ def _torch_threads():
 # the instance policy
 
 def _built_instances():
-    """The (threads, features a thread, rows in flight, staged, zq is zk)
-    of every PROBE_INSTANCE line of csrc/probe_spec.cu."""
+    """The (threads, features a thread, zq is zk) of every PROBE_INSTANCE
+    line of csrc/probe_spec.cu."""
     src = (Path(K1.__file__).resolve().parent.parent / "csrc"
            / "probe_spec.cu").read_text()
     return {tuple(int(x) for x in m.group(1).split(","))
@@ -58,7 +58,7 @@ def test_every_width_maps_to_one_built_instance(same):
         band = next(b for b in K1.BANDS if f <= b.f_max)
         assert fig[:2] == (band.threads, band.fpt)
         assert fig[0] * fig[1] >= f
-        assert fig[4] == int(same)
+        assert fig[2] == int(same)
         assert fig in built
     with pytest.raises(ValueError, match="exceeds"):
         K1.instance(K1.MAX_F + 1, same)
@@ -71,19 +71,17 @@ def test_source_builds_exactly_the_instances_the_bands_name():
 
 def test_bands_fit_the_card():
     """Whole warps, a power-of-two count (the pairwise fold), 16-byte
-    groups; rows in flight within 64 registers a thread where they live
-    in registers, within 227 KB where they are staged in shared memory."""
+    groups; the ring of two tokens' rows (two rows a token where zq is not
+    zk) within the 227 KB of shared memory a block can use, and within
+    the 48 KB that need no opt-in at the served widths."""
     for band in K1.BANDS:
         nw = band.threads // 32
         assert band.threads % 32 == 0 and nw & (nw - 1) == 0
         assert band.threads <= 1024 and band.fpt % 4 == 0
-        for rows, per_token in ((band.rows_same, 1), (band.rows_distinct, 2)):
-            assert rows >= 1
-            if band.staged:
-                assert rows * per_token * band.threads * band.fpt * 4 \
-                    <= 227 * 1024
-            else:
-                assert rows * per_token * band.fpt <= 64
+        ring = 2 * 2 * band.threads * band.fpt * 4
+        assert ring <= 227 * 1024
+        if band.f_max <= 2048:
+            assert ring <= 48 * 1024
 
 
 # ---------------------------------------------------------------------------

@@ -40,10 +40,9 @@ read of the same GiB (the L2 full of clean lines) and after a wait on the
 card alone (``torch.cuda._sleep``: the rows still in the L2 from the
 last call), with each view's slope over T;
 and the tree with zk the same tensor as zq (one row read) against zk a
-clone of zq (two rows), and the tree at other instances (threads,
-features a thread, rows in flight, staging; ``INSTANCE_SWEEP``, built
-into the tree's library with ``PROBE_EXTRA_INSTANCES``) with the policy
-pointed at each in turn.  Prints one line per case, then the card's name
+clone of zq (two rows), and the tree at other instances (threads and
+features a thread; ``INSTANCE_SWEEP``, built into the tree's library with
+``PROBE_EXTRA_INSTANCES``) with the policy pointed at each in turn.  Prints one line per case, then the card's name
 and power limit.  Exits non-zero without a card, when a variant does not
 build or when a check fails.
 """
@@ -60,27 +59,22 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 # (kernel, B, T, f, view): the instances timed against the policy's (the
-# first of each list); figures as kernels/probe_step.py instance gives them
+# first of each list); figures (threads, features a thread, zq is zk) as
+# kernels/probe_step.py instance gives them
 INSTANCE_SWEEP = {
-    ("K4", 4, 4, 960, "same"): ((256, 4, 8, 0, 1), (128, 8, 8, 0, 1),
-                                (64, 16, 4, 0, 1), (32, 32, 2, 0, 1),
-                                (32, 32, 8, 1, 1)),
-    ("K4", 4, 8, 960, "same"): ((256, 4, 8, 0, 1), (128, 8, 8, 0, 1),
-                                (64, 16, 4, 0, 1), (32, 32, 8, 1, 1),
-                                (256, 4, 4, 0, 1), (256, 4, 2, 0, 1),
-                                (256, 4, 1, 0, 1), (256, 4, 8, 1, 1),
-                                (256, 4, 2, 1, 1)),
-    ("K4", 4, 4, 960, "distinct"): ((256, 4, 8, 0, 0), (128, 8, 4, 0, 0)),
-    ("K1", 4, 1, 960, "same"): ((256, 4, 8, 0, 1), (128, 8, 8, 0, 1),
-                                (64, 16, 4, 0, 1), (32, 32, 2, 0, 1)),
-    ("K1", 4, 1, 2048, "same"): ((256, 8, 8, 0, 1), (128, 16, 4, 0, 1),
-                                 (512, 4, 8, 0, 1)),
-    ("K4", 8, 8, 5120, "distinct"): ((256, 20, 4, 1, 0), (512, 16, 3, 1, 0),
-                                     (256, 28, 3, 1, 0)),
-    ("K4", 8, 8, 5120, "same"): ((256, 20, 4, 1, 1), (512, 16, 4, 1, 1)),
-    ("K4", 8, 8, 4096, "distinct"): ((256, 16, 4, 1, 0), (512, 8, 4, 1, 0)),
+    ("K4", 4, 4, 960, "same"): ((256, 4, 1), (128, 8, 1), (64, 16, 1),
+                                (32, 32, 1)),
+    ("K4", 4, 8, 960, "same"): ((256, 4, 1), (128, 8, 1), (64, 16, 1),
+                                (32, 32, 1)),
+    ("K4", 4, 4, 960, "distinct"): ((256, 4, 0), (128, 8, 0)),
+    ("K1", 4, 1, 960, "same"): ((256, 4, 1), (128, 8, 1), (64, 16, 1),
+                                (32, 32, 1)),
+    ("K1", 4, 1, 2048, "same"): ((256, 8, 1), (128, 16, 1), (512, 4, 1)),
+    ("K4", 8, 8, 5120, "distinct"): ((256, 20, 0), (512, 16, 0),
+                                     (256, 28, 0)),
+    ("K4", 8, 8, 5120, "same"): ((256, 20, 1), (512, 16, 1)),
+    ("K4", 8, 8, 4096, "distinct"): ((256, 16, 0), (512, 8, 0)),
 }
-
 
 def _extra():
     """The swept instances the policy does not name (the sources build
