@@ -38,13 +38,14 @@ the tree at (4, T, 960), T 1, 2, 4 and 8, in both views, timed after
 the Timer's flush (1 GiB zeroed: the L2 full of dirty lines), after a
 read of the same GiB (the L2 full of clean lines) and after a wait on the
 card alone (``torch.cuda._sleep``: the rows still in the L2 from the
-last call), with each view's slope over T;
-and the tree with zk the same tensor as zq (one row read) against zk a
-clone of zq (two rows), and the tree at other instances (threads and
-features a thread; ``INSTANCE_SWEEP``, built into the tree's library with
-``PROBE_EXTRA_INSTANCES``) with the policy pointed at each in turn.  Prints one line per case, then the card's name
-and power limit.  Exits non-zero without a card, when a variant does not
-build or when a check fails.
+last call), with each view's slope over T; the tree with zk the same
+tensor as zq (one row read) against zk a clone of zq (two rows); and the
+tree at other instances (threads and features a thread;
+``INSTANCE_SWEEP``, built into the tree's library with
+``PROBE_EXTRA_INSTANCES``) with the policy pointed at each in turn.
+Prints one line per case, then the card's name and power limit.  Exits
+non-zero without a card, when a variant does not build or when a check
+fails.
 """
 import ctypes
 import os
