@@ -998,7 +998,7 @@ def k4_case(torch, K1, K4, gen, B, T, f, mode, warm, win=4, burn_in=2,
 
 # timed shapes (B slots, T verify tokens, f): the served shape first (4
 # slots, k = 4, smollm-360m's f 960), then more slots, a longer block, and
-# both at qwen1.5-32b's width; zq and zk two tensors, as timed since PR 17
+# both at qwen1.5-32b's width; zq and zk two tensors
 K4_TIMED = ((4, 4, 960), (8, 4, 960), (4, 8, 960), (8, 8, 5120))
 # the slope over the chain's length at the served width, in both views
 K4_SLOPE_T = (1, 2, 4, 8)
