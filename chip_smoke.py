@@ -15,7 +15,9 @@ non-zero:
                K1(zq, zq.clone()) bit for bit at each; the Timer's floor
                (``floor_ms``: one launch of ``torch.empty(1).zero_()``);
                timed at B=4 in both views; the same chain and timing at
-               the RWKV fleet's probe width (B 4, f 2048); each timed row
+               the RWKV fleet's probe width (B 4, f 2048); 30 steps with a
+               smoothing window of 17, wider than the registers hold (the
+               window in shared memory), in both views; each timed row
                names its instance (threads, features a thread, registers)
 3. k2       -- paged flash decode against its plain version, bf16, int8
                and f32 pages, the serving shape and nb in {8, 64, 256}
@@ -42,11 +44,13 @@ non-zero:
                f 128, 960, 5120; accepted lengths 0, 1, T-1, T and mixed;
                a stop mid-chain, a slot stopped on entry, the burn-in not
                reached; zk the same tensor as zq and another tensor at f
-               128, 130, 960, 2048 and 5120; the Timer's floor; timed at
-               the served shape (4 slots, k 4, f 960) and three wider
-               ones, and over T 1, 2, 4, 8 at (4, T, 960) in both views
-               with the slope per token; then K3 timed at the verify
-               shape (k3-verify: 4 segments of 4 tokens)
+               128, 130, 960, 2048 and 5120; smoothing windows of 17 (a
+               chain of 24 tokens, so the window wraps) and 40, in shared
+               memory; the Timer's floor; timed at the served shape (4
+               slots, k 4, f 960) and three wider ones, at the served
+               shape with a window of 40, and over T 1, 2, 4, 8 at (4, T,
+               960) in both views with the slope per token; then K3 timed
+               at the verify shape (k3-verify: 4 segments of 4 tokens)
 6. k5       -- the offline TTT scan against its plain version and against
                its own L-step form (``ttt_probe_lookahead_plain`` at the
                kernel's L for the width): f 128, 960, 5120 and 2048 (the
@@ -345,13 +349,14 @@ def floor_ms(torch, timer) -> float:
     return timer(lambda: torch.empty(1, device=DEV).zero_(), reps=200)
 
 
-def chain_config(K1, f, same):
-    """The K1/K4 instance of width f and view, with its registers (on the
-    card; figures only on the CPU)."""
+def chain_config(K1, f, same, win):
+    """The K1/K4 instance of width f, view and window, with its registers
+    (on the card; figures only on the CPU)."""
     if DEV != "cuda":
-        fig = K1.instance(f, same)
-        return dict(threads=fig[0], features_per_thread=fig[1], same=fig[2])
-    return K1.kernel_config(f, same)
+        fig = K1.instance(f, same, win)
+        return dict(threads=fig[0], features_per_thread=fig[1], same=fig[2],
+                    smem_window=fig[3])
+    return K1.kernel_config(f, same, win)
 
 
 def k1_timed(torch, timer, K1, gen, Bs, f, win, eta, burn_in, same=False):
@@ -386,8 +391,13 @@ def k1_timed(torch, timer, K1, gen, Bs, f, win, eta, burn_in, same=False):
     return dict(timed_shape=dict(B=Bs, f=f, window=win, lam=lam_t,
                                  view="same" if same else "distinct"),
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                bytes=moved, **chain_config(K1, f, same))
+                bytes=moved, **chain_config(K1, f, same, win))
 
+
+# a smoothing window wider than the kernel's registers hold (its window
+# then lies in shared memory), and the K1 chain's length that makes
+# scores leave it
+WIDE_WINDOW, WIDE_STEPS = 17, 30
 
 # the widths of the view cases: QK d_h 128, a width that is no multiple of
 # 4, smollm-360m's 960, rwkv6-1.6b's 2048, qwen1.5-32b's 5120
@@ -430,17 +440,30 @@ def phase_k1(torch, timer):
                            burn_in))
     rwkv_served = k1_timed(torch, timer, K1, gen, 4, f_rwkv, win, eta,
                            burn_in, same=True)
+    wide = []
+    for same in (True, False):
+        err_w, margin_w, stops_w = k1_chain(
+            torch, K1, gen, 4, f, WIDE_WINDOW, WIDE_STEPS, eta, lam,
+            burn_in, same=same)
+        wide.append(dict(window=WIDE_WINDOW, steps=WIDE_STEPS,
+                         view="same" if same else "distinct",
+                         max_abs_err=err_w, lambda_margin=margin_w,
+                         stopped_at=stops_w))
     err = {k: max([c["max_abs_err"][k] for c in chains.values()]
-                  + [v["max_abs_err"][k] for v in views] + [err_r[k]])
+                  + [v["max_abs_err"][k] for v in views + wide]
+                  + [err_r[k]])
            for k in chains[8]["max_abs_err"]}
-    # the kernels line's K1 time: the served view (zk is zq) at 4 slots
+    # the kernels line's K1 time: two rows (zk another tensor) at 4 slots,
+    # as every slice has reported it; the served view (zk is zq) beside it
     res = dict(phase="k1", steps=steps, f=f, window=win, floor_ms=floor,
                chains={str(B): c for B, c in chains.items()},
                views=views, shared_bitwise=len(VIEW_WIDTHS),
-               max_abs_err=err, ms=served["ms"], plain_ms=served["plain_ms"],
-               bound_ms=served["bound_ms"], bound_by=served["bound_by"],
-               library_ms=None, served=served, distinct=timed,
-               rwkv_width=rwkv, rwkv_served=rwkv_served)
+               wide_window=wide, max_abs_err=err, ms=timed["ms"],
+               plain_ms=timed["plain_ms"], bound_ms=timed["bound_ms"],
+               bound_by=timed["bound_by"], library_ms=None,
+               served_ms=served["ms"], served_plain_ms=served["plain_ms"],
+               served_bound_ms=served["bound_ms"], served=served,
+               distinct=timed, rwkv_width=rwkv, rwkv_served=rwkv_served)
     emit(res)
     return res
 
@@ -957,7 +980,7 @@ def k4_case(torch, K1, K4, gen, B, T, f, mode, warm, win=4, burn_in=2,
               ring=chain[2], n_scores=chain[3], stopped=chain[4],
               stop_step=chain[5])
     case = dict(B=B, T=T, f=f, accept=mode, warm=warm,
-                view="same" if same else "distinct")
+                view="same" if same else "distinct", window=win)
     for name in ("n_seq", "n_scores", "stopped", "stop_step"):
         a = getattr(ko, name)
         for other, want in (("plain", getattr(po, name)),
@@ -1034,7 +1057,7 @@ def k4_timed(torch, timer, K1, K4, gen, B, T, f, win=4, eta=0.05, lam=1.5,
     return dict(B=B, T=T, f=f, window=win, lam=lam,
                 view="same" if same else "distinct", ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by, bytes=moved,
-                **chain_config(K1, f, same))
+                **chain_config(K1, f, same, win))
 
 
 def slope(rows) -> float:
@@ -1072,6 +1095,13 @@ def phase_k4(torch, timer):
                 for mode in ("T", "mixed"):
                     rows.append(k4_case(torch, K1, K4, gen, 4, T, f, mode,
                                         warm=True, same=same))
+    # a smoothing window wider than the registers hold (in shared memory):
+    # 24 tokens wrap a window of 17
+    for win, T in ((WIDE_WINDOW, 24), (40, 8)):
+        for same in (True, False):
+            for mode in ("T", "mixed"):
+                rows.append(k4_case(torch, K1, K4, gen, 4, T, 960, mode,
+                                    warm=True, win=win, same=same))
     if not any(r["mid_chain_stop"] for r in rows):
         raise AssertionError("K4: no case stopped mid-chain")
     if min(r["lambda_margin"] for r in rows) < 1e-3:
@@ -1098,8 +1128,12 @@ def phase_k4(torch, timer):
         view = "same" if same else "distinct"
         slopes[view] = [k4_timed(torch, timer, K1, K4, gen, 4, T, 960,
                                  same=same) for T in K4_SLOPE_T]
-    # the kernels line's K4 time: the served view (zk is zq) at the served
-    # shape
+    # the served shape with its window in shared memory
+    wide_timed = k4_timed(torch, timer, K1, K4, gen, 4, 4, 960, win=40)
+    # the kernels line's K4 time: two rows (zk another tensor) at the
+    # served shape, as every slice has reported it; the served view (zk is
+    # zq) beside it
+    main = timed[0]
     served = next(r for r in slopes["same"] if r["T"] == 4)
     worst = max(max(r["max_abs_err"].values()) for r in rows)
     worst_k1 = max(max(r["chained_k1_err"].values()) for r in rows)
@@ -1108,14 +1142,17 @@ def phase_k4(torch, timer):
                chained_k1_bitwise=sum(r["chained_k1_bitwise"] for r in rows),
                mid_chain_stops=sum(r["mid_chain_stop"] for r in rows),
                lambda_margin=min(r["lambda_margin"] for r in rows),
-               floor_ms=floor, timed=timed, slope_rows=slopes,
+               floor_ms=floor, timed=timed, wide_window_timed=wide_timed,
+               slope_rows=slopes,
                slope_ms_per_token={v: slope(r) for v, r in slopes.items()},
-               served=served, ms=served["ms"], plain_ms=served["plain_ms"],
-               bound_ms=served["bound_ms"], bound_by=served["bound_by"],
-               library_ms=None,
+               ms=main["ms"], plain_ms=main["plain_ms"],
+               bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+               library_ms=None, served_ms=served["ms"],
+               served_plain_ms=served["plain_ms"],
+               served_bound_ms=served["bound_ms"], served=served,
                per_case=[(r["B"], r["T"], r["f"], r["accept"], r["warm"],
-                          r["view"], max(r["max_abs_err"].values()),
-                          r["stops"])
+                          r["view"], r["window"],
+                          max(r["max_abs_err"].values()), r["stops"])
                          for r in rows])
     emit(res)
     # K3 at the verify shape of a spec step: 4 slots x k = 4 tokens, each
@@ -3458,12 +3495,15 @@ def main() -> int:
 
     emit({"kernels": [
         dict(name="serving_probe_step", route="cuda",
-             source="src/repro_torch/csrc/probe_step.cu",
+             source="src/repro_torch/csrc/probe_spec.cu",
              replaces="src/repro/kernels/ttt_probe.py:368",
              launches=served["launches"]["serving_probe_step"],
              max_abs_err=max(k1["max_abs_err"].values()), ms=k1["ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=None),
+             bound_by=k1["bound_by"], library_ms=None,
+             served_ms=k1["served_ms"],
+             served_plain_ms=k1["served_plain_ms"],
+             served_bound_ms=k1["served_bound_ms"]),
         dict(name="paged_flash_decode", route="cuda",
              source="src/repro_torch/csrc/paged_decode.cu",
              replaces="src/repro/kernels/decode_attention.py:231",
@@ -3495,7 +3535,10 @@ def main() -> int:
              max_abs_err=max(k4["max_abs_err"], spec["k4_checked_err"],
                              spec_f32["spec_primed"]["k4_checked_err"]),
              ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
-             bound_by=k4["bound_by"], library_ms=None),
+             bound_by=k4["bound_by"], library_ms=None,
+             served_ms=k4["served_ms"],
+             served_plain_ms=k4["served_plain_ms"],
+             served_bound_ms=k4["served_bound_ms"]),
         dict(name="flash_decode", route="cuda",
              source="src/repro_torch/csrc/flash_decode.cu",
              replaces="src/repro/kernels/decode_attention.py:78",

@@ -51,16 +51,15 @@
 //     passes its figures; the launcher only finds the instance of that
 //     list (with_instance).  Rows move as float4 where f is a multiple of
 //     4 and the tensors start on 16 bytes, else as floats, in the same
-//     groups: the bits do not depend on it.
+//     groups: the bits do not depend on it;
+//   * a smoothing window of up to 16 scores is held in registers by every
+//     thread; a wider one lies in shared memory past the rows' ring
+//     (probe_math.cuh SmemRing), one more barrier at the end of the chain.
 // eta and lambda* arrive as scalar arguments: no host read.
-//
-// Ablations (tools/probe_phases.py builds them with -D): PROBE_LATE_ROWS
-// loads each token's rows when its step starts; PROBE_TWO_BARRIERS adds a
-// second barrier a token, as the earlier design had;
-// PROBE_EXTRA_INSTANCES builds the instances the tool lists in
-// probe_extra_instances.inc beside the policy's.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "probe_math.cuh"
 
@@ -140,23 +139,21 @@ __device__ __forceinline__ float dot_groups(const float4 (&z)[G],
 // Tokens' rows in flight: the stages of the ring.
 constexpr int kRing = 2;
 
-// NT threads, FPT features a thread (FPT / 4 groups), SAME: zq is zk.
-template <int NT, int FPT, bool SAME>
+// NT threads, FPT features a thread (FPT / 4 groups), SAME: zq is zk,
+// SMEM_RING: the smoothing window in shared memory.
+template <int NT, int FPT, bool SAME, bool SMEM_RING>
 __global__ void __launch_bounds__(NT)
 probe_chain_kernel(const Args g) {
   constexpr int G = FPT / 4;          // 16-byte groups a thread
   constexpr int NW = NT / 32;
   constexpr int ROWS = SAME ? 1 : 2;  // rows a token: zk (and zq)
   constexpr int R = kRing;
-#ifdef PROBE_LATE_ROWS
-  constexpr bool kLate = true;
-#else
-  constexpr bool kLate = false;
-#endif
+  using Ring = std::conditional_t<SMEM_RING, probe::SmemRing, probe::RegRing>;
   static_assert(FPT % 4 == 0 && NT % 32 == 0, "groups, whole warps");
   static_assert((NW & (NW - 1)) == 0, "a power-of-two count of warps");
   __shared__ __align__(16) float red[2][2 * NW];  // warp sums by parity
-  extern __shared__ __align__(16) float4 stage[];  // [R][ROWS][G][NT]
+  // [R][ROWS][G][NT], then the window where SMEM_RING
+  extern __shared__ __align__(16) float4 stage[];
 
   const int i = blockIdx.x, tid = threadIdx.x;
   const int T = g.T, f = g.f;
@@ -199,24 +196,18 @@ probe_chain_kernel(const Args g) {
                          j + 3 < f ? W_i[j + 3] : 0.f);
     }
   }
-  if constexpr (!kLate) {
 #pragma unroll
-    for (int a = 0; a < R; ++a) load(a, a);
-  }
-  probe::State st;
+  for (int a = 0; a < R; ++a) load(a, a);
+  probe::State<Ring> st;
   st.b = g.b[i];
   st.n = g.n_scores[i];
   st.stopped = g.stopped[i];
   st.stop_step = g.stop_step[i];
   const int acc = g.accept != nullptr ? g.accept[i] : T;
   const int win = g.win;
-  const unsigned in_window = probe::window_bits(win);
-  const float* ring_i = g.ring + static_cast<size_t>(i) * win;
-#pragma unroll
-  for (int r = 0; r < probe::kMaxWindow; ++r) {
-    const int x = r - (probe::kMaxWindow - win);
-    st.ring[r] = x >= 0 ? ring_i[x] : 0.f;
-  }
+  float* ring_i = g.ring + static_cast<size_t>(i) * win;
+  st.ring.load(ring_i, win,
+               reinterpret_cast<float*>(stage + R * ROWS * G * NT));
 
   const int lane = tid & 31, warp = tid >> 5;
   for (int t0 = 0; t0 < T; t0 += R) {
@@ -224,16 +215,15 @@ probe_chain_kernel(const Args g) {
     for (int a = 0; a < R; ++a) {
       const int t = t0 + a;
       if (t >= T) break;
-      if constexpr (kLate) load(a, t);
       float4 k[G], q[SAME ? 1 : G];
-      cp_async_wait<kLate ? 0 : R - 1>();  // token t's stage has landed
+      cp_async_wait<R - 1>();  // token t's stage has landed
 #pragma unroll
       for (int p = 0; p < G; ++p) {
         k[p] = stage[((a * ROWS) * G + p) * NT + tid];
         if constexpr (!SAME) q[p] = stage[((a * ROWS + 1) * G + p) * NT + tid];
       }
       const bool bd = rb[a];
-      if constexpr (!kLate) load(a, t + R);  // the slot's next token
+      load(a, t + R);  // the slot's next token
       const probe::Pre pre = probe::prepare(st, bd && t < acc, win);
 
       const float ak = dot_groups(k, w);
@@ -243,6 +233,7 @@ probe_chain_kernel(const Args g) {
       if constexpr (NW == 1) {
         dk = probe::warp_sum(ak);
         dq = SAME ? dk : probe::warp_sum(aq);
+        if constexpr (SMEM_RING) __syncwarp();  // the window's last write
       } else {
         float* rw = red[t & 1];
         if constexpr (SAME) {
@@ -271,7 +262,7 @@ probe_chain_kernel(const Args g) {
       float s, smoothed, uc;
       const bool apply =
           probe::scalar_step(st, pre, dq, dk, SAME, g.eta, g.lam,
-                             g.burn_in, in_window, s, smoothed, uc);
+                             g.burn_in, s, smoothed, uc);
 #pragma unroll
       for (int p = 0; p < G; ++p) {
         w[p].x = apply ? fmaf(-uc, k[p].x, w[p].x) : w[p].x;
@@ -284,9 +275,6 @@ probe_chain_kernel(const Args g) {
         g.sm_out[first + t] = smoothed;
         if (g.n_out != nullptr) g.n_out[first + t] = st.n;
       }
-#ifdef PROBE_TWO_BARRIERS
-      __syncthreads();
-#endif
     }
   }
 
@@ -302,17 +290,13 @@ probe_chain_kernel(const Args g) {
       if (j + 3 < f) W_i[j + 3] = w[p].w;
     }
   }
+  if constexpr (SMEM_RING) __syncthreads();  // the last token's score
+  st.ring.store(ring_i, win);
   if (tid == 0) {
     g.b[i] = st.b;
     g.n_scores[i] = st.n;
     g.stopped[i] = st.stopped;
     g.stop_step[i] = st.stop_step;
-    float* ring_o = g.ring + static_cast<size_t>(i) * win;
-#pragma unroll
-    for (int r = 0; r < probe::kMaxWindow; ++r) {
-      const int x = r - (probe::kMaxWindow - win);
-      if (x >= 0) ring_o[x] = st.ring[r];
-    }
   }
 }
 
@@ -321,16 +305,23 @@ constexpr size_t stage_bytes() {
   return static_cast<size_t>(kRing) * (SAME ? 1 : 2) * NT * FPT * 4;
 }
 
+// the rows' ring and, where SMEM_RING, the window
+template <int NT, int FPT, bool SAME, bool SMEM_RING>
+size_t dynamic_smem(int win) {
+  return stage_bytes<NT, FPT, SAME>() +
+         (SMEM_RING ? static_cast<size_t>(win) * 4 : 0);
+}
+
 struct Launch {
   const Args& g;
-  template <int NT, int FPT, bool SAME>
+  template <int NT, int FPT, bool SAME, bool SMEM_RING>
   int run() const {
-    if (g.f > NT * FPT || g.win < 1 || g.win > probe::kMaxWindow ||
-        (SAME && g.zq != g.zk))
+    if (g.f > NT * FPT || g.win < 1 ||
+        (!SMEM_RING && g.win > probe::kMaxWindow) || (SAME && g.zq != g.zk))
       return cudaErrorInvalidValue;
     if (g.B == 0) return static_cast<int>(cudaGetLastError());
-    auto kern = probe_chain_kernel<NT, FPT, SAME>;
-    constexpr size_t smem = stage_bytes<NT, FPT, SAME>();
+    auto kern = probe_chain_kernel<NT, FPT, SAME, SMEM_RING>;
+    const size_t smem = dynamic_smem<NT, FPT, SAME, SMEM_RING>(g.win);
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -344,11 +335,11 @@ struct Launch {
 
 struct Config {
   int* out;
-  template <int NT, int FPT, bool SAME>
+  template <int NT, int FPT, bool SAME, bool SMEM_RING>
   int run() const {
     cudaFuncAttributes a;
-    const cudaError_t e =
-        cudaFuncGetAttributes(&a, probe_chain_kernel<NT, FPT, SAME>);
+    const cudaError_t e = cudaFuncGetAttributes(
+        &a, probe_chain_kernel<NT, FPT, SAME, SMEM_RING>);
     if (e != cudaSuccess) return static_cast<int>(e);
     out[0] = a.numRegs;
     out[1] = static_cast<int>(a.sharedSizeBytes);
@@ -360,12 +351,14 @@ struct Config {
 
 // The instances built, one for each view of each width band of
 // kernels/probe_step.py BANDS, which chooses among them (the CPU tests
-// hold this list to BANDS).  Figures that name none are refused.
+// hold this list to BANDS), each with its window in registers and in
+// shared memory.  Figures that name none are refused.
 template <class Visit>
 int with_instance(const probe::Figures& x, const Visit& vis) {
 #define PROBE_INSTANCE(NT, FPT, SAME)                                    \
   if (x.nt == NT && x.fpt == FPT && x.same == SAME)                      \
-    return vis.template run<NT, FPT, SAME != 0>();
+    return x.ring ? vis.template run<NT, FPT, SAME != 0, true>()         \
+                  : vis.template run<NT, FPT, SAME != 0, false>();
   PROBE_INSTANCE(32, 4, 1)
   PROBE_INSTANCE(32, 4, 0)
   PROBE_INSTANCE(256, 4, 1)
@@ -378,10 +371,6 @@ int with_instance(const probe::Figures& x, const Visit& vis) {
   PROBE_INSTANCE(256, 20, 0)
   PROBE_INSTANCE(256, 28, 1)
   PROBE_INSTANCE(256, 28, 0)
-#ifdef PROBE_EXTRA_INSTANCES
-  // other threads and features a thread, for tools/probe_phases.py
-#include "probe_extra_instances.inc"
-#endif
 #undef PROBE_INSTANCE
   return cudaErrorInvalidValue;
 }
@@ -407,7 +396,7 @@ extern "C" int probe_spec_launch(const void* zq, const void* zk,
                                  void* sm_out, void* n_out, float eta,
                                  float lam, int burn_in, int B, int T, int f,
                                  int win, int nt, int fpt, int same,
-                                 int vec, void* stream) {
+                                 int smem_ring, int vec, void* stream) {
   const Args g{static_cast<const float*>(zq), static_cast<const float*>(zk),
                static_cast<const bool*>(boundary),
                static_cast<const int*>(accept), static_cast<float*>(W),
@@ -417,11 +406,12 @@ extern "C" int probe_spec_launch(const void* zq, const void* zk,
                static_cast<float*>(sm_out), static_cast<int*>(n_out), eta,
                lam, burn_in, B, T, f, win, vec,
                static_cast<cudaStream_t>(stream)};
-  return probe::chain_launch(g, probe::Figures{nt, fpt, same});
+  return probe::chain_launch(g, probe::Figures{nt, fpt, same, smem_ring});
 }
 
 // The instance's registers, static shared bytes, spill bytes a thread and
-// dynamic shared bytes (out[0..3]).
-extern "C" int probe_chain_config(int nt, int fpt, int same, int* out) {
-  return probe::chain_config(probe::Figures{nt, fpt, same}, out);
+// the rows' dynamic shared bytes (out[0..3]).
+extern "C" int probe_chain_config(int nt, int fpt, int same, int smem_ring,
+                                  int* out) {
+  return probe::chain_config(probe::Figures{nt, fpt, same, smem_ring}, out);
 }

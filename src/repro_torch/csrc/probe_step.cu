@@ -30,7 +30,7 @@ extern "C" int probe_step_launch(const void* zq, const void* zk,
                                  void* stop_step, void* s_out, void* sm_out,
                                  float eta, float lam, int burn_in, int B,
                                  int f, int win, int nt, int fpt, int same,
-                                 int vec, void* stream) {
+                                 int smem_ring, int vec, void* stream) {
   const probe::Args g{
       static_cast<const float*>(zq), static_cast<const float*>(zk),
       static_cast<const bool*>(boundary), nullptr, static_cast<float*>(W),
@@ -39,7 +39,7 @@ extern "C" int probe_step_launch(const void* zq, const void* zk,
       static_cast<int*>(stop_step), static_cast<float*>(s_out),
       static_cast<float*>(sm_out), nullptr, eta, lam, burn_in, B, 1, f, win,
       vec, static_cast<cudaStream_t>(stream)};
-  return probe::chain_launch(g, probe::Figures{nt, fpt, same});
+  return probe::chain_launch(g, probe::Figures{nt, fpt, same, smem_ring});
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -33,7 +33,7 @@ SIGNATURES = {
     "probe_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _c.c_float, _c.c_float, _c.c_int, _c.c_int,
                           _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-                          _c.c_int, _P],
+                          _c.c_int, _c.c_int, _P],
     "paged_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
                             _c.c_int, _c.c_int, _c.c_int, _c.c_int,
@@ -49,8 +49,8 @@ SIGNATURES = {
     "probe_spec_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _c.c_float, _c.c_float, _c.c_int, _c.c_int,
                           _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-                          _c.c_int, _c.c_int, _P],
-    "probe_chain_config": [_c.c_int, _c.c_int, _c.c_int, _P],
+                          _c.c_int, _c.c_int, _c.c_int, _P],
+    "probe_chain_config": [_c.c_int, _c.c_int, _c.c_int, _c.c_int, _P],
     "flash_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _c.c_int, _c.c_int, _c.c_int, _c.c_int,
                             _c.c_int, _c.c_int, _c.c_int, _c.c_float, _P],

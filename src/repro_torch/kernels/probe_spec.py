@@ -98,8 +98,8 @@ def _check(zq, zk, boundary, accept, W, b, ring, n_scores, stopped,
                              "contiguous")
     if not 1 <= win <= MAX_WINDOW:
         raise ValueError(f"serving_probe_spec_step: smoothing window {win} "
-                         f"outside 1 .. {MAX_WINDOW}, the ring the kernel "
-                         "keeps in registers")
+                         f"outside 1 .. {MAX_WINDOW}, the window the "
+                         "kernel's shared memory holds")
     if f > MAX_F:
         raise ValueError(f"serving_probe_spec_step: f={f} exceeds {MAX_F}, "
                          "the widest d_model of the repo's configs, for "
@@ -139,7 +139,8 @@ def serving_probe_spec_step(zq, zk, boundary, accept, W, b, ring, n_scores,
         p(zq), p(zk), p(boundary), p(accept), p(W), p(b), p(ring),
         p(n_scores), p(stopped), p(stop_step), p(s), p(sm_seq), p(n_seq),
         float(eta), float(lam), int(burn_in), B, T, f, ring.shape[1],
-        *instance(f, shared_view(zq, zk)), vector_rows(f, zq, zk, W),
+        *instance(f, shared_view(zq, zk), ring.shape[1]),
+        vector_rows(f, zq, zk, W),
         _build.stream_of(zq))
     _build.check(err, "serving_probe_spec_step launch")
     serving_probe_spec_step.launches += 1

@@ -18,8 +18,9 @@ per-slot raw score ``s`` and smoothed score.
 Dispatch is by the input's device: CPU tensors take the plain version,
 CUDA tensors the kernel (``csrc/probe_step.cu``, K4's chain at T = 1);
 anything else raises.  ``BANDS`` and ``instance`` choose the kernel's
-instance for a width, for K1 and K4 alike, and ``shared_view`` tells it
-that zq is zk (the served no-QK view: one row read, one dot taken).
+instance for a width and a smoothing window, for K1 and K4 alike, and
+``shared_view`` tells it that zq is zk (the served no-QK view: one row
+read, one dot taken).
 """
 from __future__ import annotations
 
@@ -35,8 +36,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ttt_scan import MAX_F
 
 # the widest smoothing window the kernel's registers hold (probe_math.cuh
-# kMaxWindow); the repo's configs use 4 and 10
-MAX_WINDOW = 16
+# kMaxWindow; the repo's configs use 4 and 10); a wider one lies in shared
+# memory
+REGISTER_WINDOW = 16
+# shared memory a block may take on the H100 (227 KB), less the warps'
+# static sums
+SMEM_BLOCK = 227 * 1024 - 256
 
 
 class Band(NamedTuple):
@@ -51,7 +56,8 @@ class Band(NamedTuple):
 # Threads times features a thread cover the band.  Every load is issued at
 # entry; the rows of two tokens are in flight in a cp.async ring in shared
 # memory.  One warp at f <= 128 needs no barrier; 256 threads at every
-# wider band.  On an NVIDIA H100 80GB HBM3 at 700 W, 128, 64 and 32
+# wider band.  On an NVIDIA H100 80GB HBM3 at 700 W, one warp at f 128
+# was faster than 256 threads in K1 and K4 in both views, 128, 64 and 32
 # threads at f 960 and 512 at f 2048 and 5120 were slower, as were rings
 # of registers and deeper rings (PERF.md, tools/probe_phases.py).
 # csrc/probe_spec.cu builds exactly the instances these name
@@ -61,14 +67,28 @@ BANDS = (Band(128, 32, 4), Band(1024, 256, 4), Band(2048, 256, 8),
          Band(4096, 256, 16), Band(5120, 256, 20), Band(7168, 256, 28))
 
 
-def instance(f: int, same: bool) -> Tuple[int, int, int]:
-    """The figures of the instance width f takes, as the launchers read
-    them: (threads, features a thread, zq is zk); ``same``: zq and zk are
-    one tensor."""
+def instance(f: int, same: bool, win: int) -> Tuple[int, int, int, int]:
+    """The figures of the instance width f and window win take, as the
+    launchers read them: (threads, features a thread, zq is zk, the window
+    in shared memory); ``same``: zq and zk are one tensor."""
     for band in BANDS:
         if f <= band.f_max:
-            return (band.threads, band.fpt, int(same))
+            return (band.threads, band.fpt, int(same),
+                    int(win > REGISTER_WINDOW))
     raise ValueError(f"serving probe chain: f={f} exceeds {MAX_F}")
+
+
+def smem_bytes(fig, win: int) -> int:
+    """The dynamic shared memory of instance ``fig`` at window win: the
+    rows of two tokens (two rows a token unless zq is zk) and, where it
+    lies there, the window."""
+    threads, fpt, same, smem_ring = fig
+    return 2 * (1 if same else 2) * threads * fpt * 4 + 4 * win * smem_ring
+
+
+# the widest window every width takes: what shared memory holds beside the
+# widest band's rows
+MAX_WINDOW = (SMEM_BLOCK - smem_bytes(instance(MAX_F, False, 0), 0)) // 4
 
 
 def shared_view(zq, zk) -> bool:
@@ -86,16 +106,17 @@ def vector_rows(f: int, *tensors) -> int:
     return int(f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
-def kernel_config(f: int, same: bool) -> dict:
-    """The instance width f takes on the card: its figures (``instance``)
-    and, from the library itself, its registers, static shared bytes (the
-    warps' sums), spill bytes a thread and the rows' shared ring bytes."""
-    fig = instance(f, same)
+def kernel_config(f: int, same: bool, win: int) -> dict:
+    """The instance width f and window win take on the card: its figures
+    (``instance``) and, from the library itself, its registers, static
+    shared bytes (the warps' sums), spill bytes a thread and the rows'
+    shared ring bytes."""
+    fig = instance(f, same, win)
     out = (ctypes.c_int * 4)()
     _build.check(_build.library().probe_chain_config(*fig, out),
                  "probe_chain_config")
-    keys = ("threads", "features_per_thread", "same", "registers",
-            "static_smem", "local_bytes", "ring_smem")
+    keys = ("threads", "features_per_thread", "same", "smem_window",
+            "registers", "static_smem", "local_bytes", "ring_smem")
     return dict(zip(keys, (*fig, *out)))
 
 
@@ -164,8 +185,8 @@ def _check(zq, zk, boundary, W, b, ring, n_scores, stopped, stop_step):
             raise ValueError(f"serving_probe_step: {name} not contiguous")
     if not 1 <= win <= MAX_WINDOW:
         raise ValueError(f"serving_probe_step: smoothing window {win} "
-                         f"outside 1 .. {MAX_WINDOW}, the ring the kernel "
-                         "keeps in registers")
+                         f"outside 1 .. {MAX_WINDOW}, the window the "
+                         "kernel's shared memory holds")
     if f > MAX_F:
         raise ValueError(f"serving_probe_step: f={f} exceeds {MAX_F}, the "
                          "widest d_model of the repo's configs, for which "
@@ -198,7 +219,8 @@ def serving_probe_step(zq, zk, boundary, W, b, ring, n_scores, stopped,
         p(zq), p(zk), p(boundary), p(W), p(b), p(ring), p(n_scores),
         p(stopped), p(stop_step), p(s), p(smoothed), float(eta), float(lam),
         int(burn_in), B, f, ring.shape[1],
-        *instance(f, shared_view(zq, zk)), vector_rows(f, zq, zk, W),
+        *instance(f, shared_view(zq, zk), ring.shape[1]),
+        vector_rows(f, zq, zk, W),
         _build.stream_of(zq))
     _build.check(err, "serving_probe_step launch")
     serving_probe_step.launches += 1

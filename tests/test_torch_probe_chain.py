@@ -54,18 +54,32 @@ def test_every_width_maps_to_one_built_instance(same):
     assert K1.BANDS[-1].f_max == K1.MAX_F
     assert [b.f_max for b in K1.BANDS] == sorted(b.f_max for b in K1.BANDS)
     for f in range(1, K1.MAX_F + 1):
-        fig = K1.instance(f, same)
+        fig = K1.instance(f, same, 4)
         band = next(b for b in K1.BANDS if f <= b.f_max)
         assert fig[:2] == (band.threads, band.fpt)
         assert fig[0] * fig[1] >= f
         assert fig[2] == int(same)
-        assert fig in built
+        assert fig[3] == 0
+        assert fig[:3] in built
     with pytest.raises(ValueError, match="exceeds"):
-        K1.instance(K1.MAX_F + 1, same)
+        K1.instance(K1.MAX_F + 1, same, 4)
+
+
+@pytest.mark.parametrize("f", [1, 128, 130, 960, 2048, 5120, 7168])
+def test_window_past_the_registers_takes_the_shared_window(f):
+    """A window of up to REGISTER_WINDOW scores stays in registers; a
+    wider one, up to MAX_WINDOW, takes the same band's instance with the
+    window in shared memory (every PROBE_INSTANCE line builds both)."""
+    for win in list(range(1, 65)) + [K1.MAX_WINDOW]:
+        fig = K1.instance(f, True, win)
+        assert fig[3] == int(win > K1.REGISTER_WINDOW)
+        assert fig[:3] == K1.instance(f, True, 1)[:3]
+        assert K1.smem_bytes(fig, win) <= K1.SMEM_BLOCK
 
 
 def test_source_builds_exactly_the_instances_the_bands_name():
-    named = {K1.instance(b.f_max, s) for b in K1.BANDS for s in (True, False)}
+    named = {K1.instance(b.f_max, s, 4)[:3] for b in K1.BANDS
+             for s in (True, False)}
     assert named == _built_instances()
 
 
@@ -79,9 +93,15 @@ def test_bands_fit_the_card():
         assert band.threads % 32 == 0 and nw & (nw - 1) == 0
         assert band.threads <= 1024 and band.fpt % 4 == 0
         ring = 2 * 2 * band.threads * band.fpt * 4
+        assert ring == K1.smem_bytes(K1.instance(band.f_max, False, 4), 4)
         assert ring <= 227 * 1024
         if band.f_max <= 2048:
             assert ring <= 48 * 1024
+        # the widest window beside the rows
+        fig = K1.instance(band.f_max, False, K1.MAX_WINDOW)
+        assert K1.smem_bytes(fig, K1.MAX_WINDOW) <= K1.SMEM_BLOCK
+    fig = K1.instance(K1.MAX_F, False, K1.MAX_WINDOW + 1)
+    assert K1.smem_bytes(fig, K1.MAX_WINDOW + 1) > K1.SMEM_BLOCK
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +148,8 @@ def _state(B, f, win=4):
                                    (960, K1.MAX_WINDOW + 1), (960, 0)])
 def test_card_checks_refuse_past_the_instances(f, win):
     """K1 now refuses f > MAX_F, as K4 does; both refuse a smoothing window
-    their registers do not hold.  The checks run here on CPU tensors."""
+    the widest band's shared memory does not hold.  The checks run here on
+    CPU tensors."""
     z = torch.zeros(2, f)
     with pytest.raises(ValueError, match="exceeds|window"):
         K1._check(z, z, torch.ones(2, dtype=torch.bool), *_state(2, f, win))
@@ -139,7 +160,9 @@ def test_card_checks_refuse_past_the_instances(f, win):
 
 
 @pytest.mark.parametrize("f,win", [(K1.MAX_F, 4), (130, K1.MAX_WINDOW),
-                                   (1, 1)])
+                                   (1, 1), (960, K1.REGISTER_WINDOW),
+                                   (960, K1.REGISTER_WINDOW + 1),
+                                   (K1.MAX_F, K1.MAX_WINDOW)])
 def test_card_checks_take_the_widest_instance(f, win):
     z = torch.zeros(2, f)
     K1._check(z, z, torch.ones(2, dtype=torch.bool), *_state(2, f, win))
@@ -222,6 +245,24 @@ def test_plain_k4_matches_the_jnp_oracle(B, T, f):
         *(jnp.asarray(x[k]) for k in STATE), eta, lam, burn_in=burn_in)
     # a stop fires inside the chain
     assert bool(np.asarray(ref.stopped).sum() > x["stopped"].sum())
+    _close(port, ref, ("s", "smoothed_seq", "W", "b", "ring", "smoothed"),
+           ("n_seq",) + EXACT)
+
+
+@pytest.mark.parametrize("win,T,f", [(17, 24, 130), (40, 8, 960)])
+def test_plain_k4_wide_window_matches_the_jnp_oracle(win, T, f):
+    """A window wider than the kernel's registers hold (17, over a chain
+    that pushes more scores than it holds, and 40) against the oracle."""
+    x = _inputs(4, T, f, win=win)
+    eta, lam, burn_in = 0.05, 0.6, 1
+    port = K4.serving_probe_spec_step_plain(
+        *(torch.from_numpy(x[k].copy())
+          for k in ("zq", "zk", "boundary", "accept")),
+        *_torch_state(x), eta, lam, burn_in=burn_in)
+    ref = jref.serving_probe_spec_step_ref(
+        *(jnp.asarray(x[k]) for k in ("zq", "zk", "boundary", "accept")),
+        *(jnp.asarray(x[k]) for k in STATE), eta, lam, burn_in=burn_in)
+    assert int(np.asarray(ref.n_seq).max()) > int(x["n_scores"].max())
     _close(port, ref, ("s", "smoothed_seq", "W", "b", "ring", "smoothed"),
            ("n_seq",) + EXACT)
 

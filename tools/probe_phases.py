@@ -4,6 +4,7 @@ ablation of the probe chain's design.
 
     python3 tools/probe_phases.py            # phases, then the ablation
     python3 tools/probe_phases.py --check    # phases untimed, no ablation
+    python3 tools/probe_phases.py --against DIR   # two trees in turns
 
 Builds the kernels, then runs ``chip_smoke.phase_k1`` (the serving probe
 step, K1) and ``chip_smoke.phase_k4`` (the masked multi-token probe step,
@@ -11,18 +12,23 @@ K4) with ``chip_smoke.Timer``: every case held to its plain version and
 K4 to chained K1 launches bit for bit, the Timer's floor, the timed rows
 with their bounds and instances (registers, threads).  ``--check`` times
 nothing (every ms prints 0): a first call after a change to the kernel.
+``--against DIR`` times phases k1 and k4 of the tree in DIR (a ``git
+archive`` of another commit, unpacked in the repo's ``build/``) and of
+this one in turns (DIR, this, this, DIR), each in a process of its own
+from its root, one ``probe-against`` line each, and nothing else.
 
 The ablation builds variants of ``src/repro_torch/csrc/probe_spec.cu``
-side by side (one ``nvcc`` each, a copy of the sources with a -D flag or
-a substitution), holds each to the plain version and to the sources as
+side by side (one ``nvcc`` each, a copy of the sources with text
+substituted), holds each to the plain version and to the sources as
 they are, bit for bit, and times them through the wrappers in turns (a,
 b, c, d, d, c, b, a, twice; medians) with ``chip_smoke.Timer``:
 
-* ``tree``:  the sources as they are;
-* ``late``:  ``PROBE_LATE_ROWS``: each token's rows loaded when its step
-  starts, none in flight ahead (rows not preloaded);
-* ``bar2``:  ``PROBE_TWO_BARRIERS``: a second barrier a token, as the
-  earlier design had;
+* ``tree``:  the sources as they are, and the swept instances the policy
+  does not name (``INSTANCE_SWEEP``) added to the copy's list;
+* ``late``:  each token's rows loaded when its step starts, none in
+  flight ahead (rows not preloaded);
+* ``bar2``:  a second barrier a token, after its writes, as the earlier
+  design had;
 * ``ieee``:  the sigmoid's reciprocal and the smoothed score's division
   as the compiler's division (``/``, with its branch to a slow path)
   instead of ``rcp_rn`` and ``div_rn``: the same values, bit for bit;
@@ -41,13 +47,14 @@ card alone (``torch.cuda._sleep``: the rows still in the L2 from the
 last call), with each view's slope over T; the tree with zk the same
 tensor as zq (one row read) against zk a clone of zq (two rows); and the
 tree at other instances (threads and features a thread;
-``INSTANCE_SWEEP``, built into the tree's library with
-``PROBE_EXTRA_INSTANCES``) with the policy pointed at each in turn.
+``INSTANCE_SWEEP``, among them one warp against 256 threads at f 128)
+with the policy pointed at each in turn.
 Prints one line per case, then the card's name and power limit.  Exits
 non-zero without a card, when a variant does not build or when a check
 fails.
 """
 import ctypes
+import json
 import os
 import shutil
 import statistics
@@ -61,8 +68,14 @@ sys.path.insert(0, ROOT)
 
 # (kernel, B, T, f, view): the instances timed against the policy's (the
 # first of each list); figures (threads, features a thread, zq is zk) as
-# kernels/probe_step.py instance gives them
+# kernels/probe_step.py instance gives them, the window in registers
 INSTANCE_SWEEP = {
+    ("K4", 4, 4, 128, "same"): ((32, 4, 1), (256, 4, 1)),
+    ("K4", 4, 4, 128, "distinct"): ((32, 4, 0), (256, 4, 0)),
+    ("K4", 4, 8, 128, "same"): ((32, 4, 1), (256, 4, 1)),
+    ("K4", 4, 8, 128, "distinct"): ((32, 4, 0), (256, 4, 0)),
+    ("K1", 4, 1, 128, "same"): ((32, 4, 1), (256, 4, 1)),
+    ("K1", 4, 1, 128, "distinct"): ((32, 4, 0), (256, 4, 0)),
     ("K4", 4, 4, 960, "same"): ((256, 4, 1), (128, 8, 1), (64, 16, 1),
                                 (32, 32, 1)),
     ("K4", 4, 8, 960, "same"): ((256, 4, 1), (128, 8, 1), (64, 16, 1),
@@ -78,40 +91,57 @@ INSTANCE_SWEEP = {
 }
 
 def _extra():
-    """The swept instances the policy does not name (the sources build
-    those)."""
+    """The swept instances the policy does not name (the tree's copy of
+    the sources adds those)."""
     from repro_torch.kernels import probe_step as K1
-    built = {K1.instance(b.f_max, s) for b in K1.BANDS for s in (0, 1)}
+    built = {K1.instance(b.f_max, s, 1)[:3] for b in K1.BANDS
+             for s in (0, 1)}
     return sorted({fig for figs in INSTANCE_SWEEP.values() for fig in figs}
                   - built)
 
 
+def _tree_subs():
+    """The tree's substitution: the swept instances' lines before the end
+    of the list of csrc/probe_spec.cu."""
+    lines = "".join(f"  PROBE_INSTANCE({', '.join(map(str, fig))})\n"
+                    for fig in _extra())
+    return (("probe_spec.cu", "#undef PROBE_INSTANCE",
+             lines + "#undef PROBE_INSTANCE"),)
 
-# name: (nvcc flags, substitutions (file, old, new)); the tree's library
-# also holds the swept instances (_extra, probe_extra_instances.inc)
+
+# name: substitutions (file, old, new) in a copy of the sources
 SIGMOID = "return rcp_rn(1.0f + expf(-x));"
-DIVISION = "div_rn(tree_sum(st.ring), pre.d, pre.rd)"
-VARIANTS = {"tree": (("-DPROBE_EXTRA_INSTANCES",), ()),
-            "late": (("-DPROBE_LATE_ROWS",), ()),
-            "bar2": (("-DPROBE_TWO_BARRIERS",), ()),
-            "line": ((), (("probe_math.cuh", SIGMOID,
-                           "return 0.5f + 0.125f * x;"),)),
-            "ieee": ((), (("probe_math.cuh", SIGMOID,
-                           "return 1.0f / (1.0f + expf(-x));"),
-                          ("probe_math.cuh", DIVISION,
-                           "tree_sum(st.ring) / pre.d"))),
-            "noshfl": ((), (("probe_math.cuh",
-                             "v += __shfl_xor_sync(0xffffffffu, v, o);",
-                             "v += 0.0f;"),
-                            ("probe_spec.cu",
-                             "__shfl_xor_sync(0xffffffffu, hi ? ak : aq, "
-                             "16);", "0.0f;"),
-                            ("probe_spec.cu",
-                             "v += __shfl_xor_sync(0xffffffffu, v, o);",
-                             "v += 0.0f;"))),
-            "nobar": ((), (("probe_spec.cu",
-                            "        __syncthreads();\n        dk = fold",
-                            "        dk = fold"),))}
+DIVISION = "div_rn(tree_sum(r), pre.d, pre.rd)"
+WAIT = "cp_async_wait<R - 1>();"
+VARIANTS = {"tree": _tree_subs,
+            "late": (("probe_spec.cu",
+                      "#pragma unroll\n  for (int a = 0; a < R; ++a) "
+                      "load(a, a);\n", ""),
+                     ("probe_spec.cu", WAIT,
+                      "load(a, t);\n      cp_async_wait<0>();"),
+                     ("probe_spec.cu", "      load(a, t + R);", "")),
+            "bar2": (("probe_spec.cu",
+                      "g.n_out[first + t] = st.n;\n      }\n",
+                      "g.n_out[first + t] = st.n;\n      }\n"
+                      "      __syncthreads();\n"),),
+            "line": (("probe_math.cuh", SIGMOID,
+                      "return 0.5f + 0.125f * x;"),),
+            "ieee": (("probe_math.cuh", SIGMOID,
+                      "return 1.0f / (1.0f + expf(-x));"),
+                     ("probe_math.cuh", DIVISION,
+                      "tree_sum(r) / pre.d")),
+            "noshfl": (("probe_math.cuh",
+                        "v += __shfl_xor_sync(0xffffffffu, v, o);",
+                        "v += 0.0f;"),
+                       ("probe_spec.cu",
+                        "__shfl_xor_sync(0xffffffffu, hi ? ak : aq, 16);",
+                        "0.0f;"),
+                       ("probe_spec.cu",
+                        "v += __shfl_xor_sync(0xffffffffu, v, o);",
+                        "v += 0.0f;")),
+            "nobar": (("probe_spec.cu",
+                       "        __syncthreads();\n        dk = fold",
+                       "        dk = fold"),)}
 # variants whose values are not held
 WRONG = ("line", "noshfl", "nobar")
 # (kernel, B, T, f, view): K4 at the served shape in both views, a longer
@@ -127,21 +157,19 @@ VIEW_CASES = (("K4", 4, 4, 960), ("K4", 4, 8, 960), ("K4", 8, 8, 5120),
 def build_variants(tmp):
     from repro_torch.kernels import _build
     procs = {}
-    for name, (flags, subs) in VARIANTS.items():
+    for name, subs in VARIANTS.items():
         src = os.path.join(tmp, name)
         shutil.copytree(_build.CSRC, src)
-        for fname, old, new in subs:
+        for fname, old, new in (subs() if callable(subs) else subs):
             path = os.path.join(src, fname)
             text = open(path).read()
-            if old not in text:
-                raise SystemExit(f"probe_phases: {name}: {fname} no longer "
-                                 f"holds {old!r}")
+            if text.count(old) != 1:
+                raise SystemExit(f"probe_phases: {name}: {fname} holds "
+                                 f"{old!r} {text.count(old)} times, not "
+                                 "once")
             open(path, "w").write(text.replace(old, new))
-        with open(os.path.join(src, "probe_extra_instances.inc"), "w") as fh:
-            for fig in _extra():
-                fh.write(f"PROBE_INSTANCE({', '.join(map(str, fig))})\n")
         lib = os.path.join(tmp, f"lib_{name}.so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I", src,
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", src,
                "-shared", "-o", lib, os.path.join(src, "probe_spec.cu"),
                os.path.join(src, "probe_step.cu")]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -173,7 +201,8 @@ class Policy:
         from repro_torch.kernels import probe_spec as K4
         from repro_torch.kernels import probe_step as K1
         self.saved = K1.instance
-        K1.instance = K4.instance = lambda f, same: self.fig
+        K1.instance = K4.instance = lambda f, same, win: (
+            *self.fig, int(win > K1.REGISTER_WINDOW))
 
     def __exit__(self, *exc):
         from repro_torch.kernels import probe_spec as K4
@@ -351,7 +380,8 @@ def ablation(torch, cs, timer, libs):
             for fig in figs:
                 out = (ctypes.c_int * 4)()
                 from repro_torch.kernels import _build
-                _build.check(tree.probe_chain_config(*fig, out), str(fig))
+                _build.check(tree.probe_chain_config(*fig, 0, out),
+                             str(fig))
                 regs[str(fig)] = list(out)
                 with Policy(fig):
                     got = outputs(call(kern, args, [t.clone() for t in st0]))
@@ -375,12 +405,42 @@ def ablation(torch, cs, timer, libs):
                      max_abs_err=err))
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("probe_phases: no CUDA device", file=sys.stderr)
-        return 1
-    check = "--check" in sys.argv[1:]
+# phases k1 and k4 of one tree, timed, summed up in one line; run from the
+# tree's root
+SUMMARY = """
+import json, sys, torch
+sys.path[:0] = ["src", "."]
+import chip_smoke as cs
+cs.emit = lambda obj: None
+timer = cs.Timer(torch)
+k1, k4 = cs.phase_k1(torch, timer), cs.phase_k4(torch, timer)
+print(json.dumps(dict(
+    floor_ms=k1["floor_ms"], k1_served=k1["served"]["ms"],
+    k1_distinct=k1["distinct"]["ms"], k1_rwkv=k1["rwkv_width"]["ms"],
+    k4_timed=[r["ms"] for r in k4["timed"]],
+    slope_ms_per_token=k4["slope_ms_per_token"],
+    bitwise=k4["chained_k1_bitwise"], cases=k4["cases"])))
+"""
+
+
+def against(other):
+    """Phases k1 and k4 of the tree in ``other`` and of this one, timed in
+    turns: other, this, this, other."""
+    for tree in (other, ROOT, ROOT, other):
+        out = subprocess.run([sys.executable, "-c", SUMMARY], cwd=tree,
+                             capture_output=True, text=True)
+        if out.returncode:
+            raise SystemExit(f"probe_phases: phases of {tree} failed:\n"
+                             f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+        row = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps(dict(phase="probe-against",
+                              tree=os.path.relpath(tree, ROOT), **row)),
+              flush=True)
+
+
+def phases(torch, check):
+    """Build, phases k1 and k4, and unless ``check``, the L2 rows and the
+    ablation."""
     import chip_smoke as cs
     from repro_torch.kernels import _build
     lib = _build.build()
@@ -404,6 +464,18 @@ def main() -> int:
         l2_rows(torch, cs, timer)
         with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
             ablation(torch, cs, timer, build_variants(tmp))
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("probe_phases: no CUDA device", file=sys.stderr)
+        return 1
+    args = sys.argv[1:]
+    if "--against" in args:
+        against(os.path.abspath(args[args.index("--against") + 1]))
+    else:
+        phases(torch, "--check" in args)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
