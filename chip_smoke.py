@@ -18,7 +18,9 @@ non-zero:
                the RWKV fleet's probe width (B 4, f 2048); 30 steps with a
                smoothing window of 17, wider than the registers hold (the
                window in shared memory), in both views; each timed row
-               names its instance (threads, features a thread, registers)
+               names its instance (threads, features a thread, registers);
+               chained and timed at serve-llama's width (f 3072), both
+               views
 3. k2       -- paged flash decode against its plain version, bf16, int8
                and f32 pages, the serving shape and nb in {8, 64, 256}
                (past 256 positions split over blocks and merged); timed
@@ -26,7 +28,11 @@ non-zero:
                pages, with per_step_ms (32 layers); untimed at nb 256,
                rows with holes (bf16, int8) and rows whose valid positions
                fall in one split, in the end splits only, or in none
-               (the empty-row contract); each row names its splits
+               (the empty-row contract); each row names its splits; then
+               d 128 at G 3 (llama3.2-3b) and G 1 (qwen1.5-32b): the
+               served steps of serve-llama (bf16) and serve-qwen (int8),
+               the other page dtypes there, 4,096 positions split, holes
+               and the one-split rows
 4. k3       -- paged chunk attention against its plain versions, B4
                (packed chunks: 1 to 4 segments, an empty cache, padding
                and zero-length segments, nb 256) and B3 (chunks of B
@@ -37,7 +43,9 @@ non-zero:
                and a split-KV case whose last split holds no valid
                position; each row names its split count, and timed rows
                carry bound_tc_ms (the products at the tensor cores' bf16
-               rate) beside bound_ms
+               rate) beside bound_ms; then d 128 at G 3 and G 1, bf16,
+               int8 and f32: serve-qwen's chunk, 4 segments, B3 chunks,
+               4,000 positions split, holes
 5. k4       -- the masked multi-token probe step against its plain version
                and against T masked K1 launches on copies of the same
                state, bit for bit in every case: B 1, 4, 8; T 1, 2, 4, 8;
@@ -53,10 +61,11 @@ non-zero:
                at the verify shape (k3-verify: 4 segments of 4 tokens)
 6. k5       -- the offline TTT scan against its plain version and against
                its own L-step form (``ttt_probe_lookahead_plain`` at the
-               kernel's L for the width): f 128, 960, 5120 and 2048 (the
-               RWKV fleet's no-QK view), N 1 and 170, T 1, 37 and 120,
-               c = 0 and c = labels, a per-trajectory and a shared init
-               (96 cases on the synthetic corpus's step embeddings and
+               kernel's L for the width): f 128, 960, 5120, 2048 (the
+               RWKV fleet's no-QK view) and 3072 (the llama fleet's), N 1
+               and 170, T 1, 37 and 120, c = 0 and c = labels, a
+               per-trajectory and a shared init
+               (120 cases on the synthetic corpus's step embeddings and
                masks); timed at N 170, T 120 for each f, with the L-step
                form's error at L 1, 2, 4 and 8; every instance of the
                kernel (L, threads, registers, shared memory); a width
@@ -67,12 +76,17 @@ non-zero:
                S 1024 and 4096 split over blocks (f32 too) and merged;
                timed at (4, 112), (24, 112), (8, 4096), (24, 4096) and
                (4, 1024) beside scaled_dot_product_attention over the same
-               cache and mask, with per_step_ms; each row names its splits
+               cache and mask, with per_step_ms; each row names its splits;
+               then d 128 at G 3 and G 1: the harvests of serve-llama (8,
+               64) and serve-qwen (8, 208), dense steps, f32, 4,096
+               positions split
 8. k7       -- flash prefill attention against its plain version: (B, S)
                (1, 16), (24, 16), (1, 160), (24, 160), (4, 2048); window
                64; Sq < Sk; a window past the keys; bf16 and f32; timed
                (all but the window cases) beside SDPA with is_causal, with
-               bound_ms and bound_tc_ms
+               bound_ms and bound_tc_ms; then d 128 at G 3 and G 1: an
+               admission (1, 16), the harvests' prefills (8, 16) and
+               (8, 160), 2,048 tokens, f32, a window, Sq < Sk
 9. model    -- full-width smollm-360m (bf16, random weights from a seed,
                then the same weights in f32): prefill 16 tokens, 64
                teacher-forced paged decode steps through K2 (every call
@@ -161,10 +175,31 @@ non-zero:
 27. serve-rwkv-f32 -- the RWKV fleet in f32 through ``OrcaScheduler`` at
                a lambda* between its scores, through K8 and through the
                plain scan: stops and tokens equal
-28. kernels  -- one entry per kernel: launches on its path (phase 12 for
+28. model-llama, model-qwen -- llama3.2-3b (28 layers) and qwen1.5-32b
+               (64 layers, int8 KV pages) at full width and depth, random
+               bf16 weights drawn on the card: prefill 16 tokens, 8
+               teacher-forced paged decode steps through K2 within phase
+               model's measured floor, every K2 call checked; the dense
+               path through K7 and K6 (qwen's int8 cache dequantised to
+               bf16), every call checked; peak memory
+29. serve-llama, trace-llama -- ``launch.serve --arch llama3.2-3b
+               --paged``: 4 requests on 4 slots, 48 new tokens, 8
+               harvested trajectories; K1 at f 3072, K2, K6 (harvest, G 3)
+               and K7 counted exactly; a 16-step profiled window
+30. serve-llama-f32 -- the llama fleet in f32 at 4 of its 28 layers,
+               through the kernels and through the plain attention: stops
+               and tokens equal
+31. serve-qwen, trace-qwen -- ``launch.serve --arch qwen1.5-32b --paged
+               --chunk-tokens 64 --prompt-len 160``: int8 pages through K2
+               and K3 (G 1), the harvest through K7 and K6 (G 1), K1 and
+               K5 at f 5120; a 16-step profiled window; peak memory
+32. kernels  -- one entry per kernel: launches on its path (phase 12 for
                K1, K2 and K7, 10 for K3-B3, 17 for K3-B4, 19 for K4, 21
                for K5, 15 for K6, 25 for K8), error against its plain
-               version, kernel / plain / library / bound ms
+               version, kernel / plain / library / bound ms; then one entry
+               per d-128 instance on the new fleets' paths (K2, K6 and K7
+               at G 3 from serve-llama, at G 1 from serve-qwen, K3 at G 1
+               int8 from serve-qwen) and K1 at f 3072
 
 The line before the last is ``nvidia-smi``'s card name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -440,6 +475,18 @@ def phase_k1(torch, timer):
                            burn_in))
     rwkv_served = k1_timed(torch, timer, K1, gen, 4, f_rwkv, win, eta,
                            burn_in, same=True)
+    # serve-llama's probe width, d_model 3072 (serve-qwen's 5120 is among
+    # the views above), both views, chained and timed
+    llama = []
+    for same in (True, False):
+        err_l, margin_l, stops_l = k1_chain(
+            torch, K1, gen, 4, LLAMA_PROBE_F, win, steps, eta, lam, burn_in,
+            same=same)
+        llama.append(dict(f=LLAMA_PROBE_F, B=4, view="same" if same
+                          else "distinct", max_abs_err=err_l,
+                          lambda_margin=margin_l, stopped_at=stops_l,
+                          **k1_timed(torch, timer, K1, gen, 4, LLAMA_PROBE_F,
+                                     win, eta, burn_in, same=same)))
     wide = []
     for same in (True, False):
         err_w, margin_w, stops_w = k1_chain(
@@ -450,7 +497,7 @@ def phase_k1(torch, timer):
                          max_abs_err=err_w, lambda_margin=margin_w,
                          stopped_at=stops_w))
     err = {k: max([c["max_abs_err"][k] for c in chains.values()]
-                  + [v["max_abs_err"][k] for v in views + wide]
+                  + [v["max_abs_err"][k] for v in views + wide + llama]
                   + [err_r[k]])
            for k in chains[8]["max_abs_err"]}
     # the kernels line's K1 time: two rows (zk another tensor) at 4 slots,
@@ -463,7 +510,8 @@ def phase_k1(torch, timer):
                bound_by=timed["bound_by"], library_ms=None,
                served_ms=served["ms"], served_plain_ms=served["plain_ms"],
                served_bound_ms=served["bound_ms"], served=served,
-               distinct=timed, rwkv_width=rwkv, rwkv_served=rwkv_served)
+               distinct=timed, rwkv_width=rwkv, rwkv_served=rwkv_served,
+               llama_width=llama)
     emit(res)
     return res
 
@@ -574,6 +622,27 @@ def split_sweep(torch, timer, name, launch, outs, n_pos):
               chosen=SP.split_count(n_pos, SP.DECODE_MAX_SPLITS)))
 
 
+# (heads, KV heads, d_head, layers) of the served configs
+SMOLLM = (15, 5, 64, 32)
+LLAMA = (24, 8, 128, 28)
+QWEN = (40, 40, 128, 64)
+# K2 at d 128: (B, nb, pages, timed, case, shape).  First the served
+# decode steps of serve-llama (4 slots, 16 + 48 positions: 4 pages) and
+# serve-qwen (160 + 48: 13 pages, int8), then the other page dtypes at
+# those shapes (f32: serve-llama-f32), 4,096 positions split over 8
+# blocks, and the untimed split cases
+K2_D128_CASES = [(4, 4, "bf16", True, None, LLAMA),
+                 (4, 13, "int8", True, None, QWEN),
+                 (4, 4, "int8", True, None, LLAMA),
+                 (4, 13, "bf16", True, None, QWEN),
+                 (4, 4, "f32", True, None, LLAMA),
+                 (4, 13, "f32", False, None, QWEN),
+                 (8, 256, "bf16", True, None, LLAMA),
+                 (8, 256, "int8", True, None, QWEN),
+                 (8, 256, "int8", False, "holes", LLAMA),
+                 (8, 256, "bf16", False, "one split", QWEN)]
+
+
 def phase_k2(torch, timer):
     import torch.nn.functional as F
     from repro_torch.kernels import paged_decode as K2
@@ -589,9 +658,12 @@ def phase_k2(torch, timer):
              (8, 64, "bf16", True, None), (8, 256, "bf16", False, "holes"),
              (8, 256, "int8", False, "holes"),
              (8, 256, "bf16", False, "one split")]
+    cases = [c + (SMOLLM,) for c in cases] + K2_D128_CASES
     rows = []
-    for B, nb, dtype, timed, case in cases:
-        q, k, v, tables, valid, ks, vs = paged_case(torch, gen, B, nb, dtype)
+    for B, nb, dtype, timed, case, shape in cases:
+        H, KV, d, layers = shape
+        q, k, v, tables, valid, ks, vs = paged_case(torch, gen, B, nb, dtype,
+                                                    H, KV, d)
         if case is not None:
             valid = k2_shape_rows(torch, gen, valid, case)
         o, l, m = K2.paged_flash_decode(q, k, v, tables, valid, ks, vs,
@@ -642,13 +714,14 @@ def phase_k2(torch, timer):
                  + nbytes(o, l, m))
         # per valid position and query head: q.k and p.v (2 d each) + softmax
         bms, by = bound_ms(moved, n_valid * H * (4 * d + 4))
-        # per_step_ms: the kernel's share of one decode step, 32 layers
+        # per_step_ms: the kernel's share of one decode step, a launch a
+        # layer
         row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=bms, bound_by=by, bytes=moved,
-                   per_step_ms=32 * ms)
+                   bound_ms=bms, bound_by=by, bytes=moved, layers=layers,
+                   per_step_ms=layers * ms)
         emit(dict(phase="k2", **row))
         rows.append(row)
-        if (nb, dtype) == (256, "bf16"):
+        if (nb, dtype, d) == (256, "bf16", 64):
             from repro_torch.kernels import _build
             p = _build.ptr
             qg = q.reshape(B, KV, H // KV, d)
@@ -760,6 +833,32 @@ K3_B4_UNTIMED = [
     ("holes, split", 256, "int8", [(40, 4000), (24, 1500)], True),
     ("split, last split empty", 64, "bf16", [(64, 130)], False),
 ]
+# K3 at d 128, (G 3 and G 1): the served chunk of serve-qwen (int8 pages,
+# a 160-token prompt's third chunk packed with the next one's head), the
+# same at bf16 and f32 and at llama's shape, one segment on the tensor
+# cores with one warp a block (G 1), and 4,000 cached positions split over
+# 16 blocks
+K3_D128_B4_CASES = [
+    ("served", 16, "int8", [(32, 128), (32, 0)], QWEN),
+    ("served", 16, "bf16", [(32, 128), (32, 0)], QWEN),
+    ("served", 16, "bf16", [(32, 128), (32, 0)], LLAMA),
+    ("served", 16, "int8", [(32, 128), (32, 0)], LLAMA),
+    ("served", 16, "f32", [(32, 128), (32, 0)], LLAMA),
+    ("served", 16, "f32", [(32, 128), (32, 0)], QWEN),
+    ("four segments", 16, "int8", [(16, 200), (16, 0), (16, 37), (8, 255)],
+     QWEN),
+    ("nb 256", 256, "bf16", [(64, 4000)], LLAMA),
+    ("nb 256", 256, "int8", [(40, 4000), (24, 1500)], QWEN),
+]
+# B3 at d 128: one request's 64-token chunk over 128 cached positions
+K3_D128_B3_CASES = [(1, 64, 16, "int8", [128], QWEN),
+                    (1, 64, 16, "bf16", [128], LLAMA),
+                    (4, 64, 256, "int8", [0, 64, 1000, 4000], LLAMA)]
+K3_D128_UNTIMED = [
+    ("holes", 16, "int8", [(32, 200), (32, 100)], True, QWEN),
+    ("holes, split", 256, "bf16", [(40, 4000), (24, 1500)], True, LLAMA),
+    ("split, last split empty", 64, "int8", [(64, 130)], False, QWEN),
+]
 # bf16 / int8 inputs upcast exactly; f32 sums in another order than the
 # plain one-shot softmax: K2's tolerances
 K3_M_TOL, K3_OUT_TOL = 1e-4, 2e-3
@@ -783,15 +882,18 @@ def _sdpa_ms(torch, timer, q4, k, v, ks, vs, tables, mask, dtype):
 
 
 def k3_b4_case(torch, timer, gen, name, nb, dtype, segs, C=64, R=4,
-               holes=False, timed=True):
+               holes=False, timed=True, shape=None):
     """One packed chunk of C tokens in R segments ((tokens, cached
     positions) each) through K3 and its plain version: errors, the merged
     output, times beside SDPA and the bounds.  ``holes`` drops about half
-    of each segment's cached positions (not its first and last)."""
+    of each segment's cached positions (not its first and last); ``shape``
+    the (heads, KV heads, d_head, layers) of a served config (smollm-360m's
+    by default)."""
     from repro_torch.kernels import paged_chunk as K3
     from repro_torch.models import attention as A
-    H, KV, d, bs = 15, 5, 64, 16
-    k, v, ks, vs, tables = chunk_pool(torch, gen, R, nb, dtype)
+    H, KV, d, _ = shape or SMOLLM
+    bs = 16
+    k, v, ks, vs, tables = chunk_pool(torch, gen, R, nb, dtype, KV, d)
     n_tok = sum(t for t, _ in segs)
     seg = torch.full((C,), len(segs) - 1, dtype=torch.int32)
     lengths = torch.zeros(R, dtype=torch.int32)
@@ -829,7 +931,8 @@ def k3_b4_case(torch, timer, gen, name, nb, dtype, segs, C=64, R=4,
     merged_err = float((merged[0] - merged[1]).abs().max())
     if not (m_err <= K3_M_TOL and o_err <= K3_OUT_TOL
             and merged_err <= K3_OUT_TOL):
-        raise AssertionError(f"K3-B4 {name} {dtype}: m err {m_err}, "
+        raise AssertionError(f"K3-B4 {name} {dtype} d {d} G {H // KV}: m "
+                             f"err {m_err}, "
                              f"output err {o_err}, merged {merged_err}")
     row = dict(fn="B4", case=name, nb=nb, pages=dtype, C=C, R=R,
                segments=segs, padding=C - n_tok, holes=holes, H=H, KV=KV,
@@ -860,49 +963,61 @@ def k3_b4_case(torch, timer, gen, name, nb, dtype, segs, C=64, R=4,
     return row
 
 
-def phase_k3(torch, timer):
+def k3_b3_case(torch, timer, gen, B, Cb, nb, dtype, cached, shape=None):
+    """B requests of Cb chunk tokens each (``cached`` positions apiece)
+    through K3's B3 entry and its plain version, timed beside SDPA."""
     from repro_torch.kernels import paged_chunk as K3
+    H, KV, d, _ = shape or SMOLLM
+    bs = 16
+    k, v, ks, vs, tables = chunk_pool(torch, gen, B, nb, dtype, KV, d)
+    valid = torch.arange(nb * bs)[None, :] < torch.tensor(cached)[:, None]
+    q = torch.randn(B, Cb, H, d, generator=gen)
+    q, tables, valid = (t.to(DEV) for t in (q, tables, valid))
+    got = K3.paged_flash_prefill_chunk(q, k, v, tables, valid, ks, vs)
+    want = K3.paged_prefill_chunk_plain(q, k, v, tables, valid, ks, vs)
+    m_err, o_err = chunk_partial_errors(got, want)
+    if not (m_err <= K3_M_TOL and o_err <= K3_OUT_TOL):
+        raise AssertionError(f"K3-B3 {B}x{Cb} nb {nb} {dtype} d {d}: m err "
+                             f"{m_err}, output err {o_err}")
+    ms = timer(lambda: K3.paged_flash_prefill_chunk(
+        q, k, v, tables, valid, ks, vs))
+    plain_ms = timer(lambda: K3.paged_prefill_chunk_plain(
+        q, k, v, tables, valid, ks, vs))
+    lib_ms = _sdpa_ms(torch, timer, q.permute(0, 2, 1, 3), k, v, ks, vs,
+                      tables, valid[:, None, None, :], dtype)
+    moved, ops, tc_ops = k3_bytes_ops(k, ks, cached, Cb * sum(cached),
+                                      H, d, (q, tables, valid), got)
+    bms, by = bound_ms(moved, ops)
+    return dict(fn="B3", B=B, C=Cb, nb=nb, pages=dtype, cached=cached,
+                H=H, KV=KV, d=d, bs=bs,
+                split=K3.split_count(nb * bs, k.dtype), m_err=m_err,
+                out_err=o_err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                bound_tc_ms=bound_tc_ms(moved, tc_ops, ops - tc_ops),
+                bytes=moved)
+
+
+def phase_k3(torch, timer):
+    """smollm-360m's cases first (their draws as in every earlier run),
+    then the d-128 ones."""
     gen = torch.Generator().manual_seed(SEED + 3)
-    H, KV, d, bs = 15, 5, 64, 16
     rows = []
-    for name, nb, dtype, segs in K3_B4_CASES:
-        row = k3_b4_case(torch, timer, gen, name, nb, dtype, segs)
-        emit(dict(phase="k3", **row))
-        rows.append(row)
-    for B, Cb, nb, dtype, cached in K3_B3_CASES:
-        k, v, ks, vs, tables = chunk_pool(torch, gen, B, nb, dtype)
-        valid = torch.arange(nb * bs)[None, :] < torch.tensor(cached)[:, None]
-        q = torch.randn(B, Cb, H, d, generator=gen)
-        q, tables, valid = (t.to(DEV) for t in (q, tables, valid))
-        got = K3.paged_flash_prefill_chunk(q, k, v, tables, valid, ks, vs)
-        want = K3.paged_prefill_chunk_plain(q, k, v, tables, valid, ks, vs)
-        m_err, o_err = chunk_partial_errors(got, want)
-        if not (m_err <= K3_M_TOL and o_err <= K3_OUT_TOL):
-            raise AssertionError(f"K3-B3 {B}x{Cb} nb {nb} {dtype}: m err "
-                                 f"{m_err}, output err {o_err}")
-        ms = timer(lambda: K3.paged_flash_prefill_chunk(
-            q, k, v, tables, valid, ks, vs))
-        plain_ms = timer(lambda: K3.paged_prefill_chunk_plain(
-            q, k, v, tables, valid, ks, vs))
-        lib_ms = _sdpa_ms(torch, timer, q.permute(0, 2, 1, 3), k, v, ks, vs,
-                          tables, valid[:, None, None, :], dtype)
-        moved, ops, tc_ops = k3_bytes_ops(k, ks, cached, Cb * sum(cached),
-                                          H, d, (q, tables, valid), got)
-        bms, by = bound_ms(moved, ops)
-        row = dict(fn="B3", B=B, C=Cb, nb=nb, pages=dtype, cached=cached,
-                   H=H, KV=KV, d=d, bs=bs,
-                   split=K3.split_count(nb * bs, k.dtype), m_err=m_err,
-                   out_err=o_err, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                   bound_tc_ms=bound_tc_ms(moved, tc_ops, ops - tc_ops),
-                   bytes=moved)
-        emit(dict(phase="k3", **row))
-        rows.append(row)
-    for name, nb, dtype, segs, holes in K3_B4_UNTIMED:
-        row = k3_b4_case(torch, timer, gen, name, nb, dtype, segs,
-                         holes=holes, timed=False)
-        emit(dict(phase="k3", **row))
-        rows.append(row)
+    for b4, b3, untimed in ((K3_B4_CASES, K3_B3_CASES, K3_B4_UNTIMED),
+                            (K3_D128_B4_CASES, K3_D128_B3_CASES,
+                             K3_D128_UNTIMED)):
+        for name, nb, dtype, segs, *shape in b4:
+            rows.append(k3_b4_case(torch, timer, gen, name, nb, dtype, segs,
+                                   shape=shape[0] if shape else None))
+            emit(dict(phase="k3", **rows[-1]))
+        for B, Cb, nb, dtype, cached, *shape in b3:
+            rows.append(k3_b3_case(torch, timer, gen, B, Cb, nb, dtype,
+                                   cached, shape[0] if shape else None))
+            emit(dict(phase="k3", **rows[-1]))
+        for name, nb, dtype, segs, holes, *shape in untimed:
+            rows.append(k3_b4_case(torch, timer, gen, name, nb, dtype, segs,
+                                   holes=holes, timed=False,
+                                   shape=shape[0] if shape else None))
+            emit(dict(phase="k3", **rows[-1]))
     return rows
 
 
@@ -1171,6 +1286,8 @@ def phase_k4(torch, timer):
 N_TRAIN, N_CAL, N_TEST, D_PHI = 500, 170, 170, 960
 # the RWKV fleet's probe width: rwkv6-1.6b's d_model
 RWKV_PROBE_F = 2048
+# serve-llama's probe width (llama3.2-3b's d_model)
+LLAMA_PROBE_F = 3072
 K5_TOL = 1e-5
 
 
@@ -1193,12 +1310,13 @@ def k5_cases(torch, test):
     960 (the served no-QK view: the corpus's step embeddings as both zq and
     zk), 5120 (N(0, 1) features at qwen1.5-32b's width) and 2048 (the
     no-QK view at rwkv6-1.6b's d_model, as serve-rwkv fits its probe: the
-    embeddings projected to 2048, one tensor as zq and zk); N 1 and 170; T
-    1, 37 and 120; masks from the corpus's ragged lengths; c = 0 (deployed)
-    or c = the supervised labels (the "true" inner-label mode); W0 per
-    trajectory (``ttt_probe_batched``) or shared (``ttt_probe_scan``).
-    The four widths run four of the kernel's instances, those of every
-    width a phase of this script fits at."""
+    embeddings projected to 2048, one tensor as zq and zk) and 3072 (the
+    no-QK view at llama3.2-3b's d_model: N(0, 1) features, one tensor); N
+    1 and 170; T 1, 37 and 120; masks from the corpus's ragged lengths; c
+    = 0 (deployed) or c = the supervised labels (the "true" inner-label
+    mode); W0 per trajectory (``ttt_probe_batched``) or shared
+    (``ttt_probe_scan``).  The five widths run five of the kernel's
+    instances, those of every width a phase of this script fits at."""
     from repro_torch.core.labels import supervised_labels
     gen = torch.Generator().manual_seed(SEED + 5)
     phis = torch.as_tensor(test.phis).to(DEV)
@@ -1211,12 +1329,17 @@ def k5_cases(torch, test):
     theta_up = (torch.randn(D_PHI, RWKV_PROBE_F, generator=torch.Generator(
         ).manual_seed(SEED + 52)) / RWKV_PROBE_F ** 0.5).to(DEV)
     z_up = phis @ theta_up
+    # serve-llama's view: N(0, 1) features at 3072, one tensor as zq and zk
+    z_llama = torch.randn(len(test), phis.shape[1], LLAMA_PROBE_F,
+                          generator=torch.Generator().manual_seed(
+                              SEED + 53)).to(DEV)
     feats = {128: (phis @ theta_qk[0], phis @ theta_qk[1]),
              D_PHI: (phis, phis),
              5120: tuple(torch.randn(len(test), phis.shape[1], 5120,
                                      generator=gen).to(DEV)
                          for _ in range(2)),
-             RWKV_PROBE_F: (z_up, z_up)}
+             RWKV_PROBE_F: (z_up, z_up),
+             LLAMA_PROBE_F: (z_llama, z_llama)}
     for f, (zq_all, zk_all) in feats.items():
         w0 = (torch.randn(f, generator=gen) / f ** 0.5).to(DEV)
         w0_rows = w0 + 0.1 * (torch.randn(len(test), f, generator=gen)
@@ -1368,6 +1491,19 @@ K6_CASES = [(4, 112, "bf16", True), (24, 112, "bf16", True),
             (4, 4096, "f32", False)]
 
 
+# K6 at d 128: (B, S, cache dtype, timed, shape).  The harvests of
+# serve-llama (8 trajectories, 16 + 48 positions) and serve-qwen (8 of
+# 160 + 48, its int8 cache dequantised to bf16), a dense fleet's step at
+# each width, f32 (serve-llama-f32's harvest), 4,096 positions split
+K6_D128_CASES = [(8, 64, "bf16", True, LLAMA), (8, 208, "bf16", True, QWEN),
+                 (4, 64, "bf16", True, LLAMA), (4, 208, "bf16", True, QWEN),
+                 (8, 64, "f32", True, LLAMA), (4, 113, "f32", False, QWEN),
+                 (1, 16, "bf16", False, QWEN),
+                 (8, 4096, "bf16", True, LLAMA),
+                 (4, 4096, "bf16", True, QWEN),
+                 (4, 4096, "f32", False, LLAMA)]
+
+
 def dense_case(torch, gen, B, S, dtype, H=15, KV=5, d=64):
     """A dense cache with row 0 fully valid, ragged tails, and for B > 2 a
     sliding-window band (row 1) and a row with no valid position (row
@@ -1392,15 +1528,16 @@ def phase_k6(torch, timer):
     from repro_torch.kernels import split as SP
     gen = torch.Generator().manual_seed(SEED + 6)
     rows = []
-    for B, S, dtype, timed in K6_CASES:
-        q, k, v, valid = dense_case(torch, gen, B, S, dtype)
+    for B, S, dtype, timed, *shape in K6_CASES + K6_D128_CASES:
+        H, KV, d, layers = shape[0] if shape else SMOLLM
+        q, k, v, valid = dense_case(torch, gen, B, S, dtype, H, KV, d)
         o, l, m = K6.flash_decode(q, k, v, valid, return_partials=True)
         want = K6.flash_decode_plain(q, k, v, valid, return_partials=True)
         m_err, o_err = partial_errors((o, l, m), want, valid)
         empty = ~valid.any(1)
         if not (m_err <= K6_M_TOL and o_err <= K6_OUT_TOL * v_scale(v)):
-            raise AssertionError(f"K6 {B}x{S} {dtype}: m err {m_err}, "
-                                 f"output err {o_err}")
+            raise AssertionError(f"K6 {B}x{S} {dtype} d {d} G {H // KV}: "
+                                 f"m err {m_err}, output err {o_err}")
         if empty.any() and not (float(o[empty].abs().max()) == 0.0
                                 and float(l[empty].abs().max()) == 0.0
                                 and bool((m[empty] == -1e30).all())):
@@ -1415,7 +1552,6 @@ def phase_k6(torch, timer):
                     + (2.0 ** -7 if dtype == "bf16" else 0.0)):
             raise AssertionError(f"K6 {B}x{S} {dtype}: normalised output "
                                  f"err {n_err}")
-        H, KV, d = q.shape[1], k.shape[1], q.shape[2]
         n_split = SP.split_count(S, SP.DECODE_MAX_SPLITS)
         row = dict(B=B, S=S, cache=dtype, H=H, KV=KV, d=d,
                    valid_positions=int(valid.sum()),
@@ -1442,9 +1578,10 @@ def phase_k6(torch, timer):
             row["bound_ms"], row["bound_by"] = bound_ms(
                 moved, n_valid * H * (4 * d + 4))
             row["bytes"] = moved
-            # the kernel's share of one decode step, 32 layers
-            row["per_step_ms"] = 32 * row["ms"]
-            if (B, S) == (8, 4096):
+            # the kernel's share of one decode step, a launch a layer
+            row["layers"] = layers
+            row["per_step_ms"] = layers * row["ms"]
+            if (B, S, d) == (8, 4096, 64):
                 from repro_torch.kernels import _build
                 p = _build.ptr
                 qg = q.reshape(B, KV, H // KV, d)
@@ -1484,6 +1621,23 @@ K7_CASES = [(1, 16, 16, None, "bf16", True), (24, 16, 16, None, "bf16", True),
             (1, 48, 16, 8, "f32", False)]
 
 
+# K7 at d 128: an admission's prefill (1, 16) and the harvest's (8, 16) of
+# serve-llama, serve-qwen's harvest prefill (8 prompts of 160), long
+# prompts at both groups, f32 (serve-llama-f32), a window, Sq < Sk and a
+# window past the keys
+K7_D128_CASES = [(1, 16, 16, None, "bf16", True, LLAMA),
+                 (8, 16, 16, None, "bf16", True, LLAMA),
+                 (8, 160, 160, None, "bf16", True, QWEN),
+                 (1, 160, 160, None, "bf16", True, QWEN),
+                 (4, 2048, 2048, None, "bf16", True, LLAMA),
+                 (1, 2048, 2048, None, "bf16", True, QWEN),
+                 (8, 16, 16, None, "f32", True, LLAMA),
+                 (1, 160, 160, None, "f32", False, QWEN),
+                 (4, 160, 160, 64, "bf16", False, QWEN),
+                 (4, 64, 160, None, "bf16", False, LLAMA),
+                 (1, 48, 16, 8, "f32", False, LLAMA)]
+
+
 def visible_pairs(sq, sk, window):
     """(query, key) pairs the causal / window mask leaves, per head."""
     n = 0
@@ -1509,9 +1663,9 @@ def phase_k7(torch, timer):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as K7
     gen = torch.Generator().manual_seed(SEED + 7)
-    H, KV, d = 15, 5, 64
     rows = []
-    for B, sq, sk, window, dtype, timed in K7_CASES:
+    for B, sq, sk, window, dtype, timed, *shape in K7_CASES + K7_D128_CASES:
+        H, KV, d, _ = shape[0] if shape else SMOLLM
         dt = torch.bfloat16 if dtype == "bf16" else torch.float32
         q = torch.randn(B, sq, H, d, generator=gen).to(dt).to(DEV)
         k = torch.randn(B, sk, KV, d, generator=gen).to(dt).to(DEV)
@@ -1521,7 +1675,7 @@ def phase_k7(torch, timer):
         err, ok = k7_error(out, want, v)
         if not ok or not torch.isfinite(out.float()).all():
             raise AssertionError(f"K7 {B}x{sq}x{sk} window {window} "
-                                 f"{dtype}: err {err}")
+                                 f"{dtype} d {d} G {H // KV}: err {err}")
         row = dict(B=B, Sq=sq, Sk=sk, window=window, dtype=dtype, H=H,
                    KV=KV, d=d, max_abs_err=err)
         if timed:
@@ -1758,6 +1912,48 @@ def dense_path(torch, model, params, prompt, feed, exact_argmax):
     return res
 
 
+def paged_within_floor(torch, model, params, prompt, feed):
+    """The bf16 paged decode of phase model: the prompt prefilled and the
+    fed tokens decoded through K2 (every call held against the plain
+    version on its own inputs, ``CheckedK2``) and through the plain paged
+    attention, the logits of K2 held to a floor measured in the same run
+    (below).  Returns the record of it."""
+    from repro_torch.kernels import flash_attention as K7
+    from repro_torch.kernels import paged_decode as K2
+    plain = K2.paged_decode_plain
+    checked = CheckedK2(K2)
+    (k2, rev, pre_spread), scale = teacher_forced(
+        torch, model, params, prompt, feed,
+        [(plain, None), (checked, None), (_positions_reversed(K2), None),
+         (plain, K7.attn_prefill_einsum)])
+    # bf16 logits: K2, the position-reversed plain version and the prompt
+    # prefilled through the einsum in place of K7 all compute the same
+    # functions with their f32 sums in another order.  The bf16 cast of
+    # each attention output turns such a reordering into one-ulp flips,
+    # which a random-weight stack amplifies on the way to the logits.  The
+    # floor at step t is the larger difference the two reference
+    # reorderings show there; the logits of K2 are held to 8x the largest
+    # floor up to step t, plus one bf16 ulp of the largest logit.  The
+    # prefill's reordering gives the floor a value from step 0, where
+    # reversing the positions of a prompt in one page can flip nothing.
+    # The kernel itself is held per call by CheckedK2 above.
+    steps = feed.shape[0]
+    floor = [max(a, b) for a, b in zip(rev, pre_spread)]
+    ulp = scale * 2.0 ** -8
+    bound = [8 * max(floor[:t + 1]) + ulp for t in range(steps)]
+    over = [t for t in range(steps) if k2[t] > bound[t]]
+    if over:
+        t = over[0]
+        raise AssertionError(f"{model.cfg.name} bf16 step {t}: K2 vs plain "
+                             f"paged logits {k2[t]} > {bound[t]} "
+                             f"(reordering spread {max(floor[:t + 1])})")
+    return dict(k2_calls=checked.calls, k2_m_rel_err=checked.m_err,
+                k2_out_err=checked.out_err, max_logit_diff_per_step=k2,
+                reversed_plain_diff_per_step=rev,
+                einsum_prefill_diff_per_step=pre_spread,
+                max_abs_logit=scale, bound_per_step=bound)
+
+
 def phase_model(torch, reduced: bool = False):
     """Full-width smollm-360m, teacher-forced: K2 against the plain paged
     attention, in bf16 (as served) and with the same weights in float32.
@@ -1767,7 +1963,6 @@ def phase_model(torch, reduced: bool = False):
     the plain versions (``dense_path``)."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as K7
     from repro_torch.kernels import paged_decode as K2
     from repro_torch.models import build
     cfg = get_config("smollm-360m")
@@ -1782,32 +1977,7 @@ def phase_model(torch, reduced: bool = False):
                            dtype=torch.int32).to(DEV)
     feed = torch.randint(0, cfg.vocab_size, (steps, B), generator=gen,
                          dtype=torch.int32).to(DEV)
-    plain = K2.paged_decode_plain
-    checked = CheckedK2(K2)
-    (k2, rev, pre_spread), scale = teacher_forced(
-        torch, model, params, prompt, feed,
-        [(plain, None), (checked, None), (_positions_reversed(K2), None),
-         (plain, K7.attn_prefill_einsum)])
-    # bf16 logits: K2, the position-reversed plain version and the prompt
-    # prefilled through the einsum in place of K7 all compute the same
-    # functions with their f32 sums in another order.  The bf16 cast of each attention output turns such
-    # a reordering into one-ulp flips, which a random-weight 32-layer stack
-    # amplifies on the way to the logits.  The floor at step t is the
-    # larger difference the two reference reorderings show there; the
-    # logits of K2 are held to 8x the largest floor up to step t, plus one
-    # bf16 ulp of the largest logit.  The prefill's reordering gives the
-    # floor a value from step 0, where reversing the positions of a prompt
-    # in one page can flip nothing.  The kernel itself is held per call by
-    # CheckedK2 above.
-    floor = [max(a, b) for a, b in zip(rev, pre_spread)]
-    ulp = scale * 2.0 ** -8
-    bound = [8 * max(floor[:t + 1]) + ulp for t in range(steps)]
-    over = [t for t in range(steps) if k2[t] > bound[t]]
-    if over:
-        t = over[0]
-        raise AssertionError(f"bf16 step {t}: K2 vs plain paged logits "
-                             f"{k2[t]} > {bound[t]} (reordering spread "
-                             f"{max(floor[:t + 1])})")
+    bf16 = paged_within_floor(torch, model, params, prompt, feed)
     # float32, the same weights: no bf16 cast between layers, so the two
     # orders differ by f32 rounding (~1e-7) times the same amplification
     # (~20x, from 2^-8 to ~8% in bf16); 2^-10 of the largest logit leaves
@@ -1818,7 +1988,8 @@ def phase_model(torch, reduced: bool = False):
     checked32 = CheckedK2(K2)
     (k2_32,), scale32 = teacher_forced(torch, build(cfg32), params32,
                                        prompt, feed,
-                                       [(plain, None), (checked32, None)])
+                                       [(K2.paged_decode_plain, None),
+                                        (checked32, None)])
     bound32 = scale32 * 2.0 ** -10
     if max(k2_32) > bound32:
         raise AssertionError(f"f32: K2 vs plain paged logits {max(k2_32)} "
@@ -1829,14 +2000,7 @@ def phase_model(torch, reduced: bool = False):
                d_model=cfg.d_model, heads=cfg.n_heads,
                kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, d_ff=cfg.d_ff,
                vocab=cfg.vocab_size, params=n_params, dtype=cfg.dtype,
-               batch=B, prompt=S, decode_steps=steps,
-               bf16=dict(k2_calls=checked.calls,
-                         k2_m_rel_err=checked.m_err,
-                         k2_out_err=checked.out_err,
-                         max_logit_diff_per_step=k2,
-                         reversed_plain_diff_per_step=rev,
-                         einsum_prefill_diff_per_step=pre_spread,
-                         max_abs_logit=scale, bound_per_step=bound),
+               batch=B, prompt=S, decode_steps=steps, bf16=bf16,
                f32=dict(k2_calls=checked32.calls,
                         k2_m_rel_err=checked32.m_err,
                         k2_out_err=checked32.out_err,
@@ -2191,7 +2355,7 @@ def read_launches():
 
 
 def serve_fleet(torch, extra_argv=(), *, phase, requests, need, paged=True,
-                arch="smollm-360m"):
+                arch="smollm-360m", max_new=96):
     """The serving driver end to end, on a paged fleet or (``paged=False``)
     a dense one; every kernel in ``need`` must have launched during it
     (counts zeroed just before, read just after).  Returns the phase's
@@ -2199,7 +2363,7 @@ def serve_fleet(torch, extra_argv=(), *, phase, requests, need, paged=True,
     from repro_torch.launch import serve
     argv = ["--arch", arch, *(["--paged"] if paged else []),
             "--requests", str(requests), "--slots", "4", "--max-new-tokens",
-            "96", "--seed", str(SEED), *extra_argv]
+            str(max_new), "--seed", str(SEED), *extra_argv]
     zero_launches()
     t0 = time.perf_counter()
     out = serve.serve(argv)
@@ -3399,6 +3563,196 @@ def phase_rwkv_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
 
 
 # ---------------------------------------------------------------------------
+# the d-128 fleets: llama3.2-3b (G 3) and qwen1.5-32b (G 1, int8 KV)
+
+LLAMA_ARCH, QWEN_ARCH = "llama3.2-3b", "qwen1.5-32b"
+# the new fleets: 4 requests on 4 slots, 48 new tokens, 8 harvested
+# trajectories; serve-qwen's prompts of 160 tokens go in 64-token chunks
+WIDE_REQUESTS, WIDE_NEW, WIDE_HARVEST = 4, 48, 8
+QWEN_PROMPT = 160
+# serve-llama-f32's depth: the float32 check fleets' stops, kept short
+F32_LAYERS = 4
+
+
+def free_card(torch) -> None:
+    """Return what the dropped fleets held to the card."""
+    import gc
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def peak_gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30 if DEV == "cuda" \
+        else 0.0
+
+
+def phase_model_wide(torch, arch, phase, steps: int = 8,
+                     reduced: bool = False):
+    """A d-128 config at full width and depth (random bf16 weights drawn
+    on the card; qwen1.5-32b's KV in int8 pages as served): one prefill of
+    16 tokens and ``steps`` teacher-forced paged decode steps through K2,
+    its logits within the floor phase model measures
+    (``paged_within_floor``, every K2 call held against the plain version
+    too); then the dense path, the prompt through K7 and the fed tokens
+    through K6 (qwen's int8 cache dequantised to bf16, K6 at G 1), every
+    call held against the plain version (``dense_path``).  Reports the
+    card's peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = build(cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = model.init(gen, DEV)
+    sync(torch)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    B, S = 4, 16
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           dtype=torch.int32).to(DEV)
+    feed = torch.randint(0, cfg.vocab_size, (steps, B), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    paged = paged_within_floor(torch, model, params, prompt, feed)
+    dense = dense_path(torch, model, params, prompt, feed, False)
+    res = dict(phase=phase, arch=arch, layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+               kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, d_ff=cfg.d_ff,
+               vocab=cfg.vocab_size, params=n_params, dtype=cfg.dtype,
+               kv_cache=cfg.kv_cache_dtype, init_s=init_s, batch=B,
+               prompt=S, decode_steps=steps, bf16=paged, dense=dense,
+               peak_gib=peak_gib(torch))
+    emit(res)
+    del params
+    return res
+
+
+def wide_fleet(torch, arch, phase, extra=(), need=SERVE_NEED):
+    """``launch.serve --arch <arch> --paged``: 4 requests on 4 slots, 48
+    new tokens, 8 harvested trajectories.  The harvest runs K7 once a
+    layer for its prefill and K6 once a layer a decode step, every
+    admission K7 (or, chunked, K3) and every engine step K2 and K1."""
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    res, out = serve_fleet(
+        torch, ("--train-trajectories", str(WIDE_HARVEST), *extra),
+        phase=phase, requests=WIDE_REQUESTS, need=need, arch=arch,
+        max_new=WIDE_NEW)
+    layers = out.scheduler.model.cfg.n_layers
+    lc = res["launches"]
+    chunked = "--chunk-tokens" in extra
+    want = dict(flash_decode=layers * WIDE_NEW,
+                flash_attention=layers * (1 + (0 if chunked
+                                               else WIDE_REQUESTS)),
+                paged_flash_decode=layers * res["engine_steps"])
+    got = {k: lc[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{phase} launches {got}, expected {want} (K6 "
+                             f"once a layer in each of the harvest's "
+                             f"{WIDE_NEW} steps; K7 once a layer for the "
+                             "harvest and each admission prefilled at "
+                             "once; K2 once a layer an engine step)")
+    res.update(layers=layers, step_ms=res["serve_wall_s"]
+               / res["engine_steps"] * 1e3,
+               params=sum(t.numel() for t in _leaves(out.scheduler.params)),
+               peak_gib=peak_gib(torch))
+    emit(res)
+    return res, out
+
+
+class PlainAttention:
+    """Within the block, every attention kernel of the dense model runs
+    its plain version: K2, K3 (both entries), K6 and K7."""
+
+    def __enter__(self):
+        from repro_torch.kernels import paged_chunk as K3
+        from repro_torch.kernels import paged_decode as K2
+        from repro_torch.models import attention as A
+        self.dense = PlainDenseAttention().__enter__()
+        self.served = (A.paged_flash_decode, A.paged_flash_prefill_chunk,
+                       A.paged_flash_packed_chunk)
+        A.paged_flash_decode = K2.paged_decode_plain
+        A.paged_flash_prefill_chunk = K3.paged_prefill_chunk_plain
+        A.paged_flash_packed_chunk = K3.paged_packed_chunk_plain
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as A
+        (A.paged_flash_decode, A.paged_flash_prefill_chunk,
+         A.paged_flash_packed_chunk) = self.served
+        return self.dense.__exit__(*exc)
+
+
+def phase_llama_f32_stops(torch, sched, layers: int = F32_LAYERS,
+                          prompt_len: int = 16):
+    """serve-llama's fleet in float32 at ``layers`` of its 28 layers (the
+    first ones of its weights; full width), through ``OrcaScheduler`` at a
+    lambda* between its scores (phase serve-spec-f32's machinery), served
+    once through the kernels (K1, K2 and K7 at d 128, G 3, f32) and once
+    with every attention kernel on its plain version: every stop step and
+    every token equal."""
+    import dataclasses
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.serving import OrcaScheduler, ServeConfig, make_request
+    layers = min(layers, sched.model.cfg.n_layers)
+    cfg32 = dataclasses.replace(sched.model.cfg, dtype="float32",
+                                kv_cache_dtype="float32", n_layers=layers)
+    model32 = build(cfg32)
+    params32 = {k: (_tree(v, lambda t: t[:layers].float()) if k == "layers"
+                    else _tree(v, lambda t: t.float()))
+                for k, v in sched.params.items()}
+    batch = serve.model_inputs(cfg32, torch.Generator().manual_seed(SEED + 1),
+                               WIDE_REQUESTS, prompt_len)
+    base = dict(n_slots=4, paged=True, tokens_per_step=8,
+                max_new_tokens=WIDE_NEW, burn_in=2)
+
+    def fleet(lam):
+        zero_launches()
+        t0 = time.perf_counter()
+        done, fl = OrcaScheduler(model32, params32, sched.pc, sched.theta,
+                                 ServeConfig(lam=lam, **base)).run(
+            [make_request(t) for t in batch["tokens"]])
+        sync(torch)
+        return done, fl, time.perf_counter() - t0, read_launches()
+
+    free, _, _, _ = fleet(2.0)
+    lam, margin = choose_lambda([r.scores for r in free], base["burn_in"])
+    if margin < 1e-4:
+        raise AssertionError(f"every threshold lies within {margin} of a "
+                             "score: the check would hang on a tie")
+    kern, kern_fl, kern_s, kern_l = fleet(lam)
+    with PlainAttention():
+        plain, plain_fl, plain_s, plain_l = fleet(lam)
+    stops = [r.stop_step for r in kern]
+    if [r.stop_step for r in plain] != stops:
+        raise AssertionError(f"f32 llama stops through the plain attention "
+                             f"{[r.stop_step for r in plain]} differ from "
+                             f"the kernels' {stops}")
+    if [r.tokens for r in plain] != [r.tokens for r in kern]:
+        raise AssertionError("f32 llama tokens through the plain attention "
+                             "differ from the kernels'")
+    attn = ("paged_flash_decode", "flash_attention")
+    if not all(kern_l[k] for k in attn) or any(plain_l[k] for k in attn):
+        raise AssertionError(f"f32 llama launches: {kern_l} through the "
+                             f"kernels, {plain_l} plain")
+    res = dict(phase="serve-llama-f32", layers=layers, lam=lam,
+               lambda_margin=margin, stop_steps=stops,
+               stopped=sum(s >= 0 for s in stops),
+               kernel=dict(engine_steps=kern_fl.engine_steps, wall_s=kern_s,
+                           tokens_per_s=kern_fl.tokens_per_s,
+                           launches=kern_l),
+               plain=dict(engine_steps=plain_fl.engine_steps, wall_s=plain_s,
+                          tokens_per_s=plain_fl.tokens_per_s,
+                          launches=plain_l))
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -3465,6 +3819,27 @@ def main() -> int:
     phase_trace(torch, out_r.scheduler, phase="trace-rwkv")
     phase_harvest_rwkv(torch, out_r.scheduler)
     phase_rwkv_stops(torch, out_r.scheduler)
+    # the d-128 fleets: qwen1.5-32b's weights take 65.6 GiB of the card, so
+    # nothing of the earlier fleets stays on it
+    del out, out_d, out_c, out_s, out_st, out_r
+    free_card(torch)
+    llama_model = phase_model_wide(torch, LLAMA_ARCH, "model-llama")
+    served_l, out_l = wide_fleet(torch, LLAMA_ARCH, "serve-llama")
+    phase_trace(torch, out_l.scheduler, phase="trace-llama")
+    phase_llama_f32_stops(torch, out_l.scheduler)
+    del out_l
+    free_card(torch)
+    qwen_model = phase_model_wide(torch, QWEN_ARCH, "model-qwen")
+    free_card(torch)
+    served_q, out_q = wide_fleet(
+        torch, QWEN_ARCH, "serve-qwen",
+        ("--chunk-tokens", str(CHUNK), "--prompt-len", str(QWEN_PROMPT)),
+        need=SERVE_NEED + ("paged_flash_packed_chunk",))
+    if served_q["packed_chunks"] < 1:
+        raise AssertionError("the qwen fleet packed no chunk")
+    phase_trace(torch, out_q.scheduler, prompt_len=QWEN_PROMPT,
+                phase="trace-qwen")
+    del out_q
     k2_main = k2[0]
     # absolute errors: phase k2's m and outputs, the model's outputs
     k2_err = max([max(r["m_err"], r["out_err"]) for r in k2]
@@ -3493,6 +3868,74 @@ def main() -> int:
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"], library_ms=row["library_ms"])
 
+    def g_of(r):
+        return r["H"] // r["KV"]
+
+    def pick(rows, **kw):
+        return next(r for r in rows if all(r.get(k) == v
+                                           for k, v in kw.items()))
+
+    def d128_err(rows, g, keys):
+        return max(max(r[k] for k in keys if k in r) for r in rows
+                   if r["d"] == 128 and g_of(r) == g)
+
+    def d128_entry(name, source, replaces, launches, err, row):
+        return dict(name=name, route="cuda",
+                    source=f"src/repro_torch/csrc/{source}",
+                    replaces=f"src/repro/kernels/{replaces}",
+                    launches=launches, max_abs_err=err, ms=row["ms"],
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"], library_ms=row["library_ms"])
+
+    k2_keys, k3_keys = ("m_err", "out_err"), ("m_err", "out_err",
+                                                "merged_err")
+    k6_keys = ("m_err", "out_err", "normalised_err")
+    models_wide = {3: llama_model, 1: qwen_model}
+    fleets_wide = {3: served_l, 1: served_q}
+    d128_rows = []
+    for g, tag in ((3, "d 128, G 3"), (1, "d 128, G 1")):
+        mw, fl = models_wide[g], fleets_wide[g]["launches"]
+        pages = "bf16" if g == 3 else "int8"
+        d128_rows += [
+            d128_entry(f"paged_flash_decode ({tag}, {pages})",
+                       "paged_decode.cu", "decode_attention.py:231",
+                       fl["paged_flash_decode"],
+                       max(d128_err(k2, g, k2_keys),
+                           mw["bf16"]["k2_out_err"]),
+                       pick(k2, d=128, H=24 if g == 3 else 40, pages=pages,
+                            B=4, case=None)),
+            d128_entry(f"flash_decode ({tag}, bf16)", "flash_decode.cu",
+                       "decode_attention.py:78", fl["flash_decode"],
+                       max(d128_err(k6, g, k6_keys),
+                           mw["dense"]["k6_out_err"]),
+                       pick(k6, d=128, B=8, cache="bf16",
+                            H=24 if g == 3 else 40)),
+            d128_entry(f"flash_attention ({tag}, bf16)",
+                       "flash_attention.cu", "flash_attention.py:64",
+                       fl["flash_attention"],
+                       max(max(r["max_abs_err"] for r in k7
+                               if r["d"] == 128 and g_of(r) == g),
+                           mw["dense"]["k7_err"]),
+                       pick(k7, d=128, dtype="bf16",
+                            **(dict(B=1, Sq=16) if g == 3
+                               else dict(B=8, Sq=160))))]
+    d128_rows.append(d128_entry(
+        "paged_flash_packed_chunk (d 128, G 1, int8)", "paged_chunk.cu",
+        "decode_attention.py:298",
+        served_q["launches"]["paged_flash_packed_chunk"],
+        d128_err([r for r in k3 if r["fn"] == "B4"], 1, k3_keys),
+        pick(k3, fn="B4", d=128, H=40, pages="int8", case="served")))
+    llama_k1 = pick(k1["llama_width"], view="distinct")
+    d128_rows.append(dict(
+        name=f"serving_probe_step (f {LLAMA_PROBE_F})", route="cuda",
+        source="src/repro_torch/csrc/probe_spec.cu",
+        replaces="src/repro/kernels/ttt_probe.py:368",
+        launches=served_l["launches"]["serving_probe_step"],
+        max_abs_err=max(max(r["max_abs_err"].values())
+                        for r in k1["llama_width"]),
+        ms=llama_k1["ms"], plain_ms=llama_k1["plain_ms"],
+        bound_ms=llama_k1["bound_ms"], bound_by=llama_k1["bound_by"],
+        library_ms=None))
     emit({"kernels": [
         dict(name="serving_probe_step", route="cuda",
              source="src/repro_torch/csrc/probe_spec.cu",
@@ -3565,7 +4008,7 @@ def main() -> int:
              ms=k8[0]["ms"], plain_ms=k8[0]["plain_ms"],
              bound_ms=k8[0]["bound_ms"], bound_by=k8[0]["bound_by"],
              library_ms=None),
-    ]})
+    ] + d128_rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()

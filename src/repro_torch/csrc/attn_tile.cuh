@@ -28,15 +28,20 @@
 //
 // Layout (the m16n8k16 fragments, FlashAttention-2's register scheme).  A
 // warp owns 16 query rows.  A 64-key tile of K and of V sits in shared
-// memory as bf16 rows of d = 64, padded to 72 elements (144 bytes), so the
-// eight 16-byte rows one ldmatrix phase reads fall on distinct banks.
-// Scores S (16 x 64) and the output accumulator (16 x 64) are m16n8 C
-// fragments: a thread holds rows lane/4 and lane/4 + 8, columns
-// 8 n + 2 (lane % 4) + {0, 1}.  K's B fragments come through ldmatrix,
-// V's through ldmatrix.trans; the C fragments of two score tiles are the
-// A fragment of one P.V step, so p never touches shared memory.  Per warp
-// and tile: 32 mma for Q.K^T per q term, 96 for P.V (three p terms).
-//
+// memory as bf16 rows of the head dim D (64 or 128; every name below that
+// depends on it is a member of Dims<D>), padded by 8 elements (144 or 272
+// bytes, an odd number of 16-byte words), so the eight 16-byte rows one
+// ldmatrix phase reads fall on distinct banks.  Scores S (16 x 64) and the
+// output accumulator (16 x D) are m16n8 C fragments: a thread holds rows
+// lane/4 and lane/4 + 8, columns 8 n + 2 (lane % 4) + {0, 1}.  K's B
+// fragments come through ldmatrix, V's through ldmatrix.trans; the C
+// fragments of two score tiles are the A fragment of one P.V step, so p
+// never touches shared memory.  Q's A fragments come from registers (K7,
+// QRegs) or through ldmatrix from the warp's rows in shared memory (K3,
+// QShared: three terms of D columns would hold 24 D / 16 registers a
+// thread, 192 at d 128).  Per warp and tile: 4 D / 8 mma for Q.K^T per q
+// term, 12 D / 8 for P.V (three p terms).
+
 // The f32 instances of K3 and K7 (f32 pages, the f32 model) keep their
 // CUDA-core bodies: an f32 K or V would need its own three-term split on
 // the other side of every product (nine terms to stay at f32's accuracy),
@@ -51,12 +56,18 @@
 
 namespace attn_tile {
 
-constexpr int kD = 64;                  // head dim of the one instance
 constexpr int kBK = 64;                 // keys per tile
-constexpr int kRow = kD + 8;            // bf16 per shared row (144 bytes)
-constexpr int kTileElems = kBK * kRow;  // one K or V tile in shared memory
-constexpr int kDTiles = kD / 8;         // n8 tiles of the output
 constexpr int kKTiles = kBK / 8;        // n8 tiles of the scores
+
+// the figures that follow the head dim D (64 or 128)
+template <int D>
+struct Dims {
+  static_assert(D % 16 == 0, "whole m16n8k16 k-steps");
+  static constexpr int kRow = D + 8;            // bf16 per shared row
+  static constexpr int kTileElems = kBK * kRow; // one K or V tile
+  static constexpr int kDTiles = D / 8;         // n8 tiles of the output
+  static constexpr int kKSteps = D / 16;        // k16 steps of Q.K^T
+};
 constexpr float kNegInf = -1e30f;       // m of a row with no key
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -138,16 +149,44 @@ __device__ __forceinline__ void split3_pair(float lo, float hi,
   }
 }
 
-// A fragments of a warp's 16 query rows, kTerms bf16 terms of each
-template <int kTerms>
-struct QFrags {
-  uint32_t a[kTerms][kD / 16][4];
+// A fragments of a warp's 16 query rows, kTerms bf16 terms of each, in
+// registers
+template <int D, int kTerms>
+struct QRegs {
+  uint32_t a[kTerms][D / 16][4];
+  __device__ __forceinline__ void frag(int t, int kk, int,
+                                       uint32_t (&out)[4]) const {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) out[r] = a[t][kk][r];
+  }
+};
+
+// ... or in shared memory: term t of the warp's 16 rows at base + t *
+// 16 * kRow, rows kRow apart (A fragment r of lane l, k-step kk: row
+// l/4 + 8 (r & 1), columns 16 kk + 2 (l % 4) + 8 (r >> 1) and + 1)
+template <int D>
+struct QShared {
+  const __nv_bfloat16* base;
+  __device__ __forceinline__ void frag(int t, int kk, int lane,
+                                       uint32_t (&out)[4]) const {
+    ldsm_x4(out, base + (t * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                            Dims<D>::kRow +
+                     kk * 16 + (lane >> 4) * 8);
+  }
+  // where lane's A-fragment register r of k-step kk lies in term t
+  __device__ __forceinline__ static int offset(int t, int kk, int lane,
+                                               int r) {
+    return (t * 16 + (lane >> 2) + 8 * (r & 1)) * Dims<D>::kRow + kk * 16 +
+           2 * (lane & 3) + 8 * (r >> 1);
+  }
 };
 
 // the online softmax of a warp's 16 rows: m and l of rows lane/4 and
 // lane/4 + 8 (l is this thread's share, summed over its quad at the end)
 // and the unnormalised output, as m16n8 C fragments over d
+template <int D>
 struct RowState {
+  static constexpr int kDTiles = Dims<D>::kDTiles;
   float m[2];
   float l[2];
   float acc[kDTiles][4];
@@ -184,8 +223,9 @@ __device__ __forceinline__ int frag_row(int lane, int c) {
 }
 
 // One 64-key tile for a warp's 16 rows.
-//   q, q_live: the rows' A fragments; the first q_live terms take products
-//   sK, sV:    the tile's 64 K and V rows, bf16, kRow apart
+//   q, q_live: the rows' A fragments (QRegs or QShared); the first q_live
+//              of kQTerms terms take products
+//   sK, sV:    the tile's 64 K and V rows, bf16, Dims<D>::kRow apart
 //   score(col, s): the score of key col from the raw product s (scale,
 //              int8 k_scale)
 //   keep(row, col): whether key col counts for row (read only if kMask)
@@ -193,14 +233,17 @@ __device__ __forceinline__ int frag_row(int lane, int c) {
 //   live16:    the tile's first live16 groups of 16 keys may count; keep
 //              masks every key past them (a causal diagonal, a ragged
 //              end), so their products are skipped
-template <int kQTerms, bool kMask, class Score, class Keep, class VFold>
-__device__ __forceinline__ void tile_step(RowState& st,
-                                          const QFrags<kQTerms>& q, int q_live,
+template <int D, int kQTerms, bool kMask, class Q, class Score, class Keep,
+          class VFold>
+__device__ __forceinline__ void tile_step(RowState<D>& st, const Q& q,
+                                          int q_live,
                                           const __nv_bfloat16* sK,
                                           const __nv_bfloat16* sV,
                                           const Score& score, const Keep& keep,
                                           const VFold& vfold, int live16,
                                           int lane) {
+  constexpr int kRow = Dims<D>::kRow;
+  constexpr int kDTiles = Dims<D>::kDTiles;
   float s[kKTiles][4];
 #pragma unroll
   for (int j = 0; j < kKTiles; ++j)
@@ -209,7 +252,11 @@ __device__ __forceinline__ void tile_step(RowState& st,
 
   // S = Q K^T: per 16-deep step of d, two key tiles per ldmatrix.x4
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
+  for (int kk = 0; kk < Dims<D>::kKSteps; ++kk) {
+    uint32_t qa[kQTerms][4];
+#pragma unroll
+    for (int t = 0; t < kQTerms; ++t)
+      if (t < q_live) q.frag(t, kk, lane, qa[t]);
 #pragma unroll
     for (int np = 0; np < kKTiles / 2; ++np) {
       if (np >= live16) continue;
@@ -219,8 +266,8 @@ __device__ __forceinline__ void tile_step(RowState& st,
 #pragma unroll
       for (int t = 0; t < kQTerms; ++t) {
         if (t < q_live) {
-          mma_bf16(s[2 * np], q.a[t][kk], b[0], b[1]);
-          mma_bf16(s[2 * np + 1], q.a[t][kk], b[2], b[3]);
+          mma_bf16(s[2 * np], qa[t], b[0], b[1]);
+          mma_bf16(s[2 * np + 1], qa[t], b[2], b[3]);
         }
       }
     }

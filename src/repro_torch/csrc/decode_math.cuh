@@ -27,17 +27,21 @@
 //     its block-table row) into shared memory in one coalesced pass, the
 //     same pass that finds the live range.  A K/V load then waits on no
 //     global index load;
-//   * loads in flight: a warp takes its positions in groups of 8 x U (U =
-//     4 / sizeof(T): 8 f32, 16 bf16 or 32 int8 positions), 4 lanes a
-//     position, each lane loading its 16 of the 64 dims with 16-byte
-//     loads, so a group is 128 bytes of K and V a lane (4 KB a warp),
-//     coalesced rows.  The next group's loads are issued into registers
+//   * loads in flight: every lane holds 16 dims of a position, so a
+//     position takes D / 16 lanes (4 at d 64, 8 at d 128) and a warp
+//     32 / (D / 16) positions a load (8 or 4); a warp takes its positions
+//     in groups of U such loads (U = 4 / sizeof(T): at d 64 8 f32, 16
+//     bf16 or 32 int8 positions, half as many at d 128), each lane
+//     loading its 16 dims with 16-byte loads, so a group is 128 bytes of
+//     K and V a lane (4 KB a warp) at either d, coalesced rows, and a
+//     lane's registers (R x 16 of q and of the output) do not grow with
+//     d.  The next group's loads are issued into registers
 //     before the current group is computed (a register double buffer), so
 //     a group stays in flight while the warp computes.  (A cp.async ring
 //     in shared memory, tried first, held fewer registers but was not
 //     faster for bf16 and f32 pages, whatever its depth.);
 //   * one softmax correction per group and row: the warp takes the max of
-//     the group's 8 U scores once (3 shuffles), then one exp2f per score,
+//     the group's scores once (2 or 3 shuffles), then one exp2f per score,
 //     and rescales its sums only when the running max moved (rarely, once
 //     a few groups are in);
 //   * invalid positions are never loaded (zeros) and weigh exactly zero,
@@ -47,12 +51,15 @@
 //     (k) and fold into p (v); all arithmetic is f32;
 //   * at the end the warps merge through shared memory, and the block
 //     writes the UNNORMALISED partials (o, l, m) of its share.
-// ptxas (build.log, sm_90a): K2 219 registers (bf16), 255 (int8), 186
-// (f32); K6 220 (bf16), 186 (f32); no spill; 3,200 bytes of static shared
-// memory, plus round16(n_pos) bytes of flags and K2's 4 nb bytes of table
-// (5,120 bytes at nb 256).  The registers hold an SM to two 4-warp blocks
-// (8 warps); with one group in flight a warp, that keeps some 4 MB in
-// flight on the card, above Little's 2.3 MB.  What is left at 4,096
+// Instances (D, R): (64, 3), (128, 3) and (128, 1).  ptxas (build.log,
+// sm_90a), no spill in any: at R 3 K2 219 registers (bf16), 255 (int8),
+// 186 to 190 (f32), K6 218 to 220 (bf16), 186 to 190 (f32), at d 64 and
+// d 128 alike; at R 1 K2 128, 162, 118 and K6 126, 105.  Static shared
+// memory 16 R D + 32 R + 32 bytes (3,200 at (64, 3), 6,272 at (128, 3)),
+// plus round16(n_pos) bytes of flags and K2's 4 nb bytes of table.  At R 3
+// the registers hold an SM to two 4-warp blocks (8 warps); with one group
+// in flight a warp, that keeps some 4 MB in flight on the card, above
+// Little's 2.3 MB.  What is left at 4,096
 // positions is fixed per call: the launch, the merge's launch, and each
 // block's flag load before its first page load (PERF.md, PR 21).
 #pragma once
@@ -180,17 +187,20 @@ __device__ __forceinline__ void attend(
     int n_pos, Rows rows, float scale, uint8_t* smem,
     float* __restrict__ o, float* __restrict__ l_out,
     float* __restrict__ m_out) {
-  constexpr int kDpl = D / 4;                  // dims per lane
+  constexpr int kLanes = D / 16;               // lanes a position: 4, 8
+  constexpr int kRowsW = 32 / kLanes;          // positions a warp a load
+  constexpr int kDpl = D / kLanes;             // dims per lane: 16
+  static_assert(kLanes * kRowsW == 32, "a warp holds whole positions");
   constexpr int kVec = kDpl * static_cast<int>(sizeof(T)) / 16;
   static_assert(kVec * 16 == kDpl * static_cast<int>(sizeof(T)),
                 "a lane's slice of a row must be whole 16-byte words");
   static_assert(Word<T>::kElems * kVec == kDpl, "word size");
   constexpr int U = 4 / static_cast<int>(sizeof(T));   // positions a lane
-  constexpr int kGroup = 8 * U;                 // positions a warp a group
+  constexpr int kGroup = kRowsW * U;            // positions a warp a group
   constexpr bool kScaled = sizeof(T) == 1;
   constexpr int kPerWord = Word<T>::kElems;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int quad = lane / 4, qi = lane % 4;
+  const int quad = lane / kLanes, qi = lane % kLanes;
 
   // ---- the row's flags (and K2's table) into shared memory, and its live
   // range, in one pass
@@ -266,7 +276,7 @@ __device__ __forceinline__ void attend(
   auto issue = [&](int g, Slot& s) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int p = lo + g * kGroup + 8 * u + quad;
+      const int p = lo + g * kGroup + kRowsW * u + quad;
       const bool ok = p < hi && s_valid[p] != 0;
       // an invalid position reads nothing and stays zeros
 #pragma unroll
@@ -305,10 +315,10 @@ __device__ __forceinline__ void attend(
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int p = lo + g * kGroup + 8 * u + quad;
+      const int p = lo + g * kGroup + kRowsW * u + quad;
       ok[u] = p < hi && s_valid[p] != 0;
     }
-    // scores: each lane's 16-dim slice, summed over the position's 4 lanes
+    // scores: each lane's 16-dim slice, summed over the position's lanes
     float sc[R][U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -321,22 +331,23 @@ __device__ __forceinline__ void attend(
         float d = 0.f;
 #pragma unroll
         for (int j = 0; j < kDpl; ++j) d = fmaf(qr[r][j], kf[j], d);
-        d += __shfl_xor_sync(0xffffffffu, d, 1);
-        d += __shfl_xor_sync(0xffffffffu, d, 2);
+#pragma unroll
+        for (int off = 1; off < kLanes; off <<= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, off);
         if constexpr (kScaled) d *= s.ks[u];
         sc[r][u] = ok[u] ? d : kNegInf;
       }
     }
-    // one max, one correction per row over the group's 8 U positions
+    // one max, one correction per row over the group's kRowsW U positions
     float pv[R][U];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       float gm = sc[r][0];
 #pragma unroll
       for (int u = 1; u < U; ++u) gm = fmaxf(gm, sc[r][u]);
-      gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 4));
-      gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 8));
-      gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 16));
+#pragma unroll
+      for (int off = kLanes; off < 32; off <<= 1)
+        gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, off));
       // the running max moves rarely once a few groups are in: the
       // correction (warp-uniform) is skipped while it stays
       const float m_new = fmaxf(m_run[r], gm);
@@ -385,24 +396,25 @@ __device__ __forceinline__ void attend(
     }
   }
 
-  // sum each quad's partial l and acc over the warp's 8 quads (m is
-  // warp-uniform), then merge the warps through shared memory
+  // sum each position's partial l and acc over the warp's kRowsW
+  // positions (m is warp-uniform), then merge the warps through shared
+  // memory
   __shared__ float s_m[kWarps][R], s_l[kWarps][R], s_acc[kWarps][R][D];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     float l = l_run[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 4);
-    l += __shfl_xor_sync(0xffffffffu, l, 8);
-    l += __shfl_xor_sync(0xffffffffu, l, 16);
+#pragma unroll
+    for (int off = kLanes; off < 32; off <<= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, off);
 #pragma unroll
     for (int j = 0; j < kDpl; ++j) {
       float a = acc[r][j];
-      a += __shfl_xor_sync(0xffffffffu, a, 4);
-      a += __shfl_xor_sync(0xffffffffu, a, 8);
-      a += __shfl_xor_sync(0xffffffffu, a, 16);
+#pragma unroll
+      for (int off = kLanes; off < 32; off <<= 1)
+        a += __shfl_xor_sync(0xffffffffu, a, off);
       acc[r][j] = a;
     }
-    if (lane < 4) {
+    if (lane < kLanes) {
 #pragma unroll
       for (int j = 0; j < kDpl; ++j) s_acc[warp][r][qi * kDpl + j] = acc[r][j];
     }

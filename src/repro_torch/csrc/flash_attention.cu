@@ -23,8 +23,10 @@
 // costs three P.V products per tile (p in three bf16 terms) and one Q.K^T
 // (bf16 q is exact):
 //   * one block of 4 warps per (64-row query tile, head, batch row), each
-//     warp 16 rows, at most 168 registers a thread so that 3 blocks share
-//     an SM; the G heads of a KV head read its K/V tiles through L2.  One
+//     warp 16 rows, at most 168 registers a thread at d 64 so that 3
+//     blocks share an SM (2 at d 128, whose output fragments take 32 more
+//     registers and its K/V stages 68 KB of shared memory); the G heads
+//     of a KV head read its K/V tiles through L2.  One
 //     block of 12 warps per KV head (each K/V tile loaded once for the G
 //     heads) ran no faster on the card at any served shape and slower at
 //     an admission's 16 rows: it fills a third as many SMs, and at 168
@@ -42,14 +44,14 @@
 //     fully skips the mask test;
 //   * the online softmax (m, l, acc) of each row stays in f32 registers;
 //     masked keys count exactly zero.
-// What bounds it then is the tile body: per warp and tile 128 mma.sync
-// (32 for Q.K^T, 96 for the three-term P.V, twice a bf16 flash kernel's
-// 64), the exponentials and the splits, with the softmax between the two
-// products, at 12 warps an SM.  ptxas (build.log, sm_90a): 168
-// registers, 44 bytes spilled, 36,864 bytes of shared memory (two stages
-// of K and V); the f32 kernel 80 registers, 37,888 bytes.  The f32 instance (the f32 check fleets
-// only) keeps the CUDA-core kernel below (flash_attention_f32_kernel);
-// attn_tile.cuh says why.
+// What bounds it then is the tile body: per warp and tile 16 D / 8
+// mma.sync (4 D / 8 for Q.K^T, 12 D / 8 for the three-term P.V, twice a
+// bf16 flash kernel's), the exponentials and the splits, with the softmax
+// between the two products.  Instances: d 64 and d 128 (FLASH_INSTANCE
+// below), each bf16 and f32, any G; their registers and spills stand in
+// build.log (ptxas, sm_90a) and PERF.md.  The f32 instances (the f32
+// check fleets only) keep the CUDA-core kernel below
+// (flash_attention_f32_kernel); attn_tile.cuh says why.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,12 +61,22 @@
 
 namespace {
 
-// The one head dim instantiated, and held against the plain version on the
-// card: d_head 64 (smollm-360m).  Other head dims are refused (ROADMAP A7
-// brings them).
-constexpr int kHeadDim = attn_tile::kD;
+using attn_tile::Dims;
 using attn_tile::kBK;       // keys per shared tile
 using attn_tile::kNegInf;
+constexpr int kMaxSmem = 227 * 1024;     // a block's shared memory on H100
+
+// Dynamic shared memory past the default 48 KB: set the attribute once per
+// kernel instance; refuse what a block cannot hold.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int& configured) {
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  if (bytes <= configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) configured = bytes;
+  return err;
+}
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernel
@@ -73,7 +85,15 @@ constexpr int kSlices = 4;                   // 16-row slices of a query tile
 constexpr int kBQTC = 16 * kSlices;          // query rows per block
 constexpr int kThreadsTC = 32 * kSlices;
 
-__global__ void __launch_bounds__(kThreadsTC, 3)
+template <int D>
+__host__ __device__ constexpr int tc_smem_bytes() {
+  return 2 * 2 * Dims<D>::kTileElems * 2;
+}
+
+// blocks an SM must hold: 3 at d 64 (168 registers a thread), 2 at d 128,
+// whose output fragments and q take 48 registers more
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, D <= 64 ? 3 : 2)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
@@ -81,7 +101,12 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           int H, int n_kv, int causal, int window,
                           float scale) {
   using namespace attn_tile;
-  __shared__ __align__(16) __nv_bfloat16 s_kv[2][2][kTileElems];
+  constexpr int kRow = Dims<D>::kRow;
+  constexpr int kTileElems = Dims<D>::kTileElems;
+  constexpr int kWords = D / 8;          // 16-byte words of a bf16 row
+  // two stages of a K and a V tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* s_kv = reinterpret_cast<__nv_bfloat16*>(smem);
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQTC;   // longest first
   const int head = blockIdx.y, b = blockIdx.z;
@@ -90,24 +115,25 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int qa = q0 + warp * 16;               // the warp's first row
   const int qb = min(qa + 15, Sq - 1);         // and its last real one
   const bool rows_ok = qa < Sq;
-  const size_t q_row = static_cast<size_t>(H) * kHeadDim;
-  const size_t kv_row = static_cast<size_t>(n_kv) * kHeadDim;
+  const size_t q_row = static_cast<size_t>(H) * D;
+  const size_t kv_row = static_cast<size_t>(n_kv) * D;
   const __nv_bfloat16* k_b = k + static_cast<size_t>(b) * Sk * kv_row +
-                             kvh * kHeadDim;
+                             kvh * D;
   const __nv_bfloat16* v_b = v + static_cast<size_t>(b) * Sk * kv_row +
-                             kvh * kHeadDim;
+                             kvh * D;
 
   // keys any row of this tile can see
   const int k_hi = causal ? min(Sk, q0 + kBQTC) : Sk;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
 
   auto stage_tile = [&](int kt, int st) {
-    for (int i = tid; i < 2 * kBK * 8; i += kThreadsTC) {
-      const int which = i / (kBK * 8), row = (i / 8) % kBK, ch = i % 8;
+    for (int i = tid; i < 2 * kBK * kWords; i += kThreadsTC) {
+      const int which = i / (kBK * kWords), row = (i / kWords) % kBK;
+      const int ch = i % kWords;
       const int key = kt + row;
       const bool ok = key < Sk;
       const size_t off = ok ? static_cast<size_t>(key) * kv_row + ch * 8 : 0;
-      cp_async16(&s_kv[st][which][row * kRow + ch * 8],
+      cp_async16(s_kv + (2 * st + which) * kTileElems + row * kRow + ch * 8,
                  (which ? v_b : k_b) + off, ok);
     }
   };
@@ -117,9 +143,9 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_commit();
 
   // the warp's 16 query rows as A fragments, straight from global
-  QFrags<1> qf;
+  QRegs<D, 1> qf;
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
     for (int reg = 0; reg < 4; ++reg) {
       const int row = qa + (lane >> 2) + 8 * (reg & 1);
@@ -127,13 +153,13 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
       uint32_t x = 0u;
       if (row < Sq)
         x = __ldg(reinterpret_cast<const unsigned int*>(
-            q + (static_cast<size_t>(b) * Sq + row) * q_row +
-            head * kHeadDim + col));
+            q + (static_cast<size_t>(b) * Sq + row) * q_row + head * D +
+            col));
       qf.a[0][kk][reg] = x;
     }
   }
 
-  RowState st;
+  RowState<D> st;
   st.init();
   auto score = [scale](int, float s) { return s * scale; };
   auto vfold = [](int) { return 1.f; };
@@ -146,14 +172,14 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const bool none = (causal && kt > qb) ||
                       (window > 0 && kt + kBK - 1 <= qa - window);
     if (rows_ok && !none) {
-      const __nv_bfloat16* sK = s_kv[stage][0];
-      const __nv_bfloat16* sV = s_kv[stage][1];
+      const __nv_bfloat16* sK = s_kv + 2 * stage * kTileElems;
+      const __nv_bfloat16* sV = sK + kTileElems;
       const bool full = kt + kBK <= Sk && (!causal || kt + kBK - 1 <= qa) &&
                         (window <= 0 || kt > qb - window);
       if (full) {
         auto keep = [](int, int) { return true; };
-        tile_step<1, false>(st, qf, 1, sK, sV, score, keep, vfold, kBK / 16,
-                            lane);
+        tile_step<D, 1, false>(st, qf, 1, sK, sV, score, keep, vfold,
+                               kBK / 16, lane);
       } else {
         const int k0 = kt;
         auto keep = [=](int row, int col) {
@@ -165,8 +191,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
         // hold no key it sees
         const int last = causal ? min(qb, Sk - 1) : Sk - 1;
         const int live16 = min(kBK / 16, (last - kt) / 16 + 1);
-        tile_step<1, true>(st, qf, 1, sK, sV, score, keep, vfold, live16,
-                           lane);
+        tile_step<D, 1, true>(st, qf, 1, sK, sV, score, keep, vfold, live16,
+                              lane);
       }
     }
     __syncthreads();      // the stage is free for the tile after next
@@ -180,10 +206,10 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int qpos = qa + (lane >> 2) + 8 * half;
     if (qpos >= Sq) continue;
     __nv_bfloat16* orow =
-        out + (static_cast<size_t>(b) * Sq + qpos) * q_row + head * kHeadDim;
+        out + (static_cast<size_t>(b) * Sq + qpos) * q_row + head * D;
     const float l = st.l[half];
 #pragma unroll
-    for (int j = 0; j < kDTiles; ++j) {
+    for (int j = 0; j < Dims<D>::kDTiles; ++j) {
       const int c = 8 * j + 2 * (lane & 3);
       float o0, o1;
       if (l > 0.f) {
@@ -211,14 +237,15 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 // f32: the CUDA-core kernel
 //   * one thread block per (tile of 16 query rows, head, batch row); 4
 //     warps own 4 rows each; the tile's q rows sit in shared memory in f32,
-//     pre-scaled by 1/sqrt(d) (a power of two at d 64: exact);
+//     pre-scaled by 1/sqrt(d);
 //   * the block walks 64-key tiles as above, staging K and V in shared
-//     memory (16-byte loads, K rows padded to 68 floats so that each lane's
-//     float4 reads of its own key hit distinct banks);
+//     memory (16-byte loads, K rows padded to D + 4 floats so that each
+//     lane's float4 reads of its own key hit distinct banks), dynamic
+//     shared memory: 37,888 bytes at d 64, 74,752 at d 128;
 //   * scores: lane j takes keys j and j + 32 of the tile for the warp's 4
 //     rows at once; the online softmax (m, l, acc) of each row is carried
 //     in registers: m warp-uniform, l per lane (summed at the end), acc as
-//     the lane's two output dims; P.V takes each key's p by shuffle.
+//     the lane's D / 32 output dims; P.V takes each key's p by shuffle.
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -233,18 +260,28 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 }
 
 template <int D>
+__host__ __device__ constexpr int f32_k_stride() { return D + 4; }
+
+template <int D>
+__host__ __device__ constexpr int f32_smem_bytes() {
+  return (kBQ * D + kBK * f32_k_stride<D>() + kBK * D) * 4;
+}
+
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
                            float* __restrict__ out, int Sq, int Sk, int H,
                            int n_kv, int causal, int window, float scale) {
-  static_assert(D == 2 * 32, "a lane owns two output dims");
+  constexpr int kDpl = D / 32;              // output dims a lane owns
+  static_assert(kDpl == 2 || kDpl == 4, "a lane owns 2 or 4 output dims");
   constexpr int kPer = 4;                   // floats per 16-byte load
-  constexpr int kKStride = D + 4;
-  __shared__ __align__(16) float s_q[kBQ][D];
-  __shared__ __align__(16) float s_k[kBK][kKStride];
-  __shared__ __align__(16) float s_v[kBK][D];
+  constexpr int kKStride = f32_k_stride<D>();
+  extern __shared__ __align__(16) float fsmem[];
+  float* s_q = fsmem;                       // [kBQ][D]
+  float* s_k = s_q + kBQ * D;               // [kBK][kKStride]
+  float* s_v = s_k + kBK * kKStride;        // [kBK][D]
 
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / n_kv);
@@ -260,22 +297,23 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < Sq)
       t = __ldg(reinterpret_cast<const float4*>(q_b + (q0 + r) * q_row + col));
-    s_q[r][col] = t.x * scale;
-    s_q[r][col + 1] = t.y * scale;
-    s_q[r][col + 2] = t.z * scale;
-    s_q[r][col + 3] = t.w * scale;
+    s_q[r * D + col] = t.x * scale;
+    s_q[r * D + col + 1] = t.y * scale;
+    s_q[r * D + col + 2] = t.z * scale;
+    s_q[r * D + col + 3] = t.w * scale;
   }
 
   // keys any row of this tile can see
   const int k_hi = causal ? min(Sk, q0 + kBQ) : Sk;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int r0 = warp * kRowsPerWarp;
-  float m_run[kRowsPerWarp], l_run[kRowsPerWarp], acc[kRowsPerWarp][2];
+  float m_run[kRowsPerWarp], l_run[kRowsPerWarp], acc[kRowsPerWarp][kDpl];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     m_run[r] = kNegInf;
     l_run[r] = 0.f;
-    acc[r][0] = acc[r][1] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kDpl; ++c) acc[r][c] = 0.f;
   }
 
   for (int kt = k_lo; kt < k_hi; kt += kBK) {
@@ -289,8 +327,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
         vt_ = __ldg(reinterpret_cast<const float4*>(v_b + (kt + r) * kv_row +
                                                     col));
       }
-      *reinterpret_cast<float4*>(&s_k[r][col]) = kt_;
-      *reinterpret_cast<float4*>(&s_v[r][col]) = vt_;
+      *reinterpret_cast<float4*>(&s_k[r * kKStride + col]) = kt_;
+      *reinterpret_cast<float4*>(&s_v[r * D + col]) = vt_;
     }
     __syncthreads();
 
@@ -300,11 +338,14 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     for (int r = 0; r < kRowsPerWarp; ++r) s[r][0] = s[r][1] = 0.f;
 #pragma unroll
     for (int dd = 0; dd < D; dd += 4) {
-      const float4 ka = *reinterpret_cast<const float4*>(&s_k[lane][dd]);
-      const float4 kb = *reinterpret_cast<const float4*>(&s_k[lane + 32][dd]);
+      const float4 ka =
+          *reinterpret_cast<const float4*>(&s_k[lane * kKStride + dd]);
+      const float4 kb =
+          *reinterpret_cast<const float4*>(&s_k[(lane + 32) * kKStride + dd]);
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(&s_q[r0 + r][dd]);
+        const float4 qv =
+            *reinterpret_cast<const float4*>(&s_q[(r0 + r) * D + dd]);
         s[r][0] = dot4(qv, ka, s[r][0]);
         s[r][1] = dot4(qv, kb, s[r][1]);
       }
@@ -332,23 +373,33 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int c = 0; c < 2; ++c) p[r][c] = ok[c] ? expf(s[r][c] - m_new) : 0.f;
       l_run[r] = l_run[r] * corr + p[r][0] + p[r][1];
-      acc[r][0] *= corr;
-      acc[r][1] *= corr;
+#pragma unroll
+      for (int c = 0; c < kDpl; ++c) acc[r][c] *= corr;
       m_run[r] = m_new;
     }
 
-    // P.V: lane owns output dims (2 lane, 2 lane + 1)
+    // P.V: lane owns output dims kDpl lane .. kDpl lane + kDpl - 1
 #pragma unroll 4
     for (int j = 0; j < 32; ++j) {
-      const float2 va = *reinterpret_cast<const float2*>(&s_v[j][2 * lane]);
-      const float2 vb =
-          *reinterpret_cast<const float2*>(&s_v[j + 32][2 * lane]);
+      float va[kDpl], vb[kDpl];
+#pragma unroll
+      for (int c = 0; c < kDpl; c += 2) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(&s_v[j * D + kDpl * lane + c]);
+        const float2 y = *reinterpret_cast<const float2*>(
+            &s_v[(j + 32) * D + kDpl * lane + c]);
+        va[c] = x.x;
+        va[c + 1] = x.y;
+        vb[c] = y.x;
+        vb[c + 1] = y.y;
+      }
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
         const float pa = __shfl_sync(0xffffffffu, p[r][0], j);
         const float pb = __shfl_sync(0xffffffffu, p[r][1], j);
-        acc[r][0] = fmaf(pa, va.x, fmaf(pb, vb.x, acc[r][0]));
-        acc[r][1] = fmaf(pa, va.y, fmaf(pb, vb.y, acc[r][1]));
+#pragma unroll
+        for (int c = 0; c < kDpl; ++c)
+          acc[r][c] = fmaf(pa, va[c], fmaf(pb, vb[c], acc[r][c]));
       }
     }
   }
@@ -361,25 +412,67 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     for (int off = 16; off > 0; off /= 2)
       l += __shfl_xor_sync(0xffffffffu, l, off);
     if (qpos >= Sq) continue;
-    float o0, o1;
+    float o[kDpl];
     if (l > 0.f) {
-      o0 = acc[r][0] / l;
-      o1 = acc[r][1] / l;
+#pragma unroll
+      for (int c = 0; c < kDpl; ++c) o[c] = acc[r][c] / l;
     } else {
       // no visible key: the mean of all Sk values, as above
-      o0 = o1 = 0.f;
+#pragma unroll
+      for (int c = 0; c < kDpl; ++c) o[c] = 0.f;
       for (int j = 0; j < Sk; ++j) {
-        const float* vr = v_b + j * kv_row + 2 * lane;
-        o0 += vr[0];
-        o1 += vr[1];
+        const float* vr = v_b + j * kv_row + kDpl * lane;
+#pragma unroll
+        for (int c = 0; c < kDpl; ++c) o[c] += vr[c];
       }
-      o0 /= static_cast<float>(Sk);
-      o1 /= static_cast<float>(Sk);
+#pragma unroll
+      for (int c = 0; c < kDpl; ++c) o[c] /= static_cast<float>(Sk);
     }
     float* orow = out + (static_cast<size_t>(b) * Sq + qpos) * q_row + h * D;
-    orow[2 * lane] = o0;
-    orow[2 * lane + 1] = o1;
+#pragma unroll
+    for (int c = 0; c < kDpl; ++c) orow[kDpl * lane + c] = o[c];
   }
+}
+
+// One head-dim instance, both dtypes; any G (H a multiple of n_kv).
+template <int D>
+cudaError_t launch_instance(const void* q, const void* k, const void* v,
+                            void* out, int B, int Sq, int Sk, int H,
+                            int n_kv, int causal, int window, int dtype_code,
+                            float scale, cudaStream_t st) {
+  switch (dtype_code) {
+    case 0: {
+      static int configured = 48 * 1024;
+      const cudaError_t err = allow_smem(flash_attention_f32_kernel<D>,
+                                         f32_smem_bytes<D>(), configured);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+      flash_attention_f32_kernel<D>
+          <<<grid, kThreads, f32_smem_bytes<D>(), st>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H,
+          n_kv, causal, window, scale);
+      break;
+    }
+    case 1: {
+      static int configured = 48 * 1024;
+      const cudaError_t err = allow_smem(flash_attention_tc_kernel<D>,
+                                         tc_smem_bytes<D>(), configured);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((Sq + kBQTC - 1) / kBQTC, H, B);
+      flash_attention_tc_kernel<D>
+          <<<grid, kThreadsTC, tc_smem_bytes<D>(), st>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<__nv_bfloat16*>(out), Sq, Sk, H, n_kv, causal, window,
+          scale);
+      break;
+    }
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -392,31 +485,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int Sk, int H, int n_kv, int D,
                                       int causal, int window, int dtype_code,
                                       float scale, void* stream) {
-  if (D != kHeadDim || n_kv <= 0 || H % n_kv != 0 || Sk <= 0)
-    return cudaErrorInvalidValue;
+  if (n_kv <= 0 || H % n_kv != 0 || Sk <= 0) return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype_code) {
-    case 0: {
-      const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-      flash_attention_f32_kernel<kHeadDim><<<grid, kThreads, 0, st>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H,
-          n_kv, causal, window, scale);
-      break;
-    }
-    case 1: {
-      const dim3 grid((Sq + kBQTC - 1) / kBQTC, H, B);
-      flash_attention_tc_kernel<<<grid, kThreadsTC, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v),
-          static_cast<__nv_bfloat16*>(out), Sq, Sk, H, n_kv, causal, window,
-          scale);
-      break;
-    }
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return static_cast<int>(cudaGetLastError());
+  // the instance set: kernels/flash_attention.py INSTANCES names the same
+  // head dims (tests/test_torch_d128.py holds the two lists equal)
+#define FLASH_INSTANCE(DD)                                                  \
+  if (D == DD)                                                              \
+    return static_cast<int>(launch_instance<DD>(q, k, v, out, B, Sq, Sk, H, \
+                                                n_kv, causal, window,       \
+                                                dtype_code, scale, st));
+  FLASH_INSTANCE(64)
+  FLASH_INSTANCE(128)
+#undef FLASH_INSTANCE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

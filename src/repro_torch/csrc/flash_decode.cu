@@ -57,13 +57,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       o + slot * R * D, l_out + slot * R, m_out + slot * R);
 }
 
-// The one shape instantiated, and held against the plain version on the
-// card: d_head 64 with 3 query rows per KV head (smollm-360m's 15 heads on 5
-// KV heads).  Other shapes are refused (ROADMAP A7 brings them).
-constexpr int kHeadDim = 64;
-constexpr int kRows = 3;
-
-template <typename T>
+template <typename T, int D, int R>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
                          const void* valid, void* o, void* l, void* m,
                          void* o_part, void* l_part, void* m_part, int B,
@@ -71,13 +65,12 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
                          cudaStream_t stream) {
   const int smem = decode::smem_bytes(S, 0);
   static int configured = 48 * 1024;
-  cudaError_t err = decode::allow_smem(
-      flash_decode_kernel<T, kHeadDim, kRows>, smem, configured);
+  cudaError_t err = decode::allow_smem(flash_decode_kernel<T, D, R>, smem,
+                                       configured);
   if (err != cudaSuccess) return err;
   const bool split = n_split > 1;
   const dim3 grid(B, n_kv, n_split);
-  flash_decode_kernel<T, kHeadDim, kRows>
-      <<<grid, decode::kThreads, smem, stream>>>(
+  flash_decode_kernel<T, D, R><<<grid, decode::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const bool*>(valid),
       static_cast<float*>(split ? o_part : o),
@@ -85,8 +78,29 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
       static_cast<float*>(split ? m_part : m), n_kv, S, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
-  return split_merge::launch(o_part, l_part, m_part, o, l, m,
-                             B * n_kv * kRows, n_split, stream);
+  return split_merge::launch<D>(o_part, l_part, m_part, o, l, m, B * n_kv * R,
+                             n_split, stream);
+}
+
+// One (head dim, query rows per KV head) instance of each cache dtype.
+template <int D, int R>
+cudaError_t launch_instance(int dtype_code, const void* q, const void* k,
+                            const void* v, const void* valid, void* o,
+                            void* l, void* m, void* o_part, void* l_part,
+                            void* m_part, int B, int n_kv, int S,
+                            int n_split, float scale, cudaStream_t st) {
+  switch (dtype_code) {
+    case 0:
+      return launch_typed<float, D, R>(q, k, v, valid, o, l, m, o_part,
+                                       l_part, m_part, B, n_kv, S, n_split,
+                                       scale, st);
+    case 1:
+      return launch_typed<__nv_bfloat16, D, R>(q, k, v, valid, o, l, m,
+                                               o_part, l_part, m_part, B,
+                                               n_kv, S, n_split, scale, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -103,25 +117,22 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                    int n_kv, int R, int D, int S,
                                    int n_split, int dtype_code, float scale,
                                    void* stream) {
-  if (D != kHeadDim || R != kRows || n_split < 1 ||
+  if (n_split < 1 ||
       (n_split > 1 &&
        (o_part == nullptr || l_part == nullptr || m_part == nullptr)))
     return cudaErrorInvalidValue;
   if (B == 0 || n_kv == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (dtype_code) {
-    case 0:
-      err = launch_typed<float>(q, k, v, valid, o, l, m, o_part, l_part,
-                                m_part, B, n_kv, S, n_split, scale, st);
-      break;
-    case 1:
-      err = launch_typed<__nv_bfloat16>(q, k, v, valid, o, l, m, o_part,
-                                        l_part, m_part, B, n_kv, S, n_split,
-                                        scale, st);
-      break;
-    default:
-      break;
-  }
-  return static_cast<int>(err);
+  // the instance set: kernels/flash_decode.py INSTANCES names the same
+  // (D, R) pairs (tests/test_torch_d128.py holds the two lists equal)
+#define DECODE_INSTANCE(DD, RR)                                              \
+  if (D == DD && R == RR)                                                    \
+    return static_cast<int>(launch_instance<DD, RR>(                         \
+        dtype_code, q, k, v, valid, o, l, m, o_part, l_part, m_part, B,      \
+        n_kv, S, n_split, scale, st));
+  DECODE_INSTANCE(64, 3)
+  DECODE_INSTANCE(128, 3)
+  DECODE_INSTANCE(128, 1)
+#undef DECODE_INSTANCE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

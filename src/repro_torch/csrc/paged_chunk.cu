@@ -21,11 +21,13 @@
 // is its bytes, a fraction of a microsecond.  What a served call really
 // waits on is latency: a few dozen blocks, each a chain of index lookups,
 // page loads and products.  The design shortens that chain:
-//   * one block of 3 warps per (tile of 16 query tokens, KV head, segment,
-//     split); warp g owns the tile's 16 rows of query head g of the KV
-//     head (G = 3).  A block whose tile holds no token of its segment exits
-//     at once, so every output row is written exactly once, by its own
-//     segment's block;
+//   * one block per (tile of 16 query tokens, KV head, segment, split);
+//     warp g owns the tile's 16 rows of query head g of the KV head (G = 3
+//     for smollm-360m and llama3.2-3b: 3 warps; G = 1 for qwen1.5-32b: 4
+//     warps, the three beside the head's warp only staging tiles).  A
+//     block whose tile holds no token of its segment exits at once, so
+//     every output row is written exactly once, by its own segment's
+//     block;
 //   * index setup once per block: the segment's validity row and block-
 //     table row come into shared memory in one coalesced pass; from them
 //     the block marks the 64-position tiles holding a valid position (and
@@ -37,9 +39,13 @@
 //     double-buffered ring; invalid positions are zero-filled, not read;
 //   * the tile body is attn_tile.cuh: Q.K^T and P.V on the tensor cores
 //     (mma.sync m16n8k16, bf16 in, f32 accumulate), q and p split into
-//     three bf16 terms so the result is the f32 one.  int8 pages land raw
-//     in the ring and are converted exactly to bf16 in shared memory after
-//     the wait; k_scale multiplies the score, v_scale is folded into p;
+//     three bf16 terms so the result is the f32 one; at d 128 each warp's
+//     three q terms sit in shared memory (ChunkQ: QShared), read through
+//     ldmatrix a k-step at a time, so its registers hold the output
+//     fragments and not 96 words of q (at d 64 they stay in registers,
+//     QRegs).  int8 pages land raw in the ring
+//     and are converted exactly to bf16 in shared memory after the wait;
+//     k_scale multiplies the score, v_scale is folded into p;
 //   * split-KV: past 256 virtual positions (kernels/paged_chunk.py
 //     split_count; the wrapper passes n_split > 1) the live range is cut
 //     into n_split equal runs of tiles, one block each, writing partials
@@ -55,15 +61,15 @@
 // f32 pages (the f32 check fleets only) keep the CUDA-core kernel below
 // (paged_chunk_f32_kernel), which walks the row in tiles of 16 positions
 // with the products in f32; attn_tile.cuh says why.
-// ptxas (build.log, sm_90a): the tensor-core kernel 178 registers (bf16)
-// and 184 (int8), no spill, 3 warps a block; dynamic shared memory 36,864
-// bytes of ring (bf16; int8 18,432 + 16,384 raw + 1,024 scales) plus the
-// validity row, table row and tile flags, 37,216 bytes at nb 16 and 42,112
-// at nb 256 (bf16); the merge (split_merge.cuh) 70 registers since its
-// loads go out 8 splits at a time (32 before); the f32 kernel 63 registers,
-// 20,768 bytes.  At the served chunk the block count (20 of 80 with a
-// token of their segment) and each block's chain of setup, first tile
-// load and two tiles bound the call, not registers or occupancy.
+// Instances: (d, G) = (64, 3), (128, 3) and (128, 1) (CHUNK_INSTANCE
+// below), each for f32, bf16 and int8 pages.  Shared memory of a bf16
+// block: two stages of K and V tiles (36,864 bytes at d 64, 69,632 at d
+// 128; int8 one bf16 stage plus two raw stages and the scales), at d 128
+// G x 3 x 16 rows of q terms (13,056 bytes a warp), the validity row,
+// table row and tile flags.  Registers and spills of every
+// instance: build.log (ptxas, sm_90a) and PERF.md.  At the served chunk
+// the block count and each block's chain of setup, first tile load and
+// two tiles bound the call, not registers or occupancy.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,17 +80,10 @@
 
 namespace {
 
+using attn_tile::Dims;
 using attn_tile::kBK;
 using attn_tile::kNegInf;
-using attn_tile::kRow;
-using attn_tile::kTileElems;
 
-// The one shape instantiated, and held against the plain version on the
-// card: d_head 64 with 3 query heads per KV head (smollm-360m's 15 heads on
-// 5 KV heads).  Other shapes are refused until they are instantiated and
-// checked there too.
-constexpr int kHeadDim = attn_tile::kD;
-constexpr int kGroup = 3;
 constexpr int kTokens = 16;               // query tokens per block
 constexpr int kMaxSmem = 227 * 1024;      // a block's shared memory on H100
 
@@ -95,17 +94,37 @@ __device__ __forceinline__ int segment_of(const int* __restrict__ seg,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and int8 pages: the tensor-core kernel
-
-constexpr int kThreadsTC = 32 * kGroup;   // one warp per query head
+// bf16 and int8 pages: the tensor-core kernel, one warp per query head of
+// the KV head (G warps a block)
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+
+// Where a warp's three q terms live, per head dim: at d 64 in registers
+// (48 words a thread), at d 128 in shared memory (in registers they would
+// take 96, beside 64 of output fragments).
+template <int D>
+struct ChunkQ {
+  using type = attn_tile::QShared<D>;
+  static constexpr bool kShared = true;
+};
+template <>
+struct ChunkQ<64> {
+  using type = attn_tile::QRegs<64, 3>;
+  static constexpr bool kShared = false;
+};
+
+// Warps a block: one a query head of the KV head; at G 1 four, the three
+// beside the head's warp sharing the staging of the K/V tiles and the
+// int8 conversion (they own no rows).
+template <int G>
+__host__ __device__ constexpr int chunk_warps() { return G == 1 ? 4 : G; }
 
 // byte offsets into the dynamic shared memory of one block
 struct ChunkSmem {
   int ring;     // bf16 K/V tiles: two stages (bf16 pages) or one (int8)
-  int raw;      // int8: two stages of raw K/V rows, 64 bytes each
+  int raw;      // int8: two stages of raw K/V rows, D bytes each
   int scales;   // int8: two stages of k_scale and v_scale, 64 each
+  int q;        // d 128: each head warp's 16 query rows in three terms
   int valid;    // the segment's validity row, padded to whole tiles
   int table;    // the segment's block-table row
   int any;      // per 64-position tile: holds a valid position
@@ -113,18 +132,21 @@ struct ChunkSmem {
   int total;
 };
 
+template <int D, int G>
 __host__ __device__ inline ChunkSmem chunk_smem(bool int8, int n_pos,
                                                 int nb) {
   const int n_kt = (n_pos + kBK - 1) / kBK;
-  const int tile_pair = 2 * kTileElems * 2;   // K and V tiles, bytes
+  const int tile_pair = 2 * Dims<D>::kTileElems * 2;   // K and V, bytes
   ChunkSmem s{};
   int off = 0;
   s.ring = off;
   off += (int8 ? 1 : 2) * tile_pair;
   s.raw = off;
-  if (int8) off += 2 * 2 * kBK * kHeadDim;
+  if (int8) off += 2 * 2 * kBK * D;
   s.scales = off;
   if (int8) off += 2 * 2 * kBK * 4;
+  s.q = off;
+  if (ChunkQ<D>::kShared) off += G * 3 * 16 * Dims<D>::kRow * 2;
   s.valid = off;
   off += n_kt * kBK;
   s.table = off;
@@ -137,8 +159,8 @@ __host__ __device__ inline ChunkSmem chunk_smem(bool int8, int n_pos,
   return s;
 }
 
-template <bool kInt8>
-__global__ void __launch_bounds__(kThreadsTC)
+template <int D, int G, bool kInt8>
+__global__ void __launch_bounds__(32 * chunk_warps<G>())
 paged_chunk_tc_kernel(const float* __restrict__ q, const int* __restrict__ seg,
                       int seg_div, const void* __restrict__ k_pages,
                       const void* __restrict__ v_pages,
@@ -150,6 +172,11 @@ paged_chunk_tc_kernel(const float* __restrict__ q, const int* __restrict__ seg,
                       int n_tok, int n_seg, int n_kv, int bs, int nb,
                       int n_split, float scale) {
   using namespace attn_tile;
+  constexpr int kThreads = 32 * chunk_warps<G>();
+  constexpr int kRow = Dims<D>::kRow;
+  constexpr int kTileElems = Dims<D>::kTileElems;
+  constexpr int kWords = D / 8;          // 16-byte words of a bf16 row
+  constexpr int kWords8 = D / 16;        // of an int8 row
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ bool s_act[kTokens];
   __shared__ int s_first, s_last;
@@ -158,7 +185,7 @@ paged_chunk_tc_kernel(const float* __restrict__ q, const int* __restrict__ seg,
   const int r = blockIdx.z / n_split, split = blockIdx.z % n_split;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n_pos = nb * bs, n_kt = (n_pos + kBK - 1) / kBK;
-  const ChunkSmem L = chunk_smem(kInt8, n_pos, nb);
+  const ChunkSmem L = chunk_smem<D, G>(kInt8, n_pos, nb);
 
   // the tile's tokens that belong to segment r
   bool mine = false;
@@ -183,17 +210,17 @@ paged_chunk_tc_kernel(const float* __restrict__ q, const int* __restrict__ seg,
     const int* table_row = tables + static_cast<size_t>(r) * nb;
     if (n_pos % 16 == 0 && reinterpret_cast<uintptr_t>(valid_row) % 16 == 0) {
       const uint4* src = reinterpret_cast<const uint4*>(valid_row);
-      for (int i = tid; i < n_pos / 16; i += kThreadsTC)
+      for (int i = tid; i < n_pos / 16; i += kThreads)
         reinterpret_cast<uint4*>(s_valid)[i] = __ldg(src + i);
     } else {
-      for (int i = tid; i < n_pos; i += kThreadsTC)
+      for (int i = tid; i < n_pos; i += kThreads)
         s_valid[i] = valid_row[i] ? 1 : 0;
     }
-    for (int i = n_pos + tid; i < n_kt * kBK; i += kThreadsTC) s_valid[i] = 0;
-    for (int i = tid; i < nb; i += kThreadsTC) s_table[i] = __ldg(table_row + i);
+    for (int i = n_pos + tid; i < n_kt * kBK; i += kThreads) s_valid[i] = 0;
+    for (int i = tid; i < nb; i += kThreads) s_table[i] = __ldg(table_row + i);
   }
   __syncthreads();
-  for (int t = tid; t < n_kt; t += kThreadsTC) {
+  for (int t = tid; t < n_kt; t += kThreads) {
     const uint32_t* w = reinterpret_cast<const uint32_t*>(s_valid + t * kBK);
     uint32_t any = 0;
     bool all = true;
@@ -234,34 +261,36 @@ paged_chunk_tc_kernel(const float* __restrict__ q, const int* __restrict__ seg,
       const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k_pages);
       const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(v_pages);
       __nv_bfloat16* dst = ring + st * 2 * kTileElems;
-      for (int i = tid; i < 2 * kBK * 8; i += kThreadsTC) {
-        const int which = i / (kBK * 8), row = (i / 8) % kBK, ch = i % 8;
+      for (int i = tid; i < 2 * kBK * kWords; i += kThreads) {
+        const int which = i / (kBK * kWords), row = (i / kWords) % kBK;
+        const int ch = i % kWords;
         const int p = base + row;
         const bool ok = s_valid[p] != 0;
         size_t off = 0;
         if (ok)
           off = ((static_cast<size_t>(s_table[p / bs]) * n_kv + kv) * bs +
-                 p % bs) * kHeadDim + ch * 8;
+                 p % bs) * D + ch * 8;
         cp_async16(dst + which * kTileElems + row * kRow + ch * 8,
                    (which ? vp : kp) + off, ok);
       }
     } else {
       const int8_t* kp = static_cast<const int8_t*>(k_pages);
       const int8_t* vp = static_cast<const int8_t*>(v_pages);
-      int8_t* dst = raw + st * 2 * kBK * kHeadDim;
-      for (int i = tid; i < 2 * kBK * 4; i += kThreadsTC) {
-        const int which = i / (kBK * 4), row = (i / 4) % kBK, ch = i % 4;
+      int8_t* dst = raw + st * 2 * kBK * D;
+      for (int i = tid; i < 2 * kBK * kWords8; i += kThreads) {
+        const int which = i / (kBK * kWords8), row = (i / kWords8) % kBK;
+        const int ch = i % kWords8;
         const int p = base + row;
         const bool ok = s_valid[p] != 0;
         size_t off = 0;
         if (ok)
           off = ((static_cast<size_t>(s_table[p / bs]) * n_kv + kv) * bs +
-                 p % bs) * kHeadDim + ch * 16;
-        cp_async16(dst + which * kBK * kHeadDim + row * kHeadDim + ch * 16,
+                 p % bs) * D + ch * 16;
+        cp_async16(dst + which * kBK * D + row * D + ch * 16,
                    (which ? vp : kp) + off, ok);
       }
       float* sdst = s_scale + st * 2 * kBK;
-      for (int i = tid; i < 2 * kBK; i += kThreadsTC) {
+      for (int i = tid; i < 2 * kBK; i += kThreads) {
         const int which = i / kBK, row = i % kBK;
         const int p = base + row;
         const bool ok = s_valid[p] != 0;
@@ -278,15 +307,21 @@ paged_chunk_tc_kernel(const float* __restrict__ q, const int* __restrict__ seg,
   if (t < hi) stage_tile(t, 0);
   cp_async_commit();
 
+  // every warp owns a query head unless the block has staging warps (G 1)
+  const bool head_warp = chunk_warps<G>() == G || warp < G;
   // the warp's 16 query rows (head kv*G + warp), pre-scaled, in three bf16
-  // terms, straight from global into A fragments while tile t is in flight
-  QFrags<3> qf;
-  int q_live;
-  {
-    const int n_heads = n_kv * kGroup;
+  // terms, from global into its A fragments (in registers, or in its rows
+  // of shared memory, each lane writing the words its own fragments read)
+  // while tile t is in flight
+  typename ChunkQ<D>::type qf;
+  int q_live = 1;
+  if (head_warp) {
+    __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem + L.q) +
+                         warp * 3 * 16 * kRow;
+    const int n_heads = n_kv * G;
     bool nz1 = false, nz2 = false;
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
       for (int reg = 0; reg < 4; ++reg) {
         const int tk = (lane >> 2) + 8 * (reg & 1);
@@ -295,22 +330,32 @@ paged_chunk_tc_kernel(const float* __restrict__ q, const int* __restrict__ seg,
         if (s_act[tk]) {
           const int n = tile * kTokens + tk;
           x = __ldg(reinterpret_cast<const float2*>(
-              q + (static_cast<size_t>(n) * n_heads + kv * kGroup + warp) *
-                      kHeadDim + col));
+              q + (static_cast<size_t>(n) * n_heads + kv * G + warp) * D +
+              col));
         }
         uint32_t terms[3];
         split3_pair(x.x * scale, x.y * scale, terms);
 #pragma unroll
-        for (int tt = 0; tt < 3; ++tt) qf.a[tt][kk][reg] = terms[tt];
+        for (int tt = 0; tt < 3; ++tt) {
+          if constexpr (ChunkQ<D>::kShared)
+            *reinterpret_cast<uint32_t*>(
+                s_q + QShared<D>::offset(tt, kk, lane, reg)) = terms[tt];
+          else
+            qf.a[tt][kk][reg] = terms[tt];
+        }
         nz1 = nz1 || terms[1] != 0u;
         nz2 = nz2 || terms[2] != 0u;
       }
     }
     q_live = __any_sync(0xffffffffu, nz2) ? 3
              : __any_sync(0xffffffffu, nz1) ? 2 : 1;
+    if constexpr (ChunkQ<D>::kShared) {
+      __syncwarp();
+      qf.base = s_q;
+    }
   }
 
-  RowState st;
+  RowState<D> st;
   st.init();
   int stage = 0;
   while (t < hi) {
@@ -326,19 +371,20 @@ paged_chunk_tc_kernel(const float* __restrict__ q, const int* __restrict__ seg,
       const __nv_bfloat16* sK = ring + stage * 2 * kTileElems;
       auto score = [](int, float s) { return s; };
       auto vfold = [](int) { return 1.f; };
-      if (full)
-        tile_step<3, false>(st, qf, q_live, sK, sK + kTileElems, score, keep,
-                            vfold, kBK / 16, lane);
-      else
-        tile_step<3, true>(st, qf, q_live, sK, sK + kTileElems, score, keep,
-                           vfold, kBK / 16, lane);
+      if (head_warp && full)
+        tile_step<D, 3, false>(st, qf, q_live, sK, sK + kTileElems, score,
+                               keep, vfold, kBK / 16, lane);
+      else if (head_warp)
+        tile_step<D, 3, true>(st, qf, q_live, sK, sK + kTileElems, score,
+                              keep, vfold, kBK / 16, lane);
     } else {
       // int8 -> bf16 (exact) from the raw stage into the one bf16 tile
-      const int8_t* src = raw + stage * 2 * kBK * kHeadDim;
-      for (int i = tid; i < 2 * kBK * 4; i += kThreadsTC) {
-        const int which = i / (kBK * 4), row = (i / 4) % kBK, ch = i % 4;
+      const int8_t* src = raw + stage * 2 * kBK * D;
+      for (int i = tid; i < 2 * kBK * kWords8; i += kThreads) {
+        const int which = i / (kBK * kWords8), row = (i / kWords8) % kBK;
+        const int ch = i % kWords8;
         const int4 u = *reinterpret_cast<const int4*>(
-            src + which * kBK * kHeadDim + row * kHeadDim + ch * 16);
+            src + which * kBK * D + row * D + ch * 16);
         const int8_t* e = reinterpret_cast<const int8_t*>(&u);
         uint32_t w[8];
 #pragma unroll
@@ -356,22 +402,23 @@ paged_chunk_tc_kernel(const float* __restrict__ q, const int* __restrict__ seg,
       const float* vs = ks + kBK;
       auto score = [ks](int col, float s) { return s * ks[col]; };
       auto vfold = [vs](int col) { return vs[col]; };
-      if (full)
-        tile_step<3, false>(st, qf, q_live, ring, ring + kTileElems, score,
-                            keep, vfold, kBK / 16, lane);
-      else
-        tile_step<3, true>(st, qf, q_live, ring, ring + kTileElems, score,
-                           keep, vfold, kBK / 16, lane);
+      if (head_warp && full)
+        tile_step<D, 3, false>(st, qf, q_live, ring, ring + kTileElems,
+                               score, keep, vfold, kBK / 16, lane);
+      else if (head_warp)
+        tile_step<D, 3, true>(st, qf, q_live, ring, ring + kTileElems,
+                              score, keep, vfold, kBK / 16, lane);
     }
     __syncthreads();      // the stage is free for the tile after next
     t = tn;
     stage ^= 1;
   }
+  if (!head_warp) return;
   st.finish();
 
   // the partials of this split (the output itself when n_split == 1)
-  const size_t plane = static_cast<size_t>(n_tok) * n_kv * kGroup;
-  o += split * plane * kHeadDim;
+  const size_t plane = static_cast<size_t>(n_tok) * n_kv * G;
+  o += split * plane * D;
   l_out += split * plane;
   m_out += split * plane;
 #pragma unroll
@@ -379,10 +426,10 @@ paged_chunk_tc_kernel(const float* __restrict__ q, const int* __restrict__ seg,
     const int tk = (lane >> 2) + 8 * half;
     if (!s_act[tk]) continue;
     const size_t row =
-        (static_cast<size_t>(tile * kTokens + tk) * n_kv + kv) * kGroup + warp;
+        (static_cast<size_t>(tile * kTokens + tk) * n_kv + kv) * G + warp;
 #pragma unroll
-    for (int j = 0; j < attn_tile::kDTiles; ++j)
-      *reinterpret_cast<float2*>(o + row * kHeadDim + 8 * j + 2 * (lane & 3)) =
+    for (int j = 0; j < Dims<D>::kDTiles; ++j)
+      *reinterpret_cast<float2*>(o + row * D + 8 * j + 2 * (lane & 3)) =
           make_float2(st.acc[j][2 * half], st.acc[j][2 * half + 1]);
     if ((lane & 3) == 0) {
       l_out[row] = st.l[half];
@@ -391,7 +438,7 @@ paged_chunk_tc_kernel(const float* __restrict__ q, const int* __restrict__ seg,
   }
 }
 
-template <bool kInt8>
+template <int D, int G, bool kInt8>
 cudaError_t launch_tc(const void* q, const void* seg, int seg_div,
                       const void* k_pages, const void* v_pages,
                       const void* k_scale, const void* v_scale,
@@ -399,19 +446,20 @@ cudaError_t launch_tc(const void* q, const void* seg, int seg_div,
                       void* m, void* o_part, void* l_part, void* m_part,
                       int n_tok, int n_seg, int n_kv, int bs, int nb,
                       int n_split, float scale, cudaStream_t stream) {
-  const ChunkSmem L = chunk_smem(kInt8, nb * bs, nb);
+  const ChunkSmem L = chunk_smem<D, G>(kInt8, nb * bs, nb);
   if (L.total > kMaxSmem) return cudaErrorInvalidValue;
   static int configured = 48 * 1024;
   if (L.total > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_chunk_tc_kernel<kInt8>,
+        paged_chunk_tc_kernel<D, G, kInt8>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
     if (err != cudaSuccess) return err;
     configured = L.total;
   }
   const bool split = n_split > 1;
   const dim3 grid((n_tok + kTokens - 1) / kTokens, n_kv, n_seg * n_split);
-  paged_chunk_tc_kernel<kInt8><<<grid, kThreadsTC, L.total, stream>>>(
+  paged_chunk_tc_kernel<D, G, kInt8>
+      <<<grid, 32 * chunk_warps<G>(), L.total, stream>>>(
       static_cast<const float*>(q), static_cast<const int*>(seg), seg_div,
       k_pages, v_pages, static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(tables),
@@ -422,8 +470,8 @@ cudaError_t launch_tc(const void* q, const void* seg, int seg_div,
       n_split, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
-  return split_merge::launch(o_part, l_part, m_part, o, l, m,
-                             n_tok * n_kv * kGroup, n_split, stream);
+  return split_merge::launch<D>(o_part, l_part, m_part, o, l, m,
+                             n_tok * n_kv * G, n_split, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -436,8 +484,9 @@ cudaError_t launch_tc(const void* q, const void* seg, int seg_div,
 //     and the 256 threads stage K and V of the 16 positions in shared
 //     memory, 16 threads a position;
 //   * one half-warp per query token: for scores, lane j takes key j of the
-//     tile; for the output, lane j owns dims [4j, 4j + 4) of each of the
-//     token's G rows; the online softmax is carried in registers in f32.
+//     tile; for the output, lane j owns dims [kDpl j, kDpl (j + 1)) of each
+//     of the token's G rows (kDpl = D / 16: 4 at d 64, 8 at d 128); the
+//     online softmax is carried in registers in f32.
 
 constexpr int kThreadsF32 = kTokens * 16;   // one half-warp per token
 constexpr int kKeysF32 = 16;                // key positions per shared tile
@@ -453,7 +502,8 @@ paged_chunk_f32_kernel(const float* __restrict__ q,
                        float* __restrict__ l_out, float* __restrict__ m_out,
                        int n_tok, int n_seg, int n_kv, int bs, int nb,
                        float scale) {
-  static_assert(D == 16 * 4, "a half-warp's 16 lanes own 4 dims each");
+  constexpr int kDpl = D / 16;      // dims a lane owns, whole float4s
+  static_assert(kDpl % 4 == 0, "a lane's dims are whole float4 words");
   constexpr int kQStride = D + 1;   // padded: the two half-warps of a warp
   constexpr int kKStride = D + 1;   // read other banks; lanes read K rows
   __shared__ float sQ[kTokens * G * kQStride];
@@ -484,13 +534,13 @@ paged_chunk_f32_kernel(const float* __restrict__ q,
                  : 0.f;
   }
 
-  float m_run[G], l_run[G], acc[G][4];
+  float m_run[G], l_run[G], acc[G][kDpl];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m_run[g] = kNegInf;
     l_run[g] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[g][c] = 0.f;
+    for (int c = 0; c < kDpl; ++c) acc[g][c] = 0.f;
   }
 
   const int n_pos = nb * bs;
@@ -507,24 +557,32 @@ paged_chunk_f32_kernel(const float* __restrict__ q,
     }
     if (!__syncthreads_or(ok)) continue;
 
-    {   // stage the 16 positions' K and V, 16 threads a position
+    // stage the 16 positions' K and V, 16 threads a position, kDpl / 4
+    // float4 words each
+    {
       const int pl = tid / 16, c = tid % 16;
-      float4 kf = make_float4(0.f, 0.f, 0.f, 0.f), vf = kf;
+      size_t pos_row = 0;
       if (s_ok[pl]) {
         const int p = base + pl;
-        const int page = table_row[p / bs];
-        const size_t pos_row =
-            (static_cast<size_t>(page) * n_kv + kv) * bs + (p % bs);
-        kf = __ldg(reinterpret_cast<const float4*>(k_pages + pos_row * D +
-                                                   4 * c));
-        vf = __ldg(reinterpret_cast<const float4*>(v_pages + pos_row * D +
-                                                   4 * c));
+        pos_row = (static_cast<size_t>(table_row[p / bs]) * n_kv + kv) * bs +
+                  (p % bs);
       }
-      sK[pl * kKStride + 4 * c] = kf.x;
-      sK[pl * kKStride + 4 * c + 1] = kf.y;
-      sK[pl * kKStride + 4 * c + 2] = kf.z;
-      sK[pl * kKStride + 4 * c + 3] = kf.w;
-      *reinterpret_cast<float4*>(&sV[pl * D + 4 * c]) = vf;
+#pragma unroll
+      for (int w = 0; w < kDpl / 4; ++w) {
+        const int col = 4 * (c + 16 * w);
+        float4 kf = make_float4(0.f, 0.f, 0.f, 0.f), vf = kf;
+        if (s_ok[pl]) {
+          kf = __ldg(reinterpret_cast<const float4*>(k_pages + pos_row * D +
+                                                     col));
+          vf = __ldg(reinterpret_cast<const float4*>(v_pages + pos_row * D +
+                                                     col));
+        }
+        sK[pl * kKStride + col] = kf.x;
+        sK[pl * kKStride + col + 1] = kf.y;
+        sK[pl * kKStride + col + 2] = kf.z;
+        sK[pl * kKStride + col + 3] = kf.w;
+        *reinterpret_cast<float4*>(&sV[pl * D + col]) = vf;
+      }
     }
     __syncthreads();
 
@@ -549,16 +607,19 @@ paged_chunk_f32_kernel(const float* __restrict__ q,
         ps += __shfl_xor_sync(0xffffffffu, ps, off, 16);
       l_run[g] = fmaf(l_run[g], corr, ps);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[g][c] *= corr;
+      for (int c = 0; c < kDpl; ++c) acc[g][c] *= corr;
 #pragma unroll
       for (int j = 0; j < kKeysF32; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j, 16);
-        const float4 v =
-            *reinterpret_cast<const float4*>(&sV[j * D + 4 * lane]);
-        acc[g][0] = fmaf(pj, v.x, acc[g][0]);
-        acc[g][1] = fmaf(pj, v.y, acc[g][1]);
-        acc[g][2] = fmaf(pj, v.z, acc[g][2]);
-        acc[g][3] = fmaf(pj, v.w, acc[g][3]);
+#pragma unroll
+        for (int w = 0; w < kDpl / 4; ++w) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              &sV[j * D + kDpl * lane + 4 * w]);
+          acc[g][4 * w] = fmaf(pj, v.x, acc[g][4 * w]);
+          acc[g][4 * w + 1] = fmaf(pj, v.y, acc[g][4 * w + 1]);
+          acc[g][4 * w + 2] = fmaf(pj, v.z, acc[g][4 * w + 2]);
+          acc[g][4 * w + 3] = fmaf(pj, v.w, acc[g][4 * w + 3]);
+        }
       }
       m_run[g] = m_new;
     }
@@ -569,8 +630,11 @@ paged_chunk_f32_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const size_t row = (static_cast<size_t>(n) * n_kv + kv) * G + g;
-    *reinterpret_cast<float4*>(&o[row * D + 4 * lane]) =
-        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+#pragma unroll
+    for (int w = 0; w < kDpl / 4; ++w)
+      *reinterpret_cast<float4*>(&o[row * D + kDpl * lane + 4 * w]) =
+          make_float4(acc[g][4 * w], acc[g][4 * w + 1], acc[g][4 * w + 2],
+                      acc[g][4 * w + 3]);
     if (lane == 0) {
       l_out[row] = l_run[g];
       m_out[row] = m_run[g];
@@ -578,19 +642,51 @@ paged_chunk_f32_kernel(const float* __restrict__ q,
   }
 }
 
+template <int D, int G>
 cudaError_t launch_f32(const void* q, const void* seg, int seg_div,
                        const void* k_pages, const void* v_pages,
                        const void* tables, const void* valid, void* o,
                        void* l, void* m, int n_tok, int n_seg, int n_kv,
                        int bs, int nb, float scale, cudaStream_t stream) {
   const dim3 grid((n_tok + kTokens - 1) / kTokens, n_kv, n_seg);
-  paged_chunk_f32_kernel<kHeadDim, kGroup><<<grid, kThreadsF32, 0, stream>>>(
+  paged_chunk_f32_kernel<D, G><<<grid, kThreadsF32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const int*>(seg), seg_div,
       static_cast<const float*>(k_pages), static_cast<const float*>(v_pages),
       static_cast<const int*>(tables), static_cast<const bool*>(valid),
       static_cast<float*>(o), static_cast<float*>(l), static_cast<float*>(m),
       n_tok, n_seg, n_kv, bs, nb, scale);
   return cudaGetLastError();
+}
+
+// One (head dim, query heads per KV head) instance: the f32 kernel and the
+// tensor-core kernel for bf16 and int8 pages.
+template <int D, int G>
+cudaError_t launch_instance(const void* q, const void* seg, int seg_div,
+                            const void* k_pages, const void* v_pages,
+                            const void* k_scale, const void* v_scale,
+                            const void* tables, const void* valid, void* o,
+                            void* l, void* m, void* o_part, void* l_part,
+                            void* m_part, int n_tok, int n_seg, int n_kv,
+                            int bs, int nb, int n_split, int dtype_code,
+                            float scale, cudaStream_t st) {
+  switch (dtype_code) {
+    case 0:
+      return launch_f32<D, G>(q, seg, seg_div, k_pages, v_pages, tables,
+                              valid, o, l, m, n_tok, n_seg, n_kv, bs, nb,
+                              scale, st);
+    case 1:
+      return launch_tc<D, G, false>(
+          q, seg, seg_div, k_pages, v_pages, k_scale, v_scale, tables, valid,
+          o, l, m, o_part, l_part, m_part, n_tok, n_seg, n_kv, bs, nb,
+          n_split, scale, st);
+    case 2:
+      return launch_tc<D, G, true>(
+          q, seg, seg_div, k_pages, v_pages, k_scale, v_scale, tables, valid,
+          o, l, m, o_part, l_part, m_part, n_tok, n_seg, n_kv, bs, nb,
+          n_split, scale, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -614,28 +710,23 @@ extern "C" int paged_chunk_launch(const void* q, const void* seg, int seg_div,
                                   int nb, int n_split, int dtype_code,
                                   float scale, void* stream) {
   if (n_tok == 0 || n_kv == 0) return static_cast<int>(cudaGetLastError());
-  if (D != kHeadDim || G != kGroup || n_seg < 1 || nb < 1 || bs < 1 ||
-      n_split < 1 || (seg == nullptr && seg_div < 1) ||
+  if (n_seg < 1 || nb < 1 || bs < 1 || n_split < 1 ||
+      (seg == nullptr && seg_div < 1) ||
       (n_split > 1 && (dtype_code == 0 || o_part == nullptr ||
                        l_part == nullptr || m_part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype_code) {
-    case 0:
-      return static_cast<int>(launch_f32(q, seg, seg_div, k_pages, v_pages,
-                                         tables, valid, o, l, m, n_tok,
-                                         n_seg, n_kv, bs, nb, scale, st));
-    case 1:
-      return static_cast<int>(launch_tc<false>(
-          q, seg, seg_div, k_pages, v_pages, k_scale, v_scale, tables, valid,
-          o, l, m, o_part, l_part, m_part, n_tok, n_seg, n_kv, bs, nb,
-          n_split, scale, st));
-    case 2:
-      return static_cast<int>(launch_tc<true>(
-          q, seg, seg_div, k_pages, v_pages, k_scale, v_scale, tables, valid,
-          o, l, m, o_part, l_part, m_part, n_tok, n_seg, n_kv, bs, nb,
-          n_split, scale, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // the instance set: kernels/paged_chunk.py INSTANCES names the same
+  // (D, G) pairs (tests/test_torch_d128.py holds the two lists equal)
+#define CHUNK_INSTANCE(DD, GG)                                              \
+  if (D == DD && G == GG)                                                   \
+    return static_cast<int>(launch_instance<DD, GG>(                        \
+        q, seg, seg_div, k_pages, v_pages, k_scale, v_scale, tables, valid, \
+        o, l, m, o_part, l_part, m_part, n_tok, n_seg, n_kv, bs, nb,        \
+        n_split, dtype_code, scale, st));
+  CHUNK_INSTANCE(64, 3)
+  CHUNK_INSTANCE(128, 3)
+  CHUNK_INSTANCE(128, 1)
+#undef CHUNK_INSTANCE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

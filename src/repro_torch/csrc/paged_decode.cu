@@ -89,29 +89,34 @@ cudaError_t launch_typed(const void* q, const void* k_pages,
       static_cast<float*>(split ? m_part : m), n_kv, bs, nb, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
-  return split_merge::launch(o_part, l_part, m_part, o, l, m, B * n_kv * R,
+  return split_merge::launch<D>(o_part, l_part, m_part, o, l, m, B * n_kv * R,
                              n_split, stream);
 }
 
-// The one shape instantiated, and held against the plain version on the
-// card: d_head 64 with 3 query rows per KV head (smollm-360m's 15 heads on 5
-// KV heads).  Other shapes are refused until a slice that needs them checks
-// them there.
-constexpr int kHeadDim = 64;
-constexpr int kRows = 3;
-
-template <typename T>
-cudaError_t launch_checked(int D, int R, const void* q, const void* kp,
-                           const void* vp, const void* ks, const void* vs,
-                           const void* tables, const void* valid, void* o,
-                           void* l, void* m, void* o_part, void* l_part,
-                           void* m_part, int B, int n_kv, int bs, int nb,
-                           int n_split, float scale, cudaStream_t stream) {
-  if (D != kHeadDim || R != kRows) return cudaErrorInvalidValue;
-  return launch_typed<T, kHeadDim, kRows>(q, kp, vp, ks, vs, tables, valid, o,
-                                          l, m, o_part, l_part, m_part, B,
-                                          n_kv, bs, nb, n_split, scale,
-                                          stream);
+// One (head dim, query rows per KV head) instance of each page dtype.
+template <int D, int R>
+cudaError_t launch_instance(int dtype_code, const void* q, const void* kp,
+                            const void* vp, const void* ks, const void* vs,
+                            const void* tables, const void* valid, void* o,
+                            void* l, void* m, void* o_part, void* l_part,
+                            void* m_part, int B, int n_kv, int bs, int nb,
+                            int n_split, float scale, cudaStream_t stream) {
+  switch (dtype_code) {
+    case 0:
+      return launch_typed<float, D, R>(q, kp, vp, ks, vs, tables, valid, o,
+                                       l, m, o_part, l_part, m_part, B, n_kv,
+                                       bs, nb, n_split, scale, stream);
+    case 1:
+      return launch_typed<__nv_bfloat16, D, R>(
+          q, kp, vp, ks, vs, tables, valid, o, l, m, o_part, l_part, m_part,
+          B, n_kv, bs, nb, n_split, scale, stream);
+    case 2:
+      return launch_typed<int8_t, D, R>(q, kp, vp, ks, vs, tables, valid, o,
+                                        l, m, o_part, l_part, m_part, B,
+                                        n_kv, bs, nb, n_split, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -136,27 +141,16 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pages,
                                       l_part == nullptr || m_part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (dtype_code) {
-    case 0:
-      err = launch_checked<float>(D, R, q, k_pages, v_pages, k_scale,
-                                  v_scale, tables, valid, o, l, m, o_part,
-                                  l_part, m_part, B, n_kv, bs, nb, n_split,
-                                  scale, st);
-      break;
-    case 1:
-      err = launch_checked<__nv_bfloat16>(
-          D, R, q, k_pages, v_pages, k_scale, v_scale, tables, valid, o, l,
-          m, o_part, l_part, m_part, B, n_kv, bs, nb, n_split, scale, st);
-      break;
-    case 2:
-      err = launch_checked<int8_t>(D, R, q, k_pages, v_pages, k_scale,
-                                   v_scale, tables, valid, o, l, m, o_part,
-                                   l_part, m_part, B, n_kv, bs, nb, n_split,
-                                   scale, st);
-      break;
-    default:
-      break;
-  }
-  return static_cast<int>(err);
+  // the instance set: kernels/paged_decode.py INSTANCES names the same
+  // (D, R) pairs (tests/test_torch_d128.py holds the two lists equal)
+#define DECODE_INSTANCE(DD, RR)                                               \
+  if (D == DD && R == RR)                                                     \
+    return static_cast<int>(launch_instance<DD, RR>(                          \
+        dtype_code, q, k_pages, v_pages, k_scale, v_scale, tables, valid, o,  \
+        l, m, o_part, l_part, m_part, B, n_kv, bs, nb, n_split, scale, st));
+  DECODE_INSTANCE(64, 3)
+  DECODE_INSTANCE(128, 3)
+  DECODE_INSTANCE(128, 1)
+#undef DECODE_INSTANCE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

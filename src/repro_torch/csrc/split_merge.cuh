@@ -5,7 +5,7 @@
 // positions over n_split blocks (kernels/split.py split_count).  Each
 // block writes the UNNORMALISED partials (o, l, m) of its share into
 // scratch of n_split planes that the wrapper allocates:
-//   o_p (n_split, rows, 64), l_p and m_p (n_split, rows),
+//   o_p (n_split, rows, D), l_p and m_p (n_split, rows),
 // where a row is one query row of one (token or batch row, KV head).  The
 // launcher that ran the blocks then launches this kernel on the same
 // stream.  It folds the planes by the log-sum-exp rule, as
@@ -17,10 +17,12 @@
 // m = -1e30, l = 0, o = 0.
 //
 // Bound: bytes.  It reads n_split planes and writes one, in a single pass:
-// 16 threads per row, each owning 4 of the 64 dims as one float4.  What a
+// 16 threads per row, each owning D / 16 of the head dim D (64 or 128) as
+// D / 64 float4 words.  What a
 // call waits on is latency, so the loads of 8 splits go out together.
 // The kernel came here from K3's paged_chunk.cu with its arithmetic
-// unchanged, so K3's split results are the same bits as before.
+// unchanged, so K3's split results are the same bits as before (at d 64
+// each thread's one word is the one it always read).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,15 +30,16 @@
 namespace split_merge {
 namespace {
 
-constexpr int kHeadDim = 64;
 constexpr float kNegInf = -1e30f;
 
-// the split-KV merge: 16 threads per output row, 4 dims each.  The splits
+// the split-KV merge: 16 threads per output row, D / 16 dims each (thread c
+// owns float4 words c, c + 16, ...).  The splits
 // are read kChunk at a time, every load of a chunk issued before the
 // chunk's arithmetic, which runs split by split in order (the same
 // operations in the same order as one split at a time, so the same bits).
 constexpr int kChunk = 8;
 
+template <int D>
 __global__ void __launch_bounds__(256)
 merge_splits_kernel(const float* __restrict__ o_p,
                     const float* __restrict__ l_p,
@@ -57,43 +60,56 @@ merge_splits_kernel(const float* __restrict__ o_p,
     for (int j = 0; j < kChunk; ++j)
       if (s0 + j < n_split) mx = fmaxf(mx, ms[j]);
   }
+  constexpr int kVec = D / 64;       // float4 words a thread
   float lsum = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 acc[kVec];
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int s0 = 0; s0 < n_split; s0 += kChunk) {
     float ms[kChunk], ls[kChunk];
-    float4 xs[kChunk];
+    float4 xs[kChunk][kVec];
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) {
       if (s0 + j >= n_split) continue;
       const size_t sr = static_cast<size_t>(s0 + j) * rows + row;
       ms[j] = m_p[sr];
       ls[j] = l_p[sr];
-      xs[j] = *reinterpret_cast<const float4*>(o_p + sr * kHeadDim + 4 * c);
+#pragma unroll
+      for (int v = 0; v < kVec; ++v)
+        xs[j][v] = *reinterpret_cast<const float4*>(o_p + sr * D +
+                                                    4 * (c + 16 * v));
     }
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) {
       if (s0 + j >= n_split) continue;
       const float w = expf(ms[j] - mx);   // an empty split: exp(-1e30 - mx)
       lsum = fmaf(w, ls[j], lsum);
-      acc.x = fmaf(w, xs[j].x, acc.x);
-      acc.y = fmaf(w, xs[j].y, acc.y);
-      acc.z = fmaf(w, xs[j].z, acc.z);
-      acc.w = fmaf(w, xs[j].w, acc.w);
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) {
+        acc[v].x = fmaf(w, xs[j][v].x, acc[v].x);
+        acc[v].y = fmaf(w, xs[j][v].y, acc[v].y);
+        acc[v].z = fmaf(w, xs[j][v].z, acc[v].z);
+        acc[v].w = fmaf(w, xs[j][v].w, acc[v].w);
+      }
     }
   }
-  *reinterpret_cast<float4*>(o + static_cast<size_t>(row) * kHeadDim + 4 * c) =
-      acc;
+#pragma unroll
+  for (int v = 0; v < kVec; ++v)
+    *reinterpret_cast<float4*>(o + static_cast<size_t>(row) * D +
+                               4 * (c + 16 * v)) = acc[v];
   if (c == 0) {
     l[row] = lsum;
     m[row] = mx;
   }
 }
 
-// Merge n_split planes of `rows` partial rows (head dim 64) into o, l, m.
+// Merge n_split planes of `rows` partial rows (head dim D) into o, l, m.
+template <int D>
 cudaError_t launch(const void* o_part, const void* l_part, const void* m_part,
                    void* o, void* l, void* m, int rows, int n_split,
                    cudaStream_t stream) {
-  merge_splits_kernel<<<(rows + 15) / 16, 256, 0, stream>>>(
+  static_assert(D % 64 == 0, "whole float4 words for 16 threads a row");
+  merge_splits_kernel<D><<<(rows + 15) / 16, 256, 0, stream>>>(
       static_cast<const float*>(o_part), static_cast<const float*>(l_part),
       static_cast<const float*>(m_part), static_cast<float*>(o),
       static_cast<float*>(l), static_cast<float*>(m), rows, n_split);

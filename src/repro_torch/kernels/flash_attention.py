@@ -33,9 +33,12 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the one head dim the kernel is built for and checked at on the card:
-# smollm-360m's d_head 64
-KERNEL_HEAD_DIM = 64
+# The head dims the kernel is built for and checked at on the card, each
+# for f32 and bf16 and any number of query heads per KV head: smollm-360m's
+# d 64, llama3.2-3b's and qwen1.5-32b's d 128.  csrc/flash_attention.cu
+# builds exactly these (its FLASH_INSTANCE lines); every other d is
+# refused.
+INSTANCES = (64, 128)
 
 
 def attn_prefill_einsum(q, k, v, *, causal: bool = True,
@@ -67,10 +70,10 @@ def _check(q, k, v, window):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash_attention: {q.dtype}; kernel takes f32 or "
                          "bf16")
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"flash_attention: kernel built for d="
-                         f"{KERNEL_HEAD_DIM}, got d={d} (other head dims "
-                         "come with ROADMAP A7)")
+    if d not in INSTANCES:
+        raise ValueError(f"flash_attention: no kernel instance for d={d} "
+                         f"(built: {INSTANCES}; other head dims come with "
+                         "ROADMAP A7)")
     if n_kv < 1 or h % n_kv or sk < 1:
         raise ValueError(f"flash_attention: {h} heads on {n_kv} KV heads, "
                          f"{sk} keys")

@@ -34,10 +34,13 @@ from repro_torch.kernels import split as _split
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the one shape the kernel is built for and checked at on the card:
-# smollm-360m's d_head 64, 15 heads on 5 KV heads
-KERNEL_HEAD_DIM = 64
-KERNEL_ROWS = 3
+# The (head dim, query heads per KV head) pairs the kernel is built for
+# and checked at on the card, each for f32 and bf16 caches: smollm-360m's
+# d 64 on 15 heads over 5 KV heads, llama3.2-3b's d 128 on 24 over 8, and
+# qwen1.5-32b's d 128 on 40 over 40 (its int8 cache dequantised to bf16
+# first).  csrc/flash_decode.cu builds exactly these (its DECODE_INSTANCE
+# lines); every other pair is refused.
+INSTANCES = ((64, 3), (128, 3), (128, 1))
 
 
 def flash_decode_partials_plain(qg, k, v, valid):
@@ -64,11 +67,10 @@ def _check(qg, k, v, valid):
         raise ValueError(f"flash_decode: cache {k.dtype}/{v.dtype}; kernel "
                          "takes f32 or bf16 (int8 caches are dequantised "
                          "first)")
-    if d != KERNEL_HEAD_DIM or r != KERNEL_ROWS:
-        raise ValueError(f"flash_decode: kernel built for d="
-                         f"{KERNEL_HEAD_DIM} and {KERNEL_ROWS} query heads "
-                         f"per KV head, got d={d}, {r} (other head dims and "
-                         "groups come with ROADMAP A7)")
+    if (d, r) not in INSTANCES:
+        raise ValueError(f"flash_decode: no kernel instance for d={d} and "
+                         f"{r} query heads per KV head (built: {INSTANCES}; "
+                         "other head dims and groups come with ROADMAP A7)")
     want = [("q", qg, k.dtype, (b, n_kv, r, d)),
             ("k", k, k.dtype, (b, n_kv, s, d)),
             ("v", v, k.dtype, (b, n_kv, s, d)),

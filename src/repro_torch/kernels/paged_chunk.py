@@ -49,10 +49,13 @@ from repro_torch.kernels.split import (MAX_SPLITS,  # noqa: F401
                                        SPLIT_MIN_POSITIONS,
                                        merge_split_partials_plain)
 
-# the one shape the kernel is built for and checked at on the card:
-# smollm-360m's d_head 64, 15 heads on 5 KV heads
-KERNEL_HEAD_DIM = 64
-KERNEL_GROUP = 3
+# The (head dim, query heads per KV head) pairs the kernel is built for
+# and checked at on the card, each for f32, bf16 and int8 pages:
+# smollm-360m's d 64 on 15 heads over 5 KV heads, llama3.2-3b's d 128 on 24
+# over 8, and qwen1.5-32b's d 128 on 40 over 40.  csrc/paged_chunk.cu
+# builds exactly these (its CHUNK_INSTANCE lines); every other pair is
+# refused.
+INSTANCES = ((64, 3), (128, 3), (128, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -124,10 +127,11 @@ def _check(name, q, k_pages, v_pages, seg, tables, valid, k_scale, v_scale):
             or (k_scale is None) != (v_scale is None):
         raise ValueError(f"{name}: int8 pages need both scale pools, other "
                          "dtypes none")
-    if h % n_kv or d != KERNEL_HEAD_DIM or h // n_kv != KERNEL_GROUP:
-        raise ValueError(f"{name}: kernel built for d={KERNEL_HEAD_DIM} and "
-                         f"{KERNEL_GROUP} query heads per KV head, got d={d}, "
-                         f"{h} heads on {n_kv} KV heads")
+    if h % n_kv or (d, h // n_kv) not in INSTANCES:
+        raise ValueError(f"{name}: no kernel instance for d={d} and {h} "
+                         f"heads on {n_kv} KV heads (built: {INSTANCES} as "
+                         "(d, heads per KV head); other head dims and groups "
+                         "come with ROADMAP A7)")
     if r < 1:
         raise ValueError(f"{name}: no segment for {n} tokens")
     if k_pages.shape[3] != d:

@@ -36,10 +36,12 @@ from repro_torch.kernels import split as _split
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# the one shape the kernel is built for and checked at on the card:
-# smollm-360m's d_head 64, 15 heads on 5 KV heads
-KERNEL_HEAD_DIM = 64
-KERNEL_ROWS = 3
+# The (head dim, query rows per KV head) pairs the kernel is built for and
+# checked at on the card, each for f32, bf16 and int8 pages: smollm-360m's
+# d 64 on 15 heads over 5 KV heads, llama3.2-3b's d 128 on 24 over 8, and
+# qwen1.5-32b's d 128 on 40 over 40.  csrc/paged_decode.cu builds exactly
+# these (its DECODE_INSTANCE lines); every other pair is refused.
+INSTANCES = ((64, 3), (128, 3), (128, 1))
 
 
 def _gather(pages, scales, block_tables):
@@ -82,10 +84,11 @@ def _check(qg, k_pages, v_pages, block_tables, valid, k_scale, v_scale):
             or (k_scale is None) != (v_scale is None):
         raise ValueError("paged_flash_decode: int8 pages need both scale "
                          "pools, other dtypes none")
-    if d != KERNEL_HEAD_DIM or r != KERNEL_ROWS:
-        raise ValueError(f"paged_flash_decode: kernel built for d="
-                         f"{KERNEL_HEAD_DIM} and {KERNEL_ROWS} query rows per "
-                         f"KV head, got d={d}, rows={r}")
+    if (d, r) not in INSTANCES:
+        raise ValueError(f"paged_flash_decode: no kernel instance for d={d} "
+                         f"and {r} query rows per KV head (built: "
+                         f"{INSTANCES}; other head dims and groups come with "
+                         "ROADMAP A7)")
     want = [("q", qg, torch.float32, (b, n_kv, r, d)),
             ("k_pages", k_pages, k_pages.dtype, tuple(k_pages.shape)),
             ("v_pages", v_pages, k_pages.dtype, tuple(k_pages.shape)),

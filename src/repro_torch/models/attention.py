@@ -62,7 +62,7 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return (q.float() * scale).to(dtype)
 
 
-def _kv_leaves(ks, vs, cache) -> Dict[str, torch.Tensor]:
+def kv_leaves(ks, vs, cache) -> Dict[str, torch.Tensor]:
     """The values to store for (ks, vs) in ``cache``'s format."""
     if "k_scale" in cache:
         kq, ksc = quantize_kv(ks)
@@ -98,7 +98,7 @@ def cache_write_stacked(cache: Dict[str, torch.Tensor], ks: torch.Tensor,
     ok = (slot < s_cache)[:, None, None, None]
     pos = torch.clamp(slot, max=s_cache - 1).long()
     rows = torch.arange(slot.shape[0], device=slot.device)
-    for key, val in _kv_leaves(ks, vs, cache).items():
+    for key, val in kv_leaves(ks, vs, cache).items():
         # advanced indices (row, pos) move to the front: (B, L, KV, d')
         old = cache[key][:, rows, :, pos, :]
         new = val.transpose(0, 1).to(old.dtype)
@@ -156,7 +156,7 @@ def cache_write_paged(pages: Dict[str, torch.Tensor], ks: torch.Tensor,
     blk = torch.clamp(pos // bs, max=nb - 1)
     page = block_tables[torch.arange(B, device=pos.device), blk].long()
     off = pos % bs
-    for key, val in _kv_leaves(ks, vs, pages).items():
+    for key, val in kv_leaves(ks, vs, pages).items():
         pages[key][:, page, :, off, :] = val.transpose(0, 1)
     return pages
 
@@ -299,7 +299,7 @@ def cache_write_chunk(cache: Dict[str, torch.Tensor], ks: torch.Tensor,
     p0 = int(pos_start)
     n = max(min(int(chunk_len), s_cache - p0), 0)
     rows = rows.long()
-    for key, val in _kv_leaves(ks, vs, cache).items():
+    for key, val in kv_leaves(ks, vs, cache).items():
         cache[key][:, rows, :, p0:p0 + n] = \
             val[:, :, :, :n].to(cache[key].dtype)
     return cache
@@ -326,7 +326,7 @@ def cache_write_chunk_paged(cache: Dict[str, torch.Tensor], ks: torch.Tensor,
     page = torch.where(real, block_rows[rows, blk[None, :]],
                        torch.zeros_like(blk)[None, :])       # (Bc, C)
     off_b = off[None, :].expand(bc, c)
-    for key, val in _kv_leaves(ks, vs, cache).items():
+    for key, val in kv_leaves(ks, vs, cache).items():
         # advanced indices (page, offset) at axes 1 and 3 -> value (Bc, C,
         # L, KV, dh); duplicate NULL targets may race, NULL is scratch
         cache[key][:, page, :, off_b, :] = \
@@ -516,7 +516,7 @@ def cache_write_packed(cache: Dict[str, torch.Tensor], ks: torch.Tensor,
     lane = rows.long()[src]
     pos = torch.clamp(wpos.long()[src], max=s_cache - 1)
     kept = keep[src][:, None, None, None]
-    for key, val in _kv_leaves(ks, vs, cache).items():
+    for key, val in kv_leaves(ks, vs, cache).items():
         # advanced indices (lane, position) at axes 1 and 3 move to the
         # front: (C, L, KV, dh)
         old = cache[key][:, lane, :, pos, :]
@@ -545,7 +545,7 @@ def cache_write_packed_paged(cache: Dict[str, torch.Tensor], ks: torch.Tensor,
     page = torch.where(valid_tok,
                        tok_tables.long()[torch.arange(c, device=ks.device),
                                          blk], torch.zeros_like(blk))
-    for key, val in _kv_leaves(ks, vs, cache).items():
+    for key, val in kv_leaves(ks, vs, cache).items():
         # advanced indices (page, offset) at axes 1 and 3 -> value (C, L,
         # KV, dh); duplicate NULL targets may race, NULL is scratch
         cache[key][:, page, :, off, :] = \

@@ -51,32 +51,75 @@ def stack_decls(decls, n: int):
     return {k: stack_decls(v, n) for k, v in decls.items()}
 
 
+def _leaf_std(p: Param) -> float:
+    """The standard deviation of a random leaf's normal draw."""
+    if p.init == "normal":
+        # the JAX package's fan-in rule, read from the leaf's FIRST axis
+        # (the stacked-layer axis for per-layer matrices)
+        fan_in = p.shape[0] if len(p.shape) >= 2 else max(p.shape[-1], 1)
+        return p.scale / math.sqrt(fan_in)
+    if p.init in ("embed", "small"):
+        return 0.02 * p.scale
+    raise ValueError(p.init)
+
+
 def _leaf_init(p: Param, gen: Optional[torch.Generator]) -> torch.Tensor:
+    """A leaf on the CPU, drawn in float32."""
     if p.init == "zeros":
         return torch.zeros(p.shape)
     if p.init == "ones":
         return torch.ones(p.shape)
     x = torch.randn(p.shape, generator=gen, dtype=torch.float32)
-    if p.init == "normal":
-        # the JAX package's fan-in rule, read from the leaf's FIRST axis
-        # (the stacked-layer axis for per-layer matrices)
-        fan_in = p.shape[0] if len(p.shape) >= 2 else max(p.shape[-1], 1)
-        return x * (p.scale / math.sqrt(fan_in))
-    if p.init in ("embed", "small"):
-        return x * (0.02 * p.scale)
-    raise ValueError(p.init)
+    return x * _leaf_std(p)
+
+
+def _leaf_on_device(p: Param, gen: torch.Generator, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """A leaf drawn where it lives, in its stored dtype, one slice of its
+    first axis at a time: no float32 copy of it exists anywhere (at
+    qwen1.5-32b's width the float32 leaves would take 140 GB)."""
+    out = torch.empty(p.shape, dtype=dtype, device=device)
+    if p.init == "zeros":
+        return out.zero_()
+    if p.init == "ones":
+        return out.fill_(1.0)
+    std = _leaf_std(p)
+    for part in (out if out.dim() >= 2 else (out,)):
+        part.normal_(0.0, std, generator=gen)
+    return out
+
+
+def _device_generator(gen: Optional[torch.Generator],
+                      device: torch.device) -> torch.Generator:
+    """``gen`` itself if it lives on ``device``, else a generator there
+    seeded by one draw from ``gen``."""
+    if gen is not None and gen.device == device:
+        return gen
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def init_params(decls, generator: Optional[torch.Generator] = None,
                 dtype: torch.dtype = torch.float32, device="cpu"):
     """Instantiate a decl tree: same distributions as the JAX package's
     ``init_params``, drawn from ``generator`` (so not the same numbers), in
-    ``dtype`` except for the leaves declared float32."""
+    ``dtype`` except for the leaves declared float32.  On the CPU every
+    leaf is drawn in float32 and cast; on another device each leaf is
+    drawn there, in its stored dtype, from a generator on that device
+    seeded by one draw from ``generator``."""
+    device = torch.device(device)
+    if device.type != "cpu":
+        gen = _device_generator(generator, device)
+        return _map_decls(decls, lambda p: _leaf_on_device(
+            p, gen, torch_dtype(p.dtype) if p.dtype else dtype, device))
+    return _map_decls(decls, lambda p: _leaf_init(p, generator).to(
+        dtype=torch_dtype(p.dtype) if p.dtype else dtype))
+
+
+def _map_decls(decls, fn):
     if isinstance(decls, Param):
-        dt = torch_dtype(decls.dtype) if decls.dtype else dtype
-        return _leaf_init(decls, generator).to(device=device, dtype=dt)
-    return {k: init_params(v, generator, dtype, device)
-            for k, v in decls.items()}
+        return fn(decls)
+    return {k: _map_decls(v, fn) for k, v in decls.items()}
 
 
 # ---------------------------------------------------------------------------

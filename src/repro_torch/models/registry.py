@@ -86,8 +86,9 @@ class Model:
     def init(self, generator: Optional[torch.Generator] = None,
              device=None):
         """Random parameters in the compute dtype (the leaves declared
-        float32 stay float32), drawn on the CPU from ``generator`` and
-        moved to ``device`` (None: CUDA)."""
+        float32 stay float32) on ``device`` (None: CUDA), drawn from
+        ``generator`` (on a device other than the CPU, from a generator
+        there that one draw from ``generator`` seeds; ``init_params``)."""
         return init_params(self.decls, generator, cdtype(self.cfg),
                            resolve_device(device))
 

@@ -1,0 +1,278 @@
+"""The head-dim-128 slice of the port: llama3.2-3b (d 128, 24 heads on 8
+KV heads, G 3) and qwen1.5-32b (d 128, MHA, G 1, int8 KV).
+
+* both configs equal the JAX package's field by field; the families not
+  ported yet still raise, naming ROADMAP A7;
+* every ported dense config's (d_head, heads per KV head) is in the
+  instance set of each attention kernel (K2, K3, K6; K7 by d), and each
+  kernel module's ``INSTANCES`` names exactly the instances its CUDA source
+  builds; a pair outside the set is refused;
+* the plain versions of K2, K3 (prefill and packed chunks), K6 and K7 at
+  d 128, G 3 and G 1, on bf16-valued f32 inputs and on int8 pages with
+  their scales, match the JAX package's Pallas kernels in interpret mode.
+"""
+import dataclasses
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.kernels import ops as jops
+
+from repro_torch.configs import base as cfg_base
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as K7
+from repro_torch.kernels import flash_decode as K6
+from repro_torch.kernels import paged_chunk as K3
+from repro_torch.kernels import paged_decode as K2
+from repro_torch.models import build
+
+# f32 sums in another order than XLA's (and online vs one-shot softmax);
+# d 128 sums twice the terms of the d-64 tests, so twice their 1e-5
+ATOL = 2e-5
+D = 128
+# (query heads, KV heads): llama's G 3 and qwen's G 1, at reduced counts
+GROUPS = [(6, 2), (2, 2)]
+BS, NB = 8, 4
+CSRC = Path(K2.__file__).resolve().parent.parent / "csrc"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+# ---------------------------------------------------------------------------
+# configs
+
+@pytest.mark.parametrize("name", ["llama3.2-3b", "qwen1.5-32b"])
+def test_config_equals_jax_field_by_field(name):
+    cfg, jcfg = get_config(name), j_get_config(name)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert type(cfg).__module__.startswith("repro_torch.")
+    assert cfg.d_head == D
+    assert (cfg.param_count(), cfg.reduced().n_layers) == \
+        (jcfg.param_count(), jcfg.reduced().n_layers)
+
+
+@pytest.mark.parametrize("name", ["stablelm-3b", "hymba-1.5b",
+                                  "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b",
+                                  "llava-next-34b", "whisper-tiny"])
+def test_unported_family_raises_naming_a7(name):
+    with pytest.raises(NotImplementedError, match="A7"):
+        get_config(name)
+
+
+def test_widths_of_the_new_fleets():
+    llama, qwen = get_config("llama3.2-3b"), get_config("qwen1.5-32b")
+    assert (llama.n_layers, llama.d_model, llama.n_heads, llama.n_kv_heads,
+            llama.d_ff, llama.vocab_size, llama.tie_embeddings,
+            llama.rope_theta) == (28, 3072, 24, 8, 8192, 128256, True,
+                                  500_000.0)
+    assert (qwen.n_layers, qwen.d_model, qwen.n_heads, qwen.n_kv_heads,
+            qwen.d_ff, qwen.vocab_size, qwen.qkv_bias, qwen.tie_embeddings,
+            qwen.kv_cache_dtype) == (64, 5120, 40, 40, 27392, 152064, True,
+                                     False, "int8")
+    # the reduced variants keep the group character: GQA and MHA
+    assert llama.reduced().n_heads // llama.reduced().n_kv_heads > 1
+    assert qwen.reduced().n_heads == qwen.reduced().n_kv_heads
+    assert build(qwen.reduced()).decls["layers"]["attn"]["bq"].shape == \
+        (2, qwen.reduced().n_heads * qwen.reduced().d_head)
+
+
+# ---------------------------------------------------------------------------
+# the instance sets
+
+def _source_instances(name, macro):
+    src = (CSRC / name).read_text()
+    return {tuple(int(x) for x in m.group(1).split(","))
+            for m in re.finditer(rf"^\s*{macro}\(([\d,\s]+)\)\s*$", src,
+                                 re.M)}
+
+
+def test_instance_sets_equal_the_cuda_sources():
+    assert _source_instances("paged_decode.cu", "DECODE_INSTANCE") == \
+        set(K2.INSTANCES)
+    assert _source_instances("flash_decode.cu", "DECODE_INSTANCE") == \
+        set(K6.INSTANCES)
+    assert _source_instances("paged_chunk.cu", "CHUNK_INSTANCE") == \
+        set(K3.INSTANCES)
+    assert _source_instances("flash_attention.cu", "FLASH_INSTANCE") == \
+        {(d,) for d in K7.INSTANCES}
+
+
+@pytest.mark.parametrize("mod", cfg_base.PORTED)
+def test_every_ported_config_has_its_kernel_instances(mod):
+    cfg = get_config(mod)
+    if cfg.arch_type != "dense":
+        return
+    pair = (cfg.d_head, cfg.n_heads // cfg.n_kv_heads)
+    assert pair in K2.INSTANCES
+    assert pair in K3.INSTANCES
+    assert pair in K6.INSTANCES
+    assert cfg.d_head in K7.INSTANCES
+
+
+def test_a_pair_outside_the_instance_set_is_refused():
+    """stablelm-3b's d 80 (G 1) and a d-128 group of 2: every wrapper's
+    check refuses them, naming A7, before any launch."""
+    q = torch.zeros(1, 2, 80)
+    pages = torch.zeros(3, 2, BS, 80)
+    tables = torch.zeros(1, 2, dtype=torch.int32)
+    valid = torch.zeros(1, 2 * BS, dtype=torch.bool)
+    with pytest.raises(ValueError, match="A7"):
+        K2._check(q.reshape(1, 2, 1, 80), pages, pages, tables, valid,
+                  None, None)
+    with pytest.raises(ValueError, match="A7"):
+        K3._check("paged_flash_packed_chunk", q, pages, pages, None, tables,
+                  valid, None, None)
+    k = torch.zeros(1, 2, 16, 128)
+    with pytest.raises(ValueError, match="A7"):
+        K6._check(torch.zeros(1, 2, 2, 128), k, k, torch.zeros(
+            1, 16, dtype=torch.bool))
+    with pytest.raises(ValueError, match="A7"):
+        K7._check(torch.zeros(1, 4, 2, 80), torch.zeros(1, 4, 2, 80),
+                  torch.zeros(1, 4, 2, 80), None)
+
+
+# ---------------------------------------------------------------------------
+# the plain versions at d 128 against the Pallas kernels
+
+def _bf16_valued(x):
+    """f32 values that bf16 holds exactly (what the served model hands the
+    kernels: bf16 activations and pages upcast)."""
+    return np.asarray(jnp.asarray(x).astype(jnp.bfloat16)
+                      .astype(jnp.float32))
+
+
+def _pool(rng, dtype, n_rows, kv):
+    P = n_rows * NB + 1
+    if dtype == "int8":
+        k = rng.integers(-127, 128, (P, kv, BS, D)).astype(np.int8)
+        v = rng.integers(-127, 128, (P, kv, BS, D)).astype(np.int8)
+        ks = rng.uniform(0.001, 0.02, (P, kv, BS, 1)).astype(np.float32)
+        vs = rng.uniform(0.001, 0.02, (P, kv, BS, 1)).astype(np.float32)
+        return k, v, ks, vs
+    k = _bf16_valued(rng.standard_normal((P, kv, BS, D)))
+    v = _bf16_valued(rng.standard_normal((P, kv, BS, D)))
+    return k, v, None, None
+
+
+def _t(*arrays):
+    return [None if a is None else torch.from_numpy(np.array(a))
+            for a in arrays]
+
+
+def _j(*arrays):
+    return [None if a is None else jnp.asarray(a) for a in arrays]
+
+
+def _close(port, ref, rows=None):
+    port, ref = port.numpy(), np.asarray(ref)
+    if rows is not None:
+        port, ref = port[rows], ref[rows]
+    np.testing.assert_allclose(port, ref, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("h,kv", GROUPS)
+def test_k2_plain_matches_pallas_at_d128(dtype, h, kv):
+    """Rows: fully valid, a ragged tail, valid behind a NULL table entry."""
+    rng = np.random.default_rng(0)
+    B = 3
+    q = _bf16_valued(rng.standard_normal((B, h, D)))
+    k, v, ks, vs = _pool(rng, dtype, B, kv)
+    tables = (1 + rng.permutation(B * NB)).reshape(B, NB).astype(np.int32)
+    tables[2, 0] = 0
+    valid = np.ones((B, NB * BS), bool)
+    valid[1, 2 * BS + 3:] = False
+    valid[2, :BS] = False
+    args = (q, k, v, tables, valid, ks, vs)
+    o, l, m = K2.paged_flash_decode(*_t(*args), return_partials=True)
+    jo, jl, jm = jops.paged_flash_decode(*_j(*args), interpret=True,
+                                         return_partials=True)
+    for port, ref in ((o, jo), (l, jl), (m, jm)):
+        _close(port, ref)
+    _close(K2.paged_flash_decode(*_t(*args)),
+           jops.paged_flash_decode(*_j(*args), interpret=True))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("h,kv", GROUPS)
+def test_k3_prefill_chunk_plain_matches_pallas_at_d128(dtype, h, kv):
+    """B3: two requests of 8 chunk tokens, 13 and 32 cached positions."""
+    rng = np.random.default_rng(1)
+    B, C = 2, 8
+    q = _bf16_valued(rng.standard_normal((B, C, h, D)))
+    k, v, ks, vs = _pool(rng, dtype, B, kv)
+    tables = (1 + rng.permutation(B * NB)).reshape(B, NB).astype(np.int32)
+    valid = np.arange(NB * BS)[None, :] < np.array([13, NB * BS])[:, None]
+    args = (q, k, v, tables, valid, ks, vs)
+    got = K3.paged_flash_prefill_chunk(*_t(*args))
+    want = jops.paged_flash_prefill_chunk(*_j(*args), interpret=True)
+    for port, ref in zip(got, want):
+        _close(port, ref)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("h,kv", GROUPS)
+def test_k3_packed_chunk_plain_matches_pallas_at_d128(dtype, h, kv):
+    """B4: 12 tokens of three segments (13 cached positions, a full cache,
+    and a prompt head with none) and two padding tokens; the Pallas kernel
+    is held on the tokens whose segment has a valid position (the empty
+    segment's partials differ by contract, ROADMAP C)."""
+    rng = np.random.default_rng(2)
+    C, R = 12, 3
+    q = _bf16_valued(rng.standard_normal((C, h, D)))
+    k, v, ks, vs = _pool(rng, dtype, R, kv)
+    tables = (1 + rng.permutation(R * NB)).reshape(R, NB).astype(np.int32)
+    tables[2, :] = 0
+    starts = np.array([13, NB * BS, 0])
+    valid = np.arange(NB * BS)[None, :] < starts[:, None]
+    seg = np.array([0] * 4 + [1] * 3 + [2] * 3 + [2] * 2, np.int32)
+    args = (q, k, v, seg, tables, valid, ks, vs)
+    got = K3.paged_flash_packed_chunk(*_t(*args))
+    want = jops.paged_flash_packed_chunk(*_j(*args), interpret=True)
+    live = starts[seg] > 0
+    for port, ref in zip(got, want):
+        _close(port, ref, live)
+    assert float(got[1][~live].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("h,kv", GROUPS)
+def test_k6_plain_matches_pallas_at_d128(h, kv):
+    """bf16-valued f32 caches (qwen's int8 cache reaches K6 dequantised
+    to bf16); rows fully valid, ragged, and a window band."""
+    rng = np.random.default_rng(3)
+    B, S = 3, 48
+    q = _bf16_valued(rng.standard_normal((B, h, D)))
+    k = _bf16_valued(rng.standard_normal((B, kv, S, D)))
+    v = _bf16_valued(rng.standard_normal((B, kv, S, D)))
+    valid = np.ones((B, S), bool)
+    valid[1, S // 2 + 3:] = False
+    valid[2, :7] = False
+    valid[2, S - 5:] = False
+    out = K6.flash_decode(*_t(q, k, v, valid))
+    pallas = jops.flash_decode(*_j(q, k, v, valid), bs=512, interpret=True)
+    _close(out, pallas)
+
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("h,kv", GROUPS)
+def test_k7_plain_matches_pallas_at_d128(h, kv, window):
+    rng = np.random.default_rng(4)
+    B, S = 2, 64
+    q = _bf16_valued(rng.standard_normal((B, S, h, D)))
+    k = _bf16_valued(rng.standard_normal((B, S, kv, D)))
+    v = _bf16_valued(rng.standard_normal((B, S, kv, D)))
+    out = K7.flash_attention(*_t(q, k, v), causal=True, window=window)
+    pallas = jops.flash_attention(*_j(q, k, v), causal=True, window=window,
+                                  bq=16, bk=16, interpret=True)
+    _close(out, pallas)

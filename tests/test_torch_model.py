@@ -1,7 +1,9 @@
-"""The port's dense transformer on the reduced smollm-360m (2 layers, f32)
-held to the JAX package on weights carried across: prefill logits and
-caches, teacher-forced dense and paged decode steps (logits, hidden states,
-pages), against the JAX jnp paged path and its Pallas kernel."""
+"""The port's dense transformer on the reduced smollm-360m, llama3.2-3b and
+qwen1.5-32b (2 layers, f32; qwen with QKV bias and MHA) held to the JAX
+package on weights carried across: prefill logits and caches,
+teacher-forced dense and paged decode steps (logits, hidden states,
+pages), against the JAX jnp paged path and its Pallas kernel, and on int8
+pages (qwen's served KV dtype)."""
 import dataclasses
 import functools
 
@@ -31,6 +33,8 @@ RTOL_KV = 2e-5
 # final-norm hidden states (O(1)) carry the residual stream's f32 rounding
 ATOL_HIDDEN = 1e-4
 B, S, BS, STEPS = 2, 11, 8, 8
+# the ported dense configs, each at .reduced()
+ARCHS = ("smollm-360m", "llama3.2-3b", "qwen1.5-32b")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -41,9 +45,9 @@ def _torch_threads():
     torch.set_num_threads(old)
 
 
-def _pair(kv_cache_dtype=None):
-    jcfg = j_get_config("smollm-360m").reduced()
-    cfg = get_config("smollm-360m").reduced()
+def _pair(arch="smollm-360m", kv_cache_dtype=None):
+    jcfg = j_get_config(arch).reduced()
+    cfg = get_config(arch).reduced()
     if kv_cache_dtype:
         jcfg = dataclasses.replace(jcfg, kv_cache_dtype=kv_cache_dtype)
         cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_cache_dtype)
@@ -54,9 +58,9 @@ def _pair(kv_cache_dtype=None):
                                                device="cpu")
 
 
-@pytest.fixture(scope="module")
-def pair():
-    return _pair()
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    return _pair(request.param)
 
 
 def _tokens(cfg, seed=0):
@@ -174,7 +178,8 @@ def test_paged_decode_steps_match_jax(monkeypatch, pair, impl, kv):
         monkeypatch.setenv("REPRO_PAGED_ATTN", "pallas")
     else:
         monkeypatch.delenv("REPRO_PAGED_ATTN", raising=False)
-    jcfg, jparams, cfg, params = pair if kv is None else _pair(kv)
+    jcfg, jparams, cfg, params = pair if kv is None else _pair(
+        pair[0].name, kv)
     prompt, feed = _tokens(cfg, seed=2)
     nb = -(-(S + STEPS) // BS)
     jstate, state = _paged_pair(jcfg, jparams, cfg, params, prompt, nb)

@@ -1,6 +1,7 @@
 """The port's serving stack (``ContinuousServingEngine`` under
 ``OrcaScheduler``, dense and paged KV) held to the JAX package's on the
-reduced smollm-360m with weights and probe slow weights carried across:
+reduced smollm-360m (and, where marked, the reduced llama3.2-3b and
+qwen1.5-32b) with weights and probe slow weights carried across:
 per-request stop steps, emitted tokens, admission and completion steps are
 exactly equal, and the page pool drains — with admission-time prefill and
 with chunked, packed prefill through the unified token-budget step (dense
@@ -9,6 +10,7 @@ steps, paged int8); the static-batch engine and a static-probe fleet.
 Plus CPU runs of the port's serving driver, the ServeConfig knobs the port
 accepts and refuses, and its refusal of mixed priority classes."""
 import dataclasses
+import functools
 import warnings
 
 import jax
@@ -46,6 +48,8 @@ LENS = (9, 13, 9, 6, 11)
 # per-request budgets: the short ones FINISH before the burn-in lets them
 # stop, the rest are STOPPED by the probe
 BUDGETS = (12, 3, 12, 12, 4)
+# the ported dense configs, each at .reduced()
+ARCHS = ("smollm-360m", "llama3.2-3b", "qwen1.5-32b")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -56,9 +60,10 @@ def _torch_threads():
     torch.set_num_threads(old)
 
 
-def _models(kv_cache_dtype=None):
-    jcfg = j_get_config("smollm-360m").reduced()
-    cfg = get_config("smollm-360m").reduced()
+@functools.lru_cache(maxsize=None)
+def _models(kv_cache_dtype=None, arch="smollm-360m"):
+    jcfg = j_get_config(arch).reduced()
+    cfg = get_config(arch).reduced()
     if kv_cache_dtype:
         jcfg = dataclasses.replace(jcfg, kv_cache_dtype=kv_cache_dtype)
         cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_cache_dtype)
@@ -126,9 +131,10 @@ def _run_both(models, **kw):
     return fleet
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("paged", [False, True])
-def test_scheduler_stops_and_tokens_match_jax(models, paged):
-    fleet = _run_both(models, paged=paged)
+def test_scheduler_stops_and_tokens_match_jax(paged, arch):
+    fleet = _run_both(_models(None, arch), paged=paged)
     assert fleet.prefill_chunks == 0
     if paged:
         assert fleet.prefill_skips == 1
@@ -153,20 +159,23 @@ def test_chunked_fleet_under_a_tight_budget_matches_jax(models):
     assert fleet.peak_step_tokens <= 3
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("chunk_tokens", [None, 4])
-def test_paged_int8_fleet_matches_jax(monkeypatch, chunk_tokens):
+def test_paged_int8_fleet_matches_jax(monkeypatch, chunk_tokens, arch):
     """int8 pages end to end, admission-time and chunked: prefill (or each
     chunk) quantises its K/V into the pool, later chunks and decode read
     them back dequantised.  The JAX package runs its Pallas paged kernels
     (interpret mode), whose f32 contract the port's kernels keep; its jnp
     path dequantises int8 pages to bf16."""
     monkeypatch.setenv("REPRO_PAGED_ATTN", "pallas")
-    fleet = _run_both(_models("int8"), paged=True, chunk_tokens=chunk_tokens)
+    fleet = _run_both(_models("int8", arch), paged=True,
+                      chunk_tokens=chunk_tokens)
     assert (fleet.packed_chunks > 0) == bool(chunk_tokens)
 
 
-def test_serve_driver_runs_on_cpu(capsys):
-    rc = tserve.main(["--arch", "smollm-360m", "--reduced", "--device", "cpu",
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_driver_runs_on_cpu(capsys, arch):
+    rc = tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
                       "--paged", "--requests", "3", "--slots", "2",
                       "--max-new-tokens", "16", "--tokens-per-step", "4",
                       "--train-trajectories", "8", "--epochs", "2",
