@@ -90,7 +90,8 @@ non-zero:
 9. model    -- full-width smollm-360m (bf16, random weights from a seed,
                then the same weights in f32): prefill 16 tokens, 64
                teacher-forced paged decode steps through K2 (every call
-               held against the plain version on its inputs) and through
+               held against the plain version's formula in float64 on its
+               inputs) and through
                the plain paged attention; then the dense path, the prompt
                through K7 and 64 dense decode steps through K6, every call
                checked, against the plain versions (f32: every argmax
@@ -193,13 +194,20 @@ non-zero:
                --chunk-tokens 64 --prompt-len 160``: int8 pages through K2
                and K3 (G 1), the harvest through K7 and K6 (G 1), K1 and
                K5 at f 5120; a 16-step profiled window; peak memory
-32. kernels  -- one entry per kernel: launches on its path (phase 12 for
+32. serve-qwen-f32 -- qwen1.5-32b in f32 at 4 of its 64 layers (full
+               width, weights drawn on the card), int8 KV pages, 160-token
+               prompts in 64-token chunks, served with serve-qwen's probe
+               through the kernels (K2 and K3 at G 1 on int8 pages) and
+               through the plain attention: stops and tokens equal
+33. kernels  -- one entry per kernel: launches on its path (phase 12 for
                K1, K2 and K7, 10 for K3-B3, 17 for K3-B4, 19 for K4, 21
                for K5, 15 for K6, 25 for K8), error against its plain
                version, kernel / plain / library / bound ms; then one entry
                per d-128 instance on the new fleets' paths (K2, K6 and K7
                at G 3 from serve-llama, at G 1 from serve-qwen, K3 at G 1
-               int8 from serve-qwen) and K1 at f 3072
+               int8 from serve-qwen) and K1 at f 3072; K3's and K7's
+               bound_ms is their rows' bound_tc_ms, the products priced at
+               the tensor cores' bf16 rate
 
 The line before the last is ``nvidia-smi``'s card name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -251,12 +259,13 @@ def bound_ms(n_bytes: float, n_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound_tc_ms(n_bytes: float, tc_flops: float, f32_flops: float) -> float:
+def bound_tc_ms(n_bytes: float, tc_flops: float, f32_flops: float):
     """The bound with the products on the tensor cores: the products'
     operations at the bf16 rate, the rest at the f32 rate, against the
     same bytes."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = (tc_flops / TC_FLOPS_PER_S + f32_flops / F32_FLOPS_PER_S) * 1e3
-    return max(n_bytes / HBM_BYTES_PER_S * 1e3, t_ops)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def nbytes(*tensors) -> int:
@@ -956,9 +965,9 @@ def k3_b4_case(torch, timer, gen, name, nb, dtype, segs, C=64, R=4,
     moved, ops, tc_ops = k3_bytes_ops(k, ks, n_valid, tok_valid, H, d,
                                       (q, seg, tables, valid), got)
     bms, by = bound_ms(moved, ops)
+    tc_ms, tc_by = bound_tc_ms(moved, tc_ops, ops - tc_ops)
     row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-               bound_by=by, bound_tc_ms=bound_tc_ms(moved, tc_ops,
-                                                    ops - tc_ops),
+               bound_by=by, bound_tc_ms=tc_ms, bound_tc_by=tc_by,
                bytes=moved)
     return row
 
@@ -988,13 +997,13 @@ def k3_b3_case(torch, timer, gen, B, Cb, nb, dtype, cached, shape=None):
     moved, ops, tc_ops = k3_bytes_ops(k, ks, cached, Cb * sum(cached),
                                       H, d, (q, tables, valid), got)
     bms, by = bound_ms(moved, ops)
+    tc_ms, tc_by = bound_tc_ms(moved, tc_ops, ops - tc_ops)
     return dict(fn="B3", B=B, C=Cb, nb=nb, pages=dtype, cached=cached,
                 H=H, KV=KV, d=d, bs=bs,
                 split=K3.split_count(nb * bs, k.dtype), m_err=m_err,
                 out_err=o_err, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                bound_tc_ms=bound_tc_ms(moved, tc_ops, ops - tc_ops),
-                bytes=moved)
+                bound_tc_ms=tc_ms, bound_tc_by=tc_by, bytes=moved)
 
 
 def phase_k3(torch, timer):
@@ -1694,8 +1703,8 @@ def phase_k7(torch, timer):
             moved = nbytes(q, k, v, out)
             row["bound_ms"], row["bound_by"] = bound_ms(
                 moved, B * H * pairs * (4 * d + 4))
-            row["bound_tc_ms"] = bound_tc_ms(moved, B * H * pairs * 4 * d,
-                                             B * H * pairs * 4)
+            row["bound_tc_ms"], row["bound_tc_by"] = bound_tc_ms(
+                moved, B * H * pairs * 4 * d, B * H * pairs * 4)
             row["bytes"] = moved
             row["visible_pairs_per_head"] = pairs
         emit(dict(phase="k7", **row))
@@ -1722,31 +1731,63 @@ def _positions_reversed(K2):
     return fn
 
 
+def paged_decode_exact(q, k, v, tables, valid, ks=None, vs=None):
+    """The plain version's formula in float64 on the same inputs: the
+    partials (o, l, m) of K2 without rounding."""
+    import torch
+    bt = tables.long()
+
+    def cache(pages, scales):
+        x = pages[bt].double()                  # (B, nb, KV, bs, d)
+        if scales is not None:
+            x = x * scales[bt].double()
+        b, nb, kv, bs, d = x.shape
+        return x.permute(0, 2, 1, 3, 4).reshape(b, kv, nb * bs, d)
+
+    kc, vc = cache(k, ks), cache(v, vs)
+    b, h, d = q.shape
+    qg = q.double().reshape(b, kc.shape[1], h // kc.shape[1], d)
+    masked = ~valid[:, None, None, :]
+    s = (torch.einsum("bkrd,bksd->bkrs", qg, kc) / math.sqrt(d)).masked_fill(
+        masked, -math.inf)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None]).masked_fill(masked, 0.0)
+    return torch.einsum("bkrs,bksd->bkrd", p, vc), p.sum(-1), m
+
+
 class CheckedK2:
-    """K2 on the inputs the model gives it, each call held against the
-    plain version on the same inputs with phase k2's tolerances (m relative
-    to max(1, |m|)): a dropped page or a wrong scale fails on the call that
-    makes it."""
+    """K2 on the inputs the model gives it, each call held with phase k2's
+    tolerances (m relative to max(1, |m|)) against the plain version's
+    formula evaluated in float64 on the same inputs: a dropped page or a
+    wrong scale fails on the call that makes it.  The exact reference and
+    not the float32 plain version, because at the d-128 models' scores
+    (up to about 600 with random weights) the plain version's own f32
+    rounding reaches 2.3e-3 of llama3.2-3b's output, K2's 5.8e-4; its
+    distance to the plain version is kept as ``plain_out_err``."""
 
     def __init__(self, K2):
         self.K2 = K2
         self.calls, self.m_err, self.out_err = 0, 0.0, 0.0
+        self.plain_out_err = 0.0
 
     def __call__(self, q, k, v, tables, valid, ks=None, vs=None, *,
                  return_partials=False):
         assert return_partials, "the model folds in the current token"
         got = self.K2.paged_flash_decode(q, k, v, tables, valid, ks, vs,
                                          return_partials=True)
-        want = self.K2.paged_decode_plain(q, k, v, tables, valid, ks, vs,
-                                          return_partials=True)
+        want = paged_decode_exact(q, k, v, tables, valid, ks, vs)
         m_err, o_err = partial_errors(got, want, valid, m_relative=True)
         if not (m_err <= K2_M_TOL and o_err <= K2_OUT_TOL):
             raise AssertionError(f"K2 in the model, call {self.calls}: "
                                  f"relative m err {m_err}, output err "
                                  f"{o_err}")
+        plain = self.K2.paged_decode_plain(q, k, v, tables, valid, ks, vs,
+                                           return_partials=True)
         self.calls += 1
         self.m_err = max(self.m_err, m_err)
         self.out_err = max(self.out_err, o_err)
+        self.plain_out_err = max(self.plain_out_err,
+                                 partial_errors(got, plain, valid)[1])
         return got
 
 
@@ -1915,7 +1956,8 @@ def dense_path(torch, model, params, prompt, feed, exact_argmax):
 def paged_within_floor(torch, model, params, prompt, feed):
     """The bf16 paged decode of phase model: the prompt prefilled and the
     fed tokens decoded through K2 (every call held against the plain
-    version on its own inputs, ``CheckedK2``) and through the plain paged
+    version's formula in float64 on its own inputs, ``CheckedK2``) and
+    through the plain paged
     attention, the logits of K2 held to a floor measured in the same run
     (below).  Returns the record of it."""
     from repro_torch.kernels import flash_attention as K7
@@ -1948,7 +1990,9 @@ def paged_within_floor(torch, model, params, prompt, feed):
                              f"paged logits {k2[t]} > {bound[t]} "
                              f"(reordering spread {max(floor[:t + 1])})")
     return dict(k2_calls=checked.calls, k2_m_rel_err=checked.m_err,
-                k2_out_err=checked.out_err, max_logit_diff_per_step=k2,
+                k2_out_err=checked.out_err,
+                k2_plain_out_err=checked.plain_out_err,
+                max_logit_diff_per_step=k2,
                 reversed_plain_diff_per_step=rev,
                 einsum_prefill_diff_per_step=pre_spread,
                 max_abs_logit=scale, bound_per_step=bound)
@@ -1957,8 +2001,8 @@ def paged_within_floor(torch, model, params, prompt, feed):
 def phase_model(torch, reduced: bool = False):
     """Full-width smollm-360m, teacher-forced: K2 against the plain paged
     attention, in bf16 (as served) and with the same weights in float32.
-    Every K2 call is also held against the plain version on its own
-    inputs (``CheckedK2``).  Then the dense path: the prompt through K7,
+    Every K2 call is also held against the plain version's formula in
+    float64 on its own inputs (``CheckedK2``).  Then the dense path: the prompt through K7,
     the fed tokens through K6 on a dense cache, every call checked, against
     the plain versions (``dense_path``)."""
     import dataclasses
@@ -2004,6 +2048,7 @@ def phase_model(torch, reduced: bool = False):
                f32=dict(k2_calls=checked32.calls,
                         k2_m_rel_err=checked32.m_err,
                         k2_out_err=checked32.out_err,
+                       k2_plain_out_err=checked32.plain_out_err,
                         max_logit_diff_per_step=k2_32,
                         max_abs_logit=scale32, bound=bound32),
                dense=dict(bf16=dense, f32=dense32))
@@ -3506,62 +3551,6 @@ def phase_harvest_rwkv(torch, sched, n: int = 24, prompt_len: int = 16,
     return res
 
 
-def phase_rwkv_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
-    """The RWKV fleet in float32 through ``OrcaScheduler`` at a lambda*
-    between its scores (phase serve-spec-f32's machinery), served once
-    through K8 and once with the WKV scan on its plain version: every stop
-    step and every token equal."""
-    import dataclasses
-    from repro_torch.launch import serve
-    from repro_torch.models import build
-    from repro_torch.serving import OrcaScheduler, ServeConfig, make_request
-    cfg32 = dataclasses.replace(sched.model.cfg, dtype="float32")
-    model32 = build(cfg32)
-    params32 = _tree(sched.params, lambda t: t.float())
-    batch = serve.model_inputs(cfg32, torch.Generator().manual_seed(SEED + 1),
-                               requests, prompt_len)
-    base = dict(n_slots=4, tokens_per_step=8, max_new_tokens=96, burn_in=2)
-
-    def fleet(lam):
-        zero_launches()
-        t0 = time.perf_counter()
-        done, fl = OrcaScheduler(model32, params32, sched.pc, sched.theta,
-                                 ServeConfig(lam=lam, **base)).run(
-            [make_request(t) for t in batch["tokens"]])
-        sync(torch)
-        return done, fl, time.perf_counter() - t0, read_launches()
-
-    free, _, _, _ = fleet(2.0)
-    lam, margin = choose_lambda([r.scores for r in free], base["burn_in"])
-    if margin < 1e-4:
-        raise AssertionError(f"every threshold lies within {margin} of a "
-                             "score: the check would hang on a tie")
-    kern, kern_fl, kern_s, kern_l = fleet(lam)
-    with SwapWKV():
-        plain, plain_fl, plain_s, plain_l = fleet(lam)
-    stops = [r.stop_step for r in kern]
-    if [r.stop_step for r in plain] != stops:
-        raise AssertionError(f"f32 RWKV stops through the plain scan "
-                             f"{[r.stop_step for r in plain]} differ from "
-                             f"K8's {stops}")
-    if [r.tokens for r in plain] != [r.tokens for r in kern]:
-        raise AssertionError("f32 RWKV tokens through the plain scan differ "
-                             "from K8's")
-    if not kern_l["wkv_scan"] or plain_l["wkv_scan"]:
-        raise AssertionError(f"K8 launches: {kern_l['wkv_scan']} through "
-                             f"the kernel, {plain_l['wkv_scan']} plain")
-    res = dict(phase="serve-rwkv-f32", lam=lam, lambda_margin=margin,
-               stop_steps=stops, stopped=sum(s >= 0 for s in stops),
-               kernel=dict(engine_steps=kern_fl.engine_steps, wall_s=kern_s,
-                           tokens_per_s=kern_fl.tokens_per_s,
-                           k8_launches=kern_l["wkv_scan"]),
-               plain=dict(engine_steps=plain_fl.engine_steps,
-                          wall_s=plain_s,
-                          tokens_per_s=plain_fl.tokens_per_s))
-    emit(res)
-    return res
-
-
 # ---------------------------------------------------------------------------
 # the d-128 fleets: llama3.2-3b (G 3) and qwen1.5-32b (G 1, int8 KV)
 
@@ -3593,8 +3582,8 @@ def phase_model_wide(torch, arch, phase, steps: int = 8,
     on the card; qwen1.5-32b's KV in int8 pages as served): one prefill of
     16 tokens and ``steps`` teacher-forced paged decode steps through K2,
     its logits within the floor phase model measures
-    (``paged_within_floor``, every K2 call held against the plain version
-    too); then the dense path, the prompt through K7 and the fed tokens
+    (``paged_within_floor``, every K2 call held against the plain
+    version's formula in float64 too); then the dense path, the prompt through K7 and the fed tokens
     through K6 (qwen's int8 cache dequantised to bf16, K6 at G 1), every
     call held against the plain version (``dense_path``).  Reports the
     card's peak memory."""
@@ -3686,34 +3675,40 @@ class PlainAttention:
         return self.dense.__exit__(*exc)
 
 
-def phase_llama_f32_stops(torch, sched, layers: int = F32_LAYERS,
-                          prompt_len: int = 16):
-    """serve-llama's fleet in float32 at ``layers`` of its 28 layers (the
-    first ones of its weights; full width), through ``OrcaScheduler`` at a
-    lambda* between its scores (phase serve-spec-f32's machinery), served
-    once through the kernels (K1, K2 and K7 at d 128, G 3, f32) and once
-    with every attention kernel on its plain version: every stop step and
-    every token equal."""
+def f32_cut(sched, layers=None, **changes):
+    """The fleet's model and its weights in float32, cut to its first
+    ``layers`` layers (all by default; full width)."""
     import dataclasses
-    from repro_torch.launch import serve
     from repro_torch.models import build
-    from repro_torch.serving import OrcaScheduler, ServeConfig, make_request
-    layers = min(layers, sched.model.cfg.n_layers)
-    cfg32 = dataclasses.replace(sched.model.cfg, dtype="float32",
-                                kv_cache_dtype="float32", n_layers=layers)
-    model32 = build(cfg32)
-    params32 = {k: (_tree(v, lambda t: t[:layers].float()) if k == "layers"
-                    else _tree(v, lambda t: t.float()))
+    cfg = sched.model.cfg
+    layers = min(layers or cfg.n_layers, cfg.n_layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=layers,
+                                **changes)
+    params32 = {k: _tree(v, (lambda t: t[:layers].float()) if k == "layers"
+                         else (lambda t: t.float()))
                 for k, v in sched.params.items()}
-    batch = serve.model_inputs(cfg32, torch.Generator().manual_seed(SEED + 1),
-                               WIDE_REQUESTS, prompt_len)
-    base = dict(n_slots=4, paged=True, tokens_per_step=8,
-                max_new_tokens=WIDE_NEW, burn_in=2)
+    return build(cfg32), params32
+
+
+def f32_stops(torch, phase, model32, params32, pc, theta, swap, kernels, *,
+              requests, prompt_len, **serve_cfg):
+    """A float32 fleet through ``OrcaScheduler`` at a lambda* between its
+    scores (phase serve-spec-f32's machinery), served once through the
+    kernels and once within ``swap``, which puts each kernel named in
+    ``kernels`` on its plain version: every stop step and every token
+    equal, each of ``kernels`` launched in the first run and none in the
+    second.  ``serve_cfg``: the fleet's ``ServeConfig`` beyond lambda."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import OrcaScheduler, ServeConfig, make_request
+    batch = serve.model_inputs(model32.cfg,
+                               torch.Generator().manual_seed(SEED + 1),
+                               requests, prompt_len)
+    base = dict(n_slots=4, tokens_per_step=8, burn_in=2, **serve_cfg)
 
     def fleet(lam):
         zero_launches()
         t0 = time.perf_counter()
-        done, fl = OrcaScheduler(model32, params32, sched.pc, sched.theta,
+        done, fl = OrcaScheduler(model32, params32, pc, theta,
                                  ServeConfig(lam=lam, **base)).run(
             [make_request(t) for t in batch["tokens"]])
         sync(torch)
@@ -3722,34 +3717,59 @@ def phase_llama_f32_stops(torch, sched, layers: int = F32_LAYERS,
     free, _, _, _ = fleet(2.0)
     lam, margin = choose_lambda([r.scores for r in free], base["burn_in"])
     if margin < 1e-4:
-        raise AssertionError(f"every threshold lies within {margin} of a "
-                             "score: the check would hang on a tie")
+        raise AssertionError(f"{phase}: every threshold lies within "
+                             f"{margin} of a score: the check would hang on "
+                             "a tie")
     kern, kern_fl, kern_s, kern_l = fleet(lam)
-    with PlainAttention():
+    with swap:
         plain, plain_fl, plain_s, plain_l = fleet(lam)
     stops = [r.stop_step for r in kern]
     if [r.stop_step for r in plain] != stops:
-        raise AssertionError(f"f32 llama stops through the plain attention "
+        raise AssertionError(f"{phase}: stops through the plain versions "
                              f"{[r.stop_step for r in plain]} differ from "
                              f"the kernels' {stops}")
     if [r.tokens for r in plain] != [r.tokens for r in kern]:
-        raise AssertionError("f32 llama tokens through the plain attention "
+        raise AssertionError(f"{phase}: tokens through the plain versions "
                              "differ from the kernels'")
-    attn = ("paged_flash_decode", "flash_attention")
-    if not all(kern_l[k] for k in attn) or any(plain_l[k] for k in attn):
-        raise AssertionError(f"f32 llama launches: {kern_l} through the "
+    if not all(kern_l[k] for k in kernels) or any(plain_l[k]
+                                                  for k in kernels):
+        raise AssertionError(f"{phase} launches: {kern_l} through the "
                              f"kernels, {plain_l} plain")
-    res = dict(phase="serve-llama-f32", layers=layers, lam=lam,
+    res = dict(phase=phase, layers=model32.cfg.n_layers,
+               kv_cache=model32.cfg.kv_cache_dtype, requests=requests,
+               prompt=prompt_len, serve=serve_cfg, lam=lam,
                lambda_margin=margin, stop_steps=stops,
                stopped=sum(s >= 0 for s in stops),
                kernel=dict(engine_steps=kern_fl.engine_steps, wall_s=kern_s,
                            tokens_per_s=kern_fl.tokens_per_s,
+                           packed_chunks=kern_fl.packed_chunks,
                            launches=kern_l),
                plain=dict(engine_steps=plain_fl.engine_steps, wall_s=plain_s,
                           tokens_per_s=plain_fl.tokens_per_s,
                           launches=plain_l))
     emit(res)
     return res
+
+
+def phase_qwen_f32_stops(torch, pc, theta, layers: int = F32_LAYERS):
+    """serve-qwen's served path in float32 at ``layers`` of its 64 layers
+    (full width, weights drawn on the card: the bf16 fleet's are gone, two
+    copies do not fit), on int8 KV pages in 64-token chunks of 160-token
+    prompts, with serve-qwen's fitted probe: through K2 and K3 at G 1 on
+    int8 pages and their scale pools, and through the plain attention."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    cfg = dataclasses.replace(get_config(QWEN_ARCH), dtype="float32",
+                              n_layers=layers)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(SEED), DEV)
+    return f32_stops(torch, "serve-qwen-f32", model, params, pc, theta,
+                     PlainAttention(), ("paged_flash_decode",
+                                        "paged_flash_packed_chunk"),
+                     requests=WIDE_REQUESTS, prompt_len=QWEN_PROMPT,
+                     paged=True, chunk_tokens=CHUNK,
+                     max_new_tokens=WIDE_NEW)
 
 
 # ---------------------------------------------------------------------------
@@ -3818,16 +3838,25 @@ def main() -> int:
     served_r, out_r = phase_serve_rwkv(torch)
     phase_trace(torch, out_r.scheduler, phase="trace-rwkv")
     phase_harvest_rwkv(torch, out_r.scheduler)
-    phase_rwkv_stops(torch, out_r.scheduler)
+    sched = out_r.scheduler
+    f32_stops(torch, "serve-rwkv-f32", *f32_cut(sched), sched.pc,
+              sched.theta, SwapWKV(), ("wkv_scan",), requests=8,
+              prompt_len=16, max_new_tokens=96)
     # the d-128 fleets: qwen1.5-32b's weights take 65.6 GiB of the card, so
     # nothing of the earlier fleets stays on it
-    del out, out_d, out_c, out_s, out_st, out_r
+    del out, out_d, out_c, out_s, out_st, out_r, sched
     free_card(torch)
     llama_model = phase_model_wide(torch, LLAMA_ARCH, "model-llama")
     served_l, out_l = wide_fleet(torch, LLAMA_ARCH, "serve-llama")
     phase_trace(torch, out_l.scheduler, phase="trace-llama")
-    phase_llama_f32_stops(torch, out_l.scheduler)
-    del out_l
+    sched = out_l.scheduler
+    f32_stops(torch, "serve-llama-f32",
+              *f32_cut(sched, F32_LAYERS, kv_cache_dtype="float32"),
+              sched.pc, sched.theta, PlainAttention(),
+              ("paged_flash_decode", "flash_attention"),
+              requests=WIDE_REQUESTS, prompt_len=16, paged=True,
+              max_new_tokens=WIDE_NEW)
+    del out_l, sched
     free_card(torch)
     qwen_model = phase_model_wide(torch, QWEN_ARCH, "model-qwen")
     free_card(torch)
@@ -3839,7 +3868,10 @@ def main() -> int:
         raise AssertionError("the qwen fleet packed no chunk")
     phase_trace(torch, out_q.scheduler, prompt_len=QWEN_PROMPT,
                 phase="trace-qwen")
+    pc, theta = out_q.scheduler.pc, out_q.scheduler.theta
     del out_q
+    free_card(torch)
+    phase_qwen_f32_stops(torch, pc, theta)
     k2_main = k2[0]
     # absolute errors: phase k2's m and outputs, the model's outputs
     k2_err = max([max(r["m_err"], r["out_err"]) for r in k2]
@@ -3865,8 +3897,9 @@ def main() -> int:
                     source="src/repro_torch/csrc/paged_chunk.cu",
                     replaces=f"src/repro/kernels/decode_attention.py:{line}",
                     launches=launches, max_abs_err=err, ms=row["ms"],
-                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                    bound_by=row["bound_by"], library_ms=row["library_ms"])
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_tc_ms"],
+                    bound_by=row["bound_tc_by"],
+                    library_ms=row["library_ms"])
 
     def g_of(r):
         return r["H"] // r["KV"]
@@ -3880,12 +3913,17 @@ def main() -> int:
                    if r["d"] == 128 and g_of(r) == g)
 
     def d128_entry(name, source, replaces, launches, err, row):
+        # K3 and K7 run their products on the tensor cores: their bound
+        # prices them at the bf16 rate
+        tc = "bound_tc_ms" in row
         return dict(name=name, route="cuda",
                     source=f"src/repro_torch/csrc/{source}",
                     replaces=f"src/repro/kernels/{replaces}",
                     launches=launches, max_abs_err=err, ms=row["ms"],
-                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                    bound_by=row["bound_by"], library_ms=row["library_ms"])
+                    plain_ms=row["plain_ms"],
+                    bound_ms=row["bound_tc_ms" if tc else "bound_ms"],
+                    bound_by=row["bound_tc_by" if tc else "bound_by"],
+                    library_ms=row["library_ms"])
 
     k2_keys, k3_keys = ("m_err", "out_err"), ("m_err", "out_err",
                                                 "merged_err")
@@ -3995,8 +4033,8 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention.py:64",
              launches=served["launches"]["flash_attention"],
              max_abs_err=k7_err, ms=k7_main["ms"],
-             plain_ms=k7_main["plain_ms"], bound_ms=k7_main["bound_ms"],
-             bound_by=k7_main["bound_by"],
+             plain_ms=k7_main["plain_ms"], bound_ms=k7_main["bound_tc_ms"],
+             bound_by=k7_main["bound_tc_by"],
              library_ms=k7_main["library_ms"]),
         dict(name="wkv_scan", route="cuda",
              source="src/repro_torch/csrc/rwkv6_scan.cu",
