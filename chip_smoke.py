@@ -45,7 +45,10 @@ non-zero:
                carry bound_tc_ms (the products at the tensor cores' bf16
                rate) beside bound_ms; then d 128 at G 3 and G 1, bf16,
                int8 and f32: serve-qwen's chunk, 4 segments, B3 chunks,
-               4,000 positions split, holes
+               4,000 positions split, holes; then the tree verify shape
+               (4 slots x 10 nodes of a 3.3 tree, caches 37, 112, 200 and
+               64), bf16 and int8, d 64 and d 128 at G 3, the merge under
+               the ancestor mask, timed beside SDPA
 5. k4       -- the masked multi-token probe step against its plain version
                and against T masked K1 launches on copies of the same
                state, bit for bit in every case: B 1, 4, 8; T 1, 2, 4, 8;
@@ -138,6 +141,18 @@ non-zero:
                draft cache and with one primed by the one-token tokens
                (drafts accepted, several tokens per step, its first 16
                K4 calls held against the plain version)
+20b. serve-tree, trace-tree, tree-stops-f32 -- the serve fleet with
+               ``--spec-tree 3.3``: K4 once an engine step and K3 32 times
+               (once a layer), its first 16 K4 calls held against the
+               plain version, node and path stats, draft-cache hits, its
+               requests beside the one-token fleet's; a 16-step profiled
+               window; then in f32, paged and chunked (4 requests, 64-token
+               chunks) at a lambda* between the free fleet's scores: the
+               3.3 fleet with a primed draft cache stops and emits every
+               token as the one-token fleet does, with accepted paths
+               longer than the root, every K3 call and its first 16 K4
+               calls held against the plain versions; 1.3 equals
+               ``--spec-tokens 4`` step for step
 21. offline  -- the paper's procedure on the synthetic corpus at d_phi 960
                (``corpus_splits(500, 170, 170)``): ``orca.fit`` of the TTT
                probe (no-QK, QK d_h 128) and the static probe, then
@@ -186,7 +201,10 @@ non-zero:
 29. serve-llama, trace-llama -- ``launch.serve --arch llama3.2-3b
                --paged``: 4 requests on 4 slots, 48 new tokens, 8
                harvested trajectories; K1 at f 3072, K2, K6 (harvest, G 3)
-               and K7 counted exactly; a 16-step profiled window
+               and K7 counted exactly; a 16-step profiled window;
+               serve-llama-tree: ``--spec-tree 2.3`` on its weights and
+               probe (no second harvest), K4 once a step and K3 at d 128,
+               G 3 once a layer a step
 30. serve-llama-f32 -- the llama fleet in f32 at 4 of its 28 layers,
                through the kernels and through the plain attention: stops
                and tokens equal
@@ -205,9 +223,11 @@ non-zero:
                version, kernel / plain / library / bound ms; then one entry
                per d-128 instance on the new fleets' paths (K2, K6 and K7
                at G 3 from serve-llama, at G 1 from serve-qwen, K3 at G 1
-               int8 from serve-qwen) and K1 at f 3072; K3's and K7's
-               bound_ms is their rows' bound_tc_ms, the products priced at
-               the tensor cores' bf16 rate
+               int8 from serve-qwen) and K1 at f 3072; the tree path's
+               K3 (d 64 from serve-tree, d 128 G 3 from serve-llama-tree,
+               timed at phase k3's tree cases) and K4 (serve-tree); K3's
+               and K7's bound_ms is their rows' bound_tc_ms, the products
+               priced at the tensor cores' bf16 rate
 
 The line before the last is ``nvidia-smi``'s card name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -868,6 +888,14 @@ K3_D128_UNTIMED = [
     ("holes, split", 256, "bf16", [(40, 4000), (24, 1500)], True, LLAMA),
     ("split, last split empty", 64, "int8", [(64, 130)], False, QWEN),
 ]
+# K3 at the tree verify shape: 4 slots x 10 nodes (a 3.3 tree, serve-tree's
+# step), unequal cache prefixes, bf16 and int8 pages, at d 64 and at d 128
+# (G 3); K3 never sees the tree (each token reads its segment's prefix),
+# the merge folds the nodes' own keys under the ancestor mask
+K3_TREE = (3, 3)
+K3_TREE_CASES = [("tree 3.3", 16, dtype, [(10, 37), (10, 112), (10, 200),
+                                          (10, 64)], shape)
+                 for shape in (SMOLLM, LLAMA) for dtype in ("bf16", "int8")]
 # bf16 / int8 inputs upcast exactly; f32 sums in another order than the
 # plain one-shot softmax: K2's tolerances
 K3_M_TOL, K3_OUT_TOL = 1e-4, 2e-3
@@ -891,13 +919,15 @@ def _sdpa_ms(torch, timer, q4, k, v, ks, vs, tables, mask, dtype):
 
 
 def k3_b4_case(torch, timer, gen, name, nb, dtype, segs, C=64, R=4,
-               holes=False, timed=True, shape=None):
+               holes=False, timed=True, shape=None, tree=None):
     """One packed chunk of C tokens in R segments ((tokens, cached
     positions) each) through K3 and its plain version: errors, the merged
     output, times beside SDPA and the bounds.  ``holes`` drops about half
     of each segment's cached positions (not its first and last); ``shape``
     the (heads, KV heads, d_head, layers) of a served config (smollm-360m's
-    by default)."""
+    by default).  ``tree`` (W, D): each segment is a tree verify block of
+    1 + W*D nodes in the engine's BFS comb, and the merge folds the
+    chunk's own keys under the ancestor mask."""
     from repro_torch.kernels import paged_chunk as K3
     from repro_torch.models import attention as A
     H, KV, d, _ = shape or SMOLLM
@@ -929,7 +959,16 @@ def k3_b4_case(torch, timer, gen, name, nb, dtype, segs, C=64, R=4,
     sl = seg.long().cpu()
     tpos = torch.arange(C) - offsets[sl]
     vt = ((tpos >= 0) & (tpos < lengths[sl])).to(DEV)
-    mask = A.packed_chunk_mask(seg, vt)
+    anc = None
+    if tree is not None:
+        w, dep = tree
+        anc = torch.arange(C)
+        for i in range(len(segs)):
+            o = int(offsets[i])
+            for node in range(1, 1 + w * dep):
+                anc[o + node] = o + (node - w if node > w else 0)
+        anc = anc.to(DEV)
+    mask = A.packed_chunk_mask(seg, vt, anc)
     kn = torch.randn(C, KV, d, generator=gen).to(DEV)
     vn = torch.randn(C, KV, d, generator=gen).to(DEV)
     qg = q.reshape(C, KV, H // KV, d)
@@ -944,7 +983,9 @@ def k3_b4_case(torch, timer, gen, name, nb, dtype, segs, C=64, R=4,
                              f"err {m_err}, "
                              f"output err {o_err}, merged {merged_err}")
     row = dict(fn="B4", case=name, nb=nb, pages=dtype, C=C, R=R,
-               segments=segs, padding=C - n_tok, holes=holes, H=H, KV=KV,
+               segments=segs, padding=C - n_tok, holes=holes,
+               tree=None if tree is None else f"{tree[0]}.{tree[1]}", H=H,
+               KV=KV,
                d=d, bs=bs, split=K3.split_count(nb * bs, k.dtype),
                m_err=m_err, out_err=o_err, merged_err=merged_err)
     if not timed:
@@ -1008,7 +1049,7 @@ def k3_b3_case(torch, timer, gen, B, Cb, nb, dtype, cached, shape=None):
 
 def phase_k3(torch, timer):
     """smollm-360m's cases first (their draws as in every earlier run),
-    then the d-128 ones."""
+    then the d-128 ones, then the tree verify cases."""
     gen = torch.Generator().manual_seed(SEED + 3)
     rows = []
     for b4, b3, untimed in ((K3_B4_CASES, K3_B3_CASES, K3_B4_UNTIMED),
@@ -1027,6 +1068,10 @@ def phase_k3(torch, timer):
                                    holes=holes, timed=False,
                                    shape=shape[0] if shape else None))
             emit(dict(phase="k3", **rows[-1]))
+    for name, nb, dtype, segs, shape in K3_TREE_CASES:
+        rows.append(k3_b4_case(torch, timer, gen, name, nb, dtype, segs,
+                               C=40, shape=shape, tree=K3_TREE))
+        emit(dict(phase="k3", **rows[-1]))
     return rows
 
 
@@ -2652,11 +2697,15 @@ def first_divergence(torch, model, params, req, ref,
             names[1]: ref.tokens[j], "logit_margin": float(top[0] - top[1])}
 
 
-def phase_serve_spec(torch, base, extra_argv=(), *, phase="serve-spec"):
-    """The driver with ``--spec-tokens 4`` on ``base``'s fleet: K4 must
-    launch once per engine step (each is a verify step), the first 16 K4
-    calls are held against the plain version, and each request is held
-    against the one-token fleet ``base`` served (tokens and stops)."""
+def phase_serve_spec(torch, base, extra_argv=(), *, phase="serve-spec",
+                     spec=("--spec-tokens", "4"), k3_per_step=None):
+    """The driver with ``spec`` (``--spec-tokens 4``, or ``--spec-tree
+    W.D``) on ``base``'s fleet: K4 must launch once per engine step (each
+    is a verify step), and with ``k3_per_step`` K3 that many times a step
+    (once a layer: a fleet with no chunk verifies every step through K3
+    and nothing else); the first 16 K4 calls are held against the plain
+    version, and each request is held against the one-token fleet
+    ``base`` served (tokens and stops)."""
     from repro_torch.kernels import probe_spec as K4
     from repro_torch.serving import engine as E
     checked = CheckedK4(K4, limit=16)
@@ -2664,7 +2713,7 @@ def phase_serve_spec(torch, base, extra_argv=(), *, phase="serve-spec"):
     E.serving_probe_spec_step = checked
     try:
         res, out = serve_fleet(
-            torch, ("--spec-tokens", "4", *extra_argv), phase=phase,
+            torch, (*spec, *extra_argv), phase=phase,
             requests=len(base.requests),
             need=("serving_probe_spec_step", "paged_flash_packed_chunk"))
     finally:
@@ -2674,6 +2723,11 @@ def phase_serve_spec(torch, base, extra_argv=(), *, phase="serve-spec"):
     if k4 != fleet.engine_steps:
         raise AssertionError(f"K4 launched {k4} times in "
                              f"{fleet.engine_steps} spec steps")
+    k3 = res["launches"]["paged_flash_packed_chunk"]
+    if k3_per_step is not None and k3 != k3_per_step * fleet.engine_steps:
+        raise AssertionError(f"K3 launched {k3} times in "
+                             f"{fleet.engine_steps} steps, not "
+                             f"{k3_per_step} a step")
     agree = [r.tokens == b.tokens and r.stop_step == b.stop_step
              for r, b in zip(out.requests, base.requests)]
     bad = [(r, b) for r, b in zip(out.requests, base.requests)
@@ -2697,6 +2751,11 @@ def phase_serve_spec(torch, base, extra_argv=(), *, phase="serve-spec"):
         first_divergence=(first_divergence(torch, out.scheduler.model,
                                            out.scheduler.params, *bad[0])
                           if bad else None))
+    if out.scheduler.spec_tree:
+        res.update(tree=out.scheduler.spec_tree,
+                   tree_nodes_proposed=fleet.tree_nodes_proposed,
+                   tree_path_accepted_p50=fleet.tree_path_accepted_p50,
+                   tree_path_accepted_p99=fleet.tree_path_accepted_p99)
     emit(res)
     return res, out
 
@@ -2818,6 +2877,213 @@ def phase_spec_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
                                                      checked.limit),
                                 k4_checked_max_accept=checked.max_accept,
                                 k4_checked_err=checked.err))
+    emit(res)
+    return res
+
+
+def recorded_fleet(sched, requests):
+    """Serve ``requests`` through ``sched``, recording every engine step's
+    view: (done, fleet, views)."""
+    sched.prepare(requests)
+    views, served = [], sched.engine.step
+
+    def step(*args, **kw):
+        views.append(served(*args, **kw))
+        return views[-1]
+    sched.engine.step = step
+    done, fl = sched.run(requests)
+    return done, fl, views
+
+
+def same_steps(a_views, b_views) -> bool:
+    """Two fleets' engine steps commit alike: per step, the next tokens,
+    the stop state, the scores and every slot's committed sequence with
+    its scores (its first ``gen`` entries), bit for bit."""
+    import numpy as np
+    if len(a_views) != len(b_views):
+        return False
+    for a, b in zip(a_views, b_views):
+        for fld in ("tokens", "stopped", "stop_step", "n_scores", "smoothed",
+                    "gen"):
+            if not np.array_equal(getattr(a, fld), getattr(b, fld)):
+                return False
+        for slot, g in enumerate(a.gen):
+            for fld in ("seq", "seq_scores", "seq_n"):
+                if not np.array_equal(getattr(a, fld)[slot, :g],
+                                      getattr(b, fld)[slot, :g]):
+                    return False
+    return True
+
+
+def phase_tree_stops(torch, sched, requests: int = 4, prompt_len: int = 16):
+    """``phase_spec_stops`` for tree speculative decode, in float32 on the
+    serve-tree fleet's weights and calibrated probe, paged and chunked
+    (64-token chunks): a free one-token fleet with nothing stopping, then
+    lambda* between its scores.  At lambda*, with a draft cache primed by
+    the free fleet's tokens (so drafts are accepted): the 3.3 fleet's
+    every stop step and token equal the one-token fleet's, some accepted
+    path is longer than the root, every K3 call is held against its plain
+    version and the first 16 K4 calls against theirs; and ``1.3`` equals
+    ``--spec-tokens 4`` step for step (each fleet with its own primed
+    cache)."""
+    import dataclasses
+    from repro_torch.kernels import paged_chunk as K3
+    from repro_torch.kernels import probe_spec as K4
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as A
+    from repro_torch.models import build
+    from repro_torch.serving import (DraftCache, OrcaScheduler, ServeConfig,
+                                     make_request)
+    from repro_torch.serving import engine as E
+    cfg32 = dataclasses.replace(sched.model.cfg, dtype="float32",
+                                kv_cache_dtype="float32")
+    model32 = build(cfg32)
+    params32 = _tree(sched.params, lambda t: t.float())
+    batch = serve.model_inputs(cfg32, torch.Generator().manual_seed(SEED + 1),
+                               requests, prompt_len)
+    base = dict(n_slots=4, paged=True, chunk_tokens=CHUNK, tokens_per_step=8,
+                max_new_tokens=96, burn_in=2)
+
+    def scheduler(lam, cache=None, **spec):
+        return OrcaScheduler(model32, params32, sched.pc, sched.theta,
+                             ServeConfig(lam=lam, **base, **spec),
+                             draft_cache=cache)
+
+    def reqs():
+        return [make_request(t) for t in batch["tokens"]]
+
+    def fleet(lam, cache=None, **spec):
+        zero_launches()
+        t0 = time.perf_counter()
+        done, fl = scheduler(lam, cache, **spec).run(reqs())
+        sync(torch)
+        return done, fl, time.perf_counter() - t0, read_launches()
+
+    free, _, _, _ = fleet(2.0)
+    lam, margin = choose_lambda([r.scores for r in free], base["burn_in"])
+    if margin < 1e-4:
+        raise AssertionError(f"every threshold lies within {margin} of a "
+                             "score: the check would hang on a tie")
+
+    def primed():
+        cache = DraftCache()
+        for r in free:
+            cache.observe(r.inputs["tokens"][0].tolist(), r.tokens)
+        return cache
+
+    one, one_fl, one_s, _ = fleet(lam)
+    k4 = CheckedK4(K4, limit=16)
+    k3 = CheckedK3(K3.paged_flash_packed_chunk, K3.paged_packed_chunk_plain)
+    served = E.serving_probe_spec_step, A.paged_flash_packed_chunk
+    E.serving_probe_spec_step, A.paged_flash_packed_chunk = k4, k3
+    try:
+        tree, tree_fl, tree_s, tree_l = fleet(lam, primed(), spec_tree="3.3")
+    finally:
+        E.serving_probe_spec_step, A.paged_flash_packed_chunk = served
+    stops = [r.stop_step for r in one]
+    if [r.stop_step for r in tree] != stops:
+        raise AssertionError(f"f32 tree stops {[r.stop_step for r in tree]} "
+                             f"differ from one-token stops {stops}")
+    if [r.tokens for r in tree] != [r.tokens for r in one]:
+        raise AssertionError("f32 tree tokens differ from one-token tokens")
+    longest = max(g for r in tree for g in r.tree_path_lens)
+    if longest < 2 or k4.max_accept < 2:
+        raise AssertionError(f"the primed tree accepted no path past the "
+                             f"root: longest {longest}, longest checked K4 "
+                             f"chain {k4.max_accept}")
+    if tree_l["serving_probe_spec_step"] != tree_fl.engine_steps \
+            or k3.calls != tree_l["paged_flash_packed_chunk"] \
+            or not tree_fl.packed_chunks:
+        raise AssertionError(f"tree fleet launches {tree_l} in "
+                             f"{tree_fl.engine_steps} steps, {k3.calls} K3 "
+                             f"calls checked, {tree_fl.packed_chunks} "
+                             "packed chunks")
+    lin, lin_fl, lin_views = recorded_fleet(
+        scheduler(lam, primed(), spec_tokens=4), reqs())
+    w1, w1_fl, w1_views = recorded_fleet(
+        scheduler(lam, primed(), spec_tree="1.3"), reqs())
+    if not same_steps(lin_views, w1_views):
+        raise AssertionError(f"1.3 ({w1_fl.engine_steps} steps) and "
+                             f"spec_tokens 4 ({lin_fl.engine_steps}) differ")
+    if [r.tokens for r in w1] != [r.tokens for r in one] \
+            or [r.stop_step for r in w1] != stops:
+        raise AssertionError("f32 1.3 tokens or stops differ from "
+                             "one-token decode")
+    res = dict(phase="tree-stops-f32", requests=requests, lam=lam,
+               lambda_margin=margin, stop_steps=stops,
+               stopped=sum(s >= 0 for s in stops),
+               one_token=dict(engine_steps=one_fl.engine_steps, wall_s=one_s,
+                              tokens_per_s=one_fl.tokens_per_s),
+               tree_primed=dict(
+                   tree="3.3", engine_steps=tree_fl.engine_steps,
+                   wall_s=tree_s, tokens_per_s=tree_fl.tokens_per_s,
+                   nodes_proposed=tree_fl.tree_nodes_proposed,
+                   path_p50=tree_fl.tree_path_accepted_p50,
+                   path_p99=tree_fl.tree_path_accepted_p99,
+                   longest_path=longest,
+                   packed_chunks=tree_fl.packed_chunks,
+                   draft_cache_hits=tree_fl.draft_cache_hits,
+                   draft_cache_misses=tree_fl.draft_cache_misses,
+                   launches=tree_l, k3_checked_calls=k3.calls,
+                   k3_m_rel_err=k3.m_err, k3_out_err=k3.out_err,
+                   k4_checked_calls=min(k4.calls, k4.limit),
+                   k4_checked_max_accept=k4.max_accept,
+                   k4_checked_err=k4.err),
+               width_one=dict(engine_steps=w1_fl.engine_steps,
+                              linear_engine_steps=lin_fl.engine_steps,
+                              steps_equal=True,
+                              drafts_accepted=w1_fl.spec_tokens_accepted))
+    emit(res)
+    return res
+
+
+def phase_llama_tree(torch, served, out, tree: str = "2.3"):
+    """``--spec-tree 2.3`` on serve-llama's weights and calibrated probe,
+    through ``OrcaScheduler`` (no second harvest): serve-llama's requests
+    and fleet shape; K4 once a step and K3 (d 128, G 3) once a layer a
+    step; the requests beside serve-llama's one-token ones (printed)."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import OrcaScheduler, ServeConfig, make_request
+    sched = out.scheduler
+    cfg = sched.model.cfg
+    batch = serve.model_inputs(cfg, torch.Generator().manual_seed(SEED + 1),
+                               WIDE_REQUESTS, 16)
+    zero_launches()
+    t0 = time.perf_counter()
+    done, fl = OrcaScheduler(
+        sched.model, sched.params, sched.pc, sched.theta,
+        ServeConfig(lam=out.lam, n_slots=4, paged=True, tokens_per_step=8,
+                    max_new_tokens=WIDE_NEW, burn_in=2, spec_tree=tree)).run(
+        [make_request(t) for t in batch["tokens"]])
+    sync(torch)
+    wall = time.perf_counter() - t0
+    lc = read_launches()
+    want = dict(serving_probe_spec_step=fl.engine_steps,
+                paged_flash_packed_chunk=cfg.n_layers * fl.engine_steps)
+    got = {k: lc[k] for k in want}
+    if got != want:
+        raise AssertionError(f"serve-llama-tree launches {got}, expected "
+                             f"{want}")
+    agree = [r.tokens == b.tokens and r.stop_step == b.stop_step
+             for r, b in zip(done, out.requests)]
+    res = dict(phase="serve-llama-tree", arch=cfg.name, tree=tree,
+               layers=cfg.n_layers, d_head=cfg.d_head,
+               G=cfg.n_heads // cfg.n_kv_heads, lam=out.lam,
+               states=[r.state.value for r in done],
+               stop_steps=[r.stop_step for r in done],
+               tokens=[len(r.tokens) for r in done],
+               engine_steps=fl.engine_steps, wall_s=wall,
+               step_ms=fl.wall_time_s / fl.engine_steps * 1e3,
+               tokens_per_s=fl.tokens_per_s,
+               nodes_proposed=fl.tree_nodes_proposed,
+               path_p50=fl.tree_path_accepted_p50,
+               path_p99=fl.tree_path_accepted_p99,
+               draft_cache_hits=fl.draft_cache_hits,
+               draft_cache_misses=fl.draft_cache_misses,
+               one_token=dict(engine_steps=served["engine_steps"],
+                              step_ms=served["step_ms"]),
+               agree_with_one_token=f"{sum(agree)}/{len(agree)}",
+               launches=lc)
     emit(res)
     return res
 
@@ -3828,6 +4094,12 @@ def main() -> int:
                                     "--prompt-len", "160"),
                      phase="serve-spec-chunked")
     spec_f32 = phase_spec_stops(torch, out_s.scheduler)
+    tree, out_t = phase_serve_spec(torch, out, phase="serve-tree",
+                                   spec=("--spec-tree", "3.3"),
+                                   k3_per_step=out.scheduler.model.cfg
+                                   .n_layers)
+    phase_trace(torch, out_t.scheduler, phase="trace-tree")
+    tree_f32 = phase_tree_stops(torch, out_t.scheduler)
     offline = phase_offline(torch, splits)
     _, out_st = phase_serve(
         torch, ("--static-baseline",), phase="serve-static", requests=4,
@@ -3844,11 +4116,12 @@ def main() -> int:
               prompt_len=16, max_new_tokens=96)
     # the d-128 fleets: qwen1.5-32b's weights take 65.6 GiB of the card, so
     # nothing of the earlier fleets stays on it
-    del out, out_d, out_c, out_s, out_st, out_r, sched
+    del out, out_d, out_c, out_s, out_t, out_st, out_r, sched
     free_card(torch)
     llama_model = phase_model_wide(torch, LLAMA_ARCH, "model-llama")
     served_l, out_l = wide_fleet(torch, LLAMA_ARCH, "serve-llama")
     phase_trace(torch, out_l.scheduler, phase="trace-llama")
+    llama_tree = phase_llama_tree(torch, served_l, out_l)
     sched = out_l.scheduler
     f32_stops(torch, "serve-llama-f32",
               *f32_cut(sched, F32_LAYERS, kv_cache_dtype="float32"),
@@ -3963,6 +4236,26 @@ def main() -> int:
         served_q["launches"]["paged_flash_packed_chunk"],
         d128_err([r for r in k3 if r["fn"] == "B4"], 1, k3_keys),
         pick(k3, fn="B4", d=128, H=40, pages="int8", case="served")))
+    # the tree verify's K3: serve-tree's (d 64) and serve-llama-tree's
+    # (d 128, G 3: that instance's first launches in a fleet), timed at
+    # phase k3's tree cases
+    tree_rows = [r for r in k3 if r.get("tree")]
+    for d, fleet_res in ((64, tree), (128, llama_tree)):
+        d128_rows.append(k3_entry(
+            f"paged_flash_packed_chunk (tree verify, d {d}, G 3, bf16)", 298,
+            fleet_res["launches"]["paged_flash_packed_chunk"],
+            max(max(r[k] for k in k3_keys) for r in tree_rows
+                if r["d"] == d),
+            pick(tree_rows, d=d, pages="bf16")))
+    d128_rows.append(dict(
+        name="serving_probe_spec_step (tree 3.3)", route="cuda",
+        source="src/repro_torch/csrc/probe_spec.cu",
+        replaces="src/repro/kernels/ttt_probe.py:304",
+        launches=tree["launches"]["serving_probe_spec_step"],
+        max_abs_err=max(k4["max_abs_err"], tree["k4_checked_err"],
+                        tree_f32["tree_primed"]["k4_checked_err"]),
+        ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+        bound_by=k4["bound_by"], library_ms=None))
     llama_k1 = pick(k1["llama_width"], view="distinct")
     d128_rows.append(dict(
         name=f"serving_probe_step (f {LLAMA_PROBE_F})", route="cuda",

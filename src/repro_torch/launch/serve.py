@@ -13,7 +13,10 @@ chunks through the unified token-budget step, packed across up to
 ``--pack-max`` requests.  ``--spec-tokens k`` serves linear speculative
 draft-verify decode: each running slot proposes up to k tokens a step,
 drafted by the shared n-gram draft cache (``--draft-cache`` keys) and the
-model's self-draft, verified in one packed pass.  ``--device cpu`` runs
+model's self-draft, verified in one packed pass; ``--spec-tree W.D``
+serves tree speculative decode: W draft chains of depth D a slot, verified
+in one packed pass under per-token ancestor masks, the longest accepted
+root path committed.  ``--device cpu`` runs
 the plain PyTorch versions of the kernels (use ``--reduced`` there).
 """
 from __future__ import annotations
@@ -119,8 +122,11 @@ def serve(argv=None) -> ServeResult:
                          "verify pass; accepted prefix commits, rejects "
                          "roll back (0 = one-token decode)")
     ap.add_argument("--spec-tree", default="",
-                    help="tree speculative decode as 'W.D' (not ported: "
-                         "raises; ROADMAP A1b)")
+                    help="tree speculative decode as 'W.D': each running "
+                         "slot proposes W branches x D tokens verified in "
+                         "one pass under per-token ancestor masks; the "
+                         "longest accepted root-to-leaf path commits "
+                         "(exclusive with --spec-tokens; '' = off)")
     ap.add_argument("--draft-cache", type=int, default=4096,
                     help="capacity (n-gram keys) of the fleet-wide shared "
                          "draft cache that feeds speculation from "
@@ -177,12 +183,17 @@ def serve(argv=None) -> ServeResult:
               f"(x{args.block_size} tokens), peak in use "
               f"{fleet.peak_blocks_in_use}, prefill skips "
               f"{fleet.prefill_skips}")
-    if args.spec_tokens:
+    if args.spec_tokens or args.spec_tree:
         print(f"[serve] speculative: {fleet.spec_tokens_accepted}/"
               f"{fleet.spec_tokens_proposed} drafts accepted "
               f"(rate {fleet.acceptance_rate:.2f}), accepted length "
               f"p50/p99 {fleet.accepted_len_p50:.1f}/"
               f"{fleet.accepted_len_p99:.1f}")
+        if args.spec_tree:
+            print(f"[serve] tree: {fleet.tree_nodes_proposed} nodes "
+                  f"proposed, accepted path length p50/p99 "
+                  f"{fleet.tree_path_accepted_p50:.1f}/"
+                  f"{fleet.tree_path_accepted_p99:.1f}")
         if fleet.draft_cache_hits or fleet.draft_cache_misses:
             print(f"[serve] draft cache: {fleet.draft_cache_hits} hits / "
                   f"{fleet.draft_cache_misses} misses "

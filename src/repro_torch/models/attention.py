@@ -415,17 +415,37 @@ def attn_prefill_chunk(q, k_new, v_new, cache_l: Dict[str, torch.Tensor],
     return out.permute(0, 3, 1, 2, 4).reshape(b, c, h, d).to(dtype)
 
 
-def packed_chunk_mask(seg: torch.Tensor, valid_tok: torch.Tensor
+def packed_chunk_mask(seg: torch.Tensor, valid_tok: torch.Tensor,
+                      ancestors: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
-    """Block-diagonal causal mask for a PACKED chunk's own keys: token i
-    may attend chunk token j iff both belong to the same segment, j does
-    not follow i (segments are laid out contiguously, so this is
-    per-request causality) and j is a real token.  seg (C,), valid_tok
-    (C,) -> (C, C).  (The tree form, with ancestors, comes with tree
-    decode.)"""
-    i = torch.arange(seg.shape[0], device=seg.device)
-    return ((seg[:, None] == seg[None, :]) & valid_tok[None, :]
-            & (i[None, :] <= i[:, None]))
+    """Block-diagonal mask for a PACKED chunk's own keys.
+
+    Without ``ancestors`` (chunked prefill, linear verify): token i may
+    attend chunk token j iff both belong to the same segment, j does not
+    follow i (segments are laid out contiguously, so this is per-request
+    causality) and j is a real token.
+
+    With ``ancestors`` (C,), per-token parent pointers into the chunk with
+    roots pointing at THEMSELVES (tree speculative decode), token i may
+    attend chunk token j iff j lies on i's root path (i, its parent, its
+    parent's parent, ...).  The closure runs on the device by pointer
+    doubling: after step s, ``reach`` holds every ancestor at a distance
+    below 2**s and ``jump`` the ancestor at 2**s, so ceil(log2 C) steps
+    cover every path (a path of distinct nodes is shorter than C) — the
+    set of JAX's C-step walk for any parent array.  The width-one tree
+    (ancestors[i] = i - 1 within a segment) gives the causal chain mask bit
+    for bit.  seg (C,), valid_tok (C,) -> (C, C)."""
+    c = seg.shape[0]
+    i = torch.arange(c, device=seg.device)
+    base = (seg[:, None] == seg[None, :]) & valid_tok[None, :]
+    if ancestors is None:
+        return base & (i[None, :] <= i[:, None])
+    jump = ancestors.long()
+    reach = i[:, None] == i[None, :]
+    for _ in range(max(c - 1, 0).bit_length()):
+        reach = reach | reach[jump]
+        jump = jump[jump]
+    return base & reach
 
 
 def _merge_packed_block(qg, o, l, m, k_new, v_new, mask):

@@ -16,12 +16,19 @@ package's:
     verify_packed(cfg, params, tokens, state, seg, slots, starts, lengths,
                   block_rows=None) -> (logits, hidden, state)
     draft(cfg, params, state, token, pos, k) -> (B, k - 1) drafts
+    verify_tree(cfg, params, tokens, state, seg, slots, starts, lengths,
+                depths, ancestors, block_rows=None) -> (logits, hidden,
+                                                        ks, vs)
+    commit_kv(cfg, state, ks, vs, slots, seg, positions, valid,
+              block_rows=None) -> state
+    draft_tree(cfg, params, state, token, pos, width, depth)
+        -> (B, width, depth) drafts
 
 The dense family and RWKV6 (``ssm``) are ported; the others raise.
 RWKV6 has no page layout, no chunked or packed prefill and no speculative
-decode, as in the JAX package: the serving layer falls back to a dense
-state and admission-time prefill for it.  Tree speculative decode
-(``verify_tree``, ``commit_kv``, ``draft_tree``) comes with ROADMAP A1b.
+decode, linear or tree, as in the JAX package: the serving layer falls
+back to a dense state, admission-time prefill and one-token decode for
+it.
 """
 from __future__ import annotations
 
@@ -64,6 +71,19 @@ class Model:
     # draft source for speculative decode: (cfg, params, state, token (B,),
     # pos (B,), k) -> (B, k - 1) int32 proposed continuations
     draft: Optional[Callable] = None
+    # TREE speculative verify: the packed verify pass over a candidate
+    # token tree -> (logits (C, vocab), hidden (C, d), ks, vs); the cache
+    # write is DEFERRED (same-depth siblings share a position), the engine
+    # commits only the accepted root-to-leaf path through ``commit_kv``
+    verify_tree: Optional[Callable] = None
+    # lands a deferred verify chunk's K/V where ``valid`` (the accepted
+    # path): (cfg, state, ks, vs, slots, seg, positions (C,), valid (C,),
+    # block_rows=None) -> state
+    commit_kv: Optional[Callable] = None
+    # tree draft source, the device-side fallback where the shared draft
+    # cache misses: (cfg, params, state, token (B,), pos (B,), width,
+    # depth) -> (B, width, depth) int32
+    draft_tree: Optional[Callable] = None
     # True when ``draft`` is the degenerate repeat-last-token self-draft:
     # the signal for the serving layer to put the fleet-wide shared draft
     # cache in front of it
@@ -82,6 +102,11 @@ class Model:
     def supports_spec(self) -> bool:
         return (self.verify_packed is not None and self.draft is not None
                 and self.supports_chunked)
+
+    @property
+    def supports_tree(self) -> bool:
+        return (self.verify_tree is not None and self.draft_tree is not None
+                and self.commit_kv is not None and self.supports_spec)
 
     def init(self, generator: Optional[torch.Generator] = None,
              device=None):
@@ -113,7 +138,10 @@ def _build_dense(cfg: ModelConfig) -> Model:
                  prefill_chunk=transformer.prefill_chunk,
                  prefill_packed=transformer.prefill_packed_chunk,
                  verify_packed=transformer.verify_packed_chunk,
-                 draft=transformer.draft_tokens, self_draft=True)
+                 draft=transformer.draft_tokens,
+                 verify_tree=transformer.verify_packed_tree,
+                 commit_kv=transformer.commit_packed_kv,
+                 draft_tree=transformer.draft_tree_tokens, self_draft=True)
 
 
 def _build_rwkv(cfg: ModelConfig) -> Model:

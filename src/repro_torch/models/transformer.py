@@ -302,23 +302,30 @@ def layer_prefill_packed(cfg, p, x, cache_l, rows, seg_tables, positions,
 
 
 def _packed_chunk_core(cfg, params, tokens, state, seg, slots, starts,
-                       lengths, block_rows=None):
-    """Run one fused C-token packed chunk through the stack and scatter
-    each token's K/V into its own request's resident cache, in place.
-    Segments are causal CHAINS at positions starts[r] + 0..len-1: a prompt
-    chunk, or a speculative verify block (the tree form and the deferred
-    write come with tree decode).  Returns ``(state, x, ks, vs)`` with x
-    (1, C, d) the post-stack activations and ks/vs (L, KV, C, dh) the
-    chunk's own K/V."""
+                       lengths, block_rows=None, *, depths=None,
+                       ancestors=None, write: bool = True):
+    """Run one fused C-token packed chunk through the stack and (``write``)
+    scatter each token's K/V into its own request's resident cache, in
+    place.  Returns ``(state, x, ks, vs)`` with x (1, C, d) the post-stack
+    activations and ks/vs (L, KV, C, dh) the chunk's own K/V.
+
+    A segment is a causal CHAIN at positions starts[r] + 0..len-1 (a
+    prompt chunk, a linear verify block).  ``depths``/``ancestors`` (C,)
+    make it a candidate TREE (tree verify): a token's position becomes
+    starts[seg] + depths and the chunk mask follows the ancestor closure.
+    ``write=False`` leaves the cache untouched (same-depth siblings share
+    a position, so only the accepted path may land, through
+    ``commit_packed_kv``); chunk tokens never read the cache for each
+    other, so the forward does not depend on the write."""
     c = tokens.shape[0]
     seg = seg.to(torch.int32)
     segl = seg.long()
     offsets = torch.cumsum(lengths, 0) - lengths         # exclusive prefix
     off = torch.arange(c, device=tokens.device) - offsets[segl]
     valid_tok = (off >= 0) & (off < lengths[segl])
-    positions = starts[segl] + off                       # (C,)
+    positions = starts[segl] + (off if depths is None else depths)   # (C,)
     rows = slots[segl]                                   # (C,)
-    chunk_mask = attn.packed_chunk_mask(seg, valid_tok)
+    chunk_mask = attn.packed_chunk_mask(seg, valid_tok, ancestors)
     x = embed_tokens(cfg, params, tokens[None])          # (1, C, d)
     paged = "block_tables" in state
     if paged:
@@ -337,13 +344,9 @@ def _packed_chunk_core(cfg, params, tokens, state, seg, slots, starts,
         ks.append(k)
         vs.append(v)
     ks, vs = torch.stack(ks), torch.stack(vs)           # (L, KV, C, dh)
-    if paged:
-        attn.cache_write_packed_paged(pools, ks, vs, seg_tables[segl],
-                                      positions, valid_tok)
-    else:
-        wpos = torch.where(valid_tok, positions,
-                           torch.full_like(positions, state["k"].shape[3]))
-        attn.cache_write_packed(state, ks, vs, rows, wpos)
+    if write:
+        commit_packed_kv(cfg, state, ks, vs, slots, seg, positions,
+                         valid_tok, block_rows)
     return state, x, ks, vs
 
 
@@ -390,6 +393,63 @@ def verify_packed_chunk(cfg, params, tokens, state, seg, slots, starts,
                                         block_rows=block_rows)
     h = apply_norm(cfg, params["final_norm"], x)[0]        # (C, d)
     return logits_from_hidden(cfg, params, h), h, state
+
+
+@torch.no_grad()
+def verify_packed_tree(cfg, params, tokens, state, seg, slots, starts,
+                       lengths, depths, ancestors, block_rows=None):
+    """TREE speculative verify: the packed verify pass where each segment
+    carries a candidate token TREE instead of a chain.  The layout is the
+    packed chunk's; ``depths`` (C,) places each token at starts[r] +
+    depth (same-depth siblings SHARE a position, as the committed sequence
+    would) and ``ancestors`` (C,), parent pointers into the chunk (roots
+    self-pointing), makes each token attend its own root path.  Position j
+    scores the model's next token after consuming node j's root path.
+
+    The cache write is DEFERRED: siblings would race on one (lane,
+    position) and a rejected sibling could shadow the accepted token, so
+    nothing lands here; the caller commits only the accepted root-to-leaf
+    path through ``commit_packed_kv``.  Returns (logits (C, vocab), hidden
+    (C, d), ks, vs) with ks/vs (L, KV, C, dh) the chunk's K/V."""
+    _, x, ks, vs = _packed_chunk_core(cfg, params, tokens, state, seg,
+                                      slots, starts, lengths, block_rows,
+                                      depths=depths, ancestors=ancestors,
+                                      write=False)
+    h = apply_norm(cfg, params["final_norm"], x)[0]        # (C, d)
+    return logits_from_hidden(cfg, params, h), h, ks, vs
+
+
+@torch.no_grad()
+def commit_packed_kv(cfg, state, ks, vs, slots, seg, positions, valid,
+                     block_rows=None):
+    """Land a packed chunk's K/V in the resident caches, in place: chunk
+    token t writes its (lane, position) iff ``valid[t]``.  A tree verify
+    sets ``valid`` exactly on the accepted root-to-leaf path, one node a
+    depth, so no two targets race.  ks/vs (L, KV, C, dh); slots (R,); seg
+    (C,); positions (C,) absolute targets; dense lanes or paged pools
+    through ``block_rows`` (R, nb), f32, bf16 or int8 (quantised per
+    (position, head)).  Returns the state."""
+    segl = seg.long()
+    if "block_tables" in state:
+        assert block_rows is not None, "paged commit needs block rows"
+        pools = {k: v for k, v in state.items() if k != "block_tables"}
+        attn.cache_write_packed_paged(
+            pools, ks, vs, block_rows.to(torch.int32)[segl], positions,
+            valid)
+        return state
+    wpos = torch.where(valid, positions,
+                       torch.full_like(positions, state["k"].shape[3]))
+    attn.cache_write_packed(state, ks, vs, slots[segl], wpos)
+    return state
+
+
+def draft_tree_tokens(cfg, params, state, token, pos, width: int,
+                      depth: int):
+    """Default tree self-draft, ``draft_tokens`` lifted to a (width, depth)
+    tree: every branch repeats the last committed token.  Reached only
+    where the serving layer's shared draft cache misses.  token (B,)
+    int32; returns (B, width, depth) int32."""
+    return token[:, None, None].expand(token.shape[0], width, depth)
 
 
 def draft_tokens(cfg, params, state, token, pos, k: int):

@@ -2,9 +2,9 @@
 
 The fields are the JAX package's (``repro/serving/config.py``) so one
 description drives either stack.  The port serves admission-time or
-chunked, packed prefill, FIFO admission, one-token or linear speculative
-decode with the shared draft cache, dense or paged KV, one host — and
-every field of a later slice raises
+chunked, packed prefill, FIFO admission, one-token, linear or tree
+speculative decode with the shared draft cache, dense or paged KV, one
+host — and every field of a later slice raises
 ``NotImplementedError`` at construction when set, naming the ROADMAP
 queue-A item that brings it.  The probe-dispatch fields of the JAX config
 (``probe_impl``/``interpret``) have no counterpart: the device of the
@@ -17,7 +17,6 @@ from typing import Any, Optional
 
 # field -> (value that means "off", ROADMAP queue-A item that brings it)
 _NOT_PORTED = {
-    "spec_tree": (None, "A1b, tree speculative decode"),
     "group_size": (1, "preemption, groups and fleet"),
     "consensus": (None, "preemption, groups and fleet"),
     "consensus_delta": (None, "preemption, groups and fleet"),
@@ -59,6 +58,10 @@ class ServeConfig:
     #                               (current token + spec_tokens-1 drafts
     #                               scored in one fused pass); None/0
     #                               keeps one-token decode
+    spec_tree: Optional[str] = None  # tree speculative decode "W.D": W
+    #                               draft chains of depth D under the
+    #                               current token, 1 + W*D nodes a slot;
+    #                               exclusive with spec_tokens
     draft_cache_size: int = 4096  # shared n-gram draft cache entries (LRU);
     #                               0 disables the cache (self-draft only)
 
@@ -66,7 +69,6 @@ class ServeConfig:
     policy: Any = None            # None / "fifo" (the only ported policy)
 
     # -- not ported yet (see _NOT_PORTED) -------------------------------------
-    spec_tree: Optional[str] = None
     group_size: int = 1
     consensus: Any = None
     consensus_delta: Optional[float] = None
@@ -82,9 +84,34 @@ class ServeConfig:
             if val is not None:
                 val = int(val)
                 object.__setattr__(self, field, val if val > 0 else None)
-        if self.spec_tree is not None and not str(self.spec_tree).strip():
-            object.__setattr__(self, "spec_tree", None)
+        # spec_tree: (W, D) tuples and "" reach here from programmatic and
+        # CLI paths; the canonical form is the "W.D" string
+        if self.spec_tree is not None:
+            tree = self.spec_tree
+            if isinstance(tree, (tuple, list)):
+                tree = ".".join(str(int(x)) for x in tree)
+            tree = str(tree).strip()
+            object.__setattr__(self, "spec_tree", tree or None)
         self.validate()
+
+    def tree_shape(self) -> Optional[tuple]:
+        """Parsed ``spec_tree``: (width, depth) ints, or None."""
+        if self.spec_tree is None:
+            return None
+        parts = str(self.spec_tree).split(".")
+        if len(parts) != 2:
+            raise ValueError(
+                f"spec_tree={self.spec_tree!r} is not 'W.D': the tree "
+                "shape is width.depth (e.g. '3.4' = 3 draft chains of "
+                "depth 4); fix by passing two dot-separated positive ints")
+        try:
+            w, d = int(parts[0]), int(parts[1])
+        except ValueError:
+            raise ValueError(
+                f"spec_tree={self.spec_tree!r} is not 'W.D': both parts "
+                "must be ints (e.g. '3.4'); fix by passing two "
+                "dot-separated positive ints") from None
+        return (w, d)
 
     def validate(self) -> None:
         """Cross-field validation — every error names the fix."""
@@ -146,6 +173,37 @@ class ServeConfig:
                     "would blow the per-step token budget; fix by "
                     "lowering spec_tokens to <= "
                     f"{self.token_budget} or raising token_budget")
+        if self.spec_tree is not None:
+            if self.spec_tokens is not None:
+                raise ValueError(
+                    f"spec_tree={self.spec_tree!r} with spec_tokens="
+                    f"{self.spec_tokens} is ambiguous — they are two "
+                    "shapes of the same verify segment; fix by passing "
+                    "ONE of them (spec_tree='1.k-1' is the linear "
+                    "spec_tokens=k path)")
+            w, d = self.tree_shape()
+            if w < 1 or d < 1:
+                raise ValueError(
+                    f"spec_tree={self.spec_tree!r} needs width >= 1 and "
+                    "depth >= 1: a tree is at least one draft chain of "
+                    "one token; fix by passing e.g. '2.3' (or None for "
+                    "one-token decode)")
+            nodes = 1 + w * d
+            if self.chunk_tokens is not None and nodes >= self.chunk_tokens:
+                raise ValueError(
+                    f"spec_tree={self.spec_tree!r} needs {nodes} nodes "
+                    f">= chunk_tokens={self.chunk_tokens}: the verify "
+                    "tree must fit inside the fused step's fixed chunk "
+                    "capacity alongside the prefill share; fix by "
+                    "shrinking the tree or raising chunk_tokens to > "
+                    f"{nodes}")
+            if self.token_budget is not None and nodes > self.token_budget:
+                raise ValueError(
+                    f"spec_tree={self.spec_tree!r} needs {nodes} nodes "
+                    f"> token_budget={self.token_budget}: one slot's "
+                    "verify tree alone would blow the per-step token "
+                    "budget; fix by shrinking the tree or raising "
+                    f"token_budget to >= {nodes}")
         if int(self.draft_cache_size) < 0:
             raise ValueError(
                 f"draft_cache_size={self.draft_cache_size} must be >= 0: "

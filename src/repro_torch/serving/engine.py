@@ -29,7 +29,9 @@ speculative decode: every running slot's [current token, k - 1 drafts]
 block rides one packed verify chunk (``model.verify_packed``, K3 on a
 paged state), the accepted prefix commits, and K4
 (``repro_torch.kernels.probe_spec``) advances the probe over exactly the
-accepted tokens.
+accepted tokens.  With ``spec_tree = (W, D)`` the block is a token tree
+verified under the ancestor mask (K3 on a paged state), and K4 advances
+the probe over its longest accepted root path, a chain.
 
 ``ServingEngine`` is the deprecated static-batch baseline: prefill a
 batch once (K7), then loop the fused step on a dense cache (K6) until the
@@ -38,9 +40,8 @@ groups).
 
 Buffers the JAX engine donates to its jitted step — the KV cache or page
 pool and the probe state — are updated IN PLACE here.  Ported: admission-
-time and chunked, packed prefill, one-token and linear speculative
-decode, dense and paged caches.  Not yet: tree decode, preemption
-(ROADMAP queue A).
+time and chunked, packed prefill, one-token, linear and tree speculative
+decode, dense and paged caches.  Not yet: preemption (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -273,7 +274,8 @@ def probe_update_spec(pc: ProbeConfig, theta, st: ProbeState,
 
 def make_serve_step(model: Model, pc: ProbeConfig, theta, cfg: ServeConfig,
                     *, mask_stopped_writes: bool = False,
-                    spec_tokens: int = 0):
+                    spec_tokens: int = 0,
+                    spec_tree: Optional[Tuple[int, int]] = None):
     """Build the fused decode + ORCA step:
     (params, token, cache, pos, probe_state, chunk=None) -> (next_token,
     cache, probe_state); cache and probe state are updated in place.
@@ -302,7 +304,20 @@ def make_serve_step(model: Model, pc: ProbeConfig, theta, cfg: ServeConfig,
     ``{"gen", "seq", "seq_scores", "seq_n"}``: each slot commits ``gen`` in
     [1, len] tokens (0 for parked rows).  Rejected K/V writes need no undo:
     validity masks expose only [0, pos), and the next verify block
-    overwrites them before ``pos`` reaches them."""
+    overwrites them before ``pos`` reaches them.
+
+    With ``spec_tree = (W, D)`` the verify segment is a token TREE: W draft
+    chains of depth D hang off the current token (the BFS comb: node
+    ``1 + j*W + b`` is branch b at depth j + 1, its parent ``i - W`` or the
+    root), ``1 + W*D`` nodes a slot, and ``drafts`` is (B, W, D).  Each
+    slot's ``lens`` truncates its tree breadth-first (a truncated tree is a
+    tree).  The verify runs through ``model.verify_tree`` (the ancestor
+    mask, K/V writes deferred); a node is accepted iff its parent is and
+    it equals the model's output after its parent, and the step takes the
+    longest accepted root path, a chain, so K4 consumes it unchanged and
+    stops equal one-token decode.  Only that path's K/V lands, through
+    ``model.commit_kv``.  The 4th element's ``seq`` is then (B, D + 1), the
+    path's committed tokens.  W = 1 is the linear step of k = D + 1."""
     mcfg = model.cfg
     eta = float(P.inner_lr(pc, theta))
 
@@ -313,6 +328,120 @@ def make_serve_step(model: Model, pc: ProbeConfig, theta, cfg: ServeConfig,
                                     chunk["seg"], chunk["slots"],
                                     chunk["starts"], chunk["lengths"],
                                     chunk.get("rows"))
+
+    def lay_out(lens, blk, c):
+        """Segments back to back in slot order (the packed chunk's
+        layout): (dst (B, k) chunk index of each block entry, c for those
+        past the slot's length; offs (B,) each segment's start; scat(src)
+        the (B, k) ``src`` scattered to the chunk, tail zero)."""
+        bsz, k = blk.shape
+        offs = torch.cumsum(lens, 0) - lens
+        jj = torch.arange(k, device=blk.device)[None, :]
+        dst = torch.where(jj < lens[:, None], offs[:, None] + jj, c)
+        flat = dst.reshape(-1)
+
+        def scat(src):
+            out = torch.zeros(c + 1, dtype=src.dtype, device=blk.device)
+            out[flat] = src.expand(bsz, k).reshape(-1)
+            return out[:c]
+        return dst, offs, scat
+
+    if spec_tree is not None:
+        tw, td = int(spec_tree[0]), int(spec_tree[1])
+        assert tw >= 1 and td >= 1, spec_tree
+        assert model.supports_tree, \
+            f"{mcfg.name}: no tree speculative decode for this family"
+        kk = 1 + tw * td
+        # the static BFS comb: node 0 the root, node 1 + j*W + b branch b
+        # at depth j + 1, its parent one level up on the same branch (the
+        # root at j = 0).  Index order is BFS order, so truncating a slot's
+        # nodes by count keeps every parent.
+        par_np = np.zeros((kk,), np.int64)
+        dep_np = np.zeros((kk,), np.int32)
+        for j in range(td):
+            for b_ in range(tw):
+                i = 1 + j * tw + b_
+                dep_np[i] = j + 1
+                par_np[i] = 0 if j == 0 else i - tw
+        dev0 = theta["W0"].device
+        par_l = torch.as_tensor(par_np, device=dev0)
+        dep_l = torch.as_tensor(dep_np, device=dev0)
+
+        @torch.no_grad()
+        def tree_step(params, token, cache, pos, st: ProbeState, chunk,
+                      spec):
+            if chunk is not None:
+                cache = run_chunk(params, cache, chunk)
+            bsz, c = token.shape[0], token.shape[0] * kk
+            dev = token.device
+            lens = torch.where(st.stopped, 0, spec["lens"])
+            drafts = torch.where(spec["have"][:, None, None], spec["drafts"],
+                                 model.draft_tree(mcfg, params, cache, token,
+                                                  pos, tw, td))
+            # BFS layout: blk[:, 1 + j*W + b] = drafts[:, b, j]
+            blk = torch.cat([token[:, None],
+                             drafts.transpose(1, 2).reshape(bsz, tw * td)],
+                            dim=1)                              # (B, k)
+            dst, offs, scat = lay_out(lens, blk, c)
+            slots = torch.arange(bsz, dtype=torch.int32, device=dev)
+            toks_c = scat(blk)
+            seg_c = scat(slots[:, None])
+            dep_c = scat(dep_l[None, :])
+            # global parent pointers: the root points at itself; the
+            # chunk's tail keeps 0, invalid by length
+            anc_c = scat(offs[:, None] + par_l[None, :])
+            rows_arg = cache.get("block_tables")
+            logits, hidden, ks, vs = model.verify_tree(
+                mcfg, params, toks_c, cache, seg_c, slots, pos, lens, dep_c,
+                anc_c, rows_arg)
+            out_c = torch.argmax(logits[:, :mcfg.vocab_size],
+                                 dim=-1).to(torch.int32)
+            out_blk = out_c[torch.clamp(dst, max=c - 1)]        # (B, k)
+            # per-node acceptance, rooted, one depth at a time: node i
+            # survives iff its parent did, it lies within the slot's
+            # length and it equals the model's output after its parent
+            nodes = torch.arange(kk, device=dev)
+            acc = (lens > 0)[:, None].expand(bsz, kk).clone()
+            for j in range(td):
+                lvl = slice(1 + j * tw, 1 + (j + 1) * tw)
+                par = par_l[lvl]
+                acc[:, lvl] = (acc[:, par] & (nodes[lvl][None, :]
+                                              < lens[:, None])
+                               & (blk[:, lvl] == out_blk[:, par]))
+            plen = torch.where(acc, dep_l[None, :] + 1, 0)
+            g = plen.max(1).values.to(torch.int32)   # path length, root too
+            best = torch.argmax(plen, dim=1)
+            # the root-first path by the ancestor walk from ``best``: entry
+            # d is best's ancestor at distance dep[best] - d (clamped; the
+            # tail repeats ``best``, masked by d < g below)
+            curs = [best]
+            for _ in range(td):
+                curs.append(par_l[curs[-1]])
+            curs = torch.stack(curs, dim=1)                    # (B, D + 1)
+            dd = torch.arange(td + 1, device=dev)
+            walk = torch.clamp(dep_l[best][:, None] - dd[None, :], 0, td)
+            path = torch.gather(curs, 1, walk)
+            pdx = torch.clamp(offs[:, None] + path, max=c - 1)
+            seq = out_c[pdx]                                   # (B, D + 1)
+            # the accepted path is a chain: K4 consumes it as it consumes a
+            # linear block, so stops equal one-token decode
+            st, sm_seq, n_seq = probe_update_spec(
+                pc, theta, st, hidden[pdx], g, cfg.lam, cfg.tokens_per_step,
+                cfg.burn_in, eta)
+            # commit only the accepted path's K/V: one node a depth, no two
+            # targets alike
+            on_path = ((path[:, :, None] == nodes[None, None, :])
+                       & (dd[None, :, None] < g[:, None, None])).any(1)
+            pos_c = scat(pos[:, None] + dep_l[None, :])
+            cache = model.commit_kv(mcfg, cache, ks, vs, slots, seg_c, pos_c,
+                                    scat(on_path), rows_arg)
+            last = torch.gather(seq, 1,
+                                torch.clamp(g.long() - 1, 0, td)[:, None])
+            nxt = torch.where(g > 0, last[:, 0], token)
+            return nxt, cache, st, {"gen": g, "seq": seq,
+                                    "seq_scores": sm_seq, "seq_n": n_seq}
+
+        return tree_step
 
     if spec_tokens:
         assert spec_tokens >= 2, "spec_tokens < 2 is one-token decode"
@@ -334,24 +463,13 @@ def make_serve_step(model: Model, pc: ProbeConfig, theta, cfg: ServeConfig,
                                  model.draft(mcfg, params, cache, token, pos,
                                              kk))
             blk = torch.cat([token[:, None], drafts], dim=1)     # (B, k)
-            # segments laid out back to back in slot order (the packed
-            # chunk's layout); tokens past a slot's length scatter to a
-            # dropped tail slot, and the chunk's tail keeps seg 0, invalid
-            # by length
-            offs = torch.cumsum(lens, 0) - lens
-            jj = torch.arange(kk, device=dev)[None, :]
-            dst = torch.where(jj < lens[:, None], offs[:, None] + jj, c)
-            flat = dst.reshape(-1)
-            toks_c = torch.zeros(c + 1, dtype=torch.int32, device=dev)
-            toks_c[flat] = blk.reshape(-1)
-            seg_c = torch.zeros(c + 1, dtype=torch.int32, device=dev)
-            seg_c[flat] = torch.arange(bsz, dtype=torch.int32,
-                                       device=dev)[:, None].expand(
-                                           bsz, kk).reshape(-1)
+            # tokens past a slot's length scatter to a dropped tail slot,
+            # and the chunk's tail keeps seg 0, invalid by length
+            dst, _, scat = lay_out(lens, blk, c)
+            slots = torch.arange(bsz, dtype=torch.int32, device=dev)
             logits, hidden, cache = model.verify_packed(
-                mcfg, params, toks_c[:c], cache, seg_c[:c],
-                torch.arange(bsz, dtype=torch.int32, device=dev), pos, lens,
-                cache.get("block_tables"))
+                mcfg, params, scat(blk), cache, scat(slots[:, None]), slots,
+                pos, lens, cache.get("block_tables"))
             out_c = torch.argmax(logits[:, :mcfg.vocab_size],
                                  dim=-1).to(torch.int32)
             gdx = torch.clamp(dst, max=c - 1)
@@ -359,8 +477,8 @@ def make_serve_step(model: Model, pc: ProbeConfig, theta, cfg: ServeConfig,
             # accepted prefix: draft j+1 survives iff it equals the model's
             # output after consuming draft j; the first miss is replaced by
             # the model's own token, so gen = accepted drafts + 1
-            ok = (blk[:, 1:] == out_blk[:, :-1]) \
-                & (jj[:, :kk - 1] + 1 < lens[:, None])
+            jj = torch.arange(1, kk, device=dev)[None, :]
+            ok = (blk[:, 1:] == out_blk[:, :-1]) & (jj < lens[:, None])
             n_acc = torch.cumprod(ok.to(torch.int32), dim=1).sum(1)
             g = torch.where(lens > 0, n_acc + 1, 0).to(torch.int32)
             st, sm_seq, n_seq = probe_update_spec(
@@ -599,9 +717,9 @@ class ContinuousServingEngine:
       to ``chunk_tokens`` prompt tokens of up to ``max_pack`` requests
       before the decode, and ``finish_prefill`` arms the slot after its
       last chunk.
-    * With ``spec_tokens = k``, ``step`` takes each slot's verify length
-      and host drafts, and each slot's ``pos`` advances by the tokens it
-      committed.
+    * With ``spec_tokens = k`` (or ``spec_tree = (W, D)``, 1 + W*D nodes a
+      slot), ``step`` takes each slot's verify length and host drafts, and
+      each slot's ``pos`` advances by the tokens it committed.
 
     The scheduler owns queues, lifecycles, the block pool and metrics; this
     class owns device state only.  The device is the parameters' device.
@@ -612,7 +730,8 @@ class ContinuousServingEngine:
                  paged: bool = False, block_size: int = 16,
                  num_blocks: Optional[int] = None,
                  chunk_tokens: Optional[int] = None, pack_max: int = 4,
-                 spec_tokens: Optional[int] = None):
+                 spec_tokens: Optional[int] = None,
+                 spec_tree: Optional[Tuple[int, int]] = None):
         self.model, self.params, self.pc, self.theta, self.cfg = \
             model, params, pc, theta, cfg
         self.device = params["embed"].device
@@ -643,9 +762,19 @@ class ContinuousServingEngine:
             assert model.supports_chunked, \
                 f"{mcfg.name}: no chunked prefill for this family"
         # speculative draft-verify decode: every RUNNING slot may ride the
-        # packed verify chunk with up to spec_tokens tokens per step
+        # packed verify chunk with up to spec_tokens tokens per step;
+        # spec_tree = (W, D) makes it a tree of 1 + W*D NODES a slot, and
+        # spec_tokens that node count (the scheduler's unit either way)
+        self.spec_tree = (tuple(int(x) for x in spec_tree) if spec_tree
+                          else None)
         self.spec_tokens = int(spec_tokens or 0)
-        if self.spec_tokens:
+        if self.spec_tree:
+            assert not self.spec_tokens, \
+                "spec_tree and spec_tokens are mutually exclusive"
+            assert model.supports_tree, \
+                f"{mcfg.name}: no tree speculative decode for this family"
+            self.spec_tokens = 1 + self.spec_tree[0] * self.spec_tree[1]
+        elif self.spec_tokens:
             assert model.supports_spec, \
                 f"{mcfg.name}: no speculative decode for this family"
         self.st = init_probe_state(pc, theta, n_slots, mcfg.d_model)
@@ -655,7 +784,8 @@ class ContinuousServingEngine:
         self.pos = np.zeros((n_slots,), np.int32)
         self._step_fn = make_serve_step(
             model, pc, theta, cfg, mask_stopped_writes=bool(self.chunk_tokens),
-            spec_tokens=self.spec_tokens)
+            spec_tokens=0 if self.spec_tree else self.spec_tokens,
+            spec_tree=self.spec_tree)
 
     def _pages(self):
         return {k: v for k, v in self.state.items() if k != "block_tables"}
@@ -784,9 +914,12 @@ class ContinuousServingEngine:
     def _spec_to_device(self, spec_lens, spec_drafts, spec_have
                         ) -> Dict[str, torch.Tensor]:
         """Lower the host spec descriptor (None = zeros) to the device in
-        one copy: lens (n,), have (n,), drafts (n, k - 1)."""
-        n, k = self.n_slots, self.spec_tokens
-        buf = np.zeros((n * (k + 1),), np.int32)
+        one copy: lens (n,), have (n,), drafts (n, k - 1), or (n, W, D) on
+        a tree engine."""
+        n = self.n_slots
+        shape = ((n,) + self.spec_tree if self.spec_tree
+                 else (n, self.spec_tokens - 1))
+        buf = np.zeros((2 * n + int(np.prod(shape)),), np.int32)
         if spec_lens is not None:
             buf[:n] = np.asarray(spec_lens, np.int32)
         if spec_drafts is not None:
@@ -796,7 +929,7 @@ class ContinuousServingEngine:
             buf[2 * n:] = np.asarray(spec_drafts, np.int32).reshape(-1)
         dev = torch.as_tensor(buf).to(self.device)
         return {"lens": dev[:n], "have": dev[n:2 * n].bool(),
-                "drafts": dev[2 * n:].view(n, k - 1)}
+                "drafts": dev[2 * n:].view(shape)}
 
     def step(self, chunk: Optional[ChunkWork] = None, spec_lens=None,
              spec_drafts=None, spec_have=None) -> SlotStepView:
@@ -809,9 +942,11 @@ class ContinuousServingEngine:
         [0, spec_tokens] (None = 0 everywhere), and advances each slot's
         ``pos`` by the tokens it committed; ``spec_drafts``/``spec_have``
         inject host drafts (the shared draft cache), and slots with
-        ``have=False`` take the model family's own drafter.  The view's
-        spec fields carry the committed multi-token sequences; the step's
-        host reads are one device-to-host copy."""
+        ``have=False`` take the model family's own drafter.  A tree engine
+        takes drafts (n_slots, W, D), and ``spec_lens`` counts NODES in
+        [0, 1 + W*D].  The view's spec fields carry the committed
+        multi-token sequences; the step's host reads are one device-to-host
+        copy."""
         assert chunk is None or self.chunk_tokens, \
             "engine built without chunk_tokens"
         dev_chunk = None if chunk is None else self._chunk_to_device(chunk)

@@ -10,9 +10,9 @@ fleet* by evicting its slot); ``FINISHED`` means the token budget ran out
 without a stop.  Metrics use the shared savings helper
 (``repro_torch.core.stopping.step_savings``) so served savings are directly
 comparable with offline-evaluated savings; the speculative-decode
-counters aggregate in ``spec_stats``.  The JAX package's CANCELLED (group
-consensus) and SWAPPED (preemption) states, and the tree and fleet
-counters, come with the ROADMAP queue-A items that serve them.
+counters, linear and tree, aggregate in ``spec_stats``.  The JAX
+package's CANCELLED (group consensus) and SWAPPED (preemption) states, and
+the fleet counters, come with the ROADMAP queue-A items that serve them.
 """
 from __future__ import annotations
 
@@ -90,6 +90,11 @@ class Request:
     #                                       the current token; g in [0, k])
     draft_hits: int = 0                   # shared draft-cache lookups that hit
     draft_misses: int = 0                 # ... that missed (self-draft fallback)
+    # tree speculative decode (stay 0/empty without spec_tree)
+    tree_nodes: int = 0                   # tree nodes proposed (excl. roots)
+    tree_path_lens: List[int] = dataclasses.field(default_factory=list)
+    #                                       per-step accepted root-to-leaf
+    #                                       path length (incl. the root)
 
     @property
     def done(self) -> bool:
@@ -172,6 +177,10 @@ class FleetMetrics:
     acceptance_rate: float = 0.0    # accepted / proposed (0 when disabled)
     accepted_len_p50: float = 0.0   # per-step accepted length percentiles
     accepted_len_p99: float = 0.0   # (incl. the block's current token)
+    tree_nodes_proposed: int = 0    # candidate tree nodes verified (excl.
+    #                                 roots; 0 for linear/disabled runs)
+    tree_path_accepted_p50: float = 0.0  # accepted root-to-leaf path length
+    tree_path_accepted_p99: float = 0.0  # percentiles (incl. the root)
     draft_cache_hits: int = 0       # shared draft-cache lookups that hit
     draft_cache_misses: int = 0     # ... that missed (self-draft fallback)
     draft_cache_hit_rate: float = 0.0    # hits / lookups (0 when disabled)
@@ -225,12 +234,15 @@ def latency_stats(requests: List[Request]
 
 def spec_stats(requests: List[Request]) -> Dict[str, float]:
     """Speculative-decode aggregation over a served population, as
-    ``FleetMetrics`` keyword arguments: linear acceptance accounting and
-    shared draft-cache hit rates, computed from per-request counters (the
-    JAX package's ``spec_stats`` without its tree fields)."""
+    ``FleetMetrics`` keyword arguments: linear acceptance accounting,
+    tree-path percentiles and shared draft-cache hit rates, computed from
+    per-request counters (the JAX package's ``spec_stats``; the port has no
+    cancelled requests to leave out)."""
     sp = sum(r.spec_proposed for r in requests)
     sa = sum(r.spec_accepted for r in requests)
     alens = np.asarray([g for r in requests for g in r.accepted_lens],
+                       np.float64)
+    plens = np.asarray([g for r in requests for g in r.tree_path_lens],
                        np.float64)
     hits = sum(r.draft_hits for r in requests)
     misses = sum(r.draft_misses for r in requests)
@@ -242,6 +254,11 @@ def spec_stats(requests: List[Request]) -> Dict[str, float]:
                              if alens.size else 0.0),
         "accepted_len_p99": (float(np.percentile(alens, 99))
                              if alens.size else 0.0),
+        "tree_nodes_proposed": int(sum(r.tree_nodes for r in requests)),
+        "tree_path_accepted_p50": (float(np.percentile(plens, 50))
+                                   if plens.size else 0.0),
+        "tree_path_accepted_p99": (float(np.percentile(plens, 99))
+                                   if plens.size else 0.0),
         "draft_cache_hits": int(hits),
         "draft_cache_misses": int(misses),
         "draft_cache_hit_rate": (float(hits / (hits + misses))

@@ -2,12 +2,12 @@
 
 The JAX package's scheduler (``repro/serving/scheduler.py``), cut to what
 the port's engine serves: admission-time or chunked, packed prefill, FIFO
-admission of gang units, one-token or linear speculative decode with the
-shared draft cache, dense or paged KV with prefix sharing.  The admission
+admission of gang units, one-token, linear or tree speculative decode with
+the shared draft cache, dense or paged KV with prefix sharing.  The admission
 loop, batch composer, token collection and metrics are the JAX package's
 line for line, so per-request stop steps, tokens and completion steps
-match it exactly on the same model outputs.  Tree decode, preemption and
-consensus are rejected by ``ServeConfig`` until their ROADMAP items land,
+match it exactly on the same model outputs.  Preemption and consensus
+are rejected by ``ServeConfig`` until their ROADMAP items land,
 and a session that mixes priority classes by ``submit``: the reference
 preempts there by default.
 
@@ -17,7 +17,10 @@ k - 1 draft tokens beyond its current token from the same token budget
 ``DraftCache`` where it hits and by the model's self-draft elsewhere; the
 accepted prefix lands in order, one score is collected per probe boundary
 it crosses, collection stops at the stop step, and what landed is
-promoted into the cache.
+promoted into the cache.  Tree speculative decode (``spec_tree="W.D"``)
+claims up to 1 + W*D NODES a slot, capped at ``W * (remaining - 1)``
+extra (the accepted path holds one node a depth), drafts a (W, D) tree
+from the cache, and lands the longest accepted root path.
 
 Chunked prefill (``chunk_tokens=N``) turns prefill into schedulable work:
 an admitted request becomes a resident PREFILL row, and each engine
@@ -106,6 +109,7 @@ class OrcaScheduler:
                  token_budget: Optional[int] = _UNSET,
                  pack_chunks: bool = _UNSET, pack_max: int = _UNSET,
                  spec_tokens: Optional[int] = _UNSET,
+                 spec_tree: Optional[str] = _UNSET,
                  draft_cache: Optional[DraftCache] = None):
         self.model, self.params, self.pc, self.theta, self.cfg = \
             model, params, pc, theta, cfg
@@ -147,6 +151,35 @@ class OrcaScheduler:
                 "silence this",
                 RuntimeWarning, stacklevel=2)
             self.spec_tokens = None       # family without verify_packed
+        # tree speculative decode: "W.D" makes the verify block 1 + W*D
+        # candidate NODES a slot; self.spec_tokens becomes that node count
+        # so every budget computation below stays unit-correct
+        spec_tree = _pick(spec_tree, cfg.spec_tree)
+        self.spec_tree: Optional[Tuple[int, int]] = None
+        if spec_tree:
+            if self.spec_tokens is not None:
+                raise ValueError(
+                    f"spec_tree={spec_tree!r} with spec_tokens="
+                    f"{self.spec_tokens} is ambiguous — they are two "
+                    "shapes of the same verify segment; fix by passing "
+                    "ONE of them")
+            if isinstance(spec_tree, (tuple, list)):
+                shape = (int(spec_tree[0]), int(spec_tree[1]))
+            else:
+                shape = dataclasses.replace(
+                    cfg, spec_tree=str(spec_tree),
+                    spec_tokens=None).tree_shape()
+            if not model.supports_tree:
+                warnings.warn(
+                    f"spec_tree={spec_tree!r} ignored: model family "
+                    f"{model.cfg.name!r} has no tree speculative decode "
+                    "— serving falls back to one-token decode; drop "
+                    "spec_tree or use a family with supports_tree=True "
+                    "to silence this",
+                    RuntimeWarning, stacklevel=2)
+            else:
+                self.spec_tree = shape
+                self.spec_tokens = 1 + shape[0] * shape[1]
         # shared n-gram draft cache: the serving layer's drafter for
         # families whose own draft is the degenerate repeat-last-token
         # self-draft; an explicit instance fronts any family
@@ -270,7 +303,8 @@ class OrcaScheduler:
                 self.n_slots, cache_len, paged=device_paged,
                 block_size=self.block_size, num_blocks=num_blocks,
                 chunk_tokens=self.chunk_tokens, pack_max=self.pack_max,
-                spec_tokens=self.spec_tokens)
+                spec_tokens=None if self.spec_tree else self.spec_tokens,
+                spec_tree=self.spec_tree)
         return self._engine
 
     # ------------------------------------------------------------------
@@ -582,20 +616,24 @@ class OrcaScheduler:
         if self.spec_tokens:
             spec_lens = np.zeros((self.n_slots,), np.int32)
             budget_left = self.token_budget - len(running)
+            # tree mode: the accepted path holds one node a DEPTH, so nodes
+            # beyond width * (remaining - 1) can never commit (width 1 is
+            # the linear cap)
+            width = self.spec_tree[0] if self.spec_tree else 1
             for slot in sorted(running):
                 req = running[slot]
                 max_new = req.max_new_tokens or self.cfg.max_new_tokens
                 remaining = max_new - len(req.tokens)
-                extra = max(min(self.spec_tokens - 1, remaining - 1,
-                                budget_left), 0)
+                extra = max(min(self.spec_tokens - 1,
+                                width * (remaining - 1), budget_left), 0)
                 spec_lens[slot] = 1 + extra
                 budget_left -= extra
             spec_total = int(spec_lens.sum())
             if self.draft_cache is not None:
                 # shared-cache drafts for every slot drafting this step;
                 # misses keep have=False and take the family drafter
-                depth = self.spec_tokens - 1
-                spec_drafts = np.zeros((self.n_slots, depth), np.int32)
+                w_, d_ = self.spec_tree or (1, self.spec_tokens - 1)
+                spec_drafts = np.zeros((self.n_slots, w_, d_), np.int32)
                 spec_have = np.zeros((self.n_slots,), bool)
                 for slot in sorted(running):
                     if spec_lens[slot] < 2:
@@ -603,8 +641,8 @@ class OrcaScheduler:
                     req = running[slot]
                     ctx = self._draft_context(req)
                     draft_ctx[slot] = ctx
-                    tree, hit = self.draft_cache.lookup(ctx, 1, depth)
-                    spec_drafts[slot] = tree[0]
+                    spec_drafts[slot], hit = self.draft_cache.lookup(
+                        ctx, w_, d_)
                     spec_have[slot] = hit
                     if hit:
                         req.draft_hits += 1
@@ -726,6 +764,9 @@ class OrcaScheduler:
         req.spec_accepted += max(g - 1, 0)
         if lp > 0:
             req.accepted_lens.append(g)
+            if self.spec_tree:
+                req.tree_nodes += max(lp - 1, 0)
+                req.tree_path_lens.append(g)
         stopped_now = bool(view.stopped[slot])
         stop_at = int(view.stop_step[slot]) if stopped_now else -1
         landed: List[int] = []

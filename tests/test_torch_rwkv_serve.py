@@ -4,8 +4,9 @@ package's on the reduced rwkv6-1.6b with weights and probe slow weights
 carried across: per-request stop steps, tokens, admission and completion
 steps and scores equal through ``OrcaScheduler``, with ``paged=True``
 (the pool admission-controls, the device state stays dense) and with
-``chunk_tokens`` and ``spec_tokens`` (both warn and fall back, as in
-JAX); the static-batch engine; a CPU run of the serving driver."""
+``chunk_tokens``, ``spec_tokens`` and ``spec_tree`` (each warns and
+falls back, as in JAX); the static-batch engine; a CPU run of the
+serving driver."""
 import warnings
 
 import jax
@@ -138,12 +139,13 @@ def test_rwkv_paged_pool_admission_control_matches_jax(models):
 
 
 @pytest.mark.parametrize("knob,match", [("chunk_tokens", "admission-time"),
-                                        ("spec_tokens", "one-token decode")])
+                                        ("spec_tokens", "one-token decode"),
+                                        ("spec_tree", "one-token decode")])
 def test_chunk_and_spec_tokens_warn_and_fall_back(models, knob, match):
     """As the JAX scheduler does: a RuntimeWarning, then the admission-time
     one-token fleet, equal to JAX's under the same knob."""
     (jmodel, jparams, jpc, jtheta), (model, params, pc, theta) = models
-    value = 4 if knob == "chunk_tokens" else 3
+    value = {"chunk_tokens": 4, "spec_tokens": 3, "spec_tree": "2.2"}[knob]
     with pytest.warns(RuntimeWarning, match=match):
         JOrcaScheduler(jmodel, jparams, jpc, jtheta,
                        JServeConfig(**{knob: value}))

@@ -210,8 +210,8 @@ def test_serve_config_takes_chunk_knobs_and_refuses_the_rest(models):
     with pytest.raises(ValueError, match="token_budget=2 < n_slots=3"):
         OrcaScheduler(model, params, pc, theta, ServeConfig(
             n_slots=3, chunk_tokens=8, token_budget=2))
-    for field, value in (("spec_tree", "2.2"), ("group_size", 2),
-                         ("preemption", True), ("n_hosts", 2)):
+    for field, value in (("group_size", 2), ("preemption", True),
+                         ("n_hosts", 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
             ServeConfig(**{field: value})
 

@@ -8,7 +8,8 @@ through ``OrcaScheduler`` (k 2 and 4, dense and paged, chunked and not,
 draft cache on and off), whose stops also equal the port's one-token
 fleet's.  The JAX side runs with ``probe_impl="ref"``: its Pallas spec
 probe kernel needs ``pallas.load``, which this JAX lacks.  Plus the spec
-knobs of ``ServeConfig`` and the serving driver."""
+and tree knobs of ``ServeConfig`` and the serving driver (the tree path
+itself is held in ``test_torch_tree.py``)."""
 import re
 
 import jax
@@ -433,10 +434,46 @@ def test_spec_config_validation_matches_jax(kw):
     assert str(got.value) == str(want.value)
 
 
-def test_spec_tree_still_refused():
-    with pytest.raises(NotImplementedError,
-                       match="A1b, tree speculative decode"):
-        ServeConfig(spec_tree="2.2")
+@pytest.mark.parametrize("kw", [dict(spec_tree="2x3"),
+                                dict(spec_tree="2.x"),
+                                dict(spec_tree="2.2", spec_tokens=4),
+                                dict(spec_tree="0.3"),
+                                dict(spec_tree="2.3", chunk_tokens=7),
+                                dict(spec_tree="3.3", token_budget=9)])
+def test_spec_tree_config_validation_matches_jax(kw):
+    with pytest.raises(ValueError) as want:
+        JServeConfig(**kw)
+    with pytest.raises(ValueError) as got:
+        ServeConfig(**kw)
+    assert str(got.value) == str(want.value)
+
+
+def test_spec_tree_config_normalises_as_jax():
+    for tree in ("2.3", (2, 3), [3, 3], " 1.4 ", ""):
+        ours, theirs = ServeConfig(spec_tree=tree), JServeConfig(
+            spec_tree=tree)
+        assert ours.spec_tree == theirs.spec_tree
+        assert ours.tree_shape() == theirs.tree_shape()
+    assert ServeConfig(spec_tree="3.3", chunk_tokens=11,
+                       token_budget=10).tree_shape() == (3, 3)
+
+
+def test_serve_driver_spec_tree_on_cpu(capsys):
+    """``--spec-tree 2.2`` serves; its tree line has the JAX driver's
+    format (``repro/launch/serve.py``), beside the speculative line."""
+    rc = tserve.main(["--arch", "smollm-360m", "--reduced", "--device", "cpu",
+                      "--paged", "--requests", "3", "--slots", "2",
+                      "--max-new-tokens", "16", "--tokens-per-step", "4",
+                      "--train-trajectories", "8", "--epochs", "2",
+                      "--prompt-len", "8", "--spec-tree", "2.2"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert re.search(r"\[serve\] speculative: \d+/\d+ drafts accepted", out)
+    tree = re.search(r"^\[serve\] tree: (\d+) nodes proposed, accepted path "
+                     r"length p50/p99 (\d+\.\d)/(\d+\.\d)$", out, re.M)
+    assert tree and int(tree.group(1)) > 0
+    assert float(tree.group(2)) >= 1.0
+    assert "[serve] draft cache: " in out
 
 
 def test_serve_driver_spec_on_cpu(capsys):
@@ -449,9 +486,7 @@ def test_serve_driver_spec_on_cpu(capsys):
     out = capsys.readouterr().out
     assert re.search(r"\[serve\] speculative: \d+/\d+ drafts accepted", out)
     assert "[serve] draft cache: " in out
-    with pytest.raises(NotImplementedError, match="tree speculative decode"):
-        tserve.main(["--arch", "smollm-360m", "--reduced", "--device", "cpu",
-                     "--spec-tree", "2.2"])
+    assert "[serve] tree: " not in out
 
 
 def test_serve_driver_flags_are_the_jax_drivers(capsys):
