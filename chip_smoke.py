@@ -20,7 +20,7 @@ non-zero:
                window in shared memory), in both views; each timed row
                names its instance (threads, features a thread, registers);
                chained and timed at serve-llama's width (f 3072), both
-               views
+               views, and at serve-stablelm's (f 2560)
 3. k2       -- paged flash decode against its plain version, bf16, int8
                and f32 pages, the serving shape and nb in {8, 64, 256}
                (past 256 positions split over blocks and merged); timed
@@ -32,7 +32,9 @@ non-zero:
                d 128 at G 3 (llama3.2-3b) and G 1 (qwen1.5-32b): the
                served steps of serve-llama (bf16) and serve-qwen (int8),
                the other page dtypes there, 4,096 positions split, holes
-               and the one-split rows
+               and the one-split rows; then d 80 at G 1 (stablelm-3b):
+               serve-stablelm's step in bf16, int8 and f32, 4,096
+               positions split (the d-80 merge), holes, one split
 4. k3       -- paged chunk attention against its plain versions, B4
                (packed chunks: 1 to 4 segments, an empty cache, padding
                and zero-length segments, nb 256) and B3 (chunks of B
@@ -48,7 +50,10 @@ non-zero:
                4,000 positions split, holes; then the tree verify shape
                (4 slots x 10 nodes of a 3.3 tree, caches 37, 112, 200 and
                64), bf16 and int8, d 64 and d 128 at G 3, the merge under
-               the ancestor mask, timed beside SDPA
+               the ancestor mask, timed beside SDPA; then d 80 at G 1:
+               serve-stablelm's chunk in bf16, int8 and f32, 4 segments,
+               4,000 positions split, B3 chunks, holes, a last split
+               empty, the tree verify shape
 5. k4       -- the masked multi-token probe step against its plain version
                and against T masked K1 launches on copies of the same
                state, bit for bit in every case: B 1, 4, 8; T 1, 2, 4, 8;
@@ -82,14 +87,18 @@ non-zero:
                cache and mask, with per_step_ms; each row names its splits;
                then d 128 at G 3 and G 1: the harvests of serve-llama (8,
                64) and serve-qwen (8, 208), dense steps, f32, 4,096
-               positions split
+               positions split; then d 80 at G 1: serve-stablelm's
+               harvest (8, 208), a dense step, f32, 4,096 positions split
 8. k7       -- flash prefill attention against its plain version: (B, S)
                (1, 16), (24, 16), (1, 160), (24, 160), (4, 2048); window
                64; Sq < Sk; a window past the keys; bf16 and f32; timed
                (all but the window cases) beside SDPA with is_causal, with
                bound_ms and bound_tc_ms; then d 128 at G 3 and G 1: an
                admission (1, 16), the harvests' prefills (8, 16) and
-               (8, 160), 2,048 tokens, f32, a window, Sq < Sk
+               (8, 160), 2,048 tokens, f32, a window, Sq < Sk; then d 80:
+               serve-stablelm's harvest prefill (8, 160), (1, 160),
+               (1, 16), 2,048 tokens, f32, a window, Sq < Sk, a window
+               past the keys (bf16 and f32)
 9. model    -- full-width smollm-360m (bf16, random weights from a seed,
                then the same weights in f32): prefill 16 tokens, 64
                teacher-forced paged decode steps through K2 (every call
@@ -208,6 +217,17 @@ non-zero:
 30. serve-llama-f32 -- the llama fleet in f32 at 4 of its 28 layers,
                through the kernels and through the plain attention: stops
                and tokens equal
+30b. model-stablelm, serve-stablelm, trace-stablelm, serve-stablelm-f32
+               -- stablelm-3b (32 layers, 32 heads of 80 on 32 KV heads,
+               LayerNorm, QKV bias, a quarter of each head rotary) at full
+               width and depth as model-llama; ``launch.serve --arch
+               stablelm-3b --paged --chunk-tokens 64 --prompt-len 160``:
+               K2 and K3 at (80, 1) on bf16 pages, the harvest through K7
+               and K6 at d 80, K1 and K5 at f 2560, every K1, K2, K3, K6
+               and K7 launch counted exactly, a packed chunk; a 16-step
+               profiled window; in f32 at 4 of its 32 layers on f32 pages
+               in 64-token chunks, through the kernels and through the
+               plain attention: stops and tokens equal
 31. serve-qwen, trace-qwen -- ``launch.serve --arch qwen1.5-32b --paged
                --chunk-tokens 64 --prompt-len 160``: int8 pages through K2
                and K3 (G 1), the harvest through K7 and K6 (G 1), K1 and
@@ -223,7 +243,8 @@ non-zero:
                version, kernel / plain / library / bound ms; then one entry
                per d-128 instance on the new fleets' paths (K2, K6 and K7
                at G 3 from serve-llama, at G 1 from serve-qwen, K3 at G 1
-               int8 from serve-qwen) and K1 at f 3072; the tree path's
+               int8 from serve-qwen) and K1 at f 3072, and one per d-80
+               instance on serve-stablelm's (K2, K3-B4, K6, K7); the tree path's
                K3 (d 64 from serve-tree, d 128 G 3 from serve-llama-tree,
                timed at phase k3's tree cases) and K4 (serve-tree); K3's
                and K7's bound_ms is their rows' bound_tc_ms, the products
@@ -525,6 +546,19 @@ def phase_k1(torch, timer):
                          view="same" if same else "distinct",
                          max_abs_err=err_w, lambda_margin=margin_w,
                          stopped_at=stops_w))
+    # serve-stablelm's probe width, d_model 2560, both views, chained and
+    # timed (after the cases above, whose draws stay as they were)
+    stablelm = []
+    for same in (True, False):
+        err_s, margin_s, stops_s = k1_chain(
+            torch, K1, gen, 4, STABLELM_PROBE_F, win, steps, eta, lam,
+            burn_in, same=same)
+        stablelm.append(dict(f=STABLELM_PROBE_F, B=4, view="same" if same
+                             else "distinct", max_abs_err=err_s,
+                             lambda_margin=margin_s, stopped_at=stops_s,
+                             **k1_timed(torch, timer, K1, gen, 4,
+                                        STABLELM_PROBE_F, win, eta, burn_in,
+                                        same=same)))
     err = {k: max([c["max_abs_err"][k] for c in chains.values()]
                   + [v["max_abs_err"][k] for v in views + wide + llama]
                   + [err_r[k]])
@@ -540,7 +574,7 @@ def phase_k1(torch, timer):
                served_ms=served["ms"], served_plain_ms=served["plain_ms"],
                served_bound_ms=served["bound_ms"], served=served,
                distinct=timed, rwkv_width=rwkv, rwkv_served=rwkv_served,
-               llama_width=llama)
+               llama_width=llama, stablelm_width=stablelm)
     emit(res)
     return res
 
@@ -655,6 +689,7 @@ def split_sweep(torch, timer, name, launch, outs, n_pos):
 SMOLLM = (15, 5, 64, 32)
 LLAMA = (24, 8, 128, 28)
 QWEN = (40, 40, 128, 64)
+STABLELM = (32, 32, 80, 32)
 # K2 at d 128: (B, nb, pages, timed, case, shape).  First the served
 # decode steps of serve-llama (4 slots, 16 + 48 positions: 4 pages) and
 # serve-qwen (160 + 48: 13 pages, int8), then the other page dtypes at
@@ -670,6 +705,16 @@ K2_D128_CASES = [(4, 4, "bf16", True, None, LLAMA),
                  (8, 256, "int8", True, None, QWEN),
                  (8, 256, "int8", False, "holes", LLAMA),
                  (8, 256, "bf16", False, "one split", QWEN)]
+# K2 at d 80, G 1 (stablelm-3b): serve-stablelm's decode step (4 slots,
+# 160 + 48 positions: 13 pages) in each page dtype (f32: serve-stablelm-
+# f32), 4,096 positions split over 8 blocks (the d-80 merge), and the
+# untimed split cases
+K2_D80_CASES = [(4, 13, "bf16", True, None, STABLELM),
+                (4, 13, "int8", True, None, STABLELM),
+                (4, 13, "f32", True, None, STABLELM),
+                (8, 256, "bf16", True, None, STABLELM),
+                (8, 256, "int8", False, "holes", STABLELM),
+                (8, 256, "f32", False, "one split", STABLELM)]
 
 
 def phase_k2(torch, timer):
@@ -687,7 +732,7 @@ def phase_k2(torch, timer):
              (8, 64, "bf16", True, None), (8, 256, "bf16", False, "holes"),
              (8, 256, "int8", False, "holes"),
              (8, 256, "bf16", False, "one split")]
-    cases = [c + (SMOLLM,) for c in cases] + K2_D128_CASES
+    cases = [c + (SMOLLM,) for c in cases] + K2_D128_CASES + K2_D80_CASES
     rows = []
     for B, nb, dtype, timed, case, shape in cases:
         H, KV, d, layers = shape
@@ -896,6 +941,32 @@ K3_TREE = (3, 3)
 K3_TREE_CASES = [("tree 3.3", 16, dtype, [(10, 37), (10, 112), (10, 200),
                                           (10, 64)], shape)
                  for shape in (SMOLLM, LLAMA) for dtype in ("bf16", "int8")]
+# K3 at d 80, G 1 (stablelm-3b): serve-stablelm's chunk (a 160-token
+# prompt's third chunk packed with the next one's head) in each page dtype,
+# four segments, 4,000 cached positions split over 16 blocks (the d-80
+# merge), B3 chunks, the untimed holed and split rows, and the tree verify
+# shape
+K3_D80_B4_CASES = [
+    ("served", 16, "bf16", [(32, 128), (32, 0)], STABLELM),
+    ("served", 16, "int8", [(32, 128), (32, 0)], STABLELM),
+    ("served", 16, "f32", [(32, 128), (32, 0)], STABLELM),
+    ("four segments", 16, "bf16", [(16, 200), (16, 0), (16, 37), (8, 255)],
+     STABLELM),
+    ("nb 256", 256, "bf16", [(64, 4000)], STABLELM),
+    ("nb 256", 256, "int8", [(40, 4000), (24, 1500)], STABLELM),
+]
+K3_D80_B3_CASES = [(1, 64, 16, "bf16", [128], STABLELM),
+                   (1, 64, 16, "int8", [128], STABLELM),
+                   (1, 64, 16, "f32", [128], STABLELM),
+                   (4, 64, 256, "int8", [0, 64, 1000, 4000], STABLELM)]
+K3_D80_UNTIMED = [
+    ("holes", 16, "bf16", [(32, 200), (32, 100)], True, STABLELM),
+    ("holes, split", 256, "int8", [(40, 4000), (24, 1500)], True, STABLELM),
+    ("split, last split empty", 64, "bf16", [(64, 130)], False, STABLELM),
+]
+K3_D80_TREE_CASES = [("tree 3.3", 16, dtype, [(10, 37), (10, 112), (10, 200),
+                                              (10, 64)], STABLELM)
+                     for dtype in ("bf16", "int8")]
 # bf16 / int8 inputs upcast exactly; f32 sums in another order than the
 # plain one-shot softmax: K2's tolerances
 K3_M_TOL, K3_OUT_TOL = 1e-4, 2e-3
@@ -1049,12 +1120,15 @@ def k3_b3_case(torch, timer, gen, B, Cb, nb, dtype, cached, shape=None):
 
 def phase_k3(torch, timer):
     """smollm-360m's cases first (their draws as in every earlier run),
-    then the d-128 ones, then the tree verify cases."""
+    then the d-128 ones and the tree verify cases, then d 80's."""
     gen = torch.Generator().manual_seed(SEED + 3)
     rows = []
-    for b4, b3, untimed in ((K3_B4_CASES, K3_B3_CASES, K3_B4_UNTIMED),
-                            (K3_D128_B4_CASES, K3_D128_B3_CASES,
-                             K3_D128_UNTIMED)):
+    for b4, b3, untimed, tree in (
+            (K3_B4_CASES, K3_B3_CASES, K3_B4_UNTIMED, []),
+            (K3_D128_B4_CASES, K3_D128_B3_CASES, K3_D128_UNTIMED,
+             K3_TREE_CASES),
+            (K3_D80_B4_CASES, K3_D80_B3_CASES, K3_D80_UNTIMED,
+             K3_D80_TREE_CASES)):
         for name, nb, dtype, segs, *shape in b4:
             rows.append(k3_b4_case(torch, timer, gen, name, nb, dtype, segs,
                                    shape=shape[0] if shape else None))
@@ -1068,10 +1142,10 @@ def phase_k3(torch, timer):
                                    holes=holes, timed=False,
                                    shape=shape[0] if shape else None))
             emit(dict(phase="k3", **rows[-1]))
-    for name, nb, dtype, segs, shape in K3_TREE_CASES:
-        rows.append(k3_b4_case(torch, timer, gen, name, nb, dtype, segs,
-                               C=40, shape=shape, tree=K3_TREE))
-        emit(dict(phase="k3", **rows[-1]))
+        for name, nb, dtype, segs, shape in tree:
+            rows.append(k3_b4_case(torch, timer, gen, name, nb, dtype, segs,
+                                   C=40, shape=shape, tree=K3_TREE))
+            emit(dict(phase="k3", **rows[-1]))
     return rows
 
 
@@ -1342,6 +1416,8 @@ N_TRAIN, N_CAL, N_TEST, D_PHI = 500, 170, 170, 960
 RWKV_PROBE_F = 2048
 # serve-llama's probe width (llama3.2-3b's d_model)
 LLAMA_PROBE_F = 3072
+# and serve-stablelm's, stablelm-3b's d_model
+STABLELM_PROBE_F = 2560
 K5_TOL = 1e-5
 
 
@@ -1556,6 +1632,16 @@ K6_D128_CASES = [(8, 64, "bf16", True, LLAMA), (8, 208, "bf16", True, QWEN),
                  (8, 4096, "bf16", True, LLAMA),
                  (4, 4096, "bf16", True, QWEN),
                  (4, 4096, "f32", False, LLAMA)]
+# K6 at d 80, G 1: serve-stablelm's harvest (8 trajectories of 160 + 48
+# positions), a dense fleet's step, f32, 4,096 positions split (the d-80
+# merge, bf16 and f32)
+K6_D80_CASES = [(8, 208, "bf16", True, STABLELM),
+                (4, 208, "bf16", True, STABLELM),
+                (8, 208, "f32", True, STABLELM),
+                (4, 113, "f32", False, STABLELM),
+                (1, 16, "bf16", False, STABLELM),
+                (8, 4096, "bf16", True, STABLELM),
+                (4, 4096, "f32", False, STABLELM)]
 
 
 def dense_case(torch, gen, B, S, dtype, H=15, KV=5, d=64):
@@ -1582,7 +1668,8 @@ def phase_k6(torch, timer):
     from repro_torch.kernels import split as SP
     gen = torch.Generator().manual_seed(SEED + 6)
     rows = []
-    for B, S, dtype, timed, *shape in K6_CASES + K6_D128_CASES:
+    for B, S, dtype, timed, *shape in (K6_CASES + K6_D128_CASES
+                                       + K6_D80_CASES):
         H, KV, d, layers = shape[0] if shape else SMOLLM
         q, k, v, valid = dense_case(torch, gen, B, S, dtype, H, KV, d)
         o, l, m = K6.flash_decode(q, k, v, valid, return_partials=True)
@@ -1690,6 +1777,19 @@ K7_D128_CASES = [(1, 16, 16, None, "bf16", True, LLAMA),
                  (4, 160, 160, 64, "bf16", False, QWEN),
                  (4, 64, 160, None, "bf16", False, LLAMA),
                  (1, 48, 16, 8, "f32", False, LLAMA)]
+# K7 at d 80 (G 1): serve-stablelm's harvest prefill (8 prompts of 160),
+# one prompt, an admission of 16, 2,048 tokens, f32 (the f32 kernel's
+# lanes at d 80), a window, Sq < Sk, and a window past the keys in both
+# dtypes
+K7_D80_CASES = [(8, 160, 160, None, "bf16", True, STABLELM),
+                (1, 160, 160, None, "bf16", True, STABLELM),
+                (1, 16, 16, None, "bf16", True, STABLELM),
+                (4, 2048, 2048, None, "bf16", True, STABLELM),
+                (8, 160, 160, None, "f32", True, STABLELM),
+                (4, 160, 160, 64, "bf16", False, STABLELM),
+                (4, 64, 160, None, "bf16", False, STABLELM),
+                (1, 48, 16, 8, "f32", False, STABLELM),
+                (1, 48, 16, 8, "bf16", False, STABLELM)]
 
 
 def visible_pairs(sq, sk, window):
@@ -1718,7 +1818,8 @@ def phase_k7(torch, timer):
     from repro_torch.kernels import flash_attention as K7
     gen = torch.Generator().manual_seed(SEED + 7)
     rows = []
-    for B, sq, sk, window, dtype, timed, *shape in K7_CASES + K7_D128_CASES:
+    for B, sq, sk, window, dtype, timed, *shape in (K7_CASES + K7_D128_CASES
+                                                    + K7_D80_CASES):
         H, KV, d, _ = shape[0] if shape else SMOLLM
         dt = torch.bfloat16 if dtype == "bf16" else torch.float32
         q = torch.randn(B, sq, H, d, generator=gen).to(dt).to(DEV)
@@ -3821,8 +3922,10 @@ def phase_harvest_rwkv(torch, sched, n: int = 24, prompt_len: int = 16,
 # the d-128 fleets: llama3.2-3b (G 3) and qwen1.5-32b (G 1, int8 KV)
 
 LLAMA_ARCH, QWEN_ARCH = "llama3.2-3b", "qwen1.5-32b"
+STABLELM_ARCH = "stablelm-3b"
 # the new fleets: 4 requests on 4 slots, 48 new tokens, 8 harvested
-# trajectories; serve-qwen's prompts of 160 tokens go in 64-token chunks
+# trajectories; serve-qwen's and serve-stablelm's prompts of 160 tokens go
+# in 64-token chunks
 WIDE_REQUESTS, WIDE_NEW, WIDE_HARVEST = 4, 48, 8
 QWEN_PROMPT = 160
 # serve-llama-f32's depth: the float32 check fleets' stops, kept short
@@ -3889,7 +3992,8 @@ def wide_fleet(torch, arch, phase, extra=(), need=SERVE_NEED):
     """``launch.serve --arch <arch> --paged``: 4 requests on 4 slots, 48
     new tokens, 8 harvested trajectories.  The harvest runs K7 once a
     layer for its prefill and K6 once a layer a decode step, every
-    admission K7 (or, chunked, K3) and every engine step K2 and K1."""
+    admission K7 (or, chunked, K3 once a layer in each step that carries
+    a chunk) and every engine step K2 once a layer and K1 once."""
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
     res, out = serve_fleet(
@@ -3902,14 +4006,18 @@ def wide_fleet(torch, arch, phase, extra=(), need=SERVE_NEED):
     want = dict(flash_decode=layers * WIDE_NEW,
                 flash_attention=layers * (1 + (0 if chunked
                                                else WIDE_REQUESTS)),
-                paged_flash_decode=layers * res["engine_steps"])
+                paged_flash_decode=layers * res["engine_steps"],
+                serving_probe_step=res["engine_steps"])
+    if chunked:
+        want["paged_flash_packed_chunk"] = layers * res["prefill_chunks"]
     got = {k: lc[k] for k in want}
     if got != want:
         raise AssertionError(f"{phase} launches {got}, expected {want} (K6 "
                              f"once a layer in each of the harvest's "
                              f"{WIDE_NEW} steps; K7 once a layer for the "
                              "harvest and each admission prefilled at "
-                             "once; K2 once a layer an engine step)")
+                             "once; K2 once a layer an engine step, K1 "
+                             "once; K3 once a layer a step with a chunk)")
     res.update(layers=layers, step_ms=res["serve_wall_s"]
                / res["engine_steps"] * 1e3,
                params=sum(t.numel() for t in _leaves(out.scheduler.params)),
@@ -4131,6 +4239,26 @@ def main() -> int:
               max_new_tokens=WIDE_NEW)
     del out_l, sched
     free_card(torch)
+    # the d-80 fleet: stablelm-3b (G 1), serve-qwen's chunked 160-token
+    # prompts on bf16 pages
+    stablelm_model = phase_model_wide(torch, STABLELM_ARCH, "model-stablelm")
+    served_sl, out_sl = wide_fleet(
+        torch, STABLELM_ARCH, "serve-stablelm",
+        ("--chunk-tokens", str(CHUNK), "--prompt-len", str(QWEN_PROMPT)),
+        need=SERVE_NEED + ("paged_flash_packed_chunk", "ttt_probe_batched"))
+    if served_sl["packed_chunks"] < 1:
+        raise AssertionError("the stablelm fleet packed no chunk")
+    phase_trace(torch, out_sl.scheduler, prompt_len=QWEN_PROMPT,
+                phase="trace-stablelm")
+    sched = out_sl.scheduler
+    f32_stops(torch, "serve-stablelm-f32",
+              *f32_cut(sched, F32_LAYERS, kv_cache_dtype="float32"),
+              sched.pc, sched.theta, PlainAttention(),
+              ("paged_flash_decode", "paged_flash_packed_chunk"),
+              requests=WIDE_REQUESTS, prompt_len=QWEN_PROMPT, paged=True,
+              chunk_tokens=CHUNK, max_new_tokens=WIDE_NEW)
+    del out_sl, sched
+    free_card(torch)
     qwen_model = phase_model_wide(torch, QWEN_ARCH, "model-qwen")
     free_card(torch)
     served_q, out_q = wide_fleet(
@@ -4181,9 +4309,9 @@ def main() -> int:
         return next(r for r in rows if all(r.get(k) == v
                                            for k, v in kw.items()))
 
-    def d128_err(rows, g, keys):
+    def d128_err(rows, g, keys, d=128):
         return max(max(r[k] for k in keys if k in r) for r in rows
-                   if r["d"] == 128 and g_of(r) == g)
+                   if r["d"] == d and g_of(r) == g)
 
     def d128_entry(name, source, replaces, launches, err, row):
         # K3 and K7 run their products on the tensor cores: their bound
@@ -4256,6 +4384,31 @@ def main() -> int:
                         tree_f32["tree_primed"]["k4_checked_err"]),
         ms=k4["ms"], plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
         bound_by=k4["bound_by"], library_ms=None))
+    # the d-80 instances (G 1) on serve-stablelm's path, bf16 pages,
+    # through the d-128 rows' helpers
+    fl, mw = served_sl["launches"], stablelm_model
+    d80_rows = [
+        d128_entry("paged_flash_decode (d 80, G 1, bf16)", "paged_decode.cu",
+                   "decode_attention.py:231", fl["paged_flash_decode"],
+                   max(d128_err(k2, 1, k2_keys, d=80),
+                       mw["bf16"]["k2_out_err"]),
+                   pick(k2, d=80, pages="bf16", B=4, case=None)),
+        d128_entry("paged_flash_packed_chunk (d 80, G 1, bf16)",
+                   "paged_chunk.cu", "decode_attention.py:298",
+                   fl["paged_flash_packed_chunk"],
+                   d128_err([r for r in k3 if r["fn"] == "B4"], 1, k3_keys,
+                            d=80),
+                   pick(k3, fn="B4", d=80, pages="bf16", case="served")),
+        d128_entry("flash_decode (d 80, G 1, bf16)", "flash_decode.cu",
+                   "decode_attention.py:78", fl["flash_decode"],
+                   max(d128_err(k6, 1, k6_keys, d=80),
+                       mw["dense"]["k6_out_err"]),
+                   pick(k6, d=80, B=8, S=208, cache="bf16")),
+        d128_entry("flash_attention (d 80, G 1, bf16)", "flash_attention.cu",
+                   "flash_attention.py:64", fl["flash_attention"],
+                   max(max(r["max_abs_err"] for r in k7 if r["d"] == 80),
+                       mw["dense"]["k7_err"]),
+                   pick(k7, d=80, dtype="bf16", B=8, Sq=160))]
     llama_k1 = pick(k1["llama_width"], view="distinct")
     d128_rows.append(dict(
         name=f"serving_probe_step (f {LLAMA_PROBE_F})", route="cuda",
@@ -4339,7 +4492,7 @@ def main() -> int:
              ms=k8[0]["ms"], plain_ms=k8[0]["plain_ms"],
              bound_ms=k8[0]["bound_ms"], bound_by=k8[0]["bound_by"],
              library_ms=None),
-    ] + d128_rows})
+    ] + d128_rows + d80_rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()

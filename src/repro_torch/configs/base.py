@@ -205,7 +205,8 @@ ALIASES = {
 # the configs the port carries; every other family raises.  A dense config
 # is ported only with its (d_head, n_heads // n_kv_heads) in the instance
 # sets of the attention kernels (tests/test_torch_d128.py holds this)
-PORTED = ("smollm_360m", "rwkv6_1b6", "llama32_3b", "qwen15_32b")
+PORTED = ("smollm_360m", "rwkv6_1b6", "llama32_3b", "qwen15_32b",
+          "stablelm_3b")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -213,7 +214,8 @@ def get_config(name: str) -> ModelConfig:
     if mod_name in ARCH_IDS and mod_name not in PORTED:
         raise NotImplementedError(
             f"{name!r} is not ported to repro_torch yet: the port carries "
-            "smollm-360m, rwkv6-1.6b, llama3.2-3b and qwen1.5-32b; the "
-            "others come with ROADMAP queue A7 (other families)")
+            "smollm-360m, rwkv6-1.6b, llama3.2-3b, qwen1.5-32b and "
+            "stablelm-3b; the others come with ROADMAP queue A7 (other "
+            "families)")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG

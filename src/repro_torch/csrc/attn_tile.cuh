@@ -28,19 +28,20 @@
 //
 // Layout (the m16n8k16 fragments, FlashAttention-2's register scheme).  A
 // warp owns 16 query rows.  A 64-key tile of K and of V sits in shared
-// memory as bf16 rows of the head dim D (64 or 128; every name below that
-// depends on it is a member of Dims<D>), padded by 8 elements (144 or 272
-// bytes, an odd number of 16-byte words), so the eight 16-byte rows one
-// ldmatrix phase reads fall on distinct banks.  Scores S (16 x 64) and the
+// memory as bf16 rows of the head dim D (64, 80 or 128; every name below
+// that depends on it is a member of Dims<D>), padded by 8 elements (144,
+// 176 or 272 bytes, an odd number of 16-byte words), so the eight 16-byte
+// rows one ldmatrix phase reads fall on distinct banks.  Scores S (16 x 64) and the
 // output accumulator (16 x D) are m16n8 C fragments: a thread holds rows
 // lane/4 and lane/4 + 8, columns 8 n + 2 (lane % 4) + {0, 1}.  K's B
 // fragments come through ldmatrix, V's through ldmatrix.trans; the C
 // fragments of two score tiles are the A fragment of one P.V step, so p
 // never touches shared memory.  Q's A fragments come from registers (K7,
-// QRegs) or through ldmatrix from the warp's rows in shared memory (K3,
-// QShared: three terms of D columns would hold 24 D / 16 registers a
-// thread, 192 at d 128).  Per warp and tile: 4 D / 8 mma for Q.K^T per q
-// term, 12 D / 8 for P.V (three p terms).
+// QRegs) or through ldmatrix from the warp's rows in shared memory (K3 at
+// d 128, QShared: three terms of D columns hold 12 D / 16 registers a
+// thread, 96 at d 128; K3 keeps d 64's 48 and d 80's 60 in registers).
+// Per warp and tile: 4 D / 8 mma for Q.K^T per q term, 12 D / 8 for P.V
+// (three p terms).
 
 // The f32 instances of K3 and K7 (f32 pages, the f32 model) keep their
 // CUDA-core bodies: an f32 K or V would need its own three-term split on
@@ -59,7 +60,8 @@ namespace attn_tile {
 constexpr int kBK = 64;                 // keys per tile
 constexpr int kKTiles = kBK / 8;        // n8 tiles of the scores
 
-// the figures that follow the head dim D (64 or 128)
+// the figures that follow the head dim D (64, 80 or 128; at d 80 10
+// output tiles, 5 k-steps, rows of 88)
 template <int D>
 struct Dims {
   static_assert(D % 16 == 0, "whole m16n8k16 k-steps");

@@ -27,17 +27,22 @@
 //     its block-table row) into shared memory in one coalesced pass, the
 //     same pass that finds the live range.  A K/V load then waits on no
 //     global index load;
-//   * loads in flight: every lane holds 16 dims of a position, so a
-//     position takes D / 16 lanes (4 at d 64, 8 at d 128) and a warp
-//     32 / (D / 16) positions a load (8 or 4); a warp takes its positions
-//     in groups of U such loads (U = 4 / sizeof(T): at d 64 8 f32, 16
-//     bf16 or 32 int8 positions, half as many at d 128), each lane
-//     loading its 16 dims with 16-byte loads, so a group is 128 bytes of
-//     K and V a lane (4 KB a warp) at either d, coalesced rows, and a
-//     lane's registers (R x 16 of q and of the output) do not grow with
-//     d.  The next group's loads are issued into registers
-//     before the current group is computed (a register double buffer), so
-//     a group stays in flight while the warp computes.  (A cp.async ring
+//   * loads in flight: a position takes kLanes lanes, the most (a power
+//     of two) that leave each lane 16 dims or more: 4 lanes of 16 dims at
+//     d 64, 8 of 16 at d 128, 4 of 20 at d 80 (5 lanes of 16 would not
+//     divide a warp); a warp holds 32 / kLanes positions a load (8, 4 or
+//     8) and takes its positions in groups of U such loads (U = 4 /
+//     sizeof(T): at d 64 and d 80 8 f32, 16 bf16 or 32 int8 positions,
+//     half as many at d 128).  Each lane loads its dims in the widest
+//     words that tile them: 16-byte words at d 64 and d 128 (a group is
+//     128 bytes of K and V a lane, 4 KB a warp); at d 80 five words a
+//     lane, of 16 bytes (f32), 8 (bf16) or 4 (int8), aligned at the rows'
+//     320, 160 and 80-byte strides (80 bytes of K and V a lane a group).
+//     Rows stay coalesced, and a lane's registers (R x 16 or R x 20 of q
+//     and of the output) do not grow with d.  The next group's loads are
+//     issued into registers before the current group is computed (a
+//     register double buffer), so a group stays in flight while the warp
+//     computes.  (A cp.async ring
 //     in shared memory, tried first, held fewer registers but was not
 //     faster for bf16 and f32 pages, whatever its depth.);
 //   * one softmax correction per group and row: the warp takes the max of
@@ -51,7 +56,8 @@
 //     (k) and fold into p (v); all arithmetic is f32;
 //   * at the end the warps merge through shared memory, and the block
 //     writes the UNNORMALISED partials (o, l, m) of its share.
-// Instances (D, R): (64, 3), (128, 3) and (128, 1).  ptxas (build.log,
+// Instances (D, R): (64, 3), (128, 3), (128, 1) and (80, 1) (its
+// registers and spills: build.log and PERF.md).  ptxas (build.log,
 // sm_90a), no spill in any: at R 3 K2 219 registers (bf16), 255 (int8),
 // 186 to 190 (f32), K6 218 to 220 (bf16), 186 to 190 (f32), at d 64 and
 // d 128 alike; at R 1 K2 128, 162, 118 and K6 126, 105.  Static shared
@@ -104,44 +110,89 @@ __device__ __forceinline__ float round_as<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// one 16-byte word of a row -> its elements in f32, exactly
+// one 32-bit piece of a row -> its elements in f32, exactly
 template <typename T>
-struct Word;
+struct Piece;
 template <>
-struct Word<float> {
+struct Piece<float> {
+  static constexpr int kElems = 1;
+  __device__ __forceinline__ static void unpack(uint32_t w, float* out) {
+    out[0] = __uint_as_float(w);
+  }
+};
+template <>
+struct Piece<__nv_bfloat16> {
+  static constexpr int kElems = 2;
+  __device__ __forceinline__ static void unpack(uint32_t w, float* out) {
+    out[0] = __uint_as_float(w << 16);           // the low half first
+    out[1] = __uint_as_float(w & 0xffff0000u);
+  }
+};
+template <>
+struct Piece<int8_t> {
   static constexpr int kElems = 4;
-  __device__ __forceinline__ static void unpack(const uint4& u, float* out) {
-    out[0] = __uint_as_float(u.x);
-    out[1] = __uint_as_float(u.y);
-    out[2] = __uint_as_float(u.z);
-    out[3] = __uint_as_float(u.w);
+  __device__ __forceinline__ static void unpack(uint32_t w, float* out) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      out[b] = static_cast<float>(static_cast<int8_t>((w >> (8 * b)) & 0xffu));
+  }
+};
+
+// the load type of a word of 16, 8 or 4 bytes, and its 32-bit pieces
+template <int kBytes>
+struct Raw;
+template <>
+struct Raw<16> {
+  using type = uint4;
+  __device__ __forceinline__ static void pieces(const uint4& u, uint32_t* w) {
+    w[0] = u.x;
+    w[1] = u.y;
+    w[2] = u.z;
+    w[3] = u.w;
   }
 };
 template <>
-struct Word<__nv_bfloat16> {
-  static constexpr int kElems = 8;
-  __device__ __forceinline__ static void unpack(const uint4& u, float* out) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {   // element 2i is the low half
-      out[2 * i] = __uint_as_float(w[i] << 16);
-      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
+struct Raw<8> {
+  using type = uint2;
+  __device__ __forceinline__ static void pieces(const uint2& u, uint32_t* w) {
+    w[0] = u.x;
+    w[1] = u.y;
   }
 };
 template <>
-struct Word<int8_t> {
-  static constexpr int kElems = 16;
-  __device__ __forceinline__ static void unpack(const uint4& u, float* out) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        out[4 * i + b] = static_cast<float>(
-            static_cast<int8_t>((w[i] >> (8 * b)) & 0xffu));
+struct Raw<4> {
+  using type = uint32_t;
+  __device__ __forceinline__ static void pieces(uint32_t u, uint32_t* w) {
+    w[0] = u;
   }
 };
+
+// one kBytes word of a row -> its elements in f32, exactly
+template <typename T, int kBytes>
+struct Word {
+  using raw = typename Raw<kBytes>::type;
+  static constexpr int kElems = kBytes / static_cast<int>(sizeof(T));
+  __device__ __forceinline__ static void unpack(const raw& u, float* out) {
+    uint32_t w[kBytes / 4];
+    Raw<kBytes>::pieces(u, w);
+#pragma unroll
+    for (int i = 0; i < kBytes / 4; ++i)
+      Piece<T>::unpack(w[i], out + i * Piece<T>::kElems);
+  }
+};
+
+// Lanes a position: the most, a power of two, that leave each lane 16
+// dims or more (4 at d 64 and d 80, 8 at d 128).
+__host__ __device__ constexpr int lanes_per_position(int d) {
+  int n = 1;
+  while (2 * n <= 32 && d % (2 * n) == 0 && d / (2 * n) >= 16) n *= 2;
+  return n;
+}
+
+// The widest word (16, 8 or 4 bytes) that tiles a lane's `bytes`.
+__host__ __device__ constexpr int word_bytes(int bytes) {
+  return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : 4;
+}
 
 // The row of position p, in units of D elements of the K/V buffers (and
 // of their scales): through the batch row's block table, staged in shared
@@ -187,18 +238,23 @@ __device__ __forceinline__ void attend(
     int n_pos, Rows rows, float scale, uint8_t* smem,
     float* __restrict__ o, float* __restrict__ l_out,
     float* __restrict__ m_out) {
-  constexpr int kLanes = D / 16;               // lanes a position: 4, 8
+  constexpr int kLanes = lanes_per_position(D);   // 4, 8 or 4 (d 80)
   constexpr int kRowsW = 32 / kLanes;          // positions a warp a load
-  constexpr int kDpl = D / kLanes;             // dims per lane: 16
-  static_assert(kLanes * kRowsW == 32, "a warp holds whole positions");
-  constexpr int kVec = kDpl * static_cast<int>(sizeof(T)) / 16;
-  static_assert(kVec * 16 == kDpl * static_cast<int>(sizeof(T)),
-                "a lane's slice of a row must be whole 16-byte words");
-  static_assert(Word<T>::kElems * kVec == kDpl, "word size");
+  constexpr int kDpl = D / kLanes;             // dims per lane: 16 or 20
+  static_assert(kLanes * kRowsW == 32 && kDpl * kLanes == D,
+                "a warp holds whole positions");
+  constexpr int kSliceBytes = kDpl * static_cast<int>(sizeof(T));
+  constexpr int kWordBytes = word_bytes(kSliceBytes);
+  using W = Word<T, kWordBytes>;
+  using Raw_t = typename W::raw;
+  constexpr int kVec = kSliceBytes / kWordBytes;   // words a lane a row
+  static_assert(kVec * kWordBytes == kSliceBytes && (D * sizeof(T)) % 16 == 0,
+                "a lane's slice of a row must be whole, aligned words");
+  static_assert(W::kElems * kVec == kDpl, "word size");
   constexpr int U = 4 / static_cast<int>(sizeof(T));   // positions a lane
   constexpr int kGroup = kRowsW * U;            // positions a warp a group
   constexpr bool kScaled = sizeof(T) == 1;
-  constexpr int kPerWord = Word<T>::kElems;
+  constexpr int kPerWord = W::kElems;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int quad = lane / kLanes, qi = lane % kLanes;
 
@@ -266,11 +322,11 @@ __device__ __forceinline__ void attend(
   }
   const int n_groups = hi > lo ? (hi - lo + kGroup - 1) / kGroup : 0;
 
-  // ---- the warp's groups g = warp, warp + kWarps, ...: the lane's 16
+  // ---- the warp's groups g = warp, warp + kWarps, ...: the lane's kDpl
   // dims of the group's K and V rows (and int8 scales) land in registers,
   // loaded one group ahead of the one it computes
   struct Slot {
-    uint4 k[U][kVec], v[U][kVec];
+    Raw_t k[U][kVec], v[U][kVec];
     float ks[U], vs[U];
   };
   auto issue = [&](int g, Slot& s) {
@@ -281,14 +337,14 @@ __device__ __forceinline__ void attend(
       // an invalid position reads nothing and stays zeros
 #pragma unroll
       for (int c = 0; c < kVec; ++c)
-        s.k[u][c] = s.v[u][c] = make_uint4(0u, 0u, 0u, 0u);
+        s.k[u][c] = s.v[u][c] = Raw_t{};
       s.ks[u] = s.vs[u] = 0.f;
       if (ok) {
         const size_t row = rows(p);
-        const uint4* kp =
-            reinterpret_cast<const uint4*>(k + row * D) + qi * kVec;
-        const uint4* vp =
-            reinterpret_cast<const uint4*>(v + row * D) + qi * kVec;
+        const Raw_t* kp =
+            reinterpret_cast<const Raw_t*>(k + row * D + qi * kDpl);
+        const Raw_t* vp =
+            reinterpret_cast<const Raw_t*>(v + row * D + qi * kDpl);
 #pragma unroll
         for (int c = 0; c < kVec; ++c) {
           s.k[u][c] = __ldg(kp + c);
@@ -318,14 +374,14 @@ __device__ __forceinline__ void attend(
       const int p = lo + g * kGroup + kRowsW * u + quad;
       ok[u] = p < hi && s_valid[p] != 0;
     }
-    // scores: each lane's 16-dim slice, summed over the position's lanes
+    // scores: each lane's kDpl-dim slice, summed over the position's lanes
     float sc[R][U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kf[kDpl];
 #pragma unroll
       for (int c = 0; c < kVec; ++c)
-        Word<T>::unpack(s.k[u][c], kf + c * kPerWord);
+        W::unpack(s.k[u][c], kf + c * kPerWord);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float d = 0.f;
@@ -370,13 +426,13 @@ __device__ __forceinline__ void attend(
         m_run[r] = m_new;
       }
     }
-    // P.V: each lane's 16 dims of the position's V row
+    // P.V: each lane's kDpl dims of the position's V row
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float vf[kDpl];
 #pragma unroll
       for (int c = 0; c < kVec; ++c)
-        Word<T>::unpack(s.v[u][c], vf + c * kPerWord);
+        W::unpack(s.v[u][c], vf + c * kPerWord);
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll

@@ -25,7 +25,9 @@
 //   * one block of 4 warps per (64-row query tile, head, batch row), each
 //     warp 16 rows, at most 168 registers a thread at d 64 so that 3
 //     blocks share an SM (2 at d 128, whose output fragments take 32 more
-//     registers and its K/V stages 68 KB of shared memory); the G heads
+//     registers and its K/V stages 68 KB of shared memory, and 2 at d 80,
+//     whose 8 more registers of output and 4 of q would not fit 168
+//     without spilling, at 44 KB of K/V stages); the G heads
 //     of a KV head read its K/V tiles through L2.  One
 //     block of 12 warps per KV head (each K/V tile loaded once for the G
 //     heads) ran no faster on the card at any served shape and slower at
@@ -47,8 +49,8 @@
 // What bounds it then is the tile body: per warp and tile 16 D / 8
 // mma.sync (4 D / 8 for Q.K^T, 12 D / 8 for the three-term P.V, twice a
 // bf16 flash kernel's), the exponentials and the splits, with the softmax
-// between the two products.  Instances: d 64 and d 128 (FLASH_INSTANCE
-// below), each bf16 and f32, any G; their registers and spills stand in
+// between the two products.  Instances: d 64, d 128 and d 80
+// (FLASH_INSTANCE below), each bf16 and f32, any G; their registers and spills stand in
 // build.log (ptxas, sm_90a) and PERF.md.  The f32 instances (the f32
 // check fleets only) keep the CUDA-core kernel below
 // (flash_attention_f32_kernel); attn_tile.cuh says why.
@@ -90,8 +92,8 @@ __host__ __device__ constexpr int tc_smem_bytes() {
   return 2 * 2 * Dims<D>::kTileElems * 2;
 }
 
-// blocks an SM must hold: 3 at d 64 (168 registers a thread), 2 at d 128,
-// whose output fragments and q take 48 registers more
+// blocks an SM must hold: 3 at d 64 (168 registers a thread), 2 at d 80
+// and d 128, whose output fragments and q take 12 and 48 registers more
 template <int D>
 __global__ void __launch_bounds__(kThreadsTC, D <= 64 ? 3 : 2)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
@@ -241,11 +243,12 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 //   * the block walks 64-key tiles as above, staging K and V in shared
 //     memory (16-byte loads, K rows padded to D + 4 floats so that each
 //     lane's float4 reads of its own key hit distinct banks), dynamic
-//     shared memory: 37,888 bytes at d 64, 74,752 at d 128;
+//     shared memory: 37,888 bytes at d 64, 47,104 at d 80, 74,752 at
+//     d 128;
 //   * scores: lane j takes keys j and j + 32 of the tile for the warp's 4
 //     rows at once; the online softmax (m, l, acc) of each row is carried
 //     in registers: m warp-uniform, l per lane (summed at the end), acc as
-//     the lane's D / 32 output dims; P.V takes each key's p by shuffle.
+//     the lane's output dims (F32Dims); P.V takes each key's p by shuffle.
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -262,6 +265,25 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 template <int D>
 __host__ __device__ constexpr int f32_k_stride() { return D + 4; }
 
+// The output dims a lane owns.  At d 64 and d 128 kDpl = D / 32 adjacent
+// ones (2 or 4), read as float2 words; at d 80 (2.5 a lane) dims lane,
+// lane + 32 and, for the half-warp of lanes under 16, lane + 64: one
+// float a read, neighbouring lanes on neighbouring banks.
+template <int D>
+struct F32Dims {
+  static constexpr bool kAdjacent = D % 64 == 0;
+  static constexpr int kDpl = (D + 31) / 32;
+  static_assert(kAdjacent ? kDpl == 2 || kDpl == 4 : D % 32 == 16,
+                "a lane owns 2 or 4 adjacent dims, or two of 32 and half of "
+                "16");
+  __device__ __forceinline__ static int dim(int lane, int c) {
+    return kAdjacent ? kDpl * lane + c : lane + 32 * c;
+  }
+  __device__ __forceinline__ static bool owns(int lane, int c) {
+    return kAdjacent || lane + 32 * c < D;
+  }
+};
+
 template <int D>
 __host__ __device__ constexpr int f32_smem_bytes() {
   return (kBQ * D + kBK * f32_k_stride<D>() + kBK * D) * 4;
@@ -274,8 +296,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ v,
                            float* __restrict__ out, int Sq, int Sk, int H,
                            int n_kv, int causal, int window, float scale) {
-  constexpr int kDpl = D / 32;              // output dims a lane owns
-  static_assert(kDpl == 2 || kDpl == 4, "a lane owns 2 or 4 output dims");
+  using Lane = F32Dims<D>;
+  constexpr int kDpl = Lane::kDpl;          // output dims a lane owns
   constexpr int kPer = 4;                   // floats per 16-byte load
   constexpr int kKStride = f32_k_stride<D>();
   extern __shared__ __align__(16) float fsmem[];
@@ -378,20 +400,29 @@ flash_attention_f32_kernel(const float* __restrict__ q,
       m_run[r] = m_new;
     }
 
-    // P.V: lane owns output dims kDpl lane .. kDpl lane + kDpl - 1
+    // P.V: lane owns output dims Lane::dim(lane, c)
 #pragma unroll 4
     for (int j = 0; j < 32; ++j) {
       float va[kDpl], vb[kDpl];
+      if constexpr (Lane::kAdjacent) {
 #pragma unroll
-      for (int c = 0; c < kDpl; c += 2) {
-        const float2 x =
-            *reinterpret_cast<const float2*>(&s_v[j * D + kDpl * lane + c]);
-        const float2 y = *reinterpret_cast<const float2*>(
-            &s_v[(j + 32) * D + kDpl * lane + c]);
-        va[c] = x.x;
-        va[c + 1] = x.y;
-        vb[c] = y.x;
-        vb[c + 1] = y.y;
+        for (int c = 0; c < kDpl; c += 2) {
+          const float2 x =
+              *reinterpret_cast<const float2*>(&s_v[j * D + kDpl * lane + c]);
+          const float2 y = *reinterpret_cast<const float2*>(
+              &s_v[(j + 32) * D + kDpl * lane + c]);
+          va[c] = x.x;
+          va[c + 1] = x.y;
+          vb[c] = y.x;
+          vb[c + 1] = y.y;
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < kDpl; ++c) {
+          const bool own = Lane::owns(lane, c);
+          va[c] = own ? s_v[j * D + Lane::dim(lane, c)] : 0.f;
+          vb[c] = own ? s_v[(j + 32) * D + Lane::dim(lane, c)] : 0.f;
+        }
       }
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -421,16 +452,18 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int c = 0; c < kDpl; ++c) o[c] = 0.f;
       for (int j = 0; j < Sk; ++j) {
-        const float* vr = v_b + j * kv_row + kDpl * lane;
+        const float* vr = v_b + j * kv_row;
 #pragma unroll
-        for (int c = 0; c < kDpl; ++c) o[c] += vr[c];
+        for (int c = 0; c < kDpl; ++c)
+          if (Lane::owns(lane, c)) o[c] += vr[Lane::dim(lane, c)];
       }
 #pragma unroll
       for (int c = 0; c < kDpl; ++c) o[c] /= static_cast<float>(Sk);
     }
     float* orow = out + (static_cast<size_t>(b) * Sq + qpos) * q_row + h * D;
 #pragma unroll
-    for (int c = 0; c < kDpl; ++c) orow[kDpl * lane + c] = o[c];
+    for (int c = 0; c < kDpl; ++c)
+      if (Lane::owns(lane, c)) orow[Lane::dim(lane, c)] = o[c];
   }
 }
 
@@ -497,6 +530,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                                 dtype_code, scale, st));
   FLASH_INSTANCE(64)
   FLASH_INSTANCE(128)
+  FLASH_INSTANCE(80)
 #undef FLASH_INSTANCE
   return static_cast<int>(cudaErrorInvalidValue);
 }

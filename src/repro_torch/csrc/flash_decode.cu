@@ -133,6 +133,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   DECODE_INSTANCE(64, 3)
   DECODE_INSTANCE(128, 3)
   DECODE_INSTANCE(128, 1)
+  DECODE_INSTANCE(80, 1)
 #undef DECODE_INSTANCE
   return static_cast<int>(cudaErrorInvalidValue);
 }

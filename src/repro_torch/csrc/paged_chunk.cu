@@ -23,11 +23,11 @@
 // page loads and products.  The design shortens that chain:
 //   * one block per (tile of 16 query tokens, KV head, segment, split);
 //     warp g owns the tile's 16 rows of query head g of the KV head (G = 3
-//     for smollm-360m and llama3.2-3b: 3 warps; G = 1 for qwen1.5-32b: 4
-//     warps, the three beside the head's warp only staging tiles).  A
-//     block whose tile holds no token of its segment exits at once, so
-//     every output row is written exactly once, by its own segment's
-//     block;
+//     for smollm-360m and llama3.2-3b: 3 warps; G = 1 for qwen1.5-32b and
+//     stablelm-3b: 4 warps, the three beside the head's warp only staging
+//     tiles).  A block whose tile holds no token of its segment exits at
+//     once, so every output row is written exactly once, by its own
+//     segment's block;
 //   * index setup once per block: the segment's validity row and block-
 //     table row come into shared memory in one coalesced pass; from them
 //     the block marks the 64-position tiles holding a valid position (and
@@ -42,8 +42,8 @@
 //     three bf16 terms so the result is the f32 one; at d 128 each warp's
 //     three q terms sit in shared memory (ChunkQ: QShared), read through
 //     ldmatrix a k-step at a time, so its registers hold the output
-//     fragments and not 96 words of q (at d 64 they stay in registers,
-//     QRegs).  int8 pages land raw in the ring
+//     fragments and not 96 words of q (at d 64 and d 80 they stay in
+//     registers, QRegs: 48 and 60 words).  int8 pages land raw in the ring
 //     and are converted exactly to bf16 in shared memory after the wait;
 //     k_scale multiplies the score, v_scale is folded into p;
 //   * split-KV: past 256 virtual positions (kernels/paged_chunk.py
@@ -61,19 +61,24 @@
 // f32 pages (the f32 check fleets only) keep the CUDA-core kernel below
 // (paged_chunk_f32_kernel), which walks the row in tiles of 16 positions
 // with the products in f32; attn_tile.cuh says why.
-// Instances: (d, G) = (64, 3), (128, 3) and (128, 1) (CHUNK_INSTANCE
-// below), each for f32, bf16 and int8 pages.  Shared memory of a bf16
-// block: two stages of K and V tiles (36,864 bytes at d 64, 69,632 at d
-// 128; int8 one bf16 stage plus two raw stages and the scales), at d 128
-// G x 3 x 16 rows of q terms (13,056 bytes a warp), the validity row,
-// table row and tile flags.  Registers and spills of every
-// instance: build.log (ptxas, sm_90a) and PERF.md.  At the served chunk
+// Instances: (d, G) = (64, 3), (128, 3), (128, 1) and (80, 1)
+// (CHUNK_INSTANCE below), each for f32, bf16 and int8 pages.  Shared
+// memory of a bf16 block: two stages of K and V tiles (36,864 bytes at d
+// 64, 45,056 at d 80, 69,632 at d 128; int8 one bf16 stage plus two raw
+// stages and the scales), at d 128 G x 3 x 16 rows of q terms (13,056
+// bytes a warp), the validity row, table row and tile flags.  At d 80 a
+// bf16 row is ten 16-byte words (an int8 row five), each cp.async word
+// aligned at the 160-byte (80-byte) page row and the 176-byte shared
+// row.  Registers and spills of every instance: build.log (ptxas,
+// sm_90a) and PERF.md.  At the served chunk
 // the block count and each block's chain of setup, first tile load and
 // two tiles bound the call, not registers or occupancy.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "attn_tile.cuh"
 #include "split_merge.cuh"
@@ -99,18 +104,16 @@ __device__ __forceinline__ int segment_of(const int* __restrict__ seg,
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
 
-// Where a warp's three q terms live, per head dim: at d 64 in registers
-// (48 words a thread), at d 128 in shared memory (in registers they would
-// take 96, beside 64 of output fragments).
+// Where a warp's three q terms live, per head dim: at d 64 and d 80 in
+// registers (48 and 60 words a thread, beside 32 and 40 of output
+// fragments: no ldmatrix of q on a tile's chain, no shared rows to fill),
+// at d 128 in shared memory (in registers they would take 96, beside 64
+// of output fragments).
 template <int D>
 struct ChunkQ {
-  using type = attn_tile::QShared<D>;
-  static constexpr bool kShared = true;
-};
-template <>
-struct ChunkQ<64> {
-  using type = attn_tile::QRegs<64, 3>;
-  static constexpr bool kShared = false;
+  static constexpr bool kShared = D > 80;
+  using type = typename std::conditional<kShared, attn_tile::QShared<D>,
+                                         attn_tile::QRegs<D, 3>>::type;
 };
 
 // Warps a block: one a query head of the KV head; at G 1 four, the three
@@ -176,7 +179,7 @@ paged_chunk_tc_kernel(const float* __restrict__ q, const int* __restrict__ seg,
   constexpr int kRow = Dims<D>::kRow;
   constexpr int kTileElems = Dims<D>::kTileElems;
   constexpr int kWords = D / 8;          // 16-byte words of a bf16 row
-  constexpr int kWords8 = D / 16;        // of an int8 row
+  constexpr int kWords8 = D / 16;        // of an int8 row (5 at d 80)
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ bool s_act[kTokens];
   __shared__ int s_first, s_last;
@@ -485,8 +488,10 @@ cudaError_t launch_tc(const void* q, const void* seg, int seg_div,
 //     memory, 16 threads a position;
 //   * one half-warp per query token: for scores, lane j takes key j of the
 //     tile; for the output, lane j owns dims [kDpl j, kDpl (j + 1)) of each
-//     of the token's G rows (kDpl = D / 16: 4 at d 64, 8 at d 128); the
-//     online softmax is carried in registers in f32.
+//     of the token's G rows (kDpl = D / 16: 4 at d 64, 8 at d 128, read as
+//     float4 words; 5 at d 80, read one float at a time, the lanes' stride
+//     of 5 floats on distinct banks); the online softmax is carried in
+//     registers in f32.
 
 constexpr int kThreadsF32 = kTokens * 16;   // one half-warp per token
 constexpr int kKeysF32 = 16;                // key positions per shared tile
@@ -502,8 +507,10 @@ paged_chunk_f32_kernel(const float* __restrict__ q,
                        float* __restrict__ l_out, float* __restrict__ m_out,
                        int n_tok, int n_seg, int n_kv, int bs, int nb,
                        float scale) {
-  constexpr int kDpl = D / 16;      // dims a lane owns, whole float4s
-  static_assert(kDpl % 4 == 0, "a lane's dims are whole float4 words");
+  constexpr int kDpl = D / 16;      // dims a lane owns
+  static_assert(kDpl * 16 == D, "a half-warp holds a row");
+  constexpr bool kQuads = kDpl % 4 == 0;   // a lane's dims in float4 words
+  constexpr int kWordsF = D / 4;           // float4 words of a K/V row
   constexpr int kQStride = D + 1;   // padded: the two half-warps of a warp
   constexpr int kKStride = D + 1;   // read other banks; lanes read K rows
   __shared__ float sQ[kTokens * G * kQStride];
@@ -557,8 +564,8 @@ paged_chunk_f32_kernel(const float* __restrict__ q,
     }
     if (!__syncthreads_or(ok)) continue;
 
-    // stage the 16 positions' K and V, 16 threads a position, kDpl / 4
-    // float4 words each
+    // stage the 16 positions' K and V, 16 threads a position, float4
+    // words c, c + 16, ... of the row each
     {
       const int pl = tid / 16, c = tid % 16;
       size_t pos_row = 0;
@@ -568,7 +575,8 @@ paged_chunk_f32_kernel(const float* __restrict__ q,
                   (p % bs);
       }
 #pragma unroll
-      for (int w = 0; w < kDpl / 4; ++w) {
+      for (int w = 0; w < (kWordsF + 15) / 16; ++w) {
+        if (kWordsF % 16 != 0 && c + 16 * w >= kWordsF) break;
         const int col = 4 * (c + 16 * w);
         float4 kf = make_float4(0.f, 0.f, 0.f, 0.f), vf = kf;
         if (s_ok[pl]) {
@@ -611,14 +619,20 @@ paged_chunk_f32_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < kKeysF32; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j, 16);
+        const float* vrow = &sV[j * D + kDpl * lane];
+        if constexpr (kQuads) {
 #pragma unroll
-        for (int w = 0; w < kDpl / 4; ++w) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              &sV[j * D + kDpl * lane + 4 * w]);
-          acc[g][4 * w] = fmaf(pj, v.x, acc[g][4 * w]);
-          acc[g][4 * w + 1] = fmaf(pj, v.y, acc[g][4 * w + 1]);
-          acc[g][4 * w + 2] = fmaf(pj, v.z, acc[g][4 * w + 2]);
-          acc[g][4 * w + 3] = fmaf(pj, v.w, acc[g][4 * w + 3]);
+          for (int w = 0; w < kDpl / 4; ++w) {
+            const float4 v = *reinterpret_cast<const float4*>(vrow + 4 * w);
+            acc[g][4 * w] = fmaf(pj, v.x, acc[g][4 * w]);
+            acc[g][4 * w + 1] = fmaf(pj, v.y, acc[g][4 * w + 1]);
+            acc[g][4 * w + 2] = fmaf(pj, v.z, acc[g][4 * w + 2]);
+            acc[g][4 * w + 3] = fmaf(pj, v.w, acc[g][4 * w + 3]);
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < kDpl; ++c)
+            acc[g][c] = fmaf(pj, vrow[c], acc[g][c]);
         }
       }
       m_run[g] = m_new;
@@ -630,11 +644,17 @@ paged_chunk_f32_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const size_t row = (static_cast<size_t>(n) * n_kv + kv) * G + g;
+    float* orow = o + row * D + kDpl * lane;
+    if constexpr (kQuads) {
 #pragma unroll
-    for (int w = 0; w < kDpl / 4; ++w)
-      *reinterpret_cast<float4*>(&o[row * D + kDpl * lane + 4 * w]) =
-          make_float4(acc[g][4 * w], acc[g][4 * w + 1], acc[g][4 * w + 2],
-                      acc[g][4 * w + 3]);
+      for (int w = 0; w < kDpl / 4; ++w)
+        *reinterpret_cast<float4*>(orow + 4 * w) =
+            make_float4(acc[g][4 * w], acc[g][4 * w + 1], acc[g][4 * w + 2],
+                        acc[g][4 * w + 3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kDpl; ++c) orow[c] = acc[g][c];
+    }
     if (lane == 0) {
       l_out[row] = l_run[g];
       m_out[row] = m_run[g];
@@ -727,6 +747,7 @@ extern "C" int paged_chunk_launch(const void* q, const void* seg, int seg_div,
   CHUNK_INSTANCE(64, 3)
   CHUNK_INSTANCE(128, 3)
   CHUNK_INSTANCE(128, 1)
+  CHUNK_INSTANCE(80, 1)
 #undef CHUNK_INSTANCE
   return static_cast<int>(cudaErrorInvalidValue);
 }

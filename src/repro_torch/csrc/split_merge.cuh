@@ -17,8 +17,10 @@
 // m = -1e30, l = 0, o = 0.
 //
 // Bound: bytes.  It reads n_split planes and writes one, in a single pass:
-// 16 threads per row, each owning D / 16 of the head dim D (64 or 128) as
-// D / 64 float4 words.  What a
+// 16 threads per row, each owning D / 16 of the head dim D: at d 64 and
+// d 128 as D / 64 float4 words, at d 80 as five floats (16 threads of 5
+// floats: 80 is no multiple of 64 float4 dims, and 20 threads a row would
+// not tile a block's rows).  What a
 // call waits on is latency, so the loads of 8 splits go out together.
 // The kernel came here from K3's paged_chunk.cu with its arithmetic
 // unchanged, so K3's split results are the same bits as before (at d 64
@@ -33,7 +35,8 @@ namespace {
 constexpr float kNegInf = -1e30f;
 
 // the split-KV merge: 16 threads per output row, D / 16 dims each (thread c
-// owns float4 words c, c + 16, ...).  The splits
+// owns words c, c + 16, ... of kF floats: float4 words where D is a
+// multiple of 64, single floats otherwise).  The splits
 // are read kChunk at a time, every load of a chunk issued before the
 // chunk's arithmetic, which runs split by split in order (the same
 // operations in the same order as one split at a time, so the same bits).
@@ -60,14 +63,17 @@ merge_splits_kernel(const float* __restrict__ o_p,
     for (int j = 0; j < kChunk; ++j)
       if (s0 + j < n_split) mx = fmaxf(mx, ms[j]);
   }
-  constexpr int kVec = D / 64;       // float4 words a thread
+  constexpr int kF = D % 64 == 0 ? 4 : 1;   // floats a word
+  constexpr int kVec = D / (16 * kF);        // words a thread
   float lsum = 0.f;
-  float4 acc[kVec];
+  float acc[kVec][kF];
 #pragma unroll
-  for (int v = 0; v < kVec; ++v) acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int v = 0; v < kVec; ++v)
+#pragma unroll
+    for (int e = 0; e < kF; ++e) acc[v][e] = 0.f;
   for (int s0 = 0; s0 < n_split; s0 += kChunk) {
     float ms[kChunk], ls[kChunk];
-    float4 xs[kChunk][kVec];
+    float xs[kChunk][kVec][kF];
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) {
       if (s0 + j >= n_split) continue;
@@ -75,9 +81,18 @@ merge_splits_kernel(const float* __restrict__ o_p,
       ms[j] = m_p[sr];
       ls[j] = l_p[sr];
 #pragma unroll
-      for (int v = 0; v < kVec; ++v)
-        xs[j][v] = *reinterpret_cast<const float4*>(o_p + sr * D +
-                                                    4 * (c + 16 * v));
+      for (int v = 0; v < kVec; ++v) {
+        const float* src = o_p + sr * D + kF * (c + 16 * v);
+        if constexpr (kF == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(src);
+          xs[j][v][0] = x.x;
+          xs[j][v][1] = x.y;
+          xs[j][v][2] = x.z;
+          xs[j][v][3] = x.w;
+        } else {
+          xs[j][v][0] = *src;
+        }
+      }
     }
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) {
@@ -85,18 +100,21 @@ merge_splits_kernel(const float* __restrict__ o_p,
       const float w = expf(ms[j] - mx);   // an empty split: exp(-1e30 - mx)
       lsum = fmaf(w, ls[j], lsum);
 #pragma unroll
-      for (int v = 0; v < kVec; ++v) {
-        acc[v].x = fmaf(w, xs[j][v].x, acc[v].x);
-        acc[v].y = fmaf(w, xs[j][v].y, acc[v].y);
-        acc[v].z = fmaf(w, xs[j][v].z, acc[v].z);
-        acc[v].w = fmaf(w, xs[j][v].w, acc[v].w);
-      }
+      for (int v = 0; v < kVec; ++v)
+#pragma unroll
+        for (int e = 0; e < kF; ++e)
+          acc[v][e] = fmaf(w, xs[j][v][e], acc[v][e]);
     }
   }
 #pragma unroll
-  for (int v = 0; v < kVec; ++v)
-    *reinterpret_cast<float4*>(o + static_cast<size_t>(row) * D +
-                               4 * (c + 16 * v)) = acc[v];
+  for (int v = 0; v < kVec; ++v) {
+    float* dst = o + static_cast<size_t>(row) * D + kF * (c + 16 * v);
+    if constexpr (kF == 4)
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(acc[v][0], acc[v][1], acc[v][2], acc[v][3]);
+    else
+      *dst = acc[v][0];
+  }
   if (c == 0) {
     l[row] = lsum;
     m[row] = mx;
@@ -108,7 +126,7 @@ template <int D>
 cudaError_t launch(const void* o_part, const void* l_part, const void* m_part,
                    void* o, void* l, void* m, int rows, int n_split,
                    cudaStream_t stream) {
-  static_assert(D % 64 == 0, "whole float4 words for 16 threads a row");
+  static_assert(D % 16 == 0, "whole words for 16 threads a row");
   merge_splits_kernel<D><<<(rows + 15) / 16, 256, 0, stream>>>(
       static_cast<const float*>(o_part), static_cast<const float*>(l_part),
       static_cast<const float*>(m_part), static_cast<float*>(o),

@@ -35,10 +35,10 @@ NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # The head dims the kernel is built for and checked at on the card, each
 # for f32 and bf16 and any number of query heads per KV head: smollm-360m's
-# d 64, llama3.2-3b's and qwen1.5-32b's d 128.  csrc/flash_attention.cu
-# builds exactly these (its FLASH_INSTANCE lines); every other d is
-# refused.
-INSTANCES = (64, 128)
+# d 64, llama3.2-3b's and qwen1.5-32b's d 128, stablelm-3b's d 80.
+# csrc/flash_attention.cu builds exactly these (its FLASH_INSTANCE lines);
+# every other d is refused.
+INSTANCES = (64, 128, 80)
 
 
 def attn_prefill_einsum(q, k, v, *, causal: bool = True,

@@ -6,10 +6,14 @@ array.  Names and layouts map one to one:
 
     embed                     (V_pad, d)
     final_norm.scale          (d,)
+    final_norm.bias           (d,)          LayerNorm configs (stablelm-3b)
     layers.ln1.scale          (L, d)        stacked: leading L axis kept
     layers.ln2.scale          (L, d)
+    layers.ln1.bias / ln2.bias  (L, d)      LayerNorm configs
     layers.attn.wq            (L, d, H*dh)  x @ wq
     layers.attn.wk / wv       (L, d, KV*dh)
+    layers.attn.bq            (L, H*dh)     qkv_bias configs (qwen1.5-32b,
+    layers.attn.bk / bv       (L, KV*dh)    stablelm-3b)
     layers.attn.wo            (L, H*dh, d)
     layers.mlp.w_gate / w_up  (L, d, d_ff)
     layers.mlp.w_down         (L, d_ff, d)

@@ -1,15 +1,17 @@
-"""The head-dim-128 slice of the port: llama3.2-3b (d 128, 24 heads on 8
-KV heads, G 3) and qwen1.5-32b (d 128, MHA, G 1, int8 KV).
+"""The head dims past smollm-360m's 64: llama3.2-3b (d 128, 24 heads on 8
+KV heads, G 3), qwen1.5-32b (d 128, MHA, G 1, int8 KV) and stablelm-3b
+(d 80, MHA, G 1: the first head dim that is not a power of two).
 
-* both configs equal the JAX package's field by field; the families not
-  ported yet still raise, naming ROADMAP A7;
+* the three configs equal the JAX package's field by field; the families
+  not ported yet still raise, naming ROADMAP A7;
 * every ported dense config's (d_head, heads per KV head) is in the
   instance set of each attention kernel (K2, K3, K6; K7 by d), and each
   kernel module's ``INSTANCES`` names exactly the instances its CUDA source
   builds; a pair outside the set is refused;
 * the plain versions of K2, K3 (prefill and packed chunks), K6 and K7 at
-  d 128, G 3 and G 1, on bf16-valued f32 inputs and on int8 pages with
-  their scales, match the JAX package's Pallas kernels in interpret mode.
+  d 128, G 3 and G 1, and at d 80, G 1, on bf16-valued f32 inputs and on
+  int8 pages with their scales, match the JAX package's Pallas kernels in
+  interpret mode (each test is named for d 128, its first head dim).
 """
 import dataclasses
 import re
@@ -32,11 +34,15 @@ from repro_torch.kernels import paged_decode as K2
 from repro_torch.models import build
 
 # f32 sums in another order than XLA's (and online vs one-shot softmax);
-# d 128 sums twice the terms of the d-64 tests, so twice their 1e-5
+# d 128 sums twice the terms of the d-64 tests, so twice their 1e-5 (d 80
+# sums fewer)
 ATOL = 2e-5
-D = 128
-# (query heads, KV heads): llama's G 3 and qwen's G 1, at reduced counts
-GROUPS = [(6, 2), (2, 2)]
+# (head dim, query heads, KV heads): llama's G 3 and qwen's G 1 at d 128,
+# stablelm's G 1 at d 80, at reduced head counts
+SHAPES = [pytest.param(128, 6, 2, id="6-2"), pytest.param(128, 2, 2, id="2-2"),
+          pytest.param(80, 2, 2, id="d80-2-2")]
+# each ported dense config's head dim
+D_HEAD = {"llama3.2-3b": 128, "qwen1.5-32b": 128, "stablelm-3b": 80}
 BS, NB = 8, 4
 CSRC = Path(K2.__file__).resolve().parent.parent / "csrc"
 
@@ -52,19 +58,19 @@ def _torch_threads():
 # ---------------------------------------------------------------------------
 # configs
 
-@pytest.mark.parametrize("name", ["llama3.2-3b", "qwen1.5-32b"])
+@pytest.mark.parametrize("name", list(D_HEAD))
 def test_config_equals_jax_field_by_field(name):
     cfg, jcfg = get_config(name), j_get_config(name)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert type(cfg).__module__.startswith("repro_torch.")
-    assert cfg.d_head == D
+    assert cfg.d_head == D_HEAD[name]
     assert (cfg.param_count(), cfg.reduced().n_layers) == \
         (jcfg.param_count(), jcfg.reduced().n_layers)
 
 
-@pytest.mark.parametrize("name", ["stablelm-3b", "hymba-1.5b",
-                                  "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b",
-                                  "llava-next-34b", "whisper-tiny"])
+@pytest.mark.parametrize("name", ["hymba-1.5b", "granite-moe-1b-a400m",
+                                  "phi3.5-moe-42b-a6.6b", "llava-next-34b",
+                                  "whisper-tiny"])
 def test_unported_family_raises_naming_a7(name):
     with pytest.raises(NotImplementedError, match="A7"):
         get_config(name)
@@ -85,6 +91,22 @@ def test_widths_of_the_new_fleets():
     assert qwen.reduced().n_heads == qwen.reduced().n_kv_heads
     assert build(qwen.reduced()).decls["layers"]["attn"]["bq"].shape == \
         (2, qwen.reduced().n_heads * qwen.reduced().d_head)
+
+
+def test_stablelm_widths():
+    """stablelm-3b as served: MHA at d 80, LayerNorm, QKV bias and rotary
+    on a quarter of each head (d_rot 20), untied embeddings."""
+    cfg = get_config("stablelm-3b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_head, cfg.d_ff, cfg.vocab_size, cfg.norm, cfg.mlp,
+            cfg.qkv_bias, cfg.rotary_pct, cfg.tie_embeddings, cfg.dtype) == \
+        (32, 2560, 32, 32, 80, 6912, 50304, "layernorm", "swiglu", True,
+         0.25, False, "bfloat16")
+    assert cfg.param_count() == 2_795_765_760
+    assert int(cfg.d_head * cfg.rotary_pct) == 20
+    decls = build(cfg.reduced()).decls
+    assert set(decls["final_norm"]) == {"scale", "bias"}
+    assert {"bq", "bk", "bv"} <= set(decls["layers"]["attn"])
 
 
 # ---------------------------------------------------------------------------
@@ -121,14 +143,15 @@ def test_every_ported_config_has_its_kernel_instances(mod):
 
 
 def test_a_pair_outside_the_instance_set_is_refused():
-    """stablelm-3b's d 80 (G 1) and a d-128 group of 2: every wrapper's
-    check refuses them, naming A7, before any launch."""
-    q = torch.zeros(1, 2, 80)
-    pages = torch.zeros(3, 2, BS, 80)
+    """granite-moe-1b's d 64 at G 2 (16 heads on 8), a d-128 group of 2
+    and a head dim of 96: every wrapper's check refuses them, naming A7,
+    before any launch."""
+    q = torch.zeros(1, 4, 64)
+    pages = torch.zeros(3, 2, BS, 64)
     tables = torch.zeros(1, 2, dtype=torch.int32)
     valid = torch.zeros(1, 2 * BS, dtype=torch.bool)
     with pytest.raises(ValueError, match="A7"):
-        K2._check(q.reshape(1, 2, 1, 80), pages, pages, tables, valid,
+        K2._check(q.reshape(1, 2, 2, 64), pages, pages, tables, valid,
                   None, None)
     with pytest.raises(ValueError, match="A7"):
         K3._check("paged_flash_packed_chunk", q, pages, pages, None, tables,
@@ -138,12 +161,12 @@ def test_a_pair_outside_the_instance_set_is_refused():
         K6._check(torch.zeros(1, 2, 2, 128), k, k, torch.zeros(
             1, 16, dtype=torch.bool))
     with pytest.raises(ValueError, match="A7"):
-        K7._check(torch.zeros(1, 4, 2, 80), torch.zeros(1, 4, 2, 80),
-                  torch.zeros(1, 4, 2, 80), None)
+        K7._check(torch.zeros(1, 4, 2, 96), torch.zeros(1, 4, 2, 96),
+                  torch.zeros(1, 4, 2, 96), None)
 
 
 # ---------------------------------------------------------------------------
-# the plain versions at d 128 against the Pallas kernels
+# the plain versions at d 128 and d 80 against the Pallas kernels
 
 def _bf16_valued(x):
     """f32 values that bf16 holds exactly (what the served model hands the
@@ -152,16 +175,16 @@ def _bf16_valued(x):
                       .astype(jnp.float32))
 
 
-def _pool(rng, dtype, n_rows, kv):
+def _pool(rng, dtype, n_rows, kv, d):
     P = n_rows * NB + 1
     if dtype == "int8":
-        k = rng.integers(-127, 128, (P, kv, BS, D)).astype(np.int8)
-        v = rng.integers(-127, 128, (P, kv, BS, D)).astype(np.int8)
+        k = rng.integers(-127, 128, (P, kv, BS, d)).astype(np.int8)
+        v = rng.integers(-127, 128, (P, kv, BS, d)).astype(np.int8)
         ks = rng.uniform(0.001, 0.02, (P, kv, BS, 1)).astype(np.float32)
         vs = rng.uniform(0.001, 0.02, (P, kv, BS, 1)).astype(np.float32)
         return k, v, ks, vs
-    k = _bf16_valued(rng.standard_normal((P, kv, BS, D)))
-    v = _bf16_valued(rng.standard_normal((P, kv, BS, D)))
+    k = _bf16_valued(rng.standard_normal((P, kv, BS, d)))
+    v = _bf16_valued(rng.standard_normal((P, kv, BS, d)))
     return k, v, None, None
 
 
@@ -182,13 +205,13 @@ def _close(port, ref, rows=None):
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])
-@pytest.mark.parametrize("h,kv", GROUPS)
-def test_k2_plain_matches_pallas_at_d128(dtype, h, kv):
+@pytest.mark.parametrize("d,h,kv", SHAPES)
+def test_k2_plain_matches_pallas_at_d128(dtype, d, h, kv):
     """Rows: fully valid, a ragged tail, valid behind a NULL table entry."""
     rng = np.random.default_rng(0)
     B = 3
-    q = _bf16_valued(rng.standard_normal((B, h, D)))
-    k, v, ks, vs = _pool(rng, dtype, B, kv)
+    q = _bf16_valued(rng.standard_normal((B, h, d)))
+    k, v, ks, vs = _pool(rng, dtype, B, kv, d)
     tables = (1 + rng.permutation(B * NB)).reshape(B, NB).astype(np.int32)
     tables[2, 0] = 0
     valid = np.ones((B, NB * BS), bool)
@@ -205,13 +228,13 @@ def test_k2_plain_matches_pallas_at_d128(dtype, h, kv):
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])
-@pytest.mark.parametrize("h,kv", GROUPS)
-def test_k3_prefill_chunk_plain_matches_pallas_at_d128(dtype, h, kv):
+@pytest.mark.parametrize("d,h,kv", SHAPES)
+def test_k3_prefill_chunk_plain_matches_pallas_at_d128(dtype, d, h, kv):
     """B3: two requests of 8 chunk tokens, 13 and 32 cached positions."""
     rng = np.random.default_rng(1)
     B, C = 2, 8
-    q = _bf16_valued(rng.standard_normal((B, C, h, D)))
-    k, v, ks, vs = _pool(rng, dtype, B, kv)
+    q = _bf16_valued(rng.standard_normal((B, C, h, d)))
+    k, v, ks, vs = _pool(rng, dtype, B, kv, d)
     tables = (1 + rng.permutation(B * NB)).reshape(B, NB).astype(np.int32)
     valid = np.arange(NB * BS)[None, :] < np.array([13, NB * BS])[:, None]
     args = (q, k, v, tables, valid, ks, vs)
@@ -222,16 +245,16 @@ def test_k3_prefill_chunk_plain_matches_pallas_at_d128(dtype, h, kv):
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])
-@pytest.mark.parametrize("h,kv", GROUPS)
-def test_k3_packed_chunk_plain_matches_pallas_at_d128(dtype, h, kv):
+@pytest.mark.parametrize("d,h,kv", SHAPES)
+def test_k3_packed_chunk_plain_matches_pallas_at_d128(dtype, d, h, kv):
     """B4: 12 tokens of three segments (13 cached positions, a full cache,
     and a prompt head with none) and two padding tokens; the Pallas kernel
     is held on the tokens whose segment has a valid position (the empty
     segment's partials differ by contract, ROADMAP C)."""
     rng = np.random.default_rng(2)
     C, R = 12, 3
-    q = _bf16_valued(rng.standard_normal((C, h, D)))
-    k, v, ks, vs = _pool(rng, dtype, R, kv)
+    q = _bf16_valued(rng.standard_normal((C, h, d)))
+    k, v, ks, vs = _pool(rng, dtype, R, kv, d)
     tables = (1 + rng.permutation(R * NB)).reshape(R, NB).astype(np.int32)
     tables[2, :] = 0
     starts = np.array([13, NB * BS, 0])
@@ -246,15 +269,15 @@ def test_k3_packed_chunk_plain_matches_pallas_at_d128(dtype, h, kv):
     assert float(got[1][~live].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("h,kv", GROUPS)
-def test_k6_plain_matches_pallas_at_d128(h, kv):
+@pytest.mark.parametrize("d,h,kv", SHAPES)
+def test_k6_plain_matches_pallas_at_d128(d, h, kv):
     """bf16-valued f32 caches (qwen's int8 cache reaches K6 dequantised
     to bf16); rows fully valid, ragged, and a window band."""
     rng = np.random.default_rng(3)
     B, S = 3, 48
-    q = _bf16_valued(rng.standard_normal((B, h, D)))
-    k = _bf16_valued(rng.standard_normal((B, kv, S, D)))
-    v = _bf16_valued(rng.standard_normal((B, kv, S, D)))
+    q = _bf16_valued(rng.standard_normal((B, h, d)))
+    k = _bf16_valued(rng.standard_normal((B, kv, S, d)))
+    v = _bf16_valued(rng.standard_normal((B, kv, S, d)))
     valid = np.ones((B, S), bool)
     valid[1, S // 2 + 3:] = False
     valid[2, :7] = False
@@ -265,13 +288,13 @@ def test_k6_plain_matches_pallas_at_d128(h, kv):
 
 
 @pytest.mark.parametrize("window", [None, 24])
-@pytest.mark.parametrize("h,kv", GROUPS)
-def test_k7_plain_matches_pallas_at_d128(h, kv, window):
+@pytest.mark.parametrize("d,h,kv", SHAPES)
+def test_k7_plain_matches_pallas_at_d128(d, h, kv, window):
     rng = np.random.default_rng(4)
     B, S = 2, 64
-    q = _bf16_valued(rng.standard_normal((B, S, h, D)))
-    k = _bf16_valued(rng.standard_normal((B, S, kv, D)))
-    v = _bf16_valued(rng.standard_normal((B, S, kv, D)))
+    q = _bf16_valued(rng.standard_normal((B, S, h, d)))
+    k = _bf16_valued(rng.standard_normal((B, S, kv, d)))
+    v = _bf16_valued(rng.standard_normal((B, S, kv, d)))
     out = K7.flash_attention(*_t(q, k, v), causal=True, window=window)
     pallas = jops.flash_attention(*_j(q, k, v), causal=True, window=window,
                                   bq=16, bk=16, interpret=True)

@@ -1,9 +1,11 @@
-"""The port's dense transformer on the reduced smollm-360m, llama3.2-3b and
-qwen1.5-32b (2 layers, f32; qwen with QKV bias and MHA) held to the JAX
-package on weights carried across: prefill logits and caches,
+"""The port's dense transformer on the reduced smollm-360m, llama3.2-3b,
+qwen1.5-32b and stablelm-3b (2 layers, f32; qwen with QKV bias and MHA;
+stablelm with LayerNorm, QKV bias and a quarter of each head rotary) held
+to the JAX package on weights carried across: prefill logits and caches,
 teacher-forced dense and paged decode steps (logits, hidden states,
 pages), against the JAX jnp paged path and its Pallas kernel, and on int8
-pages (qwen's served KV dtype)."""
+pages (qwen's served KV dtype).  stablelm-3b once more at its served head
+dim of 80 (d_rot 20), its biases and norm weights drawn at random."""
 import dataclasses
 import functools
 
@@ -34,7 +36,7 @@ RTOL_KV = 2e-5
 ATOL_HIDDEN = 1e-4
 B, S, BS, STEPS = 2, 11, 8, 8
 # the ported dense configs, each at .reduced()
-ARCHS = ("smollm-360m", "llama3.2-3b", "qwen1.5-32b")
+ARCHS = ("smollm-360m", "llama3.2-3b", "qwen1.5-32b", "stablelm-3b")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -45,14 +47,22 @@ def _torch_threads():
     torch.set_num_threads(old)
 
 
-def _pair(arch="smollm-360m", kv_cache_dtype=None):
+def _pair(arch="smollm-360m", kv_cache_dtype=None, d_head=None):
+    """Both packages' reduced ``arch`` on the same weights.  With
+    ``d_head`` the heads take that width, and the norms and biases are
+    drawn at random (``_random_norms_and_biases``)."""
     jcfg = j_get_config(arch).reduced()
     cfg = get_config(arch).reduced()
     if kv_cache_dtype:
         jcfg = dataclasses.replace(jcfg, kv_cache_dtype=kv_cache_dtype)
         cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_cache_dtype)
+    if d_head:
+        jcfg = dataclasses.replace(jcfg, d_head=d_head)
+        cfg = dataclasses.replace(cfg, d_head=d_head)
     jmodel = j_build(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
+    if d_head:
+        jparams = _random_norms_and_biases(jparams)
     tree = jax.tree.map(np.asarray, jparams)
     return jcfg, jparams, cfg, from_jax_params(tree, build(cfg),
                                                device="cpu")
@@ -178,8 +188,14 @@ def test_paged_decode_steps_match_jax(monkeypatch, pair, impl, kv):
         monkeypatch.setenv("REPRO_PAGED_ATTN", "pallas")
     else:
         monkeypatch.delenv("REPRO_PAGED_ATTN", raising=False)
-    jcfg, jparams, cfg, params = pair if kv is None else _pair(
-        pair[0].name, kv)
+    _paged_decode_matches(pair if kv is None else _pair(pair[0].name, kv),
+                          kv)
+
+
+def _paged_decode_matches(quad, kv):
+    """Both packages' pages filled from one prefill, then STEPS fed tokens
+    decoded through each: logits, hidden states and pages held."""
+    jcfg, jparams, cfg, params = quad
     prompt, feed = _tokens(cfg, seed=2)
     nb = -(-(S + STEPS) // BS)
     jstate, state = _paged_pair(jcfg, jparams, cfg, params, prompt, nb)
@@ -193,3 +209,61 @@ def test_paged_decode_steps_match_jax(monkeypatch, pair, impl, kv):
             _close(state[key], jstate[key], 1, key)
         else:
             _close_kv(state[key], jstate[key], key)
+
+
+# ---------------------------------------------------------------------------
+# stablelm-3b at its served head dim, 80
+
+def _random_norms_and_biases(jparams, seed=3):
+    """The JAX init's LayerNorm scales (ones) and biases (zeros) replaced
+    by random values, so that carrying them across and applying them is
+    what the comparison sees."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = path[-1].key
+        if name in ("bias", "bq", "bk", "bv"):
+            return jnp.asarray(0.1 * rng.standard_normal(leaf.shape),
+                               leaf.dtype)
+        if name == "scale":
+            return jnp.asarray(1 + 0.1 * rng.standard_normal(leaf.shape),
+                               leaf.dtype)
+        return leaf
+    return jax.tree_util.tree_map_with_path(draw, jparams)
+
+
+@pytest.fixture(scope="module")
+def pair_d80():
+    """The reduced stablelm-3b at d_head 80: 4 heads of 80 on d_model 256,
+    d_rot 20."""
+    return _pair("stablelm-3b", d_head=80)
+
+
+def test_d80_round_trip_carries_norms_and_biases(pair_d80):
+    jcfg, jparams, cfg, params = pair_d80
+    assert (cfg.d_head, int(cfg.d_head * cfg.rotary_pct)) == (80, 20)
+    layers = params["layers"]
+    for leaf, want in ((params["final_norm"]["bias"],
+                        jparams["final_norm"]["bias"]),
+                       (layers["ln1"]["bias"], jparams["layers"]["ln1"]["bias"]),
+                       (layers["ln2"]["scale"],
+                        jparams["layers"]["ln2"]["scale"]),
+                       (layers["attn"]["bq"], jparams["layers"]["attn"]["bq"]),
+                       (layers["attn"]["bk"], jparams["layers"]["attn"]["bk"]),
+                       (layers["attn"]["bv"], jparams["layers"]["attn"]["bv"])):
+        assert float(np.abs(np.asarray(want)).max()) > 0
+        np.testing.assert_array_equal(leaf.numpy(), np.asarray(want))
+    assert tuple(layers["attn"]["bq"].shape) == (2, cfg.n_heads * 80)
+
+
+def test_d80_prefill_logits_and_cache_match_jax(pair_d80):
+    test_prefill_logits_and_cache_match_jax(pair_d80)
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_d80_paged_decode_steps_match_jax(monkeypatch, pair_d80, kv):
+    """K2's plain version at d 80 against the JAX package's Pallas paged
+    kernel (interpret mode), on f32 and on int8 pages."""
+    monkeypatch.setenv("REPRO_PAGED_ATTN", "pallas")
+    _paged_decode_matches(
+        pair_d80 if kv is None else _pair("stablelm-3b", kv, d_head=80), kv)

@@ -1,7 +1,8 @@
 """The port's serving stack (``ContinuousServingEngine`` under
 ``OrcaScheduler``, dense and paged KV) held to the JAX package's on the
-reduced smollm-360m (and, where marked, the reduced llama3.2-3b and
-qwen1.5-32b) with weights and probe slow weights carried across:
+reduced smollm-360m (and, where marked, the reduced llama3.2-3b,
+qwen1.5-32b and stablelm-3b, the last also at its served head dim of 80)
+with weights and probe slow weights carried across:
 per-request stop steps, emitted tokens, admission and completion steps are
 exactly equal, and the page pool drains — with admission-time prefill and
 with chunked, packed prefill through the unified token-budget step (dense
@@ -49,7 +50,7 @@ LENS = (9, 13, 9, 6, 11)
 # stop, the rest are STOPPED by the probe
 BUDGETS = (12, 3, 12, 12, 4)
 # the ported dense configs, each at .reduced()
-ARCHS = ("smollm-360m", "llama3.2-3b", "qwen1.5-32b")
+ARCHS = ("smollm-360m", "llama3.2-3b", "qwen1.5-32b", "stablelm-3b")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -61,12 +62,16 @@ def _torch_threads():
 
 
 @functools.lru_cache(maxsize=None)
-def _models(kv_cache_dtype=None, arch="smollm-360m"):
+def _models(kv_cache_dtype=None, arch="smollm-360m", d_head=None):
     jcfg = j_get_config(arch).reduced()
     cfg = get_config(arch).reduced()
+    changes = {}
     if kv_cache_dtype:
-        jcfg = dataclasses.replace(jcfg, kv_cache_dtype=kv_cache_dtype)
-        cfg = dataclasses.replace(cfg, kv_cache_dtype=kv_cache_dtype)
+        changes["kv_cache_dtype"] = kv_cache_dtype
+    if d_head:
+        changes["d_head"] = d_head
+    jcfg = dataclasses.replace(jcfg, **changes)
+    cfg = dataclasses.replace(cfg, **changes)
     jmodel = j_build(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
     model = build(cfg)
@@ -170,6 +175,18 @@ def test_paged_int8_fleet_matches_jax(monkeypatch, chunk_tokens, arch):
     monkeypatch.setenv("REPRO_PAGED_ATTN", "pallas")
     fleet = _run_both(_models("int8", arch), paged=True,
                       chunk_tokens=chunk_tokens)
+    assert (fleet.packed_chunks > 0) == bool(chunk_tokens)
+
+
+@pytest.mark.parametrize("kv,chunk_tokens", [(None, None), ("int8", 4)])
+def test_d80_paged_fleet_matches_jax(monkeypatch, kv, chunk_tokens):
+    """stablelm-3b at its served head dim of 80 (d_rot 20): a paged fleet
+    at admission-time prefill, and on int8 pages in packed chunks, against
+    the JAX package's Pallas paged kernels (interpret mode)."""
+    monkeypatch.setenv("REPRO_PAGED_ATTN", "pallas")
+    models = _models(kv, "stablelm-3b", d_head=80)
+    assert models[1][0].cfg.d_head == 80
+    fleet = _run_both(models, paged=True, chunk_tokens=chunk_tokens)
     assert (fleet.packed_chunks > 0) == bool(chunk_tokens)
 
 

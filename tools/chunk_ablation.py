@@ -35,10 +35,8 @@ sys.path.insert(0, ROOT)
 PC = "paged_chunk.cu"
 VARIANTS = {
     "tree": [],
-    "q-shared": [(PC, "  using type = attn_tile::QRegs<64, 3>;\n"
-                      "  static constexpr bool kShared = false;",
-                  "  using type = attn_tile::QShared<64>;\n"
-                  "  static constexpr bool kShared = true;")],
+    "q-shared": [(PC, "  static constexpr bool kShared = D > 80;",
+                  "  static constexpr bool kShared = D != 80;")],
     "one-warp": [(PC, "return G == 1 ? 4 : G;", "return G;")],
     "smem-pad": [(PC, "  s.total = off;\n",
                   "  s.total = off + 64 * 1024;\n")],
