@@ -144,8 +144,8 @@ non-zero:
                step, its first 16 calls held against the plain version;
                requests compared with the one-token fleets (tokens and
                stops); a 16-step profiled window of the spec fleet
-20. serve-spec-f32 -- the serve fleet in f32 through ``OrcaScheduler``
-               at a lambda* between its scores: the spec fleet's stops
+20. serve-spec-f32 -- the serve fleet in f32 at 8 of its 32 layers
+               through ``OrcaScheduler`` at a lambda* between its scores: the spec fleet's stops
                and tokens equal the one-token fleet's, with the default
                draft cache and with one primed by the one-token tokens
                (drafts accepted, several tokens per step, its first 16
@@ -162,6 +162,27 @@ non-zero:
                longer than the root, every K3 call and its first 16 K4
                calls held against the plain versions; 1.3 equals
                ``--spec-tokens 4`` step for step
+20c. preempt-roundtrip, serve-preempt, preempt-stops-f32 -- spill to host
+               RAM and restore.  Engine level on serve's weights, probe and
+               lambda* (4 slots; paged bf16, paged int8, dense bf16): a
+               RUNNING slot and a mid-prefill one (160 tokens in 64-token
+               chunks, 128 in) spilled and restored into the same slot on
+               other pages, or the same lane: the round trip bitwise
+               (pages with scales, lane, probe row, token, pos), the next
+               9 steps bitwise against an undisturbed engine (K2 and K3
+               through the rewritten rows, K1 on the restored probe rows,
+               K6 on the dense lane), a restore into slot 3 with the same
+               tokens and stops, every launch counted; spill and restore
+               ms and bytes.  serve-preempt: serve's weights, probe and
+               lambda*, paged, 160-token prompts in 64-token chunks,
+               ``policy="priority"``, a pool of 1 + 3 requests' pages: 4
+               batch requests, then 4 interactive ones in a burst while a
+               batch request is mid-prefill; RUNNING and mid-prefill
+               victims, restores equal to spills, the pool drained, K1,
+               K2, K3 and K7 counted exactly.  preempt-stops-f32: the
+               serve-tree weights in f32 at 4 layers, the same traffic
+               abundant, preempted, and preempted under ``--spec-tree
+               3.3`` with a primed draft cache: stops and tokens equal
 21. offline  -- the paper's procedure on the synthetic corpus at d_phi 960
                (``corpus_splits(500, 170, 170)``): ``orca.fit`` of the TTT
                probe (no-QK, QK d_h 128) and the static probe, then
@@ -2882,10 +2903,16 @@ def choose_lambda(scores, burn_in):
     return best[1], best[2]
 
 
+# serve-spec-f32's depth: 8 of smollm-360m's 32 layers, cut to keep
+# chip_smoke.py's last phase under 1,000 s
+SPEC_F32_LAYERS = 8
+
+
 def phase_spec_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
     """The stop-invariance of ``benchmarks/serving_throughput.py`` and the
     JAX suite's ``test_spec_stops_match_one_token_matrix``, in float32 on
-    the serve fleet: the driver's weights and calibrated probe, served
+    the serve fleet cut to its first ``SPEC_F32_LAYERS`` layers (full
+    width): the driver's weights and calibrated probe, served
     through ``OrcaScheduler`` one token at a time with nothing stopping
     (every request's full score trajectory), then at a lambda* between
     those scores, one-token and with spec_tokens 4: every stop step, and
@@ -2896,18 +2923,15 @@ def phase_spec_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
     advancing by gen > 1, K4 chaining accepted tokens, the collection
     truncating at a stop), and its first 16 K4 calls are held against the
     plain version, at least one of them with an accepted length above 1."""
-    import dataclasses
     from repro_torch.kernels import probe_spec as K4
     from repro_torch.launch import serve
-    from repro_torch.models import build
     from repro_torch.serving import (DraftCache, OrcaScheduler, ServeConfig,
                                      make_request)
     from repro_torch.serving import engine as E
-    cfg32 = dataclasses.replace(sched.model.cfg, dtype="float32",
+    model32, params32 = f32_cut(sched, SPEC_F32_LAYERS,
                                 kv_cache_dtype="float32")
-    model32 = build(cfg32)
-    params32 = _tree(sched.params, lambda t: t.float())
-    batch = serve.model_inputs(cfg32, torch.Generator().manual_seed(SEED + 1),
+    batch = serve.model_inputs(model32.cfg,
+                               torch.Generator().manual_seed(SEED + 1),
                                requests, prompt_len)
     base = dict(n_slots=4, paged=True, tokens_per_step=8, max_new_tokens=96,
                 burn_in=2)
@@ -2967,7 +2991,8 @@ def phase_spec_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
                     draft_cache_hits=fl.draft_cache_hits,
                     draft_cache_misses=fl.draft_cache_misses)
 
-    res = dict(phase="serve-spec-f32", lam=lam, lambda_margin=margin,
+    res = dict(phase="serve-spec-f32", layers=model32.cfg.n_layers, lam=lam,
+               lambda_margin=margin,
                stop_steps=stops, stopped=sum(s >= 0 for s in stops),
                one_token=dict(engine_steps=one_fl.engine_steps, wall_s=one_s,
                               tokens_per_s=one_fl.tokens_per_s),
@@ -3185,6 +3210,401 @@ def phase_llama_tree(torch, served, out, tree: str = "2.3"):
                               step_ms=served["step_ms"]),
                agree_with_one_token=f"{sum(agree)}/{len(agree)}",
                launches=lc)
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases preempt-roundtrip, serve-preempt and preempt-stops-f32: spill to
+# host RAM and restore, on other pages and in other slots
+
+PREEMPT_STEPS = 8         # decode steps held bitwise after a restore
+PREEMPT_BATCH = 4         # priority-1 requests, submitted first
+
+
+def _row(first: int, n: int, reverse: bool = False):
+    row = list(range(first, first + n))
+    return row[::-1] if reverse else row
+
+
+def timed_cycles(torch, eng, slot, rows, armed, prompt_len=0, cycles=5):
+    """``cycles`` spills of ``slot`` and restores into it, alternating
+    between ``rows`` (paged; None for a dense lane): per cycle the host
+    milliseconds of ``preempt`` and of ``restore``, each ending in a
+    synchronise (the spill's copy to host is synchronous already)."""
+    out = dict(spill_ms=[], restore_ms=[])
+    for i in range(cycles):
+        old, new = (rows[i % 2], rows[(i + 1) % 2]) if rows else (None, None)
+        sync(torch)
+        t0 = time.perf_counter()
+        spill = eng.preempt(slot, block_row=old, armed=armed,
+                            prompt_len=prompt_len)
+        sync(torch)
+        t1 = time.perf_counter()
+        eng.restore(slot, spill, block_row=new)
+        sync(torch)
+        out["spill_ms"].append((t1 - t0) * 1e3)
+        out["restore_ms"].append((time.perf_counter() - t1) * 1e3)
+    for key in ("spill_ms", "restore_ms"):
+        out[key + "_median"] = sorted(out[key])[len(out[key]) // 2]
+    out.update(nbytes=spill.nbytes, n_blocks=spill.n_blocks,
+               spill_gb_per_s=spill.nbytes / out["spill_ms_median"] / 1e6,
+               restore_gb_per_s=spill.nbytes / out["restore_ms_median"] / 1e6)
+    return out
+
+
+def roundtrip_variant(torch, sched, model, paged, prompts, lam):
+    """One engine layout of phase preempt-roundtrip: engines A, B and C
+    on the same weights, slots 0 and 1 admitted (16-token prompts), slot 2
+    prefilling a 160-token prompt in 64-token chunks.  After two steps A
+    spills slot 0 (RUNNING) and slot 2 (mid-prefill, 128 tokens in) and
+    restores each into the same slot index on other pages (paged) or into
+    the same lane (dense); C restores slot 0's spill into slot 3.  The
+    round trip must be a copy: pages (with their scales) or lane, probe
+    rows, token and pos bitwise.  Then 8 more steps: A's views equal the
+    undisturbed B's bitwise (tokens, smoothed scores, stop state); C's
+    slot 3 takes B's slot 0's tokens and stops.  Every kernel launch of
+    the variant is counted and held to its expected number."""
+    from repro_torch.serving import (ChunkSeg, ChunkWork,
+                                     ContinuousServingEngine, ServeConfig)
+    layers = model.cfg.n_layers
+    short, long_ = prompts[0][:16], prompts[2]
+    new = len(long_) + 96
+    nb_short, nb_long = -(-(16 + 96) // BS), -(-new // BS)
+    rows = {0: _row(1, nb_short), 1: _row(1 + nb_short, nb_short),
+            2: _row(1 + 2 * nb_short, nb_long)}
+    base = 1 + 2 * nb_short + nb_long
+    moved = {0: _row(base, nb_short, True),
+             2: _row(base + nb_short, nb_long, True)}
+    num_blocks = base + nb_short + nb_long
+    cfg = ServeConfig(tokens_per_step=8, max_new_tokens=96, lam=lam,
+                      burn_in=2)
+
+    def engine():
+        return ContinuousServingEngine(
+            model, sched.params, sched.pc, sched.theta, cfg, 4, new,
+            paged=paged, block_size=BS,
+            num_blocks=num_blocks if paged else None, chunk_tokens=CHUNK)
+
+    def chunk(start, row):
+        n = min(CHUNK, len(long_) - start)
+        return ChunkWork(segs=(ChunkSeg(
+            slot=2, tokens=long_, start=start, length=n,
+            row=None if row is None else np_i32(row)),))
+
+    zero_launches()
+    engs = dict(A=engine(), B=engine(), C=engine())
+    for eng in engs.values():
+        for slot, p in ((0, short), (1, prompts[1][:16])):
+            eng.admit(slot, {"tokens": p[None]}, 16,
+                      block_row=rows[slot] if paged else None)
+        eng.begin_prefill(2)
+        for start in (0, CHUNK):
+            eng.step(chunk(start, rows[2] if paged else None))
+    A, B, C = engs["A"], engs["B"], engs["C"]
+
+    def identity(eng, slot, row):
+        lay = ({k: v[:, row].clone() for k, v in eng._pages().items()}
+               if paged else {k: v[:, slot].clone()
+                              for k, v in eng.state.items()})
+        return (lay, [leaf[slot].clone() for leaf in eng.st],
+                int(eng.token[slot]), int(eng.pos[slot]))
+
+    def same(a, b):
+        return (a[2:] == b[2:] and all(torch.equal(a[0][k], b[0][k])
+                                       for k in a[0])
+                and all(torch.equal(x, y) for x, y in zip(a[1], b[1])))
+
+    spills = {}
+    for slot, armed, prog in ((0, True, 0), (2, False, 2 * CHUNK)):
+        before = identity(A, slot, rows[slot])
+        spill = A.preempt(slot, block_row=rows[slot] if paged else None,
+                          armed=armed, prompt_len=prog)
+        if any(t.device.type != "cpu" for t in
+               list((spill.pages or spill.lane).values()) + list(spill.probe)):
+            raise AssertionError("a spill holds device memory")
+        A.restore(slot, spill, block_row=moved[slot] if paged else None)
+        if not same(identity(A, slot, moved[slot]), before):
+            raise AssertionError(f"slot {slot}'s round trip is not a copy")
+        spills[slot] = dict(armed=armed, nbytes=spill.nbytes,
+                            n_blocks=spill.n_blocks)
+    C.restore(3, C.preempt(0, block_row=rows[0] if paged else None),
+              block_row=moved[0] if paged else None)
+    for i in range(1 + PREEMPT_STEPS):
+        views = {}
+        for name, eng in engs.items():
+            row = moved[2] if name == "A" else rows[2]
+            views[name] = eng.step(chunk(2 * CHUNK, row if paged else None)
+                                   if i == 0 else None)
+            if i == 0:
+                eng.finish_prefill(2, {"tokens": long_[None]}, len(long_),
+                                   block_row=row if paged else None)
+        for f in ("tokens", "smoothed", "n_scores", "stopped", "stop_step"):
+            a, b, c = (getattr(views[n], f) for n in "ABC")
+            if not (a == b).all():
+                raise AssertionError(f"step {i}: {f} of the restored engine "
+                                     f"{a} differ from the undisturbed {b}")
+            if f in ("tokens", "stopped", "stop_step") \
+                    and not (c[[3, 1, 2]] == b[[0, 1, 2]]).all():
+                raise AssertionError(f"step {i}: {f} of slot 3 {c} differ "
+                                     f"from the undisturbed slot 0 {b}")
+    sync(torch)
+    lc = read_launches()
+    steps = 3 * (3 + PREEMPT_STEPS)
+    want = dict(serving_probe_step=steps, flash_attention=layers * 2 * 3,
+                paged_flash_decode=layers * steps if paged else 0,
+                paged_flash_packed_chunk=layers * 3 * 3 if paged else 0,
+                flash_decode=0 if paged else layers * steps)
+    got = {k: lc[k] for k in want}
+    if got != want:
+        raise AssertionError(f"preempt-roundtrip launches {got}, expected "
+                             f"{want}")
+    # one request's spill and restore: 16 + 96 tokens (slot 0) and
+    # 160 + 96 (slot 2); a dense lane is the whole cache length either way
+    timed = {f"slot {slot}": timed_cycles(
+        torch, A, slot, [moved[slot], rows[slot]] if paged else None, True)
+        for slot in (0, 2)}
+    return dict(spills=spills, launches=lc,
+                stop_steps=views["B"].stop_step[:3].tolist(), timed=timed)
+
+
+def np_i32(row):
+    import numpy as np
+    return np.asarray(row, np.int32)
+
+
+def phase_preempt_roundtrip(torch, sched, lam):
+    """Engine-level spill and restore at full width and depth (the serve
+    fleet's smollm-360m, 4 slots, its probe and lambda*) on paged bf16,
+    paged int8 and dense bf16 (``roundtrip_variant``); the spill and
+    restore milliseconds and bytes of one request at this width."""
+    import dataclasses
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    cfg = sched.model.cfg
+    prompts = serve.model_inputs(cfg, torch.Generator().manual_seed(SEED + 2),
+                                 3, QWEN_PROMPT)["tokens"]
+    t0 = time.perf_counter()
+    res = dict(phase="preempt-roundtrip", arch=cfg.name, layers=cfg.n_layers,
+               lam=lam, steps_held=PREEMPT_STEPS, variants={})
+    for name, model, paged in (
+            ("paged bf16", sched.model, True),
+            ("paged int8", build(dataclasses.replace(
+                cfg, kv_cache_dtype="int8")), True),
+            ("dense bf16", sched.model, False)):
+        res["variants"][name] = roundtrip_variant(torch, sched, model, paged,
+                                                  prompts, lam)
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    return res
+
+
+def burst_fleet(torch, sched, prompts):
+    """``prompts`` through ``sched`` (sized for all of them first): the
+    first ``PREEMPT_BATCH`` as priority 1 (batch) at step 0, the rest as
+    priority 0 (interactive) in one burst on the first step after which a
+    batch request decodes while another is still mid-prefill.  Each spill
+    is recorded (RUNNING or mid-prefill, pages, host ms) and each
+    restore's host ms.  Returns (done, fleet, record)."""
+    from repro_torch.serving import make_request
+    reqs = [make_request(t, priority=int(i < PREEMPT_BATCH))
+            for i, t in enumerate(prompts)]
+    sched.prepare(reqs)
+    eng = sched.engine
+    rec = dict(victims=[], spill_ms=[], restore_ms=[], nbytes=[])
+    preempt, restore = eng.preempt, eng.restore
+
+    def spy_preempt(*a, **kw):
+        sync(torch)
+        t0 = time.perf_counter()
+        spill = preempt(*a, **kw)
+        rec["spill_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["victims"].append("running" if spill.armed else "prefill")
+        rec["nbytes"].append(spill.nbytes)
+        return spill
+
+    def spy_restore(*a, **kw):
+        sync(torch)
+        t0 = time.perf_counter()
+        restore(*a, **kw)
+        sync(torch)
+        rec["restore_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    eng.preempt, eng.restore = spy_preempt, spy_restore
+    sched.submit(reqs[:PREEMPT_BATCH])
+    rec["burst_step"] = None
+    while sched.step():
+        states = {r.state.value for r in reqs[:PREEMPT_BATCH]}
+        if rec["burst_step"] is None and {"running", "prefill"} <= states:
+            sched.submit(reqs[PREEMPT_BATCH:])
+            rec["burst_step"] = sched._steps
+    done, fleet = sched.drain()
+    sync(torch)
+    if rec["burst_step"] is None:
+        raise AssertionError("no step had a batch request decoding beside "
+                             "one mid-prefill: the burst never came")
+    return done, fleet, rec
+
+
+def phase_serve_preempt(torch, out, requests: int = 8):
+    """The serve fleet's smollm-360m (bf16, full width and depth) with its
+    harvested probe and lambda* (no second harvest), paged, 160-token
+    prompts in 64-token chunks, ``policy="priority"``, 4 slots, a pool of
+    1 + 3 x a request's pages: 4 batch requests, then 4 interactive ones
+    in a burst (``burst_fleet``).  Urgent admissions spill batch residents,
+    RUNNING and mid-prefill, which restore later on other pages: every
+    request ends, the pool drains and checks, restores equal spills, and
+    K1, K2, K3 and K7 launch exactly as the steps and chunks say."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import OrcaScheduler, ServeConfig
+    base = out.scheduler
+    cfg = base.model.cfg
+    blocks = -(-(QWEN_PROMPT + WIDE_NEW) // BS)
+    prompts = serve.model_inputs(cfg, torch.Generator().manual_seed(SEED + 3),
+                                 requests, QWEN_PROMPT)["tokens"]
+    sched = OrcaScheduler(base.model, base.params, base.pc, base.theta,
+                          ServeConfig(lam=out.lam, n_slots=4, paged=True,
+                                      block_size=BS, num_blocks=1 + 3 * blocks,
+                                      chunk_tokens=CHUNK, tokens_per_step=8,
+                                      max_new_tokens=WIDE_NEW, burn_in=2,
+                                      policy="priority"))
+    zero_launches()
+    t0 = time.perf_counter()
+    done, fl, rec = burst_fleet(torch, sched, prompts)
+    wall = time.perf_counter() - t0
+    lc = read_launches()
+    states = [r.state.value for r in done]
+    if not set(states) <= {"stopped", "finished"}:
+        raise AssertionError(f"serve-preempt requests did not all end: "
+                             f"{states}")
+    if not (fl.preemptions > 0 and fl.restores == fl.preemptions
+            and fl.spilled_blocks > 0
+            and {"running", "prefill"} <= set(rec["victims"])):
+        raise AssertionError(f"serve-preempt: {fl.preemptions} spills "
+                             f"({rec['victims']}), {fl.restores} restores, "
+                             f"{fl.spilled_blocks} pages")
+    sched.pool.check()
+    if sched.pool.blocks_in_use:
+        raise AssertionError(f"{sched.pool.blocks_in_use} pages in use")
+    layers = cfg.n_layers
+    want = dict(serving_probe_step=fl.engine_steps,
+                paged_flash_decode=layers * fl.engine_steps,
+                paged_flash_packed_chunk=layers * fl.prefill_chunks,
+                flash_attention=0)
+    got = {k: lc[k] for k in want}
+    if got != want:
+        raise AssertionError(f"serve-preempt launches {got}, expected {want}")
+    print(f"[serve-preempt] fleet: {fl.n_requests} requests / {fl.n_slots} "
+          f"slots in {fl.engine_steps} engine steps "
+          f"({fl.wall_time_s:.2f}s) — {fl.tokens_per_s:.1f} tok/s; "
+          f"preemptions {fl.preemptions}, restores {fl.restores}, "
+          f"spilled_blocks {fl.spilled_blocks}", flush=True)
+    res = dict(phase="serve-preempt", arch=cfg.name, layers=layers,
+               lam=out.lam, pool_blocks=fl.pool_blocks,
+               blocks_per_request=blocks, burst_step=rec["burst_step"],
+               states=states, stop_steps=[r.stop_step for r in done],
+               priorities=[r.priority for r in done],
+               n_preempted=[r.n_preempted for r in done],
+               admitted_step=[r.admitted_step for r in done],
+               restored_step=[r.restored_step for r in done],
+               preemptions=fl.preemptions, restores=fl.restores,
+               spilled_blocks=fl.spilled_blocks, victims=rec["victims"],
+               spill_nbytes=rec["nbytes"], spill_ms=rec["spill_ms"],
+               restore_ms=rec["restore_ms"],
+               engine_steps=fl.engine_steps, prefill_chunks=fl.prefill_chunks,
+               packed_chunks=fl.packed_chunks, wall_s=wall,
+               step_ms=fl.wall_time_s / fl.engine_steps * 1e3,
+               tokens_per_s=fl.tokens_per_s,
+               stall_ms_p50=fl.stall_ms_p50, stall_ms_p99=fl.stall_ms_p99,
+               per_class=fl.per_class, launches=lc)
+    emit(res)
+    return res
+
+
+def phase_preempt_stops(torch, sched, requests: int = 8):
+    """The serve-tree fleet's weights in float32 at ``F32_LAYERS`` layers
+    (full width) on f32 pages, 160-token prompts in 64-token chunks, with
+    its harvested probe at a lambda* between the free fleet's scores
+    (``choose_lambda``: decisive, no score near it).  The same requests
+    served three ways: abundant (one class, every page: nothing contends),
+    under forced preemption (``burst_fleet``: 4 slots, a pool of 1 + 3 x a
+    request's pages, ``policy="priority"``), and the same under
+    ``spec_tree="3.3"`` with a draft cache primed by the abundant tokens
+    (paths past the root accepted; K3 verifies, K4 commits).  Every stop
+    step and every token equal across the three."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import (DraftCache, OrcaScheduler, ServeConfig,
+                                     make_request)
+    model32, params32 = f32_cut(sched, F32_LAYERS, kv_cache_dtype="float32")
+    prompts = serve.model_inputs(model32.cfg,
+                                 torch.Generator().manual_seed(SEED + 3),
+                                 requests, QWEN_PROMPT)["tokens"]
+    blocks = -(-(QWEN_PROMPT + 96) // BS)
+    base = dict(paged=True, block_size=BS, chunk_tokens=CHUNK,
+                tokens_per_step=8, max_new_tokens=96, burn_in=2)
+
+    def scheduler(lam, cache=None, **kw):
+        return OrcaScheduler(model32, params32, sched.pc, sched.theta,
+                             ServeConfig(lam=lam, **base, **kw),
+                             draft_cache=cache)
+
+    def abundant(lam):
+        # one class, every page: nothing contends (4 slots, as below, so
+        # every fleet runs the same batch shapes)
+        return scheduler(lam, n_slots=4).run(
+            [make_request(t) for t in prompts])
+
+    t0 = time.perf_counter()
+    free, _ = abundant(2.0)
+    lam, margin = choose_lambda([r.scores for r in free], base["burn_in"])
+    if margin < 1e-4:
+        raise AssertionError(f"every threshold lies within {margin} of a "
+                             "score: the check would hang on a tie")
+    ref, ref_fl = abundant(lam)
+    if ref_fl.preemptions:
+        raise AssertionError("the abundant fleet preempted")
+    cache = DraftCache()
+    for r in ref:
+        cache.observe(r.inputs["tokens"][0].tolist(), r.tokens)
+    tight = dict(n_slots=4, num_blocks=1 + 3 * blocks, policy="priority")
+    runs = {}
+    for name, kw, dc in (("preempted", {}, None),
+                         ("preempted tree 3.3", dict(spec_tree="3.3"),
+                          cache)):
+        zero_launches()
+        done, fl, rec = burst_fleet(torch, scheduler(lam, dc, **tight, **kw),
+                                    prompts)
+        lc = read_launches()
+        stops = [r.stop_step for r in done]
+        if stops != [r.stop_step for r in ref] \
+                or [r.tokens for r in done] != [r.tokens for r in ref]:
+            raise AssertionError(f"{name}: stops {stops} or tokens differ "
+                                 f"from the abundant fleet's "
+                                 f"{[r.stop_step for r in ref]}")
+        if not (fl.preemptions > 0 and fl.restores == fl.preemptions):
+            raise AssertionError(f"{name}: {fl.preemptions} spills, "
+                                 f"{fl.restores} restores")
+        runs[name] = dict(engine_steps=fl.engine_steps,
+                          preemptions=fl.preemptions, restores=fl.restores,
+                          spilled_blocks=fl.spilled_blocks,
+                          victims=rec["victims"],
+                          burst_step=rec["burst_step"],
+                          n_preempted=[r.n_preempted for r in done],
+                          launches=lc)
+        if kw:
+            longest = max(g for r in done for g in r.tree_path_lens)
+            if longest < 2 or not lc["serving_probe_spec_step"] \
+                    or not lc["paged_flash_packed_chunk"]:
+                raise AssertionError(f"{name}: longest accepted path "
+                                     f"{longest}, launches {lc}")
+            runs[name].update(longest_path=longest,
+                              nodes_proposed=fl.tree_nodes_proposed)
+    res = dict(phase="preempt-stops-f32", layers=model32.cfg.n_layers,
+               requests=requests, prompt=QWEN_PROMPT, lam=lam,
+               lambda_margin=margin, stop_steps=[r.stop_step for r in ref],
+               stopped=sum(r.stop_step >= 0 for r in ref),
+               abundant_engine_steps=ref_fl.engine_steps, runs=runs,
+               seconds=time.perf_counter() - t0)
     emit(res)
     return res
 
@@ -4208,6 +4628,9 @@ def main() -> int:
                                    .n_layers)
     phase_trace(torch, out_t.scheduler, phase="trace-tree")
     tree_f32 = phase_tree_stops(torch, out_t.scheduler)
+    phase_preempt_roundtrip(torch, out.scheduler, out.lam)
+    phase_serve_preempt(torch, out)
+    phase_preempt_stops(torch, out_t.scheduler)
     offline = phase_offline(torch, splits)
     _, out_st = phase_serve(
         torch, ("--static-baseline",), phase="serve-static", requests=4,

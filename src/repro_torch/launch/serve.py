@@ -16,7 +16,11 @@ drafted by the shared n-gram draft cache (``--draft-cache`` keys) and the
 model's self-draft, verified in one packed pass; ``--spec-tree W.D``
 serves tree speculative decode: W draft chains of depth D a slot, verified
 in one packed pass under per-token ancestor masks, the longest accepted
-root path committed.  ``--device cpu`` runs
+root path committed.  ``--policy`` picks the scheduling policy (fifo,
+priority, edf, ttft) and ``--batch-every N`` makes every N-th request
+batch class (priority 1); with preemption on (``--no-preempt`` turns it
+off) a more urgent request spills batch residents to host RAM, which
+restore later bit for bit.  ``--device cpu`` runs
 the plain PyTorch versions of the kernels (use ``--reduced`` there).
 """
 from __future__ import annotations
@@ -132,11 +136,25 @@ def serve(argv=None) -> ServeResult:
                          "draft cache that feeds speculation from "
                          "verifier-accepted continuations (0 = model "
                          "self-draft only)")
+    ap.add_argument("--policy", default="fifo",
+                    choices=("fifo", "priority", "edf", "ttft"),
+                    help="scheduling policy: admission order, per-step "
+                         "prefill share and victim selection (priority "
+                         "classes come from --batch-every; edf ranks by "
+                         "per-class deadline)")
+    ap.add_argument("--no-preempt", action="store_true",
+                    help="disable involuntary preemption (spill/restore "
+                         "of lower-priority residents when capacity fails "
+                         "for a more urgent unit) — wait-only admission")
     ap.add_argument("--no-pack", action="store_true",
                     help="disable multi-request chunk packing (one request "
                          "per prefill chunk)")
     ap.add_argument("--pack-max", type=int, default=4,
                     help="max requests fused into one packed chunk")
+    ap.add_argument("--batch-every", type=int, default=0,
+                    help="mark every Nth request as batch-class "
+                         "(priority 1) to exercise the priority policy "
+                         "(0 = all latency-class)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -166,7 +184,10 @@ def serve(argv=None) -> ServeResult:
                         config=dataclasses.replace(serve_cfg, lam=float(lam)))
     batch = model_inputs(cfg, torch.Generator().manual_seed(args.seed + 1),
                          args.requests, args.prompt_len)
-    reqs = [make_request(batch["tokens"][i]) for i in range(args.requests)]
+    reqs = [make_request(batch["tokens"][i],
+                         priority=(1 if args.batch_every
+                                   and i % args.batch_every == 0 else 0))
+            for i in range(args.requests)]
     done, fleet = sched.run(reqs)
     for r in done:
         print(f"[serve]   req {r.req_id}: {r.state.value:8s} "
@@ -198,6 +219,10 @@ def serve(argv=None) -> ServeResult:
             print(f"[serve] draft cache: {fleet.draft_cache_hits} hits / "
                   f"{fleet.draft_cache_misses} misses "
                   f"(rate {fleet.draft_cache_hit_rate:.2f})")
+    if fleet.preemptions:
+        print(f"[serve] preemption: {fleet.preemptions} spills / "
+              f"{fleet.restores} restores ({fleet.spilled_blocks} pages "
+              "copied to host)")
     print(f"[serve] latency: ttft p50/p99 {fleet.ttft_ms_p50:.1f}/"
           f"{fleet.ttft_ms_p99:.1f} ms, step stall p50/p99 "
           f"{fleet.stall_ms_p50:.1f}/{fleet.stall_ms_p99:.1f} ms"

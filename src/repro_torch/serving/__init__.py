@@ -3,7 +3,8 @@ from repro_torch.serving.draft_cache import DraftCache
 from repro_torch.serving.engine import (ChunkSeg, ChunkWork,
                                         ContinuousServingEngine, ProbeState,
                                         ServeResult, ServingEngine,
-                                        SlotStepView, StaticQueueResult,
+                                        SlotStepView, Spill,
+                                        StaticQueueResult,
                                         chunk_supported, chunked_prefill,
                                         extract_trajectories,
                                         init_probe_state, make_serve_step,
@@ -13,19 +14,25 @@ from repro_torch.serving.engine import (ChunkSeg, ChunkWork,
 from repro_torch.serving.groups import RequestGroup, group_requests, make_group
 from repro_torch.serving.kv_pool import (NULL_BLOCK, BlockPool, blocks_needed,
                                          pad_row, prompt_key)
-from repro_torch.serving.policy import ComposeView, FIFOPolicy
+from repro_torch.serving.policy import (ComposeView, EDFPolicy, FIFOPolicy,
+                                        HostPressure, PriorityPolicy,
+                                        SchedulingPolicy, TTFTAwarePolicy,
+                                        make_policy)
 from repro_torch.serving.request import (FleetMetrics, Request, RequestState,
-                                         make_request, spec_stats)
+                                         latency_stats, make_request,
+                                         spec_stats)
 from repro_torch.serving.scheduler import OrcaScheduler
 
 __all__ = ["BlockPool", "ChunkSeg", "ChunkWork", "ComposeView",
-           "ContinuousServingEngine", "DraftCache", "FIFOPolicy",
-           "FleetMetrics", "NULL_BLOCK", "OrcaScheduler", "ProbeState",
-           "Request", "RequestGroup", "RequestState", "ServeConfig",
-           "ServeResult", "ServingEngine", "SlotStepView",
-           "StaticQueueResult", "blocks_needed", "chunk_supported",
-           "chunked_prefill", "extract_trajectories",
-           "group_requests", "init_probe_state", "make_group",
+           "ContinuousServingEngine", "DraftCache", "EDFPolicy",
+           "FIFOPolicy", "FleetMetrics", "HostPressure", "NULL_BLOCK",
+           "OrcaScheduler", "PriorityPolicy", "ProbeState", "Request",
+           "RequestGroup", "RequestState", "SchedulingPolicy",
+           "ServeConfig", "ServeResult", "ServingEngine", "SlotStepView",
+           "Spill", "StaticQueueResult", "TTFTAwarePolicy",
+           "blocks_needed", "chunk_supported", "chunked_prefill",
+           "extract_trajectories", "group_requests", "init_probe_state",
+           "latency_stats", "make_group", "make_policy",
            "make_request", "make_serve_step", "pad_row",
            "prefix_len", "probe_update", "prompt_key", "reset_probe_slot",
            "serve_queue_static", "spec_stats", "write_probe_slot"]

@@ -2,11 +2,13 @@
 
 The fields are the JAX package's (``repro/serving/config.py``) so one
 description drives either stack.  The port serves admission-time or
-chunked, packed prefill, FIFO admission, one-token, linear or tree
-speculative decode with the shared draft cache, dense or paged KV, one
-host — and every field of a later slice raises
-``NotImplementedError`` at construction when set, naming the ROADMAP
-queue-A item that brings it.  The probe-dispatch fields of the JAX config
+chunked, packed prefill, the FIFO, priority, EDF and TTFT-aware policies
+with involuntary preemption (on by default, as in the JAX package),
+one-token, linear or tree speculative decode with the shared draft
+cache, dense or paged KV, one host — and every field of a later slice
+raises ``NotImplementedError`` at construction when set, naming the
+ROADMAP queue-A item that brings it (A4.2 groups and consensus, A4.3 the
+fleet).  The probe-dispatch fields of the JAX config
 (``probe_impl``/``interpret``) have no counterpart: the device of the
 tensors picks K1 or its plain version.
 """
@@ -15,14 +17,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+from repro_torch.serving.policy import make_policy
+
 # field -> (value that means "off", ROADMAP queue-A item that brings it)
 _NOT_PORTED = {
-    "group_size": (1, "preemption, groups and fleet"),
-    "consensus": (None, "preemption, groups and fleet"),
-    "consensus_delta": (None, "preemption, groups and fleet"),
-    "preemption": (False, "preemption, groups and fleet"),
-    "n_hosts": (1, "preemption, groups and fleet"),
-    "placement": (None, "preemption, groups and fleet"),
+    "group_size": (1, "A4.2, groups and consensus"),
+    "consensus": (None, "A4.2, groups and consensus"),
+    "consensus_delta": (None, "A4.2, groups and consensus"),
+    "n_hosts": (1, "A4.3, the fleet"),
+    "placement": (None, "A4.3, the fleet"),
 }
 
 
@@ -66,13 +69,18 @@ class ServeConfig:
     #                               0 disables the cache (self-draft only)
 
     # -- scheduling policy ----------------------------------------------------
-    policy: Any = None            # None / "fifo" (the only ported policy)
+    policy: Any = None            # "fifo"/"priority"/"edf"/"ttft", a
+    #                               SchedulingPolicy instance, or None (FIFO)
+
+    # -- preemption -----------------------------------------------------------
+    preemption: bool = True       # spill strictly-lower-priority residents
+    #                               to host RAM when capacity fails for a
+    #                               more urgent unit; False waits only
 
     # -- not ported yet (see _NOT_PORTED) -------------------------------------
     group_size: int = 1
     consensus: Any = None
     consensus_delta: Optional[float] = None
-    preemption: bool = False
     n_hosts: int = 1
     placement: Any = None
 
@@ -121,11 +129,7 @@ class ServeConfig:
                     f"{field}={getattr(self, field)!r} is not ported to "
                     f"repro_torch yet: it comes with ROADMAP queue A ({item}); "
                     f"fix by leaving {field} at {off!r}")
-        if self.policy not in (None, "fifo"):
-            raise NotImplementedError(
-                f"policy={self.policy!r} is not ported to repro_torch yet: "
-                "only FIFO admission is; the other policies come with "
-                "ROADMAP queue A (preemption, groups and fleet)")
+        make_policy(self.policy)      # an unknown name raises here
         if isinstance(self.tokens_per_step, bool) or self.tokens_per_step < 1:
             raise ValueError(
                 f"tokens_per_step={self.tokens_per_step!r} must be an int "
@@ -225,8 +229,10 @@ class ServeConfig:
         ("spec_tokens", "spec_tokens", None),    # 0 -> None
         ("spec_tree", "spec_tree", None),        # "" -> None
         ("draft_cache", "draft_cache_size", None),
+        ("policy", "policy", None),
         ("no_pack", "pack_chunks", "invert"),
         ("pack_max", "pack_max", None),
+        ("no_preempt", "preemption", "invert"),
     )
 
     @classmethod

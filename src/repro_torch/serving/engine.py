@@ -38,10 +38,17 @@ batch once (K7), then loop the fused step on a dense cache (K6) until the
 slowest row finishes (``serve_queue_static`` serves a queue in such
 groups).
 
+Involuntary preemption: ``preempt`` copies a slot's whole request
+identity to host RAM (``Spill``: its probe row, token, position, and its
+KV pages or dense lane) and ``restore`` writes it back into any free slot
+and any free pages, bit for bit, so the resumed request stops on the
+reasoning step it would have stopped on undisturbed.
+
 Buffers the JAX engine donates to its jitted step — the KV cache or page
 pool and the probe state — are updated IN PLACE here.  Ported: admission-
 time and chunked, packed prefill, one-token, linear and tree speculative
-decode, dense and paged caches.  Not yet: preemption (ROADMAP queue A).
+decode, dense and paged caches, spill and restore.  The group consensus
+cancellation that calls ``cancel`` comes with ROADMAP A4.2.
 """
 from __future__ import annotations
 
@@ -699,6 +706,45 @@ class SlotStepView(NamedTuple):
     seq_n: Optional[np.ndarray] = None       # (n_slots, k) n_scores / token
 
 
+@dataclasses.dataclass
+class Spill:
+    """Everything a preempted request needs to resume bit-identically,
+    copied to host RAM (CPU tensors; never device memory).
+
+    The per-request TTT calibrator (W_i, b_i, smoothing ring, counters)
+    *is* the request's identity — restoring it exactly, together with the
+    KV it conditions on and the position it decodes from, is what makes a
+    preempted-then-resumed request stop on the same reasoning step as an
+    undisturbed one.
+    """
+    probe: Tuple[torch.Tensor, ...]  # one row per ProbeState leaf
+    token: int                       # last decoded token (decode input)
+    pos: int                         # sequence position to resume from
+    armed: bool                      # True: was RUNNING; False: mid-prefill
+    prompt_len: int = 0              # prefill progress bookkeeping (host side)
+    # paged: the victim's pages, (L, n_blocks, ...) per page leaf, in the
+    # order of its block row
+    pages: Optional[Dict[str, torch.Tensor]] = None
+    n_blocks: int = 0                # physical blocks the pages cover
+    # dense: the slot's decode-state lane (axis-1 slice of every leaf)
+    lane: Optional[Dict[str, torch.Tensor]] = None
+
+    @property
+    def nbytes(self) -> int:
+        """Host RAM this spill's KV payload occupies."""
+        leaves = (self.pages if self.pages is not None
+                  else self.lane if self.lane is not None else {})
+        return int(sum(t.numel() * t.element_size()
+                       for t in leaves.values()))
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t`` that shares no memory with it.  From a CUDA
+    tensor the copy is synchronous: it has landed before the caller hands
+    the source pages or slot to anyone else."""
+    return t.to("cpu", copy=True)
+
+
 class ContinuousServingEngine:
     """Fixed-shape batch of ``n_slots`` whose rows live independent lives.
 
@@ -720,6 +766,8 @@ class ContinuousServingEngine:
     * With ``spec_tokens = k`` (or ``spec_tree = (W, D)``, 1 + W*D nodes a
       slot), ``step`` takes each slot's verify length and host drafts, and
       each slot's ``pos`` advances by the tokens it committed.
+    * ``preempt`` spills a slot to host RAM and releases it; ``restore``
+      resumes a ``Spill`` in any free slot, on any free pages.
 
     The scheduler owns queues, lifecycles, the block pool and metrics; this
     class owns device state only.  The device is the parameters' device.
@@ -842,6 +890,86 @@ class ContinuousServingEngine:
         if self.paged:
             self._set_row(slot, np.full((self.max_blocks,), NULL_BLOCK))
         self.pos[slot] = 0
+
+    def cancel(self, slot: int) -> None:
+        """Voluntary mid-flight release: the release path (park the probe
+        row, NULL the table row, zero the position), safe mid-prefill too —
+        a resident PREFILL row already sits parked at the NULL page."""
+        self.release(slot)
+
+    # ------------------------------------------------------------------
+    # involuntary preemption: spill to host RAM, restore bit for bit
+    def _page_index(self, block_row) -> torch.Tensor:
+        """A victim's physical pages as a device index.  Every entry must
+        be a real page, once: a NULL entry would copy into the NULL page
+        and a repeated one would scatter twice, so both are refused on the
+        host (the JAX package drops such rows past the pool instead)."""
+        row = [int(b) for b in block_row]
+        if not row or NULL_BLOCK in row or len(set(row)) != len(row) \
+                or max(row) >= self.num_blocks or min(row) < 0:
+            raise ValueError(
+                f"block row {row} is not a list of distinct real pages in "
+                f"[1, {self.num_blocks}): a spill or restore moves exactly "
+                "the request's own pages; fix by passing the scheduler's "
+                "block_ids for the request")
+        return torch.tensor(row, dtype=torch.long, device=self.device)
+
+    @torch.no_grad()
+    def preempt(self, slot: int, *, block_row=None, armed: bool = True,
+                prompt_len: int = 0) -> Spill:
+        """INVOLUNTARY eviction: copy the slot's request identity to host
+        RAM, then release the slot.  ``restore`` resumes it later.
+
+        Paged mode takes the victim's physical block ids (``block_row`` —
+        the scheduler's view, because a mid-prefill victim's table row is
+        still NULL while its chunks write through explicit rows) and copies
+        those pages out, every page leaf (int8 scales too); dense mode
+        copies the slot's lane of every state leaf (a KV lane, or RWKV6's
+        recurrent state).  ``armed=False`` marks a mid-prefill victim."""
+        probe = tuple(_host(leaf[slot]) for leaf in self.st)
+        token = int(self.token[slot])
+        pos = int(self.pos[slot])
+        pages = lane = None
+        n_blocks = 0
+        if self.paged:
+            assert block_row is not None, "paged preempt needs the block row"
+            idx = self._page_index(block_row)
+            n_blocks = int(idx.numel())
+            pages = {k: _host(v[:, idx]) for k, v in self._pages().items()}
+        else:
+            assert block_row is None
+            lane = {k: _host(v[:, slot]) for k, v in self.state.items()}
+        self.release(slot)
+        return Spill(probe=probe, token=token, pos=pos, armed=bool(armed),
+                     prompt_len=int(prompt_len), pages=pages,
+                     n_blocks=n_blocks, lane=lane)
+
+    @torch.no_grad()
+    def restore(self, slot: int, spill: Spill, *, block_row=None) -> None:
+        """Resume a spilled request in ``slot``: page copy-back (or dense
+        lane write), block-table rewrite, probe row reloaded exactly, token
+        and position restored.  The new ``block_row`` need not be the
+        victim's original pages — only the table indirection changes.  A
+        mid-prefill victim's table row stays NULL: its remaining chunks
+        write through the explicit row and ``finish_prefill`` arms it."""
+        if self.paged:
+            assert block_row is not None, "paged restore needs a block row"
+            assert len(block_row) == spill.n_blocks, \
+                (len(block_row), spill.n_blocks)
+            idx = self._page_index(block_row)
+            for k, v in self._pages().items():
+                v[:, idx] = spill.pages[k].to(self.device, v.dtype)
+            self._set_row(slot, pad_row(block_row, self.max_blocks)
+                          if spill.armed
+                          else np.full((self.max_blocks,), NULL_BLOCK))
+        else:
+            assert block_row is None
+            for k, v in self.state.items():
+                v[:, slot] = spill.lane[k].to(self.device, v.dtype)
+        write_probe_slot(self.st, slot,
+                         [p.to(self.device) for p in spill.probe])
+        self.token[slot] = spill.token
+        self.pos[slot] = spill.pos
 
     # ------------------------------------------------------------------
     # chunked prefill: PREFILL is a resident phase, not an admission event

@@ -5,9 +5,10 @@ prompt.  ``RequestGroup`` makes the group a scheduling unit: all N samples
 are admitted atomically (slots AND pages reserved all-or-nothing), and the
 siblings share the first sample's full prompt pages by refcount.  With
 ``group_id=None`` requests the layer is inert: every unit is a singleton.
-The JAX package's consensus stop, which cancels the still-running siblings
-once the group's vote clears its threshold, comes with ROADMAP queue A
-(preemption, groups and fleet).
+Preemption treats a group's samples as residents like any other (a
+victim is one sample, spilled and restored alone).  The JAX package's
+consensus stop, which cancels the still-running siblings once the group's
+vote clears its threshold, comes with ROADMAP A4.2 (groups and consensus).
 """
 from __future__ import annotations
 

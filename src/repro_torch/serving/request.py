@@ -2,17 +2,25 @@
 
 A ``Request`` is one user sequence moving through the ORCA server:
 
-    WAITING -> PREFILL -> RUNNING -> STOPPED | FINISHED
+    WAITING -> PREFILL -> RUNNING -> STOPPED | FINISHED | CANCELLED
+                  ^          |
+                  +- SWAPPED +   (involuntary preemption: spilled to host,
+                                  re-admitted before WAITING)
 
 ``STOPPED`` means the calibrated ORCA threshold test fired (the paper's
 early stop — the request's remaining step budget is *returned to the
 fleet* by evicting its slot); ``FINISHED`` means the token budget ran out
-without a stop.  Metrics use the shared savings helper
+without a stop.  ``SWAPPED`` is *involuntary* and *temporary*: the
+scheduler preempted the request to make room for a strictly-higher-priority
+admission, spilling its KV pages AND its probe fast-weight state to host
+RAM (``engine.Spill``); it re-enters PREFILL or RUNNING via ``restore``
+with bit-identical state, so its eventual stop decision is unchanged.
+``CANCELLED`` is a voluntary mid-flight release (the JAX package's group
+consensus, which comes with ROADMAP A4.2); CANCELLED requests are left out
+of the latency tails and the speculative-decode statistics, as in the JAX
+package.  Metrics use the shared savings helper
 (``repro_torch.core.stopping.step_savings``) so served savings are directly
-comparable with offline-evaluated savings; the speculative-decode
-counters, linear and tree, aggregate in ``spec_stats``.  The JAX
-package's CANCELLED (group consensus) and SWAPPED (preemption) states, and
-the fleet counters, come with the ROADMAP queue-A items that serve them.
+comparable with offline-evaluated savings.
 """
 from __future__ import annotations
 
@@ -33,6 +41,10 @@ class RequestState(enum.Enum):
     RUNNING = "running"
     STOPPED = "stopped"      # ORCA threshold fired -> slot evicted
     FINISHED = "finished"    # token budget exhausted without a stop
+    CANCELLED = "cancelled"  # voluntary mid-flight release (stop_step -1)
+    SWAPPED = "swapped"      # involuntarily preempted: KV + probe state
+    #                          spilled to host RAM, queued for restore
+    #                          ahead of WAITING admissions
 
 
 _req_counter = itertools.count()
@@ -44,10 +56,14 @@ class Request:
     inputs: Dict[str, np.ndarray]         # batch-1 host-side model inputs
     prompt_len: int
     max_new_tokens: Optional[int] = None  # None -> engine default
-    # priority class: lower = more latency-sensitive (0 = interactive, 1 =
-    # batch by convention); FIFO admission ignores it, the fleet metrics
-    # report latency per class
+    # priority class for the scheduling policy: lower = more
+    # latency-sensitive (0 = interactive, 1 = batch by convention); FIFO
+    # admission ignores it, PriorityPolicy admits lower classes first and
+    # preemption spills only strictly-lower classes
     priority: int = 0
+    # optional per-request latency deadline for the EDF policy (ms from
+    # submission); None -> the policy falls back to the class SLO
+    deadline_ms: Optional[float] = None
     # self-consistency group membership: samples sharing a group_id are
     # gang-admitted atomically (None = the classic independent request)
     group_id: Optional[int] = None
@@ -81,6 +97,10 @@ class Request:
     n_shared_blocks: int = 0              # prefix pages shared with a donor
     prefill_skipped: bool = False         # prompt was resident: no prefill
 
+    # preemption bookkeeping (owned by the scheduler)
+    n_preempted: int = 0                  # times spilled to host RAM
+    restored_step: int = -1               # engine step of the last restore
+
     # speculative decode (owned by the scheduler; stay 0/empty without it)
     spec_proposed: int = 0                # draft tokens proposed (excl. the
     #                                       current token of each block)
@@ -98,7 +118,8 @@ class Request:
 
     @property
     def done(self) -> bool:
-        return self.state in (RequestState.STOPPED, RequestState.FINISHED)
+        return self.state in (RequestState.STOPPED, RequestState.FINISHED,
+                              RequestState.CANCELLED)
 
     @property
     def queue_steps(self) -> int:
@@ -170,6 +191,10 @@ class FleetMetrics:
     # ttft_ms_p50/p99 and queue_wait_ms_p50/p99 (WAITING -> PREFILL wall
     # time)
     per_class: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # preemption: victims spilled to host RAM and resumed
+    preemptions: int = 0         # victims spilled to host RAM
+    restores: int = 0            # spilled requests resumed
+    spilled_blocks: int = 0      # KV pages copied out across all spills
     # speculative decode: acceptance and shared draft-cache accounting
     # (``spec_stats``)
     spec_tokens_proposed: int = 0   # draft tokens proposed fleet-wide
@@ -188,6 +213,9 @@ class FleetMetrics:
     def row(self) -> Dict[str, float]:
         return {
             **self.per_class,
+            "preemptions": self.preemptions,
+            "restores": self.restores,
+            "spilled_blocks": self.spilled_blocks,
             "packed_chunks": self.packed_chunks,
             "peak_step_tokens": self.peak_step_tokens,
             "requests": self.n_requests, "slots": self.n_slots,
@@ -211,11 +239,14 @@ class FleetMetrics:
 def latency_stats(requests: List[Request]
                   ) -> "tuple[float, float, Dict[str, float]]":
     """TTFT percentiles + per-priority-class latency tails for a served
-    population: ``(ttft_ms_p50, ttft_ms_p99, per_class)``."""
-    ttft = np.array([r.ttft_s for r in requests if r.ttft_s >= 0]) * 1e3
+    population: ``(ttft_ms_p50, ttft_ms_p99, per_class)``.  CANCELLED
+    requests are left out: a cancellation is a by-design eviction, not a
+    latency event."""
+    kept = [r for r in requests if r.state is not RequestState.CANCELLED]
+    ttft = np.array([r.ttft_s for r in kept if r.ttft_s >= 0]) * 1e3
     per_class: Dict[str, float] = {}
-    for cls in sorted({r.priority for r in requests}):
-        in_cls = [r for r in requests if r.priority == cls]
+    for cls in sorted({r.priority for r in kept}):
+        in_cls = [r for r in kept if r.priority == cls]
         c_ttft = np.array([r.ttft_s for r in in_cls
                            if r.ttft_s >= 0]) * 1e3
         c_wait = np.array([r.queue_wait_s for r in in_cls
@@ -236,16 +267,17 @@ def spec_stats(requests: List[Request]) -> Dict[str, float]:
     """Speculative-decode aggregation over a served population, as
     ``FleetMetrics`` keyword arguments: linear acceptance accounting,
     tree-path percentiles and shared draft-cache hit rates, computed from
-    per-request counters (the JAX package's ``spec_stats``; the port has no
-    cancelled requests to leave out)."""
-    sp = sum(r.spec_proposed for r in requests)
-    sa = sum(r.spec_accepted for r in requests)
-    alens = np.asarray([g for r in requests for g in r.accepted_lens],
+    per-request counters (the JAX package's ``spec_stats``), CANCELLED
+    requests left out as in the latency tails."""
+    live = [r for r in requests if r.state is not RequestState.CANCELLED]
+    sp = sum(r.spec_proposed for r in live)
+    sa = sum(r.spec_accepted for r in live)
+    alens = np.asarray([g for r in live for g in r.accepted_lens],
                        np.float64)
-    plens = np.asarray([g for r in requests for g in r.tree_path_lens],
+    plens = np.asarray([g for r in live for g in r.tree_path_lens],
                        np.float64)
-    hits = sum(r.draft_hits for r in requests)
-    misses = sum(r.draft_misses for r in requests)
+    hits = sum(r.draft_hits for r in live)
+    misses = sum(r.draft_misses for r in live)
     return {
         "spec_tokens_proposed": int(sp),
         "spec_tokens_accepted": int(sa),
@@ -254,7 +286,7 @@ def spec_stats(requests: List[Request]) -> Dict[str, float]:
                              if alens.size else 0.0),
         "accepted_len_p99": (float(np.percentile(alens, 99))
                              if alens.size else 0.0),
-        "tree_nodes_proposed": int(sum(r.tree_nodes for r in requests)),
+        "tree_nodes_proposed": int(sum(r.tree_nodes for r in live)),
         "tree_path_accepted_p50": (float(np.percentile(plens, 50))
                                    if plens.size else 0.0),
         "tree_path_accepted_p99": (float(np.percentile(plens, 99))

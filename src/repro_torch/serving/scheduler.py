@@ -1,15 +1,26 @@
 """OrcaScheduler: continuous batching with ORCA-stop eviction.
 
 The JAX package's scheduler (``repro/serving/scheduler.py``), cut to what
-the port's engine serves: admission-time or chunked, packed prefill, FIFO
-admission of gang units, one-token, linear or tree speculative decode with
-the shared draft cache, dense or paged KV with prefix sharing.  The admission
-loop, batch composer, token collection and metrics are the JAX package's
-line for line, so per-request stop steps, tokens and completion steps
-match it exactly on the same model outputs.  Preemption and consensus
-are rejected by ``ServeConfig`` until their ROADMAP items land,
-and a session that mixes priority classes by ``submit``: the reference
-preempts there by default.
+the port's engine serves: admission-time or chunked, packed prefill, gang
+admission under the FIFO, priority, EDF or TTFT-aware policy, involuntary
+preemption, one-token, linear or tree speculative decode with the shared
+draft cache, dense or paged KV with prefix sharing.  The admission loop,
+batch composer, token collection and metrics are the JAX package's line
+for line, so per-request stop steps, tokens, admission, restore and
+completion steps match it exactly on the same model outputs.  Group
+consensus comes with ROADMAP A4.2 and the fleet router with A4.3.
+
+Preemption (``preemption=True``, the default): when capacity (slots or
+pages) fails for a unit strictly MORE urgent than some resident, the
+policy's ``select_victim`` picks strictly-lower-priority victims (newest
+first) and ``engine.preempt`` spills each one's KV pages and probe state
+to host RAM (``engine.Spill``).  Spilled requests sit in a SWAPPED queue
+that restores BEFORE the waiting queue, into any free slot and any free
+pages, and a swapped head that cannot yet restore barriers its own class.
+A feasibility simulation over the pool's refcounts runs before any spill,
+so no victim is spilled for a unit that still would not fit, and the
+preemption relation is a DAG: no livelock.  The round trip is bit-exact,
+so stop decisions do not move under any preemption schedule.
 
 Speculative decode (``spec_tokens=k``): each RUNNING slot claims up to
 k - 1 draft tokens beyond its current token from the same token budget
@@ -52,7 +63,7 @@ import dataclasses
 import time
 import warnings
 from collections import deque
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -60,12 +71,13 @@ from repro_torch.core.probe import ProbeConfig
 from repro_torch.models.registry import Model
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.engine import (ChunkSeg, ChunkWork,
-                                        ContinuousServingEngine,
+                                        ContinuousServingEngine, Spill,
                                         chunk_supported, prefix_len)
 from repro_torch.serving.draft_cache import DraftCache
 from repro_torch.serving.groups import RequestGroup, group_requests
 from repro_torch.serving.kv_pool import BlockPool, blocks_needed, prompt_key
-from repro_torch.serving.policy import ComposeView, FIFOPolicy
+from repro_torch.serving.policy import (ComposeView, HostPressure,
+                                        SchedulingPolicy, make_policy)
 from repro_torch.serving.request import (FleetMetrics, Request, RequestState,
                                          latency_stats, spec_stats)
 
@@ -96,7 +108,8 @@ class OrcaScheduler:
     Driving protocol: ``submit(requests)``, ``step()`` (one iteration;
     False once idle), ``drain()`` -> (requests, FleetMetrics), and
     ``run(requests)`` = submit + drain.  ``prepare(requests)`` sizes the
-    engine and pool for a population without enqueueing it.
+    engine and pool for a population without enqueueing it, and
+    ``pressure()`` exports the scheduler's ``HostPressure`` snapshot.
     """
 
     def __init__(self, model: Model, params, pc: ProbeConfig, theta,
@@ -108,6 +121,8 @@ class OrcaScheduler:
                  chunk_tokens: Optional[int] = _UNSET,
                  token_budget: Optional[int] = _UNSET,
                  pack_chunks: bool = _UNSET, pack_max: int = _UNSET,
+                 policy: Union[str, SchedulingPolicy, None] = _UNSET,
+                 preemption: bool = _UNSET,
                  spec_tokens: Optional[int] = _UNSET,
                  spec_tree: Optional[str] = _UNSET,
                  draft_cache: Optional[DraftCache] = None):
@@ -213,7 +228,11 @@ class OrcaScheduler:
                              + (self.chunk_tokens or 0))
         self.pack_chunks = bool(_pick(pack_chunks, cfg.pack_chunks))
         self.pack_max = int(_pick(pack_max, cfg.pack_max))
-        self.policy = FIFOPolicy()     # ServeConfig admits no other yet
+        # the composer's policy: admission order, prefill share, victims
+        self.policy = make_policy(_pick(policy, cfg.policy))
+        # involuntary preemption: capacity failures for strictly-more-
+        # urgent units spill lower-priority residents instead of waiting
+        self.preemption = bool(_pick(preemption, cfg.preemption))
         self.pool: Optional[BlockPool] = None
         self._engine: Optional[ContinuousServingEngine] = None
         self._session_open = False
@@ -224,6 +243,7 @@ class OrcaScheduler:
     # submit..drain cycle; engine, pool and policy survive across sessions
     def _reset_session(self) -> None:
         self._waiting: deque = deque()            # gang-admission units
+        self._swapped: deque = deque()            # (request, Spill) pairs
         self._running: Dict[int, Request] = {}    # slot -> request
         self._prefilling: Dict[int, Request] = {}  # slot -> mid-prefill req
         self._plans: Dict[int, _AdmitPlan] = {}   # deferred donor registry
@@ -234,16 +254,18 @@ class OrcaScheduler:
         self._active_slot_steps = 0
         self._total_tokens = self._n_chunks = self._n_packed = 0
         self._peak_blocks = self._prefill_skips = self._peak_step_tokens = 0
+        self._n_preempted = self._n_restored = self._n_spilled_blocks = 0
         self._stalls: List[float] = []
         self._t0 = time.perf_counter()
 
     @property
     def has_work(self) -> bool:
-        """True while any request is queued or resident."""
-        return bool(self._waiting or self._running or self._prefilling)
+        """True while any request is queued, swapped or resident."""
+        return bool(self._waiting or self._swapped or self._running
+                    or self._prefilling)
 
     def _resident(self) -> bool:
-        return bool(self._running or self._prefilling)
+        return bool(self._running or self._prefilling or self._swapped)
 
     @property
     def engine(self) -> Optional[ContinuousServingEngine]:
@@ -434,6 +456,90 @@ class OrcaScheduler:
         return plans
 
     # ------------------------------------------------------------------
+    # involuntary preemption: spill residents to host RAM, restore later
+    def _spill(self, req: Request) -> None:
+        """Preempt one resident: engine state to host RAM, pages back to
+        the pool, slot back to the fleet, request onto the SWAPPED queue."""
+        eng = self._engine
+        slot = req.slot
+        spill = eng.preempt(
+            slot,
+            block_row=(req.block_ids if eng.paged and req.block_ids
+                       else None),
+            armed=req.state is RequestState.RUNNING,
+            prompt_len=req.prefill_progress)
+        if self.paged and req.block_ids:
+            self._n_spilled_blocks += len(req.block_ids)
+            self.pool.free(req.block_ids)
+        req.block_ids = []
+        req.n_shared_blocks = 0
+        self._running.pop(slot, None)
+        self._prefilling.pop(slot, None)
+        # a mid-prefill victim's deferred donor plan names the pages just
+        # freed: dropped (the restored request registers no prefix)
+        self._plans.pop(slot, None)
+        self._free.append(slot)
+        req.slot = -1
+        req.state = RequestState.SWAPPED
+        req.n_preempted += 1
+        self._n_preempted += 1
+        self._swapped.append((req, spill))
+
+    def _restore(self, req: Request, spill: Spill,
+                 row: Optional[List[int]], steps: int) -> None:
+        """Resume a spilled request in a free slot on ``row``'s pages (not
+        the originals: only the block-table indirection changes); it
+        re-enters RUNNING, or PREFILL with its remaining chunks to ride."""
+        eng = self._engine
+        slot = self._free.pop()
+        eng.restore(slot, spill, block_row=(row if eng.paged else None))
+        if row is not None:
+            req.block_ids = list(row)
+            req.n_shared_blocks = 0
+        req.slot = slot
+        req.restored_step = steps
+        self._n_restored += 1
+        if spill.armed:
+            req.state = RequestState.RUNNING
+            self._running[slot] = req
+        else:
+            req.state = RequestState.PREFILL
+            self._prefilling[slot] = req
+
+    def _preempt_for(self, members: Sequence[Request], prio: int) -> bool:
+        """Make room (slots and, paged, pages) for ``members`` by spilling
+        strictly-lower-priority residents.  A FEASIBILITY SIMULATION runs
+        first — victims chosen by the policy over a shrinking candidate
+        list, simulated refcount decrements tracking which shared pages
+        would actually return — and no spill runs unless the unit fits
+        afterwards."""
+        if not self.preemption:
+            return False
+        cand = list(self._running.values()) + list(self._prefilling.values())
+        victims: List[Request] = []
+        sim_slots, need_slots = len(self._free), len(members)
+        sim_pages = self.pool.num_free if self.paged else 0
+        need_pages = (sum(self._request_blocks(r) for r in members)
+                      if self.paged else 0)
+        sim_dec: Dict[int, int] = {}
+        while sim_slots < need_slots or sim_pages < need_pages:
+            vi = self.policy.select_victim(cand, prio)
+            if vi is None:
+                return False
+            victim = cand.pop(vi)
+            victims.append(victim)
+            sim_slots += 1
+            for b in victim.block_ids:
+                d = sim_dec.get(b, 0) + 1
+                sim_dec[b] = d
+                # a shared page only returns with its LAST owner
+                if self.pool.refcount(b) - d == 0:
+                    sim_pages += 1
+        for victim in victims:
+            self._spill(victim)
+        return True
+
+    # ------------------------------------------------------------------
     # the submit/step/drain protocol
     def prepare(self, requests: Sequence[Request]) -> None:
         """Size the engine and (paged) the page pool for a request
@@ -452,17 +558,6 @@ class OrcaScheduler:
         serving session if none is active."""
         requests = list(requests)
         fresh = not self._session_open
-        session = [] if fresh else self._requests
-        classes = sorted({r.priority for r in [*session, *requests]})
-        if len(classes) > 1:
-            raise NotImplementedError(
-                f"priority classes {classes} in one serving session: the "
-                "port admits FIFO and cannot preempt, while the reference's "
-                "default ServeConfig (preemption=True) spills lower-class "
-                "residents for a more urgent request, so the two schedules "
-                "would differ; mixed priorities come with ROADMAP A4 "
-                "(preemption, groups and fleet); fix by serving one "
-                "priority class per session")
         if fresh:
             self._reset_session()
             self._session_open = True
@@ -486,7 +581,7 @@ class OrcaScheduler:
 
     def run(self, requests: Sequence[Request]
             ) -> Tuple[List[Request], FleetMetrics]:
-        """Drive every request to STOPPED/FINISHED; return them + metrics."""
+        """Drive every request to a terminal state; return them + metrics."""
         if self._session_open and self.has_work:
             raise RuntimeError(
                 "run() while a serving session is active would reset "
@@ -515,20 +610,49 @@ class OrcaScheduler:
             return False
         eng = self._engine
         chunked = bool(eng.chunk_tokens)
-        waiting, running, free = self._waiting, self._running, self._free
+        waiting, swapped = self._waiting, self._swapped
+        running, free = self._running, self._free
         prefilling, plans = self._prefilling, self._plans
         steps = self._steps
         t_iter = time.perf_counter()
 
-        # admission: refill free slots before the next fused step.  The
-        # POLICY picks which WAITING unit (a whole group, or a singleton);
-        # a unit needing more slots than are free may be skipped (bounded
-        # by the policy's aging guard) so smaller units behind it admit,
-        # and in paged mode a unit that does not fit the pool WAITS for an
-        # eviction to return pages — all-or-nothing on both resources,
-        # whether the prompt then prefills in one shot or in chunks.
+        # admission: refill free slots before the next fused step.  SWAPPED
+        # requests (preemption victims) restore FIRST, ahead of every
+        # WAITING unit, and a swapped head that cannot yet restore BARRIERS
+        # its own class: only strictly-more-urgent units admit past it.
+        # Then the POLICY picks which WAITING unit (a whole group, or a
+        # singleton) takes the free slots — all-or-nothing on slots and, in
+        # paged mode, pages, whether the prompt then prefills in one shot or
+        # in chunks.  When capacity fails for a unit strictly MORE urgent
+        # than some resident, ``_preempt_for`` spills policy-chosen victims
+        # until it fits; a gang needing more slots than are free may be
+        # skipped (bounded by the policy's aging guard) so smaller units
+        # behind it admit.
         tried: set = set()        # id(unit) passed over this round
-        while waiting:
+        barrier_prio: Optional[int] = None
+        while swapped or waiting:
+            if swapped and barrier_prio is None:
+                req, spill = swapped[0]
+                if free:
+                    row = None
+                    if self.paged:
+                        row = self.pool.allocate(self._request_blocks(req))
+                    if row is not None or not self.paged:
+                        swapped.popleft()
+                        self._restore(req, spill, row, steps)
+                        if self.paged:
+                            self._peak_blocks = max(self._peak_blocks,
+                                                    self.pool.blocks_in_use)
+                        continue
+                if self._preempt_for([req], req.priority):
+                    continue      # room made: retry the restore
+                if not (running or prefilling):
+                    raise RuntimeError(
+                        f"swapped request {req.req_id} cannot restore with "
+                        "the fleet empty — slot/page accounting is corrupt")
+                barrier_prio = req.priority
+            if not waiting:
+                break
             cand_idx = [i for i, u in enumerate(waiting)
                         if id(u) not in tried]
             if not cand_idx:
@@ -541,16 +665,25 @@ class OrcaScheduler:
             if not members:
                 del waiting[idx]
                 continue
+            prio = min(r.priority for r in members)
+            if barrier_prio is not None and prio >= barrier_prio:
+                break     # nothing more urgent than the blocked head
             if len(members) > len(free):
-                if free and len(cand) > 1 \
-                        and self.policy.on_skipped_unit(cand, sel):
-                    tried.add(id(unit))
-                    continue
-                break
+                # slot shortage: preempt strictly-less-urgent residents;
+                # else let the policy skip the oversized unit so smaller
+                # units behind it still admit
+                if not self._preempt_for(members, prio):
+                    if free and len(cand) > 1 \
+                            and self.policy.on_skipped_unit(cand, sel):
+                        tried.add(id(unit))
+                        continue
+                    break
             if self.paged:
                 mplans = self._reserve_unit(members)
+                if mplans is None and self._preempt_for(members, prio):
+                    mplans = self._reserve_unit(members)
                 if mplans is None:
-                    if not (running or prefilling):
+                    if not (running or prefilling or swapped):
                         need = sum(self._request_blocks(r) for r in members)
                         what = (f"group {members[0].group_id}"
                                 if members[0].group_id is not None
@@ -789,6 +922,26 @@ class OrcaScheduler:
             self.draft_cache.observe(ctx, landed)
 
     # ------------------------------------------------------------------
+    def pressure(self, host: int = 0) -> HostPressure:
+        """This scheduler's occupancy and page counts as a ``HostPressure``
+        snapshot.  Valid at any point of a session, before the first
+        submit too."""
+        residents = list(self._running.values()) \
+            + list(self._prefilling.values())
+        return HostPressure(
+            host=int(host), n_slots=self.n_slots,
+            n_running=len(self._running),
+            n_prefilling=len(self._prefilling),
+            n_swapped=len(self._swapped), n_waiting=len(self._waiting),
+            queued_samples=sum(len(u) for u in self._waiting),
+            free_slots=len(self._free),
+            pool_blocks=self.pool.num_usable if self.pool else 0,
+            free_blocks=self.pool.num_free if self.pool else 0,
+            blocks_in_use=self.pool.blocks_in_use if self.pool else 0,
+            max_resident_priority=(max(r.priority for r in residents)
+                                   if residents else None))
+
+    # ------------------------------------------------------------------
     def _compose_view(self, running: Dict[int, Request],
                       prefilling: Dict[int, Request], waiting,
                       eng: ContinuousServingEngine) -> ComposeView:
@@ -838,4 +991,6 @@ class OrcaScheduler:
             stall_ms_p99=float(np.percentile(st, 99)),
             prefill_chunks=self._n_chunks, packed_chunks=self._n_packed,
             peak_step_tokens=self._peak_step_tokens, per_class=per_class,
+            preemptions=self._n_preempted, restores=self._n_restored,
+            spilled_blocks=self._n_spilled_blocks,
             **spec_stats(list(requests)))

@@ -9,7 +9,8 @@ with chunked, packed prefill through the unified token-budget step (dense
 and paged, packed and unpacked, a budget that spreads prefill over many
 steps, paged int8); the static-batch engine and a static-probe fleet.
 Plus CPU runs of the port's serving driver, the ServeConfig knobs the port
-accepts and refuses, and its refusal of mixed priority classes."""
+accepts and refuses, and a session mixing priority classes, where both
+packages preempt."""
 import dataclasses
 import functools
 import warnings
@@ -227,9 +228,20 @@ def test_serve_config_takes_chunk_knobs_and_refuses_the_rest(models):
     with pytest.raises(ValueError, match="token_budget=2 < n_slots=3"):
         OrcaScheduler(model, params, pc, theta, ServeConfig(
             n_slots=3, chunk_tokens=8, token_budget=2))
-    for field, value in (("group_size", 2), ("preemption", True),
-                         ("n_hosts", 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+    assert ServeConfig().preemption
+    assert not ServeConfig(preemption=False).preemption
+    for name in ("fifo", "priority", "edf", "ttft"):
+        assert OrcaScheduler(model, params, pc, theta, ServeConfig(
+            policy=name)).policy.name == name
+    with pytest.raises(ValueError, match="unknown scheduling policy"):
+        ServeConfig(policy="lifo")
+    for field, value, item in (("group_size", 2, "A4.2"),
+                               ("consensus", 0.5, "A4.2"),
+                               ("consensus_delta", 0.1, "A4.2"),
+                               ("n_hosts", 2, "A4.3"),
+                               ("placement", "pressure", "A4.3")):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP queue A \\({item}"):
             ServeConfig(**{field: value})
 
 
@@ -319,31 +331,41 @@ def test_static_probe_fleet_through_the_facade_matches_jax(models):
 
 
 @pytest.mark.parametrize("paged", [False, True])
-def test_mixed_priority_session_is_refused_where_jax_preempts(models, paged):
-    """Fault C1: the reference's default config preempts a lower class for
-    a more urgent request, so the port, which cannot preempt yet, refuses
-    a session with more than one priority class instead of serving it on
-    another schedule — counted over every request of the session."""
+def test_mixed_priority_session_matches_jax(models, paged):
+    """A session mixing priority classes under the default config
+    (preemption on, FIFO): the urgent requests spill batch residents to
+    host RAM and the victims restore later; every request's stop step,
+    tokens, scores and schedule (admission, restore, completion, spills)
+    and the fleet's preemption counters equal JAX's, and the stops equal
+    the same prompts served in one class."""
     (jmodel, jparams, jpc, jtheta), (model, params, pc, theta) = models
     kw = dict(tokens_per_step=2, max_new_tokens=12, lam=0.6, burn_in=1,
               n_slots=2, block_size=4, paged=paged)
     prios = (1, 1, 0, 1, 0)
     prompts = _prompts(model.cfg.vocab_size)
-    _, jfleet = JOrcaScheduler(jmodel, jparams, jpc, jtheta,
-                               JServeConfig(**kw)).run(
+    jdone, jfleet = JOrcaScheduler(jmodel, jparams, jpc, jtheta,
+                                   JServeConfig(**kw)).run(
         [j_make_request(p, max_new_tokens=n, priority=c)
          for p, n, c in zip(prompts, BUDGETS, prios)])
-    assert jfleet.preemptions > 0
     sched = OrcaScheduler(model, params, pc, theta, ServeConfig(**kw))
-    reqs = [make_request(p, max_new_tokens=n, priority=c)
-            for p, n, c in zip(prompts, BUDGETS, prios)]
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        sched.run(reqs)
-    sched.submit(reqs[:2])
-    with pytest.raises(NotImplementedError, match=r"classes \[0, 1\]"):
-        sched.submit(reqs[2:3])
-    done, _ = sched.drain()
-    assert [r.req_id for r in done] == [r.req_id for r in reqs[:2]]
+    assert sched.preemption
+    done, fleet = sched.run([make_request(p, max_new_tokens=n, priority=c)
+                             for p, n, c in zip(prompts, BUDGETS, prios)])
+    assert fleet.preemptions == jfleet.preemptions > 0
+    assert fleet.restores == jfleet.restores == fleet.preemptions
+    assert fleet.spilled_blocks == jfleet.spilled_blocks
+    assert fleet.engine_steps == jfleet.engine_steps
+    for r, jr in zip(done, jdone):
+        for f in ("stop_step", "tokens", "admitted_step", "restored_step",
+                  "completed_step", "n_preempted"):
+            assert getattr(r, f) == getattr(jr, f), (r.req_id, f)
+        np.testing.assert_allclose(r.scores, jr.scores, rtol=0, atol=1e-5)
+    one, _ = OrcaScheduler(model, params, pc, theta, ServeConfig(**kw)).run(
+        [make_request(p, max_new_tokens=n) for p, n in zip(prompts, BUDGETS)])
+    assert [r.stop_step for r in done] == [r.stop_step for r in one]
+    if paged:
+        assert sched.pool.blocks_in_use == 0
+        sched.pool.check()
 
 
 def test_serve_driver_static_baseline_on_cpu(capsys):
