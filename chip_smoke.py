@@ -131,9 +131,10 @@ non-zero:
                serve's and its bf16 tokens against serve's (not asserted);
                profiled windows through the kernels and through the plain
                versions
-16. serve-dense-f32 -- the serve fleet in f32 through ``OrcaScheduler``,
-               dense and paged, at a lambda* between its scores: stops and
-               tokens equal
+16. serve-dense-f32 -- the serve fleet in f32 at 8 of its 32 layers
+               (``DENSE_F32_LAYERS``) through ``OrcaScheduler``, dense and
+               paged, at a lambda* between its scores: stops and tokens
+               equal
 17. serve-chunked -- the driver with ``--chunk-tokens 64`` on 160-token
                prompts: the third chunk of each prompt packs with the head
                of the next; K1, K2, K3, K6 and K7 launch
@@ -183,6 +184,22 @@ non-zero:
                serve-tree weights in f32 at 4 layers, the same traffic
                abundant, preempted, and preempted under ``--spec-tree
                3.3`` with a primed draft cache: stops and tokens equal
+20d. serve-group, group-stops-f32 -- self-consistency groups and the
+               consensus stop.  serve-group: the driver with
+               ``--group-size 4 --requests 2`` (serve's fleet otherwise,
+               its own harvest, fit and consensus calibration g*): every
+               group decides, every sample its own stop did not stop is
+               cancelled at the group's consensus step, the pages freed at
+               cancel, 6 prefill skips (siblings share the first sample's
+               prompt pages), the pool drained; K1 once a step, K2 32
+               times, K7 once a layer for the harvest and each group's
+               first sample only.  group-stops-f32: serve's weights in f32
+               at 8 of 32 layers with serve's probe, serve-dense-f32's 8
+               distinct prompts as 2 groups of 4, per-sample stops off: a
+               consensus threshold far from every agreement of the
+               ungrouped fleet's offline vote; served grouped through the
+               kernels and through the plain attention, each group decides
+               where ``consensus_stop_times`` says, both runs cancel alike
 21. offline  -- the paper's procedure on the synthetic corpus at d_phi 960
                (``corpus_splits(500, 170, 170)``): ``orca.fit`` of the TTT
                probe (no-QK, QK d_h 128) and the static probe, then
@@ -2567,15 +2584,21 @@ def read_launches():
 
 
 def serve_fleet(torch, extra_argv=(), *, phase, requests, need, paged=True,
-                arch="smollm-360m", max_new=96):
+                arch="smollm-360m", max_new=96, group_size=1,
+                cancelled=False):
     """The serving driver end to end, on a paged fleet or (``paged=False``)
     a dense one; every kernel in ``need`` must have launched during it
-    (counts zeroed just before, read just after).  Returns the phase's
-    record and the driver's ``ServeResult``."""
+    (counts zeroed just before, read just after).  ``group_size`` above 1
+    serves each request as a group of that many samples
+    (``--group-size``); every sample must end stopped or finished, or,
+    with ``cancelled``, cancelled by its group's consensus.  Returns the
+    phase's record and the driver's ``ServeResult``."""
     from repro_torch.launch import serve
     argv = ["--arch", arch, *(["--paged"] if paged else []),
             "--requests", str(requests), "--slots", "4", "--max-new-tokens",
-            str(max_new), "--seed", str(SEED), *extra_argv]
+            str(max_new), "--seed", str(SEED),
+            *(["--group-size", str(group_size)] if group_size > 1 else []),
+            *extra_argv]
     zero_launches()
     t0 = time.perf_counter()
     out = serve.serve(argv)
@@ -2583,8 +2606,9 @@ def serve_fleet(torch, extra_argv=(), *, phase, requests, need, paged=True,
     wall = time.perf_counter() - t0
     launches = read_launches()
     states = [r.state.value for r in out.requests]
-    if len(states) != requests or not set(states) <= {"stopped",
-                                                      "finished"}:
+    terminal = {"stopped", "finished"} | ({"cancelled"} if cancelled
+                                          else set())
+    if len(states) != requests * group_size or not set(states) <= terminal:
         raise AssertionError(f"requests did not all end: {states}")
     pool = out.scheduler.pool
     if paged:
@@ -2903,9 +2927,10 @@ def choose_lambda(scores, burn_in):
     return best[1], best[2]
 
 
-# serve-spec-f32's depth: 8 of smollm-360m's 32 layers, cut to keep
-# chip_smoke.py's last phase under 1,000 s
+# serve-spec-f32's and serve-dense-f32's depth: 8 of smollm-360m's 32
+# layers (full width), cut to keep chip_smoke.py's last phase under 1,000 s
 SPEC_F32_LAYERS = 8
+DENSE_F32_LAYERS = 8
 
 
 def phase_spec_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
@@ -3732,19 +3757,17 @@ def phase_serve_dense(torch, paged, paged_out, requests: int = 8):
 
 
 def phase_dense_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
-    """The serve fleet in float32 through ``OrcaScheduler``, dense and
-    paged, at a lambda* between its scores (phase serve-spec-f32's
-    machinery): the dense fleet (K6 and K7) stops every request where the
-    paged fleet (K2 and K7) does, with the same tokens."""
-    import dataclasses
+    """The serve fleet in float32, cut to its first ``DENSE_F32_LAYERS``
+    layers (full width), through ``OrcaScheduler``, dense and paged, at a
+    lambda* between its scores (phase serve-spec-f32's machinery): the
+    dense fleet (K6 and K7) stops every request where the paged fleet (K2
+    and K7) does, with the same tokens."""
     from repro_torch.launch import serve
-    from repro_torch.models import build
     from repro_torch.serving import OrcaScheduler, ServeConfig, make_request
-    cfg32 = dataclasses.replace(sched.model.cfg, dtype="float32",
+    model32, params32 = f32_cut(sched, DENSE_F32_LAYERS,
                                 kv_cache_dtype="float32")
-    model32 = build(cfg32)
-    params32 = _tree(sched.params, lambda t: t.float())
-    batch = serve.model_inputs(cfg32, torch.Generator().manual_seed(SEED + 1),
+    batch = serve.model_inputs(model32.cfg,
+                               torch.Generator().manual_seed(SEED + 1),
                                requests, prompt_len)
     base = dict(n_slots=4, tokens_per_step=8, max_new_tokens=96, burn_in=2)
 
@@ -3774,7 +3797,8 @@ def phase_dense_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
     if dense_l["paged_flash_decode"] or not (dense_l["flash_decode"]
                                              and dense_l["flash_attention"]):
         raise AssertionError(f"f32 dense fleet launches {dense_l}")
-    res = dict(phase="serve-dense-f32", lam=lam, lambda_margin=margin,
+    res = dict(phase="serve-dense-f32", layers=model32.cfg.n_layers, lam=lam,
+               lambda_margin=margin,
                stop_steps=stops, stopped=sum(s >= 0 for s in stops),
                paged=dict(engine_steps=paged_fl.engine_steps, wall_s=paged_s,
                           tokens_per_s=paged_fl.tokens_per_s,
@@ -3782,6 +3806,233 @@ def phase_dense_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
                dense=dict(engine_steps=dense_fl.engine_steps, wall_s=dense_s,
                           tokens_per_s=dense_fl.tokens_per_s,
                           launches=dense_l))
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases serve-group and group-stops-f32: self-consistency groups and the
+# consensus stop (K1, K2 and K7 on cancelled state)
+
+GROUP_SIZE = 4
+GROUP_REQUESTS = 2
+
+
+def phase_serve_group(torch):
+    """The driver with ``--group-size 4 --requests 2``: phase serve's
+    fleet otherwise (smollm-360m, bf16, full width and depth, paged, 4
+    slots, 96 new tokens, 8 tokens a step, burn-in 2), with its own
+    harvest, fit, lambda* and the consensus calibration (g*).  Every sample
+    ends; each group decides, and each sample its own ORCA stop did not
+    stop is CANCELLED at the group's consensus step; the cancelled count,
+    the pages freed at cancel and the 6 prefill skips (siblings share the
+    first sample's prompt pages); the pool drains; K1 once an engine step,
+    K2 once a layer a step, K6 once a layer a harvest step, and K7 once a
+    layer for the harvest and once for each group's first sample only."""
+    res, out = serve_fleet(torch, phase="serve-group",
+                           requests=GROUP_REQUESTS, need=SERVE_NEED,
+                           group_size=GROUP_SIZE, cancelled=True)
+    sched, fleet = out.scheduler, out.fleet
+    layers = sched.model.cfg.n_layers
+    harvest_steps = 96
+    groups = out.groups
+    if len(groups) != GROUP_REQUESTS:
+        raise AssertionError(f"{len(groups)} groups served")
+    for g in groups:
+        if not g.decided:
+            raise AssertionError(f"group {g.group_id} never decided")
+        for r in g.requests:
+            if r.state.value == "stopped":
+                continue
+            if r.state.value != "cancelled" \
+                    or r.completed_step != g.consensus_step:
+                raise AssertionError(
+                    f"group {g.group_id} sample {r.sample_idx}: "
+                    f"{r.state.value} at {r.completed_step}, consensus at "
+                    f"{g.consensus_step}")
+    n_cancelled = sum(r.state.value == "cancelled" for r in out.requests)
+    if fleet.samples_cancelled != n_cancelled:
+        raise AssertionError(f"samples_cancelled {fleet.samples_cancelled}, "
+                             f"{n_cancelled} cancelled")
+    if fleet.cancel_freed_blocks < 1 or fleet.prefill_skips != \
+            GROUP_REQUESTS * (GROUP_SIZE - 1):
+        raise AssertionError(f"{fleet.cancel_freed_blocks} pages freed at "
+                             f"cancel, {fleet.prefill_skips} prefill skips")
+    lc = res["launches"]
+    want = dict(serving_probe_step=fleet.engine_steps,
+                paged_flash_decode=layers * fleet.engine_steps,
+                flash_decode=layers * harvest_steps,
+                flash_attention=layers * (1 + GROUP_REQUESTS))
+    got = {k: lc[k] for k in want}
+    if got != want:
+        raise AssertionError(f"serve-group launches {got}, expected {want} "
+                             "(K7 once a layer for the harvest and for each "
+                             "group's first sample: siblings never prefill)")
+    res.update(
+        g_star=sched.consensus.lam, group_size=GROUP_SIZE,
+        groups=[dict(group_id=g.group_id, consensus_step=g.consensus_step,
+                     consensus_index=g.consensus_index,
+                     consensus_answer=g.consensus_answer,
+                     consensus_agreement=g.consensus_agreement,
+                     n_cancelled=g.n_cancelled) for g in groups],
+        samples_cancelled=fleet.samples_cancelled,
+        consensus_groups=fleet.consensus_groups,
+        consensus_steps=fleet.consensus_steps,
+        group_savings=fleet.group_savings,
+        group_savings_mean=fleet.group_savings_mean,
+        cancel_freed_blocks=fleet.cancel_freed_blocks,
+        prefill_skips=fleet.prefill_skips,
+        peak_blocks_in_use=fleet.peak_blocks_in_use,
+        step_ms=fleet.wall_time_s / fleet.engine_steps * 1e3)
+    emit(res)
+    return res, out
+
+
+def consensus_traces(scores, answers, group_size):
+    """Each group's offline vote (``consensus_trace``) over the ungrouped
+    fleet's per-request scores and answers, consecutive requests forming a
+    group: [(answer_t, agreement_t, lengths)] per group."""
+    import numpy as np
+    from repro_torch.core import stopping as S
+    out = []
+    for g0 in range(0, len(scores), group_size):
+        rows = range(g0, g0 + group_size)
+        lengths = np.array([len(scores[i]) for i in rows])
+        t = int(lengths.max())
+        sc = np.zeros((group_size, t))
+        an = np.zeros((group_size, t), np.int64)
+        for j, i in enumerate(rows):
+            sc[j, :lengths[j]] = scores[i]
+            an[j, :lengths[j]] = answers[i]
+        ans_t, agr_t = S.consensus_trace(sc, an, lengths)
+        out.append((ans_t, agr_t, lengths))
+    return out
+
+
+def choose_consensus(traces, burn_in):
+    """A consensus threshold between the agreements the served check reads
+    (every step from the burn-in on), as far as it can get from each;
+    thresholds that fire some groups and not others first (``choose_lambda``'s
+    pattern).  Returns (threshold, its distance to the nearest agreement,
+    whether it splits the groups)."""
+    tested = sorted({float(a) for _, agr, _ in traces
+                     for a in agr[burn_in:]})
+    best = None
+    for lo, hi in zip(tested, tested[1:]):
+        thr = (lo + hi) / 2
+        fired = sum(bool((agr[burn_in:] >= thr).any())
+                    for _, agr, _ in traces)
+        key = (0 < fired < len(traces), fired > 0, hi - lo)
+        if best is None or key > best[0]:
+            best = (key, thr, (hi - lo) / 2)
+    if best is None:
+        raise AssertionError(f"one agreement only: {tested}")
+    return best[1], best[2], best[0][0]
+
+
+def phase_group_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
+    """The consensus decisions on the card.  Serve's weights in float32,
+    cut to ``DENSE_F32_LAYERS`` layers (full width), on f32 pages, with
+    serve's probe; serve-dense-f32's 8 distinct 16-token prompts, grouped
+    2 x 4 by ``group_id``/``sample_idx`` (distinct prompts: no pages
+    shared, the votes differ).  Per-sample stopping off (lambda 2.0) and
+    prefill at admission, so a group's samples advance in lockstep.  The
+    fleet served ungrouped gives each group's offline vote
+    (``consensus_trace``) and a threshold far from every agreement read
+    (``choose_consensus``); the grouped fleet, served through the kernels
+    and under ``PlainAttention``, decides each group where
+    ``consensus_stop_times`` says (the contract of the JAX suite's
+    ``test_served_consensus_matches_offline_trace``), and both runs cancel
+    the same samples, emit the same tokens and free the same pages; K2
+    launches only in the kernel run."""
+    from repro_torch.core import stopping as S
+    from repro_torch.core.calibrator import GroupCalibrator
+    from repro_torch.launch import serve
+    from repro_torch.serving import OrcaScheduler, ServeConfig, make_request
+    t0 = time.perf_counter()
+    model32, params32 = f32_cut(sched, DENSE_F32_LAYERS,
+                                kv_cache_dtype="float32")
+    batch = serve.model_inputs(model32.cfg,
+                               torch.Generator().manual_seed(SEED + 1),
+                               requests, prompt_len)
+    base = dict(n_slots=4, paged=True, tokens_per_step=8, max_new_tokens=96,
+                burn_in=2, lam=2.0)
+
+    def fleet(grouped, consensus=None):
+        zero_launches()
+        t1 = time.perf_counter()
+        reqs = [make_request(tok, group_id=(i // GROUP_SIZE if grouped
+                                            else None),
+                             sample_idx=(i % GROUP_SIZE if grouped else 0))
+                for i, tok in enumerate(batch["tokens"])]
+        s = OrcaScheduler(model32, params32, sched.pc, sched.theta,
+                          ServeConfig(group_size=GROUP_SIZE if grouped
+                                      else 1, **base), consensus=consensus)
+        done, fl = s.run(reqs)
+        sync(torch)
+        s.pool.check()
+        if s.pool.blocks_in_use:
+            raise AssertionError(f"{s.pool.blocks_in_use} pages in use")
+        return s, done, fl, time.perf_counter() - t1, read_launches()
+
+    _, free, free_fl, free_s, _ = fleet(False)
+    traces = consensus_traces([r.scores for r in free],
+                              [r.answers for r in free], GROUP_SIZE)
+    thr, margin, split = choose_consensus(traces, base["burn_in"])
+    if margin < 1e-4:
+        raise AssertionError(f"every threshold lies within {margin} of an "
+                             "agreement: the check would hang on a tie")
+    runs = {}
+    for name in ("kernels", "plain"):
+        gc = GroupCalibrator(min_votes=2, burn_in=base["burn_in"], lam=thr)
+        if name == "plain":
+            with PlainAttention():
+                runs[name] = fleet(True, gc)
+        else:
+            runs[name] = fleet(True, gc)
+    decisions = []
+    for name, (s, done, fl, _, lc) in runs.items():
+        for g, (ans_t, agr_t, lengths) in zip(s.groups, traces):
+            tau = int(S.consensus_stop_times(agr_t, [thr],
+                                             burn_in=base["burn_in"])[0])
+            fires = tau < int(lengths.max())
+            got = (g.decided, g.consensus_index, g.consensus_answer)
+            want = (fires, tau if fires else -1,
+                    int(ans_t[tau]) if fires else -1)
+            if got != want:
+                raise AssertionError(f"{name}: group {g.group_id} decided "
+                                     f"{got}, offline {want}")
+            if name == "kernels":
+                decisions.append(dict(
+                    group_id=g.group_id, decided=g.decided,
+                    consensus_step=g.consensus_step,
+                    consensus_index=g.consensus_index,
+                    consensus_answer=g.consensus_answer,
+                    consensus_agreement=g.consensus_agreement,
+                    agreements=[float(a) for a in agr_t]))
+        if (lc["paged_flash_decode"] > 0) != (name == "kernels"):
+            raise AssertionError(f"{name} run K2 launches: {lc}")
+    (_, k_done, k_fl, k_s, k_lc), (_, p_done, p_fl, p_s, _) = \
+        runs["kernels"], runs["plain"]
+    if [r.state for r in k_done] != [r.state for r in p_done] \
+            or [r.tokens for r in k_done] != [r.tokens for r in p_done] \
+            or k_fl.cancel_freed_blocks != p_fl.cancel_freed_blocks:
+        raise AssertionError("the kernel and plain grouped fleets differ in "
+                             "cancellations, tokens or pages freed")
+    res = dict(phase="group-stops-f32", layers=model32.cfg.n_layers,
+               threshold=thr, threshold_margin=margin, split=split,
+               fired=sum(d["decided"] for d in decisions),
+               groups=decisions,
+               states=[r.state.value for r in k_done],
+               samples_cancelled=k_fl.samples_cancelled,
+               cancel_freed_blocks=k_fl.cancel_freed_blocks,
+               group_savings=k_fl.group_savings,
+               ungrouped=dict(engine_steps=free_fl.engine_steps,
+                              wall_s=free_s),
+               kernels=dict(engine_steps=k_fl.engine_steps, wall_s=k_s,
+                            launches=k_lc),
+               plain=dict(engine_steps=p_fl.engine_steps, wall_s=p_s),
+               seconds=time.perf_counter() - t0)
     emit(res)
     return res
 
@@ -4631,6 +4882,8 @@ def main() -> int:
     phase_preempt_roundtrip(torch, out.scheduler, out.lam)
     phase_serve_preempt(torch, out)
     phase_preempt_stops(torch, out_t.scheduler)
+    phase_serve_group(torch)
+    phase_group_stops(torch, out.scheduler)
     offline = phase_offline(torch, splits)
     _, out_st = phase_serve(
         torch, ("--static-baseline",), phase="serve-static", requests=4,

@@ -12,7 +12,10 @@
 
 ``fit``/``evaluate``/``engine`` work for every registered Calibrator
 ("ttt", "static"); the static baseline serves through the same fused
-step with its weights frozen (eta = 0).
+step with its weights frozen (eta = 0).  Self-consistency groups serve
+with ``ServeConfig(group_size=N, consensus=...)``, the consensus a float
+threshold or a ``GroupCalibrator`` calibrated over
+``groups_from_trajectories``.
 """
 from __future__ import annotations
 
@@ -20,16 +23,20 @@ import dataclasses
 import math
 from typing import Optional, Sequence
 
-from repro_torch.core.calibrator import (Calibrator, StaticCalibrator,
-                                         TTTCalibrator, make_calibrator)
+from repro_torch.core.calibrator import (Calibrator, GroupCalibrator,
+                                         GroupTrace, StaticCalibrator,
+                                         TTTCalibrator,
+                                         groups_from_trajectories,
+                                         make_calibrator)
 from repro_torch.core.pipeline import ProcedureEval, evaluate_probe
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.scheduler import OrcaScheduler
 from repro_torch.trajectories import TrajectorySet
 
-__all__ = ["Calibrator", "DELTAS", "ServeConfig", "StaticCalibrator",
-           "TTTCalibrator", "calibrated_lambda", "engine", "evaluate", "fit",
-           "make_calibrator"]
+__all__ = ["Calibrator", "DELTAS", "GroupCalibrator", "GroupTrace",
+           "ServeConfig", "StaticCalibrator", "TTTCalibrator",
+           "calibrated_lambda", "engine", "evaluate", "fit",
+           "groups_from_trajectories", "make_calibrator"]
 
 DELTAS = (0.05, 0.1, 0.15, 0.2)
 
@@ -88,4 +95,6 @@ def engine(model, params, calibrator: Calibrator,
     elif lam is not None:
         config = dataclasses.replace(config, lam=float(lam))
     pc, theta = calibrator.serving_params()
-    return OrcaScheduler(model, params, pc, theta, config)
+    sched = OrcaScheduler(model, params, pc, theta, config)
+    sched.group_size = config.group_size  # the configured samples a prompt
+    return sched

@@ -24,8 +24,11 @@ from repro_torch.core.stopping import (EvalResult, calibrate_and_evaluate,
 from repro_torch.core.labels import (consistent_labels, supervised_labels,
                                      transition_time)
 from repro_torch.core.static_probe import StaticProbe, fit_static_probe
-from repro_torch.core.calibrator import (Calibrator, StaticCalibrator,
-                                         TTTCalibrator, make_calibrator)
+from repro_torch.core.calibrator import (Calibrator, GroupCalibrator,
+                                         GroupTrace, StaticCalibrator,
+                                         TTTCalibrator,
+                                         groups_from_trajectories,
+                                         make_calibrator)
 
 __all__ = [
     "ProbeConfig", "init_outer", "smooth_scores", "batched_unroll",
@@ -34,6 +37,7 @@ __all__ = [
     "ltt_calibrate", "EvalResult", "calibrate_and_evaluate", "procedure_risk",
     "savings", "step_savings", "stop_times", "sweep_deltas",
     "consistent_labels", "supervised_labels", "transition_time",
-    "StaticProbe", "fit_static_probe", "Calibrator", "StaticCalibrator",
-    "TTTCalibrator", "make_calibrator",
+    "StaticProbe", "fit_static_probe", "Calibrator", "GroupCalibrator",
+    "GroupTrace", "StaticCalibrator", "TTTCalibrator",
+    "groups_from_trajectories", "make_calibrator",
 ]

@@ -11,13 +11,16 @@ the same scores give the same lambda*.
     cal = TTTCalibrator(epochs=25, device="cuda").fit(train, "consistent")
     lam = cal.calibrate(cal_split, delta=0.1)      # LTT lambda*
 
-Self-consistency group calibration (``GroupCalibrator``) comes with
-ROADMAP A4.
+``GroupCalibrator`` is the self-consistency groups' consensus stop: a
+confidence-weighted answer vote over a group's samples, its threshold
+LTT-calibrated over groups (``groups_from_trajectories`` forms them with
+the JAX package's seeded permutation, so both form the same groups).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Protocol, runtime_checkable
+from typing import (List, NamedTuple, Optional, Protocol, Sequence,
+                    runtime_checkable)
 
 import numpy as np
 import torch
@@ -181,6 +184,135 @@ class StaticCalibrator(_LTTMixin):
                                        device=dev),
                  "b0": torch.tensor(b_eff, dtype=torch.float32, device=dev)}
         return pc, theta
+
+
+# ---------------------------------------------------------------------------
+# self-consistency group consensus (group serving)
+
+
+class GroupTrace(NamedTuple):
+    """One calibration group: per-sample score/answer trajectories + truth."""
+    scores: np.ndarray     # (n, T) smoothed deployed-procedure scores
+    answers: np.ndarray    # (n, T) per-step answer hashes
+    lengths: np.ndarray    # (n,) trajectory lengths
+    truth: int             # the group's reference answer hash (-1: none)
+
+
+@dataclasses.dataclass
+class GroupCalibrator:
+    """Conformal consensus stop for self-consistency groups.
+
+    At each reasoning step the samples vote their latest answer hash,
+    weighted by their latest smoothed probe score, and the group stops the
+    first time the top answer's weight share clears ``lam`` (after
+    ``burn_in`` steps, with at least ``min_votes`` live voters).  ``lam``
+    is LTT-calibrated over group-level risk (a wrong consensus fired), so
+    P(group risk <= delta) >= 1 - eps at the GROUP level: groups, not
+    samples, are the exchangeable calibration unit.
+
+    Serving parity: the scheduler's per-step ``decide`` uses each sample's
+    LATEST recorded (score, answer).  Under gang admission with admission-
+    time prefill the samples advance in lockstep, so the served decisions
+    equal the offline ``consensus_trace`` exactly.
+    """
+    min_votes: int = 2
+    burn_in: int = 10
+    lam: Optional[float] = None      # consensus threshold (inf: never fire)
+    delta: Optional[float] = None    # risk level lam was calibrated at
+    _ltt: Optional[C.LTTResult] = dataclasses.field(default=None, init=False)
+
+    def calibrate(self, groups: Sequence[GroupTrace], delta: float,
+                  eps: float = 0.05, grid: Optional[np.ndarray] = None,
+                  per_sample_lam: Optional[float] = None,
+                  per_sample_burn_in: Optional[int] = None) -> float:
+        """LTT-calibrate the consensus threshold over ``groups``.
+
+        ``per_sample_lam``: the deployed per-sample ORCA threshold; each
+        sample's vote freezes at its own stop, as served (pass the
+        engine's lambda*; None: samples vote to their full length)."""
+        grid = C.default_grid() if grid is None else grid
+        psb = self.burn_in if per_sample_burn_in is None else per_sample_burn_in
+        risks = []
+        for g in groups:
+            if g.scores.shape[0] < self.min_votes:
+                risks.append(np.zeros((len(grid),)))   # can never fire
+                continue
+            tau_i = None
+            if per_sample_lam is not None and np.isfinite(per_sample_lam):
+                mask = (np.arange(g.scores.shape[1])[None, :]
+                        < np.asarray(g.lengths)[:, None])
+                tau_i = S.stop_times(g.scores, [per_sample_lam], mask,
+                                     burn_in=psb)[:, 0]
+            ans_t, agr_t = S.consensus_trace(g.scores, g.answers, g.lengths,
+                                             per_sample_tau=tau_i)
+            tau_g = S.consensus_stop_times(agr_t, grid, self.burn_in)
+            risks.append(S.consensus_risk(tau_g, ans_t, int(g.truth)))
+        self._ltt = C.ltt_calibrate(np.stack(risks), grid, delta=delta,
+                                    eps=eps)
+        self.lam = float(self._ltt.lam)
+        self.delta = float(delta)
+        return self.lam
+
+    def threshold(self) -> float:
+        if self.lam is None:
+            raise RuntimeError(
+                "GroupCalibrator has no threshold — run calibrate(...) "
+                "first, or construct it with an explicit lam=")
+        return self.lam
+
+    @property
+    def ltt(self) -> Optional[C.LTTResult]:
+        return self._ltt
+
+    def decide(self, scores: Sequence[Sequence[float]],
+               answers: Sequence[Sequence[int]]):
+        """One serving-time consensus check over a group's recorded
+        per-sample histories (each sample votes its latest entry).
+
+        Returns ``(fire, answer, agreement)``; ``fire`` is gated on
+        ``min_votes`` live voters and the consensus ``burn_in``."""
+        lam = self.threshold()
+        active = np.array([len(s) > 0 for s in scores], bool)
+        t = max((len(s) for s in scores), default=0) - 1
+        s = np.array([s[-1] if len(s) else 0.0 for s in scores], np.float64)
+        a = np.array([a[-1] if len(a) else -1 for a in answers], np.int64)
+        ans, agr = S.weighted_vote(s, a, active)
+        fire = (int(active.sum()) >= self.min_votes and t >= self.burn_in
+                and agr >= lam)
+        return fire, ans, agr
+
+
+def groups_from_trajectories(ts: TrajectorySet, scores: np.ndarray,
+                             group_size: int, *, seed: int = 0,
+                             answers: Optional[np.ndarray] = None
+                             ) -> List[GroupTrace]:
+    """Chunk a TrajectorySet into self-consistency calibration groups.
+
+    A seeded permutation (numpy ``RandomState(seed)``, the JAX package's)
+    is cut into consecutive groups of ``group_size`` (remainder dropped):
+    iid trajectories make the groups exchangeable, so LTT at the group
+    level stays valid.  ``answers`` overrides the per-step answer hashes
+    (default ``ts.answers``); the group truth is the confidence-weighted
+    vote over the final steps of SOLVED samples (-1, unmatchable, when no
+    sample solves the problem)."""
+    if group_size < 1:
+        raise ValueError(f"group_size must be >= 1, got {group_size}")
+    answers = ts.answers if answers is None else answers
+    order = np.random.RandomState(seed).permutation(len(ts))
+    groups = []
+    for g0 in range(0, len(order) - group_size + 1, group_size):
+        idx = order[g0:g0 + group_size]
+        lengths = ts.lengths[idx]
+        final = answers[idx, lengths - 1]
+        solved = np.array([bool(ts.correct[i].any()) for i in idx])
+        if solved.any():
+            truth, _ = S.weighted_vote(np.ones_like(final, np.float64),
+                                       final, solved)
+        else:
+            truth = -1
+        groups.append(GroupTrace(scores=scores[idx], answers=answers[idx],
+                                 lengths=lengths, truth=int(truth)))
+    return groups
 
 
 _REGISTRY = {"ttt": TTTCalibrator, "static": StaticCalibrator}

@@ -20,8 +20,15 @@ root path committed.  ``--policy`` picks the scheduling policy (fifo,
 priority, edf, ttft) and ``--batch-every N`` makes every N-th request
 batch class (priority 1); with preemption on (``--no-preempt`` turns it
 off) a more urgent request spills batch residents to host RAM, which
-restore later bit for bit.  ``--device cpu`` runs
-the plain PyTorch versions of the kernels (use ``--reduced`` there).
+restore later bit for bit.  ``--group-size N`` serves each request as a
+self-consistency group of N samples of its prompt (gang-admitted, the
+prompt's pages shared), stopped as a unit by the consensus stop: its
+threshold g* is LTT-calibrated at ``--consensus-delta`` (default
+``--delta``) over groups of the calibration split, and once a group's
+vote clears it the siblings still running are cancelled
+(``--no-consensus``: every sample runs to its own stop).  ``--device
+cpu`` runs the plain PyTorch versions of the kernels (use ``--reduced``
+there).
 """
 from __future__ import annotations
 
@@ -38,9 +45,10 @@ from repro_torch.configs import get_config
 from repro_torch.core.labels import consistent_labels
 from repro_torch.core.probe import ProbeConfig
 from repro_torch.models import build
-from repro_torch.serving import (ServeConfig, ServingEngine,
+from repro_torch.serving import (RequestGroup, ServeConfig, ServingEngine,
                                  StaticQueueResult, extract_trajectories,
-                                 make_request, serve_queue_static)
+                                 make_group, make_request,
+                                 serve_queue_static)
 from repro_torch.trajectories.synthetic import (TrajectoryDistribution,
                                                 TrajectorySet)
 
@@ -75,13 +83,15 @@ def trajectories_from_model(model, params, n: int, prompt_len: int,
 
 class ServeResult(NamedTuple):
     """What one driver run served: every request, the fleet metrics, the
-    scheduler (its engine and page pool), the calibrated lambda* and, with
-    ``--static-baseline``, the static-batch run of the same queue."""
+    scheduler (its engine and page pool), the calibrated lambda*, with
+    ``--static-baseline`` the static-batch run of the same queue, and with
+    ``--group-size`` above 1 the scheduler's groups (consensus outcomes)."""
     requests: List
     fleet: object
     scheduler: object
     lam: float
     static: Optional[StaticQueueResult] = None
+    groups: List[RequestGroup] = []
 
 
 def serve(argv=None) -> ServeResult:
@@ -155,6 +165,16 @@ def serve(argv=None) -> ServeResult:
                     help="mark every Nth request as batch-class "
                          "(priority 1) to exercise the priority policy "
                          "(0 = all latency-class)")
+    ap.add_argument("--group-size", type=int, default=1,
+                    help="self-consistency samples per prompt: each request "
+                         "becomes a gang-admitted group of N samples "
+                         "sharing its prompt pages (1 = classic serving)")
+    ap.add_argument("--no-consensus", action="store_true",
+                    help="serve groups WITHOUT the consensus stop (every "
+                         "sample runs to its own per-request ORCA stop)")
+    ap.add_argument("--consensus-delta", type=float, default=0.0,
+                    help="risk level for the group-consensus LTT "
+                         "calibration (0 -> reuse --delta)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -180,14 +200,42 @@ def serve(argv=None) -> ServeResult:
     lam = orca.calibrated_lambda(calib, cal, args.delta, fallback=0.99)
     print(f"[serve] LTT-calibrated lambda* = {lam:.3f}")
 
-    sched = orca.engine(model, params, calib,
-                        config=dataclasses.replace(serve_cfg, lam=float(lam)))
+    # group consensus: LTT-calibrate the agreement threshold over groups
+    # formed from the calibration split (group-level exchangeability),
+    # with per-sample votes frozen at the deployed per-sample stop
+    consensus = None
+    if args.group_size > 1 and not args.no_consensus:
+        c_delta = args.consensus_delta or args.delta
+        g_cal = orca.GroupCalibrator(min_votes=2, burn_in=args.burn_in)
+        traces = orca.groups_from_trajectories(cal, calib.scores(cal),
+                                               args.group_size,
+                                               seed=args.seed)
+        g_cal.calibrate(traces, c_delta, per_sample_lam=lam,
+                        per_sample_burn_in=args.burn_in)
+        if not np.isfinite(g_cal.lam):
+            # the calibrated_lambda demo fallback: keeps the consensus
+            # observable on random-weight models
+            g_cal.lam = 0.95
+        consensus = g_cal
+        print(f"[serve] consensus threshold g* = {g_cal.lam:.3f} "
+              f"(delta={c_delta}, {len(traces)} calibration groups)")
+
+    sched = orca.engine(model, params, calib, config=dataclasses.replace(
+        serve_cfg, lam=float(lam), consensus=consensus,
+        consensus_delta=(args.consensus_delta or None
+                         if consensus is not None else None)))
     batch = model_inputs(cfg, torch.Generator().manual_seed(args.seed + 1),
                          args.requests, args.prompt_len)
-    reqs = [make_request(batch["tokens"][i],
-                         priority=(1 if args.batch_every
-                                   and i % args.batch_every == 0 else 0))
-            for i in range(args.requests)]
+
+    def prio(i):
+        return 1 if args.batch_every and i % args.batch_every == 0 else 0
+    if args.group_size > 1:
+        reqs = [r for i in range(args.requests)
+                for r in make_group(batch["tokens"][i], args.group_size,
+                                    group_id=i, priority=prio(i))]
+    else:
+        reqs = [make_request(batch["tokens"][i], priority=prio(i))
+                for i in range(args.requests)]
     done, fleet = sched.run(reqs)
     for r in done:
         print(f"[serve]   req {r.req_id}: {r.state.value:8s} "
@@ -204,6 +252,13 @@ def serve(argv=None) -> ServeResult:
               f"(x{args.block_size} tokens), peak in use "
               f"{fleet.peak_blocks_in_use}, prefill skips "
               f"{fleet.prefill_skips}")
+    if args.group_size > 1:
+        print(f"[serve] groups: {fleet.consensus_groups} consensus stops "
+              f"(mean step {fleet.consensus_steps:.1f}), "
+              f"{fleet.samples_cancelled} siblings cancelled, group savings "
+              f"{fleet.group_savings:.0f} steps (mean "
+              f"{fleet.group_savings_mean:.3f}), "
+              f"{fleet.cancel_freed_blocks} pages freed at cancel")
     if args.spec_tokens or args.spec_tree:
         print(f"[serve] speculative: {fleet.spec_tokens_accepted}/"
               f"{fleet.spec_tokens_proposed} drafts accepted "
@@ -241,7 +296,8 @@ def serve(argv=None) -> ServeResult:
         print(f"[serve] static-batch baseline: {base.engine_steps} engine "
               f"steps ({base.wall_time_s:.2f}s) — "
               f"{args.requests / base.wall_time_s:.2f} req/s")
-    return ServeResult(done, fleet, sched, float(lam), base)
+    return ServeResult(done, fleet, sched, float(lam), base,
+                       list(sched.groups) if args.group_size > 1 else [])
 
 
 def main(argv=None) -> int:

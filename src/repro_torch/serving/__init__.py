@@ -18,6 +18,9 @@ from repro_torch.serving.policy import (ComposeView, EDFPolicy, FIFOPolicy,
                                         HostPressure, PriorityPolicy,
                                         SchedulingPolicy, TTFTAwarePolicy,
                                         make_policy)
+from repro_torch.serving.replay import (GroupFleet, make_group_fleet,
+                                        replay_model, replay_params,
+                                        replay_requests, served_stop_times)
 from repro_torch.serving.request import (FleetMetrics, Request, RequestState,
                                          latency_stats, make_request,
                                          spec_stats)
@@ -25,14 +28,17 @@ from repro_torch.serving.scheduler import OrcaScheduler
 
 __all__ = ["BlockPool", "ChunkSeg", "ChunkWork", "ComposeView",
            "ContinuousServingEngine", "DraftCache", "EDFPolicy",
-           "FIFOPolicy", "FleetMetrics", "HostPressure", "NULL_BLOCK",
+           "FIFOPolicy", "FleetMetrics", "GroupFleet", "HostPressure",
+           "NULL_BLOCK",
            "OrcaScheduler", "PriorityPolicy", "ProbeState", "Request",
            "RequestGroup", "RequestState", "SchedulingPolicy",
            "ServeConfig", "ServeResult", "ServingEngine", "SlotStepView",
            "Spill", "StaticQueueResult", "TTFTAwarePolicy",
            "blocks_needed", "chunk_supported", "chunked_prefill",
            "extract_trajectories", "group_requests", "init_probe_state",
-           "latency_stats", "make_group", "make_policy",
+           "latency_stats", "make_group", "make_group_fleet", "make_policy",
            "make_request", "make_serve_step", "pad_row",
-           "prefix_len", "probe_update", "prompt_key", "reset_probe_slot",
-           "serve_queue_static", "spec_stats", "write_probe_slot"]
+           "prefix_len", "probe_update", "prompt_key", "replay_model",
+           "replay_params", "replay_requests", "reset_probe_slot",
+           "serve_queue_static", "served_stop_times", "spec_stats",
+           "write_probe_slot"]

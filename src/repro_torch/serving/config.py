@@ -5,25 +5,23 @@ description drives either stack.  The port serves admission-time or
 chunked, packed prefill, the FIFO, priority, EDF and TTFT-aware policies
 with involuntary preemption (on by default, as in the JAX package),
 one-token, linear or tree speculative decode with the shared draft
-cache, dense or paged KV, one host — and every field of a later slice
-raises ``NotImplementedError`` at construction when set, naming the
-ROADMAP queue-A item that brings it (A4.2 groups and consensus, A4.3 the
-fleet).  The probe-dispatch fields of the JAX config
+cache, dense or paged KV, self-consistency groups with the consensus
+stop, one host — and the fleet's fields raise ``NotImplementedError`` at
+construction when set, naming the ROADMAP queue-A item that brings them
+(A4.3 the fleet).  The probe-dispatch fields of the JAX config
 (``probe_impl``/``interpret``) have no counterpart: the device of the
 tensors picks K1 or its plain version.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 from repro_torch.serving.policy import make_policy
 
 # field -> (value that means "off", ROADMAP queue-A item that brings it)
 _NOT_PORTED = {
-    "group_size": (1, "A4.2, groups and consensus"),
-    "consensus": (None, "A4.2, groups and consensus"),
-    "consensus_delta": (None, "A4.2, groups and consensus"),
     "n_hosts": (1, "A4.3, the fleet"),
     "placement": (None, "A4.3, the fleet"),
 }
@@ -77,10 +75,12 @@ class ServeConfig:
     #                               to host RAM when capacity fails for a
     #                               more urgent unit; False waits only
 
-    # -- not ported yet (see _NOT_PORTED) -------------------------------------
+    # -- self-consistency groups ----------------------------------------------
     group_size: int = 1
-    consensus: Any = None
+    consensus: Any = None         # GroupCalibrator | float in (0,1] | None
     consensus_delta: Optional[float] = None
+
+    # -- not ported yet (see _NOT_PORTED) -------------------------------------
     n_hosts: int = 1
     placement: Any = None
 
@@ -213,6 +213,56 @@ class ServeConfig:
                 f"draft_cache_size={self.draft_cache_size} must be >= 0: "
                 "the shared draft cache's entry bound (0 disables it); "
                 "fix by passing a non-negative count")
+        group_size = self.group_size
+        if isinstance(group_size, bool) or int(group_size) < 1:
+            raise ValueError(
+                f"group_size={group_size!r} must be an int >= 1: the number "
+                "of self-consistency samples per prompt; fix by passing a "
+                "positive count (1 disables grouping)")
+        object.__setattr__(self, "group_size", int(group_size))
+        if self.group_size > self.n_slots:
+            raise ValueError(
+                f"group_size={self.group_size} > n_slots={self.n_slots}: "
+                "gang admission needs every sample of a group resident at "
+                "once; fix by raising n_slots to >= "
+                f"{self.group_size} or lowering group_size")
+        if self.consensus is not None and self.group_size == 1:
+            raise ValueError(
+                "consensus= with group_size=1 can never fire (every request "
+                "is its own singleton and a lone sample never votes); fix by "
+                "passing group_size >= 2 (or grouping requests yourself via "
+                "repro.serving.make_group) or dropping consensus=")
+        if isinstance(self.consensus, bool):
+            raise ValueError(
+                f"consensus={self.consensus!r} is not a threshold: pass a "
+                "float agreement threshold in (0, 1], a calibrated "
+                "GroupCalibrator, or None to disable the consensus stop")
+        if isinstance(self.consensus, (int, float)) \
+                and not 0.0 < float(self.consensus) <= 1.0:
+            raise ValueError(
+                f"consensus={float(self.consensus)} is outside (0, 1]: the "
+                "threshold is the weight share the top answer must reach; "
+                "fix by passing a float in (0, 1] or a calibrated "
+                "GroupCalibrator")
+        if self.consensus_delta is not None:
+            from repro_torch.core.calibrator import GroupCalibrator
+            if self.consensus is None:
+                raise ValueError(
+                    "consensus_delta= without consensus= does nothing; fix "
+                    "by passing consensus=<GroupCalibrator calibrated at "
+                    f"delta={self.consensus_delta}> (or a float threshold, "
+                    "and dropping consensus_delta)")
+            if isinstance(self.consensus, GroupCalibrator) \
+                    and self.consensus.delta is not None \
+                    and not math.isclose(float(self.consensus.delta),
+                                         float(self.consensus_delta)):
+                raise ValueError(
+                    f"consensus_delta={self.consensus_delta} does not match "
+                    "the GroupCalibrator's calibrated delta="
+                    f"{self.consensus.delta}; fix by re-running "
+                    "GroupCalibrator.calibrate(..., delta="
+                    f"{self.consensus_delta}) or passing consensus_delta="
+                    f"{self.consensus.delta}")
 
     # CLI flag names (launch/serve.py) -> field, and "invert" for the
     # negative flags
@@ -232,6 +282,7 @@ class ServeConfig:
         ("policy", "policy", None),
         ("no_pack", "pack_chunks", "invert"),
         ("pack_max", "pack_max", None),
+        ("group_size", "group_size", None),
         ("no_preempt", "preemption", "invert"),
     )
 

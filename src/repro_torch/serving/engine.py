@@ -47,8 +47,8 @@ reasoning step it would have stopped on undisturbed.
 Buffers the JAX engine donates to its jitted step — the KV cache or page
 pool and the probe state — are updated IN PLACE here.  Ported: admission-
 time and chunked, packed prefill, one-token, linear and tree speculative
-decode, dense and paged caches, spill and restore.  The group consensus
-cancellation that calls ``cancel`` comes with ROADMAP A4.2.
+decode, dense and paged caches, spill and restore, and ``cancel``, the
+voluntary release the scheduler's group consensus calls.
 """
 from __future__ import annotations
 
@@ -124,6 +124,15 @@ def reset_probe_slot(pc: ProbeConfig, theta, st: ProbeState, slot: int,
     if not active:
         one.stopped.fill_(True)
     return write_probe_slot(st, slot, [leaf[0] for leaf in one])
+
+
+def params_device(params) -> torch.device:
+    """The device of the model's weights: that of their first tensor (a
+    transformer's embedding, the replay model's trajectory bank)."""
+    leaf = params
+    while not isinstance(leaf, torch.Tensor):
+        leaf = next(iter(leaf.values() if isinstance(leaf, dict) else leaf))
+    return leaf.device
 
 
 def to_device_inputs(batch: Dict[str, np.ndarray], device
@@ -782,7 +791,7 @@ class ContinuousServingEngine:
                  spec_tree: Optional[Tuple[int, int]] = None):
         self.model, self.params, self.pc, self.theta, self.cfg = \
             model, params, pc, theta, cfg
-        self.device = params["embed"].device
+        self.device = params_device(params)
         mcfg = model.cfg
         self.paged = bool(paged)
         if self.paged:

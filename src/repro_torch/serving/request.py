@@ -15,12 +15,17 @@ scheduler preempted the request to make room for a strictly-higher-priority
 admission, spilling its KV pages AND its probe fast-weight state to host
 RAM (``engine.Spill``); it re-enters PREFILL or RUNNING via ``restore``
 with bit-identical state, so its eventual stop decision is unchanged.
-``CANCELLED`` is a voluntary mid-flight release (the JAX package's group
-consensus, which comes with ROADMAP A4.2); CANCELLED requests are left out
-of the latency tails and the speculative-decode statistics, as in the JAX
-package.  Metrics use the shared savings helper
+``CANCELLED`` means a *voluntary* mid-flight release: the request's
+self-consistency group reached its calibrated consensus and the scheduler
+evicted the still-running sibling (no per-request stop fired:
+``stop_step`` stays -1).  Metrics use the shared savings helper
 (``repro_torch.core.stopping.step_savings``) so served savings are directly
-comparable with offline-evaluated savings.
+comparable with offline-evaluated savings; a cancelled sample's *unspent*
+budget is counted as group savings (``FleetMetrics.group_savings``, the
+TOTAL unspent reasoning steps across groups; ``group_savings_mean`` is the
+per-group mean fraction), and CANCELLED requests are left out of the TTFT
+and queue-wait percentiles and the speculative-decode statistics, so
+by-design cancellations do not pollute the latency tails.
 """
 from __future__ import annotations
 
@@ -41,7 +46,9 @@ class RequestState(enum.Enum):
     RUNNING = "running"
     STOPPED = "stopped"      # ORCA threshold fired -> slot evicted
     FINISHED = "finished"    # token budget exhausted without a stop
-    CANCELLED = "cancelled"  # voluntary mid-flight release (stop_step -1)
+    CANCELLED = "cancelled"  # voluntary release: group consensus fired and
+    #                          the scheduler evicted this still-running
+    #                          sibling mid-flight (stop_step stays -1)
     SWAPPED = "swapped"      # involuntarily preempted: KV + probe state
     #                          spilled to host RAM, queued for restore
     #                          ahead of WAITING admissions
@@ -65,7 +72,8 @@ class Request:
     # submission); None -> the policy falls back to the class SLO
     deadline_ms: Optional[float] = None
     # self-consistency group membership: samples sharing a group_id are
-    # gang-admitted atomically (None = the classic independent request)
+    # gang-admitted atomically and consensus-stopped together (None = the
+    # classic independent request; the group code is then inert)
     group_id: Optional[int] = None
     sample_idx: int = 0                   # position within the group
     req_id: int = dataclasses.field(default_factory=lambda: next(_req_counter))
@@ -191,6 +199,15 @@ class FleetMetrics:
     # ttft_ms_p50/p99 and queue_wait_ms_p50/p99 (WAITING -> PREFILL wall
     # time)
     per_class: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # group serving: consensus and cancellation
+    samples_cancelled: int = 0   # siblings evicted by consensus
+    consensus_groups: int = 0    # groups whose consensus fired
+    consensus_steps: float = 0.0  # mean reasoning-step index of consensus
+    group_savings: float = 0.0   # TOTAL unspent reasoning steps across all
+    #                              groups: cancelled samples' UNSPENT budget
+    #                              (what the fleet actually got back)
+    group_savings_mean: float = 0.0  # mean over groups of 1 - spent/budget
+    cancel_freed_blocks: int = 0  # KV pages that died at cancellation
     # preemption: victims spilled to host RAM and resumed
     preemptions: int = 0         # victims spilled to host RAM
     restores: int = 0            # spilled requests resumed
@@ -213,6 +230,12 @@ class FleetMetrics:
     def row(self) -> Dict[str, float]:
         return {
             **self.per_class,
+            "samples_cancelled": self.samples_cancelled,
+            "consensus_groups": self.consensus_groups,
+            "consensus_steps": self.consensus_steps,
+            "group_savings": self.group_savings,
+            "group_savings_mean": self.group_savings_mean,
+            "cancel_freed_blocks": self.cancel_freed_blocks,
             "preemptions": self.preemptions,
             "restores": self.restores,
             "spilled_blocks": self.spilled_blocks,

@@ -7,8 +7,16 @@ preemption, one-token, linear or tree speculative decode with the shared
 draft cache, dense or paged KV with prefix sharing.  The admission loop,
 batch composer, token collection and metrics are the JAX package's line
 for line, so per-request stop steps, tokens, admission, restore and
-completion steps match it exactly on the same model outputs.  Group
-consensus comes with ROADMAP A4.2 and the fleet router with A4.3.
+completion steps match it exactly on the same model outputs.  The fleet
+router comes with ROADMAP A4.3.
+
+Self-consistency groups (``group_id`` on the requests): a group is
+admitted as one unit, its siblings share the first sample's prompt pages
+and skip prefill, and with ``consensus`` (a ``GroupCalibrator`` or a
+float threshold) each open group's confidence-weighted vote is checked
+after every step's collection; the first crossing CANCELS every sibling
+still running, mid-flight: slot, pages and probe row back to the fleet
+(``engine.cancel``), a SWAPPED sibling's spill dropped unrestored.
 
 Preemption (``preemption=True``, the default): when capacity (slots or
 pages) fails for a unit strictly MORE urgent than some resident, the
@@ -67,6 +75,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch.core.calibrator import GroupCalibrator
 from repro_torch.core.probe import ProbeConfig
 from repro_torch.models.registry import Model
 from repro_torch.serving.config import ServeConfig
@@ -122,6 +131,7 @@ class OrcaScheduler:
                  token_budget: Optional[int] = _UNSET,
                  pack_chunks: bool = _UNSET, pack_max: int = _UNSET,
                  policy: Union[str, SchedulingPolicy, None] = _UNSET,
+                 consensus: Union[GroupCalibrator, float, None] = _UNSET,
                  preemption: bool = _UNSET,
                  spec_tokens: Optional[int] = _UNSET,
                  spec_tree: Optional[str] = _UNSET,
@@ -230,6 +240,36 @@ class OrcaScheduler:
         self.pack_max = int(_pick(pack_max, cfg.pack_max))
         # the composer's policy: admission order, prefill share, victims
         self.policy = make_policy(_pick(policy, cfg.policy))
+        # group consensus stop: a calibrated GroupCalibrator, a raw
+        # agreement threshold in (0, 1], or None (groups still
+        # gang-schedule and share prompt pages, but every sample runs to
+        # its own per-request stop)
+        consensus = _pick(consensus, cfg.consensus)
+        if isinstance(consensus, bool):
+            raise ValueError(
+                f"consensus={consensus!r} is not a threshold: pass a float "
+                "agreement threshold in (0, 1], a calibrated "
+                "GroupCalibrator, or None to disable the consensus stop")
+        if isinstance(consensus, (int, float)):
+            thr = float(consensus)
+            if not 0.0 < thr <= 1.0:
+                raise ValueError(
+                    f"consensus={thr} is outside (0, 1]: the threshold is "
+                    "the weight share the top answer must reach; fix by "
+                    "passing a float in (0, 1] or a calibrated "
+                    "GroupCalibrator")
+            consensus = GroupCalibrator(lam=thr, burn_in=cfg.burn_in)
+        elif consensus is not None:
+            if not isinstance(consensus, GroupCalibrator):
+                raise ValueError(
+                    f"consensus must be a GroupCalibrator, a float in "
+                    f"(0, 1] or None, got {type(consensus).__name__}")
+            if consensus.lam is None:
+                raise ValueError(
+                    "consensus GroupCalibrator has no threshold — run "
+                    "GroupCalibrator.calibrate(...) first or pass "
+                    "consensus=<float threshold>")
+        self.consensus: Optional[GroupCalibrator] = consensus
         # involuntary preemption: capacity failures for strictly-more-
         # urgent units spill lower-priority residents instead of waiting
         self.preemption = bool(_pick(preemption, cfg.preemption))
@@ -249,12 +289,14 @@ class OrcaScheduler:
         self._plans: Dict[int, _AdmitPlan] = {}   # deferred donor registry
         self._free: List[int] = list(range(self.n_slots))
         self._requests: List[Request] = []        # submission order
-        self.groups: List[RequestGroup] = []
+        self.groups: List[RequestGroup] = []      # consensus outcomes
+        self._open_groups: List[RequestGroup] = []
         self._steps = 0
         self._active_slot_steps = 0
         self._total_tokens = self._n_chunks = self._n_packed = 0
         self._peak_blocks = self._prefill_skips = self._peak_step_tokens = 0
         self._n_preempted = self._n_restored = self._n_spilled_blocks = 0
+        self._n_cancelled = self._cancel_freed = 0
         self._stalls: List[float] = []
         self._t0 = time.perf_counter()
 
@@ -577,6 +619,10 @@ class OrcaScheduler:
             self._t0 = time.perf_counter()
         self._requests.extend(requests)
         self.groups.extend(groups)
+        if self.consensus is not None:
+            # groups whose consensus may still fire (a lone sample never
+            # votes)
+            self._open_groups.extend(g for g in groups if g.size >= 2)
         self._waiting.extend(units)
 
     def run(self, requests: Sequence[Request]
@@ -880,7 +926,56 @@ class OrcaScheduler:
                         self._register_donor(req, plan)
                     req.state = RequestState.RUNNING
                     running[seg.slot] = req
+
+        # consensus stop: after this step's scores landed and the ORCA
+        # evictions ran (a sample stopping at this very boundary still
+        # votes its frozen score), each open group's vote is re-checked;
+        # the first crossing CANCELS every sibling still running
+        if self._open_groups:
+            self._open_groups = [grp for grp in self._open_groups
+                                 if not self._consensus_check(grp, steps)]
         self._stalls.append((time.perf_counter() - t_iter) * 1e3)
+        return True
+
+    def _consensus_check(self, grp: RequestGroup, steps: int) -> bool:
+        """Run ``decide`` on the group's latest (score, answer) per sample;
+        when it fires, cancel every sibling not yet done.  Returns True when
+        the group leaves the open list (fired, or every sample done)."""
+        fire, ans, agr = self.consensus.decide(
+            [r.scores for r in grp.requests],
+            [r.answers for r in grp.requests])
+        if not fire:
+            return grp.done
+        grp.consensus_step = steps
+        grp.consensus_index = max(len(r.scores) for r in grp.requests) - 1
+        grp.consensus_answer = int(ans)
+        grp.consensus_agreement = float(agr)
+        for sib in grp.requests:
+            if sib.done:
+                continue
+            if sib.state is RequestState.SWAPPED:
+                # a spilled sibling holds no slot and no pages (both went
+                # back at the spill): its queued restore is dropped
+                for qi, (q, _) in enumerate(self._swapped):
+                    if q is sib:
+                        del self._swapped[qi]
+                        break
+            else:
+                slot = sib.slot
+                self._engine.cancel(slot)
+                if self.paged and sib.block_ids:
+                    self._cancel_freed += self.pool.free(sib.block_ids)
+                self._free.append(slot)
+                self._running.pop(slot, None)
+                if slot in self._prefilling:
+                    # cancel mid-prefill: the row sat parked at NULL the
+                    # whole prefill; its deferred donor plan goes with it
+                    del self._prefilling[slot]
+                    self._plans.pop(slot, None)
+            sib.steps_run = len(sib.scores)
+            sib.stop_step = -1
+            self._complete(sib, RequestState.CANCELLED, steps)
+            self._n_cancelled += 1
         return True
 
     def _collect_spec(self, req: Request, slot: int, view, lp: int,
@@ -975,6 +1070,15 @@ class OrcaScheduler:
         ttft_p50, ttft_p99, per_class = latency_stats(list(requests))
         st = np.asarray(self._stalls if self._stalls else [0.0])
         steps = self._steps
+        # group accounting: savings COUNT a cancelled sample's unspent
+        # budget; group_savings is the total of unspent steps across groups,
+        # group_savings_mean the mean of the per-group fractions
+        tps, dmn = self.cfg.tokens_per_step, self.cfg.max_new_tokens
+        real_groups = [g for g in self.groups if g.size >= 2]
+        g_sav = [g.savings(tps, dmn) for g in real_groups]
+        fired = [g for g in real_groups if g.decided]
+        g_unspent = [max(g.budget_steps(tps, dmn) - g.steps_spent(), 0)
+                     for g in real_groups]
         return FleetMetrics(
             n_requests=n, n_slots=self.n_slots, engine_steps=steps,
             active_slot_steps=self._active_slot_steps, wall_time_s=wall,
@@ -993,4 +1097,12 @@ class OrcaScheduler:
             peak_step_tokens=self._peak_step_tokens, per_class=per_class,
             preemptions=self._n_preempted, restores=self._n_restored,
             spilled_blocks=self._n_spilled_blocks,
+            samples_cancelled=self._n_cancelled,
+            consensus_groups=len(fired),
+            consensus_steps=(float(np.mean([g.consensus_index
+                                            for g in fired]))
+                             if fired else 0.0),
+            group_savings=float(sum(g_unspent)),
+            group_savings_mean=float(np.mean(g_sav)) if g_sav else 0.0,
+            cancel_freed_blocks=self._cancel_freed,
             **spec_stats(list(requests)))

@@ -8,9 +8,10 @@ exactly equal, and the page pool drains — with admission-time prefill and
 with chunked, packed prefill through the unified token-budget step (dense
 and paged, packed and unpacked, a budget that spreads prefill over many
 steps, paged int8); the static-batch engine and a static-probe fleet.
-Plus CPU runs of the port's serving driver, the ServeConfig knobs the port
-accepts and refuses, and a session mixing priority classes, where both
-packages preempt."""
+Plus CPU runs of the port's serving driver (with ``--group-size``, its
+``[serve] groups:`` line against JAX's driver's), the ServeConfig knobs
+the port accepts and refuses, and a session mixing priority classes, where
+both packages preempt."""
 import dataclasses
 import functools
 import warnings
@@ -215,6 +216,45 @@ def test_serve_driver_runs_chunked_on_cpu(capsys):
     assert "prefill chunks (" in out and "packed" in out
 
 
+GROUP_DRIVER = ["--arch", "smollm-360m", "--reduced", "--paged",
+                "--requests", "2", "--slots", "4", "--group-size", "4"]
+
+
+def _line(out, prefix):
+    return next(ln for ln in out.splitlines() if ln.startswith(prefix))
+
+
+@pytest.mark.parametrize("extra", [(), ("--no-consensus",),
+                                   ("--consensus-delta", "0.1")])
+def test_serve_driver_groups_line_matches_jax(capsys, extra):
+    """``--group-size 4`` on the reduced model: the port's driver prints
+    JAX's driver's ``[serve] groups:`` line on the same seed (both fleets
+    decode each group's shared prompt alike, so the schedule does not
+    depend on the weights); ``--no-consensus`` cancels nothing and
+    ``--consensus-delta`` calibrates at its own delta."""
+    from repro.launch import serve as jserve
+    assert jserve.main(GROUP_DRIVER + list(extra)) == 0
+    jout = capsys.readouterr().out
+    res = tserve.serve(GROUP_DRIVER + ["--device", "cpu"] + list(extra))
+    out = capsys.readouterr().out
+    assert _line(out, "[serve] groups:") == _line(jout, "[serve] groups:")
+    assert len(res.groups) == 2 and res.groups == res.scheduler.groups
+    states = {r.state.value for r in res.requests}
+    if extra == ("--no-consensus",):
+        assert res.scheduler.consensus is None
+        assert "consensus threshold" not in out
+        assert states <= {"stopped", "finished"}
+    else:
+        delta = "0.1" if extra else "0.2"
+        assert f"(delta={delta}, 3 calibration groups)" in out
+        assert _line(out, "[serve] groups:").startswith(
+            "[serve] groups: 2 consensus stops (mean step 2.0), 8 siblings "
+            "cancelled, group savings 72 steps")
+        assert all(g.decided and g.consensus_index == 2
+                   for g in res.groups)
+        assert res.scheduler.pool.blocks_in_use == 0
+
+
 def test_serve_config_takes_chunk_knobs_and_refuses_the_rest(models):
     cfg = ServeConfig(chunk_tokens=8, token_budget=12, pack_chunks=False,
                       pack_max=2)
@@ -235,14 +275,14 @@ def test_serve_config_takes_chunk_knobs_and_refuses_the_rest(models):
             policy=name)).policy.name == name
     with pytest.raises(ValueError, match="unknown scheduling policy"):
         ServeConfig(policy="lifo")
-    for field, value, item in (("group_size", 2, "A4.2"),
-                               ("consensus", 0.5, "A4.2"),
-                               ("consensus_delta", 0.1, "A4.2"),
-                               ("n_hosts", 2, "A4.3"),
+    for field, value, item in (("n_hosts", 2, "A4.3"),
                                ("placement", "pressure", "A4.3")):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP queue A \\({item}"):
             ServeConfig(**{field: value})
+    # groups and consensus are ported: no longer refused
+    cfg = ServeConfig(group_size=2, consensus=0.5)
+    assert (cfg.group_size, cfg.consensus) == (2, 0.5)
 
 
 @pytest.mark.parametrize("margin", [None, 2])

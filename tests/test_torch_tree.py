@@ -7,8 +7,9 @@ paged; the cache after ``commit_packed_kv``, dense, paged and int8, with
 off-path nodes never written; the engine's tree step; and tree fleets
 through ``OrcaScheduler`` (1.2, 2.2 and 3.3, dense and paged, chunked and
 not, draft cache on and off), whose stops and tokens equal JAX's tree
-fleet and the port's one-token fleet; and ``1.3`` equal to
-``spec_tokens=4`` step for step.  The JAX side runs with
+fleet and the port's one-token fleet; ``1.3`` equal to
+``spec_tokens=4`` step for step; and grouped consensus on the replay
+model under ``2.2`` with partial acceptance, against JAX's.  The JAX side runs with
 ``probe_impl="ref"``: its Pallas spec probe needs ``pallas.load``, which
 this JAX lacks; paged JAX cases run its Pallas paged attention in
 interpret mode (``REPRO_PAGED_ATTN=pallas``)."""
@@ -491,3 +492,58 @@ def test_width_one_tree_equals_linear_spec_step_for_step(models):
             assert getattr(a, fld) == getattr(b, fld), (a.req_id, fld)
     assert tf.tree_nodes_proposed == lf.spec_tokens_proposed
     assert max(g for r in td for g in r.tree_path_lens) >= 2
+
+
+def test_tree_consensus_groups_match_jax_and_cancelled_excluded():
+    """JAX ``tests/test_tree_spec.py:342`` on the port, each fleet held to
+    JAX's: grouped consensus on the replay model with partial acceptance
+    (``draft_wrong_rate`` 0.35), one-token and under ``spec_tree="2.2"``.
+    The same groups fire with the same answers and agreement, the same
+    siblings cancel, the survivors' stops and scores equal the one-token
+    fleet's, and CANCELLED samples are left out of the acceptance and
+    tree statistics."""
+    from repro.serving import replay_requests as j_replay_requests
+
+    from repro_torch.serving import RequestState, replay_requests
+    from tests.test_torch_groups import Replay
+
+    n_groups, gsz, t = 3, 3, 10
+    n = n_groups * gsz
+    rs = np.random.RandomState(6)
+    drift = np.linspace(0, 1.0, t)[None, :, None]
+    bank = (rs.randn(n, t, 8) * 0.3
+            + drift * rs.rand(n, 1, 8)).astype(np.float32)
+    answers = np.repeat(np.arange(n_groups), gsz)
+    fl = Replay(bank, answers=answers, bias=1.5, smooth_window=2,
+                draft_wrong_rate=0.35, key=4)
+
+    def reqs(mk):
+        out = (replay_requests if mk is make_request
+               else j_replay_requests)([t] * n)
+        for i, r in enumerate(out):
+            r.group_id, r.sample_idx = int(i // gsz), int(i % gsz)
+        return out
+    runs = {}
+    for tree in (None, "2.2"):
+        sched, done, fleet = fl.run(
+            dict(tokens_per_step=1, max_new_tokens=t, lam=2.0, burn_in=2,
+                 probe_impl="ref"), reqs, consensus=0.8, n_slots=4,
+            paged=True, block_size=4, spec_tree=tree)
+        runs[tree] = (done, fleet, sched.groups)
+        assert fleet.consensus_groups == n_groups
+    done_o, fleet_o, grp_o = runs[None]
+    done_s, fleet_s, grp_s = runs["2.2"]
+    assert [r.state for r in done_s] == [r.state for r in done_o]
+    assert ([(g.consensus_answer, g.consensus_agreement) for g in grp_s]
+            == [(g.consensus_answer, g.consensus_agreement) for g in grp_o])
+    assert fleet_s.samples_cancelled == fleet_o.samples_cancelled
+    for rs_, ro in zip(done_s, done_o):
+        if ro.state is not RequestState.CANCELLED:
+            assert rs_.stop_step == ro.stop_step
+            np.testing.assert_array_equal(np.asarray(rs_.scores),
+                                          np.asarray(ro.scores))
+    live = [r for r in done_s if r.state is not RequestState.CANCELLED]
+    assert fleet_s.tree_nodes_proposed == sum(r.tree_nodes for r in live)
+    assert fleet_s.spec_tokens_proposed == sum(r.spec_proposed for r in live)
+    cancelled = [r for r in done_s if r.state is RequestState.CANCELLED]
+    assert cancelled and any(r.tree_nodes for r in cancelled)
