@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -136,15 +137,36 @@ def build() -> Path:
     return lib
 
 
+# the first build and load run once even when several fleet hosts reach
+# a kernel together from their own threads
+_LOAD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, args in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = _c.c_int if name != "cuda_error_string" else _c.c_char_p
     return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use, once per process)."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+# the wrappers' launch counters: fleet hosts launch from several threads,
+# and ``fn.launches += 1`` alone can lose a count between them
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one to the launch count of the kernel wrapper ``fn``."""
+    with _COUNT_LOCK:
+        fn.launches += 1
 
 
 def check(err: int, what: str) -> None:

@@ -116,7 +116,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         int(causal), int(window or 0), _DTYPE_CODE[q.dtype],
         float(1.0 / d ** 0.5), _build.stream_of(q))
     _build.check(err, "flash_attention launch")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 

@@ -113,7 +113,7 @@ def flash_decode_partials(qg, k, v, valid):
         *(_build.opt_ptr(t) for t in parts), b, n_kv, r, d, s, n_split,
         _DTYPE_CODE[k.dtype], float(1.0 / d ** 0.5), _build.stream_of(qg))
     _build.check(err, "flash_decode launch")
-    flash_decode.launches += 1
+    _build.count_launch(flash_decode)
     return o, l, m
 
 

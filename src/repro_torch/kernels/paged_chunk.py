@@ -208,7 +208,7 @@ def paged_flash_packed_chunk(q, k_pages, v_pages, seg, seg_tables, seg_valid,
         raise _no_kernel("paged_flash_packed_chunk", q.device)
     out = _launch("paged_flash_packed_chunk", q, k_pages, v_pages, seg, 0,
                   seg_tables, seg_valid, k_scale_pages, v_scale_pages)
-    paged_flash_packed_chunk.launches += 1
+    _build.count_launch(paged_flash_packed_chunk)
     return out
 
 
@@ -231,7 +231,7 @@ def paged_flash_prefill_chunk(q, k_pages, v_pages, block_tables, valid,
     o, l, m = _launch("paged_flash_prefill_chunk", q.reshape(b * c, h, d),
                       k_pages, v_pages, None, c, block_tables, valid,
                       k_scale_pages, v_scale_pages)
-    paged_flash_prefill_chunk.launches += 1
+    _build.count_launch(paged_flash_prefill_chunk)
     n_kv = k_pages.shape[1]
     g = h // n_kv
     return (o.view(b, c, n_kv, g, d).permute(0, 2, 3, 1, 4),

@@ -144,7 +144,7 @@ def paged_attend(qg, k_pages, v_pages, block_tables, valid,
         _DTYPE_CODE[k_pages.dtype], float(1.0 / d ** 0.5),
         _build.stream_of(qg))
     _build.check(err, "paged_flash_decode launch")
-    paged_flash_decode.launches += 1
+    _build.count_launch(paged_flash_decode)
     return o, l, m
 
 

@@ -143,7 +143,7 @@ def serving_probe_spec_step(zq, zk, boundary, accept, W, b, ring, n_scores,
         vector_rows(f, zq, zk, W),
         _build.stream_of(zq))
     _build.check(err, "serving_probe_spec_step launch")
-    serving_probe_spec_step.launches += 1
+    _build.count_launch(serving_probe_spec_step)
     return SpecProbeOut(s, sm_seq, n_seq, W, b, ring, n_scores,
                         sm_seq[:, -1], stopped, stop_step)
 

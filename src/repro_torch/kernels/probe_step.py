@@ -223,7 +223,7 @@ def serving_probe_step(zq, zk, boundary, W, b, ring, n_scores, stopped,
         vector_rows(f, zq, zk, W),
         _build.stream_of(zq))
     _build.check(err, "serving_probe_step launch")
-    serving_probe_step.launches += 1
+    _build.count_launch(serving_probe_step)
     return ProbeStepOut(s, W, b, ring, n_scores, smoothed, stopped, stop_step)
 
 

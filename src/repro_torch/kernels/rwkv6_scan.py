@@ -179,7 +179,7 @@ def wkv_scan(r, k, v, w, u, s0, *,
         d, INPUT_DTYPES[r.dtype], col_split(b, h), chunk_steps(T),
         _build.stream_of(r))
     _build.check(err, "wkv_scan launch")
-    wkv_scan.launches += 1
+    _build.count_launch(wkv_scan)
     return out, state_out
 
 

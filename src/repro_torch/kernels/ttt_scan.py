@@ -200,7 +200,7 @@ def _scan(zq, zk, c, m, w0, b0, eta, *, shared: bool) -> Out:
         _build.stream_of(zq))
     _build.check(err, "ttt_probe_batched launch")
     if n:
-        ttt_probe_batched.launches += 1
+        _build.count_launch(ttt_probe_batched)
     return scores, w_f, b_f
 
 

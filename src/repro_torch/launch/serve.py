@@ -26,9 +26,14 @@ prompt's pages shared), stopped as a unit by the consensus stop: its
 threshold g* is LTT-calibrated at ``--consensus-delta`` (default
 ``--delta``) over groups of the calibration split, and once a group's
 vote clears it the siblings still running are cancelled
-(``--no-consensus``: every sample runs to its own stop).  ``--device
-cpu`` runs the plain PyTorch versions of the kernels (use ``--reduced``
-there).
+(``--no-consensus``: every sample runs to its own stop).  ``--hosts N``
+serves through a ``FleetRouter`` (``api.fleet``) of N simulated hosts, each
+with its own engine, page pool and policy on the shared weights, stepping
+concurrently (on the card each on its own CUDA stream); ``--placement``
+picks each unit's host (``pressure``: least loaded, prefix-affine;
+``roundrobin``), ``--slots`` is per host and ``--num-blocks`` the fleet's
+total.  ``--device cpu`` runs the plain PyTorch versions of the kernels
+(use ``--reduced`` there).
 """
 from __future__ import annotations
 
@@ -83,15 +88,19 @@ def trajectories_from_model(model, params, n: int, prompt_len: int,
 
 class ServeResult(NamedTuple):
     """What one driver run served: every request, the fleet metrics, the
-    scheduler (its engine and page pool), the calibrated lambda*, with
-    ``--static-baseline`` the static-batch run of the same queue, and with
-    ``--group-size`` above 1 the scheduler's groups (consensus outcomes)."""
+    scheduler (its engine and page pool; with ``--hosts`` above 1 the
+    ``FleetRouter``, its hosts' schedulers in ``.hosts``), the calibrated
+    lambda*, with ``--static-baseline`` the static-batch run of the same
+    queue, with ``--group-size`` above 1 the scheduler's groups (consensus
+    outcomes), and the fitted calibrator (``api.engine``/``api.fleet``
+    serve it again)."""
     requests: List
     fleet: object
     scheduler: object
     lam: float
     static: Optional[StaticQueueResult] = None
     groups: List[RequestGroup] = []
+    calibrator: object = None
 
 
 def serve(argv=None) -> ServeResult:
@@ -175,11 +184,22 @@ def serve(argv=None) -> ServeResult:
     ap.add_argument("--consensus-delta", type=float, default=0.0,
                     help="risk level for the group-consensus LTT "
                          "calibration (0 -> reuse --delta)")
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="simulated fleet hosts: >1 serves through a "
+                         "FleetRouter (per-host engine/pool/policy, "
+                         "pressure-balanced prefix-affine placement; "
+                         "--num-blocks is the TOTAL page budget split "
+                         "across hosts, --slots is PER HOST)")
+    ap.add_argument("--placement", default="pressure",
+                    choices=("pressure", "roundrobin"),
+                    help="fleet placement policy (--hosts > 1): 'pressure' "
+                         "= least-loaded with prefix affinity, "
+                         "'roundrobin' = locality-blind rotation")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    # validated before the harvest: a flag that is not ported fails fast
-    serve_cfg = ServeConfig.from_args(args)
+    # validated before the harvest: an invalid flag fails fast
+    serve_cfg = ServeConfig.from_args(args, placement=args.placement)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -220,10 +240,16 @@ def serve(argv=None) -> ServeResult:
         print(f"[serve] consensus threshold g* = {g_cal.lam:.3f} "
               f"(delta={c_delta}, {len(traces)} calibration groups)")
 
-    sched = orca.engine(model, params, calib, config=dataclasses.replace(
+    serve_cfg = dataclasses.replace(
         serve_cfg, lam=float(lam), consensus=consensus,
         consensus_delta=(args.consensus_delta or None
-                         if consensus is not None else None)))
+                         if consensus is not None else None))
+    if args.hosts > 1:
+        sched = orca.fleet(model, params, calib, config=serve_cfg)
+        print(f"[serve] fleet: {args.hosts} hosts x {args.slots} slots, "
+              f"placement={args.placement}")
+    else:
+        sched = orca.engine(model, params, calib, config=serve_cfg)
     batch = model_inputs(cfg, torch.Generator().manual_seed(args.seed + 1),
                          args.requests, args.prompt_len)
 
@@ -252,6 +278,9 @@ def serve(argv=None) -> ServeResult:
               f"(x{args.block_size} tokens), peak in use "
               f"{fleet.peak_blocks_in_use}, prefill skips "
               f"{fleet.prefill_skips}")
+    if args.hosts > 1:
+        print(f"[serve] routing: {fleet.n_hosts} hosts, "
+              f"{fleet.routed_affine} prefix-affine placements")
     if args.group_size > 1:
         print(f"[serve] groups: {fleet.consensus_groups} consensus stops "
               f"(mean step {fleet.consensus_steps:.1f}), "
@@ -297,7 +326,8 @@ def serve(argv=None) -> ServeResult:
               f"steps ({base.wall_time_s:.2f}s) — "
               f"{args.requests / base.wall_time_s:.2f} req/s")
     return ServeResult(done, fleet, sched, float(lam), base,
-                       list(sched.groups) if args.group_size > 1 else [])
+                       list(sched.groups) if args.group_size > 1 else [],
+                       calib)
 
 
 def main(argv=None) -> int:

@@ -6,11 +6,11 @@ chunked, packed prefill, the FIFO, priority, EDF and TTFT-aware policies
 with involuntary preemption (on by default, as in the JAX package),
 one-token, linear or tree speculative decode with the shared draft
 cache, dense or paged KV, self-consistency groups with the consensus
-stop, one host — and the fleet's fields raise ``NotImplementedError`` at
-construction when set, naming the ROADMAP queue-A item that brings them
-(A4.3 the fleet).  The probe-dispatch fields of the JAX config
-(``probe_impl``/``interpret``) have no counterpart: the device of the
-tensors picks K1 or its plain version.
+stop, on one host or on ``n_hosts`` simulated hosts behind a
+``FleetRouter`` (``placement`` picks the host of each unit; ``n_slots``
+is per host, ``num_blocks`` the fleet's total).  The probe-dispatch
+fields of the JAX config (``probe_impl``/``interpret``) have no
+counterpart: the device of the tensors picks K1 or its plain version.
 """
 from __future__ import annotations
 
@@ -19,12 +19,6 @@ import math
 from typing import Any, Optional
 
 from repro_torch.serving.policy import make_policy
-
-# field -> (value that means "off", ROADMAP queue-A item that brings it)
-_NOT_PORTED = {
-    "n_hosts": (1, "A4.3, the fleet"),
-    "placement": (None, "A4.3, the fleet"),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,9 +74,10 @@ class ServeConfig:
     consensus: Any = None         # GroupCalibrator | float in (0,1] | None
     consensus_delta: Optional[float] = None
 
-    # -- not ported yet (see _NOT_PORTED) -------------------------------------
+    # -- fleet serving ----------------------------------------------------------
     n_hosts: int = 1
-    placement: Any = None
+    placement: Any = None         # "pressure"/"roundrobin", a
+    #                               PlacementPolicy instance, or None
 
     def __post_init__(self) -> None:
         # normalize the optional ints the CLI passes as 0-for-disabled
@@ -123,12 +118,6 @@ class ServeConfig:
 
     def validate(self) -> None:
         """Cross-field validation — every error names the fix."""
-        for field, (off, item) in _NOT_PORTED.items():
-            if getattr(self, field) != off:
-                raise NotImplementedError(
-                    f"{field}={getattr(self, field)!r} is not ported to "
-                    f"repro_torch yet: it comes with ROADMAP queue A ({item}); "
-                    f"fix by leaving {field} at {off!r}")
         make_policy(self.policy)      # an unknown name raises here
         if isinstance(self.tokens_per_step, bool) or self.tokens_per_step < 1:
             raise ValueError(
@@ -213,6 +202,12 @@ class ServeConfig:
                 f"draft_cache_size={self.draft_cache_size} must be >= 0: "
                 "the shared draft cache's entry bound (0 disables it); "
                 "fix by passing a non-negative count")
+        if isinstance(self.n_hosts, bool) or int(self.n_hosts) < 1:
+            raise ValueError(
+                f"n_hosts={self.n_hosts!r} must be an int >= 1: the number "
+                "of simulated hosts the FleetRouter shards the scheduler "
+                "across; fix by passing a positive count (1 serves "
+                "single-host)")
         group_size = self.group_size
         if isinstance(group_size, bool) or int(group_size) < 1:
             raise ValueError(
@@ -284,6 +279,7 @@ class ServeConfig:
         ("pack_max", "pack_max", None),
         ("group_size", "group_size", None),
         ("no_preempt", "preemption", "invert"),
+        ("hosts", "n_hosts", None),
     )
 
     @classmethod

@@ -19,13 +19,15 @@ become the tree's chains, and short entries are extended by CHAINED
 lookups (the accepted continuation of its own tail), giving depth without
 ever storing long values.
 
-The JAX package's ``repro/serving/draft_cache.py``, line for line.  Purely
+The JAX package's ``repro/serving/draft_cache.py``, line for line, with a
+lock: a fleet's hosts share one instance across their threads.  Purely
 deterministic (insertion-ordered dict, no hashing randomness observable):
 two runs over the same traffic draft identically, which the parity tests
 rely on.
 """
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from typing import List, Optional, Sequence, Tuple
 
@@ -54,6 +56,9 @@ class DraftCache:
         self._table: "OrderedDict[tuple, List[tuple]]" = OrderedDict()
         self.hits = 0
         self.misses = 0
+        # a FleetRouter's hosts share one cache and step in threads: a
+        # lookup and a promotion never interleave
+        self._lock = threading.Lock()
 
     def __len__(self) -> int:
         return len(self._table)
@@ -98,7 +103,12 @@ class DraftCache:
         on a miss, zeros and False — the engine substitutes the model
         family's drafter for that slot.
         """
-        drafts = np.zeros((int(width), int(depth)), np.int32)
+        with self._lock:
+            return self._lookup(context, int(width), int(depth))
+
+    def _lookup(self, context: Sequence[int], width: int,
+                depth: int) -> Tuple[np.ndarray, bool]:
+        drafts = np.zeros((width, depth), np.int32)
         key = self._key(context)
         conts = self._table.get(key) if key is not None else None
         if not conts:
@@ -107,7 +117,7 @@ class DraftCache:
         self.hits += 1
         self._table.move_to_end(key)
         ctx = [int(t) for t in context]
-        for b in range(int(width)):
+        for b in range(width):
             chain = list(conts[b % len(conts)])[:depth]
             if len(chain) < depth:
                 chain.extend(self._chain(ctx + chain, depth - len(chain)))
@@ -125,6 +135,11 @@ class DraftCache:
         (front of its MRU list, trimmed to ``fanout``)."""
         if self.capacity == 0 or not len(accepted):
             return
+        with self._lock:
+            self._observe(context, accepted)
+
+    def _observe(self, context: Sequence[int],
+                 accepted: Sequence[int]) -> None:
         toks = [int(t) for t in context] + [int(t) for t in accepted]
         n_ctx = len(toks) - len(accepted)
         lo = max(0, n_ctx - self.ngram)

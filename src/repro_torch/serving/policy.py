@@ -30,10 +30,14 @@ least half the running residents are within ``probe_margin`` tokens of a
 probe boundary, the prefill share is halved.  Policies move WHEN work
 happens, never what the probe sees.
 
+One level up, the ``FleetRouter`` asks a ``PlacementPolicy`` which host
+a unit lands on, fed by each host's ``HostPressure`` (the snapshot
+``OrcaScheduler.pressure()`` exports): ``PressurePlacement`` (least
+outstanding samples, prefix affinity first) or ``RoundRobinPlacement``
+(locality-blind rotation).
+
 These are the JAX package's policies (``repro/serving/policy.py``), host
-code kept here as the port's own copy, with ``HostPressure``, the snapshot
-``OrcaScheduler.pressure()`` exports.  The fleet placement policies come
-with ROADMAP A4.3 (the fleet router).
+code kept here as the port's own copy.
 """
 from __future__ import annotations
 
@@ -292,3 +296,92 @@ class HostPressure:
         """Samples this host still owes work: queued + resident + swapped."""
         return (self.queued_samples + self.n_running
                 + self.n_prefilling + self.n_swapped)
+
+
+class PlacementPolicy:
+    """Chooses the host a gang-admission unit is routed to: the fleet
+    analogue of ``select_admit`` (the router's own ``SchedulingPolicy``
+    still orders its queue; this class only places the unit it picked).
+    Stateless by default, so one instance may serve many routers."""
+
+    def select_host(self, unit: Sequence[Request],
+                    pressures: Sequence[HostPressure], *,
+                    need_slots: int, need_pages: int,
+                    affine_host: Optional[int] = None) -> Optional[int]:
+        """The host index for ``unit``, or None when NO host can ever fit
+        it (total capacity, not current load: the router raises on None
+        rather than queueing forever).  ``affine_host`` is the host already
+        holding donor pages for the unit's prompt hash, or None."""
+        feasible = [p for p in pressures
+                    if p.n_slots >= need_slots
+                    and (need_pages == 0 or p.pool_blocks >= need_pages)]
+        if not feasible:
+            return None
+        # prefix affinity wins whenever the donor host can fit the unit:
+        # landing there turns the whole prompt prefill into a page-table
+        # copy (prefill_skipped)
+        if affine_host is not None:
+            for p in feasible:
+                if p.host == affine_host:
+                    return p.host
+        return self.rank(unit, feasible)
+
+    def rank(self, unit: Sequence[Request],
+             feasible: Sequence[HostPressure]) -> int:
+        """Pick among feasible hosts (affinity already handled): least
+        outstanding samples, pages in use breaking ties, then the host
+        index, so placement is deterministic."""
+        best = min(feasible, key=lambda p: (p.outstanding,
+                                            p.blocks_in_use, p.host))
+        return best.host
+
+
+class PressurePlacement(PlacementPolicy):
+    """Least-outstanding-samples placement with prefix affinity (default)."""
+
+
+class RoundRobinPlacement(PlacementPolicy):
+    """Rotate placements across feasible hosts, ignoring pressure and
+    prefix affinity: stop decisions must not move even under this
+    locality-blind policy."""
+
+    def __init__(self) -> None:
+        self._next = 0
+
+    def select_host(self, unit: Sequence[Request],
+                    pressures: Sequence[HostPressure], *,
+                    need_slots: int, need_pages: int,
+                    affine_host: Optional[int] = None) -> Optional[int]:
+        feasible = [p for p in pressures
+                    if p.n_slots >= need_slots
+                    and (need_pages == 0 or p.pool_blocks >= need_pages)]
+        if not feasible:
+            return None
+        pick = feasible[self._next % len(feasible)]
+        self._next += 1
+        return pick.host
+
+
+_PLACEMENTS = {
+    "pressure": PressurePlacement,
+    "roundrobin": RoundRobinPlacement,
+}
+
+
+def make_placement(placement: Union[str, PlacementPolicy, None]
+                   ) -> PlacementPolicy:
+    """Resolve a placement spec: an instance passes through, a name builds
+    the registered class, None means pressure-balanced with prefix
+    affinity."""
+    if placement is None:
+        return PressurePlacement()
+    if isinstance(placement, PlacementPolicy):
+        return placement
+    try:
+        return _PLACEMENTS[placement]()
+    except (KeyError, TypeError):
+        raise ValueError(
+            f"unknown placement policy {placement!r} (expected one of "
+            f"{sorted(_PLACEMENTS)}); fix by passing 'pressure' "
+            "(load-balanced + prefix-affine) or 'roundrobin', or a "
+            "PlacementPolicy instance") from None

@@ -17,8 +17,10 @@ drives the whole serving stack over a ``TrajectorySet``:
 The JAX package's ``repro/serving/replay.py`` on tensors, written to the
 port's ``Model`` interface: its state and bank live on the device of the
 ``replay_params`` (on a CUDA device the probe step still runs K1), and
-``_draft_coin`` gives the JAX drafters' coins bit for bit.  The fleet
-harness ``serve_replay`` comes with the fleet router (ROADMAP A4.3).
+``_draft_coin`` gives the JAX drafters' coins bit for bit.
+``serve_replay`` is the fleet harness: one whole session through an
+``OrcaScheduler`` or a ``FleetRouter``, so stops compare across host
+counts.
 """
 from __future__ import annotations
 
@@ -345,3 +347,50 @@ def make_group_fleet(ts, group_size: int, *, seed: int = 0,
     return GroupFleet(model=model, params=params, requests=requests,
                       members=members, truth=truth,
                       answer_hash=answer_hash)
+
+
+def serve_replay(phis: np.ndarray, theta, *, n_hosts: int = 1,
+                 cfg=None, placement=None, lengths=None,
+                 priorities: Optional[Sequence[int]] = None,
+                 parallel_hosts: bool = True, device=None,
+                 **cfg_overrides):
+    """Drive a replay-model fleet end to end on ``device`` (None: CUDA) and
+    return ``(requests, metrics, server)``.
+
+    Builds the replay model and its bank from ``phis``, a ``ServeConfig``
+    (``cfg``, or ``tokens_per_step=1`` + ``cfg_overrides``) and either a
+    single ``OrcaScheduler`` (``n_hosts=1``) or a ``FleetRouter``, then
+    runs one whole session.  Both servers speak the same protocol and
+    replay is deterministic, so the stops compare directly across host
+    counts.  ``theta`` is the probe's slow weights (arrays or tensors)."""
+    from repro_torch.core.probe import ProbeConfig
+    from repro_torch.serving.config import ServeConfig
+    from repro_torch.serving.router import FleetRouter
+    from repro_torch.serving.scheduler import OrcaScheduler
+
+    phis = np.asarray(phis)
+    if cfg is None:
+        cfg = ServeConfig(tokens_per_step=1,
+                          max_new_tokens=int(phis.shape[1]),
+                          **cfg_overrides)
+    elif cfg_overrides:
+        cfg = dataclasses.replace(cfg, **cfg_overrides)
+    dev = resolve_device(device)
+    theta = {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
+             for k, v in theta.items()}
+    pc = ProbeConfig(d_phi=int(phis.shape[2]), smooth_window=4)
+    model, params = replay_model(phis), replay_params(phis, device=dev)
+    if n_hosts == 1:
+        server = OrcaScheduler(model, params, pc, theta, cfg)
+    else:
+        server = FleetRouter(model, params, pc, theta, cfg,
+                             n_hosts=n_hosts, placement=placement,
+                             parallel_hosts=parallel_hosts)
+    if lengths is None:
+        lengths = [int(phis.shape[1])] * int(phis.shape[0])
+    requests = replay_requests(lengths)
+    if priorities is not None:
+        for r, p in zip(requests, priorities):
+            r.priority = int(p)
+    requests, metrics = server.run(requests)
+    return requests, metrics, server

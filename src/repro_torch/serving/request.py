@@ -84,6 +84,8 @@ class Request:
     submitted_step: int = 0               # engine step at enqueue
     admitted_step: int = -1               # engine step at slot admission
     completed_step: int = -1              # engine step at stop/finish
+    host: int = -1                        # fleet host that served it (-1 =
+    #                                       single-host / not yet placed)
     # chunked prefill (PREFILL is a RESIDENT phase: the request owns a slot
     # and its prompt is processed in token-budget chunks by the unified step)
     prefill_progress: int = 0             # prompt tokens already prefilled
@@ -212,6 +214,9 @@ class FleetMetrics:
     preemptions: int = 0         # victims spilled to host RAM
     restores: int = 0            # spilled requests resumed
     spilled_blocks: int = 0      # KV pages copied out across all spills
+    # fleet serving (``FleetRouter``): n_slots above is PER HOST
+    n_hosts: int = 1
+    routed_affine: int = 0       # placements that followed prefix affinity
     # speculative decode: acceptance and shared draft-cache accounting
     # (``spec_stats``)
     spec_tokens_proposed: int = 0   # draft tokens proposed fleet-wide
@@ -230,6 +235,19 @@ class FleetMetrics:
     def row(self) -> Dict[str, float]:
         return {
             **self.per_class,
+            "spec_tokens_proposed": self.spec_tokens_proposed,
+            "spec_tokens_accepted": self.spec_tokens_accepted,
+            "acceptance_rate": self.acceptance_rate,
+            "accepted_len_p50": self.accepted_len_p50,
+            "accepted_len_p99": self.accepted_len_p99,
+            "tree_nodes_proposed": self.tree_nodes_proposed,
+            "tree_path_accepted_p50": self.tree_path_accepted_p50,
+            "tree_path_accepted_p99": self.tree_path_accepted_p99,
+            "draft_cache_hits": self.draft_cache_hits,
+            "draft_cache_misses": self.draft_cache_misses,
+            "draft_cache_hit_rate": self.draft_cache_hit_rate,
+            "n_hosts": self.n_hosts,
+            "routed_affine": self.routed_affine,
             "samples_cancelled": self.samples_cancelled,
             "consensus_groups": self.consensus_groups,
             "consensus_steps": self.consensus_steps,

@@ -7,8 +7,8 @@ preemption, one-token, linear or tree speculative decode with the shared
 draft cache, dense or paged KV with prefix sharing.  The admission loop,
 batch composer, token collection and metrics are the JAX package's line
 for line, so per-request stop steps, tokens, admission, restore and
-completion steps match it exactly on the same model outputs.  The fleet
-router comes with ROADMAP A4.3.
+completion steps match it exactly on the same model outputs.  The
+``FleetRouter`` (``serving/router.py``) shards it across simulated hosts.
 
 Self-consistency groups (``group_id`` on the requests): a group is
 admitted as one unit, its siblings share the first sample's prompt pages

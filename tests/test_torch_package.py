@@ -70,6 +70,7 @@ def _entry_points():
     from repro_torch.launch import serve
     from repro_torch.models import build
     from repro_torch.models.convert import from_jax_theta
+    from repro_torch.serving import serve_replay
     from repro_torch.trajectories import synthetic
 
     cfg = get_config("smollm-360m").reduced()
@@ -88,13 +89,17 @@ def _entry_points():
             n_components=4, epochs=1).fit(ts, "consistent"),
         "serve.main": lambda: serve.main(["--arch", "smollm-360m",
                                           "--reduced"]),
+        "serve_replay": lambda: serve_replay(
+            np.zeros((2, 3, 4), np.float32),
+            {"W0": np.zeros(4, np.float32), "b0": np.float32(0)}),
     }
 
 
 @pytest.mark.parametrize("name", ["model.init", "init_decode_state",
                                   "init_paged_state", "init_outer",
                                   "from_jax_theta", "TTTCalibrator.fit",
-                                  "StaticCalibrator.fit", "serve.main"])
+                                  "StaticCalibrator.fit", "serve.main",
+                                  "serve_replay"])
 def test_entry_point_without_cuda_raises(monkeypatch, name):
     """With no CUDA device and no ``device=``, an entry point raises and
     says how to run on the CPU; it never drops to the CPU by itself."""

@@ -275,11 +275,26 @@ def test_serve_config_takes_chunk_knobs_and_refuses_the_rest(models):
             policy=name)).policy.name == name
     with pytest.raises(ValueError, match="unknown scheduling policy"):
         ServeConfig(policy="lifo")
-    for field, value, item in (("n_hosts", 2, "A4.3"),
-                               ("placement", "pressure", "A4.3")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue A \\({item}"):
-            ServeConfig(**{field: value})
+    # the fleet's fields are ported: n_hosts is checked with JAX's
+    # message, and an unknown placement is refused as JAX refuses it
+    cfg = ServeConfig(n_hosts=2, placement="roundrobin")
+    assert (cfg.n_hosts, cfg.placement) == (2, "roundrobin")
+    for bad in (0, -1, True):
+        with pytest.raises(ValueError) as got:
+            ServeConfig(n_hosts=bad)
+        with pytest.raises(ValueError) as want:
+            JServeConfig(n_hosts=bad)
+        assert str(got.value) == str(want.value)
+        assert "must be an int >= 1" in str(got.value)
+    from repro.serving import make_placement as j_make_placement
+
+    from repro_torch.serving import make_placement
+    with pytest.raises(ValueError) as got:
+        make_placement("nearest")
+    with pytest.raises(ValueError) as want:
+        j_make_placement("nearest")
+    assert str(got.value) == str(want.value)
+    assert "unknown placement policy 'nearest'" in str(got.value)
     # groups and consensus are ported: no longer refused
     cfg = ServeConfig(group_size=2, consensus=0.5)
     assert (cfg.group_size, cfg.consensus) == (2, 0.5)
