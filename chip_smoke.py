@@ -20,7 +20,8 @@ non-zero:
                window in shared memory), in both views; each timed row
                names its instance (threads, features a thread, registers);
                chained and timed at serve-llama's width (f 3072), both
-               views, and at serve-stablelm's (f 2560)
+               views, and at serve-stablelm's (f 2560), serve-granite's
+               (f 1024) and serve-phi's (f 4096), each the top of a band
 3. k2       -- paged flash decode against its plain version, bf16, int8
                and f32 pages, the serving shape and nb in {8, 64, 256}
                (past 256 positions split over blocks and merged); timed
@@ -34,7 +35,10 @@ non-zero:
                the other page dtypes there, 4,096 positions split, holes
                and the one-split rows; then d 80 at G 1 (stablelm-3b):
                serve-stablelm's step in bf16, int8 and f32, 4,096
-               positions split (the d-80 merge), holes, one split
+               positions split (the d-80 merge), holes, one split; then
+               (64, 2) and (128, 4), serve-granite's and serve-phi's step
+               in bf16, int8 and f32, 4,096 positions split, holes, one
+               split
 4. k3       -- paged chunk attention against its plain versions, B4
                (packed chunks: 1 to 4 segments, an empty cache, padding
                and zero-length segments, nb 256) and B3 (chunks of B
@@ -53,7 +57,10 @@ non-zero:
                the ancestor mask, timed beside SDPA; then d 80 at G 1:
                serve-stablelm's chunk in bf16, int8 and f32, 4 segments,
                4,000 positions split, B3 chunks, holes, a last split
-               empty, the tree verify shape
+               empty, the tree verify shape; then (64, 2) and (128, 4):
+               serve-granite's and serve-phi's chunk in bf16, int8 and
+               f32, 4 segments, 4,000 positions split, B3 chunks, holes,
+               a last split empty
 5. k4       -- the masked multi-token probe step against its plain version
                and against T masked K1 launches on copies of the same
                state, bit for bit in every case: B 1, 4, 8; T 1, 2, 4, 8;
@@ -70,7 +77,9 @@ non-zero:
 6. k5       -- the offline TTT scan against its plain version and against
                its own L-step form (``ttt_probe_lookahead_plain`` at the
                kernel's L for the width): f 128, 960, 5120, 2048 (the
-               RWKV fleet's no-QK view) and 3072 (the llama fleet's), N 1
+               RWKV fleet's no-QK view), 3072 (the llama fleet's), 1024
+               and 4096 (the granite and phi fleets', each the top of a
+               band), N 1
                and 170, T 1, 37 and 120, c = 0 and c = labels, a
                per-trajectory and a shared init
                (120 cases on the synthetic corpus's step embeddings and
@@ -88,7 +97,9 @@ non-zero:
                then d 128 at G 3 and G 1: the harvests of serve-llama (8,
                64) and serve-qwen (8, 208), dense steps, f32, 4,096
                positions split; then d 80 at G 1: serve-stablelm's
-               harvest (8, 208), a dense step, f32, 4,096 positions split
+               harvest (8, 208), a dense step, f32, 4,096 positions split;
+               then (64, 2) and (128, 4): serve-granite's and serve-phi's
+               harvests (8, 208), dense steps, f32, 4,096 positions split
 8. k7       -- flash prefill attention against its plain version: (B, S)
                (1, 16), (24, 16), (1, 160), (24, 160), (4, 2048); window
                64; Sq < Sk; a window past the keys; bf16 and f32; timed
@@ -98,7 +109,9 @@ non-zero:
                (8, 160), 2,048 tokens, f32, a window, Sq < Sk; then d 80:
                serve-stablelm's harvest prefill (8, 160), (1, 160),
                (1, 16), 2,048 tokens, f32, a window, Sq < Sk, a window
-               past the keys (bf16 and f32)
+               past the keys (bf16 and f32); then at G 2 (d 64) and G 4
+               (d 128): serve-granite's and serve-phi's harvest prefills
+               (8, 160), an admission, Sq < Sk, a window past the keys
 9. model    -- full-width smollm-360m (bf16, random weights from a seed,
                then the same weights in f32): prefill 16 tokens, 16
                teacher-forced paged decode steps through K2 (every call
@@ -294,6 +307,35 @@ non-zero:
                profiled window; in f32 at 4 of its 32 layers on f32 pages
                in 64-token chunks, through the kernels and through the
                plain attention: stops and tokens equal
+30c. model-granite, serve-granite, trace-granite, serve-granite-f32 --
+               granite-moe-1b-a400m (24 layers, 16 heads of 64 on 8 KV
+               heads, 32 experts of d_ff 512, top-8, tied embeddings) at
+               full width and depth as model-llama, then its first 4
+               layers in f32 with teacher-forced routing
+               (``f32_evaluation``): K2 against the plain paged attention
+               within 2^-10 of the largest logit, the dense path's argmax
+               equal, and the bf16 floor measured against f32;
+               ``launch.serve --arch
+               granite-moe-1b-a400m --paged --chunk-tokens 64
+               --prompt-len 160``: K2 and K3 at (64, 2) on bf16 pages, the
+               harvest through K7 and K6, K1 and K5 at f 1024, every K1,
+               K2, K3, K6 and K7 launch counted exactly, a packed chunk;
+               an 8-step profiled window of decode steps (16-token
+               prompts); in f32 at 4 of its 24 layers on
+               f32 pages in 64-token chunks, through the kernels and
+               through the plain attention: stops and tokens equal, with
+               the smallest top-k router margin of each run
+30d. model-phi, serve-phi, trace-phi, serve-phi-f32 -- phi3.5-moe-42b
+               (32 heads of 128 on 8 KV heads, 16 experts of d_ff 6400,
+               top-2, LayerNorm) at full width, cut to 24 of its 32 layers
+               (``PHI_LAYERS``: 58.6 GiB of bf16 weights; the whole
+               model's 78.0 GiB leaves no room for a cache), as
+               serve-granite: K2 and K3 at (128, 4); peak memory; an
+               8-step profiled window of decode steps; in f32 at 4 layers
+               (weights drawn anew on the card once the bf16 fleet is
+               gone) as serve-granite-f32; model-phi's f32 evaluation
+               keeps a copy of the first 4 bf16 layers and frees the rest
+               first, so that their f32 copy fits
 31. serve-qwen, trace-qwen -- ``launch.serve --arch qwen1.5-32b --paged
                --chunk-tokens 64 --prompt-len 160``: int8 pages through K2
                and K3 (G 1), the harvest through K7 and K6 (G 1), K1 and
@@ -310,7 +352,11 @@ non-zero:
                per d-128 instance on the new fleets' paths (K2, K6 and K7
                at G 3 from serve-llama, at G 1 from serve-qwen, K3 at G 1
                int8 from serve-qwen) and K1 at f 3072, and one per d-80
-               instance on serve-stablelm's (K2, K3-B4, K6, K7); the tree path's
+               instance on serve-stablelm's (K2, K3-B4, K6, K7), and one
+               per (64, 2) and (128, 4) instance on serve-granite's and
+               serve-phi's (K2, K3-B4, K6, K7) and K1 and K5 at f 1024 and
+               4096 (launches from serve-granite and serve-phi); the tree
+               path's
                K3 (d 64 from serve-tree, d 128 G 3 from serve-llama-tree,
                timed at phase k3's tree cases) and K4 (serve-tree); K3's
                and K7's bound_ms is their rows' bound_tc_ms, the products
@@ -591,18 +637,24 @@ def phase_k1(torch, timer):
                            burn_in))
     rwkv_served = k1_timed(torch, timer, K1, gen, 4, f_rwkv, win, eta,
                            burn_in, same=True)
+    def served_width(fw):
+        """A fleet's probe width (its d_model), both views, chained and
+        timed at 4 slots."""
+        rows = []
+        for same in (True, False):
+            err_w, margin_w, stops_w = k1_chain(
+                torch, K1, gen, 4, fw, win, steps, eta, lam, burn_in,
+                same=same)
+            rows.append(dict(f=fw, B=4, view="same" if same else "distinct",
+                             max_abs_err=err_w, lambda_margin=margin_w,
+                             stopped_at=stops_w,
+                             **k1_timed(torch, timer, K1, gen, 4, fw, win,
+                                        eta, burn_in, same=same)))
+        return rows
+
     # serve-llama's probe width, d_model 3072 (serve-qwen's 5120 is among
-    # the views above), both views, chained and timed
-    llama = []
-    for same in (True, False):
-        err_l, margin_l, stops_l = k1_chain(
-            torch, K1, gen, 4, LLAMA_PROBE_F, win, steps, eta, lam, burn_in,
-            same=same)
-        llama.append(dict(f=LLAMA_PROBE_F, B=4, view="same" if same
-                          else "distinct", max_abs_err=err_l,
-                          lambda_margin=margin_l, stopped_at=stops_l,
-                          **k1_timed(torch, timer, K1, gen, 4, LLAMA_PROBE_F,
-                                     win, eta, burn_in, same=same)))
+    # the views above)
+    llama = served_width(LLAMA_PROBE_F)
     wide = []
     for same in (True, False):
         err_w, margin_w, stops_w = k1_chain(
@@ -612,21 +664,15 @@ def phase_k1(torch, timer):
                          view="same" if same else "distinct",
                          max_abs_err=err_w, lambda_margin=margin_w,
                          stopped_at=stops_w))
-    # serve-stablelm's probe width, d_model 2560, both views, chained and
-    # timed (after the cases above, whose draws stay as they were)
-    stablelm = []
-    for same in (True, False):
-        err_s, margin_s, stops_s = k1_chain(
-            torch, K1, gen, 4, STABLELM_PROBE_F, win, steps, eta, lam,
-            burn_in, same=same)
-        stablelm.append(dict(f=STABLELM_PROBE_F, B=4, view="same" if same
-                             else "distinct", max_abs_err=err_s,
-                             lambda_margin=margin_s, stopped_at=stops_s,
-                             **k1_timed(torch, timer, K1, gen, 4,
-                                        STABLELM_PROBE_F, win, eta, burn_in,
-                                        same=same)))
+    # serve-stablelm's probe width, d_model 2560, then serve-granite's and
+    # serve-phi's, 1024 and 4096, each the top of its band (after the cases
+    # above, whose draws stay as they were)
+    stablelm = served_width(STABLELM_PROBE_F)
+    granite = served_width(GRANITE_PROBE_F)
+    phi = served_width(PHI_PROBE_F)
     err = {k: max([c["max_abs_err"][k] for c in chains.values()]
-                  + [v["max_abs_err"][k] for v in views + wide + llama]
+                  + [v["max_abs_err"][k] for v in views + wide + llama
+                     + stablelm + granite + phi]
                   + [err_r[k]])
            for k in chains[8]["max_abs_err"]}
     # the kernels line's K1 time: two rows (zk another tensor) at 4 slots,
@@ -640,7 +686,8 @@ def phase_k1(torch, timer):
                served_ms=served["ms"], served_plain_ms=served["plain_ms"],
                served_bound_ms=served["bound_ms"], served=served,
                distinct=timed, rwkv_width=rwkv, rwkv_served=rwkv_served,
-               llama_width=llama, stablelm_width=stablelm)
+               llama_width=llama, stablelm_width=stablelm,
+               granite_width=granite, phi_width=phi)
     emit(res)
     return res
 
@@ -756,6 +803,11 @@ SMOLLM = (15, 5, 64, 32)
 LLAMA = (24, 8, 128, 28)
 QWEN = (40, 40, 128, 64)
 STABLELM = (32, 32, 80, 32)
+# the MoE fleets' attention: granite-moe-1b's d 64 on 16 heads over 8 (G 2)
+# at its 24 layers, phi3.5-moe's d 128 on 32 over 8 (G 4) at the 24 of its
+# 32 layers served
+GRANITE = (16, 8, 64, 24)
+PHI = (32, 8, 128, 24)
 # K2 at d 128: (B, nb, pages, timed, case, shape).  First the served
 # decode steps of serve-llama (4 slots, 16 + 48 positions: 4 pages) and
 # serve-qwen (160 + 48: 13 pages, int8), then the other page dtypes at
@@ -781,6 +833,17 @@ K2_D80_CASES = [(4, 13, "bf16", True, None, STABLELM),
                 (8, 256, "bf16", True, None, STABLELM),
                 (8, 256, "int8", False, "holes", STABLELM),
                 (8, 256, "f32", False, "one split", STABLELM)]
+# K2 at (64, 2) and (128, 4), the MoE fleets': serve-granite's and
+# serve-phi's decode step (4 slots, 160 + 48 positions: 13 pages) in each
+# page dtype (f32: their f32 fleets), 4,096 positions split over 8 blocks,
+# and the untimed split cases
+K2_MOE_CASES = [(4, 13, dtype, True, None, shape)
+                for shape in (GRANITE, PHI)
+                for dtype in ("bf16", "int8", "f32")] + [
+    (8, 256, "bf16", True, None, GRANITE),
+    (8, 256, "bf16", True, None, PHI),
+    (8, 256, "int8", False, "holes", GRANITE),
+    (8, 256, "f32", False, "one split", PHI)]
 
 
 def phase_k2(torch, timer):
@@ -798,7 +861,8 @@ def phase_k2(torch, timer):
              (8, 64, "bf16", True, None), (8, 256, "bf16", False, "holes"),
              (8, 256, "int8", False, "holes"),
              (8, 256, "bf16", False, "one split")]
-    cases = [c + (SMOLLM,) for c in cases] + K2_D128_CASES + K2_D80_CASES
+    cases = ([c + (SMOLLM,) for c in cases] + K2_D128_CASES + K2_D80_CASES
+             + K2_MOE_CASES)
     rows = []
     for B, nb, dtype, timed, case, shape in cases:
         H, KV, d, layers = shape
@@ -861,7 +925,7 @@ def phase_k2(torch, timer):
                    per_step_ms=layers * ms)
         emit(dict(phase="k2", **row))
         rows.append(row)
-        if (nb, dtype, d) == (256, "bf16", 64):
+        if (nb, dtype, shape) == (256, "bf16", SMOLLM):
             from repro_torch.kernels import _build
             p = _build.ptr
             qg = q.reshape(B, KV, H // KV, d)
@@ -1033,6 +1097,25 @@ K3_D80_UNTIMED = [
 K3_D80_TREE_CASES = [("tree 3.3", 16, dtype, [(10, 37), (10, 112), (10, 200),
                                               (10, 64)], STABLELM)
                      for dtype in ("bf16", "int8")]
+# K3 at (64, 2) and (128, 4), the MoE fleets': serve-granite's and
+# serve-phi's chunk (a 160-token prompt's third chunk packed with the next
+# one's head) in each page dtype, four segments, 4,000 cached positions
+# split over 16 blocks, a B3 chunk, the untimed holed and split rows
+K3_MOE_B4_CASES = [("served", 16, dtype, [(32, 128), (32, 0)], shape)
+                   for shape in (GRANITE, PHI)
+                   for dtype in ("bf16", "int8", "f32")] + [
+    ("four segments", 16, "bf16", [(16, 200), (16, 0), (16, 37), (8, 255)],
+     GRANITE),
+    ("nb 256", 256, "bf16", [(64, 4000)], PHI),
+    ("nb 256", 256, "int8", [(40, 4000), (24, 1500)], GRANITE)]
+K3_MOE_B3_CASES = [(1, 64, 16, "bf16", [128], GRANITE),
+                   (1, 64, 16, "bf16", [128], PHI),
+                   (4, 64, 256, "int8", [0, 64, 1000, 4000], PHI)]
+K3_MOE_UNTIMED = [
+    ("holes", 16, "bf16", [(32, 200), (32, 100)], True, PHI),
+    ("holes, split", 256, "int8", [(40, 4000), (24, 1500)], True, PHI),
+    ("split, last split empty", 64, "bf16", [(64, 130)], False, GRANITE),
+]
 # bf16 / int8 inputs upcast exactly; f32 sums in another order than the
 # plain one-shot softmax: K2's tolerances
 K3_M_TOL, K3_OUT_TOL = 1e-4, 2e-3
@@ -1186,7 +1269,8 @@ def k3_b3_case(torch, timer, gen, B, Cb, nb, dtype, cached, shape=None):
 
 def phase_k3(torch, timer):
     """smollm-360m's cases first (their draws as in every earlier run),
-    then the d-128 ones and the tree verify cases, then d 80's."""
+    then the d-128 ones and the tree verify cases, then d 80's, then the
+    MoE fleets' (64, 2) and (128, 4)."""
     gen = torch.Generator().manual_seed(SEED + 3)
     rows = []
     for b4, b3, untimed, tree in (
@@ -1194,7 +1278,8 @@ def phase_k3(torch, timer):
             (K3_D128_B4_CASES, K3_D128_B3_CASES, K3_D128_UNTIMED,
              K3_TREE_CASES),
             (K3_D80_B4_CASES, K3_D80_B3_CASES, K3_D80_UNTIMED,
-             K3_D80_TREE_CASES)):
+             K3_D80_TREE_CASES),
+            (K3_MOE_B4_CASES, K3_MOE_B3_CASES, K3_MOE_UNTIMED, [])):
         for name, nb, dtype, segs, *shape in b4:
             rows.append(k3_b4_case(torch, timer, gen, name, nb, dtype, segs,
                                    shape=shape[0] if shape else None))
@@ -1484,6 +1569,9 @@ RWKV_PROBE_F = 2048
 LLAMA_PROBE_F = 3072
 # and serve-stablelm's, stablelm-3b's d_model
 STABLELM_PROBE_F = 2560
+# and serve-granite's and serve-phi's (granite-moe-1b's and phi3.5-moe's
+# d_model), each the top of a band of K1's and K5's instances
+GRANITE_PROBE_F, PHI_PROBE_F = 1024, 4096
 K5_TOL = 1e-5
 
 
@@ -1511,8 +1599,11 @@ def k5_cases(torch, test):
     1 and 170; T 1, 37 and 120; masks from the corpus's ragged lengths; c
     = 0 (deployed) or c = the supervised labels (the "true" inner-label
     mode); W0 per trajectory (``ttt_probe_batched``) or shared
-    (``ttt_probe_scan``).  The five widths run five of the kernel's
-    instances, those of every width a phase of this script fits at."""
+    (``ttt_probe_scan``); and 1024 and 4096 (the no-QK views at
+    granite-moe-1b's and phi3.5-moe's d_model: N(0, 1) features, one
+    tensor), the top of the bands 960 and 3072 run in.  The seven widths
+    run five of the kernel's instances, those of every width a phase of
+    this script fits at."""
     from repro_torch.core.labels import supervised_labels
     gen = torch.Generator().manual_seed(SEED + 5)
     phis = torch.as_tensor(test.phis).to(DEV)
@@ -1536,6 +1627,11 @@ def k5_cases(torch, test):
                          for _ in range(2)),
              RWKV_PROBE_F: (z_up, z_up),
              LLAMA_PROBE_F: (z_llama, z_llama)}
+    # serve-granite's and serve-phi's views, each from its own generator
+    for fw, seed in ((GRANITE_PROBE_F, SEED + 54), (PHI_PROBE_F, SEED + 55)):
+        z = torch.randn(len(test), phis.shape[1], fw,
+                        generator=torch.Generator().manual_seed(seed)).to(DEV)
+        feats[fw] = (z, z)
     for f, (zq_all, zk_all) in feats.items():
         w0 = (torch.randn(f, generator=gen) / f ** 0.5).to(DEV)
         w0_rows = w0 + 0.1 * (torch.randn(len(test), f, generator=gen)
@@ -1710,6 +1806,17 @@ K6_D80_CASES = [(8, 208, "bf16", True, STABLELM),
                 (4, 4096, "f32", False, STABLELM)]
 
 
+# K6 at (64, 2) and (128, 4): the harvests of serve-granite and serve-phi
+# (8 trajectories of 160 + 48 positions), a dense fleet's step, f32,
+# 4,096 positions split
+K6_MOE_CASES = [(8, 208, "bf16", True, GRANITE), (8, 208, "bf16", True, PHI),
+                (4, 208, "bf16", True, GRANITE), (4, 208, "bf16", True, PHI),
+                (8, 208, "f32", True, GRANITE), (4, 113, "f32", False, PHI),
+                (1, 16, "bf16", False, GRANITE),
+                (8, 4096, "bf16", True, GRANITE),
+                (4, 4096, "bf16", True, PHI)]
+
+
 def dense_case(torch, gen, B, S, dtype, H=15, KV=5, d=64):
     """A dense cache with row 0 fully valid, ragged tails, and for B > 2 a
     sliding-window band (row 1) and a row with no valid position (row
@@ -1735,7 +1842,7 @@ def phase_k6(torch, timer):
     gen = torch.Generator().manual_seed(SEED + 6)
     rows = []
     for B, S, dtype, timed, *shape in (K6_CASES + K6_D128_CASES
-                                       + K6_D80_CASES):
+                                       + K6_D80_CASES + K6_MOE_CASES):
         H, KV, d, layers = shape[0] if shape else SMOLLM
         q, k, v, valid = dense_case(torch, gen, B, S, dtype, H, KV, d)
         o, l, m = K6.flash_decode(q, k, v, valid, return_partials=True)
@@ -1788,7 +1895,7 @@ def phase_k6(torch, timer):
             # the kernel's share of one decode step, a launch a layer
             row["layers"] = layers
             row["per_step_ms"] = layers * row["ms"]
-            if (B, S, d) == (8, 4096, 64):
+            if (B, S, d, H) == (8, 4096, 64, SMOLLM[0]):
                 from repro_torch.kernels import _build
                 p = _build.ptr
                 qg = q.reshape(B, KV, H // KV, d)
@@ -1858,6 +1965,16 @@ K7_D80_CASES = [(8, 160, 160, None, "bf16", True, STABLELM),
                 (1, 48, 16, 8, "bf16", False, STABLELM)]
 
 
+# K7 at the MoE fleets' groups (its instance is d's alone): serve-granite's
+# and serve-phi's harvest prefill (8 prompts of 160), an admission of 16,
+# Sq < Sk, a window past the keys in f32
+K7_MOE_CASES = [(8, 160, 160, None, "bf16", True, GRANITE),
+                (8, 160, 160, None, "bf16", True, PHI),
+                (1, 16, 16, None, "bf16", False, PHI),
+                (4, 64, 160, None, "bf16", False, GRANITE),
+                (1, 48, 16, 8, "f32", False, PHI)]
+
+
 def visible_pairs(sq, sk, window):
     """(query, key) pairs the causal / window mask leaves, per head."""
     n = 0
@@ -1885,7 +2002,8 @@ def phase_k7(torch, timer):
     gen = torch.Generator().manual_seed(SEED + 7)
     rows = []
     for B, sq, sk, window, dtype, timed, *shape in (K7_CASES + K7_D128_CASES
-                                                    + K7_D80_CASES):
+                                                    + K7_D80_CASES
+                                                    + K7_MOE_CASES):
         H, KV, d, _ = shape[0] if shape else SMOLLM
         dt = torch.bfloat16 if dtype == "bf16" else torch.float32
         q = torch.randn(B, sq, H, d, generator=gen).to(dt).to(DEV)
@@ -2003,14 +2121,17 @@ class CheckedK2:
         return got
 
 
-def teacher_forced(torch, model, params, prompt, feed, impls, bs=16):
+def teacher_forced(torch, model, params, prompt, feed, impls, bs=16,
+                   route=None):
     """Prefill, copy the prompt K/V into one page pool per paged attention
     implementation, then decode the same fed tokens through each (the
     model's ``paged_flash_decode`` swapped for it).  ``impls`` holds
     (paged decode, prefill attention) pairs; a prefill attention of None
     is the served one (K7 on the card), any other is swapped in for the
-    prefill of its pool.  Returns the max |logit - logit of impls[0]| per
-    step for each other pair, and the largest |logit|."""
+    prefill of its pool.  ``route`` (a ``ForcedRouting``) is told which
+    pair and pass each model call belongs to.  Returns the max |logit -
+    logit of impls[0]| per step for each other pair, and the largest
+    |logit|."""
     from repro_torch.models import attention as A
     cfg = model.cfg
     B, S = prompt.shape
@@ -2019,8 +2140,10 @@ def teacher_forced(torch, model, params, prompt, feed, impls, bs=16):
     served_prefill = A.flash_attention
     prefilled = {}
     try:
-        for _, pre_impl in impls:
+        for i, (_, pre_impl) in enumerate(impls):
             if pre_impl not in prefilled:
+                if route is not None:
+                    route.select(i, "prefill")
                 A.flash_attention = pre_impl or served_prefill
                 prefilled[pre_impl], _, _ = model.prefill(
                     cfg, params, {"tokens": prompt}, nb * bs)
@@ -2044,8 +2167,10 @@ def teacher_forced(torch, model, params, prompt, feed, impls, bs=16):
         for t in range(steps):
             pos = torch.full((B,), S + t, dtype=torch.int32, device=DEV)
             logits = []
-            for (impl, _), st in zip(impls, states):
+            for i, ((impl, _), st) in enumerate(zip(impls, states)):
                 A.paged_flash_decode = impl
+                if route is not None:
+                    route.select(i, t)
                 lg, _, _ = model.decode_step(cfg, params, feed[t], st, pos)
                 lg = lg[:, :cfg.vocab_size].float()
                 if not torch.isfinite(lg).all():
@@ -2084,45 +2209,85 @@ class CheckedK6:
         return got
 
 
+def prefill_exact(q, k, v, causal=True, window=None):
+    """The plain version's formula (``attn_prefill_einsum``) in float64."""
+    import torch
+    b, sq, h, d = q.shape
+    n_kv = k.shape[2]
+    qg = q.double().reshape(b, sq, n_kv, h // n_kv, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.double()) / d ** 0.5
+    qpos = torch.arange(sq, device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", p, v.double()).reshape(
+        b, sq, h, d)
+
+
 class CheckedK7:
     """K7 on the inputs the model gives it, each call held against the
-    plain version on the same inputs with phase k7's tolerances."""
+    plain version on the same inputs with phase k7's tolerances.  With
+    ``exact`` (float32 inputs whose scores run to hundreds, where the plain
+    version's own rounding passes those tolerances) each call is held
+    instead to the plain formula in float64: K7 within twice the plain
+    version's distance from it plus phase k7's f32 tolerance."""
 
-    def __init__(self, K7):
-        self.K7 = K7
+    def __init__(self, K7, exact: bool = False):
+        self.K7, self.exact = K7, exact
         self.calls, self.err = 0, 0.0
+        self.exact_err, self.plain_exact_err = 0.0, 0.0
 
     def __call__(self, q, k, v, *, causal=True, window=None):
         got = self.K7.flash_attention(q, k, v, causal=causal, window=window)
         want = self.K7.attn_prefill_einsum(q, k, v, causal=causal,
                                              window=window)
         err, ok = k7_error(got, want, v)
+        if self.exact:
+            ex = prefill_exact(q, k, v, causal, window)
+            e_k = float((got.double() - ex).abs().max())
+            e_p = float((want.double() - ex).abs().max())
+            ok = e_k <= 2 * e_p + K7_F32_TOL * v_scale(v)
+            self.exact_err = max(self.exact_err, e_k)
+            self.plain_exact_err = max(self.plain_exact_err, e_p)
+            err_text = f"{e_k} from float64 (plain version {e_p})"
+        else:
+            err_text = str(err)
         if not ok:
             raise AssertionError(f"K7 in the model, call {self.calls}: err "
-                                 f"{err}")
+                                 f"{err_text}")
         self.calls += 1
         self.err = max(self.err, err)
         return got
 
 
-def dense_teacher_forced(torch, model, params, prompt, feed, impls):
+def dense_teacher_forced(torch, model, params, prompt, feed, impls,
+                         route=None):
     """Prefill the prompt into a dense cache and decode the same fed
     tokens, once per (decode, prefill) attention pair in ``impls`` (the
-    model's ``flash_decode`` and ``flash_attention`` swapped for it).
-    Returns each pair's logits per step."""
+    model's ``flash_decode`` and ``flash_attention`` swapped for it);
+    ``route`` as in ``teacher_forced``.  Returns each pair's logits per
+    step."""
     from repro_torch.models import attention as A
     cfg = model.cfg
     B, S = prompt.shape
     served = A.flash_decode, A.flash_attention
     runs = []
     try:
-        for dec, pre in impls:
+        for i, (dec, pre) in enumerate(impls):
             A.flash_decode, A.flash_attention = dec, pre
+            if route is not None:
+                route.select(i, "prefill")
             cache, _, _ = model.prefill(cfg, params, {"tokens": prompt},
                                         S + feed.shape[0])
             logits = []
             for t in range(feed.shape[0]):
                 pos = torch.full((B,), S + t, dtype=torch.int32, device=DEV)
+                if route is not None:
+                    route.select(i, t)
                 lg, _, _ = model.decode_step(cfg, params, feed[t], cache, pos)
                 lg = lg[:, :cfg.vocab_size].float()
                 if not torch.isfinite(lg).all():
@@ -2135,23 +2300,32 @@ def dense_teacher_forced(torch, model, params, prompt, feed, impls):
     return runs
 
 
-def dense_path(torch, model, params, prompt, feed, exact_argmax):
+def dense_path(torch, model, params, prompt, feed, exact_argmax,
+               keep=None, route=None, k7_exact=False):
     """The dense path of one model: K7's prefill and K6's decode steps,
     every call checked, against the plain versions.  With
     ``exact_argmax`` (f32) every step's argmax must equal the plain
-    path's and the logits sit within 2^-10 of the largest."""
+    path's and the logits sit within 2^-10 of the largest.  ``keep``, a
+    list, receives the plain path's logits of every step; ``route`` as in
+    ``teacher_forced``; ``k7_exact``: K7 held to float64 (``CheckedK7``)."""
     from repro_torch.kernels import flash_attention as K7
     from repro_torch.kernels import flash_decode as K6
-    k6, k7 = CheckedK6(K6), CheckedK7(K7)
+    k6, k7 = CheckedK6(K6), CheckedK7(K7, exact=k7_exact)
     kern, plain = dense_teacher_forced(
         torch, model, params, prompt, feed,
-        [(k6, k7), (K6.flash_decode_plain, K7.attn_prefill_einsum)])
+        [(k6, k7), (K6.flash_decode_plain, K7.attn_prefill_einsum)],
+        route=route)
+    if keep is not None:
+        keep.extend(plain)
     diffs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
     agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
              for a, b in zip(kern, plain)]
     scale = max(float(b.abs().max()) for b in plain)
     res = dict(k6_calls=k6.calls, k6_m_rel_err=k6.m_err,
                k6_out_err=k6.out_err, k7_calls=k7.calls, k7_err=k7.err,
+               **(dict(k7_exact_err=k7.exact_err,
+                       k7_plain_exact_err=k7.plain_exact_err)
+                  if k7_exact else {}),
                max_logit_diff_per_step=diffs, argmax_agree_per_step=agree,
                max_abs_logit=scale)
     if exact_argmax:
@@ -2743,7 +2917,9 @@ def profiled_events(prof):
 def phase_trace(torch, sched, steps: int = TRACE_STEPS,
                 prompt_len: int = 16, phase: str = "trace"):
     """A profiler window over ``steps`` engine steps of the served fleet,
-    refilled with fresh requests of ``prompt_len`` tokens: the card's busy
+    refilled with fresh requests of ``prompt_len`` tokens (``steps`` + 8
+    new tokens each: the warm steps and the window at one token a step,
+    then a short drain): the card's busy
     share of the window's wall time and the kernels that take it, and the
     device kernels and busy share per step, split into steps that ran a
     prefill chunk and steps that did not.  A device kernel belongs to the
@@ -2755,7 +2931,7 @@ def phase_trace(torch, sched, steps: int = TRACE_STEPS,
     vocab = sched.model.cfg.vocab_size
     prompts = torch.randint(0, vocab, (sched.n_slots, prompt_len),
                             generator=gen, dtype=torch.int32)
-    sched.submit([make_request(t.numpy(), max_new_tokens=3 * steps)
+    sched.submit([make_request(t.numpy(), max_new_tokens=steps + 8)
                   for t in prompts])
     eng = sched.engine
     had_chunk = []
@@ -4946,6 +5122,10 @@ def phase_harvest_rwkv(torch, sched, n: int = 24, prompt_len: int = 16,
 
 LLAMA_ARCH, QWEN_ARCH = "llama3.2-3b", "qwen1.5-32b"
 STABLELM_ARCH = "stablelm-3b"
+GRANITE_ARCH, PHI_ARCH = "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b"
+# phi3.5-moe's depth on the card: 24 of its 32 layers, 58.6 GiB of bf16
+# weights (the whole model's 78.0 GiB leaves no room for a cache)
+PHI_LAYERS = 24
 # the new fleets: 4 requests on 4 slots, 48 new tokens, 8 harvested
 # trajectories; serve-qwen's and serve-stablelm's prompts of 160 tokens go
 # in 64-token chunks
@@ -4968,8 +5148,78 @@ def peak_gib(torch) -> float:
         else 0.0
 
 
+def f32_evaluation(torch, model, params, prompt, feed,
+                   layers: int = F32_LAYERS):
+    """The model's first ``layers`` layers (full width) with their weights
+    cast to float32, on f32 pages, with teacher-forced routing
+    (``ForcedRouting``: each path compared takes the experts its
+    reference run chose): K2 against the plain paged attention within
+    2^-10 of the largest logit, every K2 call checked, and the dense path
+    through K7 and K6 with every argmax equal and within 2^-10 (phase
+    model's float32 bounds, which the bf16 floor of a random-weight MoE
+    stack, as large as its logits, cannot give), each K7 call held to
+    float64 (phi3.5-moe's scores reach hundreds; there the plain f32
+    version is 2e-3 from float64, past phase k7's f32 tolerance).  The
+    depth is cut as the
+    f32 fleets' is: through granite-moe-1b's 24 layers a float32
+    reordering alone moves the logits by 8% of their largest, routing
+    forced (PERF.md §7).  The bf16 floor measured against it: the
+    plain dense path's logits of the same cut in bf16 against those in
+    float32 (each routed freely), step by step.  Reports the routings
+    whose own choice the forcing overrode and the smallest top-k router
+    margin of the float32 runs, and names them in a failure."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as K7
+    from repro_torch.kernels import flash_decode as K6
+    from repro_torch.kernels import paged_decode as K2
+    from repro_torch.models import build
+    cfg = dataclasses.replace(model.cfg,
+                              n_layers=min(layers, model.cfg.n_layers))
+    cut = {k: _tree(v, (lambda t: t[:cfg.n_layers]) if k == "layers"
+                    else (lambda t: t)) for k, v in params.items()}
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                kv_cache_dtype="float32")
+    model32 = build(cfg32)
+    params32 = _tree(cut, lambda t: t.float())
+    (bf16,) = dense_teacher_forced(
+        torch, build(cfg), cut, prompt, feed,
+        [(K6.flash_decode_plain, K7.attn_prefill_einsum)])
+    checked = CheckedK2(K2)
+    plain32 = []
+    paged, dense = ForcedRouting(), ForcedRouting()
+    try:
+        with paged:
+            (k2_32,), scale32 = teacher_forced(
+                torch, model32, params32, prompt, feed,
+                [(K2.paged_decode_plain, None), (checked, None)],
+                route=paged)
+        bound32 = scale32 * 2.0 ** -10
+        if max(k2_32) > bound32:
+            raise AssertionError(f"K2 vs plain paged logits {max(k2_32)} "
+                                 f"> {bound32}")
+        with dense:
+            dense32 = dense_path(torch, model32, params32, prompt, feed,
+                                 True, keep=plain32, route=dense,
+                                 k7_exact=True)
+    except AssertionError as e:
+        raise AssertionError(
+            f"{cfg32.name} f32: {e} (routings forced from another choice: "
+            f"paged {paged.flips}, dense {dense.flips}; smallest top-k "
+            f"router margins {paged.margin}, {dense.margin})") from e
+    floor = [float((a - b).abs().max()) for a, b in zip(bf16, plain32)]
+    return dict(layers=cfg.n_layers, k2_calls=checked.calls,
+                k2_m_rel_err=checked.m_err, k2_out_err=checked.out_err,
+                k2_plain_out_err=checked.plain_out_err,
+                max_logit_diff_per_step=k2_32, max_abs_logit=scale32,
+                bound=bound32, dense=dense32,
+                routing_flips=dict(paged=paged.flips, dense=dense.flips),
+                router_margin_min=min(paged.margin, dense.margin),
+                bf16_vs_f32_logit_diff_per_step=floor,
+                bf16_max_abs_logit=max(float(b.abs().max()) for b in bf16))
+
+
 def phase_model_wide(torch, arch, phase, steps: int = 8,
-                     reduced: bool = False):
+                     reduced: bool = False, layers=None):
     """A d-128 config at full width and depth (random bf16 weights drawn
     on the card; qwen1.5-32b's KV in int8 pages as served): one prefill of
     16 tokens and ``steps`` teacher-forced paged decode steps through K2,
@@ -4978,12 +5228,17 @@ def phase_model_wide(torch, arch, phase, steps: int = 8,
     version's formula in float64 too); then the dense path, the prompt through K7 and the fed tokens
     through K6 (qwen's int8 cache dequantised to bf16, K6 at G 1), every
     call held against the plain version (``dense_path``).  Reports the
-    card's peak memory."""
+    card's peak memory.  An MoE config also runs ``f32_evaluation`` on
+    the same weights and reports the smallest top-k router margin of the
+    bf16 runs.  ``layers`` cuts the depth."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import build
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=min(layers, cfg.n_layers))
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
     model = build(cfg)
@@ -4998,14 +5253,26 @@ def phase_model_wide(torch, arch, phase, steps: int = 8,
                            dtype=torch.int32).to(DEV)
     feed = torch.randint(0, cfg.vocab_size, (steps, B), generator=gen,
                          dtype=torch.int32).to(DEV)
-    paged = paged_within_floor(torch, model, params, prompt, feed)
-    dense = dense_path(torch, model, params, prompt, feed, False)
+    with RouterMargin(cfg.moe is not None) as rm:
+        paged = paged_within_floor(torch, model, params, prompt, feed)
+        dense = dense_path(torch, model, params, prompt, feed, False)
     res = dict(phase=phase, arch=arch, layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
                kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, d_ff=cfg.d_ff,
                vocab=cfg.vocab_size, params=n_params, dtype=cfg.dtype,
                kv_cache=cfg.kv_cache_dtype, init_s=init_s, batch=B,
                prompt=S, decode_steps=steps, bf16=paged, dense=dense,
                peak_gib=peak_gib(torch))
+    if cfg.moe is not None:
+        # the f32 evaluation's layers copied, the rest freed before their
+        # float32 copy is made (phi's 24 bf16 layers and 4 in f32 would
+        # not fit the card together)
+        params = {k: _tree(v, lambda t: t[:F32_LAYERS].clone())
+                  if k == "layers" else v for k, v in params.items()}
+        free_card(torch)
+        res.update(experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                   router_margin_min=rm.margin,
+                   f32=f32_evaluation(torch, model, params, prompt, feed),
+                   peak_gib_with_f32=peak_gib(torch))
     emit(res)
     del params
     return res
@@ -5072,6 +5339,83 @@ class PlainAttention:
         return self.dense.__exit__(*exc)
 
 
+class RouterMargin:
+    """Within the block (when ``active``), every routing of the MoE block
+    records its smallest top-k margin: the k-th largest router probability
+    minus the (k+1)-th, over every token.  A margin near 0 is a routing
+    another summation order may flip, swapping a whole expert, which tells
+    such a divergence apart from a kernel fault.  The minimum stays on the
+    card until ``margin`` reads it."""
+
+    def __init__(self, active: bool = True):
+        self.active, self.min = active, None
+
+    def route(self, logits, probs, gates, idx):
+        """What the block routes by, given the router's own choice."""
+        return logits, probs, gates, idx
+
+    def __enter__(self):
+        if not self.active:
+            return self
+        import torch
+        from repro_torch.models import moe
+        self.moe, self.router = moe, moe._router
+
+        def router(params, x, cfg):
+            out = self.router(params, x, cfg)
+            k = cfg.moe.top_k
+            top = torch.topk(out[1], k + 1, dim=-1).values
+            gap = (top[:, k - 1] - top[:, k]).min()
+            self.min = gap if self.min is None else torch.minimum(self.min,
+                                                                  gap)
+            return self.route(*out)
+        moe._router = router
+        return self
+
+    def __exit__(self, *exc):
+        if self.active:
+            self.moe._router = self.router
+
+    @property
+    def margin(self):
+        return None if self.min is None else float(self.min)
+
+
+class ForcedRouting(RouterMargin):
+    """Teacher-forced routing, as the fed tokens are teacher-forced: within
+    the block, each routing of the MoE block in a run other than the first
+    (``select(run, pass)``, called before every model call) takes the
+    experts the first run chose at the same call of the same pass, and
+    its gates are its own probabilities there, renormalised.  Two
+    attention paths compared in float32 then differ continuously: a
+    routing within rounding of a top-k tie cannot swap a whole expert in
+    one of them.  Counts the routings whose own top-k differed from the
+    forced one (``flips``); keeps the smallest top-k margin as
+    ``RouterMargin`` does."""
+
+    def __init__(self):
+        super().__init__()
+        self.run, self.key, self.n = 0, None, 0
+        self.chosen, self.flips = {}, 0
+
+    def select(self, run, key) -> None:
+        self.run, self.key, self.n = run, key, 0
+
+    def route(self, logits, probs, gates, idx):
+        import torch
+        call = (self.key, self.n)
+        self.n += 1
+        if self.run == 0:
+            self.chosen[call] = idx
+            return logits, probs, gates, idx
+        forced = self.chosen[call]
+        self.flips += int((idx.sort(-1).values
+                           != forced.sort(-1).values).any(-1).sum())
+        gates = probs.gather(-1, forced)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return logits, probs, gates, forced
+
+
 def f32_cut(sched, layers=None, **changes):
     """The fleet's model and its weights in float32, cut to its first
     ``layers`` layers (all by default; full width)."""
@@ -5094,21 +5438,27 @@ def f32_stops(torch, phase, model32, params32, pc, theta, swap, kernels, *,
     kernels and once within ``swap``, which puts each kernel named in
     ``kernels`` on its plain version: every stop step and every token
     equal, each of ``kernels`` launched in the first run and none in the
-    second.  ``serve_cfg``: the fleet's ``ServeConfig`` beyond lambda."""
+    second.  ``serve_cfg``: the fleet's ``ServeConfig`` beyond lambda.  An
+    MoE model's runs record their smallest top-k router margins
+    (``RouterMargin``), reported beside the stops and in a failure."""
     from repro_torch.launch import serve
     from repro_torch.serving import OrcaScheduler, ServeConfig, make_request
     batch = serve.model_inputs(model32.cfg,
                                torch.Generator().manual_seed(SEED + 1),
                                requests, prompt_len)
     base = dict(n_slots=4, tokens_per_step=8, burn_in=2, **serve_cfg)
+    moe = model32.cfg.moe is not None
+    margins = []
 
     def fleet(lam):
         zero_launches()
         t0 = time.perf_counter()
-        done, fl = OrcaScheduler(model32, params32, pc, theta,
-                                 ServeConfig(lam=lam, **base)).run(
-            [make_request(t) for t in batch["tokens"]])
+        with RouterMargin(moe) as rm:
+            done, fl = OrcaScheduler(model32, params32, pc, theta,
+                                     ServeConfig(lam=lam, **base)).run(
+                [make_request(t) for t in batch["tokens"]])
         sync(torch)
+        margins.append(rm.margin)
         return done, fl, time.perf_counter() - t0, read_launches()
 
     free, _, _, _ = fleet(2.0)
@@ -5121,13 +5471,15 @@ def f32_stops(torch, phase, model32, params32, pc, theta, swap, kernels, *,
     with swap:
         plain, plain_fl, plain_s, plain_l = fleet(lam)
     stops = [r.stop_step for r in kern]
+    routed = (f" (smallest top-k router margins of the free, kernel and "
+              f"plain runs: {margins})" if moe else "")
     if [r.stop_step for r in plain] != stops:
         raise AssertionError(f"{phase}: stops through the plain versions "
                              f"{[r.stop_step for r in plain]} differ from "
-                             f"the kernels' {stops}")
+                             f"the kernels' {stops}{routed}")
     if [r.tokens for r in plain] != [r.tokens for r in kern]:
         raise AssertionError(f"{phase}: tokens through the plain versions "
-                             "differ from the kernels'")
+                             f"differ from the kernels'{routed}")
     if not all(kern_l[k] for k in kernels) or any(plain_l[k]
                                                   for k in kernels):
         raise AssertionError(f"{phase} launches: {kern_l} through the "
@@ -5144,24 +5496,30 @@ def f32_stops(torch, phase, model32, params32, pc, theta, swap, kernels, *,
                plain=dict(engine_steps=plain_fl.engine_steps, wall_s=plain_s,
                           tokens_per_s=plain_fl.tokens_per_s,
                           launches=plain_l))
+    if moe:
+        res["router_margin_min"] = dict(zip(("free", "kernel", "plain"),
+                                            margins))
     emit(res)
     return res
 
 
-def phase_qwen_f32_stops(torch, pc, theta, layers: int = F32_LAYERS):
-    """serve-qwen's served path in float32 at ``layers`` of its 64 layers
-    (full width, weights drawn on the card: the bf16 fleet's are gone, two
-    copies do not fit), on int8 KV pages in 64-token chunks of 160-token
-    prompts, with serve-qwen's fitted probe: through K2 and K3 at G 1 on
-    int8 pages and their scale pools, and through the plain attention."""
+def fresh_f32_stops(torch, arch, phase, pc, theta, layers: int = F32_LAYERS,
+                    **changes):
+    """A chunked fleet's served path in float32 at ``layers`` of its
+    layers (full width, weights drawn on the card: the bf16 fleet's are
+    gone, two copies do not fit), on its KV pages (``changes``) in 64-token
+    chunks of 160-token prompts, with the bf16 fleet's fitted probe:
+    through K2 and K3 and through the plain attention.  serve-qwen-f32
+    keeps qwen's int8 pages and their scale pools; serve-phi-f32 takes f32
+    pages."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import build
-    cfg = dataclasses.replace(get_config(QWEN_ARCH), dtype="float32",
-                              n_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                              n_layers=layers, **changes)
     model = build(cfg)
     params = model.init(torch.Generator().manual_seed(SEED), DEV)
-    return f32_stops(torch, "serve-qwen-f32", model, params, pc, theta,
+    return f32_stops(torch, phase, model, params, pc, theta,
                      PlainAttention(), ("paged_flash_decode",
                                         "paged_flash_packed_chunk"),
                      requests=WIDE_REQUESTS, prompt_len=QWEN_PROMPT,
@@ -5294,6 +5652,42 @@ def main() -> int:
               chunk_tokens=CHUNK, max_new_tokens=WIDE_NEW)
     del out_sl, sched
     free_card(torch)
+    # the MoE fleets, serve-stablelm's chunked 160-token prompts on bf16
+    # pages: granite-moe-1b (d 64, G 2) at full width and depth, then
+    # phi3.5-moe (d 128, G 4) at full width and 24 of its 32 layers
+    moe_need = SERVE_NEED + ("paged_flash_packed_chunk", "ttt_probe_batched")
+    chunk_flags = ("--chunk-tokens", str(CHUNK), "--prompt-len",
+                   str(QWEN_PROMPT))
+    granite_model = phase_model_wide(torch, GRANITE_ARCH, "model-granite")
+    served_gr, out_gr = wide_fleet(torch, GRANITE_ARCH, "serve-granite",
+                                   chunk_flags, need=moe_need)
+    if served_gr["packed_chunks"] < 1:
+        raise AssertionError("the granite fleet packed no chunk")
+    phase_trace(torch, out_gr.scheduler, phase="trace-granite")
+    sched = out_gr.scheduler
+    f32_stops(torch, "serve-granite-f32",
+              *f32_cut(sched, F32_LAYERS, kv_cache_dtype="float32"),
+              sched.pc, sched.theta, PlainAttention(),
+              ("paged_flash_decode", "paged_flash_packed_chunk"),
+              requests=WIDE_REQUESTS, prompt_len=QWEN_PROMPT, paged=True,
+              chunk_tokens=CHUNK, max_new_tokens=WIDE_NEW)
+    del out_gr, sched
+    free_card(torch)
+    phi_model = phase_model_wide(torch, PHI_ARCH, "model-phi",
+                                 layers=PHI_LAYERS)
+    free_card(torch)
+    with CutDepth(PHI_LAYERS):
+        served_phi, out_phi = wide_fleet(torch, PHI_ARCH, "serve-phi",
+                                         chunk_flags, need=moe_need)
+    if served_phi["packed_chunks"] < 1:
+        raise AssertionError("the phi fleet packed no chunk")
+    phase_trace(torch, out_phi.scheduler, phase="trace-phi")
+    pc, theta = out_phi.scheduler.pc, out_phi.scheduler.theta
+    del out_phi
+    free_card(torch)
+    fresh_f32_stops(torch, PHI_ARCH, "serve-phi-f32", pc, theta,
+                    kv_cache_dtype="float32")
+    free_card(torch)
     qwen_model = phase_model_wide(torch, QWEN_ARCH, "model-qwen")
     free_card(torch)
     served_q, out_q = wide_fleet(
@@ -5307,7 +5701,7 @@ def main() -> int:
     pc, theta = out_q.scheduler.pc, out_q.scheduler.theta
     del out_q
     free_card(torch)
-    phase_qwen_f32_stops(torch, pc, theta)
+    fresh_f32_stops(torch, QWEN_ARCH, "serve-qwen-f32", pc, theta)
     k2_main = k2[0]
     # absolute errors: phase k2's m and outputs, the model's outputs
     k2_err = max([max(r["m_err"], r["out_err"]) for r in k2]
@@ -5444,6 +5838,63 @@ def main() -> int:
                    max(max(r["max_abs_err"] for r in k7 if r["d"] == 80),
                        mw["dense"]["k7_err"]),
                    pick(k7, d=80, dtype="bf16", B=8, Sq=160))]
+    # the MoE fleets' instances, (64, 2) on serve-granite's path and
+    # (128, 4) on serve-phi's, bf16 pages
+    moe_rows = []
+    for (H, KV, d, _), fleet_res, mw in ((GRANITE, served_gr, granite_model),
+                                         (PHI, served_phi, phi_model)):
+        g, fl = H // KV, fleet_res["launches"]
+        tag = f"d {d}, G {g}, bf16"
+        moe_rows += [
+            d128_entry(f"paged_flash_decode ({tag})", "paged_decode.cu",
+                       "decode_attention.py:231", fl["paged_flash_decode"],
+                       max(d128_err(k2, g, k2_keys, d=d),
+                           mw["bf16"]["k2_out_err"]),
+                       pick(k2, d=d, H=H, pages="bf16", B=4, case=None)),
+            d128_entry(f"paged_flash_packed_chunk ({tag})", "paged_chunk.cu",
+                       "decode_attention.py:298",
+                       fl["paged_flash_packed_chunk"],
+                       d128_err([r for r in k3 if r["fn"] == "B4"], g,
+                                k3_keys, d=d),
+                       pick(k3, fn="B4", d=d, H=H, pages="bf16",
+                            case="served")),
+            d128_entry(f"flash_decode ({tag})", "flash_decode.cu",
+                       "decode_attention.py:78", fl["flash_decode"],
+                       max(d128_err(k6, g, k6_keys, d=d),
+                           mw["dense"]["k6_out_err"]),
+                       pick(k6, d=d, H=H, B=8, S=208, cache="bf16")),
+            d128_entry(f"flash_attention ({tag})", "flash_attention.cu",
+                       "flash_attention.py:64", fl["flash_attention"],
+                       max(max(r["max_abs_err"] for r in k7
+                               if r["d"] == d and g_of(r) == g),
+                           mw["dense"]["k7_err"]),
+                       pick(k7, d=d, H=H, dtype="bf16", B=8, Sq=160))]
+    # K1 and K5 at the MoE fleets' probe widths, each the top of its band:
+    # K1 every engine step, K5 in the calibration fit
+    for fw, fleet_res, k1_rows in (
+            (GRANITE_PROBE_F, served_gr, k1["granite_width"]),
+            (PHI_PROBE_F, served_phi, k1["phi_width"])):
+        row = pick(k1_rows, view="distinct")
+        k5_row = pick(k5["timed"], f=fw)
+        moe_rows += [
+            dict(name=f"serving_probe_step (f {fw})", route="cuda",
+                 source="src/repro_torch/csrc/probe_spec.cu",
+                 replaces="src/repro/kernels/ttt_probe.py:368",
+                 launches=fleet_res["launches"]["serving_probe_step"],
+                 max_abs_err=max(max(r["max_abs_err"].values())
+                                 for r in k1_rows),
+                 ms=row["ms"], plain_ms=row["plain_ms"],
+                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                 library_ms=None,
+                 served_ms=pick(k1_rows, view="same")["ms"]),
+            dict(name=f"ttt_probe_batched (f {fw})", route="cuda",
+                 source="src/repro_torch/csrc/ttt_scan.cu",
+                 replaces="src/repro/kernels/ttt_probe.py:80",
+                 launches=fleet_res["launches"]["ttt_probe_batched"],
+                 max_abs_err=max(c[6] for c in k5["per_case"] if c[0] == fw),
+                 ms=k5_row["ms"], plain_ms=k5_row["plain_ms"],
+                 bound_ms=k5_row["bound_ms"], bound_by=k5_row["bound_by"],
+                 library_ms=None)]
     llama_k1 = pick(k1["llama_width"], view="distinct")
     d128_rows.append(dict(
         name=f"serving_probe_step (f {LLAMA_PROBE_F})", route="cuda",
@@ -5527,7 +5978,7 @@ def main() -> int:
              ms=k8[0]["ms"], plain_ms=k8[0]["plain_ms"],
              bound_ms=k8[0]["bound_ms"], bound_by=k8[0]["bound_by"],
              library_ms=None),
-    ] + d128_rows + d80_rows})
+    ] + d128_rows + d80_rows + moe_rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()

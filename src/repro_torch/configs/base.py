@@ -202,11 +202,12 @@ ALIASES = {
 }
 
 
-# the configs the port carries; every other family raises.  A dense config
-# is ported only with its (d_head, n_heads // n_kv_heads) in the instance
-# sets of the attention kernels (tests/test_torch_d128.py holds this)
+# the configs the port carries; every other family raises.  A config with
+# attention (dense or MoE) is ported only with its (d_head, n_heads //
+# n_kv_heads) in the instance sets of the attention kernels
+# (tests/test_torch_d128.py holds this)
 PORTED = ("smollm_360m", "rwkv6_1b6", "llama32_3b", "qwen15_32b",
-          "stablelm_3b")
+          "stablelm_3b", "granite_moe_1b", "phi35_moe")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -214,8 +215,9 @@ def get_config(name: str) -> ModelConfig:
     if mod_name in ARCH_IDS and mod_name not in PORTED:
         raise NotImplementedError(
             f"{name!r} is not ported to repro_torch yet: the port carries "
-            "smollm-360m, rwkv6-1.6b, llama3.2-3b, qwen1.5-32b and "
-            "stablelm-3b; the others come with ROADMAP queue A7 (other "
-            "families)")
+            "smollm-360m, rwkv6-1.6b, llama3.2-3b, qwen1.5-32b, "
+            "stablelm-3b, granite-moe-1b-a400m and phi3.5-moe-42b-a6.6b; "
+            "llava-next-34b comes with ROADMAP A7.2b (the VLM adapter), "
+            "hymba-1.5b and whisper-tiny with A7.3")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG

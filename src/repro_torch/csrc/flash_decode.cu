@@ -134,6 +134,8 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   DECODE_INSTANCE(128, 3)
   DECODE_INSTANCE(128, 1)
   DECODE_INSTANCE(80, 1)
+  DECODE_INSTANCE(64, 2)
+  DECODE_INSTANCE(128, 4)
 #undef DECODE_INSTANCE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -61,7 +61,8 @@
 // f32 pages (the f32 check fleets only) keep the CUDA-core kernel below
 // (paged_chunk_f32_kernel), which walks the row in tiles of 16 positions
 // with the products in f32; attn_tile.cuh says why.
-// Instances: (d, G) = (64, 3), (128, 3), (128, 1) and (80, 1)
+// Instances: (d, G) = (64, 3), (128, 3), (128, 1), (80, 1), (64, 2) and
+// (128, 4)
 // (CHUNK_INSTANCE below), each for f32, bf16 and int8 pages.  Shared
 // memory of a bf16 block: two stages of K and V tiles (36,864 bytes at d
 // 64, 45,056 at d 80, 69,632 at d 128; int8 one bf16 stage plus two raw
@@ -480,8 +481,8 @@ cudaError_t launch_tc(const void* q, const void* seg, int seg_div,
 // ---------------------------------------------------------------------------
 // f32 pages: the CUDA-core kernel
 //   * one block of 256 threads per (tile of 16 query tokens, KV head,
-//     segment); the tile's G x 16 query rows sit in shared memory in f32,
-//     pre-scaled by 1/sqrt(d);
+//     segment); the tile's G x 16 query rows sit in dynamic shared memory
+//     in f32, pre-scaled by 1/sqrt(d);
 //   * the segment's virtual positions are walked in tiles of 16; a tile
 //     with no valid position is skipped; each position looks up its page
 //     and the 256 threads stage K and V of the 16 positions in shared
@@ -513,7 +514,11 @@ paged_chunk_f32_kernel(const float* __restrict__ q,
   constexpr int kWordsF = D / 4;           // float4 words of a K/V row
   constexpr int kQStride = D + 1;   // padded: the two half-warps of a warp
   constexpr int kKStride = D + 1;   // read other banks; lanes read K rows
-  __shared__ float sQ[kTokens * G * kQStride];
+  // the query rows in dynamic shared memory (f32_q_bytes<D, G>): at
+  // (128, 4) they and the K/V tiles pass the 48 KB a block's static
+  // shared memory may take
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  float* sQ = reinterpret_cast<float*>(smem_f32);
   __shared__ float sK[kKeysF32 * kKStride];
   __shared__ __align__(16) float sV[kKeysF32 * D];
   __shared__ bool s_act[kTokens];
@@ -662,14 +667,27 @@ paged_chunk_f32_kernel(const float* __restrict__ q,
   }
 }
 
+// bytes of the f32 kernel's query rows, G x 16 rows of D + 1 floats
+template <int D, int G>
+constexpr int f32_q_bytes() { return kTokens * G * (D + 1) * 4; }
+
 template <int D, int G>
 cudaError_t launch_f32(const void* q, const void* seg, int seg_div,
                        const void* k_pages, const void* v_pages,
                        const void* tables, const void* valid, void* o,
                        void* l, void* m, int n_tok, int n_seg, int n_kv,
                        int bs, int nb, float scale, cudaStream_t stream) {
+  constexpr int kBytes = f32_q_bytes<D, G>();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_chunk_f32_kernel<D, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
   const dim3 grid((n_tok + kTokens - 1) / kTokens, n_kv, n_seg);
-  paged_chunk_f32_kernel<D, G><<<grid, kThreadsF32, 0, stream>>>(
+  paged_chunk_f32_kernel<D, G><<<grid, kThreadsF32, kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const int*>(seg), seg_div,
       static_cast<const float*>(k_pages), static_cast<const float*>(v_pages),
       static_cast<const int*>(tables), static_cast<const bool*>(valid),
@@ -748,6 +766,8 @@ extern "C" int paged_chunk_launch(const void* q, const void* seg, int seg_div,
   CHUNK_INSTANCE(128, 3)
   CHUNK_INSTANCE(128, 1)
   CHUNK_INSTANCE(80, 1)
+  CHUNK_INSTANCE(64, 2)
+  CHUNK_INSTANCE(128, 4)
 #undef CHUNK_INSTANCE
   return static_cast<int>(cudaErrorInvalidValue);
 }

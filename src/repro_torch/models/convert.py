@@ -19,6 +19,13 @@ array.  Names and layouts map one to one:
     layers.mlp.w_down         (L, d_ff, d)
     lm_head                   (d, V_pad)    untied embeddings only
 
+MoE configs (``models/moe.py``) in place of the three mlp leaves; (f32)
+marks a leaf read through a float32 cast, as for RWKV6 below:
+
+    layers.mlp.router         (L, d, E)     (f32)
+    layers.mlp.w_gate / w_up  (L, E, d, d_ff)
+    layers.mlp.w_down         (L, E, d_ff, d)
+
 RWKV6 (``models/rwkv6.py``), the same way; (f32) marks the leaves the
 model reads through a float32 cast, which stay float32 when the rest is
 converted to bf16 (the model's ``decls`` declare them so):

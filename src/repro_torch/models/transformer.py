@@ -1,10 +1,13 @@
-"""Decoder-only transformer, dense family (PyTorch).
+"""Decoder-only transformer, dense and MoE families (PyTorch).
 
 Parameters are the JAX package's nested dict with its names and layouts:
 ``embed`` (V_pad, d), ``final_norm``, ``layers`` with every per-layer leaf
 stacked on a leading L axis (``layers.attn.wq`` is (L, d, H*dh)), and
 ``lm_head`` (d, V_pad) when embeddings are untied.  The layer loop is a
-Python loop indexing layer ``l`` of each stacked leaf.
+Python loop indexing layer ``l`` of each stacked leaf.  An MoE config
+(``cfg.moe``) takes ``moe.moe_decls`` for ``layers.mlp`` and routes every
+token of every pass (prefill, decode, the chunks and the verify passes)
+through ``moe.moe_dense``, JAX's one-device path.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models.common import (Param, apply_norm, apply_rope, cdtype,
                                        norm_decls, stack_decls, swiglu)
 
@@ -38,16 +42,18 @@ def _mlp_decls(cfg) -> Dict[str, Param]:
 
 
 def decls(cfg) -> Dict[str, Any]:
-    if cfg.moe is not None or cfg.mlp != "swiglu" or cfg.arch_type != "dense":
+    if cfg.mlp != "swiglu" or cfg.arch_type not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense swiglu family is ported; MoE/VLM "
-            "come with ROADMAP queue A (other families)")
+            f"{cfg.name}: only the dense and MoE swiglu families are "
+            "ported; the VLM comes with ROADMAP A7.2b, hymba and whisper "
+            "with A7.3")
+    mlp = moe.moe_decls(cfg) if cfg.moe is not None else _mlp_decls(cfg)
     tree: Dict[str, Any] = {
         "embed": Param((cfg.padded_vocab(), cfg.d_model), "embed"),
         "final_norm": norm_decls(cfg),
         "layers": stack_decls({"ln1": norm_decls(cfg), "ln2": norm_decls(cfg),
-                               "attn": _attn_decls(cfg),
-                               "mlp": _mlp_decls(cfg)}, cfg.n_layers),
+                               "attn": _attn_decls(cfg), "mlp": mlp},
+                              cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = Param((cfg.d_model, cfg.padded_vocab()))
@@ -67,6 +73,10 @@ def layer_params(params, l: int):
 # Blocks
 
 def mlp_apply(cfg, p, x):
+    """The MLP of a (B, S, d) block: the experts of an MoE config, else
+    the swiglu."""
+    if cfg.moe is not None:
+        return moe.moe_dense(p, x, cfg)
     dt = x.dtype
     h = swiglu(x @ p["w_gate"].to(dt), x @ p["w_up"].to(dt))
     return h @ p["w_down"].to(dt)

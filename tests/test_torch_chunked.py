@@ -1,7 +1,8 @@
 """The port's chunked and packed prefill on the reduced smollm-360m (2
 layers, f32) held to the JAX package on weights carried across:
 ``prefill_chunk`` and ``prefill_packed_chunk``, dense and paged (the JAX
-paged path run through its Pallas kernels in interpret mode), chunked
+paged path run through its Pallas kernels in interpret mode), the same
+two paged on the reduced MoE configs granite-moe-1b and phi3.5-moe, chunked
 against one-shot prefill, a packed two-request chunk against each
 request's solo prefill, ``packed_chunk_mask`` against its oracle, and the
 decode write mask."""
@@ -38,14 +39,24 @@ def _torch_threads():
     torch.set_num_threads(old)
 
 
-@pytest.fixture(scope="module")
-def pair():
-    jcfg = j_get_config("smollm-360m").reduced()
-    cfg = get_config("smollm-360m").reduced()
+def _pair(arch):
+    jcfg = j_get_config(arch).reduced()
+    cfg = get_config(arch).reduced()
     jparams = j_build(jcfg).init(jax.random.PRNGKey(0))
     params = from_jax_params(jax.tree.map(np.asarray, jparams), build(cfg),
                              device="cpu")
     return jcfg, jparams, cfg, params
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair("smollm-360m")
+
+
+@pytest.fixture(scope="module", params=["granite-moe-1b-a400m",
+                                        "phi3.5-moe-42b-a6.6b"])
+def moe_pair(request):
+    return _pair(request.param)
 
 
 def _close_kv(port, ref, msg):
@@ -121,6 +132,12 @@ def test_prefill_chunk_matches_jax(monkeypatch, pair, paged):
     _compare_states(st, jst)
 
 
+def test_moe_prefill_chunk_matches_jax(monkeypatch, moe_pair):
+    """The paged chunked prefill above on the reduced MoE configs, every
+    chunk token routed through the experts."""
+    test_prefill_chunk_matches_jax(monkeypatch, moe_pair, True)
+
+
 def _packed_args(paged):
     """Request A (slot 0) has 5 prompt positions written; the packed chunk
     carries A's next 4 tokens and B's (slot 1) first 3, then a zero-length
@@ -163,6 +180,12 @@ def test_prefill_packed_chunk_matches_jax(monkeypatch, pair, paged):
             torch.from_numpy(ln),
             block_rows=None if brows is None else torch.from_numpy(brows))
     _compare_states(st, jst)
+
+
+def test_moe_prefill_packed_chunk_matches_jax(monkeypatch, moe_pair):
+    """The paged packed chunk above (two requests' tokens, a zero-length
+    segment, padding) on the reduced MoE configs."""
+    test_prefill_packed_chunk_matches_jax(monkeypatch, moe_pair, True)
 
 
 def _virtual(state, paged, rows, slot, n):

@@ -1,7 +1,8 @@
 """The port's serving stack (``ContinuousServingEngine`` under
 ``OrcaScheduler``, dense and paged KV) held to the JAX package's on the
 reduced smollm-360m (and, where marked, the reduced llama3.2-3b,
-qwen1.5-32b and stablelm-3b, the last also at its served head dim of 80)
+qwen1.5-32b and stablelm-3b, the last also at its served head dim of 80,
+and the reduced MoE configs granite-moe-1b and phi3.5-moe)
 with weights and probe slow weights carried across:
 per-request stop steps, emitted tokens, admission and completion steps are
 exactly equal, and the page pool drains — with admission-time prefill and
@@ -51,8 +52,10 @@ LENS = (9, 13, 9, 6, 11)
 # per-request budgets: the short ones FINISH before the burn-in lets them
 # stop, the rest are STOPPED by the probe
 BUDGETS = (12, 3, 12, 12, 4)
-# the ported dense configs, each at .reduced()
-ARCHS = ("smollm-360m", "llama3.2-3b", "qwen1.5-32b", "stablelm-3b")
+# the ported dense configs, each at .reduced(), and the MoE ones
+DENSE_ARCHS = ("smollm-360m", "llama3.2-3b", "qwen1.5-32b", "stablelm-3b")
+MOE_ARCHS = ("granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b")
+ARCHS = DENSE_ARCHS + MOE_ARCHS
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -166,7 +169,7 @@ def test_chunked_fleet_under_a_tight_budget_matches_jax(models):
     assert fleet.peak_step_tokens <= 3
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 @pytest.mark.parametrize("chunk_tokens", [None, 4])
 def test_paged_int8_fleet_matches_jax(monkeypatch, chunk_tokens, arch):
     """int8 pages end to end, admission-time and chunked: prefill (or each
@@ -178,6 +181,17 @@ def test_paged_int8_fleet_matches_jax(monkeypatch, chunk_tokens, arch):
     fleet = _run_both(_models("int8", arch), paged=True,
                       chunk_tokens=chunk_tokens)
     assert (fleet.packed_chunks > 0) == bool(chunk_tokens)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_chunked_fleet_matches_jax(monkeypatch, arch):
+    """A reduced MoE fleet on paged f32 pages in packed chunks of 4
+    tokens against the JAX package's (its Pallas paged kernels in
+    interpret mode): stops, tokens and schedule equal, every chunk token
+    and decode step routed through the experts."""
+    monkeypatch.setenv("REPRO_PAGED_ATTN", "pallas")
+    fleet = _run_both(_models(None, arch), paged=True, chunk_tokens=4)
+    assert fleet.packed_chunks > 0
 
 
 @pytest.mark.parametrize("kv,chunk_tokens", [(None, None), ("int8", 4)])
