@@ -21,7 +21,8 @@ non-zero:
                names its instance (threads, features a thread, registers);
                chained and timed at serve-llama's width (f 3072), both
                views, and at serve-stablelm's (f 2560), serve-granite's
-               (f 1024) and serve-phi's (f 4096), each the top of a band
+               (f 1024), serve-phi's (f 4096) and serve-llava's (f 7168,
+               the widest band), each the top of a band
 3. k2       -- paged flash decode against its plain version, bf16, int8
                and f32 pages, the serving shape and nb in {8, 64, 256}
                (past 256 positions split over blocks and merged); timed
@@ -38,7 +39,8 @@ non-zero:
                positions split (the d-80 merge), holes, one split; then
                (64, 2) and (128, 4), serve-granite's and serve-phi's step
                in bf16, int8 and f32, 4,096 positions split, holes, one
-               split
+               split; then (128, 7), serve-llava's step (4 slots on 184
+               pages, split) in bf16 and f32, int8, holes, one split
 4. k3       -- paged chunk attention against its plain versions, B4
                (packed chunks: 1 to 4 segments, an empty cache, padding
                and zero-length segments, nb 256) and B3 (chunks of B
@@ -60,7 +62,9 @@ non-zero:
                empty, the tree verify shape; then (64, 2) and (128, 4):
                serve-granite's and serve-phi's chunk in bf16, int8 and
                f32, 4 segments, 4,000 positions split, B3 chunks, holes,
-               a last split empty
+               a last split empty; then (128, 7): serve-llava's text
+               chunk on its 184-page table in bf16 and f32, int8, 4,000
+               positions split, a B3 chunk, holes, a last split empty
 5. k4       -- the masked multi-token probe step against its plain version
                and against T masked K1 launches on copies of the same
                state, bit for bit in every case: B 1, 4, 8; T 1, 2, 4, 8;
@@ -72,14 +76,16 @@ non-zero:
                memory; the Timer's floor; timed at the served shape (4
                slots, k 4, f 960) and three wider ones, at the served
                shape with a window of 40, and over T 1, 2, 4, 8 at (4, T,
-               960) in both views with the slope per token; then K3 timed
-               at the verify shape (k3-verify: 4 segments of 4 tokens)
+               960) in both views with the slope per token; f 7168
+               (serve-llava's width) in both views at T 1, 4 and 8, and
+               timed at (4, 4, 7168); then K3 timed at the verify shape
+               (k3-verify: 4 segments of 4 tokens)
 6. k5       -- the offline TTT scan against its plain version and against
                its own L-step form (``ttt_probe_lookahead_plain`` at the
                kernel's L for the width): f 128, 960, 5120, 2048 (the
-               RWKV fleet's no-QK view), 3072 (the llama fleet's), 1024
-               and 4096 (the granite and phi fleets', each the top of a
-               band), N 1
+               RWKV fleet's no-QK view), 3072 (the llama fleet's), 1024,
+               4096 and 7168 (the granite, phi and llava fleets', each the
+               top of a band), N 1
                and 170, T 1, 37 and 120, c = 0 and c = labels, a
                per-trajectory and a shared init
                (120 cases on the synthetic corpus's step embeddings and
@@ -99,7 +105,9 @@ non-zero:
                positions split; then d 80 at G 1: serve-stablelm's
                harvest (8, 208), a dense step, f32, 4,096 positions split;
                then (64, 2) and (128, 4): serve-granite's and serve-phi's
-               harvests (8, 208), dense steps, f32, 4,096 positions split
+               harvests (8, 208), dense steps, f32, 4,096 positions split;
+               then (128, 7): serve-llava's harvest batch (4, 2,944), f32,
+               an admission-sized cache
 8. k7       -- flash prefill attention against its plain version: (B, S)
                (1, 16), (24, 16), (1, 160), (24, 160), (4, 2048); window
                64; Sq < Sk; a window past the keys; bf16 and f32; timed
@@ -111,7 +119,10 @@ non-zero:
                (1, 16), 2,048 tokens, f32, a window, Sq < Sk, a window
                past the keys (bf16 and f32); then at G 2 (d 64) and G 4
                (d 128): serve-granite's and serve-phi's harvest prefills
-               (8, 160), an admission, Sq < Sk, a window past the keys
+               (8, 160), an admission, Sq < Sk, a window past the keys;
+               then at G 7 (d 128): an image admission (1, 2,896), the
+               harvest's batch (4, 2,896), the admission in f32, Sq < Sk,
+               a window past the keys
 9. model    -- full-width smollm-360m (bf16, random weights from a seed,
                then the same weights in f32): prefill 16 tokens, 16
                teacher-forced paged decode steps through K2 (every call
@@ -144,8 +155,8 @@ non-zero:
                serve's and its bf16 tokens against serve's (not asserted);
                profiled windows through the kernels and through the plain
                versions
-16. serve-dense-f32 -- the serve fleet in f32 at 8 of its 32 layers
-               (``DENSE_F32_LAYERS``) through ``OrcaScheduler``, dense and
+16. serve-dense-f32 -- the serve fleet in f32 at 4 of its 32 layers
+               (``SPEC_F32_LAYERS``) through ``OrcaScheduler``, dense and
                paged, at a lambda* between its scores: stops and tokens
                equal
 17. serve-chunked -- the driver with ``--chunk-tokens 64`` on 160-token
@@ -156,22 +167,26 @@ non-zero:
 18. trace-chunked -- a 24-step window over the chunked fleet, launches and
                busy share split into steps with a chunk and without one
 19. serve-spec, trace-spec, serve-spec-chunked -- the fleets of 12 and 17
-               again with ``--spec-tokens 4``: K4 launches once per engine
+               again with ``--spec-tokens 4``, the model at 8 of its 32
+               layers (``CutDepth``): K4 launches once per engine
                step, its first 16 calls held against the plain version;
                requests compared with the one-token fleets (tokens and
                stops); an 8-step profiled window of the spec fleet
 20. serve-spec-f32 -- the serve fleet in f32 at 4 of its 32 layers
-               through ``OrcaScheduler`` at a lambda* between its scores: the spec fleet's stops
+               through ``OrcaScheduler`` at a lambda* between its scores:
+               the spec fleet's stops
                and tokens equal the one-token fleet's, with the default
                draft cache and with one primed by the one-token tokens
                (drafts accepted, several tokens per step, its first 16
                K4 calls held against the plain version)
 20b. serve-tree, trace-tree, tree-stops-f32 -- the serve fleet with
-               ``--spec-tree 3.3``: K4 once an engine step and K3 32 times
-               (once a layer), its first 16 K4 calls held against the
+               ``--spec-tree 3.3`` at 8 of its 32 layers: K4 once an
+               engine step and K3 8 times (once a layer), its first 16 K4
+               calls held against the
                plain version, node and path stats, draft-cache hits, its
                requests beside the one-token fleet's; an 8-step profiled
-               window; then in f32 at 8 of 32 layers (``TREE_F32_LAYERS``),
+               window; then the serve fleet in f32 at 8 of its 32 layers
+               (``TREE_F32_LAYERS``),
                paged and chunked (4 requests, 64-token chunks) at a
                lambda* between the free fleet's scores: the
                3.3 fleet with a primed draft cache stops and emits every
@@ -197,7 +212,7 @@ non-zero:
                batch request is mid-prefill; RUNNING and mid-prefill
                victims, restores equal to spills, the pool drained, K1,
                K2, K3 and K7 counted exactly.  preempt-stops-f32: the
-               serve-tree weights in f32 at 4 layers, the same traffic
+               serve weights in f32 at 4 layers, the same traffic
                abundant, preempted, and preempted under ``--spec-tree
                3.3`` with a primed draft cache: stops and tokens equal
 20d. serve-group, group-stops-f32 -- self-consistency groups and the
@@ -219,7 +234,8 @@ non-zero:
 20e. serve-fleet, fleet-stops-f32 -- the fleet (FleetRouter) of simulated
                hosts, each stepping in its own thread on its own CUDA
                stream.  serve-fleet: the driver with ``--hosts 2
-               --placement pressure`` (serve's traffic, 4 slots a host):
+               --placement pressure`` (serve's traffic, 4 slots a host,
+               the model at 8 of its 32 layers through ``CutDepth``):
                every request ends, both hosts serve, each host's pool
                checks and drains, the ``[serve] fleet:`` and ``[serve]
                routing:`` lines printed, K1 once a host step and K2 once a
@@ -229,7 +245,7 @@ non-zero:
                fleet step wall p50/p99, the serial run's peak memory above
                its start (``tools/fleet_overlap.py`` measures one host,
                the busy share and the other peaks).
-               fleet-stops-f32: its weights in f32 at 4 of 32 layers on
+               fleet-stops-f32: its weights in f32 at 4 layers on
                f32 pages, 8 distinct prompts at a lambda* between their
                scores through one scheduler and fleets of 2 (pressure,
                parallel), 2 (roundrobin, serial) and 3 (pressure,
@@ -336,10 +352,34 @@ non-zero:
                gone) as serve-granite-f32; model-phi's f32 evaluation
                keeps a copy of the first 4 bf16 layers and frees the rest
                first, so that their f32 copy fits
+30e. model-llava, serve-llava, trace-llava, serve-llava-f32 -- the VLM,
+               llava-next-34b (60 layers, d_model 7168, 56 heads of 128 on
+               8 KV heads: G 7, d_ff 20480, a two-layer gelu projector
+               over 2,880 patch embeddings of width 1024; 34.39 B
+               parameters, 64.05 GiB in bf16) at full width and depth,
+               patches drawn N(0, 1) from the seed (the driver's zero
+               patches project to exact zeros).  model-llava: one image
+               request (2,880 patches and 16 tokens) prefilled through K7
+               and 8 teacher-forced paged decode steps through K2 as
+               model-llama, every K7 call of the dense path held to
+               float64; then its first 4 layers in f32 (``f32_evaluation``).
+               serve-llava: a harvest of 8 image trajectories in batches
+               of 4 (K7 over 2,896 rows, K6 at (128, 7)), ``orca.fit``
+               (K5 at f 7168), then through ``api.engine`` 2 image
+               requests admitted in one shot beside 2 text requests of
+               160 tokens in 64-token chunks (K3-B4 at (128, 7)), 48 new
+               tokens each, K2 at (128, 7) and K1 at f 7168; every K1, K2,
+               K3, K6 and K7 launch counted exactly, each request's stop
+               and tokens, TTFT by class, peak memory.  trace-llava: an
+               8-step profiled window of 2 image and 2 text requests.
+               serve-llava-f32: serve-llava's traffic in f32 at 4 of 60
+               layers on f32 pages with its probe, through K2, K3 and K7
+               and through the plain attention: stops and tokens equal
 31. serve-qwen, trace-qwen -- ``launch.serve --arch qwen1.5-32b --paged
-               --chunk-tokens 64 --prompt-len 160``: int8 pages through K2
-               and K3 (G 1), the harvest through K7 and K6 (G 1), K1 and
-               K5 at f 5120; a 16-step profiled window; peak memory
+               --chunk-tokens 64 --prompt-len 160`` at 16 of its 64 layers
+               (``QWEN_LAYERS``): int8 pages through K2 and K3 (G 1), the
+               harvest through K7 and K6 (G 1), K1 and K5 at f 5120; a
+               16-step profiled window; peak memory
 32. serve-qwen-f32 -- qwen1.5-32b in f32 at 4 of its 64 layers (full
                width, weights drawn on the card), int8 KV pages, 160-token
                prompts in 64-token chunks, served with serve-qwen's probe
@@ -355,8 +395,11 @@ non-zero:
                instance on serve-stablelm's (K2, K3-B4, K6, K7), and one
                per (64, 2) and (128, 4) instance on serve-granite's and
                serve-phi's (K2, K3-B4, K6, K7) and K1 and K5 at f 1024 and
-               4096 (launches from serve-granite and serve-phi); the tree
-               path's
+               4096 (launches from serve-granite and serve-phi), and one
+               per (128, 7) instance on serve-llava's (K2, K3-B4, K6, K7
+               timed at an image admission's 2,896 rows) and K1 and K5 at
+               f 7168 (launches from serve-llava's harvest, fit and
+               fleet); the tree path's
                K3 (d 64 from serve-tree, d 128 G 3 from serve-llama-tree,
                timed at phase k3's tree cases) and K4 (serve-tree); K3's
                and K7's bound_ms is their rows' bound_tc_ms, the products
@@ -670,9 +713,11 @@ def phase_k1(torch, timer):
     stablelm = served_width(STABLELM_PROBE_F)
     granite = served_width(GRANITE_PROBE_F)
     phi = served_width(PHI_PROBE_F)
+    # serve-llava's, d_model 7168: the top of the widest band
+    llava = served_width(LLAVA_PROBE_F)
     err = {k: max([c["max_abs_err"][k] for c in chains.values()]
                   + [v["max_abs_err"][k] for v in views + wide + llama
-                     + stablelm + granite + phi]
+                     + stablelm + granite + phi + llava]
                   + [err_r[k]])
            for k in chains[8]["max_abs_err"]}
     # the kernels line's K1 time: two rows (zk another tensor) at 4 slots,
@@ -687,7 +732,7 @@ def phase_k1(torch, timer):
                served_bound_ms=served["bound_ms"], served=served,
                distinct=timed, rwkv_width=rwkv, rwkv_served=rwkv_served,
                llama_width=llama, stablelm_width=stablelm,
-               granite_width=granite, phi_width=phi)
+               granite_width=granite, phi_width=phi, llava_width=llava)
     emit(res)
     return res
 
@@ -808,6 +853,12 @@ STABLELM = (32, 32, 80, 32)
 # 32 layers served
 GRANITE = (16, 8, 64, 24)
 PHI = (32, 8, 128, 24)
+# the VLM's: llava-next-34b's d 128 on 56 heads over 8 (G 7, the first odd
+# group above 3) at its 60 layers.  An image request's cache holds the
+# 2,880 patch positions, 16 of text and 48 decoded: 2,944 positions, 184
+# pages of 16, the table width of serve-llava's pool
+LLAVA = (56, 8, 128, 60)
+LLAVA_PAGES = 184
 # K2 at d 128: (B, nb, pages, timed, case, shape).  First the served
 # decode steps of serve-llama (4 slots, 16 + 48 positions: 4 pages) and
 # serve-qwen (160 + 48: 13 pages, int8), then the other page dtypes at
@@ -844,6 +895,15 @@ K2_MOE_CASES = [(4, 13, dtype, True, None, shape)
     (8, 256, "bf16", True, None, PHI),
     (8, 256, "int8", False, "holes", GRANITE),
     (8, 256, "f32", False, "one split", PHI)]
+# K2 at (128, 7): serve-llava's decode step (4 slots on 184 pages: rows
+# from a text request's 160 + 48 positions to an image request's 2,944,
+# split over blocks), its f32 pages (serve-llava-f32), int8 pages (the
+# instance's third page dtype, not served), and the untimed split cases
+K2_LLAVA_CASES = [(4, LLAVA_PAGES, "bf16", True, None, LLAVA),
+                  (4, LLAVA_PAGES, "f32", True, None, LLAVA),
+                  (4, 13, "int8", False, None, LLAVA),
+                  (8, 256, "bf16", False, "holes", LLAVA),
+                  (8, 256, "f32", False, "one split", LLAVA)]
 
 
 def phase_k2(torch, timer):
@@ -862,7 +922,7 @@ def phase_k2(torch, timer):
              (8, 256, "int8", False, "holes"),
              (8, 256, "bf16", False, "one split")]
     cases = ([c + (SMOLLM,) for c in cases] + K2_D128_CASES + K2_D80_CASES
-             + K2_MOE_CASES)
+             + K2_MOE_CASES + K2_LLAVA_CASES)
     rows = []
     for B, nb, dtype, timed, case, shape in cases:
         H, KV, d, layers = shape
@@ -1116,6 +1176,23 @@ K3_MOE_UNTIMED = [
     ("holes, split", 256, "int8", [(40, 4000), (24, 1500)], True, PHI),
     ("split, last split empty", 64, "bf16", [(64, 130)], False, GRANITE),
 ]
+# K3 at (128, 7), serve-llava's: a text request's 160-token prompt in its
+# third chunk packed with the next one's head, on the pool's 184-page
+# table (2,944 virtual positions: split over blocks in bf16), in bf16 and
+# f32 (serve-llava-f32) pages, int8 pages (not served), 4,000 cached
+# positions, a B3 chunk (the instance's other entry, not served), the
+# untimed holed and split rows
+K3_LLAVA_B4_CASES = [
+    ("served", LLAVA_PAGES, "bf16", [(32, 128), (32, 0)], LLAVA),
+    ("served", LLAVA_PAGES, "f32", [(32, 128), (32, 0)], LLAVA),
+    ("served", 16, "int8", [(32, 128), (32, 0)], LLAVA),
+    ("nb 256", 256, "bf16", [(64, 4000)], LLAVA)]
+K3_LLAVA_B3_CASES = [(1, 64, 16, "bf16", [128], LLAVA)]
+K3_LLAVA_UNTIMED = [
+    ("holes", LLAVA_PAGES, "bf16", [(32, 2900), (32, 100)], True, LLAVA),
+    ("holes, split", 256, "int8", [(40, 4000), (24, 1500)], True, LLAVA),
+    ("split, last split empty", 64, "f32", [(64, 130)], False, LLAVA),
+]
 # bf16 / int8 inputs upcast exactly; f32 sums in another order than the
 # plain one-shot softmax: K2's tolerances
 K3_M_TOL, K3_OUT_TOL = 1e-4, 2e-3
@@ -1270,7 +1347,7 @@ def k3_b3_case(torch, timer, gen, B, Cb, nb, dtype, cached, shape=None):
 def phase_k3(torch, timer):
     """smollm-360m's cases first (their draws as in every earlier run),
     then the d-128 ones and the tree verify cases, then d 80's, then the
-    MoE fleets' (64, 2) and (128, 4)."""
+    MoE fleets' (64, 2) and (128, 4), then the VLM's (128, 7)."""
     gen = torch.Generator().manual_seed(SEED + 3)
     rows = []
     for b4, b3, untimed, tree in (
@@ -1279,7 +1356,8 @@ def phase_k3(torch, timer):
              K3_TREE_CASES),
             (K3_D80_B4_CASES, K3_D80_B3_CASES, K3_D80_UNTIMED,
              K3_D80_TREE_CASES),
-            (K3_MOE_B4_CASES, K3_MOE_B3_CASES, K3_MOE_UNTIMED, [])):
+            (K3_MOE_B4_CASES, K3_MOE_B3_CASES, K3_MOE_UNTIMED, []),
+            (K3_LLAVA_B4_CASES, K3_LLAVA_B3_CASES, K3_LLAVA_UNTIMED, [])):
         for name, nb, dtype, segs, *shape in b4:
             rows.append(k3_b4_case(torch, timer, gen, name, nb, dtype, segs,
                                    shape=shape[0] if shape else None))
@@ -1496,6 +1574,15 @@ def phase_k4(torch, timer):
             for mode in ("T", "mixed"):
                 rows.append(k4_case(torch, K1, K4, gen, 4, T, 960, mode,
                                     warm=True, win=win, same=same))
+    # serve-llava's probe width, 7168 (K4 is not on its path: its kernel
+    # is K1's, which runs there at T 1), both views, from its own generator
+    gen_llava = torch.Generator().manual_seed(SEED + 71)
+    for same in (True, False):
+        for T in (1, 4, 8):
+            for mode in ("T", "mixed"):
+                rows.append(k4_case(torch, K1, K4, gen_llava, 4, T,
+                                    LLAVA_PROBE_F, mode, warm=True,
+                                    same=same))
     if not any(r["mid_chain_stop"] for r in rows):
         raise AssertionError("K4: no case stopped mid-chain")
     if min(r["lambda_margin"] for r in rows) < 1e-3:
@@ -1524,6 +1611,8 @@ def phase_k4(torch, timer):
                                  same=same) for T in K4_SLOPE_T]
     # the served shape with its window in shared memory
     wide_timed = k4_timed(torch, timer, K1, K4, gen, 4, 4, 960, win=40)
+    llava_timed = k4_timed(torch, timer, K1, K4, gen_llava, 4, 4,
+                           LLAVA_PROBE_F)
     # the kernels line's K4 time: two rows (zk another tensor) at the
     # served shape, as every slice has reported it; the served view (zk is
     # zq) beside it
@@ -1537,6 +1626,7 @@ def phase_k4(torch, timer):
                mid_chain_stops=sum(r["mid_chain_stop"] for r in rows),
                lambda_margin=min(r["lambda_margin"] for r in rows),
                floor_ms=floor, timed=timed, wide_window_timed=wide_timed,
+               llava_timed=llava_timed,
                slope_rows=slopes,
                slope_ms_per_token={v: slope(r) for v, r in slopes.items()},
                ms=main["ms"], plain_ms=main["plain_ms"],
@@ -1572,6 +1662,9 @@ STABLELM_PROBE_F = 2560
 # and serve-granite's and serve-phi's (granite-moe-1b's and phi3.5-moe's
 # d_model), each the top of a band of K1's and K5's instances
 GRANITE_PROBE_F, PHI_PROBE_F = 1024, 4096
+# and serve-llava's, llava-next-34b's d_model: the widest band's top,
+# MAX_F
+LLAVA_PROBE_F = 7168
 K5_TOL = 1e-5
 
 
@@ -1601,9 +1694,10 @@ def k5_cases(torch, test):
     mode); W0 per trajectory (``ttt_probe_batched``) or shared
     (``ttt_probe_scan``); and 1024 and 4096 (the no-QK views at
     granite-moe-1b's and phi3.5-moe's d_model: N(0, 1) features, one
-    tensor), the top of the bands 960 and 3072 run in.  The seven widths
-    run five of the kernel's instances, those of every width a phase of
-    this script fits at."""
+    tensor), the top of the bands 960 and 3072 run in, and 7168
+    (llava-next-34b's, alike), the top of the widest band.  The eight
+    widths run six of the kernel's instances, those of every width a
+    phase of this script fits at."""
     from repro_torch.core.labels import supervised_labels
     gen = torch.Generator().manual_seed(SEED + 5)
     phis = torch.as_tensor(test.phis).to(DEV)
@@ -1628,7 +1722,8 @@ def k5_cases(torch, test):
              RWKV_PROBE_F: (z_up, z_up),
              LLAMA_PROBE_F: (z_llama, z_llama)}
     # serve-granite's and serve-phi's views, each from its own generator
-    for fw, seed in ((GRANITE_PROBE_F, SEED + 54), (PHI_PROBE_F, SEED + 55)):
+    for fw, seed in ((GRANITE_PROBE_F, SEED + 54), (PHI_PROBE_F, SEED + 55),
+                     (LLAVA_PROBE_F, SEED + 56)):
         z = torch.randn(len(test), phis.shape[1], fw,
                         generator=torch.Generator().manual_seed(seed)).to(DEV)
         feats[fw] = (z, z)
@@ -1815,6 +1910,12 @@ K6_MOE_CASES = [(8, 208, "bf16", True, GRANITE), (8, 208, "bf16", True, PHI),
                 (1, 16, "bf16", False, GRANITE),
                 (8, 4096, "bf16", True, GRANITE),
                 (4, 4096, "bf16", True, PHI)]
+# K6 at (128, 7): serve-llava's harvest (a batch of 4 image trajectories,
+# 2,880 + 16 + 48 positions, split over blocks), f32, an admission-sized
+# cache
+K6_LLAVA_CASES = [(4, 2944, "bf16", True, LLAVA),
+                  (4, 2944, "f32", False, LLAVA),
+                  (1, 16, "bf16", False, LLAVA)]
 
 
 def dense_case(torch, gen, B, S, dtype, H=15, KV=5, d=64):
@@ -1842,7 +1943,8 @@ def phase_k6(torch, timer):
     gen = torch.Generator().manual_seed(SEED + 6)
     rows = []
     for B, S, dtype, timed, *shape in (K6_CASES + K6_D128_CASES
-                                       + K6_D80_CASES + K6_MOE_CASES):
+                                       + K6_D80_CASES + K6_MOE_CASES
+                                       + K6_LLAVA_CASES):
         H, KV, d, layers = shape[0] if shape else SMOLLM
         q, k, v, valid = dense_case(torch, gen, B, S, dtype, H, KV, d)
         o, l, m = K6.flash_decode(q, k, v, valid, return_partials=True)
@@ -1973,6 +2075,15 @@ K7_MOE_CASES = [(8, 160, 160, None, "bf16", True, GRANITE),
                 (1, 16, 16, None, "bf16", False, PHI),
                 (4, 64, 160, None, "bf16", False, GRANITE),
                 (1, 48, 16, 8, "f32", False, PHI)]
+# K7 at llava-next-34b's G 7: an image request's admission prefill (the
+# 2,880 patches and 16 tokens, 56 heads), the harvest's batch of 4 such,
+# the same admission in f32 (serve-llava-f32), Sq < Sk, a window past the
+# keys
+K7_LLAVA_CASES = [(1, 2896, 2896, None, "bf16", True, LLAVA),
+                  (4, 2896, 2896, None, "bf16", True, LLAVA),
+                  (1, 2896, 2896, None, "f32", True, LLAVA),
+                  (4, 64, 160, None, "bf16", False, LLAVA),
+                  (1, 48, 16, 8, "f32", False, LLAVA)]
 
 
 def visible_pairs(sq, sk, window):
@@ -2003,7 +2114,8 @@ def phase_k7(torch, timer):
     rows = []
     for B, sq, sk, window, dtype, timed, *shape in (K7_CASES + K7_D128_CASES
                                                     + K7_D80_CASES
-                                                    + K7_MOE_CASES):
+                                                    + K7_MOE_CASES
+                                                    + K7_LLAVA_CASES):
         H, KV, d, _ = shape[0] if shape else SMOLLM
         dt = torch.bfloat16 if dtype == "bf16" else torch.float32
         q = torch.randn(B, sq, H, d, generator=gen).to(dt).to(DEV)
@@ -2121,20 +2233,29 @@ class CheckedK2:
         return got
 
 
+def prefix_of(cfg, extra) -> int:
+    """Positions a prefill puts in front of the prompt: a VLM's patches
+    when ``extra`` carries them."""
+    return (cfg.frontend.n_tokens if extra and "patch_embeds" in extra
+            else 0)
+
+
 def teacher_forced(torch, model, params, prompt, feed, impls, bs=16,
-                   route=None):
+                   route=None, extra=None):
     """Prefill, copy the prompt K/V into one page pool per paged attention
     implementation, then decode the same fed tokens through each (the
     model's ``paged_flash_decode`` swapped for it).  ``impls`` holds
     (paged decode, prefill attention) pairs; a prefill attention of None
     is the served one (K7 on the card), any other is swapped in for the
     prefill of its pool.  ``route`` (a ``ForcedRouting``) is told which
-    pair and pass each model call belongs to.  Returns the max |logit -
-    logit of impls[0]| per step for each other pair, and the largest
-    |logit|."""
+    pair and pass each model call belongs to.  ``extra``: the prefill's
+    other inputs (a VLM's ``patch_embeds``), whose prefix the decode
+    resumes after.  Returns the max |logit - logit of impls[0]| per step
+    for each other pair, and the largest |logit|."""
     from repro_torch.models import attention as A
     cfg = model.cfg
-    B, S = prompt.shape
+    B = prompt.shape[0]
+    S = prompt.shape[1] + prefix_of(cfg, extra)
     steps = feed.shape[0]
     nb = -(-(S + steps) // bs)
     served_prefill = A.flash_attention
@@ -2146,7 +2267,8 @@ def teacher_forced(torch, model, params, prompt, feed, impls, bs=16,
                     route.select(i, "prefill")
                 A.flash_attention = pre_impl or served_prefill
                 prefilled[pre_impl], _, _ = model.prefill(
-                    cfg, params, {"tokens": prompt}, nb * bs)
+                    cfg, params, {"tokens": prompt, **(extra or {})},
+                    nb * bs)
     finally:
         A.flash_attention = served_prefill
     table = (1 + torch.arange(B * nb)).reshape(B, nb).to(torch.int32).to(DEV)
@@ -2210,12 +2332,13 @@ class CheckedK6:
 
 
 def prefill_exact(q, k, v, causal=True, window=None):
-    """The plain version's formula (``attn_prefill_einsum``) in float64."""
+    """The plain version's formula (``attn_prefill_einsum``) in float64,
+    one KV head at a time (llava-next-34b's admission of 2,896 rows would
+    take 3.8 GB of float64 scores a tensor at once)."""
     import torch
     b, sq, h, d = q.shape
     n_kv = k.shape[2]
     qg = q.double().reshape(b, sq, n_kv, h // n_kv, d)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.double()) / d ** 0.5
     qpos = torch.arange(sq, device=q.device)
     kpos = torch.arange(k.shape[1], device=q.device)
     mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
@@ -2223,9 +2346,13 @@ def prefill_exact(q, k, v, causal=True, window=None):
         mask &= kpos[None, :] <= qpos[:, None]
     if window is not None:
         mask &= kpos[None, :] > qpos[:, None] - window
-    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
-    return torch.einsum("bkgqs,bskd->bqkgd", p, v.double()).reshape(
-        b, sq, h, d)
+    out = torch.empty_like(qg)
+    for j in range(n_kv):
+        s = torch.einsum("bqgd,bsd->bgqs", qg[:, :, j],
+                         k[:, :, j].double()) / d ** 0.5
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        out[:, :, j] = torch.einsum("bgqs,bsd->bqgd", p, v[:, :, j].double())
+    return out.reshape(b, sq, h, d)
 
 
 class CheckedK7:
@@ -2265,15 +2392,16 @@ class CheckedK7:
 
 
 def dense_teacher_forced(torch, model, params, prompt, feed, impls,
-                         route=None):
+                         route=None, extra=None):
     """Prefill the prompt into a dense cache and decode the same fed
     tokens, once per (decode, prefill) attention pair in ``impls`` (the
     model's ``flash_decode`` and ``flash_attention`` swapped for it);
-    ``route`` as in ``teacher_forced``.  Returns each pair's logits per
-    step."""
+    ``route`` and ``extra`` as in ``teacher_forced``.  Returns each pair's
+    logits per step."""
     from repro_torch.models import attention as A
     cfg = model.cfg
-    B, S = prompt.shape
+    B = prompt.shape[0]
+    S = prompt.shape[1] + prefix_of(cfg, extra)
     served = A.flash_decode, A.flash_attention
     runs = []
     try:
@@ -2281,7 +2409,8 @@ def dense_teacher_forced(torch, model, params, prompt, feed, impls,
             A.flash_decode, A.flash_attention = dec, pre
             if route is not None:
                 route.select(i, "prefill")
-            cache, _, _ = model.prefill(cfg, params, {"tokens": prompt},
+            cache, _, _ = model.prefill(cfg, params,
+                                        {"tokens": prompt, **(extra or {})},
                                         S + feed.shape[0])
             logits = []
             for t in range(feed.shape[0]):
@@ -2301,20 +2430,21 @@ def dense_teacher_forced(torch, model, params, prompt, feed, impls,
 
 
 def dense_path(torch, model, params, prompt, feed, exact_argmax,
-               keep=None, route=None, k7_exact=False):
+               keep=None, route=None, k7_exact=False, extra=None):
     """The dense path of one model: K7's prefill and K6's decode steps,
     every call checked, against the plain versions.  With
     ``exact_argmax`` (f32) every step's argmax must equal the plain
     path's and the logits sit within 2^-10 of the largest.  ``keep``, a
-    list, receives the plain path's logits of every step; ``route`` as in
-    ``teacher_forced``; ``k7_exact``: K7 held to float64 (``CheckedK7``)."""
+    list, receives the plain path's logits of every step; ``route`` and
+    ``extra`` as in ``teacher_forced``; ``k7_exact``: K7 held to float64
+    (``CheckedK7``)."""
     from repro_torch.kernels import flash_attention as K7
     from repro_torch.kernels import flash_decode as K6
     k6, k7 = CheckedK6(K6), CheckedK7(K7, exact=k7_exact)
     kern, plain = dense_teacher_forced(
         torch, model, params, prompt, feed,
         [(k6, k7), (K6.flash_decode_plain, K7.attn_prefill_einsum)],
-        route=route)
+        route=route, extra=extra)
     if keep is not None:
         keep.extend(plain)
     diffs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
@@ -2339,13 +2469,14 @@ def dense_path(torch, model, params, prompt, feed, exact_argmax,
     return res
 
 
-def paged_within_floor(torch, model, params, prompt, feed):
+def paged_within_floor(torch, model, params, prompt, feed, extra=None):
     """The bf16 paged decode of phase model: the prompt prefilled and the
     fed tokens decoded through K2 (every call held against the plain
     version's formula in float64 on its own inputs, ``CheckedK2``) and
     through the plain paged
     attention, the logits of K2 held to a floor measured in the same run
-    (below).  Returns the record of it."""
+    (below); ``extra`` as in ``teacher_forced``.  Returns the record of
+    it."""
     from repro_torch.kernels import flash_attention as K7
     from repro_torch.kernels import paged_decode as K2
     plain = K2.paged_decode_plain
@@ -2353,7 +2484,7 @@ def paged_within_floor(torch, model, params, prompt, feed):
     (k2, rev, pre_spread), scale = teacher_forced(
         torch, model, params, prompt, feed,
         [(plain, None), (checked, None), (_positions_reversed(K2), None),
-         (plain, K7.attn_prefill_einsum)])
+         (plain, K7.attn_prefill_einsum)], extra=extra)
     # bf16 logits: K2, the position-reversed plain version and the prompt
     # prefilled through the einsum in place of K7 all compute the same
     # functions with their f32 sums in another order.  The bf16 cast of
@@ -2915,7 +3046,7 @@ def profiled_events(prof):
 
 
 def phase_trace(torch, sched, steps: int = TRACE_STEPS,
-                prompt_len: int = 16, phase: str = "trace"):
+                prompt_len: int = 16, phase: str = "trace", requests=None):
     """A profiler window over ``steps`` engine steps of the served fleet,
     refilled with fresh requests of ``prompt_len`` tokens (``steps`` + 8
     new tokens each: the warm steps and the window at one token a step,
@@ -2923,16 +3054,22 @@ def phase_trace(torch, sched, steps: int = TRACE_STEPS,
     share of the window's wall time and the kernels that take it, and the
     device kernels and busy share per step, split into steps that ran a
     prefill chunk and steps that did not.  A device kernel belongs to the
-    step whose host span it starts in (every step ends in a sync)."""
+    step whose host span it starts in (every step ends in a sync).
+    ``requests``, a function of the new-token budget, makes the fleet's
+    requests in place of the random prompts (serve-llava's image
+    requests)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.serving import make_request
-    gen = torch.Generator().manual_seed(SEED + 2)
-    vocab = sched.model.cfg.vocab_size
-    prompts = torch.randint(0, vocab, (sched.n_slots, prompt_len),
-                            generator=gen, dtype=torch.int32)
-    sched.submit([make_request(t.numpy(), max_new_tokens=steps + 8)
-                  for t in prompts])
+    if requests is not None:
+        sched.submit(requests(steps + 8))
+    else:
+        gen = torch.Generator().manual_seed(SEED + 2)
+        vocab = sched.model.cfg.vocab_size
+        prompts = torch.randint(0, vocab, (sched.n_slots, prompt_len),
+                                generator=gen, dtype=torch.int32)
+        sched.submit([make_request(t.numpy(), max_new_tokens=steps + 8)
+                      for t in prompts])
     eng = sched.engine
     had_chunk = []
     served_step = eng.step
@@ -3166,8 +3303,9 @@ def choose_lambda(scores, burn_in):
     return best[1], best[2]
 
 
-# serve-spec-f32's depth, 4 of smollm-360m's 32 layers, and
-# serve-dense-f32's, 8 (full width), cut to keep the script within its time
+# serve-spec-f32's and serve-dense-f32's depth, 4 of smollm-360m's 32
+# layers, and group-stops-f32's, 8 (full width), cut to keep the script
+# within its time
 SPEC_F32_LAYERS = 4
 DENSE_F32_LAYERS = 8
 
@@ -3312,8 +3450,9 @@ TREE_F32_LAYERS = 8
 
 def phase_tree_stops(torch, sched, requests: int = 4, prompt_len: int = 16):
     """``phase_spec_stops`` for tree speculative decode, in float32 on the
-    serve-tree fleet's weights cut to ``TREE_F32_LAYERS`` layers and its
-    calibrated probe, paged and chunked
+    serve fleet's weights (those the serve-tree fleet draws at full depth)
+    cut to ``TREE_F32_LAYERS`` layers and its calibrated probe, paged and
+    chunked
     (64-token chunks): a free one-token fleet with nothing stopping, then
     lambda* between its scores.  At lambda*, with a draft cache primed by
     the free fleet's tokens (so drafts are accepted): the 3.3 fleet's
@@ -3791,7 +3930,7 @@ def phase_serve_preempt(torch, out, requests: int = 8):
 
 
 def phase_preempt_stops(torch, sched, requests: int = 8):
-    """The serve-tree fleet's weights in float32 at ``F32_LAYERS`` layers
+    """The serve fleet's weights in float32 at ``F32_LAYERS`` layers
     (full width) on f32 pages, 160-token prompts in 64-token chunks, with
     its harvested probe at a lambda* between the free fleet's scores
     (``choose_lambda``: decisive, no score near it).  The same requests
@@ -4001,14 +4140,14 @@ def phase_serve_dense(torch, paged, paged_out, requests: int = 8):
 
 
 def phase_dense_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
-    """The serve fleet in float32, cut to its first ``DENSE_F32_LAYERS``
+    """The serve fleet in float32, cut to its first ``SPEC_F32_LAYERS``
     layers (full width), through ``OrcaScheduler``, dense and paged, at a
     lambda* between its scores (phase serve-spec-f32's machinery): the
     dense fleet (K6 and K7) stops every request where the paged fleet (K2
     and K7) does, with the same tokens."""
     from repro_torch.launch import serve
     from repro_torch.serving import OrcaScheduler, ServeConfig, make_request
-    model32, params32 = f32_cut(sched, DENSE_F32_LAYERS,
+    model32, params32 = f32_cut(sched, SPEC_F32_LAYERS,
                                 kv_cache_dtype="float32")
     batch = serve.model_inputs(model32.cfg,
                                torch.Generator().manual_seed(SEED + 1),
@@ -4322,9 +4461,10 @@ def percentiles(ms):
 
 def phase_serve_fleet(torch):
     """The driver with ``--hosts 2 --placement pressure``: serve's traffic
-    (smollm-360m, bf16, full width and depth, paged, 8 requests, 4 slots a
-    host, 96 new tokens) through a FleetRouter whose two hosts step in
-    parallel, each on its own CUDA stream.  Every request ends, both hosts
+    (smollm-360m, bf16, full width, paged, 8 requests, 4 slots a host, 96
+    new tokens; ``main`` runs it at 8 of its 32 layers) through a
+    FleetRouter whose two hosts step in parallel, each on its own CUDA
+    stream.  Every request ends, both hosts
     serve, each host's pool checks and drains, the driver prints its
     ``[serve] fleet:`` and ``[serve] routing:`` lines, and the launches
     are exact: K1 once a host step, K2 once a layer a host step, K6 once a
@@ -4432,7 +4572,7 @@ def phase_serve_fleet(torch):
 
 def phase_fleet_stops(torch, sched, requests: int = FLEET_REQUESTS,
                       prompt_len: int = 16):
-    """serve-fleet's weights in f32 at ``F32_LAYERS`` of 32 layers (full
+    """serve-fleet's weights in f32, its first ``F32_LAYERS`` layers (full
     width) on f32 pages, with its probe: 8 distinct prompts at a lambda*
     between the free fleet's scores, served by one 4-slot OrcaScheduler,
     by 2 hosts (pressure, parallel), 2 hosts (roundrobin, serial) and 3
@@ -5133,6 +5273,14 @@ WIDE_REQUESTS, WIDE_NEW, WIDE_HARVEST = 4, 48, 8
 QWEN_PROMPT = 160
 # serve-llama-f32's depth: the float32 check fleets' stops, kept short
 F32_LAYERS = 4
+# serve-qwen's depth (and trace-qwen's, on its fleet): 16 of its 64
+# layers, cut to pay for the llava phases' seconds (llava-next-34b is the
+# 30B-class dense model served at full depth on one card now).
+# model-qwen keeps all 64: drawn at 16 (the fan-in rule reads the stacked
+# layer axis, so fewer layers draw larger weights) K2's outputs in the
+# model came 2.05e-3 from float64, past its absolute 2e-3, as
+# phi3.5-moe's did at 8
+QWEN_LAYERS = 16
 
 
 def free_card(torch) -> None:
@@ -5149,7 +5297,7 @@ def peak_gib(torch) -> float:
 
 
 def f32_evaluation(torch, model, params, prompt, feed,
-                   layers: int = F32_LAYERS):
+                   layers: int = F32_LAYERS, extra=None):
     """The model's first ``layers`` layers (full width) with their weights
     cast to float32, on f32 pages, with teacher-forced routing
     (``ForcedRouting``: each path compared takes the experts its
@@ -5167,7 +5315,8 @@ def f32_evaluation(torch, model, params, prompt, feed,
     plain dense path's logits of the same cut in bf16 against those in
     float32 (each routed freely), step by step.  Reports the routings
     whose own choice the forcing overrode and the smallest top-k router
-    margin of the float32 runs, and names them in a failure."""
+    margin of the float32 runs, and names them in a failure.  ``extra``:
+    a VLM's patches, as in ``teacher_forced``."""
     import dataclasses
     from repro_torch.kernels import flash_attention as K7
     from repro_torch.kernels import flash_decode as K6
@@ -5183,7 +5332,7 @@ def f32_evaluation(torch, model, params, prompt, feed,
     params32 = _tree(cut, lambda t: t.float())
     (bf16,) = dense_teacher_forced(
         torch, build(cfg), cut, prompt, feed,
-        [(K6.flash_decode_plain, K7.attn_prefill_einsum)])
+        [(K6.flash_decode_plain, K7.attn_prefill_einsum)], extra=extra)
     checked = CheckedK2(K2)
     plain32 = []
     paged, dense = ForcedRouting(), ForcedRouting()
@@ -5192,7 +5341,7 @@ def f32_evaluation(torch, model, params, prompt, feed,
             (k2_32,), scale32 = teacher_forced(
                 torch, model32, params32, prompt, feed,
                 [(K2.paged_decode_plain, None), (checked, None)],
-                route=paged)
+                route=paged, extra=extra)
         bound32 = scale32 * 2.0 ** -10
         if max(k2_32) > bound32:
             raise AssertionError(f"K2 vs plain paged logits {max(k2_32)} "
@@ -5200,7 +5349,7 @@ def f32_evaluation(torch, model, params, prompt, feed,
         with dense:
             dense32 = dense_path(torch, model32, params32, prompt, feed,
                                  True, keep=plain32, route=dense,
-                                 k7_exact=True)
+                                 k7_exact=True, extra=extra)
     except AssertionError as e:
         raise AssertionError(
             f"{cfg32.name} f32: {e} (routings forced from another choice: "
@@ -5213,7 +5362,9 @@ def f32_evaluation(torch, model, params, prompt, feed,
                 max_logit_diff_per_step=k2_32, max_abs_logit=scale32,
                 bound=bound32, dense=dense32,
                 routing_flips=dict(paged=paged.flips, dense=dense.flips),
-                router_margin_min=min(paged.margin, dense.margin),
+                router_margin_min=min((m for m in (paged.margin,
+                                                   dense.margin)
+                                       if m is not None), default=None),
                 bf16_vs_f32_logit_diff_per_step=floor,
                 bf16_max_abs_logit=max(float(b.abs().max()) for b in bf16))
 
@@ -5432,7 +5583,7 @@ def f32_cut(sched, layers=None, **changes):
 
 
 def f32_stops(torch, phase, model32, params32, pc, theta, swap, kernels, *,
-              requests, prompt_len, **serve_cfg):
+              requests, prompt_len, make_requests=None, **serve_cfg):
     """A float32 fleet through ``OrcaScheduler`` at a lambda* between its
     scores (phase serve-spec-f32's machinery), served once through the
     kernels and once within ``swap``, which puts each kernel named in
@@ -5440,7 +5591,9 @@ def f32_stops(torch, phase, model32, params32, pc, theta, swap, kernels, *,
     equal, each of ``kernels`` launched in the first run and none in the
     second.  ``serve_cfg``: the fleet's ``ServeConfig`` beyond lambda.  An
     MoE model's runs record their smallest top-k router margins
-    (``RouterMargin``), reported beside the stops and in a failure."""
+    (``RouterMargin``), reported beside the stops and in a failure.
+    ``make_requests()`` makes each run's requests in place of the driver's
+    random prompts (serve-llava-f32's image and text traffic)."""
     from repro_torch.launch import serve
     from repro_torch.serving import OrcaScheduler, ServeConfig, make_request
     batch = serve.model_inputs(model32.cfg,
@@ -5453,10 +5606,11 @@ def f32_stops(torch, phase, model32, params32, pc, theta, swap, kernels, *,
     def fleet(lam):
         zero_launches()
         t0 = time.perf_counter()
+        reqs = (make_requests() if make_requests is not None
+                else [make_request(t) for t in batch["tokens"]])
         with RouterMargin(moe) as rm:
             done, fl = OrcaScheduler(model32, params32, pc, theta,
-                                     ServeConfig(lam=lam, **base)).run(
-                [make_request(t) for t in batch["tokens"]])
+                                     ServeConfig(lam=lam, **base)).run(reqs)
         sync(torch)
         margins.append(rm.margin)
         return done, fl, time.perf_counter() - t0, read_launches()
@@ -5528,6 +5682,266 @@ def fresh_f32_stops(torch, arch, phase, pc, theta, layers: int = F32_LAYERS,
 
 
 # ---------------------------------------------------------------------------
+# the VLM: llava-next-34b at full width and depth
+
+LLAVA_ARCH = "llava-next-34b"
+# an image request's text after its 2,880 patches; serve-llava's text
+# requests take serve-qwen's 160-token prompts, in 64-token chunks
+LLAVA_TEXT = 16
+# the harvest: 8 image trajectories, 4 at a time (8 of 2,944 positions in
+# one dense cache and the prefill's activations would pass 76 GiB beside
+# the 64.05 GiB of weights)
+LLAVA_HARVEST, LLAVA_HARVEST_BATCH = 8, 4
+
+
+def llava_patches(torch, cfg, n: int, seed: int):
+    """(n, 2,880, 1,024) float32 patch embeddings drawn N(0, 1) from
+    ``seed`` on the host: the vision tower is a stub, and the driver's zero
+    patches would project to exact zeros (the projector's biases start at
+    zero and gelu(0) = 0), leaving the prefix inert."""
+    return torch.randn(n, cfg.frontend.n_tokens, cfg.frontend.embed_dim,
+                       generator=torch.Generator().manual_seed(seed))
+
+
+def llava_requests(torch, cfg, max_new: int, text_len: int = QWEN_PROMPT,
+                   seed: int = SEED + 1):
+    """serve-llava's traffic, image and text turns in one batch: image,
+    text, image, text.  An image request is its seeded patches and
+    ``LLAVA_TEXT`` tokens, prefilled in one shot at admission (K7 over
+    2,896 rows); a text request is ``text_len`` tokens, prefilled in
+    64-token chunks (K3-B4) when the fleet chunks."""
+    from repro_torch.serving import make_request
+    gen = torch.Generator().manual_seed(seed)
+    reqs = []
+    for i in range(WIDE_REQUESTS):
+        image = i % 2 == 0
+        toks = torch.randint(0, cfg.vocab_size,
+                             (LLAVA_TEXT if image else text_len,),
+                             generator=gen, dtype=torch.int32).numpy()
+        extra = ({"patch_embeds": llava_patches(torch, cfg, 1,
+                                                seed + 10 + i).numpy()}
+                 if image else None)
+        reqs.append(make_request(toks, extra=extra, max_new_tokens=max_new))
+    return reqs
+
+
+def llava_config(reduced: bool = False, layers=None, **changes):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(LLAVA_ARCH)
+    if reduced:
+        cfg = cfg.reduced()
+    if layers:
+        changes["n_layers"] = min(layers, cfg.n_layers)
+    return dataclasses.replace(cfg, **changes)
+
+
+def phase_model_llava(torch, reduced: bool = False, steps: int = 8):
+    """llava-next-34b at full width and depth (random bf16 weights drawn on
+    the card): one image request, its 2,880 patches drawn N(0, 1) from the
+    seed, 16 tokens of text, prefilled through K7 (2,896 rows, 56 heads on
+    8) and ``steps`` teacher-forced paged decode steps through K2 at
+    (128, 7), every K2 call held against the plain formula in float64 and
+    the logits within the floor ``paged_within_floor`` measures; the dense
+    path, the prefill through K7 with every call held to the plain formula
+    in float64 (``CheckedK7(exact=True)``) and the decode through K6;
+    then the first 4 layers in f32 (``f32_evaluation``, as model-phi), the
+    rest freed first.  Reports the card's peak memory."""
+    from repro_torch.models import build
+    cfg = llava_config(reduced)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = build(cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = model.init(gen, DEV)
+    sync(torch)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    B = 1
+    prompt = torch.randint(0, cfg.vocab_size, (B, LLAVA_TEXT), generator=gen,
+                           dtype=torch.int32).to(DEV)
+    feed = torch.randint(0, cfg.vocab_size, (steps, B), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    extra = {"patch_embeds": llava_patches(torch, cfg, B, SEED + 9).to(DEV)}
+    paged = paged_within_floor(torch, model, params, prompt, feed,
+                               extra=extra)
+    dense = dense_path(torch, model, params, prompt, feed, False,
+                       k7_exact=True, extra=extra)
+    res = dict(phase="model-llava", arch=LLAVA_ARCH, layers=cfg.n_layers,
+               d_model=cfg.d_model, heads=cfg.n_heads,
+               kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, d_ff=cfg.d_ff,
+               vocab=cfg.vocab_size, params=n_params, dtype=cfg.dtype,
+               init_s=init_s, batch=B, patches=cfg.frontend.n_tokens,
+               prompt=LLAVA_TEXT, decode_steps=steps, bf16=paged,
+               dense=dense, peak_gib=peak_gib(torch))
+    # the f32 evaluation's layers copied, the rest freed before their
+    # float32 copy is made
+    params = {k: _tree(v, lambda t: t[:F32_LAYERS].clone())
+              if k == "layers" else v for k, v in params.items()}
+    free_card(torch)
+    res.update(f32=f32_evaluation(torch, model, params, prompt, feed,
+                                  extra=extra),
+               peak_gib_with_f32=peak_gib(torch))
+    emit(res)
+    del params
+    return res
+
+
+def ttft_by_class(done):
+    """TTFT p50 and max (ms) of the image and of the text requests."""
+    out = {}
+    for cls in ("image", "text"):
+        ms = sorted(r.ttft_s * 1e3 for r in done
+                    if ("patch_embeds" in r.inputs) == (cls == "image")
+                    and r.ttft_s >= 0)
+        out[cls] = dict(n=len(ms), p50=ms[len(ms) // 2] if ms else None,
+                        max=ms[-1] if ms else None)
+    return out
+
+
+def phase_serve_llava(torch, reduced: bool = False):
+    """The VLM served as a multimodal deployment sees it, at full width and
+    depth on paged bf16 pages, 4 slots: a harvest of 8 image trajectories
+    (seeded patches, 16 tokens, 48 dense decode steps; K7 over 2,896 rows
+    and K6 at (128, 7)), in batches of 4; ``orca.fit`` of the TTT probe at
+    f 7168 (K5) and the LTT lambda* at delta 0.2 (the driver's fallback
+    0.99); then through ``api.engine`` (``OrcaScheduler``) 2 image
+    requests, admitted in one shot (K7 over 2,896 rows), beside 2 text
+    requests of 160 tokens in 64-token chunks (K3-B4 at (128, 7)), 48 new
+    tokens each, every step K2 at (128, 7) and K1 at f 7168.  The driver's
+    ``model_inputs`` gives zero patches, so the traffic is built here.
+    Every K1, K2, K3, K6 and K7 launch of the harvest, fit and fleet is
+    counted exactly; reports each request's stop and tokens, TTFT by
+    class and the card's peak memory.  Returns the record and the
+    scheduler."""
+    from repro_torch import api as orca
+    from repro_torch.core.probe import ProbeConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.serving import ServeConfig, extract_trajectories
+    import numpy as np
+    cfg = llava_config(reduced)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(SEED), DEV)
+    sync(torch)
+    L, tps = cfg.n_layers, 8
+    zero_launches()
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 3)
+    phis, toks = [], []
+    for lo in range(0, LLAVA_HARVEST, LLAVA_HARVEST_BATCH):
+        n = min(LLAVA_HARVEST_BATCH, LLAVA_HARVEST - lo)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (n, LLAVA_TEXT),
+                                         generator=gen,
+                                         dtype=torch.int32).numpy(),
+                 "patch_embeds": llava_patches(torch, cfg, n,
+                                               SEED + 20 + lo).numpy()}
+        p, t = extract_trajectories(model, params, batch, LLAVA_TEXT,
+                                    WIDE_NEW, tps)
+        phis.append(p)
+        toks.append(t)
+    sync(torch)
+    harvest_s = time.perf_counter() - t0
+    harvest_peak = peak_gib(torch)
+    batches = -(-LLAVA_HARVEST // LLAVA_HARVEST_BATCH)
+    ts = serve.trajectory_set(np.concatenate(phis), np.concatenate(toks), tps)
+    half = len(ts) // 2
+    train = ts.subset(np.arange(half))
+    cal = ts.subset(np.arange(half, len(ts)))
+    t0 = time.perf_counter()
+    calib = orca.fit(train, mode="consistent", method="ttt",
+                     pc=ProbeConfig(d_phi=cfg.d_model, smooth_window=4),
+                     epochs=10, epoch_select=False, seed=SEED, device=DEV)
+    lam = orca.calibrated_lambda(calib, cal, 0.2, fallback=0.99)
+    sync(torch)
+    fit_s = time.perf_counter() - t0
+    sched = orca.engine(model, params, calib, config=ServeConfig(
+        n_slots=4, tokens_per_step=tps, max_new_tokens=WIDE_NEW,
+        lam=float(lam), burn_in=2, paged=True, chunk_tokens=CHUNK))
+    done, fleet = sched.run(llava_requests(torch, cfg, WIDE_NEW))
+    sync(torch)
+    launches = read_launches()
+    states = [r.state.value for r in done]
+    if len(done) != WIDE_REQUESTS or not set(states) <= {"stopped",
+                                                          "finished"}:
+        raise AssertionError(f"serve-llava: requests did not all end: "
+                             f"{states}")
+    sched.pool.check()
+    if sched.pool.blocks_in_use:
+        raise AssertionError(f"serve-llava: {sched.pool.blocks_in_use} "
+                             "pages still in use")
+    images = sum("patch_embeds" in r.inputs for r in done)
+    want = dict(flash_decode=L * WIDE_NEW * batches,
+                flash_attention=L * (batches + images),
+                paged_flash_decode=L * fleet.engine_steps,
+                paged_flash_packed_chunk=L * fleet.prefill_chunks,
+                serving_probe_step=fleet.engine_steps,
+                paged_flash_prefill_chunk=0, serving_probe_spec_step=0)
+    got = {k: launches[k] for k in want}
+    if got != want or launches["ttt_probe_batched"] < 1 \
+            or fleet.prefill_chunks < 1:
+        raise AssertionError(
+            f"serve-llava launches {launches}, expected {want} and K5 in "
+            f"the fit (K6 once a layer a harvest step, K7 once a layer a "
+            f"harvest batch and an image admission, K2 once a layer an "
+            f"engine step, K1 once, K3 once a layer a step with a chunk; "
+            f"{fleet.prefill_chunks} chunks)")
+    res = dict(phase="serve-llava", arch=LLAVA_ARCH, layers=L,
+               params=sum(t.numel() for t in _leaves(params)), lam=lam,
+               harvest=dict(trajectories=LLAVA_HARVEST, batches=batches,
+                            steps=WIDE_NEW, wall_s=harvest_s,
+                            peak_gib=harvest_peak),
+               fit_s=fit_s,
+               requests=[dict(kind="image" if "patch_embeds" in r.inputs
+                              else "text", prompt=r.prompt_len,
+                              state=r.state.value, stop_step=r.stop_step,
+                              tokens=len(r.tokens),
+                              ttft_ms=r.ttft_s * 1e3) for r in done],
+               ttft_ms_by_class=ttft_by_class(done),
+               engine_steps=fleet.engine_steps,
+               serve_wall_s=fleet.wall_time_s,
+               step_ms=fleet.wall_time_s / fleet.engine_steps * 1e3,
+               requests_per_s=fleet.requests_per_s,
+               tokens_per_s=fleet.tokens_per_s,
+               prefill_chunks=fleet.prefill_chunks,
+               packed_chunks=fleet.packed_chunks,
+               stall_ms_p50=fleet.stall_ms_p50,
+               stall_ms_p99=fleet.stall_ms_p99,
+               pool_blocks=fleet.pool_blocks,
+               peak_blocks_in_use=fleet.peak_blocks_in_use,
+               launches=launches, peak_gib=peak_gib(torch))
+    emit(res)
+    return res, sched
+
+
+def phase_llava_f32_stops(torch, pc, theta, layers: int = F32_LAYERS,
+                          reduced: bool = False):
+    """serve-llava's traffic (2 image requests beside 2 chunked text
+    requests, seeded patches) in float32 at ``layers`` of its 60 layers
+    (full width, weights drawn anew on the card: the bf16 fleet's are
+    gone, two copies do not fit) on f32 pages, with serve-llava's fitted
+    probe: through K2, K3 and K7 and through the plain attention, stops and
+    tokens equal; ``f32_stops`` reports the smallest distance of a tested
+    score to lambda* (``lambda_margin``)."""
+    from repro_torch.models import build
+    cfg = llava_config(reduced, layers, dtype="float32",
+                       kv_cache_dtype="float32")
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(SEED), DEV)
+    return f32_stops(torch, "serve-llava-f32", model, params, pc, theta,
+                     PlainAttention(), ("paged_flash_decode",
+                                        "paged_flash_packed_chunk",
+                                        "flash_attention"),
+                     requests=WIDE_REQUESTS, prompt_len=QWEN_PROMPT,
+                     make_requests=lambda: llava_requests(torch, cfg,
+                                                          WIDE_NEW),
+                     paged=True, chunk_tokens=CHUNK, max_new_tokens=WIDE_NEW)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -5542,9 +5956,11 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log = (lib.parent / "build.log").read_text()
     emit(dict(phase="build", seconds=build_s, library=os.path.relpath(
-        lib, ROOT), ptxas=[ln.strip() for ln in log.splitlines()
-                           if "registers" in ln or "spill" in ln
-                           or "Compiling entry" in ln]))
+        lib, ROOT), sources=[ln[3:] for ln in log.splitlines()
+                             if ln.startswith("== ")],
+        ptxas=[ln.strip() for ln in log.splitlines()
+               if "registers" in ln or "spill" in ln
+               or "Compiling entry" in ln]))
     _build.library()
     timer = Timer(torch)
     k1 = phase_k1(torch, timer)
@@ -5579,25 +5995,33 @@ def main() -> int:
         raise AssertionError("the chunked fleet packed no chunk")
     phase_trace(torch, out_c.scheduler, steps=24, prompt_len=160,
                 phase="trace-chunked")
-    spec, out_s = phase_serve_spec(torch, out)
+    # the spec and tree fleets at 8 of 32 layers, as the chunked ones (in
+    # bf16 their tokens part from the one-token fleet's at full depth
+    # too); their f32 checks take serve's weights and probe, what the
+    # full-depth spec and tree fleets drew from the same seed
+    with CutDepth(CUT_LAYERS):
+        spec, out_s = phase_serve_spec(torch, out)
     phase_trace(torch, out_s.scheduler, phase="trace-spec")
     with CutDepth(CUT_LAYERS):
         phase_serve_spec(torch, out_c, ("--chunk-tokens", str(CHUNK),
                                         "--prompt-len", "160"),
                          phase="serve-spec-chunked")
-    spec_f32 = phase_spec_stops(torch, out_s.scheduler)
-    tree, out_t = phase_serve_spec(torch, out, phase="serve-tree",
-                                   spec=("--spec-tree", "3.3"),
-                                   k3_per_step=out.scheduler.model.cfg
-                                   .n_layers)
+    spec_f32 = phase_spec_stops(torch, out.scheduler)
+    with CutDepth(CUT_LAYERS):
+        tree, out_t = phase_serve_spec(torch, out, phase="serve-tree",
+                                       spec=("--spec-tree", "3.3"),
+                                       k3_per_step=CUT_LAYERS)
     phase_trace(torch, out_t.scheduler, phase="trace-tree")
-    tree_f32 = phase_tree_stops(torch, out_t.scheduler)
+    tree_f32 = phase_tree_stops(torch, out.scheduler)
     phase_preempt_roundtrip(torch, out.scheduler, out.lam)
     phase_serve_preempt(torch, out)
-    phase_preempt_stops(torch, out_t.scheduler)
+    phase_preempt_stops(torch, out.scheduler)
     phase_serve_group(torch)
     phase_group_stops(torch, out.scheduler)
-    _, out_f = phase_serve_fleet(torch)
+    # the fleet's hosts at 8 of 32 layers (its threads, streams and
+    # routing do not depend on depth), cut to pay for the llava phases
+    with CutDepth(CUT_LAYERS):
+        _, out_f = phase_serve_fleet(torch)
     phase_fleet_stops(torch, out_f.scheduler.hosts[0])
     del out_f
     offline = phase_offline(torch, splits, OFFLINE_EPOCHS)
@@ -5688,12 +6112,30 @@ def main() -> int:
     fresh_f32_stops(torch, PHI_ARCH, "serve-phi-f32", pc, theta,
                     kv_cache_dtype="float32")
     free_card(torch)
+    # the VLM: llava-next-34b (d 128, G 7) at full width and depth, 64.05
+    # GiB of bf16 weights; image requests with the 2,880-token patch
+    # prefix beside chunked text requests
+    llava_model = phase_model_llava(torch)
+    free_card(torch)
+    served_lv, sched_lv = phase_serve_llava(torch)
+    phase_trace(torch, sched_lv, phase="trace-llava",
+                requests=lambda n: llava_requests(
+                    torch, sched_lv.model.cfg, n, LLAVA_TEXT, SEED + 2))
+    pc, theta = sched_lv.pc, sched_lv.theta
+    del sched_lv
+    free_card(torch)
+    phase_llava_f32_stops(torch, pc, theta)
+    free_card(torch)
     qwen_model = phase_model_wide(torch, QWEN_ARCH, "model-qwen")
     free_card(torch)
-    served_q, out_q = wide_fleet(
-        torch, QWEN_ARCH, "serve-qwen",
-        ("--chunk-tokens", str(CHUNK), "--prompt-len", str(QWEN_PROMPT)),
-        need=SERVE_NEED + ("paged_flash_packed_chunk",))
+    # serve-qwen cut in depth (llava carries the 30B-class dense model at
+    # full depth on one card now): its int8 pages, (128, 1) instances and
+    # chunked traffic as before
+    with CutDepth(QWEN_LAYERS):
+        served_q, out_q = wide_fleet(
+            torch, QWEN_ARCH, "serve-qwen",
+            ("--chunk-tokens", str(CHUNK), "--prompt-len", str(QWEN_PROMPT)),
+            need=SERVE_NEED + ("paged_flash_packed_chunk",))
     if served_q["packed_chunks"] < 1:
         raise AssertionError("the qwen fleet packed no chunk")
     phase_trace(torch, out_q.scheduler, steps=16, prompt_len=QWEN_PROMPT,
@@ -5895,6 +6337,56 @@ def main() -> int:
                  ms=k5_row["ms"], plain_ms=k5_row["plain_ms"],
                  bound_ms=k5_row["bound_ms"], bound_by=k5_row["bound_by"],
                  library_ms=None)]
+    # the VLM's (128, 7) instances on serve-llava's path (bf16 pages; K7
+    # timed at an image admission's 2,896 rows), K1 and K5 at f 7168
+    fl, mw = served_lv["launches"], llava_model
+    g7 = LLAVA[0] // LLAVA[1]
+    tag = f"d 128, G {g7}, bf16"
+    llava_rows = [
+        d128_entry(f"paged_flash_decode ({tag})", "paged_decode.cu",
+                   "decode_attention.py:231", fl["paged_flash_decode"],
+                   max(d128_err(k2, g7, k2_keys), mw["bf16"]["k2_out_err"]),
+                   pick(k2, d=128, H=LLAVA[0], pages="bf16", B=4, case=None)),
+        d128_entry(f"paged_flash_packed_chunk ({tag})", "paged_chunk.cu",
+                   "decode_attention.py:298",
+                   fl["paged_flash_packed_chunk"],
+                   d128_err([r for r in k3 if r["fn"] == "B4"], g7, k3_keys),
+                   pick(k3, fn="B4", d=128, H=LLAVA[0], pages="bf16",
+                        case="served")),
+        d128_entry(f"flash_decode ({tag})", "flash_decode.cu",
+                   "decode_attention.py:78", fl["flash_decode"],
+                   max(d128_err(k6, g7, k6_keys), mw["dense"]["k6_out_err"]),
+                   pick(k6, d=128, H=LLAVA[0], B=4, cache="bf16")),
+        d128_entry(f"flash_attention ({tag})", "flash_attention.cu",
+                   "flash_attention.py:64", fl["flash_attention"],
+                   max(max(r["max_abs_err"] for r in k7
+                           if r["d"] == 128 and g_of(r) == g7),
+                       mw["dense"]["k7_err"]),
+                   pick(k7, d=128, H=LLAVA[0], dtype="bf16", B=1,
+                        Sq=2896))]
+    k1_rows = k1["llava_width"]
+    row = pick(k1_rows, view="distinct")
+    k5_row = pick(k5["timed"], f=LLAVA_PROBE_F)
+    llava_rows += [
+        dict(name=f"serving_probe_step (f {LLAVA_PROBE_F})", route="cuda",
+             source="src/repro_torch/csrc/probe_spec.cu",
+             replaces="src/repro/kernels/ttt_probe.py:368",
+             launches=fl["serving_probe_step"],
+             max_abs_err=max(max(r["max_abs_err"].values())
+                             for r in k1_rows),
+             ms=row["ms"], plain_ms=row["plain_ms"],
+             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+             library_ms=None,
+             served_ms=pick(k1_rows, view="same")["ms"]),
+        dict(name=f"ttt_probe_batched (f {LLAVA_PROBE_F})", route="cuda",
+             source="src/repro_torch/csrc/ttt_scan.cu",
+             replaces="src/repro/kernels/ttt_probe.py:80",
+             launches=fl["ttt_probe_batched"],
+             max_abs_err=max(c[6] for c in k5["per_case"]
+                             if c[0] == LLAVA_PROBE_F),
+             ms=k5_row["ms"], plain_ms=k5_row["plain_ms"],
+             bound_ms=k5_row["bound_ms"], bound_by=k5_row["bound_by"],
+             library_ms=None)]
     llama_k1 = pick(k1["llama_width"], view="distinct")
     d128_rows.append(dict(
         name=f"serving_probe_step (f {LLAMA_PROBE_F})", route="cuda",
@@ -5978,7 +6470,7 @@ def main() -> int:
              ms=k8[0]["ms"], plain_ms=k8[0]["plain_ms"],
              bound_ms=k8[0]["bound_ms"], bound_by=k8[0]["bound_by"],
              library_ms=None),
-    ] + d128_rows + d80_rows + moe_rows})
+    ] + d128_rows + d80_rows + moe_rows + llava_rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()

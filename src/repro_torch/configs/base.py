@@ -203,11 +203,11 @@ ALIASES = {
 
 
 # the configs the port carries; every other family raises.  A config with
-# attention (dense or MoE) is ported only with its (d_head, n_heads //
-# n_kv_heads) in the instance sets of the attention kernels
+# attention (dense, MoE or the VLM) is ported only with its (d_head,
+# n_heads // n_kv_heads) in the instance sets of the attention kernels
 # (tests/test_torch_d128.py holds this)
 PORTED = ("smollm_360m", "rwkv6_1b6", "llama32_3b", "qwen15_32b",
-          "stablelm_3b", "granite_moe_1b", "phi35_moe")
+          "stablelm_3b", "granite_moe_1b", "phi35_moe", "llava_next_34b")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -216,8 +216,8 @@ def get_config(name: str) -> ModelConfig:
         raise NotImplementedError(
             f"{name!r} is not ported to repro_torch yet: the port carries "
             "smollm-360m, rwkv6-1.6b, llama3.2-3b, qwen1.5-32b, "
-            "stablelm-3b, granite-moe-1b-a400m and phi3.5-moe-42b-a6.6b; "
-            "llava-next-34b comes with ROADMAP A7.2b (the VLM adapter), "
-            "hymba-1.5b and whisper-tiny with A7.3")
+            "stablelm-3b, granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b and "
+            "llava-next-34b; hymba-1.5b and whisper-tiny come with ROADMAP "
+            "A7.3")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG

@@ -61,13 +61,14 @@
 // f32 pages (the f32 check fleets only) keep the CUDA-core kernel below
 // (paged_chunk_f32_kernel), which walks the row in tiles of 16 positions
 // with the products in f32; attn_tile.cuh says why.
-// Instances: (d, G) = (64, 3), (128, 3), (128, 1), (80, 1), (64, 2) and
-// (128, 4)
-// (CHUNK_INSTANCE below), each for f32, bf16 and int8 pages.  Shared
-// memory of a bf16 block: two stages of K and V tiles (36,864 bytes at d
-// 64, 45,056 at d 80, 69,632 at d 128; int8 one bf16 stage plus two raw
-// stages and the scales), at d 128 G x 3 x 16 rows of q terms (13,056
-// bytes a warp), the validity row, table row and tile flags.  At d 80 a
+// Instances: (d, G) = (64, 3), (128, 3), (128, 1), (80, 1), (64, 2),
+// (128, 4) and (128, 7) (CHUNK_INSTANCE below), each for f32, bf16 and
+// int8 pages.  Shared memory of a bf16 block: two stages of K and V tiles
+// (36,864 bytes at d 64, 45,056 at d 80, 69,632 at d 128; int8 one bf16
+// stage plus two raw stages and the scales), at d 128 G x 3 x 16 rows of
+// q terms (13,056 bytes a warp: 91,392 at G 7, whose block of 7 warps
+// then takes about 161 KB, set by cudaFuncSetAttribute in launch_tc), the
+// validity row, table row and tile flags.  At d 80 a
 // bf16 row is ten 16-byte words (an int8 row five), each cp.async word
 // aligned at the 160-byte (80-byte) page row and the 176-byte shared
 // row.  Registers and spills of every instance: build.log (ptxas,
@@ -516,7 +517,8 @@ paged_chunk_f32_kernel(const float* __restrict__ q,
   constexpr int kKStride = D + 1;   // read other banks; lanes read K rows
   // the query rows in dynamic shared memory (f32_q_bytes<D, G>): at
   // (128, 4) they and the K/V tiles pass the 48 KB a block's static
-  // shared memory may take
+  // shared memory may take (at (128, 7) the rows alone take 57,792
+  // bytes)
   extern __shared__ __align__(16) unsigned char smem_f32[];
   float* sQ = reinterpret_cast<float*>(smem_f32);
   __shared__ float sK[kKeysF32 * kKStride];
@@ -768,6 +770,7 @@ extern "C" int paged_chunk_launch(const void* q, const void* seg, int seg_div,
   CHUNK_INSTANCE(80, 1)
   CHUNK_INSTANCE(64, 2)
   CHUNK_INSTANCE(128, 4)
+  CHUNK_INSTANCE(128, 7)
 #undef CHUNK_INSTANCE
   return static_cast<int>(cudaErrorInvalidValue);
 }

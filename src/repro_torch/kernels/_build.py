@@ -112,10 +112,20 @@ def build() -> Path:
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        log = []
-        for src, _, proc in procs:
+        # one waiter a compiler, so each source's line carries the seconds
+        # it took (the build is as long as its slowest source)
+        log = [""] * len(procs)
+
+        def wait(i, src, proc):
             out, _ = proc.communicate()
-            log.append(f"== {src.name} (rc={proc.returncode})\n{out}")
+            log[i] = (f"== {src.name} (rc={proc.returncode}, "
+                      f"{time.perf_counter() - t0:.1f} s)\n{out}")
+        waiters = [threading.Thread(target=wait, args=(i, src, proc))
+                   for i, (src, _, proc) in enumerate(procs)]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
         if any(p.returncode for _, _, p in procs):
             raise RuntimeError("nvcc failed:\n" + "\n".join(log))
         tmp_lib = tmp / lib.name

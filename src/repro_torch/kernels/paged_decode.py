@@ -40,10 +40,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # checked at on the card, each for f32, bf16 and int8 pages: smollm-360m's
 # d 64 on 15 heads over 5 KV heads, llama3.2-3b's d 128 on 24 over 8,
 # qwen1.5-32b's d 128 on 40 over 40, stablelm-3b's d 80 on 32 over 32,
-# granite-moe-1b's d 64 on 16 over 8 and phi3.5-moe's d 128 on 32 over 8.
-# csrc/paged_decode.cu builds exactly these (its DECODE_INSTANCE lines);
-# every other pair is refused.
-INSTANCES = ((64, 3), (128, 3), (128, 1), (80, 1), (64, 2), (128, 4))
+# granite-moe-1b's d 64 on 16 over 8, phi3.5-moe's d 128 on 32 over 8 and
+# llava-next-34b's d 128 on 56 over 8.  csrc/paged_decode.cu builds
+# exactly these (its DECODE_INSTANCE lines); every other pair is refused.
+INSTANCES = ((64, 3), (128, 3), (128, 1), (80, 1), (64, 2), (128, 4),
+             (128, 7))
 
 
 def _gather(pages, scales, block_tables):

@@ -59,10 +59,16 @@ from repro_torch.trajectories.synthetic import (TrajectoryDistribution,
 
 
 def model_inputs(cfg, generator: torch.Generator, n: int, prompt_len: int):
-    """Random prompt tokens, host-side: {"tokens": (n, prompt_len) int32}."""
+    """Random prompt tokens, host-side: {"tokens": (n, prompt_len) int32},
+    and for a VLM its patch embeddings as the JAX driver gives them, zeros
+    of (n, patch tokens, embed_dim)."""
     toks = torch.randint(0, cfg.vocab_size, (n, prompt_len),
                          generator=generator, dtype=torch.int32)
-    return {"tokens": toks.numpy()}
+    batch = {"tokens": toks.numpy()}
+    if cfg.arch_type == "vlm":
+        batch["patch_embeds"] = np.zeros(
+            (n, cfg.frontend.n_tokens, cfg.frontend.embed_dim), np.float32)
+    return batch
 
 
 def trajectories_from_model(model, params, n: int, prompt_len: int,
@@ -73,7 +79,15 @@ def trajectories_from_model(model, params, n: int, prompt_len: int,
                          prompt_len)
     phis, toks = extract_trajectories(model, params, batch, prompt_len,
                                       max_new, tokens_per_step)
-    n_steps = phis.shape[1]
+    return trajectory_set(phis, toks, tokens_per_step)
+
+
+def trajectory_set(phis: np.ndarray, toks: np.ndarray,
+                   tokens_per_step: int) -> TrajectorySet:
+    """Harvested step embeddings (n, n_steps, d) and decoded tokens (n,
+    max_new) -> trajectories labelled by self-consistency of each step's
+    last token."""
+    n, n_steps = phis.shape[:2]
     # "answer" proxy per step: the last token of the step
     answers = toks[:, tokens_per_step - 1::tokens_per_step][:, :n_steps]
     mask = np.ones((n, n_steps), bool)
@@ -253,14 +267,21 @@ def serve(argv=None) -> ServeResult:
     batch = model_inputs(cfg, torch.Generator().manual_seed(args.seed + 1),
                          args.requests, args.prompt_len)
 
+    extra_keys = [k for k in batch if k != "tokens"]
+
     def prio(i):
         return 1 if args.batch_every and i % args.batch_every == 0 else 0
+
+    def extra(i):
+        return {k: batch[k][i:i + 1] for k in extra_keys}
     if args.group_size > 1:
         reqs = [r for i in range(args.requests)
                 for r in make_group(batch["tokens"][i], args.group_size,
-                                    group_id=i, priority=prio(i))]
+                                    group_id=i, extra=extra(i),
+                                    priority=prio(i))]
     else:
-        reqs = [make_request(batch["tokens"][i], priority=prio(i))
+        reqs = [make_request(batch["tokens"][i], extra=extra(i),
+                             priority=prio(i))
                 for i in range(args.requests)]
     done, fleet = sched.run(reqs)
     for r in done:

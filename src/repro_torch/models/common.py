@@ -181,6 +181,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 # Activations
 
+def gelu(x):
+    """The tanh approximation, as the JAX package's
+    ``jax.nn.gelu(x, approximate=True)``."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
 def swiglu(gate, up):
     return torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
 

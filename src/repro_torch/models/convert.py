@@ -19,6 +19,13 @@ array.  Names and layouts map one to one:
     layers.mlp.w_down         (L, d_ff, d)
     lm_head                   (d, V_pad)    untied embeddings only
 
+The VLM (``arch_type == "vlm"``) adds its patch projector:
+
+    projector.w1              (embed_dim, d)  patches @ w1
+    projector.b1              (d,)
+    projector.w2              (d, d)
+    projector.b2              (d,)
+
 MoE configs (``models/moe.py``) in place of the three mlp leaves; (f32)
 marks a leaf read through a float32 cast, as for RWKV6 below:
 

@@ -25,7 +25,8 @@ package's:
         -> (B, width, depth) drafts
 
 The dense family, the MoE family (the dense model with ``moe.moe_dense``
-as its MLP) and RWKV6 (``ssm``) are ported; the others raise.
+as its MLP), the VLM (the dense model with a patch projector in front of
+its prefill) and RWKV6 (``ssm``) are ported; the others raise.
 RWKV6 has no page layout, no chunked or packed prefill and no speculative
 decode, linear or tree, as in the JAX package: the serving layer falls
 back to a dense state, admission-time prefill and one-token decode for
@@ -155,11 +156,11 @@ def _build_rwkv(cfg: ModelConfig) -> Model:
 
 
 def build(cfg: ModelConfig) -> Model:
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in ("dense", "moe", "vlm"):
         return _build_dense(cfg)
     if cfg.arch_type == "ssm":
         return _build_rwkv(cfg)
     raise NotImplementedError(
-        f"{cfg.name} ({cfg.arch_type}): only the dense and MoE families and "
-        "RWKV6 are ported to repro_torch; the VLM comes with ROADMAP A7.2b, "
-        "hymba and whisper with A7.3")
+        f"{cfg.name} ({cfg.arch_type}): only the dense, MoE and VLM families "
+        "and RWKV6 are ported to repro_torch; hymba and whisper come with "
+        "ROADMAP A7.3")

@@ -1,4 +1,4 @@
-"""Decoder-only transformer, dense and MoE families (PyTorch).
+"""Decoder-only transformer, dense, MoE and VLM families (PyTorch).
 
 Parameters are the JAX package's nested dict with its names and layouts:
 ``embed`` (V_pad, d), ``final_norm``, ``layers`` with every per-layer leaf
@@ -7,7 +7,12 @@ stacked on a leading L axis (``layers.attn.wq`` is (L, d, H*dh)), and
 Python loop indexing layer ``l`` of each stacked leaf.  An MoE config
 (``cfg.moe``) takes ``moe.moe_decls`` for ``layers.mlp`` and routes every
 token of every pass (prefill, decode, the chunks and the verify passes)
-through ``moe.moe_dense``, JAX's one-device path.
+through ``moe.moe_dense``, JAX's one-device path.  The VLM
+(``arch_type == "vlm"``) adds ``projector``: a two-layer gelu MLP over
+precomputed patch embeddings (the vision tower is a stub), whose output
+``prefill`` puts in front of the embedded prompt; after that the patch
+prefix is cache like any other, and decode, the chunks and the verify
+passes are the dense model's.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models.common import (Param, apply_norm, apply_rope, cdtype,
-                                       norm_decls, stack_decls, swiglu)
+                                       gelu, norm_decls, stack_decls, swiglu)
 
 
 # ---------------------------------------------------------------------------
@@ -42,11 +47,10 @@ def _mlp_decls(cfg) -> Dict[str, Param]:
 
 
 def decls(cfg) -> Dict[str, Any]:
-    if cfg.mlp != "swiglu" or cfg.arch_type not in ("dense", "moe"):
+    if cfg.mlp != "swiglu" or cfg.arch_type not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE swiglu families are "
-            "ported; the VLM comes with ROADMAP A7.2b, hymba and whisper "
-            "with A7.3")
+            f"{cfg.name}: only the dense, MoE and VLM swiglu families are "
+            "ported; hymba and whisper come with ROADMAP A7.3")
     mlp = moe.moe_decls(cfg) if cfg.moe is not None else _mlp_decls(cfg)
     tree: Dict[str, Any] = {
         "embed": Param((cfg.padded_vocab(), cfg.d_model), "embed"),
@@ -57,6 +61,11 @@ def decls(cfg) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = Param((cfg.d_model, cfg.padded_vocab()))
+    if cfg.arch_type == "vlm":
+        d = cfg.d_model
+        tree["projector"] = {"w1": Param((cfg.frontend.embed_dim, d)),
+                             "b1": Param((d,), "zeros"),
+                             "w2": Param((d, d)), "b2": Param((d,), "zeros")}
     return tree
 
 
@@ -162,15 +171,30 @@ def logits_from_hidden(cfg, params, h):
     return h @ params["lm_head"].to(h.dtype)
 
 
+def project_patches(cfg, params, patch_embeds):
+    """Patch embeddings (B, P, embed_dim) -> the patch prefix (B, P, d),
+    JAX's order of precision: cast to the compute dtype, w1 + b1, gelu,
+    w2 + b2."""
+    p = params["projector"]
+    dt = cdtype(cfg)
+    h = gelu(patch_embeds.to(dt) @ p["w1"].to(dt) + p["b1"].to(dt))
+    return h @ p["w2"].to(dt) + p["b2"].to(dt)
+
+
 # ---------------------------------------------------------------------------
 # Full passes
 
 @torch.no_grad()
 def prefill(cfg, params, batch, cache_len: int):
     """Run the prompt, build the KV cache. Returns (cache, last_hidden,
-    h_all)."""
+    h_all).  A VLM batch with ``patch_embeds`` prefills the projected
+    patches in front of the prompt: the cache then holds prefix and
+    prompt, and h_all covers both."""
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens)
+    if cfg.arch_type == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([project_patches(cfg, params, batch["patch_embeds"]),
+                       x], 1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     cache = attn.init_cache(cfg, b, cache_len, device=x.device)

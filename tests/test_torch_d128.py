@@ -1,18 +1,18 @@
 """The head dims and groups past smollm-360m's (64, 3): llama3.2-3b (d 128,
 24 heads on 8 KV heads, G 3), qwen1.5-32b (d 128, MHA, G 1, int8 KV),
 stablelm-3b (d 80, MHA, G 1: the first head dim that is not a power of
-two), and the MoE configs granite-moe-1b (d 64, G 2) and phi3.5-moe
-(d 128, G 4).
+two), the MoE configs granite-moe-1b (d 64, G 2) and phi3.5-moe
+(d 128, G 4), and the VLM llava-next-34b (d 128, 56 heads on 8: G 7).
 
-* the five configs equal the JAX package's field by field; the families
-  not ported yet still raise, naming ROADMAP A7.2b (the VLM) or A7.3;
+* the six configs equal the JAX package's field by field; the families
+  not ported yet still raise, naming ROADMAP A7.3;
 * every ported config with attention (dense and MoE) has its
   (d_head, heads per KV head) in the
   instance set of each attention kernel (K2, K3, K6; K7 by d), and each
   kernel module's ``INSTANCES`` names exactly the instances its CUDA source
   builds; a pair outside the set is refused;
 * the plain versions of K2, K3 (prefill and packed chunks), K6 and K7 at
-  d 128, G 3, G 1 and G 4, at d 80, G 1, and at d 64, G 2, on
+  d 128, G 3, G 1, G 4 and G 7, at d 80, G 1, and at d 64, G 2, on
   bf16-valued f32 inputs and on
   int8 pages with their scales, match the JAX package's Pallas kernels in
   interpret mode (each test is named for d 128, its first head dim).
@@ -41,17 +41,20 @@ from repro_torch.models import build
 # d 128 sums twice the terms of the d-64 tests, so twice their 1e-5 (d 80
 # sums fewer)
 ATOL = 2e-5
-# (head dim, query heads, KV heads): llama's G 3, qwen's G 1 and
-# phi3.5-moe's G 4 at d 128, stablelm's G 1 at d 80 and granite-moe-1b's
-# G 2 at d 64, at reduced head counts
+# (head dim, query heads, KV heads): llama's G 3, qwen's G 1,
+# phi3.5-moe's G 4 and llava-next-34b's G 7 at d 128, stablelm's G 1 at
+# d 80 and granite-moe-1b's G 2 at d 64, at reduced head counts
 SHAPES = [pytest.param(128, 6, 2, id="6-2"), pytest.param(128, 2, 2, id="2-2"),
           pytest.param(128, 8, 2, id="8-2"),
+          pytest.param(128, 14, 2, id="14-2"),
           pytest.param(80, 2, 2, id="d80-2-2"),
           pytest.param(64, 4, 2, id="d64-4-2")]
-# each ported config's head dim past smollm-360m's: the dense ones and the
-# MoE ones (granite-moe-1b at d 64, G 2; phi3.5-moe at d 128, G 4)
+# each ported config's head dim past smollm-360m's: the dense ones, the
+# MoE ones (granite-moe-1b at d 64, G 2; phi3.5-moe at d 128, G 4) and the
+# VLM (llava-next-34b at d 128, G 7)
 D_HEAD = {"llama3.2-3b": 128, "qwen1.5-32b": 128, "stablelm-3b": 80,
-          "granite-moe-1b-a400m": 64, "phi3.5-moe-42b-a6.6b": 128}
+          "granite-moe-1b-a400m": 64, "phi3.5-moe-42b-a6.6b": 128,
+          "llava-next-34b": 128}
 BS, NB = 8, 4
 CSRC = Path(K2.__file__).resolve().parent.parent / "csrc"
 
@@ -77,11 +80,9 @@ def test_config_equals_jax_field_by_field(name):
         (jcfg.param_count(), jcfg.reduced().n_layers)
 
 
-@pytest.mark.parametrize("name", ["hymba-1.5b", "llava-next-34b",
-                                  "whisper-tiny"])
+@pytest.mark.parametrize("name", ["hymba-1.5b", "whisper-tiny"])
 def test_unported_family_raises_naming_a7(name):
-    with pytest.raises(NotImplementedError,
-                       match="A7.2b" if name == "llava-next-34b" else "A7.3"):
+    with pytest.raises(NotImplementedError, match="A7.3"):
         get_config(name)
 
 
@@ -129,6 +130,9 @@ def _source_instances(name, macro):
 
 
 def test_instance_sets_equal_the_cuda_sources():
+    # llava-next-34b's (128, 7), the first odd group above 3, among them
+    for mod in (K2, K3, K6):
+        assert (128, 7) in mod.INSTANCES
     assert _source_instances("paged_decode.cu", "DECODE_INSTANCE") == \
         set(K2.INSTANCES)
     assert _source_instances("flash_decode.cu", "DECODE_INSTANCE") == \
@@ -141,12 +145,12 @@ def test_instance_sets_equal_the_cuda_sources():
 
 @pytest.mark.parametrize("mod", cfg_base.PORTED)
 def test_every_ported_config_has_its_kernel_instances(mod):
-    """Every ported config with attention, dense and MoE alike; RWKV6 has
-    none (K8 is built per head size, tests/test_torch_rwkv_scan.py)."""
+    """Every ported config with attention, dense, MoE and VLM alike; RWKV6
+    has none (K8 is built per head size, tests/test_torch_rwkv_scan.py)."""
     cfg = get_config(mod)
     if cfg.arch_type == "ssm":
         return
-    assert cfg.arch_type in ("dense", "moe"), cfg.arch_type
+    assert cfg.arch_type in ("dense", "moe", "vlm"), cfg.arch_type
     pair = (cfg.d_head, cfg.n_heads // cfg.n_kv_heads)
     assert pair in K2.INSTANCES
     assert pair in K3.INSTANCES
