@@ -22,7 +22,8 @@ non-zero:
                chained and timed at serve-llama's width (f 3072), both
                views, and at serve-stablelm's (f 2560), serve-granite's
                (f 1024), serve-phi's (f 4096) and serve-llava's (f 7168,
-               the widest band), each the top of a band
+               the widest band), each the top of a band, and at
+               serve-hymba's (f 1600) and serve-whisper's (f 384)
 3. k2       -- paged flash decode against its plain version, bf16, int8
                and f32 pages, the serving shape and nb in {8, 64, 256}
                (past 256 positions split over blocks and merged); timed
@@ -107,7 +108,10 @@ non-zero:
                then (64, 2) and (128, 4): serve-granite's and serve-phi's
                harvests (8, 208), dense steps, f32, 4,096 positions split;
                then (128, 7): serve-llava's harvest batch (4, 2,944), f32,
-               an admission-sized cache
+               an admission-sized cache; then (64, 5): serve-hymba's ring
+               of 1,024 (4 and 8 rows, wrapped, split over 4 blocks), f32,
+               and (64, 1): whisper's cross rows over 1,500 frames (4 and
+               24 rows, split over 6 blocks) and its self cache (96, 112)
 8. k7       -- flash prefill attention against its plain version: (B, S)
                (1, 16), (24, 16), (1, 160), (24, 160), (4, 2048); window
                64; Sq < Sk; a window past the keys; bf16 and f32; timed
@@ -122,7 +126,11 @@ non-zero:
                (8, 160), an admission, Sq < Sk, a window past the keys;
                then at G 7 (d 128): an image admission (1, 2,896), the
                harvest's batch (4, 2,896), the admission in f32, Sq < Sk,
-               a window past the keys
+               a window past the keys; then hymba's admission (1, 1,128)
+               and harvest (8, 1,128) with the window of 1,024 (SDPA with
+               the window's mask), f32, 2,100 rows; whisper's encoder
+               non-causal over 1,500 frames (1 and 24 rows; SDPA with no
+               mask), f32, Sq < Sk and Sq > Sk
 9. model    -- full-width smollm-360m (bf16, random weights from a seed,
                then the same weights in f32): prefill 16 tokens, 16
                teacher-forced paged decode steps through K2 (every call
@@ -146,9 +154,10 @@ non-zero:
 13. trace   -- a profiler window over 8 engine steps of the same fleet:
                the card's busy share and the kernels that take it, and the
                split-KV merges a step (none at the served shapes)
-14. harvest -- the driver's harvest (24 trajectories, 96 dense decode
-               steps) timed through K6 and K7 and through their plain
-               versions in turns; K7 once a layer, K6 once a layer a step
+14. harvest -- the driver's harvest (24 trajectories, 48 dense decode
+               steps, ``HARVEST_NEW``) timed through K6 and K7 and through
+               their plain versions in turns; K7 once a layer, K6 once a
+               layer a step
 15. serve-dense, trace-dense, trace-dense-plain -- the driver without
                ``--paged``: K1 and K6 every step (K6 32 times), K7 at the
                harvest and each admission, K2 never; the fleet line beside
@@ -205,9 +214,10 @@ non-zero:
                through the rewritten rows, K1 on the restored probe rows,
                K6 on the dense lane), a restore into slot 3 with the same
                tokens and stops, every launch counted; spill and restore
-               ms and bytes.  serve-preempt: serve's weights, probe and
-               lambda*, paged, 160-token prompts in 64-token chunks,
-               ``policy="priority"``, a pool of 1 + 3 requests' pages: 4
+               ms and bytes.  serve-preempt: serve's weights (their first
+               8 of 32 layers, ``CUT_LAYERS``, through ``f32_cut`` with
+               their own dtype), probe and lambda*, paged, 160-token
+               prompts in 64-token chunks, ``policy="priority"``, a pool of 1 + 3 requests' pages: 4
                batch requests, then 4 interactive ones in a burst while a
                batch request is mid-prefill; RUNNING and mid-prefill
                victims, restores equal to spills, the pool drained, K1,
@@ -217,8 +227,9 @@ non-zero:
                3.3`` with a primed draft cache: stops and tokens equal
 20d. serve-group, group-stops-f32 -- self-consistency groups and the
                consensus stop.  serve-group: the driver with
-               ``--group-size 4 --requests 2`` (serve's fleet otherwise,
-               its own harvest, fit and consensus calibration g*): every
+               ``--group-size 4 --requests 2`` (serve's fleet otherwise at
+               8 of its 32 layers through ``CutDepth``, its own harvest,
+               fit and consensus calibration g*): every
                group decides, every sample its own stop did not stop is
                cancelled at the group's consensus step, the pages freed at
                cancel, 6 prefill skips (siblings share the first sample's
@@ -256,7 +267,7 @@ non-zero:
                lands on one host, a group of 5 is refused
 21. offline  -- the paper's procedure on the synthetic corpus at d_phi 960
                (``corpus_splits(500, 170, 170)``): ``orca.fit`` of the TTT
-               probe (no-QK, QK d_h 128; 10 epochs, ``OFFLINE_EPOCHS``,
+               probe (no-QK, QK d_h 128; 8 epochs, ``OFFLINE_EPOCHS``,
                of the benchmark's 35) and the static probe, then
                ``orca.evaluate`` at every delta; K5 launches in fit and in
                evaluate, and its plain version's scores give the same
@@ -285,16 +296,48 @@ non-zero:
                sequence (f32: every argmax equal; bf16: gap and argmax
                agreement held to the same run through the plain scan)
 25. serve-rwkv -- ``launch.serve --arch rwkv6-1.6b``, the serve fleet on
-               the recurrent state: K8 launches 24 x (1 harvest prefill +
-               96 harvest steps + 8 admissions + the engine steps); K1 and
-               K5 run; K2, K3, K4, K6 and K7 never
+               the recurrent state at 8 of its 24 layers (``CutDepth``): K8
+               launches 8 x (1 harvest prefill + 96 harvest steps + 8
+               admissions + the engine steps); K1 and K5 run; K2, K3, K4,
+               K6 and K7 never
 26. trace-rwkv, harvest-rwkv -- an 8-step profiled window of the RWKV
-               fleet; its harvest timed through K8 and through the plain
-               scan in turns (K8 once a layer a prefill or decode step)
-27. serve-rwkv-f32 -- the RWKV fleet in f32 at 4 of its 24 layers
-               (``RWKV_F32_LAYERS``) through ``OrcaScheduler`` at a lambda*
-               between its scores, through K8 and through the plain scan:
-               stops and tokens equal
+               fleet; its harvest (48 steps) timed through K8 and through
+               the plain scan in turns (K8 once a layer a prefill or
+               decode step)
+27. serve-rwkv-f32 -- rwkv6-1.6b's full-depth draw in f32 at its first 4
+               of 24 layers (``RWKV_F32_LAYERS``) through ``OrcaScheduler``
+               at a lambda* between its scores, through K8 and through the
+               plain scan: stops and tokens equal
+27b. model-hymba, serve-hymba, trace-hymba, serve-hymba-f32 -- hymba-1.5b
+               at full width and depth (32 layers, d 1600, 25 heads on 5 KV
+               heads of 64, a window of 1,024, 128 meta tokens, Mamba
+               heads of state 16).  model-hymba: 2 prompts of 1,000 tokens
+               (1,128 positions) and 4 teacher-forced decode steps through
+               K7 (causal, windowed) and K6 (the ring, wrapped), every
+               call checked, against the plain path; the bf16 floor (the
+               plain path in bf16 against f32) bounds the logits and the
+               state (ring, conv, SSM); the first 4 layers in f32 through
+               the kernels, the plain and the reversed plain versions;
+               the share of one admission in the plain Mamba loop.
+               serve-hymba: the driver (4 requests of 1,000 tokens on 4
+               slots, 48 new tokens, a harvest of 8) on the dense state:
+               K7 32 x 5, K6 32 x (48 + engine steps), K1 once a step, K5
+               once, K2, K3, K4 and K8 never; step ms, TTFT, peak memory.
+               trace-hymba: a 4-step window.  serve-hymba-f32: 4 layers
+               in f32, kernels against plain: stops and tokens equal
+27c. model-whisper, serve-whisper, trace-whisper, serve-whisper-f32 --
+               whisper-tiny at full width and depth (4 encoder and 4
+               decoder layers, d 384, 6 heads of 64, 1,500 stub frames).
+               model-whisper: 4 requests, 16 decode steps from position 0
+               through K7 (non-causal, the encoder) and K6 (the self cache
+               and the 1,500 frames' cross K/V), as model-hymba, its f32
+               evaluation at full depth.  serve-whisper: the driver (8
+               requests on 4 slots, 96 new tokens, a harvest of 24): K7 4 x
+               9, K6 8 x (96 + engine steps), K1 once a step, K5 once.
+               trace-whisper: an 8-step window.  serve-whisper-f32: the
+               fleet in f32 at its first 2 encoder and 2 decoder layers
+               (``WHISPER_F32_LAYERS``), kernels against plain: stops and
+               tokens equal
 28. model-llama, model-qwen -- llama3.2-3b (28 layers) and qwen1.5-32b
                (64 layers, int8 KV pages) at full width and depth, random
                bf16 weights drawn on the card: prefill 16 tokens, 8
@@ -399,7 +442,10 @@ non-zero:
                per (128, 7) instance on serve-llava's (K2, K3-B4, K6, K7
                timed at an image admission's 2,896 rows) and K1 and K5 at
                f 7168 (launches from serve-llava's harvest, fit and
-               fleet); the tree path's
+               fleet), and one per (64, 5) and (64, 1) instance of K6 and
+               K7 windowed at G 5 and non-causal at G 1 (serve-hymba's and
+               serve-whisper's) and K1 and K5 at f 1600 and 384; the tree
+               path's
                K3 (d 64 from serve-tree, d 128 G 3 from serve-llama-tree,
                timed at phase k3's tree cases) and K4 (serve-tree); K3's
                and K7's bound_ms is their rows' bound_tc_ms, the products
@@ -715,9 +761,12 @@ def phase_k1(torch, timer):
     phi = served_width(PHI_PROBE_F)
     # serve-llava's, d_model 7168: the top of the widest band
     llava = served_width(LLAVA_PROBE_F)
+    # serve-hymba's and serve-whisper's, d_model 1600 and 384
+    hymba = served_width(HYMBA_PROBE_F)
+    whisper = served_width(WHISPER_PROBE_F)
     err = {k: max([c["max_abs_err"][k] for c in chains.values()]
                   + [v["max_abs_err"][k] for v in views + wide + llama
-                     + stablelm + granite + phi + llava]
+                     + stablelm + granite + phi + llava + hymba + whisper]
                   + [err_r[k]])
            for k in chains[8]["max_abs_err"]}
     # the kernels line's K1 time: two rows (zk another tensor) at 4 slots,
@@ -732,7 +781,8 @@ def phase_k1(torch, timer):
                served_bound_ms=served["bound_ms"], served=served,
                distinct=timed, rwkv_width=rwkv, rwkv_served=rwkv_served,
                llama_width=llama, stablelm_width=stablelm,
-               granite_width=granite, phi_width=phi, llava_width=llava)
+               granite_width=granite, phi_width=phi, llava_width=llava,
+               hymba_width=hymba, whisper_width=whisper)
     emit(res)
     return res
 
@@ -777,9 +827,14 @@ def partial_errors(kern, plain, valid, m_relative=False):
     """Largest m and normalised-output differences between two (o, l, m)
     partials, over the rows with a valid position.  ``m_relative`` divides
     each m difference by max(1, |m|): f32 rounding of a score grows with
-    the score, and a random-weight model's scores reach tens."""
+    the score, and a random-weight model's scores reach tens.  With no
+    live row both are 0."""
     (o, l, m), (po, pl_, pm) = kern, plain
     live = valid.any(1)
+    if not bool(live.any()):
+        # no valid position in any row (whisper's first decode step, its
+        # self cache still empty): nothing to compare
+        return 0.0, 0.0
     dm = (m - pm)[live].abs()
     if m_relative:
         dm = dm / pm[live].abs().clamp_min(1.0)
@@ -859,6 +914,13 @@ PHI = (32, 8, 128, 24)
 # pages of 16, the table width of serve-llava's pool
 LLAVA = (56, 8, 128, 60)
 LLAVA_PAGES = 184
+# hymba-1.5b's attention: d 64 on 25 heads over 5 (G 5) at its 32 layers,
+# a window of 1,024 (its decode ring); whisper-tiny's: d 64 on 6 heads over
+# 6 (G 1), its 4 decoder layers (self and cross: 2 K6 launches a layer a
+# step) and 4 encoder layers over 1,500 frames
+HYMBA = (25, 5, 64, 32)
+WHISPER = (6, 6, 64, 4)
+HYMBA_WINDOW, WHISPER_FRAMES = 1024, 1500
 # K2 at d 128: (B, nb, pages, timed, case, shape).  First the served
 # decode steps of serve-llama (4 slots, 16 + 48 positions: 4 pages) and
 # serve-qwen (160 + 48: 13 pages, int8), then the other page dtypes at
@@ -1665,6 +1727,9 @@ GRANITE_PROBE_F, PHI_PROBE_F = 1024, 4096
 # and serve-llava's, llava-next-34b's d_model: the widest band's top,
 # MAX_F
 LLAVA_PROBE_F = 7168
+# and serve-hymba's and serve-whisper's (hymba-1.5b's and whisper-tiny's
+# d_model)
+HYMBA_PROBE_F, WHISPER_PROBE_F = 1600, 384
 K5_TOL = 1e-5
 
 
@@ -1695,9 +1760,10 @@ def k5_cases(torch, test):
     (``ttt_probe_scan``); and 1024 and 4096 (the no-QK views at
     granite-moe-1b's and phi3.5-moe's d_model: N(0, 1) features, one
     tensor), the top of the bands 960 and 3072 run in, and 7168
-    (llava-next-34b's, alike), the top of the widest band.  The eight
-    widths run six of the kernel's instances, those of every width a
-    phase of this script fits at."""
+    (llava-next-34b's, alike), the top of the widest band, and 1600 and
+    384 (hymba-1.5b's and whisper-tiny's, alike), inside the bands of 2048
+    and 1024.  The ten widths run six of the kernel's instances, those of
+    every width a phase of this script fits at."""
     from repro_torch.core.labels import supervised_labels
     gen = torch.Generator().manual_seed(SEED + 5)
     phis = torch.as_tensor(test.phis).to(DEV)
@@ -1723,7 +1789,8 @@ def k5_cases(torch, test):
              LLAMA_PROBE_F: (z_llama, z_llama)}
     # serve-granite's and serve-phi's views, each from its own generator
     for fw, seed in ((GRANITE_PROBE_F, SEED + 54), (PHI_PROBE_F, SEED + 55),
-                     (LLAVA_PROBE_F, SEED + 56)):
+                     (LLAVA_PROBE_F, SEED + 56), (HYMBA_PROBE_F, SEED + 57),
+                     (WHISPER_PROBE_F, SEED + 58)):
         z = torch.randn(len(test), phis.shape[1], fw,
                         generator=torch.Generator().manual_seed(seed)).to(DEV)
         feats[fw] = (z, z)
@@ -1732,8 +1799,11 @@ def k5_cases(torch, test):
         w0_rows = w0 + 0.1 * (torch.randn(len(test), f, generator=gen)
                               / f ** 0.5).to(DEV)
         b0_rows = torch.linspace(-1.0, 1.0, len(test)).to(DEV)
+        # hymba's and whisper's widths (the last two) skip T 37: their
+        # bands run at other widths already
         for n in (1, len(test)):
-            for T in (1, 37, 120):
+            for T in ((1, 120) if f in (HYMBA_PROBE_F, WHISPER_PROBE_F)
+                      else (1, 37, 120)):
                 zq = zq_all[:n, :T].contiguous()
                 zk = zq if zk_all is zq_all else zk_all[:n, :T].contiguous()
                 for labelled in (False, True):
@@ -1916,16 +1986,45 @@ K6_MOE_CASES = [(8, 208, "bf16", True, GRANITE), (8, 208, "bf16", True, PHI),
 K6_LLAVA_CASES = [(4, 2944, "bf16", True, LLAVA),
                   (4, 2944, "f32", False, LLAVA),
                   (1, 16, "bf16", False, LLAVA)]
+# K6 at (64, 5), hymba's ring of 1,024 (split over 4 blocks): serve-hymba's
+# step (4 slots) and its harvest (8 rows), rows wrapped at several
+# positions and one not yet full ("ring"), f32 (serve-hymba-f32), a short
+# cache.  At (64, 1), whisper's: the cross-attention over all 1,500 frames
+# ("full", split over 6 blocks) at 4 slots and the harvest's 24 rows, the
+# self cache (serve-whisper's 96 positions, the harvest's 16 + 96), f32
+K6_FAMILY_CASES = [(4, HYMBA_WINDOW, "bf16", True, HYMBA, "ring"),
+                   (8, HYMBA_WINDOW, "bf16", True, HYMBA, "ring"),
+                   (4, HYMBA_WINDOW, "f32", False, HYMBA, "ring"),
+                   (1, 16, "bf16", False, HYMBA),
+                   (4, WHISPER_FRAMES, "bf16", True, WHISPER, "full"),
+                   (24, WHISPER_FRAMES, "bf16", True, WHISPER, "full"),
+                   (4, 96, "bf16", True, WHISPER),
+                   (24, 112, "bf16", True, WHISPER),
+                   (4, WHISPER_FRAMES, "f32", False, WHISPER, "full"),
+                   (4, 96, "f32", False, WHISPER)]
 
 
-def dense_case(torch, gen, B, S, dtype, H=15, KV=5, d=64):
+def dense_case(torch, gen, B, S, dtype, H=15, KV=5, d=64, mask=None):
     """A dense cache with row 0 fully valid, ragged tails, and for B > 2 a
     sliding-window band (row 1) and a row with no valid position (row
-    2)."""
+    2).  ``mask="full"``: every position valid (cross-attention over the
+    frames); ``mask="ring"``: a ring of S positions (``decode_valid_mask``
+    with window S) at positions past it, wrapped, and row 1 short of
+    full."""
     dt = torch.bfloat16 if dtype == "bf16" else torch.float32
     q = torch.randn(B, H, d, generator=gen).to(dt).to(DEV)
     k = torch.randn(B, KV, S, d, generator=gen).to(dt).to(DEV)
     v = torch.randn(B, KV, S, d, generator=gen).to(dt).to(DEV)
+    if mask == "full":
+        return q, k, v, torch.ones((B, S), dtype=torch.bool, device=DEV)
+    if mask == "ring":
+        from repro_torch.models.attention import decode_valid_mask
+        pos = S + torch.randint(0, 3 * S, (B,), generator=gen)
+        pos[0] = S + 104                      # serve-hymba's first step
+        if B > 1:
+            pos[1] = S // 2 + 17
+        _, valid = decode_valid_mask(pos.to(torch.int32), B, S, S)
+        return q, k, v, valid.to(DEV)
     lens = torch.randint(1, S + 1, (B,), generator=gen)
     lens[0] = S
     pos = torch.arange(S)[None, :]
@@ -1944,9 +2043,10 @@ def phase_k6(torch, timer):
     rows = []
     for B, S, dtype, timed, *shape in (K6_CASES + K6_D128_CASES
                                        + K6_D80_CASES + K6_MOE_CASES
-                                       + K6_LLAVA_CASES):
+                                       + K6_LLAVA_CASES + K6_FAMILY_CASES):
         H, KV, d, layers = shape[0] if shape else SMOLLM
-        q, k, v, valid = dense_case(torch, gen, B, S, dtype, H, KV, d)
+        mask = shape[1] if len(shape) > 1 else None
+        q, k, v, valid = dense_case(torch, gen, B, S, dtype, H, KV, d, mask)
         o, l, m = K6.flash_decode(q, k, v, valid, return_partials=True)
         want = K6.flash_decode_plain(q, k, v, valid, return_partials=True)
         m_err, o_err = partial_errors((o, l, m), want, valid)
@@ -1969,7 +2069,7 @@ def phase_k6(torch, timer):
             raise AssertionError(f"K6 {B}x{S} {dtype}: normalised output "
                                  f"err {n_err}")
         n_split = SP.split_count(S, SP.DECODE_MAX_SPLITS)
-        row = dict(B=B, S=S, cache=dtype, H=H, KV=KV, d=d,
+        row = dict(B=B, S=S, cache=dtype, H=H, KV=KV, d=d, mask=mask,
                    valid_positions=int(valid.sum()),
                    empty_rows=int(empty.sum()), splits=n_split,
                    merge=n_split > 1, m_err=m_err, out_err=o_err,
@@ -2084,10 +2184,31 @@ K7_LLAVA_CASES = [(1, 2896, 2896, None, "bf16", True, LLAVA),
                   (1, 2896, 2896, None, "f32", True, LLAVA),
                   (4, 64, 160, None, "bf16", False, LLAVA),
                   (1, 48, 16, 8, "f32", False, LLAVA)]
+# K7 at hymba's G 5, causal with its window of 1,024, which masks past
+# 1,024 rows: an admission's prefill (128 meta tokens and 1,000 of
+# prompt), the harvest's 8 such, f32 (serve-hymba-f32), 2,100 rows (two
+# windows).  Non-causal (the 8th field False) at whisper's G 1: the
+# encoder over 1,500 frames for an admission and the harvest's 24, f32,
+# Sq < Sk and Sq > Sk
+K7_FAMILY_CASES = [(1, 1128, 1128, HYMBA_WINDOW, "bf16", True, HYMBA),
+                   (8, 1128, 1128, HYMBA_WINDOW, "bf16", True, HYMBA),
+                   (1, 1128, 1128, HYMBA_WINDOW, "f32", True, HYMBA),
+                   (2, 2100, 2100, HYMBA_WINDOW, "bf16", False, HYMBA),
+                   (1, WHISPER_FRAMES, WHISPER_FRAMES, None, "bf16", True,
+                    WHISPER, False),
+                   (24, WHISPER_FRAMES, WHISPER_FRAMES, None, "bf16", True,
+                    WHISPER, False),
+                   (1, WHISPER_FRAMES, WHISPER_FRAMES, None, "f32", True,
+                    WHISPER, False),
+                   (2, 100, WHISPER_FRAMES, None, "bf16", False, WHISPER,
+                    False),
+                   (1, 64, 16, None, "f32", False, WHISPER, False)]
 
 
-def visible_pairs(sq, sk, window):
+def visible_pairs(sq, sk, window, causal=True):
     """(query, key) pairs the causal / window mask leaves, per head."""
+    if not causal:
+        return sq * sk
     n = 0
     for i in range(sq):
         hi = min(i, sk - 1)
@@ -2115,33 +2236,42 @@ def phase_k7(torch, timer):
     for B, sq, sk, window, dtype, timed, *shape in (K7_CASES + K7_D128_CASES
                                                     + K7_D80_CASES
                                                     + K7_MOE_CASES
-                                                    + K7_LLAVA_CASES):
+                                                    + K7_LLAVA_CASES
+                                                    + K7_FAMILY_CASES):
         H, KV, d, _ = shape[0] if shape else SMOLLM
+        causal = shape[1] if len(shape) > 1 else True
         dt = torch.bfloat16 if dtype == "bf16" else torch.float32
         q = torch.randn(B, sq, H, d, generator=gen).to(dt).to(DEV)
         k = torch.randn(B, sk, KV, d, generator=gen).to(dt).to(DEV)
         v = torch.randn(B, sk, KV, d, generator=gen).to(dt).to(DEV)
-        out = K7.flash_attention(q, k, v, causal=True, window=window)
-        want = K7.attn_prefill_einsum(q, k, v, causal=True, window=window)
+        out = K7.flash_attention(q, k, v, causal=causal, window=window)
+        want = K7.attn_prefill_einsum(q, k, v, causal=causal, window=window)
         err, ok = k7_error(out, want, v)
         if not ok or not torch.isfinite(out.float()).all():
-            raise AssertionError(f"K7 {B}x{sq}x{sk} window {window} "
-                                 f"{dtype} d {d} G {H // KV}: err {err}")
-        row = dict(B=B, Sq=sq, Sk=sk, window=window, dtype=dtype, H=H,
-                   KV=KV, d=d, max_abs_err=err)
+            raise AssertionError(f"K7 {B}x{sq}x{sk} causal {causal} window "
+                                 f"{window} {dtype} d {d} G {H // KV}: err "
+                                 f"{err}")
+        row = dict(B=B, Sq=sq, Sk=sk, window=window, causal=causal,
+                   dtype=dtype, H=H, KV=KV, d=d, max_abs_err=err)
         if timed:
             row["ms"] = timer(lambda: K7.flash_attention(
-                q, k, v, causal=True, window=window))
+                q, k, v, causal=causal, window=window))
             row["plain_ms"] = timer(lambda: K7.attn_prefill_einsum(
-                q, k, v, causal=True, window=window))
-            # yardstick: SDPA with is_causal on (B, H, S, d), KV heads
-            # repeated (outside the timing)
+                q, k, v, causal=causal, window=window))
+            # yardstick: SDPA on (B, H, S, d), KV heads repeated, with
+            # is_causal, or the window's boolean mask, or none
+            # (bidirectional); built outside the timing
             qt = q.transpose(1, 2).contiguous()
             kt = k.transpose(1, 2).repeat_interleave(H // KV, 1).contiguous()
             vt = v.transpose(1, 2).repeat_interleave(H // KV, 1).contiguous()
+            sdpa = dict(is_causal=causal)
+            if window is not None:
+                qp = torch.arange(sq, device=DEV)[:, None]
+                kp = torch.arange(sk, device=DEV)[None, :]
+                sdpa = dict(attn_mask=(kp <= qp) & (kp > qp - window))
             row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))
-            pairs = visible_pairs(sq, sk, window)
+                qt, kt, vt, **sdpa))
+            pairs = visible_pairs(sq, sk, window, causal)
             moved = nbytes(q, k, v, out)
             row["bound_ms"], row["bound_by"] = bound_ms(
                 moved, B * H * pairs * (4 * d + 4))
@@ -2995,8 +3125,25 @@ def serve_fleet(torch, extra_argv=(), *, phase, requests, need, paged=True,
 
 
 # the depth of the driver's chunked and static-baseline fleets (full
-# width), cut from 32 to keep the script within its time
+# width), cut from 32 to keep the script within its time; serve-preempt,
+# serve-group and the RWKV fleet (of 24) too since the hymba and whisper
+# phases
 CUT_LAYERS = 8
+# decode steps of phase harvest's and harvest-rwkv's turns (the driver's
+# harvest takes 96), cut to pay for the hymba and whisper phases
+HARVEST_NEW = 48
+
+
+def full_depth(torch, arch):
+    """``arch`` at full width and depth with the driver's weights (drawn
+    from the seed as ``launch.serve`` draws them): ``.model`` and
+    ``.params``, what ``f32_cut`` takes."""
+    import types
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    model = build(get_config(arch))
+    return types.SimpleNamespace(model=model, params=model.init(
+        torch.Generator().manual_seed(SEED), DEV))
 
 
 class CutDepth:
@@ -3854,8 +4001,9 @@ def burst_fleet(torch, sched, prompts):
     return done, fleet, rec
 
 
-def phase_serve_preempt(torch, out, requests: int = 8):
-    """The serve fleet's smollm-360m (bf16, full width and depth) with its
+def phase_serve_preempt(torch, out, requests: int = 8, layers=None):
+    """The serve fleet's smollm-360m (bf16, full width; with ``layers``
+    its first ``layers`` layers, on the same weights) with its
     harvested probe and lambda* (no second harvest), paged, 160-token
     prompts in 64-token chunks, ``policy="priority"``, 4 slots, a pool of
     1 + 3 x a request's pages: 4 batch requests, then 4 interactive ones
@@ -3866,11 +4014,12 @@ def phase_serve_preempt(torch, out, requests: int = 8):
     from repro_torch.launch import serve
     from repro_torch.serving import OrcaScheduler, ServeConfig
     base = out.scheduler
-    cfg = base.model.cfg
+    model, params = f32_cut(base, layers, dtype=None)
+    cfg = model.cfg
     blocks = -(-(QWEN_PROMPT + WIDE_NEW) // BS)
     prompts = serve.model_inputs(cfg, torch.Generator().manual_seed(SEED + 3),
                                  requests, QWEN_PROMPT)["tokens"]
-    sched = OrcaScheduler(base.model, base.params, base.pc, base.theta,
+    sched = OrcaScheduler(model, params, base.pc, base.theta,
                           ServeConfig(lam=out.lam, n_slots=4, paged=True,
                                       block_size=BS, num_blocks=1 + 3 * blocks,
                                       chunk_tokens=CHUNK, tokens_per_step=8,
@@ -4704,9 +4853,10 @@ def phase_fleet_stops(torch, sched, requests: int = FLEET_REQUESTS,
 # benchmarks/common.py EPOCHS at the full corpus
 EPOCHS = 35
 # phase offline's epochs, cut from EPOCHS to keep the script within its
-# time; the epoch selection keeps the best of them (the no-QK probe's
-# validation savings peaked at epoch 4 of 35 on the card)
-OFFLINE_EPOCHS = 10
+# time (10 until the hymba and whisper phases); the epoch selection keeps
+# the best of them (the no-QK probe's validation savings peaked at epoch
+# 4 of 35 on the card)
+OFFLINE_EPOCHS = 8
 
 
 def plain_scores(torch, probe, ts):
@@ -5258,6 +5408,397 @@ def phase_harvest_rwkv(torch, sched, n: int = 24, prompt_len: int = 16,
 
 
 # ---------------------------------------------------------------------------
+# hymba-1.5b and whisper-tiny: no page layout, chunk or verify path (as in
+# the JAX registry); their attention is K7's prefill and K6's decode
+
+HYMBA_ARCH, WHISPER_ARCH = "hymba-1.5b", "whisper-tiny"
+# serve-hymba's traffic: 1,000-token prompts (1,128 positions with the meta
+# tokens: K7's window masks and the decode ring wraps), 4 requests on 4
+# slots, 48 new tokens, a harvest of 8; serve-whisper's: 8 requests of
+# 1,500 seeded frames, 96 new tokens, a harvest of 24
+HYMBA_PROMPT, HYMBA_REQUESTS, HYMBA_NEW, HYMBA_HARVEST = 1000, 4, 48, 8
+WHISPER_REQUESTS, WHISPER_NEW, WHISPER_HARVEST = 8, 96, 24
+# serve-whisper-f32's depth: the first 2 of its 4 encoder and 2 of its 4
+# decoder layers.  At full depth the random weights' std of 1/sqrt(4) (the
+# fan-in rule reads the stacked layer axis) make the f32 model chaotic:
+# replayed against float64 (tools/whisper_f32_witness.py), the kernels'
+# and the plain path's logits both sit up to 0.45 from it (0.035 median;
+# the top logits near 1.5), and each of the 4 requests the two fleets
+# parted on parted at a near-tie of float64 (its two tokens 0.029 to 0.114
+# apart), float64 siding with the plain path twice, the kernels once and
+# neither once, while each K6 and K7 call sat within 1.13x of its plain
+# version's distance from float64; at 2 and 2 no request parts (PERF.md
+# §6, PR 32)
+WHISPER_F32_LAYERS = 2
+# the f32 evaluation's logits bound in units of the reversal's spread: on
+# the card whisper's kernels sat at up to 2.7x the spread and the plain
+# path in bf16 at 46x or more (PERF.md §6, PR 32), so 8 tells the two apart
+F32_SPREAD_FACTOR = 8
+# trace-hymba's window: 4 engine steps (a step runs some 5,700 kernels,
+# and the profiler's events of 8 took most of the phase's 28.7 s)
+HYMBA_TRACE_STEPS = 4
+# the kernels these fleets launch, and those they never may
+FAMILY_NEED = ("serving_probe_step", "flash_decode", "flash_attention",
+               "ttt_probe_batched")
+FAMILY_NEVER = ("paged_flash_decode", "paged_flash_prefill_chunk",
+                "paged_flash_packed_chunk", "serving_probe_spec_step",
+                "wkv_scan")
+
+
+def family_inputs(torch, cfg, B, prompt_len, seed):
+    """The driver's inputs on the card: prompt tokens, and whisper's
+    frames (N(0, 1) x 0.02)."""
+    from repro_torch.launch import serve
+    batch = serve.model_inputs(cfg, torch.Generator().manual_seed(seed), B,
+                               prompt_len)
+    return {k: torch.as_tensor(v).to(DEV) for k, v in batch.items()}
+
+
+def family_teacher_forced(torch, model, params, batch, feed, impls):
+    """Prefill ``batch`` and decode the fed tokens from the request's
+    decode start (past the meta tokens for hymba, 0 for whisper), once per
+    (decode, prefill) attention pair in ``impls`` (the model's
+    ``flash_decode`` and ``flash_attention`` swapped for it).  Returns
+    each pair's (logits per step, final state)."""
+    from repro_torch.models import attention as A
+    from repro_torch.serving.engine import decode_start, prefix_len
+    cfg = model.cfg
+    B, P = batch["tokens"].shape
+    pos0 = decode_start(cfg, batch, P)
+    cache_len = prefix_len(cfg, batch, P) + feed.shape[0]
+    served = A.flash_decode, A.flash_attention
+    runs = []
+    try:
+        for dec, pre in impls:
+            A.flash_decode, A.flash_attention = dec, pre
+            state, _, _ = model.prefill(cfg, params, batch, cache_len)
+            logits = []
+            for t in range(feed.shape[0]):
+                pos = torch.full((B,), pos0 + t, dtype=torch.int32,
+                                 device=DEV)
+                lg, _, state = model.decode_step(cfg, params, feed[t], state,
+                                                 pos)
+                lg = lg[:, :cfg.vocab_size].float()
+                if not torch.isfinite(lg).all():
+                    raise AssertionError(f"{cfg.name}: non-finite logits at "
+                                         f"step {t}")
+                logits.append(lg)
+            runs.append((logits, state))
+    finally:
+        A.flash_decode, A.flash_attention = served
+    return runs
+
+
+def decode_reversed(q, k, v, valid, *, return_partials=False):
+    """K6's plain version over the cache positions in reverse order: the
+    same function, its sums in another order."""
+    from repro_torch.kernels import flash_decode as K6
+    return K6.flash_decode_plain(q, k.flip(2), v.flip(2), valid.flip(1),
+                                 return_partials=return_partials)
+
+
+def prefill_reversed(q, k, v, *, causal=True, window=None):
+    """K7's plain version (``attn_prefill_einsum``) over the keys in reverse
+    order, the mask taken on their own positions: the same function, its
+    sums in another order."""
+    import torch
+    b, sq, h, d = q.shape
+    sk, n_kv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, n_kv, h // n_kv, d).float()
+    kf, vf = k.flip(1).float(), v.flip(1).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) / d ** 0.5
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = sk - 1 - torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    p = torch.softmax(torch.where(mask, s, torch.full_like(s, -1e30)), -1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def state_errors(a, b):
+    """Per leaf: the largest |a - b| over max(1, the largest |b|)."""
+    return {k: float((a[k].float() - b[k].float()).abs().max())
+            / max(1.0, float(b[k].float().abs().max())) for k in b}
+
+
+def mamba_share(torch, model, params, batch, cache_len):
+    """One admission's prefill (batch 1) timed whole, with the plain Mamba
+    recurrence (``hymba.selective_scan``) timed call by call, each call
+    between two syncs (32 syncs in a prefill of over a second): the
+    recurrence's seconds and their share of that admission."""
+    from repro_torch.models import hymba
+    one = {k: v[:1] for k, v in batch.items()}
+    scan, spent = hymba.selective_scan, [0.0]
+
+    def timed(*args):
+        sync(torch)
+        t1 = time.perf_counter()
+        out = scan(*args)
+        sync(torch)
+        spent[0] += time.perf_counter() - t1
+        return out
+    hymba.selective_scan = timed
+    try:
+        sync(torch)
+        t0 = time.perf_counter()
+        model.prefill(model.cfg, params, one, cache_len)
+        sync(torch)
+        timed_whole = time.perf_counter() - t0
+    finally:
+        hymba.selective_scan = scan
+    return dict(admission_s=timed_whole, scan_s=spent[0],
+                scan_share=spent[0] / timed_whole,
+                scan_calls=model.cfg.n_layers)
+
+
+def phase_model_family(torch, arch, phase, B, prompt_len, steps,
+                       f32_layers=None, reduced: bool = False):
+    """hymba-1.5b or whisper-tiny at full width and depth (random bf16
+    weights drawn on the card): a prefill of ``prompt_len`` tokens (hymba:
+    with its 128 meta tokens; whisper: 1,500 seeded frames through the
+    encoder) and ``steps`` teacher-forced decode steps, through K7 and K6
+    (every call held against the plain version on its inputs, CheckedK6
+    and CheckedK7) and through the plain versions.  The bf16 floor is
+    measured in the same run: the plain path in bf16 against the same
+    weights in float32; the kernels' logits at step t are held to the
+    largest floor up to t plus one bf16 ulp of the largest logit, and each
+    leaf of their final state (KV ring or cache, conv and SSM states,
+    cross K/V) to that leaf's floor or 2^-8, relative to its largest.
+    Then the f32 evaluation: the weights in float32 at ``f32_layers``
+    layers (None: all) through the kernels (K7 held to float64), the plain
+    versions, and the plain versions with their sums in reverse order
+    (``decode_reversed``, ``prefill_reversed``: the same functions).  Every
+    argmax equal; the logits within 2^-10 of the largest or
+    ``F32_SPREAD_FACTOR`` x the reversal's gap up to that step, every
+    state leaf within 2^-10 or that factor x its reversal gap (relative to
+    its largest).  The random weights' fan-in rule reads the stacked layer
+    axis (std 1/sqrt(4) for whisper's 4 layers), so attention scores reach
+    hundreds and a reordering moves whisper's f32 logits by 1e-2 of the
+    largest: the reversal measures that.  The bound must stay below the
+    upper reading, the plain path in bf16 at the same depth against the
+    f32 one, at every step: a bound that a bf16 error would pass does not
+    discriminate.  hymba also reports the share of one admission spent in
+    the plain Mamba recurrence."""
+    import dataclasses
+    import types
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as K7
+    from repro_torch.kernels import flash_decode as K6
+    from repro_torch.models import build
+    from repro_torch.serving.engine import prefix_len
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = build(cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = model.init(gen, DEV)
+    sync(torch)
+    init_s = time.perf_counter() - t0
+    batch = family_inputs(torch, cfg, B, prompt_len, SEED + 4)
+    feed = torch.randint(0, cfg.vocab_size, (steps, B), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    plain = (K6.flash_decode_plain, K7.attn_prefill_einsum)
+    k6, k7 = CheckedK6(K6), CheckedK7(K7)
+    t0 = time.perf_counter()
+    (kern, kst), (pl, pst) = family_teacher_forced(
+        torch, model, params, batch, feed, [(k6, k7), plain])
+    sync(torch)
+    run_s = time.perf_counter() - t0
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _tree(params, lambda t: t.float())
+    ((p32, p32st),) = family_teacher_forced(torch, build(cfg32), params32,
+                                            batch, feed, [plain])
+    del params32
+    diffs = [float((a - b).abs().max()) for a, b in zip(kern, pl)]
+    floor = [float((a - b).abs().max()) for a, b in zip(pl, p32)]
+    agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
+             for a, b in zip(kern, pl)]
+    floor_agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
+                   for a, b in zip(pl, p32)]
+    scale = max(float(b.abs().max()) for b in pl)
+    bound = [max(floor[:t + 1]) + scale * 2.0 ** -8 for t in range(steps)]
+    over = [t for t in range(steps) if diffs[t] > bound[t]]
+    if over:
+        t = over[0]
+        raise AssertionError(f"{cfg.name} bf16 step {t}: kernels' logits "
+                             f"{diffs[t]} from the plain path > {bound[t]} "
+                             f"(bf16 floor {max(floor[:t + 1])})")
+    st_err, st_floor = state_errors(kst, pst), state_errors(pst, p32st)
+    bad = {k: (st_err[k], st_floor[k]) for k in st_err
+           if st_err[k] > max(st_floor[k], 2.0 ** -8)}
+    if bad:
+        raise AssertionError(f"{cfg.name} bf16 state (kernels, floor): {bad}")
+    bf16 = dict(k6_calls=k6.calls, k6_m_rel_err=k6.m_err,
+                k6_out_err=k6.out_err, k7_calls=k7.calls, k7_err=k7.err,
+                max_logit_diff_per_step=diffs, argmax_agree_per_step=agree,
+                floor_per_step=floor, floor_argmax_agree_per_step=floor_agree,
+                bound_per_step=bound, max_abs_logit=scale,
+                state_rel_err=st_err, state_floor=st_floor, wall_s=run_s)
+    res = dict(phase=phase, arch=cfg.name, layers=cfg.n_layers,
+               encoder_layers=cfg.n_encoder_layers, d_model=cfg.d_model,
+               heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+               d_head=cfg.d_head, vocab=cfg.vocab_size,
+               params=sum(t.numel() for t in _leaves(params)),
+               init_s=init_s, batch=B, prompt=prompt_len,
+               positions=prefix_len(cfg, batch, prompt_len),
+               decode_steps=steps, bf16=bf16, peak_gib=peak_gib(torch))
+    if cfg.arch_type == "hybrid":
+        res["mamba"] = mamba_share(torch, model, params, batch,
+                                   prefix_len(cfg, batch, prompt_len)
+                                   + HYMBA_NEW)
+    # the f32 evaluation, its layers copied first; the upper reading is
+    # the plain path in bf16 at the same depth
+    drawn = types.SimpleNamespace(model=model, params=params)
+    model16, params16 = f32_cut(drawn, f32_layers, dtype=None)
+    ((up, _),) = family_teacher_forced(torch, model16, params16, batch,
+                                       feed, [plain])
+    model32, params32 = f32_cut(drawn, f32_layers)
+    layers = model32.cfg.n_layers
+    del params, params16, drawn
+    free_card(torch)
+    k6, k7 = CheckedK6(K6), CheckedK7(K7, exact=True)
+    (kern, kst), (pl, pst), (rev, rst) = family_teacher_forced(
+        torch, model32, params32, batch, feed,
+        [(k6, k7), plain, (decode_reversed, prefill_reversed)])
+    diffs = [float((a - b).abs().max()) for a, b in zip(kern, pl)]
+    spread = [float((a - b).abs().max()) for a, b in zip(rev, pl)]
+    upper = [float((a - b).abs().max()) for a, b in zip(up, pl)]
+    agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
+             for a, b in zip(kern, pl)]
+    scale = max(float(b.abs().max()) for b in pl)
+    bound = [max(scale * 2.0 ** -10, F32_SPREAD_FACTOR * max(spread[:t + 1]))
+             for t in range(steps)]
+    loose = [t for t in range(steps) if bound[t] >= upper[t]]
+    if loose:
+        raise AssertionError(f"{cfg.name} f32: the bound {bound} would pass "
+                             f"the plain path in bf16 ({upper}) at steps "
+                             f"{loose}: it does not tell a bf16 error from "
+                             "an f32 one")
+    st_err, st_spread = state_errors(kst, pst), state_errors(rst, pst)
+    st_bound = {k: max(2.0 ** -10, F32_SPREAD_FACTOR * st_spread[k])
+                for k in st_err}
+    f32 = dict(layers=layers, k6_calls=k6.calls, k6_out_err=k6.out_err,
+               k7_calls=k7.calls, k7_err=k7.err, k7_exact_err=k7.exact_err,
+               k7_plain_exact_err=k7.plain_exact_err,
+               max_logit_diff_per_step=diffs, reversed_diff_per_step=spread,
+               bf16_plain_diff_per_step=upper,
+               argmax_agree_per_step=agree, max_abs_logit=scale,
+               bound_per_step=bound, state_rel_err=st_err,
+               state_reversed_err=st_spread)
+    over = [t for t in range(steps) if diffs[t] > bound[t]]
+    bad = {k: (st_err[k], st_bound[k]) for k in st_err
+           if st_err[k] > st_bound[k]}
+    if min(agree) < 1.0 or over or bad:
+        raise AssertionError(f"{cfg.name} f32: argmax agreement {agree}, "
+                             f"logits over the bound at steps {over} "
+                             f"({diffs} against {bound}), state {bad}")
+    res.update(f32=f32, peak_gib_with_f32=peak_gib(torch))
+    emit(res)
+    return res
+
+
+def phase_serve_family(torch, arch, phase, extra, requests, max_new,
+                       k7_per_prefill, k6_per_step):
+    """``launch.serve --arch <arch>`` on the dense state (no page layout),
+    4 slots: the harvest (one prefill of every trajectory, then ``max_new``
+    dense decode steps), the fit (K5 once, scoring the calibration half for
+    lambda*) and the fleet (one prefill an admission, then a decode step
+    an engine step).  Exact launches: K7 ``k7_per_prefill`` times a
+    prefill (a layer's attention, or an encoder layer's), K6
+    ``k6_per_step`` times a decode step (a layer's ring, or a decoder
+    layer's self and cross attention), K1 once an engine step, K5 once;
+    no K2, K3, K4 or K8.  Reports the step ms, TTFT and the card's peak
+    memory."""
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    res, out = serve_fleet(torch, extra, phase=phase, requests=requests,
+                           need=FAMILY_NEED, paged=False, arch=arch,
+                           max_new=max_new)
+    fleet, lc = out.fleet, res["launches"]
+    want = dict(flash_attention=k7_per_prefill * (1 + requests),
+                flash_decode=k6_per_step * (max_new + fleet.engine_steps),
+                serving_probe_step=fleet.engine_steps, ttt_probe_batched=1,
+                **{k: 0 for k in FAMILY_NEVER})
+    got = {k: lc[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{phase} launches {got}, expected {want} (K7 "
+                             f"{k7_per_prefill} a prefill: the harvest's "
+                             f"and {requests} admissions; K6 {k6_per_step} "
+                             f"a step: {max_new} harvest and "
+                             f"{fleet.engine_steps} engine steps)")
+    res.update(layers=out.scheduler.model.cfg.n_layers,
+               step_ms=fleet.wall_time_s / fleet.engine_steps * 1e3,
+               params=sum(t.numel() for t in _leaves(out.scheduler.params)),
+               state_leaves={k: list(v.shape) for k, v in
+                             out.scheduler.engine.state.items()},
+               preemptions=fleet.preemptions, peak_gib=peak_gib(torch))
+    emit(res)
+    return res, out
+
+
+def whisper_requests(torch, cfg, n, max_new, seed=SEED + 2):
+    """``n`` requests of 16 random tokens and 1,500 seeded frames each, as
+    the driver makes them."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import make_request
+    batch = serve.model_inputs(cfg, torch.Generator().manual_seed(seed), n,
+                               16)
+    return [make_request(batch["tokens"][i],
+                         extra={"frames": batch["frames"][i:i + 1]},
+                         max_new_tokens=max_new) for i in range(n)]
+
+
+def phase_families(torch):
+    """The hymba and whisper phases: model, serve, trace and the f32 stops
+    of each.  Returns the records the kernels line reads."""
+    hy_model = phase_model_family(torch, HYMBA_ARCH, "model-hymba", B=2,
+                                  prompt_len=HYMBA_PROMPT, steps=4,
+                                  f32_layers=F32_LAYERS)
+    free_card(torch)
+    layers = HYMBA[3]
+    hy, out = phase_serve_family(
+        torch, HYMBA_ARCH, "serve-hymba",
+        ("--train-trajectories", str(HYMBA_HARVEST), "--prompt-len",
+         str(HYMBA_PROMPT)), HYMBA_REQUESTS, HYMBA_NEW, layers, layers)
+    sched = out.scheduler
+    phase_trace(torch, sched, steps=HYMBA_TRACE_STEPS, prompt_len=HYMBA_PROMPT,
+                phase="trace-hymba")
+    f32_stops(torch, "serve-hymba-f32", *f32_cut(sched, F32_LAYERS),
+              sched.pc, sched.theta, PlainDenseAttention(),
+              ("flash_decode", "flash_attention"), requests=HYMBA_REQUESTS,
+              prompt_len=HYMBA_PROMPT, max_new_tokens=HYMBA_NEW)
+    del out, sched
+    free_card(torch)
+    wh_model = phase_model_family(torch, WHISPER_ARCH, "model-whisper", B=4,
+                                  prompt_len=16, steps=16)
+    wh, out = phase_serve_family(
+        torch, WHISPER_ARCH, "serve-whisper",
+        ("--train-trajectories", str(WHISPER_HARVEST)), WHISPER_REQUESTS,
+        WHISPER_NEW, WHISPER[3], 2 * WHISPER[3])
+    sched = out.scheduler
+    phase_trace(torch, sched, phase="trace-whisper",
+                requests=lambda n: whisper_requests(torch, sched.model.cfg,
+                                                    sched.n_slots, n))
+    f32_stops(torch, "serve-whisper-f32",
+              *f32_cut(sched, WHISPER_F32_LAYERS), sched.pc,
+              sched.theta, PlainDenseAttention(),
+              ("flash_decode", "flash_attention"),
+              requests=WHISPER_REQUESTS, prompt_len=16,
+              max_new_tokens=WHISPER_NEW)
+    del out, sched
+    free_card(torch)
+    return dict(hymba_model=hy_model, hymba=hy, whisper_model=wh_model,
+                whisper=wh)
+
+
+# ---------------------------------------------------------------------------
 # the d-128 fleets: llama3.2-3b (G 3) and qwen1.5-32b (G 1, int8 KV)
 
 LLAMA_ARCH, QWEN_ARCH = "llama3.2-3b", "qwen1.5-32b"
@@ -5567,33 +6108,43 @@ class ForcedRouting(RouterMargin):
         return logits, probs, gates, forced
 
 
-def f32_cut(sched, layers=None, **changes):
-    """The fleet's model and its weights in float32, cut to its first
-    ``layers`` layers (all by default; full width)."""
+def f32_cut(sched, layers=None, dtype="float32", **changes):
+    """The fleet's model and its weights cut to its first ``layers``
+    layers (all by default; full width), an encoder-decoder's encoder to
+    as many, and cast to ``dtype`` (float32 by default; None keeps the
+    weights' own dtype, on views of the same tensors: what the full-depth
+    draw gives those layers)."""
     import dataclasses
     from repro_torch.models import build
     cfg = sched.model.cfg
     layers = min(layers or cfg.n_layers, cfg.n_layers)
-    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=layers,
-                                **changes)
-    params32 = {k: _tree(v, (lambda t: t[:layers].float()) if k == "layers"
-                         else (lambda t: t.float()))
-                for k, v in sched.params.items()}
-    return build(cfg32), params32
+    enc = min(layers, cfg.n_encoder_layers)
+    if dtype is not None:
+        changes["dtype"] = dtype
+    cut = dataclasses.replace(cfg, n_layers=layers, n_encoder_layers=enc,
+                              **changes)
+    depth = {"layers": layers, "dec_layers": layers, "enc_layers": enc}
+    cast = (lambda t: t) if dtype is None else (lambda t: t.float())
+
+    def leaf(key):
+        if key in depth:
+            return lambda t: cast(t[:depth[key]])
+        return cast
+    return build(cut), {k: _tree(v, leaf(k)) for k, v in sched.params.items()}
 
 
-def f32_stops(torch, phase, model32, params32, pc, theta, swap, kernels, *,
-              requests, prompt_len, make_requests=None, **serve_cfg):
+def f32_fleets(torch, phase, model32, params32, pc, theta, swap, *,
+               requests, prompt_len, make_requests=None, **serve_cfg):
     """A float32 fleet through ``OrcaScheduler`` at a lambda* between its
-    scores (phase serve-spec-f32's machinery), served once through the
-    kernels and once within ``swap``, which puts each kernel named in
-    ``kernels`` on its plain version: every stop step and every token
-    equal, each of ``kernels`` launched in the first run and none in the
-    second.  ``serve_cfg``: the fleet's ``ServeConfig`` beyond lambda.  An
-    MoE model's runs record their smallest top-k router margins
-    (``RouterMargin``), reported beside the stops and in a failure.
+    scores, served once through the kernels and once within ``swap``.
+    ``serve_cfg``: the fleet's ``ServeConfig`` beyond lambda.
     ``make_requests()`` makes each run's requests in place of the driver's
-    random prompts (serve-llava-f32's image and text traffic)."""
+    random prompts (serve-llava-f32's image and text traffic); without it
+    each request carries the driver's other inputs (whisper's frames).
+    Returns (lambda*, its margin, the smallest top-k router margins of
+    the free, kernel and plain runs (``RouterMargin``; None without MoE),
+    the kernel run, the plain run), each run (requests, fleet, wall s,
+    launches)."""
     from repro_torch.launch import serve
     from repro_torch.serving import OrcaScheduler, ServeConfig, make_request
     batch = serve.model_inputs(model32.cfg,
@@ -5606,8 +6157,11 @@ def f32_stops(torch, phase, model32, params32, pc, theta, swap, kernels, *,
     def fleet(lam):
         zero_launches()
         t0 = time.perf_counter()
+        extra = [k for k in batch if k != "tokens"]
         reqs = (make_requests() if make_requests is not None
-                else [make_request(t) for t in batch["tokens"]])
+                else [make_request(t, extra={k: batch[k][i:i + 1]
+                                             for k in extra})
+                      for i, t in enumerate(batch["tokens"])])
         with RouterMargin(moe) as rm:
             done, fl = OrcaScheduler(model32, params32, pc, theta,
                                      ServeConfig(lam=lam, **base)).run(reqs)
@@ -5621,9 +6175,26 @@ def f32_stops(torch, phase, model32, params32, pc, theta, swap, kernels, *,
         raise AssertionError(f"{phase}: every threshold lies within "
                              f"{margin} of a score: the check would hang on "
                              "a tie")
-    kern, kern_fl, kern_s, kern_l = fleet(lam)
+    kern = fleet(lam)
     with swap:
-        plain, plain_fl, plain_s, plain_l = fleet(lam)
+        plain = fleet(lam)
+    return lam, margin, margins if moe else None, kern, plain
+
+
+def f32_stops(torch, phase, model32, params32, pc, theta, swap, kernels, *,
+              requests, prompt_len, make_requests=None, **serve_cfg):
+    """The float32 fleet of ``f32_fleets`` (phase serve-spec-f32's
+    machinery), served through the kernels and within ``swap``, which puts
+    each kernel named in ``kernels`` on its plain version: every stop step
+    and every token equal, each of ``kernels`` launched in the first run
+    and none in the second.  An MoE model's runs record their smallest
+    top-k router margins, reported beside the stops and in a failure."""
+    lam, margin, margins, kern_run, plain_run = f32_fleets(
+        torch, phase, model32, params32, pc, theta, swap, requests=requests,
+        prompt_len=prompt_len, make_requests=make_requests, **serve_cfg)
+    (kern, kern_fl, kern_s, kern_l), (plain, plain_fl, plain_s, plain_l) = \
+        kern_run, plain_run
+    moe = margins is not None
     stops = [r.stop_step for r in kern]
     routed = (f" (smallest top-k router margins of the free, kernel and "
               f"plain runs: {margins})" if moe else "")
@@ -5980,7 +6551,7 @@ def main() -> int:
     phase_model_spec(torch)
     served, out = phase_serve(torch)
     phase_trace(torch, out.scheduler)
-    phase_harvest(torch, out.scheduler)
+    phase_harvest(torch, out.scheduler, max_new=HARVEST_NEW)
     served_d, out_d = phase_serve_dense(torch, served, out)
     phase_trace(torch, out_d.scheduler, phase="trace-dense")
     with PlainDenseAttention():
@@ -6014,9 +6585,15 @@ def main() -> int:
     phase_trace(torch, out_t.scheduler, phase="trace-tree")
     tree_f32 = phase_tree_stops(torch, out.scheduler)
     phase_preempt_roundtrip(torch, out.scheduler, out.lam)
-    phase_serve_preempt(torch, out)
+    # serve-preempt takes serve's probe and lambda* (no harvest of its
+    # own), so it runs serve's first 8 layers (the 32-layer draw's
+    # scale); serve-group runs the driver (its own harvest and fit) on an
+    # 8-layer draw (CutDepth): the fan-in rule reads the stacked layer
+    # axis, so that draw's weights are 2x larger
+    phase_serve_preempt(torch, out, layers=CUT_LAYERS)
     phase_preempt_stops(torch, out.scheduler)
-    phase_serve_group(torch)
+    with CutDepth(CUT_LAYERS):
+        phase_serve_group(torch)
     phase_group_stops(torch, out.scheduler)
     # the fleet's hosts at 8 of 32 layers (its threads, streams and
     # routing do not depend on depth), cut to pay for the llava phases
@@ -6032,17 +6609,27 @@ def main() -> int:
     phase_static_fleet(torch, out_st.scheduler)
     k8, k8_checks = phase_k8(torch, timer)
     rwkv_model = phase_model_rwkv(torch)
-    served_r, out_r = phase_serve_rwkv(torch)
+    # the RWKV fleet, its trace and its harvest at 8 of 24 layers; its f32
+    # check on the first layers of a full-depth draw (full_depth), what
+    # the fleet drew before the cut: the 8-layer draw's weights are
+    # sqrt(3) larger (the fan-in rule reads the stacked layer axis), and
+    # f32 checks on such cut draws have parted before (PERF.md §7)
+    with CutDepth(CUT_LAYERS):
+        served_r, out_r = phase_serve_rwkv(torch)
     phase_trace(torch, out_r.scheduler, phase="trace-rwkv")
-    phase_harvest_rwkv(torch, out_r.scheduler)
+    phase_harvest_rwkv(torch, out_r.scheduler, max_new=HARVEST_NEW)
     sched = out_r.scheduler
-    f32_stops(torch, "serve-rwkv-f32", *f32_cut(sched, RWKV_F32_LAYERS),
+    f32_stops(torch, "serve-rwkv-f32",
+              *f32_cut(full_depth(torch, RWKV_ARCH), RWKV_F32_LAYERS),
               sched.pc, sched.theta, SwapWKV(), ("wkv_scan",), requests=8,
               prompt_len=16, max_new_tokens=96)
     # the d-128 fleets: qwen1.5-32b's weights take 65.6 GiB of the card, so
     # nothing of the earlier fleets stays on it
     del out, out_d, out_c, out_s, out_t, out_st, out_r, sched
     free_card(torch)
+    # hymba-1.5b and whisper-tiny at full width and depth: K6 at (64, 5)
+    # and (64, 1), K7 windowed at G 5 and non-causal at G 1
+    families = phase_families(torch)
     llama_model = phase_model_wide(torch, LLAMA_ARCH, "model-llama")
     served_l, out_l = wide_fleet(torch, LLAMA_ARCH, "serve-llama")
     phase_trace(torch, out_l.scheduler, phase="trace-llama")
@@ -6387,6 +6974,60 @@ def main() -> int:
              ms=k5_row["ms"], plain_ms=k5_row["plain_ms"],
              bound_ms=k5_row["bound_ms"], bound_by=k5_row["bound_by"],
              library_ms=None)]
+    # hymba's (64, 5) and whisper's (64, 1) K6 instances and K7 windowed at
+    # G 5 and non-causal at G 1, on serve-hymba's and serve-whisper's
+    # paths; K1 and K5 at their probe widths, 1600 and 384
+    family_rows = []
+    for tag, shape, fleet_key, model_key, k6_row, k7_row, fw, k1_key in (
+            ("d 64, G 5, bf16, ring of 1,024", HYMBA, "hymba",
+             "hymba_model", dict(B=4, S=HYMBA_WINDOW, cache="bf16"),
+             dict(B=1, Sq=1128, dtype="bf16"), HYMBA_PROBE_F,
+             "hymba_width"),
+            ("d 64, G 1, bf16, 1,500 frames", WHISPER, "whisper",
+             "whisper_model", dict(B=4, S=WHISPER_FRAMES, cache="bf16"),
+             dict(B=1, Sq=WHISPER_FRAMES, dtype="bf16"), WHISPER_PROBE_F,
+             "whisper_width")):
+        H, KV, d, _ = shape
+        fl = families[fleet_key]["launches"]
+        mw = families[model_key]["bf16"]
+        k7_tag = ("causal, window 1,024" if shape is HYMBA
+                  else "non-causal")
+        family_rows += [
+            d128_entry(f"flash_decode ({tag})", "flash_decode.cu",
+                       "decode_attention.py:78", fl["flash_decode"],
+                       max([max(r[k] for k in k6_keys) for r in k6
+                            if r["d"] == d and r["H"] == H]
+                           + [mw["k6_out_err"]]),
+                       pick(k6, d=d, H=H, **k6_row)),
+            d128_entry(f"flash_attention (d 64, G {H // KV}, {k7_tag}, "
+                       "bf16)", "flash_attention.cu",
+                       "flash_attention.py:64", fl["flash_attention"],
+                       max([r["max_abs_err"] for r in k7
+                            if r["d"] == d and r["H"] == H]
+                           + [mw["k7_err"]]),
+                       pick(k7, d=d, H=H, **k7_row))]
+        k1_rows = k1[k1_key]
+        row = pick(k1_rows, view="distinct")
+        k5_row = pick(k5["timed"], f=fw)
+        family_rows += [
+            dict(name=f"serving_probe_step (f {fw})", route="cuda",
+                 source="src/repro_torch/csrc/probe_spec.cu",
+                 replaces="src/repro/kernels/ttt_probe.py:368",
+                 launches=fl["serving_probe_step"],
+                 max_abs_err=max(max(r["max_abs_err"].values())
+                                 for r in k1_rows),
+                 ms=row["ms"], plain_ms=row["plain_ms"],
+                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                 library_ms=None,
+                 served_ms=pick(k1_rows, view="same")["ms"]),
+            dict(name=f"ttt_probe_batched (f {fw})", route="cuda",
+                 source="src/repro_torch/csrc/ttt_scan.cu",
+                 replaces="src/repro/kernels/ttt_probe.py:80",
+                 launches=fl["ttt_probe_batched"],
+                 max_abs_err=max(c[6] for c in k5["per_case"] if c[0] == fw),
+                 ms=k5_row["ms"], plain_ms=k5_row["plain_ms"],
+                 bound_ms=k5_row["bound_ms"], bound_by=k5_row["bound_by"],
+                 library_ms=None)]
     llama_k1 = pick(k1["llama_width"], view="distinct")
     d128_rows.append(dict(
         name=f"serving_probe_step (f {LLAMA_PROBE_F})", route="cuda",
@@ -6470,7 +7111,7 @@ def main() -> int:
              ms=k8[0]["ms"], plain_ms=k8[0]["plain_ms"],
              bound_ms=k8[0]["bound_ms"], bound_by=k8[0]["bound_by"],
              library_ms=None),
-    ] + d128_rows + d80_rows + moe_rows + llava_rows})
+    ] + d128_rows + d80_rows + moe_rows + llava_rows + family_rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()

@@ -202,22 +202,21 @@ ALIASES = {
 }
 
 
-# the configs the port carries; every other family raises.  A config with
-# attention (dense, MoE or the VLM) is ported only with its (d_head,
-# n_heads // n_kv_heads) in the instance sets of the attention kernels
-# (tests/test_torch_d128.py holds this)
+# the configs the port carries: all ten.  A config with attention (dense,
+# MoE, the VLM, hymba's hybrid layers and whisper's encoder-decoder) is
+# ported only with its (d_head, n_heads // n_kv_heads) in the instance sets
+# of the attention kernels its family runs (tests/test_torch_d128.py holds
+# this)
 PORTED = ("smollm_360m", "rwkv6_1b6", "llama32_3b", "qwen15_32b",
-          "stablelm_3b", "granite_moe_1b", "phi35_moe", "llava_next_34b")
+          "stablelm_3b", "granite_moe_1b", "phi35_moe", "llava_next_34b",
+          "hymba_1b5", "whisper_tiny")
 
 
 def get_config(name: str) -> ModelConfig:
     mod_name = ALIASES.get(name, name).replace("-", "_")
     if mod_name in ARCH_IDS and mod_name not in PORTED:
         raise NotImplementedError(
-            f"{name!r} is not ported to repro_torch yet: the port carries "
-            "smollm-360m, rwkv6-1.6b, llama3.2-3b, qwen1.5-32b, "
-            "stablelm-3b, granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b and "
-            "llava-next-34b; hymba-1.5b and whisper-tiny come with ROADMAP "
-            "A7.3")
+            f"{name!r} is not ported to repro_torch: the port carries "
+            + ", ".join(PORTED))
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG

@@ -137,6 +137,8 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
   DECODE_INSTANCE(64, 2)
   DECODE_INSTANCE(128, 4)
   DECODE_INSTANCE(128, 7)
+  DECODE_INSTANCE(64, 5)
+  DECODE_INSTANCE(64, 1)
 #undef DECODE_INSTANCE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,9 +1,10 @@
 """K7: flash prefill attention — hand-written CUDA kernel + its plain
 PyTorch version.
 
-Causal / sliding-window GQA attention of a (B, Sq, H, d) query block
-against (B, Sk, KV, d) keys and values, for any Sq and Sk: query i sees
-key j iff j <= i (causal, from key 0 also when Sk != Sq) and j > i - window.
+Causal, sliding-window or bidirectional GQA attention of a (B, Sq, H, d)
+query block against (B, Sk, KV, d) keys and values, for any Sq and Sk:
+query i sees key j iff j <= i (causal, from key 0 also when Sk != Sq) and
+j > i - window; with ``causal=False`` (whisper's encoder) every key.
 It replaces the TPU kernel ``repro/kernels/flash_attention.py:64
 flash_attention`` (body ``_kernel`` :24), whose launcher asserts
 Sq % bq == 0.  Its contract is f32 throughout, what the JAX package's
@@ -35,7 +36,9 @@ NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # The head dims the kernel is built for and checked at on the card, each
 # for f32 and bf16 and any number of query heads per KV head: smollm-360m's
-# d 64, llama3.2-3b's and qwen1.5-32b's d 128, stablelm-3b's d 80.
+# d 64 (granite-moe-1b's, hymba-1.5b's causal windowed prefill at G 5 and
+# whisper-tiny's non-causal encoder at G 1 too), llama3.2-3b's and
+# qwen1.5-32b's d 128, stablelm-3b's d 80.
 # csrc/flash_attention.cu builds exactly these (its FLASH_INSTANCE lines);
 # every other d is refused.
 INSTANCES = (64, 128, 80)

@@ -39,11 +39,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # d 64 on 15 heads over 5 KV heads, llama3.2-3b's d 128 on 24 over 8,
 # qwen1.5-32b's d 128 on 40 over 40 (its int8 cache dequantised to bf16
 # first), stablelm-3b's d 80 on 32 over 32, granite-moe-1b's d 64 on 16
-# over 8, phi3.5-moe's d 128 on 32 over 8 and llava-next-34b's d 128 on 56
-# over 8.  csrc/flash_decode.cu builds exactly these (its DECODE_INSTANCE
-# lines); every other pair is refused.
+# over 8, phi3.5-moe's d 128 on 32 over 8, llava-next-34b's d 128 on 56
+# over 8, hymba-1.5b's d 64 on 25 over 5 (its window ring) and
+# whisper-tiny's d 64 on 6 over 6 (its decoder cache and its 1,500 frames
+# of cross K/V).  csrc/flash_decode.cu builds exactly these (its
+# DECODE_INSTANCE lines); every other pair is refused.
 INSTANCES = ((64, 3), (128, 3), (128, 1), (80, 1), (64, 2), (128, 4),
-             (128, 7))
+             (128, 7), (64, 5), (64, 1))
 
 
 def flash_decode_partials_plain(qg, k, v, valid):

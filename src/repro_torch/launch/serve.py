@@ -4,6 +4,8 @@ side-by-side baseline (``--static-baseline``).
 
     python -m repro_torch.launch.serve --arch smollm-360m --paged \
         --requests 8 --slots 4 --max-new-tokens 96 [--chunk-tokens 64]
+    python -m repro_torch.launch.serve --arch hymba-1.5b
+    python -m repro_torch.launch.serve --arch whisper-tiny
 
 harvests step embeddings from THIS model (random weights from ``--seed``),
 meta-trains the TTT probe, LTT-calibrates lambda* at ``--delta`` and serves
@@ -59,15 +61,21 @@ from repro_torch.trajectories.synthetic import (TrajectoryDistribution,
 
 
 def model_inputs(cfg, generator: torch.Generator, n: int, prompt_len: int):
-    """Random prompt tokens, host-side: {"tokens": (n, prompt_len) int32},
-    and for a VLM its patch embeddings as the JAX driver gives them, zeros
-    of (n, patch tokens, embed_dim)."""
+    """Random prompt tokens, host-side: {"tokens": (n, prompt_len) int32};
+    for a VLM its patch embeddings as the JAX driver gives them, zeros of
+    (n, patch tokens, embed_dim); for audio its stub frontend's frame
+    embeddings as the JAX driver draws them, N(0, 1) x 0.02 of
+    (n, frames, d_model), from ``generator``."""
     toks = torch.randint(0, cfg.vocab_size, (n, prompt_len),
                          generator=generator, dtype=torch.int32)
     batch = {"tokens": toks.numpy()}
     if cfg.arch_type == "vlm":
         batch["patch_embeds"] = np.zeros(
             (n, cfg.frontend.n_tokens, cfg.frontend.embed_dim), np.float32)
+    if cfg.arch_type == "audio":
+        batch["frames"] = (torch.randn(
+            (n, cfg.frontend.n_tokens, cfg.d_model), generator=generator)
+            * 0.02).numpy()
     return batch
 
 

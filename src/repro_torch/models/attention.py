@@ -106,13 +106,24 @@ def cache_write_stacked(cache: Dict[str, torch.Tensor], ks: torch.Tensor,
     return cache
 
 
-def decode_valid_mask(pos: torch.Tensor, batch: int, s_cache: int
+def decode_valid_mask(pos: torch.Tensor, batch: int, s_cache: int,
+                      window: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cache write slot + readable-entry mask for one decode step (no
-    sliding window): slot = pos, valid = [0, pos) per row."""
+    """Cache write slot + readable-entry mask for one decode step.
+
+    Without a window: slot = pos, valid = [0, pos) per row.  With a window
+    the cache is a ring buffer (hymba's): slot = pos % window, and index i
+    holds the most recent position p <= pos with p % window == i, readable
+    iff that position exists and is < pos (the pos entry is stale until the
+    write after the layer loop)."""
     pos = pos.to(torch.int32).expand(batch)
     idxs = torch.arange(s_cache, device=pos.device)
-    return pos, idxs[None, :] < pos[:, None]
+    if window is None:
+        return pos, idxs[None, :] < pos[:, None]
+    stored = pos[:, None] - torch.remainder(pos[:, None] - idxs[None, :],
+                                            window)
+    return (torch.remainder(pos, window),
+            (stored >= 0) & (stored < pos[:, None]))
 
 
 def cache_kv(cache_l: Dict[str, torch.Tensor], dtype

@@ -159,18 +159,35 @@ def rope_frequencies(d_rot: int, theta: float, device="cpu") -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-               rotary_pct: float = 1.0) -> torch.Tensor:
-    """x: (..., seq, n_heads, d_head); positions: (..., seq)."""
-    d_head = x.shape[-1]
+def rope_tables(positions: torch.Tensor, d_head: int, theta: float,
+                rotary_pct: float = 1.0):
+    """The rotation of ``positions`` (..., seq): (cos, sin) of
+    (..., seq, 1, d_rot/2) and d_rot, or None where nothing rotates.
+    Computed once, they serve every layer of a step
+    (``apply_rope_tables``)."""
     d_rot = int(d_head * rotary_pct)
     d_rot -= d_rot % 2
     if d_rot == 0:
-        return x
-    freqs = rope_frequencies(d_rot, theta, x.device)            # (d_rot/2,)
+        return None
+    freqs = rope_frequencies(d_rot, theta, positions.device)    # (d_rot/2,)
     angles = positions[..., None].float() * freqs               # (..., seq, d_rot/2)
-    cos = torch.cos(angles)[..., None, :]
-    sin = torch.sin(angles)[..., None, :]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :], \
+        d_rot
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               rotary_pct: float = 1.0) -> torch.Tensor:
+    """x: (..., seq, n_heads, d_head); positions: (..., seq)."""
+    return apply_rope_tables(x, rope_tables(positions, x.shape[-1], theta,
+                                            rotary_pct))
+
+
+def apply_rope_tables(x: torch.Tensor, tables) -> torch.Tensor:
+    """x: (..., seq, n_heads, d_head) rotated by ``rope_tables``' tables
+    of its positions."""
+    if tables is None:
+        return x
+    cos, sin, d_rot = tables
     xr, xp = x[..., :d_rot], x[..., d_rot:]
     x1, x2 = xr[..., : d_rot // 2], xr[..., d_rot // 2:]
     out1 = x1 * cos - x2 * sin

@@ -49,6 +49,40 @@ converted to bf16 (the model's ``decls`` declare them so):
     layers.cm.mu_k / mu_r     (L, d)
     layers.cm.Wk (L, d, d_ff); cm.Wv (L, d_ff, d); cm.Wr (L, d, d)
 
+hymba (``models/hymba.py``): the dense leaves above (no biases, untied
+lm_head) and, with di = expand * d, ds = state_dim, r = dt_rank:
+
+    meta_tokens               (n_meta, d)   put in front of the prompt
+    layers.mamba.w_in         (L, d, 2 di)  x @ w_in -> [x_in | z]
+    layers.mamba.conv_w       (L, conv_dim, di); conv_b (L, di)
+    layers.mamba.w_x_dt       (L, di, r); w_dt (L, r, di)
+    layers.mamba.b_dt         (L, di)
+    layers.mamba.w_B / w_C    (L, di, ds)
+    layers.mamba.A_log        (L, di, ds)   (f32)
+    layers.mamba.D            (L, di)       (f32)
+    layers.mamba.w_out        (L, di, d)
+    layers.norm_attn.scale / norm_ssm.scale  (L, d)
+    layers.beta               (L, 2)        (f32) branch weights
+
+A_log, D and beta are read through a float32 cast in JAX, so they stay
+float32 (A_log's small random values would round in bf16); b_dt is cast
+to the activation dtype there, so it is stored in it like the weights,
+which gives the values JAX's cast gives.
+
+whisper (``models/whisper.py``), tied embeddings (no lm_head), LayerNorm
+scales and biases throughout:
+
+    pos_embed                 (32768, d)    decoder learned positions
+    enc_layers.ln1 / ln2 .scale / .bias     (Le, d)
+    enc_layers.attn.wq / wk / wv / wo       (Le, d, H*dh) / (Le, H*dh, d)
+    enc_layers.attn.bq / bk / bv            (Le, H*dh)
+    enc_layers.mlp.w_in (Le, d, d_ff); b_in (Le, d_ff)
+    enc_layers.mlp.w_out (Le, d_ff, d); b_out (Le, d)
+    enc_norm.scale / .bias    (d,)
+    dec_layers.ln1 / ln2 / ln3 .scale / .bias  (L, d)
+    dec_layers.self_attn.*, dec_layers.cross_attn.*  as enc_layers.attn.*
+    dec_layers.mlp.*          as enc_layers.mlp.*
+
 The probe's slow weights (``repro.core.probe.init_outer``'s dict: W0 (f,),
 b0 (), theta_q/theta_k (d_phi, d_h), ...) map the same way.
 """

@@ -24,13 +24,15 @@ package's:
     draft_tree(cfg, params, state, token, pos, width, depth)
         -> (B, width, depth) drafts
 
-The dense family, the MoE family (the dense model with ``moe.moe_dense``
-as its MLP), the VLM (the dense model with a patch projector in front of
-its prefill) and RWKV6 (``ssm``) are ported; the others raise.
-RWKV6 has no page layout, no chunked or packed prefill and no speculative
-decode, linear or tree, as in the JAX package: the serving layer falls
-back to a dense state, admission-time prefill and one-token decode for
-it.
+Every family of the JAX package is ported: the dense family, the MoE
+family (the dense model with ``moe.moe_dense`` as its MLP), the VLM (the
+dense model with a patch projector in front of its prefill), RWKV6
+(``ssm``), hymba (``hybrid``: attention and Mamba heads, a sliding-window
+ring) and whisper (``audio``: encoder-decoder over stub frames).  RWKV6,
+hymba and whisper have no page layout, no chunked or packed prefill and
+no speculative decode, linear or tree, as in the JAX package: the serving
+layer falls back to a dense state, admission-time prefill and one-token
+decode for them.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import hymba, rwkv6, transformer, whisper
 from repro_torch.models.common import cdtype, init_params
 
 
@@ -155,12 +157,25 @@ def _build_rwkv(cfg: ModelConfig) -> Model:
                  init_decode_state=init_decode_state)
 
 
+def _build_family(cfg: ModelConfig, module) -> Model:
+    """hymba or whisper: the module's decls, prefill, decode step and
+    decode state (``module.init_state(cfg, batch, cache_len, device)``)."""
+    def init_decode_state(batch: int, cache_len: int, device=None):
+        return module.init_state(cfg, batch, cache_len,
+                                 device=resolve_device(device))
+
+    return Model(cfg=cfg, decls=module.decls(cfg), prefill=module.prefill,
+                 decode_step=module.decode_step,
+                 init_decode_state=init_decode_state)
+
+
+_BUILDERS = {"dense": _build_dense, "moe": _build_dense, "vlm": _build_dense,
+             "ssm": _build_rwkv,
+             "hybrid": lambda cfg: _build_family(cfg, hymba),
+             "audio": lambda cfg: _build_family(cfg, whisper)}
+
+
 def build(cfg: ModelConfig) -> Model:
-    if cfg.arch_type in ("dense", "moe", "vlm"):
-        return _build_dense(cfg)
-    if cfg.arch_type == "ssm":
-        return _build_rwkv(cfg)
-    raise NotImplementedError(
-        f"{cfg.name} ({cfg.arch_type}): only the dense, MoE and VLM families "
-        "and RWKV6 are ported to repro_torch; hymba and whisper come with "
-        "ROADMAP A7.3")
+    if cfg.arch_type not in _BUILDERS:
+        raise ValueError(f"{cfg.name}: unknown arch_type {cfg.arch_type!r}")
+    return _BUILDERS[cfg.arch_type](cfg)

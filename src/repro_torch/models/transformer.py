@@ -49,8 +49,9 @@ def _mlp_decls(cfg) -> Dict[str, Param]:
 def decls(cfg) -> Dict[str, Any]:
     if cfg.mlp != "swiglu" or cfg.arch_type not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, MoE and VLM swiglu families are "
-            "ported; hymba and whisper come with ROADMAP A7.3")
+            f"{cfg.name}: the decoder-only transformer takes the dense, MoE "
+            "and VLM swiglu families; rwkv6, hymba and whisper have modules "
+            "of their own (models/registry.py)")
     mlp = moe.moe_decls(cfg) if cfg.moe is not None else _mlp_decls(cfg)
     tree: Dict[str, Any] = {
         "embed": Param((cfg.padded_vocab(), cfg.d_model), "embed"),

@@ -537,6 +537,17 @@ def prefix_len(mcfg, batch_one: Dict[str, np.ndarray],
     return n
 
 
+def decode_start(mcfg, batch_one: Dict[str, np.ndarray],
+                 prompt_len: int) -> int:
+    """The position a request's first decode step runs at: after the whole
+    prefill prefix (vlm patches and meta tokens included), or 0 for an
+    audio encoder-decoder, whose decoder cache holds generated tokens
+    only."""
+    if mcfg.arch_type == "audio":
+        return 0
+    return prefix_len(mcfg, batch_one, prompt_len)
+
+
 @dataclasses.dataclass
 class ServeResult:
     tokens: np.ndarray        # (B, n_decode_iters) tokens actually decoded
@@ -585,8 +596,10 @@ class ServingEngine:
         toks: List[torch.Tensor] = []
         scores: List[np.ndarray] = []
         last_max_n = 0
+        pos0 = decode_start(mcfg, batch, prompt_len)
         for i in range(cfg.max_new_tokens):
-            pos = torch.full((B,), pre + i, dtype=torch.int32, device=device)
+            pos = torch.full((B,), pos0 + i, dtype=torch.int32,
+                             device=device)
             token, state, st = self._step_fn(self.params, token, state, pos,
                                              st)
             toks.append(token)
@@ -683,8 +696,9 @@ def extract_trajectories(model: Model, params, batch, prompt_len: int,
     phis: List[torch.Tensor] = []
     tokens: List[torch.Tensor] = []
     cnt = 0
+    pos0 = decode_start(mcfg, batch, prompt_len)
     for i in range(max_new_tokens):
-        pos = torch.full((B,), pre + i, dtype=torch.int32, device=device)
+        pos = torch.full((B,), pos0 + i, dtype=torch.int32, device=device)
         logits, hidden, state = model.decode_step(mcfg, params, token, state,
                                                   pos)
         token = torch.argmax(logits[:, :mcfg.vocab_size], -1).to(torch.int32)
@@ -889,8 +903,8 @@ class ContinuousServingEngine:
                            self.cache_len)
         reset_probe_slot(self.pc, self.theta, self.st, slot, active=True)
         self.token[slot] = 0
-        # decode resumes AFTER the whole prefill prefix
-        self.pos[slot] = prefix_len(self.model.cfg, batch_one, prompt_len)
+        # decode resumes AFTER the whole prefill prefix (at 0 for audio)
+        self.pos[slot] = decode_start(self.model.cfg, batch_one, prompt_len)
 
     def release(self, slot: int) -> None:
         """Evict the slot's request: park the probe row as no-op compute.

@@ -328,6 +328,8 @@ class OrcaScheduler:
             mcfg = self.model.cfg
             max_prompt = max((prefix_len(mcfg, r.inputs, r.prompt_len)
                               for r in requests), default=0)
+            if mcfg.arch_type == "audio":
+                max_prompt = 0  # decoder cache holds generated tokens only
             max_new = max([r.max_new_tokens or self.cfg.max_new_tokens
                            for r in requests] + [self.cfg.max_new_tokens])
             cache_len = max_prompt + max_new
@@ -374,9 +376,14 @@ class OrcaScheduler:
     # ------------------------------------------------------------------
     # paged admission: reserve pages (all-or-nothing) + prefix sharing
     def _request_tokens(self, req: Request) -> int:
-        """Virtual positions this request needs: prefill prefix + budget."""
+        """Virtual positions this request needs: prefill prefix + budget
+        (the budget alone for audio, whose decoder cache holds generated
+        tokens only)."""
+        mcfg = self.model.cfg
         max_new = req.max_new_tokens or self.cfg.max_new_tokens
-        return prefix_len(self.model.cfg, req.inputs, req.prompt_len) + max_new
+        if mcfg.arch_type == "audio":
+            return max_new
+        return prefix_len(mcfg, req.inputs, req.prompt_len) + max_new
 
     def _request_blocks(self, req: Request) -> int:
         return blocks_needed(self._request_tokens(req), self.block_size)

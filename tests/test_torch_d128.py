@@ -4,11 +4,12 @@ stablelm-3b (d 80, MHA, G 1: the first head dim that is not a power of
 two), the MoE configs granite-moe-1b (d 64, G 2) and phi3.5-moe
 (d 128, G 4), and the VLM llava-next-34b (d 128, 56 heads on 8: G 7).
 
-* the six configs equal the JAX package's field by field; the families
-  not ported yet still raise, naming ROADMAP A7.3;
-* every ported config with attention (dense and MoE) has its
-  (d_head, heads per KV head) in the
-  instance set of each attention kernel (K2, K3, K6; K7 by d), and each
+* the eight configs equal the JAX package's field by field; hymba-1.5b
+  and whisper-tiny, refused until ROADMAP A7.3, resolve;
+* every ported config with attention has its (d_head, heads per KV head)
+  in the instance set of each attention kernel its family runs (K2, K3,
+  K6 and K7 by d for the dense, MoE and VLM families; K6 and K7 for
+  hymba's hybrid layers and whisper's encoder-decoder), and each
   kernel module's ``INSTANCES`` names exactly the instances its CUDA source
   builds; a pair outside the set is refused;
 * the plain versions of K2, K3 (prefill and packed chunks), K6 and K7 at
@@ -54,7 +55,11 @@ SHAPES = [pytest.param(128, 6, 2, id="6-2"), pytest.param(128, 2, 2, id="2-2"),
 # VLM (llava-next-34b at d 128, G 7)
 D_HEAD = {"llama3.2-3b": 128, "qwen1.5-32b": 128, "stablelm-3b": 80,
           "granite-moe-1b-a400m": 64, "phi3.5-moe-42b-a6.6b": 128,
-          "llava-next-34b": 128}
+          "llava-next-34b": 128, "hymba-1.5b": 64, "whisper-tiny": 64}
+# K6 and K7 alone also at hymba-1.5b's G 5 and whisper-tiny's G 1 at d 64
+# (neither family has a page layout: K2 and K3 never run for them)
+DENSE_SHAPES = SHAPES + [pytest.param(64, 10, 2, id="d64-10-2"),
+                         pytest.param(64, 2, 2, id="d64-2-2")]
 BS, NB = 8, 4
 CSRC = Path(K2.__file__).resolve().parent.parent / "csrc"
 
@@ -82,8 +87,12 @@ def test_config_equals_jax_field_by_field(name):
 
 @pytest.mark.parametrize("name", ["hymba-1.5b", "whisper-tiny"])
 def test_unported_family_raises_naming_a7(name):
-    with pytest.raises(NotImplementedError, match="A7.3"):
-        get_config(name)
+    """The two families refused until ROADMAP A7.3 resolve now, and every
+    config the JAX package names is ported."""
+    cfg = get_config(name)
+    assert cfg is get_config(cfg_base.ALIASES[name])
+    assert set(cfg_base.PORTED) == set(cfg_base.ARCH_IDS)
+    assert build(cfg.reduced()).cfg.arch_type in ("hybrid", "audio")
 
 
 def test_widths_of_the_new_fleets():
@@ -145,17 +154,23 @@ def test_instance_sets_equal_the_cuda_sources():
 
 @pytest.mark.parametrize("mod", cfg_base.PORTED)
 def test_every_ported_config_has_its_kernel_instances(mod):
-    """Every ported config with attention, dense, MoE and VLM alike; RWKV6
-    has none (K8 is built per head size, tests/test_torch_rwkv_scan.py)."""
+    """Every ported config with attention, dense, MoE, VLM, hybrid and
+    audio alike; RWKV6 has none (K8 is built per head size,
+    tests/test_torch_rwkv_scan.py)."""
     cfg = get_config(mod)
     if cfg.arch_type == "ssm":
         return
-    assert cfg.arch_type in ("dense", "moe", "vlm"), cfg.arch_type
     pair = (cfg.d_head, cfg.n_heads // cfg.n_kv_heads)
-    assert pair in K2.INSTANCES
-    assert pair in K3.INSTANCES
     assert pair in K6.INSTANCES
     assert cfg.d_head in K7.INSTANCES
+    if cfg.arch_type in ("hybrid", "audio"):
+        # no page layout, chunk or verify path in the JAX registry: K2 and
+        # K3 never run for them
+        assert not build(cfg.reduced()).supports_paged
+        return
+    assert cfg.arch_type in ("dense", "moe", "vlm"), cfg.arch_type
+    assert pair in K2.INSTANCES
+    assert pair in K3.INSTANCES
 
 
 def test_a_pair_outside_the_instance_set_is_refused():
@@ -285,7 +300,7 @@ def test_k3_packed_chunk_plain_matches_pallas_at_d128(dtype, d, h, kv):
     assert float(got[1][~live].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("d,h,kv", SHAPES)
+@pytest.mark.parametrize("d,h,kv", DENSE_SHAPES)
 def test_k6_plain_matches_pallas_at_d128(d, h, kv):
     """bf16-valued f32 caches (qwen's int8 cache reaches K6 dequantised
     to bf16); rows fully valid, ragged, and a window band."""
@@ -303,15 +318,19 @@ def test_k6_plain_matches_pallas_at_d128(d, h, kv):
     _close(out, pallas)
 
 
-@pytest.mark.parametrize("window", [None, 24])
-@pytest.mark.parametrize("d,h,kv", SHAPES)
+@pytest.mark.parametrize("window", [None, 24, "bidirectional"])
+@pytest.mark.parametrize("d,h,kv", DENSE_SHAPES)
 def test_k7_plain_matches_pallas_at_d128(d, h, kv, window):
+    """Causal, windowed (hymba's prefill) and bidirectional (whisper's
+    encoder, ``causal=False``)."""
     rng = np.random.default_rng(4)
     B, S = 2, 64
     q = _bf16_valued(rng.standard_normal((B, S, h, d)))
     k = _bf16_valued(rng.standard_normal((B, S, kv, d)))
     v = _bf16_valued(rng.standard_normal((B, S, kv, d)))
-    out = K7.flash_attention(*_t(q, k, v), causal=True, window=window)
-    pallas = jops.flash_attention(*_j(q, k, v), causal=True, window=window,
+    causal = window != "bidirectional"
+    window = window if causal else None
+    out = K7.flash_attention(*_t(q, k, v), causal=causal, window=window)
+    pallas = jops.flash_attention(*_j(q, k, v), causal=causal, window=window,
                                   bq=16, bk=16, interpret=True)
     _close(out, pallas)

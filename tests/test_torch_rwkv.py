@@ -224,6 +224,8 @@ def test_registry_builds_rwkv_without_paged_chunked_or_spec():
     assert st["tm_x"].shape == st["cm_x"].shape == (2, 3, 256)
     decl = rwkv6.layer_decls(cfg)["tm"]["u"]
     assert decl == Param((32, 64), "small", dtype="float32")
-    for name in ("hymba-1.5b",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(name)
+    # hymba, the other recurrent family, is built the same way: a dense
+    # state, no page layout, chunked prefill or speculative decode
+    hybrid = build(get_config("hymba-1.5b").reduced())
+    assert not (hybrid.supports_paged or hybrid.supports_chunked
+                or hybrid.supports_spec)
