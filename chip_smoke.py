@@ -151,7 +151,7 @@ non-zero:
 12. serve   -- ``repro_torch.launch.serve`` end to end on the card:
                harvest, meta-train, calibrate, serve 8 requests on 4 slots;
                K1, K2, and K6 and K7 (the harvest and every admission)
-13. trace   -- a profiler window over 8 engine steps of the same fleet:
+13. trace   -- a profiler window over 4 engine steps of the same fleet:
                the card's busy share and the kernels that take it, and the
                split-KV merges a step (none at the served shapes)
 14. harvest -- the driver's harvest (24 trajectories, 48 dense decode
@@ -180,7 +180,7 @@ non-zero:
                layers (``CutDepth``): K4 launches once per engine
                step, its first 16 calls held against the plain version;
                requests compared with the one-token fleets (tokens and
-               stops); an 8-step profiled window of the spec fleet
+               stops); a 4-step profiled window of the spec fleet
 20. serve-spec-f32 -- the serve fleet in f32 at 4 of its 32 layers
                through ``OrcaScheduler`` at a lambda* between its scores:
                the spec fleet's stops
@@ -193,8 +193,8 @@ non-zero:
                engine step and K3 8 times (once a layer), its first 16 K4
                calls held against the
                plain version, node and path stats, draft-cache hits, its
-               requests beside the one-token fleet's; an 8-step profiled
-               window; then the serve fleet in f32 at 8 of its 32 layers
+               requests beside the one-token fleet's; a 4-step profiled
+               window; then the serve fleet in f32 at 4 of its 32 layers
                (``TREE_F32_LAYERS``),
                paged and chunked (4 requests, 64-token chunks) at a
                lambda* between the free fleet's scores: the
@@ -256,7 +256,7 @@ non-zero:
                fleet step wall p50/p99, the serial run's peak memory above
                its start (``tools/fleet_overlap.py`` measures one host,
                the busy share and the other peaks).
-               fleet-stops-f32: its weights in f32 at 4 layers on
+               fleet-stops-f32: its weights in f32 at 2 layers on
                f32 pages, 8 distinct prompts at a lambda* between their
                scores through one scheduler and fleets of 2 (pressure,
                parallel), 2 (roundrobin, serial) and 3 (pressure,
@@ -267,7 +267,7 @@ non-zero:
                lands on one host, a group of 5 is refused
 21. offline  -- the paper's procedure on the synthetic corpus at d_phi 960
                (``corpus_splits(500, 170, 170)``): ``orca.fit`` of the TTT
-               probe (no-QK, QK d_h 128; 8 epochs, ``OFFLINE_EPOCHS``,
+               probe (no-QK, QK d_h 128; 6 epochs, ``OFFLINE_EPOCHS``,
                of the benchmark's 35) and the static probe, then
                ``orca.evaluate`` at every delta; K5 launches in fit and in
                evaluate, and its plain version's scores give the same
@@ -300,7 +300,7 @@ non-zero:
                launches 8 x (1 harvest prefill + 96 harvest steps + 8
                admissions + the engine steps); K1 and K5 run; K2, K3, K4,
                K6 and K7 never
-26. trace-rwkv, harvest-rwkv -- an 8-step profiled window of the RWKV
+26. trace-rwkv, harvest-rwkv -- a 4-step profiled window of the RWKV
                fleet; its harvest (48 steps) timed through K8 and through
                the plain scan in turns (K8 once a layer a prefill or
                decode step)
@@ -334,10 +334,28 @@ non-zero:
                evaluation at full depth.  serve-whisper: the driver (8
                requests on 4 slots, 96 new tokens, a harvest of 24): K7 4 x
                9, K6 8 x (96 + engine steps), K1 once a step, K5 once.
-               trace-whisper: an 8-step window.  serve-whisper-f32: the
+               trace-whisper: a 4-step window.  serve-whisper-f32: the
                fleet in f32 at its first 2 encoder and 2 decoder layers
                (``WHISPER_F32_LAYERS``), kernels against plain: stops and
                tokens equal
+27d. train, train-check -- training (``repro_torch.launch.train``), the
+               path no kernel is on: launch counts zeroed before each and
+               read after, every count 0 (the kernels refuse inputs that
+               require grad).  train: the CLI at smollm-360m's full width
+               and depth, batch 8 x seq 128, 30 steps (warmup 5) from
+               float32 masters into a temporary checkpoint directory, the
+               loss falling (the CLI's exit 0); s/step (median past the
+               first), tokens/s, peak memory, model FLOP/s
+               (``roofline.analytic``) against 989 TFLOP/s; the checkpoint
+               restored bitwise, then the CLI resumed from it for 4
+               steps.  train-check: smollm-360m, rwkv6-1.6b,
+               granite-moe-1b-a400m, hymba-1.5b and whisper-tiny at full
+               width in f32 at 2 layers (whisper 2 + 2), one step's loss
+               and every gradient leaf on the card against the port on
+               the CPU (the MoE routing teacher-forced) within the
+               family's bound, beside the card's own rounding spread and
+               a TF32 control; then 3 bf16 steps each at 4 layers
+               (whisper whole): finite losses, s/step, peak memory
 28. model-llama, model-qwen -- llama3.2-3b (28 layers) and qwen1.5-32b
                (64 layers, int8 KV pages) at full width and depth, random
                bf16 weights drawn on the card: prefill 16 tokens, 8
@@ -348,7 +366,7 @@ non-zero:
 29. serve-llama, trace-llama -- ``launch.serve --arch llama3.2-3b
                --paged``: 4 requests on 4 slots, 48 new tokens, 8
                harvested trajectories; K1 at f 3072, K2, K6 (harvest, G 3)
-               and K7 counted exactly; an 8-step profiled window;
+               and K7 counted exactly; a 4-step profiled window;
                serve-llama-tree: ``--spec-tree 2.3`` on its weights and
                probe (no second harvest), K4 once a step and K3 at d 128,
                G 3 once a layer a step
@@ -379,7 +397,7 @@ non-zero:
                --prompt-len 160``: K2 and K3 at (64, 2) on bf16 pages, the
                harvest through K7 and K6, K1 and K5 at f 1024, every K1,
                K2, K3, K6 and K7 launch counted exactly, a packed chunk;
-               an 8-step profiled window of decode steps (16-token
+               a 4-step profiled window of decode steps (16-token
                prompts); in f32 at 4 of its 24 layers on
                f32 pages in 64-token chunks, through the kernels and
                through the plain attention: stops and tokens equal, with
@@ -390,7 +408,7 @@ non-zero:
                (``PHI_LAYERS``: 58.6 GiB of bf16 weights; the whole
                model's 78.0 GiB leaves no room for a cache), as
                serve-granite: K2 and K3 at (128, 4); peak memory; an
-               8-step profiled window of decode steps; in f32 at 4 layers
+               4-step profiled window of decode steps; in f32 at 4 layers
                (weights drawn anew on the card once the bf16 fleet is
                gone) as serve-granite-f32; model-phi's f32 evaluation
                keeps a copy of the first 4 bf16 layers and frees the rest
@@ -403,7 +421,7 @@ non-zero:
                patches drawn N(0, 1) from the seed (the driver's zero
                patches project to exact zeros).  model-llava: one image
                request (2,880 patches and 16 tokens) prefilled through K7
-               and 8 teacher-forced paged decode steps through K2 as
+               and 4 teacher-forced paged decode steps through K2 as
                model-llama, every K7 call of the dense path held to
                float64; then its first 4 layers in f32 (``f32_evaluation``).
                serve-llava: a harvest of 8 image trajectories in batches
@@ -414,7 +432,7 @@ non-zero:
                tokens each, K2 at (128, 7) and K1 at f 7168; every K1, K2,
                K3, K6 and K7 launch counted exactly, each request's stop
                and tokens, TTFT by class, peak memory.  trace-llava: an
-               8-step profiled window of 2 image and 2 text requests.
+               4-step profiled window of 2 image and 2 text requests.
                serve-llava-f32: serve-llava's traffic in f32 at 4 of 60
                layers on f32 pages with its probe, through K2, K3 and K7
                and through the plain attention: stops and tokens equal
@@ -3016,10 +3034,13 @@ def phase_model_spec(torch, reduced: bool = False):
 # phases serve and serve-chunked: the driver on the card; trace and
 # trace-chunked: its profiled windows
 
-# a profiled window's engine steps, cut from 16 to keep the script within
-# its time; trace-chunked's 24 and trace-stablelm's and trace-qwen's 16
-# hold their prompts' chunk steps and the decode after
-TRACE_STEPS = 8
+# engine steps of a profiled window, cut to keep the script within its
+# time.  trace-chunked's 24 and trace-stablelm's and trace-qwen's
+# CHUNKED_TRACE_STEPS hold their prompts' chunk steps and the decode after
+# them: 4 prompts of 160 tokens take 9 chunked steps, so a window of 8
+# holds chunk steps alone
+TRACE_STEPS = 4
+CHUNKED_TRACE_STEPS = 16
 
 def kernel_counters():
     """Every kernel wrapper of the port, by name: each counts its launches."""
@@ -3590,9 +3611,10 @@ def same_steps(a_views, b_views) -> bool:
     return True
 
 
-# tree-stops-f32's depth: 8 of the serve-tree fleet's 32 layers (full
-# width), cut to make room for the fleet phases within the script's time
-TREE_F32_LAYERS = 8
+# tree-stops-f32's depth: 4 of the serve-tree fleet's 32 layers (full
+# width; 8 until the training phases), cut to make room for the fleet and
+# training phases within the script's time
+TREE_F32_LAYERS = 4
 
 
 def phase_tree_stops(torch, sched, requests: int = 4, prompt_len: int = 16):
@@ -4575,6 +4597,9 @@ def phase_group_stops(torch, sched, requests: int = 8, prompt_len: int = 16):
 
 FLEET_HOSTS = 2
 FLEET_REQUESTS = 8
+# fleet-stops-f32's layers (F32_LAYERS, 4, until the training phases):
+# its placements and hosts do not depend on depth
+FLEET_F32_LAYERS = 2
 
 
 class Tee:
@@ -4721,8 +4746,8 @@ def phase_serve_fleet(torch):
 
 def phase_fleet_stops(torch, sched, requests: int = FLEET_REQUESTS,
                       prompt_len: int = 16):
-    """serve-fleet's weights in f32, its first ``F32_LAYERS`` layers (full
-    width) on f32 pages, with its probe: 8 distinct prompts at a lambda*
+    """serve-fleet's weights in f32, its first ``FLEET_F32_LAYERS`` layers
+    (full width) on f32 pages, with its probe: 8 distinct prompts at a lambda*
     between the free fleet's scores, served by one 4-slot OrcaScheduler,
     by 2 hosts (pressure, parallel), 2 hosts (roundrobin, serial) and 3
     hosts (pressure, parallel): stops and tokens equal, K1 once a host
@@ -4735,7 +4760,8 @@ def phase_fleet_stops(torch, sched, requests: int = FLEET_REQUESTS,
     from repro_torch.serving import (FleetRouter, OrcaScheduler, ServeConfig,
                                      make_group, make_request)
     t_start = time.perf_counter()
-    model32, params32 = f32_cut(sched, F32_LAYERS, kv_cache_dtype="float32")
+    model32, params32 = f32_cut(sched, FLEET_F32_LAYERS,
+                                kv_cache_dtype="float32")
     layers = model32.cfg.n_layers
     pc, theta = sched.pc, sched.theta
     batch = serve.model_inputs(model32.cfg,
@@ -4853,10 +4879,10 @@ def phase_fleet_stops(torch, sched, requests: int = FLEET_REQUESTS,
 # benchmarks/common.py EPOCHS at the full corpus
 EPOCHS = 35
 # phase offline's epochs, cut from EPOCHS to keep the script within its
-# time (10 until the hymba and whisper phases); the epoch selection keeps
-# the best of them (the no-QK probe's validation savings peaked at epoch
-# 4 of 35 on the card)
-OFFLINE_EPOCHS = 8
+# time (10 until the hymba and whisper phases, 8 until the training
+# phases); the epoch selection keeps the best of them (the no-QK probe's
+# validation savings peaked at epoch 4 of 35 on the card)
+OFFLINE_EPOCHS = 6
 
 
 def plain_scores(torch, probe, ts):
@@ -6100,7 +6126,7 @@ class ForcedRouting(RouterMargin):
         if self.run == 0:
             self.chosen[call] = idx
             return logits, probs, gates, idx
-        forced = self.chosen[call]
+        forced = self.chosen[call].to(idx.device)
         self.flips += int((idx.sort(-1).values
                            != forced.sort(-1).values).any(-1).sum())
         gates = probs.gather(-1, forced)
@@ -6256,6 +6282,8 @@ def fresh_f32_stops(torch, arch, phase, pc, theta, layers: int = F32_LAYERS,
 # the VLM: llava-next-34b at full width and depth
 
 LLAVA_ARCH = "llava-next-34b"
+# model-llava's teacher-forced decode steps (8 until the training phases)
+LLAVA_MODEL_STEPS = 4
 # an image request's text after its 2,880 patches; serve-llava's text
 # requests take serve-qwen's 160-token prompts, in 64-token chunks
 LLAVA_TEXT = 16
@@ -6514,6 +6542,372 @@ def phase_llava_f32_stops(torch, pc, theta, layers: int = F32_LAYERS,
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# training (A8a): the trainer's CLI at full width and depth, and every
+# family's gradients on the card against the port on the CPU
+
+TRAIN_ARCH = "smollm-360m"
+TRAIN_STEPS = 30
+TRAIN_WARMUP = 5
+TRAIN_RESUME = 4          # steps after resuming from the checkpoint
+TRAIN_CHECK_ARCHS = ("smollm-360m", "rwkv6-1.6b", "granite-moe-1b-a400m",
+                     "hymba-1.5b", "whisper-tiny")
+# the card against the CPU in f32: 2 layers (whisper 2 + 2) at full
+# width, a batch of 2 x 64 text tokens; every leaf of two or more axes
+# scaled by TRAIN_CHECK_SCALE, as tests/test_torch_train.py scales JAX's
+# draw: at the init's own scale attention saturates and f32 rounding is
+# amplified (there JAX's own jitted and eager gradients part by 1.3e-4
+# of a leaf's largest)
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_SCALE = 0.25
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 64
+# the loss within 1e-5 relative; each gradient leaf within its family's
+# bound of the leaf's largest magnitude, plus 1e-8 for a leaf whose
+# gradient is zero in exact arithmetic (whisper's key biases hold rounding
+# alone).  Each bound sits between the family's f32 reading and its
+# control, the same card step with TF32 products (``tf32_worst_rel_err``),
+# which the check must refuse.  On an H100 (700 W), worst leaf, the card
+# against the CPU and the control: smollm 3.3e-6 and 2.8e-3, granite
+# 3.6e-6 and 3.0e-3, hymba 7.5e-6 and 7.3e-3, whisper 1.8e-5 and 2.5e-3,
+# rwkv6-1.6b 6.2e-4 (the same in every run) and 1.0.  rwkv6's gap is f32
+# rounding through its 64-step WKV recurrence: against the port in
+# float64 on the CPU (``tools/train_f64_witness.py``) the card sits 4.8e-4
+# and the CPU 5.6e-4 at their worst leaves.  ``card_spread_rel`` is how
+# far the card's own gradients move when its parameters move by 1e-7 of
+# themselves
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = {"smollm-360m": 1e-4, "rwkv6-1.6b": 2e-3,
+                  "granite-moe-1b-a400m": 1e-4, "hymba-1.5b": 1e-4,
+                  "whisper-tiny": 1e-4}
+TRAIN_GRAD_FLOOR = 1e-8
+# then 3 bf16 steps on the card at 4 layers (whisper whole) from float32
+# masters, as the trainer takes them: a batch of 4 x 128 text tokens
+TRAIN_BF16_LAYERS, TRAIN_BF16_STEPS = 4, 3
+TRAIN_BF16_BATCH, TRAIN_BF16_SEQ = 4, 128
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as the last-but-one line."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_train(torch):
+    """The trainer's CLI (``repro_torch.launch.train``) at smollm-360m's
+    full width and depth, batch 8 x seq 128, into a temporary checkpoint
+    directory; the loss must fall (the CLI's exit rule), no kernel may
+    launch; s/step (median past the first), tokens/s, peak memory and
+    model FLOP/s against the bf16 peak.  Then the checkpoint restored
+    bitwise and the CLI resumed from it for a few steps."""
+    import shutil
+    import statistics
+    import tempfile
+    from repro_torch.checkpoint import latest_step, restore
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import train as T
+    from repro_torch.optim.adam import tree_leaves
+    from repro_torch.roofline import analytic, constants
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+
+    def argv(steps):
+        out = ["--arch", TRAIN_ARCH, "--steps", str(steps), "--warmup",
+               str(TRAIN_WARMUP), "--batch", "8", "--seq", "128",
+               "--ckpt-dir", ckpt, "--log-every", "10", "--seed", str(SEED)]
+        return out + (["--reduced", "--device", "cpu"] if DEV != "cuda"
+                      else [])
+    try:
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        res = T.train(T.parse(argv(TRAIN_STEPS)))
+        launches = read_launches()
+        peak = peak_gib(torch)
+        if any(launches.values()):
+            raise AssertionError(f"the training path launched kernels: "
+                                 f"{launches}")
+        rc = T.exit_code(res.losses)
+        if rc != 0 or not all(math.isfinite(x) for x in res.losses):
+            raise AssertionError(f"train exit {rc}: losses {res.losses}")
+        step = latest_step(ckpt)
+        if step != TRAIN_STEPS:
+            raise AssertionError(f"checkpoint at step {step}")
+        saved = restore(res.params, os.path.join(ckpt, f"step_{step}"),
+                        device=DEV)
+        bitwise = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(saved), tree_leaves(res.params)))
+        if not bitwise:
+            raise AssertionError("restored parameters differ from the "
+                                 "saved ones")
+        del saved
+        resumed = T.train(T.parse(argv(TRAIN_STEPS + TRAIN_RESUME)))
+        launches_resumed = read_launches()
+        if (resumed.start != TRAIN_STEPS
+                or len(resumed.losses) != TRAIN_RESUME
+                or not all(math.isfinite(x) for x in resumed.losses)
+                or any(launches_resumed.values())):
+            raise AssertionError(f"resume: start {resumed.start}, losses "
+                                 f"{resumed.losses}, {launches_resumed}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    cfg = get_config(TRAIN_ARCH)
+    if DEV != "cuda":
+        cfg = cfg.reduced()
+    step_s = statistics.median(res.step_s[1:])
+    est = analytic.estimate(cfg, InputShape("train", 128, 8, "train"))
+    flops_s = est.model_flops / step_s
+    out = dict(phase="train", arch=TRAIN_ARCH, steps=TRAIN_STEPS,
+               batch=8, seq=128, layers=cfg.n_layers,
+               params=sum(p.numel() for p in tree_leaves(res.params)),
+               loss_first=res.losses[0], loss_last=res.losses[-1],
+               losses=res.losses, exit_code=rc, first_step_s=res.step_s[0],
+               s_per_step=step_s, tokens_per_s=res.tokens_per_step / step_s,
+               peak_gib=peak, model_flops_per_step=est.model_flops,
+               model_flops_per_s=flops_s,
+               mfu=flops_s / constants.PEAK_FLOPS_BF16,
+               launches=launches, restored_bitwise=bitwise,
+               resumed_from=resumed.start, resumed_losses=resumed.losses,
+               resumed_s_per_step=statistics.median(resumed.step_s),
+               card=nvidia_smi() if DEV == "cuda" else None)
+    emit(out)
+    return out
+
+
+def _scaled(tree, scale):
+    from repro_torch.optim.adam import tree_map
+    return tree_map(lambda p: p * scale if p.dim() >= 2 else p, tree)
+
+
+def train_check_batch(torch, cfg, B, S, seed):
+    """A training batch of B x S text tokens (+ whisper's frames, drawn
+    N(0, 1) from ``seed``), on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                   dtype=torch.int32),
+           "targets": torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                    dtype=torch.int32)}
+    if cfg.arch_type == "audio":
+        out["frames"] = torch.randn((B, cfg.frontend.n_tokens, cfg.d_model),
+                                    generator=g)
+    return out
+
+
+def loss_and_grads(torch, model, params, batch):
+    from repro_torch.optim.adam import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, met = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return (float(loss.detach()), float(met["xent"].detach()),
+            float(met["aux"].detach()), [g.detach() for g in grads])
+
+
+def float64_loss_and_grads(torch, model, params, batch):
+    """``loss_and_grads`` of the port on the CPU in float64 throughout: the
+    config's dtype float64, the parameters widened, and ``Tensor.float``
+    widening to float64 while it runs (every f32 cast of the model's
+    contract included).  The witness the f32 gradients are held to."""
+    import dataclasses
+    from repro_torch.models import build
+    from repro_torch.optim.adam import tree_map
+    model64 = build(dataclasses.replace(model.cfg, dtype="float64"))
+    params64 = tree_map(lambda p: p.double(), params)
+    cast = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        return loss_and_grads(torch, model64, params64, batch)
+    finally:
+        torch.Tensor.float = cast
+
+
+def _gaps(got, want):
+    """Each leaf's largest |got - want| and ``want``'s largest magnitude,
+    on ``got``'s device in its dtype (``want`` moved there): the gradients
+    are compared where they lie, not copied to the host."""
+    out = []
+    for g, w in zip(got, want):
+        w = w.to(g.device, g.dtype)
+        out.append((float((g - w).abs().max()), float(w.abs().max())))
+    return out
+
+
+def _rel(names, gaps):
+    """The gaps over their leaves' largest magnitudes (leaves above 1e-6)."""
+    return {n: e / s for n, (e, s) in zip(names, gaps) if s > 1e-6}
+
+
+def _key_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [k for name, v in tree.items()
+                for k in _key_paths(v, f"{prefix}{name}/")]
+    return [prefix[:-1]]
+
+
+def phase_train_check(torch, archs=TRAIN_CHECK_ARCHS, f64=()):
+    """Every family's first training step on the card against the port on
+    the CPU, f32 at full width and 2 layers (whisper 2 + 2): the same
+    parameters and batch, the loss, xent and aux and every gradient leaf
+    (TRAIN_LOSS_RTOL, the family's TRAIN_GRAD_TOL), beside the card's own
+    rounding spread, the same step with TF32 products (the control each
+    bound must sit below) and, for the families in ``f64``, the port on
+    the CPU in float64; the MoE routing teacher-forced to
+    the CPU's (``ForcedRouting``: a routing within rounding of a top-k tie
+    would swap an expert).  Then TRAIN_BF16_STEPS bf16 steps on the card
+    at 4 layers (whisper whole) from float32 masters through
+    ``make_train_step`` on the token pipeline: finite losses, s/step,
+    peak memory.  No kernel may launch."""
+    import dataclasses
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.data import device_batch
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import build
+    from repro_torch.models.common import cdtype
+    from repro_torch.optim import Adam, cosine_schedule
+    from repro_torch.optim.adam import tree_leaves, tree_map
+    rows, fails = [], []
+    zero_launches()
+    for arch in archs:
+        i = TRAIN_CHECK_ARCHS.index(arch)     # its draw's seed
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        if DEV != "cuda":
+            full = full.reduced()
+        cfg = dataclasses.replace(
+            full, n_layers=min(TRAIN_CHECK_LAYERS, full.n_layers),
+            n_encoder_layers=min(TRAIN_CHECK_LAYERS, full.n_encoder_layers),
+            dtype="float32")
+        model = build(cfg)
+        cpu = tree_map(lambda p: p.cpu(), _scaled(model.init(
+            torch.Generator().manual_seed(SEED + i), DEV, dtype="float32"),
+            TRAIN_CHECK_SCALE))
+        batch = train_check_batch(torch, cfg, TRAIN_CHECK_BATCH,
+                                  TRAIN_CHECK_SEQ, SEED + 10 + i)
+        routing = ForcedRouting()
+        on_card = lambda params: loss_and_grads(
+            torch, model, params, {k: v.to(DEV) for k, v in batch.items()})
+        with routing:
+            routing.select(0, "step")
+            want = loss_and_grads(torch, model, cpu, batch)
+            card = tree_map(lambda p: p.to(DEV), cpu)
+            routing.select(1, "step")
+            got = on_card(card)
+            # the card's own rounding spread: its gradients again from
+            # the parameters moved by 1e-7 of themselves
+            g = torch.Generator(device=DEV).manual_seed(SEED)
+            moved = tree_map(lambda p: p * (1 + 1e-7 * torch.randn(
+                p.shape, generator=g, device=DEV)), card)
+            routing.select(2, "step")
+            spread = on_card(moved)
+            # the control: the same step with TF32 products
+            routing.select(3, "step")
+            if DEV == "cuda":
+                torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                control = on_card(card)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            if arch in f64:
+                routing.select(4, "step")
+                witness = float64_loss_and_grads(torch, model, cpu, batch)
+        names = _key_paths(cpu)
+        tol = TRAIN_GRAD_TOL[arch]
+        want_card = [w.to(DEV) for w in want[3]]
+        gaps = _gaps(got[3], want_card)
+        for name, (err, scale) in zip(names, gaps):
+            if err > tol * scale + TRAIN_GRAD_FLOOR:
+                fails.append((arch, name, err, scale))
+        for j, what in enumerate(("loss", "xent", "aux")):
+            if abs(got[j] - want[j]) > TRAIN_LOSS_RTOL * abs(want[j]):
+                fails.append((arch, what, got[j], want[j]))
+        rel = _rel(names, gaps)
+        spread_rels = _rel(names, _gaps(spread[3], got[3]))
+        tf32 = _rel(names, _gaps(control[3], want_card))
+        worst = max(rel, key=rel.get)
+        tf32_worst = max(tf32, key=tf32.get)
+        row = dict(arch=arch, f32_layers=cfg.n_layers,
+                   f32_encoder_layers=cfg.n_encoder_layers,
+                   loss_cpu=want[0], loss_card=got[0], xent_cpu=want[1],
+                   aux_cpu=want[2], aux_card=got[2],
+                   loss_rel_err=abs(got[0] - want[0]) / abs(want[0]),
+                   grad_tol=tol, grad_leaves=len(names), worst_leaf=worst,
+                   worst_rel_err=rel[worst],
+                   card_spread_rel=max(spread_rels.values()),
+                   tf32_worst_leaf=tf32_worst,
+                   tf32_worst_rel_err=tf32[tf32_worst],
+                   tf32_above_bound=tf32[tf32_worst] > tol,
+                   rel_errs=rel,
+                   router_flips=routing.flips,
+                   router_margin=routing.margin)
+        if arch in f64:
+            f64_card = _rel(names, _gaps(got[3], witness[3]))
+            f64_cpu = _rel(names, _gaps(want[3], witness[3]))
+            row.update(
+                loss_f64=witness[0], spread_rels=spread_rels,
+                f64_card_rel=f64_card, f64_cpu_rel=f64_cpu,
+                f64_card_worst_rel_err=max(f64_card.values()),
+                f64_cpu_worst_rel_err=max(f64_cpu.values()))
+            del witness
+        row["f32_s"] = time.perf_counter() - t0
+        del card, moved, cpu, want, want_card, got, spread, control
+        free_card(torch)
+        # bf16 steps at 4 layers (whisper whole) from float32 masters
+        cfg16 = dataclasses.replace(
+            full, n_layers=min(TRAIN_BF16_LAYERS, full.n_layers))
+        model16 = build(cfg16)
+        params = model16.init(torch.Generator().manual_seed(SEED + i), DEV,
+                              dtype="float32")
+        if DEV == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        opt = Adam(lr=cosine_schedule(3e-4, 1, TRAIN_BF16_STEPS),
+                   clip_norm=1.0)
+        state, step = opt.init(params), make_train_step(model16, opt)
+        pipe = TokenPipeline(TokenPipelineConfig(
+            vocab_size=cfg16.vocab_size, seq_len=TRAIN_BF16_SEQ,
+            global_batch=TRAIN_BF16_BATCH, seed=SEED))
+        extra = {}
+        if cfg16.arch_type == "audio":
+            extra["frames"] = torch.randn(
+                (TRAIN_BF16_BATCH, cfg16.frontend.n_tokens, cfg16.d_model),
+                generator=torch.Generator().manual_seed(SEED)).to(
+                DEV, cdtype(cfg16))
+        losses, secs = [], []
+        for n in range(TRAIN_BF16_STEPS):
+            tb = time.perf_counter()
+            params, state, loss, _ = step(
+                params, state, {**device_batch(pipe.batch(n), DEV), **extra})
+            losses.append(float(loss))
+            secs.append(time.perf_counter() - tb)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train-check {arch} bf16: {losses}")
+        row.update(bf16_layers=cfg16.n_layers,
+                   bf16_encoder_layers=cfg16.n_encoder_layers,
+                   bf16_losses=losses, bf16_first_step_s=secs[0],
+                   bf16_s_per_step=statistics.median(secs[1:]),
+                   bf16_peak_gib=peak_gib(torch),
+                   bf16_params=sum(p.numel() for p in tree_leaves(params)))
+        rows.append(row)
+        del params, state
+        free_card(torch)
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the training path launched kernels: "
+                             f"{launches}")
+    out = dict(phase="train-check", rows=rows, launches=launches,
+               loss_rtol=TRAIN_LOSS_RTOL, grad_tol=TRAIN_GRAD_TOL,
+               grad_floor=TRAIN_GRAD_FLOOR, weight_scale=TRAIN_CHECK_SCALE,
+               card=nvidia_smi() if DEV == "cuda" else None)
+    emit(out)
+    if fails:
+        raise AssertionError(f"train-check: the card against the CPU: "
+                             f"{fails}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6627,6 +7021,12 @@ def main() -> int:
     # nothing of the earlier fleets stays on it
     del out, out_d, out_c, out_s, out_t, out_st, out_r, sched
     free_card(torch)
+    # training: the trainer at smollm-360m's full width and depth, every
+    # family's gradients on the card against the CPU; no kernel launches
+    phase_train(torch)
+    free_card(torch)
+    phase_train_check(torch)
+    free_card(torch)
     # hymba-1.5b and whisper-tiny at full width and depth: K6 at (64, 5)
     # and (64, 1), K7 windowed at G 5 and non-causal at G 1
     families = phase_families(torch)
@@ -6652,8 +7052,8 @@ def main() -> int:
         need=SERVE_NEED + ("paged_flash_packed_chunk", "ttt_probe_batched"))
     if served_sl["packed_chunks"] < 1:
         raise AssertionError("the stablelm fleet packed no chunk")
-    phase_trace(torch, out_sl.scheduler, steps=16, prompt_len=QWEN_PROMPT,
-                phase="trace-stablelm")
+    phase_trace(torch, out_sl.scheduler, steps=CHUNKED_TRACE_STEPS,
+                prompt_len=QWEN_PROMPT, phase="trace-stablelm")
     sched = out_sl.scheduler
     f32_stops(torch, "serve-stablelm-f32",
               *f32_cut(sched, F32_LAYERS, kv_cache_dtype="float32"),
@@ -6702,7 +7102,7 @@ def main() -> int:
     # the VLM: llava-next-34b (d 128, G 7) at full width and depth, 64.05
     # GiB of bf16 weights; image requests with the 2,880-token patch
     # prefix beside chunked text requests
-    llava_model = phase_model_llava(torch)
+    llava_model = phase_model_llava(torch, steps=LLAVA_MODEL_STEPS)
     free_card(torch)
     served_lv, sched_lv = phase_serve_llava(torch)
     phase_trace(torch, sched_lv, phase="trace-llava",
@@ -6725,8 +7125,8 @@ def main() -> int:
             need=SERVE_NEED + ("paged_flash_packed_chunk",))
     if served_q["packed_chunks"] < 1:
         raise AssertionError("the qwen fleet packed no chunk")
-    phase_trace(torch, out_q.scheduler, steps=16, prompt_len=QWEN_PROMPT,
-                phase="trace-qwen")
+    phase_trace(torch, out_q.scheduler, steps=CHUNKED_TRACE_STEPS,
+                prompt_len=QWEN_PROMPT, phase="trace-qwen")
     pc, theta = out_q.scheduler.pc, out_q.scheduler.theta
     del out_q
     free_card(torch)
@@ -7112,10 +7512,7 @@ def main() -> int:
              bound_ms=k8[0]["bound_ms"], bound_by=k8[0]["bound_by"],
              library_ms=None),
     ] + d128_rows + d80_rows + moe_rows + llava_rows + family_rows})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
-    print(smi[0], flush=True)
+    print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

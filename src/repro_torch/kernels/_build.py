@@ -179,6 +179,20 @@ def count_launch(fn) -> None:
         fn.launches += 1
 
 
+def forward_only(name: str, *tensors, hint: str = "") -> None:
+    """Raise where autograd would record a kernel's call: grad mode on and
+    an input requiring grad.  No kernel has a backward, so its output
+    would carry no ``grad_fn`` and every weight below it would silently
+    get no gradient.  The wrappers call this on every device, so the plain
+    versions on the CPU refuse what the card would; under
+    ``torch.no_grad()`` (every serving path) trained leaves pass."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is forward only: an input requires grad"
+                           + (f"; {hint}" if hint else ""))
+
+
 def check(err: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if err:

@@ -104,6 +104,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
     q (B, Sq, H, d); k, v (B, Sk, KV, d), one dtype, f32 or bf16.
     -> (B, Sq, H, d) in q's dtype."""
+    _build.forward_only("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attn_prefill_einsum(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

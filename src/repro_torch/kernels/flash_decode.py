@@ -97,6 +97,7 @@ def flash_decode_partials(qg, k, v, valid):
     """The kernel's contract: (G, d) query rows per (batch row, KV head)
     against that row's cache.  Same arguments and results as
     ``flash_decode_partials_plain``."""
+    _build.forward_only("flash_decode", qg, k, v)
     if qg.device.type == "cpu":
         return flash_decode_partials_plain(qg, k, v, valid)
     if qg.device.type != "cuda":

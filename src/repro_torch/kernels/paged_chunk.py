@@ -202,6 +202,8 @@ def paged_flash_packed_chunk(q, k_pages, v_pages, seg, seg_tables, seg_valid,
     seg_valid (R, nb*bs) bool; int8 pages take k/v_scale_pages
     (P, KV, bs, 1) f32.  -> unnormalised per-token partials
     (o (C, KV, G, d), l (C, KV, G), m (C, KV, G))."""
+    _build.forward_only("paged_flash_packed_chunk", q, k_pages, v_pages,
+                        k_scale_pages, v_scale_pages)
     if q.device.type == "cpu":
         return paged_packed_chunk_plain(q, k_pages, v_pages, seg, seg_tables,
                                         seg_valid, k_scale_pages,
@@ -224,6 +226,8 @@ def paged_flash_prefill_chunk(q, k_pages, v_pages, block_tables, valid,
     (shared by the request's C queries); pages and scales as
     ``paged_flash_packed_chunk``.  -> unnormalised (o (B,KV,G,C,d),
     l (B,KV,G,C), m (B,KV,G,C))."""
+    _build.forward_only("paged_flash_prefill_chunk", q, k_pages, v_pages,
+                        k_scale_pages, v_scale_pages)
     if q.device.type == "cpu":
         return paged_prefill_chunk_plain(q, k_pages, v_pages, block_tables,
                                          valid, k_scale_pages, v_scale_pages)

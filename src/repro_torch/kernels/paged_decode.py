@@ -123,6 +123,8 @@ def paged_attend(qg, k_pages, v_pages, block_tables, valid,
     """The kernel's inner routine: (R, d) query rows per (batch row, KV
     head) — R = G heads for decode — against that row's pages, through its
     block table.  Same contract as ``paged_attend_plain``."""
+    _build.forward_only("paged_flash_decode", qg, k_pages, v_pages,
+                        k_scale_pages, v_scale_pages)
     if qg.device.type == "cpu":
         return paged_attend_plain(qg, k_pages, v_pages, block_tables, valid,
                                   k_scale_pages, v_scale_pages)

@@ -120,6 +120,7 @@ def serving_probe_spec_step(zq, zk, boundary, accept, W, b, ring, n_scores,
     if zq.dim() != 3 or zq.shape[1] < 1:
         raise ValueError(f"serving_probe_spec_step: zq is "
                          f"{tuple(zq.shape)}, expected (B, T >= 1, f)")
+    _build.forward_only("serving_probe_spec_step", zq, zk, W, b, ring)
     if zq.device.type == "cpu":
         return serving_probe_spec_step_plain(
             zq, zk, boundary, accept, W, b, ring, n_scores, stopped,

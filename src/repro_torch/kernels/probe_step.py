@@ -203,6 +203,7 @@ def serving_probe_step(zq, zk, boundary, W, b, ring, n_scores, stopped,
     b (B,), ring (B, win) f32, n_scores (B,) i32, stopped (B,) bool,
     stop_step (B,) i32) is the per-slot state, updated in place; eta and
     lam are Python floats (used as f32)."""
+    _build.forward_only("serving_probe_step", zq, zk, W, b, ring)
     if zq.device.type == "cpu":
         return serving_probe_step_plain(zq, zk, boundary, W, b, ring,
                                         n_scores, stopped, stop_step, eta,

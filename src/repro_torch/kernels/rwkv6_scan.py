@@ -158,9 +158,7 @@ def wkv_scan(r, k, v, w, u, s0, *,
     card.  The final state is written into ``state_out`` when given (it may
     be ``s0`` itself: the state is then updated in place) and returned.
     Returns (out f32, state)."""
-    if any(t.requires_grad for t in (r, k, v, w, u, s0)):
-        raise RuntimeError("wkv_scan is forward only: an input requires "
-                           "grad")
+    _build.forward_only("wkv_scan", r, k, v, w, u, s0)
     if r.device.type == "cpu":
         out, S = wkv_scan_plain(r, k, v, w, u, s0)
         if state_out is None:

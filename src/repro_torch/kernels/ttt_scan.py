@@ -173,11 +173,9 @@ def _check(zq, zk, c, m, w0, b0, eta, shared: bool) -> None:
 
 def _scan(zq, zk, c, m, w0, b0, eta, *, shared: bool) -> Out:
     """The one dispatcher behind both entry points."""
-    if any(isinstance(t, torch.Tensor) and t.requires_grad
-           for t in (zq, zk, c, m, w0, b0, eta)):
-        raise RuntimeError(
-            "ttt_probe_batched is forward only: an input requires grad; "
-            "differentiate core.ttt's autograd loop (outer_loss) instead")
+    _build.forward_only("ttt_probe_batched", zq, zk, c, m, w0, b0, eta,
+                        hint="differentiate core.ttt's autograd loop "
+                        "(outer_loss) instead")
     if zq.device.type == "cpu":
         if shared:
             n, f = zq.shape[0], zq.shape[-1]

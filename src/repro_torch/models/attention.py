@@ -26,6 +26,10 @@ kernel for CUDA tensors:
   paged_decode.paged_flash_decode``), paged chunked and packed prefill
   attention through K3 (``repro_torch.kernels.paged_chunk``).
 
+Training attention (``attn_prefill_einsum``, every family's ``forward``)
+is plain PyTorch that autograd walks: no kernel has a backward, and JAX's
+training forward reaches no Pallas kernel either.
+
 The dense chunk and packed paths (``attn_prefill_chunk`` and
 ``attn_prefill_packed`` on a dense state) stay plain PyTorch: their JAX
 counterparts call no Pallas kernel, and B3 and B4 are paged.
@@ -230,6 +234,34 @@ def attn_decode_paged(q, pages_l: Dict[str, torch.Tensor],
 
 # ---------------------------------------------------------------------------
 # Prefill attention
+
+def attn_prefill_einsum(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Reference O(S^2)-memory attention, the training forward's (JAX's
+    ``attn_prefill_einsum``): q (B, Sq, H, d); k, v (B, Sk, KV, d), Sk
+    free (cross-attention).  f32 scores, softmax and P.V, the output in
+    q's dtype.  Plain PyTorch that autograd walks, on any device; serving
+    prefill goes through K7 (``attn_prefill``).  It mirrors K7's plain
+    version (``kernels/flash_attention.py`` ``attn_prefill_einsum``) line
+    for line on purpose: that one is K7's oracle, this one the trainer's,
+    and a change to either is made to both."""
+    b, sq, h, d = q.shape
+    n_kv = k.shape[2]
+    qg = q.reshape(b, sq, n_kv, h // n_kv, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                          k.float()) / torch.sqrt(torch.tensor(float(d)))
+    qpos = torch.arange(sq, device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
 
 def attn_prefill(q, k, v, causal: bool = True,
                  window: Optional[int] = None) -> torch.Tensor:

@@ -9,7 +9,10 @@ there, so the port stores them in it, rounded once to the values the casts
 give.  A few are read through a float32 cast instead (RWKV6's ``u``,
 ``w0``, its group-norm and LayerNorm scales and biases): rounding those to
 bf16 would change the model, so their ``Param`` says ``dtype="float32"``
-and they stay float32 whatever the compute dtype.
+and they stay float32 whatever the compute dtype.  The trainer keeps
+float32 masters instead, as JAX trains: ``init_params`` (and
+``Model.init``) take ``dtype=torch.float32`` for every leaf, and the
+forward casts each at use, as JAX does.
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16, "int8": torch.int8}
+           "float16": torch.float16, "int8": torch.int8,
+           "float64": torch.float64}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -119,6 +123,15 @@ def _map_decls(decls, fn):
     return {k: _map_decls(v, fn) for k, v in decls.items()}
 
 
+def param_shapes(decls, dtype: torch.dtype = torch.float32):
+    """The parameter tree as shapes and dtypes, no storage: a tensor on
+    the ``meta`` device per leaf, in ``dtype`` except the leaves declared
+    float32 (JAX's ``param_shapes`` gives ShapeDtypeStructs)."""
+    return _map_decls(decls, lambda p: torch.empty(
+        p.shape, dtype=torch_dtype(p.dtype) if p.dtype else dtype,
+        device="meta"))
+
+
 # ---------------------------------------------------------------------------
 # Numerics helpers
 
@@ -211,3 +224,21 @@ def swiglu(gate, up):
 def relu_sq(x):
     r = torch.relu(x)
     return r * r
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits (B, S, V), targets (B, S) int; the mean over tokens of
+    logsumexp minus the gold logit, in float32 (JAX's ``softmax_xent``),
+    or with ``mask`` (B, S) the masked mean."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    loss = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(loss * mask) / torch.clamp(mask.sum(), min=1.0)
+    return loss.mean()

@@ -85,6 +85,11 @@ scales and biases throughout:
 
 The probe's slow weights (``repro.core.probe.init_outer``'s dict: W0 (f,),
 b0 (), theta_q/theta_k (d_phi, d_h), ...) map the same way.
+
+``from_jax_params(..., dtype="float32")`` keeps every leaf float32, the
+trainer's float32 masters (JAX's own storage); ``to_numpy`` is the way
+back, a port tree as numpy arrays (bf16 widened to float32, exactly),
+which the checkpoints write.
 """
 from __future__ import annotations
 
@@ -109,15 +114,35 @@ def _convert(tree, dtype, device, decls=None):
     return t.to(device=device, dtype=dtype)
 
 
-def from_jax_params(tree: Dict[str, Any], model, *,
-                    device=None) -> Dict[str, Any]:
+def from_jax_params(tree: Dict[str, Any], model, *, device=None,
+                    dtype=None) -> Dict[str, Any]:
     """JAX model parameters (nested dicts of numpy arrays) -> the port's
     parameter dict for ``model`` (a ``Model`` from ``models.build``), same
-    names and layouts, on ``device``: each leaf in ``model.cfg.dtype``,
-    except the leaves ``model.decls`` declares float32, which stay float32
-    as ``Model.init`` keeps them."""
-    return _convert(tree, cdtype(model.cfg), resolve_device(device),
-                    model.decls)
+    names and layouts, on ``device``: with ``dtype`` None each leaf in
+    ``model.cfg.dtype``, except the leaves ``model.decls`` declares
+    float32, which stay float32 as ``Model.init`` keeps them; with
+    ``dtype="float32"`` every leaf float32 (the trainer's masters)."""
+    if dtype is None:
+        return _convert(tree, cdtype(model.cfg), resolve_device(device),
+                        model.decls)
+    return _convert(tree, torch_dtype(dtype), resolve_device(device))
+
+
+def to_numpy(tree):
+    """A port tree (nested dicts, lists or tuples of tensors) -> the same
+    structure of numpy arrays on the host, bf16 and f16 leaves widened to
+    float32 (exact; numpy has no bf16); a leaf that is no tensor goes
+    through ``np.asarray``."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v) for v in tree)
+    if not isinstance(tree, torch.Tensor):
+        return np.asarray(tree)
+    t = tree.detach()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.cpu().numpy()
 
 
 def from_jax_theta(theta: Dict[str, Any], device=None

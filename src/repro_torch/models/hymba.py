@@ -20,6 +20,11 @@ The meta tokens sit in the prompt: at decode they are ring entries like
 any other position, so once the positions pass the window they leave it
 (the JAX module's code; its docstring says they stay attendable).
 
+``forward``, the training forward, runs the same layers with grad: its
+attention through ``attention.attn_prefill_einsum`` and its recurrence
+through ``selective_scan_autograd``, which autograd walks (no kernel has a
+backward, and the serving loop writes its states into a buffer).
+
 The decode state is a flat dict of leaves with the batch on axis 1, so the
 serving engine's prefill injection and its spill and restore take it as
 they take a KV cache: ``k``, ``v`` (L, B, KV, W, dh) the ring of the last
@@ -40,7 +45,7 @@ from repro_torch.models.common import (Param, apply_norm, apply_rope,
                                        rmsnorm, rope_tables, stack_decls)
 from repro_torch.models.transformer import (_mlp_decls, _qkv, embed_tokens,
                                             layer_params, logits_from_hidden,
-                                            mlp_apply)
+                                            mlp_apply, unstacked_layers)
 
 F32 = "float32"
 # positions of the selective scan computed per pass of the token loop: its
@@ -98,9 +103,26 @@ def selective_scan(dt_pos, Bm, Cm, xf, A, h):
     return torch.cat(ys, dim=1), h
 
 
-def _mamba_core(cfg, p, xin, conv_state, ssm_state):
+def selective_scan_autograd(dt_pos, Bm, Cm, xf, A, h):
+    """``selective_scan`` for the training forward, the same arguments and
+    results: dA and dt*B*x for every token at once, then the token loop
+    carrying h with no write into a saved buffer, so autograd walks it
+    (JAX's ``lax.scan``).  The tokens are taken apart by one ``unbind``
+    (its backward is one stack; indexing a token would zero-fill a
+    gradient of the whole sequence per token)."""
+    dt = dt_pos[..., None]                                     # (B,T,di,1)
+    dA = torch.exp(dt * A)                                     # (B,T,di,ds)
+    dBx = dt * Bm[:, :, None, :] * xf[..., None]
+    hs = []
+    for dA_t, dBx_t in zip(dA.unbind(1), dBx.unbind(1)):
+        h = dA_t * h + dBx_t
+        hs.append(h)
+    return torch.einsum("btds,bts->btd", torch.stack(hs, 1), Cm), h
+
+
+def _mamba_core(cfg, p, xin, conv_state, ssm_state, scan=selective_scan):
     """xin (B, T, di) after the in-projection; returns (y (B, T, di),
-    conv_state', ssm_state')."""
+    conv_state', ssm_state'); ``scan`` runs the recurrence."""
     t = xin.shape[1]
     dt_ = xin.dtype
     # depthwise causal conv over [conv_state | xin]
@@ -119,19 +141,20 @@ def _mamba_core(cfg, p, xin, conv_state, ssm_state):
     Cm = (xc @ p["w_C"].to(dt_)).float()
     A = -torch.exp(p["A_log"].float())                          # (di,ds)
     xf = xc.float()
-    ys, ssm_state = selective_scan(dt_pos, Bm, Cm, xf, A, ssm_state)
+    ys, ssm_state = scan(dt_pos, Bm, Cm, xf, A, ssm_state)
     y = ys + xf * p["D"].float()
     return y.to(dt_), new_conv, ssm_state
 
 
-def mamba_branch(cfg, p, x, state):
+def mamba_branch(cfg, p, x, state, scan=selective_scan):
     """x (B, T, d); ``state`` {"conv", "ssm"} before the first token ->
     (out (B, T, d), {"conv", "ssm"} after the last)."""
     dt_ = x.dtype
     xz = x @ p["w_in"].to(dt_)
     di = _inner(cfg)
     xin, z = xz[..., :di], xz[..., di:]
-    y, conv_s, ssm_s = _mamba_core(cfg, p, xin, state["conv"], state["ssm"])
+    y, conv_s, ssm_s = _mamba_core(cfg, p, xin, state["conv"], state["ssm"],
+                                   scan)
     y = y * F.silu(z.float()).to(dt_)
     return y @ p["w_out"].to(dt_), {"conv": conv_s, "ssm": ssm_s}
 
@@ -190,7 +213,10 @@ def _fuse(p, x, oa, om):
     return x + fused.to(x.dtype)
 
 
-def _layer_prefill(cfg, p, x, positions, mamba_state):
+def _layer_prefill(cfg, p, x, positions, mamba_state, train=False):
+    """One layer over x (B, S, d): attention through K7 and the serving
+    scan, or with ``train`` through ``attn_prefill_einsum`` and
+    ``selective_scan_autograd``."""
     b, s, _ = x.shape
     h = apply_norm(cfg, p["ln1"], x)
     q, k, v = _qkv(cfg, p["attn"], h)
@@ -199,9 +225,12 @@ def _layer_prefill(cfg, p, x, positions, mamba_state):
     k = apply_rope(k.reshape(b, s, cfg.n_kv_heads, cfg.d_head), positions,
                    cfg.rope_theta, cfg.rotary_pct)
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    oa = attn.attn_prefill(q, k, v, causal=True, window=cfg.sliding_window)
+    attend = attn.attn_prefill_einsum if train else attn.attn_prefill
+    oa = attend(q, k, v, causal=True, window=cfg.sliding_window)
     oa = oa.reshape(b, s, cfg.attn_out_dim) @ p["attn"]["wo"].to(x.dtype)
-    om, mamba_state = mamba_branch(cfg, p["mamba"], h, mamba_state)
+    om, mamba_state = mamba_branch(
+        cfg, p["mamba"], h, mamba_state,
+        selective_scan_autograd if train else selective_scan)
     x = _fuse(p, x, oa, om)
     x = x + mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
     return x, (k.transpose(1, 2), v.transpose(1, 2)), mamba_state
@@ -211,6 +240,26 @@ def _with_meta(cfg, params, tokens):
     x = embed_tokens(cfg, params, tokens)
     meta = params["meta_tokens"].to(x.dtype)
     return torch.cat([meta.expand(x.shape[0], *meta.shape), x], dim=1)
+
+
+def forward(cfg, params, batch):
+    """Training forward: meta tokens + the whole sequence through every
+    layer from zero Mamba states.  Returns (logits, hidden, aux), aux 0;
+    the logits cover the meta tokens too (``Model.loss`` keeps the
+    text's)."""
+    x = _with_meta(cfg, params, batch["tokens"])
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    di = _inner(cfg)
+    st0 = {"conv": torch.zeros((b, cfg.ssm.conv_dim - 1, di),
+                               dtype=x.dtype, device=x.device),
+           "ssm": torch.zeros((b, di, cfg.ssm.state_dim),
+                              dtype=torch.float32, device=x.device)}
+    for p in unstacked_layers(params["layers"], cfg.n_layers):
+        x = _layer_prefill(cfg, p, x, positions, st0, train=True)[0]
+    h = apply_norm(cfg, params["final_norm"], x)
+    return (logits_from_hidden(cfg, params, h), h,
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 @torch.no_grad()

@@ -14,9 +14,9 @@ Leaves, per layer (stacked with a leading L axis by the transformer):
     w_down   (E, f, d)
 
 The JAX block returns the router's aux loss (GShard load balance on the
-top-1 expert plus the z-loss) beside its output for the train loss; this
-port serves and does not train, so ``moe_dense`` returns the output alone
-and ``router_aux`` computes the loss from the routing on request.
+top-1 expert plus the z-loss) beside its output for the train loss:
+``moe_block`` does so for the training forward, while ``moe_dense``, the
+served MLP, returns the output alone and computes no aux loss.
 """
 from __future__ import annotations
 
@@ -69,13 +69,24 @@ def moe_dense(params, x, cfg) -> torch.Tensor:
     """Oracle: run all experts on all tokens. x (B, S, d) -> y (B, S, d).
     The experts run in the activation dtype; the gates combine their
     outputs in float32 and the sum is cast back."""
+    return _moe(params, x, cfg)[0]
+
+
+def moe_block(params, x, cfg):
+    """The training forward's block, JAX's one-device ``moe_block``:
+    ``moe_dense``'s output and the router's aux loss, (y, aux)."""
+    y, (logits, probs, idx) = _moe(params, x, cfg)
+    return y, router_aux(logits, probs, idx, cfg)
+
+
+def _moe(params, x, cfg):
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    _, _, gates, idx = _router(params, xt, cfg)
+    logits, probs, gates, idx = _router(params, xt, cfg)
     dt = x.dtype
     ye = _expert_ffn(params["w_gate"].to(dt), params["w_up"].to(dt),
                      params["w_down"].to(dt), xt)          # (E, T, d)
     comb = torch.zeros((b * s, cfg.moe.n_experts), dtype=torch.float32,
                        device=x.device).scatter_add_(1, idx, gates)
     y = torch.einsum("etd,te->td", ye.float(), comb)
-    return y.reshape(b, s, d).to(dt)
+    return y.reshape(b, s, d).to(dt), (logits, probs, idx)

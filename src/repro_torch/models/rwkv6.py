@@ -17,6 +17,11 @@ The state is O(1) in the context: ``wkv`` (L, B, H, d, d) f32 and the
 token-shift states ``tm_x`` / ``cm_x`` (L, B, d_model).  ``prefill`` builds
 it and ``decode_step`` updates it IN PLACE (K8 writes each layer's final
 WKV state straight into it), as the transformer's decode updates its cache.
+
+``forward``, the training forward, runs the recurrence through
+``wkv_recurrence`` instead: plain PyTorch that autograd walks, the
+counterpart of JAX's ``lax.scan`` ``wkv_scan`` (K8 has no backward in
+either package).
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ import torch
 from repro_torch.kernels.rwkv6_scan import wkv_scan as wkv_kernel
 from repro_torch.models.common import (Param, cdtype, layernorm, relu_sq,
                                        stack_decls)
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import layer_params, unstacked_layers
 
 DECAY_LORA = 64
 F32 = "float32"
@@ -107,14 +112,34 @@ def wkv_scan(r, k, v, w, u, state0, state_out=None):
                       f32(u), state0, state_out=state_out)
 
 
+def wkv_recurrence(r, k, v, w, u, state0):
+    """The WKV recurrence token by token in f32, differentiable (JAX's
+    ``wkv_scan``): out_t = r_t S_{t-1} + (r_t . u k_t) v_t and S_t =
+    diag(w_t) S_{t-1} + k_t v_t^T.  r, k, v, w (B, T, H, dh); u (H, dh);
+    state0 (B, H, dh, dh).  Autograd keeps one state a token; the tokens
+    are taken apart by one ``unbind`` each (its backward is one stack).
+    Returns (out (B, T, H, dh) f32, state_T)."""
+    u = u.float()
+    S = state0.float()
+    outs = []
+    for r_t, k_t, v_t, w_t in zip(*(x.float().unbind(1)
+                                    for x in (r, k, v, w))):
+        bonus = (r_t * u * k_t).sum(-1, keepdim=True)
+        outs.append(torch.einsum("bhk,bhkv->bhv", r_t, S) + bonus * v_t)
+        S = w_t[..., None] * S + k_t[..., :, None] * v_t[..., None, :]
+    return torch.stack(outs, dim=1), S
+
+
 def _shift(x, x_prev):
     """Token shift: the previous token's values.  x (B, T, d); x_prev
     (B, d) carried state."""
     return torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
 
 
-def time_mix(cfg, tm, x, x_prev, state0, state_out=None):
-    """x (B, T, d).  Returns (out, new_x_prev, new_state)."""
+def time_mix(cfg, tm, x, x_prev, state0, state_out=None, train=False):
+    """x (B, T, d).  Returns (out, new_x_prev, new_state).  ``train`` runs
+    the recurrence through ``wkv_recurrence`` (autograd), else through
+    ``wkv_scan`` (K8 on the card)."""
     b, t, d = x.shape
     H, dh = cfg.n_heads, cfg.ssm.head_dim
     xs = _shift(x, x_prev)
@@ -130,7 +155,11 @@ def time_mix(cfg, tm, x, x_prev, state0, state_out=None):
     v = (xv @ tm["Wv"].to(dt)).reshape(b, t, H, dh)
     g = xg @ tm["Wg"].to(dt)
     w = decay_from_x(tm, xw).reshape(b, t, H, dh)
-    out, state = wkv_scan(r, k, v, w, tm["u"].float(), state0, state_out)
+    if train:
+        out, state = wkv_recurrence(r, k, v, w, tm["u"], state0)
+    else:
+        out, state = wkv_scan(r, k, v, w, tm["u"].float(), state0,
+                              state_out)
     out = _group_norm(out.reshape(b, t, d), tm["gn_scale"].float(),
                       tm["gn_bias"].float(), H)
     out = out.to(dt) * torch.nn.functional.silu(g.float()).to(dt)
@@ -186,6 +215,26 @@ def _run_layers(cfg, params, x, state):
                    {key: val[l] for key, val in state.items()})
     return layernorm(x, params["final_norm"]["scale"],
                      params["final_norm"]["bias"])
+
+
+def forward(cfg, params, batch):
+    """Training forward over whole sequences, from the zero state.
+    Returns (logits, hidden, aux), aux 0."""
+    x = _embed(cfg, params, batch["tokens"])
+    b, _, d = x.shape
+    zero_x = torch.zeros((b, d), dtype=x.dtype, device=x.device)
+    H, dh = cfg.n_heads, cfg.ssm.head_dim
+    zero_s = torch.zeros((b, H, dh, dh), dtype=torch.float32,
+                         device=x.device)
+    for p in unstacked_layers(params["layers"], cfg.n_layers):
+        h = layernorm(x, p["ln1"]["scale"], p["ln1"]["bias"])
+        x = x + time_mix(cfg, p["tm"], h, zero_x, zero_s, train=True)[0]
+        h = layernorm(x, p["ln2"]["scale"], p["ln2"]["bias"])
+        x = x + channel_mix(cfg, p["cm"], h, zero_x)[0]
+    h = layernorm(x, params["final_norm"]["scale"],
+                  params["final_norm"]["bias"])
+    logits = h @ params["lm_head"].to(h.dtype)
+    return logits, h, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 @torch.no_grad()

@@ -13,6 +13,11 @@ precomputed patch embeddings (the vision tower is a stub), whose output
 ``prefill`` puts in front of the embedded prompt; after that the patch
 prefix is cache like any other, and decode, the chunks and the verify
 passes are the dense model's.
+
+``forward`` is the training forward (JAX's ``forward``): the whole
+sequence, teacher forced, with grad, its attention through
+``attention.attn_prefill_einsum`` (plain PyTorch: no kernel has a
+backward) and an MoE config's aux loss summed over the layers.
 """
 from __future__ import annotations
 
@@ -67,6 +72,9 @@ def decls(cfg) -> Dict[str, Any]:
         tree["projector"] = {"w1": Param((cfg.frontend.embed_dim, d)),
                              "b1": Param((d,), "zeros"),
                              "w2": Param((d, d)), "b2": Param((d,), "zeros")}
+    if cfg.n_meta_tokens:
+        tree["meta_tokens"] = Param((cfg.n_meta_tokens, cfg.d_model),
+                                    "embed")
     return tree
 
 
@@ -77,6 +85,24 @@ def layer_params(params, l: int):
             return {k: take(v) for k, v in tree.items()}
         return tree[l]
     return take(params["layers"])
+
+
+def unstacked_layers(layers, n: int):
+    """Every layer's slice of the stacked leaves of ``layers``, for the
+    training forward: one ``unbind`` a leaf, whose backward stacks the
+    layers' gradients once (indexing each layer instead would build a
+    zero-filled gradient of the whole stack per layer and add them)."""
+    def split(tree):
+        if isinstance(tree, dict):
+            return {k: split(v) for k, v in tree.items()}
+        return torch.unbind(tree, 0)
+
+    def pick(tree, l):
+        if isinstance(tree, dict):
+            return {k: pick(v, l) for k, v in tree.items()}
+        return tree[l]
+    parts = split(layers)
+    return [pick(parts, l) for l in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +210,49 @@ def project_patches(cfg, params, patch_embeds):
 
 # ---------------------------------------------------------------------------
 # Full passes
+
+def layer_forward(cfg, p, x, positions, window: Optional[int]):
+    """One layer of the training forward, JAX's ``layer_prefill`` without
+    the cache: attention through ``attn_prefill_einsum``; returns (x',
+    aux), aux the MoE router's loss or None."""
+    q, k, v = _attn_block(cfg, p, x, positions)
+    o = attn.attn_prefill_einsum(q, k, v, causal=True, window=window)
+    b, s = x.shape[:2]
+    x = x + o.reshape(b, s, cfg.attn_out_dim) @ p["attn"]["wo"].to(x.dtype)
+    h = apply_norm(cfg, p["ln2"], x)
+    if cfg.moe is not None:
+        m, aux = moe.moe_block(p["mlp"], h, cfg)
+        return x + m, aux
+    return x + mlp_apply(cfg, p["mlp"], h), None
+
+
+def forward(cfg, params, batch):
+    """Training forward over whole sequences.  Returns (logits, hidden,
+    aux): aux the sum of the layers' MoE router losses (0. without
+    experts).  batch: {"tokens": (B, S_text)} + a VLM's "patch_embeds"
+    (B, P, embed_dim), projected in front of the text, as are a config's
+    meta tokens; attention is causal over the whole sequence, windowed by
+    ``cfg.sliding_window``."""
+    tokens = batch["tokens"]
+    x = embed_tokens(cfg, params, tokens)
+    prefix = []
+    if cfg.arch_type == "vlm":
+        prefix.append(project_patches(cfg, params, batch["patch_embeds"]))
+    if cfg.n_meta_tokens:
+        meta = params["meta_tokens"].to(x.dtype)
+        prefix.append(meta.expand(x.shape[0], *meta.shape))
+    if prefix:
+        x = torch.cat(prefix + [x], dim=1)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in unstacked_layers(params["layers"], cfg.n_layers):
+        x, a = layer_forward(cfg, p, x, positions, cfg.sliding_window)
+        if a is not None:
+            aux = aux + a
+    h = apply_norm(cfg, params["final_norm"], x)
+    return logits_from_hidden(cfg, params, h), h, aux
+
 
 @torch.no_grad()
 def prefill(cfg, params, batch, cache_len: int):

@@ -14,6 +14,10 @@ self-attention through K6 (``attention.attn_decode``) over its cache with
 the current token as ``extra_kv``, and its cross-attention through K6
 over all frames with an all-true mask.
 
+``forward``, the training forward, runs encoder and decoder with grad,
+teacher forced, every attention (self, cross and the encoder's) through
+``attention.attn_prefill_einsum``: no kernel has a backward.
+
 The decode state is a flat dict of leaves with the batch on axis 1 (the
 serving engine injects, spills and restores it as a KV cache): ``k``,
 ``v`` (L, B, H, S, dh) the decoder's self-attention cache, which holds
@@ -31,7 +35,7 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (Param, apply_norm, cdtype, gelu,
                                        norm_decls, stack_decls)
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import layer_params, unstacked_layers
 
 MAX_TARGET_POSITIONS = 32768  # decoder learned positions (extended from 448)
 
@@ -89,13 +93,15 @@ def _proj(p, x, name):
     return x @ p["w" + name].to(dt) + p["b" + name].to(dt)
 
 
-def _mha(cfg, p, xq, xkv, causal: bool):
+def _mha(cfg, p, xq, xkv, causal: bool, attend=attn.attn_prefill):
+    """Multi-head attention of xq over xkv through ``attend`` (K7 by
+    default)."""
     b, sq, _ = xq.shape
     f = xkv.shape[1]
     q = _proj(p, xq, "q").reshape(b, sq, cfg.n_heads, cfg.d_head)
     k = _proj(p, xkv, "k").reshape(b, f, cfg.n_heads, cfg.d_head)
     v = _proj(p, xkv, "v").reshape(b, f, cfg.n_heads, cfg.d_head)
-    o = attn.attn_prefill(q, k, v, causal=causal)
+    o = attend(q, k, v, causal=causal)
     return o.reshape(b, sq, cfg.attn_out_dim) @ p["wo"].to(xq.dtype)
 
 
@@ -108,16 +114,43 @@ def _mlp(p, x):
 @torch.no_grad()
 def encode(cfg, params, frames):
     """frames (B, n_frames, d_model) from the stubbed conv frontend ->
-    the encoder's output (B, n_frames, d_model)."""
+    the encoder's output (B, n_frames, d_model), its attention through
+    K7."""
+    return _encode(cfg, params, frames, attn.attn_prefill)
+
+
+def _encode(cfg, params, frames, attend):
+    """The encoder, its attention through ``attend``."""
     dt = cdtype(cfg)
     x = frames.to(dt) + _sinusoid(frames.shape[1], cfg.d_model,
                                   frames.device).to(dt)[None]
-    for l in range(cfg.n_encoder_layers):
-        p = layer_params({"layers": params["enc_layers"]}, l)
+    for p in unstacked_layers(params["enc_layers"], cfg.n_encoder_layers):
         h = apply_norm(cfg, p["ln1"], x)
-        x = x + _mha(cfg, p["attn"], h, h, causal=False)
+        x = x + _mha(cfg, p["attn"], h, h, False, attend)
         x = x + _mlp(p["mlp"], apply_norm(cfg, p["ln2"], x))
     return apply_norm(cfg, params["enc_norm"], x)
+
+
+def forward(cfg, params, batch):
+    """Teacher-forced training forward: batch "frames" (B, F, d) and
+    "tokens" (B, S).  Returns (logits, hidden, aux), aux 0; the logits
+    through the tied embedding."""
+    attend = attn.attn_prefill_einsum
+    enc = _encode(cfg, params, batch["frames"], attend)
+    tokens = batch["tokens"]
+    dt = cdtype(cfg)
+    s = tokens.shape[1]
+    x = params["embed"].to(dt)[tokens.long()] + \
+        params["pos_embed"][:s].to(dt)[None]
+    for p in unstacked_layers(params["dec_layers"], cfg.n_layers):
+        h = apply_norm(cfg, p["ln1"], x)
+        x = x + _mha(cfg, p["self_attn"], h, h, True, attend)
+        h = apply_norm(cfg, p["ln2"], x)
+        x = x + _mha(cfg, p["cross_attn"], h, enc, False, attend)
+        x = x + _mlp(p["mlp"], apply_norm(cfg, p["ln3"], x))
+    h = apply_norm(cfg, params["final_norm"], x)
+    return (h @ params["embed"].to(h.dtype).T, h,
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 @torch.no_grad()

@@ -1,3 +1,4 @@
-from repro_torch.optim.adam import Adam, AdamState, global_norm
+from repro_torch.optim.adam import (Adam, AdamState, cosine_schedule,
+                                     global_norm)
 
-__all__ = ["Adam", "AdamState", "global_norm"]
+__all__ = ["Adam", "AdamState", "cosine_schedule", "global_norm"]
