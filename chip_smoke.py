@@ -320,10 +320,11 @@ non-zero:
                the kernels, the plain and the reversed plain versions;
                the share of one admission in the plain Mamba loop.
                serve-hymba: the driver (4 requests of 1,000 tokens on 4
-               slots, 48 new tokens, a harvest of 8) on the dense state:
-               K7 32 x 5, K6 32 x (48 + engine steps), K1 once a step, K5
-               once, K2, K3, K4 and K8 never; step ms, TTFT, peak memory.
-               trace-hymba: a 4-step window.  serve-hymba-f32: 4 layers
+               slots, 48 new tokens, a harvest of 8) on the dense state
+               at 8 of the 32 layers: K7 8 x 5, K6 8 x (48 + engine
+               steps), K1 once a step, K5 once, K2, K3, K4 and K8 never;
+               step ms, TTFT, peak memory.  trace-hymba: a 4-step window.
+               serve-hymba-f32: the first 4 layers of a full-depth draw
                in f32, kernels against plain: stops and tokens equal
 27c. model-whisper, serve-whisper, trace-whisper, serve-whisper-f32 --
                whisper-tiny at full width and depth (4 encoder and 4
@@ -356,6 +357,36 @@ non-zero:
                family's bound, beside the card's own rounding spread and
                a TF32 control; then 3 bf16 steps each at 4 layers
                (whisper whole): finite losses, s/step, peak memory
+27e. dist-decode, dist-moe, dist-train, dist-serve, dist-nccl -- the
+               multi-device port (``parallel``, ``launch.shardings``):
+               one spawn of 4 ranks sharing cuda:0 over gloo (a
+               FileStore, mesh (2, 2) data x model; one H100, and NCCL
+               refuses two ranks on one device), every one-process
+               reference computed once in this process.  dist-decode:
+               K6 on each rank's half of a bf16 cache (B 4, S 4,096) at
+               (64, 3) and (64, 2), merged over model, against one-process
+               K6 and its plain version, rows empty on one rank and on
+               both.  dist-moe: granite-moe-1b's MoE block at full width
+               in f32 (32 experts, 16 a rank, top-8) through ``moe_ep``:
+               at capacity 8.0 against ``moe_dense``, at 1.25 (drops)
+               against the same ranks on CPU tensors.  dist-train: two
+               f32 steps (TF32 off) of smollm-360m at full width and
+               depth (batch 8 x 1,024, dp_tp rules) and granite at 4
+               layers (FSDP over data, EP, blockwise with remat), every
+               gradient on each rank's shards against the one-process
+               card step within train-check's bound.  dist-serve:
+               smollm-360m at full width and depth, 4 slots, 48 steps
+               after a sharded prefill (tensor-parallel weights, the
+               cache sequence-sharded): K7, K6 and K1 launch on every
+               rank; the f32 tokens and stops equal the one-process
+               step's; the bf16 run's K6 calls each within phase k6's
+               bounds of the plain version.  Each phase's seconds, the
+               collectives a step by axis (calls, bytes, host seconds:
+               gloo stages CUDA tensors through host memory, not a
+               multi-card figure) and each rank's peak memory.
+               dist-nccl: one rank on NCCL, mesh (1, 1), a train step and
+               a serve step of smollm-360m at 4 layers against the same
+               rank without a context
 28. model-llama, model-qwen -- llama3.2-3b (28 layers) and qwen1.5-32b
                (64 layers, int8 KV pages) at full width and depth, random
                bf16 weights drawn on the card: prefill 16 tokens, 8
@@ -424,7 +455,8 @@ non-zero:
                and 4 teacher-forced paged decode steps through K2 as
                model-llama, every K7 call of the dense path held to
                float64; then its first 4 layers in f32 (``f32_evaluation``).
-               serve-llava: a harvest of 8 image trajectories in batches
+               serve-llava, at 16 of the 60 layers (trace-llava on its
+               fleet): a harvest of 8 image trajectories in batches
                of 4 (K7 over 2,896 rows, K6 at (128, 7)), ``orca.fit``
                (K5 at f 7168), then through ``api.engine`` 2 image
                requests admitted in one shot beside 2 text requests of
@@ -467,7 +499,9 @@ non-zero:
                K3 (d 64 from serve-tree, d 128 G 3 from serve-llama-tree,
                timed at phase k3's tree cases) and K4 (serve-tree); K3's
                and K7's bound_ms is their rows' bound_tc_ms, the products
-               priced at the tensor cores' bf16 rate
+               priced at the tensor cores' bf16 rate; then K6, K7 and K1
+               inside the ranks (dist-serve's launches summed over the
+               four, timed at their served rows)
 
 The line before the last is ``nvidia-smi``'s card name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -5788,15 +5822,20 @@ def phase_families(torch):
                                   prompt_len=HYMBA_PROMPT, steps=4,
                                   f32_layers=F32_LAYERS)
     free_card(torch)
-    layers = HYMBA[3]
-    hy, out = phase_serve_family(
-        torch, HYMBA_ARCH, "serve-hymba",
-        ("--train-trajectories", str(HYMBA_HARVEST), "--prompt-len",
-         str(HYMBA_PROMPT)), HYMBA_REQUESTS, HYMBA_NEW, layers, layers)
+    # the fleet, its harvest and its trace at 8 of 32 layers (paid for the
+    # dist phases; model-hymba keeps all 32); its f32 check on the first
+    # layers of a full-depth draw, as serve-rwkv-f32's
+    layers = CUT_LAYERS
+    with CutDepth(layers):
+        hy, out = phase_serve_family(
+            torch, HYMBA_ARCH, "serve-hymba",
+            ("--train-trajectories", str(HYMBA_HARVEST), "--prompt-len",
+             str(HYMBA_PROMPT)), HYMBA_REQUESTS, HYMBA_NEW, layers, layers)
     sched = out.scheduler
     phase_trace(torch, sched, steps=HYMBA_TRACE_STEPS, prompt_len=HYMBA_PROMPT,
                 phase="trace-hymba")
-    f32_stops(torch, "serve-hymba-f32", *f32_cut(sched, F32_LAYERS),
+    f32_stops(torch, "serve-hymba-f32",
+              *f32_cut(full_depth(torch, HYMBA_ARCH), F32_LAYERS),
               sched.pc, sched.theta, PlainDenseAttention(),
               ("flash_decode", "flash_attention"), requests=HYMBA_REQUESTS,
               prompt_len=HYMBA_PROMPT, max_new_tokens=HYMBA_NEW)
@@ -6291,6 +6330,9 @@ LLAVA_TEXT = 16
 # one dense cache and the prefill's activations would pass 76 GiB beside
 # the 64.05 GiB of weights)
 LLAVA_HARVEST, LLAVA_HARVEST_BATCH = 8, 4
+# serve-llava's and trace-llava's depth: 16 of its 60 layers (paid for
+# the dist phases); model-llava keeps all 60
+LLAVA_SERVE_LAYERS = 16
 
 
 def llava_patches(torch, cfg, n: int, seed: int):
@@ -6399,9 +6441,10 @@ def ttft_by_class(done):
     return out
 
 
-def phase_serve_llava(torch, reduced: bool = False):
-    """The VLM served as a multimodal deployment sees it, at full width and
-    depth on paged bf16 pages, 4 slots: a harvest of 8 image trajectories
+def phase_serve_llava(torch, reduced: bool = False, layers=None):
+    """The VLM served as a multimodal deployment sees it, at full width
+    (``layers`` of its 60 layers; all by default) on paged bf16 pages, 4
+    slots: a harvest of 8 image trajectories
     (seeded patches, 16 tokens, 48 dense decode steps; K7 over 2,896 rows
     and K6 at (128, 7)), in batches of 4; ``orca.fit`` of the TTT probe at
     f 7168 (K5) and the LTT lambda* at delta 0.2 (the driver's fallback
@@ -6420,7 +6463,7 @@ def phase_serve_llava(torch, reduced: bool = False):
     from repro_torch.models import build
     from repro_torch.serving import ServeConfig, extract_trajectories
     import numpy as np
-    cfg = llava_config(reduced)
+    cfg = llava_config(reduced, layers=layers)
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
     model = build(cfg)
@@ -6908,6 +6951,710 @@ def phase_train_check(torch, archs=TRAIN_CHECK_ARCHS, f64=()):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases dist-*: the multi-device port on four ranks that share the card
+
+# One H100 and NCCL refuses two ranks on one device, so the sharded paths
+# run as 4 processes on cuda:0 over a gloo group (a FileStore in a
+# temporary directory, GLOO_SOCKET_IFNAME=lo in the ranks), mesh (2, 2)
+# data x model; gloo copies CUDA tensors through host memory, so their
+# collective times are host-staged, not a multi-card figure.  Every
+# one-process reference is computed once, here in the parent, before or
+# after the spawn (the ranks share the card's SMs).
+DIST_MESH = (2, 2)
+DIST_TIMEOUT_S = 600
+# dist-decode: K6 on each rank's half of a 4,096-position bf16 cache
+DIST_DECODE_B, DIST_DECODE_S = 4, 4096
+# dist-moe: granite-moe-1b-a400m's MoE block at full width in f32, 4 x 256
+# tokens leaning to expert 0 (drops at a capacity factor of 1.25)
+DIST_MOE_SHAPE = (4, 256)
+DIST_MOE_LEAN = 8.0
+# outputs within 1e-5 of the largest magnitude (f32 sums in another order)
+DIST_MOE_TOL = 1e-5
+# dist-train: (arch, layers (None: all), batch, seq), two steps in f32
+DIST_TRAIN = (("smollm-360m", None, 8, 1024),
+              ("granite-moe-1b-a400m", 4, 8, 1024))
+DIST_TRAIN_LR = 1e-5
+# dist-serve: smollm-360m at full width and depth, 4 slots, 16-token
+# prompts, a cache of 96 (48 positions a model rank: the second rank's
+# slice is empty until step 32), 48 steps
+DIST_SERVE = dict(slots=4, prompt=16, cache=96, steps=48, tokens_per_step=4,
+                  burn_in=2)
+DIST_SERVE_F = 960
+# dist-nccl: one rank, NCCL, mesh (1, 1): smollm-360m at 4 layers
+DIST_NCCL_LAYERS, DIST_NCCL_BATCH, DIST_NCCL_SEQ = 4, 8, 128
+# (a CPU rehearsal of the phases, DEV "cpu", runs this rank on gloo)
+DIST_NCCL_BACKEND = "nccl"
+DIST_NEED = ("flash_decode", "flash_attention", "serving_probe_step")
+
+
+# dist-train's MoE: top-k routing is a step function of the router's
+# probabilities, and at 8 x 1,024 tokens x 4 layers some tokens' k-th and
+# (k+1)-th probabilities lie within f32 rounding of each other, so the
+# sharded forward (its sums in another order) may route a token to
+# another expert than the one-process forward does, which moves an
+# expert's gradient by that token's whole share.  The check therefore
+# fixes the discrete choice: the reference records each call's top-k
+# experts and the ranks run with them (gates from their own
+# probabilities), and every token whose own top-k differs must be such a
+# near-tie: the best expert left out within DIST_ROUTE_TIE of the worst
+# one taken, in probability.
+DIST_ROUTE_TIE = 1e-6
+
+
+class RouteTape:
+    """``moe._router`` recording each call's top-k experts (``routes`` None)
+    or replaying ``routes``, a list by step of lists by data half of
+    lists by layer; in the replay, call c of a step is layer c on the way
+    forward and layer 2L - 1 - c in remat's recomputation on the way back.
+    Counts the tokens whose own top-k differs from the replayed one and
+    their widest gap."""
+
+    def __init__(self, moe, layers, routes=None, half=0, remat=True):
+        self.moe, self.orig = moe, moe._router
+        self.layers, self.routes, self.half = layers, routes, half
+        self.per_step = 2 * layers if remat else layers
+        self.calls, self.taped = 0, []
+        self.flips, self.flip_gap = 0, 0.0
+
+    def __enter__(self):
+        self.moe._router = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._router = self.orig
+
+    def __call__(self, params, x, cfg):
+        import torch
+        logits, probs, gates, idx = self.orig(params, x, cfg)
+        c, self.calls = self.calls, self.calls + 1
+        if self.routes is None:
+            self.taped.append(idx.detach().clone())
+            return logits, probs, gates, idx
+        step, c = divmod(c, self.per_step)
+        layer = c if c < self.layers else 2 * self.layers - 1 - c
+        forced = self.routes[step][self.half][layer].to(idx.device)
+        # the expert set, or the first expert (the load-balance term's)
+        differ = ((idx.sort(-1).values != forced.sort(-1).values).any(-1)
+                  | (idx[:, 0] != forced[:, 0]))
+        if bool(differ.any()):
+            p, f, n = probs.detach()[differ], forced[differ], idx[differ]
+            left = p.scatter(-1, f, -1.0).max(-1).values
+            gap = torch.maximum(left - p.gather(-1, f).min(-1).values,
+                                p.gather(-1, n[:, :1])[:, 0]
+                                - p.gather(-1, f[:, :1])[:, 0])
+            self.flips += int(differ.sum())
+            self.flip_gap = max(self.flip_gap, float(gap.max()))
+        gates = probs.gather(-1, forced)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return logits, probs, gates, forced
+
+
+def dist_decode_inputs(torch, H, KV, d):
+    """A bf16 cache of DIST_DECODE_S positions, rows: 0 valid at random
+    (70%), 1 empty on the second model rank's half, 2 empty on the first's,
+    3 empty everywhere."""
+    g = torch.Generator().manual_seed(SEED + 34 + H)
+    B, S = DIST_DECODE_B, DIST_DECODE_S
+    q = torch.randn(B, H, d, generator=g).to(torch.bfloat16).to(DEV)
+    k = torch.randn(B, KV, S, d, generator=g).to(torch.bfloat16).to(DEV)
+    v = torch.randn(B, KV, S, d, generator=g).to(torch.bfloat16).to(DEV)
+    valid = torch.rand(B, S, generator=g) > 0.3
+    valid[:, 0] = True
+    valid[1, S // 2:] = False
+    valid[2, :S // 2] = False
+    valid[3] = False
+    return q, k, v, valid.to(DEV)
+
+
+def dist_moe_inputs(torch, capacity):
+    """granite-moe-1b-a400m's MoE leaves (one layer, f32) and tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+    cfg = get_config(GRANITE_ARCH)
+    cfg = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=capacity))
+    params = init_params(moe.moe_decls(cfg),
+                         torch.Generator().manual_seed(SEED + 35))
+    g = torch.Generator().manual_seed(SEED + 36)
+    x = torch.randn(*DIST_MOE_SHAPE, cfg.d_model, generator=g)
+    u = params["router"][:, 0] / params["router"][:, 0].norm()
+    return cfg, params, x + DIST_MOE_LEAN * u
+
+
+def dist_train_model(torch, arch, layers, dev):
+    """(model, f32 parameters at TRAIN_CHECK_SCALE) drawn on ``dev`` from
+    the seed; the MoE at a capacity factor of 8.0 (nothing dropped)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, dtype="float32",
+                              n_layers=layers or cfg.n_layers)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(SEED + 37), dev,
+                        dtype="float32")
+    return model, _scaled(params, TRAIN_CHECK_SCALE)
+
+
+def dist_serve_model(torch, dtype, layers=None):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.probe import ProbeConfig, init_outer
+    from repro_torch.models import build
+    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(cfg, dtype=dtype,
+                              n_layers=layers or cfg.n_layers)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(SEED + 38), DEV)
+    pc = ProbeConfig(d_phi=cfg.d_model)
+    theta = init_outer(pc, torch.Generator().manual_seed(SEED + 39),
+                       device=DEV)
+    toks = torch.randint(0, cfg.vocab_size, (DIST_SERVE["slots"],
+                                             DIST_SERVE["prompt"]),
+                         generator=torch.Generator().manual_seed(SEED + 40),
+                         dtype=torch.int32).to(DEV)
+    return model, params, pc, theta, toks
+
+
+def dist_serve_run(torch, model, params, pc, theta, toks, lam, steps=None):
+    """Prefill ``toks`` and run the one-token serve step: per step the
+    tokens, smoothed scores and stops (steps x rows), and the collectives
+    of the steps (``parallel.collective_stats``; those of the prefill
+    apart)."""
+    from repro_torch import parallel
+    from repro_torch.serving import ServeConfig
+    from repro_torch.serving.engine import init_probe_state, make_serve_step
+    cfg = model.cfg
+    steps = steps or DIST_SERVE["steps"]
+    parallel.reset_collectives()
+    cache, _, _ = model.prefill(cfg, params, {"tokens": toks},
+                                DIST_SERVE["cache"])
+    prefill = parallel.collective_stats()
+    parallel.reset_collectives()
+    st = init_probe_state(pc, theta, toks.shape[0], cfg.d_model)
+    step = make_serve_step(model, pc, theta, ServeConfig(
+        tokens_per_step=DIST_SERVE["tokens_per_step"], lam=lam,
+        burn_in=DIST_SERVE["burn_in"]))
+    tok = toks[:, -1].clone()
+    pos = torch.full((toks.shape[0],), toks.shape[1], dtype=torch.int32,
+                     device=toks.device)
+    out = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tok, cache, st = step(params, tok, cache, pos, st)
+        pos = pos + 1
+        out.append((tok.clone(), st.smoothed.clone(), st.stopped.clone()))
+    sync(torch)
+    return ([torch.stack(x) for x in zip(*out)],
+            dict(step_ms=(time.perf_counter() - t0) / steps * 1e3,
+                 prefill=prefill, steps=parallel.collective_stats()))
+
+
+def _per_step(stats, n):
+    """Collective stats over n steps -> calls, bytes and seconds a step."""
+    return {k: {f: v / n for f, v in rec.items()} for k, rec in stats.items()}
+
+
+def _rank_setup(torch):
+    """A rank on the card: TF32 off, cuda:0 current, the kernels' library
+    (built by phase build) loaded."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if DEV == "cuda":
+        torch.cuda.set_device(0)
+        torch.zeros(1, device=DEV)
+        from repro_torch.kernels import _build
+        _build.library()
+
+
+def _peak_gib(torch, reset=False) -> float:
+    if DEV != "cuda":
+        return 0.0
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def dist_rank(rank, world, ref_dir, lam):
+    """The four ranks' side of phases dist-decode, dist-moe, dist-train
+    and dist-serve (a spawned process: everything imported here)."""
+    import torch
+    from repro_torch import parallel
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe
+    from repro_torch.models.common import param_specs
+    from repro_torch.optim import Adam
+    from repro_torch.optim.adam import tree_leaves
+    _rank_setup(torch)
+    mesh = make_test_mesh(DIST_MESH, device_type=DEV)
+    dr, mr = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    out = {"rank": rank, "data_rank": dr, "model_rank": mr}
+
+    def timed(name, fn):
+        _peak_gib(torch, reset=True)
+        sync(torch)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(torch)
+        res["seconds"] = time.perf_counter() - t0
+        res["peak_gib"] = _peak_gib(torch)
+        out[name] = res
+
+    def decode():
+        res = {}
+        ctx = parallel.ParallelContext(
+            mesh=mesh, rules={"batch": "data", "kv_seq": "model"},
+            flash_decode=True)
+        half = DIST_DECODE_B // 2
+        rows = slice(dr * half, (dr + 1) * half)
+        s_loc = DIST_DECODE_S // 2
+        seq = slice(mr * s_loc, (mr + 1) * s_loc)
+        for H, KV, d, _ in (SMOLLM, GRANITE):
+            q, k, v, valid = dist_decode_inputs(torch, H, KV, d)
+            parallel.reset_collectives()
+            with parallel.use_parallel(ctx):
+                o, l, m = A._flash_decode_sharded(
+                    ctx, q[rows], k[rows, :, seq].contiguous(),
+                    v[rows, :, seq].contiguous(),
+                    valid[rows, seq].contiguous())
+            res[f"{d}-{H // KV}"] = dict(
+                o=o, l=l, m=m, collectives=parallel.collective_stats())
+        return res
+
+    def moe_block():
+        res = {}
+        for capacity in (8.0, 1.25):
+            cfg, params, x = dist_moe_inputs(torch, capacity)
+            ctx = SH.make_context(cfg, mesh, InputShape(
+                "t", DIST_MOE_SHAPE[1], DIST_MOE_SHAPE[0], "train"),
+                multi_pod=False)
+            decls = moe.moe_decls(cfg)
+            specs = param_specs(decls, ctx.rules)
+            half = DIST_MOE_SHAPE[0] // 2
+            xl = x[dr * half:(dr + 1) * half]
+            ys = {}
+            for dev in (DEV, "cpu"):
+                local = SH.with_shardings({k: t.to(dev) for k, t in
+                                           params.items()}, specs, mesh)
+                parallel.reset_collectives()
+                with parallel.use_parallel(ctx), torch.no_grad():
+                    y, aux = moe.moe_ep(SH.compute_params(decls, local, ctx),
+                                        xl.to(dev), cfg, ctx)
+                ys[dev] = y.float().cpu()
+                if dev == DEV:
+                    res[f"{capacity}/collectives"] = \
+                        parallel.collective_stats()
+                if capacity == 8.0:
+                    break
+            res[f"{capacity}/y"] = ys[DEV]
+            if capacity != 8.0:
+                res[f"{capacity}/cuda_vs_cpu"] = float(
+                    (ys[DEV] - ys["cpu"]).abs().max()
+                    / ys["cpu"].abs().max())
+        return res
+
+    def train():
+        res = {}
+        for arch, layers, B, S in DIST_TRAIN:
+            model, params = dist_train_model(torch, arch, layers, DEV)
+            shape = InputShape("t", S, B, "train")
+            ctx = SH.make_context(model.cfg, mesh, shape, multi_pod=False)
+            specs = model.specs(ctx.rules)
+            local = SH.with_shardings(params, specs, mesh)
+            del params
+            batch = {k: t.to(DEV) for k, t in train_check_batch(
+                torch, model.cfg, B, S, SEED + 41).items()}
+            lb = SH.with_shardings(batch, SH.batch_spec_tree(
+                batch, ctx.rules), mesh)
+            ref = torch.load(os.path.join(ref_dir, f"{arch}.pt"),
+                             mmap=True)
+            opt = Adam(lr=DIST_TRAIN_LR, clip_norm=1.0)
+            state = opt.init(local)
+            row = dict(rules={k: v for k, v in ctx.rules.items()},
+                       ep_moe=ctx.ep_moe, attn_impl=ctx.attn_impl,
+                       remat=ctx.remat, losses=[], worst_rel=[], steps_s=[])
+            tape = RouteTape(moe, model.cfg.n_layers, ref["routes"], dr,
+                             remat=ctx.remat)
+            for i in range(2):
+                parallel.reset_collectives()
+                t0 = time.perf_counter()
+                with parallel.use_parallel(ctx), tape:
+                    loss, _, grads = T.loss_and_grads(model, local, lb)
+                    state = T.apply_update(model, opt, local, grads, state)
+                sync(torch)
+                row["steps_s"].append(time.perf_counter() - t0)
+                row["collectives_a_step"] = parallel.collective_stats()
+                row["losses"].append(float(loss))
+                worst = 0.0
+                for g, r, spec in zip(tree_leaves(grads),
+                                      ref[f"grads{i}"],
+                                      tree_leaves(specs)):
+                    r = r.to(DEV)
+                    gap = float((g - SH.local_shard(r, spec, mesh))
+                                .abs().max())
+                    worst = max(worst, gap / max(float(r.abs().max()),
+                                                 1e-30))
+                row["worst_rel"].append(worst)
+            row.update(route_flips=tape.flips, route_flip_gap=tape.flip_gap)
+            del local, state, grads, lb, ref
+            free_card(torch)
+            res[arch] = row
+        return res
+
+    def serve():
+        from repro_torch.kernels import flash_decode as K6
+        res = {}
+        for dtype in ("float32", "bfloat16"):
+            model, params, pc, theta, toks = dist_serve_model(torch, dtype)
+            ctx = SH.make_context(model.cfg, mesh, InputShape(
+                "d", DIST_SERVE["cache"], DIST_SERVE["slots"], "decode"),
+                multi_pod=False)
+            local = SH.with_shardings(params, model.specs(ctx.rules), mesh)
+            del params
+            half = DIST_SERVE["slots"] // 2
+            rows = toks[dr * half:(dr + 1) * half]
+            served = A.flash_decode
+            checked = CheckedK6(K6)
+            if dtype == "bfloat16":
+                A.flash_decode = checked
+            if dtype == "float32":
+                zero_launches()
+            try:
+                with parallel.use_parallel(ctx):
+                    (tk, sm, sp), stats = dist_serve_run(
+                        torch, model, local, pc, theta, rows, lam)
+            finally:
+                A.flash_decode = served
+            row = dict(tokens=tk, smoothed=sm, stopped=sp,
+                       step_ms=stats["step_ms"],
+                       prefill_collectives=stats["prefill"],
+                       collectives_a_step=_per_step(stats["steps"],
+                                                    DIST_SERVE["steps"]))
+            if dtype == "float32":
+                row["launches"] = read_launches()
+            else:
+                row.update(k6_checked_calls=checked.calls,
+                           k6_m_rel_err=checked.m_err,
+                           k6_out_err=checked.out_err)
+            res[dtype] = row
+            del local
+            free_card(torch)
+        return res
+
+    timed("dist-decode", decode)
+    timed("dist-moe", moe_block)
+    timed("dist-train", train)
+    timed("dist-serve", serve)
+    return out
+
+
+def dist_nccl_rank(rank, world):
+    """Phase dist-nccl's rank: the same step functions on an NCCL group
+    of one rank, mesh (1, 1), against the same rank without a context."""
+    import torch
+    from repro_torch import parallel
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim.adam import tree_leaves
+    _rank_setup(torch)
+    mesh = make_test_mesh((1, 1), device_type=DEV)
+    out = {"backend": torch.distributed.get_backend()}
+    model, params = dist_train_model(torch, TRAIN_ARCH, DIST_NCCL_LAYERS,
+                                     DEV)
+    shape = InputShape("t", DIST_NCCL_SEQ, DIST_NCCL_BATCH, "train")
+    batch = {k: t.to(DEV) for k, t in train_check_batch(
+        torch, model.cfg, DIST_NCCL_BATCH, DIST_NCCL_SEQ, SEED + 42).items()}
+    ctx = SH.make_context(model.cfg, mesh, shape, multi_pod=False)
+    loss0, _, grads0 = T.loss_and_grads(model, params, batch)
+    local = SH.with_shardings(params, model.specs(ctx.rules), mesh)
+    with parallel.use_parallel(ctx):
+        loss1, _, grads1 = T.loss_and_grads(model, local, batch)
+    out["train_loss"] = (float(loss0), float(loss1))
+    out["train_worst_rel"] = max(
+        float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        for a, b in zip(tree_leaves(grads1), tree_leaves(grads0)))
+    del params, local, grads0, grads1
+    model, params, pc, theta, toks = dist_serve_model(torch, "float32",
+                                                      DIST_NCCL_LAYERS)
+    dctx = SH.make_context(model.cfg, mesh, InputShape(
+        "d", DIST_SERVE["cache"], DIST_SERVE["slots"], "decode"),
+        multi_pod=False)
+    (tk0, _, sp0), _ = dist_serve_run(torch, model, params, pc, theta, toks,
+                                      1e9, steps=1)
+    with parallel.use_parallel(dctx):
+        (tk1, _, sp1), _ = dist_serve_run(torch, model, params, pc, theta,
+                                          toks, 1e9, steps=1)
+    out["serve_tokens_equal"] = bool(torch.equal(tk0, tk1)
+                                     and torch.equal(sp0, sp1))
+    out["peak_gib"] = _peak_gib(torch)
+    return out
+
+
+def dist_references(torch, ref_dir):
+    """The one-process references, on the card: each dist-train model's two
+    steps (the mean over the two data halves of the loss and of the
+    gradients, as the ranks average the MoE aux over the data ranks; Adam
+    on them) saved for the ranks, and the dist-serve lambda (between the
+    rows' peak f32 scores past the burn-in, so some rows stop)."""
+    from repro_torch.launch import train as T
+    from repro_torch.models import moe
+    from repro_torch.optim import Adam
+    from repro_torch.optim.adam import tree_leaves, tree_map
+    out = {}
+    free_card(torch)
+    for arch, layers, B, S in DIST_TRAIN:
+        model, params = dist_train_model(torch, arch, layers, DEV)
+        batch = {k: t.to(DEV) for k, t in train_check_batch(
+            torch, model.cfg, B, S, SEED + 41).items()}
+        opt = Adam(lr=DIST_TRAIN_LR, clip_norm=1.0)
+        state = opt.init(params)
+        ref, losses = {}, []
+        n_layers = model.cfg.n_layers
+        t0 = time.perf_counter()
+        with RouteTape(moe, n_layers) as tape:
+            for i in range(2):
+                loss, grads = 0.0, None
+                for h in range(2):
+                    half = {k: t[h * B // 2:(h + 1) * B // 2]
+                            for k, t in batch.items()}
+                    l, _, g = T.loss_and_grads(model, params, half)
+                    loss += float(l) / 2
+                    grads = g if grads is None else tree_map(
+                        lambda a, b: (a + b) / 2, grads, g)
+                losses.append(loss)
+                ref[f"grads{i}"] = [g.cpu() for g in tree_leaves(grads)]
+                state = T.apply_update(model, opt, params, grads, state)
+        sync(torch)
+        # by step, data half and layer (empty without experts)
+        ref["routes"] = [[[tape.taped[(2 * i + h) * n_layers + l].cpu()
+                           for l in range(n_layers)] for h in range(2)]
+                         for i in range(len(tape.taped) // (2 * n_layers))]
+        torch.save(ref, os.path.join(ref_dir, f"{arch}.pt"))
+        out[arch] = dict(losses=losses, seconds=time.perf_counter() - t0)
+        del params, state, grads, ref
+        free_card(torch)
+    model, params, pc, theta, toks = dist_serve_model(torch, "float32")
+    (_, sm, _), _ = dist_serve_run(torch, model, params, pc, theta, toks,
+                                   1e9)
+    peak = sm[DIST_SERVE["burn_in"] * DIST_SERVE["tokens_per_step"]:].max(
+        0).values
+    lam = float((peak.min() + peak.max()) / 2)
+    (tk, sm, sp), stats = dist_serve_run(torch, model, params, pc, theta,
+                                         toks, lam)
+    out["serve"] = dict(lam=lam, tokens=tk.cpu(), smoothed=sm.cpu(),
+                        stopped=sp.cpu(), step_ms=stats["step_ms"])
+    out["decode"] = {}
+    from repro_torch.kernels import flash_decode as K6
+    for H, KV, d, _ in (SMOLLM, GRANITE):
+        q, k, v, valid = dist_decode_inputs(torch, H, KV, d)
+        out["decode"][f"{d}-{H // KV}"] = dict(
+            kernel=[t.cpu() for t in K6.flash_decode(
+                q, k, v, valid, return_partials=True)],
+            plain=[t.cpu() for t in K6.flash_decode_plain(
+                q, k, v, valid, return_partials=True)],
+            v_scale=v_scale(v), valid=valid.cpu())
+    cfg, params, x = dist_moe_inputs(torch, 8.0)
+    with torch.no_grad():
+        out["moe_dense"] = moe.moe_dense(
+            {k: t.to(DEV) for k, t in params.items()}, x.to(DEV),
+            cfg).float().cpu()
+    del model, params
+    free_card(torch)
+    return out
+
+
+def _normalised(o, l):
+    return o / l.clamp(min=1e-30)[..., None]
+
+
+def phase_dist(torch):
+    """Phases dist-decode, dist-moe, dist-train and dist-serve: one spawn
+    of four ranks on the card (``dist_rank``), held to the references of
+    ``dist_references``; each phase's seconds, collectives by axis (calls,
+    bytes and host seconds a step), each rank's peak memory."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.launch.mesh import spawn_ranks
+    with tempfile.TemporaryDirectory() as ref_dir:
+        t0 = time.perf_counter()
+        ref = dist_references(torch, ref_dir)
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(dist_rank, 4, (ref_dir, ref["serve"]["lam"]),
+                            backend="gloo", device=DEV,
+                            timeout_s=DIST_TIMEOUT_S, threads=2)
+        spawn_s = time.perf_counter() - t0
+    by_pos = {(int(r["data_rank"]), int(r["model_rank"])): r for r in ranks}
+    peaks = lambda name: [float(r[name]["peak_gib"]) for r in ranks]
+    secs = lambda name: max(float(r[name]["seconds"]) for r in ranks)
+    # dist-decode: the rows of each data rank (model ranks agree) against
+    # one-process K6 and its plain version; two slices' errors add
+    dec = {}
+    for key, rr in ref["decode"].items():
+        want_k = [torch.as_tensor(t) for t in rr["kernel"]]
+        want_p = [torch.as_tensor(t) for t in rr["plain"]]
+        got = [torch.cat([torch.as_tensor(by_pos[(d, 0)]["dist-decode"][key][f])
+                          for d in (0, 1)]) for f in ("o", "l", "m")]
+        for d in (0, 1):
+            for f in ("o", "l", "m"):
+                if not np.array_equal(by_pos[(d, 0)]["dist-decode"][key][f],
+                                      by_pos[(d, 1)]["dist-decode"][key][f]):
+                    raise AssertionError(f"dist-decode {key}: the model ranks"
+                                         f" of data rank {d} disagree on {f}")
+        live = rr["valid"].any(1)
+        out_g = _normalised(got[0], got[1])
+        errs = {}
+        for name, want in (("kernel", want_k), ("plain", want_p)):
+            out_w = _normalised(want[0], want[1])
+            errs[f"out_err_vs_{name}"] = float(
+                (out_g - out_w)[live].abs().max())
+            errs[f"m_rel_err_vs_{name}"] = float(
+                ((got[2] - want[2]).abs() / want[2].abs().clamp(min=1.0))
+                [live].max())
+        tol = 2 * K6_OUT_TOL * rr["v_scale"]
+        if not (max(errs[k] for k in errs if k.startswith("out"))
+                <= tol and max(errs[k] for k in errs if k.startswith("m"))
+                <= K6_M_TOL):
+            raise AssertionError(f"dist-decode {key}: {errs}, tol {tol}")
+        if not (float(got[0][~live].abs().max()) == 0.0
+                and float(got[1][~live].abs().max()) == 0.0):
+            raise AssertionError(f"dist-decode {key}: an empty row is not "
+                                 "(o, l) = (0, 0)")
+        dec[key] = dict(errs, tol=tol, collectives=by_pos[(0, 0)][
+            "dist-decode"][key]["collectives"])
+    emit(dict(phase="dist-decode", B=DIST_DECODE_B, S=DIST_DECODE_S,
+              S_a_rank=DIST_DECODE_S // 2, cache="bf16", cases=dec,
+              seconds=secs("dist-decode"), peak_gib=peaks("dist-decode")))
+    # dist-moe
+    y8 = torch.cat([torch.as_tensor(by_pos[(d, 0)]["dist-moe"]["8.0/y"])
+                    for d in (0, 1)])
+    rel8 = float((y8 - ref["moe_dense"]).abs().max()
+                 / ref["moe_dense"].abs().max())
+    y125 = torch.cat([torch.as_tensor(by_pos[(d, 0)]["dist-moe"]["1.25/y"])
+                      for d in (0, 1)])
+    dropped = float((y125 - ref["moe_dense"]).abs().max()
+                    / ref["moe_dense"].abs().max())
+    cpu_rel = max(float(r["dist-moe"]["1.25/cuda_vs_cpu"]) for r in ranks)
+    if not (rel8 <= DIST_MOE_TOL and cpu_rel <= DIST_MOE_TOL
+            and dropped > DIST_MOE_TOL):
+        raise AssertionError(f"dist-moe: capacity 8.0 against moe_dense "
+                             f"{rel8}, 1.25 on the card against the CPU "
+                             f"{cpu_rel}, 1.25 against dense {dropped}")
+    n_experts = dist_moe_inputs(torch, 8.0)[0].moe.n_experts
+    emit(dict(phase="dist-moe", arch=GRANITE_ARCH, tokens=DIST_MOE_SHAPE,
+              experts=n_experts, experts_a_rank=n_experts // DIST_MESH[1],
+              rel_err_vs_dense_cap8=rel8,
+              rel_err_card_vs_cpu_cap1_25=cpu_rel,
+              rel_gap_vs_dense_cap1_25=dropped, tol=DIST_MOE_TOL,
+              collectives=by_pos[(0, 0)]["dist-moe"]["8.0/collectives"],
+              seconds=secs("dist-moe"), peak_gib=peaks("dist-moe")))
+    # dist-train
+    train = {}
+    for arch, layers, B, S in DIST_TRAIN:
+        rows = [r["dist-train"][arch] for r in ranks]
+        worst = [max(float(w) for w in r["worst_rel"]) for r in rows]
+        losses = [float(l) for l in rows[0]["losses"]]
+        loss_err = max(abs(a - b) / abs(b) for a, b in
+                       zip(losses, ref[arch]["losses"]))
+        tol = TRAIN_GRAD_TOL[arch]
+        flip_gap = max(float(r["route_flip_gap"]) for r in rows)
+        if not (max(worst) <= tol and loss_err <= TRAIN_LOSS_RTOL
+                and flip_gap <= DIST_ROUTE_TIE):
+            raise AssertionError(f"dist-train {arch}: gradients {worst} "
+                                 f"(bound {tol}), loss {loss_err}, a token "
+                                 f"routed apart by {flip_gap}")
+        r0 = rows[0]
+        train[arch] = dict(
+            layers=layers, batch=B, seq=S, rules=r0["rules"],
+            ep_moe=bool(r0["ep_moe"]), attn_impl=str(r0["attn_impl"]),
+            remat=bool(r0["remat"]), losses=losses,
+            one_process_losses=ref[arch]["losses"], loss_rel_err=loss_err,
+            worst_grad_rel=max(worst), bound=tol,
+            route_flips=[int(r["route_flips"]) for r in rows],
+            route_flip_gap=flip_gap, route_tie=DIST_ROUTE_TIE,
+            step_s=[float(s) for s in r0["steps_s"]],
+            one_process_s=ref[arch]["seconds"],
+            collectives_a_step=r0["collectives_a_step"])
+    emit(dict(phase="dist-train", runs=train, seconds=secs("dist-train"),
+              peak_gib=peaks("dist-train")))
+    # dist-serve
+    rs = ref["serve"]
+    got = {f: torch.cat([torch.as_tensor(by_pos[(d, 0)]["dist-serve"]
+                                          ["float32"][f]) for d in (0, 1)],
+                        dim=1) for f in ("tokens", "smoothed", "stopped")}
+    if not (torch.equal(got["tokens"], rs["tokens"])
+            and torch.equal(got["stopped"], rs["stopped"])):
+        raise AssertionError("dist-serve f32: tokens or stops differ from "
+                             "the one-process serve step")
+    stops = rs["stopped"][-1]
+    if not (bool(stops.any()) and not bool(stops.all())):
+        raise AssertionError("dist-serve f32: every row or none stopped")
+    launches = [r["dist-serve"]["float32"]["launches"] for r in ranks]
+    for r, la in enumerate(launches):
+        # (CPU tensors take the plain versions: a rehearsal counts none)
+        missing = [k for k in DIST_NEED if int(la[k]) < 1]
+        if missing and DEV == "cuda":
+            raise AssertionError(f"dist-serve: rank {r} never launched "
+                                 f"{missing}")
+    bf = [r["dist-serve"]["bfloat16"] for r in ranks]
+    emit(dict(phase="dist-serve", arch=TRAIN_ARCH, **DIST_SERVE,
+              lam=rs["lam"], stops=int(stops.sum()),
+              smoothed_max_abs_err=float((got["smoothed"]
+                                          - rs["smoothed"]).abs().max()),
+              launches_by_rank=[{k: int(la[k]) for k in DIST_NEED}
+                                for la in launches],
+              step_ms_f32=[float(r["dist-serve"]["float32"]["step_ms"])
+                           for r in ranks],
+              step_ms_bf16=[float(b["step_ms"]) for b in bf],
+              one_process_step_ms_f32=rs["step_ms"],
+              bf16_k6_checked_calls=[int(b["k6_checked_calls"]) for b in bf],
+              bf16_k6_m_rel_err=max(float(b["k6_m_rel_err"]) for b in bf),
+              bf16_k6_out_err=max(float(b["k6_out_err"]) for b in bf),
+              collectives_a_step=by_pos[(0, 0)]["dist-serve"]["float32"][
+                  "collectives_a_step"],
+              prefill_collectives=by_pos[(0, 0)]["dist-serve"]["float32"][
+                  "prefill_collectives"],
+              references_s=ref_s, spawn_s=spawn_s,
+              seconds=secs("dist-serve"), peak_gib=peaks("dist-serve")))
+    return dict(decode=dec, launches=launches, bf16=bf, k6_err=max(
+        [max(v["out_err_vs_kernel"], v["out_err_vs_plain"])
+         for v in dec.values()] + [float(b["k6_out_err"]) for b in bf]))
+
+
+def phase_dist_nccl(torch):
+    from repro_torch.launch.mesh import spawn_ranks
+    t0 = time.perf_counter()
+    res = spawn_ranks(dist_nccl_rank, 1, (), backend=DIST_NCCL_BACKEND,
+                      device="cuda:0" if DEV == "cuda" else DEV,
+                      timeout_s=DIST_TIMEOUT_S, threads=2)[0]
+    loss0, loss1 = (float(x) for x in res["train_loss"])
+    worst = float(res["train_worst_rel"])
+    if not (str(res["backend"]) == DIST_NCCL_BACKEND
+            and abs(loss1 - loss0) <= TRAIN_LOSS_RTOL * abs(loss0)
+            and worst <= TRAIN_GRAD_TOL[TRAIN_ARCH]
+            and bool(res["serve_tokens_equal"])):
+        raise AssertionError(f"dist-nccl: {res}")
+    emit(dict(phase="dist-nccl", backend=str(res["backend"]), mesh=(1, 1),
+              layers=DIST_NCCL_LAYERS, batch=DIST_NCCL_BATCH,
+              seq=DIST_NCCL_SEQ, losses=(loss0, loss1),
+              worst_grad_rel=worst, serve_tokens_equal=True,
+              peak_gib=float(res["peak_gib"]),
+              seconds=time.perf_counter() - t0))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7027,6 +7774,11 @@ def main() -> int:
     free_card(torch)
     phase_train_check(torch)
     free_card(torch)
+    # the multi-device port: four ranks on the card over gloo, then one
+    # rank on NCCL
+    dist = phase_dist(torch)
+    free_card(torch)
+    phase_dist_nccl(torch)
     # hymba-1.5b and whisper-tiny at full width and depth: K6 at (64, 5)
     # and (64, 1), K7 windowed at G 5 and non-causal at G 1
     families = phase_families(torch)
@@ -7100,11 +7852,12 @@ def main() -> int:
                     kv_cache_dtype="float32")
     free_card(torch)
     # the VLM: llava-next-34b (d 128, G 7) at full width and depth, 64.05
-    # GiB of bf16 weights; image requests with the 2,880-token patch
-    # prefix beside chunked text requests
+    # GiB of bf16 weights (model-llava; its fleet at 16 layers); image
+    # requests with the 2,880-token patch prefix beside chunked text
+    # requests
     llava_model = phase_model_llava(torch, steps=LLAVA_MODEL_STEPS)
     free_card(torch)
-    served_lv, sched_lv = phase_serve_llava(torch)
+    served_lv, sched_lv = phase_serve_llava(torch, layers=LLAVA_SERVE_LAYERS)
     phase_trace(torch, sched_lv, phase="trace-llava",
                 requests=lambda n: llava_requests(
                     torch, sched_lv.model.cfg, n, LLAVA_TEXT, SEED + 2))
@@ -7428,6 +8181,36 @@ def main() -> int:
                  ms=k5_row["ms"], plain_ms=k5_row["plain_ms"],
                  bound_ms=k5_row["bound_ms"], bound_by=k5_row["bound_by"],
                  library_ms=None)]
+    # the multi-device port's launches: K6 on each rank's slice of the
+    # sequence-sharded cache, K7 in each data rank's prefill, K1 on each
+    # data rank's probe rows (dist-serve's f32 run, summed over the four
+    # ranks); timed in the one-process phases at the served shapes
+    dist_launch = {k: sum(int(la[k]) for la in dist["launches"])
+                   for k in DIST_NEED}
+    dist_rows = [
+        dict(name="flash_decode (dist: sequence-sharded, 4 ranks)",
+             route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
+             replaces="src/repro/kernels/decode_attention.py:78",
+             launches=dist_launch["flash_decode"],
+             max_abs_err=max(dist["k6_err"], k6_err), ms=k6_main["ms"],
+             plain_ms=k6_main["plain_ms"], bound_ms=k6_main["bound_ms"],
+             bound_by=k6_main["bound_by"],
+             library_ms=k6_main["library_ms"]),
+        dict(name="flash_attention (dist: each data rank's prefill)",
+             route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:64",
+             launches=dist_launch["flash_attention"], max_abs_err=k7_err,
+             ms=k7_main["ms"], plain_ms=k7_main["plain_ms"],
+             bound_ms=k7_main["bound_tc_ms"],
+             bound_by=k7_main["bound_tc_by"],
+             library_ms=k7_main["library_ms"]),
+        dict(name="serving_probe_step (dist: each data rank's rows)",
+             route="cuda", source="src/repro_torch/csrc/probe_spec.cu",
+             replaces="src/repro/kernels/ttt_probe.py:368",
+             launches=dist_launch["serving_probe_step"],
+             max_abs_err=max(k1["max_abs_err"].values()), ms=k1["ms"],
+             plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             bound_by=k1["bound_by"], library_ms=None)]
     llama_k1 = pick(k1["llama_width"], view="distinct")
     d128_rows.append(dict(
         name=f"serving_probe_step (f {LLAMA_PROBE_F})", route="cuda",
@@ -7511,7 +8294,8 @@ def main() -> int:
              ms=k8[0]["ms"], plain_ms=k8[0]["plain_ms"],
              bound_ms=k8[0]["bound_ms"], bound_by=k8[0]["bound_by"],
              library_ms=None),
-    ] + d128_rows + d80_rows + moe_rows + llava_rows + family_rows})
+    ] + d128_rows + d80_rows + moe_rows + llava_rows + family_rows
+        + dist_rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -36,11 +36,12 @@ counterparts call no Pallas kernel, and B3 and B4 are paged.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import parallel, resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.paged_chunk import (paged_flash_packed_chunk,
@@ -95,12 +96,12 @@ def cache_write_stacked(cache: Dict[str, torch.Tensor], ks: torch.Tensor,
                         ) -> Dict[str, torch.Tensor]:
     """Write one token for ALL layers, in place: cache (L,B,KV,S,dh), ks/vs
     (L,B,KV,dh); ``slot`` (B,) per-row positions.  Rows whose slot is out of
-    range (a parked slot, whose position runs on) do not write: they
-    rewrite the last position's old value, which keeps the update free of
-    host syncs."""
+    range (a parked slot, whose position runs on; on a sequence-sharded
+    cache, a position another rank holds) do not write: they rewrite an
+    old value in place, which keeps the update free of host syncs."""
     s_cache = cache["k"].shape[3]
-    ok = (slot < s_cache)[:, None, None, None]
-    pos = torch.clamp(slot, max=s_cache - 1).long()
+    ok = ((slot >= 0) & (slot < s_cache))[:, None, None, None]
+    pos = torch.clamp(slot, min=0, max=s_cache - 1).long()
     rows = torch.arange(slot.shape[0], device=slot.device)
     for key, val in kv_leaves(ks, vs, cache).items():
         # advanced indices (row, pos) move to the front: (B, L, KV, d')
@@ -111,7 +112,7 @@ def cache_write_stacked(cache: Dict[str, torch.Tensor], ks: torch.Tensor,
 
 
 def decode_valid_mask(pos: torch.Tensor, batch: int, s_cache: int,
-                      window: Optional[int] = None
+                      window: Optional[int] = None, offset: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cache write slot + readable-entry mask for one decode step.
 
@@ -119,11 +120,14 @@ def decode_valid_mask(pos: torch.Tensor, batch: int, s_cache: int,
     the cache is a ring buffer (hymba's): slot = pos % window, and index i
     holds the most recent position p <= pos with p % window == i, readable
     iff that position exists and is < pos (the pos entry is stale until the
-    write after the layer loop)."""
+    write after the layer loop).  ``offset``: the cache is the slice of a
+    sequence-sharded one that starts at that position (no window); the
+    slot is then local, out of range where another rank holds ``pos``."""
     pos = pos.to(torch.int32).expand(batch)
     idxs = torch.arange(s_cache, device=pos.device)
     if window is None:
-        return pos, idxs[None, :] < pos[:, None]
+        return pos - offset, (idxs + offset)[None, :] < pos[:, None]
+    assert offset == 0, "a window ring is not sequence-sharded"
     stored = pos[:, None] - torch.remainder(pos[:, None] - idxs[None, :],
                                             window)
     return (torch.remainder(pos, window),
@@ -263,6 +267,94 @@ def attn_prefill_einsum(q, k, v, *, causal: bool = True,
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def attn_prefill_blockwise(q, k, v, *, causal: bool = True,
+                           window: Optional[int] = None, q_block: int = 512,
+                           kv_block: int = 512,
+                           differentiable: bool = False) -> torch.Tensor:
+    """Flash-style online-softmax attention in plain PyTorch, O(S * block)
+    memory (JAX's ``attn_prefill_blockwise``): q (B, Sq, H, d); k, v
+    (B, Sk, KV, d), Sq a multiple of ``q_block`` and Sk of ``kv_block``.
+    Query blocks in turn; per block a loop over KV blocks carrying the
+    running max, sum and output in f32.  With ``differentiable`` every KV
+    block is visited (masked) and each visit is recomputed in the backward
+    (``torch.utils.checkpoint``), so no (q_block x kv_block) probability
+    block is kept; without it the causally and window-dead blocks are
+    skipped.  Query and key positions both start at 0."""
+    b, sq, h, d = q.shape
+    sk, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
+    assert sq % q_block == 0 and sk % kv_block == 0, (sq, sk, q_block,
+                                                      kv_block)
+    nq, nk = sq // q_block, sk // kv_block
+    scale = 1.0 / math.sqrt(d)
+    kT = k.float().permute(0, 2, 3, 1)                   # (B, KV, d, Sk)
+    vT = v.float().transpose(1, 2)                       # (B, KV, Sk, d)
+
+    def kv_step(qb, qpos, ki, m, l, acc):
+        kb = kT[..., ki * kv_block:(ki + 1) * kv_block]
+        vb = vT[:, :, ki * kv_block:(ki + 1) * kv_block]
+        sc = torch.einsum("bkgqd,bkds->bkgqs", qb, kb)
+        kpos = ki * kv_block + torch.arange(kv_block, device=q.device)
+        mask = torch.ones((q_block, kv_block), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l_new = l * corr + p.sum(-1)
+        acc_new = acc * corr[..., None] + torch.einsum("bkgqs,bksd->bkgqd",
+                                                       p, vb)
+        return m_new, l_new, acc_new
+
+    blocks = []
+    for qi in range(nq):
+        qb = q[:, qi * q_block:(qi + 1) * q_block].float()
+        qb = qb.reshape(b, q_block, n_kv, g, d) * scale
+        qb = qb.permute(0, 2, 3, 1, 4)                   # (B, KV, G, qb, d)
+        qpos = qi * q_block + torch.arange(q_block, device=q.device)
+        m = torch.full((b, n_kv, g, q_block), NEG_INF, device=q.device)
+        l = torch.zeros((b, n_kv, g, q_block), device=q.device)
+        acc = torch.zeros((b, n_kv, g, q_block, d), device=q.device)
+        if differentiable:
+            for ki in range(nk):
+                m, l, acc = torch.utils.checkpoint.checkpoint(
+                    kv_step, qb, qpos, ki, m, l, acc, use_reentrant=False)
+        else:
+            hi = nk
+            if causal:
+                hi = min((qi * q_block + q_block + kv_block - 1) // kv_block,
+                         nk)
+            lo = 0
+            if window is not None:
+                lo = max(qi * q_block - (window - 1), 0) // kv_block
+            for ki in range(lo, hi):
+                m, l, acc = kv_step(qb, qpos, ki, m, l, acc)
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        blocks.append(out.permute(0, 3, 1, 2, 4).reshape(b, q_block, h, d)
+                      .to(q.dtype))
+    return torch.cat(blocks, dim=1)
+
+
+def attn_prefill_train(q, k, v, *, causal: bool = True,
+                       window: Optional[int] = None) -> torch.Tensor:
+    """The training forward's attention (JAX's ``attn_prefill`` dispatch):
+    under a context with ``attn_impl == "blockwise"`` and lengths that
+    divide ``min(512, S)``, ``attn_prefill_blockwise`` (differentiable
+    when remat is on); otherwise ``attn_prefill_einsum``."""
+    if parallel.attn_impl() == "blockwise":
+        qb = min(512, q.shape[1])
+        kb = min(512, k.shape[1])
+        if q.shape[1] % qb == 0 and k.shape[1] % kb == 0:
+            return attn_prefill_blockwise(
+                q, k, v, causal=causal, window=window, q_block=qb,
+                kv_block=kb, differentiable=parallel.remat_enabled())
+    return attn_prefill_einsum(q, k, v, causal=causal, window=window)
+
+
 def attn_prefill(q, k, v, causal: bool = True,
                  window: Optional[int] = None) -> torch.Tensor:
     """Prefill attention, q (B,S,H,d); k,v (B,S,KV,d) -> (B,S,H,d): K7
@@ -293,20 +385,55 @@ def _merge_extra_kv(qg, o, l, m, extra_kv, d):
     return o, l
 
 
+def kv_seq_axis():
+    """The mesh axes the dense cache's sequence dim is sharded on under the
+    active context (its decode rules with ``flash_decode``), else None."""
+    ctx = parallel.current_ctx()
+    if ctx is None or not ctx.flash_decode:
+        return None
+    return ctx.rules.get("kv_seq")
+
+
 def attn_decode(q, cache_l, valid, dtype, extra_kv=None) -> torch.Tensor:
     """q (B,H,d); cache_l per-layer dict (B,KV,S,d) READ-ONLY; valid (B,S);
     extra_kv: optional (k_new, v_new) each (B,KV,d) — the current token.
 
     The cache partials come from K6 (``flash_decode``, the jnp path's
-    numerics: q cast to the cache dtype, f32 sums)."""
+    numerics: q cast to the cache dtype, f32 sums).  Under a context with
+    ``flash_decode`` the cache is this rank's slice of the sequence and the
+    partials are merged over the axis (``_flash_decode_sharded``) before
+    the current token's column is folded in, once."""
     b, h, d = q.shape
     k, v = cache_kv(cache_l, torch.bfloat16)   # int8: bf16 dequant, as JAX
     n_kv = k.shape[1]
-    o, l, m = flash_decode(q, k, v, valid, return_partials=True)
+    ctx = parallel.current_ctx()
+    if kv_seq_axis() is not None:
+        o, l, m = _flash_decode_sharded(ctx, q, k, v, valid)
+    else:
+        o, l, m = flash_decode(q, k, v, valid, return_partials=True)
     qg = q.reshape(b, n_kv, h // n_kv, d).float()
     o, l = _merge_extra_kv(qg, o, l, m, extra_kv, d)
     out = o / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, h, d).to(dtype)
+
+
+def _flash_decode_sharded(ctx, q, k, v, valid):
+    """Sequence-sharded flash decode: k, v (B, KV, S_loc, d) and valid
+    (B, S_loc) this rank's slice of the cache.  K6 gives the slice's
+    partials; the global max is an all-reduce(MAX) over the kv_seq axes,
+    each slice is scaled to it where its max is finite (a slice with no
+    valid position has m = -1e30, so its weight is exp(-1e30 - max) = 0, or
+    1 with l = 0 and o = 0 when every slice is empty), and l and o are
+    summed in one all-reduce.  Returns the unnormalised (o, l, m), so the
+    caller merges the current token's column."""
+    ax = ctx.rules.get("kv_seq")
+    o, l, m = flash_decode(q, k, v, valid, return_partials=True)
+    m_glb = parallel.all_reduce_(m.clone(), ax, "max")
+    scale = torch.where(torch.isfinite(m), torch.exp(m - m_glb),
+                        torch.zeros_like(m))
+    lo = torch.cat([(l * scale)[..., None], o * scale[..., None]], dim=-1)
+    lo = parallel.all_reduce_(lo, ax, "sum")
+    return lo[..., 1:], lo[..., 0], m_glb
 
 
 # ---------------------------------------------------------------------------

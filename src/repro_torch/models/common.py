@@ -1,26 +1,30 @@
 """Shared model building blocks (PyTorch, plain functions on tensors).
 
-Parameters are declared once as ``Param`` leaves (shape + initializer) in a
-nested dict with the JAX package's names and layouts — stacked layer leaves
-keep their leading ``L`` axis — and ``init_params`` instantiates them from a
-``torch.Generator``.  The JAX package keeps every leaf in float32 and casts
-it at use.  Most leaves are cast to the compute dtype (``cfg.dtype``)
-there, so the port stores them in it, rounded once to the values the casts
-give.  A few are read through a float32 cast instead (RWKV6's ``u``,
+Parameters are declared once as ``Param`` leaves (shape, logical axes and
+initializer) in a nested dict with the JAX package's names and layouts —
+stacked layer leaves keep their leading ``L`` axis — and ``init_params``
+instantiates them from a ``torch.Generator``.  The JAX package keeps
+every leaf in float32 and casts it at use.  Most leaves are cast to the
+compute dtype (``cfg.dtype``) there, so the port stores them in it,
+rounded once to the values the casts give.  A few are read through a float32 cast instead (RWKV6's ``u``,
 ``w0``, its group-norm and LayerNorm scales and biases): rounding those to
 bf16 would change the model, so their ``Param`` says ``dtype="float32"``
 and they stay float32 whatever the compute dtype.  The trainer keeps
 float32 masters instead, as JAX trains: ``init_params`` (and
 ``Model.init``) take ``dtype=torch.float32`` for every leaf, and the
-forward casts each at use, as JAX does.
+forward casts each at use, as JAX does.  ``param_specs`` maps the
+logical axes to mesh axes under a sharding policy's rules
+(``launch.shardings``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from repro_torch import parallel
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int8": torch.int8,
@@ -42,17 +46,30 @@ def cdtype(cfg) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class Param:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]       # logical axes, len == ndim
     init: str = "normal"                  # normal | zeros | ones | embed | small
     scale: float = 1.0
     # None: stored in the compute dtype; "float32": kept float32
     dtype: Optional[str] = None
 
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
-def stack_decls(decls, n: int):
+
+def stack_decls(decls, n: int, axis_name: Optional[str] = None):
     """Add a leading stacked-layer dim to every declaration."""
     if isinstance(decls, Param):
-        return dataclasses.replace(decls, shape=(n,) + decls.shape)
-    return {k: stack_decls(v, n) for k, v in decls.items()}
+        return dataclasses.replace(decls, shape=(n,) + decls.shape,
+                                   axes=(axis_name,) + decls.axes)
+    return {k: stack_decls(v, n, axis_name) for k, v in decls.items()}
+
+
+def param_specs(decls, rules: Dict[str, Any]):
+    """The spec tree of a decl tree under a rules dict: per leaf the tuple
+    of mesh axes each dim is sharded on (the entries of JAX's
+    ``PartitionSpec``)."""
+    return _map_decls(decls, lambda p: tuple(
+        rules.get(a) if a is not None else None for a in p.axes))
 
 
 def _leaf_std(p: Param) -> float:
@@ -153,9 +170,9 @@ def layernorm(x, weight, bias, eps: float = 1e-5):
 
 def norm_decls(cfg) -> Dict[str, Param]:
     if cfg.norm == "rmsnorm":
-        return {"scale": Param((cfg.d_model,), "ones")}
-    return {"scale": Param((cfg.d_model,), "ones"),
-            "bias": Param((cfg.d_model,), "zeros")}
+        return {"scale": Param((cfg.d_model,), (None,), "ones")}
+    return {"scale": Param((cfg.d_model,), (None,), "ones"),
+            "bias": Param((cfg.d_model,), (None,), "zeros")}
 
 
 def apply_norm(cfg, p, x):
@@ -230,15 +247,72 @@ def relu_sq(x):
 # Cross-entropy
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 mask: Optional[torch.Tensor] = None,
+                 vocab_axis=None) -> torch.Tensor:
     """logits (B, S, V), targets (B, S) int; the mean over tokens of
     logsumexp minus the gold logit, in float32 (JAX's ``softmax_xent``),
-    or with ``mask`` (B, S) the masked mean."""
+    or with ``mask`` (B, S) the masked mean.
+
+    Under a ``ParallelContext`` the logits may be this rank's shard of the
+    vocab over the mesh axes ``vocab_axis`` (never gathered: the max and
+    the sum of the logsumexp and the gold logit are reduced over the
+    axis), and the batch this rank's rows: the mean is over every rank's
+    tokens, summed over the batch axes."""
+    ctx = parallel.current_ctx()
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    if vocab_axis is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    else:
+        m = parallel.all_reduce_(lf.detach().amax(-1), vocab_axis, "max")
+        s = parallel.reduce_from(torch.exp(lf - m[..., None]).sum(-1),
+                                 vocab_axis)
+        lse = m + torch.log(s)
+        v_loc = lf.shape[-1]
+        t = targets.long() - parallel.axis_offset(vocab_axis, v_loc)
+        hit = (t >= 0) & (t < v_loc)
+        gold = torch.gather(lf, -1, t.clamp(0, v_loc - 1)[..., None])[..., 0]
+        gold = parallel.reduce_from(
+            torch.where(hit, gold, torch.zeros_like(gold)), vocab_axis)
     loss = lse - gold
-    if mask is not None:
-        mask = mask.float()
-        return torch.sum(loss * mask) / torch.clamp(mask.sum(), min=1.0)
-    return loss.mean()
+    if ctx is None:
+        if mask is not None:
+            mask = mask.float()
+            return torch.sum(loss * mask) / torch.clamp(mask.sum(), min=1.0)
+        return loss.mean()
+    batch_axes = ctx.rules.get("batch")
+    mask = torch.ones_like(loss) if mask is None else mask.float()
+    num = parallel.reduce_from(torch.sum(loss * mask), batch_axes)
+    den = parallel.all_reduce_(mask.sum().detach(), batch_axes)
+    return num / torch.clamp(den, min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Vocab-parallel embedding and logits
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, dtype,
+                vpad: int) -> torch.Tensor:
+    """Rows ``tokens`` of the embedding ``table`` (V_pad, d) in ``dtype``.
+    A table of fewer rows is this rank's shard of the vocab under the
+    active context's "vocab" rule: each rank looks up its own range and
+    the rows are summed over the axis (the other ranks add zeros)."""
+    if table.shape[0] == vpad:
+        return table.to(dtype)[tokens.long()]
+    axis = parallel.current_ctx().rules["vocab"]
+    v_loc = table.shape[0]
+    t = tokens.long() - parallel.axis_offset(axis, v_loc)
+    hit = ((t >= 0) & (t < v_loc))[..., None]
+    rows = table.to(dtype)[t.clamp(0, v_loc - 1)]
+    return parallel.reduce_from(torch.where(hit, rows, torch.zeros_like(rows)),
+                                axis)
+
+
+def vocab_logits(h: torch.Tensor, w: torch.Tensor, vpad: int
+                 ) -> torch.Tensor:
+    """h @ w for an output head ``w`` (d, V_pad); a head of fewer columns
+    is this rank's vocab shard and gives this rank's logits (the gradient
+    of the replicated h summed over the vocab axis)."""
+    w = w.to(h.dtype)
+    if w.shape[-1] != vpad:
+        h = parallel.copy_to(h, parallel.current_ctx().rules["vocab"])
+    return h @ w

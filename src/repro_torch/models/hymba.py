@@ -39,13 +39,15 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch import parallel
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (Param, apply_norm, apply_rope,
                                        apply_rope_tables, cdtype, norm_decls,
                                        rmsnorm, rope_tables, stack_decls)
 from repro_torch.models.transformer import (_mlp_decls, _qkv, embed_tokens,
                                             layer_params, logits_from_hidden,
-                                            mlp_apply, unstacked_layers)
+                                            mlp_apply, run_layers,
+                                            unstacked_layers)
 
 F32 = "float32"
 # positions of the selective scan computed per pass of the token loop: its
@@ -68,17 +70,17 @@ def mamba_decls(cfg) -> Dict[str, Param]:
     d, di, ds = cfg.d_model, _inner(cfg), cfg.ssm.state_dim
     dtr = cfg.ssm.dt_rank or max(1, -(-d // 16))
     return {
-        "w_in": Param((d, 2 * di)),
-        "conv_w": Param((cfg.ssm.conv_dim, di)),
-        "conv_b": Param((di,), "zeros"),
-        "w_x_dt": Param((di, dtr)),
-        "w_dt": Param((dtr, di)),
-        "b_dt": Param((di,), "zeros"),
-        "w_B": Param((di, ds)),
-        "w_C": Param((di, ds)),
-        "A_log": Param((di, ds), "small", dtype=F32),
-        "D": Param((di,), "ones", dtype=F32),
-        "w_out": Param((di, d)),
+        "w_in": Param((d, 2 * di), ("embed", "inner2")),
+        "conv_w": Param((cfg.ssm.conv_dim, di), (None, "inner")),
+        "conv_b": Param((di,), ("inner",), "zeros"),
+        "w_x_dt": Param((di, dtr), ("inner", None)),
+        "w_dt": Param((dtr, di), (None, "inner")),
+        "b_dt": Param((di,), ("inner",), "zeros"),
+        "w_B": Param((di, ds), ("inner", None)),
+        "w_C": Param((di, ds), ("inner", None)),
+        "A_log": Param((di, ds), ("inner", None), "small", dtype=F32),
+        "D": Param((di,), ("inner",), "ones", dtype=F32),
+        "w_out": Param((di, d), ("inner", "embed")),
     }
 
 
@@ -166,14 +168,14 @@ def layer_decls(cfg) -> Dict[str, Any]:
     d = cfg.d_model
     return {
         "ln1": norm_decls(cfg), "ln2": norm_decls(cfg),
-        "attn": {"wq": Param((d, cfg.attn_out_dim)),
-                 "wk": Param((d, cfg.kv_out_dim)),
-                 "wv": Param((d, cfg.kv_out_dim)),
-                 "wo": Param((cfg.attn_out_dim, d))},
+        "attn": {"wq": Param((d, cfg.attn_out_dim), ("embed", "qkv")),
+                 "wk": Param((d, cfg.kv_out_dim), ("embed", "kv_qkv")),
+                 "wv": Param((d, cfg.kv_out_dim), ("embed", "kv_qkv")),
+                 "wo": Param((cfg.attn_out_dim, d), ("qkv", "embed"))},
         "mamba": mamba_decls(cfg),
-        "norm_attn": {"scale": Param((d,), "ones")},
-        "norm_ssm": {"scale": Param((d,), "ones")},
-        "beta": Param((2,), "ones", dtype=F32),
+        "norm_attn": {"scale": Param((d,), (None,), "ones")},
+        "norm_ssm": {"scale": Param((d,), (None,), "ones")},
+        "beta": Param((2,), (None,), "ones", dtype=F32),
         "mlp": _mlp_decls(cfg),
     }
 
@@ -181,11 +183,12 @@ def layer_decls(cfg) -> Dict[str, Any]:
 def decls(cfg) -> Dict[str, Any]:
     vpad = cfg.padded_vocab()
     return {
-        "embed": Param((vpad, cfg.d_model), "embed"),
-        "meta_tokens": Param((cfg.n_meta_tokens, cfg.d_model), "embed"),
+        "embed": Param((vpad, cfg.d_model), ("vocab", "embed"), "embed"),
+        "meta_tokens": Param((cfg.n_meta_tokens, cfg.d_model),
+                             (None, "embed"), "embed"),
         "final_norm": norm_decls(cfg),
-        "lm_head": Param((cfg.d_model, vpad)),
-        "layers": stack_decls(layer_decls(cfg), cfg.n_layers),
+        "lm_head": Param((cfg.d_model, vpad), ("embed", "vocab")),
+        "layers": stack_decls(layer_decls(cfg), cfg.n_layers, "layers"),
     }
 
 
@@ -215,7 +218,7 @@ def _fuse(p, x, oa, om):
 
 def _layer_prefill(cfg, p, x, positions, mamba_state, train=False):
     """One layer over x (B, S, d): attention through K7 and the serving
-    scan, or with ``train`` through ``attn_prefill_einsum`` and
+    scan, or with ``train`` through ``attn_prefill_train`` and
     ``selective_scan_autograd``."""
     b, s, _ = x.shape
     h = apply_norm(cfg, p["ln1"], x)
@@ -225,7 +228,7 @@ def _layer_prefill(cfg, p, x, positions, mamba_state, train=False):
     k = apply_rope(k.reshape(b, s, cfg.n_kv_heads, cfg.d_head), positions,
                    cfg.rope_theta, cfg.rotary_pct)
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    attend = attn.attn_prefill_einsum if train else attn.attn_prefill
+    attend = attn.attn_prefill_train if train else attn.attn_prefill
     oa = attend(q, k, v, causal=True, window=cfg.sliding_window)
     oa = oa.reshape(b, s, cfg.attn_out_dim) @ p["attn"]["wo"].to(x.dtype)
     om, mamba_state = mamba_branch(
@@ -247,7 +250,8 @@ def forward(cfg, params, batch):
     layer from zero Mamba states.  Returns (logits, hidden, aux), aux 0;
     the logits cover the meta tokens too (``Model.loss`` keeps the
     text's)."""
-    x = _with_meta(cfg, params, batch["tokens"])
+    x = parallel.constrain(_with_meta(cfg, params, batch["tokens"]),
+                           "batch", None, None)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     di = _inner(cfg)
@@ -255,11 +259,13 @@ def forward(cfg, params, batch):
                                dtype=x.dtype, device=x.device),
            "ssm": torch.zeros((b, di, cfg.ssm.state_dim),
                               dtype=torch.float32, device=x.device)}
-    for p in unstacked_layers(params["layers"], cfg.n_layers):
-        x = _layer_prefill(cfg, p, x, positions, st0, train=True)[0]
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = run_layers(
+        lambda p, x: (_layer_prefill(cfg, p, x, positions, st0,
+                                     train=True)[0], zero),
+        x, unstacked_layers(params["layers"], cfg.n_layers))
     h = apply_norm(cfg, params["final_norm"], x)
-    return (logits_from_hidden(cfg, params, h), h,
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return logits_from_hidden(cfg, params, h), h, aux
 
 
 @torch.no_grad()

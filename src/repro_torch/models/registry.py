@@ -46,12 +46,12 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import parallel, resolve_device
 from repro_torch.configs import InputShape, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import hymba, rwkv6, transformer, whisper
 from repro_torch.models.common import (cdtype, init_params, param_shapes,
-                                       softmax_xent, torch_dtype)
+                                       param_specs, softmax_xent, torch_dtype)
 
 # contexts up to this length decode with the native full cache; the
 # sliding-window variant is only the documented long-context carve-out
@@ -146,20 +146,30 @@ class Model:
         """The tree ``init`` gives, as meta tensors (shapes and dtypes)."""
         return param_shapes(self.decls, self._store(dtype))
 
+    def specs(self, rules):
+        """Every leaf's spec under a sharding policy's rules."""
+        return param_specs(self.decls, rules)
+
     def loss(self, params, batch):
         """Teacher-forced next-token loss (JAX's ``Model.loss``): the
         logits of the last ``targets.shape[1]`` positions, the vocab
         padding masked to -1e30, ``softmax_xent`` (with ``batch["mask"]``
         if given) plus the forward's aux.  Returns (loss, {"xent",
-        "aux"})."""
+        "aux"}).  Under a context the batch is this rank's rows and the
+        logits may be its vocab shard (the rules' "vocab" axes): the loss is
+        the whole batch's, on every rank."""
         logits, _, aux = self.forward(self.cfg, params, batch)
         targets = batch["targets"]
         logits = logits[:, -targets.shape[1]:]
         vpad, v = self.cfg.padded_vocab(), self.cfg.vocab_size
+        vocab_axis = None
+        if logits.shape[-1] != vpad:
+            vocab_axis = parallel.current_ctx().rules["vocab"]
         if vpad != v:
-            pad = torch.arange(vpad, device=logits.device) >= v
-            logits = logits.masked_fill(pad, -1e30)
-        xent = softmax_xent(logits, targets, batch.get("mask"))
+            ids = torch.arange(logits.shape[-1], device=logits.device) + \
+                parallel.axis_offset(vocab_axis, logits.shape[-1])
+            logits = logits.masked_fill(ids >= v, -1e30)
+        xent = softmax_xent(logits, targets, batch.get("mask"), vocab_axis)
         return xent + aux, {"xent": xent, "aux": aux}
 
     def text_len(self, shape: InputShape) -> int:

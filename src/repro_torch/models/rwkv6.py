@@ -29,10 +29,13 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch import parallel
 from repro_torch.kernels.rwkv6_scan import wkv_scan as wkv_kernel
 from repro_torch.models.common import (Param, cdtype, layernorm, relu_sq,
-                                       stack_decls)
-from repro_torch.models.transformer import layer_params, unstacked_layers
+                                       stack_decls, vocab_embed,
+                                       vocab_logits)
+from repro_torch.models.transformer import (layer_params, run_layers,
+                                            unstacked_layers)
 
 DECAY_LORA = 64
 F32 = "float32"
@@ -42,39 +45,44 @@ def layer_decls(cfg) -> Dict[str, Any]:
     d, f = cfg.d_model, cfg.d_ff
     H, dh = cfg.n_heads, cfg.ssm.head_dim
     assert H * dh == d
-    ln = lambda: {"scale": Param((d,), "ones", dtype=F32),
-                  "bias": Param((d,), "zeros", dtype=F32)}
+    ln = lambda: {"scale": Param((d,), (None,), "ones", dtype=F32),
+                  "bias": Param((d,), (None,), "zeros", dtype=F32)}
     return {
         "ln1": ln(), "ln2": ln(),
         "tm": {
-            "mu": Param((5, d), "small"),          # r,k,v,w,g shifts
-            "w0": Param((d,), "small", dtype=F32),
-            "wA": Param((d, DECAY_LORA), "small"),
-            "wB": Param((DECAY_LORA, d), "small"),
-            "u": Param((H, dh), "small", dtype=F32),
-            "Wr": Param((d, d)), "Wk": Param((d, d)), "Wv": Param((d, d)),
-            "Wg": Param((d, d)), "Wo": Param((d, d)),
-            "gn_scale": Param((d,), "ones", dtype=F32),
-            "gn_bias": Param((d,), "zeros", dtype=F32),
+            "mu": Param((5, d), (None, None), "small"),   # r,k,v,w,g shifts
+            "w0": Param((d,), (None,), "small", dtype=F32),
+            "wA": Param((d, DECAY_LORA), ("embed", None), "small"),
+            "wB": Param((DECAY_LORA, d), (None, "embed"), "small"),
+            "u": Param((H, dh), ("heads", None), "small", dtype=F32),
+            "Wr": Param((d, d), ("embed", "qkv")),
+            "Wk": Param((d, d), ("embed", "qkv")),
+            "Wv": Param((d, d), ("embed", "qkv")),
+            "Wg": Param((d, d), ("embed", "qkv")),
+            "Wo": Param((d, d), ("qkv", "embed")),
+            "gn_scale": Param((d,), (None,), "ones", dtype=F32),
+            "gn_bias": Param((d,), (None,), "zeros", dtype=F32),
         },
         "cm": {
-            "mu_k": Param((d,), "small"),
-            "mu_r": Param((d,), "small"),
-            "Wk": Param((d, f)), "Wv": Param((f, d)), "Wr": Param((d, d)),
+            "mu_k": Param((d,), (None,), "small"),
+            "mu_r": Param((d,), (None,), "small"),
+            "Wk": Param((d, f), ("embed", "mlp")),
+            "Wv": Param((f, d), ("mlp", "embed")),
+            "Wr": Param((d, d), ("embed", "embed2")),
         },
     }
 
 
 def decls(cfg) -> Dict[str, Any]:
     vpad, d = cfg.padded_vocab(), cfg.d_model
-    norm = lambda: {"scale": Param((d,), "ones", dtype=F32),
-                    "bias": Param((d,), "zeros", dtype=F32)}
+    norm = lambda: {"scale": Param((d,), (None,), "ones", dtype=F32),
+                    "bias": Param((d,), (None,), "zeros", dtype=F32)}
     return {
-        "embed": Param((vpad, d), "embed"),
+        "embed": Param((vpad, d), ("vocab", "embed"), "embed"),
         "ln0": norm(),
         "final_norm": norm(),
-        "lm_head": Param((d, vpad)),
-        "layers": stack_decls(layer_decls(cfg), cfg.n_layers),
+        "lm_head": Param((d, vpad), ("embed", "vocab")),
+        "layers": stack_decls(layer_decls(cfg), cfg.n_layers, "layers"),
     }
 
 
@@ -205,7 +213,7 @@ def _layer(cfg, p, x, st):
 
 
 def _embed(cfg, params, tokens):
-    x = params["embed"].to(cdtype(cfg))[tokens.long()]
+    x = vocab_embed(params["embed"], tokens, cdtype(cfg), cfg.padded_vocab())
     return layernorm(x, params["ln0"]["scale"], params["ln0"]["bias"])
 
 
@@ -220,21 +228,27 @@ def _run_layers(cfg, params, x, state):
 def forward(cfg, params, batch):
     """Training forward over whole sequences, from the zero state.
     Returns (logits, hidden, aux), aux 0."""
-    x = _embed(cfg, params, batch["tokens"])
+    x = parallel.constrain(_embed(cfg, params, batch["tokens"]),
+                           "batch", None, None)
     b, _, d = x.shape
     zero_x = torch.zeros((b, d), dtype=x.dtype, device=x.device)
     H, dh = cfg.n_heads, cfg.ssm.head_dim
     zero_s = torch.zeros((b, H, dh, dh), dtype=torch.float32,
                          device=x.device)
-    for p in unstacked_layers(params["layers"], cfg.n_layers):
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(p, x):
         h = layernorm(x, p["ln1"]["scale"], p["ln1"]["bias"])
         x = x + time_mix(cfg, p["tm"], h, zero_x, zero_s, train=True)[0]
         h = layernorm(x, p["ln2"]["scale"], p["ln2"]["bias"])
-        x = x + channel_mix(cfg, p["cm"], h, zero_x)[0]
+        return x + channel_mix(cfg, p["cm"], h, zero_x)[0], zero
+
+    x, aux = run_layers(layer, x, unstacked_layers(params["layers"],
+                                                   cfg.n_layers))
     h = layernorm(x, params["final_norm"]["scale"],
                   params["final_norm"]["bias"])
-    logits = h @ params["lm_head"].to(h.dtype)
-    return logits, h, torch.zeros((), dtype=torch.float32, device=x.device)
+    logits = vocab_logits(h, params["lm_head"], cfg.padded_vocab())
+    return parallel.constrain(logits, "batch", None, "vocab"), h, aux
 
 
 @torch.no_grad()

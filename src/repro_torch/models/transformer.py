@@ -24,11 +24,14 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import parallel
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models.common import (Param, apply_norm, apply_rope, cdtype,
-                                       gelu, norm_decls, stack_decls, swiglu)
+                                       gelu, norm_decls, stack_decls, swiglu,
+                                       vocab_embed, vocab_logits)
 
 
 # ---------------------------------------------------------------------------
@@ -36,19 +39,22 @@ from repro_torch.models.common import (Param, apply_norm, apply_rope, cdtype,
 
 def _attn_decls(cfg) -> Dict[str, Param]:
     d, qo, kvo = cfg.d_model, cfg.attn_out_dim, cfg.kv_out_dim
-    out = {"wq": Param((d, qo)), "wk": Param((d, kvo)),
-           "wv": Param((d, kvo)), "wo": Param((qo, d))}
+    out = {"wq": Param((d, qo), ("embed", "qkv")),
+           "wk": Param((d, kvo), ("embed", "kv_qkv")),
+           "wv": Param((d, kvo), ("embed", "kv_qkv")),
+           "wo": Param((qo, d), ("qkv", "embed"))}
     if cfg.qkv_bias:
-        out["bq"] = Param((qo,), "zeros")
-        out["bk"] = Param((kvo,), "zeros")
-        out["bv"] = Param((kvo,), "zeros")
+        out["bq"] = Param((qo,), ("qkv",), "zeros")
+        out["bk"] = Param((kvo,), ("kv_qkv",), "zeros")
+        out["bv"] = Param((kvo,), ("kv_qkv",), "zeros")
     return out
 
 
 def _mlp_decls(cfg) -> Dict[str, Param]:
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_gate": Param((d, f)), "w_up": Param((d, f)),
-            "w_down": Param((f, d))}
+    return {"w_gate": Param((d, f), ("embed", "mlp")),
+            "w_up": Param((d, f), ("embed", "mlp")),
+            "w_down": Param((f, d), ("mlp", "embed"))}
 
 
 def decls(cfg) -> Dict[str, Any]:
@@ -59,22 +65,26 @@ def decls(cfg) -> Dict[str, Any]:
             "of their own (models/registry.py)")
     mlp = moe.moe_decls(cfg) if cfg.moe is not None else _mlp_decls(cfg)
     tree: Dict[str, Any] = {
-        "embed": Param((cfg.padded_vocab(), cfg.d_model), "embed"),
+        "embed": Param((cfg.padded_vocab(), cfg.d_model), ("vocab", "embed"),
+                       "embed"),
         "final_norm": norm_decls(cfg),
         "layers": stack_decls({"ln1": norm_decls(cfg), "ln2": norm_decls(cfg),
                                "attn": _attn_decls(cfg), "mlp": mlp},
-                              cfg.n_layers),
+                              cfg.n_layers, "layers"),
     }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = Param((cfg.d_model, cfg.padded_vocab()))
+        tree["lm_head"] = Param((cfg.d_model, cfg.padded_vocab()),
+                                ("embed", "vocab"))
     if cfg.arch_type == "vlm":
         d = cfg.d_model
-        tree["projector"] = {"w1": Param((cfg.frontend.embed_dim, d)),
-                             "b1": Param((d,), "zeros"),
-                             "w2": Param((d, d)), "b2": Param((d,), "zeros")}
+        tree["projector"] = {
+            "w1": Param((cfg.frontend.embed_dim, d), (None, "embed")),
+            "b1": Param((d,), (None,), "zeros"),
+            "w2": Param((d, d), ("embed", "embed2")),
+            "b2": Param((d,), (None,), "zeros")}
     if cfg.n_meta_tokens:
         tree["meta_tokens"] = Param((cfg.n_meta_tokens, cfg.d_model),
-                                    "embed")
+                                    (None, "embed"), "embed")
     return tree
 
 
@@ -108,13 +118,41 @@ def unstacked_layers(layers, n: int):
 # ---------------------------------------------------------------------------
 # Blocks
 
+# Tensor parallelism of the serving passes.  Under a context the served
+# weights are each rank's shards (the serve rules put qkv, kv_qkv and mlp
+# on the model axis); a leaf narrower than its declared width is such a
+# shard, and the blocks below run it Megatron-style: column shards' outputs
+# are gathered (q, k and v in one all-gather), row shards' f32 partial
+# products are summed in one all-reduce and cast once.  The training step
+# gathers every such leaf before the forward (``launch.shardings.
+# compute_params``), so these paths are forward-only.
+
+def _tp_axis(logical: str):
+    assert not torch.is_grad_enabled(), \
+        "tensor-parallel shards are served, not trained: gather them first"
+    return parallel.current_ctx().rules[logical]
+
+
+def _row_parallel(x_loc, w_loc, logical: str):
+    """sum over the ``logical`` rule's axis of x_loc @ w_loc, the
+    partials in f32, cast to x's dtype once."""
+    part = x_loc.float() @ w_loc.float()
+    return parallel.all_reduce_(part, _tp_axis(logical)).to(x_loc.dtype)
+
+
 def mlp_apply(cfg, p, x):
-    """The MLP of a (B, S, d) block: the experts of an MoE config, else
-    the swiglu."""
+    """The MLP of a (B, S, d) block: the experts of an MoE config (the
+    expert-parallel path under a context with ``ep_moe``), else the
+    swiglu."""
     if cfg.moe is not None:
+        ctx = parallel.current_ctx()
+        if ctx is not None and ctx.ep_moe:
+            return moe.moe_ep(p, x, cfg, ctx)[0]
         return moe.moe_dense(p, x, cfg)
     dt = x.dtype
     h = swiglu(x @ p["w_gate"].to(dt), x @ p["w_up"].to(dt))
+    if p["w_down"].shape[-2] != cfg.d_ff:
+        return _row_parallel(h, p["w_down"].to(dt), "mlp")
     return h @ p["w_down"].to(dt)
 
 
@@ -127,7 +165,26 @@ def _qkv(cfg, p, x):
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
+    if q.shape[-1] != cfg.attn_out_dim:
+        # column shards: one all-gather of [q | k | v], split per rank
+        widths = (q.shape[-1], k.shape[-1], v.shape[-1])
+        ax = _tp_axis("qkv")
+        assert parallel.current_ctx().rules["kv_qkv"] == ax
+        parts = parallel.all_gather(torch.cat([q, k, v], -1), ax, -1
+                                    ).split(sum(widths), -1)
+        q, k, v = (torch.cat([t.split(widths, -1)[i] for t in parts], -1)
+                   for i in range(3))
     return q, k, v
+
+
+def _out_proj(cfg, p, o):
+    """o (..., H*dh) @ wo, row-parallel on a shard of wo's rows."""
+    wo = p["attn"]["wo"].to(o.dtype)
+    if wo.shape[0] != cfg.attn_out_dim:
+        ax = _tp_axis("qkv")
+        off = parallel.axis_offset(ax, wo.shape[0])
+        return _row_parallel(o[..., off:off + wo.shape[0]], wo, "qkv")
+    return o @ wo
 
 
 def _attn_block(cfg, p, x, positions):
@@ -147,13 +204,17 @@ def _attn_block(cfg, p, x, positions):
 def _finish_block(cfg, p, x, o):
     """wo, the residual, ln2 and the MLP after attention output o."""
     b, s = x.shape[:2]
-    x = x + o.reshape(b, s, cfg.attn_out_dim) @ p["attn"]["wo"].to(x.dtype)
-    return x + mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    x = x + parallel.constrain(
+        _out_proj(cfg, p, o.reshape(b, s, cfg.attn_out_dim)),
+        "batch", None, None)
+    m = mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    return x + parallel.constrain(m, "batch", None, None)
 
 
 def layer_prefill(cfg, p, x, positions, window: Optional[int]):
     """x (B,S,d) -> (x', (k, v)) with k/v (B, KV, S, dh) for the cache."""
     q, k, v = _attn_block(cfg, p, x, positions)
+    q = parallel.constrain(q, "batch", None, "heads", None)
     o = attn.attn_prefill(q, k, v, causal=True, window=window)
     return _finish_block(cfg, p, x, o), (k.transpose(1, 2), v.transpose(1, 2))
 
@@ -179,8 +240,7 @@ def layer_decode(cfg, p, x, cache_l, pos, valid, block_tables=None):
                                    extra_kv=(k, v))
     else:
         o = attn.attn_decode(q, cache_l, valid, x.dtype, extra_kv=(k, v))
-    o = o.reshape(b, cfg.attn_out_dim) @ p["attn"]["wo"].to(x.dtype)
-    x = x + o
+    x = x + _out_proj(cfg, p, o.reshape(b, cfg.attn_out_dim))
     h = apply_norm(cfg, p["ln2"], x[:, None, :])
     return x + mlp_apply(cfg, p["mlp"], h)[:, 0], (k, v)
 
@@ -189,13 +249,17 @@ def layer_decode(cfg, p, x, cache_l, pos, valid, block_tables=None):
 # Embedding / logits
 
 def embed_tokens(cfg, params, tokens):
-    return params["embed"].to(cdtype(cfg))[tokens.long()]
+    return vocab_embed(params["embed"], tokens, cdtype(cfg),
+                       cfg.padded_vocab())
 
 
 def logits_from_hidden(cfg, params, h):
-    if cfg.tie_embeddings:
-        return h @ params["embed"].to(h.dtype).T
-    return h @ params["lm_head"].to(h.dtype)
+    """The logits; under a context whose rules shard the vocab, a vocab
+    shard of the head gives this rank's shard of them."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = vocab_logits(h, w, cfg.padded_vocab())
+    axes = ("batch",) + (None,) * (logits.dim() - 2) + ("vocab",)
+    return parallel.constrain(logits, *axes)
 
 
 def project_patches(cfg, params, patch_embeds):
@@ -213,17 +277,45 @@ def project_patches(cfg, params, patch_embeds):
 
 def layer_forward(cfg, p, x, positions, window: Optional[int]):
     """One layer of the training forward, JAX's ``layer_prefill`` without
-    the cache: attention through ``attn_prefill_einsum``; returns (x',
-    aux), aux the MoE router's loss or None."""
+    the cache: attention through ``attn_prefill_train`` (the einsum, or
+    blockwise under a context that asks for it); returns (x', aux), aux
+    the MoE router's loss (0. without experts)."""
     q, k, v = _attn_block(cfg, p, x, positions)
-    o = attn.attn_prefill_einsum(q, k, v, causal=True, window=window)
+    q = parallel.constrain(q, "batch", None, "heads", None)
+    o = attn.attn_prefill_train(q, k, v, causal=True, window=window)
     b, s = x.shape[:2]
-    x = x + o.reshape(b, s, cfg.attn_out_dim) @ p["attn"]["wo"].to(x.dtype)
+    o = o.reshape(b, s, cfg.attn_out_dim) @ p["attn"]["wo"].to(x.dtype)
+    x = x + parallel.constrain(o, "batch", None, None)
     h = apply_norm(cfg, p["ln2"], x)
     if cfg.moe is not None:
         m, aux = moe.moe_block(p["mlp"], h, cfg)
-        return x + m, aux
-    return x + mlp_apply(cfg, p["mlp"], h), None
+    else:
+        m = mlp_apply(cfg, p["mlp"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + parallel.constrain(m, "batch", None, None), aux
+
+
+def run_layers(layer_fn, x, layers):
+    """``x, aux = layer_fn(p, x)`` over every layer's parameters, the
+    layers' aux summed; each layer recomputed in the backward
+    (``torch.utils.checkpoint``) when the context asks for remat (JAX's
+    ``jax.checkpoint`` of the scanned body).  The recomputation runs where
+    the backward runs: for CUDA tensors on the autograd engine's device
+    thread, where the context variable is unset, so the checkpointed body
+    enters the forward's context itself."""
+    ctx = parallel.current_ctx()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(p, x):
+        with parallel.use_parallel(ctx):
+            return layer_fn(p, x)
+    for p in layers:
+        if ctx is not None and ctx.remat:
+            x, a = checkpoint(body, p, x, use_reentrant=False)
+        else:
+            x, a = layer_fn(p, x)
+        aux = aux + a
+    return x, aux
 
 
 def forward(cfg, params, batch):
@@ -243,13 +335,12 @@ def forward(cfg, params, batch):
         prefix.append(meta.expand(x.shape[0], *meta.shape))
     if prefix:
         x = torch.cat(prefix + [x], dim=1)
+    x = parallel.constrain(x, "batch", None, None)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in unstacked_layers(params["layers"], cfg.n_layers):
-        x, a = layer_forward(cfg, p, x, positions, cfg.sliding_window)
-        if a is not None:
-            aux = aux + a
+    x, aux = run_layers(
+        lambda p, x: layer_forward(cfg, p, x, positions, cfg.sliding_window),
+        x, unstacked_layers(params["layers"], cfg.n_layers))
     h = apply_norm(cfg, params["final_norm"], x)
     return logits_from_hidden(cfg, params, h), h, aux
 
@@ -267,15 +358,24 @@ def prefill(cfg, params, batch, cache_len: int):
                        x], 1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    cache = attn.init_cache(cfg, b, cache_len, device=x.device)
+    # under a context with flash_decode the cache is this rank's slice of
+    # the sequence, [off, off + s_loc)
+    ax = attn.kv_seq_axis()
+    n = parallel.axes_size(ax)
+    assert cache_len % n == 0, (cache_len, n)
+    s_loc = cache_len // n
+    off = parallel.axis_offset(ax, s_loc)
+    lo, hi = off, min(s, off + s_loc)
+    cache = attn.init_cache(cfg, b, s_loc, device=x.device)
     for l in range(cfg.n_layers):
         x, (k, v) = layer_prefill(cfg, layer_params(params, l), x, positions,
                                   cfg.sliding_window)
         # each layer's K/V (B, KV, S, dh) into the cache as it comes, int8
         # quantised per (position, head): no stack of every layer's K/V in
         # float32 (5 GB for qwen1.5-32b's harvest of 8 x 160 tokens)
-        for key, val in attn.kv_leaves(k, v, cache).items():
-            cache[key][l, :, :, :s] = val
+        if hi > lo:
+            for key, val in attn.kv_leaves(k, v, cache).items():
+                cache[key][l, :, :, :hi - lo] = val[:, :, lo:hi]
     h = apply_norm(cfg, params["final_norm"], x)
     return cache, h[:, -1], h
 
@@ -308,7 +408,9 @@ def decode_step(cfg, params, token, cache, pos, *,
     else:
         pages, bt = cache, None
         s_cache = cache["k"].shape[3]
-        slot, valid = attn.decode_valid_mask(pos, b, s_cache)
+        slot, valid = attn.decode_valid_mask(
+            pos, b, s_cache, offset=parallel.axis_offset(attn.kv_seq_axis(),
+                                                         s_cache))
         if write_mask is not None:
             # masked rows route their write out of range: dropped
             slot = torch.where(write_mask, slot,

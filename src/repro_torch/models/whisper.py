@@ -32,25 +32,34 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch import parallel
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (Param, apply_norm, cdtype, gelu,
-                                       norm_decls, stack_decls)
-from repro_torch.models.transformer import layer_params, unstacked_layers
+                                       norm_decls, stack_decls, vocab_embed,
+                                       vocab_logits)
+from repro_torch.models.transformer import (layer_params, run_layers,
+                                            unstacked_layers)
 
 MAX_TARGET_POSITIONS = 32768  # decoder learned positions (extended from 448)
 
 
 def _attn_decls(cfg):
     d, qo = cfg.d_model, cfg.attn_out_dim
-    return {"wq": Param((d, qo)), "wk": Param((d, qo)), "wv": Param((d, qo)),
-            "wo": Param((qo, d)), "bq": Param((qo,), "zeros"),
-            "bk": Param((qo,), "zeros"), "bv": Param((qo,), "zeros")}
+    return {"wq": Param((d, qo), ("embed", "qkv")),
+            "wk": Param((d, qo), ("embed", "kv_qkv")),
+            "wv": Param((d, qo), ("embed", "kv_qkv")),
+            "wo": Param((qo, d), ("qkv", "embed")),
+            "bq": Param((qo,), ("qkv",), "zeros"),
+            "bk": Param((qo,), ("kv_qkv",), "zeros"),
+            "bv": Param((qo,), ("kv_qkv",), "zeros")}
 
 
 def _mlp_decls(cfg):
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_in": Param((d, f)), "b_in": Param((f,), "zeros"),
-            "w_out": Param((f, d)), "b_out": Param((d,), "zeros")}
+    return {"w_in": Param((d, f), ("embed", "mlp")),
+            "b_in": Param((f,), ("mlp",), "zeros"),
+            "w_out": Param((f, d), ("mlp", "embed")),
+            "b_out": Param((d,), (None,), "zeros")}
 
 
 def decls(cfg) -> Dict[str, Any]:
@@ -60,11 +69,13 @@ def decls(cfg) -> Dict[str, Any]:
            "ln2": norm_decls(cfg), "cross_attn": _attn_decls(cfg),
            "ln3": norm_decls(cfg), "mlp": _mlp_decls(cfg)}
     return {
-        "embed": Param((cfg.padded_vocab(), cfg.d_model), "embed"),
-        "pos_embed": Param((MAX_TARGET_POSITIONS, cfg.d_model), "embed"),
-        "enc_layers": stack_decls(enc, cfg.n_encoder_layers),
+        "embed": Param((cfg.padded_vocab(), cfg.d_model), ("vocab", "embed"),
+                       "embed"),
+        "pos_embed": Param((MAX_TARGET_POSITIONS, cfg.d_model),
+                           (None, "embed"), "embed"),
+        "enc_layers": stack_decls(enc, cfg.n_encoder_layers, "layers"),
         "enc_norm": norm_decls(cfg),
-        "dec_layers": stack_decls(dec, cfg.n_layers),
+        "dec_layers": stack_decls(dec, cfg.n_layers, "layers"),
         "final_norm": norm_decls(cfg),
     }
 
@@ -124,6 +135,7 @@ def _encode(cfg, params, frames, attend):
     dt = cdtype(cfg)
     x = frames.to(dt) + _sinusoid(frames.shape[1], cfg.d_model,
                                   frames.device).to(dt)[None]
+    x = parallel.constrain(x, "batch", None, None)
     for p in unstacked_layers(params["enc_layers"], cfg.n_encoder_layers):
         h = apply_norm(cfg, p["ln1"], x)
         x = x + _mha(cfg, p["attn"], h, h, False, attend)
@@ -135,21 +147,30 @@ def forward(cfg, params, batch):
     """Teacher-forced training forward: batch "frames" (B, F, d) and
     "tokens" (B, S).  Returns (logits, hidden, aux), aux 0; the logits
     through the tied embedding."""
-    attend = attn.attn_prefill_einsum
+    attend = attn.attn_prefill_train
     enc = _encode(cfg, params, batch["frames"], attend)
     tokens = batch["tokens"]
     dt = cdtype(cfg)
     s = tokens.shape[1]
-    x = params["embed"].to(dt)[tokens.long()] + \
+    vpad = cfg.padded_vocab()
+    x = vocab_embed(params["embed"], tokens, dt, vpad) + \
         params["pos_embed"][:s].to(dt)[None]
-    for p in unstacked_layers(params["dec_layers"], cfg.n_layers):
+    x = parallel.constrain(x, "batch", None, None)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(p, x):
         h = apply_norm(cfg, p["ln1"], x)
         x = x + _mha(cfg, p["self_attn"], h, h, True, attend)
         h = apply_norm(cfg, p["ln2"], x)
         x = x + _mha(cfg, p["cross_attn"], h, enc, False, attend)
-        x = x + _mlp(p["mlp"], apply_norm(cfg, p["ln3"], x))
+        return x + _mlp(p["mlp"], apply_norm(cfg, p["ln3"], x)), zero
+
+    x, _ = run_layers(layer, x, unstacked_layers(params["dec_layers"],
+                                                 cfg.n_layers))
     h = apply_norm(cfg, params["final_norm"], x)
-    return (h @ params["embed"].to(h.dtype).T, h,
+    logits = parallel.constrain(vocab_logits(h, params["embed"].T, vpad),
+                                "batch", None, "vocab")
+    return (logits, h,
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 

@@ -17,6 +17,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch import parallel
+
 
 class AdamState(NamedTuple):
     step: int
@@ -39,9 +41,22 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, specs=None) -> torch.Tensor:
+    """The l2 norm over every leaf.  Under a ``ParallelContext`` with the
+    leaves' ``specs`` (this rank's shards of sharded gradients), each
+    logical element counts once: a leaf's squares are summed over the mesh
+    axes it is sharded on and not over those it is replicated on."""
+    ctx = parallel.current_ctx()
+    if specs is None or ctx is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree_leaves(tree)))
+    by_axes: Dict[tuple, torch.Tensor] = {}
+    for x, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+        axes = tuple(a for e in spec for a in parallel.axis_names(e))
+        sq = torch.sum(torch.square(x.float()))
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    return torch.sqrt(sum(parallel.all_reduce_(v, axes)
+                          for axes, v in by_axes.items()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,10 +74,13 @@ class Adam:
         return AdamState(0, z(), z())
 
     @torch.no_grad()
-    def update(self, grads, state: AdamState, params=None):
+    def update(self, grads, state: AdamState, params=None, specs=None):
+        """``specs``: the leaves' specs when ``grads`` are this rank's
+        shards under a ``ParallelContext`` (the clip's norm is then the
+        whole gradient's; the moments are shards like their leaves)."""
         grads = tree_map(lambda g: g.float(), grads)
         if self.clip_norm is not None:
-            gn = global_norm(grads)
+            gn = global_norm(grads, specs)
             scale = torch.clamp(self.clip_norm / torch.clamp(gn, min=1e-9),
                                 max=1.0)
             grads = tree_map(lambda g: g * scale, grads)

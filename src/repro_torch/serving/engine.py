@@ -60,6 +60,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import parallel
 from repro_torch.core import probe as P
 from repro_torch.core import stopping as S
 from repro_torch.core.probe import ProbeConfig
@@ -333,9 +334,22 @@ def make_serve_step(model: Model, pc: ProbeConfig, theta, cfg: ServeConfig,
     longest accepted root path, a chain, so K4 consumes it unchanged and
     stops equal one-token decode.  Only that path's K/V lands, through
     ``model.commit_kv``.  The 4th element's ``seq`` is then (B, D + 1), the
-    path's committed tokens.  W = 1 is the linear step of k = D + 1."""
+    path's committed tokens.  W = 1 is the linear step of k = D + 1.
+
+    Under a decode ``ParallelContext`` (``launch.shardings.make_context``
+    of a decode shape), active when the step is built and when it runs,
+    the one-token step is sharded: ``params`` are this rank's shards under
+    the serve rules (tensor-parallel over ``model``), the dense cache is
+    this rank's (L, B/data, KV, S/model, d) slice, written only where the
+    rank holds the position, and ``token``, ``pos`` and the probe state
+    are its data rows (K1 on them, theta whole); the logits' vocab shards
+    are gathered for the argmax.  The chunked and speculative steps are
+    not sharded, and the recurrent and hybrid families' sharded serving
+    (their states sharded on heads and channels) is ROADMAP A9b: both
+    raise."""
     mcfg = model.cfg
     eta = float(P.inner_lr(pc, theta))
+    _check_sharded(model, spec_tokens or spec_tree)
 
     def run_chunk(params, cache, chunk):
         # prefill work first, decode after: the chunk's slots are parked,
@@ -511,10 +525,12 @@ def make_serve_step(model: Model, pc: ProbeConfig, theta, cfg: ServeConfig,
     @torch.no_grad()
     def serve_step(params, token, cache, pos, st: ProbeState, chunk=None):
         if chunk is not None:
+            _check_sharded(model, True)
             cache = run_chunk(params, cache, chunk)
         write_mask = ~st.stopped if mask_stopped_writes else None
         logits, hidden, cache = model.decode_step(mcfg, params, token, cache,
                                                   pos, write_mask=write_mask)
+        logits = _whole_vocab(mcfg, logits)
         prev_stopped = st.stopped.clone()
         st = probe_update(pc, theta, st, hidden, cfg.lam, cfg.tokens_per_step,
                           cfg.burn_in, eta)
@@ -525,6 +541,34 @@ def make_serve_step(model: Model, pc: ProbeConfig, theta, cfg: ServeConfig,
         return nxt, cache, st
 
     return serve_step
+
+
+def _check_sharded(model: Model, unsharded_work) -> None:
+    """Raise where a sharded serve step is asked for what it does not
+    do."""
+    if parallel.current_ctx() is None:
+        return
+    if model.cfg.arch_type not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(
+            f"{model.cfg.name}: sharded serving of the {model.cfg.arch_type} "
+            "family's state (heads and channels over the model axis) is "
+            "ROADMAP A9b")
+    if unsharded_work:
+        raise NotImplementedError(
+            "the sharded serve step is the one-token step: chunked prefill "
+            "and speculative decode run without a ParallelContext")
+
+
+def _whole_vocab(mcfg, logits: torch.Tensor) -> torch.Tensor:
+    """Logits over the whole padded vocab: a vocab shard (a sharded serve
+    step's) gathered over the rules' vocab axes."""
+    ctx = parallel.current_ctx()
+    if ctx is None or logits.shape[-1] == mcfg.padded_vocab():
+        return logits
+    axes = ctx.rules["vocab"]
+    for a in reversed(parallel.axis_names(axes)):
+        logits = parallel.all_gather(logits, a, -1)
+    return logits
 
 
 def prefix_len(mcfg, batch_one: Dict[str, np.ndarray],

@@ -32,8 +32,12 @@ def test_port_imports_without_jax_and_triton():
         "sys.modules['jax'] = None\n"
         "sys.modules['triton'] = None\n"
         "import repro_torch\n"
+        "names = set()\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    names.add(m.name)\n"
+        "assert {'repro_torch.parallel', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.launch.shardings'} <= names, names\n"
         "assert not any(k == 'repro' or k.startswith('repro.')\n"
         "               for k in sys.modules), 'the JAX package was imported'\n"
         "print('ok')\n")
@@ -106,6 +110,38 @@ def test_entry_point_without_cuda_raises(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[name]()
+
+
+def _mesh_entry_points():
+    from repro_torch.launch import mesh, train
+    return {
+        "init_distributed": lambda: mesh.init_distributed(),
+        "make_production_mesh": lambda: mesh.make_production_mesh(),
+        "make_test_mesh": lambda: mesh.make_test_mesh(),
+        "train --mesh single": lambda: train.main([
+            "--arch", "smollm-360m", "--reduced", "--mesh", "single"]),
+        "train --mesh multi": lambda: train.main([
+            "--arch", "smollm-360m", "--reduced", "--mesh", "multi"]),
+    }
+
+
+@pytest.mark.parametrize("name,match", [
+    ("init_distributed", "no CUDA device"),
+    ("make_production_mesh", "need 256 ranks for mesh \\(16, 16\\), have 1"),
+    ("make_test_mesh", "need 4 ranks, have 1"),
+    ("train --mesh single", "need 256 ranks for mesh \\(16, 16\\), have 1"),
+    ("train --mesh multi", "need 512 ranks for mesh \\(2, 16, 16\\), "
+                           "have 1")])
+def test_mesh_entry_point_without_cuda_or_ranks_raises(monkeypatch, name,
+                                                       match):
+    """The multi-device entry points pick no backend or device by
+    themselves: with no CUDA device the NCCL helper raises, and a mesh
+    larger than the process group raises with both sizes (the trainer's
+    ``--mesh`` before it touches a device)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(RuntimeError, match=match):
+        _mesh_entry_points()[name]()
 
 
 def _probe_state(B, f, win, device):
